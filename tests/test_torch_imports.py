@@ -1,0 +1,107 @@
+"""The port stands alone: no module of dmlc_tpu_torch (nor chip_smoke.py)
+imports JAX, flax or the JAX package, and its entry points refuse to run
+without a CUDA device unless the caller asks for the CPU."""
+
+import os
+import pkgutil
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import dmlc_tpu_torch
+from dmlc_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parent.parent
+
+_PROBE = """
+import importlib, json, pkgutil, sys
+import dmlc_tpu_torch
+names = sorted(m.name for m in pkgutil.walk_packages(dmlc_tpu_torch.__path__, "dmlc_tpu_torch."))
+for name in names:
+    importlib.import_module(name)
+forbidden = sorted(
+    m for m in sys.modules
+    if m in ("jax", "flax", "jaxlib", "dmlc_tpu")
+    or m.startswith(("jax.", "flax.", "jaxlib.", "dmlc_tpu."))
+)
+print(json.dumps({"modules": names, "forbidden": forbidden}))
+"""
+
+
+def test_port_modules_import_nothing_of_jax_or_the_jax_package():
+    import json
+
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120, check=True,
+    )
+    report = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "dmlc_tpu_torch.parallel.inference" in report["modules"]
+    assert "dmlc_tpu_torch.scheduler.worker" in report["modules"]
+    assert report["forbidden"] == []
+
+
+def _imported_roots(path: Path) -> set[str]:
+    import ast
+
+    roots = set()
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            roots.update(a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.module and node.level == 0:
+            roots.add(node.module)
+    return roots
+
+
+def _forbidden(name: str) -> bool:
+    return name in ("jax", "flax", "dmlc_tpu") or name.startswith(("jax.", "flax.", "dmlc_tpu."))
+
+
+def test_no_source_names_a_forbidden_import():
+    """Imports inside functions count too (the subprocess check above only
+    sees what module import runs)."""
+    files = sorted((REPO / "dmlc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    for path in files:
+        bad = sorted(n for n in _imported_roots(path) if _forbidden(n))
+        assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+
+
+def test_package_prefix_is_not_mistaken_for_the_jax_package():
+    assert not _forbidden("dmlc_tpu_torch") and not _forbidden("dmlc_tpu_torch.ops")
+    assert _forbidden("dmlc_tpu") and _forbidden("dmlc_tpu.ops")
+
+
+def test_every_port_module_is_walked():
+    names = {m.name for m in pkgutil.walk_packages(dmlc_tpu_torch.__path__, "dmlc_tpu_torch.")}
+    assert {"dmlc_tpu_torch.ops.kernels", "dmlc_tpu_torch.models.convert"} <= names
+
+
+def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
+    from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend
+    from dmlc_tpu_torch.utils.device import resolve_device
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: InferenceEngine("resnet18"),
+        lambda: InferenceEngine("alexnet", device="cuda"),
+        lambda: EngineBackend("resnet18", tmp_path),
+        lambda: resolve_device(None),
+    ):
+        with pytest.raises(RuntimeError, match="CUDA"):
+            make()
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
+
+
+def test_kernel_sources_are_listed_and_build_is_lazy():
+    assert _build.kernel_names() == ["normalize_u8", "softmax_top1"]
+    assert _build.library_path("normalize_u8").parent == _build.BUILD_DIR
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    with pytest.raises(FileNotFoundError):
+        _build.build(["no_such_kernel"])
