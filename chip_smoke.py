@@ -9,8 +9,9 @@ non-zero:
 1. device  — the card's name, power limit and the TF32 settings in force.
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc.
 3. kernels — each kernel against its plain PyTorch version on the card at
-   the serving shapes, with its time, its bound and the plain version's
-   time (CUDA events, median over repeated runs after a warm-up).
+   the shapes its path gives it, with its time, its bound, the plain
+   version's time and one library call's (CUDA events, median over
+   repeated runs after a warm-up).
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -35,6 +36,7 @@ import statistics
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 from pathlib import Path
 
@@ -52,6 +54,17 @@ PROB_RTOL = 1e-6
 # Rows whose top-two probability gap is at most this are not compared on
 # the serving path (bf16 logits can tie there).
 GAP = 1e-3
+# The kernels each path runs (ops/kernels.KERNELS holds every wrapper).
+PREDICT_KERNELS = ("normalize_u8", "softmax_top1")
+# Generation phase (lm_wide serving): the JAX worker's defaults.
+GEN_SLOTS, GEN_PAGE, GEN_PAGES, GEN_PREFILL = 8, 16, 128, 64
+GEN_REQUESTS, GEN_SAMPLED = 24, 4
+# Greedy steps whose top-two logit gap is at most this are counted as ties.
+TIE_GAP = 1e-4
+# Decode-bench geometry (bench.py:bench_lm_decode and its lm_bench_decode).
+BENCH_LAYERS, BENCH_HEADS, BENCH_HIDDEN, BENCH_MLP = 8, 6, 768, 3072
+BENCH_VOCAB, BENCH_MAX_LEN = 32768, 1024
+BENCH_SLOTS, BENCH_REQUESTS, BENCH_PROMPT, BENCH_NEW, BENCH_PAGE = 8, 16, 128, 128, 64
 # Published rates of the cards this runs on (NVIDIA data sheets):
 # memory bytes/s and float32 (non-tensor) FLOP/s.
 CARDS = {
@@ -135,18 +148,24 @@ def profile_call(fn, top: int = 8) -> dict:
     }
 
 
-def kernel_device_ms(fn, name: str, calls: int = 20) -> float:
+def kernel_device_ms(fn, name: str, calls: int = 20, flush: torch.Tensor | None = None) -> float:
     """Mean device time of kernel ``name`` over ``calls`` calls of ``fn``,
-    from the profiler's CUDA events (the host's call overhead excluded)."""
+    from the profiler's kernel records (the host's call overhead excluded).
+    With ``flush`` (a buffer larger than the 50 MB L2), the buffer is
+    overwritten before each call, so the kernel finds its inputs cold."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(calls):
+            if flush is not None:
+                flush.zero_()
             fn()
         torch.cuda.synchronize()
+    # The trace can drop a record (device_records); the mean is over those
+    # it kept, and too few of them fail the run.
     times = [dur for kernel, _, dur in device_records(prof) if name in kernel]
-    if len(times) != calls:
+    if not calls // 2 <= len(times) <= calls:
         raise AssertionError(f"{name}: profiler saw {len(times)} launches of {calls}")
     return statistics.fmean(times) / 1e3
 
@@ -259,11 +278,91 @@ def phase_kernels(dev: dict) -> dict:
         "bound_ms": max(nbytes / bw, ops / fp32) * 1e3,
         "bound_by": "bytes" if nbytes / bw >= ops / fp32 else "operations",
     }
-    result = {"normalize_u8": norm, "softmax_top1": soft}
+    gather = phase_kernels_gather(bw)
+    result = {"normalize_u8": norm, "softmax_top1": soft, "gather_kv_pages": gather}
     emit({"phase": "kernels",
           "normalize_u8": {str(k).replace("torch.", ""): v for k, v in norm.items()},
-          "softmax_top1": soft})
+          "softmax_top1": soft, "gather_kv_pages": gather})
     return result
+
+
+def full_cache_table(slots: int, pages_per_slot: int, usable: int, in_use: int,
+                     rng: np.random.Generator) -> np.ndarray:
+    """A page table as the engine holds it: each slot's first ``in_use``
+    entries are distinct pages drawn from the ``usable`` allocatable ones
+    (1..usable), the rest point at the scratch page 0."""
+    table = np.zeros((slots, pages_per_slot), np.int32)
+    ids = rng.permutation(np.arange(1, usable + 1))[: slots * in_use].astype(np.int32)
+    table[:, :in_use] = ids.reshape(slots, in_use)
+    return table
+
+
+def gather_timing(pool: torch.Tensor, table: np.ndarray, bw: float) -> dict:
+    """The page gather against its plain version at one shape, with its
+    times. The bound counts what this table needs: each distinct page it
+    names read once, the table read once, the output written once."""
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    ids = torch.from_numpy(table).to(pool.device)
+    got = RD.gather_kv_pages(pool, ids)
+    want = RD.gather_kv_pages_reference(pool, ids)
+    torch.cuda.synchronize()
+    if not torch.equal(got, want):
+        raise AssertionError(f"gather_kv_pages differs from its plain version at {tuple(pool.shape)}")
+    page_bytes = pool[0].numel() * pool.element_size()
+    nbytes = len(np.unique(table)) * page_bytes + table.nbytes + got.numel() * got.element_size()
+    flat = ids.reshape(-1)
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=pool.device)
+    return {
+        "pool": list(pool.shape), "table": list(table.shape), "dtype": str(pool.dtype),
+        "distinct_pages": int(len(np.unique(table))), "max_abs_err": 0.0,
+        "ms": time_ms(lambda: RD.gather_kv_pages(pool, ids)),
+        "device_ms": kernel_device_ms(lambda: RD.gather_kv_pages(pool, ids),
+                                      "gather_pages_vec16_kernel"),
+        "device_ms_cold_l2": kernel_device_ms(lambda: RD.gather_kv_pages(pool, ids),
+                                              "gather_pages_vec16_kernel", flush=flush),
+        "plain_ms": time_ms(lambda: RD.gather_kv_pages_reference(pool, ids)),
+        "library_ms": time_ms(lambda: torch.index_select(pool, 0, flat)),
+        "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
+    }
+
+
+def phase_kernels_gather(bw: float) -> dict:
+    """gather_kv_pages on the card: equal to its plain version at lm_wide's
+    serving shape and at the decode-bench shape (timed), in bf16, with
+    repeated and scratch ids, and on the byte path (a page whose length is
+    not a multiple of 16 bytes, and a pool 4 bytes off alignment)."""
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
+    wide_pool = torch.randn(GEN_PAGES, GEN_PAGE, 4, 128, device="cuda", generator=gen)
+    wide_table = full_cache_table(GEN_SLOTS, 128 // GEN_PAGE, GEN_PAGES - 1, 128 // GEN_PAGE, rng)
+    wide = gather_timing(wide_pool, wide_table, bw)
+    bench_pages = BENCH_REQUESTS * -(-(BENCH_PROMPT + BENCH_NEW + 1) // BENCH_PAGE) + BENCH_SLOTS + 1
+    bench_pool = torch.randn(bench_pages, BENCH_PAGE, BENCH_HEADS, 128, device="cuda",
+                             generator=gen)
+    in_use = -(-(BENCH_PROMPT + BENCH_NEW) // BENCH_PAGE)
+    bench_table = full_cache_table(BENCH_SLOTS, BENCH_MAX_LEN // BENCH_PAGE, bench_pages - 1,
+                                   in_use, rng)
+    bench = gather_timing(bench_pool, bench_table, bw)
+    del bench_pool
+
+    repeats = np.array([[3, 3, 0, 0, 7, 127, 0, 3]] * 2 + [[0] * 8], np.int32)
+    flat = torch.randn(7 * 3 * 1 * 3 + 1, device="cuda", generator=gen)
+    cases = [
+        (wide_pool.to(torch.bfloat16), wide_table),
+        (wide_pool.to(torch.bfloat16), repeats),
+        (wide_pool, repeats),
+        (flat[:-1].view(7, 3, 1, 3), np.array([[6, 0, 2], [2, 2, 5]], np.int32)),  # 36-byte pages
+        (flat[1:].view(7, 3, 1, 3), np.array([[1, 4, 0]], np.int32)),  # pool 4 bytes off 16
+    ]
+    for pool, table in cases:
+        ids = torch.from_numpy(table).to("cuda")
+        if not torch.equal(RD.gather_kv_pages(pool, ids), RD.gather_kv_pages_reference(pool, ids)):
+            raise AssertionError(f"gather_kv_pages differs on {pool.dtype} {tuple(pool.shape)}")
+    torch.cuda.synchronize()
+    return {"lm_wide": wide, "bench_decode": bench, "exact_cases": len(cases) + 2}
 
 
 class SeededImages:
@@ -344,7 +443,7 @@ def phase_serve(dev: dict) -> dict:
             t = time.perf_counter()
             preds = predict({"model": model, "synsets": synsets})["predictions"]
             answers.append((model, synsets, source_kind, preds, time.perf_counter() - t))
-        launches = K.launch_counts()
+        launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
         for name, count in launches.items():
             if count == 0:
                 raise AssertionError(f"{name}: no launch on the serving path")
@@ -428,6 +527,270 @@ def phase_serve(dev: dict) -> dict:
     return serve
 
 
+class LocalRpc:
+    """Stands in for the RPC fabric, which the port does not have yet:
+    ``call`` runs the worker's method on the caller's thread."""
+
+    def __init__(self, methods: dict):
+        self.methods = methods
+
+    def call(self, addr, method, payload, timeout=None):
+        return self.methods[method](dict(payload))
+
+
+class FlightNotes:
+    """Collects the slot scheduler's flight notes (slot_admit, slot_exit,
+    shed, slot_evict)."""
+
+    def __init__(self):
+        self.events: list[dict] = []
+        self._lock = threading.Lock()
+
+    def note(self, kind: str, **fields) -> None:
+        with self._lock:
+            self.events.append({"kind": kind, **fields})
+
+
+def gen_requests(vocab: int, seed: int = 0) -> list[tuple[list[int], int, float, int | None]]:
+    """(prompt, max_new_tokens, temperature, seed) for the generate phase:
+    prompts of 8-64 tokens, 16-64 new tokens, prompt + new <= 128; the last
+    GEN_SAMPLED sample at temperature 0.8 with fixed seeds. Drawn again
+    until every request's whole run fits the pool at once, so no request
+    can be shed or evicted for pages."""
+    rng = np.random.default_rng(seed)
+    while True:
+        reqs = []
+        for i in range(GEN_REQUESTS):
+            p = int(rng.integers(8, GEN_PREFILL + 1))
+            n = int(rng.integers(16, min(64, 128 - p) + 1))
+            sampled = i >= GEN_REQUESTS - GEN_SAMPLED
+            reqs.append((rng.integers(0, vocab, size=p).tolist(), n,
+                         0.8 if sampled else 0.0, 1000 + i if sampled else None))
+        if sum(-(-(len(r[0]) + r[1]) // GEN_PAGE) for r in reqs) <= GEN_PAGES - 1:
+            return reqs
+
+
+def run_clients(rpc, model: str, reqs) -> tuple[dict, dict, float]:
+    """One generate_stream client thread per request, all started together."""
+    from dmlc_tpu_torch.generate.worker import generate
+
+    results: dict[int, list[int]] = {}
+    errors: dict[int, str] = {}
+
+    def run(i: int) -> None:
+        prompt, n, temp, seed = reqs[i]
+        try:
+            results[i] = generate(rpc, "member", model, prompt, max_new_tokens=n,
+                                  temperature=temp, seed=seed, poll_interval_s=0.005)
+        except Exception as e:  # every client's failure is reported below
+            errors[i] = f"{type(e).__name__}: {e}"
+
+    threads = [threading.Thread(target=run, args=(i,), daemon=True) for i in range(len(reqs))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if any(t.is_alive() for t in threads):
+        raise AssertionError("a generate client did not finish")
+    return results, errors, wall
+
+
+def top2_gaps(model, prompt: list[int], tokens: list[int]) -> np.ndarray:
+    """Top-two logit gap at every generated position, from one
+    full-sequence forward over prompt + tokens[:-1]."""
+    seq = torch.tensor([prompt + tokens[:-1]], device=model.head.weight.device)
+    with torch.no_grad():
+        logits = model(seq)[0, len(prompt) - 1:].float()
+    top2 = logits.topk(2, dim=-1).values
+    return (top2[:, 0] - top2[:, 1]).cpu().numpy()
+
+
+def phase_generate(dev: dict) -> dict:
+    from dmlc_tpu_torch.generate.engine import GenerationEngine
+    from dmlc_tpu_torch.generate.slots import SlotScheduler
+    from dmlc_tpu_torch.generate.worker import GenerateWorker, GenerationBackend
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+
+    model_name = "lm_wide"
+    flight = FlightNotes()
+    t0 = time.perf_counter()
+    backend = GenerationBackend(model_name, max_slots=GEN_SLOTS, page_size=GEN_PAGE,
+                                num_pages=GEN_PAGES, max_prefill=GEN_PREFILL,
+                                max_waiting=GEN_REQUESTS - GEN_SLOTS, flight=flight)
+    backend.warmup()
+    build_s = time.perf_counter() - t0
+    worker = GenerateWorker({model_name: backend})
+    engine = backend._scheduler.engine
+    reqs = gen_requests(get_model(model_name).num_outputs)
+    try:
+        K.reset_launch_counts()
+        results, errors, wall = run_clients(LocalRpc(worker.methods()), model_name, reqs)
+        launches = K.launch_counts()
+        steps = engine.steps
+        stream_errors = [s.stream.error for s in worker._sessions.values()]
+        summary = backend.summary()
+    finally:
+        backend.stop()
+    if errors:
+        raise AssertionError(f"generate clients failed: {errors}")
+    if len(stream_errors) != GEN_REQUESTS or any(e is not None for e in stream_errors):
+        raise AssertionError(f"stream errors: {stream_errors}")
+    for i, (_, n, _, _) in enumerate(reqs):
+        if len(results[i]) != n or not all(0 <= t < engine.vocab for t in results[i]):
+            raise AssertionError(f"request {i}: {len(results[i])} tokens of {n}, or out of vocab")
+    want_launches = 2 * engine.num_layers * steps
+    if steps == 0 or launches["gather_kv_pages"] != want_launches:
+        raise AssertionError(f"gather_kv_pages launched {launches['gather_kv_pages']} times, "
+                             f"expected 2 x {engine.num_layers} layers x {steps} steps")
+    if summary["sheds"] or summary["evictions"]:
+        raise AssertionError(f"sheds/evictions in the generate phase: {summary}")
+
+    # The same requests on a contiguous-cache engine (no gather kernel).
+    ref = GenerationEngine(model_name, cache="contiguous", max_slots=GEN_SLOTS,
+                           max_prefill=GEN_PREFILL, variables=engine.model.state_dict())
+    sched = SlotScheduler(ref, max_waiting=GEN_REQUESTS)
+    try:
+        streams = [sched.submit(p, max_new_tokens=n, temperature=t, seed=sd)
+                   for p, n, t, sd in reqs]
+        ref_tokens = [st.result(timeout=600) for st in streams]
+    finally:
+        sched.stop()
+    greedy = [i for i, r in enumerate(reqs) if r[2] == 0.0]
+    differ = [i for i in greedy if results[i] != ref_tokens[i]]
+    gaps = np.concatenate([top2_gaps(engine.model, reqs[i][0], results[i]) for i in greedy])
+    ties = int((gaps <= TIE_GAP).sum())
+    if differ:
+        raise AssertionError(f"greedy requests {differ} differ from the contiguous engine "
+                             f"({ties} steps with a top-two gap <= {TIE_GAP})")
+    sampled = [i for i, r in enumerate(reqs) if r[2] > 0.0]
+    tokens = sum(len(r) for r in results.values())
+    report = {
+        "phase": "generate", "model": model_name, "nvidia_smi": dev["nvidia_smi"],
+        "slots": GEN_SLOTS, "page_size": GEN_PAGE, "num_pages": GEN_PAGES,
+        "max_prefill": GEN_PREFILL, "engine_build_s": build_s,
+        "requests": len(reqs), "greedy": len(greedy), "sampled": len(sampled),
+        "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "steps": steps,
+        "gather_launches": launches["gather_kv_pages"],
+        "gather_launches_per_step": 2 * engine.num_layers,
+        "admits_mid_decode": sum(e["kind"] == "slot_admit" and e["step"] > 0
+                                 for e in flight.events),
+        "step_ms_p50": summary["step_ms_p50"], "step_ms_p99": summary["step_ms_p99"],
+        "greedy_equal_contiguous": len(greedy) - len(differ),
+        "top2_gap_ties": ties, "top2_gap_min": float(gaps.min()),
+        "sampled_equal_contiguous": sum(results[i] == ref_tokens[i] for i in sampled),
+        "stream_errors": sum(e is not None for e in stream_errors),
+    }
+    emit(report)
+    return report
+
+
+def register_bench_lm() -> str:
+    """The decode-bench LM, registered under bench.py's name for it."""
+    from dmlc_tpu_torch.models.lm import TransformerLM
+    from dmlc_tpu_torch.models.registry import ModelSpec, list_models, register
+
+    name = "lm_bench_decode"
+    if name not in list_models():
+        def build(dtype=torch.float32):
+            return TransformerLM(vocab=BENCH_VOCAB, num_layers=BENCH_LAYERS,
+                                 num_heads=BENCH_HEADS, hidden=BENCH_HIDDEN,
+                                 mlp_dim=BENCH_MLP, max_len=BENCH_MAX_LEN, dtype=dtype)
+
+        register(ModelSpec(name, build, BENCH_MAX_LEN, BENCH_VOCAB, classifier=False, kind="lm"))
+    return name
+
+
+def phase_decode(dev: dict) -> dict:
+    from dmlc_tpu_torch.generate.engine import GenerationEngine
+    from dmlc_tpu_torch.generate.slots import SlotScheduler
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.utils.metrics import LatencyStats
+
+    name = register_bench_lm()
+    pages_per_req = -(-(BENCH_PROMPT + BENCH_NEW + 1) // BENCH_PAGE)
+    num_pages = BENCH_REQUESTS * pages_per_req + BENCH_SLOTS + 1
+    t0 = time.perf_counter()
+    engine = GenerationEngine(name, max_slots=BENCH_SLOTS, page_size=BENCH_PAGE,
+                              num_pages=num_pages, max_prefill=BENCH_PROMPT)
+    build_s = time.perf_counter() - t0
+    sched = SlotScheduler(engine, max_waiting=BENCH_REQUESTS)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, BENCH_VOCAB, size=BENCH_PROMPT).tolist()
+               for _ in range(BENCH_REQUESTS)]
+    try:
+        sched.submit([1] * BENCH_PROMPT, max_new_tokens=2).result(timeout=600)  # warm-up
+        sched.step_stats = LatencyStats()
+        steps0 = engine.steps
+        K.reset_launch_counts()
+        t0 = time.perf_counter()
+        streams = [sched.submit(p, max_new_tokens=BENCH_NEW) for p in prompts]
+        outs = [st.result(timeout=600) for st in streams]
+        wall = time.perf_counter() - t0
+        launches = K.launch_counts()["gather_kv_pages"]
+        steps = engine.steps - steps0
+        stats = sched.step_stats
+    finally:
+        sched.stop()
+    if any(len(o) != BENCH_NEW for o in outs):
+        raise AssertionError("a decode-bench request came back short")
+    if launches != 2 * BENCH_LAYERS * steps:
+        raise AssertionError(f"gather launched {launches} times in {steps} steps")
+
+    # One step at a representative state: 8 slots joined with the bench
+    # prompts and half their new tokens into the decode (length 192).
+    for slot in range(BENCH_SLOTS):
+        engine.join(slot, prompts[slot])
+
+    def one_step():
+        for slot in range(BENCH_SLOTS):
+            engine.ensure_capacity(slot)
+        return engine.step()
+
+    for _ in range(BENCH_NEW // 2):
+        one_step()
+    walls = []
+    for _ in range(11):
+        t = time.perf_counter()
+        one_step()
+        walls.append(time.perf_counter() - t)
+    step_wall_ms = 1e3 * statistics.median(walls)
+    for slot in range(BENCH_SLOTS):
+        engine.ensure_capacity(slot)
+    regs = torch.from_numpy(np.stack([engine.last_tokens, engine.lengths, engine.active])
+                            .astype(np.int64)).to(engine.device)
+    table = torch.from_numpy(engine.cache.page_table).to(engine.device)
+    # Back-to-back replays of the step's device work (same state, same
+    # writes): an upper bound on one step's device time.
+    device_ms = time_ms(lambda: engine._decode(regs[0], regs[1], regs[2].bool(), table),
+                        reps=11, inner=5)
+    gather_ms = time_ms(lambda: K.KERNELS["gather_kv_pages"](engine.cache.k_pages[0], table),
+                        reps=11, inner=5)
+    profile = profile_call(one_step)
+    tokens = sum(len(o) for o in outs)
+    report = {
+        "phase": "decode", "model": name, "nvidia_smi": dev["nvidia_smi"],
+        "geometry": {"layers": BENCH_LAYERS, "heads": BENCH_HEADS, "hidden": BENCH_HIDDEN,
+                     "mlp": BENCH_MLP, "vocab": BENCH_VOCAB, "max_len": BENCH_MAX_LEN},
+        "slots": BENCH_SLOTS, "requests": BENCH_REQUESTS, "prompt": BENCH_PROMPT,
+        "new_tokens": BENCH_NEW, "page_size": BENCH_PAGE, "num_pages": num_pages,
+        "engine_build_s": build_s, "tokens": tokens, "wall_s": wall,
+        "tokens_per_s": tokens / wall, "steps": steps, "gather_launches": launches,
+        "step_ms_p50": stats.percentile(50) * 1e3, "step_ms_p99": stats.percentile(99) * 1e3,
+        "one_step": {
+            "lengths": int(engine.lengths[0]), "wall_ms": step_wall_ms,
+            "device_ms_at_most": device_ms,
+            "idle_share_at_least": 1.0 - device_ms / step_wall_ms,
+            "gather_call_ms": gather_ms, "gathers": 2 * BENCH_LAYERS,
+            "profile": profile,
+        },
+    }
+    emit(report)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -440,8 +803,11 @@ def main() -> int:
     phase_build()
     kern = phase_kernels(dev)
     serve = phase_serve(dev)
+    gen = phase_generate(dev)
+    phase_decode(dev)
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]
+    gather = kern["gather_kv_pages"]["lm_wide"]
     rows = [
         {"name": "normalize_u8", "route": "cuda", "source": "dmlc_tpu_torch/csrc/normalize_u8.cu",
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:50",
@@ -462,6 +828,19 @@ def main() -> int:
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],
          "bound_by": soft["bound_by"], "library_ms": soft["library_ms"],
          "shape": [BATCH, NUM_CLASSES]},
+        {"name": "gather_kv_pages", "route": "cuda", "source": "dmlc_tpu_torch/csrc/gather_pages.cu",
+         "replaces": "dmlc_tpu/ops/ragged_decode.py:49",
+         "launches": gen["gather_launches"],
+         "max_abs_err": gather["max_abs_err"], "max_err": gather["max_abs_err"],
+         "ms": gather["ms"], "device_ms": gather["device_ms"],
+         "device_ms_cold_l2": gather["device_ms_cold_l2"],
+         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
+         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"],
+         "shape": [gather["pool"], gather["table"]],
+         "bench_decode": {k: kern["gather_kv_pages"]["bench_decode"][k]
+                          for k in ("pool", "table", "distinct_pages", "ms", "device_ms",
+                                    "device_ms_cold_l2", "plain_ms", "library_ms",
+                                    "bound_ms")}},
     ]
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})

@@ -1,1 +1,2 @@
-"""The cluster pieces the serving path needs: trace context and RPC error types."""
+"""The cluster pieces the serving paths need: trace context, deadlines,
+tenants and RPC error types."""

@@ -1,4 +1,5 @@
-"""RPC error types the member-side worker raises.
+"""RPC error types the member-side workers raise, and ``remote_error``,
+which types an error string again on the client side.
 
 Copied from ``dmlc_tpu/cluster/rpc.py``. The msgpack TCP fabric and the
 simulator around them are not part of this package yet: the worker's
@@ -10,6 +11,15 @@ from __future__ import annotations
 
 class RpcError(Exception):
     """Transport failure or remote method failure."""
+
+
+class DeadlineExceeded(RpcError):
+    """The call's propagated budget ran out (before dialing, on arrival, or
+    during method execution). Message always carries ``deadline:`` so the
+    verdict survives the fabric's error-to-string flattening."""
+
+    def __init__(self, msg: str):
+        super().__init__(msg if "deadline:" in msg else f"deadline: {msg}")
 
 
 class Overloaded(RpcError):
@@ -44,3 +54,22 @@ class DecodeError(RpcError):
 
     def __init__(self, msg: str):
         super().__init__(msg if "decode_error:" in msg else f"decode_error: {msg}")
+
+
+def remote_error(
+    msg: str,
+    retry_after_s: float | None = None,
+    tenant: str | None = None,
+    quota: str | None = None,
+) -> RpcError:
+    """Re-type a remote error string: the server flattened the exception to
+    ``ClassName: message``; the prefixes put the type back so client-side
+    retry policy keys on it. The tenant/quota verdict fields (when the
+    remote gate supplied them) re-attach to the rebuilt ``Overloaded``."""
+    if "deadline:" in msg:
+        return DeadlineExceeded(msg)
+    if "overloaded:" in msg:
+        return Overloaded(msg, retry_after_s=retry_after_s, tenant=tenant, quota=quota)
+    if "decode_error:" in msg:
+        return DecodeError(msg)
+    return RpcError(msg)

@@ -3,7 +3,8 @@
 Inverts the torchvision -> flax mappings of ``dmlc_tpu/models/convert.py``:
 flax HWIO conv kernels become OIHW weights, dense ``[in, out]`` kernels are
 transposed to ``[out, in]``, and the ``batch_stats`` collection becomes each
-BatchNorm's ``running_mean`` / ``running_var``. Inputs are the JAX
+BatchNorm's ``running_mean`` / ``running_var``. The language models' trees
+map name for name (``lm_from_jax``). Inputs are the JAX
 ``{"params", "batch_stats"}`` tree with numpy leaves (``jax.device_get``
 first); outputs are float32 state dicts named as torchvision names them.
 Nothing here imports JAX.
@@ -19,7 +20,7 @@ import torch
 
 
 def _t(a: Any) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, np.float32)))
+    return torch.tensor(np.asarray(a, np.float32))
 
 
 def conv_weight(kernel: Any) -> torch.Tensor:
@@ -87,6 +88,65 @@ def alexnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         sd[f"classifier.{idx}.weight"] = dense_weight(params[ours]["kernel"])
         sd[f"classifier.{idx}.bias"] = _t(params[ours]["bias"])
     return sd
+
+
+def _dense(sd: dict, prefix: str, leaf: Mapping) -> None:
+    sd[f"{prefix}.weight"] = dense_weight(leaf["kernel"])
+    sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+
+def _layer_norm(sd: dict, prefix: str, leaf: Mapping) -> None:
+    sd[f"{prefix}.weight"] = _t(leaf["scale"])
+    sd[f"{prefix}.bias"] = _t(leaf["bias"])
+
+
+def lm_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """SPTransformerLM variables -> this package's TransformerLM state dict:
+    dense ``[in, out]`` kernels become ``[out, in]`` weights, embedding
+    tables ``[V, D]`` stay as they are, LayerNorm ``scale`` becomes
+    ``weight``."""
+    params = variables["params"]
+    sd: dict[str, torch.Tensor] = {
+        "embed.weight": _t(params["embed"]["embedding"]),
+        "pos_embed.weight": _t(params["pos_embed"]["embedding"]),
+    }
+    for name, block in params.items():
+        if not name.startswith("block"):
+            continue
+        _layer_norm(sd, f"{name}.ln1", block["ln1"])
+        _layer_norm(sd, f"{name}.ln2", block["ln2"])
+        for proj in ("query", "key", "value", "out"):
+            _dense(sd, f"{name}.attn.{proj}", block["attn"][proj])
+        _dense(sd, f"{name}.mlp_in", block["mlp_in"])
+        _dense(sd, f"{name}.mlp_out", block["mlp_out"])
+    _layer_norm(sd, "ln_f", params["ln_f"])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def load_into(model: torch.nn.Module, model_name: str, variables: Mapping) -> None:
+    """Copy weights into ``model``'s resident tensors. ``variables`` is
+    either this package's state dict or the JAX package's ``{"params",
+    ...}`` tree (numpy leaves), carried over by ``variables_from_jax``. Keys
+    and shapes must match exactly; nothing is reallocated."""
+    if "params" in variables:
+        variables = variables_from_jax(model_name, variables)
+    current = model.state_dict()
+    missing = sorted(set(current) - set(variables))
+    extra = sorted(set(variables) - set(current))
+    if missing or extra:
+        raise ValueError(f"variables mismatch: missing {missing[:8]}, unexpected {extra[:8]}")
+    new = {k: torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
+           for k, v in variables.items()}
+    for key, cur in current.items():
+        if tuple(new[key].shape) != tuple(cur.shape):
+            raise ValueError(
+                f"shape mismatch at {key}: got {tuple(new[key].shape)}, "
+                f"model has {tuple(cur.shape)}"
+            )
+    with torch.no_grad():
+        for key, cur in current.items():
+            cur.copy_(new[key])
 
 
 def variables_from_jax(model_name: str, variables: Mapping) -> dict[str, torch.Tensor]:

@@ -45,3 +45,18 @@ def batch_norm(channels: int) -> nn.BatchNorm2d:
     torch momentum 0.1). In eval mode it normalizes with the running
     statistics in float32 and returns the input's dtype, as flax does."""
     return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm``: population variance over the last axis with
+    eps 1e-6 (flax's default, not torch's 1e-5), statistics in float32 over
+    float32 parameters, output in ``compute_dtype``."""
+
+    def __init__(self, features: int, compute_dtype: torch.dtype = torch.float32):
+        super().__init__(features, eps=1e-6)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.layer_norm(x.to(torch.float32), self.normalized_shape, self.weight, self.bias,
+                         self.eps)
+        return y.to(self.compute_dtype)

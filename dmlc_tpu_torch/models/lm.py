@@ -1,0 +1,123 @@
+"""Servable causal language models for the generation engine.
+
+Counterpart of ``dmlc_tpu/models/lm.py`` and of
+``dmlc_tpu/parallel/sp_transformer.SPTransformerLM`` with the ``"dense"``
+schedule, the one both registry LMs use. Submodules keep flax's names
+(``embed``, ``pos_embed``, ``block{i}.{ln1, attn.{query,key,value,out},
+ln2, mlp_in, mlp_out}``, ``ln_f``, ``head``), so the JAX parameter tree maps
+one to one onto the state dict (``models/convert.lm_from_jax``).
+
+flax semantics kept: LayerNorm with eps 1e-6 (``layers.LayerNorm``), the
+tanh approximation of GELU (``jax.nn.gelu``'s default), float32 parameters
+computing in the model's dtype, and attention scores in float32.
+"""
+
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from dmlc_tpu_torch.models.layers import LayerNorm, Linear
+from dmlc_tpu_torch.parallel.ring_attention import dense_attention
+
+LM_WIDE_VOCAB = 2048
+LM_WIDE_MAX_LEN = 128
+LM_WIDE_NUM_HEADS = 4
+
+LM_SMALL_VOCAB = 1024
+LM_SMALL_MAX_LEN = 256
+
+
+class SelfAttention(nn.Module):
+    """Multi-head self-attention projections (flax ``SPSelfAttention``)."""
+
+    def __init__(self, hidden: int, num_heads: int, dtype: torch.dtype):
+        super().__init__()
+        if hidden % num_heads:
+            raise ValueError(f"model dim {hidden} not divisible by {num_heads} heads")
+        self.num_heads = num_heads
+        self.query = Linear(hidden, hidden, compute_dtype=dtype)
+        self.key = Linear(hidden, hidden, compute_dtype=dtype)
+        self.value = Linear(hidden, hidden, compute_dtype=dtype)
+        self.out = Linear(hidden, hidden, compute_dtype=dtype)
+
+    def qkv(self, h: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """[..., D] -> q, k, v as [..., H, Dh]."""
+        split = (*h.shape[:-1], self.num_heads, h.shape[-1] // self.num_heads)
+        return (self.query(h).reshape(split), self.key(h).reshape(split),
+                self.value(h).reshape(split))
+
+
+class Block(nn.Module):
+    """Pre-LN block: causal attention and a position-wise MLP, both residual."""
+
+    def __init__(self, hidden: int, num_heads: int, mlp_dim: int, dtype: torch.dtype):
+        super().__init__()
+        self.ln1 = LayerNorm(hidden, compute_dtype=dtype)
+        self.attn = SelfAttention(hidden, num_heads, dtype)
+        self.ln2 = LayerNorm(hidden, compute_dtype=dtype)
+        self.mlp_in = Linear(hidden, mlp_dim, compute_dtype=dtype)
+        self.mlp_out = Linear(mlp_dim, hidden, compute_dtype=dtype)
+
+    def attend_out(self, x: torch.Tensor, att: torch.Tensor) -> torch.Tensor:
+        """Residual after attention, then the MLP residual. ``att`` is the
+        attention output [..., H, Dh] for the positions of ``x`` [..., D]."""
+        x = x + self.attn.out(att.reshape(x.shape))
+        h = F.gelu(self.mlp_in(self.ln2(x)), approximate="tanh")
+        return x + self.mlp_out(h)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, D]
+        q, k, v = self.attn.qkv(self.ln1(x))
+        att = dense_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                              causal=True).transpose(1, 2)
+        return self.attend_out(x, att)
+
+
+class TransformerLM(nn.Module):
+    """Token embed + learned positions -> N pre-LN blocks -> LayerNorm ->
+    untied head."""
+
+    def __init__(self, *, vocab: int, num_layers: int, num_heads: int, hidden: int,
+                 mlp_dim: int, max_len: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.vocab, self.num_layers, self.num_heads = vocab, num_layers, num_heads
+        self.hidden, self.mlp_dim, self.max_len, self.dtype = hidden, mlp_dim, max_len, dtype
+        self.embed = nn.Embedding(vocab, hidden)
+        self.pos_embed = nn.Embedding(max_len, hidden)
+        for i in range(num_layers):
+            self.add_module(f"block{i}", Block(hidden, num_heads, mlp_dim, dtype))
+        self.ln_f = LayerNorm(hidden, compute_dtype=dtype)
+        self.head = Linear(hidden, vocab, compute_dtype=dtype)
+
+    def blocks(self) -> list[Block]:
+        return [getattr(self, f"block{i}") for i in range(self.num_layers)]
+
+    def embed_at(self, tokens: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        """Token plus position embedding, in the compute dtype."""
+        return (self.embed(tokens) + self.pos_embed(positions)).to(self.dtype)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:  # [B, S] -> [B, S, V]
+        b, s = tokens.shape
+        if s > self.max_len:
+            # An embedding lookup past the table would fail or, on some
+            # paths, clamp silently: refuse, as the JAX module does.
+            raise ValueError(f"sequence length {s} exceeds max_len {self.max_len}")
+        x = self.embed_at(tokens, torch.arange(s, device=tokens.device)[None, :])
+        for blk in self.blocks():
+            x = blk(x)
+        return self.head(self.ln_f(x))
+
+
+def lm_wide(dtype: torch.dtype = torch.float32) -> TransformerLM:
+    """4 heads x 128 = 512 hidden, 2 layers, MLP 1024, vocab 2048, max_len
+    128 (``dmlc_tpu/models/lm.py:lm_wide``)."""
+    return TransformerLM(vocab=LM_WIDE_VOCAB, num_layers=2, num_heads=LM_WIDE_NUM_HEADS,
+                         hidden=512, mlp_dim=1024, max_len=LM_WIDE_MAX_LEN, dtype=dtype)
+
+
+def lm_small(dtype: torch.dtype = torch.float32) -> TransformerLM:
+    """2 heads x 64 = 128 hidden, 2 layers, MLP 256, vocab 1024, max_len 256
+    (``dmlc_tpu/models/lm.py:lm_small``)."""
+    return TransformerLM(vocab=LM_SMALL_VOCAB, num_layers=2, num_heads=2, hidden=128,
+                         mlp_dim=256, max_len=LM_SMALL_MAX_LEN, dtype=dtype)

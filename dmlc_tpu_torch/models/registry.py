@@ -2,9 +2,11 @@
 
 Port of ``dmlc_tpu/models/registry.py`` for the image classifiers of the
 serving path: the reference's two jobs, ``resnet18`` and ``alexnet``, plus
-``resnet34`` and ``resnet50``. Models are looked up by name together with
-their input geometry, so the worker, the engine and the smoke script agree
-on model identity by string name.
+``resnet34`` and ``resnet50``; and for the generation path's language
+models ``lm_small`` and ``lm_wide`` (``kind="lm"``: ``input_size`` carries
+max_len and ``num_outputs`` the vocab). Models are looked up by name
+together with their input geometry, so the workers, the engines and the
+smoke script agree on model identity by string name.
 """
 
 from __future__ import annotations
@@ -17,7 +19,15 @@ import torch
 from torch import nn
 
 from dmlc_tpu_torch.models.alexnet import alexnet
-from dmlc_tpu_torch.models.convert import alexnet_from_jax, resnet_from_jax
+from dmlc_tpu_torch.models.convert import alexnet_from_jax, lm_from_jax, resnet_from_jax
+from dmlc_tpu_torch.models.lm import (
+    LM_SMALL_MAX_LEN,
+    LM_SMALL_VOCAB,
+    LM_WIDE_MAX_LEN,
+    LM_WIDE_VOCAB,
+    lm_small,
+    lm_wide,
+)
 from dmlc_tpu_torch.models.resnet import resnet18, resnet34, resnet50
 
 #: Images in the seeded batch that calibrates BatchNorm statistics.
@@ -31,10 +41,10 @@ _LOGIT_SPREAD = 4.0
 class ModelSpec:
     name: str
     build: Callable[..., nn.Module]    # (num_classes=..., dtype=...) -> nn.Module
-    input_size: int                    # square image side
-    num_outputs: int                   # classes / embedding dim
+    input_size: int                    # square image side; max_len for kind="lm"
+    num_outputs: int                   # classes / embedding dim; vocab for "lm"
     classifier: bool = True            # False => embedding model (no top-1)
-    kind: str = "image"
+    kind: str = "image"                # "image" | "lm" (autoregressive decode)
     # JAX variables tree -> this package's state dict (models/convert.py).
     from_jax: Callable[[Mapping], dict[str, torch.Tensor]] | None = None
 
@@ -53,7 +63,14 @@ class ModelSpec:
         ``_LOGIT_SPREAD``.
         Without the calibration, a random network answers one class for
         nearly every input, because the positive mean of its ReLU features
-        dominates the logits."""
+        dominates the logits.
+
+        A language model (``kind="lm"``) is drawn as flax initialises it:
+        LeCun-normal dense weights (std 1/sqrt(fan_in)), zero biases, unit
+        LayerNorm scale, embedding tables with std 1/sqrt(hidden); nothing
+        is calibrated."""
+        if self.kind == "lm":
+            return self._init_lm(seed, dtype)
         model = self.module(dtype=torch.float32).eval()
         gen = torch.Generator().manual_seed(int(seed))
         bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
@@ -84,10 +101,25 @@ class ModelSpec:
         out.load_state_dict(model.state_dict())
         return out.eval()
 
+    def _init_lm(self, seed: int, dtype: torch.dtype) -> nn.Module:
+        model = self.module(dtype=dtype).eval()
+        gen = torch.Generator().manual_seed(int(seed))
+        with torch.no_grad():
+            for mod in model.modules():
+                if isinstance(mod, nn.Linear):
+                    mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=gen)
+                    mod.bias.zero_()
+                elif isinstance(mod, nn.Embedding):
+                    mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim), generator=gen)
+                elif isinstance(mod, nn.LayerNorm):
+                    mod.reset_parameters()
+        return model
+
     def flops_per_item(self) -> float | None:
-        """Analytic forward FLOPs for one image (a multiply-accumulate is 2
-        FLOPs; elementwise, norm and pool terms are omitted). None for
-        models without a formula."""
+        """Analytic forward FLOPs for one item: an image, or one generated
+        token (a decode step at max_len context) for ``kind="lm"`` (a
+        multiply-accumulate is 2 FLOPs; elementwise, norm and pool terms are
+        omitted). None for models without a formula."""
         fn = _FLOPS_PER_ITEM.get(self.name)
         return float(fn()) if fn is not None else None
 
@@ -145,11 +177,26 @@ def _alexnet_flops(num_classes: int = 1000, image: int = 224) -> float:
     return fl + 2.0 * (flat * 4096 + 4096 * 4096 + 4096 * num_classes)
 
 
+def _lm_decode_flops(vocab: int, layers: int, hidden: int, mlp: int,
+                     context: int) -> float:
+    """One decode step (one generated token) at ``context`` resident
+    tokens: per-layer q/k/v/out projections + paged-KV attention + MLP,
+    plus the vocab head. The embedding lookup is a gather (no MACs)."""
+    per_layer = (
+        8.0 * hidden * hidden              # q, k, v, out projections
+        + 4.0 * context * hidden           # scores + mix against the KV pages
+        + 4.0 * hidden * mlp               # MLP in + out
+    )
+    return layers * per_layer + 2.0 * hidden * vocab
+
+
 _FLOPS_PER_ITEM: dict[str, Callable[[], float]] = {
     "resnet18": lambda: _resnet_flops((2, 2, 2, 2), False),
     "resnet34": lambda: _resnet_flops((3, 4, 6, 3), False),
     "resnet50": lambda: _resnet_flops((3, 4, 6, 3), True),
     "alexnet": lambda: _alexnet_flops(),
+    "lm_small": lambda: _lm_decode_flops(LM_SMALL_VOCAB, 2, 128, 256, LM_SMALL_MAX_LEN),
+    "lm_wide": lambda: _lm_decode_flops(LM_WIDE_VOCAB, 2, 512, 1024, LM_WIDE_MAX_LEN),
 }
 
 
@@ -179,5 +226,9 @@ for _s in [
     _spec("resnet34", resnet34, resnet_from_jax),
     _spec("resnet50", resnet50, resnet_from_jax),
     _spec("alexnet", alexnet, alexnet_from_jax),
+    ModelSpec("lm_small", lm_small, LM_SMALL_MAX_LEN, LM_SMALL_VOCAB, classifier=False,
+              kind="lm", from_jax=lm_from_jax),
+    ModelSpec("lm_wide", lm_wide, LM_WIDE_MAX_LEN, LM_WIDE_VOCAB, classifier=False,
+              kind="lm", from_jax=lm_from_jax),
 ]:
     register(_s)

@@ -1,4 +1,5 @@
-"""The serving path's two hand-written CUDA kernels, with their plain versions.
+"""The predict path's two hand-written CUDA kernels, with their plain versions,
+and the launch counts of every kernel wrapper in the package.
 
 Counterpart of ``dmlc_tpu/ops/pallas_kernels.py`` for the kernels on the
 ``job.predict`` path:
@@ -12,7 +13,9 @@ Each wrapper checks its inputs, then runs the plain PyTorch version
 (``*_reference``) when the tensor lies on the CPU and launches its kernel
 when it lies on a CUDA device. A failed build or launch raises; there is no
 fallback from the kernel to the plain version. Each wrapper counts its
-kernel launches in its ``launches`` attribute.
+kernel launches in its ``launches`` attribute; ``KERNELS`` lists every
+wrapper of the package (``ops/ragged_decode.py`` adds the page gather when
+the ``ops`` package is imported), so one reset and one read cover them all.
 """
 
 from __future__ import annotations
@@ -42,6 +45,11 @@ _SIGNATURES = {
         "dmlc_softmax_top1",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
          ctypes.c_void_p, ctypes.c_void_p],
+    ),
+    "gather_pages": (
+        "dmlc_gather_pages",
+        [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
+         ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     ),
 }
 
@@ -204,7 +212,8 @@ def softmax_top1(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 softmax_top1.launches = 0  # type: ignore[attr-defined]
 
 
-#: The wrappers whose ``launches`` a run can read and reset.
+#: The wrappers whose ``launches`` a run can read and reset (the page gather
+#: registers itself from ``ops/ragged_decode.py``).
 KERNELS = {"normalize_u8": normalize_u8, "softmax_top1": softmax_top1}
 
 

@@ -1,1 +1,1 @@
-"""Parallel execution: the batched inference engine."""
+"""Parallel execution: the batched inference engine and single-device attention."""

@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from dmlc_tpu_torch.models import get_model
-from dmlc_tpu_torch.models.convert import variables_from_jax
+from dmlc_tpu_torch.models.convert import load_into
 from dmlc_tpu_torch.ops import kernels
 from dmlc_tpu_torch.ops import preprocess as pp
 from dmlc_tpu_torch.utils.device import resolve_device
@@ -154,24 +154,7 @@ class InferenceEngine:
         (numpy leaves), which is carried over by ``variables_from_jax``. Keys
         and shapes must match the model's exactly; the values are copied
         into the resident tensors, so nothing is reallocated."""
-        if "params" in variables:
-            variables = variables_from_jax(self.spec.name, variables)
-        current = self.model.state_dict()
-        missing = sorted(set(current) - set(variables))
-        extra = sorted(set(variables) - set(current))
-        if missing or extra:
-            raise ValueError(f"variables mismatch: missing {missing[:8]}, unexpected {extra[:8]}")
-        new = {k: torch.as_tensor(np.asarray(v)) if not isinstance(v, torch.Tensor) else v
-               for k, v in variables.items()}
-        for key, cur in current.items():
-            if tuple(new[key].shape) != tuple(cur.shape):
-                raise ValueError(
-                    f"shape mismatch at {key}: got {tuple(new[key].shape)}, "
-                    f"model has {tuple(cur.shape)}"
-                )
-        with torch.no_grad():
-            for key, cur in current.items():
-                cur.copy_(new[key])
+        load_into(self.model, self.spec.name, variables)
 
     def warmup(self) -> float:
         """First run with a zero batch made on the device (builds the

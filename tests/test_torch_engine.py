@@ -157,10 +157,11 @@ def test_run_batch_rejects_empty_and_oversize():
         engine.run_paths_stream([])
 
 
-def test_engine_refuses_embedding_models():
-    if "tinyembed_torch" not in t_registry.list_models():
-        t_registry.register(t_registry.ModelSpec(
-            "tinyembed_torch", TorchTinyNet, SIZE, 16, classifier=False))
+def test_engine_refuses_embedding_models(monkeypatch):
+    # Registered for this test only: the JAX registry has no such model, and
+    # test_torch_models.py holds the two registries' entries against each other.
+    monkeypatch.setitem(t_registry._REGISTRY, "tinyembed_torch", t_registry.ModelSpec(
+        "tinyembed_torch", TorchTinyNet, SIZE, 16, classifier=False))
     with pytest.raises(ValueError, match="embedding"):
         InferenceEngine("tinyembed_torch", device="cpu", batch_size=BATCH)
 

@@ -42,6 +42,10 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
     report = json.loads(out.stdout.strip().splitlines()[-1])
     assert "dmlc_tpu_torch.parallel.inference" in report["modules"]
     assert "dmlc_tpu_torch.scheduler.worker" in report["modules"]
+    for name in ("generate.kvcache", "generate.engine", "generate.slots", "generate.worker",
+                 "ops.ragged_decode", "models.lm", "parallel.ring_attention",
+                 "cluster.deadline", "cluster.tenant"):
+        assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
 
@@ -100,7 +104,7 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_are_listed_and_build_is_lazy():
-    assert _build.kernel_names() == ["normalize_u8", "softmax_top1"]
+    assert _build.kernel_names() == ["gather_pages", "normalize_u8", "softmax_top1"]
     assert _build.library_path("normalize_u8").parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(FileNotFoundError):
