@@ -22,7 +22,16 @@ non-zero:
    which bound the device's idle share of run_batch and of one request
    from below; one traced run_batch per model and one traced request give
    the device time by kernel (torch.profiler).
-5. the card's name and power limit as nvidia-smi prints them, the kernels
+5. generate — job.generate for lm_wide through GenerateWorker to 24
+   clients; decode — the decode-bench geometry through SlotScheduler.
+6. train — the causal LM of bench.py's train leg (8 layers, hidden 768,
+   6 heads x 128, vocab 32768, S 2048, batch 8, bf16 compute, AdamW 3e-4)
+   through the flash kernels: the first step against the dense schedule,
+   then 10 timed steps (launch counts, falling loss, tokens/s, step p50,
+   6ND MFU, one traced step's device time by kernel, idle share).
+7. trainer — ResNet-18 through TrainingDriver with local checkpoints,
+   restored by a second TrainingDriver.
+8. the card's name and power limit as nvidia-smi prints them, the kernels
    line, and the final {"ok": true, ...} line.
 
 It needs one CUDA device and exits non-zero, printing no result, without
@@ -65,14 +74,59 @@ TIE_GAP = 1e-4
 BENCH_LAYERS, BENCH_HEADS, BENCH_HIDDEN, BENCH_MLP = 8, 6, 768, 3072
 BENCH_VOCAB, BENCH_MAX_LEN = 32768, 1024
 BENCH_SLOTS, BENCH_REQUESTS, BENCH_PROMPT, BENCH_NEW, BENCH_PAGE = 8, 16, 128, 128, 64
+# LM train leg (bench.py:957-1019): vocab 32768, 8 layers, 6 heads x 128,
+# hidden 768, MLP 3072, S = max_len = 2048, batch 8, AdamW at 3e-4.
+TRAIN_VOCAB, TRAIN_LAYERS, TRAIN_HEADS, TRAIN_HIDDEN, TRAIN_MLP = 32768, 8, 6, 768, 3072
+TRAIN_S, TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 2048, 8, 3e-4, 10
+TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_HEADS, TRAIN_S, TRAIN_HIDDEN // TRAIN_HEADS)
+# The flash forward past the JAX package's K/V-resident limit (its
+# streamed schedule): bf16, Dh 128, S 16384.
+STREAM_SHAPE = (1, 6, 16384, 128)
+# Flash kernels against their plain versions, for each of out, dq, dk and
+# dv: the relative L2 error ||got - want|| / ||want|| over the tensor, and
+# the largest relative L2 error of one row (one query's out or dq, one
+# key's dk or dv) over that row's own norm. The row measure holds late rows
+# and tiles, whose values are small beside the first rows', to the same
+# limit. A row's norm is floored at ROW_FLOOR times the tensor's median row
+# norm: a row whose exact value is zero (dq of a causal head's first query,
+# which sees only its own key, so dS = p * (dP - delta) = 0) holds rounding
+# noise alone. float32 sums in another order; bf16 rounds P and dS to bf16
+# before their products and the outputs to bf16. Readings over the ten
+# checks of flash_checks on an H100 run: bf16 at most 2.68e-3 over a tensor
+# and 5.15e-3 over a row, float32 1.55e-6 and 3.39e-6; skipping one late
+# tile (dmlc_tpu_torch/tools/flash_fault_check.py) gives about 1e-2 over
+# the tensor and 0.6-1.0 over a row.
+FLASH_REL_L2 = {torch.float32: 2e-5, torch.bfloat16: 4e-3}
+FLASH_ROW_REL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
+ROW_FLOOR = 1e-2
+LSE_TOL = 1e-4  # absolute; lse sums float32 p in both dtypes
+# First train step, flash schedule against dense on the same params and
+# batch: |loss difference| and per-tensor relative L2 gradient difference.
+# Both run bf16 products; they differ in where bf16 rounds (dense rounds
+# its attention output once, flash its P and dS tiles). The key
+# projection's bias is left out of the relative bound: its exact gradient
+# is zero (it adds the same q.b to every score of a query row, which the
+# softmax ignores), so both schedules give rounding noise there and their
+# ratio means nothing (41 on an H100 run); its norms are reported. The
+# query and key projections get their gradient only through dS, which
+# flash rounds to bf16 before the dq and dk products while dense keeps it
+# in float32; with sum_k dS = 0 on every row those gradients are
+# differences of nearly equal terms and the rounding weighs more (on an
+# H100 run: 1.3% at block 0 rising to 4.0% at block 7, every other tensor
+# at most 1.2%). They are held to DS_GRAD_REL_L2.
+DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2 = 1e-2, 2e-2, 5e-2
+ZERO_GRAD_SUFFIX = "attn.key.bias"
+DS_GRAD_SUFFIXES = ("attn.query.weight", "attn.query.bias", "attn.key.weight")
+# ResNet-18 through TrainingDriver: batch, steps, checkpoint interval.
+TRAINER_BATCH, TRAINER_STEPS, TRAINER_EVERY = 32, 3, 2
 # Published rates of the cards this runs on (NVIDIA data sheets):
-# memory bytes/s and float32 (non-tensor) FLOP/s.
+# memory bytes/s, float32 (non-tensor) FLOP/s, bf16 dense tensor FLOP/s.
 CARDS = {
-    "H100 80GB HBM3": (3.35e12, 67e12),   # H100 SXM
-    "H100 SXM": (3.35e12, 67e12),
-    "H100 PCIe": (2.0e12, 51e12),
-    "H100 NVL": (3.9e12, 60e12),
-    "H200": (4.8e12, 67e12),
+    "H100 80GB HBM3": (3.35e12, 67e12, 989e12),   # H100 SXM
+    "H100 SXM": (3.35e12, 67e12, 989e12),
+    "H100 PCIe": (2.0e12, 51e12, 756e12),
+    "H100 NVL": (3.9e12, 60e12, 835e12),
+    "H200": (4.8e12, 67e12, 989e12),
 }
 
 
@@ -80,7 +134,7 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
-def card_rates(name: str) -> tuple[float, float]:
+def card_rates(name: str) -> tuple[float, float, float]:
     for key, rates in CARDS.items():
         if key in name:
             return rates
@@ -108,10 +162,12 @@ def time_ms(fn, reps: int = 21, inner: int = 20) -> float:
 def device_records(prof) -> list[tuple[str, float, float]]:
     """(name, start us, duration us) of every device record of a finished
     torch.profiler run, from Kineto's raw results: the FunctionEvent view
-    drops some of them (a pageable host-to-device copy, for one)."""
+    drops some of them (a pageable host-to-device copy, for one). Ranges a
+    ``record_function`` marks on the device timeline (``Optimizer.step``)
+    span other records and are left out."""
     return [(k.name(), k.start_ns() / 1e3, k.duration_ns() / 1e3)
             for k in prof.profiler.kineto_results.events()
-            if k.device_type() == torch.autograd.DeviceType.CUDA]
+            if k.device_type() == torch.autograd.DeviceType.CUDA and not k.is_user_annotation()]
 
 
 def profile_call(fn, top: int = 8) -> dict:
@@ -183,12 +239,12 @@ def phase_device() -> dict:
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
     name = torch.cuda.get_device_name(0)
-    bw, fp32 = card_rates(name)
+    bw, fp32, bf16 = card_rates(name)
     info = {
         "phase": "device", "kind": name, "count": torch.cuda.device_count(),
         "nvidia_smi": smi, "torch": torch.__version__, "cuda": torch.version.cuda,
         "allow_tf32": {"cudnn": False, "matmul": False},
-        "mem_bytes_per_s": bw, "fp32_flops_per_s": fp32,
+        "mem_bytes_per_s": bw, "fp32_flops_per_s": fp32, "bf16_flops_per_s": bf16,
     }
     emit(info)
     return info
@@ -279,10 +335,11 @@ def phase_kernels(dev: dict) -> dict:
         "bound_by": "bytes" if nbytes / bw >= ops / fp32 else "operations",
     }
     gather = phase_kernels_gather(bw)
-    result = {"normalize_u8": norm, "softmax_top1": soft, "gather_kv_pages": gather}
+    flash = phase_kernels_flash(dev)
+    result = {"normalize_u8": norm, "softmax_top1": soft, "gather_kv_pages": gather, **flash}
     emit({"phase": "kernels",
           "normalize_u8": {str(k).replace("torch.", ""): v for k, v in norm.items()},
-          "softmax_top1": soft, "gather_kv_pages": gather})
+          "softmax_top1": soft, "gather_kv_pages": gather, **flash})
     return result
 
 
@@ -363,6 +420,184 @@ def phase_kernels_gather(bw: float) -> dict:
             raise AssertionError(f"gather_kv_pages differs on {pool.dtype} {tuple(pool.shape)}")
     torch.cuda.synchronize()
     return {"lm_wide": wide, "bench_decode": bench, "exact_cases": len(cases) + 2}
+
+
+def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    return float((got.float() - want.float()).abs().max())
+
+
+def l2_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
+    """The relative L2 error over the whole tensor and the largest one over
+    a row (the last axis; the row's norm floored at ROW_FLOOR times the
+    median row norm), with that row's index."""
+    diff, w = got.float() - want.float(), want.float()
+    norms = w.norm(dim=-1)
+    rows = diff.norm(dim=-1) / norms.clamp_min(max(ROW_FLOOR * float(norms.median()), 1e-30))
+    worst = np.unravel_index(int(rows.argmax()), tuple(rows.shape))
+    return {"rel_l2": float(diff.norm() / w.norm().clamp_min(1e-30)),
+            "row_rel_max": float(rows.max()), "worst_row": [int(i) for i in worst]}
+
+
+def flash_operands(shape, dtype: torch.dtype, seed: int) -> list[torch.Tensor]:
+    """q, k, v, dO as [B*H, S, Dh] on the card, N(0, 1) from ``seed``."""
+    b, h, s, dh = shape
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(b * h, s, dh, device="cuda", generator=gen).to(dtype) for _ in range(4)]
+
+
+def flash_check(shape, dtype: torch.dtype, causal: bool, seed: int = 0) -> dict:
+    """The three flash kernels against their plain versions on one input:
+    the forward's out and lse, then dq and dkv against the kernel's own
+    lse and delta = rowsum(dO * out). Raises past FLASH_REL_L2,
+    FLASH_ROW_REL or LSE_TOL."""
+    from dmlc_tpu_torch.ops import flash as FL
+
+    q, k, v, do = flash_operands(shape, dtype, seed)
+    kw = {"causal": causal, "scale": shape[3] ** -0.5}
+    out, lse = FL.flash_forward(q, k, v, **kw)
+    want_out, want_lse = FL.flash_forward_reference(q, k, v, **kw)
+    delta = (out.float() * do.float()).sum(-1, keepdim=True)
+    dq = FL.flash_bwd_dq(q, k, v, do, lse, delta, **kw)
+    dk, dv = FL.flash_bwd_dkv(q, k, v, do, lse, delta, **kw)
+    want_dq = FL.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = FL.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    torch.cuda.synchronize()
+    report = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+              "lse_max_abs_err": float((lse - want_lse).abs().max())}
+    for name, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
+                            ("dv", dv, want_dv)):
+        if got.dtype != want.dtype or not torch.isfinite(got).all():
+            raise AssertionError(f"flash {name} {shape} {dtype}: dtype {got.dtype} or non-finite")
+        report[name] = {"max_abs_err": max_abs_err(got, want), **l2_errors(got, want)}
+        r = report[name]
+        if r["rel_l2"] > FLASH_REL_L2[dtype] or r["row_rel_max"] > FLASH_ROW_REL[dtype]:
+            raise AssertionError(
+                f"flash {name} {shape} {dtype} causal={causal}: relative L2 {r['rel_l2']} "
+                f"(limit {FLASH_REL_L2[dtype]}), worst row {r['worst_row']} "
+                f"{r['row_rel_max']} (limit {FLASH_ROW_REL[dtype]})")
+    if report["lse_max_abs_err"] > LSE_TOL:
+        raise AssertionError(f"flash lse {shape} {dtype}: {report['lse_max_abs_err']} > {LSE_TOL}")
+    return report
+
+
+def flash_checks() -> list[dict]:
+    """Every flash kernel against its plain version: the train shape in
+    both dtypes, and ragged lengths (193, 1000), causal and not, where the
+    kernels mask a partial tile."""
+    cases = [(TRAIN_SHAPE, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    for dt in (torch.bfloat16, torch.float32):
+        for causal in (False, True):
+            cases += [((2, 3, 193, 128), dt, causal), ((1, 2, 1000, 128), dt, causal)]
+    return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
+
+
+def flash_flops(shape, products: int, causal: bool = True) -> float:
+    """2 FLOPs per multiply-add over the [S, S] score tiles, half of them
+    when causal: ``products`` * 2 * BH * S^2 * Dh (/ 2)."""
+    b, h, s, dh = shape
+    return products * 2.0 * b * h * s * s * dh / (2 if causal else 1)
+
+
+def flash_bound(dev: dict, shape, dtype: torch.dtype, products: int, nbytes: int) -> tuple:
+    peak = dev["bf16_flops_per_s"] if dtype == torch.bfloat16 else dev["fp32_flops_per_s"]
+    t_ops, t_bytes = flash_flops(shape, products) / peak, nbytes / dev["mem_bytes_per_s"]
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) -> dict:
+    """flash_forward at ``shape`` (causal): call and device time, bound,
+    plain version, and F.scaled_dot_product_attention(is_causal=True) on
+    the same q, k, v as the library's yardstick (never called by the
+    port)."""
+    import torch.nn.functional as F
+    from dmlc_tpu_torch.ops import flash as FL
+
+    b, h, s, dh = shape
+    q, k, v, _ = flash_operands(shape, dtype, seed=11)
+    kw = {"causal": True, "scale": dh ** -0.5}
+    q4, k4, v4 = (x.view(b, h, s, dh) for x in (q, k, v))
+    out, _ = FL.flash_forward(q, k, v, **kw)
+    lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    item = q.element_size()
+    nbytes = 4 * q.numel() * item + b * h * s * 4  # q, k, v in; out, lse out
+    bound_ms, bound_by = flash_bound(dev, shape, dtype, 2, nbytes)
+    return {
+        "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+        "max_abs_err": max_abs_err(out, FL.flash_forward_reference(q, k, v, **kw)[0]),
+        "library_max_abs_err": max_abs_err(lib.reshape(out.shape), out),
+        "ms": time_ms(lambda: FL.flash_forward(q, k, v, **kw), reps=11, inner=5),
+        "device_ms": kernel_device_ms(lambda: FL.flash_forward(q, k, v, **kw),
+                                      "flash_fwd_kernel", calls=10),
+        "plain_ms": time_ms(lambda: FL.flash_forward_reference(q, k, v, **kw),
+                            reps=plain_reps, inner=1),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
+                              reps=11, inner=5),
+        "bound_ms": bound_ms, "bound_by": bound_by,
+    }
+
+
+def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
+    """flash_bwd_dq and flash_bwd_dkv at ``shape`` (causal), each with call
+    and device time, bound and plain time; the library yardstick is the
+    autograd backward of F.scaled_dot_product_attention(is_causal=True),
+    which computes dq, dk and dv together."""
+    import torch.nn.functional as F
+    from dmlc_tpu_torch.ops import flash as FL
+
+    b, h, s, dh = shape
+    q, k, v, do = flash_operands(shape, dtype, seed=12)
+    kw = {"causal": True, "scale": dh ** -0.5}
+    out, lse = FL.flash_forward(q, k, v, **kw)
+    delta = (out.float() * do.float()).sum(-1, keepdim=True)
+    q4, k4, v4 = (x.view(b, h, s, dh).detach().requires_grad_() for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
+    g4 = do.view(b, h, s, dh)
+    library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True),
+                         reps=11, inner=5)
+    item = q.element_size()
+    rows = b * h * s * 4 * 2  # lse and delta
+    report = {}
+    for name, fn, ref, kernel, products, outs in (
+        ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, "flash_bwd_dq_kernel", 3, 1),
+        ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, "flash_bwd_dkv_kernel",
+         4, 2),
+    ):
+        args = (q, k, v, do, lse, delta)
+        got, want = fn(*args, **kw), ref(*args, **kw)
+        got = got if isinstance(got, tuple) else (got,)
+        want = want if isinstance(want, tuple) else (want,)
+        nbytes = (4 + outs) * q.numel() * item + rows
+        bound_ms, bound_by = flash_bound(dev, shape, dtype, products, nbytes)
+        report[name] = {
+            "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+            "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
+            "ms": time_ms(lambda fn=fn: fn(*args, **kw), reps=11, inner=5),
+            "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw), kernel, calls=10),
+            "plain_ms": time_ms(lambda ref=ref: ref(*args, **kw), reps=5, inner=1),
+            "library_ms": library_ms, "library_computes": "dq, dk and dv together",
+            "bound_ms": bound_ms, "bound_by": bound_by,
+        }
+    return report
+
+
+def phase_kernels_flash(dev: dict) -> dict:
+    """The flash kernels on the card: checked against their plain versions
+    (flash_checks), then timed at the train shape (bf16 and float32
+    forward, bf16 backward) and at the streamed-forward shape (bf16)."""
+    checks = flash_checks()
+    fwd = {
+        "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5),
+        "train_f32": flash_forward_timing(dev, TRAIN_SHAPE, torch.float32, plain_reps=5),
+        "stream_bf16": flash_forward_timing(dev, STREAM_SHAPE, torch.bfloat16, plain_reps=3),
+    }
+    for entry in fwd.values():
+        entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
+    bwd = flash_backward_timing(dev, TRAIN_SHAPE, torch.bfloat16)
+    for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
+        device_s = bwd[name]["device_ms"] * 1e-3
+        bwd[name]["tflops"] = flash_flops(TRAIN_SHAPE, products) / device_s / 1e12
+    torch.cuda.synchronize()
+    return {"checks": checks, "flash_forward": fwd, **bwd}
 
 
 class SeededImages:
@@ -791,6 +1026,232 @@ def phase_decode(dev: dict) -> dict:
     return report
 
 
+def train_lm(schedule: str):
+    """The LM train leg's model (bench.py:960-970): f32 parameters
+    computing in bf16, attention by ``schedule``."""
+    from dmlc_tpu_torch.models.lm import TransformerLM
+
+    return TransformerLM(vocab=TRAIN_VOCAB, num_layers=TRAIN_LAYERS, num_heads=TRAIN_HEADS,
+                         hidden=TRAIN_HIDDEN, mlp_dim=TRAIN_MLP, max_len=TRAIN_S,
+                         dtype=torch.bfloat16, schedule=schedule)
+
+
+def seeded_lm_weights(seed: int) -> dict:
+    """flax-style initial weights of ``train_lm`` from ``seed`` (registry
+    ModelSpec.init_params for kind="lm"), as a state dict."""
+    from dmlc_tpu_torch.models.registry import ModelSpec
+
+    spec = ModelSpec("lm_flash_train", lambda dtype: train_lm("flash"), TRAIN_S, TRAIN_VOCAB,
+                     classifier=False, kind="lm")
+    return spec.init_params(seed, dtype=torch.bfloat16).state_dict()
+
+
+def loss_and_grads(model, tokens) -> tuple[float, dict]:
+    from dmlc_tpu_torch.parallel.train import lm_loss
+
+    model.zero_grad(set_to_none=True)
+    loss = lm_loss(model, tokens)
+    loss.backward()
+    grads = {n: p.grad.float().clone() for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return float(loss.detach()), grads
+
+
+def device_classes(events) -> dict:
+    """Device ms of a traced run by kernel class: the flash kernels, the
+    matrix products (cuBLAS/CUTLASS GEMMs) and the rest."""
+    out = {"flash": 0.0, "gemm": 0.0, "other": 0.0}
+    for name, _, dur in events:
+        low = name.lower()
+        key = ("flash" if "flash_" in low
+               else "gemm" if any(t in low for t in ("gemm", "xmma", "cutlass", "cublas", "nvjet"))
+               else "other")
+        out[key] += dur / 1e3
+    return out
+
+
+def phase_train(dev: dict) -> dict:
+    """The causal LM trained through the flash kernels at full width
+    (bench.py's LM train leg): the first step against the dense schedule on
+    the same weights and batch, then 1 warm-up and TRAIN_STEPS timed
+    lm_train_step calls with launch counts, loss, tokens/s, step p50, 6ND
+    MFU, one traced step's device time by kernel and the idle share."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel.train import default_optimizer, lm_loss, lm_train_step
+
+    t0 = time.perf_counter()
+    weights = seeded_lm_weights(seed=4)
+    model = train_lm("flash")
+    model.load_state_dict(weights)
+    model.to("cuda")
+    n_params = sum(p.numel() for p in model.parameters())
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, TRAIN_VOCAB, (TRAIN_BATCH, TRAIN_S + 1), device="cuda",
+                           generator=gen)
+    build_s = time.perf_counter() - t0
+
+    # Flash against dense on the first step: same weights, same batch.
+    dense = train_lm("dense")
+    dense.load_state_dict(weights)
+    dense.to("cuda")
+    flash_loss, flash_grads = loss_and_grads(model, tokens)
+    dense_loss, dense_grads = loss_and_grads(dense, tokens)
+    del dense
+    rel = {n: float((flash_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in dense_grads.items() if not n.endswith(ZERO_GRAD_SUFFIX)}
+    worst = max(rel, key=rel.get)
+    zero_grad_norms = {
+        n: {"flash": float(flash_grads[n].norm()), "dense": float(g.norm()),
+            "query_bias_dense": float(dense_grads[n.replace("key.bias", "query.bias")].norm())}
+        for n, g in dense_grads.items() if n.endswith(ZERO_GRAD_SUFFIX)}
+    del flash_grads, dense_grads
+    torch.cuda.empty_cache()
+    over = {n: r for n, r in rel.items()
+            if r > (DS_GRAD_REL_L2 if n.endswith(DS_GRAD_SUFFIXES) else DENSE_GRAD_REL_L2)}
+    if abs(flash_loss - dense_loss) > DENSE_LOSS_TOL or over:
+        raise AssertionError(f"flash vs dense: loss {flash_loss} vs {dense_loss}, gradients "
+                             f"past their bound: {over}")
+    others = {n: r for n, r in rel.items() if not n.endswith(DS_GRAD_SUFFIXES)}
+    worst_other = max(others, key=others.get)
+
+    opt = default_optimizer(model.parameters(), lr=TRAIN_LR, weight_decay=1e-4)
+    first_loss = float(lm_train_step(model, opt, tokens))  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, walls, event_ms = [], [], []
+    for _ in range(TRAIN_STEPS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        losses.append(lm_train_step(model, opt, tokens))
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        event_ms.append(start.elapsed_time(end))
+    launches = K.launch_counts()
+    losses = [float(x) for x in losses]
+    with torch.no_grad():
+        final_loss = float(lm_loss(model, tokens))
+    want = TRAIN_LAYERS * TRAIN_STEPS
+    for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
+        if launches[name] != want:
+            raise AssertionError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
+                                 f"steps, expected {want}")
+    if not all(np.isfinite(losses + [final_loss])) or not final_loss < first_loss:
+        raise AssertionError(f"loss not finite or not falling: {first_loss} -> {losses} "
+                             f"-> {final_loss}")
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lm_train_step(model, opt, tokens)
+        torch.cuda.synchronize()
+    events = device_records(prof)
+    classes = device_classes(events)
+    traced_ms = sum(classes.values())
+    by_name: dict[str, list] = {}
+    for name, _, dur in events:
+        entry = by_name.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += dur / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    step_s = statistics.fmean(walls)
+    tokens_per_s = TRAIN_BATCH * TRAIN_S / step_s
+    report = {
+        "phase": "train", "nvidia_smi": dev["nvidia_smi"],
+        "geometry": {"vocab": TRAIN_VOCAB, "layers": TRAIN_LAYERS, "heads": TRAIN_HEADS,
+                     "hidden": TRAIN_HIDDEN, "mlp": TRAIN_MLP, "seq": TRAIN_S,
+                     "batch": TRAIN_BATCH, "schedule": "flash", "compute": "bfloat16",
+                     "params": "float32", "optimizer": f"AdamW lr {TRAIN_LR} wd 1e-4"},
+        "params": n_params, "build_s": build_s,
+        "dense_parity": {"flash_loss": flash_loss, "dense_loss": dense_loss,
+                         "loss_abs_diff": abs(flash_loss - dense_loss),
+                         "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst": worst,
+                         "grad_rel_l2_max_not_through_ds": others[worst_other],
+                         "grad_rel_l2_worst_not_through_ds": worst_other,
+                         "grad_rel_l2_median": statistics.median(rel.values()),
+                         "tensors_compared": len(rel), "zero_gradient_norms": zero_grad_norms,
+                         "tol": {"loss": DENSE_LOSS_TOL, "grad_rel_l2": DENSE_GRAD_REL_L2,
+                                 "grad_rel_l2_query_key": DS_GRAD_REL_L2}},
+        "launches": {k: launches[k] for k in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")},
+        "loss_first": first_loss, "losses": losses, "loss_after": final_loss,
+        "steps": TRAIN_STEPS, "step_ms_p50": 1e3 * statistics.median(walls),
+        "step_ms_mean": 1e3 * step_s, "step_ms_max": 1e3 * max(walls),
+        "tokens_per_s": tokens_per_s,
+        "mfu_6nd": 6.0 * n_params * tokens_per_s / dev["bf16_flops_per_s"],
+        "step_event_ms_p50": statistics.median(event_ms),
+        # Each step starts after a sync; the events bracket its stream work,
+        # so the rest of the step's wall the device sat idle (a lower bound).
+        "idle_share_at_least": 1.0 - statistics.median(event_ms) / (1e3 * statistics.median(walls)),
+        "traced_step": {"device_ms_by_class": classes, "traced_busy_ms": traced_ms,
+                        "share_flash": classes["flash"] / traced_ms,
+                        "share_gemm": classes["gemm"] / traced_ms,
+                        "top": [{"kernel": k[:80], "count": c, "ms": ms}
+                                for k, (c, ms) in top]},
+        "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+    }
+    del model, opt
+    torch.cuda.empty_cache()
+    emit(report)
+    return report
+
+
+def phase_trainer(dev: dict) -> dict:
+    """ResNet-18 through TrainingDriver at batch TRAINER_BATCH: TRAINER_STEPS
+    steps checkpointed every TRAINER_EVERY into a temporary directory, then
+    a second TrainingDriver over other weights restores the last checkpoint
+    and must hold the first one's weights, statistics and moments exactly,
+    and take one more step."""
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.parallel.train import create_train_state
+    from dmlc_tpu_torch.parallel.trainer import TrainingDriver
+    from dmlc_tpu_torch.utils.checkpoint import LocalCheckpointer
+
+    def fresh(seed: int):
+        model = get_model("resnet18").init_params(seed, dtype=torch.bfloat16).to("cuda")
+        return create_train_state(model)
+
+    rng = np.random.default_rng(5)
+    images = torch.from_numpy(rng.standard_normal((TRAINER_STEPS + 1, TRAINER_BATCH, SIZE, SIZE, 3),
+                                                  np.float32)).to("cuda")
+    labels = torch.from_numpy(
+        rng.integers(0, NUM_CLASSES, (TRAINER_STEPS + 1, TRAINER_BATCH))).to("cuda")
+
+    def data_fn(step: int):
+        return images[step % len(images)], labels[step % len(labels)]
+
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-ckpt-") as td:
+        ckpt = LocalCheckpointer(td)
+        first = TrainingDriver(fresh(0), data_fn, ckpt, checkpoint_every=TRAINER_EVERY)
+        t = time.perf_counter()
+        first.run(TRAINER_STEPS)
+        wall = time.perf_counter() - t
+        files = sorted(p.name for p in Path(td).iterdir())
+        second = TrainingDriver(fresh(1), data_fn, ckpt, checkpoint_every=TRAINER_EVERY)
+        if second.start_step != TRAINER_STEPS or second.state.step != TRAINER_STEPS:
+            raise AssertionError(f"restored at step {second.start_step}, expected {TRAINER_STEPS}")
+        mine, theirs = first.state.model.state_dict(), second.state.model.state_dict()
+        differ = [k for k in mine if not torch.equal(mine[k], theirs[k])]
+        m1 = first.state.optimizer.state_dict()["state"]
+        m2 = second.state.optimizer.state_dict()["state"]
+        differ += [f"adam {i}" for i in m1
+                   if not torch.equal(m1[i]["exp_avg_sq"], m2[i]["exp_avg_sq"])]
+        if differ:
+            raise AssertionError(f"restored state differs at {differ[:5]}")
+        restored_step = second.start_step
+        second.run(1)
+    history = first.history + second.history
+    if not all(np.isfinite(h["loss"]) for h in history):
+        raise AssertionError(f"non-finite loss in {history}")
+    report = {"phase": "trainer", "model": "resnet18", "batch": TRAINER_BATCH,
+              "checkpoint_every": TRAINER_EVERY, "checkpoints": files, "history": history,
+              "steps_wall_s": wall, "restored_step": restored_step,
+              "resumed_to_step": second.start_step}
+    emit(report)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -805,6 +1266,8 @@ def main() -> int:
     serve = phase_serve(dev)
     gen = phase_generate(dev)
     phase_decode(dev)
+    train = phase_train(dev)
+    phase_trainer(dev)
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]
     gather = kern["gather_kv_pages"]["lm_wide"]
@@ -842,6 +1305,26 @@ def main() -> int:
                                     "device_ms_cold_l2", "plain_ms", "library_ms",
                                     "bound_ms")}},
     ]
+    timed = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+             "tflops")
+    fwd = kern["flash_forward"]
+    rows.append({"name": "flash_forward", "route": "cuda",
+                 "source": "dmlc_tpu_torch/csrc/flash_fwd.cu",
+                 "replaces": "dmlc_tpu/ops/pallas_kernels.py:157 and :215",
+                 "launches": train["launches"]["flash_forward"],
+                 **{k: fwd["train_bf16"][k] for k in timed},
+                 "max_err": fwd["train_bf16"]["max_abs_err"],
+                 "shape": fwd["train_bf16"]["shape"], "dtype": "bfloat16",
+                 "f32": {k: fwd["train_f32"][k] for k in timed},
+                 "streamed": {"shape": fwd["stream_bf16"]["shape"],
+                              **{k: fwd["stream_bf16"][k] for k in timed}}})
+    for name, line in (("flash_bwd_dq", 271), ("flash_bwd_dkv", 320)):
+        rows.append({"name": name, "route": "cuda", "source": f"dmlc_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
+                     "launches": train["launches"][name],
+                     **{k: kern[name][k] for k in timed}, "max_err": kern[name]["max_abs_err"],
+                     "library_computes": kern[name]["library_computes"],
+                     "shape": kern[name]["shape"], "dtype": "bfloat16"})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -29,11 +29,13 @@ gather for a dense per-slot cache with identical math: the parity
 reference for the paged path, and it runs no gather kernel.
 
 Sampling is per-slot and position-seeded: greedy (first-index argmax) at
-temperature <= 0; otherwise a Gumbel-max draw whose noise is a pure
-function of (seed, sequence position, token id) — see
-``sampling_uniforms``. It is independent of batch composition, step count
-and slot row, and the same on the CPU and the card up to the rounding of
-``log``. It does not reproduce the JAX engine's threefry bits.
+temperature <= 0; otherwise the JAX engine's draw, ``jax.random.categorical``
+under ``fold_in(fold_in(PRNGKey(0), seed), position)``: Gumbel noise from
+threefry bits computed in integer tensor ops (``sampling_uniforms``), added
+to the logits over the temperature, argmax. It is a pure function of (seed,
+position), independent of batch composition, step count and slot row, and
+gives the JAX engine's tokens up to the rounding of ``log`` (rows whose
+top two scores lie within that rounding can differ).
 """
 
 from __future__ import annotations
@@ -56,43 +58,61 @@ from dmlc_tpu_torch.parallel.ring_attention import dense_attention
 from dmlc_tpu_torch.utils.device import resolve_device
 
 _M32 = 0xFFFFFFFF
+# Threefry-2x32's rotation schedule (two groups of four, alternating) and
+# key-schedule parity constant, as jax.random's implementation has them.
+_THREEFRY_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_THREEFRY_PARITY = 0x1BD11BDA
+# float32's smallest normal number: jax.random.gumbel's uniform lower bound.
+_F32_TINY = float(np.finfo(np.float32).tiny)
 
 
-def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
-    """``x * c mod 2**32`` for int64 ``x`` in [0, 2**32), without int64
-    overflow: the constant is split into 16-bit halves."""
-    lo, hi = c & 0xFFFF, c >> 16
-    return (x * lo + ((x * hi) & 0xFFFF) * 65536) & _M32
-
-
-def _fmix32(x: torch.Tensor) -> torch.Tensor:
-    """MurmurHash3's 32-bit finalizer, a bijection that mixes every bit."""
-    x = x ^ (x >> 16)
-    x = _mul32(x, 0x85EBCA6B)
-    x = x ^ (x >> 13)
-    x = _mul32(x, 0xC2B2AE35)
-    return x ^ (x >> 16)
+def _threefry2x32(k0: torch.Tensor, k1: torch.Tensor, x0: torch.Tensor,
+                  x1: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Threefry-2x32 (20 rounds) on int64 tensors holding uint32 values,
+    broadcast against each other: the hash under ``jax.random``'s default
+    PRNG. Every sum is masked back to 32 bits, so nothing overflows int64."""
+    ks = (k0, k1, k0 ^ k1 ^ _THREEFRY_PARITY)
+    x0 = (x0 + ks[0]) & _M32
+    x1 = (x1 + ks[1]) & _M32
+    for group in range(5):
+        for r in _THREEFRY_ROTATIONS[group % 2]:
+            x0 = (x0 + x1) & _M32
+            x1 = (((x1 << r) & _M32) | (x1 >> (32 - r))) ^ x0
+        x0 = (x0 + ks[(group + 1) % 3]) & _M32
+        x1 = (x1 + ks[(group + 2) % 3] + group + 1) & _M32
+    return x0, x1
 
 
 def sampling_uniforms(seeds: np.ndarray, positions: np.ndarray, vocab: int,
                       device: torch.device) -> torch.Tensor:
-    """[B, vocab] float32 uniforms in (0, 1): entry (b, v) is a hash of
-    (seeds[b], positions[b], v) alone, in integer tensor ops, so the CPU and
-    the card draw the same 24-bit values."""
+    """[B, vocab] float32 uniforms in [tiny, 1): row b is, bit for bit,
+    ``jax.random.uniform(fold_in(fold_in(PRNGKey(0), seeds[b]),
+    positions[b]), (vocab,), minval=finfo(float32).tiny, maxval=1)`` under
+    the partitionable threefry (JAX's default), in integer tensor ops, so
+    the CPU and the card draw the same values.
+
+    ``fold_in(key, d)`` hashes the counter pair (0, d) under ``key``; the
+    bits of entry v hash (0, v) under the row's key and XOR the two output
+    words; the top 23 bits become a float32 mantissa in [1, 2), minus 1.
+    Zero is raised to ``tiny``, as ``uniform``'s final ``max`` does."""
     seed = torch.from_numpy(np.asarray(seeds, np.int64) & _M32).to(device)
     pos = torch.from_numpy(np.asarray(positions, np.int64) & _M32).to(device)
-    key = _fmix32(_fmix32(seed) ^ pos)
-    col = _fmix32((torch.arange(vocab, dtype=torch.int64, device=device) + 0x9E3779B9) & _M32)
-    h = _fmix32(key[:, None] ^ col[None, :])
-    return ((h >> 8).to(torch.float32) + 0.5) * 2.0**-24
+    zero = torch.zeros_like(seed)
+    k0, k1 = _threefry2x32(zero, zero, zero, seed)  # fold_in(PRNGKey(0), seed)
+    k0, k1 = _threefry2x32(k0, k1, zero, pos)  # fold_in(., position)
+    col = torch.arange(vocab, dtype=torch.int64, device=device)[None, :]
+    b0, b1 = _threefry2x32(k0[:, None], k1[:, None], torch.zeros_like(col), col)
+    mantissa = ((b0 ^ b1) >> 9) | 0x3F800000
+    return (mantissa.to(torch.int32).view(torch.float32) - 1.0).clamp_min(_F32_TINY)
 
 
 def sample(logits: torch.Tensor, seeds: np.ndarray, positions: np.ndarray,
            temps: np.ndarray) -> torch.Tensor:
-    """Greedy at temperature <= 0, position-seeded Gumbel-max otherwise, per
-    row. logits: [B, V] float32; seeds, positions (the sequence position
-    each row's token lands at) and temps: host arrays [B]. Returns int64
-    [B] on the logits' device."""
+    """Greedy at temperature <= 0, otherwise ``jax.random.categorical``'s
+    Gumbel-max under the row's (seed, position) key (``sampling_uniforms``).
+    logits: [B, V] float32; seeds, positions (the sequence position each
+    row's token lands at) and temps: host arrays [B]. Returns int64 [B] on
+    the logits' device."""
     greedy = logits.argmax(dim=-1)  # first index of the maximum
     temps = np.asarray(temps, np.float32)
     if not (temps > 0).any():

@@ -40,11 +40,33 @@ class Linear(nn.Linear):
         return F.linear(x.to(dt), self.weight.to(dt), bias)
 
 
-def batch_norm(channels: int) -> nn.BatchNorm2d:
-    """BatchNorm over float32 statistics with eps 1e-5 (flax momentum 0.9 is
-    torch momentum 0.1). In eval mode it normalizes with the running
-    statistics in float32 and returns the input's dtype, as flax does."""
-    return nn.BatchNorm2d(channels, eps=1e-5, momentum=0.1)
+class BatchNorm2d(nn.BatchNorm2d):
+    """flax ``nn.BatchNorm`` over float32 statistics.
+
+    In eval mode it is ``nn.BatchNorm2d``: the running statistics in
+    float32, the input's dtype out. In training it normalizes with the
+    batch mean and the biased batch variance, as torch does, but, as flax
+    does and torch does not, it moves the running variance toward that
+    biased variance too (torch uses the unbiased one). ``momentum`` is
+    torch's (flax momentum 0.9 is 0.1 here)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, training=True, momentum=0.0,
+                         eps=self.eps)
+        with torch.no_grad():
+            xf = x.to(torch.float32)
+            self.running_mean.lerp_(xf.mean(dim=(0, 2, 3)), self.momentum)
+            self.running_var.lerp_(xf.var(dim=(0, 2, 3), unbiased=False), self.momentum)
+            self.num_batches_tracked += 1
+        return y
+
+
+def batch_norm(channels: int) -> BatchNorm2d:
+    """BatchNorm over float32 statistics with eps 1e-5 and flax's training
+    semantics (``BatchNorm2d``; flax momentum 0.9 is torch momentum 0.1)."""
+    return BatchNorm2d(channels, eps=1e-5, momentum=0.1)
 
 
 class LayerNorm(nn.LayerNorm):

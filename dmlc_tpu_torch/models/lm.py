@@ -1,9 +1,15 @@
-"""Servable causal language models for the generation engine.
+"""Causal language models: served by the generation engine, trained by
+``parallel/train.py``.
 
 Counterpart of ``dmlc_tpu/models/lm.py`` and of
-``dmlc_tpu/parallel/sp_transformer.SPTransformerLM`` with the ``"dense"``
-schedule, the one both registry LMs use. Submodules keep flax's names
-(``embed``, ``pos_embed``, ``block{i}.{ln1, attn.{query,key,value,out},
+``dmlc_tpu/parallel/sp_transformer.SPTransformerLM`` on one device. The
+attention ``schedule`` is ``"dense"`` (the default, and the one both
+registry LMs use), ``"flash"`` (``ops/flash.flash_attention``, the
+hand-written CUDA kernels on the card: the training schedule) or ``"auto"``
+(``ops/flash.attention``, the JAX package's dense/flash crossover). The
+sequence-parallel schedules (``"ring"``, ``"ring_flash"``, ``"ulysses"``)
+need a mesh over ``torch.distributed``, which the port does not have yet.
+Submodules keep flax's names (``embed``, ``pos_embed``, ``block{i}.{ln1, attn.{query,key,value,out},
 ln2, mlp_in, mlp_out}``, ``ln_f``, ``head``), so the JAX parameter tree maps
 one to one onto the state dict (``models/convert.lm_from_jax``).
 
@@ -19,7 +25,26 @@ import torch.nn.functional as F
 from torch import nn
 
 from dmlc_tpu_torch.models.layers import LayerNorm, Linear
+from dmlc_tpu_torch.ops.flash import attention, flash_attention
 from dmlc_tpu_torch.parallel.ring_attention import dense_attention
+
+SCHEDULES = ("dense", "flash", "auto")
+# The JAX package's sequence-parallel schedules (sp_transformer._SCHEDULES).
+SP_SCHEDULES = ("ring", "ring_flash", "ulysses")
+
+
+def check_schedule(schedule: str) -> None:
+    """Raise ``ValueError`` for a schedule this package cannot run."""
+    if schedule in SP_SCHEDULES:
+        raise ValueError(
+            f"schedule {schedule!r} shards the sequence over an sp mesh: it comes with "
+            "the torch.distributed slice (ROADMAP.md, Queue 1)"
+        )
+    if schedule not in SCHEDULES:
+        raise ValueError(f"schedule must be one of {SCHEDULES + SP_SCHEDULES}, got {schedule!r}")
+
+
+_ATTENTION = {"dense": dense_attention, "flash": flash_attention, "auto": attention}
 
 LM_WIDE_VOCAB = 2048
 LM_WIDE_MAX_LEN = 128
@@ -52,8 +77,11 @@ class SelfAttention(nn.Module):
 class Block(nn.Module):
     """Pre-LN block: causal attention and a position-wise MLP, both residual."""
 
-    def __init__(self, hidden: int, num_heads: int, mlp_dim: int, dtype: torch.dtype):
+    def __init__(self, hidden: int, num_heads: int, mlp_dim: int, dtype: torch.dtype,
+                 schedule: str = "dense"):
         super().__init__()
+        check_schedule(schedule)
+        self.schedule = schedule
         self.ln1 = LayerNorm(hidden, compute_dtype=dtype)
         self.attn = SelfAttention(hidden, num_heads, dtype)
         self.ln2 = LayerNorm(hidden, compute_dtype=dtype)
@@ -69,24 +97,28 @@ class Block(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, D]
         q, k, v = self.attn.qkv(self.ln1(x))
-        att = dense_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
-                              causal=True).transpose(1, 2)
+        att = _ATTENTION[self.schedule](q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
+                                        causal=True).transpose(1, 2)
         return self.attend_out(x, att)
 
 
 class TransformerLM(nn.Module):
     """Token embed + learned positions -> N pre-LN blocks -> LayerNorm ->
-    untied head."""
+    untied head. ``schedule`` picks every block's attention (module
+    docstring)."""
 
     def __init__(self, *, vocab: int, num_layers: int, num_heads: int, hidden: int,
-                 mlp_dim: int, max_len: int, dtype: torch.dtype = torch.float32):
+                 mlp_dim: int, max_len: int, dtype: torch.dtype = torch.float32,
+                 schedule: str = "dense"):
         super().__init__()
+        check_schedule(schedule)
+        self.schedule = schedule
         self.vocab, self.num_layers, self.num_heads = vocab, num_layers, num_heads
         self.hidden, self.mlp_dim, self.max_len, self.dtype = hidden, mlp_dim, max_len, dtype
         self.embed = nn.Embedding(vocab, hidden)
         self.pos_embed = nn.Embedding(max_len, hidden)
         for i in range(num_layers):
-            self.add_module(f"block{i}", Block(hidden, num_heads, mlp_dim, dtype))
+            self.add_module(f"block{i}", Block(hidden, num_heads, mlp_dim, dtype, schedule))
         self.ln_f = LayerNorm(hidden, compute_dtype=dtype)
         self.head = Linear(hidden, vocab, compute_dtype=dtype)
 

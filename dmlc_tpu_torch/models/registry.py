@@ -82,18 +82,27 @@ class ModelSpec:
                     mod.weight.normal_(0.0, math.sqrt(2.0 / fan_in), generator=gen)
                     if mod.bias is not None:
                         mod.bias.zero_()
+            # Each BatchNorm normalizes the batch by its own statistics, and
+            # its running statistics become that batch's mean and unbiased
+            # variance (what torch's cumulative average records for one
+            # batch, which the seeded weights have always used).
+            def calibrate(bn, inputs, _output):
+                x = inputs[0].to(torch.float32)
+                bn.running_mean.copy_(x.mean(dim=(0, 2, 3)))
+                bn.running_var.copy_(x.var(dim=(0, 2, 3), unbiased=True))
+
+            hooks = [bn.register_forward_hook(calibrate) for bn in bns]
             for bn in bns:
                 bn.reset_parameters()
-                bn.momentum = None  # cumulative: running stats = this batch's
                 bn.train()
             size = self.input_size
             logits = model(torch.randn(_CALIBRATION_BATCH, size, size, 3, generator=gen))
+            for hook in hooks:
+                hook.remove()
             head.bias.sub_(logits.mean(dim=0))
             gain = _LOGIT_SPREAD / float((logits - logits.mean(dim=0)).std())
             head.weight.mul_(gain)
             head.bias.mul_(gain)
-            for bn in bns:
-                bn.momentum = 0.1
         model.eval()
         if dtype == torch.float32:
             return model

@@ -14,8 +14,9 @@ Each wrapper checks its inputs, then runs the plain PyTorch version
 when it lies on a CUDA device. A failed build or launch raises; there is no
 fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in its ``launches`` attribute; ``KERNELS`` lists every
-wrapper of the package (``ops/ragged_decode.py`` adds the page gather when
-the ``ops`` package is imported), so one reset and one read cover them all.
+wrapper of the package (``ops/ragged_decode.py`` adds the page gather and
+``ops/flash.py`` the three flash-attention kernels when the ``ops`` package
+is imported), so one reset and one read cover them all.
 """
 
 from __future__ import annotations
@@ -50,6 +51,23 @@ _SIGNATURES = {
         "dmlc_gather_pages",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
+    ),
+    # Flash attention (ops/flash.py): tensor pointers, then bh, s, dh,
+    # causal, scale, is_bf16 and the stream.
+    "flash_fwd": (
+        "dmlc_flash_fwd",
+        [ctypes.c_void_p] * 5 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                      ctypes.c_void_p],
+    ),
+    "flash_bwd_dq": (
+        "dmlc_flash_bwd_dq",
+        [ctypes.c_void_p] * 7 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                      ctypes.c_void_p],
+    ),
+    "flash_bwd_dkv": (
+        "dmlc_flash_bwd_dkv",
+        [ctypes.c_void_p] * 8 + [ctypes.c_int] * 4 + [ctypes.c_float, ctypes.c_int,
+                                                      ctypes.c_void_p],
     ),
 }
 
@@ -213,7 +231,8 @@ softmax_top1.launches = 0  # type: ignore[attr-defined]
 
 
 #: The wrappers whose ``launches`` a run can read and reset (the page gather
-#: registers itself from ``ops/ragged_decode.py``).
+#: and the flash kernels register themselves from ``ops/ragged_decode.py``
+#: and ``ops/flash.py``).
 KERNELS = {"normalize_u8": normalize_u8, "softmax_top1": softmax_top1}
 
 

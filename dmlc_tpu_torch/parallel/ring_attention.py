@@ -1,8 +1,9 @@
 """Single-device attention of ``dmlc_tpu/parallel/ring_attention.py``.
 
 Only ``dense_attention``, the reference schedule the LM's prefill and full
-forward run. The ring, flash and Ulysses schedules come with the flash
-kernels.
+forward run. The flash schedule is ``ops/flash.py``; the ring, ring-flash
+and Ulysses schedules shard the sequence over several devices and come with
+the ``torch.distributed`` slice.
 """
 
 from __future__ import annotations

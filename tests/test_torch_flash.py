@@ -1,0 +1,167 @@
+"""The port's flash attention (ops/flash.py) on the CPU, where its wrappers
+run the plain versions, against the JAX package's Pallas flash attention
+run in interpret mode, as tests/test_pallas_kernels.py runs it.
+
+Same numpy-seeded float32 inputs through both:
+
+- ``flash_attention``'s out and its autograd gradients (through ``_Flash``:
+  the plain forward, then the plain dq and dkv) against JAX's out and
+  ``jax.grad`` through its custom VJP, causal and not, S in {32, 192, 193,
+  512}; against the resident forward and against the streamed one (forced
+  by shrinking ``_RESIDENT_KV_BYTES`` at test time);
+- ``flash_attention_with_lse``'s lse and ``flash_attention_block_bwd``'s
+  blockwise gradients against theirs;
+- the same ``ValueError`` for a length with no legal block, and the same
+  ``auto_picks_dense`` answers.
+
+Tolerances: out and gradients atol 5e-5, rtol 1e-4 (float32 sums taken in
+another order and blockwise online softmax against one dense softmax); lse
+atol 1e-5.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from dmlc_tpu.ops import pallas_kernels as pk
+from dmlc_tpu_torch.ops import flash
+from dmlc_tpu_torch.ops import kernels as K
+from dmlc_tpu_torch.parallel.ring_attention import dense_attention
+
+ATOL, RTOL = 5e-5, 1e-4
+LSE_ATOL = 1e-5
+B, H, D = 1, 2, 32
+LENGTHS = [32, 192, 193, 512]
+
+
+def _inputs(s: int, seed: int = 0):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, s, D), dtype=np.float32) for _ in range(4)]
+
+
+def _ours(q, k, v, g, causal):
+    qt, kt, vt = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = flash.flash_attention(qt, kt, vt, causal=causal)
+    (out * torch.from_numpy(g)).sum().backward()
+    return [t.detach().numpy() for t in (out, qt.grad, kt.grad, vt.grad)]
+
+
+def _theirs(q, k, v, g, causal):
+    def loss(q, k, v):
+        out = pk.flash_attention(q, k, v, causal=causal)
+        return jnp.sum(out * g), out
+
+    (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+    return [np.asarray(x) for x in (out, *grads)]
+
+
+def _assert_close(got, want, what):
+    for name, a, b in zip(("out", "dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a, b, atol=ATOL, rtol=RTOL, err_msg=f"{what}: {name}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", LENGTHS)
+def test_out_and_grads_match_the_resident_forward(s, causal):
+    q, k, v, g = _inputs(s)
+    _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"S={s}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [192, 512])
+def test_out_and_grads_match_the_streamed_forward(s, causal, monkeypatch):
+    monkeypatch.setattr(pk, "_RESIDENT_KV_BYTES", 1)
+    q, k, v, g = _inputs(s, seed=1)
+    _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"streamed S={s}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", LENGTHS)
+def test_lse_and_block_backward_match(s, causal):
+    q, k, v, g = _inputs(s, seed=2)
+    out, lse = flash.flash_attention_with_lse(*(torch.from_numpy(x) for x in (q, k, v)),
+                                              causal=causal)
+    j_out, j_lse = pk.flash_attention_with_lse(q, k, v, causal=causal)
+    assert tuple(lse.shape) == (B, H, s, 1) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=LSE_ATOL, rtol=0)
+    # Blockwise gradients against the same (JAX) out and lse.
+    got = flash.flash_attention_block_bwd(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, j_out, j_lse, g)), causal=causal)
+    want = pk.flash_attention_block_bwd(q, k, v, j_out, j_lse, g, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=RTOL, err_msg=name)
+
+
+def test_the_same_lengths_are_refused():
+    """A length past the single-block cap with no block divisor that is a
+    multiple of 8 (8209 is prime) raises the same ValueError in both."""
+    x = np.zeros((1, 1, 8209, 16), np.float32)
+    with pytest.raises(ValueError, match="pad the sequence"):
+        pk.flash_attention(x, x, x)
+    t = torch.from_numpy(x)
+    for call in (flash.flash_attention, flash.flash_attention_with_lse):
+        with pytest.raises(ValueError, match="pad the sequence"):
+            call(t, t, t)
+    with pytest.raises(ValueError, match="pad the sequence"):
+        flash.flash_attention(t, t, t, blk_q=4096)
+    # An odd length up to the cap runs as one block in both.
+    assert flash._auto_block(193, None, 128) == pk._auto_block(193, None, 128) == 193
+
+
+def test_auto_block_rule_is_the_jax_packages():
+    for s in (8, 96, 192, 193, 1000, 1024, 1032, 2048, 4104, 16384):
+        for req in (None, 8, 64, 100, 256, 4096):
+            for default in (128, 256):
+                try:
+                    want = pk._auto_block(s, req, default)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        flash._auto_block(s, req, default)
+                else:
+                    assert flash._auto_block(s, req, default) == want, (s, req, default)
+
+
+def test_auto_dispatch_predicate_matches():
+    assert flash.AUTO_FLASH_MIN_S == pk.AUTO_FLASH_MIN_S
+    assert flash.AUTO_DENSE_SCORES_CAP_BYTES == pk.AUTO_DENSE_SCORES_CAP_BYTES
+    for b in (1, 2, 8, 32):
+        for h in (1, 6, 12):
+            for s in (128, 1024, 2048, 2049, 4095, 4096, 8192):
+                assert flash.auto_picks_dense(b, h, s) == pk.auto_picks_dense(b, h, s), (b, h, s)
+
+
+def test_attention_dispatches_to_dense_below_the_crossover():
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(64, seed=3))
+    want = dense_attention(q, k, v, causal=True)
+    assert torch.equal(flash.attention(q, k, v, causal=True), want)
+    np.testing.assert_allclose(flash.flash_attention(q, k, v, causal=True).numpy(), want.numpy(),
+                               atol=ATOL, rtol=RTOL)
+
+
+def test_gradient_dtypes_follow_the_inputs():
+    """dq, dk, dv come back in q's, k's and v's dtype (bfloat16 here)."""
+    q, k, v, _ = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_() for x in _inputs(32))
+    flash.flash_attention(q, k, v, causal=True).float().sum().backward()
+    assert q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16
+
+
+def test_wrappers_check_operands_and_count_no_cpu_launch():
+    K.reset_launch_counts()
+    q = torch.zeros(2, 16, 64)
+    lse = torch.zeros(2, 16, 1)
+    flash.flash_forward(q, q, q, causal=True, scale=0.125)
+    flash.flash_bwd_dq(q, q, q, q, lse, lse, causal=True, scale=0.125)
+    flash.flash_bwd_dkv(q, q, q, q, lse, lse, causal=True, scale=0.125)
+    counts = K.launch_counts()
+    assert {counts[n] for n in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")} == {0}
+    with pytest.raises(ValueError, match="B\\*H, S, Dh"):
+        flash.flash_forward(q[None], q[None], q[None], causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="expected"):
+        flash.flash_forward(q, q[:, :8], q, causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="float32"):
+        flash.flash_bwd_dq(q, q, q, q, lse.double(), lse, causal=False, scale=1.0)
+    with pytest.raises(ValueError, match="device"):
+        flash.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"), causal=False, scale=1.0)

@@ -1,5 +1,5 @@
 """The port stands alone: no module of dmlc_tpu_torch (nor chip_smoke.py)
-imports JAX, flax or the JAX package, and its entry points refuse to run
+imports JAX, flax, optax or the JAX package, and its entry points refuse to run
 without a CUDA device unless the caller asks for the CPU."""
 
 import os
@@ -24,8 +24,8 @@ for name in names:
     importlib.import_module(name)
 forbidden = sorted(
     m for m in sys.modules
-    if m in ("jax", "flax", "jaxlib", "dmlc_tpu")
-    or m.startswith(("jax.", "flax.", "jaxlib.", "dmlc_tpu."))
+    if m in ("jax", "flax", "jaxlib", "optax", "dmlc_tpu")
+    or m.startswith(("jax.", "flax.", "jaxlib.", "optax.", "dmlc_tpu."))
 )
 print(json.dumps({"modules": names, "forbidden": forbidden}))
 """
@@ -44,7 +44,8 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
     assert "dmlc_tpu_torch.scheduler.worker" in report["modules"]
     for name in ("generate.kvcache", "generate.engine", "generate.slots", "generate.worker",
                  "ops.ragged_decode", "models.lm", "parallel.ring_attention",
-                 "cluster.deadline", "cluster.tenant"):
+                 "cluster.deadline", "cluster.tenant", "ops.flash", "parallel.train",
+                 "parallel.trainer", "utils.checkpoint"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
@@ -62,7 +63,8 @@ def _imported_roots(path: Path) -> set[str]:
 
 
 def _forbidden(name: str) -> bool:
-    return name in ("jax", "flax", "dmlc_tpu") or name.startswith(("jax.", "flax.", "dmlc_tpu."))
+    return name in ("jax", "flax", "optax", "dmlc_tpu") or name.startswith(
+        ("jax.", "flax.", "optax.", "dmlc_tpu."))
 
 
 def test_no_source_names_a_forbidden_import():
@@ -77,6 +79,7 @@ def test_no_source_names_a_forbidden_import():
 def test_package_prefix_is_not_mistaken_for_the_jax_package():
     assert not _forbidden("dmlc_tpu_torch") and not _forbidden("dmlc_tpu_torch.ops")
     assert _forbidden("dmlc_tpu") and _forbidden("dmlc_tpu.ops")
+    assert _forbidden("optax") and _forbidden("optax.losses") and not _forbidden("optaxx")
 
 
 def test_every_port_module_is_walked():
@@ -86,15 +89,21 @@ def test_every_port_module_is_walked():
 
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
     from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.parallel.train import create_train_state, default_optimizer, lm_train_step
+    from dmlc_tpu_torch.parallel.trainer import TrainingDriver
     from dmlc_tpu_torch.scheduler.worker import EngineBackend
     from dmlc_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    lm = torch.nn.Linear(4, 4)
     for make in (
         lambda: InferenceEngine("resnet18"),
         lambda: InferenceEngine("alexnet", device="cuda"),
         lambda: EngineBackend("resnet18", tmp_path),
         lambda: resolve_device(None),
+        lambda: create_train_state(torch.nn.Linear(4, 4)),
+        lambda: TrainingDriver(create_train_state(torch.nn.Linear(4, 4)), lambda step: None),
+        lambda: lm_train_step(lm, default_optimizer(lm.parameters()), torch.zeros(1, 2)),
     ):
         with pytest.raises(RuntimeError, match="CUDA"):
             make()
@@ -104,7 +113,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
 
 
 def test_kernel_sources_are_listed_and_build_is_lazy():
-    assert _build.kernel_names() == ["gather_pages", "normalize_u8", "softmax_top1"]
+    assert _build.kernel_names() == ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "gather_pages",
+                                     "normalize_u8", "softmax_top1"]
     assert _build.library_path("normalize_u8").parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(FileNotFoundError):

@@ -80,7 +80,8 @@ def test_gather_rejects_bad_inputs(pool, table, err):
 
 
 def test_gather_wrapper_is_counted_with_the_other_kernels():
-    assert set(kernels.KERNELS) == {"normalize_u8", "softmax_top1", "gather_kv_pages"}
+    assert set(kernels.KERNELS) == {"normalize_u8", "softmax_top1", "gather_kv_pages",
+                                    "flash_forward", "flash_bwd_dq", "flash_bwd_dkv"}
     assert kernels.KERNELS["gather_kv_pages"] is trd.gather_kv_pages
 
 
