@@ -7,7 +7,9 @@ Phases, each printing one JSON line; any failure raises and the script exits
 non-zero:
 
 1. device  — the card's name, power limit and the TF32 settings in force.
-2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc.
+2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
+   the Hopper flash kernels, their registers, shared memory and spills
+   (ptxas) and their wgmma and TMA instructions (SASS).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
@@ -41,6 +43,7 @@ one or outside a checkout of the repository.
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -117,6 +120,8 @@ LSE_TOL = 1e-4  # absolute; lse sums float32 p in both dtypes
 DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2 = 1e-2, 2e-2, 5e-2
 ZERO_GRAD_SUFFIX = "attn.key.bias"
 DS_GRAD_SUFFIXES = ("attn.query.weight", "attn.query.bias", "attn.key.weight")
+# The bf16 flash kernels built on wgmma and TMA (csrc/flash_sm90.cuh).
+SM90_KERNELS = ("flash_fwd", "flash_bwd_dkv")
 # ResNet-18 through TrainingDriver: batch, steps, checkpoint interval.
 TRAINER_BATCH, TRAINER_STEPS, TRAINER_EVERY = 32, 3, 2
 # Published rates of the cards this runs on (NVIDIA data sheets):
@@ -250,7 +255,48 @@ def phase_device() -> dict:
     return info
 
 
+def ptxas_entry(log: str, marker: str) -> dict:
+    """Registers, spill bytes and static shared memory that ptxas reported
+    (``-Xptxas -v``) for the one kernel whose mangled name holds ``marker``."""
+    entry, found = {}, False
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln or "Function properties for" in ln:
+            found = marker in ln
+        elif found and "spill stores" in ln:
+            nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
+            entry.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
+        elif found and "Used" in ln and "registers" in ln:
+            entry["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            smem = re.search(r"(\d+) bytes smem", ln)
+            entry["static_smem"] = int(smem.group(1)) if smem else 0
+    if "registers" not in entry:
+        raise AssertionError(f"ptxas reported no kernel matching {marker!r}")
+    return entry
+
+
+def sass_counts(lib: Path, marker: str) -> dict:
+    """How often wgmma (HGMMA) and TMA loads (UTMALDG) occur in the SASS of
+    the kernel of ``lib`` whose mangled name holds ``marker`` (cuobjdump
+    next to nvcc)."""
+    from dmlc_tpu_torch.ops import _build
+
+    tool = Path(_build.nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    counts, inside = {"HGMMA": 0, "UTMALDG": 0}, False
+    for ln in sass.splitlines():
+        if "Function :" in ln:
+            inside = marker in ln
+        elif inside:
+            for op in counts:
+                counts[op] += op in ln
+    return counts
+
+
 def phase_build() -> None:
+    """Builds every kernel; for the Hopper flash kernels also reports their
+    registers, shared memory a block and spills (ptxas) and their wgmma and
+    TMA instructions (SASS), and fails on a spill or on a missing one."""
     from dmlc_tpu_torch.ops import _build
 
     seconds = _build.build()
@@ -258,8 +304,20 @@ def phase_build() -> None:
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
         for name, log in _build.build_log.items()
     }
+    hopper = {}
+    for name in SM90_KERNELS:
+        if name not in _build.build_log:  # built before this process: no report
+            hopper[name] = None
+            continue
+        entry = ptxas_entry(_build.build_log[name], "_sm90")
+        dynamic_smem = getattr(_build.load(name), f"dmlc_{name}_smem_bytes")()  # returns int
+        entry["smem_per_block"] = entry["static_smem"] + dynamic_smem
+        entry["sass"] = sass_counts(_build.library_path(name), "_sm90")
+        hopper[name] = entry
+        if entry["spill_stores"] or entry["spill_loads"] or not all(entry["sass"].values()):
+            raise AssertionError(f"{name}: spills, or no wgmma/TMA in its SASS: {entry}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "ptxas": regs})
+          "ptxas": regs, "sm90": hopper})
 
 
 def phase_kernels(dev: dict) -> dict:

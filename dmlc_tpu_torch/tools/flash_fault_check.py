@@ -8,9 +8,12 @@ its build directory) into SCRATCH_DIR/<kernel>, plants a fault in the copy's
 source that skips one late tile, builds the copy and runs
 ``chip_smoke.flash_check`` there at the LM train shape in bf16, causal:
 
-- flash_fwd and flash_bwd_dq: the last Q tile skips its last K tile (the
-  diagonal one);
-- flash_bwd_dkv: the last K tile skips its last Q tile (its only one).
+- flash_fwd (bf16): the last 128-row Q tile skips its last K/V tile (the
+  diagonal one); the count of K/V tiles is shared by the producer and the
+  consumers, so both skip it;
+- flash_bwd_dq: the last Q tile skips its last K tile (the diagonal one);
+- flash_bwd_dkv (bf16): the last 128-key tile skips its last 64-row Q tile
+  (the only one that reaches its last 64 keys).
 
 The check must fail on every fault. Prints one JSON line per fault (the
 check's message) and exits non-zero if a fault passes. Needs a CUDA device
@@ -28,12 +31,13 @@ from pathlib import Path
 REPO = Path(__file__).resolve().parents[2]
 
 FAULTS = {
-    "flash_fwd": ("  for (int j = 0; j < n_k; ++j) {",
-                  "  for (int j = 0; j < n_k - (q0 + BQ >= S ? 1 : 0); ++j) {"),
+    "flash_fwd": ("  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK;",
+                  "  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK"
+                  " - (q0 + kFwdBQ >= S ? 1 : 0);"),
     "flash_bwd_dq": ("  for (int j = 0; j < n_k; ++j) {",
                      "  for (int j = 0; j < n_k - (q0 + BQ >= S ? 1 : 0); ++j) {"),
-    "flash_bwd_dkv": ("  for (int t = causal ? k0 / BQ : 0; t < n_q; ++t) {",
-                      "  for (int t = causal ? k0 / BQ : 0; t < n_q - (k0 + BK >= S ? 1 : 0); ++t) {"),
+    "flash_bwd_dkv": ("  const int t_end = (S + kDkvBQ - 1) / kDkvBQ;",
+                      "  const int t_end = (S + kDkvBQ - 1) / kDkvBQ - (k0 + kDkvBK >= S ? 1 : 0);"),
 }
 
 CHECK = """

@@ -12,12 +12,17 @@ Same numpy-seeded float32 inputs through both:
 - ``flash_attention_with_lse``'s lse and ``flash_attention_block_bwd``'s
   blockwise gradients against theirs;
 - the same ``ValueError`` for a length with no legal block, and the same
-  ``auto_picks_dense`` answers.
+  ``auto_picks_dense`` answers;
+- each fault of ``tools/flash_fault_check.py`` finds its line once in its
+  kernel's source.
 
 Tolerances: out and gradients atol 5e-5, rtol 1e-4 (float32 sums taken in
 another order and blockwise online softmax against one dense softmax); lse
 atol 1e-5.
 """
+
+import importlib.util
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -165,3 +170,24 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
         flash.flash_bwd_dq(q, q, q, q, lse.double(), lse, causal=False, scale=1.0)
     with pytest.raises(ValueError, match="device"):
         flash.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"), causal=False, scale=1.0)
+
+
+def _fault_tool():
+    path = Path(flash.__file__).resolve().parent.parent / "tools" / "flash_fault_check.py"
+    spec = importlib.util.spec_from_file_location("flash_fault_check", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    return tool
+
+
+@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
+def test_fault_check_finds_its_loop_once(kernel):
+    """flash_fault_check.py plants its fault by replacing one line of the
+    kernel's source, and refuses unless that line occurs exactly once: a
+    rewrite of the kernel must carry the pattern along (text only, no
+    nvcc)."""
+    tool = _fault_tool()
+    old, new = tool.FAULTS[kernel]
+    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{kernel}.cu").read_text()
+    assert text.count(old) == 1
+    assert old != new and text.replace(old, new).count(new) == 1
