@@ -121,7 +121,7 @@ DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2 = 1e-2, 2e-2, 5e-2
 ZERO_GRAD_SUFFIX = "attn.key.bias"
 DS_GRAD_SUFFIXES = ("attn.query.weight", "attn.query.bias", "attn.key.weight")
 # The bf16 flash kernels built on wgmma and TMA (csrc/flash_sm90.cuh).
-SM90_KERNELS = ("flash_fwd", "flash_bwd_dkv")
+SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # ResNet-18 through TrainingDriver: batch, steps, checkpoint interval.
 TRAINER_BATCH, TRAINER_STEPS, TRAINER_EVERY = 32, 3, 2
 # Published rates of the cards this runs on (NVIDIA data sheets):
@@ -640,8 +640,8 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
 
 def phase_kernels_flash(dev: dict) -> dict:
     """The flash kernels on the card: checked against their plain versions
-    (flash_checks), then timed at the train shape (bf16 and float32
-    forward, bf16 backward) and at the streamed-forward shape (bf16)."""
+    (flash_checks), then timed at the train shape (forward and backward,
+    bf16 and float32) and at the streamed-forward shape (bf16)."""
     checks = flash_checks()
     fwd = {
         "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5),
@@ -651,11 +651,13 @@ def phase_kernels_flash(dev: dict) -> dict:
     for entry in fwd.values():
         entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
     bwd = flash_backward_timing(dev, TRAIN_SHAPE, torch.bfloat16)
+    bwd_f32 = flash_backward_timing(dev, TRAIN_SHAPE, torch.float32)
     for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
-        device_s = bwd[name]["device_ms"] * 1e-3
-        bwd[name]["tflops"] = flash_flops(TRAIN_SHAPE, products) / device_s / 1e12
+        for entry in (bwd[name], bwd_f32[name]):
+            device_s = entry["device_ms"] * 1e-3
+            entry["tflops"] = flash_flops(TRAIN_SHAPE, products) / device_s / 1e12
     torch.cuda.synchronize()
-    return {"checks": checks, "flash_forward": fwd, **bwd}
+    return {"checks": checks, "flash_forward": fwd, **bwd, "backward_f32": bwd_f32}
 
 
 class SeededImages:
@@ -1382,7 +1384,8 @@ def main() -> int:
                      "launches": train["launches"][name],
                      **{k: kern[name][k] for k in timed}, "max_err": kern[name]["max_abs_err"],
                      "library_computes": kern[name]["library_computes"],
-                     "shape": kern[name]["shape"], "dtype": "bfloat16"})
+                     "shape": kern[name]["shape"], "dtype": "bfloat16",
+                     "f32": {k: kern["backward_f32"][name][k] for k in timed}})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

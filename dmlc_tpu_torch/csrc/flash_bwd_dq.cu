@@ -17,17 +17,34 @@
 // 77.3 GFLOP at the LM train shape (BH 48, S 2048, DH 128), 78 us at the
 // 989 TFLOP/s bf16 dense peak (H100 SXM data sheet).
 //
-// What the design does about it: one block of 256 threads per (BH, 64-row
-// Q tile). Q, dO, lse and delta stay in shared memory; K/V tiles of 64
-// rows stream through. Per tile, two products give the scores and dP
-// ([64, 64] float32 each, in shared memory), one per-element pass makes
-// dS, and a third product adds dS K into the float32 dQ accumulator. The
-// products run on the tensor cores in bf16 (wmma, float32 accumulation)
-// and on FMA in float32. Causal blocks stop at the diagonal; the longest
-// Q tiles are scheduled first. Simple first: no TMA, no wgmma, no overlap
-// of loads with products.
+// bf16, the Hopper design (flash_sm90.cuh; the forward's skeleton with one
+// more product and no online softmax): one block per (BH, 128-row Q tile),
+// 384 threads. Two consumer warpgroups own 64 query rows each; one
+// producer warpgroup gives its registers to them (setmaxnreg) and one of
+// its threads issues every copy. TMA loads the Q and dO tiles once (64 KB)
+// and streams 64-key K and V tiles through a 2-stage ring (full and empty
+// mbarriers per stage; 130 KB of shared memory). Per tile, S = Q K^T and
+// dP = dO V^T are wgmma from shared memory into registers, P = exp2(S scale
+// log2(e) - lse log2(e)) is made while dP is multiplied, and dS = P (dP -
+// delta) is made in place and rounded to bf16 as the register A operand of
+// dQ += dS K (K MN-major, the transpose bit set). dQ ([64, 128] float32 a
+// warpgroup) stays in registers for the whole key loop; scale is applied
+// once, in the epilogue. A thread's accumulator rows are fixed, so it reads
+// its two rows' lse and delta from global memory once. Masks run only on
+// the tiles that cross the diagonal or the end of S. Causal blocks stop at
+// the diagonal; the longest Q tiles of every head launch first. 64-key
+// tiles ran about 1% faster than 128-key ones, and than 128-key ones with
+// warpgroup 0 multiplying only the visible half of the diagonal tile
+// (PERF.md, section 6; tools/flash_dq_levers.py).
+//
+// float32 keeps the first design: one block of 256 threads per (BH, 64-row
+// Q tile), Q, dO, lse and delta in shared memory, K/V tiles of 64 rows
+// streaming through, the scores, dP and the dQ accumulator in shared
+// memory as float32, the products on FMA in full float32 (gemm()), no
+// overlap of loads with products.
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace flash {
 
@@ -123,6 +140,197 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+namespace sm90 {
+
+constexpr int kDqBQ = 128, kDqBK = 64;
+constexpr uint32_t kDqQ = kDqBQ * kDH * 2;   // 32 KB: the Q or the dO tile
+constexpr uint32_t kDqKV = kDqBK * kDH * 2;  // 16 KB: a K or V tile
+// Q, dO, K[2], V[2], barriers, alignment.
+constexpr uint32_t kDqSmem = 2 * kDqQ + 4 * kDqKV + 7 * 8 + 1024;
+
+// K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+__device__ __forceinline__ int dq_kv_tiles(int q0, int S, int causal) {
+  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;
+}
+
+// One consumer warpgroup's share of one K/V tile, over the tile's first NK
+// keys. S = Q K^T (K's stage already waited for) and, after waiting on
+// full_v, dP = dO V^T are wgmma from shared memory in two commit groups, so
+// P = exp2(S scale log2(e) - lse log2(e)) is made while dP is multiplied;
+// then dS = P (dP - delta) in place and dQ += dS K with dS as the register
+// A operand. Qw and dOw point at the warpgroup's 64 rows of the Q and dO
+// tiles; lse2 (times log2(e)) and dlt are the terms of the thread's rows
+// qi0 and qi0 + 8.
+template <int NK>
+__device__ __forceinline__ void dq_tile(float (&dqr)[64], const unsigned char* Qw,
+                                        const unsigned char* dOw, const unsigned char* Kt,
+                                        const unsigned char* Vt, uint64_t* full_v, uint32_t ph,
+                                        const float (&lse2)[2], const float (&dlt)[2], int k0,
+                                        int qi0, int S, int causal, bool edge, float scale_log2) {
+  const int lane = threadIdx.x % 32;
+  float sc[NK / 2], dp[NK / 2];
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a = (kk / 4) * (kDqQ / 2) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (kDqKV / 2) + (kk % 4) * 32;
+    wgmma_ss(sc, desc(Qw + a, 16, 1024), desc(Kt + b, 16, 1024), kk);
+  }
+  wgmma_commit();
+  mbar_wait(full_v, ph);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk) {
+    const uint32_t a = (kk / 4) * (kDqQ / 2) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (kDqKV / 2) + (kk % 4) * 32;
+    wgmma_ss(dp, desc(dOw + a, 16, 1024), desc(Vt + b, 16, 1024), kk);
+  }
+  wgmma_commit();
+  wgmma_wait<1>();
+  reg_fence(sc);
+
+  // P, 0 where masked, which only the tiles crossing the diagonal or the
+  // end of S need.
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) {
+    const int h = (i % 4) / 2;  // row qi0 + 8 h
+    float p = exp2f(sc[i] * scale_log2 - lse2[h]);
+    if (edge) {
+      const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      if (kj >= S || (causal && kj > qi0 + 8 * h)) p = 0.f;
+    }
+    sc[i] = p;
+  }
+  wgmma_wait<0>();
+  reg_fence(dp);
+#pragma unroll
+  for (int i = 0; i < NK / 2; ++i) dp[i] = sc[i] * (dp[i] - dlt[(i % 4) / 2]);
+  uint32_t dsa[NK / 16][4];
+  to_a_operand(dp, dsa);
+
+  // dQ += dS K: B is [keys, d], d contiguous.
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < NK / 16; ++kk)
+    wgmma_rs_n128(dqr, dsa[kk], desc(Kt + kk * 16 * 128, kDqKV / 2, 1024), 1);
+  wgmma_commit();
+  wgmma_wait<0>();
+  reg_fence(dqr);
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             const __grid_constant__ CUtensorMap map_do,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             __nv_bfloat16* __restrict__ dq, int BH, int S, int causal,
+                             float scale, float scale_log2) {
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + kDqQ;
+  unsigned char* Ks = smem + 2 * kDqQ;              // stage s at + s * kDqKV
+  unsigned char* Vs = smem + 2 * kDqQ + 2 * kDqKV;  // stage s at + s * kDqKV
+  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * kDqQ + 4 * kDqKV);
+  uint64_t* bar_q = bars;       // Q and dO
+  uint64_t* full_k = bars + 1;  // [2]
+  uint64_t* full_v = bars + 3;  // [2]
+  uint64_t* empty = bars + 5;   // [2]
+
+  // Block order: the last (longest, when causal) Q tile of every head first.
+  const int n_tiles = (S + kDqBQ - 1) / kDqBQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * kDqBQ;
+  const int n_k = dq_kv_tiles(q0, S, causal);
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < 2; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      mbar_expect(bar_q, 2 * kDqQ);
+      tma_load_tile(Qs, &map_q, bar_q, kDqBQ, q0, bh);
+      tma_load_tile(dOs, &map_do, bar_q, kDqBQ, q0, bh);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j & 1;
+        mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
+        mbar_expect(&full_k[s], kDqKV);
+        tma_load_tile(Ks + s * kDqKV, &map_k, &full_k[s], kDqBK, j * kDqBK, bh);
+        mbar_expect(&full_v[s], kDqKV);
+        tma_load_tile(Vs + s * kDqKV, &map_v, &full_v[s], kDqBK, j * kDqBK, bh);
+      }
+    }
+  } else {
+    // Consumer warpgroup wg: query rows row0 + [0, 64).
+    regs_alloc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int row0 = q0 + 64 * wg;
+    const int qi0 = row0 + 16 * (t / 32) + lane / 4;  // and qi0 + 8
+    float lse2[2], dlt[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int qi = qi0 + 8 * h;
+      lse2[h] = qi < S ? lse[(size_t)bh * S + qi] * kLog2e : 0.f;
+      dlt[h] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+    }
+    const unsigned char* Qw = Qs + 64 * wg * 128;
+    const unsigned char* dOw = dOs + 64 * wg * 128;
+    float dqr[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) dqr[i] = 0.f;
+    mbar_wait(bar_q, 0);
+    for (int j = 0; j < n_k; ++j) {
+      const int s = j & 1, k0 = j * kDqBK;
+      const uint32_t ph = (j >> 1) & 1;
+      const unsigned char* Kt = Ks + s * kDqKV;
+      const unsigned char* Vt = Vs + s * kDqKV;
+      const bool edge = k0 + kDqBK > S || (causal && k0 + kDqBK - 1 > row0);
+      mbar_wait(&full_k[s], ph);
+      dq_tile<kDqBK>(dqr, Qw, dOw, Kt, Vt, &full_v[s], ph, lse2, dlt, k0, qi0, S, causal, edge,
+                     scale_log2);
+      mbar_arrive(&empty[s]);
+    }
+    // This warpgroup's Q rows are read by no one now: stage dQ there.
+    store_rows(dqr, scale, scale, Qs, kDqBQ, 64 * wg, dq + (size_t)bh * S * kDH, row0, S, 1 + wg);
+  }
+}
+
+inline cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                             const void* lse, const void* delta, void* dq, int bh, int s,
+                             int causal, float scale, cudaStream_t stream) {
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, kDqBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, kDqBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, kDqBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, kDqBQ)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_bwd_dq_kernel_sm90, kDqSmem)) != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kDqBQ - 1) / kDqBQ) * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dq_kernel_sm90<<<(unsigned)blocks, kThreads, kDqSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), bh, s, causal, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
+}  // namespace sm90
+
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
@@ -135,8 +343,11 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
   if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && dh == 128)
-    return (int)launch_dq<bf16, 128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+    return (int)sm90::launch_dq(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
     return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
+
+// Dynamic shared memory a block of the bf16 kernel takes, in bytes.
+extern "C" int dmlc_flash_bwd_dq_smem_bytes(void) { return (int)flash::sm90::kDqSmem; }

@@ -1,5 +1,5 @@
 // flash_sm90.cuh: the Hopper building blocks of the bf16 flash kernels
-// (flash_fwd.cu, flash_bwd_dkv.cu).
+// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
 // - TMA: tiles of a [BH, S, 128] bf16 tensor are copied into shared memory
 //   by the Tensor Memory Accelerator, one thread issuing each copy. The
@@ -195,6 +195,16 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
         "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "l"(da), "l"(db), "r"(acc));
+}
+
+// D (+)= A . B from shared memory, both K-major, N by the accumulator's
+// size: 64 floats a thread for N = 128, 32 for N = 64.
+__device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_n128(d, da, db, acc);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_n64(d, da, db, acc);
 }
 
 // D[64 x 128] (+)= A . B, A from registers (four bf16x2 per thread), B from

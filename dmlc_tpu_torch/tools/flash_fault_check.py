@@ -11,7 +11,9 @@ source that skips one late tile, builds the copy and runs
 - flash_fwd (bf16): the last 128-row Q tile skips its last K/V tile (the
   diagonal one); the count of K/V tiles is shared by the producer and the
   consumers, so both skip it;
-- flash_bwd_dq: the last Q tile skips its last K tile (the diagonal one);
+- flash_bwd_dq (bf16): the last 128-row Q tile skips its last 64-key K/V
+  tile (the diagonal one of its upper 64 rows); as in the forward, the
+  count is shared by the producer and the consumers;
 - flash_bwd_dkv (bf16): the last 128-key tile skips its last 64-row Q tile
   (the only one that reaches its last 64 keys).
 
@@ -34,8 +36,9 @@ FAULTS = {
     "flash_fwd": ("  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK;",
                   "  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK"
                   " - (q0 + kFwdBQ >= S ? 1 : 0);"),
-    "flash_bwd_dq": ("  for (int j = 0; j < n_k; ++j) {",
-                     "  for (int j = 0; j < n_k - (q0 + BQ >= S ? 1 : 0); ++j) {"),
+    "flash_bwd_dq": ("  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;",
+                     "  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK"
+                     " - (q0 + kDqBQ >= S ? 1 : 0);"),
     "flash_bwd_dkv": ("  const int t_end = (S + kDkvBQ - 1) / kDkvBQ;",
                       "  const int t_end = (S + kDkvBQ - 1) / kDkvBQ - (k0 + kDkvBK >= S ? 1 : 0);"),
 }

@@ -13,14 +13,17 @@ Same numpy-seeded float32 inputs through both:
   blockwise gradients against theirs;
 - the same ``ValueError`` for a length with no legal block, and the same
   ``auto_picks_dense`` answers;
-- each fault of ``tools/flash_fault_check.py`` finds its line once in its
-  kernel's source.
+- each fault of ``tools/flash_fault_check.py`` and each lever of
+  ``tools/flash_dq_levers.py`` finds its line once in its kernel's source;
+- every kernel source built on ``csrc/flash_sm90.cuh`` is one that
+  ``chip_smoke.py``'s build phase checks, and exports its shared memory.
 
 Tolerances: out and gradients atol 5e-5, rtol 1e-4 (float32 sums taken in
 another order and blockwise online softmax against one dense softmax); lse
 atol 1e-5.
 """
 
+import ast
 import importlib.util
 from pathlib import Path
 
@@ -172,9 +175,9 @@ def test_wrappers_check_operands_and_count_no_cpu_launch():
         flash.flash_forward(q.to("meta"), q.to("meta"), q.to("meta"), causal=False, scale=1.0)
 
 
-def _fault_tool():
-    path = Path(flash.__file__).resolve().parent.parent / "tools" / "flash_fault_check.py"
-    spec = importlib.util.spec_from_file_location("flash_fault_check", path)
+def _tool(name: str = "flash_fault_check"):
+    path = Path(flash.__file__).resolve().parent.parent / "tools" / f"{name}.py"
+    spec = importlib.util.spec_from_file_location(name, path)
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     return tool
@@ -186,8 +189,40 @@ def test_fault_check_finds_its_loop_once(kernel):
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc)."""
-    tool = _fault_tool()
+    tool = _tool()
     old, new = tool.FAULTS[kernel]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{kernel}.cu").read_text()
     assert text.count(old) == 1
     assert old != new and text.replace(old, new).count(new) == 1
+
+
+@pytest.mark.parametrize("lever", ["a", "a0", "b", "c", "bc"])
+def test_lever_tool_finds_its_lines_once(lever):
+    """flash_dq_levers.py makes each variant by replacing text of
+    flash_bwd_dq.cu and refuses unless each piece occurs exactly once (text
+    only, no nvcc); a variant with no replacement is the source itself."""
+    tool = _tool("flash_dq_levers")
+    text = tool.variant_source(lever, None)
+    source = (tool.REPO / "dmlc_tpu_torch" / "csrc" / "flash_bwd_dq.cu").read_text()
+    assert all(new in text for _, new in tool.LEVERS[lever])
+    assert (text != source) == bool(tool.LEVERS[lever])
+
+
+def test_every_hopper_kernel_is_checked_by_the_build_phase():
+    """Each csrc/*.cu that includes flash_sm90.cuh is named in
+    chip_smoke.SM90_KERNELS (so the build phase reports its registers,
+    spills and wgmma/TMA instructions) and exports dmlc_<name>_smem_bytes
+    (read there for its shared memory a block). chip_smoke.py is read with
+    ast, not imported."""
+    tool = _tool()
+    tree = ast.parse((tool.REPO / "chip_smoke.py").read_text())
+    listed = next(ast.literal_eval(node.value) for node in tree.body
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(tg, "id", None) == "SM90_KERNELS" for tg in node.targets))
+    csrc = tool.REPO / "dmlc_tpu_torch" / "csrc"
+    hopper = sorted(p.stem for p in csrc.glob("*.cu")
+                    if '#include "flash_sm90.cuh"' in p.read_text())
+    assert hopper == sorted(listed)
+    assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(hopper)
+    for name in hopper:
+        assert f'extern "C" int dmlc_{name}_smem_bytes(void)' in (csrc / f"{name}.cu").read_text()
