@@ -8,8 +8,9 @@ non-zero:
 
 1. device  — the card's name, power limit and the TF32 settings in force.
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
-   the Hopper flash kernels, their registers, shared memory and spills
-   (ptxas) and their wgmma and TMA instructions (SASS).
+   each flash kernel instantiation (head dim 64 and 128, bf16 and
+   float32), its registers, shared memory and spills (ptxas), and for the
+   bf16 Hopper ones their wgmma and TMA instructions (SASS).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
@@ -30,7 +31,10 @@ non-zero:
    6 heads x 128, vocab 32768, S 2048, batch 8, bf16 compute, AdamW 3e-4)
    through the flash kernels: the first step against the dense schedule,
    then 10 timed steps (launch counts, falling loss, tokens/s, step p50,
-   6ND MFU, one traced step's device time by kernel, idle share).
+   6ND MFU, one traced step's device time by kernel, idle share);
+   train_small — lm_small at its registry width (2 heads of 64) through
+   the flash kernels in float32 and then bf16, each with its first step
+   against dense, 10 steps, launch counts and a falling loss.
 7. trainer — ResNet-18 through TrainingDriver with local checkpoints,
    restored by a second TrainingDriver.
 8. the card's name and power limit as nvidia-smi prints them, the kernels
@@ -42,6 +46,7 @@ one or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import ctypes
 import json
 import re
 import statistics
@@ -82,6 +87,9 @@ BENCH_SLOTS, BENCH_REQUESTS, BENCH_PROMPT, BENCH_NEW, BENCH_PAGE = 8, 16, 128, 1
 TRAIN_VOCAB, TRAIN_LAYERS, TRAIN_HEADS, TRAIN_HIDDEN, TRAIN_MLP = 32768, 8, 6, 768, 3072
 TRAIN_S, TRAIN_BATCH, TRAIN_LR, TRAIN_STEPS = 2048, 8, 3e-4, 10
 TRAIN_SHAPE = (TRAIN_BATCH, TRAIN_HEADS, TRAIN_S, TRAIN_HIDDEN // TRAIN_HEADS)
+# The train shape's FLOPs at head dim 64 (12 heads of 64, as ViT-B and
+# CLIP B carry them; lm_small has heads of 64 too).
+DH64_SHAPE = (TRAIN_BATCH, 12, TRAIN_S, 64)
 # The flash forward past the JAX package's K/V-resident limit (its
 # streamed schedule): bf16, Dh 128, S 16384.
 STREAM_SHAPE = (1, 6, 16384, 128)
@@ -94,11 +102,11 @@ STREAM_SHAPE = (1, 6, 16384, 128)
 # norm: a row whose exact value is zero (dq of a causal head's first query,
 # which sees only its own key, so dS = p * (dP - delta) = 0) holds rounding
 # noise alone. float32 sums in another order; bf16 rounds P and dS to bf16
-# before their products and the outputs to bf16. Readings over the ten
-# checks of flash_checks on an H100 run: bf16 at most 2.68e-3 over a tensor
-# and 5.15e-3 over a row, float32 1.55e-6 and 3.39e-6; skipping one late
-# tile (dmlc_tpu_torch/tools/flash_fault_check.py) gives about 1e-2 over
-# the tensor and 0.6-1.0 over a row.
+# before their products and the outputs to bf16. Readings over the
+# checks of flash_checks on an H100 run: bf16 at most 2.71e-3 over a tensor
+# and 5.48e-3 over a row, float32 1.55e-6 and 3.38e-6; skipping one late
+# tile (dmlc_tpu_torch/tools/flash_fault_check.py) gives 4.6e-3 to 1e-2
+# over the tensor and 0.48-1.0 over a row.
 FLASH_REL_L2 = {torch.float32: 2e-5, torch.bfloat16: 4e-3}
 FLASH_ROW_REL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
 ROW_FLOOR = 1e-2
@@ -120,7 +128,21 @@ LSE_TOL = 1e-4  # absolute; lse sums float32 p in both dtypes
 DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2 = 1e-2, 2e-2, 5e-2
 ZERO_GRAD_SUFFIX = "attn.key.bias"
 DS_GRAD_SUFFIXES = ("attn.query.weight", "attn.query.bias", "attn.key.weight")
-# The bf16 flash kernels built on wgmma and TMA (csrc/flash_sm90.cuh).
+# lm_small as the registry builds it (models/lm.py:lm_small: 2 layers,
+# hidden 128, 2 heads of 64, MLP 256, vocab 1024), trained at S = its
+# max_len (256) with batch 8, AdamW 3e-4, 10 timed steps, float32 (its
+# default compute dtype) and then bf16.
+SMALL_MODEL, SMALL_BATCH, SMALL_STEPS = "lm_small", 8, 10
+# Its float32 first step, flash against dense: both run full float32 (TF32
+# off), so they differ only in the order of float32 sums (the online
+# softmax, the tiled products): |loss difference| and each gradient's
+# relative L2 difference, the query and key projections included.
+SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2 = 1e-5, 1e-4
+# The wrappers of the flash kernels (ops/kernels.KERNELS names).
+FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+# The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
+# (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
+# KERNEL_HEAD_DIMS (ops/flash.py).
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # ResNet-18 through TrainingDriver: batch, steps, checkpoint interval.
 TRAINER_BATCH, TRAINER_STEPS, TRAINER_EVERY = 32, 3, 2
@@ -216,19 +238,23 @@ def kernel_device_ms(fn, name: str, calls: int = 20, flush: torch.Tensor | None 
     overwritten before each call, so the kernel finds its inputs cold."""
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(calls):
-            if flush is not None:
-                flush.zero_()
-            fn()
+    # The trace can drop records (device_records); the mean is over those it
+    # kept. A trace that kept too few is taken again, twice at most.
+    for _ in range(3):
         torch.cuda.synchronize()
-    # The trace can drop a record (device_records); the mean is over those
-    # it kept, and too few of them fail the run.
-    times = [dur for kernel, _, dur in device_records(prof) if name in kernel]
-    if not calls // 2 <= len(times) <= calls:
-        raise AssertionError(f"{name}: profiler saw {len(times)} launches of {calls}")
-    return statistics.fmean(times) / 1e3
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(calls):
+                if flush is not None:
+                    flush.zero_()
+                fn()
+            torch.cuda.synchronize()
+        records = device_records(prof)
+        times = [dur for kernel, _, dur in records if name in kernel]
+        if calls // 2 <= len(times) <= calls:
+            return statistics.fmean(times) / 1e3
+    seen = sorted({kernel[:60] for kernel, _, _ in records})
+    raise AssertionError(f"{name}: profiler saw {len(times)} launches of {calls}; "
+                         f"records of {seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -255,23 +281,26 @@ def phase_device() -> dict:
     return info
 
 
-def ptxas_entry(log: str, marker: str) -> dict:
+def ptxas_entries(log: str) -> dict[str, dict]:
     """Registers, spill bytes and static shared memory that ptxas reported
-    (``-Xptxas -v``) for the one kernel whose mangled name holds ``marker``."""
-    entry, found = {}, False
+    (``-Xptxas -v``) for every kernel in ``log``, keyed by mangled name."""
+    entries: dict[str, dict] = {}
+    name = None
     for ln in log.splitlines():
-        if "Compiling entry function" in ln or "Function properties for" in ln:
-            found = marker in ln
-        elif found and "spill stores" in ln:
+        if "Compiling entry function" in ln:
+            name = ln.split("'")[1]
+        elif "Function properties for" in ln:
+            name = ln.split("Function properties for")[1].strip()
+        elif name and "spill stores" in ln:
             nums = [int(x) for x in re.findall(r"(\d+) bytes", ln)]
-            entry.update(stack=nums[0], spill_stores=nums[1], spill_loads=nums[2])
-        elif found and "Used" in ln and "registers" in ln:
-            entry["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+            entries.setdefault(name, {}).update(stack=nums[0], spill_stores=nums[1],
+                                                spill_loads=nums[2])
+        elif name and "Used" in ln and "registers" in ln:
             smem = re.search(r"(\d+) bytes smem", ln)
-            entry["static_smem"] = int(smem.group(1)) if smem else 0
-    if "registers" not in entry:
-        raise AssertionError(f"ptxas reported no kernel matching {marker!r}")
-    return entry
+            entries.setdefault(name, {}).update(
+                registers=int(re.search(r"Used (\d+) registers", ln).group(1)),
+                static_smem=int(smem.group(1)) if smem else 0)
+    return {n: e for n, e in entries.items() if "registers" in e}
 
 
 def sass_counts(lib: Path, marker: str) -> dict:
@@ -293,31 +322,60 @@ def sass_counts(lib: Path, marker: str) -> dict:
     return counts
 
 
+def flash_instance(mangled: str) -> tuple[str, int] | None:
+    """(dtype, head dim) of a flash kernel instantiation from its mangled
+    name: the Hopper kernels are bf16, the others float32; the head dim is
+    the template argument 64 or 128."""
+    dh = re.search(r"Li(64|128)E", mangled)
+    if dh is None:
+        return None
+    return ("bfloat16" if "_sm90" in mangled else "float32"), int(dh.group(1))
+
+
 def phase_build() -> None:
-    """Builds every kernel; for the Hopper flash kernels also reports their
-    registers, shared memory a block and spills (ptxas) and their wgmma and
-    TMA instructions (SASS), and fails on a spill or on a missing one."""
+    """Builds every kernel. For the flash kernels, reports each
+    instantiation's registers, shared memory a block and spills (ptxas):
+    both head dims in both dtypes, the Hopper ones also with their wgmma
+    and TMA instructions (SASS). Fails on a spill, on a missing
+    instantiation, or on a Hopper kernel without wgmma or TMA."""
     from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
 
     seconds = _build.build()
     regs = {
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
         for name, log in _build.build_log.items()
     }
-    hopper = {}
+    flash = {}
     for name in SM90_KERNELS:
         if name not in _build.build_log:  # built before this process: no report
-            hopper[name] = None
+            flash[name] = None
             continue
-        entry = ptxas_entry(_build.build_log[name], "_sm90")
-        dynamic_smem = getattr(_build.load(name), f"dmlc_{name}_smem_bytes")()  # returns int
-        entry["smem_per_block"] = entry["static_smem"] + dynamic_smem
-        entry["sass"] = sass_counts(_build.library_path(name), "_sm90")
-        hopper[name] = entry
-        if entry["spill_stores"] or entry["spill_loads"] or not all(entry["sass"].values()):
-            raise AssertionError(f"{name}: spills, or no wgmma/TMA in its SASS: {entry}")
+        lib = _build.load(name)
+        smem_of = getattr(lib, f"dmlc_{name}_smem_bytes")
+        smem_of.argtypes = [ctypes.c_int, ctypes.c_int]
+        report = {}
+        for mangled, entry in ptxas_entries(_build.build_log[name]).items():
+            inst = flash_instance(mangled)
+            if inst is None:
+                continue
+            dtype, dh = inst
+            entry["smem_per_block"] = entry["static_smem"] + smem_of(dh, int(dtype == "bfloat16"))
+            no_sm90_ops = False
+            if dtype == "bfloat16":
+                entry["sass"] = sass_counts(_build.library_path(name), mangled)
+                no_sm90_ops = not all(entry["sass"].values())
+            if entry["spill_stores"] or entry["spill_loads"] or no_sm90_ops:
+                raise AssertionError(f"{name} {dtype} Dh {dh}: spills, or no wgmma/TMA in its "
+                                     f"SASS: {entry}")
+            report[f"{dtype} dh{dh}"] = entry
+        want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32") for dh in KERNEL_HEAD_DIMS}
+        if set(report) != want:
+            raise AssertionError(f"{name}: instantiations {sorted(report)}, "
+                                 f"expected {sorted(want)}")
+        flash[name] = report
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "ptxas": regs, "sm90": hopper})
+          "ptxas": regs, "flash": flash})
 
 
 def phase_kernels(dev: dict) -> dict:
@@ -538,14 +596,30 @@ def flash_check(shape, dtype: torch.dtype, causal: bool, seed: int = 0) -> dict:
     return report
 
 
+def small_lm_shape() -> tuple:
+    """The attention shape [batch, heads, S, Dh] that phase_train_small
+    gives the flash kernels: lm_small as the registry builds it, at S = its
+    max_len and batch SMALL_BATCH."""
+    from dmlc_tpu_torch.models.registry import get_model
+
+    spec = get_model(SMALL_MODEL)
+    model = spec.module(dtype=torch.float32)
+    return SMALL_BATCH, model.num_heads, spec.input_size, model.hidden // model.num_heads
+
+
 def flash_checks() -> list[dict]:
-    """Every flash kernel against its plain version: the train shape in
-    both dtypes, and ragged lengths (193, 1000), causal and not, where the
-    kernels mask a partial tile."""
-    cases = [(TRAIN_SHAPE, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    for dt in (torch.bfloat16, torch.float32):
-        for causal in (False, True):
-            cases += [((2, 3, 193, 128), dt, causal), ((1, 2, 1000, 128), dt, causal)]
+    """Every flash kernel against its plain version at both head dims: the
+    train shape and its Dh-64 twin in both dtypes, ragged lengths (193,
+    1000), causal and not, where the kernels mask a partial tile, and the
+    shape of phase_train_small in both dtypes."""
+    cases = []
+    for big in (TRAIN_SHAPE, DH64_SHAPE):
+        cases += [(big, dt, True) for dt in (torch.bfloat16, torch.float32)]
+    for dh in (128, 64):
+        for dt in (torch.bfloat16, torch.float32):
+            for causal in (False, True):
+                cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
+    cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
 
 
@@ -584,8 +658,8 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
         "max_abs_err": max_abs_err(out, FL.flash_forward_reference(q, k, v, **kw)[0]),
         "library_max_abs_err": max_abs_err(lib.reshape(out.shape), out),
         "ms": time_ms(lambda: FL.flash_forward(q, k, v, **kw), reps=11, inner=5),
-        "device_ms": kernel_device_ms(lambda: FL.flash_forward(q, k, v, **kw),
-                                      "flash_fwd_kernel", calls=10),
+        "device_ms": kernel_device_ms(lambda: FL.flash_forward(q, k, v, **kw), "flash_fwd",
+                                      calls=10),
         "plain_ms": time_ms(lambda: FL.flash_forward_reference(q, k, v, **kw),
                             reps=plain_reps, inner=1),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
@@ -616,9 +690,8 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
     rows = b * h * s * 4 * 2  # lse and delta
     report = {}
     for name, fn, ref, kernel, products, outs in (
-        ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, "flash_bwd_dq_kernel", 3, 1),
-        ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, "flash_bwd_dkv_kernel",
-         4, 2),
+        ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, "flash_bwd_dq", 3, 1),
+        ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, "flash_bwd_dkv", 4, 2),
     ):
         args = (q, k, v, do, lse, delta)
         got, want = fn(*args, **kw), ref(*args, **kw)
@@ -640,24 +713,30 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
 
 def phase_kernels_flash(dev: dict) -> dict:
     """The flash kernels on the card: checked against their plain versions
-    (flash_checks), then timed at the train shape (forward and backward,
-    bf16 and float32) and at the streamed-forward shape (bf16)."""
+    (flash_checks), then timed at the train shape and at its Dh-64 twin
+    (forward and backward, bf16 and float32) and at the streamed-forward
+    shape (bf16)."""
     checks = flash_checks()
     fwd = {
         "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5),
         "train_f32": flash_forward_timing(dev, TRAIN_SHAPE, torch.float32, plain_reps=5),
+        "dh64_bf16": flash_forward_timing(dev, DH64_SHAPE, torch.bfloat16, plain_reps=3),
+        "dh64_f32": flash_forward_timing(dev, DH64_SHAPE, torch.float32, plain_reps=3),
         "stream_bf16": flash_forward_timing(dev, STREAM_SHAPE, torch.bfloat16, plain_reps=3),
     }
     for entry in fwd.values():
         entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
-    bwd = flash_backward_timing(dev, TRAIN_SHAPE, torch.bfloat16)
-    bwd_f32 = flash_backward_timing(dev, TRAIN_SHAPE, torch.float32)
-    for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
-        for entry in (bwd[name], bwd_f32[name]):
-            device_s = entry["device_ms"] * 1e-3
-            entry["tflops"] = flash_flops(TRAIN_SHAPE, products) / device_s / 1e12
+    bwd = {(shape, dt): flash_backward_timing(dev, shape, dt)
+           for shape in (TRAIN_SHAPE, DH64_SHAPE) for dt in (torch.bfloat16, torch.float32)}
+    for (shape, _), report in bwd.items():
+        for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
+            device_s = report[name]["device_ms"] * 1e-3
+            report[name]["tflops"] = flash_flops(shape, products) / device_s / 1e12
     torch.cuda.synchronize()
-    return {"checks": checks, "flash_forward": fwd, **bwd, "backward_f32": bwd_f32}
+    return {"checks": checks, "flash_forward": fwd, **bwd[TRAIN_SHAPE, torch.bfloat16],
+            "backward_f32": bwd[TRAIN_SHAPE, torch.float32],
+            "backward_dh64_bf16": bwd[DH64_SHAPE, torch.bfloat16],
+            "backward_dh64_f32": bwd[DH64_SHAPE, torch.float32]}
 
 
 class SeededImages:
@@ -1117,6 +1196,76 @@ def loss_and_grads(model, tokens) -> tuple[float, dict]:
     return float(loss.detach()), grads
 
 
+def dense_parity(model, dense, tokens, loss_tol: float, grad_tol: float, ds_tol: float) -> dict:
+    """The first step of ``model`` (flash schedule) against ``dense`` on the
+    same weights and batch: |loss difference| within ``loss_tol``, each
+    gradient's relative L2 difference within ``grad_tol`` (``ds_tol`` for
+    the query and key projections; the key bias, whose exact gradient is
+    zero, by its norms only). Raises past a bound."""
+    flash_loss, flash_grads = loss_and_grads(model, tokens)
+    dense_loss, dense_grads = loss_and_grads(dense, tokens)
+    rel = {n: float((flash_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
+           for n, g in dense_grads.items() if not n.endswith(ZERO_GRAD_SUFFIX)}
+    worst = max(rel, key=rel.get)
+    zero_grad_norms = {
+        n: {"flash": float(flash_grads[n].norm()), "dense": float(g.norm()),
+            "query_bias_dense": float(dense_grads[n.replace("key.bias", "query.bias")].norm())}
+        for n, g in dense_grads.items() if n.endswith(ZERO_GRAD_SUFFIX)}
+    del flash_grads, dense_grads
+    torch.cuda.empty_cache()
+    over = {n: r for n, r in rel.items()
+            if r > (ds_tol if n.endswith(DS_GRAD_SUFFIXES) else grad_tol)}
+    if abs(flash_loss - dense_loss) > loss_tol or over:
+        raise AssertionError(f"flash vs dense: loss {flash_loss} vs {dense_loss}, gradients "
+                             f"past their bound: {over}")
+    others = {n: r for n, r in rel.items() if not n.endswith(DS_GRAD_SUFFIXES)}
+    worst_other = max(others, key=others.get)
+    return {"flash_loss": flash_loss, "dense_loss": dense_loss,
+            "loss_abs_diff": abs(flash_loss - dense_loss),
+            "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst": worst,
+            "grad_rel_l2_max_not_through_ds": others[worst_other],
+            "grad_rel_l2_worst_not_through_ds": worst_other,
+            "grad_rel_l2_median": statistics.median(rel.values()),
+            "tensors_compared": len(rel), "zero_gradient_norms": zero_grad_norms,
+            "tol": {"loss": loss_tol, "grad_rel_l2": grad_tol, "grad_rel_l2_query_key": ds_tol}}
+
+
+def timed_steps(model, opt, tokens, steps: int, layers: int) -> dict:
+    """One warm-up lm_train_step, then ``steps`` timed ones with the launch
+    counts zeroed just before them and read just after: each flash kernel
+    must launch ``layers`` x ``steps`` times and the loss must fall."""
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel.train import lm_loss, lm_train_step
+
+    first_loss = float(lm_train_step(model, opt, tokens))  # warm-up
+    torch.cuda.synchronize()
+    K.reset_launch_counts()
+    losses, walls, event_ms = [], [], []
+    for _ in range(steps):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        t = time.perf_counter()
+        start.record()
+        losses.append(lm_train_step(model, opt, tokens))
+        end.record()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        event_ms.append(start.elapsed_time(end))
+    counts = K.launch_counts()
+    launches = {k: counts[k] for k in FLASH_WRAPPERS}
+    losses = [float(x) for x in losses]
+    with torch.no_grad():
+        final_loss = float(lm_loss(model, tokens))
+    for name, count in launches.items():
+        if count != layers * steps:
+            raise AssertionError(f"{name} launched {count} times in {steps} steps, expected "
+                                 f"{layers * steps}")
+    if not all(np.isfinite(losses + [final_loss])) or not final_loss < first_loss:
+        raise AssertionError(f"loss not finite or not falling: {first_loss} -> {losses} "
+                             f"-> {final_loss}")
+    return {"launches": launches, "loss_first": first_loss, "losses": losses,
+            "loss_after": final_loss, "walls": walls, "event_ms": event_ms}
+
+
 def device_classes(events) -> dict:
     """Device ms of a traced run by kernel class: the flash kernels, the
     matrix products (cuBLAS/CUTLASS GEMMs) and the rest."""
@@ -1138,8 +1287,7 @@ def phase_train(dev: dict) -> dict:
     MFU, one traced step's device time by kernel and the idle share."""
     from torch.profiler import ProfilerActivity, profile
 
-    from dmlc_tpu_torch.ops import kernels as K
-    from dmlc_tpu_torch.parallel.train import default_optimizer, lm_loss, lm_train_step
+    from dmlc_tpu_torch.parallel.train import default_optimizer, lm_train_step
 
     t0 = time.perf_counter()
     weights = seeded_lm_weights(seed=4)
@@ -1156,52 +1304,13 @@ def phase_train(dev: dict) -> dict:
     dense = train_lm("dense")
     dense.load_state_dict(weights)
     dense.to("cuda")
-    flash_loss, flash_grads = loss_and_grads(model, tokens)
-    dense_loss, dense_grads = loss_and_grads(dense, tokens)
+    parity = dense_parity(model, dense, tokens, DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2)
     del dense
-    rel = {n: float((flash_grads[n] - g).norm() / g.norm().clamp_min(1e-30))
-           for n, g in dense_grads.items() if not n.endswith(ZERO_GRAD_SUFFIX)}
-    worst = max(rel, key=rel.get)
-    zero_grad_norms = {
-        n: {"flash": float(flash_grads[n].norm()), "dense": float(g.norm()),
-            "query_bias_dense": float(dense_grads[n.replace("key.bias", "query.bias")].norm())}
-        for n, g in dense_grads.items() if n.endswith(ZERO_GRAD_SUFFIX)}
-    del flash_grads, dense_grads
     torch.cuda.empty_cache()
-    over = {n: r for n, r in rel.items()
-            if r > (DS_GRAD_REL_L2 if n.endswith(DS_GRAD_SUFFIXES) else DENSE_GRAD_REL_L2)}
-    if abs(flash_loss - dense_loss) > DENSE_LOSS_TOL or over:
-        raise AssertionError(f"flash vs dense: loss {flash_loss} vs {dense_loss}, gradients "
-                             f"past their bound: {over}")
-    others = {n: r for n, r in rel.items() if not n.endswith(DS_GRAD_SUFFIXES)}
-    worst_other = max(others, key=others.get)
 
     opt = default_optimizer(model.parameters(), lr=TRAIN_LR, weight_decay=1e-4)
-    first_loss = float(lm_train_step(model, opt, tokens))  # warm-up
-    torch.cuda.synchronize()
-    K.reset_launch_counts()
-    losses, walls, event_ms = [], [], []
-    for _ in range(TRAIN_STEPS):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        t = time.perf_counter()
-        start.record()
-        losses.append(lm_train_step(model, opt, tokens))
-        end.record()
-        torch.cuda.synchronize()
-        walls.append(time.perf_counter() - t)
-        event_ms.append(start.elapsed_time(end))
-    launches = K.launch_counts()
-    losses = [float(x) for x in losses]
-    with torch.no_grad():
-        final_loss = float(lm_loss(model, tokens))
-    want = TRAIN_LAYERS * TRAIN_STEPS
-    for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
-        if launches[name] != want:
-            raise AssertionError(f"{name} launched {launches[name]} times in {TRAIN_STEPS} "
-                                 f"steps, expected {want}")
-    if not all(np.isfinite(losses + [final_loss])) or not final_loss < first_loss:
-        raise AssertionError(f"loss not finite or not falling: {first_loss} -> {losses} "
-                             f"-> {final_loss}")
+    run = timed_steps(model, opt, tokens, TRAIN_STEPS, TRAIN_LAYERS)
+    walls, event_ms = run["walls"], run["event_ms"]
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1224,18 +1333,9 @@ def phase_train(dev: dict) -> dict:
                      "hidden": TRAIN_HIDDEN, "mlp": TRAIN_MLP, "seq": TRAIN_S,
                      "batch": TRAIN_BATCH, "schedule": "flash", "compute": "bfloat16",
                      "params": "float32", "optimizer": f"AdamW lr {TRAIN_LR} wd 1e-4"},
-        "params": n_params, "build_s": build_s,
-        "dense_parity": {"flash_loss": flash_loss, "dense_loss": dense_loss,
-                         "loss_abs_diff": abs(flash_loss - dense_loss),
-                         "grad_rel_l2_max": rel[worst], "grad_rel_l2_worst": worst,
-                         "grad_rel_l2_max_not_through_ds": others[worst_other],
-                         "grad_rel_l2_worst_not_through_ds": worst_other,
-                         "grad_rel_l2_median": statistics.median(rel.values()),
-                         "tensors_compared": len(rel), "zero_gradient_norms": zero_grad_norms,
-                         "tol": {"loss": DENSE_LOSS_TOL, "grad_rel_l2": DENSE_GRAD_REL_L2,
-                                 "grad_rel_l2_query_key": DS_GRAD_REL_L2}},
-        "launches": {k: launches[k] for k in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")},
-        "loss_first": first_loss, "losses": losses, "loss_after": final_loss,
+        "params": n_params, "build_s": build_s, "dense_parity": parity,
+        "launches": run["launches"],
+        "loss_first": run["loss_first"], "losses": run["losses"], "loss_after": run["loss_after"],
         "steps": TRAIN_STEPS, "step_ms_p50": 1e3 * statistics.median(walls),
         "step_ms_mean": 1e3 * step_s, "step_ms_max": 1e3 * max(walls),
         "tokens_per_s": tokens_per_s,
@@ -1253,6 +1353,53 @@ def phase_train(dev: dict) -> dict:
     }
     del model, opt
     torch.cuda.empty_cache()
+    emit(report)
+    return report
+
+
+def phase_train_small(dev: dict) -> dict:
+    """lm_small, as the registry builds it (heads of 64), trained through
+    the flash kernels at S = its max_len, in float32 (its default compute
+    dtype) and then in bf16: each run's first step against the dense
+    schedule on the registry's seeded weights and one batch, then
+    SMALL_STEPS timed steps with the launch counts zeroed just before them
+    (each flash kernel layers x SMALL_STEPS launches) and a falling loss."""
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.parallel.train import default_optimizer
+
+    spec = get_model(SMALL_MODEL)
+    s, vocab = spec.input_size, spec.num_outputs
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, vocab, (SMALL_BATCH, s + 1), device="cuda", generator=gen)
+    report = {"phase": "train_small", "nvidia_smi": dev["nvidia_smi"]}
+    tols = {torch.float32: (SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2, SMALL_F32_GRAD_REL_L2),
+            torch.bfloat16: (DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2)}
+    for dtype, tol in tols.items():
+        weights = spec.init_params(seed=7, dtype=dtype).state_dict()
+        model, dense = (spec.build(dtype=dtype, schedule=sch) for sch in ("flash", "dense"))
+        report["geometry"] = {
+            "model": SMALL_MODEL, "vocab": model.vocab, "layers": model.num_layers,
+            "heads": model.num_heads, "head_dim": model.hidden // model.num_heads,
+            "hidden": model.hidden, "mlp": model.mlp_dim, "seq": s, "batch": SMALL_BATCH,
+            "schedule": "flash", "params": "float32",
+            "optimizer": f"AdamW lr {TRAIN_LR} wd 1e-4"}
+        for m in (model, dense):
+            m.load_state_dict(weights)
+            m.to("cuda")
+        parity = dense_parity(model, dense, tokens, *tol)
+        del dense
+        opt = default_optimizer(model.parameters(), lr=TRAIN_LR, weight_decay=1e-4)
+        run = timed_steps(model, opt, tokens, SMALL_STEPS, model.num_layers)
+        report[str(dtype).replace("torch.", "")] = {
+            "dense_parity": parity, "launches": run["launches"],
+            "loss_first": run["loss_first"], "losses": run["losses"],
+            "loss_after": run["loss_after"], "steps": SMALL_STEPS,
+            "step_ms_p50": 1e3 * statistics.median(run["walls"]),
+            "step_event_ms_p50": statistics.median(run["event_ms"]),
+            "tokens_per_s": SMALL_BATCH * s / statistics.fmean(run["walls"]),
+        }
+        del model, opt
+        torch.cuda.empty_cache()
     emit(report)
     return report
 
@@ -1327,6 +1474,7 @@ def main() -> int:
     gen = phase_generate(dev)
     phase_decode(dev)
     train = phase_train(dev)
+    small = phase_train_small(dev)
     phase_trainer(dev)
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]
@@ -1367,7 +1515,11 @@ def main() -> int:
     ]
     timed = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "tflops")
+    timed_shape = ("shape", *timed)
     fwd = kern["flash_forward"]
+    # Launches: the train leg's (Dh 128, bf16); lm_small's legs (Dh 64)
+    # beside them.
+    small_launches = {dt: small[dt]["launches"] for dt in ("float32", "bfloat16")}
     rows.append({"name": "flash_forward", "route": "cuda",
                  "source": "dmlc_tpu_torch/csrc/flash_fwd.cu",
                  "replaces": "dmlc_tpu/ops/pallas_kernels.py:157 and :215",
@@ -1376,6 +1528,9 @@ def main() -> int:
                  "max_err": fwd["train_bf16"]["max_abs_err"],
                  "shape": fwd["train_bf16"]["shape"], "dtype": "bfloat16",
                  "f32": {k: fwd["train_f32"][k] for k in timed},
+                 "dh64_bf16": {k: fwd["dh64_bf16"][k] for k in timed_shape},
+                 "dh64_f32": {k: fwd["dh64_f32"][k] for k in timed_shape},
+                 "lm_small_launches": {dt: n["flash_forward"] for dt, n in small_launches.items()},
                  "streamed": {"shape": fwd["stream_bf16"]["shape"],
                               **{k: fwd["stream_bf16"][k] for k in timed}}})
     for name, line in (("flash_bwd_dq", 271), ("flash_bwd_dkv", 320)):
@@ -1385,7 +1540,10 @@ def main() -> int:
                      **{k: kern[name][k] for k in timed}, "max_err": kern[name]["max_abs_err"],
                      "library_computes": kern[name]["library_computes"],
                      "shape": kern[name]["shape"], "dtype": "bfloat16",
-                     "f32": {k: kern["backward_f32"][name][k] for k in timed}})
+                     "f32": {k: kern["backward_f32"][name][k] for k in timed},
+                     "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
+                     "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
+                     "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -6,7 +6,8 @@
 // flash_attention's custom VJP. There a sequential grid axis walks Q blocks
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
-// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16; lse and
+// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
+// or 128 (every head dim of the model registry); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -28,136 +29,268 @@
 // from shared memory leave P^T and dS^T = P^T (dP^T - delta) in the
 // accumulator layout that the next wgmma takes as its register A operand,
 // so dV += P^T dO and dK += dS^T Q (B MN-major, the transpose bit set)
-// never stage P or dS in shared memory. dK and dV ([64, 128] float32
-// each) stay in registers for the whole Q loop; scale is applied once, in
-// the epilogue. When causal a block starts at the first Q tile that
+// never stage P or dS in shared memory (m64n128k16 at Dh 128, m64n64k16
+// at 64). dK and dV ([64, Dh] float32 each) stay in registers for the
+// whole Q loop; scale is applied once, in the epilogue. When causal a block starts at the first Q tile that
 // reaches its keys (pallas_kernels.py:362) and only the diagonal tiles are
 // masked.
 //
-// float32 keeps the first design: one block of 256 threads per (BH, 64-row
-// K tile), K, V and the float32 dK, dV accumulators in shared memory, Q,
-// dO, lse and delta tiles of 32 rows streaming through, the products on FMA
-// in full float32 (gemm()), no overlap of loads with products.
+// float32, the FMA design (flash::f32 below): register-tiled FMA on the
+// CUDA cores in full float32 (no TF32), bound by the 67 TFLOP/s float32
+// peak (1.54 ms at the train shape). One block of 128 threads per (BH,
+// 32-key tile), two blocks an SM; K and V stay in shared memory. The
+// threads form 8 key groups of 16 (a half-warp each): group g owns keys g +
+// 8 i (i < 4), thread c of it queries c and c + 16 of a tile and dK, dV
+// columns 64 h + 4 c. 32-row Q and dO tiles, with their lse and delta rows,
+// stream by cp.async: at Dh 128 through a 2-stage ring, so the next tile
+// loads while this one is multiplied; at Dh 64 each tile loads after the
+// products of the one before. Per tile a thread computes S^T = K Q^T and
+// dP^T = V dO^T for its 4 keys x 2 queries in registers (rows read along Dh
+// as float4, K's and V's broadcast across the half-warp), makes P^T and
+// dS^T = P^T (dP^T - delta) there and writes them to shared memory once, as
+// the A operands of dV += P^T dO and dK += dS^T Q; a half-warp reads back
+// only its own rows. dK and dV ([4 keys, Dh / 16 columns] a thread each)
+// stay in registers for the whole Q loop, scale applied once in the
+// epilogue. When causal a block starts at the first Q tile that reaches its
+// keys; masks run only on the tiles that cross the diagonal or the end of
+// S. Shared memory at Dh 128: K, V 33 KB, the ring 67 KB, P^T and dS^T 9
+// KB. Against 64-key blocks (256 threads, one block an SM) the 32-key ones
+// ran 5% faster; the ring ran 2% faster than one stage at Dh 128 and 4%
+// slower at Dh 64; laying a warp's lanes out as 4 keys x 8 queries for S^T
+// (fewer shared-memory wavefronts a load) ran 1% slower at Dh 128 (PERF.md,
+// section 6; tools/flash_levers.py).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
 namespace flash {
 
-template <typename T, int DH>
+namespace f32 {
+
+constexpr int kDkvKeys = 32;          // keys a block
+constexpr int kDkvKeysPerThread = 4;  // keys a key group (16 threads) owns
+constexpr int kDkvRows = 32;          // query rows a Q/dO tile
+constexpr int kDkvThreads = 16 * kDkvKeys / kDkvKeysPerThread;
+
+template <int DH>
 struct DkvCfg {
-  static constexpr int BK = 64;
-  static constexpr int BQ = sizeof(T) == 4 ? 32 : 64;  // float32 tiles fit at 32 rows
-  static constexpr int LDT = Ld<T, DH>::value;
-  static constexpr int LDS = BK + 4;
-  static constexpr int LDP = Ld<T, BK>::value;
-  static constexpr int LDO = DH + 4;
-  static constexpr size_t bytes = 2 * round128(BK * LDT * sizeof(T)) +     // K, V
-                                  2 * round128(BQ * LDT * sizeof(T)) +     // Q, dO
-                                  2 * round128(BQ * LDS * sizeof(float)) + // scores, dP
-                                  2 * round128(BQ * LDP * sizeof(T)) +     // P, dS
-                                  2 * round128(BK * LDO * sizeof(float)) + // dK, dV
-                                  2 * round128(BQ * sizeof(float));        // lse, delta
+  static constexpr int BK = kDkvKeys, BQ = kDkvRows, KPT = kDkvKeysPerThread;
+  static constexpr int kThreads = kDkvThreads, G = BK / KPT;  // G key groups
+  static constexpr int LD = DH + 4;    // K, V, Q, dO rows (floats), padded by 16 bytes
+  static constexpr int LDP = BQ + 4;   // P^T, dS^T rows
+  static constexpr int NC4 = DH / 64;  // float4 columns a thread owns in dK, dV
+  static constexpr int kStage = 2 * BQ * LD + 2 * BQ;  // Q, dO, lse, delta (floats)
+  // Q/dO ring depth: 2 at Dh 128; at Dh 64 loading each tile after the
+  // products of the one before ran 4% faster (PERF.md, section 6).
+  static constexpr int kStages = DH == 64 ? 1 : 2;
+  static constexpr size_t bytes =
+      sizeof(float) * (2 * (size_t)BK * LD + kStages * (size_t)kStage + 2 * (size_t)BK * LDP);
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                         const T* __restrict__ v, const T* __restrict__ dout,
-                         const float* __restrict__ lse, const float* __restrict__ delta,
-                         T* __restrict__ dk, T* __restrict__ dv, int BH, int S, int causal,
-                         float scale) {
-  typedef DkvCfg<T, DH> C;
-  constexpr int BQ = C::BQ, BK = C::BK;
+template <int DH>
+__global__ void __launch_bounds__(kDkvThreads, DH == 64 ? 2 : 1)
+    flash_bwd_dkv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                             const float* __restrict__ v, const float* __restrict__ dout,
+                             const float* __restrict__ lse, const float* __restrict__ delta,
+                             float* __restrict__ dk, float* __restrict__ dv, int BH, int S,
+                             int causal, float scale) {
+  typedef DkvCfg<DH> C;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDP = C::LDP, G = C::G, KPT = C::KPT;
+  constexpr int NC4 = C::NC4, STAGES = C::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
-  SmemCursor cur{smem};
-  T* Ks = cur.take<T>(BK * C::LDT);
-  T* Vs = cur.take<T>(BK * C::LDT);
-  T* Qs = cur.take<T>(BQ * C::LDT);
-  T* dOs = cur.take<T>(BQ * C::LDT);
-  float* Ss = cur.take<float>(BQ * C::LDS);
-  float* dPs = cur.take<float>(BQ * C::LDS);
-  T* Ps = cur.take<T>(BQ * C::LDP);
-  T* dSs = cur.take<T>(BQ * C::LDP);
-  float* dKs = cur.take<float>(BK * C::LDO);
-  float* dVs = cur.take<float>(BK * C::LDO);
-  float* lse_s = cur.take<float>(BQ);
-  float* delta_s = cur.take<float>(BQ);
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BK * LD;
+  float* ring = Vs + BK * LD;  // stage s at ring + s kStage: Q, dO, lse, delta
+  float* PT = ring + STAGES * C::kStage;
+  float* dST = PT + BK * LDP;
 
   // Block order: K tile 0 of every head first (the most Q tiles when causal).
   const int bh = blockIdx.x % BH;
   const int k0 = (int)(blockIdx.x / BH) * BK;
   const size_t base = (size_t)bh * S * DH;
-  const int tid = threadIdx.x;
+  const float* lse_g = lse + (size_t)bh * S;
+  const float* delta_g = delta + (size_t)bh * S;
+  const int g = threadIdx.x / 16, c = threadIdx.x % 16;
+  // S^T and dP^T: a thread's keys g + G i (i < 4), half-warp g's own dK/dV
+  // keys, and queries c + 16 u (u < 2).
+  static_assert(BK * BQ == 8 * C::kThreads, "S^T is 4 keys x 2 queries a thread");
+  // Q tiles [t0, q_tiles): when causal, from the first that reaches these keys.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int q_tiles = (S + C::BQ - 1) / C::BQ;
 
-  load_tile<T, BK, DH, C::LDT>(Ks, k + base, k0, S);
-  load_tile<T, BK, DH, C::LDT>(Vs, v + base, k0, S);
-  for (int i = tid; i < BK * C::LDO; i += kThreads) {
-    dKs[i] = 0.f;
-    dVs[i] = 0.f;
-  }
-
-  const int n_q = (S + BQ - 1) / BQ;
-  for (int t = causal ? k0 / BQ : 0; t < n_q; ++t) {
+  auto load_q = [&](int t, int stage) {
+    float* st = ring + stage * C::kStage;
     const int q0 = t * BQ;
-    __syncthreads();
-    load_tile<T, BQ, DH, C::LDT>(Qs, q + base, q0, S);
-    load_tile<T, BQ, DH, C::LDT>(dOs, dout + base, q0, S);
-    load_rows<BQ>(lse_s, lse + (size_t)bh * S, q0, S);
-    load_rows<BQ>(delta_s, delta + (size_t)bh * S, q0, S);
-    __syncthreads();
-    gemm<BQ, BK, DH, false, true, false>(Ss, C::LDS, Qs, C::LDT, Ks, C::LDT);
-    gemm<BQ, BK, DH, false, true, false>(dPs, C::LDS, dOs, C::LDT, Vs, C::LDT);
-    __syncthreads();
-    for (int i = tid; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i - r * BK;
-      const int qi = q0 + r, kj = k0 + c;
-      const bool visible = qi < S && kj < S && (!causal || kj <= qi);
-      const float p = visible ? expf(Ss[r * C::LDS + c] * scale - lse_s[r]) : 0.f;
-      Ps[r * C::LDP + c] = from_f32<T>(p);
-      dSs[r * C::LDP + c] = from_f32<T>(p * (dPs[r * C::LDS + c] - delta_s[r]));
+    cp_tile<BQ, DH, LD, C::kThreads>(st, q + base, q0, S);
+    cp_tile<BQ, DH, LD, C::kThreads>(st + BQ * LD, dout + base, q0, S);
+    if (threadIdx.x < 2 * BQ) {
+      const int r = threadIdx.x % BQ, qi = q0 + r;
+      const float* src = threadIdx.x < BQ ? lse_g : delta_g;
+      cp_async4(st + 2 * BQ * LD + threadIdx.x, src + (qi < S ? qi : 0), qi < S);
     }
-    __syncthreads();
-    // dV += P^T dO and dK += dS^T Q: P and dS read transposed (A_COL).
-    gemm<BK, DH, BQ, true, false, true>(dVs, C::LDO, Ps, C::LDP, dOs, C::LDT);
-    gemm<BK, DH, BQ, true, false, true>(dKs, C::LDO, dSs, C::LDP, Qs, C::LDT);
+  };
+  cp_tile<BK, DH, LD, C::kThreads>(Ks, k + base, k0, S);
+  cp_tile<BK, DH, LD, C::kThreads>(Vs, v + base, k0, S);
+  if (t0 < q_tiles) load_q(t0, 0);
+  cp_async_commit();
+
+  float dka[KPT][NC4][4], dva[KPT][NC4][4];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int h = 0; h < NC4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[i][h][e] = dva[i][h][e] = 0.f;
+
+  for (int t = t0; t < q_tiles; ++t) {
+    const int it = t - t0, q0 = t * BQ;
+    if (STAGES == 2 && t + 1 < q_tiles) load_q(t + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();  // tile t (and K, V) in shared memory for every thread
+    const float* Qt = ring + (it % STAGES) * C::kStage;
+    const float* dOt = Qt + BQ * LD;
+    const float* lse_s = dOt + BQ * LD;
+    const float* delta_s = lse_s + BQ;
+
+    // S^T = K Q^T and dP^T = V dO^T.
+    float st[4][2], dpt[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int u = 0; u < 2; ++u) st[i][u] = dpt[i][u] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < DH; kk += 4) {
+      float4 bq[2], bo[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        bq[u] = ld4(Qt + (c + 16 * u) * LD + kk);
+        bo[u] = ld4(dOt + (c + 16 * u) * LD + kk);
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float4 a = ld4(Ks + (g + G * i) * LD + kk);
+        const float4 a2 = ld4(Vs + (g + G * i) * LD + kk);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          st[i][u] = fmaf(a.x, bq[u].x, st[i][u]);
+          st[i][u] = fmaf(a.y, bq[u].y, st[i][u]);
+          st[i][u] = fmaf(a.z, bq[u].z, st[i][u]);
+          st[i][u] = fmaf(a.w, bq[u].w, st[i][u]);
+          dpt[i][u] = fmaf(a2.x, bo[u].x, dpt[i][u]);
+          dpt[i][u] = fmaf(a2.y, bo[u].y, dpt[i][u]);
+          dpt[i][u] = fmaf(a2.z, bo[u].z, dpt[i][u]);
+          dpt[i][u] = fmaf(a2.w, bo[u].w, dpt[i][u]);
+        }
+      }
+    }
+
+    // P^T = exp(scale S^T - lse) (0 where masked) and dS^T = P^T (dP^T -
+    // delta), to shared memory.
+    const bool edge = q0 + BQ > S || k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int row = g + G * i, key = k0 + row;
+#pragma unroll
+      for (int u = 0; u < 2; ++u) {
+        const int col = c + 16 * u, qi = q0 + col;
+        float p = expf(st[i][u] * scale - lse_s[col]);
+        if (edge && (qi >= S || key >= S || (causal && key > qi))) p = 0.f;
+        PT[row * LDP + col] = p;
+        dST[row * LDP + col] = p * (dpt[i][u] - delta_s[col]);
+      }
+    }
+    __syncwarp();  // P^T and dS^T rows are written and read by one half-warp
+
+    // dV += P^T dO and dK += dS^T Q, along the tile's queries.
+#pragma unroll 2
+    for (int qq = 0; qq < BQ; qq += 4) {
+      float4 pa[KPT], da[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        pa[i] = ld4(PT + (g + G * i) * LDP + qq);
+        da[i] = ld4(dST + (g + G * i) * LDP + qq);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 bo[NC4], bq[NC4];
+#pragma unroll
+        for (int h = 0; h < NC4; ++h) {
+          bo[h] = ld4(dOt + (qq + e) * LD + 64 * h + 4 * c);
+          bq[h] = ld4(Qt + (qq + e) * LD + 64 * h + 4 * c);
+        }
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+          const float pv = e == 0 ? pa[i].x : e == 1 ? pa[i].y : e == 2 ? pa[i].z : pa[i].w;
+          const float dsv = e == 0 ? da[i].x : e == 1 ? da[i].y : e == 2 ? da[i].z : da[i].w;
+#pragma unroll
+          for (int h = 0; h < NC4; ++h) {
+            dva[i][h][0] = fmaf(pv, bo[h].x, dva[i][h][0]);
+            dva[i][h][1] = fmaf(pv, bo[h].y, dva[i][h][1]);
+            dva[i][h][2] = fmaf(pv, bo[h].z, dva[i][h][2]);
+            dva[i][h][3] = fmaf(pv, bo[h].w, dva[i][h][3]);
+            dka[i][h][0] = fmaf(dsv, bq[h].x, dka[i][h][0]);
+            dka[i][h][1] = fmaf(dsv, bq[h].y, dka[i][h][1]);
+            dka[i][h][2] = fmaf(dsv, bq[h].z, dka[i][h][2]);
+            dka[i][h][3] = fmaf(dsv, bq[h].w, dka[i][h][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every reader of this stage, P^T and dS^T is done
+    if (STAGES == 1 && t + 1 < q_tiles) load_q(t + 1, 0);
   }
-  __syncthreads();
-  for (int i = tid; i < BK * DH; i += kThreads) {
-    const int r = i / DH, c = i - r * DH;
-    if (k0 + r < S) {
-      const size_t at = base + (size_t)(k0 + r) * DH + c;
-      dk[at] = from_f32<T>(dKs[r * C::LDO + c] * scale);
-      dv[at] = from_f32<T>(dVs[r * C::LDO + c]);
+  cp_async_wait<0>();  // no copy left in flight when the block exits
+
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int key = k0 + g + G * i;
+    if (key < S) {
+#pragma unroll
+      for (int h = 0; h < NC4; ++h) {
+        const size_t at = base + (size_t)key * DH + 64 * h + 4 * c;
+        *reinterpret_cast<float4*>(dk + at) =
+            make_float4(dka[i][h][0] * scale, dka[i][h][1] * scale, dka[i][h][2] * scale,
+                        dka[i][h][3] * scale);
+        *reinterpret_cast<float4*>(dv + at) =
+            make_float4(dva[i][h][0], dva[i][h][1], dva[i][h][2], dva[i][h][3]);
+      }
     }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                        int causal, float scale, cudaStream_t stream) {
-  typedef DkvCfg<T, DH> C;
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, DH>, C::bytes);
+  typedef DkvCfg<DH> C;
+  cudaError_t e = allow_smem(flash_bwd_dkv_f32_kernel<DH>, C::bytes);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((s + C::BK - 1) / C::BK) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dkv_kernel<T, DH><<<(unsigned)blocks, kThreads, C::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), bh, s, causal,
-      scale);
+  flash_bwd_dkv_f32_kernel<DH><<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), bh, s,
+      causal, scale);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 namespace sm90 {
 
 constexpr int kDkvBK = 128, kDkvBQ = 64;
-constexpr uint32_t kDkvKV = kDkvBK * kDH * 2;  // 32 KB: the K or the V tile
-constexpr uint32_t kDkvQ = kDkvBQ * kDH * 2;   // 16 KB: a Q or dO tile
-constexpr uint32_t kDkvRows = 2 * kDkvKV + 4 * kDkvQ;  // lse, delta rows start here
-constexpr uint32_t kDkvSmem = kDkvRows + 4 * kDkvBQ * 4 + 5 * 8 + 1024;
 
+template <int DH>
+struct DkvCfg {
+  static constexpr uint32_t kKV = kDkvBK * DH * 2;  // the K or the V tile: 32 KB at Dh 128
+  static constexpr uint32_t kQ = kDkvBQ * DH * 2;   // a Q or dO tile: 16 KB at Dh 128
+  static constexpr uint32_t kRows = 2 * kKV + 4 * kQ;  // lse, delta rows start here
+  static constexpr uint32_t kSmem = kRows + 4 * kDkvBQ * 4 + 5 * 8 + 1024;
+};
+
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dkv_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                               const __grid_constant__ CUtensorMap map_k,
@@ -166,13 +299,14 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH,
                               int S, int causal, float scale, float scale_log2) {
+  constexpr uint32_t kDkvKV = DkvCfg<DH>::kKV, kDkvQ = DkvCfg<DH>::kQ;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + kDkvKV;
   unsigned char* Qs = smem + 2 * kDkvKV;                // stage s at + s * kDkvQ
   unsigned char* dOs = smem + 2 * kDkvKV + 2 * kDkvQ;   // stage s at + s * kDkvQ
-  float* lse_s = reinterpret_cast<float*>(smem + kDkvRows);  // [2][64], times log2(e)
+  float* lse_s = reinterpret_cast<float*>(smem + DkvCfg<DH>::kRows);  // [2][64], times log2(e)
   float* delta_s = lse_s + 2 * kDkvBQ;                       // [2][64]
   uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + 2 * kDkvBQ);
   uint64_t* bar_kv = bars;
@@ -207,8 +341,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         prefetch_map(&map_q);
         prefetch_map(&map_do);
         mbar_expect(bar_kv, 2 * kDkvKV);
-        tma_load_tile(Ks, &map_k, bar_kv, kDkvBK, k0, bh);
-        tma_load_tile(Vs, &map_v, bar_kv, kDkvBK, k0, bh);
+        tma_load_tile<DH>(Ks, &map_k, bar_kv, kDkvBK, k0, bh);
+        tma_load_tile<DH>(Vs, &map_v, bar_kv, kDkvBK, k0, bh);
       }
       const float* lse_g = lse + (size_t)bh * S;
       const float* delta_g = delta + (size_t)bh * S;
@@ -223,8 +357,8 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
         if (lane == 0) {
           mbar_expect(&full[s], 2 * kDkvQ);
-          tma_load_tile(Qs + s * kDkvQ, &map_q, &full[s], kDkvBQ, q0, bh);
-          tma_load_tile(dOs + s * kDkvQ, &map_do, &full[s], kDkvBQ, q0, bh);
+          tma_load_tile<DH>(Qs + s * kDkvQ, &map_q, &full[s], kDkvBQ, q0, bh);
+          tma_load_tile<DH>(dOs + s * kDkvQ, &map_do, &full[s], kDkvBQ, q0, bh);
         } else {
           mbar_arrive(&full[s]);
         }
@@ -235,9 +369,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     regs_alloc<240>();
     const int t = threadIdx.x % 128, lane = t % 32;
     const int key_lo = k0 + 64 * wg + 16 * (t / 32) + lane / 4, key_hi = key_lo + 8;
-    float dkr[64], dvr[64];
+    float dkr[DH / 2], dvr[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dkr[i] = dvr[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) dkr[i] = dvr[i] = 0.f;
     mbar_wait(bar_kv, 0);
     for (int tq = t0; tq < t_end; ++tq) {
       const int it = tq - t0, s = it & 1, q0 = tq * kDkvBQ;
@@ -248,15 +382,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       float st[32], dpt[32];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t a = (kk / 4) * (kDkvKV / 2) + 64 * wg * 128 + (kk % 4) * 32;
-        const uint32_t b = (kk / 4) * (kDkvQ / 2) + (kk % 4) * 32;
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t a = (kk / 4) * (kDkvBK * 128) + 64 * wg * 128 + (kk % 4) * 32;
+        const uint32_t b = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
         wgmma_ss_n64(st, desc(Ks + a, 16, 1024), desc(Qt + b, 16, 1024), kk);
       }
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t a = (kk / 4) * (kDkvKV / 2) + 64 * wg * 128 + (kk % 4) * 32;
-        const uint32_t b = (kk / 4) * (kDkvQ / 2) + (kk % 4) * 32;
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t a = (kk / 4) * (kDkvBK * 128) + 64 * wg * 128 + (kk % 4) * 32;
+        const uint32_t b = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
         wgmma_ss_n64(dpt, desc(Vs + a, 16, 1024), desc(dOt + b, 16, 1024), kk);
       }
       wgmma_commit();
@@ -294,10 +428,10 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128(dvr, pa[kk], desc(dOt + kk * 16 * 128, kDkvQ / 2, 1024), 1);
+        wgmma_rs(dvr, pa[kk], desc(dOt + kk * 16 * 128, kDkvBQ * 128, 1024), 1);
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_rs_n128(dkr, dsa[kk], desc(Qt + kk * 16 * 128, kDkvQ / 2, 1024), 1);
+        wgmma_rs(dkr, dsa[kk], desc(Qt + kk * 16 * 128, kDkvBQ * 128, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(dvr);
@@ -305,25 +439,27 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&empty[s]);
     }
     // This warpgroup's K and V rows are read by no one now: stage there.
-    const size_t base = (size_t)bh * S * kDH;
+    const size_t base = (size_t)bh * S * DH;
     store_rows(dkr, scale, scale, Ks, kDkvBK, 64 * wg, dk + base, k0 + 64 * wg, S, 1 + wg);
     store_rows(dvr, 1.f, 1.f, Vs, kDkvBK, 64 * wg, dv + base, k0 + 64 * wg, S, 1 + wg);
   }
 }
 
-inline cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
-                              const void* lse, const void* delta, void* dk, void* dv, int bh,
-                              int s, int causal, float scale, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
+                       const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                       int causal, float scale, cudaStream_t stream) {
+  constexpr uint32_t kSmem = DkvCfg<DH>::kSmem;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
-  if ((e = encode_map(&mq, q, bh, s, kDkvBQ)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, kDkvBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mv, v, bh, s, kDkvBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mdo, dout, bh, s, kDkvBQ)) != cudaSuccess) return e;
-  if ((e = allow_smem(flash_bwd_dkv_kernel_sm90, kDkvSmem)) != cudaSuccess) return e;
+  if ((e = encode_map(&mq, q, bh, s, DH, kDkvBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, kDkvBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, kDkvBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, DH, kDkvBQ)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_bwd_dkv_kernel_sm90<DH>, kSmem)) != cudaSuccess) return e;
   const long long blocks = (long long)((s + kDkvBK - 1) / kDkvBK) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dkv_kernel_sm90<<<(unsigned)blocks, kThreads, kDkvSmem, stream>>>(
+  flash_bwd_dkv_kernel_sm90<DH><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), bh, s, causal, scale,
       scale * kLog2e);
@@ -335,8 +471,8 @@ inline cudaError_t launch_dkv(const void* q, const void* k, const void* v, const
 }  // namespace flash
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
-// lse, delta: float32 [bh, s]. dh is 128. Launches on `stream` and
-// returns the launch's CUDA error code.
+// lse, delta: float32 [bh, s]. dh is 64 or 128, in both dtypes. Launches
+// on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int s, int dh, int causal, float scale, int is_bf16,
@@ -345,11 +481,21 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
   if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && dh == 128)
-    return (int)sm90::launch_dkv(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+    return (int)sm90::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 64)
+    return (int)sm90::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
-    return (int)launch_dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+    return (int)f32::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 64)
+    return (int)f32::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block of the bf16 kernel takes, in bytes.
-extern "C" int dmlc_flash_bwd_dkv_smem_bytes(void) { return (int)flash::sm90::kDkvSmem; }
+// Dynamic shared memory a block of the kernel for (dh, dtype) takes, in
+// bytes; 0 for a pair that has no kernel.
+extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
+  using namespace flash;
+  if (dh == 128) return (int)(is_bf16 ? sm90::DkvCfg<128>::kSmem : f32::DkvCfg<128>::bytes);
+  if (dh == 64) return (int)(is_bf16 ? sm90::DkvCfg<64>::kSmem : f32::DkvCfg<64>::bytes);
+  return 0;
+}

@@ -5,7 +5,8 @@
 // flash_attention's custom VJP. There a sequential grid axis walks K blocks
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
-// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16; lse and
+// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
+// or 128 (every head dim of the model registry); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -27,9 +28,9 @@
 // dP = dO V^T are wgmma from shared memory into registers, P = exp2(S scale
 // log2(e) - lse log2(e)) is made while dP is multiplied, and dS = P (dP -
 // delta) is made in place and rounded to bf16 as the register A operand of
-// dQ += dS K (K MN-major, the transpose bit set). dQ ([64, 128] float32 a
-// warpgroup) stays in registers for the whole key loop; scale is applied
-// once, in the epilogue. A thread's accumulator rows are fixed, so it reads
+// dQ += dS K (K MN-major, the transpose bit set; m64n128k16 at Dh 128,
+// m64n64k16 at 64). dQ ([64, Dh] float32 a warpgroup) stays in registers
+// for the whole key loop; scale is applied once, in the epilogue. A thread's accumulator rows are fixed, so it reads
 // its two rows' lse and delta from global memory once. Masks run only on
 // the tiles that cross the diagonal or the end of S. Causal blocks stop at
 // the diagonal; the longest Q tiles of every head launch first. 64-key
@@ -143,10 +144,14 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 namespace sm90 {
 
 constexpr int kDqBQ = 128, kDqBK = 64;
-constexpr uint32_t kDqQ = kDqBQ * kDH * 2;   // 32 KB: the Q or the dO tile
-constexpr uint32_t kDqKV = kDqBK * kDH * 2;  // 16 KB: a K or V tile
-// Q, dO, K[2], V[2], barriers, alignment.
-constexpr uint32_t kDqSmem = 2 * kDqQ + 4 * kDqKV + 7 * 8 + 1024;
+
+template <int DH>
+struct DqCfg {
+  static constexpr uint32_t kQ = kDqBQ * DH * 2;   // the Q or the dO tile: 32 KB at Dh 128
+  static constexpr uint32_t kKV = kDqBK * DH * 2;  // a K or V tile: 16 KB at Dh 128
+  // Q, dO, K[2], V[2], barriers, alignment.
+  static constexpr uint32_t kSmem = 2 * kQ + 4 * kKV + 7 * 8 + 1024;
+};
 
 // K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
 __device__ __forceinline__ int dq_kv_tiles(int q0, int S, int causal) {
@@ -160,29 +165,30 @@ __device__ __forceinline__ int dq_kv_tiles(int q0, int S, int causal) {
 // then dS = P (dP - delta) in place and dQ += dS K with dS as the register
 // A operand. Qw and dOw point at the warpgroup's 64 rows of the Q and dO
 // tiles; lse2 (times log2(e)) and dlt are the terms of the thread's rows
-// qi0 and qi0 + 8.
-template <int NK>
-__device__ __forceinline__ void dq_tile(float (&dqr)[64], const unsigned char* Qw,
+// qi0 and qi0 + 8. dqr holds Dh / 2 floats a thread.
+template <int NK, int N>
+__device__ __forceinline__ void dq_tile(float (&dqr)[N], const unsigned char* Qw,
                                         const unsigned char* dOw, const unsigned char* Kt,
                                         const unsigned char* Vt, uint64_t* full_v, uint32_t ph,
                                         const float (&lse2)[2], const float (&dlt)[2], int k0,
                                         int qi0, int S, int causal, bool edge, float scale_log2) {
+  constexpr int DH = 2 * N;
   const int lane = threadIdx.x % 32;
   float sc[NK / 2], dp[NK / 2];
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t a = (kk / 4) * (kDqQ / 2) + (kk % 4) * 32;
-    const uint32_t b = (kk / 4) * (kDqKV / 2) + (kk % 4) * 32;
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t a = (kk / 4) * (kDqBQ * 128) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (kDqBK * 128) + (kk % 4) * 32;
     wgmma_ss(sc, desc(Qw + a, 16, 1024), desc(Kt + b, 16, 1024), kk);
   }
   wgmma_commit();
   mbar_wait(full_v, ph);
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < 8; ++kk) {
-    const uint32_t a = (kk / 4) * (kDqQ / 2) + (kk % 4) * 32;
-    const uint32_t b = (kk / 4) * (kDqKV / 2) + (kk % 4) * 32;
+  for (int kk = 0; kk < DH / 16; ++kk) {
+    const uint32_t a = (kk / 4) * (kDqBQ * 128) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (kDqBK * 128) + (kk % 4) * 32;
     wgmma_ss(dp, desc(dOw + a, 16, 1024), desc(Vt + b, 16, 1024), kk);
   }
   wgmma_commit();
@@ -212,12 +218,13 @@ __device__ __forceinline__ void dq_tile(float (&dqr)[64], const unsigned char* Q
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < NK / 16; ++kk)
-    wgmma_rs_n128(dqr, dsa[kk], desc(Kt + kk * 16 * 128, kDqKV / 2, 1024), 1);
+    wgmma_rs(dqr, dsa[kk], desc(Kt + kk * 16 * 128, kDqBK * 128, 1024), 1);
   wgmma_commit();
   wgmma_wait<0>();
   reg_fence(dqr);
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_bwd_dq_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
@@ -226,6 +233,7 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq, int BH, int S, int causal,
                              float scale, float scale_log2) {
+  constexpr uint32_t kDqQ = DqCfg<DH>::kQ, kDqKV = DqCfg<DH>::kKV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
   unsigned char* Qs = smem;
@@ -265,15 +273,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       prefetch_map(&map_k);
       prefetch_map(&map_v);
       mbar_expect(bar_q, 2 * kDqQ);
-      tma_load_tile(Qs, &map_q, bar_q, kDqBQ, q0, bh);
-      tma_load_tile(dOs, &map_do, bar_q, kDqBQ, q0, bh);
+      tma_load_tile<DH>(Qs, &map_q, bar_q, kDqBQ, q0, bh);
+      tma_load_tile<DH>(dOs, &map_do, bar_q, kDqBQ, q0, bh);
       for (int j = 0; j < n_k; ++j) {
         const int s = j & 1;
         mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
         mbar_expect(&full_k[s], kDqKV);
-        tma_load_tile(Ks + s * kDqKV, &map_k, &full_k[s], kDqBK, j * kDqBK, bh);
+        tma_load_tile<DH>(Ks + s * kDqKV, &map_k, &full_k[s], kDqBK, j * kDqBK, bh);
         mbar_expect(&full_v[s], kDqKV);
-        tma_load_tile(Vs + s * kDqKV, &map_v, &full_v[s], kDqBK, j * kDqBK, bh);
+        tma_load_tile<DH>(Vs + s * kDqKV, &map_v, &full_v[s], kDqBK, j * kDqBK, bh);
       }
     }
   } else {
@@ -291,9 +299,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const unsigned char* Qw = Qs + 64 * wg * 128;
     const unsigned char* dOw = dOs + 64 * wg * 128;
-    float dqr[64];
+    float dqr[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) dqr[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) dqr[i] = 0.f;
     mbar_wait(bar_q, 0);
     for (int j = 0; j < n_k; ++j) {
       const int s = j & 1, k0 = j * kDqBK;
@@ -307,23 +315,25 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&empty[s]);
     }
     // This warpgroup's Q rows are read by no one now: stage dQ there.
-    store_rows(dqr, scale, scale, Qs, kDqBQ, 64 * wg, dq + (size_t)bh * S * kDH, row0, S, 1 + wg);
+    store_rows(dqr, scale, scale, Qs, kDqBQ, 64 * wg, dq + (size_t)bh * S * DH, row0, S, 1 + wg);
   }
 }
 
-inline cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
-                             const void* lse, const void* delta, void* dq, int bh, int s,
-                             int causal, float scale, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
+                      const void* lse, const void* delta, void* dq, int bh, int s, int causal,
+                      float scale, cudaStream_t stream) {
+  constexpr uint32_t kSmem = DqCfg<DH>::kSmem;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
-  if ((e = encode_map(&mq, q, bh, s, kDqBQ)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, kDqBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mv, v, bh, s, kDqBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mdo, dout, bh, s, kDqBQ)) != cudaSuccess) return e;
-  if ((e = allow_smem(flash_bwd_dq_kernel_sm90, kDqSmem)) != cudaSuccess) return e;
+  if ((e = encode_map(&mq, q, bh, s, DH, kDqBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, kDqBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, kDqBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, DH, kDqBQ)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_bwd_dq_kernel_sm90<DH>, kSmem)) != cudaSuccess) return e;
   const long long blocks = (long long)((s + kDqBQ - 1) / kDqBQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel_sm90<<<(unsigned)blocks, kThreads, kDqSmem, stream>>>(
+  flash_bwd_dq_kernel_sm90<DH><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), bh, s, causal, scale, scale * kLog2e);
   return cudaGetLastError();
@@ -334,8 +344,8 @@ inline cudaError_t launch_dq(const void* q, const void* k, const void* v, const 
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
-// delta: float32 [bh, s]. dh is 128. Launches on `stream` and
-// returns the launch's CUDA error code.
+// delta: float32 [bh, s]. dh is 64 or 128, in both dtypes. Launches on
+// `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int s,
                                  int dh, int causal, float scale, int is_bf16, void* stream) {
@@ -343,11 +353,21 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
   if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
   if (is_bf16 && dh == 128)
-    return (int)sm90::launch_dq(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+    return (int)sm90::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 64)
+    return (int)sm90::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
     return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 64)
+    return (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block of the bf16 kernel takes, in bytes.
-extern "C" int dmlc_flash_bwd_dq_smem_bytes(void) { return (int)flash::sm90::kDqSmem; }
+// Dynamic shared memory a block of the kernel for (dh, dtype) takes, in
+// bytes; 0 for a pair that has no kernel.
+extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
+  using namespace flash;
+  if (dh == 128) return (int)(is_bf16 ? sm90::DqCfg<128>::kSmem : DqCfg<float, 128>::bytes);
+  if (dh == 64) return (int)(is_bf16 ? sm90::DqCfg<64>::kSmem : DqCfg<float, 64>::bytes);
+  return 0;
+}

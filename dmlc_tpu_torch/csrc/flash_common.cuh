@@ -1,34 +1,27 @@
-// flash_common.cuh: what the three flash-attention kernels share
-// (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
+// flash_common.cuh: what the flash-attention kernels share outside
+// flash_sm90.cuh (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// Every kernel is one block of kThreads threads per output tile, with its
-// operand tiles staged in shared memory and its float32 accumulators kept
-// there too, so that the online-softmax rescale and the masks are plain
-// per-element loops. The tile products go through gemm(), which has two
-// bodies chosen by the element type:
-//
-// - bfloat16: nvcuda::wmma 16x16x16 bf16 products with float32
-//   accumulation (the tensor cores' mma.sync path);
-// - float32: register-tiled FMA on the CUDA cores, in full float32 (no
-//   TF32), each thread owning a (M/16) x (N/16) grid of outputs.
+// - cp.async: 16-byte and 4-byte copies from global into shared memory
+//   that run beside the products (commit groups, wait_group), with zero
+//   fill past the end of S. The float32 forward and dK/dV stream their
+//   K/V or Q/dO tiles through a 2-stage ring of them (cp_tile).
+// - The float32 dq kernel's first design: one block of kThreads threads per
+//   output tile, operand tiles staged in shared memory with synchronous
+//   loads (load_tile), float32 accumulators kept there too, and the tile
+//   products on register-tiled FMA (gemm(), full float32, no TF32), each
+//   thread owning a (M/16) x (N/16) grid of outputs.
 //
 // Shared-memory rows are padded by 16 bytes, which keeps 16-byte vector
-// stores and wmma's 32-byte fragment alignment and spreads the rows of a
-// column read over the banks. Regions are carved in 128-byte steps.
+// stores and spreads the rows of a column read over the banks. Regions are
+// carved in 128-byte steps.
 
 #pragma once
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
-#include <mma.h>
 #include <stdint.h>
 
-#include <type_traits>
-
 namespace flash {
-
-typedef __nv_bfloat16 bf16;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = kWarps * 32;
@@ -41,15 +34,10 @@ struct Ld {
   static constexpr int value = COLS + 16 / (int)sizeof(T);
 };
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(bf16 x) { return __bfloat162float(x); }
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
 __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ bf16 from_f32<bf16>(float x) { return __float2bfloat16(x); }
 
 // Hands out consecutive 128-byte-aligned regions of dynamic shared memory.
 struct SmemCursor {
@@ -87,54 +75,10 @@ __device__ __forceinline__ void load_rows(float* __restrict__ sm, const float* _
   for (int r = threadIdx.x; r < R; r += kThreads) sm[r] = row0 + r < S ? g[row0 + r] : 0.f;
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // C[M x N] (float32, leading dim ldc) = or += A[M x K] . B[K x N], all in
 // shared memory. A(i, k) is A[i * lda + k], or A[k * lda + i] when A_COL;
 // B(k, j) is B[k * ldb + j], or B[j * ldb + k] when B_COL. ACC adds to C.
 //
-// bfloat16: each warp takes 16 x 16 output tiles in turn and runs the K
-// loop on the tensor cores (wmma, float32 accumulators).
-template <int M, int N, int K, bool A_COL, bool B_COL, bool ACC>
-__device__ __forceinline__ void gemm(float* C, int ldc, const bf16* A, int lda, const bf16* B,
-                                     int ldb) {
-  using namespace nvcuda;
-  static_assert(M % 16 == 0 && N % 16 == 0 && K % 16 == 0, "wmma tiles are 16 x 16 x 16");
-  typedef typename std::conditional<A_COL, wmma::col_major, wmma::row_major>::type LayoutA;
-  typedef typename std::conditional<B_COL, wmma::col_major, wmma::row_major>::type LayoutB;
-  constexpr int kTilesN = N / 16;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * kTilesN; t += kWarps) {
-    const int tm = t / kTilesN, tn = t - (t / kTilesN) * kTilesN;
-    float* cp = C + tm * 16 * ldc + tn * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> acc;
-    if (ACC) {
-      wmma::load_matrix_sync(acc, cp, ldc, wmma::mem_row_major);
-    } else {
-      wmma::fill_fragment(acc, 0.f);
-    }
-#pragma unroll 4
-    for (int k = 0; k < K; k += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, LayoutA> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, LayoutB> b;
-      wmma::load_matrix_sync(a, A_COL ? A + k * lda + tm * 16 : A + tm * 16 * lda + k, lda);
-      wmma::load_matrix_sync(b, B_COL ? B + tn * 16 * ldb + k : B + k * ldb + tn * 16, ldb);
-      wmma::mma_sync(acc, a, b, acc);
-    }
-    wmma::store_matrix_sync(cp, acc, ldc, wmma::mem_row_major);
-  }
-}
-
 // float32: the 256 threads form a 16 x 16 grid; thread (ty, tx) owns rows
 // ty + 16 i and columns tx + 16 j, and runs the K loop with one FMA per
 // (row, column) pair, in full float32.
@@ -166,6 +110,69 @@ __device__ __forceinline__ void gemm(float* C, int ldc, const float* A, int lda,
   for (int i = 0; i < RM; ++i)
 #pragma unroll
     for (int j = 0; j < RN; ++j) C[(ty + 16 * i) * ldc + tx + 16 * j] = acc[i][j];
+}
+
+// ------------------------------------------------------------- cp.async
+
+__device__ __forceinline__ uint32_t shared_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from g to sm; zeros when !valid (g is then not read).
+__device__ __forceinline__ void cp_async16(void* sm, const void* g, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(shared_u32(sm)), "l"(g),
+               "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+// 4 bytes from g to sm; zero when !valid.
+__device__ __forceinline__ void cp_async4(void* sm, const void* g, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(shared_u32(sm)), "l"(g),
+               "r"(valid ? 4 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Waits until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Starts copying rows [row0, row0 + R) of a row-major float32 [S, DH]
+// matrix into a shared tile with leading dimension LD, 16 bytes a copy
+// over NT threads; rows at or past S are zero.
+template <int R, int DH, int LD, int NT>
+__device__ __forceinline__ void cp_tile(float* __restrict__ sm, const float* __restrict__ g,
+                                        int row0, int S) {
+  constexpr int kPerRow = DH / 4;
+#pragma unroll
+  for (int i = threadIdx.x; i < R * kPerRow; i += NT) {
+    const int r = i / kPerRow, c = (i - r * kPerRow) * 4;
+    const bool ok = row0 + r < S;
+    cp_async16(sm + r * LD + c, g + (size_t)(ok ? row0 + r : 0) * DH + c, ok);
+  }
+}
+
+__device__ __forceinline__ float4 ld4(const float* p) {
+  return *reinterpret_cast<const float4*>(p);
+}
+
+// Max and sum over the 16 lanes of a half-warp (the threads of one row
+// group in the float32 kernels).
+__device__ __forceinline__ float half_warp_max(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+
+__device__ __forceinline__ float half_warp_sum(float x) {
+#pragma unroll
+  for (int o = 1; o < 16; o <<= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
 }
 
 // Sets the dynamic shared-memory limit of `kernel` (needed above 48 KB).

@@ -9,7 +9,8 @@
 // S=2048 bf16 Dh=128 (1 MB), so here every length streams K/V tiles
 // through one loop inside the block, and one kernel serves both rows.
 //
-// Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16. Outputs out
+// Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64 or
+// 128 (every head dim of the model registry). Outputs out
 // (q's dtype) and lse (float32 [BH, S]): out = softmax(scale q k^T) v with
 // keys past the query masked when causal, lse = m + log(max(l, 1e-30)). A
 // row with no visible key gets out 0 and lse -inf (pallas_kernels.py:210).
@@ -26,165 +27,256 @@
 // producer warpgroup gives its registers to them (setmaxnreg) and one of
 // its threads issues every copy. TMA loads the Q tile once and streams
 // 128-row K and V tiles through a 2-stage ring (full and empty mbarriers
-// per stage; 160 KB of shared memory), so the next tile loads while this
-// one is multiplied. S = Q K^T is wgmma m64n128k16 from shared memory with
+// per stage; 160 KB of shared memory at Dh 128, 80 KB at 64), so the next
+// tile loads while this one is multiplied. S = Q K^T is wgmma m64n128k16 from shared memory with
 // the float32 scores in registers; the online softmax runs on them (row
 // max and sum over the 4 threads of a row, scale * log2(e) folded into
 // exp2); P is rounded to bf16 in registers and is the register A operand
-// of O += P V (V MN-major, the transpose bit set); O stays in registers
-// ([64, 128] float32, 64 a thread), rescaled there. Masks run only on the
+// of O += P V (V MN-major, the transpose bit set; m64n128k16 at Dh 128,
+// m64n64k16 at 64); O stays in registers ([64, Dh] float32, Dh / 2 a
+// thread), rescaled there. At Dh 64, S = Q K^T takes 4 k-steps, not 8. Masks run only on the
 // tiles that cross the diagonal or the end of S. Causal blocks stop at the
 // diagonal; the longest Q tiles of every head launch first. The epilogue
 // stages O / l as bf16 through shared memory into 16-byte stores.
 //
-// float32 keeps the first design: one block of 256 threads per (BH,
-// 64-row Q tile), Q, K, V, the scores and the float32 output accumulator
-// in shared memory, the products on FMA in full float32 (gemm()), the
-// online softmax one warp per row, no overlap of loads with products.
+// float32, the FMA design (flash::f32 below): Hopper has no full-float32
+// tensor-core product, so the products are register-tiled FMA on the CUDA
+// cores, in full float32 (no TF32), bound by the 67 TFLOP/s float32 peak
+// (0.77 ms at the train shape). One block of 128 threads per (BH, 64-row Q
+// tile), two blocks an SM. The threads form 8 row groups of 16 (a
+// half-warp each); group g owns query rows g + 8 i (i < 8), so the two
+// half-warps of a warp read neighbouring rows. Q stays in shared memory; 32-key K and V tiles stream
+// through a 2-stage cp.async ring, so the next tile loads while this one is
+// multiplied. Per tile a thread computes S for its 8 rows x 2 keys (keys c,
+// c + 16) and keeps it in registers: Q and K rows are read along Dh as
+// float4, Q's broadcast across the half-warp. The online softmax runs on
+// those registers, the row max and sum over the half-warp by
+// __shfl_xor_sync; P goes to shared memory once, as the A operand of O +=
+// P V, and O ([8 rows, Dh / 16 columns] a thread, columns 64 h + 4 c) stays
+// in registers for the whole loop. Masks run only on the tiles that cross
+// the diagonal or the end of S. Shared memory at Dh 128: Q 33 KB, the ring
+// 66 KB, P 9 KB. Against 128-row tiles (256 threads, one block an SM) the
+// 64-row ones ran 6% faster, and the ring 3% faster than loading each
+// tile before multiplying it (PERF.md, section 6; tools/flash_levers.py).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
 namespace flash {
 
-template <typename T, int DH>
+namespace f32 {
+
+constexpr int kFwdRows = 64;          // query rows a block
+constexpr int kFwdRowsPerThread = 8;  // rows a row group (16 threads) owns
+constexpr int kFwdKeys = 32;          // keys a K/V tile
+constexpr int kFwdStages = 2;         // K/V ring depth
+constexpr int kFwdThreads = 16 * kFwdRows / kFwdRowsPerThread;
+
+template <int DH>
 struct FwdCfg {
-  static constexpr int BQ = 64, BK = 64;
-  static constexpr int LDT = Ld<T, DH>::value;   // Q, K, V tiles
-  static constexpr int LDS = BK + 4;             // float32 scores
-  static constexpr int LDP = Ld<T, BK>::value;   // probabilities in T
-  static constexpr int LDO = DH + 4;             // float32 output accumulator
-  static constexpr size_t bytes = round128(BQ * LDT * sizeof(T)) +
-                                  2 * round128(BK * LDT * sizeof(T)) +
-                                  round128(BQ * LDS * sizeof(float)) +
-                                  round128(BQ * LDP * sizeof(T)) +
-                                  round128(BQ * LDO * sizeof(float)) +
-                                  3 * round128(BQ * sizeof(float));
+  static constexpr int BQ = kFwdRows, BK = kFwdKeys, RPT = kFwdRowsPerThread;
+  static constexpr int kThreads = kFwdThreads, G = BQ / RPT;  // G row groups
+  static constexpr int LD = DH + 4;    // Q, K, V rows (floats), padded by 16 bytes
+  static constexpr int LDP = BK + 4;   // P rows
+  static constexpr int NKT = BK / 16;  // keys a thread owns in S
+  static constexpr int NC4 = DH / 64;  // float4 columns a thread owns in O
+  static constexpr size_t bytes =
+      sizeof(float) * ((size_t)BQ * LD + 2 * kFwdStages * (size_t)BK * LD + (size_t)BQ * LDP);
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     T* __restrict__ out, float* __restrict__ lse, int BH, int S, int causal,
-                     float scale) {
-  typedef FwdCfg<T, DH> C;
-  constexpr int BQ = C::BQ, BK = C::BK;
+// K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+__device__ __forceinline__ int fwd_tiles(int q0, int S, int causal) {
+  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys;
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ lse, int BH, int S, int causal, float scale) {
+  typedef FwdCfg<DH> C;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDP = C::LDP, G = C::G, RPT = C::RPT;
+  constexpr int NKT = C::NKT, NC4 = C::NC4;
   extern __shared__ __align__(128) unsigned char smem[];
-  SmemCursor cur{smem};
-  T* Qs = cur.take<T>(BQ * C::LDT);
-  T* Ks = cur.take<T>(BK * C::LDT);
-  T* Vs = cur.take<T>(BK * C::LDT);
-  float* Ss = cur.take<float>(BQ * C::LDS);
-  T* Ps = cur.take<T>(BQ * C::LDP);
-  float* Os = cur.take<float>(BQ * C::LDO);
-  float* m_s = cur.take<float>(BQ);
-  float* l_s = cur.take<float>(BQ);
-  float* corr_s = cur.take<float>(BQ);
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KVs = Qs + BQ * LD;  // stage s: K at KVs + 2 s BK LD, V BK LD after it
+  float* Ps = KVs + 2 * kFwdStages * BK * LD;
 
   // Block order: the last (longest, when causal) Q tile of every head first.
   const int n_tiles = (S + BQ - 1) / BQ;
   const int bh = blockIdx.x % BH;
   const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * BQ;
   const size_t base = (size_t)bh * S * DH;
-  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g = threadIdx.x / 16, c = threadIdx.x % 16;
+  const int n_k = fwd_tiles(q0, S, causal);
 
-  load_tile<T, BQ, DH, C::LDT>(Qs, q + base, q0, S);
-  for (int i = tid; i < BQ * C::LDO; i += kThreads) Os[i] = 0.f;
-  for (int r = tid; r < BQ; r += kThreads) {
-    m_s[r] = -INFINITY;
-    l_s[r] = 0.f;
+  auto load_kv = [&](int j, int stage) {
+    float* Kt = KVs + stage * 2 * BK * LD;
+    cp_tile<BK, DH, LD, C::kThreads>(Kt, k + base, j * BK, S);
+    cp_tile<BK, DH, LD, C::kThreads>(Kt + BK * LD, v + base, j * BK, S);
+  };
+  cp_tile<BQ, DH, LD, C::kThreads>(Qs, q + base, q0, S);
+  load_kv(0, 0);
+  cp_async_commit();
+
+  float o[RPT][NC4][4], m[RPT], l[RPT];  // l: this thread's keys' part of the row sum
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < NC4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][h][e] = 0.f;
   }
 
-  const int q_end = min(q0 + BQ, S);
-  const int n_k = ((causal ? q_end : S) + BK - 1) / BK;
   for (int j = 0; j < n_k; ++j) {
+    if (j + 1 < n_k) load_kv(j + 1, (j + 1) % kFwdStages);
+    cp_async_commit();
+    cp_async_wait<kFwdStages - 1>();
+    __syncthreads();  // tile j (and Q) in shared memory for every thread
+    const float* Kt = KVs + (j % kFwdStages) * 2 * BK * LD;
+    const float* Vt = Kt + BK * LD;
     const int k0 = j * BK;
-    __syncthreads();  // the last tile's readers of Ks, Vs and Ps are done
-    load_tile<T, BK, DH, C::LDT>(Ks, k + base, k0, S);
-    load_tile<T, BK, DH, C::LDT>(Vs, v + base, k0, S);
-    __syncthreads();
-    gemm<BQ, BK, DH, false, true, false>(Ss, C::LDS, Qs, C::LDT, Ks, C::LDT);
-    __syncthreads();
-    // Online softmax, one warp per row: fold this tile into (m, l).
-    for (int r = warp; r < BQ; r += kWarps) {
-      const int qi = q0 + r;
-      float sv[BK / 32];
+
+    // S = Q K^T for rows g + G i and keys c + 16 u.
+    float s[RPT][NKT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) s[i][u] = 0.f;
+#pragma unroll 4
+    for (int kk = 0; kk < DH; kk += 4) {
+      float4 b[NKT];
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) b[u] = ld4(Kt + (c + 16 * u) * LD + kk);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 a = ld4(Qs + (g + G * i) * LD + kk);
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) {
+          s[i][u] = fmaf(a.x, b[u].x, s[i][u]);
+          s[i][u] = fmaf(a.y, b[u].y, s[i][u]);
+          s[i][u] = fmaf(a.z, b[u].z, s[i][u]);
+          s[i][u] = fmaf(a.w, b[u].w, s[i][u]);
+        }
+      }
+    }
+
+    // Online softmax: fold this tile into (m, l), rescale O, P to shared.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = g + G * i, qi = q0 + row;
       float mx = -INFINITY;
 #pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const int kj = k0 + lane + 32 * u;
-        const bool visible = kj < S && (!causal || kj <= qi);
-        sv[u] = visible ? Ss[r * C::LDS + lane + 32 * u] * scale : -INFINITY;
-        mx = fmaxf(mx, sv[u]);
+      for (int u = 0; u < NKT; ++u) {
+        float x = s[i][u] * scale;
+        if (edge) {
+          const int kj = k0 + c + 16 * u;
+          if (kj >= S || (causal && kj > qi)) x = -INFINITY;
+        }
+        s[i][u] = x;
+        mx = fmaxf(mx, x);
       }
-      mx = warp_max(mx);
-      const float m_old = m_s[r];
-      const float m_new = fmaxf(m_old, mx);
-      // A row with nothing visible so far keeps m = -inf and corr 1.
-      const float corr = m_new == -INFINITY ? 1.f : expf(m_old - m_new);
+      const float mn = fmaxf(m[i], half_warp_max(mx));
+      // A row with nothing visible so far keeps m = -inf: subtract 0 there.
+      const float b0 = mn == -INFINITY ? 0.f : mn;
+      const float corr = expf(m[i] - b0);
+      m[i] = mn;
       float sum = 0.f;
 #pragma unroll
-      for (int u = 0; u < BK / 32; ++u) {
-        const float p = sv[u] == -INFINITY ? 0.f : expf(sv[u] - m_new);
-        Ps[r * C::LDP + lane + 32 * u] = from_f32<T>(p);
+      for (int u = 0; u < NKT; ++u) {
+        const float p = expf(s[i][u] - b0);
+        Ps[row * LDP + c + 16 * u] = p;
         sum += p;
       }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        l_s[r] = l_s[r] * corr + sum;
-        m_s[r] = m_new;
-        corr_s[r] = corr;
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int h = 0; h < NC4; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][h][e] *= corr;
+    }
+    __syncwarp();  // a row group's P rows are written and read by its own half-warp
+
+    // O += P V: P rows along the keys as float4, V rows at columns 64 h + 4 c.
+#pragma unroll 2
+    for (int jj = 0; jj < BK; jj += 4) {
+      float4 bv[4][NC4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+#pragma unroll
+        for (int h = 0; h < NC4; ++h) bv[e][h] = ld4(Vt + (jj + e) * LD + 64 * h + 4 * c);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const float4 a = ld4(Ps + (g + G * i) * LDP + jj);
+        const float pa[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+#pragma unroll
+          for (int h = 0; h < NC4; ++h) {
+            o[i][h][0] = fmaf(pa[e], bv[e][h].x, o[i][h][0]);
+            o[i][h][1] = fmaf(pa[e], bv[e][h].y, o[i][h][1]);
+            o[i][h][2] = fmaf(pa[e], bv[e][h].z, o[i][h][2]);
+            o[i][h][3] = fmaf(pa[e], bv[e][h].w, o[i][h][3]);
+          }
       }
     }
-    __syncthreads();
-    for (int i = tid; i < BQ * DH; i += kThreads) {
-      const int r = i / DH;
-      Os[r * C::LDO + (i - r * DH)] *= corr_s[r];
+    __syncthreads();  // every reader of this stage and of P is done
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float lt = fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const int qi = q0 + g + G * i;
+    if (qi < S) {
+#pragma unroll
+      for (int h = 0; h < NC4; ++h)
+        *reinterpret_cast<float4*>(out + base + (size_t)qi * DH + 64 * h + 4 * c) =
+            make_float4(o[i][h][0] / lt, o[i][h][1] / lt, o[i][h][2] / lt, o[i][h][3] / lt);
+      if (c == 0) lse[(size_t)bh * S + qi] = m[i] + logf(lt);
     }
-    __syncthreads();
-    gemm<BQ, DH, BK, false, false, true>(Os, C::LDO, Ps, C::LDP, Vs, C::LDT);
   }
-  __syncthreads();
-  for (int i = tid; i < BQ * DH; i += kThreads) {
-    const int r = i / DH, c = i - r * DH;
-    if (q0 + r < S)
-      out[base + (size_t)(q0 + r) * DH + c] =
-          from_f32<T>(Os[r * C::LDO + c] / fmaxf(l_s[r], 1e-30f));
-  }
-  for (int r = tid; r < BQ; r += kThreads)
-    if (q0 + r < S) lse[(size_t)bh * S + q0 + r] = m_s[r] + logf(fmaxf(l_s[r], 1e-30f));
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                        int s, int causal, float scale, cudaStream_t stream) {
-  typedef FwdCfg<T, DH> C;
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, DH>, C::bytes);
+  typedef FwdCfg<DH> C;
+  cudaError_t e = allow_smem(flash_fwd_f32_kernel<DH>, C::bytes);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((s + C::BQ - 1) / C::BQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_kernel<T, DH><<<(unsigned)blocks, kThreads, C::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), bh, s, causal, scale);
+  flash_fwd_f32_kernel<DH><<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), bh, s, causal, scale);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 namespace sm90 {
 
 constexpr int kFwdBQ = 128, kFwdBK = 128;
-constexpr uint32_t kFwdTile = kFwdBQ * kDH * 2;  // 32 KB: a Q, K or V tile
-constexpr uint32_t kFwdSmem = 5 * kFwdTile + 7 * 8 + 1024;  // Q, K[2], V[2], barriers, alignment
+
+template <int DH>
+struct FwdCfg {
+  static constexpr uint32_t kTile = kFwdBQ * DH * 2;  // a Q, K or V tile: 32 KB at Dh 128
+  static constexpr uint32_t kSmem = 5 * kTile + 7 * 8 + 1024;  // Q, K[2], V[2], barriers, alignment
+};
 
 // K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
 __device__ __forceinline__ int fwd_kv_tiles(int q0, int S, int causal) {
   return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK;
 }
 
+template <int DH>
 __global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int BH, int S, int causal, float scale_log2) {
+  constexpr uint32_t kFwdTile = FwdCfg<DH>::kTile;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
   unsigned char* Qs = smem;
@@ -222,14 +314,14 @@ __global__ void __launch_bounds__(kThreads, 1)
       prefetch_map(&map_k);
       prefetch_map(&map_v);
       mbar_expect(bar_q, kFwdTile);
-      tma_load_tile(Qs, &map_q, bar_q, kFwdBQ, q0, bh);
+      tma_load_tile<DH>(Qs, &map_q, bar_q, kFwdBQ, q0, bh);
       for (int j = 0; j < n_k; ++j) {
         const int s = j & 1;
         mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
         mbar_expect(&full_k[s], kFwdTile);
-        tma_load_tile(Ks + s * kFwdTile, &map_k, &full_k[s], kFwdBK, j * kFwdBK, bh);
+        tma_load_tile<DH>(Ks + s * kFwdTile, &map_k, &full_k[s], kFwdBK, j * kFwdBK, bh);
         mbar_expect(&full_v[s], kFwdTile);
-        tma_load_tile(Vs + s * kFwdTile, &map_v, &full_v[s], kFwdBK, j * kFwdBK, bh);
+        tma_load_tile<DH>(Vs + s * kFwdTile, &map_v, &full_v[s], kFwdBK, j * kFwdBK, bh);
       }
     }
   } else {
@@ -238,9 +330,9 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row_lo = 64 * wg + 16 * (t / 32) + lane / 4;  // and row_lo + 8
     const int qi0 = q0 + row_lo, qi1 = qi0 + 8;
-    float o[64];
+    float o[DH / 2];
 #pragma unroll
-    for (int i = 0; i < 64; ++i) o[i] = 0.f;
+    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
     mbar_wait(bar_q, 0);
     for (int j = 0; j < n_k; ++j) {
@@ -252,8 +344,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       float sc[64];
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk) {
-        const uint32_t at = (kk / 4) * (kFwdTile / 2) + (kk % 4) * 32;
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t at = (kk / 4) * (kFwdBQ * 128) + (kk % 4) * 32;  // kFwdBQ == kFwdBK
         wgmma_ss_n128(sc, desc(Qs + at + 64 * wg * 128, 16, 1024), desc(Kt + at, 16, 1024),
                          kk);
       }
@@ -297,7 +389,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       l0 = l0 * c0 + sum0;
       l1 = l1 * c1 + sum1;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) o[i] *= (i % 4) < 2 ? c0 : c1;
+      for (int i = 0; i < DH / 2; ++i) o[i] *= (i % 4) < 2 ? c0 : c1;
       uint32_t pa[8][4];
       to_a_operand(sc, pa);
 
@@ -305,7 +397,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs_n128(o, pa[kk], desc(Vt + kk * 16 * 128, kFwdTile / 2, 1024), 1);
+        wgmma_rs(o, pa[kk], desc(Vt + kk * 16 * 128, kFwdBK * 128, 1024), 1);
       wgmma_commit();
       wgmma_wait<0>();
       reg_fence(o);
@@ -324,22 +416,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (qi1 < S) lse[(size_t)bh * S + qi1] = m1 * kLn2 + logf(l1);
     }
     // This warpgroup's Q rows are read by no one now: stage O / l there.
-    store_rows(o, 1.f / l0, 1.f / l1, Qs, kFwdBQ, 64 * wg, out + (size_t)bh * S * kDH,
+    store_rows(o, 1.f / l0, 1.f / l1, Qs, kFwdBQ, 64 * wg, out + (size_t)bh * S * DH,
                q0 + 64 * wg, S, 1 + wg);
   }
 }
 
-inline cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
-                              int bh, int s, int causal, float scale, cudaStream_t stream) {
+template <int DH>
+cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
+                       int s, int causal, float scale, cudaStream_t stream) {
+  constexpr uint32_t kSmem = FwdCfg<DH>::kSmem;
   CUtensorMap mq, mk, mv;
   cudaError_t e;
-  if ((e = encode_map(&mq, q, bh, s, kFwdBQ)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, kFwdBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mv, v, bh, s, kFwdBK)) != cudaSuccess) return e;
-  if ((e = allow_smem(flash_fwd_kernel_sm90, kFwdSmem)) != cudaSuccess) return e;
+  if ((e = encode_map(&mq, q, bh, s, DH, kFwdBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, kFwdBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, kFwdBK)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_fwd_kernel_sm90<DH>, kSmem)) != cudaSuccess) return e;
   const long long blocks = (long long)((s + kFwdBQ - 1) / kFwdBQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_kernel_sm90<<<(unsigned)blocks, kThreads, kFwdSmem, stream>>>(
+  flash_fwd_kernel_sm90<DH><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), bh, s, causal,
       scale * kLog2e);
   return cudaGetLastError();
@@ -350,18 +444,30 @@ inline cudaError_t launch_fwd(const void* q, const void* k, const void* v, void*
 }  // namespace flash
 
 // q, k, v, out: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse:
-// float32 [bh, s]. dh is 128. Launches on `stream` and returns the
-// launch's CUDA error code.
+// float32 [bh, s]. dh is 64 or 128, in both dtypes. Launches on `stream`
+// and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int bh, int s, int dh, int causal, float scale, int is_bf16,
                               void* stream) {
   using namespace flash;
   if (bh <= 0 || s <= 0) return (int)cudaErrorInvalidValue;
   cudaStream_t st = reinterpret_cast<cudaStream_t>(stream);
-  if (is_bf16 && dh == 128) return (int)sm90::launch_fwd(q, k, v, out, lse, bh, s, causal, scale, st);
-  if (!is_bf16 && dh == 128) return (int)launch_fwd<float, 128>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 128)
+    return (int)sm90::launch_fwd<128>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 64)
+    return (int)sm90::launch_fwd<64>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 128)
+    return (int)f32::launch_fwd<128>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 64)
+    return (int)f32::launch_fwd<64>(q, k, v, out, lse, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
-// Dynamic shared memory a block of the bf16 kernel takes, in bytes.
-extern "C" int dmlc_flash_fwd_smem_bytes(void) { return (int)flash::sm90::kFwdSmem; }
+// Dynamic shared memory a block of the kernel for (dh, dtype) takes, in
+// bytes; 0 for a pair that has no kernel.
+extern "C" int dmlc_flash_fwd_smem_bytes(int dh, int is_bf16) {
+  using namespace flash;
+  if (dh == 128) return (int)(is_bf16 ? sm90::FwdCfg<128>::kSmem : f32::FwdCfg<128>::bytes);
+  if (dh == 64) return (int)(is_bf16 ? sm90::FwdCfg<64>::kSmem : f32::FwdCfg<64>::bytes);
+  return 0;
+}

@@ -1,14 +1,15 @@
 // flash_sm90.cuh: the Hopper building blocks of the bf16 flash kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// - TMA: tiles of a [BH, S, 128] bf16 tensor are copied into shared memory
-//   by the Tensor Memory Accelerator, one thread issuing each copy. The
-//   tensor map is 3-D over (d, s, bh), so rows past S of one head are
-//   zero-filled instead of read from the next head. The 128-byte swizzle
-//   limits a box to 64 columns (128 bytes), so a [R, 128] tile is two
-//   boxes: column half h lands at h * R * 128 bytes, row r of it at
-//   r * 128, its 16-byte chunk c at chunk c ^ (r % 8). Tiles start on
-//   1024-byte boundaries, the swizzle's period.
+// - TMA: tiles of a [BH, S, DH] bf16 tensor (DH 64 or 128, a template
+//   parameter of every kernel) are copied into shared memory by the Tensor
+//   Memory Accelerator, one thread issuing each copy. The tensor map is 3-D
+//   over (d, s, bh), so rows past S of one head are zero-filled instead of
+//   read from the next head. The 128-byte swizzle limits a box to 64
+//   columns (128 bytes), so a [R, DH] tile is DH / 64 boxes: column half h
+//   lands at h * R * 128 bytes, row r of it at r * 128, its 16-byte chunk c
+//   at chunk c ^ (r % 8). At DH 64 a row is one swizzle atom and a tile one
+//   box. Tiles start on 1024-byte boundaries, the swizzle's period.
 // - mbarriers: each copy reports its bytes to a barrier in shared memory;
 //   consumers wait on the barrier's phase parity.
 // - wgmma: a warpgroup (4 warps) multiplies a 64-row A by B from shared
@@ -34,7 +35,6 @@
 namespace flash {
 namespace sm90 {
 
-constexpr int kDH = 128;                 // head dim the kernels are built for
 constexpr int kConsumerThreads = 256;    // two consumer warpgroups
 constexpr int kThreads = 384;            // + one producer warpgroup
 constexpr float kLog2e = 1.4426950408889634f;
@@ -95,11 +95,13 @@ __device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint
       : "memory");
 }
 
-// A [rows, 128] tile: both 64-column halves, `rows` * 256 bytes in all.
+// A [rows, DH] tile: its DH / 64 column halves, `rows` * DH * 2 bytes in all.
+template <int DH>
 __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map, uint64_t* bar,
                                               int rows, int row0, int bh) {
-  tma_load(dst, map, bar, 0, row0, bh);
-  tma_load(static_cast<char*>(dst) + rows * 128, map, bar, 64, row0, bh);
+#pragma unroll
+  for (int h = 0; h < DH / 64; ++h)
+    tma_load(static_cast<char*>(dst) + h * rows * 128, map, bar, 64 * h, row0, bh);
 }
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
@@ -127,8 +129,8 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
 
 // Shared-memory operand descriptor, 128-byte swizzle. lbo and sbo in bytes:
 // K-major (the reduction dim contiguous): sbo = 1024 between 8-row groups,
-// lbo unused; MN-major: lbo between 64-column halves, sbo = 1024 between
-// 8-row (k) groups.
+// lbo unused; MN-major: lbo between 64-column halves (unused when N is 64,
+// one half), sbo = 1024 between 8-row (k) groups.
 __device__ __forceinline__ uint64_t desc(const void* p, uint32_t lbo, uint32_t sbo) {
   return (uint64_t)((smem_u32(p) & 0x3FFFFu) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
          ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
@@ -233,6 +235,34 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
 }
 
+// D[64 x 64] (+)= A . B, A from registers (four bf16x2 per thread), B from
+// shared memory MN-major (the transpose bit set).
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(acc));
+}
+
+// D (+)= A . B, A from registers, B MN-major from shared memory, N by the
+// accumulator's size: 64 floats a thread for N = 128, 32 for N = 64.
+__device__ __forceinline__ void wgmma_rs(float (&d)[64], const uint32_t (&a)[4], uint64_t db, int acc) {
+  wgmma_rs_n128(d, a, db, acc);
+}
+
+__device__ __forceinline__ void wgmma_rs(float (&d)[32], const uint32_t (&a)[4], uint64_t db, int acc) {
+  wgmma_rs_n64(d, a, db, acc);
+}
+
 // Two floats as one bf16 pair (x in the low half).
 __device__ __forceinline__ uint32_t pack_bf16(float x, float y) {
   __nv_bfloat162 v = __floats2bfloat162_rn(x, y);
@@ -248,25 +278,28 @@ __device__ __forceinline__ void to_a_operand(const float (&d)[N], uint32_t (&a)[
     for (int r = 0; r < 4; ++r) a[kk][r] = pack_bf16(d[8 * kk + 2 * r], d[8 * kk + 2 * r + 1]);
 }
 
-// Byte offset of element (row, col) of a [R, 128] bf16 tile in the TMA
+// Byte offset of element (row, col) of a [R, DH] bf16 tile in the TMA
 // layout above.
 __device__ __forceinline__ uint32_t tile_offset(int row, int col, int R) {
   return (uint32_t)((col >> 6) * R * 128 + row * 128 + ((((col >> 3) & 7) ^ (row & 7)) << 4) +
                     (col & 7) * 2);
 }
 
-// Writes a warpgroup's [64, 128] float32 accumulator, times `mul`, as bf16
-// into rows [row0, row0 + 64) of a [R, 128] tile in shared memory (the
-// swizzle keeps the eight rows of one store on distinct banks), then,
-// after the warpgroup's barrier `bar_id`, copies those rows to global
-// rows g_row0 + r < S of `g` ([S, 128] row-major) in 16-byte stores.
-__device__ __forceinline__ void store_rows(const float (&d)[64], float mul0, float mul1,
+// Writes a warpgroup's [64, DH] float32 accumulator (DH / 2 floats a
+// thread), times `mul`, as bf16 into rows [row0, row0 + 64) of a [R, DH]
+// tile in shared memory (the swizzle keeps the eight rows of one store on
+// distinct banks), then, after the warpgroup's barrier `bar_id`, copies
+// those rows to global rows g_row0 + r < S of `g` ([S, DH] row-major) in
+// 16-byte stores.
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&d)[N], float mul0, float mul1,
                                            unsigned char* tile, int R, int row0,
                                            __nv_bfloat16* g, int g_row0, int S, int bar_id) {
+  constexpr int DH = 2 * N, kChunks = DH / 8;  // 16-byte chunks a row
   const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
   const int r_lo = row0 + 16 * w + lane / 4;
 #pragma unroll
-  for (int i = 0; i < 64; i += 2) {
+  for (int i = 0; i < N; i += 2) {
     const int row = r_lo + 8 * ((i % 4) / 2);
     const int col = 8 * (i / 4) + 2 * (lane % 4);
     const float m = (i % 4) < 2 ? mul0 : mul1;
@@ -274,13 +307,13 @@ __device__ __forceinline__ void store_rows(const float (&d)[64], float mul0, flo
   }
   warpgroup_sync(bar_id);
 #pragma unroll
-  for (int k = 0; k < 8; ++k) {
-    const int idx = t + 128 * k;  // 64 rows x 16 chunks of 16 bytes
-    const int row = idx / 16, chunk = idx % 16;
+  for (int k = 0; k < 64 * kChunks / 128; ++k) {
+    const int idx = t + 128 * k;  // 64 rows x kChunks chunks
+    const int row = idx / kChunks, chunk = idx % kChunks;
     if (g_row0 + row < S) {
       const uint4 v =
           *reinterpret_cast<const uint4*>(tile + tile_offset(row0 + row, chunk * 8, R));
-      *reinterpret_cast<uint4*>(g + (size_t)(g_row0 + row) * kDH + chunk * 8) = v;
+      *reinterpret_cast<uint4*>(g + (size_t)(g_row0 + row) * DH + chunk * 8) = v;
     }
   }
 }
@@ -309,13 +342,13 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// Map of a [bh, s, 128] bf16 tensor in boxes of (64 columns, `rows`, 1),
+// Map of a [bh, s, dh] bf16 tensor in boxes of (64 columns, `rows`, 1),
 // 128-byte swizzle, zero fill past every edge.
-inline cudaError_t encode_map(CUtensorMap* map, const void* base, int bh, int s, int rows) {
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, int bh, int s, int dh, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)kDH, (cuuint64_t)s, (cuuint64_t)bh};
-  const cuuint64_t strides[2] = {(cuuint64_t)kDH * 2, (cuuint64_t)s * kDH * 2};
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)s * dh * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};
   CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims, strides,

@@ -148,8 +148,8 @@ def lm_wide(dtype: torch.dtype = torch.float32) -> TransformerLM:
                          hidden=512, mlp_dim=1024, max_len=LM_WIDE_MAX_LEN, dtype=dtype)
 
 
-def lm_small(dtype: torch.dtype = torch.float32) -> TransformerLM:
+def lm_small(dtype: torch.dtype = torch.float32, schedule: str = "dense") -> TransformerLM:
     """2 heads x 64 = 128 hidden, 2 layers, MLP 256, vocab 1024, max_len 256
     (``dmlc_tpu/models/lm.py:lm_small``)."""
     return TransformerLM(vocab=LM_SMALL_VOCAB, num_layers=2, num_heads=2, hidden=128,
-                         mlp_dim=256, max_len=LM_SMALL_MAX_LEN, dtype=dtype)
+                         mlp_dim=256, max_len=LM_SMALL_MAX_LEN, dtype=dtype, schedule=schedule)

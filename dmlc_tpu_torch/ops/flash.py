@@ -46,8 +46,9 @@ from dmlc_tpu_torch.parallel.ring_attention import dense_attention
 _RESIDENT_KV_BYTES = 4 * 1024 * 1024
 _FULL_BLOCK_CAP = 1024
 
-#: The head dim the CUDA kernels are compiled for (the LM train leg's).
-KERNEL_HEAD_DIM = 128
+#: The head dims the CUDA kernels are compiled for, in both dtypes: every
+#: transformer of the model registry has heads of 64 or 128.
+KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 
 
@@ -169,7 +170,7 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
                     rows: dict[str, torch.Tensor]) -> tuple[int, int, int]:
     """[BH, S, Dh] matrices of one shape on one device, and float32 [BH, S,
     1] row vectors; on a CUDA device also what the kernel takes: float32
-    or bfloat16, one dtype, a compiled head dim, contiguous and 16-byte
+    or bfloat16, one dtype, a head dim of ``KERNEL_HEAD_DIMS``, contiguous and 16-byte
     aligned."""
     first = next(iter(mats.values()))
     for name, t in {**mats, **rows}.items():
@@ -192,9 +193,9 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
         if first.dtype not in _KERNEL_DTYPES or any(t.dtype != first.dtype for t in mats.values()):
             raise TypeError(f"{what}: the kernel takes one dtype of {_KERNEL_DTYPES} for "
                             f"{list(mats)}, got {[t.dtype for t in mats.values()]}")
-        if dh != KERNEL_HEAD_DIM:
+        if dh not in KERNEL_HEAD_DIMS:
             raise ValueError(
-                f"{what}: the kernel is built for head dim {KERNEL_HEAD_DIM}, got {dh}")
+                f"{what}: the kernels are built for head dims {KERNEL_HEAD_DIMS}, got {dh}")
         for name, t in {**mats, **rows}.items():
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
@@ -316,8 +317,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     log-sum-exp and the backward recomputes p tile by tile. ``blk_q`` and
     ``blk_k`` are checked against the JAX package's block rule (an S
     with no legal block raises ``ValueError``: pad the sequence); the
-    kernels choose their own tiles. On the card Dh must be 128, the head
-    dim the kernels are built for."""
+    kernels choose their own tiles. On the card Dh must be one of
+    ``KERNEL_HEAD_DIMS`` (64, 128), the head dims the kernels are built
+    for."""
     _check_blocks(q, blk_q, blk_k)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -344,7 +346,11 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
 def flash_attention_block_bwd(q, k, v, out, lse, do, *, causal: bool = False,
                               scale: float | None = None, delta=None):
     """(dq, dk, dv) of one (q, k-block) pair against the GLOBAL out and lse
-    ([B, H, S, 1]); ``delta`` ([B, H, S, 1]) may be passed precomputed."""
+    ([B, H, S, 1]); ``delta`` ([B, H, S, 1]) may be passed precomputed. S
+    is checked by the JAX package's backward block rule, so a length with
+    no legal block raises ``ValueError`` (pad the sequence) as it does
+    there."""
+    _auto_block(q.shape[2], None, 256)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, s, dh = q.shape

@@ -11,10 +11,15 @@ Same numpy-seeded float32 inputs through both:
   by shrinking ``_RESIDENT_KV_BYTES`` at test time);
 - ``flash_attention_with_lse``'s lse and ``flash_attention_block_bwd``'s
   blockwise gradients against theirs;
-- the same ``ValueError`` for a length with no legal block, and the same
+- out and gradients at head dim 64 (the registry's other head dim, which
+  the kernels are built for beside 128) against the same;
+- the same ``ValueError`` for a length with no legal block (the backward's
+  block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
+- each flash entry point dispatches head dims 64 and 128 in both dtypes,
+  the set ``KERNEL_HEAD_DIMS`` the wrappers accept on the card;
 - each fault of ``tools/flash_fault_check.py`` and each lever of
-  ``tools/flash_dq_levers.py`` finds its line once in its kernel's source;
+  ``tools/flash_levers.py`` finds its line once in its kernel's source;
 - every kernel source built on ``csrc/flash_sm90.cuh`` is one that
   ``chip_smoke.py``'s build phase checks, and exports its shared memory.
 
@@ -25,6 +30,7 @@ atol 1e-5.
 
 import ast
 import importlib.util
+import re
 from pathlib import Path
 
 import jax
@@ -77,6 +83,13 @@ def test_out_and_grads_match_the_resident_forward(s, causal):
     _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"S={s}")
 
 
+@pytest.mark.parametrize("s", [193, 256])
+def test_out_and_grads_match_at_head_dim_64(s):
+    rng = np.random.default_rng(4)
+    q, k, v, g = (rng.standard_normal((B, H, s, 64), dtype=np.float32) for _ in range(4))
+    _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), f"Dh 64 S={s}")
+
+
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("s", [192, 512])
 def test_out_and_grads_match_the_streamed_forward(s, causal, monkeypatch):
@@ -115,6 +128,11 @@ def test_the_same_lengths_are_refused():
             call(t, t, t)
     with pytest.raises(ValueError, match="pad the sequence"):
         flash.flash_attention(t, t, t, blk_q=4096)
+    # The backward's own rule: the blockwise backward refuses the length too.
+    with pytest.raises(ValueError, match="pad the sequence"):
+        pk.flash_attention_block_bwd(x, x, x, x, x[..., :1], x)
+    with pytest.raises(ValueError, match="pad the sequence"):
+        flash.flash_attention_block_bwd(t, t, t, t, t[..., :1], t)
     # An odd length up to the cap runs as one block in both.
     assert flash._auto_block(193, None, 128) == pk._auto_block(193, None, 128) == 193
 
@@ -183,29 +201,51 @@ def _tool(name: str = "flash_fault_check"):
     return tool
 
 
-@pytest.mark.parametrize("kernel", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
-def test_fault_check_finds_its_loop_once(kernel):
-    """flash_fault_check.py plants its fault by replacing one line of the
+@pytest.mark.parametrize("fault", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_f32",
+                                   "flash_bwd_dkv_f32", "flash_fwd_dh64"])
+def test_fault_check_finds_its_loop_once(fault):
+    """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
-    nvcc)."""
+    nvcc). Each fault runs the check in its kernel's dtype, at its head
+    dim."""
     tool = _tool()
-    old, new = tool.FAULTS[kernel]
-    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{kernel}.cu").read_text()
-    assert text.count(old) == 1
-    assert old != new and text.replace(old, new).count(new) == 1
+    case = tool.FAULTS[fault]
+    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
+    assert text.count(case.old) == 1
+    assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
+    assert case.dtype in ("bfloat16", "float32") and case.shape[3] in flash.KERNEL_HEAD_DIMS
+    assert fault.endswith("_f32") == (case.dtype == "float32")
+    assert fault.endswith("_dh64") == (case.shape[3] == 64)
+
+
+def _lever_sources_apply(group: str, lever: str) -> None:
+    """flash_levers.py makes each variant by replacing text of the group's
+    kernel sources and refuses unless each piece occurs exactly once (text
+    only, no nvcc); a variant patches only kernels the group times, and one
+    with no replacement is the checkout's sources."""
+    tool = _tool("flash_levers")
+    table = tool.GROUPS[group]
+    assert lever in table.order and set(table.levers[lever]) <= set(table.kernels)
+    sources = tool.variant_sources(group, lever)
+    csrc = tool.REPO / "dmlc_tpu_torch" / "csrc"
+    assert set(sources) == {f"{k}.cu" for k in table.levers[lever]}
+    for name, text in sources.items():
+        pieces = table.levers[lever][name[:-3]]
+        assert pieces and all(new in text for _, new in pieces)
+        assert text != (csrc / name).read_text()
 
 
 @pytest.mark.parametrize("lever", ["a", "a0", "b", "c", "bc"])
 def test_lever_tool_finds_its_lines_once(lever):
-    """flash_dq_levers.py makes each variant by replacing text of
-    flash_bwd_dq.cu and refuses unless each piece occurs exactly once (text
-    only, no nvcc); a variant with no replacement is the source itself."""
-    tool = _tool("flash_dq_levers")
-    text = tool.variant_source(lever, None)
-    source = (tool.REPO / "dmlc_tpu_torch" / "csrc" / "flash_bwd_dq.cu").read_text()
-    assert all(new in text for _, new in tool.LEVERS[lever])
-    assert (text != source) == bool(tool.LEVERS[lever])
+    """The bf16 flash_bwd_dq variants (group dq)."""
+    _lever_sources_apply("dq", lever)
+
+
+@pytest.mark.parametrize("lever", ["ship", "sync", "ring", "rows128", "keys64", "quad"])
+def test_f32_lever_tool_finds_its_lines_once(lever):
+    """The float32 forward and dK/dV variants (group f32)."""
+    _lever_sources_apply("f32", lever)
 
 
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
@@ -225,4 +265,26 @@ def test_every_hopper_kernel_is_checked_by_the_build_phase():
     assert hopper == sorted(listed)
     assert {"flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"} <= set(hopper)
     for name in hopper:
-        assert f'extern "C" int dmlc_{name}_smem_bytes(void)' in (csrc / f"{name}.cu").read_text()
+        text = (csrc / f"{name}.cu").read_text()
+        assert f'extern "C" int dmlc_{name}_smem_bytes(int dh, int is_bf16)' in text
+
+
+def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
+    """Each flash source's C entry point launches a kernel for head dim 64
+    and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32, each
+    instantiated at the head dim it is dispatched for; the wrappers accept
+    exactly those head dims on the card (text only, no nvcc)."""
+    assert flash.KERNEL_HEAD_DIMS == (64, 128)
+    csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
+    pattern = re.compile(r"if \((!?)is_bf16 && dh == (\d+)\)\s*return \(int\)(sm90::|f32::)?"
+                         r"launch_\w+<(?:float, )?(\d+)>\(")
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        text = (csrc / f"{name}.cu").read_text()
+        body = text[text.index(f'extern "C" int dmlc_{name}('):]
+        body = body[:body.index("\n}\n")]
+        found = set()
+        for neg, dh, ns, inst in pattern.findall(body):
+            assert dh == inst, (name, dh, inst)
+            assert (ns == "sm90::") == (neg == ""), (name, ns)
+            found.add((neg == "", int(dh)))
+        assert found == {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}

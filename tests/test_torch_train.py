@@ -6,8 +6,9 @@ numpy-seeded inputs and carried weights:
   tests/test_sp_transformer.py's sizes: atol 3e-5, rtol 1e-4 (that test's
   own bound between schedules);
 - one LM step's loss and every gradient against ``jax.value_and_grad`` of
-  the same loss: loss atol 1e-5, gradients atol 2e-6 + rtol 1e-4; three
-  AdamW steps' losses against optax: atol 1e-5 (float32 sums in another
+  the same loss (at these sizes and at lm_small's width, heads of 64):
+  loss atol 1e-5, gradients atol 2e-6 + rtol 1e-4; three AdamW steps'
+  losses against optax: atol 1e-5 (float32 sums in another
   order, through two layers and the flash backward);
 - ``make_train_step`` on a tiny ResNet: loss atol 1e-5 and the BatchNorm
   running statistics after one step (flax's biased variance) atol 1e-5;
@@ -34,7 +35,7 @@ from dmlc_tpu.parallel import make_mesh
 from dmlc_tpu.parallel import make_train_step as jax_make_train_step
 from dmlc_tpu.parallel.sp_transformer import SPTransformerLM
 from dmlc_tpu_torch.models.convert import lm_from_jax, resnet_from_jax
-from dmlc_tpu_torch.models.lm import TransformerLM
+from dmlc_tpu_torch.models.lm import TransformerLM, lm_small
 from dmlc_tpu_torch.models.resnet import BasicBlock, ResNet
 from dmlc_tpu_torch.parallel.train import (
     create_train_state,
@@ -135,6 +136,46 @@ def test_three_adamw_steps_follow_optax(lm_setup):
         after = lm_loss(model, torch.from_numpy(tokens).long())
     np.testing.assert_allclose(float(after), float(_jax_lm_loss(params, jnp.asarray(tokens))),
                                atol=1e-5)
+
+
+def test_flash_lm_at_lm_small_width_matches_the_jax_flash_lm():
+    """lm_small as the port's registry builds it (hidden 128, 2 heads of 64,
+    MLP 256, vocab 1024, max_len 256; the head dim the kernels serve beside
+    128) with the flash schedule, at S 64, B 2: its logits and one step's
+    loss and gradients against SPTransformerLM's flash schedule at that
+    width, at the tolerances above."""
+    vocab, layers, heads, hidden, mlp, max_len, s, b = 1024, 2, 2, 128, 256, 256, 64, 2
+
+    def jax_lm(schedule):
+        return SPTransformerLM(vocab=vocab, num_layers=layers, num_heads=heads, hidden=hidden,
+                               mlp_dim=mlp, max_len=max_len, schedule=schedule)
+
+    tokens = np.random.default_rng(5).integers(0, vocab, (b, s + 1)).astype(np.int32)
+    variables = jax.tree_util.tree_map(
+        np.asarray, jax_lm("dense").init(jax.random.PRNGKey(6), jnp.asarray(tokens[:, :-1])))
+
+    def loss_fn(params, toks):
+        logits = jax_lm("flash").apply(params, toks[:, :-1])
+        return optax.softmax_cross_entropy_with_integer_labels(
+            logits.astype(jnp.float32), toks[:, 1:]).mean()
+
+    want_logits = np.asarray(jax.jit(jax_lm("flash").apply)(variables, tokens[:, :-1]))
+    loss, grads = jax.value_and_grad(loss_fn)(variables, jnp.asarray(tokens))
+    want = lm_from_jax(jax.tree_util.tree_map(np.asarray, grads))
+    model = lm_small(schedule="flash")
+    model.load_state_dict(lm_from_jax(variables))
+    batch = torch.from_numpy(tokens).long()
+    with torch.no_grad():
+        got_logits = model(batch[:, :-1]).numpy()
+    np.testing.assert_allclose(got_logits, want_logits, atol=3e-5, rtol=1e-4)
+    got_loss = lm_loss(model, batch)
+    got_loss.backward()
+    np.testing.assert_allclose(float(got_loss.detach()), float(loss), atol=1e-5)
+    named = dict(model.named_parameters())
+    assert set(named) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(named[name].grad.numpy(), g.numpy(), atol=2e-6, rtol=1e-4,
+                                   err_msg=name)
 
 
 def test_sequence_parallel_schedules_are_refused():
