@@ -14,7 +14,9 @@ non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
-   repeated runs after a warm-up).
+   repeated runs after a warm-up); the public flash_attention at head dims
+   32 and 96 (zero-padded to the kernels' 64 and 128) against the plain
+   versions, and head dim 160 refused.
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -140,6 +142,11 @@ SMALL_MODEL, SMALL_BATCH, SMALL_STEPS = "lm_small", 8, 10
 SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2 = 1e-5, 1e-4
 # The wrappers of the flash kernels (ops/kernels.KERNELS names).
 FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
+# Head dims the kernels are not built for, run through the public
+# flash_attention zero-padded to the next of KERNEL_HEAD_DIMS (ops/flash.py),
+# at [batch, heads, S] = PADDED_BHS; a head dim past the largest (128)
+# must raise on the card.
+PADDED_HEAD_DIMS, PADDED_BHS, UNPADDABLE_HEAD_DIM = (32, 96), (2, 3, 193), 160
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
 # KERNEL_HEAD_DIMS (ops/flash.py).
@@ -554,6 +561,21 @@ def l2_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
             "row_rel_max": float(rows.max()), "worst_row": [int(i) for i in worst]}
 
 
+def hold_flash(name: str, where: str, got: torch.Tensor, want: torch.Tensor,
+               dtype: torch.dtype) -> dict:
+    """max_abs_err and l2_errors of ``got`` against its plain version;
+    raises on another dtype, a non-finite value, or an error past
+    FLASH_REL_L2 or FLASH_ROW_REL."""
+    if got.dtype != want.dtype or not torch.isfinite(got).all():
+        raise AssertionError(f"flash {name} {where}: dtype {got.dtype} or non-finite")
+    r = {"max_abs_err": max_abs_err(got, want), **l2_errors(got, want)}
+    if r["rel_l2"] > FLASH_REL_L2[dtype] or r["row_rel_max"] > FLASH_ROW_REL[dtype]:
+        raise AssertionError(
+            f"flash {name} {where}: relative L2 {r['rel_l2']} (limit {FLASH_REL_L2[dtype]}), "
+            f"worst row {r['worst_row']} {r['row_rel_max']} (limit {FLASH_ROW_REL[dtype]})")
+    return r
+
+
 def flash_operands(shape, dtype: torch.dtype, seed: int) -> list[torch.Tensor]:
     """q, k, v, dO as [B*H, S, Dh] on the card, N(0, 1) from ``seed``."""
     b, h, s, dh = shape
@@ -582,15 +604,7 @@ def flash_check(shape, dtype: torch.dtype, causal: bool, seed: int = 0) -> dict:
               "lse_max_abs_err": float((lse - want_lse).abs().max())}
     for name, got, want in (("out", out, want_out), ("dq", dq, want_dq), ("dk", dk, want_dk),
                             ("dv", dv, want_dv)):
-        if got.dtype != want.dtype or not torch.isfinite(got).all():
-            raise AssertionError(f"flash {name} {shape} {dtype}: dtype {got.dtype} or non-finite")
-        report[name] = {"max_abs_err": max_abs_err(got, want), **l2_errors(got, want)}
-        r = report[name]
-        if r["rel_l2"] > FLASH_REL_L2[dtype] or r["row_rel_max"] > FLASH_ROW_REL[dtype]:
-            raise AssertionError(
-                f"flash {name} {shape} {dtype} causal={causal}: relative L2 {r['rel_l2']} "
-                f"(limit {FLASH_REL_L2[dtype]}), worst row {r['worst_row']} "
-                f"{r['row_rel_max']} (limit {FLASH_ROW_REL[dtype]})")
+        report[name] = hold_flash(name, f"{shape} {dtype} causal={causal}", got, want, dtype)
     if report["lse_max_abs_err"] > LSE_TOL:
         raise AssertionError(f"flash lse {shape} {dtype}: {report['lse_max_abs_err']} > {LSE_TOL}")
     return report
@@ -621,6 +635,74 @@ def flash_checks() -> list[dict]:
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
+
+
+def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int) -> dict:
+    """The public flash_attention at head dim ``dh``, which the kernels are
+    not built for: out and the q, k and v gradients (autograd through the
+    padded kernels) against the plain versions at ``dh`` itself, with the
+    limits of flash_check. As there, the plain backward takes the kernels'
+    own lse (from flash_attention_with_lse, which must give the same out)
+    and delta = rowsum(dO * out) as the kernels got it: summed over the
+    padded head dim. (Summed over ``dh`` alone, the float32 sum's other
+    order put the dq row of a causal head's first query, whose exact value
+    is 0, past FLASH_ROW_REL on an H100 at Dh 96.) Each flash kernel must
+    launch once in flash_attention's forward and backward."""
+    from dmlc_tpu_torch.ops import flash as FL
+    from dmlc_tpu_torch.ops import kernels as K
+
+    b, h, s = PADDED_BHS
+    shape = (b, h, s, dh)
+    q, k, v, do = flash_operands(shape, dtype, seed)
+    kw = {"causal": causal, "scale": dh ** -0.5}
+    q4, k4, v4 = (x.view(shape).clone().requires_grad_() for x in (q, k, v))
+    K.reset_launch_counts()
+    out = FL.flash_attention(q4, k4, v4, causal=causal)
+    out.backward(do.view(shape))
+    torch.cuda.synchronize()
+    launches = {n: K.launch_counts()[n] for n in FLASH_WRAPPERS}
+    if set(launches.values()) != {1}:
+        raise AssertionError(f"flash_attention Dh {dh} {dtype}: launches {launches}, expected "
+                             "one of each flash kernel")
+    out3 = out.detach().view(b * h, s, dh)
+    out_lse, lse = FL.flash_attention_with_lse(q4.detach(), k4.detach(), v4.detach(),
+                                               causal=causal)
+    lse = lse.view(b * h, s, 1)
+    if not torch.equal(out_lse.view(out3.shape), out3):
+        raise AssertionError(f"flash_attention_with_lse Dh {dh} {dtype}: another out")
+    want_out, want_lse = FL.flash_forward_reference(q, k, v, **kw)
+    run_dh = FL._kernel_head_dim(dh)
+    delta = FL._delta(FL._as_heads(out.detach(), run_dh), FL._as_heads(do.view(shape), run_dh))
+    want_dq = FL.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
+    want_dk, want_dv = FL.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
+    report = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "causal": causal,
+              "launches": launches, "lse_max_abs_err": float((lse - want_lse).abs().max())}
+    if report["lse_max_abs_err"] > LSE_TOL:
+        raise AssertionError(f"flash lse Dh {dh} {dtype}: {report['lse_max_abs_err']} > {LSE_TOL}")
+    where = f"{shape} {dtype} causal={causal} through flash_attention"
+    for name, got, want in (("out", out3, want_out), ("dq", q4.grad, want_dq),
+                            ("dk", k4.grad, want_dk), ("dv", v4.grad, want_dv)):
+        report[name] = hold_flash(name, where, got.reshape(want.shape), want, dtype)
+    return report
+
+
+def flash_public_checks() -> dict:
+    """flash_public_check at each of PADDED_HEAD_DIMS in both dtypes,
+    causal and not; then flash_attention at UNPADDABLE_HEAD_DIM must raise
+    ValueError on the card."""
+    from dmlc_tpu_torch.ops import flash as FL
+
+    cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS
+             for dt in (torch.bfloat16, torch.float32) for causal in (False, True)]
+    checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
+    x = torch.zeros(1, 1, 64, UNPADDABLE_HEAD_DIM, device="cuda")
+    try:
+        FL.flash_attention(x, x, x)
+    except ValueError as e:
+        refused = str(e)
+    else:
+        raise AssertionError(f"flash_attention at head dim {UNPADDABLE_HEAD_DIM} did not raise")
+    return {"checks": checks, f"dh{UNPADDABLE_HEAD_DIM}_raises": refused}
 
 
 def flash_flops(shape, products: int, causal: bool = True) -> float:
@@ -713,10 +795,12 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
 
 def phase_kernels_flash(dev: dict) -> dict:
     """The flash kernels on the card: checked against their plain versions
-    (flash_checks), then timed at the train shape and at its Dh-64 twin
-    (forward and backward, bf16 and float32) and at the streamed-forward
-    shape (bf16)."""
+    (flash_checks), the public flash_attention at head dims they are not
+    built for (flash_public_checks), then timed at the train shape and at
+    its Dh-64 twin (forward and backward, bf16 and float32) and at the
+    streamed-forward shape (bf16)."""
     checks = flash_checks()
+    public = flash_public_checks()
     fwd = {
         "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5),
         "train_f32": flash_forward_timing(dev, TRAIN_SHAPE, torch.float32, plain_reps=5),
@@ -733,7 +817,8 @@ def phase_kernels_flash(dev: dict) -> dict:
             device_s = report[name]["device_ms"] * 1e-3
             report[name]["tflops"] = flash_flops(shape, products) / device_s / 1e12
     torch.cuda.synchronize()
-    return {"checks": checks, "flash_forward": fwd, **bwd[TRAIN_SHAPE, torch.bfloat16],
+    return {"checks": checks, "padded_head_dims": public, "flash_forward": fwd,
+            **bwd[TRAIN_SHAPE, torch.bfloat16],
             "backward_f32": bwd[TRAIN_SHAPE, torch.float32],
             "backward_dh64_bf16": bwd[DH64_SHAPE, torch.bfloat16],
             "backward_dh64_f32": bwd[DH64_SHAPE, torch.float32]}

@@ -6,7 +6,7 @@
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
-// or 128 (every head dim of the model registry); lse and
+// or 128 (ops/flash.py zero-pads a smaller head dim up to one); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -38,108 +38,191 @@
 // warpgroup 0 multiplying only the visible half of the diagonal tile
 // (PERF.md, section 6; tools/flash_dq_levers.py).
 //
-// float32 keeps the first design: one block of 256 threads per (BH, 64-row
-// Q tile), Q, dO, lse and delta in shared memory, K/V tiles of 64 rows
-// streaming through, the scores, dP and the dQ accumulator in shared
-// memory as float32, the products on FMA in full float32 (gemm()), no
-// overlap of loads with products.
+// float32, the FMA design (flash::f32 below; the float32 forward's, with one
+// more product and no online softmax): Hopper has no full-float32
+// tensor-core product, so the products are register-tiled FMA on the CUDA
+// cores in full float32 (no TF32), bound by the 67 TFLOP/s float32 peak
+// (1.15 ms at the train shape). One block of 128 threads per (BH, 64-row Q
+// tile). The threads form 8 row groups of 16 (a half-warp each); group g
+// owns query rows g + 8 i (i < 8). Q and dO stay in shared memory; K and V
+// tiles (32 keys at Dh 128, 64 at Dh 64) come by cp.async, each loaded
+// after the products of the one before. Per tile a thread computes S = Q
+// K^T and dP = dO V^T for its 8 rows x 2 (4) keys (c + 16 u) in registers,
+// in one pass along Dh (float4 reads; Q's and dO's broadcast across the
+// half-warp), then p = exp(S scale - lse) and dS = p (dP - delta) there,
+// with its rows' lse and delta read once before the loop. dS goes to shared
+// memory once, read back only by the half-warp that wrote it, as the A
+// operand of dQ += dS K; dQ ([8 rows, Dh / 16 columns] a thread) stays in
+// registers for the whole loop and scale is applied once, in the epilogue.
+// The two products' steps are the forward's (dot4, pv4; flash_common.cuh).
+// Masks run only on the tiles that cross the diagonal or the end of S;
+// causal blocks stop at the diagonal and the longest Q tiles of every head
+// launch first. Shared memory: 108 KB at Dh 128 (two blocks an SM), 85 KB
+// at Dh 64. Loading each tile after the products beat a 2-stage ring (the
+// ring's extra K/V tiles leave fewer blocks an SM), 64-row Q tiles beat
+// 32-row ones, and 64-key tiles beat 32-key ones at Dh 64 but not at 128
+// (PERF.md, section 6; tools/flash_levers.py group dq_f32).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
 
 namespace flash {
 
-template <typename T, int DH>
+namespace f32 {
+
+constexpr int kDqRows = 64;          // query rows a block
+constexpr int kDqRowsPerThread = 8;  // rows a row group (16 threads) owns
+constexpr int kDqStages = 1;         // K/V ring depth
+constexpr int kDqThreads = 16 * kDqRows / kDqRowsPerThread;
+
+template <int DH>
 struct DqCfg {
-  static constexpr int BQ = 64, BK = 64;
-  static constexpr int LDT = Ld<T, DH>::value;
-  static constexpr int LDS = BK + 4;
-  static constexpr int LDP = Ld<T, BK>::value;
-  static constexpr int LDO = DH + 4;
-  static constexpr size_t bytes = 2 * round128(BQ * LDT * sizeof(T)) +     // Q, dO
-                                  2 * round128(BK * LDT * sizeof(T)) +     // K, V
-                                  2 * round128(BQ * LDS * sizeof(float)) + // scores, dP
-                                  round128(BQ * LDP * sizeof(T)) +         // dS
-                                  round128(BQ * LDO * sizeof(float)) +     // dQ
-                                  2 * round128(BQ * sizeof(float));        // lse, delta
+  // Keys a K/V tile: 64 at Dh 64; 32 at Dh 128, where 64 ran 9% slower
+  // (PERF.md, section 6).
+  static constexpr int BQ = kDqRows, BK = DH == 64 ? 64 : 32, RPT = kDqRowsPerThread;
+  static constexpr int kThreads = kDqThreads, G = BQ / RPT;  // G row groups
+  static constexpr int LD = DH + 4;    // Q, dO, K, V rows (floats), padded by 16 bytes
+  static constexpr int LDS = BK + 4;   // dS rows
+  static constexpr int NKT = BK / 16;  // keys a thread owns in S and dP
+  static constexpr int NC4 = DH / 64;  // float4 columns a thread owns in dQ
+  static constexpr size_t bytes = sizeof(float) * (2 * (size_t)BQ * LD +
+                                                   2 * kDqStages * (size_t)BK * LD +
+                                                   (size_t)BQ * LDS);
 };
 
-template <typename T, int DH>
-__global__ void __launch_bounds__(kThreads)
-    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                        const T* __restrict__ dout, const float* __restrict__ lse,
-                        const float* __restrict__ delta, T* __restrict__ dq, int BH, int S,
-                        int causal, float scale) {
-  typedef DqCfg<T, DH> C;
-  constexpr int BQ = C::BQ, BK = C::BK;
-  extern __shared__ __align__(128) unsigned char smem[];
-  SmemCursor cur{smem};
-  T* Qs = cur.take<T>(BQ * C::LDT);
-  T* dOs = cur.take<T>(BQ * C::LDT);
-  T* Ks = cur.take<T>(BK * C::LDT);
-  T* Vs = cur.take<T>(BK * C::LDT);
-  float* Ss = cur.take<float>(BQ * C::LDS);
-  float* dPs = cur.take<float>(BQ * C::LDS);
-  T* dSs = cur.take<T>(BQ * C::LDP);
-  float* dQs = cur.take<float>(BQ * C::LDO);
-  float* lse_s = cur.take<float>(BQ);
-  float* delta_s = cur.take<float>(BQ);
+// K/V tiles of BK keys that the Q tile at q0 reads: up to its diagonal when
+// causal.
+template <int BK>
+__device__ __forceinline__ int dq_tiles(int q0, int S, int causal) {
+  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK;
+}
 
+template <int DH>
+__global__ void __launch_bounds__(kDqThreads, DH == 64 ? 2 : 1)
+    flash_bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, const float* __restrict__ dout,
+                            const float* __restrict__ lse, const float* __restrict__ delta,
+                            float* __restrict__ dq, int BH, int S, int causal, float scale) {
+  typedef DqCfg<DH> C;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS, G = C::G, RPT = C::RPT;
+  constexpr int NKT = C::NKT, NC4 = C::NC4, STAGES = kDqStages;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + BQ * LD;
+  float* KVs = dOs + BQ * LD;  // stage s: K at KVs + 2 s BK LD, V BK LD after it
+  float* dSs = KVs + 2 * STAGES * BK * LD;
+
+  // Block order: the last (longest, when causal) Q tile of every head first.
   const int n_tiles = (S + BQ - 1) / BQ;
   const int bh = blockIdx.x % BH;
   const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * BQ;
   const size_t base = (size_t)bh * S * DH;
-  const int tid = threadIdx.x;
+  const int g = threadIdx.x / 16, c = threadIdx.x % 16;
+  const int n_k = dq_tiles<BK>(q0, S, causal);
 
-  load_tile<T, BQ, DH, C::LDT>(Qs, q + base, q0, S);
-  load_tile<T, BQ, DH, C::LDT>(dOs, dout + base, q0, S);
-  load_rows<BQ>(lse_s, lse + (size_t)bh * S, q0, S);
-  load_rows<BQ>(delta_s, delta + (size_t)bh * S, q0, S);
-  for (int i = tid; i < BQ * C::LDO; i += kThreads) dQs[i] = 0.f;
-
-  const int q_end = min(q0 + BQ, S);
-  const int n_k = ((causal ? q_end : S) + BK - 1) / BK;
-  for (int j = 0; j < n_k; ++j) {
-    const int k0 = j * BK;
-    __syncthreads();
-    load_tile<T, BK, DH, C::LDT>(Ks, k + base, k0, S);
-    load_tile<T, BK, DH, C::LDT>(Vs, v + base, k0, S);
-    __syncthreads();
-    gemm<BQ, BK, DH, false, true, false>(Ss, C::LDS, Qs, C::LDT, Ks, C::LDT);
-    gemm<BQ, BK, DH, false, true, false>(dPs, C::LDS, dOs, C::LDT, Vs, C::LDT);
-    __syncthreads();
-    for (int i = tid; i < BQ * BK; i += kThreads) {
-      const int r = i / BK, c = i - r * BK;
-      const int qi = q0 + r, kj = k0 + c;
-      const bool visible = qi < S && kj < S && (!causal || kj <= qi);
-      const float p = visible ? expf(Ss[r * C::LDS + c] * scale - lse_s[r]) : 0.f;
-      dSs[r * C::LDP + c] = from_f32<T>(p * (dPs[r * C::LDS + c] - delta_s[r]));
+  // Tile j goes to stage j % STAGES, one commit group a tile: the first
+  // STAGES tiles (Q and dO with the first) now, tile j + STAGES once every
+  // thread is done with tile j.
+  auto load_kv = [&](int j) {
+    if (j < n_k) {
+      float* Kt = KVs + (j % STAGES) * 2 * BK * LD;
+      cp_tile<BK, DH, LD, C::kThreads>(Kt, k + base, j * BK, S);
+      cp_tile<BK, DH, LD, C::kThreads>(Kt + BK * LD, v + base, j * BK, S);
     }
-    __syncthreads();
-    gemm<BQ, DH, BK, false, false, true>(dQs, C::LDO, dSs, C::LDP, Ks, C::LDT);
+    cp_async_commit();
+  };
+  cp_tile<BQ, DH, LD, C::kThreads>(Qs, q + base, q0, S);
+  cp_tile<BQ, DH, LD, C::kThreads>(dOs, dout + base, q0, S);
+#pragma unroll
+  for (int j = 0; j < STAGES; ++j) load_kv(j);
+
+  // The thread's rows' lse and delta, and its part of dQ.
+  float lse_r[RPT], dlt[RPT], acc[RPT][NC4][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + g + G * i;
+    lse_r[i] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+    dlt[i] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+#pragma unroll
+    for (int h = 0; h < NC4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
   }
-  __syncthreads();
-  for (int i = tid; i < BQ * DH; i += kThreads) {
-    const int r = i / DH, c = i - r * DH;
-    if (q0 + r < S) dq[base + (size_t)(q0 + r) * DH + c] = from_f32<T>(dQs[r * C::LDO + c] * scale);
+
+  for (int j = 0; j < n_k; ++j) {
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();  // tile j (and Q, dO) in shared memory for every thread
+    const float* Kt = KVs + (j % STAGES) * 2 * BK * LD;
+    const float* Vt = Kt + BK * LD;
+    const int k0 = j * BK;
+
+    // S = Q K^T and dP = dO V^T for rows g + G i and keys c + 16 u.
+    float s[RPT][NKT], dp[RPT][NKT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) s[i][u] = dp[i][u] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < DH; kk += 4) {
+      dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
+      dot4<RPT, NKT, G, LD>(dp, dOs + kk, Vt + kk, g, c);
+    }
+
+    // p = exp(S scale - lse), 0 where masked, which only the tiles crossing
+    // the diagonal or the end of S need; dS = p (dP - delta) to shared.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = g + G * i, qi = q0 + row;
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) {
+        float p = expf(s[i][u] * scale - lse_r[i]);
+        if (edge) {
+          const int kj = k0 + c + 16 * u;
+          if (kj >= S || (causal && kj > qi)) p = 0.f;
+        }
+        dSs[row * LDS + c + 16 * u] = p * (dp[i][u] - dlt[i]);
+      }
+    }
+    __syncwarp();  // a row group's dS rows are written and read by its own half-warp
+
+    // dQ += dS K: dS rows along the keys as float4, K rows at columns 64 h + 4 c.
+#pragma unroll 2
+    for (int jj = 0; jj < BK; jj += 4) pv4<RPT, NC4, G, LDS, LD>(acc, dSs + jj, Kt + jj * LD, g, c);
+    __syncthreads();  // every reader of this stage and of dS is done
+    load_kv(j + STAGES);
+  }
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + g + G * i;
+    if (qi < S) {
+#pragma unroll
+      for (int h = 0; h < NC4; ++h)
+        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + 64 * h + 4 * c) =
+            make_float4(acc[i][h][0] * scale, acc[i][h][1] * scale, acc[i][h][2] * scale,
+                        acc[i][h][3] * scale);
+    }
   }
 }
 
-template <typename T, int DH>
+template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int s, int causal,
                       float scale, cudaStream_t stream) {
-  typedef DqCfg<T, DH> C;
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, DH>, C::bytes);
+  typedef DqCfg<DH> C;
+  cudaError_t e = allow_smem(flash_bwd_dq_f32_kernel<DH>, C::bytes);
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((s + C::BQ - 1) / C::BQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel<T, DH><<<(unsigned)blocks, kThreads, C::bytes, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), bh, s, causal, scale);
+  flash_bwd_dq_f32_kernel<DH><<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq), bh, s, causal, scale);
   return cudaGetLastError();
 }
+
+}  // namespace f32
 
 namespace sm90 {
 
@@ -357,9 +440,9 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
   if (is_bf16 && dh == 64)
     return (int)sm90::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
-    return (int)launch_dq<float, 128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+    return (int)f32::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
-    return (int)launch_dq<float, 64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+    return (int)f32::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -367,7 +450,7 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
 // bytes; 0 for a pair that has no kernel.
 extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   using namespace flash;
-  if (dh == 128) return (int)(is_bf16 ? sm90::DqCfg<128>::kSmem : DqCfg<float, 128>::bytes);
-  if (dh == 64) return (int)(is_bf16 ? sm90::DqCfg<64>::kSmem : DqCfg<float, 64>::bytes);
+  if (dh == 128) return (int)(is_bf16 ? sm90::DqCfg<128>::kSmem : f32::DqCfg<128>::bytes);
+  if (dh == 64) return (int)(is_bf16 ? sm90::DqCfg<64>::kSmem : f32::DqCfg<64>::bytes);
   return 0;
 }

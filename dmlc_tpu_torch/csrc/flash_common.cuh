@@ -3,17 +3,18 @@
 //
 // - cp.async: 16-byte and 4-byte copies from global into shared memory
 //   that run beside the products (commit groups, wait_group), with zero
-//   fill past the end of S. The float32 forward and dK/dV stream their
-//   K/V or Q/dO tiles through a 2-stage ring of them (cp_tile).
-// - The float32 dq kernel's first design: one block of kThreads threads per
-//   output tile, operand tiles staged in shared memory with synchronous
-//   loads (load_tile), float32 accumulators kept there too, and the tile
-//   products on register-tiled FMA (gemm(), full float32, no TF32), each
-//   thread owning a (M/16) x (N/16) grid of outputs.
+//   fill past the end of S. The float32 kernels stream their K/V or Q/dO
+//   tiles through a ring of them (cp_tile).
+// - The float32 row-group tiles of the forward and dq (flash::f32): a
+//   block's threads form row groups of 16 (a half-warp each); group g owns
+//   query rows g + G i, thread c of it keys c + 16 u of a K/V tile and
+//   output columns 64 h + 4 c. dot4 is one 4-column step of a score
+//   product (S = Q K^T, dP = dO V^T), pv4 one 4-key step of an output
+//   product (O += P V, dQ += dS K); both are full float32 FMA (no TF32).
+// - Half-warp reductions, and the dynamic shared-memory limit.
 //
 // Shared-memory rows are padded by 16 bytes, which keeps 16-byte vector
-// stores and spreads the rows of a column read over the banks. Regions are
-// carved in 128-byte steps.
+// reads and stores and spreads the rows of a column read over the banks.
 
 #pragma once
 
@@ -22,95 +23,6 @@
 #include <stdint.h>
 
 namespace flash {
-
-constexpr int kWarps = 8;
-constexpr int kThreads = kWarps * 32;
-
-__host__ __device__ constexpr size_t round128(size_t n) { return (n + 127) & ~size_t(127); }
-
-// Leading dimension (elements) of a shared tile of COLS columns of T.
-template <typename T, int COLS>
-struct Ld {
-  static constexpr int value = COLS + 16 / (int)sizeof(T);
-};
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) { return x; }
-
-// Hands out consecutive 128-byte-aligned regions of dynamic shared memory.
-struct SmemCursor {
-  unsigned char* p;
-  template <typename T>
-  __device__ __forceinline__ T* take(int count) {
-    T* out = reinterpret_cast<T*>(p);
-    p += round128((size_t)count * sizeof(T));
-    return out;
-  }
-};
-
-// Rows [row0, row0 + R) of a row-major [S, DH] matrix into a shared tile
-// with leading dimension LD, 16 bytes a thread; rows at or past S are zero.
-template <typename T, int R, int DH, int LD>
-__device__ __forceinline__ void load_tile(T* __restrict__ sm, const T* __restrict__ g, int row0,
-                                          int S) {
-  constexpr int kVec = 16 / (int)sizeof(T);
-  constexpr int kPerRow = DH / kVec;
-  static_assert(DH % kVec == 0, "a row must be whole 16-byte vectors");
-#pragma unroll 4
-  for (int i = threadIdx.x; i < R * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i - r * kPerRow) * kVec;
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (row0 + r < S) val = __ldg(reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * DH + c));
-    *reinterpret_cast<uint4*>(sm + r * LD + c) = val;
-  }
-}
-
-// Entries [row0, row0 + R) of a float32 row vector; past S they are 0.
-template <int R>
-__device__ __forceinline__ void load_rows(float* __restrict__ sm, const float* __restrict__ g,
-                                          int row0, int S) {
-  for (int r = threadIdx.x; r < R; r += kThreads) sm[r] = row0 + r < S ? g[row0 + r] : 0.f;
-}
-
-// C[M x N] (float32, leading dim ldc) = or += A[M x K] . B[K x N], all in
-// shared memory. A(i, k) is A[i * lda + k], or A[k * lda + i] when A_COL;
-// B(k, j) is B[k * ldb + j], or B[j * ldb + k] when B_COL. ACC adds to C.
-//
-// float32: the 256 threads form a 16 x 16 grid; thread (ty, tx) owns rows
-// ty + 16 i and columns tx + 16 j, and runs the K loop with one FMA per
-// (row, column) pair, in full float32.
-template <int M, int N, int K, bool A_COL, bool B_COL, bool ACC>
-__device__ __forceinline__ void gemm(float* C, int ldc, const float* A, int lda, const float* B,
-                                     int ldb) {
-  static_assert(kThreads == 256, "the float32 product lays threads out as 16 x 16");
-  static_assert(M % 16 == 0 && N % 16 == 0, "M and N are multiples of 16");
-  constexpr int RM = M / 16, RN = N / 16;
-  const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
-  float acc[RM][RN];
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) acc[i][j] = ACC ? C[(ty + 16 * i) * ldc + tx + 16 * j] : 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[RM], b[RN];
-#pragma unroll
-    for (int i = 0; i < RM; ++i) a[i] = A_COL ? A[k * lda + ty + 16 * i] : A[(ty + 16 * i) * lda + k];
-#pragma unroll
-    for (int j = 0; j < RN; ++j) b[j] = B_COL ? B[(tx + 16 * j) * ldb + k] : B[k * ldb + tx + 16 * j];
-#pragma unroll
-    for (int i = 0; i < RM; ++i)
-#pragma unroll
-      for (int j = 0; j < RN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < RM; ++i)
-#pragma unroll
-    for (int j = 0; j < RN; ++j) C[(ty + 16 * i) * ldc + tx + 16 * j] = acc[i][j];
-}
 
 // ------------------------------------------------------------- cp.async
 
@@ -160,6 +72,64 @@ __device__ __forceinline__ void cp_tile(float* __restrict__ sm, const float* __r
 __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
+
+// ------------------------------------------- float32 row-group tiles
+
+namespace f32 {
+
+// One 4-column step of s[i][u] += A(row g + G i) . B(row c + 16 u): A and
+// B point at the step's first column of shared tiles of leading dimension
+// LD. A's rows are read as float4 broadcast across the half-warp, B's as
+// float4 by each thread.
+template <int RPT, int NKT, int G, int LD>
+__device__ __forceinline__ void dot4(float (&s)[RPT][NKT], const float* A, const float* B, int g,
+                                     int c) {
+  float4 b[NKT];
+#pragma unroll
+  for (int u = 0; u < NKT; ++u) b[u] = ld4(B + (c + 16 * u) * LD);
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float4 a = ld4(A + (g + G * i) * LD);
+#pragma unroll
+    for (int u = 0; u < NKT; ++u) {
+      s[i][u] = fmaf(a.x, b[u].x, s[i][u]);
+      s[i][u] = fmaf(a.y, b[u].y, s[i][u]);
+      s[i][u] = fmaf(a.z, b[u].z, s[i][u]);
+      s[i][u] = fmaf(a.w, b[u].w, s[i][u]);
+    }
+  }
+}
+
+// One 4-key step of o[i][h][e] += sum_e' P(row g + G i, key e') B(key e',
+// column 64 h + 4 c + e): P points at the step's first key column of a
+// shared [rows, keys] tile of leading dimension LDP (read as float4,
+// broadcast across the half-warp), B at the step's first key row of a
+// shared [keys, DH] tile of leading dimension LD.
+template <int RPT, int NC4, int G, int LDP, int LD>
+__device__ __forceinline__ void pv4(float (&o)[RPT][NC4][4], const float* P, const float* B, int g,
+                                    int c) {
+  float4 bv[4][NC4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+#pragma unroll
+    for (int h = 0; h < NC4; ++h) bv[e][h] = ld4(B + e * LD + 64 * h + 4 * c);
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float4 a = ld4(P + (g + G * i) * LDP);
+    const float pa[4] = {a.x, a.y, a.z, a.w};
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int h = 0; h < NC4; ++h) {
+        o[i][h][0] = fmaf(pa[e], bv[e][h].x, o[i][h][0]);
+        o[i][h][1] = fmaf(pa[e], bv[e][h].y, o[i][h][1]);
+        o[i][h][2] = fmaf(pa[e], bv[e][h].z, o[i][h][2]);
+        o[i][h][3] = fmaf(pa[e], bv[e][h].w, o[i][h][3]);
+      }
+  }
+}
+
+}  // namespace f32
 
 // Max and sum over the 16 lanes of a half-warp (the threads of one row
 // group in the float32 kernels).

@@ -10,7 +10,7 @@
 // through one loop inside the block, and one kernel serves both rows.
 //
 // Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64 or
-// 128 (every head dim of the model registry). Outputs out
+// 128 (ops/flash.py zero-pads a smaller head dim up to one). Outputs out
 // (q's dtype) and lse (float32 [BH, S]): out = softmax(scale q k^T) v with
 // keys past the query masked when causal, lse = m + log(max(l, 1e-30)). A
 // row with no visible key gets out 0 and lse -inf (pallas_kernels.py:210).
@@ -53,8 +53,9 @@
 // those registers, the row max and sum over the half-warp by
 // __shfl_xor_sync; P goes to shared memory once, as the A operand of O +=
 // P V, and O ([8 rows, Dh / 16 columns] a thread, columns 64 h + 4 c) stays
-// in registers for the whole loop. Masks run only on the tiles that cross
-// the diagonal or the end of S. Shared memory at Dh 128: Q 33 KB, the ring
+// in registers for the whole loop. The two products' steps (dot4, pv4) live
+// in flash_common.cuh; the float32 dq runs the same ones. Masks run only on
+// the tiles that cross the diagonal or the end of S. Shared memory at Dh 128: Q 33 KB, the ring
 // 66 KB, P 9 KB. Against 128-row tiles (256 threads, one block an SM) the
 // 64-row ones ran 6% faster, and the ring 3% faster than loading each
 // tile before multiplying it (PERF.md, section 6; tools/flash_levers.py).
@@ -146,22 +147,7 @@ __global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
 #pragma unroll
       for (int u = 0; u < NKT; ++u) s[i][u] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < DH; kk += 4) {
-      float4 b[NKT];
-#pragma unroll
-      for (int u = 0; u < NKT; ++u) b[u] = ld4(Kt + (c + 16 * u) * LD + kk);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float4 a = ld4(Qs + (g + G * i) * LD + kk);
-#pragma unroll
-        for (int u = 0; u < NKT; ++u) {
-          s[i][u] = fmaf(a.x, b[u].x, s[i][u]);
-          s[i][u] = fmaf(a.y, b[u].y, s[i][u]);
-          s[i][u] = fmaf(a.z, b[u].z, s[i][u]);
-          s[i][u] = fmaf(a.w, b[u].w, s[i][u]);
-        }
-      }
-    }
+    for (int kk = 0; kk < DH; kk += 4) dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
 
     // Online softmax: fold this tile into (m, l), rescale O, P to shared.
     const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
@@ -201,27 +187,7 @@ __global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
 
     // O += P V: P rows along the keys as float4, V rows at columns 64 h + 4 c.
 #pragma unroll 2
-    for (int jj = 0; jj < BK; jj += 4) {
-      float4 bv[4][NC4];
-#pragma unroll
-      for (int e = 0; e < 4; ++e)
-#pragma unroll
-        for (int h = 0; h < NC4; ++h) bv[e][h] = ld4(Vt + (jj + e) * LD + 64 * h + 4 * c);
-#pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const float4 a = ld4(Ps + (g + G * i) * LDP + jj);
-        const float pa[4] = {a.x, a.y, a.z, a.w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-#pragma unroll
-          for (int h = 0; h < NC4; ++h) {
-            o[i][h][0] = fmaf(pa[e], bv[e][h].x, o[i][h][0]);
-            o[i][h][1] = fmaf(pa[e], bv[e][h].y, o[i][h][1]);
-            o[i][h][2] = fmaf(pa[e], bv[e][h].z, o[i][h][2]);
-            o[i][h][3] = fmaf(pa[e], bv[e][h].w, o[i][h][3]);
-          }
-      }
-    }
+    for (int jj = 0; jj < BK; jj += 4) pv4<RPT, NC4, G, LDP, LD>(o, Ps + jj, Vt + jj * LD, g, c);
     __syncthreads();  // every reader of this stage and of P is done
   }
 

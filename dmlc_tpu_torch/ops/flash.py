@@ -30,6 +30,15 @@ Shapes follow the JAX package: [B, H, S, Dh], lse [B*H, S, 1] inside and
 checked by the JAX package's block rule (``_auto_block``), so the same
 inputs raise the same ``ValueError``; the CUDA kernels then pick their own
 tiles and mask the ragged edge.
+
+Head dims: the kernels are built for ``KERNEL_HEAD_DIMS`` (64, 128); the
+reference takes any Dh. The public functions zero-pad q, k, v, out and dO
+along Dh up to ``_kernel_head_dim(Dh)`` on every device, run the wrappers
+there and slice the results back. The padding is exact: zero columns of Q
+and K leave Q K^T unchanged, zero columns of V and dO leave out's first Dh
+columns, lse, delta and dP unchanged, and dQ, dK, dV get zero columns.
+``scale`` defaults to the original Dh's. Past 128 a CPU tensor runs the
+plain versions at its own Dh and a CUDA tensor raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -47,9 +56,30 @@ _RESIDENT_KV_BYTES = 4 * 1024 * 1024
 _FULL_BLOCK_CAP = 1024
 
 #: The head dims the CUDA kernels are compiled for, in both dtypes: every
-#: transformer of the model registry has heads of 64 or 128.
+#: transformer of the model registry has heads of 64 or 128. The public
+#: functions pad any smaller head dim up to one of them.
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+
+def _kernel_head_dim(dh: int) -> int | None:
+    """The smallest head dim of ``KERNEL_HEAD_DIMS`` that is at least
+    ``dh``; None past the largest."""
+    return next((k for k in KERNEL_HEAD_DIMS if k >= dh), None)
+
+
+def _run_head_dim(dh: int, device: torch.device, what: str) -> int:
+    """The head dim the public functions run heads of ``dh`` at on
+    ``device``: ``_kernel_head_dim(dh)``; past the largest kernel head dim,
+    ``dh`` itself on the CPU (the plain versions take any) and a
+    ``ValueError`` on a CUDA device."""
+    padded = _kernel_head_dim(dh)
+    if padded is not None:
+        return padded
+    if device.type == "cuda":
+        raise ValueError(f"{what}: head dim {dh} is past {KERNEL_HEAD_DIMS[-1]}, the largest "
+                         f"the kernels take (smaller ones are zero-padded to {KERNEL_HEAD_DIMS})")
+    return dh
 
 
 def _auto_block(s: int, requested: int | None, default: int) -> int:
@@ -269,14 +299,24 @@ kernels.KERNELS.update(flash_forward=flash_forward, flash_bwd_dq=flash_bwd_dq,
 # ---------------------------------------------------------------------------
 
 
-def _as_heads(x: torch.Tensor) -> torch.Tensor:
-    """[B, H, S, Dh] -> contiguous, 16-byte aligned [B*H, S, Dh], as the
-    kernels take it (a copy only when needed)."""
-    b, h, s, dh = x.shape
+def _as_heads(x: torch.Tensor, dh: int) -> torch.Tensor:
+    """[B, H, S, Dx] -> contiguous, 16-byte aligned [B*H, S, dh] with zero
+    columns past Dx, as the kernels take it (a copy only when needed)."""
+    b, h, s, dx = x.shape
+    if dh != dx:
+        x = torch.nn.functional.pad(x, (0, dh - dx))
     x = x.contiguous()
     if x.data_ptr() % 16:
         x = x.clone()
     return x.view(b * h, s, dh)
+
+
+def _from_heads(x: torch.Tensor, shape) -> torch.Tensor:
+    """[B*H, S, dh] -> [B, H, S, Dh] of ``shape``, the padding columns
+    dropped."""
+    if x.shape[-1] == shape[-1]:
+        return x.view(shape)
+    return x[..., : shape[-1]].contiguous().view(shape)
 
 
 def _delta(out: torch.Tensor, do: torch.Tensor) -> torch.Tensor:
@@ -290,23 +330,22 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):  # type: ignore[override]
-        b, h, s, dh = q.shape
-        q3, k3, v3 = _as_heads(q), _as_heads(k), _as_heads(v)
+        dh = _run_head_dim(q.shape[-1], q.device, "flash_attention")
+        q3, k3, v3 = (_as_heads(x, dh) for x in (q, k, v))
         out, lse = flash_forward(q3, k3, v3, causal=causal, scale=scale)
         ctx.save_for_backward(q3, k3, v3, out, lse)
         ctx.causal, ctx.scale = causal, scale
-        return out.view(b, h, s, dh)
+        return _from_heads(out, q.shape)
 
     @staticmethod
     def backward(ctx, g):  # type: ignore[override]
         q3, k3, v3, out, lse = ctx.saved_tensors
-        do = _as_heads(g)
+        do = _as_heads(g, q3.shape[-1])
         delta = _delta(out, do)
         kw = {"causal": ctx.causal, "scale": ctx.scale}
         dq = flash_bwd_dq(q3, k3, v3, do, lse, delta, **kw)
         dk, dv = flash_bwd_dkv(q3, k3, v3, do, lse, delta, **kw)
-        shape = g.shape
-        return dq.view(shape), dk.view(shape), dv.view(shape), None, None
+        return (*(_from_heads(x, g.shape) for x in (dq, dk, dv)), None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool = False,
@@ -317,9 +356,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     log-sum-exp and the backward recomputes p tile by tile. ``blk_q`` and
     ``blk_k`` are checked against the JAX package's block rule (an S
     with no legal block raises ``ValueError``: pad the sequence); the
-    kernels choose their own tiles. On the card Dh must be one of
-    ``KERNEL_HEAD_DIMS`` (64, 128), the head dims the kernels are built
-    for."""
+    kernels choose their own tiles. A head dim below 128 that the kernels
+    are not built for runs zero-padded to the next of ``KERNEL_HEAD_DIMS``;
+    past 128 it raises ``ValueError`` on the card."""
     _check_blocks(q, blk_q, blk_k)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -337,10 +376,11 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     b, h, s, dh = q.shape
     if scale is None:
         scale = dh ** -0.5
+    run_dh = _run_head_dim(dh, q.device, "flash_attention_with_lse")
     with torch.no_grad():
-        out, lse = flash_forward(_as_heads(q), _as_heads(k), _as_heads(v), causal=causal,
+        out, lse = flash_forward(*(_as_heads(x, run_dh) for x in (q, k, v)), causal=causal,
                                  scale=float(scale))
-    return out.view(b, h, s, dh), lse.view(b, h, s, 1)
+    return _from_heads(out, q.shape), lse.view(b, h, s, 1)
 
 
 def flash_attention_block_bwd(q, k, v, out, lse, do, *, causal: bool = False,
@@ -354,7 +394,8 @@ def flash_attention_block_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, s, dh = q.shape
-    q3, k3, v3, o3, do3 = (_as_heads(x) for x in (q, k, v, out, do))
+    run_dh = _run_head_dim(dh, q.device, "flash_attention_block_bwd")
+    q3, k3, v3, o3, do3 = (_as_heads(x, run_dh) for x in (q, k, v, out, do))
     lse3 = lse.reshape(b * h, s, 1).to(torch.float32).contiguous()
     delta3 = (_delta(o3, do3) if delta is None
               else delta.reshape(b * h, s, 1).to(torch.float32).contiguous())
@@ -362,8 +403,7 @@ def flash_attention_block_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     with torch.no_grad():
         dq = flash_bwd_dq(q3, k3, v3, do3, lse3, delta3, **kw)
         dk, dv = flash_bwd_dkv(q3, k3, v3, do3, lse3, delta3, **kw)
-    shape = (b, h, s, dh)
-    return dq.view(shape), dk.view(shape), dv.view(shape)
+    return tuple(_from_heads(x, q.shape) for x in (dq, dk, dv))
 
 
 # The JAX package's crossover between dense and flash attention, kept equal

@@ -19,6 +19,8 @@ plants the fault in the copy's source, builds the copy and runs
   (the only one that reaches its last 64 keys);
 - flash_fwd_f32 (float32): the last 64-row Q tile skips its last 32-key
   K/V tile (the diagonal one of its last 32 rows);
+- flash_bwd_dq_f32 (float32): the last 64-row Q tile skips its last 32-key
+  K/V tile (the diagonal one of its last 32 rows);
 - flash_bwd_dkv_f32 (float32): the last 32-key block skips its last 32-row
   Q tile (the only one that reaches its keys);
 - flash_fwd_dh64 (bf16, head dim 64): the fault of flash_fwd, which the
@@ -67,6 +69,10 @@ FAULTS = {
         "flash_fwd", "  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys;",
         "  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys"
         " - (q0 + kFwdRows >= S ? 1 : 0);", "float32", TRAIN_SHAPE),
+    "flash_bwd_dq_f32": Fault(
+        "flash_bwd_dq", "  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK;",
+        "  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK"
+        " - (q0 + kDqRows >= S ? 1 : 0);", "float32", TRAIN_SHAPE),
     "flash_bwd_dkv_f32": Fault(
         "flash_bwd_dkv", "  const int q_tiles = (S + C::BQ - 1) / C::BQ;",
         "  const int q_tiles = (S + C::BQ - 1) / C::BQ - (k0 + C::BK >= S ? 1 : 0);",

@@ -4,8 +4,9 @@
     python3 dmlc_tpu_torch/tools/flash_levers.py SCRATCH_DIR GROUP [--parent CSRC_DIR] [VARIANT ...]
 
 GROUP names a table of GROUPS: ``dq`` (the bf16 flash_bwd_dq kernel, timed
-at the LM train shape) or ``f32`` (the float32 forward and dK/dV, timed at
-the train shape and at its Dh-64 twin). Runs the group's variants named
+at the LM train shape), ``f32`` (the float32 forward and dK/dV) or
+``dq_f32`` (the float32 flash_bwd_dq), both timed at the train shape and at
+its Dh-64 twin. Runs the group's variants named
 (default: its ORDER) in turn. Each run copies chip_smoke.py and
 dmlc_tpu_torch/ (without its build directory) into SCRATCH_DIR/<n>_<variant>;
 each csrc source a variant patches is the checkout's with those pieces of
@@ -110,6 +111,23 @@ QUAD = [
      "    __syncthreads();  // P^T and dS^T for every thread\n"),
 ]
 
+# float32 flash_bwd_dq. ship: the checkout's source (64-row Q tiles, 128
+# threads; K/V tiles of 64 keys at Dh 64 and 32 at Dh 128, one stage: each
+# tile loaded after the products of the one before); ring: a 2-stage K/V
+# ring, the next tile loading while this one is multiplied; rows32: 32-row
+# Q tiles, 4 rows a row group (128 threads); keys32 and keys64: 32-key and
+# 64-key K/V tiles at both head dims.
+DQ_KEYS = "BK = DH == 64 ? 64 : 32,"
+DQ_F32 = {
+    "ship": {},
+    "ring": {"flash_bwd_dq": [("constexpr int kDqStages = 1;", "constexpr int kDqStages = 2;")]},
+    "rows32": {"flash_bwd_dq": [("constexpr int kDqRows = 64;", "constexpr int kDqRows = 32;"),
+                                ("constexpr int kDqRowsPerThread = 8;",
+                                 "constexpr int kDqRowsPerThread = 4;")]},
+    "keys32": {"flash_bwd_dq": [(DQ_KEYS, "BK = 32,")]},
+    "keys64": {"flash_bwd_dq": [(DQ_KEYS, "BK = 64,")]},
+}
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -129,6 +147,8 @@ GROUPS = {
                                       "constexpr int kDkvKeys = 64;")]},
         "quad": {"flash_bwd_dkv": QUAD},
     }, ("ship", "sync", "ring", "rows128", "keys64", "quad", "ship")),
+    "dq_f32": Group("float32", ("flash_bwd_dq",), (TRAIN_SHAPE, DH64_SHAPE), DQ_F32,
+                    ("ship", "ring", "rows32", "keys32", "keys64", "ship")),
 }
 
 RUN = """

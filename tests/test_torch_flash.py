@@ -13,11 +13,17 @@ Same numpy-seeded float32 inputs through both:
   blockwise gradients against theirs;
 - out and gradients at head dim 64 (the registry's other head dim, which
   the kernels are built for beside 128) against the same;
+- at head dims 32 and 96, which the public functions zero-pad to 64 and
+  128: out and gradients, lse and the blockwise gradients against the
+  same; the wrappers see the padded head dim, past 128 the CPU runs the
+  plain versions at the head dim given and a CUDA device refuses it
+  (``_kernel_head_dim``, ``_run_head_dim``);
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
-- each flash entry point dispatches head dims 64 and 128 in both dtypes,
-  the set ``KERNEL_HEAD_DIMS`` the wrappers accept on the card;
+- each flash entry point dispatches head dims 64 and 128 in both dtypes
+  (bf16 to ``sm90::``, float32 to ``f32::``), the set
+  ``KERNEL_HEAD_DIMS`` the wrappers accept on the card;
 - each fault of ``tools/flash_fault_check.py`` and each lever of
   ``tools/flash_levers.py`` finds its line once in its kernel's source;
 - every kernel source built on ``csrc/flash_sm90.cuh`` is one that
@@ -88,6 +94,82 @@ def test_out_and_grads_match_at_head_dim_64(s):
     rng = np.random.default_rng(4)
     q, k, v, g = (rng.standard_normal((B, H, s, 64), dtype=np.float32) for _ in range(4))
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), f"Dh 64 S={s}")
+
+
+def _heads(s: int, dh: int, seed: int):
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((B, H, s, dh), dtype=np.float32) for _ in range(4)]
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("s", [32, 193])
+@pytest.mark.parametrize("dh", [32, 96])
+def test_out_and_grads_match_at_padded_head_dims(dh, s, causal):
+    """Head dims the kernels are not built for run zero-padded to the next
+    of KERNEL_HEAD_DIMS; the scale stays the original head dim's."""
+    q, k, v, g = _heads(s, dh, seed=5)
+    _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh} S={s}")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_lse_and_block_backward_match_at_head_dim_96(causal):
+    q, k, v, g = _heads(193, 96, seed=6)
+    out, lse = flash.flash_attention_with_lse(*(torch.from_numpy(x) for x in (q, k, v)),
+                                              causal=causal)
+    j_out, j_lse = pk.flash_attention_with_lse(q, k, v, causal=causal)
+    assert tuple(out.shape) == q.shape and out.is_contiguous()
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), atol=ATOL, rtol=RTOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), atol=LSE_ATOL, rtol=0)
+    got = flash.flash_attention_block_bwd(
+        *(torch.from_numpy(np.array(x)) for x in (q, k, v, j_out, j_lse, g)), causal=causal)
+    want = pk.flash_attention_block_bwd(q, k, v, j_out, j_lse, g, causal=causal)
+    for name, a, b in zip(("dq", "dk", "dv"), got, want):
+        assert tuple(a.shape) == q.shape
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), atol=ATOL, rtol=RTOL, err_msg=name)
+
+
+def test_kernel_head_dim_is_the_next_one_built():
+    for dh in range(1, 130):
+        want = 64 if dh <= 64 else 128 if dh <= 128 else None
+        assert flash._kernel_head_dim(dh) == want, dh
+
+
+def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
+    cuda, cpu = torch.device("cuda"), torch.device("cpu")
+    assert flash._run_head_dim(96, cuda, "f") == 128 and flash._run_head_dim(32, cpu, "f") == 64
+    assert flash._run_head_dim(160, cpu, "f") == 160
+    with pytest.raises(ValueError, match="head dim 160 is past 128"):
+        flash._run_head_dim(160, cuda, "flash_attention")
+    q, k, v, g = _heads(32, 160, seed=7)
+    _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
+
+
+@pytest.mark.parametrize("dh, run", [(32, 64), (96, 128), (64, 64), (160, 160)])
+def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, monkeypatch):
+    """Every public entry point pads q, k, v, out and dO with zero columns
+    before the wrappers (which launch the kernels on the card) and slices
+    what they return."""
+    seen = []
+
+    def spy(fn):
+        def call(*args, **kw):
+            seen.append((fn.__name__, {a.shape[-1] for a in args if a.dim() == 3 and
+                                       a.shape[-1] != 1}))
+            return fn(*args, **kw)
+        return call
+
+    for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
+        monkeypatch.setattr(flash, name, spy(getattr(flash, name)))
+    q, k, v, g = (torch.from_numpy(x) for x in _heads(32, dh, seed=8))
+    qg = q.clone().requires_grad_()
+    out = flash.flash_attention(qg, k, v, causal=True)
+    out.backward(g)
+    o2, lse = flash.flash_attention_with_lse(q, k, v, causal=True)
+    grads = flash.flash_attention_block_bwd(q, k, v, o2, lse, g, causal=True)
+    assert [n for n, _ in seen] == ["flash_forward", "flash_bwd_dq", "flash_bwd_dkv"] * 2
+    assert all(dims == {run} for _, dims in seen), seen
+    assert all(tuple(x.shape) == (B, H, 32, dh) for x in (out, qg.grad, o2, *grads))
+    assert torch.equal(out.detach(), o2)
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -202,7 +284,7 @@ def _tool(name: str = "flash_fault_check"):
 
 
 @pytest.mark.parametrize("fault", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_f32",
-                                   "flash_bwd_dkv_f32", "flash_fwd_dh64"])
+                                   "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_fwd_dh64"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
@@ -248,6 +330,12 @@ def test_f32_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("f32", lever)
 
 
+@pytest.mark.parametrize("lever", ["ship", "ring", "rows32", "keys32", "keys64"])
+def test_dq_f32_lever_tool_finds_its_lines_once(lever):
+    """The float32 flash_bwd_dq variants (group dq_f32)."""
+    _lever_sources_apply("dq_f32", lever)
+
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -271,13 +359,14 @@ def test_every_hopper_kernel_is_checked_by_the_build_phase():
 
 def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     """Each flash source's C entry point launches a kernel for head dim 64
-    and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32, each
-    instantiated at the head dim it is dispatched for; the wrappers accept
-    exactly those head dims on the card (text only, no nvcc)."""
+    and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
+    FMA kernels, flash::f32), each instantiated at the head dim it is
+    dispatched for; the wrappers accept exactly those head dims on the card
+    (text only, no nvcc)."""
     assert flash.KERNEL_HEAD_DIMS == (64, 128)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
     pattern = re.compile(r"if \((!?)is_bf16 && dh == (\d+)\)\s*return \(int\)(sm90::|f32::)?"
-                         r"launch_\w+<(?:float, )?(\d+)>\(")
+                         r"launch_\w+<(\d+)>\(")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         text = (csrc / f"{name}.cu").read_text()
         body = text[text.index(f'extern "C" int dmlc_{name}('):]
@@ -285,6 +374,6 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
         found = set()
         for neg, dh, ns, inst in pattern.findall(body):
             assert dh == inst, (name, dh, inst)
-            assert (ns == "sm90::") == (neg == ""), (name, ns)
+            assert ns == ("f32::" if neg else "sm90::"), (name, ns)
             found.add((neg == "", int(dh)))
         assert found == {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}
