@@ -14,9 +14,13 @@ non-zero:
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
-   repeated runs after a warm-up); the public flash_attention at head dims
-   32 and 96 (zero-padded to the kernels' 64 and 128) against the plain
-   versions, and head dim 160 refused.
+   repeated runs after a warm-up): paged_decode_attention at lm_wide's and
+   the decode bench's geometry, float32 and bf16, head dims 128, 64 and 96,
+   also bit-identical run to run and in a contiguous layout, beside the
+   parent's path (two page gathers and the eager attention); the public
+   flash_attention at head dims 32 and 96 (zero-padded to the kernels' 64
+   and 128) and 160 and 256 (the wide kernels) against the plain versions,
+   a sweep of head dims up to 512, and head dim 513 refused.
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -28,7 +32,11 @@ non-zero:
    from below; one traced run_batch per model and one traced request give
    the device time by kernel (torch.profiler).
 5. generate — job.generate for lm_wide through GenerateWorker to 24
-   clients; decode — the decode-bench geometry through SlotScheduler.
+   clients (one paged_decode_attention launch a layer a step, no gather;
+   tokens equal a contiguous-cache engine's; one step's logits paged vs
+   contiguous bit-identical and through the kernel vs the plain version);
+   decode — the decode-bench geometry through SlotScheduler, with one
+   step's device time beside the parent's path's.
 6. train — the causal LM of bench.py's train leg (8 layers, hidden 768,
    6 heads x 128, vocab 32768, S 2048, batch 8, bf16 compute, AdamW 3e-4)
    through the flash kernels: the first step against the dense schedule,
@@ -48,6 +56,7 @@ one or outside a checkout of the repository.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import json
 import re
@@ -142,11 +151,15 @@ SMALL_MODEL, SMALL_BATCH, SMALL_STEPS = "lm_small", 8, 10
 SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2 = 1e-5, 1e-4
 # The wrappers of the flash kernels (ops/kernels.KERNELS names).
 FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
-# Head dims the kernels are not built for, run through the public
-# flash_attention zero-padded to the next of KERNEL_HEAD_DIMS (ops/flash.py),
-# at [batch, heads, S] = PADDED_BHS; a head dim past the largest (128)
-# must raise on the card.
-PADDED_HEAD_DIMS, PADDED_BHS, UNPADDABLE_HEAD_DIM = (32, 96), (2, 3, 193), 160
+# Head dims the Hopper kernels are not built for, run through the public
+# flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
+# to the next of KERNEL_HEAD_DIMS, 160 and 256 through the wide kernels
+# (csrc/flash_wide.cu, ops/flash.py), which are also timed at
+# [WIDE_TIMED_BHS, Dh]. WIDE_SWEEP_HEAD_DIMS run forward and backward once
+# each up to the wide kernels' limit; past it the card must refuse.
+PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
+WIDE_HEAD_DIMS, WIDE_TIMED_BHS = (160, 256), (4, 4, 1024)
+WIDE_SWEEP_HEAD_DIMS, WIDE_SWEEP_BHS = (129, 136, 200, 264, 328, 384, 448, 505, 512), (1, 2, 72)
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
 # KERNEL_HEAD_DIMS (ops/flash.py).
@@ -238,13 +251,17 @@ def profile_call(fn, top: int = 8) -> dict:
     }
 
 
-def kernel_device_ms(fn, name: str, calls: int = 20, flush: torch.Tensor | None = None) -> float:
+def kernel_device_ms(fn, name: str | tuple[str, ...], calls: int = 20,
+                     flush: torch.Tensor | None = None) -> float:
     """Mean device time of kernel ``name`` over ``calls`` calls of ``fn``,
-    from the profiler's kernel records (the host's call overhead excluded).
-    With ``flush`` (a buffer larger than the 50 MB L2), the buffer is
-    overwritten before each call, so the kernel finds its inputs cold."""
+    from the profiler's kernel records (the host's call overhead excluded);
+    for a tuple of names (a call that launches one kernel of each), the sum
+    of their means. With ``flush`` (a buffer larger than the 50 MB L2), the
+    buffer is overwritten before each call, so the kernel finds its inputs
+    cold."""
     from torch.profiler import ProfilerActivity, profile
 
+    names = (name,) if isinstance(name, str) else name
     # The trace can drop records (device_records); the mean is over those it
     # kept. A trace that kept too few is taken again, twice at most.
     for _ in range(3):
@@ -256,12 +273,12 @@ def kernel_device_ms(fn, name: str, calls: int = 20, flush: torch.Tensor | None 
                 fn()
             torch.cuda.synchronize()
         records = device_records(prof)
-        times = [dur for kernel, _, dur in records if name in kernel]
-        if calls // 2 <= len(times) <= calls:
-            return statistics.fmean(times) / 1e3
+        times = {n: [dur for kernel, _, dur in records if n in kernel] for n in names}
+        if all(calls // 2 <= len(t) <= calls for t in times.values()):
+            return sum(statistics.fmean(t) for t in times.values()) / 1e3
     seen = sorted({kernel[:60] for kernel, _, _ in records})
-    raise AssertionError(f"{name}: profiler saw {len(times)} launches of {calls}; "
-                         f"records of {seen}")
+    raise AssertionError(f"{name}: profiler saw {[len(t) for t in times.values()]} launches of "
+                         f"{calls}; records of {seen}")
 
 
 # ---------------------------------------------------------------------------
@@ -381,8 +398,13 @@ def phase_build() -> None:
             raise AssertionError(f"{name}: instantiations {sorted(report)}, "
                                  f"expected {sorted(want)}")
         flash[name] = report
+    # The paged decode kernels run on every decode step: none may spill.
+    paged = ptxas_entries(_build.build_log.get("paged_decode", ""))
+    spilled = {n: e for n, e in paged.items() if e["spill_stores"] or e["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"paged_decode spills: {spilled}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "ptxas": regs, "flash": flash})
+          "ptxas": regs, "flash": flash, "paged_decode": paged})
 
 
 def phase_kernels(dev: dict) -> dict:
@@ -458,11 +480,14 @@ def phase_kernels(dev: dict) -> dict:
         "bound_by": "bytes" if nbytes / bw >= ops / fp32 else "operations",
     }
     gather = phase_kernels_gather(bw)
+    paged = phase_kernels_paged(dev)
     flash = phase_kernels_flash(dev)
-    result = {"normalize_u8": norm, "softmax_top1": soft, "gather_kv_pages": gather, **flash}
+    result = {"normalize_u8": norm, "softmax_top1": soft, "gather_kv_pages": gather,
+              "paged_decode_attention": paged, **flash}
     emit({"phase": "kernels",
           "normalize_u8": {str(k).replace("torch.", ""): v for k, v in norm.items()},
-          "softmax_top1": soft, "gather_kv_pages": gather, **flash})
+          "softmax_top1": soft, "gather_kv_pages": gather, "paged_decode_attention": paged,
+          **flash})
     return result
 
 
@@ -543,6 +568,175 @@ def phase_kernels_gather(bw: float) -> dict:
             raise AssertionError(f"gather_kv_pages differs on {pool.dtype} {tuple(pool.shape)}")
     torch.cuda.synchronize()
     return {"lm_wide": wide, "bench_decode": bench, "exact_cases": len(cases) + 2}
+
+
+# The paged decode attention's geometries: (slots, page size, pool pages,
+# heads, table columns, pages in use a slot). lm_wide's is the generate
+# phase's engine; bench_decode the decode phase's (BENCH_* above).
+PAGED_GEOMETRIES = {
+    "lm_wide": (GEN_SLOTS, GEN_PAGE, GEN_PAGES, 4, 128 // GEN_PAGE, 128 // GEN_PAGE),
+    "bench_decode": (BENCH_SLOTS, BENCH_PAGE,
+                     BENCH_REQUESTS * -(-(BENCH_PROMPT + BENCH_NEW + 1) // BENCH_PAGE)
+                     + BENCH_SLOTS + 1, BENCH_HEADS, BENCH_MAX_LEN // BENCH_PAGE,
+                     -(-(BENCH_PROMPT + BENCH_NEW) // BENCH_PAGE)),
+}
+# Head dims the paged kernel is held at: the registry LMs' 128 and 64 (its
+# instantiations) and 96 (its generic path).
+PAGED_HEAD_DIMS = (128, 64, 96)
+# The decode phase's one-step state: every slot at this kv length.
+PAGED_BENCH_LENGTH = BENCH_PROMPT + BENCH_NEW // 2 + 1
+# The paged kernel against its plain version (gather + ragged attention):
+# relative L2 error over the output and over its worst row (one slot and
+# head), as hold_flash measures them. Both sum float32 products, in
+# another order, over at most 256 positions; bf16 then rounds the output
+# to bf16 (half an ulp, 2^-9 relative, where the two round apart).
+PAGED_REL_L2 = {torch.float32: 2e-6, torch.bfloat16: 4e-3}
+PAGED_ROW_REL = {torch.float32: 1e-5, torch.bfloat16: 8e-3}
+# One decode step's logits through the kernel against the same state
+# through the plain version (generate phase): relative L2 over [slots,
+# vocab], float32. The attention's float32 rounding passes through 2
+# layers and the head.
+STEP_LOGITS_REL_L2 = 1e-5
+# The decode phase on the gather path (two page gathers and the eager
+# attention a layer), as PERF.md section 5 records it on an H100 80GB HBM3
+# at 700 W: printed beside this run's.
+GATHER_PATH_DECODE = {"tokens_per_s": 812.275206034469, "step_ms_p50": 9.03676299999745,
+                      "step_ms_p99": 14.016815999994492, "traced_busy_ms": 1.96925}
+
+
+def paged_inputs(geometry: str, dtype: torch.dtype, dh: int, lengths: np.ndarray | None = None,
+                 seed: int = 0) -> dict:
+    """q, pools, an engine-like table (``full_cache_table``) and kv lengths
+    on the card for ``geometry``, N(0, 1) from ``seed``; by default ragged
+    lengths with 1 and a full slot among them."""
+    slots, page, pages, heads, cols, in_use = PAGED_GEOMETRIES[geometry]
+    rng = np.random.default_rng(seed)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    full = in_use * page
+    if lengths is None:
+        lengths = rng.integers(1, full + 1, slots)
+        lengths[0], lengths[1] = 1, full
+    table = full_cache_table(slots, cols, pages - 1, in_use, rng)
+    pool = (pages, page, heads, dh)
+    return {
+        "q": torch.randn(slots, heads, dh, device="cuda", generator=gen).to(dtype),
+        "k": torch.randn(pool, device="cuda", generator=gen).to(dtype),
+        "v": torch.randn(pool, device="cuda", generator=gen).to(dtype),
+        "table": torch.from_numpy(table).to("cuda"),
+        "lengths": torch.from_numpy(np.asarray(lengths, np.int32)).to("cuda"),
+    }
+
+
+def paged_check(case: tuple, dtype: torch.dtype, lengths: np.ndarray | None = None) -> dict:
+    """paged_decode_attention at ``case`` = (geometry, head dim) against
+    its plain version, within PAGED_REL_L2 and PAGED_ROW_REL; the same call
+    again must give the same bits, and so must the same state laid out as
+    a contiguous cache of one page a slot (the engine's contiguous mode).
+    Raises AssertionError."""
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    geometry, dh = case
+    x = paged_inputs(geometry, dtype, dh, lengths)
+    args = (x["q"], x["k"], x["v"], x["table"], x["lengths"])
+    got = RD.paged_decode_attention(*args)
+    want = RD.paged_decode_attention_reference(*args)
+    again = RD.paged_decode_attention(*args)
+    slots = x["q"].shape[0]
+    k_rows = RD.gather_kv_pages_reference(x["k"], x["table"])
+    v_rows = RD.gather_kv_pages_reference(x["v"], x["table"])
+    one_page = torch.arange(slots, dtype=torch.int32, device="cuda").view(-1, 1)
+    contiguous = RD.paged_decode_attention(x["q"], k_rows, v_rows, one_page, x["lengths"])
+    torch.cuda.synchronize()
+    where = f"paged_decode_attention {geometry} Dh {dh} {dtype}"
+    if got.dtype != dtype or tuple(got.shape) != tuple(x["q"].shape) or \
+            not torch.isfinite(got).all():
+        raise AssertionError(f"{where}: {got.dtype} {tuple(got.shape)} or non-finite")
+    r = {"max_abs_err": max_abs_err(got, want), **l2_errors(got, want),
+         "lengths": x["lengths"].tolist()}
+    if r["rel_l2"] > PAGED_REL_L2[dtype] or r["row_rel_max"] > PAGED_ROW_REL[dtype]:
+        raise AssertionError(
+            f"{where}: relative L2 {r['rel_l2']} (limit {PAGED_REL_L2[dtype]}), worst row "
+            f"{r['worst_row']} {r['row_rel_max']} (limit {PAGED_ROW_REL[dtype]})")
+    if not torch.equal(got, again):
+        raise AssertionError(f"{where}: two calls on the same inputs differ")
+    if not torch.equal(got, contiguous):
+        raise AssertionError(f"{where}: the contiguous layout gives other bits "
+                             f"(max diff {max_abs_err(got, contiguous)})")
+    return r
+
+
+def paged_timing(dev: dict, case: tuple, dtype: torch.dtype, lengths: np.ndarray | None) -> dict:
+    """paged_decode_attention at ``case`` with its call and device time
+    (both of its kernels), its bound, the plain version's time, the
+    parent's path (two gather_kv_pages launches and ragged_decode_attention)
+    and, as the library yardstick, F.scaled_dot_product_attention over the
+    pre-gathered head-major view with a boolean length mask (timed only:
+    the port never calls it). The bound counts the live K and V rows, q,
+    the table, the lengths and the output, each once."""
+    import torch.nn.functional as F
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    geometry, dh = case
+    x = paged_inputs(geometry, dtype, dh, lengths, seed=1)
+    q, k, v, table, lens = x["q"], x["k"], x["v"], x["table"], x["lengths"]
+    args = (q, k, v, table, lens)
+    slots, heads, _ = q.shape
+    s_max = table.shape[1] * k.shape[1]
+    live = int(lens.clamp(max=s_max).sum())
+    item = q.element_size()
+    nbytes = (2 * live * heads * dh + 2 * q.numel()) * item + table.numel() * 4 + lens.numel() * 4
+    ops = 4 * live * heads * dh
+    t_bytes, t_ops = nbytes / dev["mem_bytes_per_s"], ops / dev["fp32_flops_per_s"]
+    k4 = RD.gather_kv_pages_reference(k, table).transpose(1, 2).contiguous()
+    v4 = RD.gather_kv_pages_reference(v, table).transpose(1, 2).contiguous()
+    mask = (torch.arange(s_max, device="cuda")[None, :] < lens[:, None].long())[:, None, None, :]
+    q4 = q[:, :, None, :]
+    lib = F.scaled_dot_product_attention(q4, k4, v4, attn_mask=mask)
+    got = RD.paged_decode_attention(*args)
+
+    def parent():
+        return RD.ragged_decode_attention(q, RD.gather_kv_pages(k, table),
+                                          RD.gather_kv_pages(v, table), lens)
+
+    return {
+        "geometry": geometry, "head_dim": dh, "dtype": str(dtype).replace("torch.", ""),
+        "pool": list(k.shape), "table": list(table.shape), "lengths": lens.tolist(),
+        "max_abs_err": max_abs_err(got, RD.paged_decode_attention_reference(*args)),
+        "library_max_abs_err": max_abs_err(lib[:, :, 0], got),
+        "ms": time_ms(lambda: RD.paged_decode_attention(*args)),
+        "device_ms": kernel_device_ms(lambda: RD.paged_decode_attention(*args),
+                                      ("paged_decode", "paged_combine")),
+        "plain_ms": time_ms(lambda: RD.paged_decode_attention_reference(*args)),
+        "parent_path_ms": time_ms(parent),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4,
+                                                                     attn_mask=mask)),
+        "bound_ms": max(t_bytes, t_ops) * 1e3,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+    }
+
+
+def phase_kernels_paged(dev: dict) -> dict:
+    """paged_decode_attention on the card: held against its plain version
+    (paged_check) at both geometries, in float32 and bf16, at each of
+    PAGED_HEAD_DIMS, at ragged lengths and at the decode phase's one-step
+    lengths; then timed at each (paged_timing): lm_wide at ragged lengths,
+    the decode bench at PAGED_BENCH_LENGTH."""
+    checks, timings = [], {}
+    for geometry in PAGED_GEOMETRIES:
+        slots = PAGED_GEOMETRIES[geometry][0]
+        uniform = np.full(slots, PAGED_BENCH_LENGTH)
+        for dh in PAGED_HEAD_DIMS:
+            for dt in (torch.float32, torch.bfloat16):
+                case = (geometry, dh)
+                checks.append({"case": list(case), "dtype": str(dt).replace("torch.", ""),
+                               **paged_check(case, dt)})
+                if geometry == "bench_decode":
+                    checks.append({"case": list(case), "dtype": str(dt).replace("torch.", ""),
+                                   **paged_check(case, dt, uniform)})
+                timings[f"{geometry}_dh{dh}_{str(dt).replace('torch.', '')}"] = paged_timing(
+                    dev, case, dt, uniform if geometry == "bench_decode" else None)
+    torch.cuda.synchronize()
+    return {"checks": checks, "timings": timings}
 
 
 def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -637,11 +831,13 @@ def flash_checks() -> list[dict]:
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
 
 
-def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int) -> dict:
-    """The public flash_attention at head dim ``dh``, which the kernels are
-    not built for: out and the q, k and v gradients (autograd through the
-    padded kernels) against the plain versions at ``dh`` itself, with the
-    limits of flash_check. As there, the plain backward takes the kernels'
+def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
+                       bhs: tuple = PADDED_BHS) -> dict:
+    """The public flash_attention at head dim ``dh``, which the Hopper
+    kernels are not built for, at [batch, heads, S] = ``bhs``: out and the
+    q, k and v gradients (autograd through the padded or wide kernels)
+    against the plain versions at ``dh`` itself, with the limits of
+    flash_check. As there, the plain backward takes the kernels'
     own lse (from flash_attention_with_lse, which must give the same out)
     and delta = rowsum(dO * out) as the kernels got it: summed over the
     padded head dim. (Summed over ``dh`` alone, the float32 sum's other
@@ -651,7 +847,7 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int) -> 
     from dmlc_tpu_torch.ops import flash as FL
     from dmlc_tpu_torch.ops import kernels as K
 
-    b, h, s = PADDED_BHS
+    b, h, s = bhs
     shape = (b, h, s, dh)
     q, k, v, do = flash_operands(shape, dtype, seed)
     kw = {"causal": causal, "scale": dh ** -0.5}
@@ -671,7 +867,7 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int) -> 
     if not torch.equal(out_lse.view(out3.shape), out3):
         raise AssertionError(f"flash_attention_with_lse Dh {dh} {dtype}: another out")
     want_out, want_lse = FL.flash_forward_reference(q, k, v, **kw)
-    run_dh = FL._kernel_head_dim(dh)
+    run_dh = FL._run_head_dim(dh, q.device, "flash_public_check")
     delta = FL._delta(FL._as_heads(out.detach(), run_dh), FL._as_heads(do.view(shape), run_dh))
     want_dq = FL.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
     want_dk, want_dv = FL.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
@@ -687,22 +883,30 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int) -> 
 
 
 def flash_public_checks() -> dict:
-    """flash_public_check at each of PADDED_HEAD_DIMS in both dtypes,
-    causal and not; then flash_attention at UNPADDABLE_HEAD_DIM must raise
-    ValueError on the card."""
+    """flash_public_check at each of PADDED_HEAD_DIMS and WIDE_HEAD_DIMS in
+    both dtypes, causal and not, and at each of WIDE_SWEEP_HEAD_DIMS
+    (causal, both dtypes); then flash_attention one head dim past
+    WIDE_MAX_HEAD_DIM must raise ValueError on the card."""
     from dmlc_tpu_torch.ops import flash as FL
 
-    cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS
+    cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
              for dt in (torch.bfloat16, torch.float32) for causal in (False, True)]
     checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
-    x = torch.zeros(1, 1, 64, UNPADDABLE_HEAD_DIM, device="cuda")
+    sweep = [flash_public_check(dh, dt, True, seed=200 + i, bhs=WIDE_SWEEP_BHS)
+             for i, (dh, dt) in enumerate((dh, dt) for dh in WIDE_SWEEP_HEAD_DIMS
+                                          for dt in (torch.bfloat16, torch.float32))]
+    past = FL.WIDE_MAX_HEAD_DIM + 1
+    x = torch.zeros(1, 1, 64, past, device="cuda")
     try:
         FL.flash_attention(x, x, x)
     except ValueError as e:
         refused = str(e)
     else:
-        raise AssertionError(f"flash_attention at head dim {UNPADDABLE_HEAD_DIM} did not raise")
-    return {"checks": checks, f"dh{UNPADDABLE_HEAD_DIM}_raises": refused}
+        raise AssertionError(f"flash_attention at head dim {past} did not raise")
+    return {"checks": checks,
+            "sweep": [{k: c[k] for k in ("shape", "dtype", "launches")}
+                      | {n: c[n]["rel_l2"] for n in ("out", "dq", "dk", "dv")} for c in sweep],
+            f"dh{past}_raises": refused}
 
 
 def flash_flops(shape, products: int, causal: bool = True) -> float:
@@ -716,6 +920,14 @@ def flash_bound(dev: dict, shape, dtype: torch.dtype, products: int, nbytes: int
     peak = dev["bf16_flops_per_s"] if dtype == torch.bfloat16 else dev["fp32_flops_per_s"]
     t_ops, t_bytes = flash_flops(shape, products) / peak, nbytes / dev["mem_bytes_per_s"]
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def flash_kernel_name(name: str, dh: int) -> str:
+    """What the profiler's records of flash kernel ``name`` at head dim
+    ``dh`` hold: the Hopper designs' names, or the wide kernels'."""
+    from dmlc_tpu_torch.ops import flash as FL
+
+    return name if dh in FL.KERNEL_HEAD_DIMS else name.replace("flash_", "flash_wide_")
 
 
 def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) -> dict:
@@ -740,8 +952,8 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
         "max_abs_err": max_abs_err(out, FL.flash_forward_reference(q, k, v, **kw)[0]),
         "library_max_abs_err": max_abs_err(lib.reshape(out.shape), out),
         "ms": time_ms(lambda: FL.flash_forward(q, k, v, **kw), reps=11, inner=5),
-        "device_ms": kernel_device_ms(lambda: FL.flash_forward(q, k, v, **kw), "flash_fwd",
-                                      calls=10),
+        "device_ms": kernel_device_ms(lambda: FL.flash_forward(q, k, v, **kw),
+                                      flash_kernel_name("flash_fwd", dh), calls=10),
         "plain_ms": time_ms(lambda: FL.flash_forward_reference(q, k, v, **kw),
                             reps=plain_reps, inner=1),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
@@ -785,7 +997,8 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
             "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
             "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
             "ms": time_ms(lambda fn=fn: fn(*args, **kw), reps=11, inner=5),
-            "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw), kernel, calls=10),
+            "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw),
+                                          flash_kernel_name(kernel, dh), calls=10),
             "plain_ms": time_ms(lambda ref=ref: ref(*args, **kw), reps=5, inner=1),
             "library_ms": library_ms, "library_computes": "dq, dk and dv together",
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -795,10 +1008,11 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
 
 def phase_kernels_flash(dev: dict) -> dict:
     """The flash kernels on the card: checked against their plain versions
-    (flash_checks), the public flash_attention at head dims they are not
-    built for (flash_public_checks), then timed at the train shape and at
-    its Dh-64 twin (forward and backward, bf16 and float32) and at the
-    streamed-forward shape (bf16)."""
+    (flash_checks), the public flash_attention at head dims the Hopper
+    kernels are not built for (flash_public_checks), then timed at the
+    train shape and at its Dh-64 twin (forward and backward, bf16 and
+    float32), at the streamed-forward shape (bf16), and the wide kernels at
+    [WIDE_TIMED_BHS, Dh] for each of WIDE_HEAD_DIMS (both dtypes)."""
     checks = flash_checks()
     public = flash_public_checks()
     fwd = {
@@ -808,10 +1022,15 @@ def phase_kernels_flash(dev: dict) -> dict:
         "dh64_f32": flash_forward_timing(dev, DH64_SHAPE, torch.float32, plain_reps=3),
         "stream_bf16": flash_forward_timing(dev, STREAM_SHAPE, torch.bfloat16, plain_reps=3),
     }
+    wide_shapes = [(*WIDE_TIMED_BHS, dh) for dh in WIDE_HEAD_DIMS]
+    for shape in wide_shapes:
+        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+            fwd[f"dh{shape[3]}_{tag}"] = flash_forward_timing(dev, shape, dt, plain_reps=3)
     for entry in fwd.values():
         entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
     bwd = {(shape, dt): flash_backward_timing(dev, shape, dt)
-           for shape in (TRAIN_SHAPE, DH64_SHAPE) for dt in (torch.bfloat16, torch.float32)}
+           for shape in (TRAIN_SHAPE, DH64_SHAPE, *wide_shapes)
+           for dt in (torch.bfloat16, torch.float32)}
     for (shape, _), report in bwd.items():
         for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
             device_s = report[name]["device_ms"] * 1e-3
@@ -821,7 +1040,9 @@ def phase_kernels_flash(dev: dict) -> dict:
             **bwd[TRAIN_SHAPE, torch.bfloat16],
             "backward_f32": bwd[TRAIN_SHAPE, torch.float32],
             "backward_dh64_bf16": bwd[DH64_SHAPE, torch.bfloat16],
-            "backward_dh64_f32": bwd[DH64_SHAPE, torch.float32]}
+            "backward_dh64_f32": bwd[DH64_SHAPE, torch.float32],
+            **{f"backward_dh{shape[3]}_{tag}": bwd[shape, dt] for shape in wide_shapes
+               for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))}}
 
 
 class SeededImages:
@@ -1100,14 +1321,17 @@ def phase_generate(dev: dict) -> dict:
     for i, (_, n, _, _) in enumerate(reqs):
         if len(results[i]) != n or not all(0 <= t < engine.vocab for t in results[i]):
             raise AssertionError(f"request {i}: {len(results[i])} tokens of {n}, or out of vocab")
-    want_launches = 2 * engine.num_layers * steps
-    if steps == 0 or launches["gather_kv_pages"] != want_launches:
-        raise AssertionError(f"gather_kv_pages launched {launches['gather_kv_pages']} times, "
-                             f"expected 2 x {engine.num_layers} layers x {steps} steps")
+    want_launches = engine.num_layers * steps
+    if (steps == 0 or launches["paged_decode_attention"] != want_launches
+            or launches["gather_kv_pages"]):
+        raise AssertionError(
+            f"paged_decode_attention launched {launches['paged_decode_attention']} times, "
+            f"expected {engine.num_layers} layers x {steps} steps; gather_kv_pages "
+            f"{launches['gather_kv_pages']} times, expected 0")
     if summary["sheds"] or summary["evictions"]:
         raise AssertionError(f"sheds/evictions in the generate phase: {summary}")
 
-    # The same requests on a contiguous-cache engine (no gather kernel).
+    # The same requests on a contiguous-cache engine (one page a slot).
     ref = GenerationEngine(model_name, cache="contiguous", max_slots=GEN_SLOTS,
                            max_prefill=GEN_PREFILL, variables=engine.model.state_dict())
     sched = SlotScheduler(ref, max_waiting=GEN_REQUESTS)
@@ -1132,8 +1356,11 @@ def phase_generate(dev: dict) -> dict:
         "max_prefill": GEN_PREFILL, "engine_build_s": build_s,
         "requests": len(reqs), "greedy": len(greedy), "sampled": len(sampled),
         "tokens": tokens, "wall_s": wall, "tokens_per_s": tokens / wall, "steps": steps,
+        "paged_launches": launches["paged_decode_attention"],
+        "paged_launches_per_step": engine.num_layers,
         "gather_launches": launches["gather_kv_pages"],
-        "gather_launches_per_step": 2 * engine.num_layers,
+        "one_step": engine_step_checks(model_name, engine.model.state_dict(),
+                                       [r[0] for r in reqs[:GEN_SLOTS]]),
         "admits_mid_decode": sum(e["kind"] == "slot_admit" and e["step"] > 0
                                  for e in flight.events),
         "step_ms_p50": summary["step_ms_p50"], "step_ms_p99": summary["step_ms_p99"],
@@ -1144,6 +1371,67 @@ def phase_generate(dev: dict) -> dict:
     }
     emit(report)
     return report
+
+
+@contextlib.contextmanager
+def engine_attention(fn):
+    """The generation engine's per-layer attention replaced by ``fn`` (a
+    function of paged_decode_attention's arguments) inside the block."""
+    from dmlc_tpu_torch.generate import engine as E
+
+    kept = E.paged_decode_attention
+    E.paged_decode_attention = fn
+    try:
+        yield
+    finally:
+        E.paged_decode_attention = kept
+
+
+def parent_attention(q, k_pages, v_pages, page_table, kv_lengths):
+    """The parent's per-layer decode path: the page gather kernel on each
+    pool, then ragged_decode_attention's eager ops over the padded view."""
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    return RD.ragged_decode_attention(q, RD.gather_kv_pages(k_pages, page_table),
+                                      RD.gather_kv_pages(v_pages, page_table), kv_lengths)
+
+
+def engine_step_checks(model_name: str, weights: dict, prompts: list) -> dict:
+    """One decode step of paged and contiguous engines (the generate
+    phase's geometry and weights) after joining ``prompts``, one a slot:
+    their logits must be bit-identical. Then the paged engine's step replayed
+    through the kernel and through the plain version
+    (paged_decode_attention_reference) on the same state: relative L2 of
+    the logits within STEP_LOGITS_REL_L2."""
+    from dmlc_tpu_torch.generate import engine as E
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    kw = {"max_slots": GEN_SLOTS, "max_prefill": GEN_PREFILL, "variables": weights,
+          "return_logits": True}
+    paged = E.GenerationEngine(model_name, page_size=GEN_PAGE, num_pages=GEN_PAGES, **kw)
+    contiguous = E.GenerationEngine(model_name, cache="contiguous", **kw)
+    for eng in (paged, contiguous):
+        for slot, prompt in enumerate(prompts):
+            eng.join(slot, prompt)
+            eng.ensure_capacity(slot)
+        eng.step()
+    if not np.array_equal(paged.last_logits, contiguous.last_logits):
+        diff = float(np.abs(paged.last_logits - contiguous.last_logits).max())
+        raise AssertionError(f"paged and contiguous logits differ after one step (max {diff})")
+    regs = torch.from_numpy(np.stack([paged.last_tokens, paged.lengths, paged.active])
+                            .astype(np.int64)).to(paged.device)
+    table = torch.from_numpy(paged.cache.page_table).to(paged.device)
+    with torch.no_grad():
+        got = paged._decode(regs[0], regs[1], regs[2].bool(), table)
+        with engine_attention(RD.paged_decode_attention_reference):
+            want = paged._decode(regs[0], regs[1], regs[2].bool(), table)
+    rel = float((got - want).norm() / want.norm())
+    if not torch.isfinite(got).all() or rel > STEP_LOGITS_REL_L2:
+        raise AssertionError(f"one step's logits through the kernel vs the plain version: "
+                             f"relative L2 {rel} (limit {STEP_LOGITS_REL_L2})")
+    return {"slots": len(prompts), "paged_equal_contiguous": True,
+            "kernel_vs_plain_rel_l2": rel, "kernel_vs_plain_max_abs": max_abs_err(got, want),
+            "tol": STEP_LOGITS_REL_L2}
 
 
 def register_bench_lm() -> str:
@@ -1188,15 +1476,17 @@ def phase_decode(dev: dict) -> dict:
         streams = [sched.submit(p, max_new_tokens=BENCH_NEW) for p in prompts]
         outs = [st.result(timeout=600) for st in streams]
         wall = time.perf_counter() - t0
-        launches = K.launch_counts()["gather_kv_pages"]
+        counts = K.launch_counts()
+        launches, gathers = counts["paged_decode_attention"], counts["gather_kv_pages"]
         steps = engine.steps - steps0
         stats = sched.step_stats
     finally:
         sched.stop()
     if any(len(o) != BENCH_NEW for o in outs):
         raise AssertionError("a decode-bench request came back short")
-    if launches != 2 * BENCH_LAYERS * steps:
-        raise AssertionError(f"gather launched {launches} times in {steps} steps")
+    if launches != BENCH_LAYERS * steps or gathers:
+        raise AssertionError(f"paged_decode_attention launched {launches} times and "
+                             f"gather_kv_pages {gathers} times in {steps} steps")
 
     # One step at a representative state: 8 slots joined with the bench
     # prompts and half their new tokens into the decode (length 192).
@@ -1222,11 +1512,22 @@ def phase_decode(dev: dict) -> dict:
                             .astype(np.int64)).to(engine.device)
     table = torch.from_numpy(engine.cache.page_table).to(engine.device)
     # Back-to-back replays of the step's device work (same state, same
-    # writes): an upper bound on one step's device time.
-    device_ms = time_ms(lambda: engine._decode(regs[0], regs[1], regs[2].bool(), table),
-                        reps=11, inner=5)
-    gather_ms = time_ms(lambda: K.KERNELS["gather_kv_pages"](engine.cache.k_pages[0], table),
-                        reps=11, inner=5)
+    # writes): an upper bound on one step's device time; in turns with the
+    # parent's path (two gathers and the eager attention a layer).
+    def replay():
+        return engine._decode(regs[0], regs[1], regs[2].bool(), table)
+
+    replays = {"paged": [], "parent": []}
+    for path in ("paged", "parent", "parent", "paged"):
+        with engine_attention(parent_attention if path == "parent"
+                              else K.KERNELS["paged_decode_attention"]):
+            replays[path].append(time_ms(replay, reps=11, inner=5))
+    device_ms = statistics.fmean(replays["paged"])
+    kv_lengths = (regs[1] + 1).clamp(min=1)
+    q = torch.randn(BENCH_SLOTS, BENCH_HEADS, BENCH_HIDDEN // BENCH_HEADS, device="cuda")
+    pools = (engine.cache.k_pages[0], engine.cache.v_pages[0])
+    paged_ms = time_ms(lambda: K.KERNELS["paged_decode_attention"](q, *pools, table, kv_lengths),
+                       reps=11, inner=5)
     profile = profile_call(one_step)
     tokens = sum(len(o) for o in outs)
     report = {
@@ -1236,15 +1537,18 @@ def phase_decode(dev: dict) -> dict:
         "slots": BENCH_SLOTS, "requests": BENCH_REQUESTS, "prompt": BENCH_PROMPT,
         "new_tokens": BENCH_NEW, "page_size": BENCH_PAGE, "num_pages": num_pages,
         "engine_build_s": build_s, "tokens": tokens, "wall_s": wall,
-        "tokens_per_s": tokens / wall, "steps": steps, "gather_launches": launches,
+        "tokens_per_s": tokens / wall, "steps": steps, "paged_launches": launches,
+        "gather_launches": gathers,
         "step_ms_p50": stats.percentile(50) * 1e3, "step_ms_p99": stats.percentile(99) * 1e3,
         "one_step": {
             "lengths": int(engine.lengths[0]), "wall_ms": step_wall_ms,
-            "device_ms_at_most": device_ms,
+            "device_ms_at_most": device_ms, "device_ms_readings": replays["paged"],
+            "parent_path_device_ms_readings": replays["parent"],
             "idle_share_at_least": 1.0 - device_ms / step_wall_ms,
-            "gather_call_ms": gather_ms, "gathers": 2 * BENCH_LAYERS,
+            "paged_call_ms": paged_ms, "paged_calls": BENCH_LAYERS,
             "profile": profile,
         },
+        "gather_path": GATHER_PATH_DECODE,
     }
     emit(report)
     return report
@@ -1557,7 +1861,7 @@ def main() -> int:
     kern = phase_kernels(dev)
     serve = phase_serve(dev)
     gen = phase_generate(dev)
-    phase_decode(dev)
+    decode = phase_decode(dev)
     train = phase_train(dev)
     small = phase_train_small(dev)
     phase_trainer(dev)
@@ -1584,9 +1888,11 @@ def main() -> int:
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],
          "bound_by": soft["bound_by"], "library_ms": soft["library_ms"],
          "shape": [BATCH, NUM_CLASSES]},
+        # The engine's decode no longer gathers (paged_decode_attention reads
+        # the pages): its main-path launches are 0 by design.
         {"name": "gather_kv_pages", "route": "cuda", "source": "dmlc_tpu_torch/csrc/gather_pages.cu",
          "replaces": "dmlc_tpu/ops/ragged_decode.py:49",
-         "launches": gen["gather_launches"],
+         "launches": gen["gather_launches"], "on_main_path": False,
          "max_abs_err": gather["max_abs_err"], "max_err": gather["max_abs_err"],
          "ms": gather["ms"], "device_ms": gather["device_ms"],
          "device_ms_cold_l2": gather["device_ms_cold_l2"],
@@ -1598,6 +1904,20 @@ def main() -> int:
                                     "device_ms_cold_l2", "plain_ms", "library_ms",
                                     "bound_ms")}},
     ]
+    paged = kern["paged_decode_attention"]["timings"]
+    paged_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "parent_path_ms", "library_ms",
+                  "bound_ms", "bound_by", "lengths")
+    on_path = paged["lm_wide_dh128_float32"]
+    rows.append({"name": "paged_decode_attention", "route": "cuda",
+                 "source": "dmlc_tpu_torch/csrc/paged_decode.cu",
+                 "replaces": "dmlc_tpu/ops/ragged_decode.py:49",
+                 "replaces_also": "the XLA attention of dmlc_tpu/ops/ragged_decode.py:94",
+                 "launches": gen["paged_launches"], "decode_launches": decode["paged_launches"],
+                 **{k: on_path[k] for k in paged_keys}, "max_err": on_path["max_abs_err"],
+                 "library": "scaled_dot_product_attention over the gathered view, length mask",
+                 "shape": [on_path["pool"], on_path["table"]], "dtype": "float32",
+                 **{key: {k: t[k] for k in paged_keys} for key, t in paged.items()
+                    if key != "lm_wide_dh128_float32"}})
     timed = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "tflops")
     timed_shape = ("shape", *timed)
@@ -1617,7 +1937,9 @@ def main() -> int:
                  "dh64_f32": {k: fwd["dh64_f32"][k] for k in timed_shape},
                  "lm_small_launches": {dt: n["flash_forward"] for dt, n in small_launches.items()},
                  "streamed": {"shape": fwd["stream_bf16"]["shape"],
-                              **{k: fwd["stream_bf16"][k] for k in timed}}})
+                              **{k: fwd["stream_bf16"][k] for k in timed}},
+                 **{f"dh{dh}_{tag}": {k: fwd[f"dh{dh}_{tag}"][k] for k in timed_shape}
+                    for dh in WIDE_HEAD_DIMS for tag in ("bf16", "f32")}})
     for name, line in (("flash_bwd_dq", 271), ("flash_bwd_dkv", 320)):
         rows.append({"name": name, "route": "cuda", "source": f"dmlc_tpu_torch/csrc/{name}.cu",
                      "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
@@ -1628,6 +1950,9 @@ def main() -> int:
                      "f32": {k: kern["backward_f32"][name][k] for k in timed},
                      "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
                      "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
+                     **{f"dh{dh}_{tag}": {k: kern[f"backward_dh{dh}_{tag}"][name][k]
+                                          for k in timed_shape}
+                        for dh in WIDE_HEAD_DIMS for tag in ("bf16", "f32")},
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})

@@ -11,10 +11,11 @@ and leave between steps without reshaping anything.
   logits give the first sampled token. Exact because padding sits at the
   end under a causal mask: no real position can attend to it.
 - ``step``: one token per slot ([max_slots]) — embed, then per layer: write
-  K/V at position ``lengths[s]``, gather the slot's pages into a contiguous
-  view (``ops/ragged_decode.gather_kv_pages``: the hand-written CUDA kernel
-  on the card), ragged attention over ``lengths[s]+1`` positions, MLP —
-  then the head and sampling.
+  K/V at position ``lengths[s]``, attention over ``lengths[s]+1`` positions
+  read from the slot's pages through the page table
+  (``ops/ragged_decode.paged_decode_attention``: one hand-written CUDA
+  kernel a layer on the card, no gathered view), MLP — then the head and
+  sampling.
 
 The JAX engine donates the pools to its jitted programs and gets new ones
 back. This engine writes each step's K/V into the pools in place
@@ -24,9 +25,11 @@ nowhere else, and the scratch page is never attended to by an active row.
 
 The forward math is the module's own (``models/lm.TransformerLM``'s
 submodules, ``Block.attend_out``), so decode logits match the full-sequence
-forward within float tolerance. ``cache="contiguous"`` swaps the paged
-gather for a dense per-slot cache with identical math: the parity
-reference for the paged path, and it runs no gather kernel.
+forward within float tolerance. ``cache="contiguous"`` swaps the page pool
+for a dense per-slot cache, read by the same attention as a pool of one
+page a slot (table ``[[0], [1], ...]``): the parity reference for the
+paged path. The kernel's sums depend on positions only, so on the card
+both caches give the same bits for the same state.
 
 Sampling is per-slot and position-seeded: greedy (first-index argmax) at
 temperature <= 0; otherwise the JAX engine's draw, ``jax.random.categorical``
@@ -49,11 +52,7 @@ import torch
 from dmlc_tpu_torch.generate.kvcache import SCRATCH_PAGE, PagedKVCache
 from dmlc_tpu_torch.models.convert import load_into
 from dmlc_tpu_torch.models.registry import get_model
-from dmlc_tpu_torch.ops.ragged_decode import (
-    check_page_table,
-    gather_kv_pages,
-    ragged_decode_attention,
-)
+from dmlc_tpu_torch.ops.ragged_decode import check_page_table, paged_decode_attention
 from dmlc_tpu_torch.parallel.ring_attention import dense_attention
 from dmlc_tpu_torch.utils.device import resolve_device
 
@@ -205,6 +204,9 @@ class GenerationEngine:
                      self.num_heads, self.head_dim)
             self._k_state = torch.zeros(shape, dtype=dtype, device=self.device)
             self._v_state = torch.zeros(shape, dtype=dtype, device=self.device)
+            # Each slot's row of the state is one page of max_tokens rows.
+            self._slot_table = torch.arange(self.max_slots, dtype=torch.int32,
+                                            device=self.device).view(-1, 1)
 
         # Host-side slot registers (fixed batch shape).
         self.lengths = np.zeros(self.max_slots, np.int32)
@@ -241,6 +243,8 @@ class GenerationEngine:
             col = (lengths // page_size).clamp(max=table.shape[1] - 1)
             dest_page = torch.where(active, table[self._rows, col].long(), SCRATCH_PAGE)
             dest_off = lengths % page_size
+        else:
+            table = self._slot_table
         kv_lengths = (lengths + 1).clamp(min=1)
         for layer, blk in enumerate(model.blocks()):
             q, k, v = blk.attn.qkv(blk.ln1(x))  # [B, H, Dh] each
@@ -249,13 +253,10 @@ class GenerationEngine:
                 # In place: duplicate indices occur only on the scratch page.
                 k_pool.index_put_((dest_page, dest_off), k)
                 v_pool.index_put_((dest_page, dest_off), v)
-                k_view = gather_kv_pages(k_pool, table)
-                v_view = gather_kv_pages(v_pool, table)
             else:
                 k_pool.index_put_((self._rows, lengths), k)
                 v_pool.index_put_((self._rows, lengths), v)
-                k_view, v_view = k_pool, v_pool
-            att = ragged_decode_attention(q, k_view, v_view, kv_lengths)
+            att = paged_decode_attention(q, k_pool, v_pool, table, kv_lengths)
             x = blk.attend_out(x, att)
         return model.head(model.ln_f(x)).to(torch.float32)
 

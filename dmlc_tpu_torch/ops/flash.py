@@ -31,14 +31,18 @@ checked by the JAX package's block rule (``_auto_block``), so the same
 inputs raise the same ``ValueError``; the CUDA kernels then pick their own
 tiles and mask the ragged edge.
 
-Head dims: the kernels are built for ``KERNEL_HEAD_DIMS`` (64, 128); the
-reference takes any Dh. The public functions zero-pad q, k, v, out and dO
-along Dh up to ``_kernel_head_dim(Dh)`` on every device, run the wrappers
-there and slice the results back. The padding is exact: zero columns of Q
-and K leave Q K^T unchanged, zero columns of V and dO leave out's first Dh
-columns, lse, delta and dP unchanged, and dQ, dK, dV get zero columns.
-``scale`` defaults to the original Dh's. Past 128 a CPU tensor runs the
-plain versions at its own Dh and a CUDA tensor raises ``ValueError``.
+Head dims: the Hopper designs are built for ``KERNEL_HEAD_DIMS`` (64,
+128); past 128 a second set of three simple kernels takes the head dim at
+run time (``csrc/flash_wide.cu``, any multiple of 8 up to
+``WIDE_MAX_HEAD_DIM``, 512); the reference takes any Dh. The public
+functions zero-pad q, k, v, out and dO along Dh up to ``_run_head_dim(Dh)``
+(the next of ``KERNEL_HEAD_DIMS``, past 128 the next multiple of 8) on
+every device, run the wrappers there and slice the results back. The
+padding is exact: zero columns of Q and K leave Q K^T unchanged, zero
+columns of V and dO leave out's first Dh columns, lse, delta and dP
+unchanged, and dQ, dK, dV get zero columns. ``scale`` defaults to the
+original Dh's. Past 512 a CPU tensor runs the plain versions at its own Dh
+and a CUDA tensor raises ``ValueError``.
 """
 
 from __future__ import annotations
@@ -60,6 +64,12 @@ _FULL_BLOCK_CAP = 1024
 #: functions pad any smaller head dim up to one of them.
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+#: Past the largest of KERNEL_HEAD_DIMS the wide kernels (csrc/flash_wide.cu,
+#: ``kWideMaxDh``) take any multiple of WIDE_HEAD_DIM_STEP up to
+#: WIDE_MAX_HEAD_DIM: the largest head dim whose dK/dV block of 8 keys fits
+#: a block's shared memory, rounded down. No registry model runs them.
+WIDE_HEAD_DIM_STEP = 8
+WIDE_MAX_HEAD_DIM = 512
 
 
 def _kernel_head_dim(dh: int) -> int | None:
@@ -68,17 +78,26 @@ def _kernel_head_dim(dh: int) -> int | None:
     return next((k for k in KERNEL_HEAD_DIMS if k >= dh), None)
 
 
+def _is_wide(dh: int) -> bool:
+    """Whether the wide kernels take head dim ``dh``."""
+    return KERNEL_HEAD_DIMS[-1] < dh <= WIDE_MAX_HEAD_DIM and dh % WIDE_HEAD_DIM_STEP == 0
+
+
 def _run_head_dim(dh: int, device: torch.device, what: str) -> int:
     """The head dim the public functions run heads of ``dh`` at on
-    ``device``: ``_kernel_head_dim(dh)``; past the largest kernel head dim,
-    ``dh`` itself on the CPU (the plain versions take any) and a
-    ``ValueError`` on a CUDA device."""
+    ``device``: ``_kernel_head_dim(dh)``; past it, up to
+    ``WIDE_MAX_HEAD_DIM``, ``dh`` rounded up to a multiple of
+    ``WIDE_HEAD_DIM_STEP`` (the wide kernels'); past that, ``dh`` itself on
+    the CPU (the plain versions take any) and a ``ValueError`` on a CUDA
+    device."""
     padded = _kernel_head_dim(dh)
     if padded is not None:
         return padded
+    if dh <= WIDE_MAX_HEAD_DIM:
+        return -(-dh // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
     if device.type == "cuda":
-        raise ValueError(f"{what}: head dim {dh} is past {KERNEL_HEAD_DIMS[-1]}, the largest "
-                         f"the kernels take (smaller ones are zero-padded to {KERNEL_HEAD_DIMS})")
+        raise ValueError(f"{what}: head dim {dh} is past {WIDE_MAX_HEAD_DIM}, the largest the "
+                         "kernels take")
     return dh
 
 
@@ -199,9 +218,9 @@ def flash_bwd_dkv_reference(q, k, v, do, lse, delta, *, causal: bool,
 def _check_operands(what: str, mats: dict[str, torch.Tensor],
                     rows: dict[str, torch.Tensor]) -> tuple[int, int, int]:
     """[BH, S, Dh] matrices of one shape on one device, and float32 [BH, S,
-    1] row vectors; on a CUDA device also what the kernel takes: float32
-    or bfloat16, one dtype, a head dim of ``KERNEL_HEAD_DIMS``, contiguous and 16-byte
-    aligned."""
+    1] row vectors; on a CUDA device also what the kernels take: float32
+    or bfloat16, one dtype, a head dim of ``KERNEL_HEAD_DIMS`` or one the
+    wide kernels take (``_is_wide``), contiguous and 16-byte aligned."""
     first = next(iter(mats.values()))
     for name, t in {**mats, **rows}.items():
         if not isinstance(t, torch.Tensor):
@@ -223,9 +242,11 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
         if first.dtype not in _KERNEL_DTYPES or any(t.dtype != first.dtype for t in mats.values()):
             raise TypeError(f"{what}: the kernel takes one dtype of {_KERNEL_DTYPES} for "
                             f"{list(mats)}, got {[t.dtype for t in mats.values()]}")
-        if dh not in KERNEL_HEAD_DIMS:
+        if dh not in KERNEL_HEAD_DIMS and not _is_wide(dh):
             raise ValueError(
-                f"{what}: the kernels are built for head dims {KERNEL_HEAD_DIMS}, got {dh}")
+                f"{what}: the kernels are built for head dims {KERNEL_HEAD_DIMS} and the "
+                f"multiples of {WIDE_HEAD_DIM_STEP} in ({KERNEL_HEAD_DIMS[-1]}, "
+                f"{WIDE_MAX_HEAD_DIM}], got {dh}")
         for name, t in {**mats, **rows}.items():
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
@@ -233,6 +254,11 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
 
 
 def _run(name: str, first: torch.Tensor, *args) -> None:
+    """Launch kernel ``name`` on ``first``'s device: its Hopper design at
+    ``KERNEL_HEAD_DIMS``, its wide kernel (``flash_wide_*`` in
+    ``ops/kernels._SIGNATURES``) past them."""
+    if first.shape[-1] not in KERNEL_HEAD_DIMS:
+        name = name.replace("flash_", "flash_wide_", 1)
     lib, fn = kernels._entry(name)
     rc = kernels._launch(first, fn, *args)
     _build.check(lib, rc, name)
@@ -356,9 +382,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     log-sum-exp and the backward recomputes p tile by tile. ``blk_q`` and
     ``blk_k`` are checked against the JAX package's block rule (an S
     with no legal block raises ``ValueError``: pad the sequence); the
-    kernels choose their own tiles. A head dim below 128 that the kernels
-    are not built for runs zero-padded to the next of ``KERNEL_HEAD_DIMS``;
-    past 128 it raises ``ValueError`` on the card."""
+    kernels choose their own tiles. A head dim the kernels are not built
+    for runs zero-padded to ``_run_head_dim``; past ``WIDE_MAX_HEAD_DIM``
+    it raises ``ValueError`` on the card."""
     _check_blocks(q, blk_q, blk_k)
     if scale is None:
         scale = q.shape[-1] ** -0.5

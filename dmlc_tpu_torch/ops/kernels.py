@@ -15,8 +15,9 @@ when it lies on a CUDA device. A failed build or launch raises; there is no
 fallback from the kernel to the plain version. Each wrapper counts its
 kernel launches in its ``launches`` attribute; ``KERNELS`` lists every
 wrapper of the package (``ops/ragged_decode.py`` adds the page gather and
-``ops/flash.py`` the three flash-attention kernels when the ``ops`` package
-is imported), so one reset and one read cover them all.
+the paged decode attention, ``ops/flash.py`` the three flash-attention
+kernels when the ``ops`` package is imported), so one reset and one read
+cover them all.
 """
 
 from __future__ import annotations
@@ -52,6 +53,17 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     ),
+    # Paged decode attention (ops/ragged_decode.py): q, k_pages, v_pages;
+    # num_pages, page_size, heads, dh; table, b, max_pages; lengths,
+    # len_is_i64, scale, is_bf16; scratch, out; the stream.
+    "paged_decode": (
+        "dmlc_paged_decode",
+        [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p] + [ctypes.c_int] * 2
+        + [ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_int]
+        + [ctypes.c_void_p] * 3,
+    ),
+    # The positions a block of it takes (the scratch is sized by them).
+    "paged_decode_split": ("dmlc_paged_decode_split", []),
     # Flash attention (ops/flash.py): tensor pointers, then bh, s, dh,
     # causal, scale, is_bf16 and the stream.
     "flash_fwd": (
@@ -70,6 +82,16 @@ _SIGNATURES = {
                                                       ctypes.c_void_p],
     ),
 }
+# The same three at head dims past 128 (csrc/flash_wide.cu), with the same
+# arguments.
+_SIGNATURES.update({
+    f"flash_wide_{name[6:]}": (f"dmlc_flash_wide_{name[6:]}", _SIGNATURES[name][1])
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+})
+#: The library (csrc/<name>.cu) of each entry point that does not live in
+#: its own name's.
+_LIBRARY = {name: "flash_wide" for name in _SIGNATURES if name.startswith("flash_wide_")}
+_LIBRARY["paged_decode_split"] = "paged_decode"
 
 
 _ENTRIES: dict[str, tuple] = {}
@@ -80,7 +102,7 @@ def _entry(name: str):
     built and bound once per process."""
     entry = _ENTRIES.get(name)
     if entry is None:
-        lib = _build.load(name)
+        lib = _build.load(_LIBRARY.get(name, name))
         symbol, argtypes = _SIGNATURES[name]
         fn = getattr(lib, symbol)
         fn.argtypes = argtypes
@@ -230,9 +252,9 @@ def softmax_top1(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
 softmax_top1.launches = 0  # type: ignore[attr-defined]
 
 
-#: The wrappers whose ``launches`` a run can read and reset (the page gather
-#: and the flash kernels register themselves from ``ops/ragged_decode.py``
-#: and ``ops/flash.py``).
+#: The wrappers whose ``launches`` a run can read and reset (the page
+#: gather, the paged decode attention and the flash kernels register
+#: themselves from ``ops/ragged_decode.py`` and ``ops/flash.py``).
 KERNELS = {"normalize_u8": normalize_u8, "softmax_top1": softmax_top1}
 
 

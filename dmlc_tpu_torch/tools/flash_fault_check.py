@@ -1,13 +1,14 @@
 #!/usr/bin/env python3
-"""Shows that chip_smoke.py's flash check catches a fault in one late tile.
+"""Shows that chip_smoke.py's kernel checks catch a planted fault.
 
     python3 dmlc_tpu_torch/tools/flash_fault_check.py SCRATCH_DIR [FAULT ...]
 
 For each fault of FAULTS (default: all) it copies chip_smoke.py and
 dmlc_tpu_torch/ (without its build directory) into SCRATCH_DIR/<fault>,
-plants the fault in the copy's source, builds the copy and runs
-``chip_smoke.flash_check`` there, causal, in the fault's dtype at its shape
-(the LM train shape, or its Dh-64 twin):
+plants the fault in the copy's source, builds the copy and runs the fault's
+check there. A flash fault (one late tile skipped) runs
+``chip_smoke.flash_check``, causal, in the fault's dtype at its shape (the
+LM train shape, or its Dh-64 twin):
 
 - flash_fwd (bf16): the last 128-row Q tile skips its last K/V tile (the
   diagonal one); the count of K/V tiles is shared by the producer and the
@@ -25,6 +26,16 @@ plants the fault in the copy's source, builds the copy and runs
   Q tile (the only one that reaches its keys);
 - flash_fwd_dh64 (bf16, head dim 64): the fault of flash_fwd, which the
   Dh-64 instantiation shares.
+
+A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
+(csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
+128, ragged lengths:
+
+- paged_past_length: each split reads one position past the slot's
+  kv length;
+- paged_page0: the first page of each split is read from page 0 in place
+  of the table's id;
+- paged_split_twice: the merge adds split 0 twice.
 
 The check must fail on every fault. Prints one JSON line per fault (the
 check's message) and exits non-zero if a fault passes. Needs a CUDA device
@@ -47,8 +58,9 @@ class Fault(NamedTuple):
     source: str  # csrc/<source>.cu
     old: str     # the line replaced, exactly once in the source
     new: str
-    dtype: str   # the flash_check run on the copy
-    shape: tuple
+    dtype: str   # the check run on the copy
+    shape: tuple  # flash: [B, H, S, Dh]; paged: (geometry, Dh)
+    check: str = "flash"  # a key of CHECKS
 
 
 FWD_SM90 = ("  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK;",
@@ -80,12 +92,39 @@ FAULTS = {
     "flash_fwd_dh64": Fault("flash_fwd", *FWD_SM90, "bfloat16", DH64_SHAPE),
 }
 
-CHECK = """
+PAGED_CASE = ("bench_decode", 128)
+FAULTS.update({
+    "paged_past_length": Fault(
+        "paged_decode",
+        "__device__ __forceinline__ int split_end(int p0, int len) "
+        "{ return min(p0 + kSplit, len); }",
+        "__device__ __forceinline__ int split_end(int p0, int len) "
+        "{ return min(p0 + kSplit, len + 1); }", "float32", PAGED_CASE, "paged"),
+    "paged_page0": Fault(
+        "paged_decode", "    ids[i] = (id >= 0 && id < a.num_pages) ? id : -1;",
+        "    ids[i] = (id >= 0 && id < a.num_pages) ? (i > 0 ? id : 0) : -1;",
+        "float32", PAGED_CASE, "paged"),
+    "paged_split_twice": Fault(
+        "paged_decode", "      o += part[(size_t)s * a.dh + d] * c;",
+        "      o += part[(size_t)s * a.dh + d] * c * (s == 0 ? 2.f : 1.f);",
+        "float32", PAGED_CASE, "paged"),
+})
+
+#: Each check: the script run in the copy, and what its failure prints.
+CHECKS = {
+    "flash": ("""
 import torch, chip_smoke as cs
 from dmlc_tpu_torch.ops import _build
 _build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 cs.flash_check({shape}, torch.{dtype}, True)
-"""
+""", "AssertionError: flash"),
+    "paged": ("""
+import torch, chip_smoke as cs
+from dmlc_tpu_torch.ops import _build
+_build.build(["paged_decode"])
+cs.paged_check({shape}, torch.{dtype})
+""", "AssertionError: paged_decode_attention"),
+}
 
 
 def plant(name: str, root: Path) -> Path:
@@ -113,11 +152,12 @@ def main(argv: list[str]) -> int:
     for name in names:
         fault = FAULTS[name]
         dest = plant(name, root)
-        check = CHECK.format(shape=fault.shape, dtype=fault.dtype)
+        script, failure = CHECKS[fault.check]
+        check = script.format(shape=fault.shape, dtype=fault.dtype)
         run = subprocess.run([sys.executable, "-c", check], cwd=dest, capture_output=True,
                              text=True, timeout=900)
         lines = (run.stderr.strip() or run.stdout.strip()).splitlines()
-        caught = run.returncode != 0 and "AssertionError: flash" in run.stderr
+        caught = run.returncode != 0 and failure in run.stderr
         print(json.dumps({"fault": name, "caught": caught, "rc": run.returncode,
                           "message": lines[-1] if lines else ""}), flush=True)
         if not caught:

@@ -1,12 +1,15 @@
 #!/usr/bin/env python3
-"""Times design variants (levers) of the flash kernels, one at a time.
+"""Times design variants (levers) of the flash and paged decode kernels, one at a time.
 
     python3 dmlc_tpu_torch/tools/flash_levers.py SCRATCH_DIR GROUP [--parent CSRC_DIR] [VARIANT ...]
 
 GROUP names a table of GROUPS: ``dq`` (the bf16 flash_bwd_dq kernel, timed
 at the LM train shape), ``f32`` (the float32 forward and dK/dV) or
 ``dq_f32`` (the float32 flash_bwd_dq), both timed at the train shape and at
-its Dh-64 twin. Runs the group's variants named
+its Dh-64 twin; or ``paged`` (paged_decode_attention in float32 at the
+decode bench's one-step state and at lm_wide's geometry, Dh 128, both
+kernels of a call timed together, after ``chip_smoke.paged_check`` at each
+geometry and head dim). Runs the group's variants named
 (default: its ORDER) in turn. Each run copies chip_smoke.py and
 dmlc_tpu_torch/ (without its build directory) into SCRATCH_DIR/<n>_<variant>;
 each csrc source a variant patches is the checkout's with those pieces of
@@ -44,9 +47,10 @@ DH64_SHAPE = (8, 12, 2048, 64)
 class Group(NamedTuple):
     dtype: str                # checked and timed in this dtype
     kernels: tuple[str, ...]  # csrc/<kernel>.cu, each checked and timed
-    shapes: tuple             # timed shapes, causal
+    shapes: tuple             # timed shapes: flash [B, H, S, Dh], causal; paged (geometry, Dh)
     levers: dict              # variant -> {kernel: [(old, new), ...]}
     order: tuple              # the variants run by default
+    script: str = "flash"     # the key of SCRIPTS run in each copy
 
 
 # flash_bwd_dq (bf16). a: 128-key K/V tiles, P made while dP is multiplied,
@@ -128,6 +132,15 @@ DQ_F32 = {
     "keys64": {"flash_bwd_dq": [(DQ_KEYS, "BK = 64,")]},
 }
 
+# paged_decode_attention (float32). ship: the checkout's source (32-position
+# splits, 4 warps of 8 positions, each lane loading its 8 K and 8 V rows at
+# Dh 128 before using any); split16: 16-position splits (4 warps of 4,
+# twice the blocks); warps8: 8 warps of 4 positions; split64: 64-position
+# splits (4 warps of 16, two rounds of 8 loads a lane); split128:
+# 128-position splits over 8 warps of 16.
+THREADS = "constexpr int kThreads = 128;"
+SPLIT = "constexpr int kSplit = 32; "
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -149,6 +162,14 @@ GROUPS = {
     }, ("ship", "sync", "ring", "rows128", "keys64", "quad", "ship")),
     "dq_f32": Group("float32", ("flash_bwd_dq",), (TRAIN_SHAPE, DH64_SHAPE), DQ_F32,
                     ("ship", "ring", "rows32", "keys32", "keys64", "ship")),
+    "paged": Group("float32", ("paged_decode",), (("bench_decode", 128), ("lm_wide", 128)), {
+        "ship": {},
+        "split16": {"paged_decode": [(SPLIT, SPLIT.replace("32", "16"))]},
+        "warps8": {"paged_decode": [(THREADS, THREADS.replace("128", "256"))]},
+        "split64": {"paged_decode": [(SPLIT, SPLIT.replace("32", "64"))]},
+        "split128": {"paged_decode": [(SPLIT, SPLIT.replace("32", "128")),
+                                      (THREADS, THREADS.replace("128", "256"))]},
+    }, ("ship", "split16", "warps8", "split64", "split128", "ship"), "paged"),
 }
 
 RUN = """
@@ -193,6 +214,34 @@ for shape in map(tuple, shapes):
                        for _ in range(3)] for name in kernels}
 print(json.dumps(report))
 """
+
+
+RUN_PAGED = """
+import json, sys, numpy as np, torch, chip_smoke as cs
+from dmlc_tpu_torch.ops import _build, ragged_decode as RD
+dtype, kernels, shapes = json.loads(sys.argv[1])
+dt = getattr(torch, dtype)
+_build.build(["paged_decode"])
+report = {"card": torch.cuda.get_device_name(0),
+          "paged_decode": {m[-40:]: e for m, e in
+                           cs.ptxas_entries(_build.build_log["paged_decode"]).items()}}
+for geometry, dh in shapes:
+    slots = cs.PAGED_GEOMETRIES[geometry][0]
+    uniform = np.full(slots, cs.PAGED_BENCH_LENGTH)
+    for d in cs.PAGED_HEAD_DIMS:
+        cs.paged_check((geometry, d), dt)
+        cs.paged_check((geometry, d), dt, uniform)
+    x = cs.paged_inputs(geometry, dt, dh, uniform if geometry == "bench_decode" else None, seed=1)
+    args = (x["q"], x["k"], x["v"], x["table"], x["lengths"])
+    report[f"{geometry}_dh{dh}"] = {
+        "device_ms": [cs.kernel_device_ms(lambda: RD.paged_decode_attention(*args),
+                                          ("paged_decode", "paged_combine")) for _ in range(3)],
+        "call_ms": cs.time_ms(lambda: RD.paged_decode_attention(*args))}
+print(json.dumps(report))
+"""
+
+
+SCRIPTS = {"flash": RUN, "paged": RUN_PAGED}
 
 
 def variant_sources(group: str, name: str, parent: Path | None = None) -> dict[str, str]:
@@ -254,8 +303,8 @@ def main(argv: list[str]) -> int:
     for i, (name, parent) in enumerate(runs):
         dest = root / f"{i}_{name}"
         copy_port(dest, variant_sources(args.group, name, parent))
-        run = subprocess.run([sys.executable, "-c", RUN, spec], cwd=dest, capture_output=True,
-                             text=True, timeout=900)
+        run = subprocess.run([sys.executable, "-c", SCRIPTS[group.script], spec], cwd=dest,
+                             capture_output=True, text=True, timeout=900)
         lines = run.stdout.strip().splitlines()
         if run.returncode == 0 and lines:
             result = json.loads(lines[-1])

@@ -15,17 +15,20 @@ Same numpy-seeded float32 inputs through both:
   the kernels are built for beside 128) against the same;
 - at head dims 32 and 96, which the public functions zero-pad to 64 and
   128: out and gradients, lse and the blockwise gradients against the
-  same; the wrappers see the padded head dim, past 128 the CPU runs the
-  plain versions at the head dim given and a CUDA device refuses it
-  (``_kernel_head_dim``, ``_run_head_dim``);
+  same; past 128 (160, 256 and 130, padded to 136) the head dims the wide
+  kernels run at; the wrappers see the padded head dim, past 512 the CPU
+  runs the plain versions at the head dim given and a CUDA device refuses
+  it (``_kernel_head_dim``, ``_run_head_dim``); the wide kernels' limit
+  and entry points are their source's;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
 - each flash entry point dispatches head dims 64 and 128 in both dtypes
   (bf16 to ``sm90::``, float32 to ``f32::``), the set
   ``KERNEL_HEAD_DIMS`` the wrappers accept on the card;
-- each fault of ``tools/flash_fault_check.py`` and each lever of
-  ``tools/flash_levers.py`` finds its line once in its kernel's source;
+- each fault of ``tools/flash_fault_check.py`` (the paged decode kernel's
+  too) and each lever of ``tools/flash_levers.py`` finds its line once in
+  its kernel's source;
 - every kernel source built on ``csrc/flash_sm90.cuh`` is one that
   ``chip_smoke.py``'s build phase checks, and exports its shared memory.
 
@@ -135,16 +138,56 @@ def test_kernel_head_dim_is_the_next_one_built():
 
 
 def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
+    """Past 128 the wide kernels take the head dim (rounded up to a
+    multiple of 8) on every device; past their limit, 512, the CPU runs
+    the plain versions at the head dim given and the card refuses it."""
     cuda, cpu = torch.device("cuda"), torch.device("cpu")
     assert flash._run_head_dim(96, cuda, "f") == 128 and flash._run_head_dim(32, cpu, "f") == 64
     assert flash._run_head_dim(160, cpu, "f") == 160
-    with pytest.raises(ValueError, match="head dim 160 is past 128"):
-        flash._run_head_dim(160, cuda, "flash_attention")
+    assert flash._run_head_dim(160, cuda, "flash_attention") == 160
+    assert flash._run_head_dim(130, cuda, "f") == 136 and flash._run_head_dim(512, cuda, "f") == 512
+    assert flash._run_head_dim(520, cpu, "f") == 520
+    with pytest.raises(ValueError, match="head dim 513 is past 512"):
+        flash._run_head_dim(513, cuda, "flash_attention")
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
 
 
-@pytest.mark.parametrize("dh, run", [(32, 64), (96, 128), (64, 64), (160, 160)])
+def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
+    """Each head dim in (128, WIDE_MAX_HEAD_DIM] runs at a head dim the
+    wide kernels take, at most 7 wider; none past the limit does."""
+    cuda = torch.device("cuda")
+    for dh in range(129, flash.WIDE_MAX_HEAD_DIM + 1):
+        run = flash._run_head_dim(dh, cuda, "f")
+        assert flash._is_wide(run) and dh <= run < dh + flash.WIDE_HEAD_DIM_STEP, dh
+    assert not any(flash._is_wide(dh) for dh in (*range(1, 129), flash.WIDE_MAX_HEAD_DIM + 8))
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dh", [256, 130])
+def test_out_and_grads_match_past_head_dim_128(dh, causal):
+    """Head dims the wide kernels run (130 zero-padded to 136) against
+    JAX's Pallas flash attention."""
+    q, k, v, g = _heads(40, dh, seed=9)
+    _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh}")
+
+
+def test_wide_kernels_limit_and_entry_points_are_their_sources():
+    """WIDE_MAX_HEAD_DIM is the source's kWideMaxDh, and each wide entry
+    point the wrappers call exists there with its kernel's arguments (text
+    only, no nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / "flash_wide.cu").read_text()
+    assert f"constexpr int kWideMaxDh = {flash.WIDE_MAX_HEAD_DIM};" in text
+    assert "dh % 8 != 0" in text and flash.WIDE_HEAD_DIM_STEP == 8
+    for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
+        wide = name.replace("flash_", "flash_wide_", 1)
+        assert f'extern "C" int dmlc_{wide}(' in text
+        assert K._SIGNATURES[wide][1] == K._SIGNATURES[name][1]
+        assert K._LIBRARY[wide] == "flash_wide"
+
+
+@pytest.mark.parametrize("dh, run", [(32, 64), (96, 128), (64, 64), (160, 160), (130, 136),
+                                     (256, 256)])
 def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, monkeypatch):
     """Every public entry point pads q, k, v, out and dO with zero columns
     before the wrappers (which launch the kernels on the card) and slices
@@ -299,6 +342,25 @@ def test_fault_check_finds_its_loop_once(fault):
     assert case.dtype in ("bfloat16", "float32") and case.shape[3] in flash.KERNEL_HEAD_DIMS
     assert fault.endswith("_f32") == (case.dtype == "float32")
     assert fault.endswith("_dh64") == (case.shape[3] == 64)
+    assert case.check == "flash"
+
+
+@pytest.mark.parametrize("fault", ["paged_past_length", "paged_page0", "paged_split_twice"])
+def test_paged_fault_finds_its_line_once(fault):
+    """The paged decode kernel's planted faults: one line of
+    csrc/paged_decode.cu each, run by chip_smoke.paged_check at a geometry
+    it holds (text only, no nvcc)."""
+    tool = _tool()
+    case = tool.FAULTS[fault]
+    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
+    assert case.source == "paged_decode" and case.check == "paged"
+    assert text.count(case.old) == 1
+    assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
+    geometry, dh = case.shape
+    tree = ast.parse((tool.REPO / "chip_smoke.py").read_text())
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert "paged_check" in names and geometry in ("lm_wide", "bench_decode") and dh == 128
+    assert set(tool.CHECKS) == {"flash", "paged"}
 
 
 def _lever_sources_apply(group: str, lever: str) -> None:
@@ -334,6 +396,12 @@ def test_f32_lever_tool_finds_its_lines_once(lever):
 def test_dq_f32_lever_tool_finds_its_lines_once(lever):
     """The float32 flash_bwd_dq variants (group dq_f32)."""
     _lever_sources_apply("dq_f32", lever)
+
+
+@pytest.mark.parametrize("lever", ["ship", "split16", "warps8", "split64", "split128"])
+def test_paged_lever_tool_finds_its_lines_once(lever):
+    """The paged decode kernel's variants (group paged)."""
+    _lever_sources_apply("paged", lever)
 
 
 def test_every_hopper_kernel_is_checked_by_the_build_phase():

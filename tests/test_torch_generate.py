@@ -237,6 +237,40 @@ def test_cache_and_allocator_are_built_once(variables):
     assert allocator.pages_free == allocator.pages_total
 
 
+@pytest.mark.parametrize("cache", ["paged", "contiguous"])
+def test_decode_attends_through_one_paged_call_a_layer(variables, cache, monkeypatch):
+    """A decode step calls paged_decode_attention (the fused kernel on the
+    card) once a layer, on the pools themselves with the page table (in
+    contiguous mode the one-page-a-slot table [[0], [1], ...]), and
+    gathers nothing."""
+    from dmlc_tpu_torch.generate import engine as engine_mod
+    from dmlc_tpu_torch.ops import ragged_decode
+
+    calls = []
+
+    def spy(q, k_pages, v_pages, page_table, kv_lengths, **kw):
+        calls.append((k_pages.shape, page_table.clone()))
+        return ragged_decode.paged_decode_attention(q, k_pages, v_pages, page_table,
+                                                    kv_lengths, **kw)
+
+    def no_gather(*args, **kw):
+        raise AssertionError("the decode step gathered a view")
+
+    monkeypatch.setattr(engine_mod, "paged_decode_attention", spy)
+    monkeypatch.setattr(ragged_decode, "gather_kv_pages", no_gather)
+    eng = make_engine(variables, cache=cache)
+    eng.join(0, _prompt(3, 6))
+    eng.step()
+    assert len(calls) == eng.num_layers
+    for shape, table in calls:
+        if cache == "paged":
+            assert tuple(shape) == tuple(eng.cache.k_pages.shape[1:])
+            assert torch.equal(table, torch.from_numpy(eng.cache.page_table))
+        else:
+            assert tuple(shape) == (eng.max_slots, eng.max_tokens, eng.num_heads, eng.head_dim)
+            assert torch.equal(table, torch.arange(eng.max_slots, dtype=torch.int32)[:, None])
+
+
 def test_corrupt_page_table_is_caught_on_the_host(variables):
     eng = make_engine(variables)
     eng.join(0, _prompt(1, 4))

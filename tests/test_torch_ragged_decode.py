@@ -1,11 +1,13 @@
 """The port's page gather and decode attention against the JAX package's.
 
-On the CPU ``gather_kv_pages`` runs its plain version (the CUDA kernel is
-held against that same plain version on the card by chip_smoke.py); the
-JAX side runs its Pallas page gather in interpret mode, as
-tests/test_generate.py does, and its XLA gather. Inputs come from numpy
-seeds and go to both.
+On the CPU ``gather_kv_pages`` and ``paged_decode_attention`` run their
+plain versions (the CUDA kernels are held against those same plain
+versions on the card by chip_smoke.py); the JAX side runs its Pallas page
+gather in interpret mode, as tests/test_generate.py does, and its XLA
+gather. Inputs come from numpy seeds and go to both.
 """
+
+from pathlib import Path
 
 import jax.numpy as jnp
 import numpy as np
@@ -22,6 +24,10 @@ from dmlc_tpu_torch.parallel.ring_attention import dense_attention
 # order than XLA's einsum over at most 24 positions of float32 products:
 # 1e-5 absolute on outputs of magnitude ~1.
 ATOL = 1e-5
+# paged_decode_attention against JAX's over up to 48 positions: float32
+# within ATOL; bf16 rounds both outputs to bf16 from float32 sums taken in
+# another order, so they may round one bf16 ulp apart: 2^-7 relative.
+PAGED_TOL = {"float32": {"rtol": 0, "atol": ATOL}, "bfloat16": {"rtol": 2.0**-7, "atol": 1e-6}}
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -81,8 +87,10 @@ def test_gather_rejects_bad_inputs(pool, table, err):
 
 def test_gather_wrapper_is_counted_with_the_other_kernels():
     assert set(kernels.KERNELS) == {"normalize_u8", "softmax_top1", "gather_kv_pages",
-                                    "flash_forward", "flash_bwd_dq", "flash_bwd_dkv"}
+                                    "paged_decode_attention", "flash_forward", "flash_bwd_dq",
+                                    "flash_bwd_dkv"}
     assert kernels.KERNELS["gather_kv_pages"] is trd.gather_kv_pages
+    assert kernels.KERNELS["paged_decode_attention"] is trd.paged_decode_attention
 
 
 def test_ragged_decode_attention_matches_jax():
@@ -110,6 +118,99 @@ def test_paged_decode_attention_matches_jax():
         jnp.asarray(lengths), use_pallas=True))
     got = trd.paged_decode_attention(*(torch.from_numpy(a) for a in (q, kp, vp, table, lengths)))
     np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def _paged_case(dh: int, layout: str, seed: int):
+    """q [B, H, Dh], pools, table and ragged lengths (1 to full) as numpy.
+    "engine": each slot's pages drawn distinct from the pool, the rest of
+    its row the scratch page 0 (repeated); "contiguous": one page a slot
+    holding the slot's whole sequence, table [[0], [1], ...]."""
+    rng = np.random.default_rng(seed)
+    b, h, page, cols = 4, 2, 4, 6
+    if layout == "engine":
+        pool = (1 + b * 4, page, h, dh)
+        table = np.zeros((b, cols), np.int32)
+        table[:, :4] = rng.permutation(np.arange(1, pool[0]))[: b * 4].reshape(b, 4)
+        full = 4 * page
+    else:
+        pool = (b, cols * page, h, dh)
+        table = np.arange(b, dtype=np.int32)[:, None]
+        full = cols * page
+    lengths = np.array([1, full, *rng.integers(1, full + 1, b - 2)], np.int32)
+    q = rng.standard_normal((b, h, dh)).astype(np.float32)
+    kp, vp = (rng.standard_normal(pool).astype(np.float32) for _ in range(2))
+    return q, kp, vp, table, lengths
+
+
+@pytest.mark.parametrize("layout", ["engine", "contiguous"])
+@pytest.mark.parametrize("dh", [64, 128, 96])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_paged_decode_attention_matches_jax_pallas_and_xla(dtype, dh, layout):
+    q, kp, vp, table, lengths = _paged_case(dh, layout, seed=dh)
+    jargs = [jnp.asarray(a, getattr(jnp, dtype)) for a in (q, kp, vp)]
+    jargs += [jnp.asarray(table), jnp.asarray(lengths)]
+    targs = [torch.from_numpy(a).to(getattr(torch, dtype)) for a in (q, kp, vp)]
+    targs += [torch.from_numpy(table), torch.from_numpy(lengths)]
+    got = trd.paged_decode_attention(*targs)
+    assert got.dtype == targs[0].dtype and tuple(got.shape) == q.shape
+    for use_pallas in (True, False):
+        want = np.asarray(jrd.paged_decode_attention(*jargs, use_pallas=use_pallas)
+                          .astype(jnp.float32))
+        np.testing.assert_allclose(got.float().numpy(), want, **PAGED_TOL[dtype],
+                                   err_msg=f"use_pallas={use_pallas}")
+    assert torch.equal(got, trd.paged_decode_attention_reference(*targs))
+
+
+def test_paged_decode_attention_takes_int64_lengths_and_a_scale():
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in _paged_case(64, "engine", 3))
+    want = np.asarray(jrd.paged_decode_attention(
+        *(jnp.asarray(t.numpy()) for t in (q, kp, vp, table, lengths)), scale=0.3))
+    got = trd.paged_decode_attention(q, kp, vp, table, lengths.long(), scale=0.3)
+    np.testing.assert_allclose(got.numpy(), want, rtol=0, atol=ATOL)
+
+
+def test_paged_decode_attention_on_the_cpu_launches_nothing():
+    kernels.reset_launch_counts()
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in _paged_case(64, "engine", 4))
+    trd.paged_decode_attention(q, kp, vp, table, lengths)
+    assert kernels.launch_counts()["paged_decode_attention"] == 0
+
+
+def _bad_paged_inputs():
+    q, kp, vp, table, lengths = (torch.from_numpy(a) for a in _paged_case(64, "engine", 5))
+    meta = torch.device("meta")
+    return [
+        ((q[0], kp, vp, table, lengths), ValueError),              # q not [B, H, Dh]
+        ((q, kp, vp[:, :, :1], table, lengths), ValueError),       # pools of other heads
+        ((q, kp[..., :32], vp[..., :32], table, lengths), ValueError),  # another head dim
+        ((q, kp, vp, table.long(), lengths), ValueError),          # table dtype
+        ((q, kp, vp, table[:2], lengths), ValueError),             # table rows
+        ((q, kp, vp, table, lengths.float()), ValueError),         # lengths dtype
+        ((q, kp, vp, table, lengths[:2]), ValueError),             # lengths shape
+        ((q.to(meta), kp.to(meta), vp.to(meta), table.to(meta), lengths.to(meta)), ValueError),
+        ((q, kp, vp.to(meta), table, lengths), ValueError),        # devices differ
+        ((q.numpy(), kp, vp, table, lengths), TypeError),
+        ((q, kp, vp, table + 100, lengths), IndexError),           # ids outside the pool
+    ]
+
+
+@pytest.mark.parametrize("case", range(11))
+def test_paged_decode_attention_rejects_bad_inputs(case):
+    args, err = _bad_paged_inputs()[case]
+    with pytest.raises(err):
+        trd.paged_decode_attention(*args)
+
+
+def test_paged_kernel_constants_match_its_source():
+    """The wrapper refuses head dims past PAGED_MAX_HEAD_DIM, the source's,
+    and reads the split it sizes the scratch by from the library (text
+    only, no nvcc)."""
+    text = (Path(trd.__file__).resolve().parent.parent / "csrc" / "paged_decode.cu").read_text()
+    assert f"constexpr int kGenericMaxDh = {trd.PAGED_MAX_HEAD_DIM};" in text
+    for name in ("paged_decode", "paged_decode_split"):
+        symbol, _ = kernels._SIGNATURES[name]
+        assert f'extern "C" int {symbol}(' in text
+    assert kernels._LIBRARY["paged_decode_split"] == "paged_decode"
 
 
 @pytest.mark.parametrize("seq", [1, 7, 16])
