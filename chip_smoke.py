@@ -9,8 +9,9 @@ non-zero:
 1. device  — the card's name, power limit and the TF32 settings in force.
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
    each flash kernel instantiation (head dim 64 and 128, bf16 and
-   float32), its registers, shared memory and spills (ptxas), and for the
-   bf16 Hopper ones their wgmma and TMA instructions (SASS).
+   float32; the bf16 forward and dK/dV also at 192 and 256), its
+   registers, shared memory and spills (ptxas), and for the bf16 Hopper
+   ones their wgmma and TMA instructions (SASS).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
@@ -19,8 +20,10 @@ non-zero:
    also bit-identical run to run and in a contiguous layout, beside the
    parent's path (two page gathers and the eager attention); the public
    flash_attention at head dims 32 and 96 (zero-padded to the kernels' 64
-   and 128) and 160 and 256 (the wide kernels) against the plain versions,
-   a sweep of head dims up to 512, and head dim 513 refused.
+   and 128), 160, 192, 200 and 256 (in bf16 the Hopper forward and dK/dV
+   at 192 or 256, in float32 the wide kernels) against the plain versions
+   with the kernel that ran each head dim, and a sweep of head dims up to
+   1024 (past 512 included, which the card once refused).
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -66,6 +69,7 @@ import sys
 import tempfile
 import threading
 import time
+from collections import Counter
 from pathlib import Path
 
 import numpy as np
@@ -153,16 +157,24 @@ SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2 = 1e-5, 1e-4
 FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # Head dims the Hopper kernels are not built for, run through the public
 # flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
-# to the next of KERNEL_HEAD_DIMS, 160 and 256 through the wide kernels
-# (csrc/flash_wide.cu, ops/flash.py), which are also timed at
-# [WIDE_TIMED_BHS, Dh]. WIDE_SWEEP_HEAD_DIMS run forward and backward once
-# each up to the wide kernels' limit; past it the card must refuse.
+# to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) bf16 pads to
+# 192 or 256 (the Hopper forward and dK/dV, the wide dQ) and float32 runs
+# the wide kernels (csrc/flash_wide.cu, ops/flash.py). The kernels are
+# also timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS.
+# WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
-WIDE_HEAD_DIMS, WIDE_TIMED_BHS = (160, 256), (4, 4, 1024)
-WIDE_SWEEP_HEAD_DIMS, WIDE_SWEEP_BHS = (129, 136, 200, 264, 328, 384, 448, 505, 512), (1, 2, 72)
+WIDE_HEAD_DIMS = (160, 192, 200, 256)
+WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256), (4, 4, 1024)
+WIDE_SWEEP_HEAD_DIMS = (129, 136, 200, 264, 328, 384, 448, 505, 512, 520, 640, 1024)
+WIDE_SWEEP_BHS = (1, 2, 72)
+# The LM train leg's FLOPs with wide heads, where the bf16 Hopper forward
+# and dK/dV at 256 and 192 are checked and timed: hidden 768 as 3 heads of
+# 256 and as 4 of 192 (dmlc_tpu_torch/tools/flash_levers.py).
+WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
-# KERNEL_HEAD_DIMS (ops/flash.py).
+# KERNEL_HEAD_DIMS (ops/flash.py); the forward and dK/dV also bf16 ones at
+# SM90_WIDE_HEAD_DIMS.
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # ResNet-18 through TrainingDriver: batch, steps, checkpoint interval.
 TRAINER_BATCH, TRAINER_STEPS, TRAINER_EVERY = 32, 3, 2
@@ -349,8 +361,8 @@ def sass_counts(lib: Path, marker: str) -> dict:
 def flash_instance(mangled: str) -> tuple[str, int] | None:
     """(dtype, head dim) of a flash kernel instantiation from its mangled
     name: the Hopper kernels are bf16, the others float32; the head dim is
-    the template argument 64 or 128."""
-    dh = re.search(r"Li(64|128)E", mangled)
+    the template argument 64, 128, 192 or 256."""
+    dh = re.search(r"Li(64|128|192|256)E", mangled)
     if dh is None:
         return None
     return ("bfloat16" if "_sm90" in mangled else "float32"), int(dh.group(1))
@@ -359,11 +371,12 @@ def flash_instance(mangled: str) -> tuple[str, int] | None:
 def phase_build() -> None:
     """Builds every kernel. For the flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
-    both head dims in both dtypes, the Hopper ones also with their wgmma
-    and TMA instructions (SASS). Fails on a spill, on a missing
-    instantiation, or on a Hopper kernel without wgmma or TMA."""
+    both head dims in both dtypes and, for the forward and dK/dV, 192 and
+    256 in bf16, the Hopper ones also with their wgmma and TMA
+    instructions (SASS). Fails on a spill, on a missing instantiation, or
+    on a Hopper kernel without wgmma or TMA."""
     from dmlc_tpu_torch.ops import _build
-    from dmlc_tpu_torch.ops.flash import KERNEL_HEAD_DIMS
+    from dmlc_tpu_torch.ops import flash as FL
 
     seconds = _build.build()
     regs = {
@@ -393,7 +406,9 @@ def phase_build() -> None:
                 raise AssertionError(f"{name} {dtype} Dh {dh}: spills, or no wgmma/TMA in its "
                                      f"SASS: {entry}")
             report[f"{dtype} dh{dh}"] = entry
-        want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32") for dh in KERNEL_HEAD_DIMS}
+        want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32")
+                for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS
+                if FL._entry_name(name, dh, getattr(torch, dt)) == name}
         if set(report) != want:
             raise AssertionError(f"{name}: instantiations {sorted(report)}, "
                                  f"expected {sorted(want)}")
@@ -818,8 +833,10 @@ def small_lm_shape() -> tuple:
 def flash_checks() -> list[dict]:
     """Every flash kernel against its plain version at both head dims: the
     train shape and its Dh-64 twin in both dtypes, ragged lengths (193,
-    1000), causal and not, where the kernels mask a partial tile, and the
-    shape of phase_train_small in both dtypes."""
+    1000), causal and not, where the kernels mask a partial tile, the
+    shape of phase_train_small in both dtypes, and at head dims 256 and
+    192 the train leg's FLOPs (WIDE256_SHAPE, WIDE192_SHAPE) and
+    [WIDE_TIMED_BHS, Dh]: bf16 causal and not, float32 causal."""
     cases = []
     for big in (TRAIN_SHAPE, DH64_SHAPE):
         cases += [(big, dt, True) for dt in (torch.bfloat16, torch.float32)]
@@ -828,6 +845,11 @@ def flash_checks() -> list[dict]:
             for causal in (False, True):
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
+    # The bf16 Hopper forward and dK/dV at 192 and 256 (the dQ on the wide
+    # kernel beside them), the float32 wide kernels at the same shapes.
+    for shape in (WIDE256_SHAPE, WIDE192_SHAPE, *((*WIDE_TIMED_BHS, dh) for dh in (192, 256))):
+        cases += [(shape, torch.bfloat16, causal) for causal in (True, False)]
+        cases += [(shape, torch.float32, True)]
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
 
 
@@ -843,7 +865,9 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     padded head dim. (Summed over ``dh`` alone, the float32 sum's other
     order put the dq row of a causal head's first query, whose exact value
     is 0, past FLASH_ROW_REL on an H100 at Dh 96.) Each flash kernel must
-    launch once in flash_attention's forward and backward."""
+    launch once in flash_attention's forward and backward, each through
+    the entry point ops/flash._entry_name names for the padded head dim
+    and the dtype (which kernel ran: the Hopper design or the wide one)."""
     from dmlc_tpu_torch.ops import flash as FL
     from dmlc_tpu_torch.ops import kernels as K
 
@@ -852,14 +876,18 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     q, k, v, do = flash_operands(shape, dtype, seed)
     kw = {"causal": causal, "scale": dh ** -0.5}
     q4, k4, v4 = (x.view(shape).clone().requires_grad_() for x in (q, k, v))
+    run_dh = FL._run_head_dim(dh, dtype)
+    dt_name = str(dtype).replace("torch.", "")
     K.reset_launch_counts()
     out = FL.flash_attention(q4, k4, v4, causal=causal)
     out.backward(do.view(shape))
     torch.cuda.synchronize()
     launches = {n: K.launch_counts()[n] for n in FLASH_WRAPPERS}
-    if set(launches.values()) != {1}:
-        raise AssertionError(f"flash_attention Dh {dh} {dtype}: launches {launches}, expected "
-                             "one of each flash kernel")
+    by_entry = K.entry_launch_counts()
+    entries = {(FL._entry_name(n, run_dh, dtype), run_dh, dtype): 1 for n in SM90_KERNELS}
+    if set(launches.values()) != {1} or by_entry != entries:
+        raise AssertionError(f"flash_attention Dh {dh} {dtype}: launches {launches} by entry "
+                             f"{dict(by_entry)}, expected one of each of {entries}")
     out3 = out.detach().view(b * h, s, dh)
     out_lse, lse = FL.flash_attention_with_lse(q4.detach(), k4.detach(), v4.detach(),
                                                causal=causal)
@@ -867,12 +895,12 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     if not torch.equal(out_lse.view(out3.shape), out3):
         raise AssertionError(f"flash_attention_with_lse Dh {dh} {dtype}: another out")
     want_out, want_lse = FL.flash_forward_reference(q, k, v, **kw)
-    run_dh = FL._run_head_dim(dh, q.device, "flash_public_check")
     delta = FL._delta(FL._as_heads(out.detach(), run_dh), FL._as_heads(do.view(shape), run_dh))
     want_dq = FL.flash_bwd_dq_reference(q, k, v, do, lse, delta, **kw)
     want_dk, want_dv = FL.flash_bwd_dkv_reference(q, k, v, do, lse, delta, **kw)
-    report = {"shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "causal": causal,
-              "launches": launches, "lse_max_abs_err": float((lse - want_lse).abs().max())}
+    report = {"shape": list(shape), "dtype": dt_name, "causal": causal, "run_dh": run_dh,
+              "launches": launches, "entries": [e for e, _, _ in entries],
+              "lse_max_abs_err": float((lse - want_lse).abs().max())}
     if report["lse_max_abs_err"] > LSE_TOL:
         raise AssertionError(f"flash lse Dh {dh} {dtype}: {report['lse_max_abs_err']} > {LSE_TOL}")
     where = f"{shape} {dtype} causal={causal} through flash_attention"
@@ -885,28 +913,16 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
 def flash_public_checks() -> dict:
     """flash_public_check at each of PADDED_HEAD_DIMS and WIDE_HEAD_DIMS in
     both dtypes, causal and not, and at each of WIDE_SWEEP_HEAD_DIMS
-    (causal, both dtypes); then flash_attention one head dim past
-    WIDE_MAX_HEAD_DIM must raise ValueError on the card."""
-    from dmlc_tpu_torch.ops import flash as FL
-
+    (causal, both dtypes): no head dim is refused."""
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
              for dt in (torch.bfloat16, torch.float32) for causal in (False, True)]
     checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
     sweep = [flash_public_check(dh, dt, True, seed=200 + i, bhs=WIDE_SWEEP_BHS)
              for i, (dh, dt) in enumerate((dh, dt) for dh in WIDE_SWEEP_HEAD_DIMS
                                           for dt in (torch.bfloat16, torch.float32))]
-    past = FL.WIDE_MAX_HEAD_DIM + 1
-    x = torch.zeros(1, 1, 64, past, device="cuda")
-    try:
-        FL.flash_attention(x, x, x)
-    except ValueError as e:
-        refused = str(e)
-    else:
-        raise AssertionError(f"flash_attention at head dim {past} did not raise")
     return {"checks": checks,
-            "sweep": [{k: c[k] for k in ("shape", "dtype", "launches")}
-                      | {n: c[n]["rel_l2"] for n in ("out", "dq", "dk", "dv")} for c in sweep],
-            f"dh{past}_raises": refused}
+            "sweep": [{k: c[k] for k in ("shape", "dtype", "run_dh", "entries")}
+                      | {n: c[n]["rel_l2"] for n in ("out", "dq", "dk", "dv")} for c in sweep]}
 
 
 def flash_flops(shape, products: int, causal: bool = True) -> float:
@@ -922,14 +938,6 @@ def flash_bound(dev: dict, shape, dtype: torch.dtype, products: int, nbytes: int
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
-def flash_kernel_name(name: str, dh: int) -> str:
-    """What the profiler's records of flash kernel ``name`` at head dim
-    ``dh`` hold: the Hopper designs' names, or the wide kernels'."""
-    from dmlc_tpu_torch.ops import flash as FL
-
-    return name if dh in FL.KERNEL_HEAD_DIMS else name.replace("flash_", "flash_wide_")
-
-
 def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) -> dict:
     """flash_forward at ``shape`` (causal): call and device time, bound,
     plain version, and F.scaled_dot_product_attention(is_causal=True) on
@@ -941,19 +949,20 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
     b, h, s, dh = shape
     q, k, v, _ = flash_operands(shape, dtype, seed=11)
     kw = {"causal": True, "scale": dh ** -0.5}
+    fwd = FL.flash_forward
+    kernel = FL._entry_name("flash_fwd", dh, dtype)
     q4, k4, v4 = (x.view(b, h, s, dh) for x in (q, k, v))
-    out, _ = FL.flash_forward(q, k, v, **kw)
+    out, _ = fwd(q, k, v, **kw)
     lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
     item = q.element_size()
     nbytes = 4 * q.numel() * item + b * h * s * 4  # q, k, v in; out, lse out
     bound_ms, bound_by = flash_bound(dev, shape, dtype, 2, nbytes)
     return {
-        "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+        "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "kernel": kernel,
         "max_abs_err": max_abs_err(out, FL.flash_forward_reference(q, k, v, **kw)[0]),
         "library_max_abs_err": max_abs_err(lib.reshape(out.shape), out),
-        "ms": time_ms(lambda: FL.flash_forward(q, k, v, **kw), reps=11, inner=5),
-        "device_ms": kernel_device_ms(lambda: FL.flash_forward(q, k, v, **kw),
-                                      flash_kernel_name("flash_fwd", dh), calls=10),
+        "ms": time_ms(lambda: fwd(q, k, v, **kw), reps=11, inner=5),
+        "device_ms": kernel_device_ms(lambda: fwd(q, k, v, **kw), kernel, calls=10),
         "plain_ms": time_ms(lambda: FL.flash_forward_reference(q, k, v, **kw),
                             reps=plain_reps, inner=1),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
@@ -983,10 +992,11 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
     item = q.element_size()
     rows = b * h * s * 4 * 2  # lse and delta
     report = {}
-    for name, fn, ref, kernel, products, outs in (
-        ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, "flash_bwd_dq", 3, 1),
-        ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, "flash_bwd_dkv", 4, 2),
+    for name, fn, ref, products, outs in (
+        ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, 3, 1),
+        ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, 4, 2),
     ):
+        kernel = FL._entry_name(name, dh, dtype)
         args = (q, k, v, do, lse, delta)
         got, want = fn(*args, **kw), ref(*args, **kw)
         got = got if isinstance(got, tuple) else (got,)
@@ -994,11 +1004,10 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
         nbytes = (4 + outs) * q.numel() * item + rows
         bound_ms, bound_by = flash_bound(dev, shape, dtype, products, nbytes)
         report[name] = {
-            "shape": list(shape), "dtype": str(dtype).replace("torch.", ""),
+            "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "kernel": kernel,
             "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
             "ms": time_ms(lambda fn=fn: fn(*args, **kw), reps=11, inner=5),
-            "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw),
-                                          flash_kernel_name(kernel, dh), calls=10),
+            "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw), kernel, calls=10),
             "plain_ms": time_ms(lambda ref=ref: ref(*args, **kw), reps=5, inner=1),
             "library_ms": library_ms, "library_computes": "dq, dk and dv together",
             "bound_ms": bound_ms, "bound_by": bound_by,
@@ -1006,13 +1015,27 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
     return report
 
 
+# The wide timings of phase_kernels_flash, through the wrappers: key ->
+# (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
+# the train leg's FLOPs at 256 and 192 (w256, w192), in both dtypes. In
+# bf16 the forward and dK/dV run the Hopper designs at 192 and 256 and the
+# wide kernels at 160, dQ the wide kernel at all three; float32 runs the
+# wide kernels.
+WIDE_TIMINGS = {
+    **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
+       for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+    **{f"w{shape[3]}_{tag}": (shape, dt) for shape in (WIDE256_SHAPE, WIDE192_SHAPE)
+       for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+}
+
+
 def phase_kernels_flash(dev: dict) -> dict:
     """The flash kernels on the card: checked against their plain versions
     (flash_checks), the public flash_attention at head dims the Hopper
     kernels are not built for (flash_public_checks), then timed at the
     train shape and at its Dh-64 twin (forward and backward, bf16 and
-    float32), at the streamed-forward shape (bf16), and the wide kernels at
-    [WIDE_TIMED_BHS, Dh] for each of WIDE_HEAD_DIMS (both dtypes)."""
+    float32), at the streamed-forward shape (bf16), and past Dh 128 at
+    each shape of WIDE_TIMINGS."""
     checks = flash_checks()
     public = flash_public_checks()
     fwd = {
@@ -1022,27 +1045,25 @@ def phase_kernels_flash(dev: dict) -> dict:
         "dh64_f32": flash_forward_timing(dev, DH64_SHAPE, torch.float32, plain_reps=3),
         "stream_bf16": flash_forward_timing(dev, STREAM_SHAPE, torch.bfloat16, plain_reps=3),
     }
-    wide_shapes = [(*WIDE_TIMED_BHS, dh) for dh in WIDE_HEAD_DIMS]
-    for shape in wide_shapes:
-        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-            fwd[f"dh{shape[3]}_{tag}"] = flash_forward_timing(dev, shape, dt, plain_reps=3)
+    for key, (shape, dt) in WIDE_TIMINGS.items():
+        fwd[key] = flash_forward_timing(dev, shape, dt, plain_reps=3)
     for entry in fwd.values():
         entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
-    bwd = {(shape, dt): flash_backward_timing(dev, shape, dt)
-           for shape in (TRAIN_SHAPE, DH64_SHAPE, *wide_shapes)
-           for dt in (torch.bfloat16, torch.float32)}
-    for (shape, _), report in bwd.items():
+    bwd = {key: flash_backward_timing(dev, shape, dt)
+           for key, (shape, dt) in {
+               "train_bf16": (TRAIN_SHAPE, torch.bfloat16),
+               "train_f32": (TRAIN_SHAPE, torch.float32),
+               "dh64_bf16": (DH64_SHAPE, torch.bfloat16),
+               "dh64_f32": (DH64_SHAPE, torch.float32), **WIDE_TIMINGS}.items()}
+    for report in bwd.values():
         for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
             device_s = report[name]["device_ms"] * 1e-3
-            report[name]["tflops"] = flash_flops(shape, products) / device_s / 1e12
+            report[name]["tflops"] = flash_flops(report[name]["shape"], products) / device_s / 1e12
     torch.cuda.synchronize()
     return {"checks": checks, "padded_head_dims": public, "flash_forward": fwd,
-            **bwd[TRAIN_SHAPE, torch.bfloat16],
-            "backward_f32": bwd[TRAIN_SHAPE, torch.float32],
-            "backward_dh64_bf16": bwd[DH64_SHAPE, torch.bfloat16],
-            "backward_dh64_f32": bwd[DH64_SHAPE, torch.float32],
-            **{f"backward_dh{shape[3]}_{tag}": bwd[shape, dt] for shape in wide_shapes
-               for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))}}
+            **bwd["train_bf16"], "backward_f32": bwd["train_f32"],
+            **{f"backward_{key}": report for key, report in bwd.items()
+               if key not in ("train_bf16", "train_f32")}}
 
 
 class SeededImages:
@@ -1621,8 +1642,9 @@ def dense_parity(model, dense, tokens, loss_tol: float, grad_tol: float, ds_tol:
 
 def timed_steps(model, opt, tokens, steps: int, layers: int) -> dict:
     """One warm-up lm_train_step, then ``steps`` timed ones with the launch
-    counts zeroed just before them and read just after: each flash kernel
-    must launch ``layers`` x ``steps`` times and the loss must fall."""
+    counts zeroed just before them and read just after, in all and by
+    entry point: each flash kernel must launch ``layers`` x ``steps`` times
+    and the loss must fall."""
     from dmlc_tpu_torch.ops import kernels as K
     from dmlc_tpu_torch.parallel.train import lm_loss, lm_train_step
 
@@ -1639,7 +1661,7 @@ def timed_steps(model, opt, tokens, steps: int, layers: int) -> dict:
         torch.cuda.synchronize()
         walls.append(time.perf_counter() - t)
         event_ms.append(start.elapsed_time(end))
-    counts = K.launch_counts()
+    counts, by_entry = K.launch_counts(), K.entry_launch_counts()
     launches = {k: counts[k] for k in FLASH_WRAPPERS}
     losses = [float(x) for x in losses]
     with torch.no_grad():
@@ -1651,8 +1673,14 @@ def timed_steps(model, opt, tokens, steps: int, layers: int) -> dict:
     if not all(np.isfinite(losses + [final_loss])) or not final_loss < first_loss:
         raise AssertionError(f"loss not finite or not falling: {first_loss} -> {losses} "
                              f"-> {final_loss}")
-    return {"launches": launches, "loss_first": first_loss, "losses": losses,
-            "loss_after": final_loss, "walls": walls, "event_ms": event_ms}
+    return {"launches": launches, "entry_launches": entry_launch_report(by_entry),
+            "loss_first": first_loss, "losses": losses, "loss_after": final_loss, "walls": walls,
+            "event_ms": event_ms}
+
+
+def entry_launch_report(by_entry) -> dict:
+    """ops/kernels.entry_launch_counts() as JSON: "entry dh dtype" -> n."""
+    return {f"{e} {dh} {str(dt).replace('torch.', '')}": n for (e, dh, dt), n in by_entry.items()}
 
 
 def device_classes(events) -> dict:
@@ -1723,7 +1751,7 @@ def phase_train(dev: dict) -> dict:
                      "batch": TRAIN_BATCH, "schedule": "flash", "compute": "bfloat16",
                      "params": "float32", "optimizer": f"AdamW lr {TRAIN_LR} wd 1e-4"},
         "params": n_params, "build_s": build_s, "dense_parity": parity,
-        "launches": run["launches"],
+        "launches": run["launches"], "entry_launches": run["entry_launches"],
         "loss_first": run["loss_first"], "losses": run["losses"], "loss_after": run["loss_after"],
         "steps": TRAIN_STEPS, "step_ms_p50": 1e3 * statistics.median(walls),
         "step_ms_mean": 1e3 * step_s, "step_ms_max": 1e3 * max(walls),
@@ -1781,6 +1809,7 @@ def phase_train_small(dev: dict) -> dict:
         run = timed_steps(model, opt, tokens, SMALL_STEPS, model.num_layers)
         report[str(dtype).replace("torch.", "")] = {
             "dense_parity": parity, "launches": run["launches"],
+            "entry_launches": run["entry_launches"],
             "loss_first": run["loss_first"], "losses": run["losses"],
             "loss_after": run["loss_after"], "steps": SMALL_STEPS,
             "step_ms_p50": 1e3 * statistics.median(run["walls"]),
@@ -1856,6 +1885,8 @@ def main() -> int:
     if not (repo / "dmlc_tpu_torch" / "csrc").is_dir():
         print("chip_smoke: run from a checkout of the repository", file=sys.stderr)
         return 2
+    from dmlc_tpu_torch.ops import flash as FL
+
     dev = phase_device()
     phase_build()
     kern = phase_kernels(dev)
@@ -1937,9 +1968,7 @@ def main() -> int:
                  "dh64_f32": {k: fwd["dh64_f32"][k] for k in timed_shape},
                  "lm_small_launches": {dt: n["flash_forward"] for dt, n in small_launches.items()},
                  "streamed": {"shape": fwd["stream_bf16"]["shape"],
-                              **{k: fwd["stream_bf16"][k] for k in timed}},
-                 **{f"dh{dh}_{tag}": {k: fwd[f"dh{dh}_{tag}"][k] for k in timed_shape}
-                    for dh in WIDE_HEAD_DIMS for tag in ("bf16", "f32")}})
+                              **{k: fwd["stream_bf16"][k] for k in timed}}})
     for name, line in (("flash_bwd_dq", 271), ("flash_bwd_dkv", 320)):
         rows.append({"name": name, "route": "cuda", "source": f"dmlc_tpu_torch/csrc/{name}.cu",
                      "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
@@ -1950,10 +1979,54 @@ def main() -> int:
                      "f32": {k: kern["backward_f32"][name][k] for k in timed},
                      "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
                      "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
-                     **{f"dh{dh}_{tag}": {k: kern[f"backward_dh{dh}_{tag}"][name][k]
-                                          for k in timed_shape}
-                        for dh in WIDE_HEAD_DIMS for tag in ("bf16", "f32")},
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
+    # Past head dim 128: the bf16 Hopper forward and dK/dV at 192 and 256
+    # (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024, Dh]), and
+    # the wide kernels (csrc/flash_wide.cu) at [4, 4, 1024, 160] bf16 and
+    # the other shapes they run. Their launches are those the main path's
+    # runs (the LM train leg and lm_small's, each counted from 0 just
+    # before it) made through these entry points at these head dims: no
+    # registry model has heads past 128.
+    main_entries: Counter = Counter()
+    for run in (train, small["float32"], small["bfloat16"]):
+        main_entries.update(run["entry_launches"])
+
+    def main_launches(entry: str, dhs=None, dtype: str | None = None) -> int:
+        total = 0
+        for key, n in main_entries.items():
+            e, dh, dt = key.split()
+            if e == entry and (dhs is None or int(dh) in dhs) and dtype in (None, dt):
+                total += n
+        return total
+
+    def timing(name: str, key: str) -> dict:
+        return fwd[key] if name == "flash_forward" else kern[f"backward_{key}"][name]
+
+    for name, source, line in (("flash_forward", "flash_fwd", "157 and :215"),
+                               ("flash_bwd_dkv", "flash_bwd_dkv", "320")):
+        launches = main_launches(source, FL.SM90_WIDE_HEAD_DIMS, "bfloat16")
+        rows.append({"name": f"{name}_sm90_wide", "route": "cuda",
+                     "source": f"dmlc_tpu_torch/csrc/{source}.cu",
+                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
+                     "on_main_path": launches > 0,
+                     **{k: timing(name, "w256_bf16")[k] for k in timed_shape},
+                     "max_err": timing(name, "w256_bf16")["max_abs_err"], "dtype": "bfloat16",
+                     **{key: {k: timing(name, key)[k] for k in timed_shape}
+                        for key in ("w192_bf16", "dh192_bf16", "dh256_bf16")}})
+    for name, entry, line in (("flash_forward", "flash_wide_fwd", "157 and :215"),
+                              ("flash_bwd_dq", "flash_wide_bwd_dq", "271"),
+                              ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
+        first = timing(name, "dh160_bf16")
+        launches = main_launches(entry)
+        others = ("dh160_f32", "dh192_f32", "dh256_f32", "w256_f32", "w192_f32")
+        if name == "flash_bwd_dq":  # bf16 dQ runs the wide kernel at 192 and 256 too
+            others += ("dh192_bf16", "dh256_bf16", "w256_bf16", "w192_bf16")
+        rows.append({"name": f"{name}_wide_fma", "route": "cuda",
+                     "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
+                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
+                     "on_main_path": launches > 0, **{k: first[k] for k in timed_shape},
+                     "max_err": first["max_abs_err"], "dtype": "bfloat16",
+                     **{key: {k: timing(name, key)[k] for k in timed_shape} for key in others}})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

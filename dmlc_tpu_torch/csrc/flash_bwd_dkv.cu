@@ -7,7 +7,8 @@
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
-// or 128 (ops/flash.py zero-pads a smaller head dim up to one); lse and
+// or 128, and in bf16 also 192 or 256 (ops/flash.py zero-pads a smaller
+// head dim up to one; csrc/flash_wide.cu takes the others); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -34,6 +35,20 @@
 // whole Q loop; scale is applied once, in the epilogue. When causal a block starts at the first Q tile that
 // reaches its keys (pallas_kernels.py:362) and only the diagonal tiles are
 // masked.
+//
+// bf16 at Dh 192 and 256, the split layout (DkvCfg::kSplit): dK and dV of
+// 64 keys over all Dh in one warpgroup would be Dh floats a thread, past
+// the 255 registers a thread has at 256. So a block takes 64 keys and
+// warpgroup 0 keeps dV, warpgroup 1 dK, each [64, Dh] float32 (Dh / 2 a
+// thread, two wgmma accumulators: OutAcc in flash_sm90.cuh). Per Q tile
+// warpgroup 0 makes S^T = K Q^T and P^T, hands P^T (float32, 16 KB) to
+// warpgroup 1 through shared memory (two named barriers, full and empty),
+// and adds P^T dO to dV; warpgroup 1 makes dP^T = V dO^T, then dS^T from
+// the P^T it was handed, and adds dS^T Q to dK. Each product is made once
+// (4 of the [64, 64, Dh] ones a tile, two a warpgroup, as at Dh 128), and
+// the only wait between the warpgroups is for P^T. Shared memory at Dh
+// 256: K, V 64 KB, the Q/dO ring 128 KB, P^T 16 KB. Its bound at [8, 3,
+// 2048, 256]: operations, 104 us.
 //
 // float32, the FMA design (flash::f32 below): register-tiled FMA on the
 // CUDA cores in full float32 (no TF32), bound by the 67 TFLOP/s float32
@@ -280,14 +295,31 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 namespace sm90 {
 
-constexpr int kDkvBK = 128, kDkvBQ = 64;
+constexpr int kDkvBQ = 64;     // query rows a Q/dO tile
+constexpr int kBarPFull = 3;   // split layout: P^T handed from warpgroup 0 to 1
+constexpr int kBarPEmpty = 4;  // split layout: warpgroup 1 has read it
 
+// The bf16 dK/dV's tiles at head dim DH: BK keys a block, a ring of
+// kStages Q/dO tiles. Up to Dh 128 a block takes 128 keys, 64 to each
+// consumer warpgroup, which keeps dK and dV of its keys ([64, DH] float32
+// each, DH floats a thread). Past Dh 128 that is more than the 255
+// registers a thread has, so a block takes 64 keys and splits the
+// outputs instead (kSplit): warpgroup 0 keeps dV and warpgroup 1 dK, each
+// over all DH columns (DH / 2 floats a thread). Warpgroup 0 makes P^T,
+// warpgroup 1 dP^T; P^T goes to warpgroup 1 through shared memory (float32,
+// 16 KB), which makes dS^T from it. Each score product is made once and
+// each warpgroup makes one score and one output product a tile. Shared
+// memory at Dh 256: K and V 32 KB each, the Q/dO ring 128 KB, P^T 16 KB.
 template <int DH>
 struct DkvCfg {
-  static constexpr uint32_t kKV = kDkvBK * DH * 2;  // the K or the V tile: 32 KB at Dh 128
+  static constexpr bool kSplit = DH > 128;
+  static constexpr int BK = kSplit ? 64 : 128;
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kKV = BK * DH * 2;      // the K or the V tile: 32 KB at Dh 128
   static constexpr uint32_t kQ = kDkvBQ * DH * 2;   // a Q or dO tile: 16 KB at Dh 128
-  static constexpr uint32_t kRows = 2 * kKV + 4 * kQ;  // lse, delta rows start here
-  static constexpr uint32_t kSmem = kRows + 4 * kDkvBQ * 4 + 5 * 8 + 1024;
+  static constexpr uint32_t kX = kSplit ? 128 * 32 * 4 : 0;  // P^T handed over, 32 floats a thread
+  static constexpr uint32_t kRows = 2 * kKV + 2 * kStages * kQ + kX;  // lse, delta rows start here
+  static constexpr uint32_t kSmem = kRows + 2 * kStages * kDkvBQ * 4 + (1 + 2 * kStages) * 8 + 1024;
 };
 
 template <int DH>
@@ -299,19 +331,22 @@ __global__ void __launch_bounds__(kThreads, 1)
                               const float* __restrict__ lse, const float* __restrict__ delta,
                               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int BH,
                               int S, int causal, float scale, float scale_log2) {
-  constexpr uint32_t kDkvKV = DkvCfg<DH>::kKV, kDkvQ = DkvCfg<DH>::kQ;
+  typedef DkvCfg<DH> C;
+  constexpr int kDkvBK = C::BK, kStages = C::kStages;
+  static_assert(kStages == 1 || kStages == 2, "a ring of one or two stages");
+  constexpr uint32_t kDkvKV = C::kKV, kDkvQ = C::kQ;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
   unsigned char* Ks = smem;
   unsigned char* Vs = smem + kDkvKV;
-  unsigned char* Qs = smem + 2 * kDkvKV;                // stage s at + s * kDkvQ
-  unsigned char* dOs = smem + 2 * kDkvKV + 2 * kDkvQ;   // stage s at + s * kDkvQ
-  float* lse_s = reinterpret_cast<float*>(smem + DkvCfg<DH>::kRows);  // [2][64], times log2(e)
-  float* delta_s = lse_s + 2 * kDkvBQ;                       // [2][64]
-  uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + 2 * kDkvBQ);
+  unsigned char* Qs = smem + 2 * kDkvKV;         // stage s at + s * kDkvQ
+  unsigned char* dOs = Qs + kStages * kDkvQ;     // stage s at + s * kDkvQ
+  float* lse_s = reinterpret_cast<float*>(smem + C::kRows);  // [kStages][64], times log2(e)
+  float* delta_s = lse_s + kStages * kDkvBQ;                  // [kStages][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + kStages * kDkvBQ);
   uint64_t* bar_kv = bars;
-  uint64_t* full = bars + 1;   // [2]
-  uint64_t* empty = bars + 3;  // [2]
+  uint64_t* full = bars + 1;         // [kStages]
+  uint64_t* empty = full + kStages;  // [kStages]
 
   // Block order: K tile 0 of every head first (the most Q tiles when causal).
   const int bh = blockIdx.x % BH;
@@ -323,7 +358,7 @@ __global__ void __launch_bounds__(kThreads, 1)
 
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full[s], 32);
       mbar_init(&empty[s], kConsumerThreads);
     }
@@ -347,8 +382,8 @@ __global__ void __launch_bounds__(kThreads, 1)
       const float* lse_g = lse + (size_t)bh * S;
       const float* delta_g = delta + (size_t)bh * S;
       for (int t = t0; t < t_end; ++t) {
-        const int it = t - t0, s = it & 1, q0 = t * kDkvBQ;
-        mbar_wait(&empty[s], ((it >> 1) & 1) ^ 1);
+        const int it = t - t0, s = it & (kStages - 1), q0 = t * kDkvBQ;
+        mbar_wait(&empty[s], ((it >> (kStages - 1)) & 1) ^ 1);
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = lane + 32 * h, qi = q0 + r;
@@ -364,7 +399,7 @@ __global__ void __launch_bounds__(kThreads, 1)
         }
       }
     }
-  } else {
+  } else if constexpr (!C::kSplit) {
     // Consumer warpgroup wg: keys k0 + 64 wg + [0, 64).
     regs_alloc<240>();
     const int t = threadIdx.x % 128, lane = t % 32;
@@ -374,10 +409,10 @@ __global__ void __launch_bounds__(kThreads, 1)
     for (int i = 0; i < DH / 2; ++i) dkr[i] = dvr[i] = 0.f;
     mbar_wait(bar_kv, 0);
     for (int tq = t0; tq < t_end; ++tq) {
-      const int it = tq - t0, s = it & 1, q0 = tq * kDkvBQ;
+      const int it = tq - t0, s = it & (kStages - 1), q0 = tq * kDkvBQ;
       unsigned char* Qt = Qs + s * kDkvQ;
       unsigned char* dOt = dOs + s * kDkvQ;
-      mbar_wait(&full[s], (it >> 1) & 1);
+      mbar_wait(&full[s], (it >> (kStages - 1)) & 1);
       // S^T = K Q^T and dP^T = V dO^T, [64 keys, 64 queries] each.
       float st[32], dpt[32];
       wgmma_fence();
@@ -442,6 +477,100 @@ __global__ void __launch_bounds__(kThreads, 1)
     const size_t base = (size_t)bh * S * DH;
     store_rows(dkr, scale, scale, Ks, kDkvBK, 64 * wg, dk + base, k0 + 64 * wg, S, 1 + wg);
     store_rows(dvr, 1.f, 1.f, Vs, kDkvBK, 64 * wg, dv + base, k0 + 64 * wg, S, 1 + wg);
+  } else {
+    // Split layout: keys k0 + [0, 64); warpgroup 0 makes P^T and keeps dV,
+    // warpgroup 1 makes dP^T and dS^T and keeps dK.
+    regs_alloc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int key_lo = k0 + 16 * (t / 32) + lane / 4, key_hi = key_lo + 8;
+    float4* handed = reinterpret_cast<float4*>(smem + 2 * kDkvKV + 2 * kStages * kDkvQ);
+    const unsigned char* A = wg == 0 ? Ks : Vs;  // S^T = K Q^T, dP^T = V dO^T
+    OutAcc<DH> acc;                              // dV (warpgroup 0) or dK (1)
+    acc.zero();
+    mbar_wait(bar_kv, 0);
+    for (int tq = t0; tq < t_end; ++tq) {
+      const int it = tq - t0, s = it & (kStages - 1), q0 = tq * kDkvBQ;
+      unsigned char* Qt = Qs + s * kDkvQ;
+      unsigned char* dOt = dOs + s * kDkvQ;
+      const unsigned char* Bs = wg == 0 ? Qt : dOt;   // the score product's B
+      const unsigned char* Bo = wg == 0 ? dOt : Qt;   // the output product's B
+      mbar_wait(&full[s], (it >> (kStages - 1)) & 1);
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t a = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
+        const uint32_t b = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
+        wgmma_ss_n64(sc, desc(A + a, 16, 1024), desc(Bs + b, 16, 1024), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+
+      if (wg == 0) {
+        // P^T, masked only on the tiles that cross the diagonal or the end
+        // of S, handed to warpgroup 1 once it has read the last one.
+        const bool edge = q0 + kDkvBQ > S || k0 + kDkvBK > S || (causal && k0 + 63 > q0);
+        const float* lrow = lse_s + s * kDkvBQ;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int qc = 8 * (i / 4) + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+          const int key = (i % 4) < 2 ? key_lo : key_hi;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            float p = exp2f(sc[i + u] * scale_log2 - (u ? l2.y : l2.x));
+            if (edge) {
+              const int qi = q0 + qc + u;
+              if (qi >= S || key >= S || (causal && key > qi)) p = 0.f;
+            }
+            sc[i + u] = p;
+          }
+        }
+        if (it > 0) consumers_wait(kBarPEmpty);
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          handed[128 * j + t] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+        consumers_arrive(kBarPFull);
+      } else {
+        // dS^T = P^T (dP^T - delta), P^T as warpgroup 0 made it (entry i of
+        // thread t holds the same key and query in both warpgroups).
+        consumers_wait(kBarPFull);
+        float p[32];
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float4 v4 = handed[128 * j + t];
+          p[4 * j] = v4.x, p[4 * j + 1] = v4.y, p[4 * j + 2] = v4.z, p[4 * j + 3] = v4.w;
+        }
+        if (tq + 1 < t_end) consumers_arrive(kBarPEmpty);
+        const float* drow = delta_s + s * kDkvBQ;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int qc = 8 * (i / 4) + 2 * (lane % 4);
+          const float2 d2 = *reinterpret_cast<const float2*>(drow + qc);
+          sc[i] = p[i] * (sc[i] - d2.x);
+          sc[i + 1] = p[i + 1] * (sc[i + 1] - d2.y);
+        }
+      }
+      uint32_t a[4][4];
+      to_a_operand(sc, a);
+
+      // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): B is [queries, d].
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) acc.mma(a[kk], Bo + kk * 16 * 128, kDkvBQ * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      acc.fence();
+      mbar_arrive(&empty[s]);
+    }
+    // Each warpgroup stages through the tile only it read: dV through K,
+    // dK through V.
+    const size_t base = (size_t)bh * S * DH;
+    if (wg == 0)
+      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);
+    else
+      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);
   }
 }
 
@@ -449,17 +578,17 @@ template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                        int causal, float scale, cudaStream_t stream) {
-  constexpr uint32_t kSmem = DkvCfg<DH>::kSmem;
+  typedef DkvCfg<DH> C;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
   if ((e = encode_map(&mq, q, bh, s, DH, kDkvBQ)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, DH, kDkvBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mv, v, bh, s, DH, kDkvBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, C::BK)) != cudaSuccess) return e;
   if ((e = encode_map(&mdo, dout, bh, s, DH, kDkvBQ)) != cudaSuccess) return e;
-  if ((e = allow_smem(flash_bwd_dkv_kernel_sm90<DH>, kSmem)) != cudaSuccess) return e;
-  const long long blocks = (long long)((s + kDkvBK - 1) / kDkvBK) * bh;
+  if ((e = allow_smem(flash_bwd_dkv_kernel_sm90<DH>, C::kSmem)) != cudaSuccess) return e;
+  const long long blocks = (long long)((s + C::BK - 1) / C::BK) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dkv_kernel_sm90<DH><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
+  flash_bwd_dkv_kernel_sm90<DH><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dk), static_cast<__nv_bfloat16*>(dv), bh, s, causal, scale,
       scale * kLog2e);
@@ -471,8 +600,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }  // namespace flash
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
-// lse, delta: float32 [bh, s]. dh is 64 or 128, in both dtypes. Launches
-// on `stream` and returns the launch's CUDA error code.
+// lse, delta: float32 [bh, s]. dh is 64 or 128 in both dtypes, and 192 or
+// 256 in bf16. Launches on `stream` and returns the launch's CUDA error
+// code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int s, int dh, int causal, float scale, int is_bf16,
@@ -484,6 +614,10 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
     return (int)sm90::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (is_bf16 && dh == 64)
     return (int)sm90::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 192)
+    return (int)sm90::launch_dkv<192>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 256)
+    return (int)sm90::launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
     return (int)f32::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
@@ -497,5 +631,7 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
   using namespace flash;
   if (dh == 128) return (int)(is_bf16 ? sm90::DkvCfg<128>::kSmem : f32::DkvCfg<128>::bytes);
   if (dh == 64) return (int)(is_bf16 ? sm90::DkvCfg<64>::kSmem : f32::DkvCfg<64>::bytes);
+  if (dh == 192 && is_bf16) return (int)sm90::DkvCfg<192>::kSmem;
+  if (dh == 256 && is_bf16) return (int)sm90::DkvCfg<256>::kSmem;
   return 0;
 }

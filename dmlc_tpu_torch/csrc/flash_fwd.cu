@@ -10,7 +10,8 @@
 // through one loop inside the block, and one kernel serves both rows.
 //
 // Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64 or
-// 128 (ops/flash.py zero-pads a smaller head dim up to one). Outputs out
+// 128, and in bf16 also 192 or 256 (ops/flash.py zero-pads a smaller head
+// dim up to one; csrc/flash_wide.cu takes the others). Outputs out
 // (q's dtype) and lse (float32 [BH, S]): out = softmax(scale q k^T) v with
 // keys past the query masked when causal, lse = m + log(max(l, 1e-30)). A
 // row with no visible key gets out 0 and lse -inf (pallas_kernels.py:210).
@@ -38,6 +39,17 @@
 // tiles that cross the diagonal or the end of S. Causal blocks stop at the
 // diagonal; the longest Q tiles of every head launch first. The epilogue
 // stages O / l as bf16 through shared memory into 16-byte stores.
+//
+// bf16 at Dh 192 and 256 (FwdCfg): the same kernel with 64-key K/V tiles
+// at 256 and 96-key ones at 192, since a 128-row Q tile and two stages of
+// 128-key K and V tiles take 64 KB + 256 KB at Dh 256, past the 227 KB a
+// block can use; the tiles take 192 KB at both. S = Q K^T is m64n64k16 at
+// 256 and m64n96k16 at 192 (Dh / 16 k-steps); O ([64, Dh] float32, Dh / 2 a consumer thread: 128 registers
+// at 256, beside S's 32, under the consumers' 240) is two wgmma
+// accumulators (OutAcc in flash_sm90.cuh): columns [0, 128) on m64n128k16
+// and [128, Dh) on m64n64k16 at 192 or m64n128k16 at 256. Its bound at
+// [8, 3, 2048, 256] (the LM train shape's FLOPs as 3 heads of 256):
+// operations, 52 us.
 //
 // float32, the FMA design (flash::f32 below): Hopper has no full-float32
 // tensor-core product, so the products are register-tiled FMA on the CUDA
@@ -223,16 +235,31 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
 
 namespace sm90 {
 
-constexpr int kFwdBQ = 128, kFwdBK = 128;
+constexpr int kFwdBQ = 128;  // query rows a block: two consumer warpgroups of 64
 
+// The bf16 forward's tiles at head dim DH: BK keys a K/V tile and a ring
+// of kStages K/V tiles beside the [kFwdBQ, DH] Q tile. Up to Dh 128, 128
+// keys and 2 stages (160 KB of shared memory at Dh 128). Past it 128-key
+// tiles no longer fit beside the Q tile in 2 stages (64 KB + 2 x 128 KB at
+// Dh 256, of the 227 KB a block can use), so K/V tiles take 64 keys at Dh
+// 256 (192 KB) and 96 at 192 (192 KB; S on m64n96k16). At Dh 192 the
+// 96-key tiles ran 2-3% faster than 64-key ones and 22% faster than
+// 128-key ones in one stage; one stage ran 30-33% slower than two at both
+// head dims (PERF.md, section 6; tools/flash_levers.py group wide).
 template <int DH>
 struct FwdCfg {
-  static constexpr uint32_t kTile = kFwdBQ * DH * 2;  // a Q, K or V tile: 32 KB at Dh 128
-  static constexpr uint32_t kSmem = 5 * kTile + 7 * 8 + 1024;  // Q, K[2], V[2], barriers, alignment
+  static constexpr int BK = DH <= 128 ? 128 : DH == 192 ? 96 : 64;
+  static constexpr int kStages = 2;
+  static constexpr uint32_t kQ = kFwdBQ * DH * 2;  // the Q tile: 32 KB at Dh 128
+  static constexpr uint32_t kKV = BK * DH * 2;     // a K or V tile: 32 KB at Dh 128
+  static constexpr uint32_t kSmem =
+      kQ + 2 * kStages * kKV + (1 + 3 * kStages) * 8 + 1024;  // Q, K and V rings, barriers, alignment
 };
 
 // K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+template <int DH>
 __device__ __forceinline__ int fwd_kv_tiles(int q0, int S, int causal) {
+  constexpr int kFwdBK = FwdCfg<DH>::BK;
   return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK;
 }
 
@@ -242,28 +269,30 @@ __global__ void __launch_bounds__(kThreads, 1)
                           const __grid_constant__ CUtensorMap map_k,
                           const __grid_constant__ CUtensorMap map_v, __nv_bfloat16* __restrict__ out,
                           float* __restrict__ lse, int BH, int S, int causal, float scale_log2) {
-  constexpr uint32_t kFwdTile = FwdCfg<DH>::kTile;
+  typedef FwdCfg<DH> C;
+  constexpr int kFwdBK = C::BK, kStages = C::kStages;
+  static_assert(kStages == 1 || kStages == 2, "a ring of one or two stages");
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
   unsigned char* Qs = smem;
-  unsigned char* Ks = smem + kFwdTile;      // stage s at + s * kFwdTile
-  unsigned char* Vs = smem + 3 * kFwdTile;  // stage s at + s * kFwdTile
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 5 * kFwdTile);
+  unsigned char* Ks = smem + C::kQ;             // stage s at + s * C::kKV
+  unsigned char* Vs = Ks + kStages * C::kKV;    // stage s at + s * C::kKV
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * C::kKV);
   uint64_t* bar_q = bars;
-  uint64_t* full_k = bars + 1;  // [2]
-  uint64_t* full_v = bars + 3;  // [2]
-  uint64_t* empty = bars + 5;   // [2]
+  uint64_t* full_k = bars + 1;            // [kStages]
+  uint64_t* full_v = full_k + kStages;    // [kStages]
+  uint64_t* empty = full_v + kStages;     // [kStages]
 
   // Block order: the last (longest, when causal) Q tile of every head first.
   const int n_tiles = (S + kFwdBQ - 1) / kFwdBQ;
   const int bh = blockIdx.x % BH;
   const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * kFwdBQ;
-  const int n_k = fwd_kv_tiles(q0, S, causal);
+  const int n_k = fwd_kv_tiles<DH>(q0, S, causal);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < kStages; ++s) {
       mbar_init(&full_k[s], 1);
       mbar_init(&full_v[s], 1);
       mbar_init(&empty[s], kConsumerThreads);
@@ -279,15 +308,15 @@ __global__ void __launch_bounds__(kThreads, 1)
       prefetch_map(&map_q);
       prefetch_map(&map_k);
       prefetch_map(&map_v);
-      mbar_expect(bar_q, kFwdTile);
+      mbar_expect(bar_q, C::kQ);
       tma_load_tile<DH>(Qs, &map_q, bar_q, kFwdBQ, q0, bh);
       for (int j = 0; j < n_k; ++j) {
-        const int s = j & 1;
-        mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
-        mbar_expect(&full_k[s], kFwdTile);
-        tma_load_tile<DH>(Ks + s * kFwdTile, &map_k, &full_k[s], kFwdBK, j * kFwdBK, bh);
-        mbar_expect(&full_v[s], kFwdTile);
-        tma_load_tile<DH>(Vs + s * kFwdTile, &map_v, &full_v[s], kFwdBK, j * kFwdBK, bh);
+        const int s = j & (kStages - 1);
+        mbar_wait(&empty[s], ((j >> (kStages - 1)) & 1) ^ 1);
+        mbar_expect(&full_k[s], C::kKV);
+        tma_load_tile<DH>(Ks + s * C::kKV, &map_k, &full_k[s], kFwdBK, j * kFwdBK, bh);
+        mbar_expect(&full_v[s], C::kKV);
+        tma_load_tile<DH>(Vs + s * C::kKV, &map_v, &full_v[s], kFwdBK, j * kFwdBK, bh);
       }
     }
   } else {
@@ -296,24 +325,23 @@ __global__ void __launch_bounds__(kThreads, 1)
     const int t = threadIdx.x % 128, lane = t % 32;
     const int row_lo = 64 * wg + 16 * (t / 32) + lane / 4;  // and row_lo + 8
     const int qi0 = q0 + row_lo, qi1 = qi0 + 8;
-    float o[DH / 2];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) o[i] = 0.f;
+    OutAcc<DH> o;
+    o.zero();
     float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
     mbar_wait(bar_q, 0);
     for (int j = 0; j < n_k; ++j) {
-      const int s = j & 1, k0 = j * kFwdBK;
-      const uint32_t ph = (j >> 1) & 1;
-      unsigned char* Kt = Ks + s * kFwdTile;
-      unsigned char* Vt = Vs + s * kFwdTile;
+      const int s = j & (kStages - 1), k0 = j * kFwdBK;
+      const uint32_t ph = (j >> (kStages - 1)) & 1;
+      unsigned char* Kt = Ks + s * C::kKV;
+      unsigned char* Vt = Vs + s * C::kKV;
       mbar_wait(&full_k[s], ph);
-      float sc[64];
+      float sc[kFwdBK / 2];
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < DH / 16; ++kk) {
-        const uint32_t at = (kk / 4) * (kFwdBQ * 128) + (kk % 4) * 32;  // kFwdBQ == kFwdBK
-        wgmma_ss_n128(sc, desc(Qs + at + 64 * wg * 128, 16, 1024), desc(Kt + at, 16, 1024),
-                         kk);
+        const uint32_t aq = (kk / 4) * (kFwdBQ * 128) + (kk % 4) * 32;
+        const uint32_t ak = (kk / 4) * (kFwdBK * 128) + (kk % 4) * 32;
+        wgmma_ss(sc, desc(Qs + aq + 64 * wg * 128, 16, 1024), desc(Kt + ak, 16, 1024), kk);
       }
       wgmma_commit();
       wgmma_wait<0>();
@@ -324,7 +352,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       const bool edge = k0 + kFwdBK > S || (causal && k0 + kFwdBK - 1 > q0 + 64 * wg);
       float mx0 = -INFINITY, mx1 = -INFINITY;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kFwdBK / 2; ++i) {
         float x = sc[i] * scale_log2;
         if (edge) {
           const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
@@ -347,26 +375,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       m1 = mn1;
       float sum0 = 0.f, sum1 = 0.f;
 #pragma unroll
-      for (int i = 0; i < 64; ++i) {
+      for (int i = 0; i < kFwdBK / 2; ++i) {
         const float p = exp2f(sc[i] - ((i % 4) < 2 ? b0 : b1));
         sc[i] = p;
         if ((i % 4) < 2) sum0 += p; else sum1 += p;
       }
       l0 = l0 * c0 + sum0;
       l1 = l1 * c1 + sum1;
-#pragma unroll
-      for (int i = 0; i < DH / 2; ++i) o[i] *= (i % 4) < 2 ? c0 : c1;
-      uint32_t pa[8][4];
+      o.scale(c0, c1);
+      uint32_t pa[kFwdBK / 16][4];
       to_a_operand(sc, pa);
 
       mbar_wait(&full_v[s], ph);
       wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < 8; ++kk)
-        wgmma_rs(o, pa[kk], desc(Vt + kk * 16 * 128, kFwdBK * 128, 1024), 1);
+      for (int kk = 0; kk < kFwdBK / 16; ++kk) o.mma(pa[kk], Vt + kk * 16 * 128, kFwdBK * 128);
       wgmma_commit();
       wgmma_wait<0>();
-      reg_fence(o);
+      o.fence();
       mbar_arrive(&empty[s]);
     }
 
@@ -382,24 +408,24 @@ __global__ void __launch_bounds__(kThreads, 1)
       if (qi1 < S) lse[(size_t)bh * S + qi1] = m1 * kLn2 + logf(l1);
     }
     // This warpgroup's Q rows are read by no one now: stage O / l there.
-    store_rows(o, 1.f / l0, 1.f / l1, Qs, kFwdBQ, 64 * wg, out + (size_t)bh * S * DH,
-               q0 + 64 * wg, S, 1 + wg);
+    o.store(1.f / l0, 1.f / l1, Qs, kFwdBQ, 64 * wg, out + (size_t)bh * S * DH, q0 + 64 * wg, S,
+            1 + wg);
   }
 }
 
 template <int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                        int s, int causal, float scale, cudaStream_t stream) {
-  constexpr uint32_t kSmem = FwdCfg<DH>::kSmem;
+  typedef FwdCfg<DH> C;
   CUtensorMap mq, mk, mv;
   cudaError_t e;
   if ((e = encode_map(&mq, q, bh, s, DH, kFwdBQ)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, DH, kFwdBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mv, v, bh, s, DH, kFwdBK)) != cudaSuccess) return e;
-  if ((e = allow_smem(flash_fwd_kernel_sm90<DH>, kSmem)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_fwd_kernel_sm90<DH>, C::kSmem)) != cudaSuccess) return e;
   const long long blocks = (long long)((s + kFwdBQ - 1) / kFwdBQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_kernel_sm90<DH><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
+  flash_fwd_kernel_sm90<DH><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), bh, s, causal,
       scale * kLog2e);
   return cudaGetLastError();
@@ -410,8 +436,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
 }  // namespace flash
 
 // q, k, v, out: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse:
-// float32 [bh, s]. dh is 64 or 128, in both dtypes. Launches on `stream`
-// and returns the launch's CUDA error code.
+// float32 [bh, s]. dh is 64 or 128 in both dtypes, and 192 or 256 in
+// bf16. Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int bh, int s, int dh, int causal, float scale, int is_bf16,
                               void* stream) {
@@ -422,6 +448,10 @@ extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void*
     return (int)sm90::launch_fwd<128>(q, k, v, out, lse, bh, s, causal, scale, st);
   if (is_bf16 && dh == 64)
     return (int)sm90::launch_fwd<64>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 192)
+    return (int)sm90::launch_fwd<192>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 256)
+    return (int)sm90::launch_fwd<256>(q, k, v, out, lse, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
     return (int)f32::launch_fwd<128>(q, k, v, out, lse, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
@@ -435,5 +465,7 @@ extern "C" int dmlc_flash_fwd_smem_bytes(int dh, int is_bf16) {
   using namespace flash;
   if (dh == 128) return (int)(is_bf16 ? sm90::FwdCfg<128>::kSmem : f32::FwdCfg<128>::bytes);
   if (dh == 64) return (int)(is_bf16 ? sm90::FwdCfg<64>::kSmem : f32::FwdCfg<64>::bytes);
+  if (dh == 192 && is_bf16) return (int)sm90::FwdCfg<192>::kSmem;
+  if (dh == 256 && is_bf16) return (int)sm90::FwdCfg<256>::kSmem;
   return 0;
 }

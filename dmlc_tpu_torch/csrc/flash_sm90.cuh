@@ -1,8 +1,9 @@
 // flash_sm90.cuh: the Hopper building blocks of the bf16 flash kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// - TMA: tiles of a [BH, S, DH] bf16 tensor (DH 64 or 128, a template
-//   parameter of every kernel) are copied into shared memory by the Tensor
+// - TMA: tiles of a [BH, S, DH] bf16 tensor (DH 64 or 128, and 192 or 256
+//   for the forward and dK/dV; a template parameter of every kernel) are
+//   copied into shared memory by the Tensor
 //   Memory Accelerator, one thread issuing each copy. The tensor map is 3-D
 //   over (d, s, bh), so rows past S of one head are zero-filled instead of
 //   read from the next head. The 128-byte swizzle limits a box to 64
@@ -125,6 +126,17 @@ __device__ __forceinline__ void warpgroup_sync(int id) {
   asm volatile("bar.sync %0, 128;\n" ::"r"(id) : "memory");
 }
 
+// Barrier `id` (1-15) between the two consumer warpgroups: one arrives
+// (and goes on), the other waits until it has arrived. Shared-memory
+// writes before the arrival are seen by the waiting threads after it.
+__device__ __forceinline__ void consumers_arrive(int id) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "n"(kConsumerThreads) : "memory");
+}
+
+__device__ __forceinline__ void consumers_wait(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(kConsumerThreads) : "memory");
+}
+
 // ------------------------------------------------------------------- wgmma
 
 // Shared-memory operand descriptor, 128-byte swizzle. lbo and sbo in bytes:
@@ -199,10 +211,35 @@ __device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D[64 x 96] (+)= A . B, both operands from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, "
+      "%40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // D (+)= A . B from shared memory, both K-major, N by the accumulator's
-// size: 64 floats a thread for N = 128, 32 for N = 64.
+// size: 64 floats a thread for N = 128, 48 for N = 96, 32 for N = 64.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   wgmma_ss_n128(d, da, db, acc);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_n96(d, da, db, acc);
 }
 
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
@@ -285,26 +322,33 @@ __device__ __forceinline__ uint32_t tile_offset(int row, int col, int R) {
                     (col & 7) * 2);
 }
 
-// Writes a warpgroup's [64, DH] float32 accumulator (DH / 2 floats a
-// thread), times `mul`, as bf16 into rows [row0, row0 + 64) of a [R, DH]
-// tile in shared memory (the swizzle keeps the eight rows of one store on
-// distinct banks), then, after the warpgroup's barrier `bar_id`, copies
-// those rows to global rows g_row0 + r < S of `g` ([S, DH] row-major) in
-// 16-byte stores.
+// Writes a warpgroup's [64, 2 N] float32 accumulator (N floats a thread),
+// times `mul0` on a thread's upper rows and `mul1` on its lower ones, as
+// bf16 into rows [row0, row0 + 64) and columns [col0, col0 + 2 N) of a
+// [R, DH] tile in shared memory (the swizzle keeps the eight rows of one
+// store on distinct banks).
 template <int N>
-__device__ __forceinline__ void store_rows(const float (&d)[N], float mul0, float mul1,
-                                           unsigned char* tile, int R, int row0,
-                                           __nv_bfloat16* g, int g_row0, int S, int bar_id) {
-  constexpr int DH = 2 * N, kChunks = DH / 8;  // 16-byte chunks a row
+__device__ __forceinline__ void stage_rows(const float (&d)[N], float mul0, float mul1,
+                                           unsigned char* tile, int R, int row0, int col0) {
   const int t = threadIdx.x % 128, w = t / 32, lane = t % 32;
   const int r_lo = row0 + 16 * w + lane / 4;
 #pragma unroll
   for (int i = 0; i < N; i += 2) {
     const int row = r_lo + 8 * ((i % 4) / 2);
-    const int col = 8 * (i / 4) + 2 * (lane % 4);
+    const int col = col0 + 8 * (i / 4) + 2 * (lane % 4);
     const float m = (i % 4) < 2 ? mul0 : mul1;
     *reinterpret_cast<uint32_t*>(tile + tile_offset(row, col, R)) = pack_bf16(d[i] * m, d[i + 1] * m);
   }
+}
+
+// After the warpgroup's barrier `bar_id`, copies rows [row0, row0 + 64) of
+// a [R, DH] bf16 tile to global rows g_row0 + r < S of `g` ([S, DH]
+// row-major) in 16-byte stores.
+template <int DH>
+__device__ __forceinline__ void copy_rows(const unsigned char* tile, int R, int row0,
+                                          __nv_bfloat16* g, int g_row0, int S, int bar_id) {
+  constexpr int kChunks = DH / 8;  // 16-byte chunks a row
+  const int t = threadIdx.x % 128;
   warpgroup_sync(bar_id);
 #pragma unroll
   for (int k = 0; k < 64 * kChunks / 128; ++k) {
@@ -317,6 +361,92 @@ __device__ __forceinline__ void store_rows(const float (&d)[N], float mul0, floa
     }
   }
 }
+
+// Writes a warpgroup's [64, DH] float32 accumulator (DH / 2 floats a
+// thread) through rows [row0, row0 + 64) of a [R, DH] tile in shared
+// memory to global rows g_row0 + r < S of `g` (stage_rows, copy_rows).
+template <int N>
+__device__ __forceinline__ void store_rows(const float (&d)[N], float mul0, float mul1,
+                                           unsigned char* tile, int R, int row0,
+                                           __nv_bfloat16* g, int g_row0, int S, int bar_id) {
+  stage_rows(d, mul0, mul1, tile, R, row0, 0);
+  copy_rows<2 * N>(tile, R, row0, g, g_row0, S, bar_id);
+}
+
+// A warpgroup's [64, DH] float32 accumulator of an output product (O +=
+// P V, dV += P^T dO, dK += dS^T Q), its A operand from registers and B a
+// [rows, DH] tile MN-major in shared memory (box h of 64 columns at h *
+// `box` bytes). Up to DH 128 it is one wgmma accumulator (DH / 2 floats a
+// thread); past it two (kSplit): columns [0, 128) and [128, DH), m64n128
+// and then m64n64 at DH 192 or m64n128 at 256.
+template <int DH, bool kSplit = (DH > 128)>
+struct OutAcc {
+  float r[DH / 2];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) r[i] = 0.f;
+  }
+
+  // Rows times c0 (a thread's upper rows) or c1 (its lower ones).
+  __device__ __forceinline__ void scale(float c0, float c1) {
+#pragma unroll
+    for (int i = 0; i < DH / 2; ++i) r[i] *= (i % 4) < 2 ? c0 : c1;
+  }
+
+  // (+)= A . B for one k16 step; b points at the step's first row.
+  __device__ __forceinline__ void mma(const uint32_t (&a)[4], const unsigned char* b,
+                                      uint32_t box) {
+    wgmma_rs(r, a, desc(b, box, 1024), 1);
+  }
+
+  __device__ __forceinline__ void fence() { reg_fence(r); }
+
+  __device__ __forceinline__ void store(float mul0, float mul1, unsigned char* tile, int R,
+                                        int row0, __nv_bfloat16* g, int g_row0, int S,
+                                        int bar_id) {
+    store_rows(r, mul0, mul1, tile, R, row0, g, g_row0, S, bar_id);
+  }
+};
+
+template <int DH>
+struct OutAcc<DH, true> {
+  static_assert(DH == 192 || DH == 256, "split accumulators are 192 or 256 columns");
+  float lo[64], hi[DH / 2 - 64];
+
+  __device__ __forceinline__ void zero() {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) lo[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < DH / 2 - 64; ++i) hi[i] = 0.f;
+  }
+
+  __device__ __forceinline__ void scale(float c0, float c1) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) lo[i] *= (i % 4) < 2 ? c0 : c1;
+#pragma unroll
+    for (int i = 0; i < DH / 2 - 64; ++i) hi[i] *= (i % 4) < 2 ? c0 : c1;
+  }
+
+  __device__ __forceinline__ void mma(const uint32_t (&a)[4], const unsigned char* b,
+                                      uint32_t box) {
+    wgmma_rs(lo, a, desc(b, box, 1024), 1);
+    wgmma_rs(hi, a, desc(b + 2 * box, box, 1024), 1);
+  }
+
+  __device__ __forceinline__ void fence() {
+    reg_fence(lo);
+    reg_fence(hi);
+  }
+
+  __device__ __forceinline__ void store(float mul0, float mul1, unsigned char* tile, int R,
+                                        int row0, __nv_bfloat16* g, int g_row0, int S,
+                                        int bar_id) {
+    stage_rows(lo, mul0, mul1, tile, R, row0, 0);
+    stage_rows(hi, mul0, mul1, tile, R, row0, 128);
+    copy_rows<DH>(tile, R, row0, g, g_row0, S, bar_id);
+  }
+};
 
 // ------------------------------------------------------------- host side
 

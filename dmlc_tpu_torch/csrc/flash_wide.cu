@@ -5,12 +5,13 @@
 // of dmlc_tpu/ops/pallas_kernels.py: _flash_kernel (:157) and
 // _flash_fwd_stream_kernel (:215) for the forward, _flash_bwd_dq_kernel
 // (:271) and _flash_bwd_dkv_kernel (:320). Those take any head dim; the
-// three sources above are instantiated at 64 and 128 only, and
-// ops/flash.py zero-pads a smaller head dim up to one of them. Past 128 it
-// pads to a multiple of 8 and launches these kernels, up to kWideMaxDh. No
-// model of the registry has heads wider than 128, so no main path runs
-// them: they keep a head dim that the reference computes from being
-// refused on the card.
+// Hopper designs are instantiated at 64 and 128 (and, in bf16, the
+// forward and dK/dV at 192 and 256), and ops/flash.py zero-pads a head dim
+// up to one of them. Every other head dim past 128 it pads to a multiple
+// of 8 and launches these kernels: float32 past 128, the bf16 dQ past 128,
+// and bf16 past 256. No model of the registry has heads wider than 128,
+// so no main path runs them: they keep a head dim that the reference
+// computes from being refused on the card.
 //
 // Contracts, as in the other three sources: q, k, v, dO, out, dq, dk, dv
 // are [BH, S, DH] row-major, all float32 or all bfloat16; lse and delta
@@ -29,18 +30,38 @@
 // dim, not fast.
 //
 // Design: DH is a run-time argument (a multiple of 8, so that every row
-// is whole 16-byte chunks in both dtypes). A block has 128 threads (4
-// warps) and owns R rows (query rows for the forward and dQ, key rows for
-// dK/dV); the host sizes R from DH (64, 32, 16 or 8) so that the block's
-// shared memory fits, two blocks an SM where they can. Operand tiles are
-// loaded in 16-byte chunks, converted to float32 into shared memory with
-// rows padded by 16 bytes (which spreads a column's float4 reads over the
-// banks at any DH that is a multiple of 8), and the float32 accumulators
-// of O, dQ, dK and dV stay in shared memory for the whole loop. A score
-// tile is [R, 32]: warp w owns rows w + 4 t and lane c column c, a dot
-// product along DH (`scores`); the forward's online softmax reduces each
-// row over the warp by shuffles. The output products walk DH in float4
-// columns, four rows a thread (`accumulate`).
+// is whole 16-byte chunks in both dtypes), and no DH is refused: a block's
+// shared memory depends on min(DH, kChunk) only. The output columns (of
+// O, dQ, dK and dV) are cut into chunks of kChunk (256) columns, the last
+// one narrower, and each block owns one chunk of one row tile: R rows
+// (query rows for the forward and dQ, key rows for dK/dV; the host sizes
+// R, 64, 32, 16 or 8, from min(DH, kChunk) so that the block's shared
+// memory fits, two blocks an SM where they can) and its chunk's float32
+// accumulators in shared memory for the whole loop. The score products
+// (S = Q K^T, dP = dO V^T) walk DH in the same chunks: a [R, 32] score tile
+// accumulates across them in registers, warp w owning rows w + 4 t and
+// lane c column c, a dot product along DH (`scores`); the forward's online
+// softmax reduces each row over the warp by shuffles. The output products
+// walk the block's chunk in float4 columns, four rows a thread
+// (`accumulate`). Operand tiles are loaded in 16-byte chunks, converted to
+// float32 into shared memory with rows padded by 16 bytes (which spreads a
+// column's float4 reads over the banks at any width that is a multiple of
+// 8). Up to DH 256 there is one chunk, and each kernel is also built for
+// that case (kOne): the chunk count is 1 at compile time, the operands a
+// block keeps (Q, or K and V) load once and every product is as without
+// chunks. It is not the code of the kernels before the chunking, though:
+// on an H100 80GB HBM3 at 700 W one chunk costs the dK/dV kernel some
+// percent against them, the forward and dQ about nothing (PERF.md,
+// section 6, measured with tools/flash_levers.py group ab). The cause is
+// not found; the column offset and width each tile load now takes, and
+// the flattened grid's index arithmetic, are candidates. Past DH 256,
+// each chunk's block recomputes the scores, (chunks - 1) x the score
+// products more in all, and reloads its kept operands for each tile and
+// chunk. Each
+// product sums over DH, and over the keys or queries, in one fixed order
+// whatever the chunking, so a result does not depend on it. What bounds a
+// launch is a grid of at most 2^31 - 1 blocks (row tiles x heads x
+// chunks), which a tensor that fits an 80 GB card does not reach.
 
 #include <cuda_bf16.h>
 
@@ -54,20 +75,25 @@ constexpr int kThreads = 128;  // 4 warps
 constexpr int kWarps = kThreads / 32;
 constexpr int kCols = 32;      // columns of a score tile: one a lane
 constexpr int kRowGroup = 4;   // output rows a thread updates at once
-constexpr int kWideMaxDh = 512;
+constexpr int kChunk = 256;    // columns of DH a block holds in shared memory at once
 constexpr int kSmemMax = 232448;  // dynamic shared memory a block may take
 
-__host__ __device__ constexpr int ld_of(int dh) { return dh + 4; }
+__host__ __device__ constexpr int ld_of(int w) { return w + 4; }
 
-// Shared memory of each kernel at R rows, in floats.
-__host__ __device__ constexpr int fwd_floats(int r, int dh) {
-  return ld_of(dh) * (2 * r + 2 * kCols) + r * kCols + 3 * r;
+// Width of the widest chunk at head dim dh, and of chunk c.
+__host__ __device__ constexpr int widest(int dh) { return dh < kChunk ? dh : kChunk; }
+__host__ __device__ constexpr int chunk_width(int dh, int c) { return widest(dh - c * kChunk); }
+__host__ __device__ constexpr int chunks(int dh) { return (dh + kChunk - 1) / kChunk; }
+
+// Shared memory of each kernel at R rows and chunks of width w, in floats.
+__host__ __device__ constexpr int fwd_floats(int r, int w) {
+  return ld_of(w) * (2 * r + 2 * kCols) + r * kCols + 3 * r;
 }
-__host__ __device__ constexpr int dq_floats(int r, int dh) {
-  return ld_of(dh) * (3 * r + 2 * kCols) + r * kCols + 2 * r;
+__host__ __device__ constexpr int dq_floats(int r, int w) {
+  return ld_of(w) * (3 * r + 2 * kCols) + r * kCols + 2 * r;
 }
-__host__ __device__ constexpr int dkv_floats(int r, int dh) {
-  return ld_of(dh) * (4 * r + 2 * kCols) + 2 * r * kCols + 2 * kCols;
+__host__ __device__ constexpr int dkv_floats(int r, int w) {
+  return ld_of(w) * (4 * r + 2 * kCols) + 2 * r * kCols + 2 * kCols;
 }
 
 __device__ __forceinline__ void unpack(const uint4& raw, float* dst, float mul, float) {
@@ -101,19 +127,19 @@ __device__ __forceinline__ uint4 pack(const float* src, float mul, __nv_bfloat16
   return raw;
 }
 
-// Rows [row0, row0 + rows) of a [S, dh] matrix of T into a float32 shared
-// tile (leading dimension ld_of(dh)), each element times `mul`, in
-// 16-byte chunks; rows at or past S are zero.
+// Columns [c0, c0 + w) of rows [row0, row0 + rows) of a [S, dh] matrix of
+// T into a float32 shared tile (leading dimension ld_of(w)), each element
+// times `mul`, in 16-byte chunks; rows at or past S are zero.
 template <typename T>
 __device__ void load_rows(float* sm, const T* __restrict__ g, int row0, int rows, int S, int dh,
-                          float mul) {
+                          int c0, int w, float mul) {
   constexpr int kPer = 16 / sizeof(T);
-  const int chunks = dh / kPer, ld = ld_of(dh);
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * kPer;
+  const int per_row = w / kPer, ld = ld_of(w);
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * kPer;
     float* dst = sm + r * ld + c;
     if (row0 + r < S) {
-      const uint4 raw = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * dh + c);
+      const uint4 raw = *reinterpret_cast<const uint4*>(g + (size_t)(row0 + r) * dh + c0 + c);
       unpack(raw, dst, mul, T());
     } else {
 #pragma unroll
@@ -123,32 +149,33 @@ __device__ void load_rows(float* sm, const T* __restrict__ g, int row0, int rows
   }
 }
 
-// Rows [row0, row0 + rows) of a [S, dh] matrix of T from a float32 shared
-// tile, row r times mul * rowmul[r] (rowmul may be null), in 16-byte
-// chunks; rows at or past S are not written.
+// Columns [c0, c0 + w) of rows [row0, row0 + rows) of a [S, dh] matrix of
+// T from a float32 shared tile (leading dimension ld_of(w)), row r times
+// mul * rowmul[r] (rowmul may be null), in 16-byte chunks; rows at or past
+// S are not written.
 template <typename T>
 __device__ void store_rows(T* __restrict__ g, const float* sm, const float* rowmul, int row0,
-                           int rows, int S, int dh, float mul) {
+                           int rows, int S, int dh, int c0, int w, float mul) {
   constexpr int kPer = 16 / sizeof(T);
-  const int chunks = dh / kPer, ld = ld_of(dh);
-  for (int i = threadIdx.x; i < rows * chunks; i += kThreads) {
-    const int r = i / chunks, c = (i - r * chunks) * kPer;
+  const int per_row = w / kPer, ld = ld_of(w);
+  for (int i = threadIdx.x; i < rows * per_row; i += kThreads) {
+    const int r = i / per_row, c = (i - r * per_row) * kPer;
     if (row0 + r >= S) continue;
     const float m = rowmul ? mul * rowmul[r] : mul;
-    *reinterpret_cast<uint4*>(g + (size_t)(row0 + r) * dh + c) = pack(sm + r * ld + c, m, T());
+    *reinterpret_cast<uint4*>(g + (size_t)(row0 + r) * dh + c0 + c) =
+        pack(sm + r * ld + c, m, T());
   }
 }
 
-// s[t] = A(row warp + 4 t) . B(row lane) over dh, for the RPW rows a warp
-// owns: B's row is read as float4 by each lane, A's broadcast to the warp.
+// s[t] += A(row warp + 4 t) . B(row lane) over the w columns of one chunk,
+// for the RPW rows a warp owns: B's row is read as float4 by each lane,
+// A's broadcast to the warp.
 template <int RPW>
-__device__ __forceinline__ void scores(float (&s)[RPW], const float* A, const float* B, int dh,
+__device__ __forceinline__ void scores(float (&s)[RPW], const float* A, const float* B, int w,
                                        int warp, int lane) {
-  const int ld = ld_of(dh);
+  const int ld = ld_of(w);
   const float* b = B + lane * ld;
-#pragma unroll
-  for (int t = 0; t < RPW; ++t) s[t] = 0.f;
-  for (int d = 0; d < dh; d += 4) {
+  for (int d = 0; d < w; d += 4) {
     const float4 bv = ld4(b + d);
 #pragma unroll
     for (int t = 0; t < RPW; ++t) {
@@ -162,11 +189,11 @@ __device__ __forceinline__ void scores(float (&s)[RPW], const float* A, const fl
 }
 
 // acc[r][:] = alpha[r] acc[r][:] + sum_c P[r][c] B[c][:] for the R rows of
-// acc (alpha may be null: 1). P is [R, kCols], B a [kCols, dh] tile. A
-// thread takes a float4 column of kRowGroup rows at a time.
+// acc (alpha may be null: 1). P is [R, kCols], B a [kCols, w] tile, acc
+// [R, w]. A thread takes a float4 column of kRowGroup rows at a time.
 __device__ void accumulate(float* acc, const float* P, const float* alpha, const float* B, int R,
-                           int dh) {
-  const int ld = ld_of(dh), cols = dh / 4, items = cols * (R / kRowGroup);
+                           int w) {
+  const int ld = ld_of(w), cols = w / 4, items = cols * (R / kRowGroup);
   for (int it = threadIdx.x; it < items; it += kThreads) {
     const int c4 = (it % cols) * 4, r0 = (it / cols) * kRowGroup;
     float4 a[kRowGroup];
@@ -210,40 +237,62 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Forward: one block per (bh, R-row Q tile), the longest causal tiles
-// first. K and V tiles of 32 keys stream through shared memory; the online
-// softmax keeps each row's max and sum in the registers of its warp.
-template <typename T, int R>
+// A block's place: blockIdx.x runs over (chunk, head, row tile), the chunk
+// fastest and the row tile slowest, so that the blocks of one tile launch
+// together. Each kernel is built twice: kOne for DH <= kChunk (one chunk,
+// so the chunk loops and reloads compile away), and for wider heads.
+struct Place {
+  int bh, tile, c0, w;  // head, row tile, first column and width of the chunk
+};
+
+template <bool kOne>
+__device__ __forceinline__ Place place(int BH, int dh) {
+  const int n_c = kOne ? 1 : chunks(dh), c = blockIdx.x % n_c, rest = blockIdx.x / n_c;
+  return {rest % BH, rest / BH, c * kChunk, kOne ? dh : chunk_width(dh, c)};
+}
+
+// Forward: one block per (bh, R-row Q tile, column chunk), the longest
+// causal tiles first. K and V tiles of 32 keys stream through shared
+// memory; the online softmax keeps each row's max and sum in the
+// registers of its warp. The block of chunk 0 writes lse.
+template <typename T, int R, bool kOne>
 __global__ void __launch_bounds__(kThreads) flash_wide_fwd_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ out,
-    float* __restrict__ lse, int S, int dh, int causal, float scale) {
+    float* __restrict__ lse, int BH, int S, int dh, int causal, float scale) {
   constexpr int RPW = R / kWarps;
   extern __shared__ float4 smem4[];
-  const int ld = ld_of(dh);
+  const int W = kOne ? dh : widest(dh), n_d = kOne ? 1 : chunks(dh), ldw = ld_of(W);
+  const Place at = place<kOne>(BH, dh);
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* Os = Qs + R * ld;
-  float* Ks = Os + R * ld;
-  float* Vs = Ks + kCols * ld;
-  float* Ps = Vs + kCols * ld;
+  float* Os = Qs + R * ldw;
+  float* Ks = Os + R * ldw;
+  float* Vs = Ks + kCols * ldw;
+  float* Ps = Vs + kCols * ldw;
   float* alpha = Ps + R * kCols;
   float* inv_l = alpha + R;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
+  const int bh = at.bh;
+  const int q0 = ((S + R - 1) / R - 1 - at.tile) * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = (size_t)bh * S * dh;
-  load_rows(Qs, q + base, q0, R, S, dh, scale);
-  zero(Os, R * ld);
+  if (n_d == 1) load_rows(Qs, q + base, q0, R, S, dh, 0, dh, scale);
+  zero(Os, R * ld_of(at.w));
   float m[RPW], l[RPW];
 #pragma unroll
   for (int t = 0; t < RPW; ++t) m[t] = -INFINITY, l[t] = 0.f;
   const int k_end = causal ? min(q0 + R, S) : S;
   for (int k0 = 0; k0 < k_end; k0 += kCols) {
-    __syncthreads();  // the last tile's K and V are read by no one now
-    load_rows(Ks, k + base, k0, kCols, S, dh, 1.f);
-    load_rows(Vs, v + base, k0, kCols, S, dh, 1.f);
-    __syncthreads();
     float s[RPW];
-    scores<RPW>(s, Qs, Ks, dh, warp, lane);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) s[t] = 0.f;
+    for (int d = 0; d < n_d; ++d) {
+      const int cd = d * kChunk, wd = chunk_width(dh, d);
+      __syncthreads();  // the last tile's readers are done
+      if (n_d > 1) load_rows(Qs, q + base, q0, R, S, dh, cd, wd, scale);
+      load_rows(Ks, k + base, k0, kCols, S, dh, cd, wd, 1.f);
+      if (d == n_d - 1) load_rows(Vs, v + base, k0, kCols, S, dh, at.c0, at.w, 1.f);
+      __syncthreads();
+      scores<RPW>(s, Qs, Ks, wd, warp, lane);
+    }
     const int key = k0 + lane;
 #pragma unroll
     for (int t = 0; t < RPW; ++t) {
@@ -261,7 +310,7 @@ __global__ void __launch_bounds__(kThreads) flash_wide_fwd_kernel(
       if (lane == 0) alpha[row] = a;
     }
     __syncthreads();
-    accumulate(Os, Ps, alpha, Vs, R, dh);
+    accumulate(Os, Ps, alpha, Vs, R, at.w);
   }
 #pragma unroll
   for (int t = 0; t < RPW; ++t) {
@@ -269,39 +318,43 @@ __global__ void __launch_bounds__(kThreads) flash_wide_fwd_kernel(
     const float ls = fmaxf(l[t], 1e-30f);
     if (lane == 0) {
       inv_l[row] = 1.f / ls;
-      if (q0 + row < S) lse[(size_t)bh * S + q0 + row] = m[t] + logf(ls);
+      if (at.c0 == 0 && q0 + row < S) lse[(size_t)bh * S + q0 + row] = m[t] + logf(ls);
     }
   }
   __syncthreads();
-  store_rows(out + base, Os, inv_l, q0, R, S, dh, 1.f);
+  store_rows(out + base, Os, inv_l, q0, R, S, dh, at.c0, at.w, 1.f);
 }
 
-// dQ: one block per (bh, R-row Q tile), the longest causal tiles first.
-// Q (scaled) and dO stay in shared memory; per 32-key tile S and dP are
-// recomputed in registers, dS goes to shared memory and dQ += dS K.
-template <typename T, int R>
+// dQ: one block per (bh, R-row Q tile, column chunk), the longest causal
+// tiles first. Q (scaled) and dO stay in shared memory at one chunk; per
+// 32-key tile S and dP are recomputed in registers, dS goes to shared
+// memory and dQ += dS K over the block's chunk.
+template <typename T, int R, bool kOne>
 __global__ void __launch_bounds__(kThreads) flash_wide_bwd_dq_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dq, int S, int dh, int causal, float scale) {
+    T* __restrict__ dq, int BH, int S, int dh, int causal, float scale) {
   constexpr int RPW = R / kWarps;
   extern __shared__ float4 smem4[];
-  const int ld = ld_of(dh);
+  const int W = kOne ? dh : widest(dh), n_d = kOne ? 1 : chunks(dh), ldw = ld_of(W);
+  const Place at = place<kOne>(BH, dh);
   float* Qs = reinterpret_cast<float*>(smem4);
-  float* dOs = Qs + R * ld;
-  float* dQs = dOs + R * ld;
-  float* Ks = dQs + R * ld;
-  float* Vs = Ks + kCols * ld;
-  float* dSs = Vs + kCols * ld;
+  float* dOs = Qs + R * ldw;
+  float* dQs = dOs + R * ldw;
+  float* Ks = dQs + R * ldw;
+  float* Vs = Ks + kCols * ldw;
+  float* dSs = Vs + kCols * ldw;
   float* lse_s = dSs + R * kCols;
   float* delta_s = lse_s + R;
-  const int bh = blockIdx.x;
-  const int q0 = (gridDim.y - 1 - blockIdx.y) * R;
+  const int bh = at.bh;
+  const int q0 = ((S + R - 1) / R - 1 - at.tile) * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = (size_t)bh * S * dh;
-  load_rows(Qs, q + base, q0, R, S, dh, scale);
-  load_rows(dOs, dout + base, q0, R, S, dh, 1.f);
-  zero(dQs, R * ld);
+  if (n_d == 1) {
+    load_rows(Qs, q + base, q0, R, S, dh, 0, dh, scale);
+    load_rows(dOs, dout + base, q0, R, S, dh, 0, dh, 1.f);
+  }
+  zero(dQs, R * ld_of(at.w));
   for (int r = threadIdx.x; r < R; r += kThreads) {
     const bool ok = q0 + r < S;
     lse_s[r] = ok ? lse[(size_t)bh * S + q0 + r] : 0.f;
@@ -309,13 +362,22 @@ __global__ void __launch_bounds__(kThreads) flash_wide_bwd_dq_kernel(
   }
   const int k_end = causal ? min(q0 + R, S) : S;
   for (int k0 = 0; k0 < k_end; k0 += kCols) {
-    __syncthreads();
-    load_rows(Ks, k + base, k0, kCols, S, dh, 1.f);
-    load_rows(Vs, v + base, k0, kCols, S, dh, 1.f);
-    __syncthreads();
     float s[RPW], dp[RPW];
-    scores<RPW>(s, Qs, Ks, dh, warp, lane);
-    scores<RPW>(dp, dOs, Vs, dh, warp, lane);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) s[t] = dp[t] = 0.f;
+    for (int d = 0; d < n_d; ++d) {
+      const int cd = d * kChunk, wd = chunk_width(dh, d);
+      __syncthreads();
+      if (n_d > 1) {
+        load_rows(Qs, q + base, q0, R, S, dh, cd, wd, scale);
+        load_rows(dOs, dout + base, q0, R, S, dh, cd, wd, 1.f);
+      }
+      load_rows(Ks, k + base, k0, kCols, S, dh, cd, wd, 1.f);
+      load_rows(Vs, v + base, k0, kCols, S, dh, cd, wd, 1.f);
+      __syncthreads();
+      scores<RPW>(s, Qs, Ks, wd, warp, lane);
+      scores<RPW>(dp, dOs, Vs, wd, warp, lane);
+    }
     const int key = k0 + lane;
 #pragma unroll
     for (int t = 0; t < RPW; ++t) {
@@ -324,57 +386,74 @@ __global__ void __launch_bounds__(kThreads) flash_wide_bwd_dq_kernel(
       const float p = visible ? expf(s[t] - lse_s[row]) : 0.f;
       dSs[row * kCols + lane] = p * (dp[t] - delta_s[row]);
     }
+    if (n_d > 1) {  // K at the block's chunk
+      __syncthreads();
+      load_rows(Ks, k + base, k0, kCols, S, dh, at.c0, at.w, 1.f);
+    }
     __syncthreads();
-    accumulate(dQs, dSs, nullptr, Ks, R, dh);
+    accumulate(dQs, dSs, nullptr, Ks, R, at.w);
   }
   __syncthreads();
-  store_rows(dq + base, dQs, nullptr, q0, R, S, dh, scale);
+  store_rows(dq + base, dQs, nullptr, q0, R, S, dh, at.c0, at.w, scale);
 }
 
-// dK and dV: one block per (bh, R-key block), the longest causal blocks
-// (the first keys) first. K, V and the dK, dV accumulators stay in shared
-// memory; 32-row Q (scaled) and dO tiles stream past them; per tile P^T
-// and dS^T are recomputed in registers, go to shared memory, and dV +=
-// P^T dO, dK += dS^T (scale Q).
-template <typename T, int R>
+// dK and dV: one block per (bh, R-key block, column chunk), the longest
+// causal blocks (the first keys) first. K and V stay in shared memory at
+// one chunk, the dK, dV accumulators at the block's chunk; 32-row Q
+// (scaled) and dO tiles stream past them; per tile P^T and dS^T are
+// recomputed in registers, go to shared memory, and dV += P^T dO, dK +=
+// dS^T (scale Q) over the block's chunk.
+template <typename T, int R, bool kOne>
 __global__ void __launch_bounds__(kThreads) flash_wide_bwd_dkv_kernel(
     const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-    T* __restrict__ dk, T* __restrict__ dv, int S, int dh, int causal, float scale) {
+    T* __restrict__ dk, T* __restrict__ dv, int BH, int S, int dh, int causal, float scale) {
   constexpr int RPW = R / kWarps;
   extern __shared__ float4 smem4[];
-  const int ld = ld_of(dh);
+  const int W = kOne ? dh : widest(dh), n_d = kOne ? 1 : chunks(dh), ldw = ld_of(W);
+  const Place at = place<kOne>(BH, dh);
   float* Ks = reinterpret_cast<float*>(smem4);
-  float* Vs = Ks + R * ld;
-  float* dKs = Vs + R * ld;
-  float* dVs = dKs + R * ld;
-  float* Qs = dVs + R * ld;
-  float* dOs = Qs + kCols * ld;
-  float* Pt = dOs + kCols * ld;
+  float* Vs = Ks + R * ldw;
+  float* dKs = Vs + R * ldw;
+  float* dVs = dKs + R * ldw;
+  float* Qs = dVs + R * ldw;
+  float* dOs = Qs + kCols * ldw;
+  float* Pt = dOs + kCols * ldw;
   float* dSt = Pt + R * kCols;
   float* lse_s = dSt + R * kCols;
   float* delta_s = lse_s + kCols;
-  const int bh = blockIdx.x;
-  const int k0 = blockIdx.y * R;
+  const int bh = at.bh;
+  const int k0 = at.tile * R;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const size_t base = (size_t)bh * S * dh;
-  load_rows(Ks, k + base, k0, R, S, dh, 1.f);
-  load_rows(Vs, v + base, k0, R, S, dh, 1.f);
-  zero(dKs, 2 * R * ld);  // dK and dV
+  if (n_d == 1) {
+    load_rows(Ks, k + base, k0, R, S, dh, 0, dh, 1.f);
+    load_rows(Vs, v + base, k0, R, S, dh, 0, dh, 1.f);
+  }
+  zero(dKs, R * ldw + R * ld_of(at.w));  // dK and dV
   const int q_begin = causal ? (k0 / kCols) * kCols : 0;
   for (int q0 = q_begin; q0 < S; q0 += kCols) {
-    __syncthreads();
-    load_rows(Qs, q + base, q0, kCols, S, dh, scale);
-    load_rows(dOs, dout + base, q0, kCols, S, dh, 1.f);
-    if (threadIdx.x < kCols) {
-      const bool ok = q0 + threadIdx.x < S;
-      lse_s[threadIdx.x] = ok ? lse[(size_t)bh * S + q0 + threadIdx.x] : 0.f;
-      delta_s[threadIdx.x] = ok ? delta[(size_t)bh * S + q0 + threadIdx.x] : 0.f;
-    }
-    __syncthreads();
     float st[RPW], dpt[RPW];
-    scores<RPW>(st, Ks, Qs, dh, warp, lane);
-    scores<RPW>(dpt, Vs, dOs, dh, warp, lane);
+#pragma unroll
+    for (int t = 0; t < RPW; ++t) st[t] = dpt[t] = 0.f;
+    for (int d = 0; d < n_d; ++d) {
+      const int cd = d * kChunk, wd = chunk_width(dh, d);
+      __syncthreads();
+      if (n_d > 1) {
+        load_rows(Ks, k + base, k0, R, S, dh, cd, wd, 1.f);
+        load_rows(Vs, v + base, k0, R, S, dh, cd, wd, 1.f);
+      }
+      load_rows(Qs, q + base, q0, kCols, S, dh, cd, wd, scale);
+      load_rows(dOs, dout + base, q0, kCols, S, dh, cd, wd, 1.f);
+      if (d == 0 && threadIdx.x < kCols) {
+        const bool ok = q0 + threadIdx.x < S;
+        lse_s[threadIdx.x] = ok ? lse[(size_t)bh * S + q0 + threadIdx.x] : 0.f;
+        delta_s[threadIdx.x] = ok ? delta[(size_t)bh * S + q0 + threadIdx.x] : 0.f;
+      }
+      __syncthreads();
+      scores<RPW>(st, Ks, Qs, wd, warp, lane);
+      scores<RPW>(dpt, Vs, dOs, wd, warp, lane);
+    }
     const int qi = q0 + lane;
 #pragma unroll
     for (int t = 0; t < RPW; ++t) {
@@ -384,117 +463,128 @@ __global__ void __launch_bounds__(kThreads) flash_wide_bwd_dkv_kernel(
       Pt[row * kCols + lane] = p;
       dSt[row * kCols + lane] = p * (dpt[t] - delta_s[lane]);
     }
+    if (n_d > 1) {  // Q and dO at the block's chunk
+      __syncthreads();
+      load_rows(Qs, q + base, q0, kCols, S, dh, at.c0, at.w, scale);
+      load_rows(dOs, dout + base, q0, kCols, S, dh, at.c0, at.w, 1.f);
+    }
     __syncthreads();
-    accumulate(dVs, Pt, nullptr, dOs, R, dh);
-    accumulate(dKs, dSt, nullptr, Qs, R, dh);
+    accumulate(dVs, Pt, nullptr, dOs, R, at.w);
+    accumulate(dKs, dSt, nullptr, Qs, R, at.w);
   }
   __syncthreads();
-  store_rows(dk + base, dKs, nullptr, k0, R, S, dh, 1.f);
-  store_rows(dv + base, dVs, nullptr, k0, R, S, dh, 1.f);
+  store_rows(dk + base, dKs, nullptr, k0, R, S, dh, at.c0, at.w, 1.f);
+  store_rows(dv + base, dVs, nullptr, k0, R, S, dh, at.c0, at.w, 1.f);
 }
 
 // The rows a block of each kernel owns at head dim dh: the largest of 64,
-// 32, 16 and 8 whose shared memory leaves room for two blocks an SM, else
-// the largest that fits one; 0 when none fits.
+// 32, 16 and 8 whose shared memory (chunks of widest(dh) columns) leaves
+// room for two blocks an SM, else the largest that fits one. At widest(dh)
+// <= kChunk the 8-row blocks fit two an SM, so every dh has one.
 inline int rows_for(int (*floats)(int, int), int dh) {
   const int budgets[2] = {kSmemMax / 2, kSmemMax}, rows[4] = {64, 32, 16, 8};
   for (int b : budgets)
     for (int r : rows)
-      if (4 * floats(r, dh) <= b) return r;
+      if (4 * floats(r, widest(dh)) <= b) return r;
   return 0;
 }
 
-inline int fwd_f(int r, int dh) { return fwd_floats(r, dh); }
-inline int dq_f(int r, int dh) { return dq_floats(r, dh); }
-inline int dkv_f(int r, int dh) { return dkv_floats(r, dh); }
+inline int fwd_f(int r, int w) { return fwd_floats(r, w); }
+inline int dq_f(int r, int w) { return dq_floats(r, w); }
+inline int dkv_f(int r, int w) { return dkv_floats(r, w); }
 
 inline bool bad_shape(int bh, int s, int dh) {
-  return bh <= 0 || s <= 0 || dh <= 128 || dh > kWideMaxDh || dh % 8 != 0;
+  return bh <= 0 || s <= 0 || dh <= 128 || dh % 8 != 0;
 }
 
-template <typename T, int R>
+// The grid: one block per (chunk, head, R-row tile); refused past 2^31 - 1
+// blocks.
+inline bool grid_of(int bh, int s, int dh, int R, unsigned* blocks) {
+  const long long n = (long long)chunks(dh) * bh * ((s + R - 1) / R);
+  *blocks = (unsigned)n;
+  return n <= 0x7fffffffLL;
+}
+
+template <typename T, int R, bool kOne>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                        int s, int dh, int causal, float scale, cudaStream_t st) {
-  const size_t smem = 4 * (size_t)fwd_floats(R, dh);
-  cudaError_t e = allow_smem(flash_wide_fwd_kernel<T, R>, smem);
+  const size_t smem = 4 * (size_t)fwd_floats(R, widest(dh));
+  cudaError_t e = allow_smem(flash_wide_fwd_kernel<T, R, kOne>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)bh, (unsigned)((s + R - 1) / R));
-  if (grid.y > 65535u) return cudaErrorInvalidValue;
-  flash_wide_fwd_kernel<T, R><<<grid, kThreads, smem, st>>>(
+  unsigned blocks;
+  if (!grid_of(bh, s, dh, R, &blocks)) return cudaErrorInvalidValue;
+  flash_wide_fwd_kernel<T, R, kOne><<<blocks, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), s, dh, causal, scale);
+      static_cast<T*>(out), static_cast<float*>(lse), bh, s, dh, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T, int R, bool kOne>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int s, int dh,
                       int causal, float scale, cudaStream_t st) {
-  const size_t smem = 4 * (size_t)dq_floats(R, dh);
-  cudaError_t e = allow_smem(flash_wide_bwd_dq_kernel<T, R>, smem);
+  const size_t smem = 4 * (size_t)dq_floats(R, widest(dh));
+  cudaError_t e = allow_smem(flash_wide_bwd_dq_kernel<T, R, kOne>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)bh, (unsigned)((s + R - 1) / R));
-  if (grid.y > 65535u) return cudaErrorInvalidValue;
-  flash_wide_bwd_dq_kernel<T, R><<<grid, kThreads, smem, st>>>(
+  unsigned blocks;
+  if (!grid_of(bh, s, dh, R, &blocks)) return cudaErrorInvalidValue;
+  flash_wide_bwd_dq_kernel<T, R, kOne><<<blocks, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq), s, dh, causal, scale);
+      static_cast<const float*>(delta), static_cast<T*>(dq), bh, s, dh, causal, scale);
   return cudaGetLastError();
 }
 
-template <typename T, int R>
+template <typename T, int R, bool kOne>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                        int dh, int causal, float scale, cudaStream_t st) {
-  const size_t smem = 4 * (size_t)dkv_floats(R, dh);
-  cudaError_t e = allow_smem(flash_wide_bwd_dkv_kernel<T, R>, smem);
+  const size_t smem = 4 * (size_t)dkv_floats(R, widest(dh));
+  cudaError_t e = allow_smem(flash_wide_bwd_dkv_kernel<T, R, kOne>, smem);
   if (e != cudaSuccess) return e;
-  const dim3 grid((unsigned)bh, (unsigned)((s + R - 1) / R));
-  if (grid.y > 65535u) return cudaErrorInvalidValue;
-  flash_wide_bwd_dkv_kernel<T, R><<<grid, kThreads, smem, st>>>(
+  unsigned blocks;
+  if (!grid_of(bh, s, dh, R, &blocks)) return cudaErrorInvalidValue;
+  flash_wide_bwd_dkv_kernel<T, R, kOne><<<blocks, kThreads, smem, st>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), s, dh, causal,
-      scale);
+      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), bh, s, dh,
+      causal, scale);
   return cudaGetLastError();
 }
 
-// Returns LAUNCH<T, R>(...) for the run-time dtype (is_bf16) and row count R_.
+// LAUNCH<T, R, kOne>(...) for the run-time dtype (is_bf16) and row count R_.
+#define WIDE_LAUNCH(LAUNCH, R_, ONE, ...)                                                   \
+  switch (R_) {                                                                             \
+    case 64: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 64, ONE>(__VA_ARGS__)             \
+                                  : LAUNCH<float, 64, ONE>(__VA_ARGS__));                   \
+    case 32: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 32, ONE>(__VA_ARGS__)             \
+                                  : LAUNCH<float, 32, ONE>(__VA_ARGS__));                   \
+    case 16: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 16, ONE>(__VA_ARGS__)             \
+                                  : LAUNCH<float, 16, ONE>(__VA_ARGS__));                   \
+    case 8: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 8, ONE>(__VA_ARGS__)               \
+                                 : LAUNCH<float, 8, ONE>(__VA_ARGS__));                     \
+    default: return (int)cudaErrorInvalidValue;                                             \
+  }
+
+// Returns LAUNCH<T, R, kOne>(...) for the run-time dtype, row count R_ and
+// head dim (kOne when dh fits one chunk).
 #define WIDE_DISPATCH(LAUNCH, R_, ...)                                                      \
   do {                                                                                      \
-    switch (R_) {                                                                           \
-      case 64: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 64>(__VA_ARGS__)                \
-                                    : LAUNCH<float, 64>(__VA_ARGS__));                      \
-      case 32: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 32>(__VA_ARGS__)                \
-                                    : LAUNCH<float, 32>(__VA_ARGS__));                      \
-      case 16: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 16>(__VA_ARGS__)                \
-                                    : LAUNCH<float, 16>(__VA_ARGS__));                      \
-      case 8: return (int)(is_bf16 ? LAUNCH<__nv_bfloat16, 8>(__VA_ARGS__)                  \
-                                   : LAUNCH<float, 8>(__VA_ARGS__));                        \
-      default: return (int)cudaErrorInvalidValue;                                           \
+    if (dh <= kChunk) {                                                                     \
+      WIDE_LAUNCH(LAUNCH, R_, true, __VA_ARGS__)                                            \
     }                                                                                       \
+    WIDE_LAUNCH(LAUNCH, R_, false, __VA_ARGS__)                                             \
   } while (0)
 
 }  // namespace wide
 
 }  // namespace flash
 
-// The largest head dim these kernels take.
-extern "C" int dmlc_flash_wide_max_head_dim() { return flash::wide::kWideMaxDh; }
-
-// Rows a block owns for kernel `which` (0 forward, 1 dQ, 2 dK/dV) at head
-// dim dh; 0 when dh is not taken.
-extern "C" int dmlc_flash_wide_rows(int which, int dh) {
-  using namespace flash::wide;
-  if (bad_shape(1, 1, dh)) return 0;
-  return rows_for(which == 0 ? fwd_f : which == 1 ? dq_f : dkv_f, dh);
-}
-
 // The three entry points take the arguments of dmlc_flash_fwd,
 // dmlc_flash_bwd_dq and dmlc_flash_bwd_dkv: tensors [bh, s, dh] (float32,
 // or bfloat16 when is_bf16), lse and delta float32 [bh, s]; dh a multiple
-// of 8 in (128, kWideMaxDh]. Each launches on `stream` and returns the
-// launch's CUDA error code.
+// of 8 past 128. Each launches on `stream` and returns the launch's CUDA
+// error code.
 extern "C" int dmlc_flash_wide_fwd(const void* q, const void* k, const void* v, void* out,
                                    void* lse, int bh, int s, int dh, int causal, float scale,
                                    int is_bf16, void* stream) {

@@ -17,7 +17,9 @@ Each wrapper takes [B*H, S, Dh] tensors, checks them, runs its plain
 version (``*_reference``: exact float32 dense math of the same function)
 when they lie on the CPU and launches its kernel when they lie on a CUDA
 device. There is no fallback from the kernel to the plain version. The
-wrappers count their launches and are listed in ``ops/kernels.KERNELS``.
+wrappers count their launches by (entry point, head dim, dtype), which
+says which kernel ran each head dim, and are listed in
+``ops/kernels.KERNELS``.
 
 ``flash_attention`` is differentiable through ``_Flash``, a
 ``torch.autograd.Function``: the forward saves q, k, v, out and lse; the
@@ -32,20 +34,24 @@ inputs raise the same ``ValueError``; the CUDA kernels then pick their own
 tiles and mask the ragged edge.
 
 Head dims: the Hopper designs are built for ``KERNEL_HEAD_DIMS`` (64,
-128); past 128 a second set of three simple kernels takes the head dim at
-run time (``csrc/flash_wide.cu``, any multiple of 8 up to
-``WIDE_MAX_HEAD_DIM``, 512); the reference takes any Dh. The public
-functions zero-pad q, k, v, out and dO along Dh up to ``_run_head_dim(Dh)``
-(the next of ``KERNEL_HEAD_DIMS``, past 128 the next multiple of 8) on
-every device, run the wrappers there and slice the results back. The
-padding is exact: zero columns of Q and K leave Q K^T unchanged, zero
+128) in both dtypes, and in bf16 the forward and dK/dV also for
+``SM90_WIDE_HEAD_DIMS`` (192, 256); every other head dim past 128 runs
+through a second set of three simple kernels that take the head dim at
+run time (``csrc/flash_wide.cu``, any multiple of 8): float32 past 128, the
+bf16 dQ past 128 and everything bf16 past 256. No head dim is refused.
+The public functions zero-pad q, k, v, out and dO along Dh up to
+``_run_head_dim(Dh, dtype)`` (the next of ``KERNEL_HEAD_DIMS``; past 128,
+in bf16 up to 256, the next multiple of 64; past that the next multiple
+of 8) on every device, run the wrappers there and slice the results back.
+The padding is exact: zero columns of Q and K leave Q K^T unchanged, zero
 columns of V and dO leave out's first Dh columns, lse, delta and dP
 unchanged, and dQ, dK, dV get zero columns. ``scale`` defaults to the
-original Dh's. Past 512 a CPU tensor runs the plain versions at its own Dh
-and a CUDA tensor raises ``ValueError``.
+original Dh's.
 """
 
 from __future__ import annotations
+
+from collections import Counter
 
 import torch
 
@@ -64,12 +70,17 @@ _FULL_BLOCK_CAP = 1024
 #: functions pad any smaller head dim up to one of them.
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-#: Past the largest of KERNEL_HEAD_DIMS the wide kernels (csrc/flash_wide.cu,
-#: ``kWideMaxDh``) take any multiple of WIDE_HEAD_DIM_STEP up to
-#: WIDE_MAX_HEAD_DIM: the largest head dim whose dK/dV block of 8 keys fits
-#: a block's shared memory, rounded down. No registry model runs them.
+#: The wider head dims the bf16 Hopper forward and dK/dV are compiled for
+#: (csrc/flash_fwd.cu, csrc/flash_bwd_dkv.cu); a bf16 head dim in (128,
+#: 256] pads up to one of them. The bf16 dQ runs the wide kernel there.
+SM90_WIDE_HEAD_DIMS = (192, 256)
+#: Every other head dim past 128 pads to a multiple of WIDE_HEAD_DIM_STEP
+#: and runs the wide kernels (csrc/flash_wide.cu), which take any.
 WIDE_HEAD_DIM_STEP = 8
-WIDE_MAX_HEAD_DIM = 512
+
+# The entry points (ops/kernels._SIGNATURES) with a bf16 Hopper design at
+# SM90_WIDE_HEAD_DIMS.
+_SM90_WIDE_ENTRIES = ("flash_fwd", "flash_bwd_dkv")
 
 
 def _kernel_head_dim(dh: int) -> int | None:
@@ -78,27 +89,31 @@ def _kernel_head_dim(dh: int) -> int | None:
     return next((k for k in KERNEL_HEAD_DIMS if k >= dh), None)
 
 
-def _is_wide(dh: int) -> bool:
-    """Whether the wide kernels take head dim ``dh``."""
-    return KERNEL_HEAD_DIMS[-1] < dh <= WIDE_MAX_HEAD_DIM and dh % WIDE_HEAD_DIM_STEP == 0
-
-
-def _run_head_dim(dh: int, device: torch.device, what: str) -> int:
-    """The head dim the public functions run heads of ``dh`` at on
-    ``device``: ``_kernel_head_dim(dh)``; past it, up to
-    ``WIDE_MAX_HEAD_DIM``, ``dh`` rounded up to a multiple of
-    ``WIDE_HEAD_DIM_STEP`` (the wide kernels'); past that, ``dh`` itself on
-    the CPU (the plain versions take any) and a ``ValueError`` on a CUDA
-    device."""
+def _run_head_dim(dh: int, dtype: torch.dtype) -> int:
+    """The head dim the public functions run heads of ``dh`` in ``dtype``
+    at, on every device, so that a forward and its backward see one
+    width: ``_kernel_head_dim(dh)``; past it, in bf16, the next of
+    ``SM90_WIDE_HEAD_DIMS``; past that ``dh`` rounded up to a multiple of
+    ``WIDE_HEAD_DIM_STEP``."""
     padded = _kernel_head_dim(dh)
-    if padded is not None:
-        return padded
-    if dh <= WIDE_MAX_HEAD_DIM:
-        return -(-dh // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
-    if device.type == "cuda":
-        raise ValueError(f"{what}: head dim {dh} is past {WIDE_MAX_HEAD_DIM}, the largest the "
-                         "kernels take")
-    return dh
+    if padded is None and dtype == torch.bfloat16:
+        padded = next((k for k in SM90_WIDE_HEAD_DIMS if k >= dh), None)
+    return padded or -(-dh // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
+
+
+def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
+    """The entry point that wrapper kernel ``name`` (``flash_fwd``,
+    ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
+    ``dtype``: the Hopper design at ``KERNEL_HEAD_DIMS``, and in bf16 at
+    ``SM90_WIDE_HEAD_DIMS`` for the forward and dK/dV; else the wide
+    kernel (``flash_wide_*``); None for a head dim no kernel takes."""
+    if dh in KERNEL_HEAD_DIMS:
+        return name
+    if dtype == torch.bfloat16 and dh in SM90_WIDE_HEAD_DIMS and name in _SM90_WIDE_ENTRIES:
+        return name
+    if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
+        return name.replace("flash_", "flash_wide_", 1)
+    return None
 
 
 def _auto_block(s: int, requested: int | None, default: int) -> int:
@@ -219,8 +234,9 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
                     rows: dict[str, torch.Tensor]) -> tuple[int, int, int]:
     """[BH, S, Dh] matrices of one shape on one device, and float32 [BH, S,
     1] row vectors; on a CUDA device also what the kernels take: float32
-    or bfloat16, one dtype, a head dim of ``KERNEL_HEAD_DIMS`` or one the
-    wide kernels take (``_is_wide``), contiguous and 16-byte aligned."""
+    or bfloat16, one dtype, a head dim of ``KERNEL_HEAD_DIMS`` or a
+    multiple of ``WIDE_HEAD_DIM_STEP`` past them, contiguous and 16-byte
+    aligned."""
     first = next(iter(mats.values()))
     for name, t in {**mats, **rows}.items():
         if not isinstance(t, torch.Tensor):
@@ -242,26 +258,27 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
         if first.dtype not in _KERNEL_DTYPES or any(t.dtype != first.dtype for t in mats.values()):
             raise TypeError(f"{what}: the kernel takes one dtype of {_KERNEL_DTYPES} for "
                             f"{list(mats)}, got {[t.dtype for t in mats.values()]}")
-        if dh not in KERNEL_HEAD_DIMS and not _is_wide(dh):
+        if _entry_name("flash_fwd", dh, first.dtype) is None:
             raise ValueError(
                 f"{what}: the kernels are built for head dims {KERNEL_HEAD_DIMS} and the "
-                f"multiples of {WIDE_HEAD_DIM_STEP} in ({KERNEL_HEAD_DIMS[-1]}, "
-                f"{WIDE_MAX_HEAD_DIM}], got {dh}")
+                f"multiples of {WIDE_HEAD_DIM_STEP} past {KERNEL_HEAD_DIMS[-1]}, got {dh}")
         for name, t in {**mats, **rows}.items():
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
     return bh, s, dh
 
 
-def _run(name: str, first: torch.Tensor, *args) -> None:
-    """Launch kernel ``name`` on ``first``'s device: its Hopper design at
-    ``KERNEL_HEAD_DIMS``, its wide kernel (``flash_wide_*`` in
-    ``ops/kernels._SIGNATURES``) past them."""
-    if first.shape[-1] not in KERNEL_HEAD_DIMS:
-        name = name.replace("flash_", "flash_wide_", 1)
-    lib, fn = kernels._entry(name)
+def _run(name: str, first: torch.Tensor, *args) -> tuple[str, int, torch.dtype]:
+    """Launch kernel ``name`` (``flash_fwd``, ``flash_bwd_dq`` or
+    ``flash_bwd_dkv``) on ``first``'s device through the entry point
+    ``_entry_name`` picks for its head dim and dtype; returns the key the
+    wrapper counts the launch under: (entry point, head dim, dtype)."""
+    dh, dtype = first.shape[-1], first.dtype
+    entry = _entry_name(name, dh, dtype)
+    lib, fn = kernels._entry(entry)
     rc = kernels._launch(first, fn, *args)
-    _build.check(lib, rc, name)
+    _build.check(lib, rc, entry)
+    return entry, dh, dtype
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
@@ -273,10 +290,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
     out = torch.empty_like(q)
     lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
     if q.numel():
-        _run("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             lse.data_ptr(), bh, s, dh, int(causal), float(scale),
-             int(q.dtype == torch.bfloat16))
-        flash_forward.launches += 1  # type: ignore[attr-defined]
+        key = _run("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                   lse.data_ptr(), bh, s, dh, int(causal), float(scale),
+                   int(q.dtype == torch.bfloat16))
+        flash_forward.launches[key] += 1  # type: ignore[attr-defined]
     return out, lse
 
 
@@ -289,10 +306,10 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float) -> torc
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dq = torch.empty_like(q)
     if q.numel():
-        _run("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, dh, int(causal),
-             float(scale), int(q.dtype == torch.bfloat16))
-        flash_bwd_dq.launches += 1  # type: ignore[attr-defined]
+        key = _run("flash_bwd_dq", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), bh, s, dh, int(causal),
+                   float(scale), int(q.dtype == torch.bfloat16))
+        flash_bwd_dq.launches[key] += 1  # type: ignore[attr-defined]
     return dq
 
 
@@ -306,16 +323,16 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel():
-        _run("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
-             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, dh,
-             int(causal), float(scale), int(q.dtype == torch.bfloat16))
-        flash_bwd_dkv.launches += 1  # type: ignore[attr-defined]
+        key = _run("flash_bwd_dkv", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), bh, s, dh,
+                   int(causal), float(scale), int(q.dtype == torch.bfloat16))
+        flash_bwd_dkv.launches[key] += 1  # type: ignore[attr-defined]
     return dk, dv
 
 
-flash_forward.launches = 0  # type: ignore[attr-defined]
-flash_bwd_dq.launches = 0  # type: ignore[attr-defined]
-flash_bwd_dkv.launches = 0  # type: ignore[attr-defined]
+flash_forward.launches = Counter()  # type: ignore[attr-defined]
+flash_bwd_dq.launches = Counter()  # type: ignore[attr-defined]
+flash_bwd_dkv.launches = Counter()  # type: ignore[attr-defined]
 kernels.KERNELS.update(flash_forward=flash_forward, flash_bwd_dq=flash_bwd_dq,
                        flash_bwd_dkv=flash_bwd_dkv)
 
@@ -356,7 +373,7 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):  # type: ignore[override]
-        dh = _run_head_dim(q.shape[-1], q.device, "flash_attention")
+        dh = _run_head_dim(q.shape[-1], q.dtype)
         q3, k3, v3 = (_as_heads(x, dh) for x in (q, k, v))
         out, lse = flash_forward(q3, k3, v3, causal=causal, scale=scale)
         ctx.save_for_backward(q3, k3, v3, out, lse)
@@ -383,8 +400,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal
     ``blk_k`` are checked against the JAX package's block rule (an S
     with no legal block raises ``ValueError``: pad the sequence); the
     kernels choose their own tiles. A head dim the kernels are not built
-    for runs zero-padded to ``_run_head_dim``; past ``WIDE_MAX_HEAD_DIM``
-    it raises ``ValueError`` on the card."""
+    for runs zero-padded to ``_run_head_dim``."""
     _check_blocks(q, blk_q, blk_k)
     if scale is None:
         scale = q.shape[-1] ** -0.5
@@ -402,7 +418,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     b, h, s, dh = q.shape
     if scale is None:
         scale = dh ** -0.5
-    run_dh = _run_head_dim(dh, q.device, "flash_attention_with_lse")
+    run_dh = _run_head_dim(dh, q.dtype)
     with torch.no_grad():
         out, lse = flash_forward(*(_as_heads(x, run_dh) for x in (q, k, v)), causal=causal,
                                  scale=float(scale))
@@ -420,7 +436,7 @@ def flash_attention_block_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, s, dh = q.shape
-    run_dh = _run_head_dim(dh, q.device, "flash_attention_block_bwd")
+    run_dh = _run_head_dim(dh, q.dtype)
     q3, k3, v3, o3, do3 = (_as_heads(x, run_dh) for x in (q, k, v, out, do))
     lse3 = lse.reshape(b * h, s, 1).to(torch.float32).contiguous()
     delta3 = (_delta(o3, do3) if delta is None

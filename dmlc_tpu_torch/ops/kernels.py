@@ -13,8 +13,9 @@ Each wrapper checks its inputs, then runs the plain PyTorch version
 (``*_reference``) when the tensor lies on the CPU and launches its kernel
 when it lies on a CUDA device. A failed build or launch raises; there is no
 fallback from the kernel to the plain version. Each wrapper counts its
-kernel launches in its ``launches`` attribute; ``KERNELS`` lists every
-wrapper of the package (``ops/ragged_decode.py`` adds the page gather and
+kernel launches in its ``launches`` attribute (the flash wrappers, which
+pick among several entry points, in a ``Counter`` by entry point, head dim
+and dtype); ``KERNELS`` lists every wrapper of the package (``ops/ragged_decode.py`` adds the page gather and
 the paged decode attention, ``ops/flash.py`` the three flash-attention
 kernels when the ``ops`` package is imported), so one reset and one read
 cover them all.
@@ -23,6 +24,7 @@ cover them all.
 from __future__ import annotations
 
 import ctypes
+from collections import Counter
 
 import numpy as np
 import torch
@@ -82,7 +84,8 @@ _SIGNATURES = {
                                                       ctypes.c_void_p],
     ),
 }
-# The same three at head dims past 128 (csrc/flash_wide.cu), with the same
+# The same three past head dim 128 where no Hopper design is built
+# (csrc/flash_wide.cu; ops/flash._entry_name picks), with the same
 # arguments.
 _SIGNATURES.update({
     f"flash_wide_{name[6:]}": (f"dmlc_flash_wide_{name[6:]}", _SIGNATURES[name][1])
@@ -260,8 +263,21 @@ KERNELS = {"normalize_u8": normalize_u8, "softmax_top1": softmax_top1}
 
 def reset_launch_counts() -> None:
     for fn in KERNELS.values():
-        fn.launches = 0  # type: ignore[attr-defined]
+        fn.launches = type(fn.launches)()  # type: ignore[attr-defined]
 
 
 def launch_counts() -> dict[str, int]:
-    return {name: int(fn.launches) for name, fn in KERNELS.items()}  # type: ignore[attr-defined]
+    """Launches of each wrapper since the last reset."""
+    return {name: sum(fn.launches.values()) if isinstance(fn.launches, Counter)  # type: ignore[attr-defined]
+            else int(fn.launches) for name, fn in KERNELS.items()}  # type: ignore[attr-defined]
+
+
+def entry_launch_counts() -> Counter:
+    """Launches since the last reset of the wrappers that pick an entry
+    point (the flash kernels), by (entry point, head dim, dtype): which
+    kernel ran each head dim."""
+    counts: Counter = Counter()
+    for fn in KERNELS.values():
+        if isinstance(fn.launches, Counter):  # type: ignore[attr-defined]
+            counts.update(fn.launches)  # type: ignore[attr-defined]
+    return counts

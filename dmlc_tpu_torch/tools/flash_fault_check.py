@@ -25,7 +25,15 @@ LM train shape, or its Dh-64 twin):
 - flash_bwd_dkv_f32 (float32): the last 32-key block skips its last 32-row
   Q tile (the only one that reaches its keys);
 - flash_fwd_dh64 (bf16, head dim 64): the fault of flash_fwd, which the
-  Dh-64 instantiation shares.
+  Dh-64 instantiation shares;
+- flash_fwd_dh256 (bf16, head dim 256, [8, 3, 2048, 256]): the same fault
+  in the Dh-256 instantiation (its K/V tiles take 64 keys);
+- flash_fwd_s_chunk (bf16, head dim 256): S = Q K^T skips its last 64
+  columns of Dh (the last four k16 steps) past head dim 128;
+- flash_bwd_dkv_dh256 (bf16, head dim 256): the fault of flash_bwd_dkv in
+  the split layout (64-key blocks): the last block skips its last Q tile;
+- flash_bwd_dkv_swap (bf16, head dim 256): the split layout's warpgroups
+  write their accumulators to each other's output (dV to dk, dK to dv).
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -51,7 +59,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))  # tools/ is not a package
-from flash_levers import DH64_SHAPE, REPO, TRAIN_SHAPE, copy_port, outside_checkout  # noqa: E402
+from flash_levers import (DH64_SHAPE, REPO, TRAIN_SHAPE, WIDE256_SHAPE,  # noqa: E402
+                          copy_port, outside_checkout)
 
 
 class Fault(NamedTuple):
@@ -67,16 +76,23 @@ FWD_SM90 = ("  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK
             "  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK"
             " - (q0 + kFwdBQ >= S ? 1 : 0);")
 
+DKV_SM90 = ("  const int t_end = (S + kDkvBQ - 1) / kDkvBQ;",
+            "  const int t_end = (S + kDkvBQ - 1) / kDkvBQ - (k0 + kDkvBK >= S ? 1 : 0);")
+S_CHUNK = ("      for (int kk = 0; kk < DH / 16; ++kk) {\n        const uint32_t aq",
+           "      for (int kk = 0; kk < DH / 16 - (DH > 128 ? 4 : 0); ++kk) {\n"
+           "        const uint32_t aq")
+SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    else\n"
+        "      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);",
+        "      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dk + base, k0, S, 1);\n    else\n"
+        "      acc.store(scale, scale, Vs, kDkvBK, 0, dv + base, k0, S, 2);")
+
 FAULTS = {
     "flash_fwd": Fault("flash_fwd", *FWD_SM90, "bfloat16", TRAIN_SHAPE),
     "flash_bwd_dq": Fault(
         "flash_bwd_dq", "  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;",
         "  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK"
         " - (q0 + kDqBQ >= S ? 1 : 0);", "bfloat16", TRAIN_SHAPE),
-    "flash_bwd_dkv": Fault(
-        "flash_bwd_dkv", "  const int t_end = (S + kDkvBQ - 1) / kDkvBQ;",
-        "  const int t_end = (S + kDkvBQ - 1) / kDkvBQ - (k0 + kDkvBK >= S ? 1 : 0);",
-        "bfloat16", TRAIN_SHAPE),
+    "flash_bwd_dkv": Fault("flash_bwd_dkv", *DKV_SM90, "bfloat16", TRAIN_SHAPE),
     "flash_fwd_f32": Fault(
         "flash_fwd", "  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys;",
         "  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys"
@@ -90,6 +106,10 @@ FAULTS = {
         "  const int q_tiles = (S + C::BQ - 1) / C::BQ - (k0 + C::BK >= S ? 1 : 0);",
         "float32", TRAIN_SHAPE),
     "flash_fwd_dh64": Fault("flash_fwd", *FWD_SM90, "bfloat16", DH64_SHAPE),
+    "flash_fwd_dh256": Fault("flash_fwd", *FWD_SM90, "bfloat16", WIDE256_SHAPE),
+    "flash_fwd_s_chunk": Fault("flash_fwd", *S_CHUNK, "bfloat16", WIDE256_SHAPE),
+    "flash_bwd_dkv_dh256": Fault("flash_bwd_dkv", *DKV_SM90, "bfloat16", WIDE256_SHAPE),
+    "flash_bwd_dkv_swap": Fault("flash_bwd_dkv", *SWAP, "bfloat16", WIDE256_SHAPE),
 }
 
 PAGED_CASE = ("bench_decode", 128)

@@ -6,10 +6,20 @@
 GROUP names a table of GROUPS: ``dq`` (the bf16 flash_bwd_dq kernel, timed
 at the LM train shape), ``f32`` (the float32 forward and dK/dV) or
 ``dq_f32`` (the float32 flash_bwd_dq), both timed at the train shape and at
-its Dh-64 twin; or ``paged`` (paged_decode_attention in float32 at the
+its Dh-64 twin; ``wide`` (the bf16 forward and dK/dV at head dims 256 and
+192, timed at the train shape's FLOPs with heads of 256 and of 192,
+[8, 3, 2048, 256] and [8, 4, 2048, 192]); ``paged``
+(paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
-geometry and head dim). Runs the group's variants named
+geometry and head dim); or ``ab``, an earlier csrc/ against the checkout's
+(give --parent): the three flash kernels in both dtypes at the train shape
+and its Dh-64 twin, the wide kernels (csrc/flash_wide.cu, through their
+entry points whatever the wrappers pick) at [4, 4, 1024, Dh] for Dh 160
+and 256 in both dtypes (three readings of 10 calls), and the LM train leg
+(``chip_smoke.phase_train``: step wall p50, the flash kernels' device ms
+in one traced step, the loss), in turns parent, ship, ship, parent. Runs
+the group's variants named
 (default: its ORDER) in turn. Each run copies chip_smoke.py and
 dmlc_tpu_torch/ (without its build directory) into SCRATCH_DIR/<n>_<variant>;
 each csrc source a variant patches is the checkout's with those pieces of
@@ -17,8 +27,10 @@ text replaced. With --parent (repeatable), CSRC_DIR is an earlier csrc/
 whose sources and headers replace the copy's whole (the variant
 "parent<j>"), run first and last so that drift between runs shows. The
 copy is built; the group's kernels must pass ``chip_smoke.flash_check`` in
-the group's dtype at the LM train shape (causal), at S 193 and 1000
-(causal and not) and at each timed shape, and ``chip_smoke.kernel_device_ms``
+the group's dtype at the group's checks (by default the LM train shape,
+causal, and S 193 and 1000, causal and not; for ``wide`` S 193 at head
+dims 256 and 192, causal and not) and at each timed shape, and
+``chip_smoke.kernel_device_ms``
 times each of them at each timed shape (three readings of 20 calls). A
 parent without a timed shape's head dim reports the error for that shape.
 
@@ -42,6 +54,18 @@ from typing import NamedTuple
 REPO = Path(__file__).resolve().parents[2]
 TRAIN_SHAPE = (8, 6, 2048, 128)
 DH64_SHAPE = (8, 12, 2048, 64)
+# The train shape's FLOPs with wide heads: hidden 768 as 3 heads of 256 and
+# as 4 of 192.
+WIDE256_SHAPE = (8, 3, 2048, 256)
+WIDE192_SHAPE = (8, 4, 2048, 192)
+
+
+# The flash checks a variant must pass before it is timed (and each timed
+# shape, causal): the train shape, and ragged lengths where the kernels
+# mask a partial tile.
+FLASH_CHECKS = ((TRAIN_SHAPE, True), ((2, 3, 193, 128), False), ((2, 3, 193, 128), True),
+                ((1, 2, 1000, 128), False), ((1, 2, 1000, 128), True))
+WIDE_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (256, 192) for causal in (True, False))
 
 
 class Group(NamedTuple):
@@ -51,6 +75,7 @@ class Group(NamedTuple):
     levers: dict              # variant -> {kernel: [(old, new), ...]}
     order: tuple              # the variants run by default
     script: str = "flash"     # the key of SCRIPTS run in each copy
+    checks: tuple = FLASH_CHECKS  # flash: (shape, causal) checked before the timings
 
 
 # flash_bwd_dq (bf16). a: 128-key K/V tiles, P made while dP is multiplied,
@@ -141,6 +166,219 @@ DQ_F32 = {
 THREADS = "constexpr int kThreads = 128;"
 SPLIT = "constexpr int kSplit = 32; "
 
+# The bf16 forward and dK/dV at Dh 192 and 256 (group wide). ship: the
+# checkout's sources (forward: 64-key K/V tiles at 256 and 96-key ones at
+# 192, 2 stages; dK/dV: 64-key blocks, warpgroup 0 keeps dV and hands P^T
+# to warpgroup 1, which keeps dK); stages1: one stage of K/V (forward) and
+# of Q/dO (dK/dV) tiles at both; keys128: the forward at Dh 192 with
+# 128-key tiles in one stage; keys64: the forward at Dh 192 with 64-key
+# tiles; a (dK/dV at Dh 256): each warpgroup makes S^T and dP^T for all 64
+# keys and keeps dK and dV over its 128 columns (the score products twice,
+# 1.5x the FLOPs); b (dK/dV at Dh 256): warpgroup 0 makes P^T, warpgroup 1
+# dP^T and dS^T, both go to shared memory as bf16 A operands (16 KB) and
+# each warpgroup keeps dK and dV over its 128 columns.
+FWD_BK = "  static constexpr int BK = DH <= 128 ? 128 : DH == 192 ? 96 : 64;\n"
+STAGES = "  static constexpr int kStages = 2;\n"
+DKV_CFG = "constexpr int kBarPEmpty = 4;  // split layout: warpgroup 1 has read it\n"
+N128T = DKV_CFG + """
+// D[64 x 128] (+)= A . B, both from shared memory, A K-major, B MN-major.
+__device__ __forceinline__ void wgmma_ss_n128_t(float (&d)[64], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %66, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 1;\\n}\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),
+        "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]),
+        "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
+        "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(acc));
+}
+"""
+SPLIT_BRANCH = "  } else {\n    // Split layout: keys k0 + [0, 64); warpgroup 0 makes P^T and keeps dV,\n"
+# Layouts (a) and (b) share their epilogue: both warpgroups stage their
+# column halves of dK (through K) and dV (through V) after a barrier over
+# both, then warpgroup 0 copies dK out and warpgroup 1 dV.
+HALVES_EPILOGUE = """
+    consumers_wait(5);  // both warpgroups: every read of K and V is done
+    stage_rows(dka.r, scale, scale, Ks, kDkvBK, 0, 128 * wg);
+    stage_rows(dva.r, 1.f, 1.f, Vs, kDkvBK, 0, 128 * wg);
+    consumers_wait(6);  // both halves staged
+    const size_t base = (size_t)bh * S * DH;
+    if (wg == 0)
+      copy_rows<DH>(Ks, kDkvBK, 0, dk + base, k0, S, 1);
+    else
+      copy_rows<DH>(Vs, kDkvBK, 0, dv + base, k0, S, 2);
+  } else {
+"""
+LAYOUT_A = """  } else if constexpr (DH == 256) {
+    // Layout (a): keys k0 + [0, 64); each warpgroup makes S^T and dP^T for
+    // all of them and keeps dK and dV over its 128 columns.
+    regs_alloc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int key_lo = k0 + 16 * (t / 32) + lane / 4, key_hi = key_lo + 8;
+    const uint32_t col = wg * 2 * kDkvBQ * 128;  // this warpgroup's two boxes of Q and dO
+    OutAcc<128> dka, dva;
+    dka.zero();
+    dva.zero();
+    mbar_wait(bar_kv, 0);
+    for (int tq = t0; tq < t_end; ++tq) {
+      const int it = tq - t0, s = it % kStages, q0 = tq * kDkvBQ;
+      unsigned char* Qt = Qs + s * kDkvQ;
+      unsigned char* dOt = dOs + s * kDkvQ;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      float st[32], dpt[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t a = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
+        const uint32_t b = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
+        wgmma_ss_n64(st, desc(Ks + a, 16, 1024), desc(Qt + b, 16, 1024), kk);
+      }
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t a = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
+        const uint32_t b = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
+        wgmma_ss_n64(dpt, desc(Vs + a, 16, 1024), desc(dOt + b, 16, 1024), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(st);
+      reg_fence(dpt);
+      const bool edge = q0 + kDkvBQ > S || k0 + kDkvBK > S || (causal && k0 + 63 > q0);
+      const float* lrow = lse_s + s * kDkvBQ;
+      const float* drow = delta_s + s * kDkvBQ;
+#pragma unroll
+      for (int i = 0; i < 32; i += 2) {
+        const int qc = 8 * (i / 4) + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+        const float2 d2 = *reinterpret_cast<const float2*>(drow + qc);
+        const int key = (i % 4) < 2 ? key_lo : key_hi;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          float p = exp2f(st[i + u] * scale_log2 - (u ? l2.y : l2.x));
+          if (edge) {
+            const int qi = q0 + qc + u;
+            if (qi >= S || key >= S || (causal && key > qi)) p = 0.f;
+          }
+          dpt[i + u] = p * (dpt[i + u] - (u ? d2.y : d2.x));
+          st[i + u] = p;
+        }
+      }
+      uint32_t pa[4][4], dsa[4][4];
+      to_a_operand(st, pa);
+      to_a_operand(dpt, dsa);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) dva.mma(pa[kk], dOt + col + kk * 16 * 128, kDkvBQ * 128);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) dka.mma(dsa[kk], Qt + col + kk * 16 * 128, kDkvBQ * 128);
+      wgmma_commit();
+      wgmma_wait<0>();
+      dva.fence();
+      dka.fence();
+      mbar_arrive(&empty[s]);
+    }""" + HALVES_EPILOGUE
+LAYOUT_B = """  } else if constexpr (DH == 256) {
+    // Layout (b): keys k0 + [0, 64); warpgroup 0 makes P^T, warpgroup 1
+    // dP^T and dS^T; both go to shared memory as bf16 A operands and each
+    // warpgroup keeps dK and dV over its 128 columns.
+    regs_alloc<240>();
+    const int t = threadIdx.x % 128, lane = t % 32;
+    const int key_lo = k0 + 16 * (t / 32) + lane / 4, key_hi = key_lo + 8;
+    const uint32_t col = wg * 2 * kDkvBQ * 128;
+    unsigned char* Pb = smem + 2 * kDkvKV + 2 * kStages * kDkvQ;  // [64 keys, 64 queries] bf16
+    unsigned char* dSb = Pb + 64 * 128;
+    const unsigned char* A = wg == 0 ? Ks : Vs;
+    OutAcc<128> dka, dva;
+    dka.zero();
+    dva.zero();
+    mbar_wait(bar_kv, 0);
+    for (int tq = t0; tq < t_end; ++tq) {
+      const int it = tq - t0, s = it % kStages, q0 = tq * kDkvBQ;
+      unsigned char* Qt = Qs + s * kDkvQ;
+      unsigned char* dOt = dOs + s * kDkvQ;
+      mbar_wait(&full[s], (it / kStages) & 1);
+      float sc[32];
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {
+        const uint32_t a = (kk / 4) * (kDkvBK * 128) + (kk % 4) * 32;
+        const uint32_t b = (kk / 4) * (kDkvBQ * 128) + (kk % 4) * 32;
+        wgmma_ss_n64(sc, desc(A + a, 16, 1024), desc((wg == 0 ? Qt : dOt) + b, 16, 1024), kk);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      reg_fence(sc);
+      if (wg == 0) {
+        const bool edge = q0 + kDkvBQ > S || k0 + kDkvBK > S || (causal && k0 + 63 > q0);
+        const float* lrow = lse_s + s * kDkvBQ;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int qc = 8 * (i / 4) + 2 * (lane % 4);
+          const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+          const int key = (i % 4) < 2 ? key_lo : key_hi;
+#pragma unroll
+          for (int u = 0; u < 2; ++u) {
+            float p = exp2f(sc[i + u] * scale_log2 - (u ? l2.y : l2.x));
+            if (edge) {
+              const int qi = q0 + qc + u;
+              if (qi >= S || key >= S || (causal && key > qi)) p = 0.f;
+            }
+            sc[i + u] = p;
+          }
+        }
+        if (it > 0) consumers_wait(kBarPEmpty);  // warpgroup 1's products of the last tile are done
+        stage_rows(sc, 1.f, 1.f, Pb, 64, 0, 0);
+        asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+        consumers_arrive(kBarPFull);
+        consumers_wait(5);  // dS^T staged
+      } else {
+        consumers_wait(kBarPFull);
+        const float* drow = delta_s + s * kDkvBQ;
+        const int r_lo = 16 * (t / 32) + lane / 4;
+#pragma unroll
+        for (int i = 0; i < 32; i += 2) {
+          const int row = r_lo + 8 * ((i % 4) / 2), qc = 8 * (i / 4) + 2 * (lane % 4);
+          const float2 p2 = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(Pb + tile_offset(row, qc, 64)));
+          const float2 d2 = *reinterpret_cast<const float2*>(drow + qc);
+          sc[i] = p2.x * (sc[i] - d2.x);
+          sc[i + 1] = p2.y * (sc[i + 1] - d2.y);
+        }
+        stage_rows(sc, 1.f, 1.f, dSb, 64, 0, 0);
+        asm volatile("fence.proxy.async.shared::cta;\\n" ::: "memory");
+        consumers_arrive(5);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        wgmma_ss_n128_t(dva.r, desc(Pb + kk * 32, 16, 1024),
+                        desc(dOt + col + kk * 16 * 128, kDkvBQ * 128, 1024), 1);
+        wgmma_ss_n128_t(dka.r, desc(dSb + kk * 32, 16, 1024),
+                        desc(Qt + col + kk * 16 * 128, kDkvBQ * 128, 1024), 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      dva.fence();
+      dka.fence();
+      // Warpgroup 0 writes the next P^T once warpgroup 1's products are
+      // done; warpgroup 1 writes the next dS^T after the next P^T, which
+      // warpgroup 0 hands over after its own products.
+      if (wg == 1 && tq + 1 < t_end) consumers_arrive(kBarPEmpty);
+      mbar_arrive(&empty[s]);
+    }""" + HALVES_EPILOGUE
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -170,12 +408,33 @@ GROUPS = {
         "split128": {"paged_decode": [(SPLIT, SPLIT.replace("32", "128")),
                                       (THREADS, THREADS.replace("128", "256"))]},
     }, ("ship", "split16", "warps8", "split64", "split128", "ship"), "paged"),
+    "wide": Group("bfloat16", ("flash_fwd", "flash_bwd_dkv"), (WIDE256_SHAPE, WIDE192_SHAPE), {
+        "ship": {},
+        "stages1": {"flash_fwd": [(STAGES, STAGES.replace("2;", "DH <= 128 ? 2 : 1;"))],
+                    "flash_bwd_dkv": [(STAGES, STAGES.replace("2;", "DH <= 128 ? 2 : 1;"))]},
+        "keys128": {"flash_fwd": [(FWD_BK, FWD_BK.replace("DH == 192 ? 96", "DH == 192 ? 128")),
+                                  (STAGES, STAGES.replace("2;", "DH == 192 ? 1 : 2;"))]},
+        "keys64": {"flash_fwd": [(FWD_BK, FWD_BK.replace("DH == 192 ? 96", "DH == 192 ? 64"))]},
+        "a": {"flash_bwd_dkv": [(SPLIT_BRANCH, LAYOUT_A + SPLIT_BRANCH[len("  } else {\n"):])]},
+        "b": {"flash_bwd_dkv": [(DKV_CFG, N128T),
+                                (SPLIT_BRANCH, LAYOUT_B + SPLIT_BRANCH[len("  } else {\n"):])]},
+    }, ("ship", "stages1", "keys128", "keys64", "a", "b", "ship"), checks=WIDE_CHECKS),
+    "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
+                checks=((TRAIN_SHAPE, True),)),
 }
+
+# The wrapper call of each flash kernel, on (q, k, v, do, lse, delta).
+CALLS = """
+CALLS = {"flash_fwd": lambda a, kw: FL.flash_forward(*a[:3], **kw),
+         "flash_bwd_dq": lambda a, kw: FL.flash_bwd_dq(*a, **kw),
+         "flash_bwd_dkv": lambda a, kw: FL.flash_bwd_dkv(*a, **kw)}
+"""
 
 RUN = """
 import json, sys, torch, chip_smoke as cs
 from dmlc_tpu_torch.ops import _build, flash as FL
-dtype, kernels, shapes = json.loads(sys.argv[1])
+dtype, kernels, shapes, checks = json.loads(sys.argv[1])
 dt = getattr(torch, dtype)
 _build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
 report = {"card": torch.cuda.get_device_name(0)}
@@ -189,15 +448,11 @@ for name in kernels:
             e["sass"] = cs.sass_counts(_build.library_path(name), mangled)
         entries[f"dh{inst[1]}" if inst else mangled[:60]] = e
     report[name] = entries
-for shape, causal in ((cs.TRAIN_SHAPE, True), ((2, 3, 193, 128), False),
-                      ((2, 3, 193, 128), True), ((1, 2, 1000, 128), False),
-                      ((1, 2, 1000, 128), True)):
-    check = cs.flash_check(shape, dt, causal)
+for shape, causal in checks:
+    check = cs.flash_check(tuple(shape), dt, causal)
     report.setdefault("train_errors", {n: [check[n]["rel_l2"], check[n]["row_rel_max"]]
                                        for n in ("out", "dq", "dk", "dv")})
-CALLS = {"flash_fwd": lambda a, kw: FL.flash_forward(*a[:3], **kw),
-         "flash_bwd_dq": lambda a, kw: FL.flash_bwd_dq(*a, **kw),
-         "flash_bwd_dkv": lambda a, kw: FL.flash_bwd_dkv(*a, **kw)}
+""" + CALLS + """
 for shape in map(tuple, shapes):
     q, k, v, do = cs.flash_operands(shape, dt, seed=12)
     kw = {"causal": True, "scale": shape[3] ** -0.5}
@@ -206,7 +461,7 @@ for shape in map(tuple, shapes):
     except (ValueError, RuntimeError) as e:  # an earlier source without this head dim
         report[f"dh{shape[3]}"] = str(e)[:120]
         continue
-    if shape != cs.TRAIN_SHAPE:
+    if [list(shape), True] not in checks:
         cs.flash_check(shape, dt, True)
     args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
     report[f"dh{shape[3]}"] = {
@@ -219,7 +474,7 @@ print(json.dumps(report))
 RUN_PAGED = """
 import json, sys, numpy as np, torch, chip_smoke as cs
 from dmlc_tpu_torch.ops import _build, ragged_decode as RD
-dtype, kernels, shapes = json.loads(sys.argv[1])
+dtype, kernels, shapes, _ = json.loads(sys.argv[1])
 dt = getattr(torch, dtype)
 _build.build(["paged_decode"])
 report = {"card": torch.cuda.get_device_name(0),
@@ -241,7 +496,55 @@ print(json.dumps(report))
 """
 
 
-SCRIPTS = {"flash": RUN, "paged": RUN_PAGED}
+RUN_AB = """
+import json, sys, torch, chip_smoke as cs
+from dmlc_tpu_torch.ops import _build, flash as FL, kernels as K
+_, kernels, shapes, checks = json.loads(sys.argv[1])
+_build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_wide"])
+dev = cs.phase_device()
+report = {"card": dev["nvidia_smi"]}
+""" + CALLS + """
+for dt in (torch.bfloat16, torch.float32):
+    for shape, causal in checks:
+        cs.flash_check(tuple(shape), dt, causal)
+    for shape in map(tuple, shapes):
+        q, k, v, do = cs.flash_operands(shape, dt, seed=12)
+        kw = {"causal": True, "scale": shape[3] ** -0.5}
+        out, lse = FL.flash_forward(q, k, v, **kw)
+        args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
+        report[f"dh{shape[3]}_{str(dt)[6:]}"] = {
+            f"{name}_ms": [cs.kernel_device_ms(lambda: CALLS[name](args, kw), name, calls=20)
+                           for _ in range(3)] for name in kernels}
+
+def wide(entry, q, k, v, do, lse, delta):
+    # The wide kernel's entry point itself, whatever the wrappers pick.
+    bh, s, dh = q.shape
+    o, o2 = torch.empty_like(q), torch.empty_like(q)
+    l = torch.empty(bh, s, 1, dtype=torch.float32, device=q.device)
+    ptrs = {"flash_wide_fwd": (q, k, v, o, l),
+            "flash_wide_bwd_dq": (q, k, v, do, lse, delta, o),
+            "flash_wide_bwd_dkv": (q, k, v, do, lse, delta, o, o2)}[entry]
+    lib, fn = K._entry(entry)
+    _build.check(lib, K._launch(q, fn, *(t.data_ptr() for t in ptrs), bh, s, dh, 1,
+                                dh ** -0.5, int(q.dtype == torch.bfloat16)), entry)
+
+for dh in (160, 256):
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = cs.flash_operands((4, 4, 1024, dh), dt, 1)
+        out, lse = FL.flash_forward_reference(q, k, v, causal=True, scale=dh ** -0.5)
+        delta = (out.float() * do.float()).sum(-1, keepdim=True)
+        report[f"wide_dh{dh}_{str(dt)[6:]}"] = {
+            e: [cs.kernel_device_ms(lambda e=e: wide(e, q, k, v, do, lse, delta), e, calls=10)
+                for _ in range(3)]
+            for e in ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")}
+train = cs.phase_train(dev)
+report["train"] = {"step_ms_p50": train["step_ms_p50"], "loss_after": train["loss_after"],
+                   "flash_ms": train["traced_step"]["device_ms_by_class"]["flash"]}
+print(json.dumps(report))
+"""
+
+
+SCRIPTS = {"flash": RUN, "paged": RUN_PAGED, "ab": RUN_AB}
 
 
 def variant_sources(group: str, name: str, parent: Path | None = None) -> dict[str, str]:
@@ -292,11 +595,13 @@ def main(argv: list[str]) -> int:
     unknown = [v for v in variants if v not in group.levers]
     if unknown:
         ap.error(f"unknown variants {unknown}; choose from {list(group.levers)}")
+    if any(not list(p.glob("*.cu")) for p in args.parent):
+        ap.error(f"a --parent holds no .cu sources: {args.parent}")
     root = outside_checkout(args.scratch)
     if root is None:
         print("flash_levers: SCRATCH_DIR must lie outside the checkout", file=sys.stderr)
         return 2
-    spec = json.dumps([group.dtype, group.kernels, group.shapes])
+    spec = json.dumps([group.dtype, group.kernels, group.shapes, group.checks])
     parents = [(f"parent{j}", d) for j, d in enumerate(args.parent)]
     runs = parents + [(v, None) for v in variants] + parents[::-1]
     failed = []

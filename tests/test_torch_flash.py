@@ -16,16 +16,18 @@ Same numpy-seeded float32 inputs through both:
 - at head dims 32 and 96, which the public functions zero-pad to 64 and
   128: out and gradients, lse and the blockwise gradients against the
   same; past 128 (160, 256 and 130, padded to 136) the head dims the wide
-  kernels run at; the wrappers see the padded head dim, past 512 the CPU
-  runs the plain versions at the head dim given and a CUDA device refuses
-  it (``_kernel_head_dim``, ``_run_head_dim``); the wide kernels' limit
-  and entry points are their source's;
+  kernels run at, and 640, past the 512 the card once refused; which head
+  dim and entry point each (head dim, dtype) runs at on the card
+  (``_run_head_dim``, ``_entry_name``: bf16 in (128, 256] padded to 192
+  or 256 for the Hopper forward and dK/dV), that padding 160 to 192 and
+  200 to 256 is exact, and that no head-dim limit is left in the sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
 - each flash entry point dispatches head dims 64 and 128 in both dtypes
   (bf16 to ``sm90::``, float32 to ``f32::``), the set
-  ``KERNEL_HEAD_DIMS`` the wrappers accept on the card;
+  ``KERNEL_HEAD_DIMS``, and the forward and dK/dV also 192 and 256 in
+  bf16 (``SM90_WIDE_HEAD_DIMS``);
 - each fault of ``tools/flash_fault_check.py`` (the paged decode kernel's
   too) and each lever of ``tools/flash_levers.py`` finds its line once in
   its kernel's source;
@@ -138,29 +140,97 @@ def test_kernel_head_dim_is_the_next_one_built():
 
 
 def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
-    """Past 128 the wide kernels take the head dim (rounded up to a
-    multiple of 8) on every device; past their limit, 512, the CPU runs
-    the plain versions at the head dim given and the card refuses it."""
-    cuda, cpu = torch.device("cuda"), torch.device("cpu")
-    assert flash._run_head_dim(96, cuda, "f") == 128 and flash._run_head_dim(32, cpu, "f") == 64
-    assert flash._run_head_dim(160, cpu, "f") == 160
-    assert flash._run_head_dim(160, cuda, "flash_attention") == 160
-    assert flash._run_head_dim(130, cuda, "f") == 136 and flash._run_head_dim(512, cuda, "f") == 512
-    assert flash._run_head_dim(520, cpu, "f") == 520
-    with pytest.raises(ValueError, match="head dim 513 is past 512"):
-        flash._run_head_dim(513, cuda, "flash_attention")
+    """The card takes head dims 513 and 1000 (it refused past 512 before;
+    the name is the test's old one): past 512 the head dim pads to a
+    multiple of 8 in both dtypes, every wrapper has a wide kernel there,
+    and a CPU tensor runs the plain versions at the same padded head dim;
+    below it the padding is unchanged."""
+    f32, bf16 = torch.float32, torch.bfloat16
+    assert flash._run_head_dim(96, f32) == 128 and flash._run_head_dim(32, bf16) == 64
+    assert flash._run_head_dim(160, f32) == 160 and flash._run_head_dim(130, f32) == 136
+    for dh, run in ((513, 520), (1000, 1000)):
+        for dt in (f32, bf16):
+            assert flash._run_head_dim(dh, dt) == run
+            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == {
+                "flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"}
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
 
 
 def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
-    """Each head dim in (128, WIDE_MAX_HEAD_DIM] runs at a head dim the
-    wide kernels take, at most 7 wider; none past the limit does."""
-    cuda = torch.device("cuda")
-    for dh in range(129, flash.WIDE_MAX_HEAD_DIM + 1):
-        run = flash._run_head_dim(dh, cuda, "f")
-        assert flash._is_wide(run) and dh <= run < dh + flash.WIDE_HEAD_DIM_STEP, dh
-    assert not any(flash._is_wide(dh) for dh in (*range(1, 129), flash.WIDE_MAX_HEAD_DIM + 8))
+    """No wide limit is left: each head dim in (128, 1100] runs, in both
+    dtypes, at a head dim
+    that every wrapper has a kernel for: at most 7 wider, or in bf16 up to
+    256 at most 63 wider (192 or 256); none at or below 128 runs wide."""
+    for dt in (torch.float32, torch.bfloat16):
+        for dh in range(129, 1101):
+            run = flash._run_head_dim(dh, dt)
+            step = 64 if dt == torch.bfloat16 and dh <= 256 else flash.WIDE_HEAD_DIM_STEP
+            assert dh <= run < dh + step and run % step == 0, (dh, dt)
+            assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
+    assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
+               for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
+
+
+FLASH_ENTRIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+HOPPER = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_wide_bwd_dq",
+          "flash_bwd_dkv": "flash_bwd_dkv"}
+WIDE = {n: f"flash_wide_{n[6:]}" for n in FLASH_ENTRIES}
+# (head dim, dtype) -> (the head dim it runs at, the entry point of each
+# wrapper there): bf16 in (128, 256] on the Hopper forward and dK/dV at 192
+# or 256 with the wide dQ; float32 past 128 and bf16 past 256 on the wide
+# kernels at a multiple of 8.
+DISPATCH = {
+    (130, "bfloat16"): (192, HOPPER), (130, "float32"): (136, WIDE),
+    (160, "bfloat16"): (192, HOPPER), (160, "float32"): (160, WIDE),
+    (192, "bfloat16"): (192, HOPPER), (192, "float32"): (192, WIDE),
+    (200, "bfloat16"): (256, HOPPER), (200, "float32"): (200, WIDE),
+    (256, "bfloat16"): (256, HOPPER), (256, "float32"): (256, WIDE),
+    (264, "bfloat16"): (264, WIDE), (264, "float32"): (264, WIDE),
+    (513, "bfloat16"): (520, WIDE), (513, "float32"): (520, WIDE),
+    (1000, "bfloat16"): (1000, WIDE), (1000, "float32"): (1000, WIDE),
+}
+
+
+@pytest.mark.parametrize("dh, dtype", sorted(DISPATCH))
+def test_dispatch_table(dh, dtype):
+    run, entries = DISPATCH[dh, dtype]
+    dt = getattr(torch, dtype)
+    assert flash._run_head_dim(dh, dt) == run
+    assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == entries
+
+
+@pytest.mark.parametrize("dh, causal", [(160, True), (200, False)])
+def test_padding_to_the_hopper_head_dims_is_exact(dh, causal):
+    """bf16 heads of 160 and 200 run the Hopper forward and dK/dV at 192
+    and 256: the same inputs, padded by the helper the card uses
+    (``_run_head_dim``, ``_as_heads``), through the plain versions at the
+    padded head dim and sliced back, against the JAX flash function at the
+    head dim itself (out, lse, dq, dk, dv; float32 data, so that only the
+    padding differs: tolerances as above)."""
+    q, k, v, g = _heads(48, dh, seed=10)
+    run = flash._run_head_dim(dh, torch.bfloat16)
+    assert run in flash.SM90_WIDE_HEAD_DIMS and run > dh
+    q3, k3, v3, g3 = (flash._as_heads(torch.from_numpy(x), run) for x in (q, k, v, g))
+    kw = {"causal": causal, "scale": dh ** -0.5}
+    out, lse = flash.flash_forward(q3, k3, v3, **kw)
+    delta = flash._delta(out, g3)
+    dq = flash.flash_bwd_dq(q3, k3, v3, g3, lse, delta, **kw)
+    dk, dv = flash.flash_bwd_dkv(q3, k3, v3, g3, lse, delta, **kw)
+    got = [flash._from_heads(x, q.shape).numpy() for x in (out, dq, dk, dv)]
+    assert all(not x[..., dh:].any() for x in (out, dq, dk, dv))
+    _assert_close(got, _theirs(q, k, v, g, causal), f"Dh {dh} padded to {run}")
+    _, j_lse = pk.flash_attention_with_lse(q, k, v, causal=causal)
+    np.testing.assert_allclose(lse.numpy().reshape(j_lse.shape), np.asarray(j_lse),
+                               atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+def test_out_and_grads_match_past_the_old_limit(causal):
+    """Head dim 640, past the 512 the card refused before: the public
+    functions (out and gradients) against JAX's Pallas flash attention."""
+    q, k, v, g = _heads(32, 640, seed=11)
+    _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), "Dh 640")
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -173,12 +243,17 @@ def test_out_and_grads_match_past_head_dim_128(dh, causal):
 
 
 def test_wide_kernels_limit_and_entry_points_are_their_sources():
-    """WIDE_MAX_HEAD_DIM is the source's kWideMaxDh, and each wide entry
-    point the wrappers call exists there with its kernel's arguments (text
-    only, no nvcc)."""
-    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / "flash_wide.cu").read_text()
-    assert f"constexpr int kWideMaxDh = {flash.WIDE_MAX_HEAD_DIM};" in text
-    assert "dh % 8 != 0" in text and flash.WIDE_HEAD_DIM_STEP == 8
+    """No head-dim limit is left: not in csrc/flash_wide.cu (which takes
+    any multiple of 8 past 128) nor in ops/flash.py; each wide entry point
+    the wrappers call exists there with its kernel's arguments (text only,
+    no nvcc)."""
+    root = Path(flash.__file__).resolve().parent.parent
+    text = (root / "csrc" / "flash_wide.cu").read_text()
+    assert "kWideMaxDh" not in text and "max_head_dim" not in text
+    assert "return bh <= 0 || s <= 0 || dh <= 128 || dh % 8 != 0;" in text
+    assert flash.WIDE_HEAD_DIM_STEP == 8
+    assert "WIDE_MAX_HEAD_DIM" not in (root / "ops" / "flash.py").read_text()
+    assert not hasattr(flash, "WIDE_MAX_HEAD_DIM")
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"):
         wide = name.replace("flash_", "flash_wide_", 1)
         assert f'extern "C" int dmlc_{wide}(' in text
@@ -186,12 +261,15 @@ def test_wide_kernels_limit_and_entry_points_are_their_sources():
         assert K._LIBRARY[wide] == "flash_wide"
 
 
-@pytest.mark.parametrize("dh, run", [(32, 64), (96, 128), (64, 64), (160, 160), (130, 136),
-                                     (256, 256)])
-def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, monkeypatch):
+@pytest.mark.parametrize("dh, run, dtype", [
+    (32, 64, "float32"), (96, 128, "float32"), (64, 64, "float32"), (160, 160, "float32"),
+    (130, 136, "float32"), (256, 256, "float32"), (160, 192, "bfloat16"),
+    (200, 256, "bfloat16"), (513, 520, "bfloat16")])
+def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, dtype, monkeypatch):
     """Every public entry point pads q, k, v, out and dO with zero columns
     before the wrappers (which launch the kernels on the card) and slices
-    what they return."""
+    what they return, to the head dim of ``_run_head_dim`` in the inputs'
+    dtype."""
     seen = []
 
     def spy(fn):
@@ -203,7 +281,7 @@ def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, monkeyp
 
     for name in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"):
         monkeypatch.setattr(flash, name, spy(getattr(flash, name)))
-    q, k, v, g = (torch.from_numpy(x) for x in _heads(32, dh, seed=8))
+    q, k, v, g = (torch.from_numpy(x).to(getattr(torch, dtype)) for x in _heads(32, dh, seed=8))
     qg = q.clone().requires_grad_()
     out = flash.flash_attention(qg, k, v, causal=True)
     out.backward(g)
@@ -299,6 +377,35 @@ def test_gradient_dtypes_follow_the_inputs():
     assert q.grad.dtype == k.grad.dtype == v.grad.dtype == torch.bfloat16
 
 
+@pytest.mark.parametrize("dh,dtype,entries", [
+    (128, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    (256, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_bwd_dkv")),
+    (256, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+])
+def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
+    """Each flash wrapper counts a launch under (entry point, head dim,
+    dtype), the key ``_run`` returns for the entry point it launched;
+    ``kernels.launch_counts`` sums them and ``entry_launch_counts`` reads
+    them, and one reset clears both. The launch itself is stubbed: no
+    card here."""
+    launched = []
+    monkeypatch.setattr(K, "_entry", lambda entry: (entry, entry))
+    monkeypatch.setattr(K, "_launch", lambda first, fn, *args: launched.append(fn) or 0)
+    monkeypatch.setattr(flash._build, "check", lambda lib, rc, what: None)
+    q = torch.zeros(2, 16, dh, dtype=dtype)
+    K.reset_launch_counts()
+    for wrapper, entry in zip(("flash_forward", "flash_bwd_dq", "flash_bwd_dkv"), entries):
+        name = {"flash_forward": "flash_fwd"}.get(wrapper, wrapper)
+        key = flash._run(name, q)
+        assert key == (entry, dh, dtype)
+        K.KERNELS[wrapper].launches[key] += 1
+    assert launched == list(entries)
+    assert K.entry_launch_counts() == {(e, dh, dtype): 1 for e in entries}
+    assert {K.launch_counts()[n] for n in ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")} == {1}
+    K.reset_launch_counts()
+    assert not K.entry_launch_counts() and K.launch_counts()["flash_forward"] == 0
+
+
 def test_wrappers_check_operands_and_count_no_cpu_launch():
     K.reset_launch_counts()
     q = torch.zeros(2, 16, 64)
@@ -327,21 +434,26 @@ def _tool(name: str = "flash_fault_check"):
 
 
 @pytest.mark.parametrize("fault", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_f32",
-                                   "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_fwd_dh64"])
+                                   "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_fwd_dh64",
+                                   "flash_fwd_dh256", "flash_fwd_s_chunk", "flash_bwd_dkv_dh256",
+                                   "flash_bwd_dkv_swap"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
-    nvcc). Each fault runs the check in its kernel's dtype, at its head
-    dim."""
+    nvcc). Each fault runs the check in its kernel's dtype, at a head dim
+    its kernel is built for (the bf16 Hopper designs' 192 and 256 too)."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
     assert text.count(case.old) == 1
     assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
-    assert case.dtype in ("bfloat16", "float32") and case.shape[3] in flash.KERNEL_HEAD_DIMS
+    dh = case.shape[3]
+    assert case.dtype in ("bfloat16", "float32")
+    assert flash._entry_name(case.source, dh, getattr(torch, case.dtype)) == case.source
     assert fault.endswith("_f32") == (case.dtype == "float32")
-    assert fault.endswith("_dh64") == (case.shape[3] == 64)
+    assert fault.endswith("_dh64") == (dh == 64)
+    assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap"))
     assert case.check == "flash"
 
 
@@ -404,6 +516,13 @@ def test_paged_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("paged", lever)
 
 
+@pytest.mark.parametrize("lever", ["ship", "a", "b", "keys128", "keys64", "stages1"])
+def test_wide_lever_tool_finds_its_lines_once(lever):
+    """The bf16 forward and dK/dV variants at head dims 192 and 256 (group
+    wide)."""
+    _lever_sources_apply("wide", lever)
+
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -429,9 +548,10 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     """Each flash source's C entry point launches a kernel for head dim 64
     and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
     FMA kernels, flash::f32), each instantiated at the head dim it is
-    dispatched for; the wrappers accept exactly those head dims on the card
-    (text only, no nvcc)."""
-    assert flash.KERNEL_HEAD_DIMS == (64, 128)
+    dispatched for; the forward and dK/dV also for SM90_WIDE_HEAD_DIMS in
+    bf16, the head dims ``_entry_name`` sends to them (text only, no
+    nvcc)."""
+    assert flash.KERNEL_HEAD_DIMS == (64, 128) and flash.SM90_WIDE_HEAD_DIMS == (192, 256)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
     pattern = re.compile(r"if \((!?)is_bf16 && dh == (\d+)\)\s*return \(int\)(sm90::|f32::)?"
                          r"launch_\w+<(\d+)>\(")
@@ -444,4 +564,41 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
             assert dh == inst, (name, dh, inst)
             assert ns == ("f32::" if neg else "sm90::"), (name, ns)
             found.add((neg == "", int(dh)))
-        assert found == {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}
+        want = {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}
+        bf16_wide = {(True, dh) for dh in flash.SM90_WIDE_HEAD_DIMS
+                     if flash._entry_name(name, dh, torch.bfloat16) == name}
+        assert bf16_wide == ({(True, 192), (True, 256)} if name != "flash_bwd_dq" else set())
+        assert found == want | bf16_wide
+        smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
+        for _, dh in bf16_wide:
+            assert f"if (dh == {dh} && is_bf16) return" in smem
+
+
+def test_ab_group_runs_the_parent_first_and_last(tmp_path, monkeypatch):
+    """tools/flash_levers.py group ab (an earlier csrc/ against the
+    checkout's): every script of the tool parses here (text only, no
+    nvcc); with --parent it runs parent, ship, ship, parent, each in a copy
+    of its own, the parent's with the earlier sources, through the ab
+    script; and it refuses a --parent that holds no .cu source."""
+    tool = _tool("flash_levers")
+    for name, script in tool.SCRIPTS.items():
+        compile(script, f"flash_levers.{name}", "exec")
+    parent = tmp_path / "csrc"
+    parent.mkdir()
+    (parent / "flash_fwd.cu").write_text("// an earlier source\n")
+    copies, scripts = [], []
+
+    def run(cmd, **kw):
+        scripts.append(cmd[2])
+        return tool.subprocess.CompletedProcess(cmd, 0, '{"card": "none"}\n', "")
+
+    monkeypatch.setattr(tool, "copy_port", lambda dest, sources: copies.append(
+        (dest.name, sorted(sources))))
+    monkeypatch.setattr(tool.subprocess, "run", run)
+    out = tmp_path / "runs"
+    assert tool.main(["flash_levers.py", str(out), "ab", "--parent", str(parent)]) == 0
+    assert copies == [("0_parent0", ["flash_fwd.cu"]), ("1_ship", []), ("2_ship", []),
+                      ("3_parent0", ["flash_fwd.cu"])]
+    assert scripts == [tool.RUN_AB] * 4
+    with pytest.raises(SystemExit):
+        tool.main(["flash_levers.py", str(out), "ab", "--parent", str(tmp_path / "runs")])
