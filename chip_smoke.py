@@ -9,9 +9,9 @@ non-zero:
 1. device  — the card's name, power limit and the TF32 settings in force.
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
    each flash kernel instantiation (head dim 64 and 128, bf16 and
-   float32; the bf16 forward and dK/dV also at 192 and 256), its
-   registers, shared memory and spills (ptxas), and for the bf16 Hopper
-   ones their wgmma and TMA instructions (SASS).
+   float32; the three bf16 kernels and the float32 forward also at 192
+   and 256), its registers, shared memory and spills (ptxas), and for the
+   bf16 Hopper ones their wgmma and TMA instructions (SASS).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
@@ -20,10 +20,11 @@ non-zero:
    also bit-identical run to run and in a contiguous layout, beside the
    parent's path (two page gathers and the eager attention); the public
    flash_attention at head dims 32 and 96 (zero-padded to the kernels' 64
-   and 128), 160, 192, 200 and 256 (in bf16 the Hopper forward and dK/dV
-   at 192 or 256, in float32 the wide kernels) against the plain versions
-   with the kernel that ran each head dim, and a sweep of head dims up to
-   1024 (past 512 included, which the card once refused).
+   and 128), 160, 192, 200 and 256 (in bf16 the three Hopper kernels at
+   192 or 256; in float32 the float32 forward at 192 and 256 and the wide
+   kernels elsewhere) against the plain versions with the kernel that ran
+   each head dim, and a sweep of head dims up to 1024 (past 512 included,
+   which the card once refused).
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -158,8 +159,9 @@ FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # Head dims the Hopper kernels are not built for, run through the public
 # flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
 # to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) bf16 pads to
-# 192 or 256 (the Hopper forward and dK/dV, the wide dQ) and float32 runs
-# the wide kernels (csrc/flash_wide.cu, ops/flash.py). The kernels are
+# 192 or 256 (the three Hopper kernels) and float32 runs its forward at
+# 192 and 256 and the wide kernels elsewhere (csrc/flash_wide.cu,
+# ops/flash.py). The kernels are
 # also timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS.
 # WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
@@ -167,15 +169,17 @@ WIDE_HEAD_DIMS = (160, 192, 200, 256)
 WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256), (4, 4, 1024)
 WIDE_SWEEP_HEAD_DIMS = (129, 136, 200, 264, 328, 384, 448, 505, 512, 520, 640, 1024)
 WIDE_SWEEP_BHS = (1, 2, 72)
-# The LM train leg's FLOPs with wide heads, where the bf16 Hopper forward
-# and dK/dV at 256 and 192 are checked and timed: hidden 768 as 3 heads of
-# 256 and as 4 of 192 (dmlc_tpu_torch/tools/flash_levers.py).
+# The LM train leg's FLOPs with wide heads, where the kernels built for
+# head dims 256 and 192 are checked and timed: hidden 768 as 3 heads of 256
+# and as 4 of 192 (dmlc_tpu_torch/tools/flash_levers.py).
 WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
-# KERNEL_HEAD_DIMS (ops/flash.py); the forward and dK/dV also bf16 ones at
-# SM90_WIDE_HEAD_DIMS.
+# KERNEL_HEAD_DIMS (ops/flash.py), the bf16 ones also at
+# SM90_WIDE_HEAD_DIMS and the float32 forward too.
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# Dynamic shared memory a block may take on the H100 (227 KB).
+SMEM_PER_BLOCK_MAX = 232448
 # ResNet-18 through TrainingDriver: batch, steps, checkpoint interval.
 TRAINER_BATCH, TRAINER_STEPS, TRAINER_EVERY = 32, 3, 2
 # Published rates of the cards this runs on (NVIDIA data sheets):
@@ -371,10 +375,11 @@ def flash_instance(mangled: str) -> tuple[str, int] | None:
 def phase_build() -> None:
     """Builds every kernel. For the flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
-    both head dims in both dtypes and, for the forward and dK/dV, 192 and
-    256 in bf16, the Hopper ones also with their wgmma and TMA
-    instructions (SASS). Fails on a spill, on a missing instantiation, or
-    on a Hopper kernel without wgmma or TMA."""
+    both head dims in both dtypes and 192 and 256 where ops/flash.py
+    routes them to the source (bf16, and the float32 forward), the Hopper
+    ones also with their wgmma and TMA instructions (SASS). Fails on a
+    spill, on a missing instantiation, on a Hopper kernel without wgmma or
+    TMA, or on one past SMEM_PER_BLOCK_MAX."""
     from dmlc_tpu_torch.ops import _build
     from dmlc_tpu_torch.ops import flash as FL
 
@@ -402,9 +407,10 @@ def phase_build() -> None:
             if dtype == "bfloat16":
                 entry["sass"] = sass_counts(_build.library_path(name), mangled)
                 no_sm90_ops = not all(entry["sass"].values())
-            if entry["spill_stores"] or entry["spill_loads"] or no_sm90_ops:
-                raise AssertionError(f"{name} {dtype} Dh {dh}: spills, or no wgmma/TMA in its "
-                                     f"SASS: {entry}")
+            too_big = entry["smem_per_block"] > SMEM_PER_BLOCK_MAX
+            if entry["spill_stores"] or entry["spill_loads"] or no_sm90_ops or too_big:
+                raise AssertionError(f"{name} {dtype} Dh {dh}: spills, no wgmma/TMA in its "
+                                     f"SASS, or shared memory past {SMEM_PER_BLOCK_MAX}: {entry}")
             report[f"{dtype} dh{dh}"] = entry
         want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32")
                 for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS
@@ -835,21 +841,22 @@ def flash_checks() -> list[dict]:
     train shape and its Dh-64 twin in both dtypes, ragged lengths (193,
     1000), causal and not, where the kernels mask a partial tile, the
     shape of phase_train_small in both dtypes, and at head dims 256 and
-    192 the train leg's FLOPs (WIDE256_SHAPE, WIDE192_SHAPE) and
-    [WIDE_TIMED_BHS, Dh]: bf16 causal and not, float32 causal."""
+    192 (every bf16 kernel and the float32 forward built for them) the
+    train leg's FLOPs (WIDE256_SHAPE, WIDE192_SHAPE), [WIDE_TIMED_BHS, Dh]
+    and the ragged lengths, in both dtypes, causal and not."""
     cases = []
     for big in (TRAIN_SHAPE, DH64_SHAPE):
         cases += [(big, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    for dh in (128, 64):
+    for dh in (128, 64, 256, 192):
         for dt in (torch.bfloat16, torch.float32):
             for causal in (False, True):
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
-    # The bf16 Hopper forward and dK/dV at 192 and 256 (the dQ on the wide
-    # kernel beside them), the float32 wide kernels at the same shapes.
+    # The bf16 Hopper kernels and the float32 forward at 192 and 256 (the
+    # float32 dQ and dK/dV on the wide kernels beside it).
     for shape in (WIDE256_SHAPE, WIDE192_SHAPE, *((*WIDE_TIMED_BHS, dh) for dh in (192, 256))):
-        cases += [(shape, torch.bfloat16, causal) for causal in (True, False)]
-        cases += [(shape, torch.float32, True)]
+        cases += [(shape, dt, causal) for dt in (torch.bfloat16, torch.float32)
+                  for causal in (True, False)]
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
 
 
@@ -913,10 +920,20 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
 def flash_public_checks() -> dict:
     """flash_public_check at each of PADDED_HEAD_DIMS and WIDE_HEAD_DIMS in
     both dtypes, causal and not, and at each of WIDE_SWEEP_HEAD_DIMS
-    (causal, both dtypes): no head dim is refused."""
+    (causal, both dtypes): no head dim is refused. Past 128, bf16 must run
+    the three Hopper kernels and no wide one, and float32 heads of 192 and
+    256 the float32 forward."""
+    from dmlc_tpu_torch.ops import flash as FL
+
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
              for dt in (torch.bfloat16, torch.float32) for causal in (False, True)]
     checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
+    for c in checks:
+        dh, wide = c["shape"][3], [e for e in c["entries"] if e.startswith("flash_wide_")]
+        if (dh > 128 and c["dtype"] == "bfloat16" and wide) or (
+                dh in FL.SM90_WIDE_HEAD_DIMS and c["dtype"] == "float32" and "flash_fwd" not in
+                c["entries"]):
+            raise AssertionError(f"flash_attention Dh {dh} {c['dtype']}: ran {c['entries']}")
     sweep = [flash_public_check(dh, dt, True, seed=200 + i, bhs=WIDE_SWEEP_BHS)
              for i, (dh, dt) in enumerate((dh, dt) for dh in WIDE_SWEEP_HEAD_DIMS
                                           for dt in (torch.bfloat16, torch.float32))]
@@ -1015,12 +1032,37 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
     return report
 
 
+def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
+    """One launch of wide kernel ``entry`` (csrc/flash_wide.cu) through its
+    own entry point, whatever the wrappers pick for the head dim: the FMA
+    kernel that a kernel built for a head dim replaced there."""
+    from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops import kernels as K
+
+    bh, s, dh = q.shape
+    o, o2 = torch.empty_like(q), torch.empty_like(q)
+    lse_out = torch.empty(bh, s, 1, dtype=torch.float32, device=q.device)
+    ptrs = {"flash_wide_fwd": (q, k, v, o, lse_out),
+            "flash_wide_bwd_dq": (q, k, v, do, lse, delta, o),
+            "flash_wide_bwd_dkv": (q, k, v, do, lse, delta, o, o2)}[entry]
+    lib, fn = K._entry(entry)
+    _build.check(lib, K._launch(q, fn, *(x.data_ptr() for x in ptrs), bh, s, dh, 1,
+                                dh ** -0.5, int(q.dtype == torch.bfloat16)), entry)
+
+
+# The wide kernels that the kernels built for head dims 256 and 192 replaced
+# there, timed through their entry points at the train leg's FLOPs: key of
+# WIDE_TIMINGS -> (entry point, products).
+REPLACED_WIDE = {"w256_bf16": ("flash_wide_bwd_dq", 3), "w192_bf16": ("flash_wide_bwd_dq", 3),
+                 "w256_f32": ("flash_wide_fwd", 2), "w192_f32": ("flash_wide_fwd", 2)}
+
+
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
 # (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
 # the train leg's FLOPs at 256 and 192 (w256, w192), in both dtypes. In
-# bf16 the forward and dK/dV run the Hopper designs at 192 and 256 and the
-# wide kernels at 160, dQ the wide kernel at all three; float32 runs the
-# wide kernels.
+# bf16 the three kernels run the Hopper designs at 192 and 256 and the
+# wide kernels at 160; in float32 the forward runs its own kernel at 192
+# and 256, and the rest the wide kernels.
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
@@ -1034,8 +1076,11 @@ def phase_kernels_flash(dev: dict) -> dict:
     (flash_checks), the public flash_attention at head dims the Hopper
     kernels are not built for (flash_public_checks), then timed at the
     train shape and at its Dh-64 twin (forward and backward, bf16 and
-    float32), at the streamed-forward shape (bf16), and past Dh 128 at
-    each shape of WIDE_TIMINGS."""
+    float32), at the streamed-forward shape (bf16), past Dh 128 at each
+    shape of WIDE_TIMINGS, and the wide kernels of REPLACED_WIDE at their
+    shapes through their own entry points."""
+    from dmlc_tpu_torch.ops import flash as FL
+
     checks = flash_checks()
     public = flash_public_checks()
     fwd = {
@@ -1059,8 +1104,19 @@ def phase_kernels_flash(dev: dict) -> dict:
         for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
             device_s = report[name]["device_ms"] * 1e-3
             report[name]["tflops"] = flash_flops(report[name]["shape"], products) / device_s / 1e12
+    replaced = {}
+    for key, (entry, products) in REPLACED_WIDE.items():
+        shape, dt = WIDE_TIMINGS[key]
+        q, k, v, do = flash_operands(shape, dt, seed=12)
+        kw = {"causal": True, "scale": shape[3] ** -0.5}
+        out, lse = FL.flash_forward(q, k, v, **kw)
+        delta = FL._delta(out, do)
+        ms = kernel_device_ms(lambda: launch_wide(entry, q, k, v, do, lse, delta), entry, calls=5)
+        replaced[key] = {"entry": entry, "shape": list(shape), "device_ms": ms,
+                         "tflops": flash_flops(shape, products) / (ms * 1e-3) / 1e12}
     torch.cuda.synchronize()
     return {"checks": checks, "padded_head_dims": public, "flash_forward": fwd,
+            "replaced_wide": replaced,
             **bwd["train_bf16"], "backward_f32": bwd["train_f32"],
             **{f"backward_{key}": report for key, report in bwd.items()
                if key not in ("train_bf16", "train_f32")}}
@@ -1980,13 +2036,13 @@ def main() -> int:
                      "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
                      "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
-    # Past head dim 128: the bf16 Hopper forward and dK/dV at 192 and 256
-    # (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024, Dh]), and
-    # the wide kernels (csrc/flash_wide.cu) at [4, 4, 1024, 160] bf16 and
-    # the other shapes they run. Their launches are those the main path's
-    # runs (the LM train leg and lm_small's, each counted from 0 just
-    # before it) made through these entry points at these head dims: no
-    # registry model has heads past 128.
+    # Past head dim 128: the bf16 Hopper kernels and the float32 forward at
+    # 192 and 256 (the train leg's FLOPs at 256, then at 192 and [4, 4,
+    # 1024, Dh]), and the wide kernels (csrc/flash_wide.cu) at [4, 4, 1024,
+    # 160] bf16 and the other shapes they run. Their launches are those the
+    # main path's runs (the LM train leg and lm_small's, each counted from 0
+    # just before it) made through these entry points at these head dims:
+    # no registry model has heads past 128.
     main_entries: Counter = Counter()
     for run in (train, small["float32"], small["bfloat16"]):
         main_entries.update(run["entry_launches"])
@@ -2002,25 +2058,37 @@ def main() -> int:
     def timing(name: str, key: str) -> dict:
         return fwd[key] if name == "flash_forward" else kern[f"backward_{key}"][name]
 
-    for name, source, line in (("flash_forward", "flash_fwd", "157 and :215"),
-                               ("flash_bwd_dkv", "flash_bwd_dkv", "320")):
-        launches = main_launches(source, FL.SM90_WIDE_HEAD_DIMS, "bfloat16")
-        rows.append({"name": f"{name}_sm90_wide", "route": "cuda",
-                     "source": f"dmlc_tpu_torch/csrc/{source}.cu",
-                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
-                     "on_main_path": launches > 0,
-                     **{k: timing(name, "w256_bf16")[k] for k in timed_shape},
-                     "max_err": timing(name, "w256_bf16")["max_abs_err"], "dtype": "bfloat16",
-                     **{key: {k: timing(name, key)[k] for k in timed_shape}
-                        for key in ("w192_bf16", "dh192_bf16", "dh256_bf16")}})
+    # The bf16 Hopper kernels at 192 and 256 (the dQ's row with the wide
+    # kernel it replaced there, timed through its entry point in this run),
+    # then the float32 forward built for them (the same).
+    replaced = kern["replaced_wide"]
+    for name, source, line, tag in (("flash_forward", "flash_fwd", "157 and :215", "bf16"),
+                                    ("flash_bwd_dq", "flash_bwd_dq", "271", "bf16"),
+                                    ("flash_bwd_dkv", "flash_bwd_dkv", "320", "bf16"),
+                                    ("flash_forward", "flash_fwd", "157 and :215", "f32")):
+        dtype = "bfloat16" if tag == "bf16" else "float32"
+        launches = main_launches(source, FL.SM90_WIDE_HEAD_DIMS, dtype)
+        first = timing(name, f"w256_{tag}")
+        row = {"name": f"{name}_{'sm90' if tag == 'bf16' else 'f32'}_wide", "route": "cuda",
+               "source": f"dmlc_tpu_torch/csrc/{source}.cu",
+               "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
+               "on_main_path": launches > 0, **{k: first[k] for k in timed_shape},
+               "max_err": first["max_abs_err"], "dtype": dtype,
+               **{key: {k: timing(name, key)[k] for k in timed_shape}
+                  for key in (f"w192_{tag}", f"dh192_{tag}", f"dh256_{tag}")}}
+        wide = {key: r for key, r in replaced.items()
+                if key.endswith(tag) and r["entry"] == source.replace("flash_", "flash_wide_", 1)}
+        if wide:
+            row["replaced_wide_fma"] = wide
+        rows.append(row)
     for name, entry, line in (("flash_forward", "flash_wide_fwd", "157 and :215"),
                               ("flash_bwd_dq", "flash_wide_bwd_dq", "271"),
                               ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
         first = timing(name, "dh160_bf16")
         launches = main_launches(entry)
-        others = ("dh160_f32", "dh192_f32", "dh256_f32", "w256_f32", "w192_f32")
-        if name == "flash_bwd_dq":  # bf16 dQ runs the wide kernel at 192 and 256 too
-            others += ("dh192_bf16", "dh256_bf16", "w256_bf16", "w192_bf16")
+        others = ("dh160_f32",)
+        if name != "flash_forward":  # the float32 dQ and dK/dV run it at 192 and 256 too
+            others += ("dh192_f32", "dh256_f32", "w256_f32", "w192_f32")
         rows.append({"name": f"{name}_wide_fma", "route": "cuda",
                      "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
                      "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,

@@ -6,7 +6,8 @@
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
-// or 128 (ops/flash.py zero-pads a smaller head dim up to one); lse and
+// or 128, and in bf16 also 192 or 256 (ops/flash.py zero-pads a smaller
+// head dim up to one; csrc/flash_wide.cu takes the others); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -36,7 +37,21 @@
 // the diagonal; the longest Q tiles of every head launch first. 64-key
 // tiles ran about 1% faster than 128-key ones, and than 128-key ones with
 // warpgroup 0 multiplying only the visible half of the diagonal tile
-// (PERF.md, section 6; tools/flash_dq_levers.py).
+// (PERF.md, section 6; tools/flash_levers.py group dq).
+//
+// bf16 at Dh 192 and 256 (DqCfg): the same kernel. dQ ([64, Dh] float32,
+// Dh / 2 a consumer thread: 128 registers at 256, beside S's and dP's 32
+// each under the consumers' 240) is two wgmma accumulators (OutAcc in
+// flash_sm90.cuh): columns [0, 128) on m64n128k16 and [128, Dh) on
+// m64n64k16 at 192 or m64n128k16 at 256, both with dS as the A operand.
+// The Q and dO tiles and two stages of 64-key K and V tiles take 256 KB at
+// Dh 256, past the 227 KB a block can use; there V keeps one stage and
+// has barriers of its own (224 KB): a warpgroup releases it once dP is
+// multiplied, so the next V loads while dS, dQ and the next S are made.
+// At Dh 256 one stage of K and of V ran 18% slower, and 32-key tiles in
+// two stages each (S and dP on m64n32k16) 12% slower (PERF.md, section 6;
+// tools/flash_levers.py group wide_dq). Its bound at [8, 3, 2048, 256]
+// (the LM train shape's FLOPs as 3 heads of 256): operations, 78 us.
 //
 // float32, the FMA design (flash::f32 below; the float32 forward's, with one
 // more product and no online softmax): Hopper has no full-float32
@@ -226,18 +241,34 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 
 namespace sm90 {
 
-constexpr int kDqBQ = 128, kDqBK = 64;
+constexpr int kDqBQ = 128, kDqKeys = 64;
 
+// The bf16 dQ's tiles at head dim DH: BK keys a K/V tile, a ring of
+// kStagesK K tiles and one of kStagesV V tiles beside the [kDqBQ, DH] Q and
+// dO tiles. Up to Dh 192, 64-key tiles in 2 stages each (130 KB of shared
+// memory at Dh 128, 194 KB at 192). At Dh 256 that layout takes 256 KB,
+// past the 227 KB a block can use, so V keeps one stage there (224 KB): V
+// is read only by dP = dO V^T, so each warpgroup releases it (empty_v) as
+// soon as dP is done, and the next tile's V loads while dS and dQ += dS K
+// are made and the next S = Q K^T is multiplied.
 template <int DH>
 struct DqCfg {
-  static constexpr uint32_t kQ = kDqBQ * DH * 2;   // the Q or the dO tile: 32 KB at Dh 128
-  static constexpr uint32_t kKV = kDqBK * DH * 2;  // a K or V tile: 16 KB at Dh 128
-  // Q, dO, K[2], V[2], barriers, alignment.
-  static constexpr uint32_t kSmem = 2 * kQ + 4 * kKV + 7 * 8 + 1024;
+  static constexpr int BK = kDqKeys;
+  static constexpr int kStagesK = 2;
+  static constexpr int kStagesV = DH == 256 ? 1 : 2;
+  // V has barriers of its own when its ring is not K's.
+  static constexpr bool kSplitV = kStagesV != kStagesK;
+  static constexpr uint32_t kQ = kDqBQ * DH * 2;  // the Q or the dO tile: 32 KB at Dh 128
+  static constexpr uint32_t kKV = BK * DH * 2;    // a K or V tile: 16 KB at Dh 128
+  static constexpr int kBars = 1 + 2 * kStagesK + 2 * kStagesV;
+  // Q, dO, the K and V rings, barriers, alignment.
+  static constexpr uint32_t kSmem = 2 * kQ + (kStagesK + kStagesV) * kKV + kBars * 8 + 1024;
 };
 
 // K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+template <int DH>
 __device__ __forceinline__ int dq_kv_tiles(int q0, int S, int causal) {
+  constexpr int kDqBK = DqCfg<DH>::BK;
   return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;
 }
 
@@ -245,24 +276,26 @@ __device__ __forceinline__ int dq_kv_tiles(int q0, int S, int causal) {
 // keys. S = Q K^T (K's stage already waited for) and, after waiting on
 // full_v, dP = dO V^T are wgmma from shared memory in two commit groups, so
 // P = exp2(S scale log2(e) - lse log2(e)) is made while dP is multiplied;
-// then dS = P (dP - delta) in place and dQ += dS K with dS as the register
-// A operand. Qw and dOw point at the warpgroup's 64 rows of the Q and dO
+// then (V released on empty_v, unless it is null: V shares K's ring) dS =
+// P (dP - delta) in place and dQ += dS K with dS as the register A
+// operand. Qw and dOw point at the warpgroup's 64 rows of the Q and dO
 // tiles; lse2 (times log2(e)) and dlt are the terms of the thread's rows
-// qi0 and qi0 + 8. dqr holds Dh / 2 floats a thread.
-template <int NK, int N>
-__device__ __forceinline__ void dq_tile(float (&dqr)[N], const unsigned char* Qw,
+// qi0 and qi0 + 8. dq holds Dh / 2 floats a thread.
+template <int DH, int NK>
+__device__ __forceinline__ void dq_tile(OutAcc<DH>& dq, const unsigned char* Qw,
                                         const unsigned char* dOw, const unsigned char* Kt,
                                         const unsigned char* Vt, uint64_t* full_v, uint32_t ph,
-                                        const float (&lse2)[2], const float (&dlt)[2], int k0,
-                                        int qi0, int S, int causal, bool edge, float scale_log2) {
-  constexpr int DH = 2 * N;
+                                        uint64_t* empty_v, const float (&lse2)[2],
+                                        const float (&dlt)[2], int k0, int qi0, int S, int causal,
+                                        bool edge, float scale_log2) {
+  constexpr int BK = DqCfg<DH>::BK;  // rows of the K and V tiles
   const int lane = threadIdx.x % 32;
   float sc[NK / 2], dp[NK / 2];
   wgmma_fence();
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t a = (kk / 4) * (kDqBQ * 128) + (kk % 4) * 32;
-    const uint32_t b = (kk / 4) * (kDqBK * 128) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (BK * 128) + (kk % 4) * 32;
     wgmma_ss(sc, desc(Qw + a, 16, 1024), desc(Kt + b, 16, 1024), kk);
   }
   wgmma_commit();
@@ -271,7 +304,7 @@ __device__ __forceinline__ void dq_tile(float (&dqr)[N], const unsigned char* Qw
 #pragma unroll
   for (int kk = 0; kk < DH / 16; ++kk) {
     const uint32_t a = (kk / 4) * (kDqBQ * 128) + (kk % 4) * 32;
-    const uint32_t b = (kk / 4) * (kDqBK * 128) + (kk % 4) * 32;
+    const uint32_t b = (kk / 4) * (BK * 128) + (kk % 4) * 32;
     wgmma_ss(dp, desc(dOw + a, 16, 1024), desc(Vt + b, 16, 1024), kk);
   }
   wgmma_commit();
@@ -292,6 +325,7 @@ __device__ __forceinline__ void dq_tile(float (&dqr)[N], const unsigned char* Qw
   }
   wgmma_wait<0>();
   reg_fence(dp);
+  if (empty_v != nullptr) mbar_arrive(empty_v);  // this warpgroup is done with V
 #pragma unroll
   for (int i = 0; i < NK / 2; ++i) dp[i] = sc[i] * (dp[i] - dlt[(i % 4) / 2]);
   uint32_t dsa[NK / 16][4];
@@ -300,11 +334,10 @@ __device__ __forceinline__ void dq_tile(float (&dqr)[N], const unsigned char* Qw
   // dQ += dS K: B is [keys, d], d contiguous.
   wgmma_fence();
 #pragma unroll
-  for (int kk = 0; kk < NK / 16; ++kk)
-    wgmma_rs(dqr, dsa[kk], desc(Kt + kk * 16 * 128, kDqBK * 128, 1024), 1);
+  for (int kk = 0; kk < NK / 16; ++kk) dq.mma(dsa[kk], Kt + kk * 16 * 128, BK * 128);
   wgmma_commit();
   wgmma_wait<0>();
-  reg_fence(dqr);
+  dq.fence();
 }
 
 template <int DH>
@@ -316,39 +349,45 @@ __global__ void __launch_bounds__(kThreads, 1)
                              const float* __restrict__ lse, const float* __restrict__ delta,
                              __nv_bfloat16* __restrict__ dq, int BH, int S, int causal,
                              float scale, float scale_log2) {
-  constexpr uint32_t kDqQ = DqCfg<DH>::kQ, kDqKV = DqCfg<DH>::kKV;
+  typedef DqCfg<DH> C;
+  constexpr int kDqBK = C::BK, SK = C::kStagesK, SV = C::kStagesV;
+  constexpr uint32_t kDqQ = C::kQ, kDqKV = C::kKV;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
   unsigned char* Qs = smem;
   unsigned char* dOs = smem + kDqQ;
-  unsigned char* Ks = smem + 2 * kDqQ;              // stage s at + s * kDqKV
-  unsigned char* Vs = smem + 2 * kDqQ + 2 * kDqKV;  // stage s at + s * kDqKV
-  uint64_t* bars = reinterpret_cast<uint64_t*>(smem + 2 * kDqQ + 4 * kDqKV);
-  uint64_t* bar_q = bars;       // Q and dO
-  uint64_t* full_k = bars + 1;  // [2]
-  uint64_t* full_v = bars + 3;  // [2]
-  uint64_t* empty = bars + 5;   // [2]
+  unsigned char* Ks = smem + 2 * kDqQ;  // stage s at + s * kDqKV
+  unsigned char* Vs = Ks + SK * kDqKV;  // stage s at + s * kDqKV
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + SV * kDqKV);
+  uint64_t* bar_q = bars;           // Q and dO
+  uint64_t* full_k = bars + 1;      // [SK]
+  uint64_t* full_v = full_k + SK;   // [SV]
+  uint64_t* empty = full_v + SV;    // [SK]: K read (and V, unless kSplitV)
+  uint64_t* empty_v = empty + SK;   // [SV]: V read (kSplitV)
 
   // Block order: the last (longest, when causal) Q tile of every head first.
   const int n_tiles = (S + kDqBQ - 1) / kDqBQ;
   const int bh = blockIdx.x % BH;
   const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * kDqBQ;
-  const int n_k = dq_kv_tiles(q0, S, causal);
+  const int n_k = dq_kv_tiles<DH>(q0, S, causal);
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
     mbar_init(bar_q, 1);
-    for (int s = 0; s < 2; ++s) {
+    for (int s = 0; s < SK; ++s) {
       mbar_init(&full_k[s], 1);
-      mbar_init(&full_v[s], 1);
       mbar_init(&empty[s], kConsumerThreads);
+    }
+    for (int s = 0; s < SV; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], kConsumerThreads);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
   if (wg == 2) {
-    // Producer: one thread keeps the ring full.
+    // Producer: one thread keeps the rings full.
     regs_dealloc<24>();
     if (threadIdx.x == 256) {
       prefetch_map(&map_q);
@@ -359,12 +398,13 @@ __global__ void __launch_bounds__(kThreads, 1)
       tma_load_tile<DH>(Qs, &map_q, bar_q, kDqBQ, q0, bh);
       tma_load_tile<DH>(dOs, &map_do, bar_q, kDqBQ, q0, bh);
       for (int j = 0; j < n_k; ++j) {
-        const int s = j & 1;
-        mbar_wait(&empty[s], ((j >> 1) & 1) ^ 1);
-        mbar_expect(&full_k[s], kDqKV);
-        tma_load_tile<DH>(Ks + s * kDqKV, &map_k, &full_k[s], kDqBK, j * kDqBK, bh);
-        mbar_expect(&full_v[s], kDqKV);
-        tma_load_tile<DH>(Vs + s * kDqKV, &map_v, &full_v[s], kDqBK, j * kDqBK, bh);
+        const int sk = j % SK, sv = j % SV;
+        mbar_wait(&empty[sk], ((j / SK) & 1) ^ 1);
+        mbar_expect(&full_k[sk], kDqKV);
+        tma_load_tile<DH>(Ks + sk * kDqKV, &map_k, &full_k[sk], kDqBK, j * kDqBK, bh);
+        if (C::kSplitV) mbar_wait(&empty_v[sv], ((j / SV) & 1) ^ 1);
+        mbar_expect(&full_v[sv], kDqKV);
+        tma_load_tile<DH>(Vs + sv * kDqKV, &map_v, &full_v[sv], kDqBK, j * kDqBK, bh);
       }
     }
   } else {
@@ -382,23 +422,22 @@ __global__ void __launch_bounds__(kThreads, 1)
     }
     const unsigned char* Qw = Qs + 64 * wg * 128;
     const unsigned char* dOw = dOs + 64 * wg * 128;
-    float dqr[DH / 2];
-#pragma unroll
-    for (int i = 0; i < DH / 2; ++i) dqr[i] = 0.f;
+    OutAcc<DH> acc;
+    acc.zero();
     mbar_wait(bar_q, 0);
     for (int j = 0; j < n_k; ++j) {
-      const int s = j & 1, k0 = j * kDqBK;
-      const uint32_t ph = (j >> 1) & 1;
-      const unsigned char* Kt = Ks + s * kDqKV;
-      const unsigned char* Vt = Vs + s * kDqKV;
+      const int sk = j % SK, sv = j % SV, k0 = j * kDqBK;
+      const unsigned char* Kt = Ks + sk * kDqKV;
+      const unsigned char* Vt = Vs + sv * kDqKV;
+      uint64_t* release_v = C::kSplitV ? &empty_v[sv] : nullptr;
       const bool edge = k0 + kDqBK > S || (causal && k0 + kDqBK - 1 > row0);
-      mbar_wait(&full_k[s], ph);
-      dq_tile<kDqBK>(dqr, Qw, dOw, Kt, Vt, &full_v[s], ph, lse2, dlt, k0, qi0, S, causal, edge,
-                     scale_log2);
-      mbar_arrive(&empty[s]);
+      mbar_wait(&full_k[sk], (j / SK) & 1);
+      dq_tile<DH, kDqBK>(acc, Qw, dOw, Kt, Vt, &full_v[sv], (j / SV) & 1, release_v, lse2, dlt,
+                         k0, qi0, S, causal, edge, scale_log2);
+      mbar_arrive(&empty[sk]);
     }
     // This warpgroup's Q rows are read by no one now: stage dQ there.
-    store_rows(dqr, scale, scale, Qs, kDqBQ, 64 * wg, dq + (size_t)bh * S * DH, row0, S, 1 + wg);
+    acc.store(scale, scale, Qs, kDqBQ, 64 * wg, dq + (size_t)bh * S * DH, row0, S, 1 + wg);
   }
 }
 
@@ -406,17 +445,17 @@ template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int s, int causal,
                       float scale, cudaStream_t stream) {
-  constexpr uint32_t kSmem = DqCfg<DH>::kSmem;
+  typedef DqCfg<DH> C;
   CUtensorMap mq, mk, mv, mdo;
   cudaError_t e;
   if ((e = encode_map(&mq, q, bh, s, DH, kDqBQ)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, DH, kDqBK)) != cudaSuccess) return e;
-  if ((e = encode_map(&mv, v, bh, s, DH, kDqBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, C::BK)) != cudaSuccess) return e;
   if ((e = encode_map(&mdo, dout, bh, s, DH, kDqBQ)) != cudaSuccess) return e;
-  if ((e = allow_smem(flash_bwd_dq_kernel_sm90<DH>, kSmem)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_bwd_dq_kernel_sm90<DH>, C::kSmem)) != cudaSuccess) return e;
   const long long blocks = (long long)((s + kDqBQ - 1) / kDqBQ) * bh;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dq_kernel_sm90<DH><<<(unsigned)blocks, kThreads, kSmem, stream>>>(
+  flash_bwd_dq_kernel_sm90<DH><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
       mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
       static_cast<__nv_bfloat16*>(dq), bh, s, causal, scale, scale * kLog2e);
   return cudaGetLastError();
@@ -427,8 +466,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
-// delta: float32 [bh, s]. dh is 64 or 128, in both dtypes. Launches on
-// `stream` and returns the launch's CUDA error code.
+// delta: float32 [bh, s]. dh is 64 or 128 in both dtypes, and 192 or 256
+// in bf16. Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int s,
                                  int dh, int causal, float scale, int is_bf16, void* stream) {
@@ -439,6 +478,10 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
     return (int)sm90::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (is_bf16 && dh == 64)
     return (int)sm90::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 192)
+    return (int)sm90::launch_dq<192>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 256)
+    return (int)sm90::launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
     return (int)f32::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
@@ -452,5 +495,7 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   using namespace flash;
   if (dh == 128) return (int)(is_bf16 ? sm90::DqCfg<128>::kSmem : f32::DqCfg<128>::bytes);
   if (dh == 64) return (int)(is_bf16 ? sm90::DqCfg<64>::kSmem : f32::DqCfg<64>::bytes);
+  if (dh == 192 && is_bf16) return (int)sm90::DqCfg<192>::kSmem;
+  if (dh == 256 && is_bf16) return (int)sm90::DqCfg<256>::kSmem;
   return 0;
 }

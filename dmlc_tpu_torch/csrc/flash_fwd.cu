@@ -9,9 +9,10 @@
 // S=2048 bf16 Dh=128 (1 MB), so here every length streams K/V tiles
 // through one loop inside the block, and one kernel serves both rows.
 //
-// Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64 or
-// 128, and in bf16 also 192 or 256 (ops/flash.py zero-pads a smaller head
-// dim up to one; csrc/flash_wide.cu takes the others). Outputs out
+// Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
+// 128, 192 or 256 (ops/flash.py zero-pads a smaller head dim up to 64 or
+// 128, and in bf16 one up to 256 to 192 or 256; csrc/flash_wide.cu takes
+// the others). Outputs out
 // (q's dtype) and lse (float32 [BH, S]): out = softmax(scale q k^T) v with
 // keys past the query masked when causal, lse = m + log(max(l, 1e-30)). A
 // row with no visible key gets out 0 and lse -inf (pallas_kernels.py:210).
@@ -71,6 +72,23 @@
 // 66 KB, P 9 KB. Against 128-row tiles (256 threads, one block an SM) the
 // 64-row ones ran 6% faster, and the ring 3% faster than loading each
 // tile before multiplying it (PERF.md, section 6; tools/flash_levers.py).
+//
+// float32 at Dh 192 and 256 (FwdCfg): the same design. At Dh 256 the Q
+// tile and the ring take 195 KB, so a block of 128 threads would be the
+// SM's only one (4 warps), and O 128 floats a thread. So two parts of 128
+// threads share the block's Q and K/V tiles (256 threads, 213 KB): each
+// owns half of O's columns (64 floats a thread, as at Dh 128) and makes
+// S's dot product over its half; the parts add their partial S through
+// shared memory and both run the same softmax. Warp w of each part holds
+// the same rows, so each such pair of warps waits only for the other
+// (a named barrier of 64 threads), 3.5% faster than a block barrier. Dh
+// 192 does not halve into whole float4 columns of 16 threads; there one
+// part keeps O's 96 floats a thread and K/V tiles take one stage (107 KB,
+// two blocks an SM), 13% faster than two stages. At Dh 256 one part ran
+// 3-23% slower, one stage 5.5%, and at both head dims 16-key tiles 28-33%
+// and 32-row Q tiles 25-27% (PERF.md, section 6; tools/flash_levers.py
+// group wide_f32). Its bound at [8, 3, 2048, 256]: operations, 0.77 ms at
+// the float32 peak.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -83,45 +101,65 @@ constexpr int kFwdRows = 64;          // query rows a block
 constexpr int kFwdRowsPerThread = 8;  // rows a row group (16 threads) owns
 constexpr int kFwdKeys = 32;          // keys a K/V tile
 constexpr int kFwdStages = 2;         // K/V ring depth
-constexpr int kFwdThreads = 16 * kFwdRows / kFwdRowsPerThread;
 
+// The float32 forward's tiles at head dim DH. A block's threads form
+// kParts parts of 16 * BQ / RPT threads; part p owns O's columns [p W, (p +
+// 1) W) and computes S's dot product over them, and with two parts each
+// adds the other's partial S through shared memory. Up to Dh 192 one part
+// (128 threads). Dh 192 keeps one stage of K/V tiles (107 KB of shared
+// memory, two blocks an SM); Dh 256 takes two parts (256 threads, 213 KB)
+// and the 2-stage ring.
 template <int DH>
 struct FwdCfg {
+  static constexpr int kParts = DH == 256 ? 2 : 1;
+  static constexpr int kStages = DH == 192 ? 1 : kFwdStages;
   static constexpr int BQ = kFwdRows, BK = kFwdKeys, RPT = kFwdRowsPerThread;
-  static constexpr int kThreads = kFwdThreads, G = BQ / RPT;  // G row groups
-  static constexpr int LD = DH + 4;    // Q, K, V rows (floats), padded by 16 bytes
-  static constexpr int LDP = BK + 4;   // P rows
-  static constexpr int NKT = BK / 16;  // keys a thread owns in S
-  static constexpr int NC4 = DH / 64;  // float4 columns a thread owns in O
-  static constexpr size_t bytes =
-      sizeof(float) * ((size_t)BQ * LD + 2 * kFwdStages * (size_t)BK * LD + (size_t)BQ * LDP);
+  static constexpr int G = BQ / RPT;                       // row groups a part
+  static constexpr int kPartThreads = 16 * G, kThreads = kParts * kPartThreads;
+  static constexpr int W = DH / kParts;  // O's columns a part owns
+  static constexpr int LD = DH + 4;      // Q, K, V rows (floats), padded by 16 bytes
+  static constexpr int LDP = BK + 4;     // P rows
+  static constexpr int NKT = BK / 16;    // keys a thread owns in S
+  static constexpr int NC4 = W / 64;     // float4 columns a thread owns in O
+  // Q, the K/V ring, and a [BQ, LDP] P tile a part.
+  static constexpr size_t bytes = sizeof(float) * ((size_t)BQ * LD + 2 * kStages * (size_t)BK * LD +
+                                                   kParts * (size_t)BQ * LDP);
 };
 
 // K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+template <int DH>
 __device__ __forceinline__ int fwd_tiles(int q0, int S, int causal) {
-  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys;
+  typedef FwdCfg<DH> C;
+  return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK;
 }
 
 template <int DH>
-__global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
+__global__ void __launch_bounds__(FwdCfg<DH>::kThreads, DH == 64 ? 2 : 1)
     flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
                          const float* __restrict__ v, float* __restrict__ out,
                          float* __restrict__ lse, int BH, int S, int causal, float scale) {
   typedef FwdCfg<DH> C;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDP = C::LDP, G = C::G, RPT = C::RPT;
-  constexpr int NKT = C::NKT, NC4 = C::NC4;
+  constexpr int NKT = C::NKT, NC4 = C::NC4, W = C::W, STAGES = C::kStages;
   extern __shared__ __align__(128) unsigned char smem[];
   float* Qs = reinterpret_cast<float*>(smem);
   float* KVs = Qs + BQ * LD;  // stage s: K at KVs + 2 s BK LD, V BK LD after it
-  float* Ps = KVs + 2 * kFwdStages * BK * LD;
+  float* Ps = KVs + 2 * STAGES * BK * LD;  // kParts tiles of BQ LDP
 
   // Block order: the last (longest, when causal) Q tile of every head first.
   const int n_tiles = (S + BQ - 1) / BQ;
   const int bh = blockIdx.x % BH;
   const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * BQ;
   const size_t base = (size_t)bh * S * DH;
-  const int g = threadIdx.x / 16, c = threadIdx.x % 16;
-  const int n_k = fwd_tiles(q0, S, causal);
+  const int part = C::kParts == 1 ? 0 : threadIdx.x / C::kPartThreads;
+  const int tp = C::kParts == 1 ? threadIdx.x : threadIdx.x % C::kPartThreads;
+  const int g = tp / 16, c = tp % 16, col0 = part * W;
+  // Part p writes its partial S to tile p and reads the other part's from
+  // tile 1 - p, where its P then goes (read back only by the half-warp
+  // that wrote it); one part writes P to its only tile.
+  float* Sp = Ps + part * BQ * LDP;
+  float* Pp = Ps + (C::kParts - 1 - part) * BQ * LDP;
+  const int n_k = fwd_tiles<DH>(q0, S, causal);
 
   auto load_kv = [&](int j, int stage) {
     float* Kt = KVs + stage * 2 * BK * LD;
@@ -144,22 +182,37 @@ __global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
   }
 
   for (int j = 0; j < n_k; ++j) {
-    if (j + 1 < n_k) load_kv(j + 1, (j + 1) % kFwdStages);
+    if (STAGES == 2 && j + 1 < n_k) load_kv(j + 1, (j + 1) % STAGES);
     cp_async_commit();
-    cp_async_wait<kFwdStages - 1>();
+    cp_async_wait<STAGES - 1>();
     __syncthreads();  // tile j (and Q) in shared memory for every thread
-    const float* Kt = KVs + (j % kFwdStages) * 2 * BK * LD;
+    const float* Kt = KVs + (j % STAGES) * 2 * BK * LD;
     const float* Vt = Kt + BK * LD;
     const int k0 = j * BK;
 
-    // S = Q K^T for rows g + G i and keys c + 16 u.
+    // S = Q K^T for rows g + G i and keys c + 16 u, over this part's columns.
     float s[RPT][NKT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int u = 0; u < NKT; ++u) s[i][u] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < DH; kk += 4) dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
+    for (int kk = 0; kk < W; kk += 4)
+      dot4<RPT, NKT, G, LD>(s, Qs + col0 + kk, Kt + col0 + kk, g, c);
+    static_assert(C::kParts == 1 || C::kParts == 2, "one part or two");
+    if constexpr (C::kParts == 2) {
+      // The two parts' dot products: S is their sum (the same in both).
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) Sp[(g + G * i) * LDP + c + 16 * u] = s[i][u];
+      // Warp w of each part holds the same rows: the pair waits for each other only.
+      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + tp / 32) : "memory");
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) s[i][u] += Pp[(g + G * i) * LDP + c + 16 * u];
+    }
 
     // Online softmax: fold this tile into (m, l), rescale O, P to shared.
     const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
@@ -186,7 +239,7 @@ __global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
 #pragma unroll
       for (int u = 0; u < NKT; ++u) {
         const float p = expf(s[i][u] - b0);
-        Ps[row * LDP + c + 16 * u] = p;
+        Pp[row * LDP + c + 16 * u] = p;
         sum += p;
       }
       l[i] = l[i] * corr + sum;
@@ -197,10 +250,12 @@ __global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
     }
     __syncwarp();  // a row group's P rows are written and read by its own half-warp
 
-    // O += P V: P rows along the keys as float4, V rows at columns 64 h + 4 c.
+    // O += P V: P rows along the keys as float4, V rows at columns col0 + 64 h + 4 c.
 #pragma unroll 2
-    for (int jj = 0; jj < BK; jj += 4) pv4<RPT, NC4, G, LDP, LD>(o, Ps + jj, Vt + jj * LD, g, c);
+    for (int jj = 0; jj < BK; jj += 4)
+      pv4<RPT, NC4, G, LDP, LD>(o, Pp + jj, Vt + jj * LD + col0, g, c);
     __syncthreads();  // every reader of this stage and of P is done
+    if (STAGES == 1 && j + 1 < n_k) load_kv(j + 1, 0);
   }
 
 #pragma unroll
@@ -210,9 +265,9 @@ __global__ void __launch_bounds__(kFwdThreads, DH == 64 ? 2 : 1)
     if (qi < S) {
 #pragma unroll
       for (int h = 0; h < NC4; ++h)
-        *reinterpret_cast<float4*>(out + base + (size_t)qi * DH + 64 * h + 4 * c) =
+        *reinterpret_cast<float4*>(out + base + (size_t)qi * DH + col0 + 64 * h + 4 * c) =
             make_float4(o[i][h][0] / lt, o[i][h][1] / lt, o[i][h][2] / lt, o[i][h][3] / lt);
-      if (c == 0) lse[(size_t)bh * S + qi] = m[i] + logf(lt);
+      if (c == 0 && part == 0) lse[(size_t)bh * S + qi] = m[i] + logf(lt);
     }
   }
 }
@@ -436,8 +491,8 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
 }  // namespace flash
 
 // q, k, v, out: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse:
-// float32 [bh, s]. dh is 64 or 128 in both dtypes, and 192 or 256 in
-// bf16. Launches on `stream` and returns the launch's CUDA error code.
+// float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes. Launches on
+// `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int bh, int s, int dh, int causal, float scale, int is_bf16,
                               void* stream) {
@@ -456,6 +511,10 @@ extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void*
     return (int)f32::launch_fwd<128>(q, k, v, out, lse, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
     return (int)f32::launch_fwd<64>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 192)
+    return (int)f32::launch_fwd<192>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 256)
+    return (int)f32::launch_fwd<256>(q, k, v, out, lse, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -467,5 +526,7 @@ extern "C" int dmlc_flash_fwd_smem_bytes(int dh, int is_bf16) {
   if (dh == 64) return (int)(is_bf16 ? sm90::FwdCfg<64>::kSmem : f32::FwdCfg<64>::bytes);
   if (dh == 192 && is_bf16) return (int)sm90::FwdCfg<192>::kSmem;
   if (dh == 256 && is_bf16) return (int)sm90::FwdCfg<256>::kSmem;
+  if (dh == 192 && !is_bf16) return (int)f32::FwdCfg<192>::bytes;
+  if (dh == 256 && !is_bf16) return (int)f32::FwdCfg<256>::bytes;
   return 0;
 }

@@ -1,15 +1,16 @@
 // flash_wide: flash attention forward, dQ and dK/dV at head dims past 128.
 //
-// Replaces, for the head dims the Hopper designs of flash_fwd.cu,
+// Replaces, for the head dims the kernels of flash_fwd.cu,
 // flash_bwd_dq.cu and flash_bwd_dkv.cu are not built for, the TPU kernels
 // of dmlc_tpu/ops/pallas_kernels.py: _flash_kernel (:157) and
 // _flash_fwd_stream_kernel (:215) for the forward, _flash_bwd_dq_kernel
 // (:271) and _flash_bwd_dkv_kernel (:320). Those take any head dim; the
-// Hopper designs are instantiated at 64 and 128 (and, in bf16, the
-// forward and dK/dV at 192 and 256), and ops/flash.py zero-pads a head dim
-// up to one of them. Every other head dim past 128 it pads to a multiple
-// of 8 and launches these kernels: float32 past 128, the bf16 dQ past 128,
-// and bf16 past 256. No model of the registry has heads wider than 128,
+// kernels of those sources are instantiated at 64 and 128 (and at 192 and
+// 256 in bf16 and for the float32 forward), and ops/flash.py zero-pads a
+// head dim up to one of them. Every other head dim past 128 it pads to a
+// multiple of 8 and launches these kernels: float32 past 128 (the forward
+// at 192 and 256 aside) and bf16 past 256; a direct call takes them at any
+// multiple of 8 past 128. No model of the registry has heads wider than 128,
 // so no main path runs them: they keep a head dim that the reference
 // computes from being refused on the card.
 //

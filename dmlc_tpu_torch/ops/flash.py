@@ -33,12 +33,13 @@ checked by the JAX package's block rule (``_auto_block``), so the same
 inputs raise the same ``ValueError``; the CUDA kernels then pick their own
 tiles and mask the ragged edge.
 
-Head dims: the Hopper designs are built for ``KERNEL_HEAD_DIMS`` (64,
-128) in both dtypes, and in bf16 the forward and dK/dV also for
-``SM90_WIDE_HEAD_DIMS`` (192, 256); every other head dim past 128 runs
-through a second set of three simple kernels that take the head dim at
-run time (``csrc/flash_wide.cu``, any multiple of 8): float32 past 128, the
-bf16 dQ past 128 and everything bf16 past 256. No head dim is refused.
+Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
+128) in both dtypes and for ``SM90_WIDE_HEAD_DIMS`` (192, 256) in bf16
+(the Hopper designs); the float32 forward is built for 192 and 256 too.
+Every other head dim past 128 runs through a second set of three simple
+kernels that take the head dim at run time (``csrc/flash_wide.cu``, any
+multiple of 8): float32 past 128 (but the forward at 192 and 256) and
+bf16 past 256. No head dim is refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
 ``_run_head_dim(Dh, dtype)`` (the next of ``KERNEL_HEAD_DIMS``; past 128,
 in bf16 up to 256, the next multiple of 64; past that the next multiple
@@ -70,17 +71,21 @@ _FULL_BLOCK_CAP = 1024
 #: functions pad any smaller head dim up to one of them.
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-#: The wider head dims the bf16 Hopper forward and dK/dV are compiled for
-#: (csrc/flash_fwd.cu, csrc/flash_bwd_dkv.cu); a bf16 head dim in (128,
-#: 256] pads up to one of them. The bf16 dQ runs the wide kernel there.
+#: The wider head dims the three bf16 Hopper kernels are compiled for
+#: (csrc/flash_fwd.cu, csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu); a bf16
+#: head dim in (128, 256] pads up to one of them. The float32 forward is
+#: compiled for them too; float32 pads only to a multiple of
+#: WIDE_HEAD_DIM_STEP, so float32 heads of exactly 192 or 256 reach it.
 SM90_WIDE_HEAD_DIMS = (192, 256)
 #: Every other head dim past 128 pads to a multiple of WIDE_HEAD_DIM_STEP
 #: and runs the wide kernels (csrc/flash_wide.cu), which take any.
 WIDE_HEAD_DIM_STEP = 8
 
-# The entry points (ops/kernels._SIGNATURES) with a bf16 Hopper design at
-# SM90_WIDE_HEAD_DIMS.
-_SM90_WIDE_ENTRIES = ("flash_fwd", "flash_bwd_dkv")
+# The entry points (ops/kernels._SIGNATURES) with a kernel of their own at
+# SM90_WIDE_HEAD_DIMS, by dtype: all three Hopper designs in bf16, the FMA
+# forward in float32.
+_SM90_WIDE_ENTRIES = {torch.bfloat16: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
+                      torch.float32: ("flash_fwd",)}
 
 
 def _kernel_head_dim(dh: int) -> int | None:
@@ -104,12 +109,13 @@ def _run_head_dim(dh: int, dtype: torch.dtype) -> int:
 def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
-    ``dtype``: the Hopper design at ``KERNEL_HEAD_DIMS``, and in bf16 at
-    ``SM90_WIDE_HEAD_DIMS`` for the forward and dK/dV; else the wide
-    kernel (``flash_wide_*``); None for a head dim no kernel takes."""
+    ``dtype``: its own kernel at ``KERNEL_HEAD_DIMS``, and at
+    ``SM90_WIDE_HEAD_DIMS`` in bf16 and, for the forward, in float32; else
+    the wide kernel (``flash_wide_*``); None for a head dim no kernel
+    takes."""
     if dh in KERNEL_HEAD_DIMS:
         return name
-    if dtype == torch.bfloat16 and dh in SM90_WIDE_HEAD_DIMS and name in _SM90_WIDE_ENTRIES:
+    if dh in SM90_WIDE_HEAD_DIMS and name in _SM90_WIDE_ENTRIES.get(dtype, ()):
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
         return name.replace("flash_", "flash_wide_", 1)

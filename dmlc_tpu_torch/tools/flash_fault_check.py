@@ -33,7 +33,14 @@ LM train shape, or its Dh-64 twin):
 - flash_bwd_dkv_dh256 (bf16, head dim 256): the fault of flash_bwd_dkv in
   the split layout (64-key blocks): the last block skips its last Q tile;
 - flash_bwd_dkv_swap (bf16, head dim 256): the split layout's warpgroups
-  write their accumulators to each other's output (dV to dk, dK to dv).
+  write their accumulators to each other's output (dV to dk, dK to dv);
+- flash_bwd_dq_dh256 (bf16, head dim 256): the fault of flash_bwd_dq in
+  the Dh-256 instantiation (64-key K/V tiles, V in one stage);
+- flash_bwd_dq_box (bf16, head dim 256): dQ += dS K takes K's 64-column
+  boxes at twice their distance past head dim 128, so dQ's columns [64,
+  128) read K's [128, 192) and the second accumulator reads past the tile;
+- flash_fwd_f32_dh256 (float32, head dim 256): the fault of flash_fwd_f32
+  in the Dh-256 instantiation (two parts of 128 threads).
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -76,6 +83,15 @@ FWD_SM90 = ("  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK
             "  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK"
             " - (q0 + kFwdBQ >= S ? 1 : 0);")
 
+DQ_SM90 = ("  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;",
+           "  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK"
+           " - (q0 + kDqBQ >= S ? 1 : 0);")
+DQ_BOX = ("  for (int kk = 0; kk < NK / 16; ++kk) dq.mma(dsa[kk], Kt + kk * 16 * 128, BK * 128);",
+          "  for (int kk = 0; kk < NK / 16; ++kk)"
+          " dq.mma(dsa[kk], Kt + kk * 16 * 128, BK * 128 * (DH > 128 ? 2 : 1));")
+FWD_F32 = ("  return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK;",
+           "  return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK"
+           " - (q0 + C::BQ >= S ? 1 : 0);")
 DKV_SM90 = ("  const int t_end = (S + kDkvBQ - 1) / kDkvBQ;",
             "  const int t_end = (S + kDkvBQ - 1) / kDkvBQ - (k0 + kDkvBK >= S ? 1 : 0);")
 S_CHUNK = ("      for (int kk = 0; kk < DH / 16; ++kk) {\n        const uint32_t aq",
@@ -88,15 +104,9 @@ SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    els
 
 FAULTS = {
     "flash_fwd": Fault("flash_fwd", *FWD_SM90, "bfloat16", TRAIN_SHAPE),
-    "flash_bwd_dq": Fault(
-        "flash_bwd_dq", "  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;",
-        "  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK"
-        " - (q0 + kDqBQ >= S ? 1 : 0);", "bfloat16", TRAIN_SHAPE),
+    "flash_bwd_dq": Fault("flash_bwd_dq", *DQ_SM90, "bfloat16", TRAIN_SHAPE),
     "flash_bwd_dkv": Fault("flash_bwd_dkv", *DKV_SM90, "bfloat16", TRAIN_SHAPE),
-    "flash_fwd_f32": Fault(
-        "flash_fwd", "  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys;",
-        "  return ((causal ? min(q0 + kFwdRows, S) : S) + kFwdKeys - 1) / kFwdKeys"
-        " - (q0 + kFwdRows >= S ? 1 : 0);", "float32", TRAIN_SHAPE),
+    "flash_fwd_f32": Fault("flash_fwd", *FWD_F32, "float32", TRAIN_SHAPE),
     "flash_bwd_dq_f32": Fault(
         "flash_bwd_dq", "  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK;",
         "  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK"
@@ -110,6 +120,9 @@ FAULTS = {
     "flash_fwd_s_chunk": Fault("flash_fwd", *S_CHUNK, "bfloat16", WIDE256_SHAPE),
     "flash_bwd_dkv_dh256": Fault("flash_bwd_dkv", *DKV_SM90, "bfloat16", WIDE256_SHAPE),
     "flash_bwd_dkv_swap": Fault("flash_bwd_dkv", *SWAP, "bfloat16", WIDE256_SHAPE),
+    "flash_bwd_dq_dh256": Fault("flash_bwd_dq", *DQ_SM90, "bfloat16", WIDE256_SHAPE),
+    "flash_bwd_dq_box": Fault("flash_bwd_dq", *DQ_BOX, "bfloat16", WIDE256_SHAPE),
+    "flash_fwd_f32_dh256": Fault("flash_fwd", *FWD_F32, "float32", WIDE256_SHAPE),
 }
 
 PAGED_CASE = ("bench_decode", 128)

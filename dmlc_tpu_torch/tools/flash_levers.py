@@ -8,7 +8,9 @@ at the LM train shape), ``f32`` (the float32 forward and dK/dV) or
 ``dq_f32`` (the float32 flash_bwd_dq), both timed at the train shape and at
 its Dh-64 twin; ``wide`` (the bf16 forward and dK/dV at head dims 256 and
 192, timed at the train shape's FLOPs with heads of 256 and of 192,
-[8, 3, 2048, 256] and [8, 4, 2048, 192]); ``paged``
+[8, 3, 2048, 256] and [8, 4, 2048, 192]); ``wide_dq`` (the bf16
+flash_bwd_dq at those head dims and shapes); ``wide_f32`` (the float32
+forward there); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -16,7 +18,10 @@ geometry and head dim); or ``ab``, an earlier csrc/ against the checkout's
 (give --parent): the three flash kernels in both dtypes at the train shape
 and its Dh-64 twin, the wide kernels (csrc/flash_wide.cu, through their
 entry points whatever the wrappers pick) at [4, 4, 1024, Dh] for Dh 160
-and 256 in both dtypes (three readings of 10 calls), and the LM train leg
+and 256 in both dtypes (three readings of 10 calls), the three flash
+kernels through the wrappers at [8, 3, 2048, 256] and [8, 4, 2048, 192] in
+both dtypes (the kernel each picks, or the error of a source without it),
+and the LM train leg
 (``chip_smoke.phase_train``: step wall p50, the flash kernels' device ms
 in one traced step, the loss), in turns parent, ship, ship, parent. Runs
 the group's variants named
@@ -28,8 +33,9 @@ whose sources and headers replace the copy's whole (the variant
 "parent<j>"), run first and last so that drift between runs shows. The
 copy is built; the group's kernels must pass ``chip_smoke.flash_check`` in
 the group's dtype at the group's checks (by default the LM train shape,
-causal, and S 193 and 1000, causal and not; for ``wide`` S 193 at head
-dims 256 and 192, causal and not) and at each timed shape, and
+causal, and S 193 and 1000, causal and not; for ``wide``, ``wide_dq``
+and ``wide_f32`` S 193 at head dims 256 and 192, causal and not) and at
+each timed shape, and
 ``chip_smoke.kernel_device_ms``
 times each of them at each timed shape (three readings of 20 calls). A
 parent without a timed shape's head dim reports the error for that shape.
@@ -83,15 +89,15 @@ class Group(NamedTuple):
 # (the checkout's source); c: a with warpgroup 0 multiplying only the
 # visible half of the diagonal tile; bc: b with warpgroup 0 stopping before
 # the last tile, whose keys all lie past its rows.
-KEYS_128 = ("constexpr int kDqBQ = 128, kDqBK = 64;",
-            "constexpr int kDqBQ = 128, kDqBK = 128;")
+DQ_KEYS_LINE = "constexpr int kDqBQ = 128, kDqKeys = 64;\n"
+KEYS_128 = (DQ_KEYS_LINE, DQ_KEYS_LINE.replace("64", "128"))
 NO_OVERLAP = ("  wgmma_wait<1>();\n", "  wgmma_wait<0>();\n")
-CALL = """      dq_tile<kDqBK>(dqr, Qw, dOw, Kt, Vt, &full_v[s], ph, lse2, dlt, k0, qi0, S, causal, edge,
-                     scale_log2);
+CALL = """      dq_tile<DH, kDqBK>(acc, Qw, dOw, Kt, Vt, &full_v[sv], (j / SV) & 1, release_v, lse2, dlt,
+                         k0, qi0, S, causal, edge, scale_log2);
 """
 HALF = (CALL, """      if (causal && k0 + kDqBK / 2 > row0 + 63)  // the upper half is past every row
-        dq_tile<kDqBK / 2>(dqr, Qw, dOw, Kt, Vt, &full_v[s], ph, lse2, dlt, k0, qi0, S, causal,
-                           edge, scale_log2);
+        dq_tile<DH, kDqBK / 2>(acc, Qw, dOw, Kt, Vt, &full_v[sv], (j / SV) & 1, release_v, lse2,
+                               dlt, k0, qi0, S, causal, edge, scale_log2);
       else
 """ + CALL)
 LAST_SKIP = ("    mbar_wait(bar_q, 0);\n    for (int j = 0; j < n_k; ++j) {",
@@ -108,13 +114,7 @@ LAST_SKIP = ("    mbar_wait(bar_q, 0);\n    for (int j = 0; j < n_k; ++j) {",
 # warp's lanes on 4 keys x 8 queries, so a warp's 16-byte load reads 4 K
 # rows or 8 Q rows in one wavefront, P^T and dS^T then passed to other warps
 # through a block barrier.
-FWD_SYNC = [
-    ("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = 1;"),
-    ("    if (j + 1 < n_k) load_kv(j + 1, (j + 1) % kFwdStages);\n", ""),
-    ("    __syncthreads();  // every reader of this stage and of P is done\n",
-     "    __syncthreads();  // every reader of this stage and of P is done\n"
-     "    if (j + 1 < n_k) load_kv(j + 1, 0);\n"),
-]
+FWD_SYNC = [("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = 1;")]
 DKV_STAGES = "  static constexpr int kStages = DH == 64 ? 1 : 2;\n"
 QUAD = [
     ("  static constexpr int LDP = BQ + 4;   // P^T, dS^T rows\n",
@@ -379,6 +379,51 @@ LAYOUT_B = """  } else if constexpr (DH == 256) {
       mbar_arrive(&empty[s]);
     }""" + HALVES_EPILOGUE
 
+# The bf16 flash_bwd_dq at Dh 192 and 256 (group wide_dq). ship: the
+# checkout's source (64-key K/V tiles; at Dh 256 two K stages and one V
+# stage, V released once dP is multiplied; 2 stages of each at 192);
+# keys32: 32-key K/V tiles in 2 stages each at Dh 256 (S and dP on
+# m64n32k16, two k16 steps of dQ a tile); stages1: 64-key tiles in one
+# stage of K and of V at Dh 256.
+DQ_BK = "  static constexpr int BK = kDqKeys;\n"
+DQ_STAGES_K = "  static constexpr int kStagesK = 2;\n"
+DQ_STAGES_V = "  static constexpr int kStagesV = DH == 256 ? 1 : 2;\n"
+WGMMA_N32 = DQ_KEYS_LINE + """
+// D[64 x 32] (+)= A . B, both operands from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %18, 0;\\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\\n}\\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
+        "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+"""
+
+# The float32 forward at Dh 192 and 256 (group wide_f32). ship: the
+# checkout's source (Dh 256: two parts of 128 threads, each owning half of
+# O's columns, partial S added through shared memory behind a barrier over
+# each pair of warps that hold the same rows, 2-stage K/V ring; Dh 192: one
+# part, one stage); stages1: one stage at 256 too; stages2: two stages at
+# 192 too; block: the partial S exchanged behind a barrier over the whole
+# block; whole: one part of 128 threads at 256 (O 128 floats a thread, one
+# block an SM); whole1: the same in one stage; keys16: 16-key
+# K/V tiles at both; rows32: 32-row Q tiles (4 rows a row group) at both.
+F32_PARTS = "  static constexpr int kParts = DH == 256 ? 2 : 1;\n"
+F32_STAGES = "  static constexpr int kStages = DH == 192 ? 1 : kFwdStages;\n"
+F32_TILE = "  static constexpr int BQ = kFwdRows, BK = kFwdKeys, RPT = kFwdRowsPerThread;\n"
+F32_ONE_STAGE = (F32_STAGES, F32_STAGES.replace("DH == 192", "DH > 128"))
+F32_EXCHANGE = ("        for (int u = 0; u < NKT; ++u)"
+                " Sp[(g + G * i) * LDP + c + 16 * u] = s[i][u];\n")
+F32_BLOCK = (F32_EXCHANGE + (
+    "      // Warp w of each part holds the same rows: the pair waits for each other only.\n"
+    "      asm volatile(\"bar.sync %0, 64;\\n\" ::\"r\"(1 + tp / 32) : \"memory\");\n"),
+    F32_EXCHANGE + "      __syncthreads();\n")
+F32_WHOLE = (F32_PARTS, F32_PARTS.replace("DH == 256 ? 2 : 1", "1"))
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -419,6 +464,28 @@ GROUPS = {
         "b": {"flash_bwd_dkv": [(DKV_CFG, N128T),
                                 (SPLIT_BRANCH, LAYOUT_B + SPLIT_BRANCH[len("  } else {\n"):])]},
     }, ("ship", "stages1", "keys128", "keys64", "a", "b", "ship"), checks=WIDE_CHECKS),
+    "wide_dq": Group("bfloat16", ("flash_bwd_dq",), (WIDE256_SHAPE, WIDE192_SHAPE), {
+        "ship": {},
+        "keys32": {"flash_bwd_dq": [(DQ_KEYS_LINE, WGMMA_N32),
+                                    (DQ_BK, DQ_BK.replace("kDqKeys", "DH == 256 ? 32 : kDqKeys")),
+                                    (DQ_STAGES_V, DQ_STAGES_V.replace("DH == 256 ? 1 : 2", "2"))]},
+        "stages1": {"flash_bwd_dq": [(DQ_STAGES_K, DQ_STAGES_K.replace("2", "DH == 256 ? 1 : 2"))]},
+    }, ("ship", "keys32", "stages1", "ship"), checks=WIDE_CHECKS),
+    "wide_f32": Group("float32", ("flash_fwd",), (WIDE256_SHAPE, WIDE192_SHAPE), {
+        "ship": {},
+        "stages1": {"flash_fwd": [F32_ONE_STAGE]},
+        "stages2": {"flash_fwd": [(F32_STAGES, F32_STAGES.replace("DH == 192 ? 1 : kFwdStages",
+                                                                  "kFwdStages"))]},
+        "block": {"flash_fwd": [F32_BLOCK]},
+        "whole": {"flash_fwd": [F32_WHOLE]},
+        "whole1": {"flash_fwd": [F32_WHOLE, F32_ONE_STAGE]},
+        "keys16": {"flash_fwd": [(F32_TILE, F32_TILE.replace("BK = kFwdKeys",
+                                                             "BK = DH > 128 ? 16 : kFwdKeys"))]},
+        "rows32": {"flash_fwd": [(F32_TILE, F32_TILE.replace(
+            "BQ = kFwdRows", "BQ = DH > 128 ? 32 : kFwdRows").replace(
+            "RPT = kFwdRowsPerThread", "RPT = DH > 128 ? 4 : kFwdRowsPerThread"))]},
+    }, ("ship", "stages1", "stages2", "block", "whole", "whole1", "keys16", "rows32", "ship"),
+        checks=WIDE_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -436,8 +503,8 @@ import json, sys, torch, chip_smoke as cs
 from dmlc_tpu_torch.ops import _build, flash as FL
 dtype, kernels, shapes, checks = json.loads(sys.argv[1])
 dt = getattr(torch, dtype)
-_build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"])
-report = {"card": torch.cuda.get_device_name(0)}
+_build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_wide"])
+report = {"card": cs.phase_device()["nvidia_smi"]}
 for name in kernels:
     entries = {}
     for mangled, e in cs.ptxas_entries(_build.build_log[name]).items():
@@ -498,7 +565,7 @@ print(json.dumps(report))
 
 RUN_AB = """
 import json, sys, torch, chip_smoke as cs
-from dmlc_tpu_torch.ops import _build, flash as FL, kernels as K
+from dmlc_tpu_torch.ops import _build, flash as FL
 _, kernels, shapes, checks = json.loads(sys.argv[1])
 _build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_wide"])
 dev = cs.phase_device()
@@ -516,27 +583,34 @@ for dt in (torch.bfloat16, torch.float32):
             f"{name}_ms": [cs.kernel_device_ms(lambda: CALLS[name](args, kw), name, calls=20)
                            for _ in range(3)] for name in kernels}
 
-def wide(entry, q, k, v, do, lse, delta):
-    # The wide kernel's entry point itself, whatever the wrappers pick.
-    bh, s, dh = q.shape
-    o, o2 = torch.empty_like(q), torch.empty_like(q)
-    l = torch.empty(bh, s, 1, dtype=torch.float32, device=q.device)
-    ptrs = {"flash_wide_fwd": (q, k, v, o, l),
-            "flash_wide_bwd_dq": (q, k, v, do, lse, delta, o),
-            "flash_wide_bwd_dkv": (q, k, v, do, lse, delta, o, o2)}[entry]
-    lib, fn = K._entry(entry)
-    _build.check(lib, K._launch(q, fn, *(t.data_ptr() for t in ptrs), bh, s, dh, 1,
-                                dh ** -0.5, int(q.dtype == torch.bfloat16)), entry)
-
 for dh in (160, 256):
     for dt in (torch.bfloat16, torch.float32):
         q, k, v, do = cs.flash_operands((4, 4, 1024, dh), dt, 1)
         out, lse = FL.flash_forward_reference(q, k, v, causal=True, scale=dh ** -0.5)
         delta = (out.float() * do.float()).sum(-1, keepdim=True)
         report[f"wide_dh{dh}_{str(dt)[6:]}"] = {
-            e: [cs.kernel_device_ms(lambda e=e: wide(e, q, k, v, do, lse, delta), e, calls=10)
+            e: [cs.kernel_device_ms(lambda e=e: cs.launch_wide(e, q, k, v, do, lse, delta), e,
+                                    calls=10)
                 for _ in range(3)]
             for e in ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")}
+# The train leg's FLOPs with wide heads, through the wrappers in both
+# dtypes; each kernel is looked up by the entry point the checkout's
+# wrappers pick. An earlier source without that kernel reports the error.
+for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE):
+    for dt in (torch.bfloat16, torch.float32):
+        q, k, v, do = cs.flash_operands(shape, dt, seed=12)
+        kw = {"causal": True, "scale": shape[3] ** -0.5}
+        out, lse = FL.flash_forward_reference(q, k, v, **kw)
+        args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
+        row = {}
+        for name in kernels:
+            entry = FL._entry_name(name, shape[3], dt)
+            try:
+                row[f"{entry}_ms"] = [cs.kernel_device_ms(lambda: CALLS[name](args, kw), entry,
+                                                          calls=10) for _ in range(3)]
+            except (ValueError, RuntimeError) as e:
+                row[f"{entry}_ms"] = str(e)[:120]
+        report[f"w{shape[3]}_{str(dt)[6:]}"] = row
 train = cs.phase_train(dev)
 report["train"] = {"step_ms_p50": train["step_ms_p50"], "loss_after": train["loss_after"],
                    "flash_ms": train["traced_step"]["device_ms_by_class"]["flash"]}

@@ -15,19 +15,21 @@ Same numpy-seeded float32 inputs through both:
   the kernels are built for beside 128) against the same;
 - at head dims 32 and 96, which the public functions zero-pad to 64 and
   128: out and gradients, lse and the blockwise gradients against the
-  same; past 128 (160, 256 and 130, padded to 136) the head dims the wide
-  kernels run at, and 640, past the 512 the card once refused; which head
-  dim and entry point each (head dim, dtype) runs at on the card
-  (``_run_head_dim``, ``_entry_name``: bf16 in (128, 256] padded to 192
-  or 256 for the Hopper forward and dK/dV), that padding 160 to 192 and
-  200 to 256 is exact, and that no head-dim limit is left in the sources;
+  same; past 128 (160, 192, 256 and 130, padded to 136) the head dims the
+  wide kernels and the kernels built for 192 and 256 run at, and 640, past
+  the 512 the card once refused; which head dim and entry point each (head
+  dim, dtype) runs at on the card (``_run_head_dim``, ``_entry_name``: bf16
+  in (128, 256] padded to 192 or 256 for the three Hopper kernels, float32
+  heads of 192 and 256 on the float32 forward), that padding 160 to 192
+  and 200 to 256 is exact, and that no head-dim limit is left in the
+  sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
 - each flash entry point dispatches head dims 64 and 128 in both dtypes
   (bf16 to ``sm90::``, float32 to ``f32::``), the set
-  ``KERNEL_HEAD_DIMS``, and the forward and dK/dV also 192 and 256 in
-  bf16 (``SM90_WIDE_HEAD_DIMS``);
+  ``KERNEL_HEAD_DIMS``, and 192 and 256 (``SM90_WIDE_HEAD_DIMS``) in bf16
+  and, for the forward, in float32;
 - each fault of ``tools/flash_fault_check.py`` (the paged decode kernel's
   too) and each lever of ``tools/flash_levers.py`` finds its line once in
   its kernel's source;
@@ -173,19 +175,20 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
 
 
 FLASH_ENTRIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-HOPPER = {"flash_fwd": "flash_fwd", "flash_bwd_dq": "flash_wide_bwd_dq",
-          "flash_bwd_dkv": "flash_bwd_dkv"}
+HOPPER = {n: n for n in FLASH_ENTRIES}
 WIDE = {n: f"flash_wide_{n[6:]}" for n in FLASH_ENTRIES}
+F32_FORWARD = {**WIDE, "flash_fwd": "flash_fwd"}
 # (head dim, dtype) -> (the head dim it runs at, the entry point of each
-# wrapper there): bf16 in (128, 256] on the Hopper forward and dK/dV at 192
-# or 256 with the wide dQ; float32 past 128 and bf16 past 256 on the wide
+# wrapper there): bf16 in (128, 256] on the three Hopper kernels at 192 or
+# 256; float32 heads of 192 and 256 on the float32 forward with the wide dQ
+# and dK/dV; other float32 heads past 128 and bf16 past 256 on the wide
 # kernels at a multiple of 8.
 DISPATCH = {
     (130, "bfloat16"): (192, HOPPER), (130, "float32"): (136, WIDE),
     (160, "bfloat16"): (192, HOPPER), (160, "float32"): (160, WIDE),
-    (192, "bfloat16"): (192, HOPPER), (192, "float32"): (192, WIDE),
+    (192, "bfloat16"): (192, HOPPER), (192, "float32"): (192, F32_FORWARD),
     (200, "bfloat16"): (256, HOPPER), (200, "float32"): (200, WIDE),
-    (256, "bfloat16"): (256, HOPPER), (256, "float32"): (256, WIDE),
+    (256, "bfloat16"): (256, HOPPER), (256, "float32"): (256, F32_FORWARD),
     (264, "bfloat16"): (264, WIDE), (264, "float32"): (264, WIDE),
     (513, "bfloat16"): (520, WIDE), (513, "float32"): (520, WIDE),
     (1000, "bfloat16"): (1000, WIDE), (1000, "float32"): (1000, WIDE),
@@ -202,8 +205,8 @@ def test_dispatch_table(dh, dtype):
 
 @pytest.mark.parametrize("dh, causal", [(160, True), (200, False)])
 def test_padding_to_the_hopper_head_dims_is_exact(dh, causal):
-    """bf16 heads of 160 and 200 run the Hopper forward and dK/dV at 192
-    and 256: the same inputs, padded by the helper the card uses
+    """bf16 heads of 160 and 200 run the three Hopper kernels at 192 and
+    256: the same inputs, padded by the helper the card uses
     (``_run_head_dim``, ``_as_heads``), through the plain versions at the
     padded head dim and sliced back, against the JAX flash function at the
     head dim itself (out, lse, dq, dk, dv; float32 data, so that only the
@@ -234,9 +237,10 @@ def test_out_and_grads_match_past_the_old_limit(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("dh", [256, 130])
+@pytest.mark.parametrize("dh", [256, 130, 192])
 def test_out_and_grads_match_past_head_dim_128(dh, causal):
-    """Head dims the wide kernels run (130 zero-padded to 136) against
+    """Head dims past 128 (130 zero-padded to 136; 192 and 256, which the
+    kernels are built for in bf16 and the float32 forward too) against
     JAX's Pallas flash attention."""
     q, k, v, g = _heads(40, dh, seed=9)
     _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh}")
@@ -379,8 +383,9 @@ def test_gradient_dtypes_follow_the_inputs():
 
 @pytest.mark.parametrize("dh,dtype,entries", [
     (128, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-    (256, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_bwd_dkv")),
-    (256, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (256, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    (256, torch.float32, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
     """Each flash wrapper counts a launch under (entry point, head dim,
@@ -436,13 +441,15 @@ def _tool(name: str = "flash_fault_check"):
 @pytest.mark.parametrize("fault", ["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_fwd_f32",
                                    "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_fwd_dh64",
                                    "flash_fwd_dh256", "flash_fwd_s_chunk", "flash_bwd_dkv_dh256",
-                                   "flash_bwd_dkv_swap"])
+                                   "flash_bwd_dkv_swap", "flash_bwd_dq_dh256", "flash_bwd_dq_box",
+                                   "flash_fwd_f32_dh256"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
-    its kernel is built for (the bf16 Hopper designs' 192 and 256 too)."""
+    its kernel is built for (192 and 256 too: the bf16 Hopper designs and
+    the float32 forward)."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
@@ -451,9 +458,10 @@ def test_fault_check_finds_its_loop_once(fault):
     dh = case.shape[3]
     assert case.dtype in ("bfloat16", "float32")
     assert flash._entry_name(case.source, dh, getattr(torch, case.dtype)) == case.source
-    assert fault.endswith("_f32") == (case.dtype == "float32")
+    assert ("_f32" in fault) == (case.dtype == "float32")
     assert fault.endswith("_dh64") == (dh == 64)
-    assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap"))
+    assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap",
+                                                                 "_box"))
     assert case.check == "flash"
 
 
@@ -523,6 +531,21 @@ def test_wide_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("wide", lever)
 
 
+@pytest.mark.parametrize("lever", ["ship", "keys32", "stages1"])
+def test_wide_dq_lever_tool_finds_its_lines_once(lever):
+    """The bf16 flash_bwd_dq variants at head dims 192 and 256 (group
+    wide_dq)."""
+    _lever_sources_apply("wide_dq", lever)
+
+
+@pytest.mark.parametrize("lever", ["ship", "stages1", "stages2", "block", "whole", "whole1",
+                                   "keys16", "rows32"])
+def test_wide_f32_lever_tool_finds_its_lines_once(lever):
+    """The float32 forward variants at head dims 192 and 256 (group
+    wide_f32)."""
+    _lever_sources_apply("wide_f32", lever)
+
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -548,9 +571,9 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     """Each flash source's C entry point launches a kernel for head dim 64
     and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
     FMA kernels, flash::f32), each instantiated at the head dim it is
-    dispatched for; the forward and dK/dV also for SM90_WIDE_HEAD_DIMS in
-    bf16, the head dims ``_entry_name`` sends to them (text only, no
-    nvcc)."""
+    dispatched for; each also for SM90_WIDE_HEAD_DIMS in bf16, and the
+    forward in float32 too: the head dims ``_entry_name`` sends to them
+    (text only, no nvcc)."""
     assert flash.KERNEL_HEAD_DIMS == (64, 128) and flash.SM90_WIDE_HEAD_DIMS == (192, 256)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
     pattern = re.compile(r"if \((!?)is_bf16 && dh == (\d+)\)\s*return \(int\)(sm90::|f32::)?"
@@ -565,13 +588,14 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
             assert ns == ("f32::" if neg else "sm90::"), (name, ns)
             found.add((neg == "", int(dh)))
         want = {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}
-        bf16_wide = {(True, dh) for dh in flash.SM90_WIDE_HEAD_DIMS
-                     if flash._entry_name(name, dh, torch.bfloat16) == name}
-        assert bf16_wide == ({(True, 192), (True, 256)} if name != "flash_bwd_dq" else set())
-        assert found == want | bf16_wide
+        wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
+                for dh in flash.SM90_WIDE_HEAD_DIMS if flash._entry_name(name, dh, dt) == name}
+        f32_wide = {(False, 192), (False, 256)} if name == "flash_fwd" else set()
+        assert wide == {(True, 192), (True, 256)} | f32_wide
+        assert found == want | wide
         smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
-        for _, dh in bf16_wide:
-            assert f"if (dh == {dh} && is_bf16) return" in smem
+        for bf16, dh in wide:
+            assert f"if (dh == {dh} && {'' if bf16 else '!'}is_bf16) return" in smem
 
 
 def test_ab_group_runs_the_parent_first_and_last(tmp_path, monkeypatch):
