@@ -8,9 +8,8 @@ non-zero:
 
 1. device  — the card's name, power limit and the TF32 settings in force.
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
-   each flash kernel instantiation (head dim 64 and 128, bf16 and
-   float32; the three bf16 kernels and the float32 forward also at 192
-   and 256), its registers, shared memory and spills (ptxas), and for the
+   each flash kernel instantiation (head dim 64, 128, 192 and 256, bf16
+   and float32), its registers, shared memory and spills (ptxas), and for the
    bf16 Hopper ones their wgmma and TMA instructions (SASS).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
@@ -20,11 +19,10 @@ non-zero:
    also bit-identical run to run and in a contiguous layout, beside the
    parent's path (two page gathers and the eager attention); the public
    flash_attention at head dims 32 and 96 (zero-padded to the kernels' 64
-   and 128), 160, 192, 200 and 256 (in bf16 the three Hopper kernels at
-   192 or 256; in float32 the float32 forward at 192 and 256 and the wide
-   kernels elsewhere) against the plain versions with the kernel that ran
-   each head dim, and a sweep of head dims up to 1024 (past 512 included,
-   which the card once refused).
+   and 128), 160, 192, 200 and 256 (in both dtypes the three kernels of
+   their own at 192 or 256, no wide one) against the plain versions with
+   the kernel that ran each head dim, and a sweep of head dims up to 1024
+   (past 512 included, which the card once refused).
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -158,15 +156,15 @@ SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2 = 1e-5, 1e-4
 FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # Head dims the Hopper kernels are not built for, run through the public
 # flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
-# to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) bf16 pads to
-# 192 or 256 (the three Hopper kernels) and float32 runs its forward at
-# 192 and 256 and the wide kernels elsewhere (csrc/flash_wide.cu,
-# ops/flash.py). The kernels are
-# also timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS.
+# to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) both dtypes
+# pad to 192 or 256 (the three kernels built for them; ops/flash.py).
+# Past 256 the wide kernels run (csrc/flash_wide.cu). The kernels are also
+# timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS, where 160,
+# 320 and 512 run the wide kernels through the wrappers.
 # WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
 WIDE_HEAD_DIMS = (160, 192, 200, 256)
-WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256), (4, 4, 1024)
+WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256, 320, 512), (4, 4, 1024)
 WIDE_SWEEP_HEAD_DIMS = (129, 136, 200, 264, 328, 384, 448, 505, 512, 520, 640, 1024)
 WIDE_SWEEP_BHS = (1, 2, 72)
 # The LM train leg's FLOPs with wide heads, where the kernels built for
@@ -175,8 +173,7 @@ WIDE_SWEEP_BHS = (1, 2, 72)
 WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
-# KERNEL_HEAD_DIMS (ops/flash.py), the bf16 ones also at
-# SM90_WIDE_HEAD_DIMS and the float32 forward too.
+# KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS (ops/flash.py).
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Dynamic shared memory a block may take on the H100 (227 KB).
 SMEM_PER_BLOCK_MAX = 232448
@@ -375,8 +372,8 @@ def flash_instance(mangled: str) -> tuple[str, int] | None:
 def phase_build() -> None:
     """Builds every kernel. For the flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
-    both head dims in both dtypes and 192 and 256 where ops/flash.py
-    routes them to the source (bf16, and the float32 forward), the Hopper
+    64, 128, 192 and 256 in both dtypes where ops/flash.py routes them to
+    the source, the Hopper
     ones also with their wgmma and TMA instructions (SASS). Fails on a
     spill, on a missing instantiation, on a Hopper kernel without wgmma or
     TMA, or on one past SMEM_PER_BLOCK_MAX."""
@@ -414,7 +411,7 @@ def phase_build() -> None:
             report[f"{dtype} dh{dh}"] = entry
         want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32")
                 for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS
-                if FL._entry_name(name, dh, getattr(torch, dt)) == name}
+                if FL._entry_name(name, dh) == name}
         if set(report) != want:
             raise AssertionError(f"{name}: instantiations {sorted(report)}, "
                                  f"expected {sorted(want)}")
@@ -841,8 +838,8 @@ def flash_checks() -> list[dict]:
     train shape and its Dh-64 twin in both dtypes, ragged lengths (193,
     1000), causal and not, where the kernels mask a partial tile, the
     shape of phase_train_small in both dtypes, and at head dims 256 and
-    192 (every bf16 kernel and the float32 forward built for them) the
-    train leg's FLOPs (WIDE256_SHAPE, WIDE192_SHAPE), [WIDE_TIMED_BHS, Dh]
+    192 (every kernel built for them, in both dtypes) the train leg's
+    FLOPs (WIDE256_SHAPE, WIDE192_SHAPE), [WIDE_TIMED_BHS, Dh]
     and the ragged lengths, in both dtypes, causal and not."""
     cases = []
     for big in (TRAIN_SHAPE, DH64_SHAPE):
@@ -852,8 +849,7 @@ def flash_checks() -> list[dict]:
             for causal in (False, True):
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
-    # The bf16 Hopper kernels and the float32 forward at 192 and 256 (the
-    # float32 dQ and dK/dV on the wide kernels beside it).
+    # The kernels built for 192 and 256: bf16 Hopper designs, float32 FMA.
     for shape in (WIDE256_SHAPE, WIDE192_SHAPE, *((*WIDE_TIMED_BHS, dh) for dh in (192, 256))):
         cases += [(shape, dt, causal) for dt in (torch.bfloat16, torch.float32)
                   for causal in (True, False)]
@@ -874,7 +870,7 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     is 0, past FLASH_ROW_REL on an H100 at Dh 96.) Each flash kernel must
     launch once in flash_attention's forward and backward, each through
     the entry point ops/flash._entry_name names for the padded head dim
-    and the dtype (which kernel ran: the Hopper design or the wide one)."""
+    in that dtype (which kernel ran: the Hopper design or the wide one)."""
     from dmlc_tpu_torch.ops import flash as FL
     from dmlc_tpu_torch.ops import kernels as K
 
@@ -883,7 +879,7 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     q, k, v, do = flash_operands(shape, dtype, seed)
     kw = {"causal": causal, "scale": dh ** -0.5}
     q4, k4, v4 = (x.view(shape).clone().requires_grad_() for x in (q, k, v))
-    run_dh = FL._run_head_dim(dh, dtype)
+    run_dh = FL._run_head_dim(dh)
     dt_name = str(dtype).replace("torch.", "")
     K.reset_launch_counts()
     out = FL.flash_attention(q4, k4, v4, causal=causal)
@@ -891,7 +887,7 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     torch.cuda.synchronize()
     launches = {n: K.launch_counts()[n] for n in FLASH_WRAPPERS}
     by_entry = K.entry_launch_counts()
-    entries = {(FL._entry_name(n, run_dh, dtype), run_dh, dtype): 1 for n in SM90_KERNELS}
+    entries = {(FL._entry_name(n, run_dh), run_dh, dtype): 1 for n in SM90_KERNELS}
     if set(launches.values()) != {1} or by_entry != entries:
         raise AssertionError(f"flash_attention Dh {dh} {dtype}: launches {launches} by entry "
                              f"{dict(by_entry)}, expected one of each of {entries}")
@@ -920,23 +916,24 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
 def flash_public_checks() -> dict:
     """flash_public_check at each of PADDED_HEAD_DIMS and WIDE_HEAD_DIMS in
     both dtypes, causal and not, and at each of WIDE_SWEEP_HEAD_DIMS
-    (causal, both dtypes): no head dim is refused. Past 128, bf16 must run
-    the three Hopper kernels and no wide one, and float32 heads of 192 and
-    256 the float32 forward."""
+    (causal, both dtypes): no head dim is refused. In (128, 256] both
+    dtypes must run the three kernels built for 192 or 256 (each once,
+    flash_public_check) and no wide one; past 256 the three wide ones."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
              for dt in (torch.bfloat16, torch.float32) for causal in (False, True)]
     checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
-    for c in checks:
-        dh, wide = c["shape"][3], [e for e in c["entries"] if e.startswith("flash_wide_")]
-        if (dh > 128 and c["dtype"] == "bfloat16" and wide) or (
-                dh in FL.SM90_WIDE_HEAD_DIMS and c["dtype"] == "float32" and "flash_fwd" not in
-                c["entries"]):
-            raise AssertionError(f"flash_attention Dh {dh} {c['dtype']}: ran {c['entries']}")
     sweep = [flash_public_check(dh, dt, True, seed=200 + i, bhs=WIDE_SWEEP_BHS)
              for i, (dh, dt) in enumerate((dh, dt) for dh in WIDE_SWEEP_HEAD_DIMS
                                           for dt in (torch.bfloat16, torch.float32))]
+    for c in checks + sweep:
+        dh = c["shape"][3]
+        own = c["run_dh"] in FL.SM90_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
+        wide = all(e.startswith("flash_wide_") for e in c["entries"])
+        if (128 < dh <= 256 and not own) or (dh > 256 and not wide):
+            raise AssertionError(f"flash_attention Dh {dh} {c['dtype']}: ran {c['entries']} "
+                                 f"at {c['run_dh']}")
     return {"checks": checks,
             "sweep": [{k: c[k] for k in ("shape", "dtype", "run_dh", "entries")}
                       | {n: c[n]["rel_l2"] for n in ("out", "dq", "dk", "dv")} for c in sweep]}
@@ -955,6 +952,29 @@ def flash_bound(dev: dict, shape, dtype: torch.dtype, products: int, nbytes: int
     return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
 
 
+# Which backend of F.scaled_dot_product_attention ran, by the names of the
+# kernels it launched: each name counts for the first of these markers it
+# holds (cuDNN's attention kernels hold "flash" too).
+SDPA_BACKENDS = (("cudnn", "cudnn"), ("fmha_cutlass", "efficient"),
+                 ("efficient_attention", "efficient"), ("flash", "flash"))
+
+
+def sdpa_backend(fn) -> str:
+    """The SDPA backend that one traced call of ``fn`` ran: flash,
+    efficient (CUTLASS's memory-efficient kernels), cudnn, or math (the
+    composite of GEMMs and a softmax) when no kernel name holds a marker
+    of SDPA_BACKENDS."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    found = {next((backend for marker, backend in SDPA_BACKENDS if marker in name.lower()), None)
+             for name, _, _ in device_records(prof)}
+    return "+".join(sorted(found - {None})) or "math"
+
+
 def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) -> dict:
     """flash_forward at ``shape`` (causal): call and device time, bound,
     plain version, and F.scaled_dot_product_attention(is_causal=True) on
@@ -967,7 +987,7 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
     q, k, v, _ = flash_operands(shape, dtype, seed=11)
     kw = {"causal": True, "scale": dh ** -0.5}
     fwd = FL.flash_forward
-    kernel = FL._entry_name("flash_fwd", dh, dtype)
+    kernel = FL._entry_name("flash_fwd", dh)
     q4, k4, v4 = (x.view(b, h, s, dh) for x in (q, k, v))
     out, _ = fwd(q, k, v, **kw)
     lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
@@ -984,6 +1004,8 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
                             reps=plain_reps, inner=1),
         "library_ms": time_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True),
                               reps=11, inner=5),
+        "library_backend": sdpa_backend(
+            lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)),
         "bound_ms": bound_ms, "bound_by": bound_by,
     }
 
@@ -1006,6 +1028,8 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
     g4 = do.view(b, h, s, dh)
     library_ms = time_ms(lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True),
                          reps=11, inner=5)
+    library_backend = sdpa_backend(
+        lambda: torch.autograd.grad(lib_out, (q4, k4, v4), g4, retain_graph=True))
     item = q.element_size()
     rows = b * h * s * 4 * 2  # lse and delta
     report = {}
@@ -1013,7 +1037,7 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
         ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, 3, 1),
         ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, 4, 2),
     ):
-        kernel = FL._entry_name(name, dh, dtype)
+        kernel = FL._entry_name(name, dh)
         args = (q, k, v, do, lse, delta)
         got, want = fn(*args, **kw), ref(*args, **kw)
         got = got if isinstance(got, tuple) else (got,)
@@ -1027,6 +1051,7 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
             "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw), kernel, calls=10),
             "plain_ms": time_ms(lambda ref=ref: ref(*args, **kw), reps=5, inner=1),
             "library_ms": library_ms, "library_computes": "dq, dk and dv together",
+            "library_backend": library_backend,
             "bound_ms": bound_ms, "bound_by": bound_by,
         }
     return report
@@ -1052,17 +1077,18 @@ def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
 
 # The wide kernels that the kernels built for head dims 256 and 192 replaced
 # there, timed through their entry points at the train leg's FLOPs: key of
-# WIDE_TIMINGS -> (entry point, products).
-REPLACED_WIDE = {"w256_bf16": ("flash_wide_bwd_dq", 3), "w192_bf16": ("flash_wide_bwd_dq", 3),
-                 "w256_f32": ("flash_wide_fwd", 2), "w192_f32": ("flash_wide_fwd", 2)}
+# WIDE_TIMINGS -> [(entry point, products), ...]. bf16: the dQ's; float32:
+# all three.
+_F32_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
+REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_wide_bwd_dq", 3)],
+                 "w256_f32": _F32_REPLACED, "w192_f32": _F32_REPLACED}
 
 
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
 # (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
-# the train leg's FLOPs at 256 and 192 (w256, w192), in both dtypes. In
-# bf16 the three kernels run the Hopper designs at 192 and 256 and the
-# wide kernels at 160; in float32 the forward runs its own kernel at 192
-# and 256, and the rest the wide kernels.
+# the train leg's FLOPs at 256 and 192 (w256, w192), in both dtypes. The
+# three kernels run their own designs at 192 and 256 (the Hopper ones in
+# bf16, FMA in float32) and the wide kernels at 160, 320 and 512.
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
@@ -1105,15 +1131,18 @@ def phase_kernels_flash(dev: dict) -> dict:
             device_s = report[name]["device_ms"] * 1e-3
             report[name]["tflops"] = flash_flops(report[name]["shape"], products) / device_s / 1e12
     replaced = {}
-    for key, (entry, products) in REPLACED_WIDE.items():
+    for key, entries in REPLACED_WIDE.items():
         shape, dt = WIDE_TIMINGS[key]
         q, k, v, do = flash_operands(shape, dt, seed=12)
         kw = {"causal": True, "scale": shape[3] ** -0.5}
         out, lse = FL.flash_forward(q, k, v, **kw)
         delta = FL._delta(out, do)
-        ms = kernel_device_ms(lambda: launch_wide(entry, q, k, v, do, lse, delta), entry, calls=5)
-        replaced[key] = {"entry": entry, "shape": list(shape), "device_ms": ms,
-                         "tflops": flash_flops(shape, products) / (ms * 1e-3) / 1e12}
+        replaced[key] = {}
+        for entry, products in entries:
+            ms = kernel_device_ms(lambda entry=entry: launch_wide(entry, q, k, v, do, lse, delta),
+                                  entry, calls=5)
+            replaced[key][entry] = {"entry": entry, "shape": list(shape), "device_ms": ms,
+                                    "tflops": flash_flops(shape, products) / (ms * 1e-3) / 1e12}
     torch.cuda.synchronize()
     return {"checks": checks, "padded_head_dims": public, "flash_forward": fwd,
             "replaced_wide": replaced,
@@ -2007,7 +2036,7 @@ def main() -> int:
                     if key != "lm_wide_dh128_float32"}})
     timed = ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
              "tflops")
-    timed_shape = ("shape", *timed)
+    timed_shape = ("shape", "kernel", *timed, "library_backend")
     fwd = kern["flash_forward"]
     # Launches: the train leg's (Dh 128, bf16); lm_small's legs (Dh 64)
     # beside them.
@@ -2036,10 +2065,10 @@ def main() -> int:
                      "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
                      "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
-    # Past head dim 128: the bf16 Hopper kernels and the float32 forward at
-    # 192 and 256 (the train leg's FLOPs at 256, then at 192 and [4, 4,
-    # 1024, Dh]), and the wide kernels (csrc/flash_wide.cu) at [4, 4, 1024,
-    # 160] bf16 and the other shapes they run. Their launches are those the
+    # Past head dim 128: the three kernels built for 192 and 256 in both
+    # dtypes (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024,
+    # Dh]), and the wide kernels (csrc/flash_wide.cu) at [4, 4, 1024, 160]
+    # bf16 and at 160, 320 and 512 in both dtypes. Their launches are those the
     # main path's runs (the LM train leg and lm_small's, each counted from 0
     # just before it) made through these entry points at these head dims:
     # no registry model has heads past 128.
@@ -2058,14 +2087,16 @@ def main() -> int:
     def timing(name: str, key: str) -> dict:
         return fwd[key] if name == "flash_forward" else kern[f"backward_{key}"][name]
 
-    # The bf16 Hopper kernels at 192 and 256 (the dQ's row with the wide
-    # kernel it replaced there, timed through its entry point in this run),
-    # then the float32 forward built for them (the same).
+    # The kernels built for 192 and 256: the bf16 Hopper ones, then the
+    # float32 ones (each with the wide kernel it replaced there, timed
+    # through its entry point in this run, where REPLACED_WIDE lists it).
     replaced = kern["replaced_wide"]
     for name, source, line, tag in (("flash_forward", "flash_fwd", "157 and :215", "bf16"),
                                     ("flash_bwd_dq", "flash_bwd_dq", "271", "bf16"),
                                     ("flash_bwd_dkv", "flash_bwd_dkv", "320", "bf16"),
-                                    ("flash_forward", "flash_fwd", "157 and :215", "f32")):
+                                    ("flash_forward", "flash_fwd", "157 and :215", "f32"),
+                                    ("flash_bwd_dq", "flash_bwd_dq", "271", "f32"),
+                                    ("flash_bwd_dkv", "flash_bwd_dkv", "320", "f32")):
         dtype = "bfloat16" if tag == "bf16" else "float32"
         launches = main_launches(source, FL.SM90_WIDE_HEAD_DIMS, dtype)
         first = timing(name, f"w256_{tag}")
@@ -2076,8 +2107,9 @@ def main() -> int:
                "max_err": first["max_abs_err"], "dtype": dtype,
                **{key: {k: timing(name, key)[k] for k in timed_shape}
                   for key in (f"w192_{tag}", f"dh192_{tag}", f"dh256_{tag}")}}
-        wide = {key: r for key, r in replaced.items()
-                if key.endswith(tag) and r["entry"] == source.replace("flash_", "flash_wide_", 1)}
+        wide_entry = source.replace("flash_", "flash_wide_", 1)
+        wide = {key: by_entry[wide_entry] for key, by_entry in replaced.items()
+                if key.endswith(tag) and wide_entry in by_entry}
         if wide:
             row["replaced_wide_fma"] = wide
         rows.append(row)
@@ -2086,9 +2118,9 @@ def main() -> int:
                               ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
         first = timing(name, "dh160_bf16")
         launches = main_launches(entry)
-        others = ("dh160_f32",)
-        if name != "flash_forward":  # the float32 dQ and dK/dV run it at 192 and 256 too
-            others += ("dh192_f32", "dh256_f32", "w256_f32", "w192_f32")
+        # Through the wrappers at 160 (a direct call), 320 and 512 (where
+        # the public functions run them) in both dtypes.
+        others = ("dh160_f32", "dh320_bf16", "dh320_f32", "dh512_bf16", "dh512_f32")
         rows.append({"name": f"{name}_wide_fma", "route": "cuda",
                      "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
                      "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,

@@ -6,9 +6,9 @@
 // flash_attention's custom VJP. There a sequential grid axis walks Q blocks
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
-// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
-// or 128, and in bf16 also 192 or 256 (ops/flash.py zero-pads a smaller
-// head dim up to one; csrc/flash_wide.cu takes the others); lse and
+// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
+// 128, 192 or 256 (ops/flash.py zero-pads a smaller head dim up to one;
+// past 256 csrc/flash_wide.cu takes it); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -74,6 +74,23 @@
 // slower at Dh 64; laying a warp's lanes out as 4 keys x 8 queries for S^T
 // (fewer shared-memory wavefronts a load) ran 1% slower at Dh 128 (PERF.md,
 // section 6; tools/flash_levers.py).
+//
+// float32 at Dh 192 and 256 (DkvCfg; heads in (128, 256] pad to them). At
+// 256 the same kernel: dK and dV 128 floats a thread (232 registers), the
+// 2-stage ring (205 KB), one block of 4 warps an SM. At 192 the FMA form
+// of the bf16 split layout (flash_bwd_dkv_f32_parts_kernel): two parts of
+// 128 threads share the block's K, V and Q/dO tiles; part 0 makes S^T = K
+// Q^T and P^T, writes P^T to shared memory and keeps dV += P^T dO; part 1
+// makes dP^T = V dO^T, then dS^T from part 0's P^T, and keeps dK += dS^T
+// Q. Each part does two of the four products and holds 48 floats a
+// thread, and the only wait is part 1's for P^T: thread (g, c) of part 1
+// reads the entries its twin in part 0 wrote, so a warp waits for its
+// twin only (a named barrier of 64 threads). One Q/dO stage (107 KB, 128
+// registers) lets two blocks, 16 warps, run an SM; two stages (one block)
+// ran 20% slower, one part in one stage 3.5% slower. At 256 two parts (8
+// warps, 152 registers) ran 2% slower than one, and one stage 3% slower
+// than two. Bound at [8, 3, 2048, 256]: operations, 1.54 ms at the float32
+// peak (PERF.md, section 6; tools/flash_levers.py group wide_bwd_f32).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -87,20 +104,72 @@ constexpr int kDkvKeysPerThread = 4;  // keys a key group (16 threads) owns
 constexpr int kDkvRows = 32;          // query rows a Q/dO tile
 constexpr int kDkvThreads = 16 * kDkvKeys / kDkvKeysPerThread;
 
+// The float32 dK/dV's tiles at head dim DH. One part of 128 threads keeps
+// dK and dV of its keys (NC4 float4 columns each; 128 floats a thread at
+// Dh 256, one block of 4 warps an SM). At Dh 192 two parts of 128 threads
+// share the block's tiles (flash_bwd_dkv_f32_parts_kernel): part 0 makes
+// P^T and keeps dV, part 1 makes dP^T and dS^T and keeps dK, each over all
+// of Dh, 48 floats a thread, and with one Q/dO stage (107 KB) two blocks
+// run an SM. Two parts ran 3.5% faster than one at 192 and 2% slower at
+// 256 (PERF.md, section 6; tools/flash_levers.py group wide_bwd_f32).
 template <int DH>
 struct DkvCfg {
+  static constexpr int kParts = DH == 192 ? 2 : 1;
   static constexpr int BK = kDkvKeys, BQ = kDkvRows, KPT = kDkvKeysPerThread;
-  static constexpr int kThreads = kDkvThreads, G = BK / KPT;  // G key groups
+  static constexpr int kPartThreads = kDkvThreads, kThreads = kParts * kPartThreads;
+  static constexpr int G = BK / KPT;   // G key groups a part
   static constexpr int LD = DH + 4;    // K, V, Q, dO rows (floats), padded by 16 bytes
   static constexpr int LDP = BQ + 4;   // P^T, dS^T rows
   static constexpr int NC4 = DH / 64;  // float4 columns a thread owns in dK, dV
   static constexpr int kStage = 2 * BQ * LD + 2 * BQ;  // Q, dO, lse, delta (floats)
-  // Q/dO ring depth: 2 at Dh 128; at Dh 64 loading each tile after the
-  // products of the one before ran 4% faster (PERF.md, section 6).
-  static constexpr int kStages = DH == 64 ? 1 : 2;
+  // Q/dO ring depth: 2 at Dh 128 and 256; at Dh 64 loading each tile after
+  // the products of the one before ran 4% faster, and at Dh 192, where it
+  // leaves room for two blocks an SM, two stages ran 20% slower (PERF.md,
+  // section 6).
+  static constexpr int kStages = DH == 64 || DH == 192 ? 1 : 2;
   static constexpr size_t bytes =
       sizeof(float) * (2 * (size_t)BK * LD + kStages * (size_t)kStage + 2 * (size_t)BK * LDP);
+  // Blocks an SM (228 KB of shared memory, 1 KB of it reserved a block).
+  static constexpr int kMinBlocks = 2 * (bytes + 1024) <= 233472 ? 2 : 1;
 };
+
+// Copies Q tile t and its dO tile, with their lse and delta rows, into
+// `st`, one stage of the float32 dK/dV's Q/dO ring (cp.async, by all the
+// block's threads; the caller commits).
+template <int DH>
+__device__ __forceinline__ void dkv_load_q(float* st, const float* q, const float* dout,
+                                           const float* lse_g, const float* delta_g, size_t base,
+                                           int t, int S) {
+  typedef DkvCfg<DH> C;
+  constexpr int BQ = C::BQ, LD = C::LD;
+  const int q0 = t * BQ;
+  cp_tile<BQ, DH, LD, C::kThreads>(st, q + base, q0, S);
+  cp_tile<BQ, DH, LD, C::kThreads>(st + BQ * LD, dout + base, q0, S);
+  if (threadIdx.x < 2 * BQ) {
+    const int r = threadIdx.x % BQ, qi = q0 + r;
+    const float* src = threadIdx.x < BQ ? lse_g : delta_g;
+    cp_async4(st + 2 * BQ * LD + threadIdx.x, src + (qi < S ? qi : 0), qi < S);
+  }
+}
+
+// Writes f * acc, a thread's rows of dK or dV (keys k0 + g + G i, columns
+// 64 h + 4 c), to out.
+template <int DH>
+__device__ __forceinline__ void dkv_store(
+    float* out, const float (&acc)[DkvCfg<DH>::KPT][DkvCfg<DH>::NC4][4], float f, size_t base,
+    int k0, int g, int c, int S) {
+  typedef DkvCfg<DH> C;
+#pragma unroll
+  for (int i = 0; i < C::KPT; ++i) {
+    const int key = k0 + g + C::G * i;
+    if (key < S) {
+#pragma unroll
+      for (int h = 0; h < C::NC4; ++h)
+        *reinterpret_cast<float4*>(out + base + (size_t)key * DH + 64 * h + 4 * c) =
+            make_float4(acc[i][h][0] * f, acc[i][h][1] * f, acc[i][h][2] * f, acc[i][h][3] * f);
+    }
+  }
+}
 
 template <int DH>
 __global__ void __launch_bounds__(kDkvThreads, DH == 64 ? 2 : 1)
@@ -134,15 +203,7 @@ __global__ void __launch_bounds__(kDkvThreads, DH == 64 ? 2 : 1)
   const int q_tiles = (S + C::BQ - 1) / C::BQ;
 
   auto load_q = [&](int t, int stage) {
-    float* st = ring + stage * C::kStage;
-    const int q0 = t * BQ;
-    cp_tile<BQ, DH, LD, C::kThreads>(st, q + base, q0, S);
-    cp_tile<BQ, DH, LD, C::kThreads>(st + BQ * LD, dout + base, q0, S);
-    if (threadIdx.x < 2 * BQ) {
-      const int r = threadIdx.x % BQ, qi = q0 + r;
-      const float* src = threadIdx.x < BQ ? lse_g : delta_g;
-      cp_async4(st + 2 * BQ * LD + threadIdx.x, src + (qi < S ? qi : 0), qi < S);
-    }
+    dkv_load_q<DH>(ring + stage * C::kStage, q, dout, lse_g, delta_g, base, t, S);
   };
   cp_tile<BK, DH, LD, C::kThreads>(Ks, k + base, k0, S);
   cp_tile<BK, DH, LD, C::kThreads>(Vs, v + base, k0, S);
@@ -257,21 +318,165 @@ __global__ void __launch_bounds__(kDkvThreads, DH == 64 ? 2 : 1)
   }
   cp_async_wait<0>();  // no copy left in flight when the block exits
 
+  dkv_store<DH>(dk, dka, scale, base, k0, g, c, S);
+  dkv_store<DH>(dv, dva, 1.f, base, k0, g, c, S);
+}
+
+// Two parts of 128 threads (DkvCfg::kParts: Dh 192), each over all of Dh:
+// part 0 makes S^T = K Q^T and P^T, writes P^T to shared memory and keeps
+// dV += P^T dO; part 1 makes dP^T = V dO^T, then dS^T = P^T (dP^T - delta)
+// from the P^T that part 0 wrote, and keeps dK += dS^T Q. Each does two of
+// the four products and holds 4 NC4 floats a thread. Thread (g, c) of part
+// 1 reads the P^T entries that thread (g, c) of part 0 wrote, and warp w of
+// each part holds key groups 2 w and 2 w + 1, so part 1's warp waits only
+// for its twin in part 0 (pair_sync).
+template <int DH>
+__global__ void __launch_bounds__(DkvCfg<DH>::kThreads, DkvCfg<DH>::kMinBlocks)
+    flash_bwd_dkv_f32_parts_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v, const float* __restrict__ dout,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   float* __restrict__ dk, float* __restrict__ dv, int BH, int S,
+                                   int causal, float scale) {
+  typedef DkvCfg<DH> C;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDP = C::LDP, G = C::G, KPT = C::KPT;
+  constexpr int NC4 = C::NC4, STAGES = C::kStages;
+  static_assert(C::kParts == 2, "two parts");
+  static_assert(BK * BQ == 8 * C::kPartThreads, "S^T or dP^T is 4 keys x 2 queries a thread");
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + BK * LD;
+  float* ring = Vs + BK * LD;  // stage s at ring + s kStage: Q, dO, lse, delta
+  float* PT = ring + STAGES * C::kStage;
+  float* dST = PT + BK * LDP;
+
+  // Block order: K tile 0 of every head first (the most Q tiles when causal).
+  const int bh = blockIdx.x % BH;
+  const int k0 = (int)(blockIdx.x / BH) * BK;
+  const size_t base = (size_t)bh * S * DH;
+  const float* lse_g = lse + (size_t)bh * S;
+  const float* delta_g = delta + (size_t)bh * S;
+  const int part = threadIdx.x / C::kPartThreads, tp = threadIdx.x % C::kPartThreads;
+  const int g = tp / 16, c = tp % 16;
+  const int pair = 1 + tp / 32;  // the barrier of this warp and its twin in the other part
+  // Q tiles [t0, q_tiles): when causal, from the first that reaches these keys.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int q_tiles = (S + BQ - 1) / BQ;
+
+  auto load_q = [&](int t, int stage) {
+    dkv_load_q<DH>(ring + stage * C::kStage, q, dout, lse_g, delta_g, base, t, S);
+  };
+  cp_tile<BK, DH, LD, C::kThreads>(Ks, k + base, k0, S);
+  cp_tile<BK, DH, LD, C::kThreads>(Vs, v + base, k0, S);
+  if (t0 < q_tiles) load_q(t0, 0);
+  cp_async_commit();
+
+  // dV (part 0) or dK (part 1) of keys g + G i, columns 64 h + 4 c.
+  float acc[KPT][NC4][4];
 #pragma unroll
-  for (int i = 0; i < KPT; ++i) {
-    const int key = k0 + g + G * i;
-    if (key < S) {
+  for (int i = 0; i < KPT; ++i)
 #pragma unroll
-      for (int h = 0; h < NC4; ++h) {
-        const size_t at = base + (size_t)key * DH + 64 * h + 4 * c;
-        *reinterpret_cast<float4*>(dk + at) =
-            make_float4(dka[i][h][0] * scale, dka[i][h][1] * scale, dka[i][h][2] * scale,
-                        dka[i][h][3] * scale);
-        *reinterpret_cast<float4*>(dv + at) =
-            make_float4(dva[i][h][0], dva[i][h][1], dva[i][h][2], dva[i][h][3]);
+    for (int h = 0; h < NC4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
+  const float* A = part == 0 ? Ks : Vs;      // the score product's rows
+  const float* Ao = part == 0 ? PT : dST;    // the output product's A operand
+
+  for (int t = t0; t < q_tiles; ++t) {
+    const int it = t - t0, q0 = t * BQ;
+    if (STAGES == 2 && t + 1 < q_tiles) load_q(t + 1, (it + 1) & 1);
+    cp_async_commit();
+    cp_async_wait<STAGES - 1>();
+    __syncthreads();  // tile t (and K, V) in shared memory for every thread
+    const float* Qt = ring + (it % STAGES) * C::kStage;
+    const float* dOt = Qt + BQ * LD;
+    const float* lse_s = dOt + BQ * LD;
+    const float* delta_s = lse_s + BQ;
+    const float* B = part == 0 ? Qt : dOt;   // S^T = K Q^T, dP^T = V dO^T
+    const float* Bo = part == 0 ? dOt : Qt;  // dV += P^T dO, dK += dS^T Q
+
+    // S^T or dP^T for keys g + G i and queries c + 16 u.
+    float sc[KPT][2];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) sc[i][0] = sc[i][1] = 0.f;
+#pragma unroll 2
+    for (int kk = 0; kk < DH; kk += 4) {
+      float4 b[2];
+#pragma unroll
+      for (int u = 0; u < 2; ++u) b[u] = ld4(B + (c + 16 * u) * LD + kk);
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const float4 a = ld4(A + (g + G * i) * LD + kk);
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          sc[i][u] = fmaf(a.x, b[u].x, sc[i][u]);
+          sc[i][u] = fmaf(a.y, b[u].y, sc[i][u]);
+          sc[i][u] = fmaf(a.z, b[u].z, sc[i][u]);
+          sc[i][u] = fmaf(a.w, b[u].w, sc[i][u]);
+        }
       }
     }
+
+    if (part == 0) {
+      // P^T = exp(scale S^T - lse), 0 where masked, which only the tiles
+      // crossing the diagonal or the end of S need; handed to part 1.
+      const bool edge = q0 + BQ > S || k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const int kr = g + G * i, key = k0 + kr;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qc = c + 16 * u, qi = q0 + qc;
+          float p = expf(sc[i][u] * scale - lse_s[qc]);
+          if (edge && (qi >= S || key >= S || (causal && key > qi))) p = 0.f;
+          PT[kr * LDP + qc] = p;
+        }
+      }
+      pair_arrive(pair);
+    } else {
+      // dS^T = P^T (dP^T - delta), P^T as the twin thread of part 0 wrote it.
+      pair_sync(pair);
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const int kr = g + G * i;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qc = c + 16 * u;
+          dST[kr * LDP + qc] = PT[kr * LDP + qc] * (sc[i][u] - delta_s[qc]);
+        }
+      }
+    }
+    __syncwarp();  // a half-warp reads back only the P^T or dS^T rows it wrote
+
+    // dV += P^T dO (part 0) or dK += dS^T Q (part 1), along the tile's queries.
+#pragma unroll 2
+    for (int qq = 0; qq < BQ; qq += 4) {
+      float4 pa[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) pa[i] = ld4(Ao + (g + G * i) * LDP + qq);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 bo[NC4];
+#pragma unroll
+        for (int h = 0; h < NC4; ++h) bo[h] = ld4(Bo + (qq + e) * LD + 64 * h + 4 * c);
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+          const float pv = e == 0 ? pa[i].x : e == 1 ? pa[i].y : e == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+          for (int h = 0; h < NC4; ++h) {
+            acc[i][h][0] = fmaf(pv, bo[h].x, acc[i][h][0]);
+            acc[i][h][1] = fmaf(pv, bo[h].y, acc[i][h][1]);
+            acc[i][h][2] = fmaf(pv, bo[h].z, acc[i][h][2]);
+            acc[i][h][3] = fmaf(pv, bo[h].w, acc[i][h][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every reader of this stage, P^T and dS^T is done
+    if (STAGES == 1 && t + 1 < q_tiles) load_q(t + 1, 0);
   }
+  cp_async_wait<0>();  // no copy left in flight when the block exits
+
+  dkv_store<DH>(part == 0 ? dv : dk, acc, part == 0 ? 1.f : scale, base, k0, g, c, S);
 }
 
 template <int DH>
@@ -279,16 +484,22 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
                        int causal, float scale, cudaStream_t stream) {
   typedef DkvCfg<DH> C;
-  cudaError_t e = allow_smem(flash_bwd_dkv_f32_kernel<DH>, C::bytes);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)((s + C::BK - 1) / C::BK) * bh;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dkv_f32_kernel<DH><<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), bh, s,
-      causal, scale);
-  return cudaGetLastError();
+  auto run = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, C::bytes);
+    if (e != cudaSuccess) return e;
+    const long long blocks = (long long)((s + C::BK - 1) / C::BK) * bh;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), bh, s,
+        causal, scale);
+    return cudaGetLastError();
+  };
+  if constexpr (C::kParts == 2)
+    return run(flash_bwd_dkv_f32_parts_kernel<DH>);
+  else
+    return run(flash_bwd_dkv_f32_kernel<DH>);
 }
 
 }  // namespace f32
@@ -600,9 +811,8 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }  // namespace flash
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
-// lse, delta: float32 [bh, s]. dh is 64 or 128 in both dtypes, and 192 or
-// 256 in bf16. Launches on `stream` and returns the launch's CUDA error
-// code.
+// lse, delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes.
+// Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int s, int dh, int causal, float scale, int is_bf16,
@@ -622,6 +832,10 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
     return (int)f32::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
     return (int)f32::launch_dkv<64>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 192)
+    return (int)f32::launch_dkv<192>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 256)
+    return (int)f32::launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -633,5 +847,7 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
   if (dh == 64) return (int)(is_bf16 ? sm90::DkvCfg<64>::kSmem : f32::DkvCfg<64>::bytes);
   if (dh == 192 && is_bf16) return (int)sm90::DkvCfg<192>::kSmem;
   if (dh == 256 && is_bf16) return (int)sm90::DkvCfg<256>::kSmem;
+  if (dh == 192 && !is_bf16) return (int)f32::DkvCfg<192>::bytes;
+  if (dh == 256 && !is_bf16) return (int)f32::DkvCfg<256>::bytes;
   return 0;
 }

@@ -5,9 +5,9 @@
 // flash_attention's custom VJP. There a sequential grid axis walks K blocks
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
-// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64
-// or 128, and in bf16 also 192 or 256 (ops/flash.py zero-pads a smaller
-// head dim up to one; csrc/flash_wide.cu takes the others); lse and
+// Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
+// 128, 192 or 256 (ops/flash.py zero-pads a smaller head dim up to one;
+// past 256 csrc/flash_wide.cu takes it); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -77,6 +77,20 @@
 // ring's extra K/V tiles leave fewer blocks an SM), 64-row Q tiles beat
 // 32-row ones, and 64-key tiles beat 32-key ones at Dh 64 but not at 128
 // (PERF.md, section 6; tools/flash_levers.py group dq_f32).
+//
+// float32 at Dh 192 and 256 (DqCfg): heads in (128, 256] pad to them. The
+// same kernel: dQ 96 or 128 floats a thread, one K/V stage (160 or 204 KB:
+// one block of 4 warps an SM). Two parts of 128 threads sharing the tiles
+// at 256, part 0 making S and P and part 1 dP and dS, each keeping half of
+// dQ's columns (8 warps an SM), ran 1.2% faster in one call, less than
+// the 4% by which repeated calls of one build differed, so this kernel
+// serves both. Splitting Dh between two parts instead, as the float32
+// forward does at 256, adds partial S and dP in another order than one dot
+// product; that moved the dQ row of a causal head's first query (whose
+// exact value is 0) past the 2e-5 row limit. 32-row Q tiles at 192 (two
+// blocks an SM) ran 10% slower. Bound at [8, 3, 2048, 256]: operations,
+// 1.15 ms at the float32 peak (PERF.md, section 6; tools/flash_levers.py
+// group wide_bwd_f32).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -90,9 +104,12 @@ constexpr int kDqRowsPerThread = 8;  // rows a row group (16 threads) owns
 constexpr int kDqStages = 1;         // K/V ring depth
 constexpr int kDqThreads = 16 * kDqRows / kDqRowsPerThread;
 
+// The float32 dQ's tiles at head dim DH. Dh 192 and 256 keep dQ's 96 and
+// 128 floats a thread beside one K/V stage (160 and 204 KB of shared
+// memory, one block of 4 warps an SM).
 template <int DH>
 struct DqCfg {
-  // Keys a K/V tile: 64 at Dh 64; 32 at Dh 128, where 64 ran 9% slower
+  // Keys a K/V tile: 64 at Dh 64; 32 from Dh 128, where 64 ran 9% slower
   // (PERF.md, section 6).
   static constexpr int BQ = kDqRows, BK = DH == 64 ? 64 : 32, RPT = kDqRowsPerThread;
   static constexpr int kThreads = kDqThreads, G = BQ / RPT;  // G row groups
@@ -105,11 +122,11 @@ struct DqCfg {
                                                    (size_t)BQ * LDS);
 };
 
-// K/V tiles of BK keys that the Q tile at q0 reads: up to its diagonal when
-// causal.
-template <int BK>
+// K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+template <int DH>
 __device__ __forceinline__ int dq_tiles(int q0, int S, int causal) {
-  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK;
+  typedef DqCfg<DH> C;
+  return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK;
 }
 
 template <int DH>
@@ -133,7 +150,7 @@ __global__ void __launch_bounds__(kDqThreads, DH == 64 ? 2 : 1)
   const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * BQ;
   const size_t base = (size_t)bh * S * DH;
   const int g = threadIdx.x / 16, c = threadIdx.x % 16;
-  const int n_k = dq_tiles<BK>(q0, S, causal);
+  const int n_k = dq_tiles<DH>(q0, S, causal);
 
   // Tile j goes to stage j % STAGES, one commit group a tile: the first
   // STAGES tiles (Q and dO with the first) now, tile j + STAGES once every
@@ -466,8 +483,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
-// delta: float32 [bh, s]. dh is 64 or 128 in both dtypes, and 192 or 256
-// in bf16. Launches on `stream` and returns the launch's CUDA error code.
+// delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes.
+// Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int s,
                                  int dh, int causal, float scale, int is_bf16, void* stream) {
@@ -486,6 +503,10 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
     return (int)f32::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
     return (int)f32::launch_dq<64>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 192)
+    return (int)f32::launch_dq<192>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 256)
+    return (int)f32::launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -497,5 +518,7 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   if (dh == 64) return (int)(is_bf16 ? sm90::DqCfg<64>::kSmem : f32::DqCfg<64>::bytes);
   if (dh == 192 && is_bf16) return (int)sm90::DqCfg<192>::kSmem;
   if (dh == 256 && is_bf16) return (int)sm90::DqCfg<256>::kSmem;
+  if (dh == 192 && !is_bf16) return (int)f32::DqCfg<192>::bytes;
+  if (dh == 256 && !is_bf16) return (int)f32::DqCfg<256>::bytes;
   return 0;
 }

@@ -11,7 +11,8 @@
 //   output columns 64 h + 4 c. dot4 is one 4-column step of a score
 //   product (S = Q K^T, dP = dO V^T), pv4 one 4-key step of an output
 //   product (O += P V, dQ += dS K); both are full float32 FMA (no TF32).
-// - Half-warp reductions, and the dynamic shared-memory limit.
+// - Half-warp reductions, barriers between the warps of two parts, and the
+//   dynamic shared-memory limit.
 //
 // Shared-memory rows are padded by 16 bytes, which keeps 16-byte vector
 // reads and stores and spreads the rows of a column read over the banks.
@@ -130,6 +131,19 @@ __device__ __forceinline__ void pv4(float (&o)[RPT][NC4][4], const float* P, con
 }
 
 }  // namespace f32
+
+// Named barrier `id` (1-15) over one warp of each of two 128-thread parts
+// (64 threads): the float32 kernels past Dh 128, whose warp w of each part
+// holds the same rows. pair_arrive goes on; pair_sync waits until all 64
+// have arrived. Shared-memory writes before the arrival are seen by the
+// waiting threads after it.
+__device__ __forceinline__ void pair_arrive(int id) {
+  asm volatile("bar.arrive %0, 64;\n" ::"r"(id) : "memory");
+}
+
+__device__ __forceinline__ void pair_sync(int id) {
+  asm volatile("bar.sync %0, 64;\n" ::"r"(id) : "memory");
+}
 
 // Max and sum over the 16 lanes of a half-warp (the threads of one row
 // group in the float32 kernels).

@@ -207,7 +207,7 @@ __global__ void __launch_bounds__(FwdCfg<DH>::kThreads, DH == 64 ? 2 : 1)
 #pragma unroll
         for (int u = 0; u < NKT; ++u) Sp[(g + G * i) * LDP + c + 16 * u] = s[i][u];
       // Warp w of each part holds the same rows: the pair waits for each other only.
-      asm volatile("bar.sync %0, 64;\n" ::"r"(1 + tp / 32) : "memory");
+      pair_sync(1 + tp / 32);
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll

@@ -5,14 +5,15 @@
 // of dmlc_tpu/ops/pallas_kernels.py: _flash_kernel (:157) and
 // _flash_fwd_stream_kernel (:215) for the forward, _flash_bwd_dq_kernel
 // (:271) and _flash_bwd_dkv_kernel (:320). Those take any head dim; the
-// kernels of those sources are instantiated at 64 and 128 (and at 192 and
-// 256 in bf16 and for the float32 forward), and ops/flash.py zero-pads a
-// head dim up to one of them. Every other head dim past 128 it pads to a
-// multiple of 8 and launches these kernels: float32 past 128 (the forward
-// at 192 and 256 aside) and bf16 past 256; a direct call takes them at any
-// multiple of 8 past 128. No model of the registry has heads wider than 128,
-// so no main path runs them: they keep a head dim that the reference
-// computes from being refused on the card.
+// kernels of those sources are instantiated at 64, 128, 192 and 256 in
+// both dtypes, and ops/flash.py zero-pads a head dim up to 256 to one of
+// them. A head dim past 256 it pads to a multiple of 8 and launches these
+// kernels; that is the only way the public functions reach them. A direct
+// call through their entry points takes any multiple of 8 past 128
+// (chip_smoke.py times them that way at 160, 192 and 256 beside the
+// kernels that replaced them there). No model of the registry has heads
+// wider than 128, so no main path runs them: they keep a head dim that the
+// reference computes from being refused on the card.
 //
 // Contracts, as in the other three sources: q, k, v, dO, out, dq, dk, dv
 // are [BH, S, DH] row-major, all float32 or all bfloat16; lse and delta

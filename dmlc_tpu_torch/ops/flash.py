@@ -34,16 +34,15 @@ inputs raise the same ``ValueError``; the CUDA kernels then pick their own
 tiles and mask the ragged edge.
 
 Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
-128) in both dtypes and for ``SM90_WIDE_HEAD_DIMS`` (192, 256) in bf16
-(the Hopper designs); the float32 forward is built for 192 and 256 too.
-Every other head dim past 128 runs through a second set of three simple
-kernels that take the head dim at run time (``csrc/flash_wide.cu``, any
-multiple of 8): float32 past 128 (but the forward at 192 and 256) and
-bf16 past 256. No head dim is refused.
+128) and for ``SM90_WIDE_HEAD_DIMS`` (192, 256), in both dtypes (bf16 on
+the Hopper designs, float32 on register-tiled FMA). Every head dim past
+256 runs through a second set of three simple kernels that take the head
+dim at run time (``csrc/flash_wide.cu``, any multiple of 8). No head dim
+is refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
-``_run_head_dim(Dh, dtype)`` (the next of ``KERNEL_HEAD_DIMS``; past 128,
-in bf16 up to 256, the next multiple of 64; past that the next multiple
-of 8) on every device, run the wrappers there and slice the results back.
+``_run_head_dim(Dh)`` (the next of ``KERNEL_HEAD_DIMS``; past 128, up to
+256, the next multiple of 64; past that the next multiple of 8) on every
+device, run the wrappers there and slice the results back.
 The padding is exact: zero columns of Q and K leave Q K^T unchanged, zero
 columns of V and dO leave out's first Dh columns, lse, delta and dP
 unchanged, and dQ, dK, dV get zero columns. ``scale`` defaults to the
@@ -71,21 +70,13 @@ _FULL_BLOCK_CAP = 1024
 #: functions pad any smaller head dim up to one of them.
 KERNEL_HEAD_DIMS = (64, 128)
 _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
-#: The wider head dims the three bf16 Hopper kernels are compiled for
-#: (csrc/flash_fwd.cu, csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu); a bf16
-#: head dim in (128, 256] pads up to one of them. The float32 forward is
-#: compiled for them too; float32 pads only to a multiple of
-#: WIDE_HEAD_DIM_STEP, so float32 heads of exactly 192 or 256 reach it.
+#: The wider head dims the three kernels are compiled for in both dtypes
+#: (csrc/flash_fwd.cu, csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu); a head
+#: dim in (128, 256] pads up to one of them.
 SM90_WIDE_HEAD_DIMS = (192, 256)
-#: Every other head dim past 128 pads to a multiple of WIDE_HEAD_DIM_STEP
-#: and runs the wide kernels (csrc/flash_wide.cu), which take any.
+#: Every head dim past 256 pads to a multiple of WIDE_HEAD_DIM_STEP and
+#: runs the wide kernels (csrc/flash_wide.cu), which take any.
 WIDE_HEAD_DIM_STEP = 8
-
-# The entry points (ops/kernels._SIGNATURES) with a kernel of their own at
-# SM90_WIDE_HEAD_DIMS, by dtype: all three Hopper designs in bf16, the FMA
-# forward in float32.
-_SM90_WIDE_ENTRIES = {torch.bfloat16: ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
-                      torch.float32: ("flash_fwd",)}
 
 
 def _kernel_head_dim(dh: int) -> int | None:
@@ -94,28 +85,23 @@ def _kernel_head_dim(dh: int) -> int | None:
     return next((k for k in KERNEL_HEAD_DIMS if k >= dh), None)
 
 
-def _run_head_dim(dh: int, dtype: torch.dtype) -> int:
-    """The head dim the public functions run heads of ``dh`` in ``dtype``
-    at, on every device, so that a forward and its backward see one
-    width: ``_kernel_head_dim(dh)``; past it, in bf16, the next of
+def _run_head_dim(dh: int) -> int:
+    """The head dim the public functions run heads of ``dh`` at, in either
+    dtype and on every device, so that a forward and its backward see one
+    width: ``_kernel_head_dim(dh)``; past it the next of
     ``SM90_WIDE_HEAD_DIMS``; past that ``dh`` rounded up to a multiple of
     ``WIDE_HEAD_DIM_STEP``."""
-    padded = _kernel_head_dim(dh)
-    if padded is None and dtype == torch.bfloat16:
-        padded = next((k for k in SM90_WIDE_HEAD_DIMS if k >= dh), None)
+    padded = _kernel_head_dim(dh) or next((k for k in SM90_WIDE_HEAD_DIMS if k >= dh), None)
     return padded or -(-dh // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
 
 
-def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
+def _entry_name(name: str, dh: int) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
-    ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
-    ``dtype``: its own kernel at ``KERNEL_HEAD_DIMS``, and at
-    ``SM90_WIDE_HEAD_DIMS`` in bf16 and, for the forward, in float32; else
-    the wide kernel (``flash_wide_*``); None for a head dim no kernel
-    takes."""
-    if dh in KERNEL_HEAD_DIMS:
-        return name
-    if dh in SM90_WIDE_HEAD_DIMS and name in _SM90_WIDE_ENTRIES.get(dtype, ()):
+    ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh``, in
+    either dtype: its own kernel at ``KERNEL_HEAD_DIMS`` and
+    ``SM90_WIDE_HEAD_DIMS``; else the wide kernel (``flash_wide_*``); None
+    for a head dim no kernel takes."""
+    if dh in KERNEL_HEAD_DIMS or dh in SM90_WIDE_HEAD_DIMS:
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
         return name.replace("flash_", "flash_wide_", 1)
@@ -264,7 +250,7 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
         if first.dtype not in _KERNEL_DTYPES or any(t.dtype != first.dtype for t in mats.values()):
             raise TypeError(f"{what}: the kernel takes one dtype of {_KERNEL_DTYPES} for "
                             f"{list(mats)}, got {[t.dtype for t in mats.values()]}")
-        if _entry_name("flash_fwd", dh, first.dtype) is None:
+        if _entry_name("flash_fwd", dh) is None:
             raise ValueError(
                 f"{what}: the kernels are built for head dims {KERNEL_HEAD_DIMS} and the "
                 f"multiples of {WIDE_HEAD_DIM_STEP} past {KERNEL_HEAD_DIMS[-1]}, got {dh}")
@@ -277,10 +263,10 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
 def _run(name: str, first: torch.Tensor, *args) -> tuple[str, int, torch.dtype]:
     """Launch kernel ``name`` (``flash_fwd``, ``flash_bwd_dq`` or
     ``flash_bwd_dkv``) on ``first``'s device through the entry point
-    ``_entry_name`` picks for its head dim and dtype; returns the key the
+    ``_entry_name`` picks for its head dim; returns the key the
     wrapper counts the launch under: (entry point, head dim, dtype)."""
     dh, dtype = first.shape[-1], first.dtype
-    entry = _entry_name(name, dh, dtype)
+    entry = _entry_name(name, dh)
     lib, fn = kernels._entry(entry)
     rc = kernels._launch(first, fn, *args)
     _build.check(lib, rc, entry)
@@ -379,7 +365,7 @@ class _Flash(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, scale: float):  # type: ignore[override]
-        dh = _run_head_dim(q.shape[-1], q.dtype)
+        dh = _run_head_dim(q.shape[-1])
         q3, k3, v3 = (_as_heads(x, dh) for x in (q, k, v))
         out, lse = flash_forward(q3, k3, v3, causal=causal, scale=scale)
         ctx.save_for_backward(q3, k3, v3, out, lse)
@@ -424,7 +410,7 @@ def flash_attention_with_lse(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, 
     b, h, s, dh = q.shape
     if scale is None:
         scale = dh ** -0.5
-    run_dh = _run_head_dim(dh, q.dtype)
+    run_dh = _run_head_dim(dh)
     with torch.no_grad():
         out, lse = flash_forward(*(_as_heads(x, run_dh) for x in (q, k, v)), causal=causal,
                                  scale=float(scale))
@@ -442,7 +428,7 @@ def flash_attention_block_bwd(q, k, v, out, lse, do, *, causal: bool = False,
     if scale is None:
         scale = q.shape[-1] ** -0.5
     b, h, s, dh = q.shape
-    run_dh = _run_head_dim(dh, q.dtype)
+    run_dh = _run_head_dim(dh)
     q3, k3, v3, o3, do3 = (_as_heads(x, run_dh) for x in (q, k, v, out, do))
     lse3 = lse.reshape(b * h, s, 1).to(torch.float32).contiguous()
     delta3 = (_delta(o3, do3) if delta is None

@@ -84,9 +84,9 @@ _SIGNATURES = {
                                                       ctypes.c_void_p],
     ),
 }
-# The same three past head dim 128 where no Hopper design is built
-# (csrc/flash_wide.cu; ops/flash._entry_name picks), with the same
-# arguments.
+# The same three at any head dim past 128 (csrc/flash_wide.cu): the public
+# functions reach them past 256 (ops/flash._entry_name picks), with the
+# same arguments.
 _SIGNATURES.update({
     f"flash_wide_{name[6:]}": (f"dmlc_flash_wide_{name[6:]}", _SIGNATURES[name][1])
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")

@@ -40,7 +40,20 @@ LM train shape, or its Dh-64 twin):
   boxes at twice their distance past head dim 128, so dQ's columns [64,
   128) read K's [128, 192) and the second accumulator reads past the tile;
 - flash_fwd_f32_dh256 (float32, head dim 256): the fault of flash_fwd_f32
-  in the Dh-256 instantiation (two parts of 128 threads).
+  in the Dh-256 instantiation (two parts of 128 threads);
+- flash_bwd_dq_f32_dh256 (float32, head dim 256): the fault of
+  flash_bwd_dq_f32 in the Dh-256 instantiation (dQ 128 floats a thread);
+- flash_bwd_dkv_f32_dh256 (float32, head dim 256): the fault of
+  flash_bwd_dkv_f32 in the Dh-256 instantiation (one part, dK and dV 128
+  floats a thread);
+- flash_bwd_dkv_f32_dh192 (float32, head dim 192): the last 32-key block
+  of the two-part kernel, which only Dh 192 runs, skips its last Q tile;
+- flash_bwd_dkv_f32_handoff (float32, head dim 192): part 1 of the
+  two-part dK/dV makes dS^T from the P^T of the neighbouring key (row g ^
+  1 of the handed tile);
+- flash_bwd_dq_f32_dh192 (float32, head dim 192, [8, 4, 2048, 192]): the
+  one-part dQ, which Dh 192 runs with three float4 columns a thread,
+  stores its third column chunk over the first.
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -66,8 +79,8 @@ from pathlib import Path
 from typing import NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))  # tools/ is not a package
-from flash_levers import (DH64_SHAPE, REPO, TRAIN_SHAPE, WIDE256_SHAPE,  # noqa: E402
-                          copy_port, outside_checkout)
+from flash_levers import (DH64_SHAPE, REPO, TRAIN_SHAPE, WIDE192_SHAPE,  # noqa: E402
+                          WIDE256_SHAPE, copy_port, outside_checkout)
 
 
 class Fault(NamedTuple):
@@ -89,6 +102,10 @@ DQ_SM90 = ("  return ((causal ? min(q0 + kDqBQ, S) : S) + kDqBK - 1) / kDqBK;",
 DQ_BOX = ("  for (int kk = 0; kk < NK / 16; ++kk) dq.mma(dsa[kk], Kt + kk * 16 * 128, BK * 128);",
           "  for (int kk = 0; kk < NK / 16; ++kk)"
           " dq.mma(dsa[kk], Kt + kk * 16 * 128, BK * 128 * (DH > 128 ? 2 : 1));")
+# The float32 dK/dV's count of Q tiles (one part).
+DKV_F32 = ("  const int q_tiles = (S + C::BQ - 1) / C::BQ;",
+           "  const int q_tiles = (S + C::BQ - 1) / C::BQ - (k0 + C::BK >= S ? 1 : 0);")
+# The float32 forward's and dQ's count of K/V tiles (fwd_tiles, dq_tiles).
 FWD_F32 = ("  return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK;",
            "  return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK"
            " - (q0 + C::BQ >= S ? 1 : 0);")
@@ -107,14 +124,8 @@ FAULTS = {
     "flash_bwd_dq": Fault("flash_bwd_dq", *DQ_SM90, "bfloat16", TRAIN_SHAPE),
     "flash_bwd_dkv": Fault("flash_bwd_dkv", *DKV_SM90, "bfloat16", TRAIN_SHAPE),
     "flash_fwd_f32": Fault("flash_fwd", *FWD_F32, "float32", TRAIN_SHAPE),
-    "flash_bwd_dq_f32": Fault(
-        "flash_bwd_dq", "  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK;",
-        "  return ((causal ? min(q0 + kDqRows, S) : S) + BK - 1) / BK"
-        " - (q0 + kDqRows >= S ? 1 : 0);", "float32", TRAIN_SHAPE),
-    "flash_bwd_dkv_f32": Fault(
-        "flash_bwd_dkv", "  const int q_tiles = (S + C::BQ - 1) / C::BQ;",
-        "  const int q_tiles = (S + C::BQ - 1) / C::BQ - (k0 + C::BK >= S ? 1 : 0);",
-        "float32", TRAIN_SHAPE),
+    "flash_bwd_dq_f32": Fault("flash_bwd_dq", *FWD_F32, "float32", TRAIN_SHAPE),
+    "flash_bwd_dkv_f32": Fault("flash_bwd_dkv", *DKV_F32, "float32", TRAIN_SHAPE),
     "flash_fwd_dh64": Fault("flash_fwd", *FWD_SM90, "bfloat16", DH64_SHAPE),
     "flash_fwd_dh256": Fault("flash_fwd", *FWD_SM90, "bfloat16", WIDE256_SHAPE),
     "flash_fwd_s_chunk": Fault("flash_fwd", *S_CHUNK, "bfloat16", WIDE256_SHAPE),
@@ -123,6 +134,22 @@ FAULTS = {
     "flash_bwd_dq_dh256": Fault("flash_bwd_dq", *DQ_SM90, "bfloat16", WIDE256_SHAPE),
     "flash_bwd_dq_box": Fault("flash_bwd_dq", *DQ_BOX, "bfloat16", WIDE256_SHAPE),
     "flash_fwd_f32_dh256": Fault("flash_fwd", *FWD_F32, "float32", WIDE256_SHAPE),
+    "flash_bwd_dq_f32_dh256": Fault("flash_bwd_dq", *FWD_F32, "float32", WIDE256_SHAPE),
+    "flash_bwd_dkv_f32_dh256": Fault("flash_bwd_dkv", *DKV_F32, "float32", WIDE256_SHAPE),
+    "flash_bwd_dkv_f32_dh192": Fault(
+        "flash_bwd_dkv", "  const int q_tiles = (S + BQ - 1) / BQ;",
+        "  const int q_tiles = (S + BQ - 1) / BQ - (k0 + BK >= S ? 1 : 0);",
+        "float32", WIDE192_SHAPE),
+    "flash_bwd_dkv_f32_handoff": Fault(
+        "flash_bwd_dkv",
+        "          dST[kr * LDP + qc] = PT[kr * LDP + qc] * (sc[i][u] - delta_s[qc]);",
+        "          dST[kr * LDP + qc] = PT[(kr ^ 1) * LDP + qc] * (sc[i][u] - delta_s[qc]);",
+        "float32", WIDE192_SHAPE),
+    "flash_bwd_dq_f32_dh192": Fault(
+        "flash_bwd_dq",
+        "        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + 64 * h + 4 * c) =",
+        "        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + 64 * (h % 2) + 4 * c) =",
+        "float32", WIDE192_SHAPE),
 }
 
 PAGED_CASE = ("bench_decode", 128)

@@ -10,7 +10,8 @@ its Dh-64 twin; ``wide`` (the bf16 forward and dK/dV at head dims 256 and
 192, timed at the train shape's FLOPs with heads of 256 and of 192,
 [8, 3, 2048, 256] and [8, 4, 2048, 192]); ``wide_dq`` (the bf16
 flash_bwd_dq at those head dims and shapes); ``wide_f32`` (the float32
-forward there); ``paged``
+forward there); ``wide_bwd_f32`` (the float32 flash_bwd_dq and
+flash_bwd_dkv there); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -33,8 +34,9 @@ whose sources and headers replace the copy's whole (the variant
 "parent<j>"), run first and last so that drift between runs shows. The
 copy is built; the group's kernels must pass ``chip_smoke.flash_check`` in
 the group's dtype at the group's checks (by default the LM train shape,
-causal, and S 193 and 1000, causal and not; for ``wide``, ``wide_dq``
-and ``wide_f32`` S 193 at head dims 256 and 192, causal and not) and at
+causal, and S 193 and 1000, causal and not; for ``wide``, ``wide_dq``,
+``wide_f32`` and ``wide_bwd_f32`` S 193 at head dims 256 and 192, causal
+and not) and at
 each timed shape, and
 ``chip_smoke.kernel_device_ms``
 times each of them at each timed shape (three readings of 20 calls). A
@@ -115,7 +117,7 @@ LAST_SKIP = ("    mbar_wait(bar_q, 0);\n    for (int j = 0; j < n_k; ++j) {",
 # rows or 8 Q rows in one wavefront, P^T and dS^T then passed to other warps
 # through a block barrier.
 FWD_SYNC = [("constexpr int kFwdStages = 2;", "constexpr int kFwdStages = 1;")]
-DKV_STAGES = "  static constexpr int kStages = DH == 64 ? 1 : 2;\n"
+DKV_STAGES = "  static constexpr int kStages = DH == 64 || DH == 192 ? 1 : 2;\n"
 QUAD = [
     ("  static constexpr int LDP = BQ + 4;   // P^T, dS^T rows\n",
      "  static constexpr int LDP = BQ + 8;   // P^T, dS^T rows\n"),
@@ -420,9 +422,25 @@ F32_EXCHANGE = ("        for (int u = 0; u < NKT; ++u)"
                 " Sp[(g + G * i) * LDP + c + 16 * u] = s[i][u];\n")
 F32_BLOCK = (F32_EXCHANGE + (
     "      // Warp w of each part holds the same rows: the pair waits for each other only.\n"
-    "      asm volatile(\"bar.sync %0, 64;\\n\" ::\"r\"(1 + tp / 32) : \"memory\");\n"),
+    "      pair_sync(1 + tp / 32);\n"),
     F32_EXCHANGE + "      __syncthreads();\n")
 F32_WHOLE = (F32_PARTS, F32_PARTS.replace("DH == 256 ? 2 : 1", "1"))
+
+# The float32 dQ and dK/dV at Dh 192 and 256 (group wide_bwd_f32). ship:
+# the checkout's sources (dQ: one part of 128 threads at both, one K/V
+# stage; dK/dV: at 256 one part (dK and dV together, 128 floats a thread)
+# with a 2-stage Q/dO ring, at 192 two parts, part 0 making P^T and keeping
+# dV, part 1 making dP^T and dS^T and keeping dK, in one stage, two blocks
+# an SM); stages1: dK/dV with one Q/dO stage at 256 too; stages2: dK/dV
+# with two stages at 192 too; whole: dK/dV in one part at 192 too (96
+# floats a thread); parts: dK/dV in two parts at 256 too; whole1: one part,
+# one stage at both; rows32: dQ at 192 with 32-row Q tiles (4 rows a row
+# group, two blocks an SM).
+DKV_PARTS = "  static constexpr int kParts = DH == 192 ? 2 : 1;\n"
+DKV_ONE_STAGE = (DKV_STAGES, DKV_STAGES.replace("DH == 192", "DH > 128"))
+DKV_TWO_STAGES = (DKV_STAGES, DKV_STAGES.replace("DH == 64 || DH == 192", "DH == 64"))
+DKV_WHOLE = (DKV_PARTS, DKV_PARTS.replace("DH == 192 ? 2 : 1", "1"))
+DKV_TWO_PARTS = (DKV_PARTS, DKV_PARTS.replace("DH == 192", "DH > 128"))
 
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
@@ -434,9 +452,10 @@ GROUPS = {
     }, ("a", "a0", "b", "c", "bc", "b", "a")),
     "f32": Group("float32", ("flash_fwd", "flash_bwd_dkv"), (TRAIN_SHAPE, DH64_SHAPE), {
         "ship": {},
-        "sync": {"flash_fwd": FWD_SYNC,
-                 "flash_bwd_dkv": [(DKV_STAGES, DKV_STAGES.replace("DH == 64 ? 1 : 2", "1"))]},
-        "ring": {"flash_bwd_dkv": [(DKV_STAGES, DKV_STAGES.replace("DH == 64 ? 1 : 2", "2"))]},
+        "sync": {"flash_fwd": FWD_SYNC, "flash_bwd_dkv": [(DKV_STAGES, DKV_STAGES.replace(
+            "DH == 64 || DH == 192 ? 1 : 2", "1"))]},
+        "ring": {"flash_bwd_dkv": [(DKV_STAGES, DKV_STAGES.replace(
+            "DH == 64 || DH == 192 ? 1 : 2", "2"))]},
         "rows128": {"flash_fwd": [("constexpr int kFwdRows = 64;",
                                    "constexpr int kFwdRows = 128;")]},
         "keys64": {"flash_bwd_dkv": [("constexpr int kDkvKeys = 32;",
@@ -485,6 +504,19 @@ GROUPS = {
             "BQ = kFwdRows", "BQ = DH > 128 ? 32 : kFwdRows").replace(
             "RPT = kFwdRowsPerThread", "RPT = DH > 128 ? 4 : kFwdRowsPerThread"))]},
     }, ("ship", "stages1", "stages2", "block", "whole", "whole1", "keys16", "rows32", "ship"),
+        checks=WIDE_CHECKS),
+    "wide_bwd_f32": Group("float32", ("flash_bwd_dq", "flash_bwd_dkv"),
+                          (WIDE256_SHAPE, WIDE192_SHAPE), {
+        "ship": {},
+        "stages1": {"flash_bwd_dkv": [DKV_ONE_STAGE]},
+        "stages2": {"flash_bwd_dkv": [DKV_TWO_STAGES]},
+        "whole": {"flash_bwd_dkv": [DKV_WHOLE]},
+        "parts": {"flash_bwd_dkv": [DKV_TWO_PARTS]},
+        "whole1": {"flash_bwd_dkv": [DKV_WHOLE, DKV_ONE_STAGE]},
+        "rows32": {"flash_bwd_dq": [("BQ = kDqRows,", "BQ = DH == 192 ? 32 : kDqRows,"),
+                                    ("RPT = kDqRowsPerThread;",
+                                     "RPT = DH == 192 ? 4 : kDqRowsPerThread;")]},
+    }, ("ship", "stages1", "stages2", "whole", "parts", "whole1", "rows32", "ship"),
         checks=WIDE_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
@@ -604,7 +636,7 @@ for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE):
         args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
         row = {}
         for name in kernels:
-            entry = FL._entry_name(name, shape[3], dt)
+            entry = FL._entry_name(name, shape[3])
             try:
                 row[f"{entry}_ms"] = [cs.kernel_device_ms(lambda: CALLS[name](args, kw), entry,
                                                           calls=10) for _ in range(3)]

@@ -15,21 +15,21 @@ Same numpy-seeded float32 inputs through both:
   the kernels are built for beside 128) against the same;
 - at head dims 32 and 96, which the public functions zero-pad to 64 and
   128: out and gradients, lse and the blockwise gradients against the
-  same; past 128 (160, 192, 256 and 130, padded to 136) the head dims the
-  wide kernels and the kernels built for 192 and 256 run at, and 640, past
-  the 512 the card once refused; which head dim and entry point each (head
-  dim, dtype) runs at on the card (``_run_head_dim``, ``_entry_name``: bf16
-  in (128, 256] padded to 192 or 256 for the three Hopper kernels, float32
-  heads of 192 and 256 on the float32 forward), that padding 160 to 192
-  and 200 to 256 is exact, and that no head-dim limit is left in the
+  same; past 128 (160, 192, 256 and 130, padded to 192) the head dims the
+  kernels built for 192 and 256 run at, and 640, past the 512 the card
+  once refused; which head dim and entry point each (head dim, dtype) runs
+  at on the card (``_run_head_dim``, ``_entry_name``: heads in (128, 256]
+  padded to 192 or 256 for the three kernels of their own in both dtypes,
+  past 256 the wide kernels), that padding 160 to 192 and 200 to 256 is
+  exact in both dtypes' routing, and that no head-dim limit is left in the
   sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
 - each flash entry point dispatches head dims 64 and 128 in both dtypes
   (bf16 to ``sm90::``, float32 to ``f32::``), the set
-  ``KERNEL_HEAD_DIMS``, and 192 and 256 (``SM90_WIDE_HEAD_DIMS``) in bf16
-  and, for the forward, in float32;
+  ``KERNEL_HEAD_DIMS``, and 192 and 256 (``SM90_WIDE_HEAD_DIMS``) in both
+  dtypes;
 - each fault of ``tools/flash_fault_check.py`` (the paged decode kernel's
   too) and each lever of ``tools/flash_levers.py`` finds its line once in
   its kernel's source;
@@ -146,14 +146,14 @@ def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
     the name is the test's old one): past 512 the head dim pads to a
     multiple of 8 in both dtypes, every wrapper has a wide kernel there,
     and a CPU tensor runs the plain versions at the same padded head dim;
-    below it the padding is unchanged."""
+    below 256 float32 pads to 192 or 256 as bf16 does."""
     f32, bf16 = torch.float32, torch.bfloat16
-    assert flash._run_head_dim(96, f32) == 128 and flash._run_head_dim(32, bf16) == 64
-    assert flash._run_head_dim(160, f32) == 160 and flash._run_head_dim(130, f32) == 136
+    assert flash._run_head_dim(96) == 128 and flash._run_head_dim(32) == 64
+    assert flash._run_head_dim(160) == 192 and flash._run_head_dim(130) == 192
     for dh, run in ((513, 520), (1000, 1000)):
         for dt in (f32, bf16):
-            assert flash._run_head_dim(dh, dt) == run
-            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == {
+            assert flash._run_head_dim(dh) == run
+            assert {flash._entry_name(n, run) for n in FLASH_ENTRIES} == {
                 "flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"}
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
@@ -162,33 +162,31 @@ def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
 def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     """No wide limit is left: each head dim in (128, 1100] runs, in both
     dtypes, at a head dim
-    that every wrapper has a kernel for: at most 7 wider, or in bf16 up to
-    256 at most 63 wider (192 or 256); none at or below 128 runs wide."""
+    that every wrapper has a kernel for: up to 256 at most 63 wider (192 or
+    256), past it at most 7 wider; none at or below 128 runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
-            run = flash._run_head_dim(dh, dt)
-            step = 64 if dt == torch.bfloat16 and dh <= 256 else flash.WIDE_HEAD_DIM_STEP
+            run = flash._run_head_dim(dh)
+            step = 64 if dh <= 256 else flash.WIDE_HEAD_DIM_STEP
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
-            assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
-    assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
+            assert all(flash._entry_name(n, run) for n in FLASH_ENTRIES), (dh, dt)
+    assert all(flash._entry_name("flash_fwd", dh) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
 
 
 FLASH_ENTRIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
-HOPPER = {n: n for n in FLASH_ENTRIES}
+OWN = {n: n for n in FLASH_ENTRIES}
 WIDE = {n: f"flash_wide_{n[6:]}" for n in FLASH_ENTRIES}
-F32_FORWARD = {**WIDE, "flash_fwd": "flash_fwd"}
 # (head dim, dtype) -> (the head dim it runs at, the entry point of each
-# wrapper there): bf16 in (128, 256] on the three Hopper kernels at 192 or
-# 256; float32 heads of 192 and 256 on the float32 forward with the wide dQ
-# and dK/dV; other float32 heads past 128 and bf16 past 256 on the wide
-# kernels at a multiple of 8.
+# wrapper there): in (128, 256] the three kernels of their own at 192 or
+# 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
+# past 256 the wide kernels at a multiple of 8.
 DISPATCH = {
-    (130, "bfloat16"): (192, HOPPER), (130, "float32"): (136, WIDE),
-    (160, "bfloat16"): (192, HOPPER), (160, "float32"): (160, WIDE),
-    (192, "bfloat16"): (192, HOPPER), (192, "float32"): (192, F32_FORWARD),
-    (200, "bfloat16"): (256, HOPPER), (200, "float32"): (200, WIDE),
-    (256, "bfloat16"): (256, HOPPER), (256, "float32"): (256, F32_FORWARD),
+    (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
+    (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
+    (192, "bfloat16"): (192, OWN), (192, "float32"): (192, OWN),
+    (200, "bfloat16"): (256, OWN), (200, "float32"): (256, OWN),
+    (256, "bfloat16"): (256, OWN), (256, "float32"): (256, OWN),
     (264, "bfloat16"): (264, WIDE), (264, "float32"): (264, WIDE),
     (513, "bfloat16"): (520, WIDE), (513, "float32"): (520, WIDE),
     (1000, "bfloat16"): (1000, WIDE), (1000, "float32"): (1000, WIDE),
@@ -199,20 +197,21 @@ DISPATCH = {
 def test_dispatch_table(dh, dtype):
     run, entries = DISPATCH[dh, dtype]
     dt = getattr(torch, dtype)
-    assert flash._run_head_dim(dh, dt) == run
-    assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == entries
+    assert flash._run_head_dim(dh) == run
+    assert {n: flash._entry_name(n, run) for n in FLASH_ENTRIES} == entries
 
 
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("dh, causal", [(160, True), (200, False)])
-def test_padding_to_the_hopper_head_dims_is_exact(dh, causal):
-    """bf16 heads of 160 and 200 run the three Hopper kernels at 192 and
-    256: the same inputs, padded by the helper the card uses
-    (``_run_head_dim``, ``_as_heads``), through the plain versions at the
-    padded head dim and sliced back, against the JAX flash function at the
-    head dim itself (out, lse, dq, dk, dv; float32 data, so that only the
-    padding differs: tolerances as above)."""
+def test_padding_to_the_hopper_head_dims_is_exact(dh, causal, dtype):
+    """Heads of 160 and 200 run the three kernels of their own at 192 and
+    256 in either dtype: the same inputs, padded by the helpers the card
+    uses (``_run_head_dim``, ``_as_heads``), through the
+    plain versions at the padded head dim and sliced back, against the JAX
+    flash function at the head dim itself (out, lse, dq, dk, dv; float32
+    data, so that only the padding differs: tolerances as above)."""
     q, k, v, g = _heads(48, dh, seed=10)
-    run = flash._run_head_dim(dh, torch.bfloat16)
+    run = flash._run_head_dim(dh)
     assert run in flash.SM90_WIDE_HEAD_DIMS and run > dh
     q3, k3, v3, g3 = (flash._as_heads(torch.from_numpy(x), run) for x in (q, k, v, g))
     kw = {"causal": causal, "scale": dh ** -0.5}
@@ -239,9 +238,9 @@ def test_out_and_grads_match_past_the_old_limit(causal):
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
 @pytest.mark.parametrize("dh", [256, 130, 192])
 def test_out_and_grads_match_past_head_dim_128(dh, causal):
-    """Head dims past 128 (130 zero-padded to 136; 192 and 256, which the
-    kernels are built for in bf16 and the float32 forward too) against
-    JAX's Pallas flash attention."""
+    """Head dims past 128 (130 zero-padded to 192; 192 and 256, which the
+    three kernels are built for in both dtypes) against JAX's Pallas flash
+    attention."""
     q, k, v, g = _heads(40, dh, seed=9)
     _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh}")
 
@@ -266,14 +265,16 @@ def test_wide_kernels_limit_and_entry_points_are_their_sources():
 
 
 @pytest.mark.parametrize("dh, run, dtype", [
-    (32, 64, "float32"), (96, 128, "float32"), (64, 64, "float32"), (160, 160, "float32"),
-    (130, 136, "float32"), (256, 256, "float32"), (160, 192, "bfloat16"),
-    (200, 256, "bfloat16"), (513, 520, "bfloat16")])
+    (32, 64, "float32"), (96, 128, "float32"), (64, 64, "float32"), (160, 192, "float32"),
+    (130, 192, "float32"), (200, 256, "float32"), (256, 256, "float32"), (264, 264, "float32"),
+    (160, 192, "bfloat16"), (200, 256, "bfloat16"), (513, 520, "bfloat16"),
+    (160, 192, "float64")])
 def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, dtype, monkeypatch):
     """Every public entry point pads q, k, v, out and dO with zero columns
     before the wrappers (which launch the kernels on the card) and slices
-    what they return, to the head dim of ``_run_head_dim`` in the inputs'
-    dtype."""
+    what they return, to the head dim of ``_run_head_dim``, in every
+    dtype (float64, which only the CPU takes, pads as the kernels' dtypes
+    do)."""
     seen = []
 
     def spy(fn):
@@ -384,7 +385,7 @@ def test_gradient_dtypes_follow_the_inputs():
 @pytest.mark.parametrize("dh,dtype,entries", [
     (128, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (256, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-    (256, torch.float32, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (256, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
@@ -442,14 +443,15 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_bwd_dq_f32", "flash_bwd_dkv_f32", "flash_fwd_dh64",
                                    "flash_fwd_dh256", "flash_fwd_s_chunk", "flash_bwd_dkv_dh256",
                                    "flash_bwd_dkv_swap", "flash_bwd_dq_dh256", "flash_bwd_dq_box",
-                                   "flash_fwd_f32_dh256"])
+                                   "flash_fwd_f32_dh256", "flash_bwd_dq_f32_dh256",
+                                   "flash_bwd_dkv_f32_dh256", "flash_bwd_dkv_f32_dh192",
+                                   "flash_bwd_dkv_f32_handoff", "flash_bwd_dq_f32_dh192"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
-    its kernel is built for (192 and 256 too: the bf16 Hopper designs and
-    the float32 forward)."""
+    its kernel is built for (192 and 256 too, in both dtypes)."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
@@ -457,11 +459,12 @@ def test_fault_check_finds_its_loop_once(fault):
     assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
     dh = case.shape[3]
     assert case.dtype in ("bfloat16", "float32")
-    assert flash._entry_name(case.source, dh, getattr(torch, case.dtype)) == case.source
+    assert flash._entry_name(case.source, dh) == case.source
     assert ("_f32" in fault) == (case.dtype == "float32")
     assert fault.endswith("_dh64") == (dh == 64)
     assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap",
-                                                                 "_box"))
+                                                                 "_box", "_handoff", "_dh192"))
+    assert dh == 192 or not fault.endswith("_dh192")
     assert case.check == "flash"
 
 
@@ -546,6 +549,14 @@ def test_wide_f32_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("wide_f32", lever)
 
 
+@pytest.mark.parametrize("lever", ["ship", "stages1", "stages2", "whole", "parts", "whole1",
+                                   "rows32"])
+def test_wide_bwd_f32_lever_tool_finds_its_lines_once(lever):
+    """The float32 flash_bwd_dq and flash_bwd_dkv variants at head dims
+    192 and 256 (group wide_bwd_f32)."""
+    _lever_sources_apply("wide_bwd_f32", lever)
+
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -571,9 +582,8 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     """Each flash source's C entry point launches a kernel for head dim 64
     and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
     FMA kernels, flash::f32), each instantiated at the head dim it is
-    dispatched for; each also for SM90_WIDE_HEAD_DIMS in bf16, and the
-    forward in float32 too: the head dims ``_entry_name`` sends to them
-    (text only, no nvcc)."""
+    dispatched for; each also for SM90_WIDE_HEAD_DIMS in both dtypes: the
+    head dims ``_entry_name`` sends to them (text only, no nvcc)."""
     assert flash.KERNEL_HEAD_DIMS == (64, 128) and flash.SM90_WIDE_HEAD_DIMS == (192, 256)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
     pattern = re.compile(r"if \((!?)is_bf16 && dh == (\d+)\)\s*return \(int\)(sm90::|f32::)?"
@@ -589,9 +599,8 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
             found.add((neg == "", int(dh)))
         want = {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}
         wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
-                for dh in flash.SM90_WIDE_HEAD_DIMS if flash._entry_name(name, dh, dt) == name}
-        f32_wide = {(False, 192), (False, 256)} if name == "flash_fwd" else set()
-        assert wide == {(True, 192), (True, 256)} | f32_wide
+                for dh in flash.SM90_WIDE_HEAD_DIMS if flash._entry_name(name, dh) == name}
+        assert wide == {(bf16, dh) for bf16 in (True, False) for dh in (192, 256)}
         assert found == want | wide
         smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
         for bf16, dh in wide:
