@@ -8,9 +8,10 @@ non-zero:
 
 1. device  — the card's name, power limit and the TF32 settings in force.
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
-   each flash kernel instantiation (head dim 64, 128, 192 and 256, bf16
-   and float32), its registers, shared memory and spills (ptxas), and for the
-   bf16 Hopper ones their wgmma and TMA instructions (SASS).
+   each flash kernel instantiation (head dim 64, 128, 192 and 256, the
+   forward's also 320, 384, 448 and 512, bf16 and float32), its registers,
+   shared memory and spills (ptxas), and for the bf16 Hopper ones their
+   wgmma and TMA instructions (SASS).
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
@@ -22,7 +23,10 @@ non-zero:
    and 128), 160, 192, 200 and 256 (in both dtypes the three kernels of
    their own at 192 or 256, no wide one) against the plain versions with
    the kernel that ran each head dim, and a sweep of head dims up to 1024
-   (past 512 included, which the card once refused).
+   (in (256, 512] the forward's own kernels beside the wide backward, past
+   512 the wide kernels); the forward's own kernels past 256 checked and
+   timed at [4, 4, 1024, 320/384/512] and [8, 2, 2048, 384] beside the
+   wide forward they replaced there and SDPA.
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -112,18 +116,23 @@ STREAM_SHAPE = (1, 6, 16384, 128)
 # the largest relative L2 error of one row (one query's out or dq, one
 # key's dk or dv) over that row's own norm. The row measure holds late rows
 # and tiles, whose values are small beside the first rows', to the same
-# limit. A row's norm is floored at ROW_FLOOR times the tensor's median row
-# norm: a row whose exact value is zero (dq of a causal head's first query,
-# which sees only its own key, so dS = p * (dP - delta) = 0) holds rounding
-# noise alone. float32 sums in another order; bf16 rounds P and dS to bf16
-# before their products and the outputs to bf16. Readings over the
-# checks of flash_checks on an H100 run: bf16 at most 2.71e-3 over a tensor
-# and 5.48e-3 over a row, float32 1.55e-6 and 3.38e-6; skipping one late
-# tile (dmlc_tpu_torch/tools/flash_fault_check.py) gives 4.6e-3 to 1e-2
-# over the tensor and 0.48-1.0 over a row.
+# limit. A row's error is taken over the larger of its own norm and the
+# tensor's RMS row norm (its norm over the square root of its rows): no row
+# may carry more error than the tensor limit allows an average row. The
+# rounding of a sum taken in another order scales with the operands, whose
+# size the RMS row norm gives, not with the row's exact value: on a row
+# whose exact value is zero (dq of a causal head's first query, which sees
+# only its own key, so dS = p * (dP - delta) = 0) it is all there is, and
+# against the earlier floor (1e-2 times the median row norm) it read 5.5e-4
+# for a float32 dQ at 5.7e-7 over the tensor. float32 sums in another
+# order; bf16 rounds P and dS to bf16 before their products and the
+# outputs to bf16. Readings over the checks of flash_checks on an H100 run
+# under this floor: bf16 at most 2.71e-3 over a tensor and 5.31e-3 over a
+# row, float32 1.59e-6 and 4.67e-6; each fault that
+# dmlc_tpu_torch/tools/flash_fault_check.py plants is caught under it
+# (PERF.md, section 6, gives each reading beside its limit).
 FLASH_REL_L2 = {torch.float32: 2e-5, torch.bfloat16: 4e-3}
 FLASH_ROW_REL = {torch.float32: 2e-5, torch.bfloat16: 8e-3}
-ROW_FLOOR = 1e-2
 LSE_TOL = 1e-4  # absolute; lse sums float32 p in both dtypes
 # First train step, flash schedule against dense on the same params and
 # batch: |loss difference| and per-tensor relative L2 gradient difference.
@@ -157,23 +166,30 @@ FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # Head dims the Hopper kernels are not built for, run through the public
 # flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
 # to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) both dtypes
-# pad to 192 or 256 (the three kernels built for them; ops/flash.py).
-# Past 256 the wide kernels run (csrc/flash_wide.cu). The kernels are also
-# timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS, where 160,
-# 320 and 512 run the wide kernels through the wrappers.
-# WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too.
+# pad to 192 or 256 (the three kernels built for them; ops/flash.py). In
+# (256, 512] the forward runs its own kernels at the next of
+# FWD_WIDE_HEAD_DIMS and the backward the wide kernels at the same width;
+# past 512 all three run the wide kernels (csrc/flash_wide.cu). The kernels
+# are also timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS,
+# where 160 runs the wide kernels through the wrappers and 320, 384 and
+# 512 the forward's own beside the wide backward.
+# WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too,
+# causal; those in (256, 512] also not causal.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
 WIDE_HEAD_DIMS = (160, 192, 200, 256)
-WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256, 320, 512), (4, 4, 1024)
+WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256, 320, 384, 512), (4, 4, 1024)
 WIDE_SWEEP_HEAD_DIMS = (129, 136, 200, 264, 328, 384, 448, 505, 512, 520, 640, 1024)
 WIDE_SWEEP_BHS = (1, 2, 72)
 # The LM train leg's FLOPs with wide heads, where the kernels built for
-# head dims 256 and 192 are checked and timed: hidden 768 as 3 heads of 256
-# and as 4 of 192 (dmlc_tpu_torch/tools/flash_levers.py).
+# head dims 256, 192 and (the forward) 384 are checked and timed: hidden
+# 768 as 3 heads of 256, 4 of 192 and 2 of 384
+# (dmlc_tpu_torch/tools/flash_levers.py).
 WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
+WIDE384_SHAPE = (8, 2, 2048, 384)
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
-# KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS (ops/flash.py).
+# KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS, the forward's also at
+# FWD_WIDE_HEAD_DIMS (ops/flash.py).
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Dynamic shared memory a block may take on the H100 (227 KB).
 SMEM_PER_BLOCK_MAX = 232448
@@ -362,8 +378,8 @@ def sass_counts(lib: Path, marker: str) -> dict:
 def flash_instance(mangled: str) -> tuple[str, int] | None:
     """(dtype, head dim) of a flash kernel instantiation from its mangled
     name: the Hopper kernels are bf16, the others float32; the head dim is
-    the template argument 64, 128, 192 or 256."""
-    dh = re.search(r"Li(64|128|192|256)E", mangled)
+    the template argument 64, 128, 192, 256, 320, 384, 448 or 512."""
+    dh = re.search(r"Li(64|128|192|256|320|384|448|512)E", mangled)
     if dh is None:
         return None
     return ("bfloat16" if "_sm90" in mangled else "float32"), int(dh.group(1))
@@ -373,7 +389,7 @@ def phase_build() -> None:
     """Builds every kernel. For the flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
     64, 128, 192 and 256 in both dtypes where ops/flash.py routes them to
-    the source, the Hopper
+    the source (the forward also 320, 384, 448 and 512), the Hopper
     ones also with their wgmma and TMA instructions (SASS). Fails on a
     spill, on a missing instantiation, on a Hopper kernel without wgmma or
     TMA, or on one past SMEM_PER_BLOCK_MAX."""
@@ -410,7 +426,7 @@ def phase_build() -> None:
                                      f"SASS, or shared memory past {SMEM_PER_BLOCK_MAX}: {entry}")
             report[f"{dtype} dh{dh}"] = entry
         want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32")
-                for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS
+                for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS + FL.FWD_WIDE_HEAD_DIMS
                 if FL._entry_name(name, dh) == name}
         if set(report) != want:
             raise AssertionError(f"{name}: instantiations {sorted(report)}, "
@@ -763,11 +779,12 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 def l2_errors(got: torch.Tensor, want: torch.Tensor) -> dict:
     """The relative L2 error over the whole tensor and the largest one over
-    a row (the last axis; the row's norm floored at ROW_FLOOR times the
-    median row norm), with that row's index."""
+    a row (the last axis; the row's norm floored at the tensor's RMS row
+    norm), with that row's index."""
     diff, w = got.float() - want.float(), want.float()
     norms = w.norm(dim=-1)
-    rows = diff.norm(dim=-1) / norms.clamp_min(max(ROW_FLOOR * float(norms.median()), 1e-30))
+    rms = float(w.norm()) / max(norms.numel(), 1) ** 0.5
+    rows = diff.norm(dim=-1) / norms.clamp_min(max(rms, 1e-30))
     worst = np.unravel_index(int(rows.argmax()), tuple(rows.shape))
     return {"rel_l2": float(diff.norm() / w.norm().clamp_min(1e-30)),
             "row_rel_max": float(rows.max()), "worst_row": [int(i) for i in worst]}
@@ -837,20 +854,27 @@ def flash_checks() -> list[dict]:
     """Every flash kernel against its plain version at both head dims: the
     train shape and its Dh-64 twin in both dtypes, ragged lengths (193,
     1000), causal and not, where the kernels mask a partial tile, the
-    shape of phase_train_small in both dtypes, and at head dims 256 and
+    shape of phase_train_small in both dtypes, at head dims 256 and
     192 (every kernel built for them, in both dtypes) the train leg's
     FLOPs (WIDE256_SHAPE, WIDE192_SHAPE), [WIDE_TIMED_BHS, Dh]
-    and the ragged lengths, in both dtypes, causal and not."""
+    and the ragged lengths, in both dtypes, causal and not, and so at the
+    forward's own kernels past 256 (WIDE384_SHAPE, [WIDE_TIMED_BHS, Dh]
+    for Dh 320, 384 and 512, the ragged lengths at each of
+    FWD_WIDE_HEAD_DIMS) beside the wide backward."""
+    from dmlc_tpu_torch.ops import flash as FL
+
     cases = []
     for big in (TRAIN_SHAPE, DH64_SHAPE):
         cases += [(big, dt, True) for dt in (torch.bfloat16, torch.float32)]
-    for dh in (128, 64, 256, 192):
+    for dh in (128, 64, 256, 192, *FL.FWD_WIDE_HEAD_DIMS):
         for dt in (torch.bfloat16, torch.float32):
             for causal in (False, True):
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
-    # The kernels built for 192 and 256: bf16 Hopper designs, float32 FMA.
-    for shape in (WIDE256_SHAPE, WIDE192_SHAPE, *((*WIDE_TIMED_BHS, dh) for dh in (192, 256))):
+    # The kernels built for 192 and 256 (bf16 Hopper designs, float32 FMA)
+    # and the forward's own past 256 (beside the wide backward).
+    for shape in (WIDE256_SHAPE, WIDE192_SHAPE, WIDE384_SHAPE,
+                  *((*WIDE_TIMED_BHS, dh) for dh in (192, 256, 320, 384, 512))):
         cases += [(shape, dt, causal) for dt in (torch.bfloat16, torch.float32)
                   for causal in (True, False)]
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
@@ -916,26 +940,34 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
 def flash_public_checks() -> dict:
     """flash_public_check at each of PADDED_HEAD_DIMS and WIDE_HEAD_DIMS in
     both dtypes, causal and not, and at each of WIDE_SWEEP_HEAD_DIMS
-    (causal, both dtypes): no head dim is refused. In (128, 256] both
-    dtypes must run the three kernels built for 192 or 256 (each once,
-    flash_public_check) and no wide one; past 256 the three wide ones."""
+    (causal, both dtypes; those in (256, 512] also not causal): no head dim
+    is refused. In (128, 256] both dtypes must run the three kernels built
+    for 192 or 256 (each once, flash_public_check) and no wide one; in
+    (256, 512] the forward built for the next of FWD_WIDE_HEAD_DIMS and the
+    wide dQ and dK/dV; past 512 the three wide ones."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
              for dt in (torch.bfloat16, torch.float32) for causal in (False, True)]
     checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
-    sweep = [flash_public_check(dh, dt, True, seed=200 + i, bhs=WIDE_SWEEP_BHS)
-             for i, (dh, dt) in enumerate((dh, dt) for dh in WIDE_SWEEP_HEAD_DIMS
-                                          for dt in (torch.bfloat16, torch.float32))]
+    sweep_cases = [(dh, dt, True) for dh in WIDE_SWEEP_HEAD_DIMS
+                   for dt in (torch.bfloat16, torch.float32)]
+    sweep_cases += [(dh, dt, False) for dh in WIDE_SWEEP_HEAD_DIMS if 256 < dh <= 512
+                    for dt in (torch.bfloat16, torch.float32)]
+    sweep = [flash_public_check(*case, seed=200 + i, bhs=WIDE_SWEEP_BHS)
+             for i, case in enumerate(sweep_cases)]
+    wide_bwd = ["flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"]
     for c in checks + sweep:
         dh = c["shape"][3]
         own = c["run_dh"] in FL.SM90_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
+        fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == wide_bwd
         wide = all(e.startswith("flash_wide_") for e in c["entries"])
-        if (128 < dh <= 256 and not own) or (dh > 256 and not wide):
+        if ((128 < dh <= 256 and not own) or (256 < dh <= 512 and not fwd_own)
+                or (dh > 512 and not wide)):
             raise AssertionError(f"flash_attention Dh {dh} {c['dtype']}: ran {c['entries']} "
                                  f"at {c['run_dh']}")
     return {"checks": checks,
-            "sweep": [{k: c[k] for k in ("shape", "dtype", "run_dh", "entries")}
+            "sweep": [{k: c[k] for k in ("shape", "dtype", "causal", "run_dh", "entries")}
                       | {n: c[n]["rel_l2"] for n in ("out", "dq", "dk", "dv")} for c in sweep]}
 
 
@@ -1075,24 +1107,28 @@ def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
                                 dh ** -0.5, int(q.dtype == torch.bfloat16)), entry)
 
 
-# The wide kernels that the kernels built for head dims 256 and 192 replaced
-# there, timed through their entry points at the train leg's FLOPs: key of
-# WIDE_TIMINGS -> [(entry point, products), ...]. bf16: the dQ's; float32:
-# all three.
+# The wide kernels that the kernels built for head dims 256 and 192, and
+# the forward's past 256, replaced there, timed through their entry points:
+# key of WIDE_TIMINGS -> [(entry point, products), ...]. At 256 and 192
+# (the train leg's FLOPs) bf16 the dQ's, float32 all three; at 320, 384
+# and 512 the forward's in both dtypes.
 _F32_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
 REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_wide_bwd_dq", 3)],
-                 "w256_f32": _F32_REPLACED, "w192_f32": _F32_REPLACED}
+                 "w256_f32": _F32_REPLACED, "w192_f32": _F32_REPLACED,
+                 **{f"{key}_{tag}": [("flash_wide_fwd", 2)]
+                    for key in ("dh320", "dh384", "dh512", "w384") for tag in ("bf16", "f32")}}
 
 
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
 # (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
-# the train leg's FLOPs at 256 and 192 (w256, w192), in both dtypes. The
-# three kernels run their own designs at 192 and 256 (the Hopper ones in
-# bf16, FMA in float32) and the wide kernels at 160, 320 and 512.
+# the train leg's FLOPs at 256, 192 and 384 (w256, w192, w384), in both
+# dtypes. The three kernels run their own designs at 192 and 256 (the
+# Hopper ones in bf16, FMA in float32) and the wide kernels at 160; at 320,
+# 384 and 512 the forward runs its own and the backward the wide kernels.
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
-    **{f"w{shape[3]}_{tag}": (shape, dt) for shape in (WIDE256_SHAPE, WIDE192_SHAPE)
+    **{f"w{shape[3]}_{tag}": (shape, dt) for shape in (WIDE256_SHAPE, WIDE192_SHAPE, WIDE384_SHAPE)
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
 }
 
@@ -2067,8 +2103,9 @@ def main() -> int:
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
     # Past head dim 128: the three kernels built for 192 and 256 in both
     # dtypes (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024,
-    # Dh]), and the wide kernels (csrc/flash_wide.cu) at [4, 4, 1024, 160]
-    # bf16 and at 160, 320 and 512 in both dtypes. Their launches are those the
+    # Dh]), the forward's own past 256, and the wide kernels
+    # (csrc/flash_wide.cu) at [4, 4, 1024, 160] bf16 and at 160, 320, 384
+    # and 512 in both dtypes. Their launches are those the
     # main path's runs (the LM train leg and lm_small's, each counted from 0
     # just before it) made through these entry points at these head dims:
     # no registry model has heads past 128.
@@ -2109,24 +2146,49 @@ def main() -> int:
                   for key in (f"w192_{tag}", f"dh192_{tag}", f"dh256_{tag}")}}
         wide_entry = source.replace("flash_", "flash_wide_", 1)
         wide = {key: by_entry[wide_entry] for key, by_entry in replaced.items()
-                if key.endswith(tag) and wide_entry in by_entry}
+                if key.startswith(("w256", "w192")) and key.endswith(tag)
+                and wide_entry in by_entry}
         if wide:
             row["replaced_wide_fma"] = wide
         rows.append(row)
+    # The forward's own kernels past 256 (320, 384, 448, 512): at [4, 4,
+    # 1024, 512], 320, 384 and the train leg's FLOPs at 384, each with the
+    # wide forward it replaced there, timed through its entry point.
+    for tag, dtype, design in (("bf16", "bfloat16", "sm90"), ("f32", "float32", "f32")):
+        first = timing("flash_forward", f"dh512_{tag}")
+        launches = main_launches("flash_fwd", FL.FWD_WIDE_HEAD_DIMS, dtype)
+        keys = [f"{key}_{tag}" for key in ("dh512", "dh320", "dh384", "w384")]
+        rows.append({"name": f"flash_forward_{design}_wide512", "route": "cuda",
+                     "source": "dmlc_tpu_torch/csrc/flash_fwd.cu",
+                     "replaces": "dmlc_tpu/ops/pallas_kernels.py:157 and :215",
+                     "launches": launches, "on_main_path": launches > 0,
+                     **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
+                     "dtype": dtype,
+                     **{key: {k: timing("flash_forward", key)[k] for k in timed_shape}
+                        for key in keys[1:]},
+                     "replaced_wide_fma": {key: replaced[key]["flash_wide_fwd"] for key in keys}})
     for name, entry, line in (("flash_forward", "flash_wide_fwd", "157 and :215"),
                               ("flash_bwd_dq", "flash_wide_bwd_dq", "271"),
                               ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
         first = timing(name, "dh160_bf16")
         launches = main_launches(entry)
-        # Through the wrappers at 160 (a direct call), 320 and 512 (where
-        # the public functions run them) in both dtypes.
-        others = ("dh160_f32", "dh320_bf16", "dh320_f32", "dh512_bf16", "dh512_f32")
-        rows.append({"name": f"{name}_wide_fma", "route": "cuda",
-                     "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
-                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
-                     "on_main_path": launches > 0, **{k: first[k] for k in timed_shape},
-                     "max_err": first["max_abs_err"], "dtype": "bfloat16",
-                     **{key: {k: timing(name, key)[k] for k in timed_shape} for key in others}})
+        # Through the wrappers at 160 (a direct call) in both dtypes; the
+        # backward's also at 320, 384 and 512 (where the public functions
+        # run them), the forward's there through its entry point (device
+        # time; the public functions run it past 512).
+        others = ("dh160_f32",) if name == "flash_forward" else (
+            "dh160_f32", "dh320_bf16", "dh320_f32", "dh384_bf16", "dh384_f32", "dh512_bf16",
+            "dh512_f32")
+        row = {"name": f"{name}_wide_fma", "route": "cuda",
+               "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
+               "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
+               "on_main_path": launches > 0, **{k: first[k] for k in timed_shape},
+               "max_err": first["max_abs_err"], "dtype": "bfloat16",
+               **{key: {k: timing(name, key)[k] for k in timed_shape} for key in others}}
+        if name == "flash_forward":
+            row["entry_point"] = {key: replaced[key][entry] for key in replaced
+                                  if key.startswith(("dh320", "dh384", "dh512"))}
+        rows.append(row)
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

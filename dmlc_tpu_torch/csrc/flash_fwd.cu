@@ -10,9 +10,9 @@
 // through one loop inside the block, and one kernel serves both rows.
 //
 // Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256 (ops/flash.py zero-pads a smaller head dim up to 64 or
-// 128, and in bf16 one up to 256 to 192 or 256; csrc/flash_wide.cu takes
-// the others). Outputs out
+// 128, 192, 256, 320, 384, 448 or 512 (ops/flash.py zero-pads a smaller
+// head dim up to 64 or 128, one up to 256 to 192 or 256, and one up to 512
+// to the next multiple of 64; csrc/flash_wide.cu takes the others). Outputs out
 // (q's dtype) and lse (float32 [BH, S]): out = softmax(scale q k^T) v with
 // keys past the query masked when causal, lse = m + log(max(l, 1e-30)). A
 // row with no visible key gets out 0 and lse -inf (pallas_kernels.py:210).
@@ -89,6 +89,30 @@
 // and 32-row Q tiles 25-27% (PERF.md, section 6; tools/flash_levers.py
 // group wide_f32). Its bound at [8, 3, 2048, 256]: operations, 0.77 ms at
 // the float32 peak.
+//
+// bf16 past Dh 256 (320, 384, 448, 512; FwdWideCfg, flash_fwd_wide_kernel_sm90):
+// the design above does not fit: a [128, 512] Q tile is 128 KB and a
+// 64-key K or V tile 64 KB, and O over all of Dh would be 256 floats a
+// thread. So a block holds 64 query rows, which both consumer warpgroups
+// share, and 32-key K/V tiles in a 2-stage TMA ring (64 KB + 128 KB at
+// 512). Warpgroup 0 owns O's first whole 64-column boxes (192 of 320, 256
+// of 448), warpgroup 1 the rest: at most 256 columns, 128 floats a thread,
+// OutAcc. S = Q K^T (m64n32k16) is split over Dh's k16 steps: each
+// warpgroup makes its half, writes it to shared memory (8 KB, double-
+// buffered by tile parity), waits on one named barrier of both
+// warpgroups, and adds the other's; a + b == b + a, so both hold the same
+// S, softmax and P (bf16, the register A operand of O += P V over the
+// warpgroup's V boxes). The epilogue stages each warpgroup's columns of O
+// / l through the Q tile after both are done reading it. Its bound at [4,
+// 4, 1024, 512]: operations, 17 us.
+//
+// float32 past Dh 256 (f32::FwdCfg<DH, true>): the FMA design with two
+// parts, split as the bf16 one is: part 0 owns O's first whole 64-column
+// steps, part 1 the rest, and each makes S's dot product over half of Dh
+// and adds the other's partial S. A padded row takes 2 KB at 512, so Q
+// keeps 64 rows up to 384 and 32 past it (4 a row group), and K/V tiles
+// one stage (184-217 KB). Its bound at [4, 4, 1024, 512]: operations,
+// 0.26 ms at the float32 peak.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -103,25 +127,45 @@ constexpr int kFwdKeys = 32;          // keys a K/V tile
 constexpr int kFwdStages = 2;         // K/V ring depth
 
 // The float32 forward's tiles at head dim DH. A block's threads form
-// kParts parts of 16 * BQ / RPT threads; part p owns O's columns [p W, (p +
-// 1) W) and computes S's dot product over them, and with two parts each
-// adds the other's partial S through shared memory. Up to Dh 192 one part
-// (128 threads). Dh 192 keeps one stage of K/V tiles (107 KB of shared
-// memory, two blocks an SM); Dh 256 takes two parts (256 threads, 213 KB)
-// and the 2-stage ring.
-template <int DH>
+// kParts parts of 16 * BQ / RPT threads; part 0 owns O's columns [0, W0),
+// part 1 [W0, W0 + W1), and each computes S's dot product over WS columns
+// of Dh; with two parts each adds the other's partial S through shared
+// memory. Up to Dh 192 one part (128 threads). Dh 192 keeps one stage of
+// K/V tiles (107 KB of shared memory, two blocks an SM); Dh 256 takes two
+// parts (256 threads, 213 KB) and the 2-stage ring.
+template <int DH, bool kWide = (DH > 256)>
 struct FwdCfg {
   static constexpr int kParts = DH == 256 ? 2 : 1;
   static constexpr int kStages = DH == 192 ? 1 : kFwdStages;
   static constexpr int BQ = kFwdRows, BK = kFwdKeys, RPT = kFwdRowsPerThread;
   static constexpr int G = BQ / RPT;                       // row groups a part
   static constexpr int kPartThreads = 16 * G, kThreads = kParts * kPartThreads;
-  static constexpr int W = DH / kParts;  // O's columns a part owns
+  static constexpr int W0 = DH / kParts, W1 = W0;  // O's columns part 0 and part 1 own
+  static constexpr int WS = W0;  // S's columns a part makes the dot product over
   static constexpr int LD = DH + 4;      // Q, K, V rows (floats), padded by 16 bytes
   static constexpr int LDP = BK + 4;     // P rows
   static constexpr int NKT = BK / 16;    // keys a thread owns in S
-  static constexpr int NC4 = W / 64;     // float4 columns a thread owns in O
   // Q, the K/V ring, and a [BQ, LDP] P tile a part.
+  static constexpr size_t bytes = sizeof(float) * ((size_t)BQ * LD + 2 * kStages * (size_t)BK * LD +
+                                                   kParts * (size_t)BQ * LDP);
+};
+
+// Past Dh 256 (320, 384, 448, 512): a padded row takes 4 (DH + 4) bytes,
+// 2 KB at 512, so Q keeps 64 rows up to 384 and 32 (4 a row group) past
+// it, and K/V tiles one stage (207-217 KB at 384 and 512). Two parts: part
+// 0 owns O's first W0 columns (whole 64-column steps, the larger half at
+// 320 and 448), part 1 the rest; each makes S's dot product over half of
+// Dh (WS columns, kSplitS) and adds the other's partial S, as at 256.
+template <int DH>
+struct FwdCfg<DH, true> {
+  static constexpr int kParts = 2, kStages = 1;
+  static constexpr bool kSplitS = true;  // S over half of Dh a part
+  static constexpr int BQ = DH <= 384 ? kFwdRows : 32, BK = kFwdKeys, RPT = BQ / 8;
+  static constexpr int G = BQ / RPT;
+  static constexpr int kPartThreads = 16 * G, kThreads = kParts * kPartThreads;
+  static constexpr int W0 = 64 * ((DH / 64 + 1) / 2), W1 = DH - W0;
+  static constexpr int WS = kSplitS ? DH / 2 : DH;
+  static constexpr int LD = DH + 4, LDP = BK + 4, NKT = BK / 16;
   static constexpr size_t bytes = sizeof(float) * ((size_t)BQ * LD + 2 * kStages * (size_t)BK * LD +
                                                    kParts * (size_t)BQ * LDP);
 };
@@ -133,32 +177,25 @@ __device__ __forceinline__ int fwd_tiles(int q0, int S, int causal) {
   return ((causal ? min(q0 + C::BQ, S) : S) + C::BK - 1) / C::BK;
 }
 
-template <int DH>
-__global__ void __launch_bounds__(FwdCfg<DH>::kThreads, DH == 64 ? 2 : 1)
-    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                         const float* __restrict__ v, float* __restrict__ out,
-                         float* __restrict__ lse, int BH, int S, int causal, float scale) {
+// One part's loop and epilogue: O's 64 NC4 columns from col0 (NC4 float4
+// columns a thread), S's dot product over columns [s0, s0 + WS).
+template <int DH, int NC4>
+__device__ __forceinline__ void fwd_part(const float* __restrict__ q, const float* __restrict__ k,
+                                         const float* __restrict__ v, float* __restrict__ out,
+                                         float* __restrict__ lse, float* Qs, float* KVs, float* Ps,
+                                         int bh, int S, int q0, int causal, float scale, int part,
+                                         int col0, int s0) {
   typedef FwdCfg<DH> C;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDP = C::LDP, G = C::G, RPT = C::RPT;
-  constexpr int NKT = C::NKT, NC4 = C::NC4, W = C::W, STAGES = C::kStages;
-  extern __shared__ __align__(128) unsigned char smem[];
-  float* Qs = reinterpret_cast<float*>(smem);
-  float* KVs = Qs + BQ * LD;  // stage s: K at KVs + 2 s BK LD, V BK LD after it
-  float* Ps = KVs + 2 * STAGES * BK * LD;  // kParts tiles of BQ LDP
-
-  // Block order: the last (longest, when causal) Q tile of every head first.
-  const int n_tiles = (S + BQ - 1) / BQ;
-  const int bh = blockIdx.x % BH;
-  const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * BQ;
+  constexpr int NKT = C::NKT, STAGES = C::kStages;
   const size_t base = (size_t)bh * S * DH;
-  const int part = C::kParts == 1 ? 0 : threadIdx.x / C::kPartThreads;
   const int tp = C::kParts == 1 ? threadIdx.x : threadIdx.x % C::kPartThreads;
-  const int g = tp / 16, c = tp % 16, col0 = part * W;
+  const int g = tp / 16, c = tp % 16;
   // Part p writes its partial S to tile p and reads the other part's from
   // tile 1 - p, where its P then goes (read back only by the half-warp
   // that wrote it); one part writes P to its only tile.
   float* Sp = Ps + part * BQ * LDP;
-  float* Pp = Ps + (C::kParts - 1 - part) * BQ * LDP;
+  float* Pp = Ps + (C::WS == DH ? part : C::kParts - 1 - part) * BQ * LDP;
   const int n_k = fwd_tiles<DH>(q0, S, causal);
 
   auto load_kv = [&](int j, int stage) {
@@ -190,17 +227,18 @@ __global__ void __launch_bounds__(FwdCfg<DH>::kThreads, DH == 64 ? 2 : 1)
     const float* Vt = Kt + BK * LD;
     const int k0 = j * BK;
 
-    // S = Q K^T for rows g + G i and keys c + 16 u, over this part's columns.
+    // S = Q K^T for rows g + G i and keys c + 16 u, over this part's columns
+    // of Dh.
     float s[RPT][NKT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
 #pragma unroll
       for (int u = 0; u < NKT; ++u) s[i][u] = 0.f;
 #pragma unroll 4
-    for (int kk = 0; kk < W; kk += 4)
-      dot4<RPT, NKT, G, LD>(s, Qs + col0 + kk, Kt + col0 + kk, g, c);
+    for (int kk = 0; kk < C::WS; kk += 4)
+      dot4<RPT, NKT, G, LD>(s, Qs + s0 + kk, Kt + s0 + kk, g, c);
     static_assert(C::kParts == 1 || C::kParts == 2, "one part or two");
-    if constexpr (C::kParts == 2) {
+    if constexpr (C::WS != DH) {
       // The two parts' dot products: S is their sum (the same in both).
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
@@ -273,6 +311,34 @@ __global__ void __launch_bounds__(FwdCfg<DH>::kThreads, DH == 64 ? 2 : 1)
 }
 
 template <int DH>
+__global__ void __launch_bounds__(FwdCfg<DH>::kThreads, DH == 64 ? 2 : 1)
+    flash_fwd_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                         const float* __restrict__ v, float* __restrict__ out,
+                         float* __restrict__ lse, int BH, int S, int causal, float scale) {
+  typedef FwdCfg<DH> C;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* KVs = Qs + C::BQ * C::LD;  // stage s: K at KVs + 2 s BK LD, V BK LD after it
+  float* Ps = KVs + 2 * C::kStages * C::BK * C::LD;  // kParts tiles of BQ LDP
+
+  // Block order: the last (longest, when causal) Q tile of every head first.
+  const int n_tiles = (S + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * C::BQ;
+  const int part = C::kParts == 1 ? 0 : threadIdx.x / C::kPartThreads;
+  const int s0 = C::WS == DH ? 0 : part * C::WS;
+  if constexpr (C::W0 == C::W1) {
+    fwd_part<DH, C::W0 / 64>(q, k, v, out, lse, Qs, KVs, Ps, bh, S, q0, causal, scale, part,
+                             part * C::W0, s0);
+  } else if (part == 0) {
+    fwd_part<DH, C::W0 / 64>(q, k, v, out, lse, Qs, KVs, Ps, bh, S, q0, causal, scale, 0, 0, s0);
+  } else {
+    fwd_part<DH, C::W1 / 64>(q, k, v, out, lse, Qs, KVs, Ps, bh, S, q0, causal, scale, 1, C::W0,
+                             s0);
+  }
+}
+
+template <int DH>
 cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh,
                        int s, int causal, float scale, cudaStream_t stream) {
   typedef FwdCfg<DH> C;
@@ -291,6 +357,63 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
 namespace sm90 {
 
 constexpr int kFwdBQ = 128;  // query rows a block: two consumer warpgroups of 64
+
+// One K/V tile of the online softmax on a warpgroup's scores (the
+// m64nNk16 accumulator, N / 2 floats a thread; the thread's rows qi0 and
+// qi0 + 8, its keys from k0): the scores to log2 units, -inf where masked
+// (which only `edge` tiles, crossing the diagonal or the end of S, need),
+// each row's max m and this thread's part of its sum l folded in, and the
+// scores turned into P. c0 and c1 are the factors O's rows rescale by.
+template <int N>
+__device__ __forceinline__ void softmax_tile(float (&sc)[N], float& m0, float& m1, float& l0,
+                                             float& l1, float& c0, float& c1, bool edge, int k0,
+                                             int qi0, int lane, int S, int causal,
+                                             float scale_log2) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    float x = sc[i] * scale_log2;
+    if (edge) {
+      const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      const int qi = (i % 4) < 2 ? qi0 : qi0 + 8;
+      if (kj >= S || (causal && kj > qi)) x = -INFINITY;
+    }
+    sc[i] = x;
+    if ((i % 4) < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
+  }
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  // A row with nothing visible so far keeps m = -inf: subtract 0 there.
+  const float b0 = mn0 == -INFINITY ? 0.f : mn0, b1 = mn1 == -INFINITY ? 0.f : mn1;
+  c0 = exp2f(m0 - b0);
+  c1 = exp2f(m1 - b1);
+  m0 = mn0;
+  m1 = mn1;
+  float sum0 = 0.f, sum1 = 0.f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float p = exp2f(sc[i] - ((i % 4) < 2 ? b0 : b1));
+    sc[i] = p;
+    if ((i % 4) < 2) sum0 += p; else sum1 += p;
+  }
+  l0 = l0 * c0 + sum0;
+  l1 = l1 * c1 + sum1;
+}
+
+// Each row's sum over the 4 threads that hold it, floored at 1e-30.
+__device__ __forceinline__ void row_sums(float& l0, float& l1) {
+#pragma unroll
+  for (int o_ = 1; o_ < 4; o_ <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
+  }
+  l0 = fmaxf(l0, 1e-30f);
+  l1 = fmaxf(l1, 1e-30f);
+}
 
 // The bf16 forward's tiles at head dim DH: BK keys a K/V tile and a ring
 // of kStages K/V tiles beside the [kFwdBQ, DH] Q tile. Up to Dh 128, 128
@@ -402,41 +525,9 @@ __global__ void __launch_bounds__(kThreads, 1)
       wgmma_wait<0>();
       reg_fence(sc);
 
-      // Scores in log2 units; -inf where masked, which only the tiles
-      // crossing the diagonal or the end of S need.
       const bool edge = k0 + kFwdBK > S || (causal && k0 + kFwdBK - 1 > q0 + 64 * wg);
-      float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-      for (int i = 0; i < kFwdBK / 2; ++i) {
-        float x = sc[i] * scale_log2;
-        if (edge) {
-          const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
-          const int qi = (i % 4) < 2 ? qi0 : qi1;
-          if (kj >= S || (causal && kj > qi)) x = -INFINITY;
-        }
-        sc[i] = x;
-        if ((i % 4) < 2) mx0 = fmaxf(mx0, x); else mx1 = fmaxf(mx1, x);
-      }
-#pragma unroll
-      for (int o_ = 1; o_ < 4; o_ <<= 1) {
-        mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o_));
-        mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o_));
-      }
-      const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-      // A row with nothing visible so far keeps m = -inf: subtract 0 there.
-      const float b0 = mn0 == -INFINITY ? 0.f : mn0, b1 = mn1 == -INFINITY ? 0.f : mn1;
-      const float c0 = exp2f(m0 - b0), c1 = exp2f(m1 - b1);
-      m0 = mn0;
-      m1 = mn1;
-      float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-      for (int i = 0; i < kFwdBK / 2; ++i) {
-        const float p = exp2f(sc[i] - ((i % 4) < 2 ? b0 : b1));
-        sc[i] = p;
-        if ((i % 4) < 2) sum0 += p; else sum1 += p;
-      }
-      l0 = l0 * c0 + sum0;
-      l1 = l1 * c1 + sum1;
+      float c0, c1;
+      softmax_tile(sc, m0, m1, l0, l1, c0, c1, edge, k0, qi0, lane, S, causal, scale_log2);
       o.scale(c0, c1);
       uint32_t pa[kFwdBK / 16][4];
       to_a_operand(sc, pa);
@@ -451,13 +542,7 @@ __global__ void __launch_bounds__(kThreads, 1)
       mbar_arrive(&empty[s]);
     }
 
-#pragma unroll
-    for (int o_ = 1; o_ < 4; o_ <<= 1) {
-      l0 += __shfl_xor_sync(0xffffffffu, l0, o_);
-      l1 += __shfl_xor_sync(0xffffffffu, l1, o_);
-    }
-    l0 = fmaxf(l0, 1e-30f);
-    l1 = fmaxf(l1, 1e-30f);
+    row_sums(l0, l1);
     if (lane % 4 == 0) {
       if (qi0 < S) lse[(size_t)bh * S + qi0] = m0 * kLn2 + logf(l0);
       if (qi1 < S) lse[(size_t)bh * S + qi1] = m1 * kLn2 + logf(l1);
@@ -486,13 +571,226 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
   return cudaGetLastError();
 }
 
+constexpr int kWideBQ = 64;  // query rows a block past Dh 256: both consumer warpgroups hold them all
+constexpr int kBarS = 3;     // named barrier: both warpgroups' partial S written
+constexpr int kBarO = 4;     // named barrier: every read of Q done (the epilogue stages O there)
+
+// The bf16 forward past Dh 256 (320, 384, 448, 512). A [128, DH] Q tile
+// is 128 KB at 512, a 64-key K or V tile 64 KB: no 227 KB block holds the
+// design of Dh 256. So a block holds 64 query rows, which both consumer
+// warpgroups share, and 32-key K/V tiles in kStages stages (Q 64 KB + the
+// ring 128 KB at 512). Warpgroup 0 owns O's first kCols0 columns (whole
+// 64-column boxes, the larger half at 320 and 448), warpgroup 1 the rest:
+// at most 256 columns, 128 floats a thread, one or two wgmma accumulators
+// (OutAcc). With kSplitS each warpgroup makes S = Q K^T over half of Dh's
+// k16 steps and the two add each other's partial S through shared memory
+// (double-buffered by tile parity, one named barrier a tile); both then
+// hold the same S (a + b == b + a), the same softmax and the same P.
+template <int DH>
+struct FwdWideCfg {
+  static constexpr int BK = 32;                 // keys a K/V tile
+  static constexpr int kStages = 2;             // K/V ring depth
+  static constexpr bool kSplitS = true;         // S over half of Dh a warpgroup
+  static constexpr int kCols0 = 64 * ((DH / 64 + 1) / 2), kCols1 = DH - kCols0;
+  static constexpr int kSteps = kSplitS ? DH / 32 : DH / 16;  // k16 steps of S a warpgroup makes
+  static constexpr uint32_t kQ = kWideBQ * DH * 2;  // the Q tile: 64 KB at Dh 512
+  static constexpr uint32_t kKV = BK * DH * 2;      // a K or V tile: 32 KB at Dh 512
+  static constexpr uint32_t kX = 128 * (BK / 2) * 4;  // one warpgroup's partial S (BK / 2 a thread)
+  static constexpr uint32_t kSmem = kQ + 2 * kStages * kKV + (kSplitS ? 4 * kX : 0) +
+                                    (1 + 3 * kStages) * 8 + 1024;
+};
+
+// K/V tiles that the 64-row Q tile at q0 reads: up to its diagonal when causal.
+template <int DH>
+__device__ __forceinline__ int fwd_wide_tiles(int q0, int S, int causal) {
+  constexpr int BK = FwdWideCfg<DH>::BK;
+  return ((causal ? min(q0 + kWideBQ, S) : S) + BK - 1) / BK;
+}
+
+// Consumer warpgroup wg (0 or 1) of the wide forward: O's columns [C0, C0 +
+// C) of query rows q0 + [0, 64).
+template <int DH, int C, int C0>
+__device__ __forceinline__ void fwd_wide_consumer(unsigned char* Qs, unsigned char* Ks,
+                                                  unsigned char* Vs, float* X, uint64_t* bars,
+                                                  __nv_bfloat16* __restrict__ out,
+                                                  float* __restrict__ lse, int bh, int S, int q0,
+                                                  int causal, float scale_log2) {
+  typedef FwdWideCfg<DH> Cfg;
+  constexpr int BK = Cfg::BK, kStages = Cfg::kStages, wg = C0 == 0 ? 0 : 1;
+  uint64_t* bar_q = bars;
+  uint64_t* full_k = bars + 1;
+  uint64_t* full_v = full_k + kStages;
+  uint64_t* empty = full_v + kStages;
+  const int n_k = fwd_wide_tiles<DH>(q0, S, causal);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int row_lo = 16 * (t / 32) + lane / 4;  // and row_lo + 8
+  const int qi0 = q0 + row_lo, qi1 = qi0 + 8;
+  const int kk0 = Cfg::kSplitS ? wg * Cfg::kSteps : 0;  // this warpgroup's first k16 step of S
+  OutAcc<C> o;
+  o.zero();
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_k; ++j) {
+    const int s = j & (kStages - 1), k0 = j * BK;
+    const uint32_t ph = (j >> (kStages - 1)) & 1;
+    unsigned char* Kt = Ks + s * Cfg::kKV;
+    unsigned char* Vt = Vs + s * Cfg::kKV;
+    mbar_wait(&full_k[s], ph);
+    float sc[BK / 2];
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < Cfg::kSteps; ++i) {
+      const int kk = kk0 + i;
+      const uint32_t aq = (kk / 4) * (kWideBQ * 128) + (kk % 4) * 32;
+      const uint32_t ak = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+      wgmma_ss(sc, desc(Qs + aq, 16, 1024), desc(Kt + ak, 16, 1024), i);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    if constexpr (Cfg::kSplitS) {
+      // Thread t's partial S at float4 v * 128 + t of this warpgroup's
+      // buffer; the twin thread of the other warpgroup holds the same rows
+      // and keys and adds it.
+      float4* mine = reinterpret_cast<float4*>(X) + ((j & 1) * 2 + wg) * (BK / 8) * 128;
+      const float4* theirs = reinterpret_cast<const float4*>(X) +
+                             ((j & 1) * 2 + 1 - wg) * (BK / 8) * 128;
+#pragma unroll
+      for (int v = 0; v < BK / 8; ++v)
+        mine[v * 128 + t] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+      consumers_wait(kBarS);
+#pragma unroll
+      for (int v = 0; v < BK / 8; ++v) {
+        const float4 x = theirs[v * 128 + t];
+        sc[4 * v] += x.x, sc[4 * v + 1] += x.y, sc[4 * v + 2] += x.z, sc[4 * v + 3] += x.w;
+      }
+    }
+
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    float c0, c1;
+    softmax_tile(sc, m0, m1, l0, l1, c0, c1, edge, k0, qi0, lane, S, causal, scale_log2);
+    o.scale(c0, c1);
+    uint32_t pa[BK / 16][4];
+    to_a_operand(sc, pa);
+
+    // O[:, C0 + [0, C)) += P V: V's boxes from C0 / 64 on.
+    mbar_wait(&full_v[s], ph);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      o.mma(pa[kk], Vt + (C0 / 64) * (BK * 128) + kk * 16 * 128, BK * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    o.fence();
+    mbar_arrive(&empty[s]);
+  }
+
+  row_sums(l0, l1);
+  if (wg == 0 && lane % 4 == 0) {
+    if (qi0 < S) lse[(size_t)bh * S + qi0] = m0 * kLn2 + logf(l0);
+    if (qi1 < S) lse[(size_t)bh * S + qi1] = m1 * kLn2 + logf(l1);
+  }
+  // Both warpgroups are done reading Q: each stages its columns of O / l
+  // there and copies them out.
+  consumers_wait(kBarO);
+  o.stage(1.f / l0, 1.f / l1, Qs, kWideBQ, 0, C0);
+  copy_rows<DH, C>(Qs, kWideBQ, 0, out + (size_t)bh * S * DH, q0, S, 1 + wg, C0);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_fwd_wide_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                               const __grid_constant__ CUtensorMap map_k,
+                               const __grid_constant__ CUtensorMap map_v,
+                               __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int BH,
+                               int S, int causal, float scale_log2) {
+  typedef FwdWideCfg<DH> C;
+  constexpr int kStages = C::kStages;
+  static_assert(kStages == 1 || kStages == 2, "a ring of one or two stages");
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  unsigned char* Qs = smem;
+  unsigned char* Ks = smem + C::kQ;             // stage s at + s * C::kKV
+  unsigned char* Vs = Ks + kStages * C::kKV;    // stage s at + s * C::kKV
+  float* X = reinterpret_cast<float*>(Vs + kStages * C::kKV);  // [parity][warpgroup] partial S
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + kStages * C::kKV + (C::kSplitS ? 4 * C::kX : 0));
+  uint64_t* bar_q = bars;
+  uint64_t* full_k = bars + 1;            // [kStages]
+  uint64_t* full_v = full_k + kStages;    // [kStages]
+  uint64_t* empty = full_v + kStages;     // [kStages]
+
+  // Block order: the last (longest, when causal) Q tile of every head first.
+  const int n_tiles = (S + kWideBQ - 1) / kWideBQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * kWideBQ;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one thread keeps the ring full.
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      const int n_k = fwd_wide_tiles<DH>(q0, S, causal);
+      prefetch_map(&map_q);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      mbar_expect(bar_q, C::kQ);
+      tma_load_tile<DH>(Qs, &map_q, bar_q, kWideBQ, q0, bh);
+      for (int j = 0; j < n_k; ++j) {
+        const int s = j & (kStages - 1);
+        mbar_wait(&empty[s], ((j >> (kStages - 1)) & 1) ^ 1);
+        mbar_expect(&full_k[s], C::kKV);
+        tma_load_tile<DH>(Ks + s * C::kKV, &map_k, &full_k[s], C::BK, j * C::BK, bh);
+        mbar_expect(&full_v[s], C::kKV);
+        tma_load_tile<DH>(Vs + s * C::kKV, &map_v, &full_v[s], C::BK, j * C::BK, bh);
+      }
+    }
+  } else if (wg == 0) {
+    regs_alloc<240>();
+    fwd_wide_consumer<DH, C::kCols0, 0>(Qs, Ks, Vs, X, bars, out, lse, bh, S, q0, causal,
+                                        scale_log2);
+  } else {
+    regs_alloc<240>();
+    fwd_wide_consumer<DH, C::kCols1, C::kCols0>(Qs, Ks, Vs, X, bars, out, lse, bh, S, q0, causal,
+                                                 scale_log2);
+  }
+}
+
+template <int DH>
+cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* out, void* lse,
+                            int bh, int s, int causal, float scale, cudaStream_t stream) {
+  typedef FwdWideCfg<DH> C;
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, DH, kWideBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_fwd_wide_kernel_sm90<DH>, C::kSmem)) != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kWideBQ - 1) / kWideBQ) * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_wide_kernel_sm90<DH><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), bh, s, causal,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 
 }  // namespace flash
 
 // q, k, v, out: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse:
-// float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes. Launches on
-// `stream` and returns the launch's CUDA error code.
+// float32 [bh, s]. dh is 64, 128, 192, 256, 320, 384, 448 or 512 in both
+// dtypes. Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int bh, int s, int dh, int causal, float scale, int is_bf16,
                               void* stream) {
@@ -515,6 +813,22 @@ extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void*
     return (int)f32::launch_fwd<192>(q, k, v, out, lse, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 256)
     return (int)f32::launch_fwd<256>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 320)
+    return (int)sm90::launch_fwd_wide<320>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 384)
+    return (int)sm90::launch_fwd_wide<384>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 448)
+    return (int)sm90::launch_fwd_wide<448>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 512)
+    return (int)sm90::launch_fwd_wide<512>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 320)
+    return (int)f32::launch_fwd<320>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 384)
+    return (int)f32::launch_fwd<384>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 448)
+    return (int)f32::launch_fwd<448>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 512)
+    return (int)f32::launch_fwd<512>(q, k, v, out, lse, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -528,5 +842,9 @@ extern "C" int dmlc_flash_fwd_smem_bytes(int dh, int is_bf16) {
   if (dh == 256 && is_bf16) return (int)sm90::FwdCfg<256>::kSmem;
   if (dh == 192 && !is_bf16) return (int)f32::FwdCfg<192>::bytes;
   if (dh == 256 && !is_bf16) return (int)f32::FwdCfg<256>::bytes;
+  if (dh == 320) return (int)(is_bf16 ? sm90::FwdWideCfg<320>::kSmem : f32::FwdCfg<320>::bytes);
+  if (dh == 384) return (int)(is_bf16 ? sm90::FwdWideCfg<384>::kSmem : f32::FwdCfg<384>::bytes);
+  if (dh == 448) return (int)(is_bf16 ? sm90::FwdWideCfg<448>::kSmem : f32::FwdCfg<448>::bytes);
+  if (dh == 512) return (int)(is_bf16 ? sm90::FwdWideCfg<512>::kSmem : f32::FwdCfg<512>::bytes);
   return 0;
 }

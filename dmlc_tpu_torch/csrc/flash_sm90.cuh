@@ -1,8 +1,8 @@
 // flash_sm90.cuh: the Hopper building blocks of the bf16 flash kernels
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
-// - TMA: tiles of a [BH, S, DH] bf16 tensor (DH 64 or 128, and 192 or 256
-//   for the forward and dK/dV; a template parameter of every kernel) are
+// - TMA: tiles of a [BH, S, DH] bf16 tensor (DH 64 or 128, 192 or 256,
+//   and 320 to 512 for the forward; a template parameter of every kernel) are
 //   copied into shared memory by the Tensor
 //   Memory Accelerator, one thread issuing each copy. The tensor map is 3-D
 //   over (d, s, bh), so rows past S of one head are zero-filled instead of
@@ -232,8 +232,22 @@ __device__ __forceinline__ void wgmma_ss_n96(float (&d)[48], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D[64 x 32] (+)= A . B, both operands from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // D (+)= A . B from shared memory, both K-major, N by the accumulator's
-// size: 64 floats a thread for N = 128, 48 for N = 96, 32 for N = 64.
+// size: 64 floats a thread for N = 128, 48 for N = 96, 32 for N = 64, 16
+// for N = 32.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   wgmma_ss_n128(d, da, db, acc);
 }
@@ -244,6 +258,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[48], uint64_t da, uint64_t d
 
 __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t db, int acc) {
   wgmma_ss_n64(d, da, db, acc);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_n32(d, da, db, acc);
 }
 
 // D[64 x 128] (+)= A . B, A from registers (four bf16x2 per thread), B from
@@ -341,23 +359,23 @@ __device__ __forceinline__ void stage_rows(const float (&d)[N], float mul0, floa
   }
 }
 
-// After the warpgroup's barrier `bar_id`, copies rows [row0, row0 + 64) of
-// a [R, DH] bf16 tile to global rows g_row0 + r < S of `g` ([S, DH]
-// row-major) in 16-byte stores.
-template <int DH>
+// After the warpgroup's barrier `bar_id`, copies columns [c0, c0 + W) of
+// rows [row0, row0 + 64) of a [R, DH] bf16 tile to global rows g_row0 + r
+// < S of `g` ([S, DH] row-major) in 16-byte stores.
+template <int DH, int W = DH>
 __device__ __forceinline__ void copy_rows(const unsigned char* tile, int R, int row0,
-                                          __nv_bfloat16* g, int g_row0, int S, int bar_id) {
-  constexpr int kChunks = DH / 8;  // 16-byte chunks a row
+                                          __nv_bfloat16* g, int g_row0, int S, int bar_id,
+                                          int c0 = 0) {
+  constexpr int kChunks = W / 8;  // 16-byte chunks a row
   const int t = threadIdx.x % 128;
   warpgroup_sync(bar_id);
 #pragma unroll
   for (int k = 0; k < 64 * kChunks / 128; ++k) {
     const int idx = t + 128 * k;  // 64 rows x kChunks chunks
-    const int row = idx / kChunks, chunk = idx % kChunks;
+    const int row = idx / kChunks, col = c0 + (idx % kChunks) * 8;
     if (g_row0 + row < S) {
-      const uint4 v =
-          *reinterpret_cast<const uint4*>(tile + tile_offset(row0 + row, chunk * 8, R));
-      *reinterpret_cast<uint4*>(g + (size_t)(g_row0 + row) * DH + chunk * 8) = v;
+      const uint4 v = *reinterpret_cast<const uint4*>(tile + tile_offset(row0 + row, col, R));
+      *reinterpret_cast<uint4*>(g + (size_t)(g_row0 + row) * DH + col) = v;
     }
   }
 }
@@ -402,6 +420,13 @@ struct OutAcc {
 
   __device__ __forceinline__ void fence() { reg_fence(r); }
 
+  // Times mul0 / mul1 as bf16 into columns [col0, col0 + DH) of rows
+  // [row0, row0 + 64) of a tile in shared memory (stage_rows).
+  __device__ __forceinline__ void stage(float mul0, float mul1, unsigned char* tile, int R,
+                                        int row0, int col0) {
+    stage_rows(r, mul0, mul1, tile, R, row0, col0);
+  }
+
   __device__ __forceinline__ void store(float mul0, float mul1, unsigned char* tile, int R,
                                         int row0, __nv_bfloat16* g, int g_row0, int S,
                                         int bar_id) {
@@ -439,11 +464,16 @@ struct OutAcc<DH, true> {
     reg_fence(hi);
   }
 
+  __device__ __forceinline__ void stage(float mul0, float mul1, unsigned char* tile, int R,
+                                        int row0, int col0) {
+    stage_rows(lo, mul0, mul1, tile, R, row0, col0);
+    stage_rows(hi, mul0, mul1, tile, R, row0, col0 + 128);
+  }
+
   __device__ __forceinline__ void store(float mul0, float mul1, unsigned char* tile, int R,
                                         int row0, __nv_bfloat16* g, int g_row0, int S,
                                         int bar_id) {
-    stage_rows(lo, mul0, mul1, tile, R, row0, 0);
-    stage_rows(hi, mul0, mul1, tile, R, row0, 128);
+    stage(mul0, mul1, tile, R, row0, 0);
     copy_rows<DH>(tile, R, row0, g, g_row0, S, bar_id);
   }
 };

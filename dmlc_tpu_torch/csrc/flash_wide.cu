@@ -6,11 +6,14 @@
 // _flash_fwd_stream_kernel (:215) for the forward, _flash_bwd_dq_kernel
 // (:271) and _flash_bwd_dkv_kernel (:320). Those take any head dim; the
 // kernels of those sources are instantiated at 64, 128, 192 and 256 in
-// both dtypes, and ops/flash.py zero-pads a head dim up to 256 to one of
-// them. A head dim past 256 it pads to a multiple of 8 and launches these
-// kernels; that is the only way the public functions reach them. A direct
-// call through their entry points takes any multiple of 8 past 128
-// (chip_smoke.py times them that way at 160, 192 and 256 beside the
+// both dtypes, the forward's also at 320, 384, 448 and 512, and
+// ops/flash.py zero-pads a head dim up to 512 to one of them. Which head
+// dims the public functions send here: to flash_wide_bwd_dq and
+// flash_wide_bwd_dkv every one past 256 (in (256, 512] at the forward's
+// width, the next multiple of 64; past 512 the next multiple of 8); to
+// flash_wide_fwd only those past 512. A direct call through their entry
+// points takes any multiple of 8 past 128 (chip_smoke.py times them that
+// way at 160, 192 and 256, and the forward at 320, 384 and 512, beside the
 // kernels that replaced them there). No model of the registry has heads
 // wider than 128, so no main path runs them: they keep a head dim that the
 // reference computes from being refused on the card.

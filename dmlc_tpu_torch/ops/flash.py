@@ -35,14 +35,16 @@ tiles and mask the ragged edge.
 
 Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
 128) and for ``SM90_WIDE_HEAD_DIMS`` (192, 256), in both dtypes (bf16 on
-the Hopper designs, float32 on register-tiled FMA). Every head dim past
-256 runs through a second set of three simple kernels that take the head
-dim at run time (``csrc/flash_wide.cu``, any multiple of 8). No head dim
-is refused.
+the Hopper designs, float32 on register-tiled FMA); the forward also for
+``FWD_WIDE_HEAD_DIMS`` (320, 384, 448, 512). Every other head dim past
+128 runs through a second set of three simple kernels that take the head
+dim at run time (``csrc/flash_wide.cu``, any multiple of 8): the
+backward past 256 and the forward past 512. No head dim is refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
 ``_run_head_dim(Dh)`` (the next of ``KERNEL_HEAD_DIMS``; past 128, up to
-256, the next multiple of 64; past that the next multiple of 8) on every
-device, run the wrappers there and slice the results back.
+512, the next multiple of 64; past that the next multiple of 8) on every
+device, run the wrappers there and slice the results back; the forward
+and its backward see one width.
 The padding is exact: zero columns of Q and K leave Q K^T unchanged, zero
 columns of V and dO leave out's first Dh columns, lse, delta and dP
 unchanged, and dQ, dK, dV get zero columns. ``scale`` defaults to the
@@ -74,8 +76,12 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: (csrc/flash_fwd.cu, csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu); a head
 #: dim in (128, 256] pads up to one of them.
 SM90_WIDE_HEAD_DIMS = (192, 256)
-#: Every head dim past 256 pads to a multiple of WIDE_HEAD_DIM_STEP and
-#: runs the wide kernels (csrc/flash_wide.cu), which take any.
+#: The head dims past 256 the forward has kernels of its own for, in both
+#: dtypes (csrc/flash_fwd.cu); a head dim in (256, 512] pads up to one of
+#: them, and its backward runs the wide kernels at the same width.
+FWD_WIDE_HEAD_DIMS = (320, 384, 448, 512)
+#: Every other head dim past 128 pads to a multiple of WIDE_HEAD_DIM_STEP
+#: and runs the wide kernels (csrc/flash_wide.cu), which take any.
 WIDE_HEAD_DIM_STEP = 8
 
 
@@ -89,9 +95,10 @@ def _run_head_dim(dh: int) -> int:
     """The head dim the public functions run heads of ``dh`` at, in either
     dtype and on every device, so that a forward and its backward see one
     width: ``_kernel_head_dim(dh)``; past it the next of
-    ``SM90_WIDE_HEAD_DIMS``; past that ``dh`` rounded up to a multiple of
-    ``WIDE_HEAD_DIM_STEP``."""
-    padded = _kernel_head_dim(dh) or next((k for k in SM90_WIDE_HEAD_DIMS if k >= dh), None)
+    ``SM90_WIDE_HEAD_DIMS`` and ``FWD_WIDE_HEAD_DIMS``; past those ``dh``
+    rounded up to a multiple of ``WIDE_HEAD_DIM_STEP``."""
+    wider = SM90_WIDE_HEAD_DIMS + FWD_WIDE_HEAD_DIMS
+    padded = _kernel_head_dim(dh) or next((k for k in wider if k >= dh), None)
     return padded or -(-dh // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
 
 
@@ -99,9 +106,11 @@ def _entry_name(name: str, dh: int) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh``, in
     either dtype: its own kernel at ``KERNEL_HEAD_DIMS`` and
-    ``SM90_WIDE_HEAD_DIMS``; else the wide kernel (``flash_wide_*``); None
-    for a head dim no kernel takes."""
-    if dh in KERNEL_HEAD_DIMS or dh in SM90_WIDE_HEAD_DIMS:
+    ``SM90_WIDE_HEAD_DIMS``, and the forward's at ``FWD_WIDE_HEAD_DIMS``
+    too; else the wide kernel (``flash_wide_*``); None for a head dim no
+    kernel takes."""
+    own = KERNEL_HEAD_DIMS + SM90_WIDE_HEAD_DIMS
+    if dh in own or (name == "flash_fwd" and dh in FWD_WIDE_HEAD_DIMS):
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
         return name.replace("flash_", "flash_wide_", 1)

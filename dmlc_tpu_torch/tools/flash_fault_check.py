@@ -53,7 +53,17 @@ LM train shape, or its Dh-64 twin):
   1 of the handed tile);
 - flash_bwd_dq_f32_dh192 (float32, head dim 192, [8, 4, 2048, 192]): the
   one-part dQ, which Dh 192 runs with three float4 columns a thread,
-  stores its third column chunk over the first.
+  stores its third column chunk over the first;
+- flash_fwd_dh512 (bf16, head dim 512, [4, 4, 1024, 512]): the forward
+  past Dh 256 (64-row Q tiles, 32-key K/V tiles): the last Q tile skips its
+  last K/V tile, in the producer and both consumer warpgroups;
+- flash_fwd_s_add (bf16, head dim 320, [4, 4, 1024, 320]): its warpgroups
+  add each other's partial S only to the first 16 keys of each tile;
+- flash_fwd_f32_dh512 (float32, head dim 512): the fault of flash_fwd_f32
+  in the Dh-512 instantiation (32-row Q tiles, two parts of 256 columns);
+- flash_fwd_f32_s_add (float32, head dim 320): the two parts add each
+  other's partial S only to their keys c, not c + 16 (the uneven split:
+  192 and 128 columns of O).
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -80,7 +90,8 @@ from typing import NamedTuple
 
 sys.path.insert(0, str(Path(__file__).resolve().parent))  # tools/ is not a package
 from flash_levers import (DH64_SHAPE, REPO, TRAIN_SHAPE, WIDE192_SHAPE,  # noqa: E402
-                          WIDE256_SHAPE, copy_port, outside_checkout)
+                          WIDE256_SHAPE, WIDE320_SHAPE, WIDE512_SHAPE, copy_port,
+                          outside_checkout)
 
 
 class Fault(NamedTuple):
@@ -114,6 +125,13 @@ DKV_SM90 = ("  const int t_end = (S + kDkvBQ - 1) / kDkvBQ;",
 S_CHUNK = ("      for (int kk = 0; kk < DH / 16; ++kk) {\n        const uint32_t aq",
            "      for (int kk = 0; kk < DH / 16 - (DH > 128 ? 4 : 0); ++kk) {\n"
            "        const uint32_t aq")
+FWD_WIDE = ("  return ((causal ? min(q0 + kWideBQ, S) : S) + BK - 1) / BK;",
+            "  return ((causal ? min(q0 + kWideBQ, S) : S) + BK - 1) / BK"
+            " - (q0 + kWideBQ >= S ? 1 : 0);")
+S_ADD = ("      for (int v = 0; v < BK / 8; ++v) {\n        const float4 x = theirs[v * 128 + t];",
+         "      for (int v = 0; v < BK / 16; ++v) {\n        const float4 x = theirs[v * 128 + t];")
+F32_ADD = "        for (int u = 0; u < {}; ++u) s[i][u] += Pp[(g + G * i) * LDP + c + 16 * u];"
+S_ADD_F32 = (F32_ADD.format("NKT"), F32_ADD.format("NKT - 1"))
 SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    else\n"
         "      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);",
         "      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dk + base, k0, S, 1);\n    else\n"
@@ -150,6 +168,10 @@ FAULTS = {
         "        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + 64 * h + 4 * c) =",
         "        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + 64 * (h % 2) + 4 * c) =",
         "float32", WIDE192_SHAPE),
+    "flash_fwd_dh512": Fault("flash_fwd", *FWD_WIDE, "bfloat16", WIDE512_SHAPE),
+    "flash_fwd_s_add": Fault("flash_fwd", *S_ADD, "bfloat16", WIDE320_SHAPE),
+    "flash_fwd_f32_dh512": Fault("flash_fwd", *FWD_F32, "float32", WIDE512_SHAPE),
+    "flash_fwd_f32_s_add": Fault("flash_fwd", *S_ADD_F32, "float32", WIDE320_SHAPE),
 }
 
 PAGED_CASE = ("bench_decode", 128)

@@ -11,7 +11,9 @@ its Dh-64 twin; ``wide`` (the bf16 forward and dK/dV at head dims 256 and
 [8, 3, 2048, 256] and [8, 4, 2048, 192]); ``wide_dq`` (the bf16
 flash_bwd_dq at those head dims and shapes); ``wide_f32`` (the float32
 forward there); ``wide_bwd_f32`` (the float32 flash_bwd_dq and
-flash_bwd_dkv there); ``paged``
+flash_bwd_dkv there); ``wide_fwd`` (the forward's own kernels past head
+dim 256 in both dtypes, timed at [4, 4, 1024, 320], [4, 4, 1024, 512] and
+the train shape's FLOPs with heads of 384, [8, 2, 2048, 384]); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -20,9 +22,10 @@ geometry and head dim); or ``ab``, an earlier csrc/ against the checkout's
 and its Dh-64 twin, the wide kernels (csrc/flash_wide.cu, through their
 entry points whatever the wrappers pick) at [4, 4, 1024, Dh] for Dh 160
 and 256 in both dtypes (three readings of 10 calls), the three flash
-kernels through the wrappers at [8, 3, 2048, 256] and [8, 4, 2048, 192] in
-both dtypes (the kernel each picks, or the error of a source without it),
-and the LM train leg
+kernels through the wrappers at [8, 3, 2048, 256], [8, 4, 2048, 192], [8,
+2, 2048, 384], [4, 4, 1024, 320] and [4, 4, 1024, 512] in both dtypes (the
+kernel each picks, or the error of a source without it), and the LM train
+leg
 (``chip_smoke.phase_train``: step wall p50, the flash kernels' device ms
 in one traced step, the loss), in turns parent, ship, ship, parent. Runs
 the group's variants named
@@ -33,17 +36,17 @@ text replaced. With --parent (repeatable), CSRC_DIR is an earlier csrc/
 whose sources and headers replace the copy's whole (the variant
 "parent<j>"), run first and last so that drift between runs shows. The
 copy is built; the group's kernels must pass ``chip_smoke.flash_check`` in
-the group's dtype at the group's checks (by default the LM train shape,
+the group's dtypes at the group's checks (by default the LM train shape,
 causal, and S 193 and 1000, causal and not; for ``wide``, ``wide_dq``,
 ``wide_f32`` and ``wide_bwd_f32`` S 193 at head dims 256 and 192, causal
-and not) and at
+and not; for ``wide_fwd`` S 193 at 320 and 512) and at
 each timed shape, and
 ``chip_smoke.kernel_device_ms``
 times each of them at each timed shape (three readings of 20 calls). A
 parent without a timed shape's head dim reports the error for that shape.
 
 Prints one JSON line per run: device ms, the errors at the train shape, and
-registers and spills (ptxas) of the group's kernels in its dtype, with
+registers and spills (ptxas) of the group's kernels in its dtypes, with
 HGMMA/UTMALDG counts (SASS) in bf16; or the failure's last line. Exits
 non-zero if a run fails. Needs a CUDA device and nvcc; the checkout it is
 run from is only read.
@@ -66,6 +69,11 @@ DH64_SHAPE = (8, 12, 2048, 64)
 # as 4 of 192.
 WIDE256_SHAPE = (8, 3, 2048, 256)
 WIDE192_SHAPE = (8, 4, 2048, 192)
+# ... and as 2 heads of 384; the forward past 256 is also timed at [4, 4,
+# 1024, 320] and [4, 4, 1024, 512].
+WIDE384_SHAPE = (8, 2, 2048, 384)
+WIDE320_SHAPE = (4, 4, 1024, 320)
+WIDE512_SHAPE = (4, 4, 1024, 512)
 
 
 # The flash checks a variant must pass before it is timed (and each timed
@@ -74,10 +82,12 @@ WIDE192_SHAPE = (8, 4, 2048, 192)
 FLASH_CHECKS = ((TRAIN_SHAPE, True), ((2, 3, 193, 128), False), ((2, 3, 193, 128), True),
                 ((1, 2, 1000, 128), False), ((1, 2, 1000, 128), True))
 WIDE_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (256, 192) for causal in (True, False))
+FWD_WIDE_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (320, 512)
+                        for causal in (True, False))
 
 
 class Group(NamedTuple):
-    dtype: str                # checked and timed in this dtype
+    dtype: str | tuple        # checked and timed in this dtype (or each of these)
     kernels: tuple[str, ...]  # csrc/<kernel>.cu, each checked and timed
     shapes: tuple             # timed shapes: flash [B, H, S, Dh], causal; paged (geometry, Dh)
     levers: dict              # variant -> {kernel: [(old, new), ...]}
@@ -385,25 +395,11 @@ LAYOUT_B = """  } else if constexpr (DH == 256) {
 # checkout's source (64-key K/V tiles; at Dh 256 two K stages and one V
 # stage, V released once dP is multiplied; 2 stages of each at 192);
 # keys32: 32-key K/V tiles in 2 stages each at Dh 256 (S and dP on
-# m64n32k16, two k16 steps of dQ a tile); stages1: 64-key tiles in one
-# stage of K and of V at Dh 256.
+# m64n32k16 of flash_sm90.cuh, two k16 steps of dQ a tile); stages1:
+# 64-key tiles in one stage of K and of V at Dh 256.
 DQ_BK = "  static constexpr int BK = kDqKeys;\n"
 DQ_STAGES_K = "  static constexpr int kStagesK = 2;\n"
 DQ_STAGES_V = "  static constexpr int kStagesV = DH == 256 ? 1 : 2;\n"
-WGMMA_N32 = DQ_KEYS_LINE + """
-// D[64 x 32] (+)= A . B, both operands from shared memory, both K-major.
-__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
-  asm volatile(
-      "{\\n.reg .pred p;\\nsetp.ne.b32 p, %18, 0;\\n"
-      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
-      "}, %16, %17, p, 1, 1, 0, 0;\\n}\\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
-        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),
-        "+f"(d[14]), "+f"(d[15])
-      : "l"(da), "l"(db), "r"(acc));
-}
-"""
 
 # The float32 forward at Dh 192 and 256 (group wide_f32). ship: the
 # checkout's source (Dh 256: two parts of 128 threads, each owning half of
@@ -441,6 +437,20 @@ DKV_ONE_STAGE = (DKV_STAGES, DKV_STAGES.replace("DH == 192", "DH > 128"))
 DKV_TWO_STAGES = (DKV_STAGES, DKV_STAGES.replace("DH == 64 || DH == 192", "DH == 64"))
 DKV_WHOLE = (DKV_PARTS, DKV_PARTS.replace("DH == 192 ? 2 : 1", "1"))
 DKV_TWO_PARTS = (DKV_PARTS, DKV_PARTS.replace("DH == 192", "DH > 128"))
+
+# The forward's own kernels past Dh 256 in both dtypes (group wide_fwd).
+# ship: the checkout's source (bf16: 64-row Q tiles shared by both consumer
+# warpgroups, each owning part of O's columns and making S over half of
+# Dh, the partial S added through shared memory, 32-key K/V tiles in 2
+# stages; float32: two parts split the same way, 64-row Q tiles up to 384
+# and 32-row ones past it, one K/V stage); whole: bf16 with each
+# warpgroup making the whole S (no exchange, 1.5x the tensor work);
+# whole_f32: the same in float32 (1.5x the FMA work); stages1: bf16 with
+# one K/V stage; rows32: float32 with 32-row Q tiles at 320 and 384 too.
+XL_SPLIT = "  static constexpr bool kSplitS = true;         // S over half of Dh a warpgroup\n"
+XL_SPLIT_F32 = "  static constexpr bool kSplitS = true;  // S over half of Dh a part\n"
+XL_STAGES = "  static constexpr int kStages = 2;             // K/V ring depth\n"
+XL_ROWS = "BQ = DH <= 384 ? kFwdRows : 32,"
 
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
@@ -485,8 +495,7 @@ GROUPS = {
     }, ("ship", "stages1", "keys128", "keys64", "a", "b", "ship"), checks=WIDE_CHECKS),
     "wide_dq": Group("bfloat16", ("flash_bwd_dq",), (WIDE256_SHAPE, WIDE192_SHAPE), {
         "ship": {},
-        "keys32": {"flash_bwd_dq": [(DQ_KEYS_LINE, WGMMA_N32),
-                                    (DQ_BK, DQ_BK.replace("kDqKeys", "DH == 256 ? 32 : kDqKeys")),
+        "keys32": {"flash_bwd_dq": [(DQ_BK, DQ_BK.replace("kDqKeys", "DH == 256 ? 32 : kDqKeys")),
                                     (DQ_STAGES_V, DQ_STAGES_V.replace("DH == 256 ? 1 : 2", "2"))]},
         "stages1": {"flash_bwd_dq": [(DQ_STAGES_K, DQ_STAGES_K.replace("2", "DH == 256 ? 1 : 2"))]},
     }, ("ship", "keys32", "stages1", "ship"), checks=WIDE_CHECKS),
@@ -518,6 +527,14 @@ GROUPS = {
                                      "RPT = DH == 192 ? 4 : kDqRowsPerThread;")]},
     }, ("ship", "stages1", "stages2", "whole", "parts", "whole1", "rows32", "ship"),
         checks=WIDE_CHECKS),
+    "wide_fwd": Group(("bfloat16", "float32"), ("flash_fwd",),
+                      (WIDE320_SHAPE, WIDE512_SHAPE, WIDE384_SHAPE), {
+        "ship": {},
+        "whole": {"flash_fwd": [(XL_SPLIT, XL_SPLIT.replace("true", "false"))]},
+        "whole_f32": {"flash_fwd": [(XL_SPLIT_F32, XL_SPLIT_F32.replace("true", "false"))]},
+        "stages1": {"flash_fwd": [(XL_STAGES, XL_STAGES.replace("2;", "1;"))]},
+        "rows32": {"flash_fwd": [(XL_ROWS, "BQ = 32,")]},
+    }, ("ship", "whole", "whole_f32", "stages1", "rows32", "ship"), checks=FWD_WIDE_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -534,38 +551,42 @@ RUN = """
 import json, sys, torch, chip_smoke as cs
 from dmlc_tpu_torch.ops import _build, flash as FL
 dtype, kernels, shapes, checks = json.loads(sys.argv[1])
-dt = getattr(torch, dtype)
+dtypes = [dtype] if isinstance(dtype, str) else dtype
+tag = (lambda d: "") if len(dtypes) == 1 else (lambda d: "_" + d)
 _build.build(["flash_fwd", "flash_bwd_dq", "flash_bwd_dkv", "flash_wide"])
 report = {"card": cs.phase_device()["nvidia_smi"]}
 for name in kernels:
     entries = {}
     for mangled, e in cs.ptxas_entries(_build.build_log[name]).items():
         inst = cs.flash_instance(mangled)
-        if inst is not None and inst[0] != dtype:
+        if inst is not None and inst[0] not in dtypes:
             continue
-        if dtype == "bfloat16":
+        if inst is not None and inst[0] == "bfloat16":
             e["sass"] = cs.sass_counts(_build.library_path(name), mangled)
-        entries[f"dh{inst[1]}" if inst else mangled[:60]] = e
+        entries[f"dh{inst[1]}{tag(inst[0])}" if inst else mangled[:60]] = e
     report[name] = entries
-for shape, causal in checks:
-    check = cs.flash_check(tuple(shape), dt, causal)
-    report.setdefault("train_errors", {n: [check[n]["rel_l2"], check[n]["row_rel_max"]]
-                                       for n in ("out", "dq", "dk", "dv")})
 """ + CALLS + """
-for shape in map(tuple, shapes):
-    q, k, v, do = cs.flash_operands(shape, dt, seed=12)
-    kw = {"causal": True, "scale": shape[3] ** -0.5}
-    try:
-        out, lse = FL.flash_forward(q, k, v, **kw)
-    except (ValueError, RuntimeError) as e:  # an earlier source without this head dim
-        report[f"dh{shape[3]}"] = str(e)[:120]
-        continue
-    if [list(shape), True] not in checks:
-        cs.flash_check(shape, dt, True)
-    args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
-    report[f"dh{shape[3]}"] = {
-        f"{name}_ms": [cs.kernel_device_ms(lambda: CALLS[name](args, kw), name, calls=20)
-                       for _ in range(3)] for name in kernels}
+for dtype in dtypes:
+    dt = getattr(torch, dtype)
+    for shape, causal in checks:
+        check = cs.flash_check(tuple(shape), dt, causal)
+        report.setdefault("train_errors" + tag(dtype), {
+            n: [check[n]["rel_l2"], check[n]["row_rel_max"]] for n in ("out", "dq", "dk", "dv")})
+    for shape in map(tuple, shapes):
+        key = f"dh{shape[3]}{tag(dtype)}"
+        q, k, v, do = cs.flash_operands(shape, dt, seed=12)
+        kw = {"causal": True, "scale": shape[3] ** -0.5}
+        try:
+            out, lse = FL.flash_forward(q, k, v, **kw)
+        except (ValueError, RuntimeError) as e:  # an earlier source without this head dim
+            report[key] = str(e)[:120]
+            continue
+        if [list(shape), True] not in checks:
+            cs.flash_check(shape, dt, True)
+        args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
+        report[key] = {
+            f"{name}_ms": [cs.kernel_device_ms(lambda: CALLS[name](args, kw), name, calls=20)
+                           for _ in range(3)] for name in kernels}
 print(json.dumps(report))
 """
 
@@ -625,10 +646,12 @@ for dh in (160, 256):
                                     calls=10)
                 for _ in range(3)]
             for e in ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")}
-# The train leg's FLOPs with wide heads, through the wrappers in both
-# dtypes; each kernel is looked up by the entry point the checkout's
-# wrappers pick. An earlier source without that kernel reports the error.
-for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE):
+# The train leg's FLOPs with wide heads and [4, 4, 1024, 320] and 512,
+# through the wrappers in both dtypes; each kernel is looked up by the
+# entry point the checkout's wrappers pick. An earlier source without that
+# kernel reports the error.
+for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE, cs.WIDE384_SHAPE, (4, 4, 1024, 320),
+              (4, 4, 1024, 512)):
     for dt in (torch.bfloat16, torch.float32):
         q, k, v, do = cs.flash_operands(shape, dt, seed=12)
         kw = {"causal": True, "scale": shape[3] ** -0.5}
@@ -642,7 +665,7 @@ for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE):
                                                           calls=10) for _ in range(3)]
             except (ValueError, RuntimeError) as e:
                 row[f"{entry}_ms"] = str(e)[:120]
-        report[f"w{shape[3]}_{str(dt)[6:]}"] = row
+        report[f"{'w' if shape[0] == 8 else 'dh'}{shape[3]}_{str(dt)[6:]}"] = row
 train = cs.phase_train(dev)
 report["train"] = {"step_ms_p50": train["step_ms_p50"], "loss_after": train["loss_after"],
                    "flash_ms": train["traced_step"]["device_ms_by_class"]["flash"]}

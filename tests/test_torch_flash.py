@@ -20,9 +20,11 @@ Same numpy-seeded float32 inputs through both:
   once refused; which head dim and entry point each (head dim, dtype) runs
   at on the card (``_run_head_dim``, ``_entry_name``: heads in (128, 256]
   padded to 192 or 256 for the three kernels of their own in both dtypes,
-  past 256 the wide kernels), that padding 160 to 192 and 200 to 256 is
-  exact in both dtypes' routing, and that no head-dim limit is left in the
-  sources;
+  in (256, 512] to the next multiple of 64 for the forward's own and the
+  wide backward, past 512 the wide kernels), that padding 160 to 192, 200
+  to 256, and 264, 330 and 500 to 320, 384 and 512 is exact in both
+  dtypes' routing, that the forward's shared memory past 256 fits a
+  block, and that no head-dim limit is left in the sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
@@ -162,14 +164,18 @@ def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
 def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     """No wide limit is left: each head dim in (128, 1100] runs, in both
     dtypes, at a head dim
-    that every wrapper has a kernel for: up to 256 at most 63 wider (192 or
-    256), past it at most 7 wider; none at or below 128 runs wide."""
+    that every wrapper has a kernel for: up to 512 at most 63 wider (192 or
+    256, then 320, 384, 448 or 512, where the forward runs its own kernel
+    and dQ and dK/dV the wide ones), past it at most 7 wider; none at or
+    below 128 runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
             run = flash._run_head_dim(dh)
-            step = 64 if dh <= 256 else flash.WIDE_HEAD_DIM_STEP
+            step = 64 if dh <= 512 else flash.WIDE_HEAD_DIM_STEP
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
             assert all(flash._entry_name(n, run) for n in FLASH_ENTRIES), (dh, dt)
+            if 256 < dh <= 512:
+                assert {n: flash._entry_name(n, run) for n in FLASH_ENTRIES} == FWD_OWN, dh
     assert all(flash._entry_name("flash_fwd", dh) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
 
@@ -177,17 +183,21 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
 FLASH_ENTRIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 OWN = {n: n for n in FLASH_ENTRIES}
 WIDE = {n: f"flash_wide_{n[6:]}" for n in FLASH_ENTRIES}
+FWD_OWN = {**WIDE, "flash_fwd": "flash_fwd"}
 # (head dim, dtype) -> (the head dim it runs at, the entry point of each
 # wrapper there): in (128, 256] the three kernels of their own at 192 or
 # 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
-# past 256 the wide kernels at a multiple of 8.
+# in (256, 512] the forward's own at the next multiple of 64 and the wide
+# dQ and dK/dV there; past 512 the wide kernels at a multiple of 8.
 DISPATCH = {
     (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
     (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
     (192, "bfloat16"): (192, OWN), (192, "float32"): (192, OWN),
     (200, "bfloat16"): (256, OWN), (200, "float32"): (256, OWN),
     (256, "bfloat16"): (256, OWN), (256, "float32"): (256, OWN),
-    (264, "bfloat16"): (264, WIDE), (264, "float32"): (264, WIDE),
+    (264, "bfloat16"): (320, FWD_OWN), (264, "float32"): (320, FWD_OWN),
+    (384, "bfloat16"): (384, FWD_OWN), (384, "float32"): (384, FWD_OWN),
+    (449, "bfloat16"): (512, FWD_OWN), (449, "float32"): (512, FWD_OWN),
     (513, "bfloat16"): (520, WIDE), (513, "float32"): (520, WIDE),
     (1000, "bfloat16"): (1000, WIDE), (1000, "float32"): (1000, WIDE),
 }
@@ -213,6 +223,33 @@ def test_padding_to_the_hopper_head_dims_is_exact(dh, causal, dtype):
     q, k, v, g = _heads(48, dh, seed=10)
     run = flash._run_head_dim(dh)
     assert run in flash.SM90_WIDE_HEAD_DIMS and run > dh
+    q3, k3, v3, g3 = (flash._as_heads(torch.from_numpy(x), run) for x in (q, k, v, g))
+    kw = {"causal": causal, "scale": dh ** -0.5}
+    out, lse = flash.flash_forward(q3, k3, v3, **kw)
+    delta = flash._delta(out, g3)
+    dq = flash.flash_bwd_dq(q3, k3, v3, g3, lse, delta, **kw)
+    dk, dv = flash.flash_bwd_dkv(q3, k3, v3, g3, lse, delta, **kw)
+    got = [flash._from_heads(x, q.shape).numpy() for x in (out, dq, dk, dv)]
+    assert all(not x[..., dh:].any() for x in (out, dq, dk, dv))
+    _assert_close(got, _theirs(q, k, v, g, causal), f"Dh {dh} padded to {run}")
+    _, j_lse = pk.flash_attention_with_lse(q, k, v, causal=causal)
+    np.testing.assert_allclose(lse.numpy().reshape(j_lse.shape), np.asarray(j_lse),
+                               atol=LSE_ATOL, rtol=0)
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
+@pytest.mark.parametrize("dh, causal", [(264, True), (330, False), (500, True)])
+def test_padding_to_the_wide_forward_head_dims_is_exact(dh, causal, dtype):
+    """Heads of 264, 330 and 500 run the forward's own kernels at 320, 384
+    and 512 and the wide dQ and dK/dV at the same width, in either dtype:
+    the same inputs, padded by the helpers the card uses, through the plain
+    versions at the padded head dim and sliced back, against the JAX flash
+    functions at the head dim itself (out, lse, dq, dk, dv; float32 data,
+    tolerances as above)."""
+    q, k, v, g = _heads(40, dh, seed=12)
+    run = flash._run_head_dim(dh)
+    assert run in flash.FWD_WIDE_HEAD_DIMS and dh < run < dh + 64
+    assert {n: flash._entry_name(n, run) for n in FLASH_ENTRIES} == FWD_OWN
     q3, k3, v3, g3 = (flash._as_heads(torch.from_numpy(x), run) for x in (q, k, v, g))
     kw = {"causal": causal, "scale": dh ** -0.5}
     out, lse = flash.flash_forward(q3, k3, v3, **kw)
@@ -266,7 +303,7 @@ def test_wide_kernels_limit_and_entry_points_are_their_sources():
 
 @pytest.mark.parametrize("dh, run, dtype", [
     (32, 64, "float32"), (96, 128, "float32"), (64, 64, "float32"), (160, 192, "float32"),
-    (130, 192, "float32"), (200, 256, "float32"), (256, 256, "float32"), (264, 264, "float32"),
+    (130, 192, "float32"), (200, 256, "float32"), (256, 256, "float32"), (264, 320, "float32"),
     (160, 192, "bfloat16"), (200, 256, "bfloat16"), (513, 520, "bfloat16"),
     (160, 192, "float64")])
 def test_public_functions_hand_the_wrappers_the_padded_head_dim(dh, run, dtype, monkeypatch):
@@ -387,6 +424,8 @@ def test_gradient_dtypes_follow_the_inputs():
     (256, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (256, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (320, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (512, torch.float32, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
     """Each flash wrapper counts a launch under (entry point, head dim,
@@ -445,13 +484,16 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_bwd_dkv_swap", "flash_bwd_dq_dh256", "flash_bwd_dq_box",
                                    "flash_fwd_f32_dh256", "flash_bwd_dq_f32_dh256",
                                    "flash_bwd_dkv_f32_dh256", "flash_bwd_dkv_f32_dh192",
-                                   "flash_bwd_dkv_f32_handoff", "flash_bwd_dq_f32_dh192"])
+                                   "flash_bwd_dkv_f32_handoff", "flash_bwd_dq_f32_dh192",
+                                   "flash_fwd_dh512", "flash_fwd_s_add", "flash_fwd_f32_dh512",
+                                   "flash_fwd_f32_s_add"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
-    its kernel is built for (192 and 256 too, in both dtypes)."""
+    its kernel is built for (192 and 256 too, in both dtypes, and the
+    forward's 320 and 512)."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
@@ -465,6 +507,7 @@ def test_fault_check_finds_its_loop_once(fault):
     assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap",
                                                                  "_box", "_handoff", "_dh192"))
     assert dh == 192 or not fault.endswith("_dh192")
+    assert (dh in flash.FWD_WIDE_HEAD_DIMS) == fault.endswith(("_dh512", "_s_add"))
     assert case.check == "flash"
 
 
@@ -549,6 +592,14 @@ def test_wide_f32_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("wide_f32", lever)
 
 
+@pytest.mark.parametrize("lever", ["ship", "whole", "whole_f32", "stages1", "rows32"])
+def test_wide_fwd_lever_tool_finds_its_lines_once(lever):
+    """The forward's own kernels past head dim 256 in both dtypes (group
+    wide_fwd), timed in both."""
+    _lever_sources_apply("wide_fwd", lever)
+    assert _tool("flash_levers").GROUPS["wide_fwd"].dtype == ("bfloat16", "float32")
+
+
 @pytest.mark.parametrize("lever", ["ship", "stages1", "stages2", "whole", "parts", "whole1",
                                    "rows32"])
 def test_wide_bwd_f32_lever_tool_finds_its_lines_once(lever):
@@ -582,9 +633,11 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     """Each flash source's C entry point launches a kernel for head dim 64
     and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
     FMA kernels, flash::f32), each instantiated at the head dim it is
-    dispatched for; each also for SM90_WIDE_HEAD_DIMS in both dtypes: the
-    head dims ``_entry_name`` sends to them (text only, no nvcc)."""
+    dispatched for; each also for SM90_WIDE_HEAD_DIMS in both dtypes, and
+    the forward's for FWD_WIDE_HEAD_DIMS: the head dims ``_entry_name``
+    sends to them (text only, no nvcc)."""
     assert flash.KERNEL_HEAD_DIMS == (64, 128) and flash.SM90_WIDE_HEAD_DIMS == (192, 256)
+    assert flash.FWD_WIDE_HEAD_DIMS == (320, 384, 448, 512)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
     pattern = re.compile(r"if \((!?)is_bf16 && dh == (\d+)\)\s*return \(int\)(sm90::|f32::)?"
                          r"launch_\w+<(\d+)>\(")
@@ -601,10 +654,41 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
         wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
                 for dh in flash.SM90_WIDE_HEAD_DIMS if flash._entry_name(name, dh) == name}
         assert wide == {(bf16, dh) for bf16 in (True, False) for dh in (192, 256)}
-        assert found == want | wide
+        fwd_wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
+                    for dh in flash.FWD_WIDE_HEAD_DIMS if flash._entry_name(name, dh) == name}
+        assert fwd_wide == ({(bf16, dh) for bf16 in (True, False)
+                             for dh in flash.FWD_WIDE_HEAD_DIMS} if name == "flash_fwd" else set())
+        assert found == want | wide | fwd_wide
         smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
         for bf16, dh in wide:
             assert f"if (dh == {dh} && {'' if bf16 else '!'}is_bf16) return" in smem
+
+
+def test_wide_forward_shared_memory_fits_a_block():
+    """The forward's shared-memory entry (``dmlc_flash_fwd_smem_bytes``,
+    which chip_smoke.py's build phase reads on the card) covers 320, 384,
+    448 and 512 in both dtypes, from ``sm90::FwdWideCfg`` (bf16) and
+    ``f32::FwdCfg`` (float32); each size, as those configs compute it from
+    the lines checked here, is at most the 232448 bytes a block may take
+    (text only, no nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / "flash_fwd.cu").read_text()
+    smem = text[text.index('extern "C" int dmlc_flash_fwd_smem_bytes('):]
+    smem = smem[:smem.index("\n}\n")]
+    for line in ("constexpr int kWideBQ = 64;", "  static constexpr int BK = 32;  ",
+                 "  static constexpr int kStages = 2;  ", "kSplitS = true;         //",
+                 "static constexpr uint32_t kX = 128 * (BK / 2) * 4;",
+                 "constexpr int kFwdRows = 64;", "constexpr int kFwdKeys = 32;",
+                 "  static constexpr int kParts = 2, kStages = 1;",
+                 "BQ = DH <= 384 ? kFwdRows : 32, BK = kFwdKeys,"):
+        assert text.count(line) == 1, line
+    for dh in flash.FWD_WIDE_HEAD_DIMS:
+        assert (f"if (dh == {dh}) return (int)(is_bf16 ? sm90::FwdWideCfg<{dh}>::kSmem : "
+                f"f32::FwdCfg<{dh}>::bytes);") in smem
+        q, kv, x = 64 * dh * 2, 32 * dh * 2, 128 * 16 * 4
+        bf16 = q + 2 * 2 * kv + 4 * x + (1 + 3 * 2) * 8 + 1024
+        rows, ld = (64 if dh <= 384 else 32), dh + 4
+        f32 = 4 * (rows * ld + 2 * 32 * ld + 2 * rows * (32 + 4))
+        assert bf16 <= 232448 and f32 <= 232448, (dh, bf16, f32)
 
 
 def test_ab_group_runs_the_parent_first_and_last(tmp_path, monkeypatch):
