@@ -167,17 +167,17 @@ FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
 # to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) both dtypes
 # pad to 192 or 256 (the three kernels built for them; ops/flash.py). In
-# (256, 512] the forward runs its own kernels at the next of
-# FWD_WIDE_HEAD_DIMS and the backward the wide kernels at the same width;
-# past 512 all three run the wide kernels (csrc/flash_wide.cu). The kernels
-# are also timed at [WIDE_TIMED_BHS, Dh] for Dh of WIDE_TIMED_HEAD_DIMS,
-# where 160 runs the wide kernels through the wrappers and 320, 384 and
-# 512 the forward's own beside the wide backward.
+# (256, 512] both dtypes run at the next of FWD_WIDE_HEAD_DIMS: float32 the
+# three kernels built for it, bf16 the forward's own beside the wide
+# backward; past 512 all three run the wide kernels (csrc/flash_wide.cu).
+# The kernels are also timed at [WIDE_TIMED_BHS, Dh] for Dh of
+# WIDE_TIMED_HEAD_DIMS, where 160 and 640 run the wide kernels through the
+# wrappers and 320, 384 and 512 the kernels built for them.
 # WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too,
 # causal; those in (256, 512] also not causal.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
 WIDE_HEAD_DIMS = (160, 192, 200, 256)
-WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256, 320, 384, 512), (4, 4, 1024)
+WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256, 320, 384, 512, 640), (4, 4, 1024)
 WIDE_SWEEP_HEAD_DIMS = (129, 136, 200, 264, 328, 384, 448, 505, 512, 520, 640, 1024)
 WIDE_SWEEP_BHS = (1, 2, 72)
 # The LM train leg's FLOPs with wide heads, where the kernels built for
@@ -188,8 +188,8 @@ WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
 WIDE384_SHAPE = (8, 2, 2048, 384)
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
-# KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS, the forward's also at
-# FWD_WIDE_HEAD_DIMS (ops/flash.py).
+# KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS, and at FWD_WIDE_HEAD_DIMS the
+# forward's in both dtypes and the others' float32 ones (ops/flash.py).
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Dynamic shared memory a block may take on the H100 (227 KB).
 SMEM_PER_BLOCK_MAX = 232448
@@ -389,7 +389,8 @@ def phase_build() -> None:
     """Builds every kernel. For the flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
     64, 128, 192 and 256 in both dtypes where ops/flash.py routes them to
-    the source (the forward also 320, 384, 448 and 512), the Hopper
+    the source (also 320, 384, 448 and 512: the forward in both dtypes, dQ
+    and dK/dV in float32), the Hopper
     ones also with their wgmma and TMA instructions (SASS). Fails on a
     spill, on a missing instantiation, on a Hopper kernel without wgmma or
     TMA, or on one past SMEM_PER_BLOCK_MAX."""
@@ -427,7 +428,7 @@ def phase_build() -> None:
             report[f"{dtype} dh{dh}"] = entry
         want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32")
                 for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS + FL.FWD_WIDE_HEAD_DIMS
-                if FL._entry_name(name, dh) == name}
+                if FL._entry_name(name, dh, getattr(torch, dt)) == name}
         if set(report) != want:
             raise AssertionError(f"{name}: instantiations {sorted(report)}, "
                                  f"expected {sorted(want)}")
@@ -858,9 +859,10 @@ def flash_checks() -> list[dict]:
     192 (every kernel built for them, in both dtypes) the train leg's
     FLOPs (WIDE256_SHAPE, WIDE192_SHAPE), [WIDE_TIMED_BHS, Dh]
     and the ragged lengths, in both dtypes, causal and not, and so at the
-    forward's own kernels past 256 (WIDE384_SHAPE, [WIDE_TIMED_BHS, Dh]
-    for Dh 320, 384 and 512, the ragged lengths at each of
-    FWD_WIDE_HEAD_DIMS) beside the wide backward."""
+    kernels built past 256 (WIDE384_SHAPE, [WIDE_TIMED_BHS, Dh] for Dh 320,
+    384 and 512, the ragged lengths at each of FWD_WIDE_HEAD_DIMS): the
+    forward in both dtypes, dQ and dK/dV in float32 (in bf16 the wide
+    backward)."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = []
@@ -872,7 +874,8 @@ def flash_checks() -> list[dict]:
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
     # The kernels built for 192 and 256 (bf16 Hopper designs, float32 FMA)
-    # and the forward's own past 256 (beside the wide backward).
+    # and past 256 (the forward's in both dtypes, dQ's and dK/dV's in
+    # float32; bf16 runs the wide backward there).
     for shape in (WIDE256_SHAPE, WIDE192_SHAPE, WIDE384_SHAPE,
                   *((*WIDE_TIMED_BHS, dh) for dh in (192, 256, 320, 384, 512))):
         cases += [(shape, dt, causal) for dt in (torch.bfloat16, torch.float32)
@@ -911,7 +914,7 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
     torch.cuda.synchronize()
     launches = {n: K.launch_counts()[n] for n in FLASH_WRAPPERS}
     by_entry = K.entry_launch_counts()
-    entries = {(FL._entry_name(n, run_dh), run_dh, dtype): 1 for n in SM90_KERNELS}
+    entries = {(FL._entry_name(n, run_dh, dtype), run_dh, dtype): 1 for n in SM90_KERNELS}
     if set(launches.values()) != {1} or by_entry != entries:
         raise AssertionError(f"flash_attention Dh {dh} {dtype}: launches {launches} by entry "
                              f"{dict(by_entry)}, expected one of each of {entries}")
@@ -943,8 +946,9 @@ def flash_public_checks() -> dict:
     (causal, both dtypes; those in (256, 512] also not causal): no head dim
     is refused. In (128, 256] both dtypes must run the three kernels built
     for 192 or 256 (each once, flash_public_check) and no wide one; in
-    (256, 512] the forward built for the next of FWD_WIDE_HEAD_DIMS and the
-    wide dQ and dK/dV; past 512 the three wide ones."""
+    (256, 512], at the next of FWD_WIDE_HEAD_DIMS, float32 the three built
+    for it and bf16 the forward built for it and the wide dQ and dK/dV;
+    past 512 the three wide ones."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
@@ -960,7 +964,8 @@ def flash_public_checks() -> dict:
     for c in checks + sweep:
         dh = c["shape"][3]
         own = c["run_dh"] in FL.SM90_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
-        fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == wide_bwd
+        xl = list(SM90_KERNELS) if c["dtype"] == "float32" else wide_bwd
+        fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == xl
         wide = all(e.startswith("flash_wide_") for e in c["entries"])
         if ((128 < dh <= 256 and not own) or (256 < dh <= 512 and not fwd_own)
                 or (dh > 512 and not wide)):
@@ -1019,7 +1024,7 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
     q, k, v, _ = flash_operands(shape, dtype, seed=11)
     kw = {"causal": True, "scale": dh ** -0.5}
     fwd = FL.flash_forward
-    kernel = FL._entry_name("flash_fwd", dh)
+    kernel = FL._entry_name("flash_fwd", dh, dtype)
     q4, k4, v4 = (x.view(b, h, s, dh) for x in (q, k, v))
     out, _ = fwd(q, k, v, **kw)
     lib = F.scaled_dot_product_attention(q4, k4, v4, is_causal=True)
@@ -1069,7 +1074,7 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
         ("flash_bwd_dq", FL.flash_bwd_dq, FL.flash_bwd_dq_reference, 3, 1),
         ("flash_bwd_dkv", FL.flash_bwd_dkv, FL.flash_bwd_dkv_reference, 4, 2),
     ):
-        kernel = FL._entry_name(name, dh)
+        kernel = FL._entry_name(name, dh, dtype)
         args = (q, k, v, do, lse, delta)
         got, want = fn(*args, **kw), ref(*args, **kw)
         got = got if isinstance(got, tuple) else (got,)
@@ -1108,23 +1113,26 @@ def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
 
 
 # The wide kernels that the kernels built for head dims 256 and 192, and
-# the forward's past 256, replaced there, timed through their entry points:
-# key of WIDE_TIMINGS -> [(entry point, products), ...]. At 256 and 192
-# (the train leg's FLOPs) bf16 the dQ's, float32 all three; at 320, 384
-# and 512 the forward's in both dtypes.
+# those past 256, replaced there, timed through their entry points: key of
+# WIDE_TIMINGS -> [(entry point, products), ...]. At 256 and 192 (the
+# train leg's FLOPs) bf16 the dQ's, float32 all three; at 320, 384 and 512
+# (and the train leg's FLOPs at 384) the forward's in bf16 and all three
+# in float32.
 _F32_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
 REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_wide_bwd_dq", 3)],
                  "w256_f32": _F32_REPLACED, "w192_f32": _F32_REPLACED,
-                 **{f"{key}_{tag}": [("flash_wide_fwd", 2)]
-                    for key in ("dh320", "dh384", "dh512", "w384") for tag in ("bf16", "f32")}}
+                 **{f"{key}_bf16": [("flash_wide_fwd", 2)]
+                    for key in ("dh320", "dh384", "dh512", "w384")},
+                 **{f"{key}_f32": _F32_REPLACED for key in ("dh320", "dh384", "dh512", "w384")}}
 
 
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
 # (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
 # the train leg's FLOPs at 256, 192 and 384 (w256, w192, w384), in both
 # dtypes. The three kernels run their own designs at 192 and 256 (the
-# Hopper ones in bf16, FMA in float32) and the wide kernels at 160; at 320,
-# 384 and 512 the forward runs its own and the backward the wide kernels.
+# Hopper ones in bf16, FMA in float32) and the wide kernels at 160 and
+# 640; at 320, 384 and 512 float32 runs the three of their own and bf16
+# the forward's own beside the wide backward.
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
@@ -2167,18 +2175,35 @@ def main() -> int:
                      **{key: {k: timing("flash_forward", key)[k] for k in timed_shape}
                         for key in keys[1:]},
                      "replaced_wide_fma": {key: replaced[key]["flash_wide_fwd"] for key in keys}})
+    # The float32 dQ and dK/dV past 256 (320, 384, 448, 512): at [4, 4, 1024,
+    # 512], 320, 384 and the train leg's FLOPs at 384, each with the wide
+    # kernel it replaced there, timed through its entry point.
+    for name, line, wide_entry in (("flash_bwd_dq", "271", "flash_wide_bwd_dq"),
+                                   ("flash_bwd_dkv", "320", "flash_wide_bwd_dkv")):
+        first = timing(name, "dh512_f32")
+        launches = main_launches(name, FL.FWD_WIDE_HEAD_DIMS, "float32")
+        keys = ("dh512_f32", "dh320_f32", "dh384_f32", "w384_f32")
+        rows.append({"name": f"{name}_f32_wide512", "route": "cuda",
+                     "source": f"dmlc_tpu_torch/csrc/{name}.cu",
+                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
+                     "launches": launches, "on_main_path": launches > 0,
+                     **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
+                     "dtype": "float32",
+                     **{key: {k: timing(name, key)[k] for k in timed_shape} for key in keys[1:]},
+                     "replaced_wide_fma": {key: replaced[key][wide_entry] for key in keys}})
     for name, entry, line in (("flash_forward", "flash_wide_fwd", "157 and :215"),
                               ("flash_bwd_dq", "flash_wide_bwd_dq", "271"),
                               ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
         first = timing(name, "dh160_bf16")
         launches = main_launches(entry)
-        # Through the wrappers at 160 (a direct call) in both dtypes; the
-        # backward's also at 320, 384 and 512 (where the public functions
-        # run them), the forward's there through its entry point (device
-        # time; the public functions run it past 512).
-        others = ("dh160_f32",) if name == "flash_forward" else (
-            "dh160_f32", "dh320_bf16", "dh320_f32", "dh384_bf16", "dh384_f32", "dh512_bf16",
-            "dh512_f32")
+        # Through the wrappers at 160 (a direct call) and at 640 (where the
+        # public functions run all three) in both dtypes; the backward's
+        # also at 320, 384 and 512 in bf16 (where the public functions run
+        # them), the forward's there, and the float32 backward's, through
+        # their entry points (device time; replaced_wide_fma of the rows
+        # above).
+        others = ("dh160_f32", "dh640_bf16", "dh640_f32") + (
+            () if name == "flash_forward" else ("dh320_bf16", "dh384_bf16", "dh512_bf16"))
         row = {"name": f"{name}_wide_fma", "route": "cuda",
                "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
                "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,

@@ -7,8 +7,9 @@
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256 (ops/flash.py zero-pads a smaller head dim up to one;
-// past 256 csrc/flash_wide.cu takes it); lse and
+// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 (ops/flash.py
+// zero-pads a smaller head dim up to one; csrc/flash_wide.cu takes bf16
+// past 256 and float32 past 512); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -91,6 +92,27 @@
 // warps, 152 registers) ran 2% slower than one, and one stage 3% slower
 // than two. Bound at [8, 3, 2048, 256]: operations, 1.54 ms at the float32
 // peak (PERF.md, section 6; tools/flash_levers.py group wide_bwd_f32).
+//
+// float32 past Dh 256 (320, 384, 448, 512; DkvCfg<DH, true>): every
+// float32 head in (256, 512] pads to one of them. Blocks of 32 keys and
+// two parts of 128 threads; K and V stay in shared memory, and Q/dO tiles
+// with their lse and delta rows stream in one stage. Up to 384, 32-row
+// Q/dO tiles and the column split (flash_bwd_dkv_f32_split_kernel,
+// dkv_split_part): part 0 keeps dK and dV over the first whole 64-column
+// steps (192 of 320), part 1 over the rest, 2 x 48 floats a thread at
+// most; each makes S^T = K Q^T and dP^T = V dO^T over its half of Dh,
+// adds the other's partials behind the named barrier of its twin warp,
+// and writes the same P^T and dS^T over them as the A operands of dV +=
+// P^T dO and dK += dS^T Q over its columns (185-217 KB, 253-255
+// registers). Past 384 a 32-row Q/dO tile does not fit beside 32 keys' K
+// and V: 16-row tiles, and the roles of Dh 192
+// (flash_bwd_dkv_f32_parts_kernel: part 0 P^T and dV, part 1 dP^T, dS^T
+// and dK, each over all of Dh, 128 floats a thread; 179-203 KB, 198-255
+// registers). No spill. Bound at [4, 4, 1024, 512]: operations, 0.513 ms
+// at the float32 peak. Levers that lost (PERF.md, section 6;
+// tools/flash_levers.py group xl_bwd_f32): the roles at 320 (9.5% slower)
+// and 384 (1.5%); the column split past 384 (2-7%); 16-key blocks with
+// 32-row tiles past 384 (20%); 16-key blocks at every head dim (34-56%).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -112,15 +134,17 @@ constexpr int kDkvThreads = 16 * kDkvKeys / kDkvKeysPerThread;
 // of Dh, 48 floats a thread, and with one Q/dO stage (107 KB) two blocks
 // run an SM. Two parts ran 3.5% faster than one at 192 and 2% slower at
 // 256 (PERF.md, section 6; tools/flash_levers.py group wide_bwd_f32).
-template <int DH>
+template <int DH, bool kWide = (DH > 256)>
 struct DkvCfg {
   static constexpr int kParts = DH == 192 ? 2 : 1;
+  static constexpr bool kSplit = false;  // no column split below Dh 256
   static constexpr int BK = kDkvKeys, BQ = kDkvRows, KPT = kDkvKeysPerThread;
   static constexpr int kPartThreads = kDkvThreads, kThreads = kParts * kPartThreads;
   static constexpr int G = BK / KPT;   // G key groups a part
   static constexpr int LD = DH + 4;    // K, V, Q, dO rows (floats), padded by 16 bytes
   static constexpr int LDP = BQ + 4;   // P^T, dS^T rows
   static constexpr int NC4 = DH / 64;  // float4 columns a thread owns in dK, dV
+  static constexpr int NQT = BQ / 16;  // queries a thread owns in S^T and dP^T
   static constexpr int kStage = 2 * BQ * LD + 2 * BQ;  // Q, dO, lse, delta (floats)
   // Q/dO ring depth: 2 at Dh 128 and 256; at Dh 64 loading each tile after
   // the products of the one before ran 4% faster, and at Dh 192, where it
@@ -131,6 +155,34 @@ struct DkvCfg {
       sizeof(float) * (2 * (size_t)BK * LD + kStages * (size_t)kStage + 2 * (size_t)BK * LDP);
   // Blocks an SM (228 KB of shared memory, 1 KB of it reserved a block).
   static constexpr int kMinBlocks = 2 * (bytes + 1024) <= 233472 ? 2 : 1;
+};
+
+// Past Dh 256 (320, 384, 448, 512): two parts of 128 threads share the
+// block's K, V and Q/dO tiles, in one stage. With kSplit (up to 384), the
+// column split (flash_bwd_dkv_f32_split_kernel): part 0 keeps dK and dV
+// over the first W0 columns (whole 64-column steps), part 1 over the rest,
+// and each makes S^T and dP^T over half of Dh and adds the other's
+// partials through shared memory. Without it (past 384), the roles of Dh
+// 192 (flash_bwd_dkv_f32_parts_kernel): part 0 makes P^T and keeps dV,
+// part 1 makes dP^T and dS^T and keeps dK, each over all of Dh. A padded
+// row takes 4 (DH + 4) bytes, 2 KB at 512: 32-key blocks, with 32-row
+// Q/dO tiles up to 384 and 16-row ones past it (179-217 KB), KPT keys x
+// NQT queries of S^T a thread.
+template <int DH>
+struct DkvCfg<DH, true> {
+  static constexpr int kParts = 2, kStages = 1;
+  static constexpr bool kSplit = DH <= 384;  // the column split, else the roles
+  static constexpr int BK = 32, BQ = DH <= 384 ? 32 : 16, KPT = BK / 8;
+  static constexpr int kPartThreads = kDkvThreads, kThreads = kParts * kPartThreads;
+  static constexpr int G = BK / KPT;
+  static constexpr int LD = DH + 4, LDP = BQ + 4, NC4 = DH / 64, NQT = BQ / 16;
+  static constexpr int W0 = 64 * ((DH / 64 + 1) / 2), W1 = DH - W0;
+  static constexpr int kStage = 2 * BQ * LD + 2 * BQ;
+  // K, V, the Q/dO stage, and [BK, LDP] tiles: P^T and dS^T, or (kSplit)
+  // each part's partial S^T and dP^T, over which P^T and dS^T go.
+  static constexpr size_t bytes = sizeof(float) * (2 * (size_t)BK * LD + kStages * (size_t)kStage +
+                                                   (kSplit ? 4 : 2) * (size_t)BK * LDP);
+  static constexpr int kMinBlocks = 1;
 };
 
 // Copies Q tile t and its dO tile, with their lse and delta rows, into
@@ -153,19 +205,19 @@ __device__ __forceinline__ void dkv_load_q(float* st, const float* q, const floa
 }
 
 // Writes f * acc, a thread's rows of dK or dV (keys k0 + g + G i, columns
-// 64 h + 4 c), to out.
-template <int DH>
-__device__ __forceinline__ void dkv_store(
-    float* out, const float (&acc)[DkvCfg<DH>::KPT][DkvCfg<DH>::NC4][4], float f, size_t base,
-    int k0, int g, int c, int S) {
+// col0 + 64 h + 4 c), to out.
+template <int DH, int NC4 = DkvCfg<DH>::NC4>
+__device__ __forceinline__ void dkv_store(float* out, const float (&acc)[DkvCfg<DH>::KPT][NC4][4],
+                                          float f, size_t base, int k0, int g, int c, int S,
+                                          int col0 = 0) {
   typedef DkvCfg<DH> C;
 #pragma unroll
   for (int i = 0; i < C::KPT; ++i) {
     const int key = k0 + g + C::G * i;
     if (key < S) {
 #pragma unroll
-      for (int h = 0; h < C::NC4; ++h)
-        *reinterpret_cast<float4*>(out + base + (size_t)key * DH + 64 * h + 4 * c) =
+      for (int h = 0; h < NC4; ++h)
+        *reinterpret_cast<float4*>(out + base + (size_t)key * DH + col0 + 64 * h + 4 * c) =
             make_float4(acc[i][h][0] * f, acc[i][h][1] * f, acc[i][h][2] * f, acc[i][h][3] * f);
     }
   }
@@ -322,7 +374,8 @@ __global__ void __launch_bounds__(kDkvThreads, DH == 64 ? 2 : 1)
   dkv_store<DH>(dv, dva, 1.f, base, k0, g, c, S);
 }
 
-// Two parts of 128 threads (DkvCfg::kParts: Dh 192), each over all of Dh:
+// Two parts of 128 threads (DkvCfg::kParts: Dh 192, and past 256 without
+// DkvCfg::kSplit), each over all of Dh:
 // part 0 makes S^T = K Q^T and P^T, writes P^T to shared memory and keeps
 // dV += P^T dO; part 1 makes dP^T = V dO^T, then dS^T = P^T (dP^T - delta)
 // from the P^T that part 0 wrote, and keeps dK += dS^T Q. Each does two of
@@ -339,9 +392,8 @@ __global__ void __launch_bounds__(DkvCfg<DH>::kThreads, DkvCfg<DH>::kMinBlocks)
                                    int causal, float scale) {
   typedef DkvCfg<DH> C;
   constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDP = C::LDP, G = C::G, KPT = C::KPT;
-  constexpr int NC4 = C::NC4, STAGES = C::kStages;
-  static_assert(C::kParts == 2, "two parts");
-  static_assert(BK * BQ == 8 * C::kPartThreads, "S^T or dP^T is 4 keys x 2 queries a thread");
+  constexpr int NC4 = C::NC4, NQT = C::NQT, STAGES = C::kStages;
+  static_assert(C::kParts == 2 && BQ == 16 * NQT, "two parts; NQT queries a thread");
   extern __shared__ __align__(128) unsigned char smem[];
   float* Ks = reinterpret_cast<float*>(smem);
   float* Vs = Ks + BK * LD;
@@ -395,19 +447,21 @@ __global__ void __launch_bounds__(DkvCfg<DH>::kThreads, DkvCfg<DH>::kMinBlocks)
     const float* Bo = part == 0 ? dOt : Qt;  // dV += P^T dO, dK += dS^T Q
 
     // S^T or dP^T for keys g + G i and queries c + 16 u.
-    float sc[KPT][2];
+    float sc[KPT][NQT];
 #pragma unroll
-    for (int i = 0; i < KPT; ++i) sc[i][0] = sc[i][1] = 0.f;
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) sc[i][u] = 0.f;
 #pragma unroll 2
     for (int kk = 0; kk < DH; kk += 4) {
-      float4 b[2];
+      float4 b[NQT];
 #pragma unroll
-      for (int u = 0; u < 2; ++u) b[u] = ld4(B + (c + 16 * u) * LD + kk);
+      for (int u = 0; u < NQT; ++u) b[u] = ld4(B + (c + 16 * u) * LD + kk);
 #pragma unroll
       for (int i = 0; i < KPT; ++i) {
         const float4 a = ld4(A + (g + G * i) * LD + kk);
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < NQT; ++u) {
           sc[i][u] = fmaf(a.x, b[u].x, sc[i][u]);
           sc[i][u] = fmaf(a.y, b[u].y, sc[i][u]);
           sc[i][u] = fmaf(a.z, b[u].z, sc[i][u]);
@@ -424,7 +478,7 @@ __global__ void __launch_bounds__(DkvCfg<DH>::kThreads, DkvCfg<DH>::kMinBlocks)
       for (int i = 0; i < KPT; ++i) {
         const int kr = g + G * i, key = k0 + kr;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < NQT; ++u) {
           const int qc = c + 16 * u, qi = q0 + qc;
           float p = expf(sc[i][u] * scale - lse_s[qc]);
           if (edge && (qi >= S || key >= S || (causal && key > qi))) p = 0.f;
@@ -439,7 +493,7 @@ __global__ void __launch_bounds__(DkvCfg<DH>::kThreads, DkvCfg<DH>::kMinBlocks)
       for (int i = 0; i < KPT; ++i) {
         const int kr = g + G * i;
 #pragma unroll
-        for (int u = 0; u < 2; ++u) {
+        for (int u = 0; u < NQT; ++u) {
           const int qc = c + 16 * u;
           dST[kr * LDP + qc] = PT[kr * LDP + qc] * (sc[i][u] - delta_s[qc]);
         }
@@ -479,6 +533,192 @@ __global__ void __launch_bounds__(DkvCfg<DH>::kThreads, DkvCfg<DH>::kMinBlocks)
   dkv_store<DH>(part == 0 ? dv : dk, acc, part == 0 ? 1.f : scale, base, k0, g, c, S);
 }
 
+// One part of the column split past Dh 256 (DkvCfg::kSplit): dK and dV of
+// the block's keys over the 64 NC4 columns from col0. Each part makes S^T =
+// K Q^T and dP^T = V dO^T over half of Dh; part p writes its partials to
+// tiles p and 2 + p, reads the other's from tiles 1 - p and 3 - p (its
+// twin warp, a named barrier of 64 threads) and writes P^T and dS^T over
+// them (read back only by the half-warp that wrote them).
+template <int DH, int NC4>
+__device__ __forceinline__ void dkv_split_part(
+    const float* __restrict__ q, const float* __restrict__ k, const float* __restrict__ v,
+    const float* __restrict__ dout, const float* __restrict__ lse,
+    const float* __restrict__ delta, float* __restrict__ dk, float* __restrict__ dv, float* Ks,
+    float* Vs, float* Qt, float* Xs, int bh, int S, int k0, int causal, float scale, int part,
+    int col0) {
+  typedef DkvCfg<DH> C;
+  constexpr int BK = C::BK, BQ = C::BQ, LD = C::LD, LDP = C::LDP, G = C::G, KPT = C::KPT;
+  constexpr int NQT = C::NQT, HALF = DH / 2;
+  const size_t base = (size_t)bh * S * DH;
+  const float* lse_g = lse + (size_t)bh * S;
+  const float* delta_g = delta + (size_t)bh * S;
+  const int tp = threadIdx.x % C::kPartThreads, g = tp / 16, c = tp % 16;
+  const int pair = 1 + tp / 32;  // the barrier of this warp and its twin in the other part
+  const int s0 = part * HALF;
+  float* Smine = Xs + part * BK * LDP;
+  float* PT = Xs + (1 - part) * BK * LDP;  // the other's partial S^T, then P^T
+  const float* dOt = Qt + BQ * LD;
+  const float* lse_s = dOt + BQ * LD;
+  const float* delta_s = lse_s + BQ;
+  // Q tiles [t0, t_end): when causal, from the first that reaches these keys.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int t_end = (S + BQ - 1) / BQ;
+
+  cp_tile<BK, DH, LD, C::kThreads>(Ks, k + base, k0, S);
+  cp_tile<BK, DH, LD, C::kThreads>(Vs, v + base, k0, S);
+  if (t0 < t_end) dkv_load_q<DH>(Qt, q, dout, lse_g, delta_g, base, t0, S);
+  cp_async_commit();
+
+  float dka[KPT][NC4][4], dva[KPT][NC4][4];
+#pragma unroll
+  for (int i = 0; i < KPT; ++i)
+#pragma unroll
+    for (int h = 0; h < NC4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dka[i][h][e] = dva[i][h][e] = 0.f;
+
+  for (int t = t0; t < t_end; ++t) {
+    const int q0 = t * BQ;
+    cp_async_wait<0>();
+    __syncthreads();  // tile t (and K, V) in shared memory for every thread
+
+    // Partial S^T = K Q^T and dP^T = V dO^T over this part's half of Dh,
+    // for keys g + G i and queries c + 16 u.
+    float st[KPT][NQT], dpt[KPT][NQT];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) st[i][u] = dpt[i][u] = 0.f;
+#pragma unroll 2
+    for (int kk = s0; kk < s0 + HALF; kk += 4) {
+      float4 qv[NQT], ov[NQT];
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) {
+        qv[u] = ld4(Qt + (c + 16 * u) * LD + kk);
+        ov[u] = ld4(dOt + (c + 16 * u) * LD + kk);
+      }
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        const float4 ka = ld4(Ks + (g + G * i) * LD + kk);
+        const float4 va = ld4(Vs + (g + G * i) * LD + kk);
+#pragma unroll
+        for (int u = 0; u < NQT; ++u) {
+          st[i][u] = fmaf(ka.x, qv[u].x, st[i][u]);
+          st[i][u] = fmaf(ka.y, qv[u].y, st[i][u]);
+          st[i][u] = fmaf(ka.z, qv[u].z, st[i][u]);
+          st[i][u] = fmaf(ka.w, qv[u].w, st[i][u]);
+          dpt[i][u] = fmaf(va.x, ov[u].x, dpt[i][u]);
+          dpt[i][u] = fmaf(va.y, ov[u].y, dpt[i][u]);
+          dpt[i][u] = fmaf(va.z, ov[u].z, dpt[i][u]);
+          dpt[i][u] = fmaf(va.w, ov[u].w, dpt[i][u]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) {
+        Smine[(g + G * i) * LDP + c + 16 * u] = st[i][u];
+        Smine[(2 * BK + g + G * i) * LDP + c + 16 * u] = dpt[i][u];
+      }
+    pair_sync(pair);
+
+    // The sums (the same in both parts), P^T = exp(scale S^T - lse) (0
+    // where masked) and dS^T = P^T (dP^T - delta), over the other's tiles.
+    const bool edge = q0 + BQ > S || k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const int kr = g + G * i, key = k0 + kr;
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) {
+        const int qc = c + 16 * u, qi = q0 + qc;
+        const float s_t = st[i][u] + PT[kr * LDP + qc];
+        const float dp_t = dpt[i][u] + PT[(2 * BK + kr) * LDP + qc];
+        float p = expf(s_t * scale - lse_s[qc]);
+        if (edge && (qi >= S || key >= S || (causal && key > qi))) p = 0.f;
+        PT[kr * LDP + qc] = p;
+        PT[(2 * BK + kr) * LDP + qc] = p * (dp_t - delta_s[qc]);
+      }
+    }
+    __syncwarp();  // a half-warp reads back only the P^T and dS^T rows it wrote
+
+    // dV += P^T dO and dK += dS^T Q over this part's columns.
+    const float* dST = PT + 2 * BK * LDP;
+#pragma unroll 2
+    for (int qq = 0; qq < BQ; qq += 4) {
+      float4 pa[KPT], da[KPT];
+#pragma unroll
+      for (int i = 0; i < KPT; ++i) {
+        pa[i] = ld4(PT + (g + G * i) * LDP + qq);
+        da[i] = ld4(dST + (g + G * i) * LDP + qq);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 bo[NC4], bq[NC4];
+#pragma unroll
+        for (int h = 0; h < NC4; ++h) {
+          bo[h] = ld4(dOt + (qq + e) * LD + col0 + 64 * h + 4 * c);
+          bq[h] = ld4(Qt + (qq + e) * LD + col0 + 64 * h + 4 * c);
+        }
+#pragma unroll
+        for (int i = 0; i < KPT; ++i) {
+          const float pv = e == 0 ? pa[i].x : e == 1 ? pa[i].y : e == 2 ? pa[i].z : pa[i].w;
+          const float dsv = e == 0 ? da[i].x : e == 1 ? da[i].y : e == 2 ? da[i].z : da[i].w;
+#pragma unroll
+          for (int h = 0; h < NC4; ++h) {
+            dva[i][h][0] = fmaf(pv, bo[h].x, dva[i][h][0]);
+            dva[i][h][1] = fmaf(pv, bo[h].y, dva[i][h][1]);
+            dva[i][h][2] = fmaf(pv, bo[h].z, dva[i][h][2]);
+            dva[i][h][3] = fmaf(pv, bo[h].w, dva[i][h][3]);
+            dka[i][h][0] = fmaf(dsv, bq[h].x, dka[i][h][0]);
+            dka[i][h][1] = fmaf(dsv, bq[h].y, dka[i][h][1]);
+            dka[i][h][2] = fmaf(dsv, bq[h].z, dka[i][h][2]);
+            dka[i][h][3] = fmaf(dsv, bq[h].w, dka[i][h][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every reader of this stage and of the score tiles is done
+    if (t + 1 < t_end) dkv_load_q<DH>(Qt, q, dout, lse_g, delta_g, base, t + 1, S);
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // no copy left in flight when the block exits
+
+  dkv_store<DH, NC4>(dk, dka, scale, base, k0, g, c, S, col0);
+  dkv_store<DH, NC4>(dv, dva, 1.f, base, k0, g, c, S, col0);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(DkvCfg<DH>::kThreads, 1)
+    flash_bwd_dkv_f32_split_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                   const float* __restrict__ v, const float* __restrict__ dout,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   float* __restrict__ dk, float* __restrict__ dv, int BH, int S,
+                                   int causal, float scale) {
+  typedef DkvCfg<DH> C;
+  static_assert(C::kSplit && C::kStages == 1, "the column split, one stage");
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Ks = reinterpret_cast<float*>(smem);
+  float* Vs = Ks + C::BK * C::LD;
+  float* Qt = Vs + C::BK * C::LD;  // Q, dO, lse, delta
+  float* Xs = Qt + C::kStage;      // four [BK, LDP] tiles
+
+  // Block order: K tile 0 of every head first (the most Q tiles when causal).
+  const int bh = blockIdx.x % BH;
+  const int k0 = (int)(blockIdx.x / BH) * C::BK;
+  const int part = threadIdx.x / C::kPartThreads;
+  if constexpr (C::W0 == C::W1) {
+    dkv_split_part<DH, C::W0 / 64>(q, k, v, dout, lse, delta, dk, dv, Ks, Vs, Qt, Xs, bh, S, k0,
+                                   causal, scale, part, part * C::W0);
+  } else if (part == 0) {
+    dkv_split_part<DH, C::W0 / 64>(q, k, v, dout, lse, delta, dk, dv, Ks, Vs, Qt, Xs, bh, S, k0,
+                                   causal, scale, 0, 0);
+  } else {
+    dkv_split_part<DH, C::W1 / 64>(q, k, v, dout, lse, delta, dk, dv, Ks, Vs, Qt, Xs, bh, S, k0,
+                                   causal, scale, 1, C::W0);
+  }
+}
+
 template <int DH>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* dout,
                        const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
@@ -496,7 +736,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
         causal, scale);
     return cudaGetLastError();
   };
-  if constexpr (C::kParts == 2)
+  if constexpr (C::kSplit)
+    return run(flash_bwd_dkv_f32_split_kernel<DH>);
+  else if constexpr (C::kParts == 2)
     return run(flash_bwd_dkv_f32_parts_kernel<DH>);
   else
     return run(flash_bwd_dkv_f32_kernel<DH>);
@@ -811,8 +1053,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 }  // namespace flash
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
-// lse, delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes.
-// Launches on `stream` and returns the launch's CUDA error code.
+// lse, delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes,
+// and 320, 384, 448 or 512 in float32. Launches on `stream` and returns
+// the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int s, int dh, int causal, float scale, int is_bf16,
@@ -836,6 +1079,14 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
     return (int)f32::launch_dkv<192>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 256)
     return (int)f32::launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 320)
+    return (int)f32::launch_dkv<320>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 384)
+    return (int)f32::launch_dkv<384>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 448)
+    return (int)f32::launch_dkv<448>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 512)
+    return (int)f32::launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -849,5 +1100,9 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
   if (dh == 256 && is_bf16) return (int)sm90::DkvCfg<256>::kSmem;
   if (dh == 192 && !is_bf16) return (int)f32::DkvCfg<192>::bytes;
   if (dh == 256 && !is_bf16) return (int)f32::DkvCfg<256>::bytes;
+  if (dh == 320 && !is_bf16) return (int)f32::DkvCfg<320>::bytes;
+  if (dh == 384 && !is_bf16) return (int)f32::DkvCfg<384>::bytes;
+  if (dh == 448 && !is_bf16) return (int)f32::DkvCfg<448>::bytes;
+  if (dh == 512 && !is_bf16) return (int)f32::DkvCfg<512>::bytes;
   return 0;
 }

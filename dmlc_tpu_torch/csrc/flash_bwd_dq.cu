@@ -6,8 +6,9 @@
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256 (ops/flash.py zero-pads a smaller head dim up to one;
-// past 256 csrc/flash_wide.cu takes it); lse and
+// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 (ops/flash.py
+// zero-pads a smaller head dim up to one; csrc/flash_wide.cu takes bf16
+// past 256 and float32 past 512); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -91,6 +92,34 @@
 // blocks an SM) ran 10% slower. Bound at [8, 3, 2048, 256]: operations,
 // 1.15 ms at the float32 peak (PERF.md, section 6; tools/flash_levers.py
 // group wide_bwd_f32).
+//
+// float32 past Dh 256 (320, 384, 448, 512; DqCfg<DH, true>, dq_part,
+// flash_bwd_dq_f32_wide_kernel): every float32 head in (256, 512] pads to
+// one of them. The kernel above does not fit there: a [64, 516] Q tile
+// and its dO tile take 264 KB at 512, and dQ over all of Dh would be 256
+// floats a thread. So two parts of 128 threads share the block's 32-row Q
+// and dO tiles and 32-key K/V tiles (row group g owns rows g + 8 i, i <
+// 4). Part 0 owns dQ's first whole 64-column steps (192 of 320, 256 of
+// 448), part 1 the rest: at most 64 floats a thread. Each part makes S =
+// Q K^T and dP = dO V^T over its half of Dh, writes both partials to
+// shared memory, waits for its twin warp in the other part (a named
+// barrier of 64 threads) and adds the other's partials; a + b == b + a,
+// so both parts hold the same S, dP and dS, which each writes over the
+// other's partial S and reads back as the A operand of its dQ += dS K.
+// (The halves move a row of dQ by float32 rounding only; the flash check
+// floors each row's norm at the tensor's RMS row norm, under which the
+// exact-zero row noted above stays within the 2e-5 row limit.)
+// Shared memory: Q and dO 83-132 KB; up to 384 K and V of 32 keys beside
+// them (184-217 KB); past 384 they do not both fit, so V and then K pass
+// through one slot (kOneSlot): V is read only by dP, and K loads once dP
+// is made (192-217 KB). One block of 8 warps an SM; 158-173 registers, no
+// spill. Bound at [4, 4, 1024, 512]: operations, 0.385 ms at the float32
+// peak. Levers that lost (PERF.md, section 6; tools/flash_levers.py group
+// xl_bwd_f32): part 0 making S and part 1 dP over all of Dh, P and dS
+// handed over (even at 320 and 384; past 384 it has no one-slot form, and
+// with 16-key tiles in two slots it ran 24% slower); 16-key tiles (28-31%
+// slower); 64-row Q tiles with 16-key tiles at 320 (8-11%); one slot at
+// 320 and 384 too (4-5%).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -107,7 +136,7 @@ constexpr int kDqThreads = 16 * kDqRows / kDqRowsPerThread;
 // The float32 dQ's tiles at head dim DH. Dh 192 and 256 keep dQ's 96 and
 // 128 floats a thread beside one K/V stage (160 and 204 KB of shared
 // memory, one block of 4 warps an SM).
-template <int DH>
+template <int DH, bool kWide = (DH > 256)>
 struct DqCfg {
   // Keys a K/V tile: 64 at Dh 64; 32 from Dh 128, where 64 ran 9% slower
   // (PERF.md, section 6).
@@ -120,6 +149,35 @@ struct DqCfg {
   static constexpr size_t bytes = sizeof(float) * (2 * (size_t)BQ * LD +
                                                    2 * kDqStages * (size_t)BK * LD +
                                                    (size_t)BQ * LDS);
+};
+
+// Past Dh 256 (320, 384, 448, 512): two parts of 128 threads share the
+// block's Q, dO, K and V tiles. Part 0 owns dQ's first W0 columns (whole
+// 64-column steps, the larger share at 320 and 448), part 1 the rest: at
+// most 256 columns, 64 floats a thread. With kSplitS each part makes S =
+// Q K^T and dP = dO V^T over half of Dh (WS columns from s0) and adds the
+// other's partials through shared memory, so both hold the same S, dP and
+// dS; without it part 0 makes S and P over all of Dh, part 1 dP and dS,
+// and P goes to part 1 and dS back to part 0. A padded row takes 4 (DH +
+// 4) bytes, 2 KB at 512: 32-row Q tiles (4 rows a row group) and 32-key
+// K/V tiles, one stage. Past 384 K and V do not both fit beside Q and dO
+// with 32 keys, so V and then K pass through one tile slot (kOneSlot): V
+// is read only by dP, K is loaded once dP is made (142-217 KB).
+template <int DH>
+struct DqCfg<DH, true> {
+  static constexpr int kParts = 2;
+  static constexpr bool kSplitS = true;         // S and dP over half of Dh a part
+  static constexpr bool kOneSlot = DH > 384;    // V, then K, in one K/V tile
+  static constexpr int BQ = 32, BK = 32, RPT = BQ / 8;
+  static constexpr int G = BQ / RPT, kPartThreads = 16 * G, kThreads = kParts * kPartThreads;
+  static constexpr int W0 = 64 * ((DH / 64 + 1) / 2), W1 = DH - W0;
+  static constexpr int WS = kSplitS ? DH / 2 : DH;
+  static constexpr int LD = DH + 4, LDS = BK + 4, NKT = BK / 16;
+  static constexpr int kTiles = kSplitS ? 4 : 2;  // [BQ, LDS] score tiles
+  // Q, dO, K and V (kOneSlot: one of them), the score tiles.
+  static constexpr size_t bytes = sizeof(float) * (2 * (size_t)BQ * LD +
+                                                   (kOneSlot ? 1 : 2) * (size_t)BK * LD +
+                                                   kTiles * (size_t)BQ * LDS);
 };
 
 // K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
@@ -238,20 +296,230 @@ __global__ void __launch_bounds__(kDqThreads, DH == 64 ? 2 : 1)
   }
 }
 
+// One part's loop and epilogue past Dh 256 (DqCfg<DH, true>): dQ's 64 NC4
+// columns from col0 (NC4 float4 columns a thread). Q, dO and the K/V tile
+// are the block's; Xs holds its kTiles [BQ, LDS] score tiles.
+template <int DH, int NC4>
+__device__ __forceinline__ void dq_part(const float* __restrict__ q, const float* __restrict__ k,
+                                        const float* __restrict__ v,
+                                        const float* __restrict__ dout,
+                                        const float* __restrict__ lse,
+                                        const float* __restrict__ delta, float* __restrict__ dq,
+                                        float* Qs, float* dOs, float* KVs, float* Xs, int bh,
+                                        int S, int q0, int causal, float scale, int part,
+                                        int col0) {
+  typedef DqCfg<DH> C;
+  constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS, G = C::G, RPT = C::RPT;
+  constexpr int NKT = C::NKT;
+  static_assert(C::kSplitS || !C::kOneSlot, "one slot only with the split scores");
+  const size_t base = (size_t)bh * S * DH;
+  const int tp = threadIdx.x % C::kPartThreads, g = tp / 16, c = tp % 16;
+  const int pair = 1 + tp / 32;  // the barrier of this warp and its twin in the other part
+  const int n_k = dq_tiles<DH>(q0, S, causal);
+  float* Kt = KVs;
+  float* Vt = C::kOneSlot ? KVs : KVs + BK * LD;
+  // Split: part p writes its partial S and dP to tiles p and 2 + p, reads
+  // the other's from 1 - p and 3 - p, and writes dS over the other's
+  // partial S (read back only by the half-warp that wrote it). Roles: P
+  // goes from part 0 to part 1 in tile 0, dS from part 1 to both in tile 1.
+  float* Xmine = Xs + part * BQ * LDS;
+  float* Xother = Xs + (1 - part) * BQ * LDS;
+  float* dSs = C::kSplitS ? Xother : Xs + BQ * LDS;
+
+  auto load_k = [&](int j) { cp_tile<BK, DH, LD, C::kThreads>(Kt, k + base, j * BK, S); };
+  auto load_v = [&](int j) { cp_tile<BK, DH, LD, C::kThreads>(Vt, v + base, j * BK, S); };
+  cp_tile<BQ, DH, LD, C::kThreads>(Qs, q + base, q0, S);
+  cp_tile<BQ, DH, LD, C::kThreads>(dOs, dout + base, q0, S);
+  if (!C::kOneSlot) load_k(0);
+  load_v(0);
+  cp_async_commit();
+
+  // The thread's rows' lse and delta, and its part of dQ.
+  float lse_r[RPT], dlt[RPT], acc[RPT][NC4][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + g + G * i;
+    lse_r[i] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+    dlt[i] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+#pragma unroll
+    for (int h = 0; h < NC4; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
+  }
+
+  const int s0 = C::kSplitS ? part * C::WS : 0;
+  for (int j = 0; j < n_k; ++j) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile j (and Q, dO) in shared memory for every thread
+    const int k0 = j * BK;
+
+    // S = Q K^T and dP = dO V^T for rows g + G i and keys c + 16 u: split,
+    // over this part's half of Dh in both; else S in part 0, dP in part 1.
+    float s[RPT][NKT], dp[RPT][NKT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) s[i][u] = dp[i][u] = 0.f;
+    if constexpr (C::kOneSlot) {
+#pragma unroll 4
+      for (int kk = s0; kk < s0 + C::WS; kk += 4)
+        dot4<RPT, NKT, G, LD>(dp, dOs + kk, Vt + kk, g, c);
+      __syncthreads();  // every read of V is done: K takes its slot
+      load_k(j);
+      cp_async_commit();
+      cp_async_wait<0>();
+      __syncthreads();
+#pragma unroll 4
+      for (int kk = s0; kk < s0 + C::WS; kk += 4) dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
+    } else if constexpr (C::kSplitS) {
+#pragma unroll 4
+      for (int kk = s0; kk < s0 + C::WS; kk += 4) {
+        dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
+        dot4<RPT, NKT, G, LD>(dp, dOs + kk, Vt + kk, g, c);
+      }
+    } else {
+      // Roles: s holds part 1's dP.
+      const float* A = part == 0 ? Qs : dOs;
+      const float* B = part == 0 ? Kt : Vt;
+#pragma unroll 4
+      for (int kk = 0; kk < DH; kk += 4) dot4<RPT, NKT, G, LD>(s, A + kk, B + kk, g, c);
+    }
+    if constexpr (C::kSplitS) {
+      // The two parts' dot products: S and dP are their sums (the same in both).
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) {
+          Xmine[(g + G * i) * LDS + c + 16 * u] = s[i][u];
+          Xmine[(2 * BQ + g + G * i) * LDS + c + 16 * u] = dp[i][u];
+        }
+      pair_sync(pair);
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) {
+          s[i][u] += Xother[(g + G * i) * LDS + c + 16 * u];
+          dp[i][u] += Xother[(2 * BQ + g + G * i) * LDS + c + 16 * u];
+        }
+    }
+
+    // p = exp(S scale - lse), 0 where masked, which only the tiles crossing
+    // the diagonal or the end of S need; dS = p (dP - delta) to shared.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    if (C::kSplitS || part == 0) {
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) {
+        const int row = g + G * i, qi = q0 + row;
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) {
+          float p = expf(s[i][u] * scale - lse_r[i]);
+          if (edge) {
+            const int kj = k0 + c + 16 * u;
+            if (kj >= S || (causal && kj > qi)) p = 0.f;
+          }
+          if (C::kSplitS)
+            dSs[row * LDS + c + 16 * u] = p * (dp[i][u] - dlt[i]);
+          else
+            Xs[row * LDS + c + 16 * u] = p;
+        }
+      }
+    }
+    if constexpr (!C::kSplitS) {
+      // P to part 1 (thread (g, c) reads what its twin wrote), dS back.
+      if (part == 0) {
+        pair_arrive(pair);
+        pair_sync(pair + 4);
+      } else {
+        pair_sync(pair);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i)
+#pragma unroll
+          for (int u = 0; u < NKT; ++u) {
+            const int e = (g + G * i) * LDS + c + 16 * u;
+            dSs[e] = Xs[e] * (s[i][u] - dlt[i]);
+          }
+        pair_arrive(pair + 4);
+      }
+    }
+    __syncwarp();  // a half-warp reads back the dS rows its own half-warp (or twin) wrote
+
+    // dQ += dS K: dS rows along the keys as float4, K rows at columns col0 + 64 h + 4 c.
+#pragma unroll 2
+    for (int jj = 0; jj < BK; jj += 4)
+      pv4<RPT, NC4, G, LDS, LD>(acc, dSs + jj, Kt + jj * LD + col0, g, c);
+    __syncthreads();  // every reader of the K/V tile and of the score tiles is done
+    if (j + 1 < n_k) {
+      if (!C::kOneSlot) load_k(j + 1);
+      load_v(j + 1);
+    }
+    cp_async_commit();
+  }
+  cp_async_wait<0>();  // no copy left in flight when the block exits
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + g + G * i;
+    if (qi < S) {
+#pragma unroll
+      for (int h = 0; h < NC4; ++h) {
+        const float* a = acc[i][h];
+        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + col0 + 64 * h + 4 * c) =
+            make_float4(a[0] * scale, a[1] * scale, a[2] * scale, a[3] * scale);
+      }
+    }
+  }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(DqCfg<DH>::kThreads, 1)
+    flash_bwd_dq_f32_wide_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                 const float* __restrict__ v, const float* __restrict__ dout,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 float* __restrict__ dq, int BH, int S, int causal, float scale) {
+  typedef DqCfg<DH> C;
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* dOs = Qs + C::BQ * C::LD;
+  float* KVs = dOs + C::BQ * C::LD;  // K, then V (kOneSlot: one tile)
+  float* Xs = KVs + (C::kOneSlot ? 1 : 2) * C::BK * C::LD;
+
+  // Block order: the last (longest, when causal) Q tile of every head first.
+  const int n_tiles = (S + C::BQ - 1) / C::BQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * C::BQ;
+  const int part = threadIdx.x / C::kPartThreads;
+  if constexpr (C::W0 == C::W1) {
+    dq_part<DH, C::W0 / 64>(q, k, v, dout, lse, delta, dq, Qs, dOs, KVs, Xs, bh, S, q0, causal,
+                            scale, part, part * C::W0);
+  } else if (part == 0) {
+    dq_part<DH, C::W0 / 64>(q, k, v, dout, lse, delta, dq, Qs, dOs, KVs, Xs, bh, S, q0, causal,
+                            scale, 0, 0);
+  } else {
+    dq_part<DH, C::W1 / 64>(q, k, v, dout, lse, delta, dq, Qs, dOs, KVs, Xs, bh, S, q0, causal,
+                            scale, 1, C::W0);
+  }
+}
+
 template <int DH>
 cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* dout,
                       const void* lse, const void* delta, void* dq, int bh, int s, int causal,
                       float scale, cudaStream_t stream) {
   typedef DqCfg<DH> C;
-  cudaError_t e = allow_smem(flash_bwd_dq_f32_kernel<DH>, C::bytes);
-  if (e != cudaSuccess) return e;
-  const long long blocks = (long long)((s + C::BQ - 1) / C::BQ) * bh;
-  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_bwd_dq_f32_kernel<DH><<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq), bh, s, causal, scale);
-  return cudaGetLastError();
+  auto run = [&](auto kernel) {
+    cudaError_t e = allow_smem(kernel, C::bytes);
+    if (e != cudaSuccess) return e;
+    const long long blocks = (long long)((s + C::BQ - 1) / C::BQ) * bh;
+    if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+    kernel<<<(unsigned)blocks, C::kThreads, C::bytes, stream>>>(
+        static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+        static_cast<const float*>(dout), static_cast<const float*>(lse),
+        static_cast<const float*>(delta), static_cast<float*>(dq), bh, s, causal, scale);
+    return cudaGetLastError();
+  };
+  if constexpr (DH > 256)
+    return run(flash_bwd_dq_f32_wide_kernel<DH>);
+  else
+    return run(flash_bwd_dq_f32_kernel<DH>);
 }
 
 }  // namespace f32
@@ -483,7 +751,8 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
-// delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes.
+// delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes, and
+// 320, 384, 448 or 512 in float32.
 // Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int s,
@@ -507,6 +776,14 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
     return (int)f32::launch_dq<192>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 256)
     return (int)f32::launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 320)
+    return (int)f32::launch_dq<320>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 384)
+    return (int)f32::launch_dq<384>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 448)
+    return (int)f32::launch_dq<448>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh == 512)
+    return (int)f32::launch_dq<512>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -520,5 +797,9 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   if (dh == 256 && is_bf16) return (int)sm90::DqCfg<256>::kSmem;
   if (dh == 192 && !is_bf16) return (int)f32::DqCfg<192>::bytes;
   if (dh == 256 && !is_bf16) return (int)f32::DqCfg<256>::bytes;
+  if (dh == 320 && !is_bf16) return (int)f32::DqCfg<320>::bytes;
+  if (dh == 384 && !is_bf16) return (int)f32::DqCfg<384>::bytes;
+  if (dh == 448 && !is_bf16) return (int)f32::DqCfg<448>::bytes;
+  if (dh == 512 && !is_bf16) return (int)f32::DqCfg<512>::bytes;
   return 0;
 }

@@ -6,17 +6,19 @@
 // _flash_fwd_stream_kernel (:215) for the forward, _flash_bwd_dq_kernel
 // (:271) and _flash_bwd_dkv_kernel (:320). Those take any head dim; the
 // kernels of those sources are instantiated at 64, 128, 192 and 256 in
-// both dtypes, the forward's also at 320, 384, 448 and 512, and
-// ops/flash.py zero-pads a head dim up to 512 to one of them. Which head
-// dims the public functions send here: to flash_wide_bwd_dq and
-// flash_wide_bwd_dkv every one past 256 (in (256, 512] at the forward's
-// width, the next multiple of 64; past 512 the next multiple of 8); to
-// flash_wide_fwd only those past 512. A direct call through their entry
-// points takes any multiple of 8 past 128 (chip_smoke.py times them that
-// way at 160, 192 and 256, and the forward at 320, 384 and 512, beside the
-// kernels that replaced them there). No model of the registry has heads
-// wider than 128, so no main path runs them: they keep a head dim that the
-// reference computes from being refused on the card.
+// both dtypes, and at 320, 384, 448 and 512 the forward's in both dtypes
+// and dQ's and dK/dV's in float32; ops/flash.py zero-pads a head dim up to
+// 512 to one of them. Which head dims the public functions send here: to
+// flash_wide_bwd_dq and flash_wide_bwd_dkv in bf16 every one past 256 (in
+// (256, 512] at the forward's width, the next multiple of 64; past 512 the
+// next multiple of 8) and in float32 those past 512; to flash_wide_fwd
+// only those past 512. A direct call through their entry points takes any
+// multiple of 8 past 128 (chip_smoke.py times them that way at 160, 192
+// and 256, and at 320, 384 and 512 the forward in both dtypes and dQ and
+// dK/dV in float32, beside the kernels that replaced them there). No
+// model of the registry has heads wider than 128, so no main path runs
+// them: they keep a head dim that the reference computes from being
+// refused on the card.
 //
 // Contracts, as in the other three sources: q, k, v, dO, out, dq, dk, dv
 // are [BH, S, DH] row-major, all float32 or all bfloat16; lse and delta

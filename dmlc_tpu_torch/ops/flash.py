@@ -35,11 +35,13 @@ tiles and mask the ragged edge.
 
 Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
 128) and for ``SM90_WIDE_HEAD_DIMS`` (192, 256), in both dtypes (bf16 on
-the Hopper designs, float32 on register-tiled FMA); the forward also for
-``FWD_WIDE_HEAD_DIMS`` (320, 384, 448, 512). Every other head dim past
-128 runs through a second set of three simple kernels that take the head
-dim at run time (``csrc/flash_wide.cu``, any multiple of 8): the
-backward past 256 and the forward past 512. No head dim is refused.
+the Hopper designs, float32 on register-tiled FMA), and for
+``FWD_WIDE_HEAD_DIMS`` (320, 384, 448, 512): the forward in both dtypes,
+dQ and dK/dV in float32. Every other head dim past 128 runs through a
+second set of three simple kernels that take the head dim at run time
+(``csrc/flash_wide.cu``, any multiple of 8): the bf16 backward past 256,
+the float32 backward past 512 and the forward past 512. No head dim is
+refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
 ``_run_head_dim(Dh)`` (the next of ``KERNEL_HEAD_DIMS``; past 128, up to
 512, the next multiple of 64; past that the next multiple of 8) on every
@@ -76,9 +78,11 @@ _KERNEL_DTYPES = (torch.float32, torch.bfloat16)
 #: (csrc/flash_fwd.cu, csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu); a head
 #: dim in (128, 256] pads up to one of them.
 SM90_WIDE_HEAD_DIMS = (192, 256)
-#: The head dims past 256 the forward has kernels of its own for, in both
-#: dtypes (csrc/flash_fwd.cu); a head dim in (256, 512] pads up to one of
-#: them, and its backward runs the wide kernels at the same width.
+#: The head dims past 256 the forward has kernels of its own for in both
+#: dtypes (csrc/flash_fwd.cu), and dQ and dK/dV in float32
+#: (csrc/flash_bwd_dq.cu, csrc/flash_bwd_dkv.cu); a head dim in (256, 512]
+#: pads up to one of them, and its bf16 backward runs the wide kernels at
+#: the same width.
 FWD_WIDE_HEAD_DIMS = (320, 384, 448, 512)
 #: Every other head dim past 128 pads to a multiple of WIDE_HEAD_DIM_STEP
 #: and runs the wide kernels (csrc/flash_wide.cu), which take any.
@@ -102,15 +106,16 @@ def _run_head_dim(dh: int) -> int:
     return padded or -(-dh // WIDE_HEAD_DIM_STEP) * WIDE_HEAD_DIM_STEP
 
 
-def _entry_name(name: str, dh: int) -> str | None:
+def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
-    ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh``, in
-    either dtype: its own kernel at ``KERNEL_HEAD_DIMS`` and
-    ``SM90_WIDE_HEAD_DIMS``, and the forward's at ``FWD_WIDE_HEAD_DIMS``
-    too; else the wide kernel (``flash_wide_*``); None for a head dim no
-    kernel takes."""
+    ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
+    ``dtype``: its own kernel at ``KERNEL_HEAD_DIMS`` and
+    ``SM90_WIDE_HEAD_DIMS`` in both dtypes, and at ``FWD_WIDE_HEAD_DIMS``
+    the forward's in both and dQ's and dK/dV's in float32; else the wide
+    kernel (``flash_wide_*``); None for a head dim no kernel takes."""
     own = KERNEL_HEAD_DIMS + SM90_WIDE_HEAD_DIMS
-    if dh in own or (name == "flash_fwd" and dh in FWD_WIDE_HEAD_DIMS):
+    if dh in own or (dh in FWD_WIDE_HEAD_DIMS
+                     and (name == "flash_fwd" or dtype == torch.float32)):
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
         return name.replace("flash_", "flash_wide_", 1)
@@ -259,7 +264,7 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
         if first.dtype not in _KERNEL_DTYPES or any(t.dtype != first.dtype for t in mats.values()):
             raise TypeError(f"{what}: the kernel takes one dtype of {_KERNEL_DTYPES} for "
                             f"{list(mats)}, got {[t.dtype for t in mats.values()]}")
-        if _entry_name("flash_fwd", dh) is None:
+        if _entry_name("flash_fwd", dh, first.dtype) is None:
             raise ValueError(
                 f"{what}: the kernels are built for head dims {KERNEL_HEAD_DIMS} and the "
                 f"multiples of {WIDE_HEAD_DIM_STEP} past {KERNEL_HEAD_DIMS[-1]}, got {dh}")
@@ -272,10 +277,10 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
 def _run(name: str, first: torch.Tensor, *args) -> tuple[str, int, torch.dtype]:
     """Launch kernel ``name`` (``flash_fwd``, ``flash_bwd_dq`` or
     ``flash_bwd_dkv``) on ``first``'s device through the entry point
-    ``_entry_name`` picks for its head dim; returns the key the
+    ``_entry_name`` picks for its head dim and dtype; returns the key the
     wrapper counts the launch under: (entry point, head dim, dtype)."""
     dh, dtype = first.shape[-1], first.dtype
-    entry = _entry_name(name, dh)
+    entry = _entry_name(name, dh, dtype)
     lib, fn = kernels._entry(entry)
     rc = kernels._launch(first, fn, *args)
     _build.check(lib, rc, entry)

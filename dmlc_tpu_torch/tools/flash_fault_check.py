@@ -63,7 +63,29 @@ LM train shape, or its Dh-64 twin):
   in the Dh-512 instantiation (32-row Q tiles, two parts of 256 columns);
 - flash_fwd_f32_s_add (float32, head dim 320): the two parts add each
   other's partial S only to their keys c, not c + 16 (the uneven split:
-  192 and 128 columns of O).
+  192 and 128 columns of O);
+- flash_bwd_dq_f32_dh512 (float32, head dim 512, S 193, [2, 3, 193,
+  512]): the float32 dQ past Dh 256 (two parts, 32-row Q tiles, 32-key
+  tiles, V and then K through one slot past 384): the last Q tile skips
+  its last K/V tile (key 192);
+- flash_bwd_dq_f32_dp_add (float32, head dim 320): each part adds the
+  other's partial dP of the neighbouring row (g ^ 1) to its own;
+- flash_bwd_dq_f32_last_step (float32, head dim 320): part 1 stores its
+  first 64-column step of dQ in place of its last (dQ's columns [256,
+  320));
+- flash_bwd_dkv_f32_dh320 (float32, head dim 320, S 193): the float32
+  dK/dV's column split (up to Dh 384): the last key block skips its last
+  Q tile;
+- flash_bwd_dkv_f32_dp_add (float32, head dim 320): the column split adds
+  the other part's partial dP^T of the neighbouring key (kr ^ 1);
+- flash_bwd_dkv_f32_last_step (float32, head dim 320): in the column
+  split, part 1 adds dS^T Q with Q's first 64 columns of its share in
+  place of its last ones (dK's columns [256, 320));
+- flash_bwd_dkv_f32_dh512 (float32, head dim 512, S 193): the two-part
+  roles kernel past 384 (32-key blocks, 16-row Q tiles): the last key
+  block skips its last Q tile;
+- flash_bwd_dkv_f32_handoff_dh512 (float32, head dim 512): the fault of
+  flash_bwd_dkv_f32_handoff in the Dh-512 instantiation.
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -132,6 +154,13 @@ S_ADD = ("      for (int v = 0; v < BK / 8; ++v) {\n        const float4 x = the
          "      for (int v = 0; v < BK / 16; ++v) {\n        const float4 x = theirs[v * 128 + t];")
 F32_ADD = "        for (int u = 0; u < {}; ++u) s[i][u] += Pp[(g + G * i) * LDP + c + 16 * u];"
 S_ADD_F32 = (F32_ADD.format("NKT"), F32_ADD.format("NKT - 1"))
+# The float32 dK/dV's two-part kernel (Dh 192, and past 256).
+DKV_PARTS_TILES = ("  const int q_tiles = (S + BQ - 1) / BQ;",
+                   "  const int q_tiles = (S + BQ - 1) / BQ - (k0 + BK >= S ? 1 : 0);")
+DKV_HANDOFF = ("          dST[kr * LDP + qc] = PT[kr * LDP + qc] * (sc[i][u] - delta_s[qc]);",
+               "          dST[kr * LDP + qc] = PT[(kr ^ 1) * LDP + qc] * (sc[i][u] - delta_s[qc]);")
+# The float32 dQ and dK/dV past Dh 256 at a ragged length.
+XL_RAGGED320, XL_RAGGED512 = (2, 3, 193, 320), (2, 3, 193, 512)
 SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    else\n"
         "      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);",
         "      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dk + base, k0, S, 1);\n    else\n"
@@ -154,15 +183,8 @@ FAULTS = {
     "flash_fwd_f32_dh256": Fault("flash_fwd", *FWD_F32, "float32", WIDE256_SHAPE),
     "flash_bwd_dq_f32_dh256": Fault("flash_bwd_dq", *FWD_F32, "float32", WIDE256_SHAPE),
     "flash_bwd_dkv_f32_dh256": Fault("flash_bwd_dkv", *DKV_F32, "float32", WIDE256_SHAPE),
-    "flash_bwd_dkv_f32_dh192": Fault(
-        "flash_bwd_dkv", "  const int q_tiles = (S + BQ - 1) / BQ;",
-        "  const int q_tiles = (S + BQ - 1) / BQ - (k0 + BK >= S ? 1 : 0);",
-        "float32", WIDE192_SHAPE),
-    "flash_bwd_dkv_f32_handoff": Fault(
-        "flash_bwd_dkv",
-        "          dST[kr * LDP + qc] = PT[kr * LDP + qc] * (sc[i][u] - delta_s[qc]);",
-        "          dST[kr * LDP + qc] = PT[(kr ^ 1) * LDP + qc] * (sc[i][u] - delta_s[qc]);",
-        "float32", WIDE192_SHAPE),
+    "flash_bwd_dkv_f32_dh192": Fault("flash_bwd_dkv", *DKV_PARTS_TILES, "float32", WIDE192_SHAPE),
+    "flash_bwd_dkv_f32_handoff": Fault("flash_bwd_dkv", *DKV_HANDOFF, "float32", WIDE192_SHAPE),
     "flash_bwd_dq_f32_dh192": Fault(
         "flash_bwd_dq",
         "        *reinterpret_cast<float4*>(dq + base + (size_t)qi * DH + 64 * h + 4 * c) =",
@@ -172,6 +194,31 @@ FAULTS = {
     "flash_fwd_s_add": Fault("flash_fwd", *S_ADD, "bfloat16", WIDE320_SHAPE),
     "flash_fwd_f32_dh512": Fault("flash_fwd", *FWD_F32, "float32", WIDE512_SHAPE),
     "flash_fwd_f32_s_add": Fault("flash_fwd", *S_ADD_F32, "float32", WIDE320_SHAPE),
+    "flash_bwd_dq_f32_dh512": Fault("flash_bwd_dq", *FWD_F32, "float32", XL_RAGGED512),
+    "flash_bwd_dq_f32_dp_add": Fault(
+        "flash_bwd_dq",
+        "          dp[i][u] += Xother[(2 * BQ + g + G * i) * LDS + c + 16 * u];",
+        "          dp[i][u] += Xother[(2 * BQ + (g ^ 1) + G * i) * LDS + c + 16 * u];",
+        "float32", WIDE320_SHAPE),
+    "flash_bwd_dq_f32_last_step": Fault(
+        "flash_bwd_dq", "        const float* a = acc[i][h];",
+        "        const float* a = acc[i][part && h == NC4 - 1 ? 0 : h];", "float32", WIDE320_SHAPE),
+    "flash_bwd_dkv_f32_dh320": Fault(
+        "flash_bwd_dkv", "  const int t_end = (S + BQ - 1) / BQ;",
+        "  const int t_end = (S + BQ - 1) / BQ - (k0 + BK >= S ? 1 : 0);", "float32", XL_RAGGED320),
+    "flash_bwd_dkv_f32_dp_add": Fault(
+        "flash_bwd_dkv",
+        "        const float dp_t = dpt[i][u] + PT[(2 * BK + kr) * LDP + qc];",
+        "        const float dp_t = dpt[i][u] + PT[(2 * BK + (kr ^ 1)) * LDP + qc];",
+        "float32", WIDE320_SHAPE),
+    "flash_bwd_dkv_f32_last_step": Fault(
+        "flash_bwd_dkv",
+        "          bq[h] = ld4(Qt + (qq + e) * LD + col0 + 64 * h + 4 * c);",
+        "          bq[h] = ld4(Qt + (qq + e) * LD + col0 + 64 * (part && h == NC4 - 1 ? 0 : h)"
+        " + 4 * c);", "float32", WIDE320_SHAPE),
+    "flash_bwd_dkv_f32_dh512": Fault("flash_bwd_dkv", *DKV_PARTS_TILES, "float32", XL_RAGGED512),
+    "flash_bwd_dkv_f32_handoff_dh512": Fault("flash_bwd_dkv", *DKV_HANDOFF, "float32",
+                                             WIDE512_SHAPE),
 }
 
 PAGED_CASE = ("bench_decode", 128)

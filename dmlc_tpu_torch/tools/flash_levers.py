@@ -13,7 +13,9 @@ flash_bwd_dq at those head dims and shapes); ``wide_f32`` (the float32
 forward there); ``wide_bwd_f32`` (the float32 flash_bwd_dq and
 flash_bwd_dkv there); ``wide_fwd`` (the forward's own kernels past head
 dim 256 in both dtypes, timed at [4, 4, 1024, 320], [4, 4, 1024, 512] and
-the train shape's FLOPs with heads of 384, [8, 2, 2048, 384]); ``paged``
+the train shape's FLOPs with heads of 384, [8, 2, 2048, 384]);
+``xl_bwd_f32`` (the float32 flash_bwd_dq and flash_bwd_dkv past head dim
+256, at the same shapes); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -39,7 +41,7 @@ copy is built; the group's kernels must pass ``chip_smoke.flash_check`` in
 the group's dtypes at the group's checks (by default the LM train shape,
 causal, and S 193 and 1000, causal and not; for ``wide``, ``wide_dq``,
 ``wide_f32`` and ``wide_bwd_f32`` S 193 at head dims 256 and 192, causal
-and not; for ``wide_fwd`` S 193 at 320 and 512) and at
+and not; for ``wide_fwd`` and ``xl_bwd_f32`` S 193 at 320 and 512) and at
 each timed shape, and
 ``chip_smoke.kernel_device_ms``
 times each of them at each timed shape (three readings of 20 calls). A
@@ -452,6 +454,30 @@ XL_SPLIT_F32 = "  static constexpr bool kSplitS = true;  // S over half of Dh a 
 XL_STAGES = "  static constexpr int kStages = 2;             // K/V ring depth\n"
 XL_ROWS = "BQ = DH <= 384 ? kFwdRows : 32,"
 
+# The float32 dQ and dK/dV past Dh 256 (group xl_bwd_f32), timed at the
+# forward's shapes past 256. ship: the checkout's sources (dQ: two parts
+# owning whole 64-column steps of dQ, S and dP each over half of Dh, the
+# partials added through shared memory, 32-row Q tiles, 32-key K/V tiles,
+# one stage, past 384 V and then K through one tile slot; dK/dV: 32-key
+# blocks, one stage, up to 384 split by columns with 32-row Q/dO tiles,
+# each part making S^T and dP^T over half of Dh and keeping dK and dV
+# over its columns, past it the roles of Dh 192 with 16-row tiles, part 0
+# P^T and dV, part 1 dP^T, dS^T and dK over all of Dh); roles: dQ with
+# part 0 making S and P over all of Dh and part 1 dP and dS (K and V in
+# two slots, 16-key tiles past 384); slots2: dQ with K and V in two slots
+# past 384 too (16-key tiles there); vk: dQ with one slot at 320 and 384
+# too; rows64: dQ at 320 with 64-row Q tiles and 16-key K/V tiles;
+# keys16: 16-key K/V tiles (dQ) and key blocks (dK/dV); dkv_roles: dK/dV
+# by roles at 320 and 384 too; dkv_split: dK/dV split by columns past 384
+# too; rows32: dK/dV past 384 with 16-key blocks and 32-row Q/dO tiles.
+XLB_DQ_TILE = "  static constexpr int BQ = 32, BK = 32, RPT = BQ / 8;\n"
+XLB_DKV_TILE = "  static constexpr int BK = 32, BQ = DH <= 384 ? 32 : 16, KPT = BK / 8;\n"
+XLB_SPLIT_S = "  static constexpr bool kSplitS = true;         // S and dP over half of Dh a part\n"
+XLB_ONE_SLOT = "  static constexpr bool kOneSlot = DH > 384;    // V, then K, in one K/V tile\n"
+XLB_SPLIT = "  static constexpr bool kSplit = DH <= 384;  // the column split, else the roles\n"
+XLB_DQ_KEYS16_XL = (XLB_DQ_TILE, XLB_DQ_TILE.replace("BK = 32", "BK = DH <= 384 ? 32 : 16"))
+XLB_TWO_SLOTS = (XLB_ONE_SLOT, XLB_ONE_SLOT.replace("DH > 384", "false"))
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -535,6 +561,23 @@ GROUPS = {
         "stages1": {"flash_fwd": [(XL_STAGES, XL_STAGES.replace("2;", "1;"))]},
         "rows32": {"flash_fwd": [(XL_ROWS, "BQ = 32,")]},
     }, ("ship", "whole", "whole_f32", "stages1", "rows32", "ship"), checks=FWD_WIDE_CHECKS),
+    "xl_bwd_f32": Group("float32", ("flash_bwd_dq", "flash_bwd_dkv"),
+                        (WIDE320_SHAPE, WIDE512_SHAPE, WIDE384_SHAPE), {
+        "ship": {},
+        "roles": {"flash_bwd_dq": [(XLB_SPLIT_S, XLB_SPLIT_S.replace("true", "false")),
+                                   XLB_TWO_SLOTS, XLB_DQ_KEYS16_XL]},
+        "slots2": {"flash_bwd_dq": [XLB_TWO_SLOTS, XLB_DQ_KEYS16_XL]},
+        "vk": {"flash_bwd_dq": [(XLB_ONE_SLOT, XLB_ONE_SLOT.replace("DH > 384", "true"))]},
+        "rows64": {"flash_bwd_dq": [(XLB_DQ_TILE, XLB_DQ_TILE.replace(
+            "BQ = 32, BK = 32", "BQ = DH == 320 ? 64 : 32, BK = DH == 320 ? 16 : 32"))]},
+        "keys16": {"flash_bwd_dq": [(XLB_DQ_TILE, XLB_DQ_TILE.replace("BK = 32", "BK = 16"))],
+                   "flash_bwd_dkv": [(XLB_DKV_TILE, XLB_DKV_TILE.replace("BK = 32", "BK = 16"))]},
+        "dkv_roles": {"flash_bwd_dkv": [(XLB_SPLIT, XLB_SPLIT.replace("DH <= 384", "false"))]},
+        "dkv_split": {"flash_bwd_dkv": [(XLB_SPLIT, XLB_SPLIT.replace("DH <= 384", "true"))]},
+        "rows32": {"flash_bwd_dkv": [(XLB_DKV_TILE, XLB_DKV_TILE.replace(
+            "BK = 32, BQ = DH <= 384 ? 32 : 16", "BK = DH <= 384 ? 32 : 16, BQ = 32"))]},
+    }, ("ship", "roles", "slots2", "vk", "rows64", "keys16", "dkv_roles", "dkv_split", "rows32",
+        "ship"), checks=FWD_WIDE_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -659,7 +702,7 @@ for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE, cs.WIDE384_SHAPE, (4, 4, 1024,
         args = (q, k, v, do, lse, (out.float() * do.float()).sum(-1, keepdim=True))
         row = {}
         for name in kernels:
-            entry = FL._entry_name(name, shape[3])
+            entry = FL._entry_name(name, shape[3], dt)
             try:
                 row[f"{entry}_ms"] = [cs.kernel_device_ms(lambda: CALLS[name](args, kw), entry,
                                                           calls=10) for _ in range(3)]

@@ -16,14 +16,16 @@ Same numpy-seeded float32 inputs through both:
 - at head dims 32 and 96, which the public functions zero-pad to 64 and
   128: out and gradients, lse and the blockwise gradients against the
   same; past 128 (160, 192, 256 and 130, padded to 192) the head dims the
-  kernels built for 192 and 256 run at, and 640, past the 512 the card
+  kernels built for 192 and 256 run at, 384 and 512, where float32 runs
+  the three kernels built for them, and 640, past the 512 the card
   once refused; which head dim and entry point each (head dim, dtype) runs
   at on the card (``_run_head_dim``, ``_entry_name``: heads in (128, 256]
   padded to 192 or 256 for the three kernels of their own in both dtypes,
-  in (256, 512] to the next multiple of 64 for the forward's own and the
-  wide backward, past 512 the wide kernels), that padding 160 to 192, 200
-  to 256, and 264, 330 and 500 to 320, 384 and 512 is exact in both
-  dtypes' routing, that the forward's shared memory past 256 fits a
+  in (256, 512] to the next multiple of 64 for the three of their own in
+  float32 and in bf16 the forward's own and the wide backward, past 512
+  the wide kernels), that padding 160 to 192, 200 to 256, and 264, 330 and
+  500 to 320, 384 and 512 is exact in both dtypes' routing, that the
+  forward's and the float32 backward's shared memory past 256 fits a
   block, and that no head-dim limit is left in the sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
@@ -31,7 +33,8 @@ Same numpy-seeded float32 inputs through both:
 - each flash entry point dispatches head dims 64 and 128 in both dtypes
   (bf16 to ``sm90::``, float32 to ``f32::``), the set
   ``KERNEL_HEAD_DIMS``, and 192 and 256 (``SM90_WIDE_HEAD_DIMS``) in both
-  dtypes;
+  dtypes, and 320, 384, 448 and 512 (``FWD_WIDE_HEAD_DIMS``): the forward
+  in both dtypes, dQ and dK/dV in float32;
 - each fault of ``tools/flash_fault_check.py`` (the paged decode kernel's
   too) and each lever of ``tools/flash_levers.py`` finds its line once in
   its kernel's source;
@@ -155,7 +158,7 @@ def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
     for dh, run in ((513, 520), (1000, 1000)):
         for dt in (f32, bf16):
             assert flash._run_head_dim(dh) == run
-            assert {flash._entry_name(n, run) for n in FLASH_ENTRIES} == {
+            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == {
                 "flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"}
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
@@ -165,18 +168,19 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     """No wide limit is left: each head dim in (128, 1100] runs, in both
     dtypes, at a head dim
     that every wrapper has a kernel for: up to 512 at most 63 wider (192 or
-    256, then 320, 384, 448 or 512, where the forward runs its own kernel
-    and dQ and dK/dV the wide ones), past it at most 7 wider; none at or
-    below 128 runs wide."""
+    256, then 320, 384, 448 or 512, where float32 runs the three kernels of
+    their own and bf16 the forward's own beside the wide dQ and dK/dV),
+    past it at most 7 wider; none at or below 128 runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
             run = flash._run_head_dim(dh)
             step = 64 if dh <= 512 else flash.WIDE_HEAD_DIM_STEP
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
-            assert all(flash._entry_name(n, run) for n in FLASH_ENTRIES), (dh, dt)
+            assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
             if 256 < dh <= 512:
-                assert {n: flash._entry_name(n, run) for n in FLASH_ENTRIES} == FWD_OWN, dh
-    assert all(flash._entry_name("flash_fwd", dh) in (None, "flash_fwd")
+                want = OWN if dt == torch.float32 else FWD_OWN
+                assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want, dh
+    assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
 
 
@@ -187,17 +191,18 @@ FWD_OWN = {**WIDE, "flash_fwd": "flash_fwd"}
 # (head dim, dtype) -> (the head dim it runs at, the entry point of each
 # wrapper there): in (128, 256] the three kernels of their own at 192 or
 # 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
-# in (256, 512] the forward's own at the next multiple of 64 and the wide
-# dQ and dK/dV there; past 512 the wide kernels at a multiple of 8.
+# in (256, 512] at the next multiple of 64 the three of their own in
+# float32, and in bf16 the forward's own beside the wide dQ and dK/dV;
+# past 512 the wide kernels at a multiple of 8.
 DISPATCH = {
     (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
     (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
     (192, "bfloat16"): (192, OWN), (192, "float32"): (192, OWN),
     (200, "bfloat16"): (256, OWN), (200, "float32"): (256, OWN),
     (256, "bfloat16"): (256, OWN), (256, "float32"): (256, OWN),
-    (264, "bfloat16"): (320, FWD_OWN), (264, "float32"): (320, FWD_OWN),
-    (384, "bfloat16"): (384, FWD_OWN), (384, "float32"): (384, FWD_OWN),
-    (449, "bfloat16"): (512, FWD_OWN), (449, "float32"): (512, FWD_OWN),
+    (264, "bfloat16"): (320, FWD_OWN), (264, "float32"): (320, OWN),
+    (384, "bfloat16"): (384, FWD_OWN), (384, "float32"): (384, OWN),
+    (449, "bfloat16"): (512, FWD_OWN), (449, "float32"): (512, OWN),
     (513, "bfloat16"): (520, WIDE), (513, "float32"): (520, WIDE),
     (1000, "bfloat16"): (1000, WIDE), (1000, "float32"): (1000, WIDE),
 }
@@ -208,7 +213,7 @@ def test_dispatch_table(dh, dtype):
     run, entries = DISPATCH[dh, dtype]
     dt = getattr(torch, dtype)
     assert flash._run_head_dim(dh) == run
-    assert {n: flash._entry_name(n, run) for n in FLASH_ENTRIES} == entries
+    assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == entries
 
 
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
@@ -240,16 +245,17 @@ def test_padding_to_the_hopper_head_dims_is_exact(dh, causal, dtype):
 @pytest.mark.parametrize("dtype", ["bfloat16", "float32"])
 @pytest.mark.parametrize("dh, causal", [(264, True), (330, False), (500, True)])
 def test_padding_to_the_wide_forward_head_dims_is_exact(dh, causal, dtype):
-    """Heads of 264, 330 and 500 run the forward's own kernels at 320, 384
-    and 512 and the wide dQ and dK/dV at the same width, in either dtype:
-    the same inputs, padded by the helpers the card uses, through the plain
-    versions at the padded head dim and sliced back, against the JAX flash
-    functions at the head dim itself (out, lse, dq, dk, dv; float32 data,
-    tolerances as above)."""
+    """Heads of 264, 330 and 500 run at 320, 384 and 512 the three kernels
+    of their own in float32, and in bf16 the forward's own beside the wide
+    dQ and dK/dV at the same width: the same inputs, padded by the helpers
+    the card uses, through the plain versions at the padded head dim and
+    sliced back, against the JAX flash functions at the head dim itself
+    (out, lse, dq, dk, dv; float32 data, tolerances as above)."""
     q, k, v, g = _heads(40, dh, seed=12)
-    run = flash._run_head_dim(dh)
+    run, dt = flash._run_head_dim(dh), getattr(torch, dtype)
     assert run in flash.FWD_WIDE_HEAD_DIMS and dh < run < dh + 64
-    assert {n: flash._entry_name(n, run) for n in FLASH_ENTRIES} == FWD_OWN
+    want = OWN if dt == torch.float32 else FWD_OWN
+    assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want
     q3, k3, v3, g3 = (flash._as_heads(torch.from_numpy(x), run) for x in (q, k, v, g))
     kw = {"causal": causal, "scale": dh ** -0.5}
     out, lse = flash.flash_forward(q3, k3, v3, **kw)
@@ -273,10 +279,11 @@ def test_out_and_grads_match_past_the_old_limit(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("dh", [256, 130, 192])
+@pytest.mark.parametrize("dh", [256, 130, 192, 384, 512])
 def test_out_and_grads_match_past_head_dim_128(dh, causal):
     """Head dims past 128 (130 zero-padded to 192; 192 and 256, which the
-    three kernels are built for in both dtypes) against JAX's Pallas flash
+    three kernels are built for in both dtypes; 384 and 512, where float32
+    runs the three kernels built for them) against JAX's Pallas flash
     attention."""
     q, k, v, g = _heads(40, dh, seed=9)
     _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh}")
@@ -425,7 +432,7 @@ def test_gradient_dtypes_follow_the_inputs():
     (256, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
     (320, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
-    (512, torch.float32, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (512, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
     """Each flash wrapper counts a launch under (entry point, head dim,
@@ -486,14 +493,19 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_bwd_dkv_f32_dh256", "flash_bwd_dkv_f32_dh192",
                                    "flash_bwd_dkv_f32_handoff", "flash_bwd_dq_f32_dh192",
                                    "flash_fwd_dh512", "flash_fwd_s_add", "flash_fwd_f32_dh512",
-                                   "flash_fwd_f32_s_add"])
+                                   "flash_fwd_f32_s_add", "flash_bwd_dq_f32_dh512",
+                                   "flash_bwd_dq_f32_dp_add", "flash_bwd_dq_f32_last_step",
+                                   "flash_bwd_dkv_f32_dh320", "flash_bwd_dkv_f32_dp_add",
+                                   "flash_bwd_dkv_f32_last_step", "flash_bwd_dkv_f32_dh512",
+                                   "flash_bwd_dkv_f32_handoff_dh512"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
-    its kernel is built for (192 and 256 too, in both dtypes, and the
-    forward's 320 and 512)."""
+    its kernel is built for (192 and 256 too, in both dtypes, the
+    forward's 320 and 512, and the float32 dQ's and dK/dV's 320 and
+    512)."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
@@ -501,13 +513,14 @@ def test_fault_check_finds_its_loop_once(fault):
     assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
     dh = case.shape[3]
     assert case.dtype in ("bfloat16", "float32")
-    assert flash._entry_name(case.source, dh) == case.source
+    assert flash._entry_name(case.source, dh, getattr(torch, case.dtype)) == case.source
     assert ("_f32" in fault) == (case.dtype == "float32")
     assert fault.endswith("_dh64") == (dh == 64)
     assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap",
                                                                  "_box", "_handoff", "_dh192"))
     assert dh == 192 or not fault.endswith("_dh192")
-    assert (dh in flash.FWD_WIDE_HEAD_DIMS) == fault.endswith(("_dh512", "_s_add"))
+    assert (dh in flash.FWD_WIDE_HEAD_DIMS) == fault.endswith(("_dh512", "_s_add", "_dp_add",
+                                                               "_last_step", "_dh320"))
     assert case.check == "flash"
 
 
@@ -608,6 +621,16 @@ def test_wide_bwd_f32_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("wide_bwd_f32", lever)
 
 
+@pytest.mark.parametrize("lever", ["ship", "roles", "slots2", "vk", "rows64", "keys16",
+                                   "dkv_roles", "dkv_split", "rows32"])
+def test_xl_bwd_f32_lever_tool_finds_its_lines_once(lever):
+    """The float32 flash_bwd_dq and flash_bwd_dkv variants past head dim
+    256 (group xl_bwd_f32), timed at the forward's shapes there."""
+    _lever_sources_apply("xl_bwd_f32", lever)
+    group = _tool("flash_levers").GROUPS["xl_bwd_f32"]
+    assert group.dtype == "float32" and {s[3] for s in group.shapes} == {320, 384, 512}
+
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -634,8 +657,9 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
     FMA kernels, flash::f32), each instantiated at the head dim it is
     dispatched for; each also for SM90_WIDE_HEAD_DIMS in both dtypes, and
-    the forward's for FWD_WIDE_HEAD_DIMS: the head dims ``_entry_name``
-    sends to them (text only, no nvcc)."""
+    at FWD_WIDE_HEAD_DIMS the forward's in both dtypes and the others' in
+    float32: the head dims ``_entry_name`` sends to them (text only, no
+    nvcc)."""
     assert flash.KERNEL_HEAD_DIMS == (64, 128) and flash.SM90_WIDE_HEAD_DIMS == (192, 256)
     assert flash.FWD_WIDE_HEAD_DIMS == (320, 384, 448, 512)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
@@ -652,15 +676,15 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
             found.add((neg == "", int(dh)))
         want = {(bf16, dh) for bf16 in (True, False) for dh in flash.KERNEL_HEAD_DIMS}
         wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
-                for dh in flash.SM90_WIDE_HEAD_DIMS if flash._entry_name(name, dh) == name}
+                for dh in flash.SM90_WIDE_HEAD_DIMS if flash._entry_name(name, dh, dt) == name}
         assert wide == {(bf16, dh) for bf16 in (True, False) for dh in (192, 256)}
         fwd_wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
-                    for dh in flash.FWD_WIDE_HEAD_DIMS if flash._entry_name(name, dh) == name}
-        assert fwd_wide == ({(bf16, dh) for bf16 in (True, False)
-                             for dh in flash.FWD_WIDE_HEAD_DIMS} if name == "flash_fwd" else set())
+                    for dh in flash.FWD_WIDE_HEAD_DIMS if flash._entry_name(name, dh, dt) == name}
+        assert fwd_wide == {(bf16, dh) for bf16 in ((True, False) if name == "flash_fwd" else
+                                                    (False,)) for dh in flash.FWD_WIDE_HEAD_DIMS}
         assert found == want | wide | fwd_wide
         smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
-        for bf16, dh in wide:
+        for bf16, dh in wide | (fwd_wide if name != "flash_fwd" else set()):
             assert f"if (dh == {dh} && {'' if bf16 else '!'}is_bf16) return" in smem
 
 
@@ -689,6 +713,40 @@ def test_wide_forward_shared_memory_fits_a_block():
         rows, ld = (64 if dh <= 384 else 32), dh + 4
         f32 = 4 * (rows * ld + 2 * 32 * ld + 2 * rows * (32 + 4))
         assert bf16 <= 232448 and f32 <= 232448, (dh, bf16, f32)
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_float32_backward_is_built_past_256_and_fits_a_block(name):
+    """``dmlc_flash_bwd_dq`` and ``dmlc_flash_bwd_dkv`` launch a float32
+    kernel at 320, 384, 448 and 512 (``f32::DqCfg<DH, true>``,
+    ``f32::DkvCfg<DH, true>``) and none in bf16 there, and their
+    shared-memory entries (which chip_smoke.py's build phase reads on the
+    card) name the same; each size, as those configs compute it from the
+    lines checked here, is at most the 232448 bytes a block may take (text
+    only, no nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / f"{name}.cu").read_text()
+    entry = text[text.index(f'extern "C" int dmlc_{name}('):]
+    entry = entry[:entry.index("\n}\n")]
+    smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
+    smem = smem[:smem.index("\n}\n")]
+    launch = "launch_dq" if name == "flash_bwd_dq" else "launch_dkv"
+    cfg = "DqCfg" if name == "flash_bwd_dq" else "DkvCfg"
+    for dh in flash.FWD_WIDE_HEAD_DIMS:
+        assert f"if (!is_bf16 && dh == {dh})\n    return (int)f32::{launch}<{dh}>(" in entry
+        assert f"if (is_bf16 && dh == {dh})" not in entry
+        assert f"if (dh == {dh} && !is_bf16) return (int)f32::{cfg}<{dh}>::bytes;" in smem
+        ld = dh + 4
+        if name == "flash_bwd_dq":
+            assert text.count("  static constexpr int BQ = 32, BK = 32, RPT = BQ / 8;") == 1
+            assert text.count("  static constexpr bool kSplitS = true; ") == 1
+            assert text.count("  static constexpr bool kOneSlot = DH > 384; ") == 1
+            size = 4 * (2 * 32 * ld + (1 if dh > 384 else 2) * 32 * ld + 4 * 32 * (32 + 4))
+        else:
+            assert text.count("  static constexpr int BK = 32, BQ = DH <= 384 ? 32 : 16,") == 1
+            assert text.count("  static constexpr bool kSplit = DH <= 384; ") == 1
+            bq, tiles = (32, 4) if dh <= 384 else (16, 2)
+            size = 4 * (2 * 32 * ld + 2 * bq * ld + 2 * bq + tiles * 32 * (bq + 4))
+        assert size <= 232448, (dh, size)
 
 
 def test_ab_group_runs_the_parent_first_and_last(tmp_path, monkeypatch):
