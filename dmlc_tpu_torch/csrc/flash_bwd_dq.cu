@@ -154,11 +154,10 @@ struct DqCfg {
 // Past Dh 256 (320, 384, 448, 512): two parts of 128 threads share the
 // block's Q, dO, K and V tiles. Part 0 owns dQ's first W0 columns (whole
 // 64-column steps, the larger share at 320 and 448), part 1 the rest: at
-// most 256 columns, 64 floats a thread. With kSplitS each part makes S =
-// Q K^T and dP = dO V^T over half of Dh (WS columns from s0) and adds the
-// other's partials through shared memory, so both hold the same S, dP and
-// dS; without it part 0 makes S and P over all of Dh, part 1 dP and dS,
-// and P goes to part 1 and dS back to part 0. A padded row takes 4 (DH +
+// most 256 columns, 64 floats a thread. Each part makes S = Q K^T and dP
+// = dO V^T over half of Dh (WS columns from s0) and adds the other's
+// partials through shared memory, so both hold the same S, dP and dS (four
+// score tiles: each part's partial S and dP). A padded row takes 4 (DH +
 // 4) bytes, 2 KB at 512: 32-row Q tiles (4 rows a row group) and 32-key
 // K/V tiles, one stage. Past 384 K and V do not both fit beside Q and dO
 // with 32 keys, so V and then K pass through one tile slot (kOneSlot): V
@@ -166,14 +165,13 @@ struct DqCfg {
 template <int DH>
 struct DqCfg<DH, true> {
   static constexpr int kParts = 2;
-  static constexpr bool kSplitS = true;         // S and dP over half of Dh a part
   static constexpr bool kOneSlot = DH > 384;    // V, then K, in one K/V tile
   static constexpr int BQ = 32, BK = 32, RPT = BQ / 8;
   static constexpr int G = BQ / RPT, kPartThreads = 16 * G, kThreads = kParts * kPartThreads;
   static constexpr int W0 = 64 * ((DH / 64 + 1) / 2), W1 = DH - W0;
-  static constexpr int WS = kSplitS ? DH / 2 : DH;
+  static constexpr int WS = DH / 2;  // S and dP over half of Dh a part
   static constexpr int LD = DH + 4, LDS = BK + 4, NKT = BK / 16;
-  static constexpr int kTiles = kSplitS ? 4 : 2;  // [BQ, LDS] score tiles
+  static constexpr int kTiles = 4;  // [BQ, LDS] score tiles
   // Q, dO, K and V (kOneSlot: one of them), the score tiles.
   static constexpr size_t bytes = sizeof(float) * (2 * (size_t)BQ * LD +
                                                    (kOneSlot ? 1 : 2) * (size_t)BK * LD +
@@ -311,20 +309,18 @@ __device__ __forceinline__ void dq_part(const float* __restrict__ q, const float
   typedef DqCfg<DH> C;
   constexpr int BQ = C::BQ, BK = C::BK, LD = C::LD, LDS = C::LDS, G = C::G, RPT = C::RPT;
   constexpr int NKT = C::NKT;
-  static_assert(C::kSplitS || !C::kOneSlot, "one slot only with the split scores");
   const size_t base = (size_t)bh * S * DH;
   const int tp = threadIdx.x % C::kPartThreads, g = tp / 16, c = tp % 16;
   const int pair = 1 + tp / 32;  // the barrier of this warp and its twin in the other part
   const int n_k = dq_tiles<DH>(q0, S, causal);
   float* Kt = KVs;
   float* Vt = C::kOneSlot ? KVs : KVs + BK * LD;
-  // Split: part p writes its partial S and dP to tiles p and 2 + p, reads
-  // the other's from 1 - p and 3 - p, and writes dS over the other's
-  // partial S (read back only by the half-warp that wrote it). Roles: P
-  // goes from part 0 to part 1 in tile 0, dS from part 1 to both in tile 1.
+  // Part p writes its partial S and dP to tiles p and 2 + p, reads the
+  // other's from 1 - p and 3 - p, and writes dS over the other's partial S
+  // (read back only by the half-warp that wrote it).
   float* Xmine = Xs + part * BQ * LDS;
   float* Xother = Xs + (1 - part) * BQ * LDS;
-  float* dSs = C::kSplitS ? Xother : Xs + BQ * LDS;
+  float* dSs = Xother;
 
   auto load_k = [&](int j) { cp_tile<BK, DH, LD, C::kThreads>(Kt, k + base, j * BK, S); };
   auto load_v = [&](int j) { cp_tile<BK, DH, LD, C::kThreads>(Vt, v + base, j * BK, S); };
@@ -347,14 +343,14 @@ __device__ __forceinline__ void dq_part(const float* __restrict__ q, const float
       for (int e = 0; e < 4; ++e) acc[i][h][e] = 0.f;
   }
 
-  const int s0 = C::kSplitS ? part * C::WS : 0;
+  const int s0 = part * C::WS;
   for (int j = 0; j < n_k; ++j) {
     cp_async_wait<0>();
     __syncthreads();  // tile j (and Q, dO) in shared memory for every thread
     const int k0 = j * BK;
 
-    // S = Q K^T and dP = dO V^T for rows g + G i and keys c + 16 u: split,
-    // over this part's half of Dh in both; else S in part 0, dP in part 1.
+    // S = Q K^T and dP = dO V^T for rows g + G i and keys c + 16 u, over
+    // this part's half of Dh.
     float s[RPT][NKT], dp[RPT][NKT];
 #pragma unroll
     for (int i = 0; i < RPT; ++i)
@@ -371,77 +367,47 @@ __device__ __forceinline__ void dq_part(const float* __restrict__ q, const float
       __syncthreads();
 #pragma unroll 4
       for (int kk = s0; kk < s0 + C::WS; kk += 4) dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
-    } else if constexpr (C::kSplitS) {
+    } else {
 #pragma unroll 4
       for (int kk = s0; kk < s0 + C::WS; kk += 4) {
         dot4<RPT, NKT, G, LD>(s, Qs + kk, Kt + kk, g, c);
         dot4<RPT, NKT, G, LD>(dp, dOs + kk, Vt + kk, g, c);
       }
-    } else {
-      // Roles: s holds part 1's dP.
-      const float* A = part == 0 ? Qs : dOs;
-      const float* B = part == 0 ? Kt : Vt;
-#pragma unroll 4
-      for (int kk = 0; kk < DH; kk += 4) dot4<RPT, NKT, G, LD>(s, A + kk, B + kk, g, c);
     }
-    if constexpr (C::kSplitS) {
-      // The two parts' dot products: S and dP are their sums (the same in both).
+    // The two parts' dot products: S and dP are their sums (the same in both).
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int u = 0; u < NKT; ++u) {
-          Xmine[(g + G * i) * LDS + c + 16 * u] = s[i][u];
-          Xmine[(2 * BQ + g + G * i) * LDS + c + 16 * u] = dp[i][u];
-        }
-      pair_sync(pair);
+      for (int u = 0; u < NKT; ++u) {
+        Xmine[(g + G * i) * LDS + c + 16 * u] = s[i][u];
+        Xmine[(2 * BQ + g + G * i) * LDS + c + 16 * u] = dp[i][u];
+      }
+    pair_sync(pair);
 #pragma unroll
-      for (int i = 0; i < RPT; ++i)
+    for (int i = 0; i < RPT; ++i)
 #pragma unroll
-        for (int u = 0; u < NKT; ++u) {
-          s[i][u] += Xother[(g + G * i) * LDS + c + 16 * u];
-          dp[i][u] += Xother[(2 * BQ + g + G * i) * LDS + c + 16 * u];
-        }
-    }
+      for (int u = 0; u < NKT; ++u) {
+        s[i][u] += Xother[(g + G * i) * LDS + c + 16 * u];
+        dp[i][u] += Xother[(2 * BQ + g + G * i) * LDS + c + 16 * u];
+      }
 
     // p = exp(S scale - lse), 0 where masked, which only the tiles crossing
     // the diagonal or the end of S need; dS = p (dP - delta) to shared.
     const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
-    if (C::kSplitS || part == 0) {
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) {
-        const int row = g + G * i, qi = q0 + row;
+    for (int i = 0; i < RPT; ++i) {
+      const int row = g + G * i, qi = q0 + row;
 #pragma unroll
-        for (int u = 0; u < NKT; ++u) {
-          float p = expf(s[i][u] * scale - lse_r[i]);
-          if (edge) {
-            const int kj = k0 + c + 16 * u;
-            if (kj >= S || (causal && kj > qi)) p = 0.f;
-          }
-          if (C::kSplitS)
-            dSs[row * LDS + c + 16 * u] = p * (dp[i][u] - dlt[i]);
-          else
-            Xs[row * LDS + c + 16 * u] = p;
+      for (int u = 0; u < NKT; ++u) {
+        float p = expf(s[i][u] * scale - lse_r[i]);
+        if (edge) {
+          const int kj = k0 + c + 16 * u;
+          if (kj >= S || (causal && kj > qi)) p = 0.f;
         }
+        dSs[row * LDS + c + 16 * u] = p * (dp[i][u] - dlt[i]);
       }
     }
-    if constexpr (!C::kSplitS) {
-      // P to part 1 (thread (g, c) reads what its twin wrote), dS back.
-      if (part == 0) {
-        pair_arrive(pair);
-        pair_sync(pair + 4);
-      } else {
-        pair_sync(pair);
-#pragma unroll
-        for (int i = 0; i < RPT; ++i)
-#pragma unroll
-          for (int u = 0; u < NKT; ++u) {
-            const int e = (g + G * i) * LDS + c + 16 * u;
-            dSs[e] = Xs[e] * (s[i][u] - dlt[i]);
-          }
-        pair_arrive(pair + 4);
-      }
-    }
-    __syncwarp();  // a half-warp reads back the dS rows its own half-warp (or twin) wrote
+    __syncwarp();  // a half-warp reads back the dS rows its own half-warp wrote
 
     // dQ += dS K: dS rows along the keys as float4, K rows at columns col0 + 64 h + 4 c.
 #pragma unroll 2

@@ -197,8 +197,8 @@ FAULTS = {
     "flash_bwd_dq_f32_dh512": Fault("flash_bwd_dq", *FWD_F32, "float32", XL_RAGGED512),
     "flash_bwd_dq_f32_dp_add": Fault(
         "flash_bwd_dq",
-        "          dp[i][u] += Xother[(2 * BQ + g + G * i) * LDS + c + 16 * u];",
-        "          dp[i][u] += Xother[(2 * BQ + (g ^ 1) + G * i) * LDS + c + 16 * u];",
+        "        dp[i][u] += Xother[(2 * BQ + g + G * i) * LDS + c + 16 * u];",
+        "        dp[i][u] += Xother[(2 * BQ + (g ^ 1) + G * i) * LDS + c + 16 * u];",
         "float32", WIDE320_SHAPE),
     "flash_bwd_dq_f32_last_step": Fault(
         "flash_bwd_dq", "        const float* a = acc[i][h];",

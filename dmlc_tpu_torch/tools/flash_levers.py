@@ -462,17 +462,15 @@ XL_ROWS = "BQ = DH <= 384 ? kFwdRows : 32,"
 # blocks, one stage, up to 384 split by columns with 32-row Q/dO tiles,
 # each part making S^T and dP^T over half of Dh and keeping dK and dV
 # over its columns, past it the roles of Dh 192 with 16-row tiles, part 0
-# P^T and dV, part 1 dP^T, dS^T and dK over all of Dh); roles: dQ with
-# part 0 making S and P over all of Dh and part 1 dP and dS (K and V in
-# two slots, 16-key tiles past 384); slots2: dQ with K and V in two slots
-# past 384 too (16-key tiles there); vk: dQ with one slot at 320 and 384
-# too; rows64: dQ at 320 with 64-row Q tiles and 16-key K/V tiles;
-# keys16: 16-key K/V tiles (dQ) and key blocks (dK/dV); dkv_roles: dK/dV
-# by roles at 320 and 384 too; dkv_split: dK/dV split by columns past 384
-# too; rows32: dK/dV past 384 with 16-key blocks and 32-row Q/dO tiles.
+# P^T and dV, part 1 dP^T, dS^T and dK over all of Dh); slots2: dQ with K
+# and V in two slots past 384 too (16-key tiles there); vk: dQ with one
+# slot at 320 and 384 too; rows64: dQ at 320 with 64-row Q tiles and
+# 16-key K/V tiles; keys16: 16-key K/V tiles (dQ) and key blocks (dK/dV);
+# dkv_roles: dK/dV by roles at 320 and 384 too; dkv_split: dK/dV split by
+# columns past 384 too; rows32: dK/dV past 384 with 16-key blocks and
+# 32-row Q/dO tiles.
 XLB_DQ_TILE = "  static constexpr int BQ = 32, BK = 32, RPT = BQ / 8;\n"
 XLB_DKV_TILE = "  static constexpr int BK = 32, BQ = DH <= 384 ? 32 : 16, KPT = BK / 8;\n"
-XLB_SPLIT_S = "  static constexpr bool kSplitS = true;         // S and dP over half of Dh a part\n"
 XLB_ONE_SLOT = "  static constexpr bool kOneSlot = DH > 384;    // V, then K, in one K/V tile\n"
 XLB_SPLIT = "  static constexpr bool kSplit = DH <= 384;  // the column split, else the roles\n"
 XLB_DQ_KEYS16_XL = (XLB_DQ_TILE, XLB_DQ_TILE.replace("BK = 32", "BK = DH <= 384 ? 32 : 16"))
@@ -564,8 +562,6 @@ GROUPS = {
     "xl_bwd_f32": Group("float32", ("flash_bwd_dq", "flash_bwd_dkv"),
                         (WIDE320_SHAPE, WIDE512_SHAPE, WIDE384_SHAPE), {
         "ship": {},
-        "roles": {"flash_bwd_dq": [(XLB_SPLIT_S, XLB_SPLIT_S.replace("true", "false")),
-                                   XLB_TWO_SLOTS, XLB_DQ_KEYS16_XL]},
         "slots2": {"flash_bwd_dq": [XLB_TWO_SLOTS, XLB_DQ_KEYS16_XL]},
         "vk": {"flash_bwd_dq": [(XLB_ONE_SLOT, XLB_ONE_SLOT.replace("DH > 384", "true"))]},
         "rows64": {"flash_bwd_dq": [(XLB_DQ_TILE, XLB_DQ_TILE.replace(
@@ -576,7 +572,7 @@ GROUPS = {
         "dkv_split": {"flash_bwd_dkv": [(XLB_SPLIT, XLB_SPLIT.replace("DH <= 384", "true"))]},
         "rows32": {"flash_bwd_dkv": [(XLB_DKV_TILE, XLB_DKV_TILE.replace(
             "BK = 32, BQ = DH <= 384 ? 32 : 16", "BK = DH <= 384 ? 32 : 16, BQ = 32"))]},
-    }, ("ship", "roles", "slots2", "vk", "rows64", "keys16", "dkv_roles", "dkv_split", "rows32",
+    }, ("ship", "slots2", "vk", "rows64", "keys16", "dkv_roles", "dkv_split", "rows32",
         "ship"), checks=FWD_WIDE_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",

@@ -621,7 +621,7 @@ def test_wide_bwd_f32_lever_tool_finds_its_lines_once(lever):
     _lever_sources_apply("wide_bwd_f32", lever)
 
 
-@pytest.mark.parametrize("lever", ["ship", "roles", "slots2", "vk", "rows64", "keys16",
+@pytest.mark.parametrize("lever", ["ship", "slots2", "vk", "rows64", "keys16",
                                    "dkv_roles", "dkv_split", "rows32"])
 def test_xl_bwd_f32_lever_tool_finds_its_lines_once(lever):
     """The float32 flash_bwd_dq and flash_bwd_dkv variants past head dim
@@ -738,7 +738,7 @@ def test_float32_backward_is_built_past_256_and_fits_a_block(name):
         ld = dh + 4
         if name == "flash_bwd_dq":
             assert text.count("  static constexpr int BQ = 32, BK = 32, RPT = BQ / 8;") == 1
-            assert text.count("  static constexpr bool kSplitS = true; ") == 1
+            assert text.count("  static constexpr int kTiles = 4; ") == 1
             assert text.count("  static constexpr bool kOneSlot = DH > 384; ") == 1
             size = 4 * (2 * 32 * ld + (1 if dh > 384 else 2) * 32 * ld + 4 * 32 * (32 + 4))
         else:
