@@ -169,12 +169,14 @@ FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # pad to 192 or 256 (the three kernels built for them; ops/flash.py). In
 # (256, 512] both dtypes run at the next of FWD_WIDE_HEAD_DIMS: float32 the
 # three kernels built for it, bf16 the forward's own beside the wide
-# backward; past 512 all three run the wide kernels (csrc/flash_wide.cu).
-# The kernels are also timed at [WIDE_TIMED_BHS, Dh] for Dh of
-# WIDE_TIMED_HEAD_DIMS, where 160 and 640 run the wide kernels through the
-# wrappers and 320, 384 and 512 the kernels built for them.
-# WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too,
-# causal; those in (256, 512] also not causal.
+# backward; past 512 the forward runs its kernels that take the head dim at
+# run time (csrc/flash_fwd.cu) and dQ and dK/dV the wide kernels
+# (csrc/flash_wide.cu). The kernels are also timed at [WIDE_TIMED_BHS, Dh]
+# for Dh of WIDE_TIMED_HEAD_DIMS, where 160 runs the wide kernels through
+# the wrappers, 320, 384 and 512 the kernels built for them, and 640 the
+# forward past 512 beside the wide backward. WIDE_SWEEP_HEAD_DIMS run
+# forward and backward once each, past 512 too, causal; those past 256
+# also not causal.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
 WIDE_HEAD_DIMS = (160, 192, 200, 256)
 WIDE_TIMED_HEAD_DIMS, WIDE_TIMED_BHS = (160, 192, 256, 320, 384, 512, 640), (4, 4, 1024)
@@ -186,6 +188,20 @@ WIDE_SWEEP_BHS = (1, 2, 72)
 # (dmlc_tpu_torch/tools/flash_levers.py).
 WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
 WIDE384_SHAPE = (8, 2, 2048, 384)
+# The forward past 512 (csrc/flash_fwd.cu, the head dim at run time): timed
+# at [WIDE_TIMED_BHS, Dh] for Dh 640 and 1024 and at the train leg's FLOPs
+# as one head of 768 (XL768_SHAPE), beside the wide forward it replaced
+# there. XL_CHECK_HEAD_DIMS are checked against the plain version at S 193
+# and 1000, causal and not, in both dtypes: 520, 640 and 1024 of the sweep
+# (two chunks of O in both dtypes; Q streamed at 1024), 712 and 776 (Q
+# streamed in float32 and in bf16 just past where it stays resident), and
+# 328 (one chunk, through the wrapper: the public functions pad 328 to 384).
+XL768_SHAPE = (8, 1, 2048, 768)
+XL_CHECK_HEAD_DIMS = (328, 520, 640, 712, 776, 1024)
+# Every head dim the kernels past 256 take, for the build phase: each
+# instantiation is reported with the largest shared memory a block of it
+# takes over these.
+XL_SWEEP = tuple(dh for dh in range(264, 2049, 8) if dh not in (320, 384, 448, 512))
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
 # KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS, and at FWD_WIDE_HEAD_DIMS the
@@ -375,14 +391,20 @@ def sass_counts(lib: Path, marker: str) -> dict:
     return counts
 
 
-def flash_instance(mangled: str) -> tuple[str, int] | None:
-    """(dtype, head dim) of a flash kernel instantiation from its mangled
-    name: the Hopper kernels are bf16, the others float32; the head dim is
-    the template argument 64, 128, 192, 256, 320, 384, 448 or 512."""
+def flash_instance(mangled: str) -> tuple[str, str] | None:
+    """(dtype, instantiation) of a flash kernel from its mangled name: the
+    Hopper kernels are bf16, the others float32. A kernel built for a head
+    dim is ``dh<D>`` (its template argument 64, 128, 192, 256, 320, 384, 448
+    or 512); a forward past 256 that takes the head dim at run time
+    (``flash_fwd_xl``) is ``xl<W>``, W the boxes of O its widest warpgroup
+    or part holds."""
+    dtype = "bfloat16" if "_sm90" in mangled else "float32"
+    if "flash_fwd_xl" in mangled:
+        return dtype, "xl" + re.search(r"ILi(\d+)EE", mangled).group(1)
     dh = re.search(r"Li(64|128|192|256|320|384|448|512)E", mangled)
     if dh is None:
         return None
-    return ("bfloat16" if "_sm90" in mangled else "float32"), int(dh.group(1))
+    return dtype, f"dh{dh.group(1)}"
 
 
 def phase_build() -> None:
@@ -390,7 +412,9 @@ def phase_build() -> None:
     instantiation's registers, shared memory a block and spills (ptxas):
     64, 128, 192 and 256 in both dtypes where ops/flash.py routes them to
     the source (also 320, 384, 448 and 512: the forward in both dtypes, dQ
-    and dK/dV in float32), the Hopper
+    and dK/dV in float32, and each instantiation of the forward past 256
+    that the head dims of XL_SWEEP pick, with the most shared memory one of
+    them takes), the Hopper
     ones also with their wgmma and TMA instructions (SASS). Fails on a
     spill, on a missing instantiation, on a Hopper kernel without wgmma or
     TMA, or on one past SMEM_PER_BLOCK_MAX."""
@@ -410,25 +434,44 @@ def phase_build() -> None:
         lib = _build.load(name)
         smem_of = getattr(lib, f"dmlc_{name}_smem_bytes")
         smem_of.argtypes = [ctypes.c_int, ctypes.c_int]
+        # The forward past 256: the instantiation each head dim of XL_SWEEP
+        # runs with, in each dtype.
+        xl = {}
+        if name == "flash_fwd":
+            width_of = lib.dmlc_flash_fwd_xl_width
+            width_of.argtypes = [ctypes.c_int, ctypes.c_int]
+            for dt in ("bfloat16", "float32"):
+                for dh in XL_SWEEP:
+                    xl.setdefault(f"{dt} xl{width_of(dh, int(dt == 'bfloat16'))}", []).append(dh)
         report = {}
         for mangled, entry in ptxas_entries(_build.build_log[name]).items():
             inst = flash_instance(mangled)
             if inst is None:
                 continue
-            dtype, dh = inst
-            entry["smem_per_block"] = entry["static_smem"] + smem_of(dh, int(dtype == "bfloat16"))
+            dtype, label = inst
+            bf16 = int(dtype == "bfloat16")
+            key = f"{dtype} {label}"
+            if label.startswith("xl"):
+                dhs = xl.get(key, [])
+                widest = max(dhs, key=lambda d: smem_of(d, bf16)) if dhs else 0
+                entry["head_dims"] = [dhs[0], dhs[-1]] if dhs else []
+                entry["smem_at_head_dim"] = widest
+                entry["smem_per_block"] = entry["static_smem"] + (smem_of(widest, bf16)
+                                                                  if dhs else 0)
+            else:
+                entry["smem_per_block"] = entry["static_smem"] + smem_of(int(label[2:]), bf16)
             no_sm90_ops = False
             if dtype == "bfloat16":
                 entry["sass"] = sass_counts(_build.library_path(name), mangled)
                 no_sm90_ops = not all(entry["sass"].values())
             too_big = entry["smem_per_block"] > SMEM_PER_BLOCK_MAX
             if entry["spill_stores"] or entry["spill_loads"] or no_sm90_ops or too_big:
-                raise AssertionError(f"{name} {dtype} Dh {dh}: spills, no wgmma/TMA in its "
+                raise AssertionError(f"{name} {key}: spills, no wgmma/TMA in its "
                                      f"SASS, or shared memory past {SMEM_PER_BLOCK_MAX}: {entry}")
-            report[f"{dtype} dh{dh}"] = entry
+            report[key] = entry
         want = {f"{dt} dh{dh}" for dt in ("bfloat16", "float32")
                 for dh in FL.KERNEL_HEAD_DIMS + FL.SM90_WIDE_HEAD_DIMS + FL.FWD_WIDE_HEAD_DIMS
-                if FL._entry_name(name, dh, getattr(torch, dt)) == name}
+                if FL._entry_name(name, dh, getattr(torch, dt)) == name} | set(xl)
         if set(report) != want:
             raise AssertionError(f"{name}: instantiations {sorted(report)}, "
                                  f"expected {sorted(want)}")
@@ -862,6 +905,9 @@ def flash_checks() -> list[dict]:
     kernels built past 256 (WIDE384_SHAPE, [WIDE_TIMED_BHS, Dh] for Dh 320,
     384 and 512, the ragged lengths at each of FWD_WIDE_HEAD_DIMS): the
     forward in both dtypes, dQ and dK/dV in float32 (in bf16 the wide
+    backward); and the forward past 256 that takes the head dim at run time
+    at the ragged lengths at each of XL_CHECK_HEAD_DIMS and at the timed
+    shapes past 512, in both dtypes, causal and not (beside the wide
     backward)."""
     from dmlc_tpu_torch.ops import flash as FL
 
@@ -880,6 +926,12 @@ def flash_checks() -> list[dict]:
                   *((*WIDE_TIMED_BHS, dh) for dh in (192, 256, 320, 384, 512))):
         cases += [(shape, dt, causal) for dt in (torch.bfloat16, torch.float32)
                   for causal in (True, False)]
+    for dh in XL_CHECK_HEAD_DIMS:
+        for dt in (torch.bfloat16, torch.float32):
+            for causal in (False, True):
+                cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
+    for shape in ((*WIDE_TIMED_BHS, 640), (*WIDE_TIMED_BHS, 1024), XL768_SHAPE):
+        cases += [(shape, dt, True) for dt in (torch.bfloat16, torch.float32)]
     return [flash_check(shape, dt, causal, seed=i) for i, (shape, dt, causal) in enumerate(cases)]
 
 
@@ -943,12 +995,13 @@ def flash_public_check(dh: int, dtype: torch.dtype, causal: bool, seed: int,
 def flash_public_checks() -> dict:
     """flash_public_check at each of PADDED_HEAD_DIMS and WIDE_HEAD_DIMS in
     both dtypes, causal and not, and at each of WIDE_SWEEP_HEAD_DIMS
-    (causal, both dtypes; those in (256, 512] also not causal): no head dim
+    (causal, both dtypes; those past 256 also not causal): no head dim
     is refused. In (128, 256] both dtypes must run the three kernels built
     for 192 or 256 (each once, flash_public_check) and no wide one; in
     (256, 512], at the next of FWD_WIDE_HEAD_DIMS, float32 the three built
     for it and bf16 the forward built for it and the wide dQ and dK/dV;
-    past 512 the three wide ones."""
+    past 512 the forward's own (the kernels that take the head dim at run
+    time) and the wide dQ and dK/dV."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
@@ -956,7 +1009,7 @@ def flash_public_checks() -> dict:
     checks = [flash_public_check(*case, seed=100 + i) for i, case in enumerate(cases)]
     sweep_cases = [(dh, dt, True) for dh in WIDE_SWEEP_HEAD_DIMS
                    for dt in (torch.bfloat16, torch.float32)]
-    sweep_cases += [(dh, dt, False) for dh in WIDE_SWEEP_HEAD_DIMS if 256 < dh <= 512
+    sweep_cases += [(dh, dt, False) for dh in WIDE_SWEEP_HEAD_DIMS if dh > 256
                     for dt in (torch.bfloat16, torch.float32)]
     sweep = [flash_public_check(*case, seed=200 + i, bhs=WIDE_SWEEP_BHS)
              for i, case in enumerate(sweep_cases)]
@@ -966,9 +1019,9 @@ def flash_public_checks() -> dict:
         own = c["run_dh"] in FL.SM90_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
         xl = list(SM90_KERNELS) if c["dtype"] == "float32" else wide_bwd
         fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == xl
-        wide = all(e.startswith("flash_wide_") for e in c["entries"])
+        xl_own = c["entries"] == wide_bwd and c["run_dh"] not in FL.FWD_WIDE_HEAD_DIMS
         if ((128 < dh <= 256 and not own) or (256 < dh <= 512 and not fwd_own)
-                or (dh > 512 and not wide)):
+                or (dh > 512 and not xl_own)):
             raise AssertionError(f"flash_attention Dh {dh} {c['dtype']}: ran {c['entries']} "
                                  f"at {c['run_dh']}")
     return {"checks": checks,
@@ -1114,29 +1167,40 @@ def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
 
 # The wide kernels that the kernels built for head dims 256 and 192, and
 # those past 256, replaced there, timed through their entry points: key of
-# WIDE_TIMINGS -> [(entry point, products), ...]. At 256 and 192 (the
-# train leg's FLOPs) bf16 the dQ's, float32 all three; at 320, 384 and 512
-# (and the train leg's FLOPs at 384) the forward's in bf16 and all three
-# in float32.
+# WIDE_TIMINGS or XL_TIMINGS -> [(entry point, products), ...]. At 256 and
+# 192 (the train leg's FLOPs) bf16 the dQ's, float32 all three; at 320,
+# 384 and 512 (and the train leg's FLOPs at 384) the forward's in bf16 and
+# all three in float32; past 512 the forward's in both dtypes.
 _F32_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
 REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_wide_bwd_dq", 3)],
                  "w256_f32": _F32_REPLACED, "w192_f32": _F32_REPLACED,
                  **{f"{key}_bf16": [("flash_wide_fwd", 2)]
                     for key in ("dh320", "dh384", "dh512", "w384")},
-                 **{f"{key}_f32": _F32_REPLACED for key in ("dh320", "dh384", "dh512", "w384")}}
+                 **{f"{key}_f32": _F32_REPLACED for key in ("dh320", "dh384", "dh512", "w384")},
+                 **{f"{key}_{tag}": [("flash_wide_fwd", 2)] for key in ("dh640", "dh1024", "w768")
+                    for tag in ("bf16", "f32")}}
 
 
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
 # (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
 # the train leg's FLOPs at 256, 192 and 384 (w256, w192, w384), in both
 # dtypes. The three kernels run their own designs at 192 and 256 (the
-# Hopper ones in bf16, FMA in float32) and the wide kernels at 160 and
-# 640; at 320, 384 and 512 float32 runs the three of their own and bf16
-# the forward's own beside the wide backward.
+# Hopper ones in bf16, FMA in float32) and the wide kernels at 160; at
+# 320, 384 and 512 float32 runs the three of their own and bf16 the
+# forward's own beside the wide backward; at 640 the forward past 512
+# beside the wide backward.
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
     **{f"w{shape[3]}_{tag}": (shape, dt) for shape in (WIDE256_SHAPE, WIDE192_SHAPE, WIDE384_SHAPE)
+       for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+}
+# The forward past 512 alone (its backward runs the wide kernels, timed at
+# 640 in WIDE_TIMINGS): [WIDE_TIMED_BHS, 1024] and XL768_SHAPE in both dtypes.
+XL_TIMINGS = {
+    **{f"dh1024_{tag}": ((*WIDE_TIMED_BHS, 1024), dt)
+       for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
+    **{f"w768_{tag}": (XL768_SHAPE, dt)
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
 }
 
@@ -1147,8 +1211,9 @@ def phase_kernels_flash(dev: dict) -> dict:
     kernels are not built for (flash_public_checks), then timed at the
     train shape and at its Dh-64 twin (forward and backward, bf16 and
     float32), at the streamed-forward shape (bf16), past Dh 128 at each
-    shape of WIDE_TIMINGS, and the wide kernels of REPLACED_WIDE at their
-    shapes through their own entry points."""
+    shape of WIDE_TIMINGS (the forward also at those of XL_TIMINGS), and the
+    wide kernels of REPLACED_WIDE at their shapes through their own entry
+    points."""
     from dmlc_tpu_torch.ops import flash as FL
 
     checks = flash_checks()
@@ -1160,7 +1225,7 @@ def phase_kernels_flash(dev: dict) -> dict:
         "dh64_f32": flash_forward_timing(dev, DH64_SHAPE, torch.float32, plain_reps=3),
         "stream_bf16": flash_forward_timing(dev, STREAM_SHAPE, torch.bfloat16, plain_reps=3),
     }
-    for key, (shape, dt) in WIDE_TIMINGS.items():
+    for key, (shape, dt) in {**WIDE_TIMINGS, **XL_TIMINGS}.items():
         fwd[key] = flash_forward_timing(dev, shape, dt, plain_reps=3)
     for entry in fwd.values():
         entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
@@ -1176,7 +1241,7 @@ def phase_kernels_flash(dev: dict) -> dict:
             report[name]["tflops"] = flash_flops(report[name]["shape"], products) / device_s / 1e12
     replaced = {}
     for key, entries in REPLACED_WIDE.items():
-        shape, dt = WIDE_TIMINGS[key]
+        shape, dt = {**WIDE_TIMINGS, **XL_TIMINGS}[key]
         q, k, v, do = flash_operands(shape, dt, seed=12)
         kw = {"causal": True, "scale": shape[3] ** -0.5}
         out, lse = FL.flash_forward(q, k, v, **kw)
@@ -2111,9 +2176,9 @@ def main() -> int:
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
     # Past head dim 128: the three kernels built for 192 and 256 in both
     # dtypes (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024,
-    # Dh]), the forward's own past 256, and the wide kernels
-    # (csrc/flash_wide.cu) at [4, 4, 1024, 160] bf16 and at 160, 320, 384
-    # and 512 in both dtypes. Their launches are those the
+    # Dh]), the forward's own past 256 and past 512, the float32 dQ and
+    # dK/dV past 256, and the wide kernels (csrc/flash_wide.cu) at [4, 4,
+    # 1024, 160] bf16 and at 160, 320, 384, 512 and 640 in both dtypes. Their launches are those the
     # main path's runs (the LM train leg and lm_small's, each counted from 0
     # just before it) made through these entry points at these head dims:
     # no registry model has heads past 128.
@@ -2175,6 +2240,23 @@ def main() -> int:
                      **{key: {k: timing("flash_forward", key)[k] for k in timed_shape}
                         for key in keys[1:]},
                      "replaced_wide_fma": {key: replaced[key]["flash_wide_fwd"] for key in keys}})
+    # The forward's own kernels past 512, which take the head dim at run
+    # time: at [4, 4, 1024, 640], 1024 and the train leg's FLOPs as one head
+    # of 768, each with the wide forward it replaced there, timed through
+    # its entry point.
+    for tag, dtype, design in (("bf16", "bfloat16", "sm90"), ("f32", "float32", "f32")):
+        first = timing("flash_forward", f"dh640_{tag}")
+        launches = main_launches("flash_fwd", range(513, 1 << 20), dtype)
+        keys = [f"{key}_{tag}" for key in ("dh640", "dh1024", "w768")]
+        rows.append({"name": f"flash_forward_{design}_xl", "route": "cuda",
+                     "source": "dmlc_tpu_torch/csrc/flash_fwd.cu",
+                     "replaces": "dmlc_tpu/ops/pallas_kernels.py:157 and :215",
+                     "launches": launches, "on_main_path": launches > 0,
+                     **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
+                     "dtype": dtype,
+                     **{key: {k: timing("flash_forward", key)[k] for k in timed_shape}
+                        for key in keys[1:]},
+                     "replaced_wide_fma": {key: replaced[key]["flash_wide_fwd"] for key in keys}})
     # The float32 dQ and dK/dV past 256 (320, 384, 448, 512): at [4, 4, 1024,
     # 512], 320, 384 and the train leg's FLOPs at 384, each with the wide
     # kernel it replaced there, timed through its entry point.
@@ -2196,14 +2278,14 @@ def main() -> int:
                               ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
         first = timing(name, "dh160_bf16")
         launches = main_launches(entry)
-        # Through the wrappers at 160 (a direct call) and at 640 (where the
-        # public functions run all three) in both dtypes; the backward's
-        # also at 320, 384 and 512 in bf16 (where the public functions run
-        # them), the forward's there, and the float32 backward's, through
-        # their entry points (device time; replaced_wide_fma of the rows
-        # above).
-        others = ("dh160_f32", "dh640_bf16", "dh640_f32") + (
-            () if name == "flash_forward" else ("dh320_bf16", "dh384_bf16", "dh512_bf16"))
+        # Through the wrappers at 160 (a direct call) in both dtypes; the
+        # backward's also at 640 (where the public functions run it) in
+        # both dtypes and at 320, 384 and 512 in bf16; the forward's past
+        # 256, and the float32 backward's, through their entry points
+        # (device time; replaced_wide_fma of the rows above).
+        others = ("dh160_f32",) + (
+            () if name == "flash_forward" else
+            ("dh640_bf16", "dh640_f32", "dh320_bf16", "dh384_bf16", "dh512_bf16"))
         row = {"name": f"{name}_wide_fma", "route": "cuda",
                "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
                "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
@@ -2212,7 +2294,8 @@ def main() -> int:
                **{key: {k: timing(name, key)[k] for k in timed_shape} for key in others}}
         if name == "flash_forward":
             row["entry_point"] = {key: replaced[key][entry] for key in replaced
-                                  if key.startswith(("dh320", "dh384", "dh512"))}
+                                  if key.startswith(("dh320", "dh384", "dh512", "dh640",
+                                                     "dh1024", "w768"))}
         rows.append(row)
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})

@@ -12,7 +12,9 @@
 // Inputs q, k, v: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
 // 128, 192, 256, 320, 384, 448 or 512 (ops/flash.py zero-pads a smaller
 // head dim up to 64 or 128, one up to 256 to 192 or 256, and one up to 512
-// to the next multiple of 64; csrc/flash_wide.cu takes the others). Outputs out
+// to the next multiple of 64), or any other multiple of 8 past 256, which
+// the kernels past 512 below take at run time (ops/flash.py pads a head
+// dim past 512 to the next multiple of 8). Outputs out
 // (q's dtype) and lse (float32 [BH, S]): out = softmax(scale q k^T) v with
 // keys past the query masked when causal, lse = m + log(max(l, 1e-30)). A
 // row with no visible key gets out 0 and lse -inf (pallas_kernels.py:210).
@@ -113,6 +115,33 @@
 // keeps 64 rows up to 384 and 32 past it (4 a row group), and K/V tiles
 // one stage (184-217 KB). Its bound at [4, 4, 1024, 512]: operations,
 // 0.26 ms at the float32 peak.
+//
+// Past Dh 512 (sm90::FwdXlCfg, f32::FwdXlCfg): the head dim is a run-time
+// argument, and shared memory no longer grows with it. A bf16 warpgroup
+// holds at most 256 columns of O in registers (4 boxes), and a 64-row Q
+// tile is 80 KB at 640 and 128 KB at 1024. So O is cut into column chunks,
+// one a block (a grid axis, as csrc/flash_wide.cu cuts it), as evenly as
+// whole 64-column boxes allow: at most 8 boxes in bf16 (640 -> 320 + 320,
+// 1024 -> 512 + 512; each warpgroup holds W or W - 1 boxes, W a template
+// argument picked at launch) and 12 in float32 (two parts of at most 384
+// columns: 640 and 768 in one chunk). Each chunk's block recomputes S =
+// Q K^T over all of Dh: at 640 bf16 does 1.5x the forward's product
+// FLOPs, 2 chunks x S + O once. Every chunk's block must then make
+// bit-identical m and l, so that O's columns agree: S's dot product is
+// split between the two warpgroups (parts) over Dh's 64-column slabs in
+// the same way in every chunk (the first ceil(nb / 2) slabs to warpgroup
+// 0), each adds the other's partial through shared memory (a + b == b +
+// a), and the block of chunk 0 writes lse. K streams in 64-column slabs
+// (a [32, 64] box; bf16 through a TMA ring of 4 slots a warpgroup, float32
+// through a 2-slot cp.async ring with rows padded by 16 bytes), V brings
+// only the chunk's boxes, and Q stays resident up to Dh 768 (bf16, 96 KB)
+// or 704 (float32) and past that streams beside each K slab (L2 reloads of
+// 64 or 32 rows a K/V tile). A last box or slab that is partly past Dh
+// reads zeros (the TMA maps' zero fill; cp.async's zero fill), which is
+// exact, and columns past Dh are not stored. float32 stays full FMA (no
+// TF32), 32-row tiles. Bounds at [4, 4, 1024, 640]: bf16 its bytes, 25 us
+// at 3.35 TB/s (the operations take 22 us at 989 TFLOP/s); float32
+// operations, 0.32 ms at the float32 peak.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -350,6 +379,327 @@ cudaError_t launch_fwd(const void* q, const void* k, const void* v, void* out, v
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
       static_cast<float*>(out), static_cast<float*>(lse), bh, s, causal, scale);
   return cudaGetLastError();
+}
+
+// The float32 forward at any other head dim past 256 (every multiple of 8
+// past 512 on the public route; flash_fwd_xl_f32_kernel). Tiles of 32
+// query rows and 32 keys; two parts of 128 threads, 8 row groups of 4 rows
+// each. Part 0 makes S over Dh's first nd0 64-column slabs, part 1 over the
+// rest, and each adds the other's partial S. O is cut into column chunks,
+// one a block, of at most 2 kMaxSteps 64-column steps; part 0 owns the
+// larger half of a chunk's steps, part 1 the rest.
+struct FwdXlCfg {
+  static constexpr int BQ = 32, BK = 32, RPT = 4;  // query rows, keys, rows a row group
+  static constexpr int G = BQ / RPT, kPartThreads = 16 * G, kThreads = 2 * kPartThreads;
+  static constexpr int kMaxSteps = 6;         // 64-column steps of O a part holds
+  static constexpr int kRing = 2;             // slab ring depth
+  static constexpr int kQResidentSteps = 11;  // Q stays in shared memory up to Dh 704
+  static constexpr int LDS = 64 + 4;          // a slab's rows (floats), padded by 16 bytes
+  static constexpr int LDP = BK + 4, NKT = BK / 16;
+};
+
+// What a head dim gives the float32 forward past 256: nb 64-column slabs
+// of Dh (the last one zero past it), the chunks of O, the steps of the
+// widest part, whether Q stays resident, and the block's shared memory.
+struct XlPlan {
+  int nb, chunks, width;
+  bool q_res;
+  int ldq, ldv;  // row strides (floats) of the resident Q tile and of the V tile
+  __host__ __device__ explicit XlPlan(int dh)
+      : nb((dh + 63) / 64),
+        chunks((nb + 2 * FwdXlCfg::kMaxSteps - 1) / (2 * FwdXlCfg::kMaxSteps)),
+        width(((nb + chunks - 1) / chunks + 1) / 2),
+        q_res(nb <= FwdXlCfg::kQResidentSteps),
+        ldq(64 * nb + 4),
+        ldv(64 * ((nb + chunks - 1) / chunks) + 4) {}
+  // A ring slot: both parts' K slabs, and their Q slabs when Q streams.
+  __host__ __device__ int slot_floats() const {
+    return (2 * FwdXlCfg::BK + (q_res ? 0 : 2 * FwdXlCfg::BQ)) * FwdXlCfg::LDS;
+  }
+  __host__ __device__ int q_floats() const { return q_res ? FwdXlCfg::BQ * ldq : 0; }
+  // Q (resident), the V tile, the slab ring, and a [BQ, LDP] S/P tile a part.
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * ((size_t)q_floats() + (size_t)FwdXlCfg::BK * ldv +
+                            (size_t)FwdXlCfg::kRing * slot_floats() +
+                            2 * FwdXlCfg::BQ * FwdXlCfg::LDP);
+  }
+};
+
+// K/V tiles that the 32-row Q tile at q0 reads: up to its diagonal when causal.
+__device__ __forceinline__ int fwd_xl_tiles(int q0, int S, int causal) {
+  const int end = causal ? min(q0 + FwdXlCfg::BQ, S) : S;  // one past the last key read
+  return (end + FwdXlCfg::BK - 1) / FwdXlCfg::BK;
+}
+
+// Starts copying columns [c0, c0 + ncols) of rows [row0, row0 + rows) of a
+// row-major float32 [S, dh] matrix into a shared tile of row stride ld, 16
+// bytes a copy over the block; a row at or past S and a column at or past
+// dh are zero.
+__device__ __forceinline__ void cp_cols(float* __restrict__ sm, int ld, const float* __restrict__ g,
+                                        int row0, int rows, int S, int dh, int c0, int ncols) {
+  const int per_row = ncols / 4;
+  for (int i = threadIdx.x; i < rows * per_row; i += FwdXlCfg::kThreads) {
+    const int r = i / per_row, cc = (i - r * per_row) * 4;
+    const bool ok = row0 + r < S && c0 + cc < dh;
+    cp_async16(sm + r * ld + cc, g + (ok ? (size_t)(row0 + r) * dh + c0 + cc : 0), ok);
+  }
+}
+
+// One 4-column step of s[i][u] += A(row g + G i) . B(row c + 16 u), A of
+// row stride lda, B a slab (row stride LDS).
+__device__ __forceinline__ void dot4_xl(float (&s)[FwdXlCfg::RPT][FwdXlCfg::NKT], const float* A,
+                                        int lda, const float* B, int g, int c) {
+  typedef FwdXlCfg C;
+  float4 b[C::NKT];
+#pragma unroll
+  for (int u = 0; u < C::NKT; ++u) b[u] = ld4(B + (c + 16 * u) * C::LDS);
+#pragma unroll
+  for (int i = 0; i < C::RPT; ++i) {
+    const float4 a = ld4(A + (g + C::G * i) * lda);
+#pragma unroll
+    for (int u = 0; u < C::NKT; ++u) {
+      s[i][u] = fmaf(a.x, b[u].x, s[i][u]);
+      s[i][u] = fmaf(a.y, b[u].y, s[i][u]);
+      s[i][u] = fmaf(a.z, b[u].z, s[i][u]);
+      s[i][u] = fmaf(a.w, b[u].w, s[i][u]);
+    }
+  }
+}
+
+// One part of the float32 forward past 256: NC 64-column steps of O from
+// the chunk's step c0 (the chunk's first column is 64 b0), S over slabs
+// [part nd0, min(nb, (part + 1) nd0)).
+template <int NC>
+__device__ __forceinline__ void fwd_xl_part(const XlPlan& p, const float* __restrict__ q,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v, float* __restrict__ out,
+                                            float* __restrict__ lse, float* Qs, float* Vs,
+                                            float* ring, float* Ps, int bh, int S, int dh, int q0,
+                                            int causal, float scale, int part, int chunk, int b0,
+                                            int nbc, int c0) {
+  typedef FwdXlCfg C;
+  constexpr int BQ = C::BQ, BK = C::BK, RPT = C::RPT, G = C::G, LDS = C::LDS, LDP = C::LDP;
+  constexpr int NKT = C::NKT;
+  const size_t base = (size_t)bh * S * dh;
+  const int tp = threadIdx.x % C::kPartThreads, g = tp / 16, c = tp % 16;
+  const int nd0 = (p.nb + 1) / 2, slot = p.slot_floats();
+  // Part p writes its partial S to tile p and reads the other's from tile
+  // 1 - p, where its P then goes (read back only by the half-warp that
+  // wrote it).
+  float* Sp = Ps + part * BQ * LDP;
+  float* Pp = Ps + (1 - part) * BQ * LDP;
+  const int n_k = fwd_xl_tiles(q0, S, causal), n_loads = n_k * nd0;
+
+  // Load l, step i = l % nd0 of K/V tile j = l / nd0: K slab i for part 0
+  // and nd0 + i for part 1 (and Q's, when Q streams); step 1 also brings
+  // tile j's V (the chunk's columns), after the last tile's O += P V.
+  auto load = [&](int n) {
+    const int j = n / nd0, i = n % nd0;
+    float* dst = ring + (n % C::kRing) * slot;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int d = h * nd0 + i;
+      if (d < p.nb) {
+        cp_cols(dst + h * BK * LDS, LDS, k + base, j * BK, BK, S, dh, 64 * d, 64);
+        if (!p.q_res)
+          cp_cols(dst + (2 * BK + h * BQ) * LDS, LDS, q + base, q0, BQ, S, dh, 64 * d, 64);
+      }
+    }
+    if (i == 1) cp_cols(Vs, p.ldv, v + base, j * BK, BK, S, dh, 64 * b0, 64 * nbc);
+  };
+  if (p.q_res) cp_cols(Qs, p.ldq, q + base, q0, BQ, S, dh, 0, 64 * p.nb);
+  load(0);
+  cp_async_commit();
+
+  float o[RPT][NC][4], m[RPT], l[RPT];  // l: this thread's keys' part of the row sum
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int h = 0; h < NC; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) o[i][h][e] = 0.f;
+  }
+
+  int ld = 0;  // loads consumed
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * BK;
+    float s[RPT][NKT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) s[i][u] = 0.f;
+    for (int i = 0; i < nd0; ++i, ++ld) {
+      if (ld + 1 < n_loads) load(ld + 1);
+      cp_async_commit();
+      cp_async_wait<1>();
+      __syncthreads();  // load ld (and Q, V when they came with it) in shared memory
+      const int d = part * nd0 + i;
+      if (d < p.nb) {
+        const float* slab = ring + (ld % C::kRing) * slot;
+        const float* kb = slab + part * BK * LDS;
+        const float* qb = p.q_res ? Qs + 64 * d : slab + (2 * BK + part * BQ) * LDS;
+        const int lda = p.q_res ? p.ldq : LDS;
+#pragma unroll 4
+        for (int kk = 0; kk < 64; kk += 4) dot4_xl(s, qb + kk, lda, kb + kk, g, c);
+      }
+      __syncthreads();  // every reader of this slot is done before load ld + 2 lands in it
+    }
+    // S is the two parts' partial sums added (the same in both, and in
+    // every chunk's block).
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) Sp[(g + G * i) * LDP + c + 16 * u] = s[i][u];
+    pair_sync(1 + tp / 32);  // warp w of each part holds the same rows
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) s[i][u] = s[i][u] + Pp[(g + G * i) * LDP + c + 16 * u];
+
+    // Online softmax: fold this tile into (m, l), rescale O, P to shared.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = g + G * i, qi = q0 + row;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) {
+        float x = s[i][u] * scale;
+        if (edge) {
+          const int kj = k0 + c + 16 * u;
+          if (kj >= S || (causal && kj > qi)) x = -INFINITY;
+        }
+        s[i][u] = x;
+        mx = fmaxf(mx, x);
+      }
+      const float mn = fmaxf(m[i], half_warp_max(mx));
+      // A row with nothing visible so far keeps m = -inf: subtract 0 there.
+      const float b = mn == -INFINITY ? 0.f : mn;
+      const float corr = expf(m[i] - b);
+      m[i] = mn;
+      float sum = 0.f;
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) {
+        const float pr = expf(s[i][u] - b);
+        Pp[row * LDP + c + 16 * u] = pr;
+        sum += pr;
+      }
+      l[i] = l[i] * corr + sum;
+#pragma unroll
+      for (int h = 0; h < NC; ++h)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][h][e] *= corr;
+    }
+    __syncwarp();  // a row group's P rows are written and read by its own half-warp
+
+    // O += P V: P rows along the keys as float4, V rows one key at a time
+    // at columns 64 (c0 + h) + 4 c of the chunk.
+    const float* Vc = Vs + 64 * c0 + 4 * c;
+#pragma unroll 2
+    for (int jj = 0; jj < BK; jj += 4) {
+      float4 pa[RPT];
+#pragma unroll
+      for (int i = 0; i < RPT; ++i) pa[i] = ld4(Pp + (g + G * i) * LDP + jj);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float4 bv[NC];
+#pragma unroll
+        for (int h = 0; h < NC; ++h) bv[h] = ld4(Vc + (jj + e) * p.ldv + 64 * h);
+#pragma unroll
+        for (int i = 0; i < RPT; ++i) {
+          const float pe = e == 0 ? pa[i].x : e == 1 ? pa[i].y : e == 2 ? pa[i].z : pa[i].w;
+#pragma unroll
+          for (int h = 0; h < NC; ++h) {
+            o[i][h][0] = fmaf(pe, bv[h].x, o[i][h][0]);
+            o[i][h][1] = fmaf(pe, bv[h].y, o[i][h][1]);
+            o[i][h][2] = fmaf(pe, bv[h].z, o[i][h][2]);
+            o[i][h][3] = fmaf(pe, bv[h].w, o[i][h][3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // every reader of V and of P is done
+  }
+
+  const bool writes_lse = chunk == 0 && part == 0;
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const float lt = fmaxf(half_warp_sum(l[i]), 1e-30f);
+    const int qi = q0 + g + G * i;
+    if (qi < S) {
+#pragma unroll
+      for (int h = 0; h < NC; ++h) {
+        const int col = 64 * (b0 + c0 + h) + 4 * c;
+        if (col < dh)
+          *reinterpret_cast<float4*>(out + base + (size_t)qi * dh + col) =
+              make_float4(o[i][h][0] / lt, o[i][h][1] / lt, o[i][h][2] / lt, o[i][h][3] / lt);
+      }
+      if (c == 0 && writes_lse) lse[(size_t)bh * S + qi] = m[i] + logf(lt);
+    }
+  }
+}
+
+// W: the steps of O the widest part of a launch holds; a part holds W or
+// W - 1.
+template <int W>
+__global__ void __launch_bounds__(FwdXlCfg::kThreads, 1)
+    flash_fwd_xl_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                            const float* __restrict__ v, float* __restrict__ out,
+                            float* __restrict__ lse, int BH, int S, int dh, int causal,
+                            float scale) {
+  typedef FwdXlCfg C;
+  const XlPlan p(dh);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* Vs = Qs + p.q_floats();
+  float* ring = Vs + C::BK * p.ldv;
+  float* Ps = ring + C::kRing * p.slot_floats();
+
+  // Block order: chunks of one Q tile together, the last (longest, when
+  // causal) Q tile of every head first.
+  const int n_tiles = (S + C::BQ - 1) / C::BQ;
+  const int chunk = blockIdx.x % p.chunks, rest = blockIdx.x / p.chunks;
+  const int bh = rest % BH;
+  const int q0 = (n_tiles - 1 - rest / BH) * C::BQ;
+  const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  const int n0 = (nbc + 1) / 2;  // part 0's steps of the chunk; part 1 the rest
+  const int part = threadIdx.x / C::kPartThreads;
+  const int steps = part == 0 ? n0 : nbc - n0, c0 = part == 0 ? 0 : n0;
+  if (steps == W)
+    fwd_xl_part<W>(p, q, k, v, out, lse, Qs, Vs, ring, Ps, bh, S, dh, q0, causal, scale, part,
+                   chunk, b0, nbc, c0);
+  else
+    fwd_xl_part<W - 1>(p, q, k, v, out, lse, Qs, Vs, ring, Ps, bh, S, dh, q0, causal, scale, part,
+                       chunk, b0, nbc, c0);
+}
+
+template <int W>
+cudaError_t launch_fwd_xl_w(const XlPlan& p, const void* q, const void* k, const void* v,
+                            void* out, void* lse, int bh, int s, int dh, int causal, float scale,
+                            cudaStream_t stream) {
+  const size_t bytes = p.bytes();
+  cudaError_t e = allow_smem(flash_fwd_xl_f32_kernel<W>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((s + FwdXlCfg::BQ - 1) / FwdXlCfg::BQ) * bh * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_xl_f32_kernel<W><<<(unsigned)blocks, FwdXlCfg::kThreads, bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), bh, s, dh, causal, scale);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_xl(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int bh, int s, int dh, int causal, float scale, cudaStream_t stream) {
+  const XlPlan p(dh);
+  switch (p.width) {
+    case 3: return launch_fwd_xl_w<3>(p, q, k, v, out, lse, bh, s, dh, causal, scale, stream);
+    case 4: return launch_fwd_xl_w<4>(p, q, k, v, out, lse, bh, s, dh, causal, scale, stream);
+    case 5: return launch_fwd_xl_w<5>(p, q, k, v, out, lse, bh, s, dh, causal, scale, stream);
+    case 6: return launch_fwd_xl_w<6>(p, q, k, v, out, lse, bh, s, dh, causal, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace f32
@@ -784,13 +1134,332 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o
   return cudaGetLastError();
 }
 
+// The bf16 forward at any other head dim past 256 (every multiple of 8
+// past 512 on the public route; flash_fwd_xl_kernel_sm90). A block holds
+// 64 query rows, which its kConsumers consumer warpgroups share, and one
+// column chunk of O: at most kConsumers kMaxBoxes 64-column boxes, split
+// among the warpgroups as evenly as whole boxes allow, the first ones the
+// larger (OutAcc of at most 64 kMaxBoxes columns). S = Q K^T (m64n32k16)
+// walks Dh in 64-column slabs, split among the warpgroups the same way,
+// each K slab streaming through a ring of kSlots of the warpgroup's own;
+// every warpgroup then adds all the partial S through shared memory in one
+// order, so all of them, in every chunk's block, hold the same S, softmax
+// and P. Q stays in shared memory up to kQResidentBoxes boxes and past it
+// streams beside each K slab. V brings only the chunk's boxes, kVStages
+// tiles in flight. A producer warpgroup gives its registers to the
+// consumers (setmaxnreg: 240 a consumer thread with two of them, 160 with
+// three).
+struct FwdXlCfg {
+  static constexpr int BK = 32, kMaxBoxes = 4;  // keys a K/V tile; boxes of O a warpgroup holds
+  static constexpr int kConsumers = 2;          // consumer warpgroups a block
+  static constexpr int kSlots = 4;              // K (and Q) slabs in flight a warpgroup
+  static constexpr int kVStages = 2;            // V tiles in flight
+  static constexpr int kQResidentBoxes = 12;    // Q stays in shared memory up to Dh 768
+  static constexpr int kThreads = 128 * (kConsumers + 1);
+  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
+  static constexpr uint32_t kRowBox = kWideBQ * 128;  // [64 rows, 64 columns]: Q, staged O
+  static constexpr uint32_t kKeyBox = BK * 128;       // [BK keys, 64 columns]: K, V
+  static constexpr uint32_t kPartialS = 128 * (BK / 2) * sizeof(float);  // one warpgroup's
+};
+
+// Part r of n parts of [0, total): [ceil(r total / n), ceil((r + 1) total / n)).
+__host__ __device__ __forceinline__ int xl_split(int total, int n, int r) {
+  return (r * total + n - 1) / n;
+}
+
+// What a head dim gives the bf16 forward past 256: nb boxes of Dh (the
+// last one zero-filled past it), the chunks of O, the boxes of the widest
+// warpgroup, whether Q stays resident, and where the shared memory goes:
+// Q (resident), V's ring (also where O stages at the end), the K rings,
+// the partial S of every warpgroup by tile parity, the barriers.
+struct XlPlan {
+  int nb, chunks, width;
+  bool q_res;
+  __host__ __device__ explicit XlPlan(int dh)
+      : nb((dh + 63) / 64),
+        chunks((nb + kMaxPerBlock - 1) / kMaxPerBlock),
+        width(((nb + chunks - 1) / chunks + FwdXlCfg::kConsumers - 1) / FwdXlCfg::kConsumers),
+        q_res(nb <= FwdXlCfg::kQResidentBoxes) {}
+  static constexpr int kMaxPerBlock = FwdXlCfg::kConsumers * FwdXlCfg::kMaxBoxes;
+  static constexpr int kWgs = FwdXlCfg::kConsumers;
+  __host__ __device__ uint32_t q_bytes() const { return q_res ? nb * FwdXlCfg::kRowBox : 0; }
+  __host__ __device__ uint32_t v_stage() const { return kWgs * width * FwdXlCfg::kKeyBox; }
+  __host__ __device__ uint32_t v_bytes() const {
+    const uint32_t ring = FwdXlCfg::kVStages * v_stage(), staged = kWgs * width * FwdXlCfg::kRowBox;
+    return ring > staged ? ring : staged;
+  }
+  __host__ __device__ uint32_t slot() const {
+    return FwdXlCfg::kKeyBox + (q_res ? 0 : FwdXlCfg::kRowBox);
+  }
+  __host__ __device__ uint32_t k_bytes() const { return kWgs * FwdXlCfg::kSlots * slot(); }
+  __host__ __device__ uint32_t bytes() const {
+    return q_bytes() + v_bytes() + k_bytes() + 2 * kWgs * FwdXlCfg::kPartialS +
+           (1 + 2 * kWgs * FwdXlCfg::kSlots + 2 * FwdXlCfg::kVStages) * 8 + 1024;
+  }
+};
+
+// K/V tiles that the 64-row Q tile at q0 reads past 256: up to its diagonal when causal.
+__device__ __forceinline__ int fwd_xl_tiles(int q0, int S, int causal) {
+  const int end = causal ? min(q0 + kWideBQ, S) : S;  // one past the last key read
+  return (end + FwdXlCfg::BK - 1) / FwdXlCfg::BK;
+}
+
+// Barrier `id` over the consumer warpgroups of the forward past 256.
+__device__ __forceinline__ void xl_consumers_sync(int id) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128 * FwdXlCfg::kConsumers) : "memory");
+}
+
+// Consumer warpgroup wg: O's NB boxes from box c0 of the chunk, whose
+// first column is 64 b0, of query rows q0 + [0, 64); S over slabs [d0,
+// d1). bars: bar_q, each warpgroup's full and then each one's empty K ring
+// barriers, V's full and empty barriers.
+template <int NB>
+__device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* Qs,
+                                                unsigned char* Vs, unsigned char* ring, float* X,
+                                                uint64_t* bars, __nv_bfloat16* __restrict__ out,
+                                                float* __restrict__ lse, int bh, int S, int dh,
+                                                int q0, int causal, float scale_log2, int wg,
+                                                int d0, int d1, int b0, int c0, bool writes_lse) {
+  typedef FwdXlCfg C;
+  constexpr int BK = C::BK, kSlots = C::kSlots, kVStages = C::kVStages, kWgs = C::kConsumers;
+  uint64_t* full = bars + 1 + wg * kSlots;
+  uint64_t* empty = bars + 1 + (kWgs + wg) * kSlots;
+  uint64_t* full_v = bars + 1 + 2 * kWgs * kSlots;
+  uint64_t* empty_v = full_v + kVStages;
+  const uint32_t slot = p.slot();
+  unsigned char* my_ring = ring + wg * kSlots * slot;
+  const int n_k = fwd_xl_tiles(q0, S, causal);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int qi0 = q0 + 16 * (t / 32) + lane / 4, qi1 = qi0 + 8;
+  OutAcc<64 * NB> o;
+  o.zero();
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
+  if (p.q_res) mbar_wait(bars, 0);
+  uint32_t n = 0;  // slabs taken from this warpgroup's ring
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * BK;
+    float sc[BK / 2];
+    // This warpgroup's partial S, one slab at a time; a slab's slot goes
+    // back to the producer once the slab's products are done.
+    wgmma_fence();
+    for (int d = d0; d < d1; ++d, ++n) {
+      const uint32_t s = n % kSlots;
+      mbar_wait(&full[s], (n / kSlots) & 1);
+      unsigned char* kb = my_ring + s * slot;
+      const unsigned char* qb = p.q_res ? Qs + d * C::kRowBox : kb + C::kKeyBox;
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        wgmma_ss(sc, desc(qb + kk * 32, 16, 1024), desc(kb + kk * 32, 16, 1024), d > d0 || kk > 0);
+      wgmma_commit();
+      if (d > d0) {
+        wgmma_wait<1>();
+        mbar_arrive(&empty[(n - 1) % kSlots]);
+      }
+    }
+    wgmma_wait<0>();
+    mbar_arrive(&empty[(n - 1) % kSlots]);
+    reg_fence(sc);
+    // Thread t's partial S at float4 v * 128 + t of this warpgroup's
+    // buffer; the twin threads of the other warpgroups hold the same rows
+    // and keys, and each sums every warpgroup's partial in one order.
+    float4* parts = reinterpret_cast<float4*>(X) + (j & 1) * kWgs * (BK / 8) * 128;
+#pragma unroll
+    for (int v = 0; v < BK / 8; ++v)
+      parts[(wg * (BK / 8) + v) * 128 + t] =
+          make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+    xl_consumers_sync(kBarS);
+#pragma unroll
+    for (int v = 0; v < BK / 8; ++v) {
+      float4 x = parts[v * 128 + t];
+#pragma unroll
+      for (int r = 1; r < kWgs; ++r) {
+        const float4 y = parts[(r * (BK / 8) + v) * 128 + t];
+        x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
+      }
+      sc[4 * v] = x.x, sc[4 * v + 1] = x.y, sc[4 * v + 2] = x.z, sc[4 * v + 3] = x.w;
+    }
+
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+    float cr0, cr1;
+    softmax_tile(sc, m0, m1, l0, l1, cr0, cr1, edge, k0, qi0, lane, S, causal, scale_log2);
+    o.scale(cr0, cr1);
+    uint32_t pa[BK / 16][4];
+    to_a_operand(sc, pa);
+
+    // O[:, this warpgroup's boxes] += P V.
+    const int sv = j % kVStages;
+    mbar_wait(&full_v[sv], (j / kVStages) & 1);
+    const unsigned char* Vt = Vs + sv * p.v_stage() + c0 * C::kKeyBox;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) o.mma(pa[kk], Vt + kk * 16 * 128, C::kKeyBox);
+    wgmma_commit();
+    wgmma_wait<0>();
+    o.fence();
+    mbar_arrive(&empty_v[sv]);
+  }
+
+  row_sums(l0, l1);
+  if (writes_lse && lane % 4 == 0) {
+    if (qi0 < S) lse[(size_t)bh * S + qi0] = m0 * kLn2 + logf(l0);
+    if (qi1 < S) lse[(size_t)bh * S + qi1] = m1 * kLn2 + logf(l1);
+  }
+  // Every warpgroup is done with V's ring: each stages its boxes of O / l
+  // there (box i of the chunk at i * kRowBox) and copies the columns short
+  // of dh out in 16-byte stores.
+  xl_consumers_sync(kBarO);
+  o.stage(1.f / l0, 1.f / l1, Vs, kWideBQ, 0, 64 * c0);
+  constexpr int kChunks = 8 * NB;  // 16-byte chunks of a row
+  warpgroup_sync(5 + wg);
+  __nv_bfloat16* g = out + (size_t)bh * S * dh;
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int idx = t + 128 * i, row = idx / kChunks, col = 64 * c0 + (idx % kChunks) * 8;
+    const int gcol = 64 * b0 + col;
+    if (q0 + row < S && gcol < dh)
+      *reinterpret_cast<uint4*>(g + (size_t)(q0 + row) * dh + gcol) =
+          *reinterpret_cast<const uint4*>(Vs + tile_offset(row, col, kWideBQ));
+  }
+}
+
+// W: the boxes of O the widest warpgroup of a launch holds; a warpgroup
+// holds W or W - 1.
+template <int W>
+__global__ void __launch_bounds__(FwdXlCfg::kThreads, 1)
+    flash_fwd_xl_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                             const __grid_constant__ CUtensorMap map_k,
+                             const __grid_constant__ CUtensorMap map_v,
+                             __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int BH,
+                             int S, int dh, int causal, float scale_log2) {
+  typedef FwdXlCfg C;
+  constexpr int kSlots = C::kSlots, kVStages = C::kVStages, kWgs = C::kConsumers;
+  const XlPlan p(dh);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  unsigned char* Qs = smem;
+  unsigned char* Vs = Qs + p.q_bytes();
+  unsigned char* ring = Vs + p.v_bytes();  // warpgroup r's slot s at (r kSlots + s) slot()
+  float* X = reinterpret_cast<float*>(ring + p.k_bytes());  // [parity][warpgroup] partial S
+  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(X) +
+                                               2 * kWgs * C::kPartialS);
+  uint64_t* bar_q = bars;
+  uint64_t* full = bars + 1;                // [kWgs][kSlots]
+  uint64_t* empty = full + kWgs * kSlots;   // [kWgs][kSlots]
+  uint64_t* full_v = empty + kWgs * kSlots;  // [kVStages]
+  uint64_t* empty_v = full_v + kVStages;    // [kVStages]
+
+  // Block order: chunks of one Q tile together, the last (longest, when
+  // causal) Q tile of every head first.
+  const int n_tiles = (S + kWideBQ - 1) / kWideBQ;
+  const int chunk = blockIdx.x % p.chunks, rest = blockIdx.x / p.chunks;
+  const int bh = rest % BH;
+  const int q0 = (n_tiles - 1 - rest / BH) * kWideBQ;
+  const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < kWgs * kSlots; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    for (int s = 0; s < kVStages; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], 128 * kWgs);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == kWgs) {
+    // Producer: one thread keeps the rings full, the warpgroups' K rings in turn.
+    regs_dealloc<24>();
+    if (threadIdx.x == 128 * kWgs) {
+      const int n_k = fwd_xl_tiles(q0, S, causal), per_wg = xl_split(p.nb, kWgs, 1);
+      const uint32_t slot = p.slot();
+      prefetch_map(&map_q);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      if (p.q_res) {
+        mbar_expect(bar_q, p.q_bytes());
+        for (int d = 0; d < p.nb; ++d) tma_load(Qs + d * C::kRowBox, &map_q, bar_q, 64 * d, q0, bh);
+      }
+      uint32_t n[kWgs] = {};  // slabs put in each warpgroup's ring
+      for (int j = 0; j < n_k; ++j) {
+        for (int i = 0; i < per_wg; ++i) {
+#pragma unroll
+          for (int r = 0; r < kWgs; ++r) {
+            const int d = xl_split(p.nb, kWgs, r) + i;
+            if (d >= xl_split(p.nb, kWgs, r + 1)) continue;
+            const uint32_t s = r * kSlots + n[r] % kSlots;
+            mbar_wait(&empty[s], ((n[r] / kSlots) & 1) ^ 1);
+            ++n[r];
+            mbar_expect(&full[s], slot);
+            tma_load(ring + s * slot, &map_k, &full[s], 64 * d, j * C::BK, bh);
+            if (!p.q_res) tma_load(ring + s * slot + C::kKeyBox, &map_q, &full[s], 64 * d, q0, bh);
+          }
+        }
+        const int sv = j % kVStages;
+        mbar_wait(&empty_v[sv], ((j / kVStages) & 1) ^ 1);
+        mbar_expect(&full_v[sv], nbc * C::kKeyBox);
+        for (int i = 0; i < nbc; ++i)
+          tma_load(Vs + sv * p.v_stage() + i * C::kKeyBox, &map_v, &full_v[sv], 64 * (b0 + i),
+                   j * C::BK, bh);
+      }
+    }
+  } else {
+    regs_alloc<C::kConsumerRegs>();
+    const int c0 = xl_split(nbc, kWgs, wg), boxes = xl_split(nbc, kWgs, wg + 1) - c0;
+    const int d0 = xl_split(p.nb, kWgs, wg), d1 = xl_split(p.nb, kWgs, wg + 1);
+    const bool writes_lse = chunk == 0 && wg == 0;
+    if (boxes == W)
+      fwd_xl_consumer<W>(p, Qs, Vs, ring, X, bars, out, lse, bh, S, dh, q0, causal, scale_log2,
+                         wg, d0, d1, b0, c0, writes_lse);
+    else
+      fwd_xl_consumer<W - 1>(p, Qs, Vs, ring, X, bars, out, lse, bh, S, dh, q0, causal,
+                             scale_log2, wg, d0, d1, b0, c0, writes_lse);
+  }
+}
+
+template <int W>
+cudaError_t launch_fwd_xl_w(const XlPlan& p, const CUtensorMap& mq, const CUtensorMap& mk,
+                            const CUtensorMap& mv, void* out, void* lse, int bh, int s, int dh,
+                            int causal, float scale, cudaStream_t stream) {
+  const uint32_t bytes = p.bytes();
+  cudaError_t e = allow_smem(flash_fwd_xl_kernel_sm90<W>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kWideBQ - 1) / kWideBQ) * bh * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_fwd_xl_kernel_sm90<W><<<(unsigned)blocks, FwdXlCfg::kThreads, bytes, stream>>>(
+      mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), bh, s, dh, causal,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
+cudaError_t launch_fwd_xl(const void* q, const void* k, const void* v, void* out, void* lse,
+                          int bh, int s, int dh, int causal, float scale, cudaStream_t stream) {
+  const XlPlan p(dh);
+  CUtensorMap mq, mk, mv;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, dh, kWideBQ, dh)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, dh, FwdXlCfg::BK, dh)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, dh, FwdXlCfg::BK)) != cudaSuccess) return e;
+  switch (p.width) {
+    case 3: return launch_fwd_xl_w<3>(p, mq, mk, mv, out, lse, bh, s, dh, causal, scale, stream);
+    case 4: return launch_fwd_xl_w<4>(p, mq, mk, mv, out, lse, bh, s, dh, causal, scale, stream);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace sm90
 
 }  // namespace flash
 
 // q, k, v, out: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse:
 // float32 [bh, s]. dh is 64, 128, 192, 256, 320, 384, 448 or 512 in both
-// dtypes. Launches on `stream` and returns the launch's CUDA error code.
+// dtypes (the kernels built for them), or any other multiple of 8 past 256
+// (the kernels past 256 that take the head dim at run time). Launches on
+// `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void* out, void* lse,
                               int bh, int s, int dh, int causal, float scale, int is_bf16,
                               void* stream) {
@@ -829,6 +1498,9 @@ extern "C" int dmlc_flash_fwd(const void* q, const void* k, const void* v, void*
     return (int)f32::launch_fwd<448>(q, k, v, out, lse, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 512)
     return (int)f32::launch_fwd<512>(q, k, v, out, lse, bh, s, causal, scale, st);
+  if (dh > 256 && dh % 8 == 0)
+    return (int)(is_bf16 ? sm90::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st)
+                         : f32::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st));
   return (int)cudaErrorInvalidValue;
 }
 
@@ -846,5 +1518,16 @@ extern "C" int dmlc_flash_fwd_smem_bytes(int dh, int is_bf16) {
   if (dh == 384) return (int)(is_bf16 ? sm90::FwdWideCfg<384>::kSmem : f32::FwdCfg<384>::bytes);
   if (dh == 448) return (int)(is_bf16 ? sm90::FwdWideCfg<448>::kSmem : f32::FwdCfg<448>::bytes);
   if (dh == 512) return (int)(is_bf16 ? sm90::FwdWideCfg<512>::kSmem : f32::FwdCfg<512>::bytes);
+  if (dh > 256 && dh % 8 == 0)
+    return (int)(is_bf16 ? sm90::XlPlan(dh).bytes() : f32::XlPlan(dh).bytes());
   return 0;
+}
+
+// The instantiation (its template argument W, the widest warpgroup's or
+// part's 64-column boxes of O) that the kernel past 256 runs head dim dh
+// with, in (dh, dtype); 0 where a kernel built for dh runs it, or none.
+extern "C" int dmlc_flash_fwd_xl_width(int dh, int is_bf16) {
+  using namespace flash;
+  if (dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
+  return is_bf16 ? sm90::XlPlan(dh).width : f32::XlPlan(dh).width;
 }

@@ -37,11 +37,13 @@ Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
 128) and for ``SM90_WIDE_HEAD_DIMS`` (192, 256), in both dtypes (bf16 on
 the Hopper designs, float32 on register-tiled FMA), and for
 ``FWD_WIDE_HEAD_DIMS`` (320, 384, 448, 512): the forward in both dtypes,
-dQ and dK/dV in float32. Every other head dim past 128 runs through a
-second set of three simple kernels that take the head dim at run time
-(``csrc/flash_wide.cu``, any multiple of 8): the bf16 backward past 256,
-the float32 backward past 512 and the forward past 512. No head dim is
-refused.
+dQ and dK/dV in float32. Past 512 the forward runs kernels of its own in
+both dtypes that take the head dim at run time (``csrc/flash_fwd.cu``,
+any multiple of 8: bf16 on ``wgmma``, float32 on register tiles, O cut
+into column chunks). Every other head dim of dQ and dK/dV past 128 runs
+through simple kernels that take the head dim at run time
+(``csrc/flash_wide.cu``, any multiple of 8): the bf16 backward past 256
+and the float32 backward past 512. No head dim is refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
 ``_run_head_dim(Dh)`` (the next of ``KERNEL_HEAD_DIMS``; past 128, up to
 512, the next multiple of 64; past that the next multiple of 8) on every
@@ -110,14 +112,18 @@ def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
     ``dtype``: its own kernel at ``KERNEL_HEAD_DIMS`` and
-    ``SM90_WIDE_HEAD_DIMS`` in both dtypes, and at ``FWD_WIDE_HEAD_DIMS``
-    the forward's in both and dQ's and dK/dV's in float32; else the wide
-    kernel (``flash_wide_*``); None for a head dim no kernel takes."""
+    ``SM90_WIDE_HEAD_DIMS`` in both dtypes, at ``FWD_WIDE_HEAD_DIMS`` the
+    forward's in both and dQ's and dK/dV's in float32, and the forward's at
+    every other multiple of ``WIDE_HEAD_DIM_STEP`` past 256 in both (the
+    kernels that take the head dim at run time); else the wide kernel
+    (``flash_wide_*``); None for a head dim no kernel takes."""
     own = KERNEL_HEAD_DIMS + SM90_WIDE_HEAD_DIMS
     if dh in own or (dh in FWD_WIDE_HEAD_DIMS
                      and (name == "flash_fwd" or dtype == torch.float32)):
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
+        if name == "flash_fwd" and dh > SM90_WIDE_HEAD_DIMS[-1]:
+            return name
         return name.replace("flash_", "flash_wide_", 1)
     return None
 

@@ -85,7 +85,21 @@ LM train shape, or its Dh-64 twin):
   roles kernel past 384 (32-key blocks, 16-row Q tiles): the last key
   block skips its last Q tile;
 - flash_bwd_dkv_f32_handoff_dh512 (float32, head dim 512): the fault of
-  flash_bwd_dkv_f32_handoff in the Dh-512 instantiation.
+  flash_bwd_dkv_f32_handoff in the Dh-512 instantiation;
+- the forward past 512, which takes the head dim at run time and cuts O
+  into column chunks (bf16 flash_fwd_xl_*, float32 flash_fwd_f32_xl_*):
+  _tiles (head dim 640, [4, 4, 1024, 640]): the last Q tile's count of K/V
+  tiles one short (in bf16 the producer's and both consumers'); _s_drop
+  (640): the other warpgroup's (part's) partial S dropped from half of
+  each tile's keys; _chunk_shift (bf16 at 640, float32 at 1024, S 193, the
+  widths where they cut O in two chunks): chunk 1 stores its columns one
+  64-column box to the right; _lse_chunk (bf16 at 328, S 193, which the
+  wrapper takes as one chunk; float32 at 640, S 193, one chunk): lse
+  written by the block of chunk 1 in place of chunk 0, so no block writes
+  it (where there are two, both hold the same m and l: harmless by
+  design); _pad ([4, 4, 1024, 520]): the last 64-column slab of Q and K
+  not zeroed past Dh (bf16: the TMA maps' extent is the padded width;
+  float32: the copies past Dh read the next row).
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -161,6 +175,13 @@ DKV_HANDOFF = ("          dST[kr * LDP + qc] = PT[kr * LDP + qc] * (sc[i][u] - d
                "          dST[kr * LDP + qc] = PT[(kr ^ 1) * LDP + qc] * (sc[i][u] - delta_s[qc]);")
 # The float32 dQ and dK/dV past Dh 256 at a ragged length.
 XL_RAGGED320, XL_RAGGED512 = (2, 3, 193, 320), (2, 3, 193, 512)
+# The forward past 512: [4, 4, 1024, Dh] and ragged lengths.
+XL640, XL520 = (4, 4, 1024, 640), (4, 4, 1024, 520)
+XL_RAGGED328, XL_RAGGED640, XL_RAGGED1024 = (2, 3, 193, 328), (2, 3, 193, 640), (2, 3, 193, 1024)
+XL_TILES = ("  const int end = causal ? min(q0 + {}, S) : S;  // one past the last key read",
+            "  const int end = (causal ? min(q0 + {0}, S) : S) - (q0 + {0} >= S ? FwdXlCfg::BK : 0);")
+XL_PAD = ("  if ((e = encode_map(&mq, q, bh, s, dh, kWideBQ, dh)) != cudaSuccess) return e;\n"
+          "  if ((e = encode_map(&mk, k, bh, s, dh, FwdXlCfg::BK, dh)) != cudaSuccess) return e;")
 SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    else\n"
         "      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);",
         "      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dk + base, k0, S, 1);\n    else\n"
@@ -219,6 +240,36 @@ FAULTS = {
     "flash_bwd_dkv_f32_dh512": Fault("flash_bwd_dkv", *DKV_PARTS_TILES, "float32", XL_RAGGED512),
     "flash_bwd_dkv_f32_handoff_dh512": Fault("flash_bwd_dkv", *DKV_HANDOFF, "float32",
                                              WIDE512_SHAPE),
+    "flash_fwd_xl_tiles": Fault("flash_fwd", *(t.format("kWideBQ") for t in XL_TILES),
+                                "bfloat16", XL640),
+    "flash_fwd_xl_s_drop": Fault(
+        "flash_fwd", "      for (int r = 1; r < kWgs; ++r) {",
+        "      for (int r = 1; r < (v < BK / 16 ? kWgs : 1); ++r) {", "bfloat16", XL640),
+    "flash_fwd_xl_chunk_shift": Fault("flash_fwd", "    const int gcol = 64 * b0 + col;",
+                                    "    const int gcol = 64 * (b0 + (b0 > 0)) + col;",
+                                    "bfloat16", XL640),
+    "flash_fwd_xl_lse_chunk": Fault("flash_fwd", "    const bool writes_lse = chunk == 0 && wg == 0;",
+                                    "    const bool writes_lse = chunk == 1 && wg == 0;",
+                                    "bfloat16", XL_RAGGED328),
+    "flash_fwd_xl_pad": Fault("flash_fwd", XL_PAD,
+                              XL_PAD.replace("dh, kWideBQ, dh)", "dh, kWideBQ, 64 * p.nb)")
+                              .replace("FwdXlCfg::BK, dh)", "FwdXlCfg::BK, 64 * p.nb)"),
+                              "bfloat16", XL520),
+    "flash_fwd_f32_xl_tiles": Fault("flash_fwd", *(t.format("FwdXlCfg::BQ") for t in XL_TILES),
+                                    "float32", XL640),
+    "flash_fwd_f32_xl_s_drop": Fault(
+        "flash_fwd",
+        "      for (int u = 0; u < NKT; ++u) s[i][u] = s[i][u] + Pp[(g + G * i) * LDP + c + 16 * u];",
+        "      for (int u = 0; u < NKT - 1; ++u) s[i][u] = s[i][u] + Pp[(g + G * i) * LDP + c + 16 * u];",
+        "float32", XL640),
+    "flash_fwd_f32_xl_chunk_shift": Fault(
+        "flash_fwd", "        const int col = 64 * (b0 + c0 + h) + 4 * c;",
+        "        const int col = 64 * (b0 + (b0 > 0) + c0 + h) + 4 * c;", "float32", XL_RAGGED1024),
+    "flash_fwd_f32_xl_lse_chunk": Fault(
+        "flash_fwd", "  const bool writes_lse = chunk == 0 && part == 0;",
+        "  const bool writes_lse = chunk == 1 && part == 0;", "float32", XL_RAGGED640),
+    "flash_fwd_f32_xl_pad": Fault("flash_fwd", "    const bool ok = row0 + r < S && c0 + cc < dh;",
+                                  "    const bool ok = row0 + r < S;", "float32", XL520),
 }
 
 PAGED_CASE = ("bench_decode", 128)

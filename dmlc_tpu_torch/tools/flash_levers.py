@@ -15,7 +15,10 @@ flash_bwd_dkv there); ``wide_fwd`` (the forward's own kernels past head
 dim 256 in both dtypes, timed at [4, 4, 1024, 320], [4, 4, 1024, 512] and
 the train shape's FLOPs with heads of 384, [8, 2, 2048, 384]);
 ``xl_bwd_f32`` (the float32 flash_bwd_dq and flash_bwd_dkv past head dim
-256, at the same shapes); ``paged``
+256, at the same shapes); ``xl_fwd`` (the forward past 512 in both
+dtypes, which takes the head dim at run time, timed at [4, 4, 1024, 640],
+[4, 4, 1024, 1024], the train shape's FLOPs as one head of 768,
+[8, 1, 2048, 768], and [4, 4, 1024, 576]); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -25,8 +28,9 @@ and its Dh-64 twin, the wide kernels (csrc/flash_wide.cu, through their
 entry points whatever the wrappers pick) at [4, 4, 1024, Dh] for Dh 160
 and 256 in both dtypes (three readings of 10 calls), the three flash
 kernels through the wrappers at [8, 3, 2048, 256], [8, 4, 2048, 192], [8,
-2, 2048, 384], [4, 4, 1024, 320] and [4, 4, 1024, 512] in both dtypes (the
-kernel each picks, or the error of a source without it), and the LM train
+2, 2048, 384], [4, 4, 1024, 320], [4, 4, 1024, 512] and [4, 4, 1024, 640]
+in both dtypes (the kernel each picks, or the error of a source without
+it), and the LM train
 leg
 (``chip_smoke.phase_train``: step wall p50, the flash kernels' device ms
 in one traced step, the loss), in turns parent, ship, ship, parent. Runs
@@ -41,7 +45,8 @@ copy is built; the group's kernels must pass ``chip_smoke.flash_check`` in
 the group's dtypes at the group's checks (by default the LM train shape,
 causal, and S 193 and 1000, causal and not; for ``wide``, ``wide_dq``,
 ``wide_f32`` and ``wide_bwd_f32`` S 193 at head dims 256 and 192, causal
-and not; for ``wide_fwd`` and ``xl_bwd_f32`` S 193 at 320 and 512) and at
+and not; for ``wide_fwd`` and ``xl_bwd_f32`` S 193 at 320 and 512; for
+``xl_fwd`` S 193 at 328, 520 and 1024) and at
 each timed shape, and
 ``chip_smoke.kernel_device_ms``
 times each of them at each timed shape (three readings of 20 calls). A
@@ -76,6 +81,10 @@ WIDE192_SHAPE = (8, 4, 2048, 192)
 WIDE384_SHAPE = (8, 2, 2048, 384)
 WIDE320_SHAPE = (4, 4, 1024, 320)
 WIDE512_SHAPE = (4, 4, 1024, 512)
+# The forward past 512: [4, 4, 1024, 640] and 1024, the train shape's FLOPs
+# as one head of 768, and [4, 4, 1024, 576] (9 boxes of 64 columns).
+XL640_SHAPE, XL1024_SHAPE, XL768_SHAPE = (4, 4, 1024, 640), (4, 4, 1024, 1024), (8, 1, 2048, 768)
+XL576_SHAPE = (4, 4, 1024, 576)
 
 
 # The flash checks a variant must pass before it is timed (and each timed
@@ -86,6 +95,8 @@ FLASH_CHECKS = ((TRAIN_SHAPE, True), ((2, 3, 193, 128), False), ((2, 3, 193, 128
 WIDE_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (256, 192) for causal in (True, False))
 FWD_WIDE_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (320, 512)
                         for causal in (True, False))
+XL_FWD_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (328, 520, 1024)
+                      for causal in (True, False))
 
 
 class Group(NamedTuple):
@@ -476,6 +487,31 @@ XLB_SPLIT = "  static constexpr bool kSplit = DH <= 384;  // the column split, e
 XLB_DQ_KEYS16_XL = (XLB_DQ_TILE, XLB_DQ_TILE.replace("BK = 32", "BK = DH <= 384 ? 32 : 16"))
 XLB_TWO_SLOTS = (XLB_ONE_SLOT, XLB_ONE_SLOT.replace("DH > 384", "false"))
 
+# The forward past 512 in both dtypes (group xl_fwd). ship: the
+# checkout's source (bf16: 64-row Q tiles, 32-key tiles, O in chunks of at
+# most 8 boxes, 4 a warpgroup, S over Dh's 64-column slabs split between
+# the warpgroups, each K slab through a ring of 4 a warpgroup, V in 2
+# stages, Q resident up to Dh 768; float32: 32-row tiles, two parts of at
+# most 6 steps of O, a 2-slot slab ring, Q resident up to 704); chunks: O
+# in narrower chunks (bf16 2 boxes a warpgroup, float32 4 steps a part: 640
+# in three chunks in bf16 and two in float32, more recomputed S); qstream:
+# Q streamed beside each K slab at every width; slots2: bf16 with 2 K slabs
+# in flight a warpgroup; vstage1: bf16 with one V stage; ring3: float32
+# with a 3-slot slab ring; wg3: bf16 with three consumer warpgroups of at
+# most 3 boxes each (160 registers a consumer thread under setmaxnreg) and
+# 2 K slabs in flight a warpgroup, so that 576 (9 boxes), which ship cuts
+# in two chunks, fits one block without recomputing S.
+XL_MAX = "  static constexpr int BK = 32, kMaxBoxes = 4;  // keys a K/V tile; boxes of O a warpgroup holds\n"
+XL_F32_MAX = "  static constexpr int kMaxSteps = 6;         // 64-column steps of O a part holds\n"
+XL_W3 = ("    case 3: return launch_fwd_xl_w<3>(p, mq, mk, mv, out, lse, bh, s, dh, causal, scale,"
+         " stream);\n")
+XL_QRES = "  static constexpr int kQResidentBoxes = 12;    // Q stays in shared memory up to Dh 768\n"
+XL_F32_QRES = "  static constexpr int kQResidentSteps = 11;  // Q stays in shared memory up to Dh 704\n"
+XL_SLOTS = "  static constexpr int kSlots = 4;              // K (and Q) slabs in flight a warpgroup\n"
+XL_VSTAGES = "  static constexpr int kVStages = 2;            // V tiles in flight\n"
+XL_F32_RING = "  static constexpr int kRing = 2;             // slab ring depth\n"
+XL_WGS = "  static constexpr int kConsumers = 2;          // consumer warpgroups a block\n"
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -574,6 +610,23 @@ GROUPS = {
             "BK = 32, BQ = DH <= 384 ? 32 : 16", "BK = DH <= 384 ? 32 : 16, BQ = 32"))]},
     }, ("ship", "slots2", "vk", "rows64", "keys16", "dkv_roles", "dkv_split", "rows32",
         "ship"), checks=FWD_WIDE_CHECKS),
+    "xl_fwd": Group(("bfloat16", "float32"), ("flash_fwd",),
+                    (XL640_SHAPE, XL1024_SHAPE, XL768_SHAPE, XL576_SHAPE), {
+        "ship": {},
+        "chunks": {"flash_fwd": [(XL_MAX, XL_MAX.replace("kMaxBoxes = 4", "kMaxBoxes = 2")),
+                                 (XL_W3, XL_W3.replace("3", "2") + XL_W3),
+                                 (XL_F32_MAX, XL_F32_MAX.replace("6", "4"))]},
+        "qstream": {"flash_fwd": [(XL_QRES, XL_QRES.replace("= 12", "= 0")),
+                                  (XL_F32_QRES, XL_F32_QRES.replace("= 11", "= 0"))]},
+        "slots2": {"flash_fwd": [(XL_SLOTS, XL_SLOTS.replace("= 4", "= 2"))]},
+        "vstage1": {"flash_fwd": [(XL_VSTAGES, XL_VSTAGES.replace("= 2", "= 1"))]},
+        "ring3": {"flash_fwd": [(XL_F32_RING, XL_F32_RING.replace("= 2", "= 3"))]},
+        "wg3": {"flash_fwd": [(XL_WGS, XL_WGS.replace("= 2", "= 3")),
+                              (XL_MAX, XL_MAX.replace("kMaxBoxes = 4", "kMaxBoxes = 3")),
+                              (XL_SLOTS, XL_SLOTS.replace("= 4", "= 2")),
+                              (XL_W3, XL_W3.replace("3", "2") + XL_W3)]},
+    }, ("ship", "chunks", "qstream", "slots2", "vstage1", "ring3", "wg3", "ship"),
+        checks=XL_FWD_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -602,7 +655,7 @@ for name in kernels:
             continue
         if inst is not None and inst[0] == "bfloat16":
             e["sass"] = cs.sass_counts(_build.library_path(name), mangled)
-        entries[f"dh{inst[1]}{tag(inst[0])}" if inst else mangled[:60]] = e
+        entries[f"{inst[1]}{tag(inst[0])}" if inst else mangled[:60]] = e
     report[name] = entries
 """ + CALLS + """
 for dtype in dtypes:
@@ -690,7 +743,7 @@ for dh in (160, 256):
 # entry point the checkout's wrappers pick. An earlier source without that
 # kernel reports the error.
 for shape in (cs.WIDE256_SHAPE, cs.WIDE192_SHAPE, cs.WIDE384_SHAPE, (4, 4, 1024, 320),
-              (4, 4, 1024, 512)):
+              (4, 4, 1024, 512), (4, 4, 1024, 640)):
     for dt in (torch.bfloat16, torch.float32):
         q, k, v, do = cs.flash_operands(shape, dt, seed=12)
         kw = {"causal": True, "scale": shape[3] ** -0.5}

@@ -17,16 +17,19 @@ Same numpy-seeded float32 inputs through both:
   128: out and gradients, lse and the blockwise gradients against the
   same; past 128 (160, 192, 256 and 130, padded to 192) the head dims the
   kernels built for 192 and 256 run at, 384 and 512, where float32 runs
-  the three kernels built for them, and 640, past the 512 the card
-  once refused; which head dim and entry point each (head dim, dtype) runs
-  at on the card (``_run_head_dim``, ``_entry_name``: heads in (128, 256]
-  padded to 192 or 256 for the three kernels of their own in both dtypes,
-  in (256, 512] to the next multiple of 64 for the three of their own in
-  float32 and in bf16 the forward's own and the wide backward, past 512
-  the wide kernels), that padding 160 to 192, 200 to 256, and 264, 330 and
+  the three kernels built for them, and 576, 640 and 1024, past the 512
+  the card once refused, where the forward runs its kernels that take the
+  head dim at run time; which head dim and entry point each (head dim,
+  dtype) runs at on the card (``_run_head_dim``, ``_entry_name``: heads in
+  (128, 256] padded to 192 or 256 for the three kernels of their own in
+  both dtypes, in (256, 512] to the next multiple of 64 for the three of
+  their own in float32 and in bf16 the forward's own and the wide
+  backward, past 512 to a multiple of 8 for the forward's own beside the
+  wide backward), that padding 160 to 192, 200 to 256, and 264, 330 and
   500 to 320, 384 and 512 is exact in both dtypes' routing, that the
   forward's and the float32 backward's shared memory past 256 fits a
-  block, and that no head-dim limit is left in the sources;
+  block (the forward's past 512 at every multiple of 8 up to 2048), and
+  that no head-dim limit is left in the sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
@@ -149,7 +152,8 @@ def test_kernel_head_dim_is_the_next_one_built():
 def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
     """The card takes head dims 513 and 1000 (it refused past 512 before;
     the name is the test's old one): past 512 the head dim pads to a
-    multiple of 8 in both dtypes, every wrapper has a wide kernel there,
+    multiple of 8 in both dtypes, where the forward runs its own kernels
+    (which take the head dim at run time) and dQ and dK/dV the wide ones,
     and a CPU tensor runs the plain versions at the same padded head dim;
     below 256 float32 pads to 192 or 256 as bf16 does."""
     f32, bf16 = torch.float32, torch.bfloat16
@@ -159,7 +163,7 @@ def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
         for dt in (f32, bf16):
             assert flash._run_head_dim(dh) == run
             assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == {
-                "flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"}
+                "flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"}
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
 
@@ -170,15 +174,16 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     that every wrapper has a kernel for: up to 512 at most 63 wider (192 or
     256, then 320, 384, 448 or 512, where float32 runs the three kernels of
     their own and bf16 the forward's own beside the wide dQ and dK/dV),
-    past it at most 7 wider; none at or below 128 runs wide."""
+    past it at most 7 wider, the forward's own beside the wide dQ and dK/dV
+    in both dtypes; none at or below 128 runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
             run = flash._run_head_dim(dh)
             step = 64 if dh <= 512 else flash.WIDE_HEAD_DIM_STEP
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
             assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
-            if 256 < dh <= 512:
-                want = OWN if dt == torch.float32 else FWD_OWN
+            if 256 < dh:
+                want = OWN if dt == torch.float32 and dh <= 512 else FWD_OWN
                 assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want, dh
     assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
@@ -193,7 +198,8 @@ FWD_OWN = {**WIDE, "flash_fwd": "flash_fwd"}
 # 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
 # in (256, 512] at the next multiple of 64 the three of their own in
 # float32, and in bf16 the forward's own beside the wide dQ and dK/dV;
-# past 512 the wide kernels at a multiple of 8.
+# past 512 at a multiple of 8 the forward's own (the kernels that take the
+# head dim at run time) beside the wide dQ and dK/dV, in both dtypes.
 DISPATCH = {
     (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
     (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
@@ -203,8 +209,8 @@ DISPATCH = {
     (264, "bfloat16"): (320, FWD_OWN), (264, "float32"): (320, OWN),
     (384, "bfloat16"): (384, FWD_OWN), (384, "float32"): (384, OWN),
     (449, "bfloat16"): (512, FWD_OWN), (449, "float32"): (512, OWN),
-    (513, "bfloat16"): (520, WIDE), (513, "float32"): (520, WIDE),
-    (1000, "bfloat16"): (1000, WIDE), (1000, "float32"): (1000, WIDE),
+    (513, "bfloat16"): (520, FWD_OWN), (513, "float32"): (520, FWD_OWN),
+    (1000, "bfloat16"): (1000, FWD_OWN), (1000, "float32"): (1000, FWD_OWN),
 }
 
 
@@ -276,6 +282,17 @@ def test_out_and_grads_match_past_the_old_limit(causal):
     functions (out and gradients) against JAX's Pallas flash attention."""
     q, k, v, g = _heads(32, 640, seed=11)
     _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), "Dh 640")
+
+
+@pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
+@pytest.mark.parametrize("dh", [576, 1024])
+def test_out_and_grads_match_past_head_dim_512(dh, causal):
+    """Head dims 576 and 1024, beside 640 above, where the forward runs its
+    kernels that take the head dim at run time (O cut into two column
+    chunks on the card; at 1024 Q streams beside K): the public functions
+    (out and gradients) against JAX's Pallas flash attention."""
+    q, k, v, g = _heads(24, dh, seed=13)
+    _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh}")
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
@@ -433,6 +450,8 @@ def test_gradient_dtypes_follow_the_inputs():
     (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
     (320, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
     (512, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
+    (640, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (1000, torch.float32, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
     """Each flash wrapper counts a launch under (entry point, head dim,
@@ -497,7 +516,12 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_bwd_dq_f32_dp_add", "flash_bwd_dq_f32_last_step",
                                    "flash_bwd_dkv_f32_dh320", "flash_bwd_dkv_f32_dp_add",
                                    "flash_bwd_dkv_f32_last_step", "flash_bwd_dkv_f32_dh512",
-                                   "flash_bwd_dkv_f32_handoff_dh512"])
+                                   "flash_bwd_dkv_f32_handoff_dh512", "flash_fwd_xl_tiles",
+                                   "flash_fwd_xl_s_drop", "flash_fwd_xl_chunk_shift",
+                                   "flash_fwd_xl_lse_chunk", "flash_fwd_xl_pad",
+                                   "flash_fwd_f32_xl_tiles", "flash_fwd_f32_xl_s_drop",
+                                   "flash_fwd_f32_xl_chunk_shift", "flash_fwd_f32_xl_lse_chunk",
+                                   "flash_fwd_f32_xl_pad"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source, and refuses unless that line occurs exactly once: a
@@ -505,7 +529,8 @@ def test_fault_check_finds_its_loop_once(fault):
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
     its kernel is built for (192 and 256 too, in both dtypes, the
     forward's 320 and 512, and the float32 dQ's and dK/dV's 320 and
-    512)."""
+    512), or, for the forward past 256 that takes the head dim at run time
+    (``_xl_``), at a head dim no kernel is built for."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
@@ -521,6 +546,7 @@ def test_fault_check_finds_its_loop_once(fault):
     assert dh == 192 or not fault.endswith("_dh192")
     assert (dh in flash.FWD_WIDE_HEAD_DIMS) == fault.endswith(("_dh512", "_s_add", "_dp_add",
                                                                "_last_step", "_dh320"))
+    assert ("_xl_" in fault) == (dh > 256 and dh not in flash.FWD_WIDE_HEAD_DIMS)
     assert case.check == "flash"
 
 
@@ -631,6 +657,19 @@ def test_xl_bwd_f32_lever_tool_finds_its_lines_once(lever):
     assert group.dtype == "float32" and {s[3] for s in group.shapes} == {320, 384, 512}
 
 
+@pytest.mark.parametrize("lever", ["ship", "chunks", "qstream", "slots2", "vstage1", "ring3",
+                                   "wg3"])
+def test_xl_fwd_lever_tool_finds_its_lines_once(lever):
+    """The forward's variants past head dim 512 in both dtypes (group
+    xl_fwd), timed at [4, 4, 1024, 640], [4, 4, 1024, 1024], [8, 1, 2048,
+    768] and [4, 4, 1024, 576], head dims the kernels built for a head dim
+    do not take."""
+    _lever_sources_apply("xl_fwd", lever)
+    group = _tool("flash_levers").GROUPS["xl_fwd"]
+    assert group.dtype == ("bfloat16", "float32")
+    assert all(s[3] > 512 and s[3] % 8 == 0 for s in group.shapes)
+
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -713,6 +752,61 @@ def test_wide_forward_shared_memory_fits_a_block():
         rows, ld = (64 if dh <= 384 else 32), dh + 4
         f32 = 4 * (rows * ld + 2 * 32 * ld + 2 * rows * (32 + 4))
         assert bf16 <= 232448 and f32 <= 232448, (dh, bf16, f32)
+
+
+def test_forward_past_512_takes_any_multiple_of_8_and_fits_a_block():
+    """``dmlc_flash_fwd`` sends every multiple of 8 past 256 that no kernel
+    is built for (every one past 512 on the public route) to the kernels
+    that take the head dim at run time (``sm90::launch_fwd_xl`` in bf16,
+    ``f32::launch_fwd_xl`` in float32), after the kernels built for a head
+    dim, and ``dmlc_flash_fwd_smem_bytes`` answers for the same head dims
+    from their plans (``XlPlan``). At every multiple of 8 in (256, 2048]
+    the plan's shared memory, as the config lines checked here give it,
+    fits the 232448 bytes a block may take, and the instantiation it picks
+    (the boxes of O of the widest warpgroup or part) is one the launch
+    builds (text only, no nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / "flash_fwd.cu").read_text()
+    entry = text[text.index('extern "C" int dmlc_flash_fwd('):]
+    entry = entry[:entry.index("\n}\n")]
+    xl = ("  if (dh > 256 && dh % 8 == 0)\n"
+          "    return (int)(is_bf16 ? sm90::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st)\n"
+          "                         : f32::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st));")
+    assert xl in entry and entry.index(xl) > entry.index("launch_fwd<512>")
+    smem = text[text.index('extern "C" int dmlc_flash_fwd_smem_bytes('):]
+    smem = smem[:smem.index("\n}\n")]
+    assert ("  if (dh > 256 && dh % 8 == 0)\n    return (int)(is_bf16 ? sm90::XlPlan(dh).bytes() : "
+            "f32::XlPlan(dh).bytes());") in smem
+    for line in ("  static constexpr int BK = 32, kMaxBoxes = 4;  //",
+                 "  static constexpr int kSlots = 4;  ", "  static constexpr int kVStages = 2;  ",
+                 "  static constexpr int kQResidentBoxes = 12;  ",
+                 "  static constexpr int BQ = 32, BK = 32, RPT = 4;  //",
+                 "  static constexpr int kMaxSteps = 6;  ", "  static constexpr int kRing = 2;  ",
+                 "  static constexpr int kQResidentSteps = 11;  ",
+                 "  static constexpr int LDS = 64 + 4;  "):
+        assert text.count(line) == 1, line
+    built_bf16 = {int(w) for w in re.findall(r"case (\d): return launch_fwd_xl_w<\1>\(p, mq", text)}
+    built_f32 = {int(w) for w in re.findall(r"case (\d): return launch_fwd_xl_w<\1>\(p, q,", text)}
+    assert built_bf16 == {3, 4} and built_f32 == {3, 4, 5, 6}
+    for dh in range(264, 2049, 8):
+        if dh in flash.FWD_WIDE_HEAD_DIMS:
+            continue
+        nb = -(-dh // 64)
+        chunks = -(-nb // 8)  # bf16: at most 4 boxes a warpgroup
+        width = -(-(-(-nb // chunks)) // 2)
+        q_res = nb <= 12
+        slot = 32 * 128 + (0 if q_res else 64 * 128)
+        v = max(2 * 2 * width * 32 * 128, 2 * width * 64 * 128)
+        bf16 = ((nb * 64 * 128 if q_res else 0) + v + 2 * 4 * slot + 4 * 128 * 16 * 4
+                + (1 + 4 * 4 + 2 * 2) * 8 + 1024)
+        assert width in built_bf16 and bf16 <= 232448, (dh, width, bf16)
+        chunks = -(-nb // 12)  # float32: at most 6 steps a part
+        widest = -(-nb // chunks)
+        width = -(-widest // 2)
+        q_res = nb <= 11
+        slot = (2 * 32 + (0 if q_res else 2 * 32)) * 68
+        f32 = 4 * ((32 * (64 * nb + 4) if q_res else 0) + 32 * (64 * widest + 4) + 2 * slot
+                   + 2 * 32 * 36)
+        assert width in built_f32 and f32 <= 232448, (dh, width, f32)
 
 
 @pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
