@@ -193,9 +193,10 @@ WIDE384_SHAPE = (8, 2, 2048, 384)
 # as one head of 768 (XL768_SHAPE), beside the wide forward it replaced
 # there. XL_CHECK_HEAD_DIMS are checked against the plain version at S 193
 # and 1000, causal and not, in both dtypes: 520, 640 and 1024 of the sweep
-# (two chunks of O in both dtypes; Q streamed at 1024), 712 and 776 (Q
-# streamed in float32 and in bf16 just past where it stays resident), and
-# 328 (one chunk, through the wrapper: the public functions pad 328 to 384).
+# (two chunks of O in bf16 at each, in float32 at 1024), 712 and 776 (in
+# float32 Q streamed just past where it stays resident; bf16 streams Q at
+# every width), and 328 (one chunk, through the wrapper: the public
+# functions pad 328 to 384).
 XL768_SHAPE = (8, 1, 2048, 768)
 XL_CHECK_HEAD_DIMS = (328, 520, 640, 712, 776, 1024)
 # Every head dim the kernels past 256 take, for the build phase: each

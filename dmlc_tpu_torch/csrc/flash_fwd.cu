@@ -133,15 +133,19 @@
 // 0), each adds the other's partial through shared memory (a + b == b +
 // a), and the block of chunk 0 writes lse. K streams in 64-column slabs
 // (a [32, 64] box; bf16 through a TMA ring of 4 slots a warpgroup, float32
-// through a 2-slot cp.async ring with rows padded by 16 bytes), V brings
-// only the chunk's boxes, and Q stays resident up to Dh 768 (bf16, 96 KB)
-// or 704 (float32) and past that streams beside each K slab (L2 reloads of
-// 64 or 32 rows a K/V tile). A last box or slab that is partly past Dh
+// through a 2-slot cp.async ring with rows padded by 16 bytes), and V
+// brings only the chunk's boxes. In bf16 Q streams beside each K slab at
+// every width (an L2 reload of 64 rows a K/V tile, which read the same as
+// keeping Q resident); in float32 Q stays resident up to Dh 704 and past
+// that streams the same way (32 rows a K/V tile; streaming it at 576 and
+// 640 cost 7-8%, PERF.md section 6). A last box or slab that is partly past Dh
 // reads zeros (the TMA maps' zero fill; cp.async's zero fill), which is
 // exact, and columns past Dh are not stored. float32 stays full FMA (no
 // TF32), 32-row tiles. Bounds at [4, 4, 1024, 640]: bf16 its bytes, 25 us
 // at 3.35 TB/s (the operations take 22 us at 989 TFLOP/s); float32
-// operations, 0.32 ms at the float32 peak.
+// operations, 0.32 ms at the float32 peak. At 320, 384, 448 and 512 the
+// kernels built for the head dim stay: these ran 39-44% (bf16) and 14-48%
+// (float32) slower there (PERF.md section 6).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -1136,65 +1140,47 @@ cudaError_t launch_fwd_wide(const void* q, const void* k, const void* v, void* o
 
 // The bf16 forward at any other head dim past 256 (every multiple of 8
 // past 512 on the public route; flash_fwd_xl_kernel_sm90). A block holds
-// 64 query rows, which its kConsumers consumer warpgroups share, and one
-// column chunk of O: at most kConsumers kMaxBoxes 64-column boxes, split
-// among the warpgroups as evenly as whole boxes allow, the first ones the
-// larger (OutAcc of at most 64 kMaxBoxes columns). S = Q K^T (m64n32k16)
-// walks Dh in 64-column slabs, split among the warpgroups the same way,
-// each K slab streaming through a ring of kSlots of the warpgroup's own;
-// every warpgroup then adds all the partial S through shared memory in one
-// order, so all of them, in every chunk's block, hold the same S, softmax
-// and P. Q stays in shared memory up to kQResidentBoxes boxes and past it
-// streams beside each K slab. V brings only the chunk's boxes, kVStages
-// tiles in flight. A producer warpgroup gives its registers to the
-// consumers (setmaxnreg: 240 a consumer thread with two of them, 160 with
-// three).
+// 64 query rows, which its two consumer warpgroups share, and one column
+// chunk of O: at most 2 kMaxBoxes 64-column boxes, the first half (rounded
+// up) to warpgroup 0 and the rest to warpgroup 1 (OutAcc of at most 64
+// kMaxBoxes columns). S = Q K^T (m64n32k16) walks Dh in 64-column slabs,
+// split between the warpgroups the same way; each slab of K streams with
+// the same slab of Q through a ring of kSlots of the warpgroup's own, so Q
+// comes again from L2 for every K/V tile (keeping it resident read the
+// same, PERF.md section 6). Each warpgroup adds the other's partial S
+// through shared memory (a + b == b + a), so both, in every chunk's block,
+// hold the same S, softmax and P. V brings only the chunk's boxes,
+// kVStages tiles in flight. The producer warpgroup gives its registers to
+// the consumers (setmaxnreg, 240 a consumer thread).
 struct FwdXlCfg {
   static constexpr int BK = 32, kMaxBoxes = 4;  // keys a K/V tile; boxes of O a warpgroup holds
-  static constexpr int kConsumers = 2;          // consumer warpgroups a block
-  static constexpr int kSlots = 4;              // K (and Q) slabs in flight a warpgroup
+  static constexpr int kSlots = 4;              // K and Q slabs in flight a warpgroup
   static constexpr int kVStages = 2;            // V tiles in flight
-  static constexpr int kQResidentBoxes = 12;    // Q stays in shared memory up to Dh 768
-  static constexpr int kThreads = 128 * (kConsumers + 1);
-  static constexpr int kConsumerRegs = kConsumers == 2 ? 240 : 160;
-  static constexpr uint32_t kRowBox = kWideBQ * 128;  // [64 rows, 64 columns]: Q, staged O
-  static constexpr uint32_t kKeyBox = BK * 128;       // [BK keys, 64 columns]: K, V
+  static constexpr uint32_t kRowBox = kWideBQ * 128;    // [64 rows, 64 columns]: Q, staged O
+  static constexpr uint32_t kKeyBox = BK * 128;         // [BK keys, 64 columns]: K, V
+  static constexpr uint32_t kSlot = kKeyBox + kRowBox;  // a slab of K and the same of Q
   static constexpr uint32_t kPartialS = 128 * (BK / 2) * sizeof(float);  // one warpgroup's
 };
 
-// Part r of n parts of [0, total): [ceil(r total / n), ceil((r + 1) total / n)).
-__host__ __device__ __forceinline__ int xl_split(int total, int n, int r) {
-  return (r * total + n - 1) / n;
-}
-
 // What a head dim gives the bf16 forward past 256: nb boxes of Dh (the
 // last one zero-filled past it), the chunks of O, the boxes of the widest
-// warpgroup, whether Q stays resident, and where the shared memory goes:
-// Q (resident), V's ring (also where O stages at the end), the K rings,
-// the partial S of every warpgroup by tile parity, the barriers.
+// warpgroup, and where the shared memory goes: V's ring (also where O
+// stages at the end), the two K/Q rings, both warpgroups' partial S by
+// tile parity, the barriers.
 struct XlPlan {
   int nb, chunks, width;
-  bool q_res;
   __host__ __device__ explicit XlPlan(int dh)
       : nb((dh + 63) / 64),
-        chunks((nb + kMaxPerBlock - 1) / kMaxPerBlock),
-        width(((nb + chunks - 1) / chunks + FwdXlCfg::kConsumers - 1) / FwdXlCfg::kConsumers),
-        q_res(nb <= FwdXlCfg::kQResidentBoxes) {}
-  static constexpr int kMaxPerBlock = FwdXlCfg::kConsumers * FwdXlCfg::kMaxBoxes;
-  static constexpr int kWgs = FwdXlCfg::kConsumers;
-  __host__ __device__ uint32_t q_bytes() const { return q_res ? nb * FwdXlCfg::kRowBox : 0; }
-  __host__ __device__ uint32_t v_stage() const { return kWgs * width * FwdXlCfg::kKeyBox; }
+        chunks((nb + 2 * FwdXlCfg::kMaxBoxes - 1) / (2 * FwdXlCfg::kMaxBoxes)),
+        width(((nb + chunks - 1) / chunks + 1) / 2) {}
+  __host__ __device__ uint32_t v_stage() const { return 2 * width * FwdXlCfg::kKeyBox; }
   __host__ __device__ uint32_t v_bytes() const {
-    const uint32_t ring = FwdXlCfg::kVStages * v_stage(), staged = kWgs * width * FwdXlCfg::kRowBox;
+    const uint32_t ring = FwdXlCfg::kVStages * v_stage(), staged = 2 * width * FwdXlCfg::kRowBox;
     return ring > staged ? ring : staged;
   }
-  __host__ __device__ uint32_t slot() const {
-    return FwdXlCfg::kKeyBox + (q_res ? 0 : FwdXlCfg::kRowBox);
-  }
-  __host__ __device__ uint32_t k_bytes() const { return kWgs * FwdXlCfg::kSlots * slot(); }
   __host__ __device__ uint32_t bytes() const {
-    return q_bytes() + v_bytes() + k_bytes() + 2 * kWgs * FwdXlCfg::kPartialS +
-           (1 + 2 * kWgs * FwdXlCfg::kSlots + 2 * FwdXlCfg::kVStages) * 8 + 1024;
+    return v_bytes() + 2 * FwdXlCfg::kSlots * FwdXlCfg::kSlot + 4 * FwdXlCfg::kPartialS +
+           (4 * FwdXlCfg::kSlots + 2 * FwdXlCfg::kVStages) * 8 + 1024;
   }
 };
 
@@ -1204,37 +1190,30 @@ __device__ __forceinline__ int fwd_xl_tiles(int q0, int S, int causal) {
   return (end + FwdXlCfg::BK - 1) / FwdXlCfg::BK;
 }
 
-// Barrier `id` over the consumer warpgroups of the forward past 256.
-__device__ __forceinline__ void xl_consumers_sync(int id) {
-  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "n"(128 * FwdXlCfg::kConsumers) : "memory");
-}
-
-// Consumer warpgroup wg: O's NB boxes from box c0 of the chunk, whose
-// first column is 64 b0, of query rows q0 + [0, 64); S over slabs [d0,
-// d1). bars: bar_q, each warpgroup's full and then each one's empty K ring
+// Consumer warpgroup wg (0 or 1): O's NB boxes from box c0 of the chunk,
+// whose first column is 64 b0, of query rows q0 + [0, 64); S over slabs
+// [d0, d1). bars: each warpgroup's full and then each one's empty K/Q ring
 // barriers, V's full and empty barriers.
 template <int NB>
-__device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* Qs,
-                                                unsigned char* Vs, unsigned char* ring, float* X,
-                                                uint64_t* bars, __nv_bfloat16* __restrict__ out,
+__device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* Vs,
+                                                unsigned char* ring, float* X, uint64_t* bars,
+                                                __nv_bfloat16* __restrict__ out,
                                                 float* __restrict__ lse, int bh, int S, int dh,
                                                 int q0, int causal, float scale_log2, int wg,
                                                 int d0, int d1, int b0, int c0, bool writes_lse) {
   typedef FwdXlCfg C;
-  constexpr int BK = C::BK, kSlots = C::kSlots, kVStages = C::kVStages, kWgs = C::kConsumers;
-  uint64_t* full = bars + 1 + wg * kSlots;
-  uint64_t* empty = bars + 1 + (kWgs + wg) * kSlots;
-  uint64_t* full_v = bars + 1 + 2 * kWgs * kSlots;
+  constexpr int BK = C::BK, kSlots = C::kSlots, kVStages = C::kVStages;
+  uint64_t* full = bars + wg * kSlots;
+  uint64_t* empty = bars + (2 + wg) * kSlots;
+  uint64_t* full_v = bars + 4 * kSlots;
   uint64_t* empty_v = full_v + kVStages;
-  const uint32_t slot = p.slot();
-  unsigned char* my_ring = ring + wg * kSlots * slot;
+  unsigned char* my_ring = ring + wg * kSlots * C::kSlot;
   const int n_k = fwd_xl_tiles(q0, S, causal);
   const int t = threadIdx.x % 128, lane = t % 32;
   const int qi0 = q0 + 16 * (t / 32) + lane / 4, qi1 = qi0 + 8;
   OutAcc<64 * NB> o;
   o.zero();
   float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.f, l1 = 0.f;  // l: this thread's columns
-  if (p.q_res) mbar_wait(bars, 0);
   uint32_t n = 0;  // slabs taken from this warpgroup's ring
   for (int j = 0; j < n_k; ++j) {
     const int k0 = j * BK;
@@ -1245,11 +1224,11 @@ __device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* 
     for (int d = d0; d < d1; ++d, ++n) {
       const uint32_t s = n % kSlots;
       mbar_wait(&full[s], (n / kSlots) & 1);
-      unsigned char* kb = my_ring + s * slot;
-      const unsigned char* qb = p.q_res ? Qs + d * C::kRowBox : kb + C::kKeyBox;
+      const unsigned char* kb = my_ring + s * C::kSlot;
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
-        wgmma_ss(sc, desc(qb + kk * 32, 16, 1024), desc(kb + kk * 32, 16, 1024), d > d0 || kk > 0);
+        wgmma_ss(sc, desc(kb + C::kKeyBox + kk * 32, 16, 1024), desc(kb + kk * 32, 16, 1024),
+                 d > d0 || kk > 0);
       wgmma_commit();
       if (d > d0) {
         wgmma_wait<1>();
@@ -1260,23 +1239,19 @@ __device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* 
     mbar_arrive(&empty[(n - 1) % kSlots]);
     reg_fence(sc);
     // Thread t's partial S at float4 v * 128 + t of this warpgroup's
-    // buffer; the twin threads of the other warpgroups hold the same rows
-    // and keys, and each sums every warpgroup's partial in one order.
-    float4* parts = reinterpret_cast<float4*>(X) + (j & 1) * kWgs * (BK / 8) * 128;
+    // buffer; the twin thread of the other warpgroup holds the same rows
+    // and keys and adds it.
+    float4* mine = reinterpret_cast<float4*>(X) + ((j & 1) * 2 + wg) * (BK / 8) * 128;
+    const float4* other = reinterpret_cast<const float4*>(X) +
+                          ((j & 1) * 2 + 1 - wg) * (BK / 8) * 128;
 #pragma unroll
     for (int v = 0; v < BK / 8; ++v)
-      parts[(wg * (BK / 8) + v) * 128 + t] =
-          make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
-    xl_consumers_sync(kBarS);
+      mine[v * 128 + t] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+    consumers_wait(kBarS);
 #pragma unroll
     for (int v = 0; v < BK / 8; ++v) {
-      float4 x = parts[v * 128 + t];
-#pragma unroll
-      for (int r = 1; r < kWgs; ++r) {
-        const float4 y = parts[(r * (BK / 8) + v) * 128 + t];
-        x.x += y.x, x.y += y.y, x.z += y.z, x.w += y.w;
-      }
-      sc[4 * v] = x.x, sc[4 * v + 1] = x.y, sc[4 * v + 2] = x.z, sc[4 * v + 3] = x.w;
+      const float4 y = other[v * 128 + t];
+      sc[4 * v] += y.x, sc[4 * v + 1] += y.y, sc[4 * v + 2] += y.z, sc[4 * v + 3] += y.w;
     }
 
     const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
@@ -1304,10 +1279,10 @@ __device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* 
     if (qi0 < S) lse[(size_t)bh * S + qi0] = m0 * kLn2 + logf(l0);
     if (qi1 < S) lse[(size_t)bh * S + qi1] = m1 * kLn2 + logf(l1);
   }
-  // Every warpgroup is done with V's ring: each stages its boxes of O / l
+  // Both warpgroups are done with V's ring: each stages its boxes of O / l
   // there (box i of the chunk at i * kRowBox) and copies the columns short
   // of dh out in 16-byte stores.
-  xl_consumers_sync(kBarO);
+  consumers_wait(kBarO);
   o.stage(1.f / l0, 1.f / l1, Vs, kWideBQ, 0, 64 * c0);
   constexpr int kChunks = 8 * NB;  // 16-byte chunks of a row
   warpgroup_sync(5 + wg);
@@ -1325,28 +1300,25 @@ __device__ __forceinline__ void fwd_xl_consumer(const XlPlan& p, unsigned char* 
 // W: the boxes of O the widest warpgroup of a launch holds; a warpgroup
 // holds W or W - 1.
 template <int W>
-__global__ void __launch_bounds__(FwdXlCfg::kThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
     flash_fwd_xl_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
                              const __grid_constant__ CUtensorMap map_k,
                              const __grid_constant__ CUtensorMap map_v,
                              __nv_bfloat16* __restrict__ out, float* __restrict__ lse, int BH,
                              int S, int dh, int causal, float scale_log2) {
   typedef FwdXlCfg C;
-  constexpr int kSlots = C::kSlots, kVStages = C::kVStages, kWgs = C::kConsumers;
+  constexpr int kSlots = C::kSlots, kVStages = C::kVStages;
   const XlPlan p(dh);
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
-  unsigned char* Qs = smem;
-  unsigned char* Vs = Qs + p.q_bytes();
-  unsigned char* ring = Vs + p.v_bytes();  // warpgroup r's slot s at (r kSlots + s) slot()
-  float* X = reinterpret_cast<float*>(ring + p.k_bytes());  // [parity][warpgroup] partial S
-  uint64_t* bars = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(X) +
-                                               2 * kWgs * C::kPartialS);
-  uint64_t* bar_q = bars;
-  uint64_t* full = bars + 1;                // [kWgs][kSlots]
-  uint64_t* empty = full + kWgs * kSlots;   // [kWgs][kSlots]
-  uint64_t* full_v = empty + kWgs * kSlots;  // [kVStages]
-  uint64_t* empty_v = full_v + kVStages;    // [kVStages]
+  unsigned char* Vs = smem;
+  unsigned char* ring = Vs + p.v_bytes();  // warpgroup r's slot s at (r kSlots + s) kSlot
+  float* X = reinterpret_cast<float*>(ring + 2 * kSlots * C::kSlot);  // [parity][wg] partial S
+  uint64_t* full = reinterpret_cast<uint64_t*>(reinterpret_cast<unsigned char*>(X) +
+                                               4 * C::kPartialS);  // [wg][kSlots]
+  uint64_t* empty = full + 2 * kSlots;       // [wg][kSlots]
+  uint64_t* full_v = empty + 2 * kSlots;     // [kVStages]
+  uint64_t* empty_v = full_v + kVStages;     // [kVStages]
 
   // Block order: chunks of one Q tile together, the last (longest, when
   // causal) Q tile of every head first.
@@ -1355,48 +1327,43 @@ __global__ void __launch_bounds__(FwdXlCfg::kThreads, 1)
   const int bh = rest % BH;
   const int q0 = (n_tiles - 1 - rest / BH) * kWideBQ;
   const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  const int half = (p.nb + 1) / 2;  // S's slabs of warpgroup 0, [0, half); warpgroup 1's the rest
   const int wg = threadIdx.x / 128;
 
   if (threadIdx.x == 0) {
-    mbar_init(bar_q, 1);
-    for (int s = 0; s < kWgs * kSlots; ++s) {
+    for (int s = 0; s < 2 * kSlots; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], 128);
     }
     for (int s = 0; s < kVStages; ++s) {
       mbar_init(&full_v[s], 1);
-      mbar_init(&empty_v[s], 128 * kWgs);
+      mbar_init(&empty_v[s], kConsumerThreads);
     }
     mbar_init_fence();
   }
   __syncthreads();
 
-  if (wg == kWgs) {
-    // Producer: one thread keeps the rings full, the warpgroups' K rings in turn.
+  if (wg == 2) {
+    // Producer: one thread keeps the rings full, the two K/Q rings in turn.
     regs_dealloc<24>();
-    if (threadIdx.x == 128 * kWgs) {
-      const int n_k = fwd_xl_tiles(q0, S, causal), per_wg = xl_split(p.nb, kWgs, 1);
-      const uint32_t slot = p.slot();
+    if (threadIdx.x == kConsumerThreads) {
+      const int n_k = fwd_xl_tiles(q0, S, causal);
       prefetch_map(&map_q);
       prefetch_map(&map_k);
       prefetch_map(&map_v);
-      if (p.q_res) {
-        mbar_expect(bar_q, p.q_bytes());
-        for (int d = 0; d < p.nb; ++d) tma_load(Qs + d * C::kRowBox, &map_q, bar_q, 64 * d, q0, bh);
-      }
-      uint32_t n[kWgs] = {};  // slabs put in each warpgroup's ring
+      uint32_t n[2] = {0, 0};  // slabs put in each warpgroup's ring
       for (int j = 0; j < n_k; ++j) {
-        for (int i = 0; i < per_wg; ++i) {
+        for (int i = 0; i < half; ++i) {
 #pragma unroll
-          for (int r = 0; r < kWgs; ++r) {
-            const int d = xl_split(p.nb, kWgs, r) + i;
-            if (d >= xl_split(p.nb, kWgs, r + 1)) continue;
+          for (int r = 0; r < 2; ++r) {
+            const int d = r * half + i;
+            if (d >= p.nb) continue;
             const uint32_t s = r * kSlots + n[r] % kSlots;
             mbar_wait(&empty[s], ((n[r] / kSlots) & 1) ^ 1);
             ++n[r];
-            mbar_expect(&full[s], slot);
-            tma_load(ring + s * slot, &map_k, &full[s], 64 * d, j * C::BK, bh);
-            if (!p.q_res) tma_load(ring + s * slot + C::kKeyBox, &map_q, &full[s], 64 * d, q0, bh);
+            mbar_expect(&full[s], C::kSlot);
+            tma_load(ring + s * C::kSlot, &map_k, &full[s], 64 * d, j * C::BK, bh);
+            tma_load(ring + s * C::kSlot + C::kKeyBox, &map_q, &full[s], 64 * d, q0, bh);
           }
         }
         const int sv = j % kVStages;
@@ -1408,16 +1375,17 @@ __global__ void __launch_bounds__(FwdXlCfg::kThreads, 1)
       }
     }
   } else {
-    regs_alloc<C::kConsumerRegs>();
-    const int c0 = xl_split(nbc, kWgs, wg), boxes = xl_split(nbc, kWgs, wg + 1) - c0;
-    const int d0 = xl_split(p.nb, kWgs, wg), d1 = xl_split(p.nb, kWgs, wg + 1);
+    regs_alloc<240>();
+    const int c_half = (nbc + 1) / 2;  // O's boxes of warpgroup 0
+    const int c0 = wg ? c_half : 0, boxes = wg ? nbc - c_half : c_half;
+    const int d0 = wg ? half : 0, d1 = wg ? p.nb : half;
     const bool writes_lse = chunk == 0 && wg == 0;
     if (boxes == W)
-      fwd_xl_consumer<W>(p, Qs, Vs, ring, X, bars, out, lse, bh, S, dh, q0, causal, scale_log2,
-                         wg, d0, d1, b0, c0, writes_lse);
+      fwd_xl_consumer<W>(p, Vs, ring, X, full, out, lse, bh, S, dh, q0, causal, scale_log2, wg,
+                         d0, d1, b0, c0, writes_lse);
     else
-      fwd_xl_consumer<W - 1>(p, Qs, Vs, ring, X, bars, out, lse, bh, S, dh, q0, causal,
-                             scale_log2, wg, d0, d1, b0, c0, writes_lse);
+      fwd_xl_consumer<W - 1>(p, Vs, ring, X, full, out, lse, bh, S, dh, q0, causal, scale_log2,
+                             wg, d0, d1, b0, c0, writes_lse);
   }
 }
 
@@ -1430,7 +1398,7 @@ cudaError_t launch_fwd_xl_w(const XlPlan& p, const CUtensorMap& mq, const CUtens
   if (e != cudaSuccess) return e;
   const long long blocks = (long long)((s + kWideBQ - 1) / kWideBQ) * bh * p.chunks;
   if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
-  flash_fwd_xl_kernel_sm90<W><<<(unsigned)blocks, FwdXlCfg::kThreads, bytes, stream>>>(
+  flash_fwd_xl_kernel_sm90<W><<<(unsigned)blocks, kThreads, bytes, stream>>>(
       mq, mk, mv, static_cast<__nv_bfloat16*>(out), static_cast<float*>(lse), bh, s, dh, causal,
       scale * kLog2e);
   return cudaGetLastError();
@@ -1441,8 +1409,8 @@ cudaError_t launch_fwd_xl(const void* q, const void* k, const void* v, void* out
   const XlPlan p(dh);
   CUtensorMap mq, mk, mv;
   cudaError_t e;
-  if ((e = encode_map(&mq, q, bh, s, dh, kWideBQ, dh)) != cudaSuccess) return e;
-  if ((e = encode_map(&mk, k, bh, s, dh, FwdXlCfg::BK, dh)) != cudaSuccess) return e;
+  if ((e = encode_map(&mq, q, bh, s, dh, kWideBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, dh, FwdXlCfg::BK)) != cudaSuccess) return e;
   if ((e = encode_map(&mv, v, bh, s, dh, FwdXlCfg::BK)) != cudaSuccess) return e;
   switch (p.width) {
     case 3: return launch_fwd_xl_w<3>(p, mq, mk, mv, out, lse, bh, s, dh, causal, scale, stream);

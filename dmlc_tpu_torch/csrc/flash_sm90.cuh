@@ -503,13 +503,11 @@ inline EncodeTiledFn encode_tiled() {
 }
 
 // Map of a [bh, s, dh] bf16 tensor in boxes of (64 columns, `rows`, 1),
-// 128-byte swizzle, zero fill past every edge. `cols` (default dh) is the
-// extent along a row: columns at or past it read as zero.
-inline cudaError_t encode_map(CUtensorMap* map, const void* base, int bh, int s, int dh, int rows,
-                              int cols = 0) {
+// 128-byte swizzle, zero fill past every edge.
+inline cudaError_t encode_map(CUtensorMap* map, const void* base, int bh, int s, int dh, int rows) {
   EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
-  const cuuint64_t dims[3] = {(cuuint64_t)(cols > 0 ? cols : dh), (cuuint64_t)s, (cuuint64_t)bh};
+  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)s, (cuuint64_t)bh};
   const cuuint64_t strides[2] = {(cuuint64_t)dh * 2, (cuuint64_t)s * dh * 2};
   const cuuint32_t box[3] = {64, (cuuint32_t)rows, 1};
   const cuuint32_t elem[3] = {1, 1, 1};

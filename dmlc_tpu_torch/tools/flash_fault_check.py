@@ -98,8 +98,10 @@ LM train shape, or its Dh-64 twin):
   written by the block of chunk 1 in place of chunk 0, so no block writes
   it (where there are two, both hold the same m and l: harmless by
   design); _pad ([4, 4, 1024, 520]): the last 64-column slab of Q and K
-  not zeroed past Dh (bf16: the TMA maps' extent is the padded width;
-  float32: the copies past Dh read the next row).
+  not zeroed past Dh (bf16: csrc/flash_sm90.cuh's encode_map gives every
+  map a row of Dh rounded up to 64 columns, which changes no map of a
+  head dim that is a multiple of 64; float32: the copies past Dh read the
+  next row).
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -131,12 +133,13 @@ from flash_levers import (DH64_SHAPE, REPO, TRAIN_SHAPE, WIDE192_SHAPE,  # noqa:
 
 
 class Fault(NamedTuple):
-    source: str  # csrc/<source>.cu
+    source: str  # csrc/<source>.cu: the kernel checked
     old: str     # the line replaced, exactly once in the source
     new: str
     dtype: str   # the check run on the copy
     shape: tuple  # flash: [B, H, S, Dh]; paged: (geometry, Dh)
     check: str = "flash"  # a key of CHECKS
+    file: str = ""  # the csrc file patched, where it is not <source>.cu
 
 
 FWD_SM90 = ("  return ((causal ? min(q0 + kFwdBQ, S) : S) + kFwdBK - 1) / kFwdBK;",
@@ -180,8 +183,7 @@ XL640, XL520 = (4, 4, 1024, 640), (4, 4, 1024, 520)
 XL_RAGGED328, XL_RAGGED640, XL_RAGGED1024 = (2, 3, 193, 328), (2, 3, 193, 640), (2, 3, 193, 1024)
 XL_TILES = ("  const int end = causal ? min(q0 + {}, S) : S;  // one past the last key read",
             "  const int end = (causal ? min(q0 + {0}, S) : S) - (q0 + {0} >= S ? FwdXlCfg::BK : 0);")
-XL_PAD = ("  if ((e = encode_map(&mq, q, bh, s, dh, kWideBQ, dh)) != cudaSuccess) return e;\n"
-          "  if ((e = encode_map(&mk, k, bh, s, dh, FwdXlCfg::BK, dh)) != cudaSuccess) return e;")
+XL_PAD = "  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)s, (cuuint64_t)bh};"
 SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    else\n"
         "      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);",
         "      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dk + base, k0, S, 1);\n    else\n"
@@ -243,8 +245,9 @@ FAULTS = {
     "flash_fwd_xl_tiles": Fault("flash_fwd", *(t.format("kWideBQ") for t in XL_TILES),
                                 "bfloat16", XL640),
     "flash_fwd_xl_s_drop": Fault(
-        "flash_fwd", "      for (int r = 1; r < kWgs; ++r) {",
-        "      for (int r = 1; r < (v < BK / 16 ? kWgs : 1); ++r) {", "bfloat16", XL640),
+        "flash_fwd", "      const float4 y = other[v * 128 + t];",
+        "      const float4 y = v < BK / 16 ? other[v * 128 + t] : make_float4(0.f, 0.f, 0.f, 0.f);",
+        "bfloat16", XL640),
     "flash_fwd_xl_chunk_shift": Fault("flash_fwd", "    const int gcol = 64 * b0 + col;",
                                     "    const int gcol = 64 * (b0 + (b0 > 0)) + col;",
                                     "bfloat16", XL640),
@@ -252,9 +255,8 @@ FAULTS = {
                                     "    const bool writes_lse = chunk == 1 && wg == 0;",
                                     "bfloat16", XL_RAGGED328),
     "flash_fwd_xl_pad": Fault("flash_fwd", XL_PAD,
-                              XL_PAD.replace("dh, kWideBQ, dh)", "dh, kWideBQ, 64 * p.nb)")
-                              .replace("FwdXlCfg::BK, dh)", "FwdXlCfg::BK, 64 * p.nb)"),
-                              "bfloat16", XL520),
+                              XL_PAD.replace("(cuuint64_t)dh,", "(cuuint64_t)((dh + 63) / 64 * 64),"),
+                              "bfloat16", XL520, file="flash_sm90.cuh"),
     "flash_fwd_f32_xl_tiles": Fault("flash_fwd", *(t.format("FwdXlCfg::BQ") for t in XL_TILES),
                                     "float32", XL640),
     "flash_fwd_f32_xl_s_drop": Fault(
@@ -310,7 +312,7 @@ cs.paged_check({shape}, torch.{dtype})
 def plant(name: str, root: Path) -> Path:
     """A copy of the port under ``root / name`` with fault ``name``."""
     fault = FAULTS[name]
-    src = REPO / "dmlc_tpu_torch" / "csrc" / f"{fault.source}.cu"
+    src = REPO / "dmlc_tpu_torch" / "csrc" / (fault.file or f"{fault.source}.cu")
     text = src.read_text()
     if text.count(fault.old) != 1:
         raise RuntimeError(f"{src.name}: the loop to break is not there once: {fault.old!r}")

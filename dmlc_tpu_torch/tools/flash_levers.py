@@ -18,7 +18,8 @@ the train shape's FLOPs with heads of 384, [8, 2, 2048, 384]);
 256, at the same shapes); ``xl_fwd`` (the forward past 512 in both
 dtypes, which takes the head dim at run time, timed at [4, 4, 1024, 640],
 [4, 4, 1024, 1024], the train shape's FLOPs as one head of 768,
-[8, 1, 2048, 768], and [4, 4, 1024, 576]); ``paged``
+[8, 1, 2048, 768], and [4, 4, 1024, 576], and beside the kernels built for
+320, 384 and 512 at ``wide_fwd``'s shapes); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -490,27 +491,28 @@ XLB_TWO_SLOTS = (XLB_ONE_SLOT, XLB_ONE_SLOT.replace("DH > 384", "false"))
 # The forward past 512 in both dtypes (group xl_fwd). ship: the
 # checkout's source (bf16: 64-row Q tiles, 32-key tiles, O in chunks of at
 # most 8 boxes, 4 a warpgroup, S over Dh's 64-column slabs split between
-# the warpgroups, each K slab through a ring of 4 a warpgroup, V in 2
-# stages, Q resident up to Dh 768; float32: 32-row tiles, two parts of at
-# most 6 steps of O, a 2-slot slab ring, Q resident up to 704); chunks: O
-# in narrower chunks (bf16 2 boxes a warpgroup, float32 4 steps a part: 640
-# in three chunks in bf16 and two in float32, more recomputed S); qstream:
-# Q streamed beside each K slab at every width; slots2: bf16 with 2 K slabs
-# in flight a warpgroup; vstage1: bf16 with one V stage; ring3: float32
-# with a 3-slot slab ring; wg3: bf16 with three consumer warpgroups of at
-# most 3 boxes each (160 registers a consumer thread under setmaxnreg) and
-# 2 K slabs in flight a warpgroup, so that 576 (9 boxes), which ship cuts
-# in two chunks, fits one block without recomputing S.
+# the two consumer warpgroups, each slab of K and Q through a ring of 4 a
+# warpgroup, V in 2 stages; float32: 32-row tiles, two parts of at most 6
+# steps of O, a 2-slot slab ring, Q resident up to 704); chunks: O in
+# narrower chunks (bf16 2 boxes a warpgroup, float32 4 steps a part: 640 in
+# three chunks in bf16 and two in float32, more recomputed S); qstream:
+# float32 with Q streamed beside each K slab at every width; slots2: bf16
+# with 2 slabs in flight a warpgroup; vstage1: bf16 with one V stage;
+# ring3: float32 with a 3-slot slab ring; xl_all: both dtypes' kernels
+# past 512 also at 320, 384 and 512, in place of the kernels built for
+# those head dims (ship runs those there).
 XL_MAX = "  static constexpr int BK = 32, kMaxBoxes = 4;  // keys a K/V tile; boxes of O a warpgroup holds\n"
 XL_F32_MAX = "  static constexpr int kMaxSteps = 6;         // 64-column steps of O a part holds\n"
 XL_W3 = ("    case 3: return launch_fwd_xl_w<3>(p, mq, mk, mv, out, lse, bh, s, dh, causal, scale,"
          " stream);\n")
-XL_QRES = "  static constexpr int kQResidentBoxes = 12;    // Q stays in shared memory up to Dh 768\n"
 XL_F32_QRES = "  static constexpr int kQResidentSteps = 11;  // Q stays in shared memory up to Dh 704\n"
-XL_SLOTS = "  static constexpr int kSlots = 4;              // K (and Q) slabs in flight a warpgroup\n"
+XL_SLOTS = "  static constexpr int kSlots = 4;              // K and Q slabs in flight a warpgroup\n"
 XL_VSTAGES = "  static constexpr int kVStages = 2;            // V tiles in flight\n"
 XL_F32_RING = "  static constexpr int kRing = 2;             // slab ring depth\n"
-XL_WGS = "  static constexpr int kConsumers = 2;          // consumer warpgroups a block\n"
+XL_FIRST_FIXED = "  if (is_bf16 && dh == 320)\n    return (int)sm90::launch_fwd_wide<320>("
+XL_ROUTE = ("  if (dh > 256 && dh % 8 == 0)\n"
+            "    return (int)(is_bf16 ? sm90::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st)\n"
+            "                         : f32::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st));\n")
 
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
@@ -611,21 +613,18 @@ GROUPS = {
     }, ("ship", "slots2", "vk", "rows64", "keys16", "dkv_roles", "dkv_split", "rows32",
         "ship"), checks=FWD_WIDE_CHECKS),
     "xl_fwd": Group(("bfloat16", "float32"), ("flash_fwd",),
-                    (XL640_SHAPE, XL1024_SHAPE, XL768_SHAPE, XL576_SHAPE), {
+                    (XL640_SHAPE, XL1024_SHAPE, XL768_SHAPE, XL576_SHAPE, WIDE320_SHAPE,
+                     WIDE512_SHAPE, WIDE384_SHAPE), {
         "ship": {},
         "chunks": {"flash_fwd": [(XL_MAX, XL_MAX.replace("kMaxBoxes = 4", "kMaxBoxes = 2")),
                                  (XL_W3, XL_W3.replace("3", "2") + XL_W3),
                                  (XL_F32_MAX, XL_F32_MAX.replace("6", "4"))]},
-        "qstream": {"flash_fwd": [(XL_QRES, XL_QRES.replace("= 12", "= 0")),
-                                  (XL_F32_QRES, XL_F32_QRES.replace("= 11", "= 0"))]},
+        "qstream": {"flash_fwd": [(XL_F32_QRES, XL_F32_QRES.replace("= 11", "= 0"))]},
         "slots2": {"flash_fwd": [(XL_SLOTS, XL_SLOTS.replace("= 4", "= 2"))]},
         "vstage1": {"flash_fwd": [(XL_VSTAGES, XL_VSTAGES.replace("= 2", "= 1"))]},
         "ring3": {"flash_fwd": [(XL_F32_RING, XL_F32_RING.replace("= 2", "= 3"))]},
-        "wg3": {"flash_fwd": [(XL_WGS, XL_WGS.replace("= 2", "= 3")),
-                              (XL_MAX, XL_MAX.replace("kMaxBoxes = 4", "kMaxBoxes = 3")),
-                              (XL_SLOTS, XL_SLOTS.replace("= 4", "= 2")),
-                              (XL_W3, XL_W3.replace("3", "2") + XL_W3)]},
-    }, ("ship", "chunks", "qstream", "slots2", "vstage1", "ring3", "wg3", "ship"),
+        "xl_all": {"flash_fwd": [(XL_FIRST_FIXED, XL_ROUTE + XL_FIRST_FIXED)]},
+    }, ("ship", "chunks", "qstream", "slots2", "vstage1", "ring3", "xl_all", "ship"),
         checks=XL_FWD_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",

@@ -524,7 +524,8 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_fwd_f32_xl_pad"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
-    kernel's source, and refuses unless that line occurs exactly once: a
+    kernel's source (or, for the bf16 ``_xl_pad``, of the shared header
+    flash_sm90.cuh), and refuses unless that line occurs exactly once: a
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
     its kernel is built for (192 and 256 too, in both dtypes, the
@@ -533,9 +534,10 @@ def test_fault_check_finds_its_loop_once(fault):
     (``_xl_``), at a head dim no kernel is built for."""
     tool = _tool()
     case = tool.FAULTS[fault]
-    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
+    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / (case.file or f"{case.source}.cu")).read_text()
     assert text.count(case.old) == 1
     assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
+    assert case.file in ("", "flash_sm90.cuh")
     dh = case.shape[3]
     assert case.dtype in ("bfloat16", "float32")
     assert flash._entry_name(case.source, dh, getattr(torch, case.dtype)) == case.source
@@ -658,16 +660,20 @@ def test_xl_bwd_f32_lever_tool_finds_its_lines_once(lever):
 
 
 @pytest.mark.parametrize("lever", ["ship", "chunks", "qstream", "slots2", "vstage1", "ring3",
-                                   "wg3"])
+                                   "xl_all"])
 def test_xl_fwd_lever_tool_finds_its_lines_once(lever):
     """The forward's variants past head dim 512 in both dtypes (group
     xl_fwd), timed at [4, 4, 1024, 640], [4, 4, 1024, 1024], [8, 1, 2048,
     768] and [4, 4, 1024, 576], head dims the kernels built for a head dim
-    do not take."""
+    do not take, and at ``wide_fwd``'s shapes, where ``xl_all`` runs them
+    in place of the kernels built for 320, 384 and 512."""
     _lever_sources_apply("xl_fwd", lever)
-    group = _tool("flash_levers").GROUPS["xl_fwd"]
+    tool = _tool("flash_levers")
+    group = tool.GROUPS["xl_fwd"]
     assert group.dtype == ("bfloat16", "float32")
-    assert all(s[3] > 512 and s[3] % 8 == 0 for s in group.shapes)
+    past = [s for s in group.shapes if s[3] > 512]
+    assert len(past) == 4 and all(s[3] % 8 == 0 for s in past)
+    assert set(group.shapes) - set(past) == set(tool.GROUPS["wide_fwd"].shapes)
 
 
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
@@ -778,7 +784,7 @@ def test_forward_past_512_takes_any_multiple_of_8_and_fits_a_block():
             "f32::XlPlan(dh).bytes());") in smem
     for line in ("  static constexpr int BK = 32, kMaxBoxes = 4;  //",
                  "  static constexpr int kSlots = 4;  ", "  static constexpr int kVStages = 2;  ",
-                 "  static constexpr int kQResidentBoxes = 12;  ",
+                 "  static constexpr uint32_t kSlot = kKeyBox + kRowBox;  //",
                  "  static constexpr int BQ = 32, BK = 32, RPT = 4;  //",
                  "  static constexpr int kMaxSteps = 6;  ", "  static constexpr int kRing = 2;  ",
                  "  static constexpr int kQResidentSteps = 11;  ",
@@ -793,11 +799,9 @@ def test_forward_past_512_takes_any_multiple_of_8_and_fits_a_block():
         nb = -(-dh // 64)
         chunks = -(-nb // 8)  # bf16: at most 4 boxes a warpgroup
         width = -(-(-(-nb // chunks)) // 2)
-        q_res = nb <= 12
-        slot = 32 * 128 + (0 if q_res else 64 * 128)
+        slot = 32 * 128 + 64 * 128  # a slab of K and the same of Q, at every width
         v = max(2 * 2 * width * 32 * 128, 2 * width * 64 * 128)
-        bf16 = ((nb * 64 * 128 if q_res else 0) + v + 2 * 4 * slot + 4 * 128 * 16 * 4
-                + (1 + 4 * 4 + 2 * 2) * 8 + 1024)
+        bf16 = v + 2 * 4 * slot + 4 * 128 * 16 * 4 + (4 * 4 + 2 * 2) * 8 + 1024
         assert width in built_bf16 and bf16 <= 232448, (dh, width, bf16)
         chunks = -(-nb // 12)  # float32: at most 6 steps a part
         widest = -(-nb // chunks)
