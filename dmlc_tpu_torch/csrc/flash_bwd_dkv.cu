@@ -7,9 +7,10 @@
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 (ops/flash.py
-// zero-pads a smaller head dim up to one; csrc/flash_wide.cu takes bf16
-// past 256 and float32 past 512); lse and
+// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 or, at run
+// time, any other multiple of 8 past 256 (ops/flash.py zero-pads a head
+// dim up to 512 to one of the fixed ones, and a wider one to a multiple
+// of 8; csrc/flash_wide.cu takes bf16 past 256); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -113,6 +114,38 @@
 // tools/flash_levers.py group xl_bwd_f32): the roles at 320 (9.5% slower)
 // and 384 (1.5%); the column split past 384 (2-7%); 16-key blocks with
 // 32-row tiles past 384 (20%); 16-key blocks at every head dim (34-56%).
+//
+// float32 past Dh 512, at any multiple of 8 past 256 (DkvXlCfg, DkvXlPlan,
+// dkv_xl_part, flash_bwd_dkv_xl_f32_kernel<W>): every float32 head past
+// 512 pads to a multiple of 8, and a direct call takes any other past 256.
+// The head dim is a run-time argument and shared memory does not grow
+// with it: dK and dV are cut into column chunks of at most 5 64-column
+// steps, one a block, in a power of two of chunks (640 in two, 768 and
+// 1024 in four), and the roles of Dh 192 split each chunk's outputs, part
+// 0 keeping dV and part 1 dK over all its steps (at most 80 floats a
+// thread). The blocks of one key tile's chunks form a thread-block
+// cluster, and S^T = K Q^T and dP^T = V dO^T are split over Dh's 64-column
+// slabs between its blocks and, within a block, between the two parts;
+// each part adds the other's partials behind its twin warp's named
+// barrier, and each block the cluster's block sums through distributed
+// shared memory in rank order (one cluster barrier a Q tile), so every
+// part of every chunk's block holds the same P^T and dS^T to the bit and
+// no chunk makes the scores again. A block's slabs of K and V stay
+// resident (up to 5, every head dim up to 2560), and the Q and dO slabs
+// stream through a 2-slot cp.async ring, both parts' in a slot: the
+// scores', then the chunk's for dV += P^T dO and dK += dS^T Q, two steps
+// a slot. 226-254 registers, no spill (the score loop is not unrolled:
+// unrolled by two it spilled 20 bytes at 5 steps). Bound at [4, 4, 1024,
+// 640]: operations, 0.641 ms at the float32 peak. On an H100 80GB HBM3 at
+// 700 W (PERF.md, section 6; tools/flash_levers.py group xl_bwd512): the
+// column split (each part dK and dV over half the chunk) ran 43% slower at
+// 640 and 28% at 768, 3% faster at 1024 (it spills); K and V streamed
+// 5-21% slower; chunks of 4 or 3 steps, which give 640 four chunks, 96-97%
+// slower there; 16-key blocks with chunks of 10 (640 in one) 25-88%;
+// 16-row tiles 30-35%; a 3-slot ring up to 8%. Clusters of three blocks ran about twice as slow
+// as two or four, hence the power of two of chunks. Before the clusters,
+// each chunk's block made the whole scores (1.5x the FLOPs at 640, 2x at
+// 1024).
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -744,6 +777,363 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
     return run(flash_bwd_dkv_f32_kernel<DH>);
 }
 
+// The float32 dK/dV at any other head dim past 256 (every multiple of 8
+// past 512 on the public route; flash_bwd_dkv_xl_f32_kernel). Blocks of 32
+// keys and Q/dO tiles of 32 rows; two parts of 128 threads, 8 key groups of
+// KPT keys each. dK and dV are cut into column chunks, one a block, of at
+// most kChunkSteps 64-column steps (a power of two of chunks); part 0
+// keeps dV and part 1 dK, each over the whole chunk. The blocks of one key tile's
+// chunks form clusters of DkvXlPlan::cluster blocks (all of them up to 8
+// chunks), and the cluster splits S^T = K Q^T and dP^T = V dO^T over Dh's
+// 64-column slabs: block r of R takes slabs [r nb / R, (r + 1) nb / R),
+// part 0 of it the first half of those and part 1 the rest. Each part adds
+// the other's partials, then each block the cluster's block sums, read
+// through distributed shared memory in rank order, so every part of every
+// chunk's block holds the same P^T and dS^T to the bit, and no chunk makes
+// another's share of the scores. The block's slabs of K and V stay in
+// shared memory (up to kKvResidentSteps of them; past that they stream
+// beside Q and dO). Q and dO pass through a cp.async ring of kRing slots,
+// both parts' in a slot: the scores' slabs, then the chunk's for dV += P^T
+// dO and dK += dS^T Q, one step a share of the slot.
+struct DkvXlCfg {
+  static constexpr int BK = 32, BQ = 32, KPT = BK / 8;  // keys a block, Q rows a tile, keys a group
+  static constexpr int G = 8, kPartThreads = 16 * G, kThreads = 2 * kPartThreads;
+  static constexpr int kChunkSteps = 5;  // 64-column steps of dK and dV a block
+  static constexpr int kRing = 2;        // slab ring depth
+  static constexpr int kKvResidentSteps = 5;  // K and V stay in shared memory up to this many slabs
+  static constexpr int LDS = 64 + 4;     // a slab's rows (floats), padded by 16 bytes
+  static constexpr int LDX = BQ + 4, NQT = BQ / 16;
+};
+
+// What a head dim gives the float32 dK/dV past 256: nb 64-column slabs of
+// Dh (the last one zero past it), the chunks and their clusters, the
+// widest chunk's steps, whether the blocks' slabs of K and V stay
+// resident, and the block's shared memory.
+struct DkvXlPlan {
+  int nb, chunks, width, cluster;
+  bool kv_res;
+  __host__ __device__ explicit DkvXlPlan(int dh)
+      : nb((dh + 63) / 64),
+        chunks(xl_chunks(nb, DkvXlCfg::kChunkSteps)),
+        width(xl_width(nb, DkvXlCfg::kChunkSteps, 1)),
+        cluster(xl_cluster(chunks)),
+        kv_res(most_slabs() <= DkvXlCfg::kKvResidentSteps) {}
+  // The least and the most steps a chunk of a head dim past 256 takes: the
+  // instantiations built.
+  static constexpr int kMinWidth = xl_width_bound(DkvXlCfg::kChunkSteps, 1, false);
+  static constexpr int kMaxWidth = xl_width_bound(DkvXlCfg::kChunkSteps, 1, true);
+  // The most slabs of the scores a block of a cluster takes.
+  __host__ __device__ int most_slabs() const { return (nb + cluster - 1) / cluster; }
+  __host__ __device__ int ldkv() const { return 64 * most_slabs() + 4; }
+  __host__ __device__ int kv_floats() const { return kv_res ? 2 * DkvXlCfg::BK * ldkv() : 0; }
+  // A part's share of a ring slot: its Q and dO slabs, and K's and V's
+  // unless resident (one step's Q and dO of the output products fit).
+  __host__ __device__ int share_floats() const {
+    return (2 * DkvXlCfg::BQ + (kv_res ? 0 : 2 * DkvXlCfg::BK)) * DkvXlCfg::LDS;
+  }
+  // K and V (resident), the ring, four [BK, LDX] score tiles, and in a
+  // cluster two more for each parity of the Q tile: the block's sums of
+  // S^T and dP^T.
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * ((size_t)kv_floats() + (size_t)DkvXlCfg::kRing * 2 * share_floats() +
+                            (cluster > 1 ? 8 : 4) * DkvXlCfg::BK * DkvXlCfg::LDX);
+  }
+};
+
+// One part of the float32 dK/dV past 256: the NC 64-column steps of the
+// chunk (its first column is 64 b0) of dV (part 0) or dK (part 1).
+template <int NC>
+__device__ __forceinline__ void dkv_xl_part(const DkvXlPlan& p, const float* __restrict__ q,
+                                            const float* __restrict__ k,
+                                            const float* __restrict__ v,
+                                            const float* __restrict__ dout,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ delta,
+                                            float* __restrict__ dk, float* __restrict__ dv,
+                                            float* KVs, float* ring, float* Xs, int bh, int S,
+                                            int dh, int k0, int causal, float scale, int part,
+                                            int rank, int b0) {
+  typedef DkvXlCfg C;
+  constexpr int BQ = C::BQ, BK = C::BK, KPT = C::KPT, G = C::G, LDS = C::LDS, LDX = C::LDX;
+  constexpr int NQT = C::NQT;
+  const size_t base = (size_t)bh * S * dh;
+  const int tp = threadIdx.x % C::kPartThreads, g = tp / 16, c = tp % 16;
+  const int pair = 1 + tp / 32;  // the barrier of this warp and its twin in the other part
+  // The block's slabs of S^T and dP^T, from s0 (part 0 the first nd0 of
+  // them, part 1 the rest): the same for the block of this rank in every
+  // cluster.
+  const int s0 = rank * p.nb / p.cluster, ns = (rank + 1) * p.nb / p.cluster - s0;
+  const int nd0 = (ns + 1) / 2;
+  const int n_out = (NC + 1) / 2;  // output ring steps a Q tile: one step a share
+  const int per_tile = nd0 + n_out, share = p.share_floats(), slot = 2 * share;
+  // Q tiles [t0, t_end): when causal, from the first that reaches these keys.
+  const int t0 = causal ? k0 / BQ : 0, t_end = (S + BQ - 1) / BQ;
+  const int n_loads = (t_end - t0) * per_tile;
+  const int ldkv = p.ldkv();
+  // Part p writes its partial S^T and dP^T to tiles p and 2 + p, reads the
+  // other's from 1 - p and 3 - p, and writes P^T and dS^T over them (read
+  // back only by the half-warp that wrote them).
+  float* Xmine = Xs + part * BK * LDX;
+  float* PT = Xs + (1 - part) * BK * LDX;
+  const float* dST = PT + 2 * BK * LDX;
+  float* sums = Xs + 4 * BK * LDX;  // the block's S^T and dP^T sums, two a Q tile parity
+
+  // Slabs [d, d + nd) (64 columns each) of rows [row0, row0 + rows) of
+  // src into a tile of row stride ld: zero past S and past Dh.
+  auto span = [&](float* sm, int ld, const float* src, int row0, int rows, int d, int nd) {
+    cp_span<C::kThreads>(sm, ld, src + base, dh, row0, rows, S, 64 * d, 64 * nd, dh);
+  };
+  auto slab = [&](float* sm, const float* src, int row0, int rows, int d) {
+    span(sm, LDS, src, row0, rows, d, 1);
+  };
+  // Load n, step r = n % per_tile of Q tile t0 + n / per_tile: for r < nd0
+  // slab r of part 0 and nd0 + r of part 1 (Q, dO, and K, V unless they are
+  // resident: a share of the slot holds them in that order), after that
+  // the chunk's Q and dO slabs of its next two steps, one a share.
+  auto load = [&](int n) {
+    const int r = n % per_tile, q0 = (t0 + n / per_tile) * BQ;
+    float* dst = ring + (n % C::kRing) * slot;
+#pragma unroll
+    for (int h = 0; h < 2; ++h, dst += share) {
+      if (r < nd0) {
+        const int d = h * nd0 + r;
+        if (d < ns) {
+          slab(dst, q, q0, BQ, s0 + d);
+          slab(dst + BQ * LDS, dout, q0, BQ, s0 + d);
+          if (!p.kv_res) {
+            slab(dst + 2 * BQ * LDS, k, k0, BK, s0 + d);
+            slab(dst + (2 * BQ + BK) * LDS, v, k0, BK, s0 + d);
+          }
+        }
+      } else {
+        const int st = 2 * (r - nd0) + h;
+        if (st < NC) {
+          slab(dst, q, q0, BQ, b0 + st);
+          slab(dst + BQ * LDS, dout, q0, BQ, b0 + st);
+        }
+      }
+    }
+  };
+  // Ring step n: load n + kRing - 1 starts and load n is waited for.
+  auto step_in = [&](int n) {
+    if (n + C::kRing - 1 < n_loads) load(n + C::kRing - 1);
+    cp_async_commit();
+    cp_async_wait<C::kRing - 1>();
+    __syncthreads();  // load n (and K, V with the first) in shared memory for every thread
+  };
+  if (p.kv_res) {
+    span(KVs, ldkv, k, k0, BK, s0, ns);
+    span(KVs + BK * ldkv, ldkv, v, k0, BK, s0, ns);
+  }
+#pragma unroll
+  for (int n = 0; n < C::kRing - 1; ++n) {
+    if (n < n_loads) load(n);
+    cp_async_commit();
+  }
+
+  // dV (part 0) or dK (part 1) of keys g + G i over the chunk's steps.
+  float acc[NC][KPT][4];
+#pragma unroll
+  for (int h = 0; h < NC; ++h)
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][i][e] = 0.f;
+  // The output product's A operand (P^T or dS^T) and B (dO or Q) in a share.
+  const float* oa = part == 0 ? PT : dST;
+  const int ob = part == 0 ? BQ * LDS : 0;
+
+  int ld = 0;  // loads consumed
+  for (int t = t0; t < t_end; ++t) {
+    const int q0 = t * BQ;
+    float lse_q[NQT], dlt_q[NQT];
+#pragma unroll
+    for (int u = 0; u < NQT; ++u) {
+      const int qi = q0 + c + 16 * u;
+      lse_q[u] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+      dlt_q[u] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+    }
+    // Partial S^T = K Q^T and dP^T = V dO^T for keys g + G i and queries
+    // c + 16 u, over this part's slabs.
+    float st[KPT][NQT], dpt[KPT][NQT];
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) st[i][u] = dpt[i][u] = 0.f;
+    for (int i = 0; i < nd0; ++i, ++ld) {
+      step_in(ld);
+      const int d = part * nd0 + i;
+      if (d < ns) {
+        const float* sl = ring + (ld % C::kRing) * slot + part * share;
+        const float* ka = p.kv_res ? KVs + 64 * d : sl + 2 * BQ * LDS;
+        const float* va = p.kv_res ? KVs + BK * ldkv + 64 * d : sl + (2 * BQ + BK) * LDS;
+        const int lda = p.kv_res ? ldkv : LDS;
+#pragma unroll 1
+        for (int kk = 0; kk < 64; kk += 4) {
+          dot4_lda<KPT, NQT, G, LDS>(st, ka + kk, lda, sl + kk, g, c);
+          dot4_lda<KPT, NQT, G, LDS>(dpt, va + kk, lda, sl + BQ * LDS + kk, g, c);
+        }
+      }
+      __syncthreads();  // every reader of this slot is done before a later load lands in it
+    }
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) {
+        Xmine[(g + G * i) * LDX + c + 16 * u] = st[i][u];
+        Xmine[(2 * BK + g + G * i) * LDX + c + 16 * u] = dpt[i][u];
+      }
+    pair_sync(pair);  // warp w of each part holds the same keys
+    // The block's sums (the same in both parts).
+#pragma unroll
+    for (int i = 0; i < KPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) {
+        st[i][u] += PT[(g + G * i) * LDX + c + 16 * u];
+        dpt[i][u] += PT[(2 * BK + g + G * i) * LDX + c + 16 * u];
+      }
+    if (p.cluster > 1) {
+      // S^T and dP^T are the cluster's block sums added in rank order: the
+      // same in every block. A tile parity's sums are overwritten only after
+      // the next Q tile's cluster barrier, by which every block has read them.
+      float* mine = sums + (t & 1) * 2 * BK * LDX;
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NQT; ++u) {
+          const int at = (part * BK + g + G * i) * LDX + c + 16 * u;
+          mine[at] = part == 0 ? st[i][u] : dpt[i][u];
+        }
+      cluster_sync();
+#pragma unroll
+      for (int i = 0; i < KPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NQT; ++u) {
+          const int at = (g + G * i) * LDX + c + 16 * u;
+          float s_sum = peer_ld(mine + at, 0), dp_sum = peer_ld(mine + BK * LDX + at, 0);
+          for (int b = 1; b < p.cluster; ++b) {
+            s_sum += peer_ld(mine + at, b);
+            dp_sum += peer_ld(mine + BK * LDX + at, b);
+          }
+          st[i][u] = s_sum;
+          dpt[i][u] = dp_sum;
+        }
+    }
+
+    // P^T = exp(scale S^T - lse) (0 where masked) and dS^T = P^T (dP^T -
+    // delta), over the other's tiles.
+    const bool edge = q0 + BQ > S || k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < KPT; ++i) {
+      const int kr = g + G * i, key = k0 + kr;
+#pragma unroll
+      for (int u = 0; u < NQT; ++u) {
+        const int qc = c + 16 * u, qi = q0 + qc;
+        float pr = expf(st[i][u] * scale - lse_q[u]);
+        if (edge && (qi >= S || key >= S || (causal && key > qi))) pr = 0.f;
+        PT[kr * LDX + qc] = pr;
+        PT[(2 * BK + kr) * LDX + qc] = pr * (dpt[i][u] - dlt_q[u]);
+      }
+    }
+    __syncwarp();  // a half-warp reads back only the P^T and dS^T rows it wrote
+
+    // dV += P^T dO (part 0) and dK += dS^T Q (part 1) over the chunk's
+    // steps, two a ring step (step 2 i + y in share y): P^T and dS^T rows
+    // along the queries as float4, the step's dO or Q slab one query at a
+    // time at columns 4 c.
+#pragma unroll
+    for (int i = 0; i < (NC + 1) / 2; ++i) {
+      step_in(ld);
+      const float* sl = ring + (ld % C::kRing) * slot + ob;
+#pragma unroll
+      for (int y = 0; y < 2; ++y)
+        if (2 * i + y < NC) {
+#pragma unroll 2
+          for (int qq = 0; qq < BQ; qq += 4)
+            pv4_step<KPT, G, LDX, LDS>(acc[2 * i + y], oa + qq, sl + y * share + qq * LDS, g, c);
+        }
+      __syncthreads();  // every reader of this slot (and, at the last, of P^T, dS^T) is done
+      ++ld;
+    }
+  }
+  cp_async_wait<0>();  // no copy left in flight when the block exits
+  if (p.cluster > 1) cluster_sync();  // no block exits while another may read its sums
+
+  float* out = part == 0 ? dv : dk;
+  const float f = part == 0 ? 1.f : scale;
+#pragma unroll
+  for (int i = 0; i < KPT; ++i) {
+    const int key = k0 + g + G * i;
+    if (key < S) {
+#pragma unroll
+      for (int h = 0; h < NC; ++h) {
+        const int col = 64 * (b0 + h) + 4 * c;
+        const float* a = acc[h][i];
+        if (col < dh)
+          *reinterpret_cast<float4*>(out + base + (size_t)key * dh + col) =
+              make_float4(a[0] * f, a[1] * f, a[2] * f, a[3] * f);
+      }
+    }
+  }
+}
+
+// W: the steps of the widest chunk of a launch; a chunk has W or W - 1.
+template <int W>
+__global__ void __launch_bounds__(DkvXlCfg::kThreads, 1)
+    flash_bwd_dkv_xl_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                                const float* __restrict__ v, const float* __restrict__ dout,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                float* __restrict__ dk, float* __restrict__ dv, int BH, int S,
+                                int dh, int causal, float scale) {
+  typedef DkvXlCfg C;
+  const DkvXlPlan p(dh);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* KVs = reinterpret_cast<float*>(smem);  // K, then V (resident)
+  float* ring = KVs + p.kv_floats();
+  float* Xs = ring + C::kRing * 2 * p.share_floats();
+
+  // Block order: chunks of one key block together, key block 0 of every
+  // head first (the most Q tiles when causal).
+  const int chunk = blockIdx.x % p.chunks, rest = blockIdx.x / p.chunks;
+  const int bh = rest % BH;
+  const int k0 = rest / BH * C::BK;
+  const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  const int part = threadIdx.x / C::kPartThreads;
+  const int rank = chunk % p.cluster;  // the block's rank in its cluster
+  if (nbc == W)
+    dkv_xl_part<W>(p, q, k, v, dout, lse, delta, dk, dv, KVs, ring, Xs, bh, S, dh, k0, causal,
+                   scale, part, rank, b0);
+  else
+    dkv_xl_part<W - 1>(p, q, k, v, dout, lse, delta, dk, dv, KVs, ring, Xs, bh, S, dh, k0, causal,
+                       scale, part, rank, b0);
+}
+
+template <int W>
+cudaError_t launch_dkv_xl_w(const DkvXlPlan& p, const void* q, const void* k, const void* v,
+                            const void* dout, const void* lse, const void* delta, void* dk,
+                            void* dv, int bh, int s, int dh, int causal, float scale,
+                            cudaStream_t stream) {
+  const size_t bytes = p.bytes();
+  cudaError_t e = allow_smem(flash_bwd_dkv_xl_f32_kernel<W>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((s + DkvXlCfg::BK - 1) / DkvXlCfg::BK) * bh * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  e = launch_clustered(flash_bwd_dkv_xl_f32_kernel<W>, (unsigned)blocks, DkvXlCfg::kThreads,
+                       bytes, p.cluster, stream, q, k, v, dout, lse, delta, dk, dv, bh, s, dh,
+                       causal, scale);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+cudaError_t launch_dkv_xl(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                          int dh, int causal, float scale, cudaStream_t stream) {
+  const DkvXlPlan p(dh);
+  return by_width<DkvXlPlan::kMinWidth, DkvXlPlan::kMaxWidth>(p.width, [&](auto w) {
+    return launch_dkv_xl_w<decltype(w)::value>(p, q, k, v, dout, lse, delta, dk, dv, bh, s, dh,
+                                               causal, scale, stream);
+  });
+}
+
 }  // namespace f32
 
 namespace sm90 {
@@ -1054,8 +1444,9 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
 // lse, delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes,
-// and 320, 384, 448 or 512 in float32. Launches on `stream` and returns
-// the launch's CUDA error code.
+// and in float32 320, 384, 448 or 512 (the kernels built for them) or any
+// other multiple of 8 past 256 (the kernel that takes the head dim at run
+// time). Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int s, int dh, int causal, float scale, int is_bf16,
@@ -1087,6 +1478,8 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
     return (int)f32::launch_dkv<448>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 512)
     return (int)f32::launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (!is_bf16 && dh > 256 && dh % 8 == 0)
+    return (int)f32::launch_dkv_xl(q, k, v, dout, lse, delta, dk, dv, bh, s, dh, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1104,5 +1497,16 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
   if (dh == 384 && !is_bf16) return (int)f32::DkvCfg<384>::bytes;
   if (dh == 448 && !is_bf16) return (int)f32::DkvCfg<448>::bytes;
   if (dh == 512 && !is_bf16) return (int)f32::DkvCfg<512>::bytes;
+  if (!is_bf16 && dh > 256 && dh % 8 == 0) return (int)f32::DkvXlPlan(dh).bytes();
   return 0;
+}
+
+// The instantiation (its template argument W, the widest part's 64-column
+// steps) that the float32 kernel past 256 runs head dim dh with; 0 where a
+// kernel built for dh runs it, or none (bf16 past 256 runs
+// csrc/flash_wide.cu).
+extern "C" int dmlc_flash_bwd_dkv_xl_width(int dh, int is_bf16) {
+  using namespace flash;
+  if (is_bf16 || dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
+  return f32::DkvXlPlan(dh).width;
 }

@@ -6,9 +6,10 @@
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 (ops/flash.py
-// zero-pads a smaller head dim up to one; csrc/flash_wide.cu takes bf16
-// past 256 and float32 past 512); lse and
+// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 or, at run
+// time, any other multiple of 8 past 256 (ops/flash.py zero-pads a head
+// dim up to 512 to one of the fixed ones, and a wider one to a multiple
+// of 8; csrc/flash_wide.cu takes bf16 past 256); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -120,6 +121,36 @@
 // with 16-key tiles in two slots it ran 24% slower); 16-key tiles (28-31%
 // slower); 64-row Q tiles with 16-key tiles at 320 (8-11%); one slot at
 // 320 and 384 too (4-5%).
+//
+// float32 past Dh 512, at any multiple of 8 past 256 (DqXlCfg, DqXlPlan,
+// dq_xl_part, flash_bwd_dq_xl_f32_kernel<W>): every float32 head past 512
+// pads to a multiple of 8, and a direct call takes any other past 256.
+// The kernels above keep whole-Dh tiles, and a padded 32-row float32 tile
+// of 640 columns already takes 82 KB; so here the head dim is a run-time
+// argument and shared memory does not grow with it. dQ is cut into column
+// chunks of at most 10 64-column steps, one a block, in a power of two of
+// chunks (640 in one, 768 and 1024 in two); part 0 owns the larger half of
+// a chunk's steps, at most 80 floats a thread. The blocks of one Q tile's
+// chunks form a thread-block cluster, and S = Q K^T and dP = dO V^T are
+// split over Dh's 64-column slabs between its blocks and, within a block,
+// between the two parts. Each part adds the other's partials behind its
+// twin warp's named barrier, and each block the cluster's block sums
+// through distributed shared memory in rank order (one cluster barrier a
+// K/V tile, the sums double-buffered by its parity): a + b == b + a, so
+// every part of every chunk's block holds the same S, dP and dS to the
+// bit, and no chunk makes the scores again. K, V and dO stream in
+// 64-column slabs through a 2-slot cp.async ring, both parts' in a slot;
+// the block's slabs of Q stay resident (up to 11, every head dim the
+// public functions take up to 1408) and stream beside K past that; after
+// dS, the chunk's K slabs pass through the same ring, two steps of each
+// part a slot. 228-254 registers, no spill. Bound at [4, 4, 1024, 640]:
+// operations, 0.481 ms at the float32 peak. On an H100 80GB HBM3 at 700 W
+// (PERF.md, section 6; tools/flash_levers.py group xl_bwd512): Q streamed
+// ran 5-8% slower; chunks of 8 or 6 steps, which put 640 in two blocks,
+// 66% slower there; 16-row tiles 43-50%; a 3-slot ring 6-18% slower
+// (before the clusters; with them it no longer fits); chunks of 12 steps
+// spill at 6 a part. Before the clusters, each chunk's block made the
+// whole scores, and 1024 ran 1.45x the time.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -488,6 +519,352 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
     return run(flash_bwd_dq_f32_kernel<DH>);
 }
 
+// The float32 dQ at any other head dim past 256 (every multiple of 8 past
+// 512 on the public route; flash_bwd_dq_xl_f32_kernel). Tiles of 32 query
+// rows and 32 keys; two parts of 128 threads, 8 row groups of RPT rows
+// each. dQ is cut into column chunks, one a block, of at most 2 kMaxSteps
+// 64-column steps; part 0 owns the larger half of a chunk's steps, part 1
+// the rest. The blocks of one Q tile's chunks form clusters of
+// DqXlPlan::cluster blocks (all of them up to 8 chunks), and the cluster
+// splits S = Q K^T and dP = dO V^T over Dh's 64-column slabs: block r of R
+// takes slabs [r nb / R, (r + 1) nb / R), part 0 of it the first half of
+// those and part 1 the rest. Each part adds the other's partials, then
+// each block the cluster's block sums, read through distributed shared
+// memory in rank order, so every part of every chunk's block holds the
+// same S, dP and dS to the bit. The slabs pass through a cp.async ring of
+// kRing slots, both parts' in a slot: K, V and dO (and Q, unless the
+// block's slabs of it stay resident) for the scores, then the chunk's K for
+// dQ += dS K, two steps of each part a slot.
+struct DqXlCfg {
+  static constexpr int BK = 32, BQ = 32, RPT = BQ / 8;  // keys, query rows, rows a row group
+  static constexpr int G = 8, kPartThreads = 16 * G, kThreads = 2 * kPartThreads;
+  static constexpr int kMaxSteps = 5;        // 64-column steps of dQ a part holds
+  static constexpr int kRing = 2;            // slab ring depth
+  static constexpr int kQResidentSteps = 11;  // Q stays in shared memory up to this many slabs
+  static constexpr int LDS = 64 + 4;         // a slab's rows (floats), padded by 16 bytes
+  static constexpr int LDX = BK + 4, NKT = BK / 16;
+};
+
+// What a head dim gives the float32 dQ past 256: nb 64-column slabs of Dh
+// (the last one zero past it), the chunks of dQ, the steps of the widest
+// part, whether Q stays resident, and the block's shared memory.
+struct DqXlPlan {
+  int nb, chunks, width, cluster;
+  bool q_res;
+  __host__ __device__ explicit DqXlPlan(int dh)
+      : nb((dh + 63) / 64),
+        chunks(xl_chunks(nb, 2 * DqXlCfg::kMaxSteps)),
+        width(xl_width(nb, 2 * DqXlCfg::kMaxSteps, 2)),
+        cluster(xl_cluster(chunks)),
+        q_res(most_slabs() <= DqXlCfg::kQResidentSteps) {}
+  // The most slabs of the scores a block of a cluster takes.
+  __host__ __device__ int most_slabs() const { return (nb + cluster - 1) / cluster; }
+  // The least and the most steps the widest part of a head dim past 256
+  // holds: the instantiations built.
+  static constexpr int kMinWidth = xl_width_bound(2 * DqXlCfg::kMaxSteps, 2, false);
+  static constexpr int kMaxWidth = xl_width_bound(2 * DqXlCfg::kMaxSteps, 2, true);
+  __host__ __device__ int ldq() const { return 64 * most_slabs() + 4; }
+  __host__ __device__ int q_floats() const { return q_res ? DqXlCfg::BQ * ldq() : 0; }
+  // A part's share of a ring slot: its K, V and dO slabs, and Q's unless resident.
+  __host__ __device__ int share_floats() const {
+    return (2 * DqXlCfg::BK + (q_res ? 1 : 2) * DqXlCfg::BQ) * DqXlCfg::LDS;
+  }
+  // Q (resident), the ring, four [BQ, LDX] score tiles, and in a cluster
+  // two more for each parity of the K/V tile: the block's sums of S and dP.
+  __host__ __device__ size_t bytes() const {
+    return sizeof(float) * ((size_t)q_floats() + (size_t)DqXlCfg::kRing * 2 * share_floats() +
+                            (cluster > 1 ? 8 : 4) * DqXlCfg::BQ * DqXlCfg::LDX);
+  }
+};
+
+// K/V tiles that the Q tile at q0 reads: up to its diagonal when causal.
+__device__ __forceinline__ int dq_xl_tiles(int q0, int S, int causal) {
+  const int end = causal ? min(q0 + DqXlCfg::BQ, S) : S;  // one past the last key read
+  return (end + DqXlCfg::BK - 1) / DqXlCfg::BK;
+}
+
+// One part of the float32 dQ past 256: NC 64-column steps of dQ from the
+// chunk's step c0 (the chunk's first column is 64 b0).
+template <int NC>
+__device__ __forceinline__ void dq_xl_part(const DqXlPlan& p, const float* __restrict__ q,
+                                           const float* __restrict__ k,
+                                           const float* __restrict__ v,
+                                           const float* __restrict__ dout,
+                                           const float* __restrict__ lse,
+                                           const float* __restrict__ delta,
+                                           float* __restrict__ dq, float* Qs, float* ring,
+                                           float* Xs, int bh, int S, int dh, int q0, int causal,
+                                           float scale, int part, int rank, int b0, int nbc,
+                                           int c0) {
+  typedef DqXlCfg C;
+  constexpr int BQ = C::BQ, BK = C::BK, RPT = C::RPT, G = C::G, LDS = C::LDS, LDX = C::LDX;
+  constexpr int NKT = C::NKT;
+  const size_t base = (size_t)bh * S * dh;
+  const int tp = threadIdx.x % C::kPartThreads, g = tp / 16, c = tp % 16;
+  const int pair = 1 + tp / 32;  // the barrier of this warp and its twin in the other part
+  // The block's slabs of S and dP, from s0 (part 0 the first nd0 of them,
+  // part 1 the rest): the same for the block of this rank in every cluster.
+  const int s0 = rank * p.nb / p.cluster, ns = (rank + 1) * p.nb / p.cluster - s0;
+  const int nd0 = (ns + 1) / 2;
+  const int n0 = (nbc + 1) / 2;    // part 0's steps of the chunk; part 1 the rest
+  const int n_out = (n0 + 1) / 2;  // ring steps of dQ += dS K a tile
+  const int per_tile = nd0 + n_out, share = p.share_floats(), slot = 2 * share;
+  const int n_k = dq_xl_tiles(q0, S, causal), n_loads = n_k * per_tile;
+  // Part p writes its partial S and dP to tiles p and 2 + p, reads the
+  // other's from 1 - p and 3 - p, and writes dS over the other's partial S
+  // (read back only by the half-warp that wrote it).
+  float* Xmine = Xs + part * BQ * LDX;
+  float* Xother = Xs + (1 - part) * BQ * LDX;
+  float* dSs = Xother;
+  float* sums = Xs + 4 * BQ * LDX;  // the block's S and dP sums, two a K/V tile parity
+
+  // Slabs [d, d + nd) (64 columns each) of rows [row0, row0 + rows) of
+  // src into a tile of row stride ld: zero past S and past Dh.
+  auto span = [&](float* sm, int ld, const float* src, int row0, int rows, int d, int nd) {
+    cp_span<C::kThreads>(sm, ld, src + base, dh, row0, rows, S, 64 * d, 64 * nd, dh);
+  };
+  auto slab = [&](float* sm, const float* src, int row0, int rows, int d) {
+    span(sm, LDS, src, row0, rows, d, 1);
+  };
+  // Load n, step r = n % per_tile of K/V tile j = n / per_tile: for r <
+  // nd0 slab r of part 0 and nd0 + r of part 1 (K, V, dO, and Q unless it
+  // is resident: a part's share of the slot holds them in that order),
+  // after that the chunk's K slabs of each part's dQ steps 2 (r - nd0) and
+  // the next.
+  auto load = [&](int n) {
+    const int j = n / per_tile, r = n % per_tile;
+    float* dst = ring + (n % C::kRing) * slot;
+#pragma unroll
+    for (int h = 0; h < 2; ++h, dst += share) {
+      if (r < nd0) {
+        const int d = h * nd0 + r;
+        if (d < ns) {
+          slab(dst, k, j * BK, BK, s0 + d);
+          slab(dst + BK * LDS, v, j * BK, BK, s0 + d);
+          slab(dst + 2 * BK * LDS, dout, q0, BQ, s0 + d);
+          if (!p.q_res) slab(dst + (2 * BK + BQ) * LDS, q, q0, BQ, s0 + d);
+        }
+      } else {
+#pragma unroll
+        for (int x = 0; x < 2; ++x) {
+          const int st = 2 * (r - nd0) + x;  // the part's step
+          if (st < (h == 0 ? n0 : nbc - n0))
+            slab(dst + x * BK * LDS, k, j * BK, BK, b0 + h * n0 + st);
+        }
+      }
+    }
+  };
+  // Ring step n: load n + kRing - 1 starts and load n is waited for.
+  auto step_in = [&](int n) {
+    if (n + C::kRing - 1 < n_loads) load(n + C::kRing - 1);
+    cp_async_commit();
+    cp_async_wait<C::kRing - 1>();
+    __syncthreads();  // load n (and Q with the first) in shared memory for every thread
+  };
+  if (p.q_res) span(Qs, p.ldq(), q, q0, BQ, s0, ns);
+#pragma unroll
+  for (int n = 0; n < C::kRing - 1; ++n) {
+    if (n < n_loads) load(n);
+    cp_async_commit();
+  }
+
+  // The thread's rows' lse and delta, and its steps of dQ.
+  float lse_r[RPT], dlt[RPT], acc[NC][RPT][4];
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + g + G * i;
+    lse_r[i] = qi < S ? lse[(size_t)bh * S + qi] : 0.f;
+    dlt[i] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+#pragma unroll
+    for (int h = 0; h < NC; ++h)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[h][i][e] = 0.f;
+  }
+
+  int ld = 0;  // loads consumed
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * BK;
+    // Partial S = Q K^T and dP = dO V^T for rows g + G i and keys c + 16 u,
+    // over this part's slabs.
+    float s[RPT][NKT], dp[RPT][NKT];
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) s[i][u] = dp[i][u] = 0.f;
+    for (int i = 0; i < nd0; ++i, ++ld) {
+      step_in(ld);
+      const int d = part * nd0 + i;
+      if (d < ns) {
+        const float* sl = ring + (ld % C::kRing) * slot + part * share;
+        const float* qa = p.q_res ? Qs + 64 * d : sl + (2 * BK + BQ) * LDS;
+        const int lda = p.q_res ? p.ldq() : LDS;
+#pragma unroll 2
+        for (int kk = 0; kk < 64; kk += 4) {
+          dot4_lda<RPT, NKT, G, LDS>(s, qa + kk, lda, sl + kk, g, c);
+          dot4<RPT, NKT, G, LDS>(dp, sl + 2 * BK * LDS + kk, sl + BK * LDS + kk, g, c);
+        }
+      }
+      __syncthreads();  // every reader of this slot is done before a later load lands in it
+    }
+    // S and dP are the two parts' partial sums added (the same in both,
+    // and in every chunk's block).
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) {
+        Xmine[(g + G * i) * LDX + c + 16 * u] = s[i][u];
+        Xmine[(2 * BQ + g + G * i) * LDX + c + 16 * u] = dp[i][u];
+      }
+    pair_sync(pair);  // warp w of each part holds the same rows
+#pragma unroll
+    for (int i = 0; i < RPT; ++i)
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) {
+        s[i][u] += Xother[(g + G * i) * LDX + c + 16 * u];
+        dp[i][u] += Xother[(2 * BQ + g + G * i) * LDX + c + 16 * u];
+      }
+    if (p.cluster > 1) {
+      // S and dP are the cluster's block sums added in rank order: the same
+      // in every block. A tile parity's sums are overwritten only after the
+      // next K/V tile's cluster barrier, by which every block has read them.
+      float* mine = sums + (j & 1) * 2 * BQ * LDX;
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NKT; ++u)
+          mine[(part * BQ + g + G * i) * LDX + c + 16 * u] = part == 0 ? s[i][u] : dp[i][u];
+      cluster_sync();
+#pragma unroll
+      for (int i = 0; i < RPT; ++i)
+#pragma unroll
+        for (int u = 0; u < NKT; ++u) {
+          const int at = (g + G * i) * LDX + c + 16 * u;
+          float s_sum = peer_ld(mine + at, 0), dp_sum = peer_ld(mine + BQ * LDX + at, 0);
+          for (int b = 1; b < p.cluster; ++b) {
+            s_sum += peer_ld(mine + at, b);
+            dp_sum += peer_ld(mine + BQ * LDX + at, b);
+          }
+          s[i][u] = s_sum;
+          dp[i][u] = dp_sum;
+        }
+    }
+
+    // p = exp(S scale - lse), 0 where masked, which only the tiles crossing
+    // the diagonal or the end of S need; dS = p (dP - delta) to shared.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < RPT; ++i) {
+      const int row = g + G * i, qi = q0 + row;
+#pragma unroll
+      for (int u = 0; u < NKT; ++u) {
+        float pr = expf(s[i][u] * scale - lse_r[i]);
+        if (edge) {
+          const int kj = k0 + c + 16 * u;
+          if (kj >= S || (causal && kj > qi)) pr = 0.f;
+        }
+        dSs[row * LDX + c + 16 * u] = pr * (dp[i][u] - dlt[i]);
+      }
+    }
+    __syncwarp();  // a half-warp reads back the dS rows its own half-warp wrote
+
+    // dQ += dS K over the part's steps, two a ring step: dS rows along the
+    // keys as float4, the step's K slab one key at a time at columns 4 c.
+    // Part 1 may hold one step fewer than part 0.
+#pragma unroll
+    for (int i = 0; i < (NC + 2) / 2; ++i) {
+      if (i < n_out) {
+        step_in(ld);
+        const float* kb = ring + (ld % C::kRing) * slot + part * share;
+#pragma unroll
+        for (int x = 0; x < 2; ++x)
+          if (2 * i + x < NC) {
+#pragma unroll 2
+            for (int jj = 0; jj < BK; jj += 4)
+              pv4_step<RPT, G, LDX, LDS>(acc[2 * i + x], dSs + jj, kb + (x * BK + jj) * LDS, g, c);
+          }
+        __syncthreads();  // every reader of this slot (and, at the last, of dS) is done
+        ++ld;
+      }
+    }
+  }
+  cp_async_wait<0>();  // no copy left in flight when the block exits
+  if (p.cluster > 1) cluster_sync();  // no block exits while another may read its sums
+
+#pragma unroll
+  for (int i = 0; i < RPT; ++i) {
+    const int qi = q0 + g + G * i;
+    if (qi < S) {
+#pragma unroll
+      for (int h = 0; h < NC; ++h) {
+        const int col = 64 * (b0 + c0 + h) + 4 * c;
+        const float* a = acc[h][i];
+        if (col < dh)
+          *reinterpret_cast<float4*>(dq + base + (size_t)qi * dh + col) =
+              make_float4(a[0] * scale, a[1] * scale, a[2] * scale, a[3] * scale);
+      }
+    }
+  }
+}
+
+// W: the steps of dQ the widest part of a launch holds; a part holds W or
+// W - 1.
+template <int W>
+__global__ void __launch_bounds__(DqXlCfg::kThreads, 1)
+    flash_bwd_dq_xl_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                               const float* __restrict__ v, const float* __restrict__ dout,
+                               const float* __restrict__ lse, const float* __restrict__ delta,
+                               float* __restrict__ dq, int BH, int S, int dh, int causal,
+                               float scale) {
+  typedef DqXlCfg C;
+  const DqXlPlan p(dh);
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* Qs = reinterpret_cast<float*>(smem);
+  float* ring = Qs + p.q_floats();
+  float* Xs = ring + C::kRing * 2 * p.share_floats();
+
+  // Block order: chunks of one Q tile together, the last (longest, when
+  // causal) Q tile of every head first.
+  const int n_tiles = (S + C::BQ - 1) / C::BQ;
+  const int chunk = blockIdx.x % p.chunks, rest = blockIdx.x / p.chunks;
+  const int bh = rest % BH;
+  const int q0 = (n_tiles - 1 - rest / BH) * C::BQ;
+  const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  const int n0 = (nbc + 1) / 2;  // part 0's steps of the chunk; part 1 the rest
+  const int part = threadIdx.x / C::kPartThreads;
+  const int steps = part == 0 ? n0 : nbc - n0, c0 = part == 0 ? 0 : n0;
+  const int rank = chunk % p.cluster;  // the block's rank in its cluster
+  if (steps == W)
+    dq_xl_part<W>(p, q, k, v, dout, lse, delta, dq, Qs, ring, Xs, bh, S, dh, q0, causal, scale,
+                  part, rank, b0, nbc, c0);
+  else
+    dq_xl_part<W - 1>(p, q, k, v, dout, lse, delta, dq, Qs, ring, Xs, bh, S, dh, q0, causal,
+                      scale, part, rank, b0, nbc, c0);
+}
+
+template <int W>
+cudaError_t launch_dq_xl_w(const DqXlPlan& p, const void* q, const void* k, const void* v,
+                           const void* dout, const void* lse, const void* delta, void* dq, int bh,
+                           int s, int dh, int causal, float scale, cudaStream_t stream) {
+  const size_t bytes = p.bytes();
+  cudaError_t e = allow_smem(flash_bwd_dq_xl_f32_kernel<W>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((s + DqXlCfg::BQ - 1) / DqXlCfg::BQ) * bh * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  e = launch_clustered(flash_bwd_dq_xl_f32_kernel<W>, (unsigned)blocks, DqXlCfg::kThreads, bytes,
+                       p.cluster, stream, q, k, v, dout, lse, delta, dq, bh, s, dh, causal, scale);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+cudaError_t launch_dq_xl(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, int bh, int s, int dh,
+                         int causal, float scale, cudaStream_t stream) {
+  const DqXlPlan p(dh);
+  return by_width<DqXlPlan::kMinWidth, DqXlPlan::kMaxWidth>(p.width, [&](auto w) {
+    return launch_dq_xl_w<decltype(w)::value>(p, q, k, v, dout, lse, delta, dq, bh, s, dh, causal,
+                                              scale, stream);
+  });
+}
+
 }  // namespace f32
 
 namespace sm90 {
@@ -717,8 +1094,9 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
-// delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes, and
-// 320, 384, 448 or 512 in float32.
+// delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes, and in
+// float32 320, 384, 448 or 512 (the kernels built for them) or any other
+// multiple of 8 past 256 (the kernel that takes the head dim at run time).
 // Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int s,
@@ -750,6 +1128,8 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
     return (int)f32::launch_dq<448>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 512)
     return (int)f32::launch_dq<512>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (!is_bf16 && dh > 256 && dh % 8 == 0)
+    return (int)f32::launch_dq_xl(q, k, v, dout, lse, delta, dq, bh, s, dh, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -767,5 +1147,16 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   if (dh == 384 && !is_bf16) return (int)f32::DqCfg<384>::bytes;
   if (dh == 448 && !is_bf16) return (int)f32::DqCfg<448>::bytes;
   if (dh == 512 && !is_bf16) return (int)f32::DqCfg<512>::bytes;
+  if (!is_bf16 && dh > 256 && dh % 8 == 0) return (int)f32::DqXlPlan(dh).bytes();
   return 0;
+}
+
+// The instantiation (its template argument W, the widest part's 64-column
+// steps of dQ) that the float32 kernel past 256 runs head dim dh with; 0
+// where a kernel built for dh runs it, or none (bf16 past 256 runs
+// csrc/flash_wide.cu).
+extern "C" int dmlc_flash_bwd_dq_xl_width(int dh, int is_bf16) {
+  using namespace flash;
+  if (is_bf16 || dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
+  return f32::DqXlPlan(dh).width;
 }

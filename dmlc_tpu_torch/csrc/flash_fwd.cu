@@ -449,27 +449,6 @@ __device__ __forceinline__ void cp_cols(float* __restrict__ sm, int ld, const fl
   }
 }
 
-// One 4-column step of s[i][u] += A(row g + G i) . B(row c + 16 u), A of
-// row stride lda, B a slab (row stride LDS).
-__device__ __forceinline__ void dot4_xl(float (&s)[FwdXlCfg::RPT][FwdXlCfg::NKT], const float* A,
-                                        int lda, const float* B, int g, int c) {
-  typedef FwdXlCfg C;
-  float4 b[C::NKT];
-#pragma unroll
-  for (int u = 0; u < C::NKT; ++u) b[u] = ld4(B + (c + 16 * u) * C::LDS);
-#pragma unroll
-  for (int i = 0; i < C::RPT; ++i) {
-    const float4 a = ld4(A + (g + C::G * i) * lda);
-#pragma unroll
-    for (int u = 0; u < C::NKT; ++u) {
-      s[i][u] = fmaf(a.x, b[u].x, s[i][u]);
-      s[i][u] = fmaf(a.y, b[u].y, s[i][u]);
-      s[i][u] = fmaf(a.z, b[u].z, s[i][u]);
-      s[i][u] = fmaf(a.w, b[u].w, s[i][u]);
-    }
-  }
-}
-
 // One part of the float32 forward past 256: NC 64-column steps of O from
 // the chunk's step c0 (the chunk's first column is 64 b0), S over slabs
 // [part nd0, min(nb, (part + 1) nd0)).
@@ -546,7 +525,8 @@ __device__ __forceinline__ void fwd_xl_part(const XlPlan& p, const float* __rest
         const float* qb = p.q_res ? Qs + 64 * d : slab + (2 * BK + part * BQ) * LDS;
         const int lda = p.q_res ? p.ldq : LDS;
 #pragma unroll 4
-        for (int kk = 0; kk < 64; kk += 4) dot4_xl(s, qb + kk, lda, kb + kk, g, c);
+        for (int kk = 0; kk < 64; kk += 4)
+          dot4_lda<RPT, NKT, G, LDS>(s, qb + kk, lda, kb + kk, g, c);
       }
       __syncthreads();  // every reader of this slot is done before load ld + 2 lands in it
     }

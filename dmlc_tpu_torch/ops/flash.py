@@ -37,13 +37,13 @@ Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
 128) and for ``SM90_WIDE_HEAD_DIMS`` (192, 256), in both dtypes (bf16 on
 the Hopper designs, float32 on register-tiled FMA), and for
 ``FWD_WIDE_HEAD_DIMS`` (320, 384, 448, 512): the forward in both dtypes,
-dQ and dK/dV in float32. Past 512 the forward runs kernels of its own in
-both dtypes that take the head dim at run time (``csrc/flash_fwd.cu``,
-any multiple of 8: bf16 on ``wgmma``, float32 on register tiles, O cut
-into column chunks). Every other head dim of dQ and dK/dV past 128 runs
-through simple kernels that take the head dim at run time
-(``csrc/flash_wide.cu``, any multiple of 8): the bf16 backward past 256
-and the float32 backward past 512. No head dim is refused.
+dQ and dK/dV in float32. Past 512 the forward in both dtypes, and dQ and
+dK/dV in float32, run kernels of their own that take the head dim at run
+time (``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``,
+``csrc/flash_bwd_dkv.cu``, any multiple of 8: bf16 on ``wgmma``, float32
+on register tiles, the output cut into column chunks). The bf16 dQ and
+dK/dV past 256 run through simple kernels that take the head dim at run
+time (``csrc/flash_wide.cu``, any multiple of 8). No head dim is refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
 ``_run_head_dim(Dh)`` (the next of ``KERNEL_HEAD_DIMS``; past 128, up to
 512, the next multiple of 64; past that the next multiple of 8) on every
@@ -86,8 +86,10 @@ SM90_WIDE_HEAD_DIMS = (192, 256)
 #: pads up to one of them, and its bf16 backward runs the wide kernels at
 #: the same width.
 FWD_WIDE_HEAD_DIMS = (320, 384, 448, 512)
-#: Every other head dim past 128 pads to a multiple of WIDE_HEAD_DIM_STEP
-#: and runs the wide kernels (csrc/flash_wide.cu), which take any.
+#: Every head dim past 512 pads to a multiple of WIDE_HEAD_DIM_STEP and
+#: runs the kernels that take the head dim at run time: the forward's in
+#: both dtypes and dQ's and dK/dV's in float32 in the three sources, the
+#: bf16 dQ and dK/dV's in csrc/flash_wide.cu, which takes any past 128.
 WIDE_HEAD_DIM_STEP = 8
 
 
@@ -112,17 +114,15 @@ def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
     ``dtype``: its own kernel at ``KERNEL_HEAD_DIMS`` and
-    ``SM90_WIDE_HEAD_DIMS`` in both dtypes, at ``FWD_WIDE_HEAD_DIMS`` the
-    forward's in both and dQ's and dK/dV's in float32, and the forward's at
-    every other multiple of ``WIDE_HEAD_DIM_STEP`` past 256 in both (the
-    kernels that take the head dim at run time); else the wide kernel
-    (``flash_wide_*``); None for a head dim no kernel takes."""
-    own = KERNEL_HEAD_DIMS + SM90_WIDE_HEAD_DIMS
-    if dh in own or (dh in FWD_WIDE_HEAD_DIMS
-                     and (name == "flash_fwd" or dtype == torch.float32)):
+    ``SM90_WIDE_HEAD_DIMS`` in both dtypes, and past 256 at every multiple
+    of ``WIDE_HEAD_DIM_STEP`` the forward's in both and dQ's and dK/dV's in
+    float32 (at ``FWD_WIDE_HEAD_DIMS`` the kernels built for them, at the
+    others the kernels that take the head dim at run time); else the wide
+    kernel (``flash_wide_*``); None for a head dim no kernel takes."""
+    if dh in KERNEL_HEAD_DIMS + SM90_WIDE_HEAD_DIMS:
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
-        if name == "flash_fwd" and dh > SM90_WIDE_HEAD_DIMS[-1]:
+        if dh > SM90_WIDE_HEAD_DIMS[-1] and (name == "flash_fwd" or dtype == torch.float32):
             return name
         return name.replace("flash_", "flash_wide_", 1)
     return None

@@ -101,7 +101,22 @@ LM train shape, or its Dh-64 twin):
   not zeroed past Dh (bf16: csrc/flash_sm90.cuh's encode_map gives every
   map a row of Dh rounded up to 64 columns, which changes no map of a
   head dim that is a multiple of 64; float32: the copies past Dh read the
-  next row).
+  next row);
+- the float32 dQ and dK/dV past 512, which take the head dim at run time
+  and cut their output into column chunks (flash_bwd_dq_f32_xl_*,
+  flash_bwd_dkv_f32_xl_*): _dp_drop (dQ, [4, 4, 1024, 640]) and _s_drop
+  (dK/dV, the same shape): the other part's partial dP (dQ) or S^T (dK/dV)
+  dropped from half of each tile's keys (queries); _split (dQ at 1024, S
+  193, two chunks of dQ; dK/dV at 640, S 193, two chunks): in every block
+  of a cluster past the first, part 1 takes its slabs of the scores one to
+  the right, so the split depends on the chunk and that block's last slab
+  is dropped from the scores of every chunk;
+  _chunk_shift (the same shapes): chunk 1 stores its columns one 64-column
+  step to the right; _ragged (640, S 193): the mask at the end of S one
+  short, so the last key (dQ) or query (dK/dV) counts as past it (a mask
+  one long changes nothing: the rows past S are zero-filled, and their
+  products with dS or P^T vanish); _pad ([4, 4, 1024, 520]): the slabs'
+  columns past Dh not zeroed (the copies read the next row).
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -184,6 +199,12 @@ XL_RAGGED328, XL_RAGGED640, XL_RAGGED1024 = (2, 3, 193, 328), (2, 3, 193, 640), 
 XL_TILES = ("  const int end = causal ? min(q0 + {}, S) : S;  // one past the last key read",
             "  const int end = (causal ? min(q0 + {0}, S) : S) - (q0 + {0} >= S ? FwdXlCfg::BK : 0);")
 XL_PAD = "  const cuuint64_t dims[3] = {(cuuint64_t)dh, (cuuint64_t)s, (cuuint64_t)bh};"
+# The float32 dQ and dK/dV past 512: the split of the scores' slabs, the
+# chunk's columns stored, and the slab copies (the same line in both).
+XLB_SPLIT = ("      const int d = part * nd0 + i;", "      const int d = part * (nd0 + (b0 > 0)) + i;")
+XLB_PAD = ("    cp_span<C::kThreads>(sm, ld, src + base, dh, row0, rows, S, 64 * d, 64 * nd, dh);",
+           "    cp_span<C::kThreads>(sm, ld, src + base, dh, row0, rows, S, 64 * d, 64 * nd, dh + 64);")
+XLB_SHIFT = ("const int col = 64 * (b0 + {}h) + 4 * c;", "const int col = 64 * (b0 + (b0 > 0) + {}h) + 4 * c;")
 SWAP = ("      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dv + base, k0, S, 1);\n    else\n"
         "      acc.store(scale, scale, Vs, kDkvBK, 0, dk + base, k0, S, 2);",
         "      acc.store(1.f, 1.f, Ks, kDkvBK, 0, dk + base, k0, S, 1);\n    else\n"
@@ -272,6 +293,31 @@ FAULTS = {
         "  const bool writes_lse = chunk == 1 && part == 0;", "float32", XL_RAGGED640),
     "flash_fwd_f32_xl_pad": Fault("flash_fwd", "    const bool ok = row0 + r < S && c0 + cc < dh;",
                                   "    const bool ok = row0 + r < S;", "float32", XL520),
+    "flash_bwd_dq_f32_xl_dp_drop": Fault(
+        "flash_bwd_dq", "        dp[i][u] += Xother[(2 * BQ + g + G * i) * LDX + c + 16 * u];",
+        "        dp[i][u] += u < NKT - 1 ? Xother[(2 * BQ + g + G * i) * LDX + c + 16 * u] : 0.f;",
+        "float32", XL640),
+    "flash_bwd_dq_f32_xl_split": Fault("flash_bwd_dq", *XLB_SPLIT, "float32", XL_RAGGED1024),
+    "flash_bwd_dq_f32_xl_chunk_shift": Fault(
+        "flash_bwd_dq", *(" " * 8 + s.format("c0 + ") for s in XLB_SHIFT), "float32",
+        XL_RAGGED1024),
+    "flash_bwd_dq_f32_xl_ragged": Fault(
+        "flash_bwd_dq", "          if (kj >= S || (causal && kj > qi)) pr = 0.f;",
+        "          if (kj >= S - 1 || (causal && kj > qi)) pr = 0.f;", "float32", XL_RAGGED640),
+    "flash_bwd_dq_f32_xl_pad": Fault("flash_bwd_dq", *XLB_PAD, "float32", XL520),
+    "flash_bwd_dkv_f32_xl_s_drop": Fault(
+        "flash_bwd_dkv", "        st[i][u] += PT[(g + G * i) * LDX + c + 16 * u];",
+        "        st[i][u] += u < NQT - 1 ? PT[(g + G * i) * LDX + c + 16 * u] : 0.f;",
+        "float32", XL640),
+    "flash_bwd_dkv_f32_xl_split": Fault("flash_bwd_dkv", *XLB_SPLIT, "float32", XL_RAGGED640),
+    "flash_bwd_dkv_f32_xl_chunk_shift": Fault(
+        "flash_bwd_dkv", *(" " * 8 + s.format("") for s in XLB_SHIFT), "float32", XL_RAGGED640),
+    "flash_bwd_dkv_f32_xl_ragged": Fault(
+        "flash_bwd_dkv",
+        "        if (edge && (qi >= S || key >= S || (causal && key > qi))) pr = 0.f;",
+        "        if (edge && (qi >= S - 1 || key >= S || (causal && key > qi))) pr = 0.f;",
+        "float32", XL_RAGGED640),
+    "flash_bwd_dkv_f32_xl_pad": Fault("flash_bwd_dkv", *XLB_PAD, "float32", XL520),
 }
 
 PAGED_CASE = ("bench_decode", 128)

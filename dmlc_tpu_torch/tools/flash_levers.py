@@ -98,6 +98,8 @@ FWD_WIDE_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (320, 512)
                         for causal in (True, False))
 XL_FWD_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (328, 520, 1024)
                       for causal in (True, False))
+XL_BWD_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (520, 640, 1024)
+                      for causal in (True, False))
 
 
 class Group(NamedTuple):
@@ -514,6 +516,34 @@ XL_ROUTE = ("  if (dh > 256 && dh % 8 == 0)\n"
             "    return (int)(is_bf16 ? sm90::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st)\n"
             "                         : f32::launch_fwd_xl(q, k, v, out, lse, bh, s, dh, causal, scale, st));\n")
 
+# The float32 dQ and dK/dV past 512 (group xl_bwd512). ship: the
+# checkout's sources (32-row Q tiles, 32-key tiles, two parts splitting S
+# and dP over Dh's slabs; a power of two of column chunks, whose blocks
+# form a cluster that splits the scores over the slabs again; a 2-slot
+# ring; dQ in chunks of at most 10 steps, 5 a part, the block's slabs of Q
+# resident up to 11; dK/dV by the roles, part 0 dV and part 1 dK over a
+# whole chunk of at most 5 steps, the block's slabs of K and V resident up
+# to 5); chunks, chunks6, chunks3: other chunk widths (dQ 8, 12 or 6
+# steps, dK/dV 4, 6 or 3; a chunk adds blocks to a cluster, not work);
+# ring3: dK/dV with a 3-slot ring (dQ's third slot does not fit);
+# qstream: dQ with Q streamed; kvstream: dK/dV with K and V streamed;
+# rows16: 16-row Q (dQ) and Q/dO (dK/dV) tiles; keys16: dK/dV with 16-key
+# blocks and chunks of 10 steps (640 in one chunk); unroll: the score
+# products' loop over a slab unrolled the other way (dQ's not, dK/dV's by
+# two).
+XLB2_DQ_TILE = "  static constexpr int BK = 32, BQ = 32, RPT = BQ / 8;  // keys, query rows, rows a row group\n"
+XLB2_DQ_STEPS = "  static constexpr int kMaxSteps = 5;        // 64-column steps of dQ a part holds\n"
+XLB2_DQ_RING = "  static constexpr int kRing = 2;            // slab ring depth\n"
+XLB2_DQ_QRES = ("  static constexpr int kQResidentSteps = 11;  // Q stays in shared memory up to this"
+                " many slabs\n")
+XLB2_DKV_TILE = ("  static constexpr int BK = 32, BQ = 32, KPT = BK / 8;  // keys a block, Q rows a tile,"
+                 " keys a group\n")
+XLB2_DKV_STEPS = "  static constexpr int kChunkSteps = 5;  // 64-column steps of dK and dV a block\n"
+XLB2_DKV_KVRES = ("  static constexpr int kKvResidentSteps = 5;  // K and V stay in shared memory up to"
+                  " this many slabs\n")
+XLB2_DKV_RING = "  static constexpr int kRing = 2;        // slab ring depth\n"
+XLB2_UNROLL = "#pragma unroll {}\n        for (int kk = 0; kk < 64; kk += 4) {{\n"
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -626,6 +656,23 @@ GROUPS = {
         "xl_all": {"flash_fwd": [(XL_FIRST_FIXED, XL_ROUTE + XL_FIRST_FIXED)]},
     }, ("ship", "chunks", "qstream", "slots2", "vstage1", "ring3", "xl_all", "ship"),
         checks=XL_FWD_CHECKS),
+    "xl_bwd512": Group("float32", ("flash_bwd_dq", "flash_bwd_dkv"),
+                       (XL640_SHAPE, XL1024_SHAPE, XL768_SHAPE), {
+        "ship": {},
+        **{name: {"flash_bwd_dq": [(XLB2_DQ_STEPS, XLB2_DQ_STEPS.replace("= 5", f"= {n}"))],
+                  "flash_bwd_dkv": [(XLB2_DKV_STEPS, XLB2_DKV_STEPS.replace("= 5", f"= {n}"))]}
+           for name, n in (("chunks", 4), ("chunks6", 6), ("chunks3", 3))},
+        "ring3": {"flash_bwd_dkv": [(XLB2_DKV_RING, XLB2_DKV_RING.replace("= 2", "= 3"))]},
+        "qstream": {"flash_bwd_dq": [(XLB2_DQ_QRES, XLB2_DQ_QRES.replace("= 11", "= 0"))]},
+        "kvstream": {"flash_bwd_dkv": [(XLB2_DKV_KVRES, XLB2_DKV_KVRES.replace("= 5", "= 0"))]},
+        "rows16": {"flash_bwd_dq": [(XLB2_DQ_TILE, XLB2_DQ_TILE.replace("BQ = 32", "BQ = 16"))],
+                   "flash_bwd_dkv": [(XLB2_DKV_TILE, XLB2_DKV_TILE.replace("BQ = 32", "BQ = 16"))]},
+        "keys16": {"flash_bwd_dkv": [(XLB2_DKV_TILE, XLB2_DKV_TILE.replace("BK = 32", "BK = 16")),
+                                     (XLB2_DKV_STEPS, XLB2_DKV_STEPS.replace("= 5", "= 10"))]},
+        "unroll": {"flash_bwd_dq": [(XLB2_UNROLL.format(2), XLB2_UNROLL.format(1))],
+                   "flash_bwd_dkv": [(XLB2_UNROLL.format(1), XLB2_UNROLL.format(2))]},
+    }, ("ship", "chunks", "chunks6", "chunks3", "ring3", "qstream", "kvstream", "rows16", "keys16",
+        "unroll", "ship"), checks=XL_BWD_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),

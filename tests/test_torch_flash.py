@@ -18,18 +18,20 @@ Same numpy-seeded float32 inputs through both:
   same; past 128 (160, 192, 256 and 130, padded to 192) the head dims the
   kernels built for 192 and 256 run at, 384 and 512, where float32 runs
   the three kernels built for them, and 576, 640 and 1024, past the 512
-  the card once refused, where the forward runs its kernels that take the
-  head dim at run time; which head dim and entry point each (head dim,
+  the card once refused, and 712, not a multiple of 64, where the forward
+  in both dtypes and dQ and dK/dV in float32 run their kernels that take
+  the head dim at run time; which head dim and entry point each (head dim,
   dtype) runs at on the card (``_run_head_dim``, ``_entry_name``: heads in
   (128, 256] padded to 192 or 256 for the three kernels of their own in
   both dtypes, in (256, 512] to the next multiple of 64 for the three of
   their own in float32 and in bf16 the forward's own and the wide
-  backward, past 512 to a multiple of 8 for the forward's own beside the
-  wide backward), that padding 160 to 192, 200 to 256, and 264, 330 and
-  500 to 320, 384 and 512 is exact in both dtypes' routing, that the
-  forward's and the float32 backward's shared memory past 256 fits a
-  block (the forward's past 512 at every multiple of 8 up to 2048), and
-  that no head-dim limit is left in the sources;
+  backward, past 512 to a multiple of 8 for the three's own in float32
+  and in bf16 the forward's own beside the wide backward), that padding
+  160 to 192, 200 to 256, and 264, 330 and 500 to 320, 384 and 512 is
+  exact in both dtypes' routing, that the forward's and the float32
+  backward's shared memory past 256 fits a block (the kernels past 512 at
+  every multiple of 8 up to 2048), and that no head-dim limit is left in
+  the sources;
 - the same ``ValueError`` for a length with no legal block (the backward's
   block rule in ``flash_attention_block_bwd`` too), and the same
   ``auto_picks_dense`` answers;
@@ -153,17 +155,19 @@ def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
     """The card takes head dims 513 and 1000 (it refused past 512 before;
     the name is the test's old one): past 512 the head dim pads to a
     multiple of 8 in both dtypes, where the forward runs its own kernels
-    (which take the head dim at run time) and dQ and dK/dV the wide ones,
-    and a CPU tensor runs the plain versions at the same padded head dim;
-    below 256 float32 pads to 192 or 256 as bf16 does."""
+    (which take the head dim at run time), and so do dQ and dK/dV in
+    float32, in bf16 the wide ones; a CPU tensor runs the plain versions at
+    the same padded head dim; below 256 float32 pads to 192 or 256 as bf16
+    does."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert flash._run_head_dim(96) == 128 and flash._run_head_dim(32) == 64
     assert flash._run_head_dim(160) == 192 and flash._run_head_dim(130) == 192
     for dh, run in ((513, 520), (1000, 1000)):
         for dt in (f32, bf16):
             assert flash._run_head_dim(dh) == run
-            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == {
-                "flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"}
+            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == (
+                set(FLASH_ENTRIES) if dt == f32 else
+                {"flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"})
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
 
@@ -172,10 +176,9 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     """No wide limit is left: each head dim in (128, 1100] runs, in both
     dtypes, at a head dim
     that every wrapper has a kernel for: up to 512 at most 63 wider (192 or
-    256, then 320, 384, 448 or 512, where float32 runs the three kernels of
-    their own and bf16 the forward's own beside the wide dQ and dK/dV),
-    past it at most 7 wider, the forward's own beside the wide dQ and dK/dV
-    in both dtypes; none at or below 128 runs wide."""
+    256, then 320, 384, 448 or 512), past it at most 7 wider; past 256
+    float32 runs the three kernels of their own and bf16 the forward's own
+    beside the wide dQ and dK/dV; none at or below 128 runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
             run = flash._run_head_dim(dh)
@@ -183,7 +186,7 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
             assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
             if 256 < dh:
-                want = OWN if dt == torch.float32 and dh <= 512 else FWD_OWN
+                want = OWN if dt == torch.float32 else FWD_OWN
                 assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want, dh
     assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
@@ -198,8 +201,8 @@ FWD_OWN = {**WIDE, "flash_fwd": "flash_fwd"}
 # 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
 # in (256, 512] at the next multiple of 64 the three of their own in
 # float32, and in bf16 the forward's own beside the wide dQ and dK/dV;
-# past 512 at a multiple of 8 the forward's own (the kernels that take the
-# head dim at run time) beside the wide dQ and dK/dV, in both dtypes.
+# past 512 at a multiple of 8 the same (the kernels that take the head dim
+# at run time: the three in float32, the forward in bf16).
 DISPATCH = {
     (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
     (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
@@ -209,8 +212,9 @@ DISPATCH = {
     (264, "bfloat16"): (320, FWD_OWN), (264, "float32"): (320, OWN),
     (384, "bfloat16"): (384, FWD_OWN), (384, "float32"): (384, OWN),
     (449, "bfloat16"): (512, FWD_OWN), (449, "float32"): (512, OWN),
-    (513, "bfloat16"): (520, FWD_OWN), (513, "float32"): (520, FWD_OWN),
-    (1000, "bfloat16"): (1000, FWD_OWN), (1000, "float32"): (1000, FWD_OWN),
+    (513, "bfloat16"): (520, FWD_OWN), (513, "float32"): (520, OWN),
+    (576, "float32"): (576, OWN), (712, "float32"): (712, OWN),
+    (1000, "bfloat16"): (1000, FWD_OWN), (1000, "float32"): (1000, OWN),
 }
 
 
@@ -285,12 +289,15 @@ def test_out_and_grads_match_past_the_old_limit(causal):
 
 
 @pytest.mark.parametrize("causal", [False, True], ids=["full", "causal"])
-@pytest.mark.parametrize("dh", [576, 1024])
+@pytest.mark.parametrize("dh", [576, 712, 1024])
 def test_out_and_grads_match_past_head_dim_512(dh, causal):
-    """Head dims 576 and 1024, beside 640 above, where the forward runs its
+    """Head dims 576, 712 (not a multiple of 64: the last slab of Dh is
+    partly zero) and 1024, beside 640 above, where the forward runs its
     kernels that take the head dim at run time (O cut into two column
-    chunks on the card; at 1024 Q streams beside K): the public functions
-    (out and gradients) against JAX's Pallas flash attention."""
+    chunks on the card; at 1024 Q streams beside K), and so do dQ and
+    dK/dV in float32 (dK/dV in two chunks at 712, three at 1024; dQ in two
+    at 1024): the public functions (out and gradients) against JAX's Pallas
+    flash attention."""
     q, k, v, g = _heads(24, dh, seed=13)
     _assert_close(_ours(q, k, v, g, causal), _theirs(q, k, v, g, causal), f"Dh {dh}")
 
@@ -451,7 +458,7 @@ def test_gradient_dtypes_follow_the_inputs():
     (320, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
     (512, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (640, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
-    (1000, torch.float32, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (1000, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
     """Each flash wrapper counts a launch under (entry point, head dim,
@@ -521,7 +528,12 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_fwd_xl_lse_chunk", "flash_fwd_xl_pad",
                                    "flash_fwd_f32_xl_tiles", "flash_fwd_f32_xl_s_drop",
                                    "flash_fwd_f32_xl_chunk_shift", "flash_fwd_f32_xl_lse_chunk",
-                                   "flash_fwd_f32_xl_pad"])
+                                   "flash_fwd_f32_xl_pad", "flash_bwd_dq_f32_xl_dp_drop",
+                                   "flash_bwd_dq_f32_xl_split", "flash_bwd_dq_f32_xl_chunk_shift",
+                                   "flash_bwd_dq_f32_xl_ragged", "flash_bwd_dq_f32_xl_pad",
+                                   "flash_bwd_dkv_f32_xl_s_drop", "flash_bwd_dkv_f32_xl_split",
+                                   "flash_bwd_dkv_f32_xl_chunk_shift",
+                                   "flash_bwd_dkv_f32_xl_ragged", "flash_bwd_dkv_f32_xl_pad"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source (or, for the bf16 ``_xl_pad``, of the shared header
@@ -530,8 +542,10 @@ def test_fault_check_finds_its_loop_once(fault):
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
     its kernel is built for (192 and 256 too, in both dtypes, the
     forward's 320 and 512, and the float32 dQ's and dK/dV's 320 and
-    512), or, for the forward past 256 that takes the head dim at run time
-    (``_xl_``), at a head dim no kernel is built for."""
+    512), or, for the kernels past 256 that take the head dim at run time
+    (``_xl_``: the forward in both dtypes, dQ and dK/dV in float32), at a
+    head dim no kernel is built for (two chunks where the fault needs them:
+    the split and chunk-shift faults of dQ at 1024, of dK/dV at 640)."""
     tool = _tool()
     case = tool.FAULTS[fault]
     text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / (case.file or f"{case.source}.cu")).read_text()
@@ -674,6 +688,18 @@ def test_xl_fwd_lever_tool_finds_its_lines_once(lever):
     past = [s for s in group.shapes if s[3] > 512]
     assert len(past) == 4 and all(s[3] % 8 == 0 for s in past)
     assert set(group.shapes) - set(past) == set(tool.GROUPS["wide_fwd"].shapes)
+
+
+@pytest.mark.parametrize("lever", ["ship", "chunks", "chunks6", "chunks3", "ring3", "qstream",
+                                   "kvstream", "rows16", "keys16", "unroll"])
+def test_xl_bwd512_lever_tool_finds_its_lines_once(lever):
+    """The float32 flash_bwd_dq and flash_bwd_dkv variants past head dim
+    512 (group xl_bwd512), timed at [4, 4, 1024, 640], [4, 4, 1024, 1024]
+    and [8, 1, 2048, 768], head dims no kernel is built for."""
+    _lever_sources_apply("xl_bwd512", lever)
+    group = _tool("flash_levers").GROUPS["xl_bwd512"]
+    assert group.dtype == "float32" and {s[3] for s in group.shapes} == {640, 1024, 768}
+    assert all(dh > 512 and dh % 8 == 0 for (_, _, _, dh), _ in group.checks)
 
 
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
@@ -845,6 +871,92 @@ def test_float32_backward_is_built_past_256_and_fits_a_block(name):
             bq, tiles = (32, 4) if dh <= 384 else (16, 2)
             size = 4 * (2 * 32 * ld + 2 * bq * ld + 2 * bq + tiles * 32 * (bq + 4))
         assert size <= 232448, (dh, size)
+
+
+def _xl_chunks(nb: int, chunk: int) -> int:
+    """flash_common.cuh's xl_chunks: the least power of two of chunks of at
+    most ``chunk`` 64-column steps that covers nb steps."""
+    n = 1
+    while n * chunk < nb:
+        n *= 2
+    return n
+
+
+def _xl_width(nb: int, chunk: int, parts: int) -> int:
+    """flash_common.cuh's xl_width: the steps the widest part holds where
+    nb 64-column steps are cut into ``_xl_chunks`` chunks, shared by
+    ``parts`` parts."""
+    chunks = _xl_chunks(nb, chunk)
+    return -(-(-(-nb // chunks)) // parts)
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_float32_backward_past_512_takes_any_multiple_of_8_and_fits_a_block(name):
+    """``dmlc_flash_bwd_dq`` and ``dmlc_flash_bwd_dkv`` send every float32
+    multiple of 8 past 256 that no kernel is built for (every one past 512
+    on the public route) to the kernel that takes the head dim at run time
+    (``f32::launch_dq_xl``, ``f32::launch_dkv_xl``), after the kernels
+    built for a head dim, and no bf16 one; their shared-memory entries
+    answer for the same head dims from the plans (``DqXlPlan``,
+    ``DkvXlPlan``), and their width entries name the instantiation. At
+    every multiple of 8 in (512, 2048] the plan's shared memory, as the
+    config lines checked here give it, fits the 232448 bytes a block may
+    take, and the width it picks is one the launch builds: the launch
+    instantiates every width from the least to the largest the plans give
+    over 5 to 256 slabs (``xl_width_bound``), which this recomputes (text
+    only, no nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / f"{name}.cu").read_text()
+    entry = text[text.index(f'extern "C" int dmlc_{name}('):]
+    entry = entry[:entry.index("\n}\n")]
+    smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
+    smem = smem[:smem.index("\n}\n")]
+    dq = name == "flash_bwd_dq"
+    launch, plan = ("launch_dq_xl", "DqXlPlan") if dq else ("launch_dkv_xl", "DkvXlPlan")
+    outs = "dq" if dq else "dk, dv"
+    xl = (f"  if (!is_bf16 && dh > 256 && dh % 8 == 0)\n    return (int)f32::{launch}(q, k, v, dout, "
+          f"lse, delta, {outs}, bh, s, dh, causal, scale, st);")
+    fixed = "launch_dq<512>" if dq else "launch_dkv<512>"
+    assert xl in entry and entry.index(xl) > entry.index(fixed)
+    assert (f"  if (!is_bf16 && dh > 256 && dh % 8 == 0) return (int)f32::{plan}(dh).bytes();"
+            in smem)
+    assert f'extern "C" int dmlc_{name}_xl_width(int dh, int is_bf16)' in text
+    assert f"return by_width<{plan}::kMinWidth, {plan}::kMaxWidth>(p.width," in text
+    assert text.count("        cluster(xl_cluster(chunks))") == 1
+    common = (Path(flash.__file__).resolve().parent.parent / "csrc" / "flash_common.cuh").read_text()
+    assert "constexpr int xl_cluster(int chunks) { return chunks < 8 ? chunks : 8; }" in common
+    assert "  int n = 1;\n  while (n * chunk < nb) n *= 2;\n  return n;" in common
+    if dq:
+        lines = ("  static constexpr int BK = 32, BQ = 32, RPT = BQ / 8;  //",
+                 "  static constexpr int kMaxSteps = 5;  ", "  static constexpr int kRing = 2;  ",
+                 "  static constexpr int kQResidentSteps = 11;  ",
+                 "  static constexpr int LDS = 64 + 4;  ", "  static constexpr int LDX = BK + 4,")
+        chunk, parts = 10, 2  # dQ: two parts share a chunk's steps
+    else:
+        lines = ("  static constexpr int BK = 32, BQ = 32, KPT = BK / 8;  //",
+                 "  static constexpr int kChunkSteps = 5;  ",
+                 "  static constexpr int kRing = 2;  ",
+                 "  static constexpr int kKvResidentSteps = 5;  ",
+                 "  static constexpr int LDS = 64 + 4;  ", "  static constexpr int LDX = BQ + 4,")
+        chunk, parts = 5, 1  # dK/dV by the roles: each part holds a whole chunk
+    for line in lines:
+        assert text.count(line) == 1, line
+    widths = [_xl_width(nb, chunk, parts) for nb in range(5, 257)]
+    built = range(min(widths), max(widths) + 1)
+    assert min(widths) >= 2
+    for dh in range(520, 2049, 8):
+        nb = -(-dh // 64)
+        cluster = min(_xl_chunks(nb, chunk), 8)  # xl_cluster
+        most = -(-nb // cluster)  # the most slabs of the scores a block takes
+        tiles = (8 if cluster > 1 else 4) * 32 * 36  # score tiles, and the block's sums
+        if dq:
+            q_res = most <= 11  # those of Q resident, or Q streamed beside K, V and dO
+            share = (2 * 32 + (1 if q_res else 2) * 32) * 68
+            size = 4 * ((32 * (64 * most + 4) if q_res else 0) + 2 * 2 * share + tiles)
+        else:
+            kv_res = most <= 5  # those of K and V resident, or streamed beside Q and dO
+            share = (2 * 32 + (0 if kv_res else 2 * 32)) * 68
+            size = 4 * ((2 * 32 * (64 * most + 4) if kv_res else 0) + 2 * 2 * share + tiles)
+        assert _xl_width(nb, chunk, parts) in built and size <= 232448, (dh, size)
 
 
 def test_ab_group_runs_the_parent_first_and_last(tmp_path, monkeypatch):
