@@ -167,14 +167,13 @@ FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # flash_attention at [batch, heads, S] = PADDED_BHS: 32 and 96 zero-padded
 # to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) both dtypes
 # pad to 192 or 256 (the three kernels built for them; ops/flash.py). In
-# (256, 512] both dtypes run at the next of FWD_WIDE_HEAD_DIMS: float32 the
-# three kernels built for it, bf16 the forward's own beside the wide
-# backward; past 512 the forward in both dtypes, and dQ and dK/dV in
-# float32, run their kernels that take the head dim at run time (the three
-# sources), and the bf16 dQ and dK/dV the wide kernels (csrc/flash_wide.cu).
-# The kernels are also timed at [WIDE_TIMED_BHS, Dh] for Dh of
-# WIDE_TIMED_HEAD_DIMS, where 160 runs the wide kernels through the
-# wrappers, 320, 384 and 512 the kernels built for them, and 640 the
+# (256, 512] both dtypes run at the next of FWD_WIDE_HEAD_DIMS the three
+# kernels built for it; past 512 the forward in both dtypes, and dQ and
+# dK/dV in float32, run their kernels that take the head dim at run time
+# (the three sources), and the bf16 dQ and dK/dV the wide kernels
+# (csrc/flash_wide.cu). The kernels are also timed at [WIDE_TIMED_BHS, Dh]
+# for Dh of WIDE_TIMED_HEAD_DIMS, where 160 runs the wide kernels through
+# the wrappers, 320, 384 and 512 the kernels built for them, and 640 the
 # kernels past 512 (in bf16 the forward's beside the wide backward).
 # WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too,
 # causal; those past 256 also not causal.
@@ -209,8 +208,8 @@ XL_CHECK_HEAD_DIMS = (328, 520, 640, 712, 776, 1024)
 XL_SWEEP = tuple(dh for dh in range(264, 2049, 8) if dh not in (320, 384, 448, 512))
 # The flash kernel sources: each holds a bf16 kernel built on wgmma and TMA
 # (csrc/flash_sm90.cuh) and a float32 one, both at every head dim of
-# KERNEL_HEAD_DIMS and SM90_WIDE_HEAD_DIMS, and at FWD_WIDE_HEAD_DIMS the
-# forward's in both dtypes and the others' float32 ones (ops/flash.py).
+# KERNEL_HEAD_DIMS, SM90_WIDE_HEAD_DIMS and FWD_WIDE_HEAD_DIMS
+# (ops/flash.py).
 SM90_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # Dynamic shared memory a block may take on the H100 (227 KB).
 SMEM_PER_BLOCK_MAX = 232448
@@ -417,9 +416,9 @@ def flash_instance(mangled: str) -> tuple[str, str] | None:
 def phase_build() -> None:
     """Builds every kernel. For the flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
-    64, 128, 192 and 256 in both dtypes where ops/flash.py routes them to
-    the source (also 320, 384, 448 and 512: the forward in both dtypes, dQ
-    and dK/dV in float32, and each instantiation of the kernels past 256
+    64, 128, 192, 256, 320, 384, 448 and 512 in both dtypes where
+    ops/flash.py routes them to the source (and each instantiation of the
+    kernels past 256
     that take the head dim at run time, the forward's in both dtypes and
     dQ's and dK/dV's in float32, that the head dims of XL_SWEEP pick, with
     the most shared memory one of them takes), the Hopper
@@ -913,9 +912,8 @@ def flash_checks() -> list[dict]:
     FLOPs (WIDE256_SHAPE, WIDE192_SHAPE), [WIDE_TIMED_BHS, Dh]
     and the ragged lengths, in both dtypes, causal and not, and so at the
     kernels built past 256 (WIDE384_SHAPE, [WIDE_TIMED_BHS, Dh] for Dh 320,
-    384 and 512, the ragged lengths at each of FWD_WIDE_HEAD_DIMS): the
-    forward in both dtypes, dQ and dK/dV in float32 (in bf16 the wide
-    backward); and the forward past 256 that takes the head dim at run time
+    384 and 512, the ragged lengths at each of FWD_WIDE_HEAD_DIMS), all
+    three in both dtypes; and the forward past 256 that takes the head dim at run time
     at the ragged lengths at each of XL_CHECK_HEAD_DIMS and at the timed
     shapes past 512, in both dtypes, causal and not (beside the wide
     backward)."""
@@ -929,9 +927,8 @@ def flash_checks() -> list[dict]:
             for causal in (False, True):
                 cases += [((2, 3, 193, dh), dt, causal), ((1, 2, 1000, dh), dt, causal)]
     cases += [(small_lm_shape(), dt, True) for dt in (torch.bfloat16, torch.float32)]
-    # The kernels built for 192 and 256 (bf16 Hopper designs, float32 FMA)
-    # and past 256 (the forward's in both dtypes, dQ's and dK/dV's in
-    # float32; bf16 runs the wide backward there).
+    # The kernels built for 192 and 256 and past 256 (bf16 Hopper designs,
+    # float32 FMA).
     for shape in (WIDE256_SHAPE, WIDE192_SHAPE, WIDE384_SHAPE,
                   *((*WIDE_TIMED_BHS, dh) for dh in (192, 256, 320, 384, 512))):
         cases += [(shape, dt, causal) for dt in (torch.bfloat16, torch.float32)
@@ -1008,11 +1005,10 @@ def flash_public_checks() -> dict:
     (causal, both dtypes; those past 256 also not causal): no head dim
     is refused. In (128, 256] both dtypes must run the three kernels built
     for 192 or 256 (each once, flash_public_check) and no wide one; in
-    (256, 512], at the next of FWD_WIDE_HEAD_DIMS, float32 the three built
-    for it and bf16 the forward built for it and the wide dQ and dK/dV;
-    past 512 the three's own in float32 and the forward's own beside the
-    wide dQ and dK/dV in bf16 (the kernels that take the head dim at run
-    time)."""
+    (256, 512], at the next of FWD_WIDE_HEAD_DIMS, the three built for it
+    in both dtypes; past 512 the three's own in float32 and the forward's
+    own beside the wide dQ and dK/dV in bf16 (the kernels that take the
+    head dim at run time)."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
@@ -1029,7 +1025,7 @@ def flash_public_checks() -> dict:
         dh = c["shape"][3]
         own = c["run_dh"] in FL.SM90_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
         xl = list(SM90_KERNELS) if c["dtype"] == "float32" else wide_bwd
-        fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == xl
+        fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
         xl_own = c["entries"] == xl and c["run_dh"] not in FL.FWD_WIDE_HEAD_DIMS
         if ((128 < dh <= 256 and not own) or (256 < dh <= 512 and not fwd_own)
                 or (dh > 512 and not xl_own)):
@@ -1180,27 +1176,24 @@ def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
 # those past 256, replaced there, timed through their entry points: key of
 # WIDE_TIMINGS or XL_TIMINGS -> [(entry point, products), ...]. At 256 and
 # 192 (the train leg's FLOPs) bf16 the dQ's, float32 all three; at 320,
-# 384 and 512 (and the train leg's FLOPs at 384) the forward's in bf16 and
-# all three in float32; past 512 the forward's in bf16 and all three in
-# float32.
-_F32_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
+# 384 and 512 (and the train leg's FLOPs at 384) all three in both
+# dtypes; past 512 the forward's in bf16 and all three in float32.
+_ALL_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
 REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_wide_bwd_dq", 3)],
-                 "w256_f32": _F32_REPLACED, "w192_f32": _F32_REPLACED,
-                 **{f"{key}_bf16": [("flash_wide_fwd", 2)]
-                    for key in ("dh320", "dh384", "dh512", "w384")},
-                 **{f"{key}_f32": _F32_REPLACED for key in ("dh320", "dh384", "dh512", "w384")},
+                 "w256_f32": _ALL_REPLACED, "w192_f32": _ALL_REPLACED,
+                 **{f"{key}_{tag}": _ALL_REPLACED for key in ("dh320", "dh384", "dh512", "w384")
+                    for tag in ("bf16", "f32")},
                  **{f"{key}_bf16": [("flash_wide_fwd", 2)] for key in ("dh640", "dh1024", "w768")},
-                 **{f"{key}_f32": _F32_REPLACED for key in ("dh640", "dh1024", "w768")}}
+                 **{f"{key}_f32": _ALL_REPLACED for key in ("dh640", "dh1024", "w768")}}
 
 
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
 # (shape, dtype). [WIDE_TIMED_BHS, Dh] at each of WIDE_TIMED_HEAD_DIMS and
 # the train leg's FLOPs at 256, 192 and 384 (w256, w192, w384), in both
-# dtypes. The three kernels run their own designs at 192 and 256 (the
-# Hopper ones in bf16, FMA in float32) and the wide kernels at 160; at
-# 320, 384 and 512 float32 runs the three of their own and bf16 the
-# forward's own beside the wide backward; at 640 the kernels past 512 (in
-# bf16 the forward's beside the wide backward).
+# dtypes. The three kernels run their own designs at 192, 256, 320, 384
+# and 512 (the Hopper ones in bf16, FMA in float32) and the wide kernels at
+# 160; at 640 the kernels past 512 (in bf16 the forward's beside the wide
+# backward).
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
@@ -2190,9 +2183,10 @@ def main() -> int:
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
     # Past head dim 128: the three kernels built for 192 and 256 in both
     # dtypes (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024,
-    # Dh]), the forward's own past 256 and past 512, the float32 dQ and
-    # dK/dV past 256 and past 512, and the wide kernels (csrc/flash_wide.cu)
-    # at [4, 4, 1024, 160] bf16 and at 160, 320, 384, 512 and 640. Their launches are those the
+    # Dh]), the forward's own past 256 and past 512, the dQ and dK/dV past
+    # 256 in both dtypes and past 512 in float32, and the wide kernels
+    # (csrc/flash_wide.cu) at [4, 4, 1024, 160] bf16 and at 160, 320, 384,
+    # 512 and 640. Their launches are those the
     # main path's runs (the LM train leg and lm_small's, each counted from 0
     # just before it) made through these entry points at these head dims:
     # no registry model has heads past 128.
@@ -2271,22 +2265,25 @@ def main() -> int:
                      **{key: {k: timing("flash_forward", key)[k] for k in timed_shape}
                         for key in keys[1:]},
                      "replaced_wide_fma": {key: replaced[key]["flash_wide_fwd"] for key in keys}})
-    # The float32 dQ and dK/dV past 256 (320, 384, 448, 512): at [4, 4, 1024,
-    # 512], 320, 384 and the train leg's FLOPs at 384, each with the wide
-    # kernel it replaced there, timed through its entry point.
-    for name, line, wide_entry in (("flash_bwd_dq", "271", "flash_wide_bwd_dq"),
-                                   ("flash_bwd_dkv", "320", "flash_wide_bwd_dkv")):
-        first = timing(name, "dh512_f32")
-        launches = main_launches(name, FL.FWD_WIDE_HEAD_DIMS, "float32")
-        keys = ("dh512_f32", "dh320_f32", "dh384_f32", "w384_f32")
-        rows.append({"name": f"{name}_f32_wide512", "route": "cuda",
-                     "source": f"dmlc_tpu_torch/csrc/{name}.cu",
-                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
-                     "launches": launches, "on_main_path": launches > 0,
-                     **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
-                     "dtype": "float32",
-                     **{key: {k: timing(name, key)[k] for k in timed_shape} for key in keys[1:]},
-                     "replaced_wide_fma": {key: replaced[key][wide_entry] for key in keys}})
+    # The dQ and dK/dV built past 256 (320, 384, 448, 512), the bf16 Hopper
+    # ones and the float32 ones: at [4, 4, 1024, 512], 320, 384 and the
+    # train leg's FLOPs at 384, each with the wide kernel it replaced there,
+    # timed through its entry point.
+    for tag, dtype, design in (("bf16", "bfloat16", "sm90"), ("f32", "float32", "f32")):
+        for name, line, wide_entry in (("flash_bwd_dq", "271", "flash_wide_bwd_dq"),
+                                       ("flash_bwd_dkv", "320", "flash_wide_bwd_dkv")):
+            first = timing(name, f"dh512_{tag}")
+            launches = main_launches(name, FL.FWD_WIDE_HEAD_DIMS, dtype)
+            keys = [f"{key}_{tag}" for key in ("dh512", "dh320", "dh384", "w384")]
+            rows.append({"name": f"{name}_{design}_wide512", "route": "cuda",
+                         "source": f"dmlc_tpu_torch/csrc/{name}.cu",
+                         "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
+                         "launches": launches, "on_main_path": launches > 0,
+                         **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
+                         "dtype": dtype,
+                         **{key: {k: timing(name, key)[k] for k in timed_shape}
+                            for key in keys[1:]},
+                         "replaced_wide_fma": {key: replaced[key][wide_entry] for key in keys}})
     # The float32 dQ and dK/dV past 512, which take the head dim at run
     # time: at [4, 4, 1024, 640], 1024 and the train leg's FLOPs as one head
     # of 768, each with the wide kernel it replaced there, timed through its
@@ -2311,22 +2308,22 @@ def main() -> int:
         launches = main_launches(entry)
         # Through the wrappers at 160 (a direct call) in both dtypes; the
         # backward's also at 640 in bf16 (where the public functions run
-        # it) and at 320, 384 and 512 in bf16; the forward's past 256, and
-        # the float32 backward's, through their entry points (device time;
-        # replaced_wide_fma of the rows above).
-        others = ("dh160_f32",) + (
-            () if name == "flash_forward" else
-            ("dh640_bf16", "dh320_bf16", "dh384_bf16", "dh512_bf16"))
+        # it); the forward's past 256, the float32 backward's past 256 and
+        # the bf16 backward's at 320, 384 and 512 through their entry points
+        # (device time; replaced_wide_fma of the rows above).
+        others = ("dh160_f32",) + (() if name == "flash_forward" else ("dh640_bf16",))
         row = {"name": f"{name}_wide_fma", "route": "cuda",
                "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
                "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
                "on_main_path": launches > 0, **{k: first[k] for k in timed_shape},
                "max_err": first["max_abs_err"], "dtype": "bfloat16",
                **{key: {k: timing(name, key)[k] for k in timed_shape} for key in others}}
-        past = ("dh320", "dh384", "dh512", "dh640", "dh1024", "w768")
+        past = ("dh320", "dh384", "dh512", "w384", "dh640", "dh1024", "w768")
+        built = ("dh320", "dh384", "dh512", "w384")
         row["entry_point"] = {key: replaced[key][entry] for key in replaced
                               if key.startswith(past) and entry in replaced[key]
-                              and (name == "flash_forward" or key.endswith("_f32"))}
+                              and (name == "flash_forward" or key.endswith("_f32")
+                                   or key.startswith(built))}
         rows.append(row)
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})

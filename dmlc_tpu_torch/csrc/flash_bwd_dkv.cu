@@ -7,10 +7,10 @@
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 or, at run
-// time, any other multiple of 8 past 256 (ops/flash.py zero-pads a head
-// dim up to 512 to one of the fixed ones, and a wider one to a multiple
-// of 8; csrc/flash_wide.cu takes bf16 past 256); lse and
+// 128, 192, 256, 320, 384, 448 or 512, and in float32 also, at run time,
+// any other multiple of 8 past 256 (ops/flash.py zero-pads a head dim up
+// to 512 to one of the fixed ones, and a wider one to a multiple of 8;
+// csrc/flash_wide.cu takes bf16 past 512); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -51,6 +51,32 @@
 // the only wait between the warpgroups is for P^T. Shared memory at Dh
 // 256: K, V 64 KB, the Q/dO ring 128 KB, P^T 16 KB. Its bound at [8, 3,
 // 2048, 256]: operations, 104 us.
+//
+// bf16 past Dh 256 (320, 384, 448, 512; DkvWideCfg, dkv_wide_consumer,
+// flash_bwd_dkv_wide_kernel_sm90): every bf16 head in (256, 512] pads to
+// one of them. The split layout of Dh 256 keeps dK or dV of 64 keys over
+// all of Dh, Dh / 2 floats a thread. At 320 that still fits a consumer
+// thread's 240 registers (160 floats; DkvAcc), and one block a key tile
+// runs that layout with 32-row Q/dO tiles. Past it, dK and dV are cut into
+// two column chunks of whole 64-column boxes (192 + 192, 256 + 192, 256 +
+// 256), one a block, and the two blocks of a key tile form a thread-block
+// cluster. Each block keeps the split layout over its chunk (warpgroup 0
+// dV and P^T, warpgroup 1 dK and dS^T, P^T handed over through shared
+// memory) and loads only its chunk's columns of K, V, Q and dO. S^T = K
+// Q^T and dP^T = V dO^T
+// are the sums of the two blocks' partial products over their columns:
+// each warpgroup pushes its partial into the other block's shared memory
+// (st.shared::cluster, double-buffered by Q tile parity), arrives on that
+// block's barrier (release at cluster scope), waits on its own and adds
+// the two in rank order, so both blocks hold the same P^T and dS^T and
+// neither makes the scores again. Q/dO tiles take 32 rows (S^T on
+// m64n32k16) in two stages: 170 KB at 512. Bound at [4, 4, 1024, 512]:
+// operations, 35 us. On an H100 80GB HBM3 at 700 W (PERF.md, section 6;
+// tools/flash_levers.py group wide_bwd_bf16) the cluster ran 2.3x slower
+// than one block at 320 (each tile's exchange is a round trip between the
+// two SMs; issuing the next tile's scores before it moved the time by
+// 2-5% either way); 64-row Q/dO tiles in one stage ran the same and
+// spilled at 512, 16-row ones 29-34% slower, three stages 0-3% slower.
 //
 // float32, the FMA design (flash::f32 below): register-tiled FMA on the
 // CUDA cores in full float32 (no TF32), bound by the 67 TFLOP/s float32
@@ -1438,13 +1464,344 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v, const void* 
   return cudaGetLastError();
 }
 
+constexpr int kDkvWideBK = 64;  // keys a block past Dh 256: both consumer warpgroups' rows
+
+// The bf16 dK/dV past Dh 256 (320, 384, 448, 512). The split layout of Dh
+// 256 keeps dV (warpgroup 0) or dK (warpgroup 1) of 64 keys over all of Dh,
+// Dh / 2 floats a thread: past 320 that is more than a consumer thread's
+// 240 registers hold. So dK and dV are cut into kChunks column chunks of
+// whole 64-column boxes (rank 0 the first kCols0 columns, the larger half
+// at 448; rank 1 the rest), one a block, and the blocks of one key tile
+// form a thread-block cluster. Each block keeps the split layout
+// over its own columns (OutAcc of at most 256 columns, 128 floats a
+// thread) and needs only those columns of K, V, Q and dO: S^T = K Q^T
+// (warpgroup 0) and dP^T = V dO^T (warpgroup 1) are the sums of the two
+// blocks' partial products over their columns. Each warpgroup pushes its
+// partial into the other block's shared memory (double-buffered by Q tile
+// parity) and arrives on that block's barrier; once its own barrier has
+// the other's arrivals it adds the two in rank order, so both blocks hold
+// the same S^T, P^T, dP^T and dS^T and neither makes the scores again.
+// Q/dO tiles take BQ rows (S^T on m64nBQk16) in a ring of kStages. At 320
+// (kChunks 1) one block keeps all of Dh (DkvAcc past 256 columns) and no
+// partial is exchanged.
+template <int DH>
+struct DkvWideCfg {
+  static constexpr int BQ = 32;          // query rows a Q/dO tile
+  static constexpr int kStages = 2;      // Q/dO ring depth
+  // Column chunks of dK and dV, one a block of a cluster; at 320 one
+  // block keeps all of Dh (160 floats a thread).
+  static constexpr int kChunks = DH == 320 ? 1 : 2;
+  static constexpr int kCols0 = kChunks == 1 ? DH : 64 * ((DH / 64 + 1) / 2);
+  static constexpr int kCols1 = DH - kCols0;
+  static constexpr uint32_t kKV = kDkvWideBK * kCols0 * 2;  // rank 0's columns of K or V: 32 KB at 512
+  static constexpr uint32_t kQ = BQ * kCols0 * 2;           // of a Q or dO tile: 16 KB at 512
+  static constexpr uint32_t kX = 128 * (BQ / 2) * 4;        // P^T, or a warpgroup's partial S^T or dP^T
+  // K, V, the Q/dO ring, P^T handed over, the other block's partials
+  // [parity][warpgroup]; then the lse and delta rows and the barriers.
+  static constexpr uint32_t kRows =
+      2 * kKV + 2 * kStages * kQ + kX + (kChunks == 1 ? 0 : 4 * kX);
+  static constexpr int kBars = 1 + 2 * kStages + 4;
+  static constexpr uint32_t kSmem = kRows + 2 * kStages * BQ * 4 + kBars * 8 + 1024;
+};
+
+// A warpgroup's [64, C] float32 accumulator: OutAcc up to 256 columns;
+// past it (one block over all of Dh, kChunks 1) OutAcc<256> and OutAcc<C -
+// 256> side by side.
+template <int C, bool kPast256 = (C > 256)>
+struct DkvAcc : OutAcc<C> {};
+
+template <int C>
+struct DkvAcc<C, true> {
+  OutAcc<256> a;
+  OutAcc<C - 256> b;
+
+  __device__ __forceinline__ void zero() {
+    a.zero();
+    b.zero();
+  }
+
+  __device__ __forceinline__ void mma(const uint32_t (&x)[4], const unsigned char* p,
+                                      uint32_t box) {
+    a.mma(x, p, box);
+    b.mma(x, p + 4 * box, box);
+  }
+
+  __device__ __forceinline__ void fence() {
+    a.fence();
+    b.fence();
+  }
+
+  __device__ __forceinline__ void stage(float mul0, float mul1, unsigned char* tile, int R,
+                                        int row0, int col0) {
+    a.stage(mul0, mul1, tile, R, row0, col0);
+    b.stage(mul0, mul1, tile, R, row0, col0 + 256);
+  }
+};
+
+// The boxes [c0 / 64, c0 / 64 + n) of a [rows, ...] tile of `map` at row
+// row0, head bh, into consecutive boxes of `rows` * 128 bytes at dst.
+__device__ __forceinline__ void tma_load_cols(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                              int rows, int row0, int bh, int c0, int n) {
+  for (int h = 0; h < n; ++h)
+    tma_load(static_cast<char*>(dst) + h * rows * 128, map, bar, c0 + 64 * h, row0, bh);
+}
+
+// Consumer warpgroup wg of the block of rank C0 == 0 ? 0 : 1: its C columns
+// [C0, C0 + C) of dV (wg 0) or dK (wg 1) of keys k0 + [0, 64).
+template <int DH, int C, int C0>
+__device__ __forceinline__ void dkv_wide_consumer(
+    unsigned char* smem, const float* lse_s, const float* delta_s, uint64_t* bars,
+    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int bh, int S, int k0,
+    int t0, int t_end, int causal, float scale, float scale_log2) {
+  typedef DkvWideCfg<DH> Cfg;
+  constexpr int BQ = Cfg::BQ, kStages = Cfg::kStages, N = BQ / 2;  // N: floats of S^T a thread
+  constexpr int rank = C0 == 0 ? 0 : 1;
+  const int wg = threadIdx.x / 128, t = threadIdx.x % 128, lane = t % 32;
+  const int key_lo = k0 + 16 * (t / 32) + lane / 4, key_hi = key_lo + 8;
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + Cfg::kKV;
+  unsigned char* Qs = smem + 2 * Cfg::kKV;         // stage s at + s * kQ
+  unsigned char* dOs = Qs + kStages * Cfg::kQ;      // stage s at + s * kQ
+  float4* handed = reinterpret_cast<float4*>(dOs + kStages * Cfg::kQ);
+  float4* theirs = handed + Cfg::kX / 16;           // [parity][warpgroup]: the other block's partials
+  uint64_t* full = bars + 1;                         // [kStages]
+  uint64_t* empty = full + kStages;                  // [kStages]
+  uint64_t* xfull = empty + kStages;                 // [parity][warpgroup]: the other's pushed
+  const unsigned char* A = wg == 0 ? Ks : Vs;        // S^T = K Q^T, dP^T = V dO^T
+  DkvAcc<C> acc;                                     // dV (warpgroup 0) or dK (1)
+  acc.zero();
+  mbar_wait(bars, 0);
+  for (int tq = t0; tq < t_end; ++tq) {
+    const int it = tq - t0, s = it % kStages, q0 = tq * BQ;
+    const unsigned char* Qt = Qs + s * Cfg::kQ;
+    const unsigned char* dOt = dOs + s * Cfg::kQ;
+    const unsigned char* Bs = wg == 0 ? Qt : dOt;  // the score product's B
+    const unsigned char* Bo = wg == 0 ? dOt : Qt;  // the output product's B
+    mbar_wait(&full[s], (it / kStages) & 1);
+    float sc[N];
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < C / 16; ++kk) {
+      const uint32_t a = (kk / 4) * (kDkvWideBK * 128) + (kk % 4) * 32;
+      const uint32_t b = (kk / 4) * (BQ * 128) + (kk % 4) * 32;
+      wgmma_ss(sc, desc(A + a, 16, 1024), desc(Bs + b, 16, 1024), kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+
+    if constexpr (Cfg::kChunks == 2) {
+      // Push this block's partial into the other block's buffer of this
+      // parity and warpgroup, arrive there, wait for the other's, and add
+      // the two in rank order. A buffer is written again two tiles later,
+      // after the other block has arrived for the tile between, which it
+      // does after reading this one.
+      const int x = (it & 1) * 2 + wg;
+      const uint32_t peer = peer_addr(theirs + x * (N / 4) * 128 + t, 1 - rank);
+#pragma unroll
+      for (int v = 0; v < N / 4; ++v)
+        st_peer(peer + v * 128 * 16,
+                make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]));
+      mbar_arrive_peer(peer_addr(&xfull[x], 1 - rank));
+      mbar_wait_cluster(&xfull[x], (it >> 1) & 1);
+#pragma unroll
+      for (int v = 0; v < N / 4; ++v) {
+        const float4 o = theirs[(x * (N / 4) + v) * 128 + t];
+        const float r[4] = {o.x, o.y, o.z, o.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          sc[4 * v + e] = rank == 0 ? sc[4 * v + e] + r[e] : r[e] + sc[4 * v + e];
+      }
+    }
+
+    const float* lrow = lse_s + s * BQ;
+    const float* drow = delta_s + s * BQ;
+    if (wg == 0) {
+      // P^T, masked only on the tiles that cross the diagonal or the end
+      // of S, handed to warpgroup 1 once it has read the last one.
+      const bool edge = q0 + BQ > S || k0 + kDkvWideBK > S || (causal && k0 + 63 > q0);
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        const int qc = 8 * (i / 4) + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+        const int key = (i % 4) < 2 ? key_lo : key_hi;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qi = q0 + qc + u;
+          const bool masked = edge && (qi >= S || key >= S || (causal && key > qi));
+          sc[i + u] = masked ? 0.f : exp2f(sc[i + u] * scale_log2 - (u ? l2.y : l2.x));
+        }
+      }
+      if (it > 0) consumers_wait(kBarPEmpty);
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j)
+        handed[128 * j + t] = make_float4(sc[4 * j], sc[4 * j + 1], sc[4 * j + 2], sc[4 * j + 3]);
+      consumers_arrive(kBarPFull);
+    } else {
+      // dS^T = P^T (dP^T - delta), P^T as warpgroup 0 made it (entry i of
+      // thread t holds the same key and query in both warpgroups).
+      consumers_wait(kBarPFull);
+      float p[N];
+#pragma unroll
+      for (int j = 0; j < N / 4; ++j) {
+        const float4 v4 = handed[128 * j + t];
+        p[4 * j] = v4.x, p[4 * j + 1] = v4.y, p[4 * j + 2] = v4.z, p[4 * j + 3] = v4.w;
+      }
+      if (tq + 1 < t_end) consumers_arrive(kBarPEmpty);
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        const int qc = 8 * (i / 4) + 2 * (lane % 4);
+        const float2 d2 = *reinterpret_cast<const float2*>(drow + qc);
+        sc[i] = p[i] * (sc[i] - d2.x);
+        sc[i + 1] = p[i + 1] * (sc[i + 1] - d2.y);
+      }
+    }
+    uint32_t a[BQ / 16][4];
+    to_a_operand(sc, a);
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1) over the block's
+    // columns: B is [queries, C], MN-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc.mma(a[kk], Bo + kk * 16 * 128, BQ * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc.fence();
+    mbar_arrive(&empty[s]);
+  }
+  // Each warpgroup stages through the tile only it read: dV through K, dK
+  // through V, then copies its columns out.
+  const size_t base = (size_t)bh * S * DH + C0;
+  unsigned char* tile = wg == 0 ? Ks : Vs;
+  acc.stage(wg == 0 ? 1.f : scale, wg == 0 ? 1.f : scale, tile, kDkvWideBK, 0, 0);
+  copy_rows<DH, C>(tile, kDkvWideBK, 0, (wg == 0 ? dv : dk) + base, k0, S, 1 + wg);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_wide_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                                   const __grid_constant__ CUtensorMap map_k,
+                                   const __grid_constant__ CUtensorMap map_v,
+                                   const __grid_constant__ CUtensorMap map_do,
+                                   const float* __restrict__ lse, const float* __restrict__ delta,
+                                   __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                   int BH, int S, int causal, float scale, float scale_log2) {
+  typedef DkvWideCfg<DH> C;
+  constexpr int BQ = C::BQ, kStages = C::kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  unsigned char* Ks = smem;
+  unsigned char* Vs = smem + C::kKV;
+  unsigned char* Qs = smem + 2 * C::kKV;        // stage s at + s * C::kQ
+  unsigned char* dOs = Qs + kStages * C::kQ;    // stage s at + s * C::kQ
+  float* lse_s = reinterpret_cast<float*>(smem + C::kRows);  // [kStages][BQ], times log2(e)
+  float* delta_s = lse_s + kStages * BQ;                      // [kStages][BQ]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(delta_s + kStages * BQ);
+  uint64_t* bar_kv = bars;
+  uint64_t* full = bars + 1;          // [kStages]
+  uint64_t* empty = full + kStages;   // [kStages]
+  uint64_t* xfull = empty + kStages;  // [parity][warpgroup]: the other block's partials pushed
+
+  // Block order: key tile 0 of every head first (the most Q tiles when
+  // causal); the kChunks blocks of a key tile are one cluster.
+  const int rank = C::kChunks == 1 ? 0 : (int)cluster_rank();
+  const int tile = (int)(blockIdx.x / C::kChunks);
+  const int bh = tile % BH;
+  const int k0 = (tile / BH) * kDkvWideBK;
+  // Q tiles [t0, t_end): when causal, from the first that reaches these keys.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int t_end = (S - 1) / BQ + 1;  // S > 0
+  const int c0 = rank == 0 ? 0 : C::kCols0, boxes = (rank == 0 ? C::kCols0 : C::kCols1) / 64;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 32);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    for (int x = 0; x < 4; ++x) mbar_init(&xfull[x], 128);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (C::kChunks > 1) cluster_sync();  // no block arrives on the other's barriers before they exist
+
+  if (wg == 2) {
+    // Producer: warp 8. Lane 0 issues the copies of the block's columns;
+    // the lanes bring the lse and delta rows.
+    regs_dealloc<24>();
+    if (threadIdx.x < 288) {
+      const int lane = threadIdx.x % 32;
+      if (lane == 0) {
+        prefetch_map(&map_q);
+        prefetch_map(&map_do);
+        mbar_expect(bar_kv, 2 * kDkvWideBK * 128 * boxes);
+        tma_load_cols(Ks, &map_k, bar_kv, kDkvWideBK, k0, bh, c0, boxes);
+        tma_load_cols(Vs, &map_v, bar_kv, kDkvWideBK, k0, bh, c0, boxes);
+      }
+      const float* lse_g = lse + (size_t)bh * S;
+      const float* delta_g = delta + (size_t)bh * S;
+      for (int tq = t0; tq < t_end; ++tq) {
+        const int it = tq - t0, s = it % kStages, q0 = tq * BQ;
+        mbar_wait(&empty[s], ((it / kStages) & 1) ^ 1);
+        for (int r = lane; r < BQ; r += 32) {
+          const int qi = q0 + r;
+          lse_s[s * BQ + r] = qi < S ? lse_g[qi] * kLog2e : 0.f;
+          delta_s[s * BQ + r] = qi < S ? delta_g[qi] : 0.f;
+        }
+        if (lane == 0) {
+          mbar_expect(&full[s], 2 * BQ * 128 * boxes);
+          tma_load_cols(Qs + s * C::kQ, &map_q, &full[s], BQ, q0, bh, c0, boxes);
+          tma_load_cols(dOs + s * C::kQ, &map_do, &full[s], BQ, q0, bh, c0, boxes);
+        } else {
+          mbar_arrive(&full[s]);
+        }
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    if (rank == 0) {
+      dkv_wide_consumer<DH, C::kCols0, 0>(smem, lse_s, delta_s, bars, dk, dv, bh, S, k0, t0,
+                                          t_end, causal, scale, scale_log2);
+    } else if constexpr (C::kChunks == 2) {
+      dkv_wide_consumer<DH, C::kCols1, C::kCols0>(smem, lse_s, delta_s, bars, dk, dv, bh, S, k0,
+                                                  t0, t_end, causal, scale, scale_log2);
+    }
+  }
+  if (C::kChunks > 1) {
+    __syncwarp();
+    cluster_sync();  // no block exits while the other may still write to it
+  }
+}
+
+template <int DH>
+cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const void* dout,
+                            const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                            int causal, float scale, cudaStream_t stream) {
+  typedef DkvWideCfg<DH> C;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, DH, C::BQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, kDkvWideBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, kDkvWideBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, DH, C::BQ)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_bwd_dkv_wide_kernel_sm90<DH>, C::kSmem)) != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kDkvWideBK - 1) / kDkvWideBK) * bh * C::kChunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  e = launch_clustered(flash_bwd_dkv_wide_kernel_sm90<DH>, (unsigned)blocks, kThreads, C::kSmem,
+                       C::kChunks, stream, mq, mk, mv, mdo, static_cast<const float*>(lse),
+                       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+                       static_cast<__nv_bfloat16*>(dv), bh, s, causal, scale, scale * kLog2e);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
 }  // namespace sm90
 
 }  // namespace flash
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
-// lse, delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes,
-// and in float32 320, 384, 448 or 512 (the kernels built for them) or any
+// lse, delta: float32 [bh, s]. dh is 64, 128, 192, 256, 320, 384, 448 or
+// 512 in both dtypes (the kernels built for them), and in float32 any
 // other multiple of 8 past 256 (the kernel that takes the head dim at run
 // time). Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
@@ -1462,6 +1819,18 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
     return (int)sm90::launch_dkv<192>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (is_bf16 && dh == 256)
     return (int)sm90::launch_dkv<256>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 320)
+    return (int)sm90::launch_dkv_wide<320>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale,
+                                           st);
+  if (is_bf16 && dh == 384)
+    return (int)sm90::launch_dkv_wide<384>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale,
+                                           st);
+  if (is_bf16 && dh == 448)
+    return (int)sm90::launch_dkv_wide<448>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale,
+                                           st);
+  if (is_bf16 && dh == 512)
+    return (int)sm90::launch_dkv_wide<512>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale,
+                                           st);
   if (!is_bf16 && dh == 128)
     return (int)f32::launch_dkv<128>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
@@ -1491,6 +1860,10 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
   if (dh == 64) return (int)(is_bf16 ? sm90::DkvCfg<64>::kSmem : f32::DkvCfg<64>::bytes);
   if (dh == 192 && is_bf16) return (int)sm90::DkvCfg<192>::kSmem;
   if (dh == 256 && is_bf16) return (int)sm90::DkvCfg<256>::kSmem;
+  if (dh == 320 && is_bf16) return (int)sm90::DkvWideCfg<320>::kSmem;
+  if (dh == 384 && is_bf16) return (int)sm90::DkvWideCfg<384>::kSmem;
+  if (dh == 448 && is_bf16) return (int)sm90::DkvWideCfg<448>::kSmem;
+  if (dh == 512 && is_bf16) return (int)sm90::DkvWideCfg<512>::kSmem;
   if (dh == 192 && !is_bf16) return (int)f32::DkvCfg<192>::bytes;
   if (dh == 256 && !is_bf16) return (int)f32::DkvCfg<256>::bytes;
   if (dh == 320 && !is_bf16) return (int)f32::DkvCfg<320>::bytes;
@@ -1503,7 +1876,7 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
 
 // The instantiation (its template argument W, the widest part's 64-column
 // steps) that the float32 kernel past 256 runs head dim dh with; 0 where a
-// kernel built for dh runs it, or none (bf16 past 256 runs
+// kernel built for dh runs it, or none (bf16 past 512 runs
 // csrc/flash_wide.cu).
 extern "C" int dmlc_flash_bwd_dkv_xl_width(int dh, int is_bf16) {
   using namespace flash;

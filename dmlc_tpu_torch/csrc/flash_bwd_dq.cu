@@ -6,10 +6,10 @@
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192 or 256, and in float32 also 320, 384, 448 or 512 or, at run
-// time, any other multiple of 8 past 256 (ops/flash.py zero-pads a head
-// dim up to 512 to one of the fixed ones, and a wider one to a multiple
-// of 8; csrc/flash_wide.cu takes bf16 past 256); lse and
+// 128, 192, 256, 320, 384, 448 or 512, and in float32 also, at run time,
+// any other multiple of 8 past 256 (ops/flash.py zero-pads a head dim up
+// to 512 to one of the fixed ones, and a wider one to a multiple of 8;
+// csrc/flash_wide.cu takes bf16 past 512); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -54,6 +54,33 @@
 // two stages each (S and dP on m64n32k16) 12% slower (PERF.md, section 6;
 // tools/flash_levers.py group wide_dq). Its bound at [8, 3, 2048, 256]
 // (the LM train shape's FLOPs as 3 heads of 256): operations, 78 us.
+//
+// bf16 past Dh 256 (320, 384, 448, 512; DqWideCfg, dq_wide_consumer,
+// flash_bwd_dq_wide_kernel_sm90): every bf16 head in (256, 512] pads to
+// one of them. The design of Dh 256 does not fit: a [128, 512] Q tile and
+// its dO tile take 256 KB, and dQ over all of Dh would be 256 floats a
+// thread. So a block holds 64 query rows, which both consumer warpgroups
+// share (the bf16 forward's split past 256, csrc/flash_fwd.cu
+// FwdWideCfg): warpgroup 0 owns dQ's first whole 64-column boxes (192 of
+// 320, 256 of 448), warpgroup 1 the rest, at most 128 floats a thread
+// (OutAcc). S = Q K^T and dP = dO V^T (m64nBKk16) are split over Dh's k16
+// steps: each warpgroup makes its half of both, writes the partials to
+// shared memory (double-buffered by tile parity), waits on one named
+// barrier of both warpgroups and adds the other's; a + b == b + a, so
+// both hold the same S, P and dS, which each rounds to bf16 as the
+// register A operand of dQ += dS K over its own boxes of K (MN-major).
+// Q and dO take 128 KB at 512, so past 320 K/V tiles take 16 keys, two
+// stages of K and one of V (V released once dP is made; 48 KB), and the
+// partials 32 KB: 209 KB at 512; at 320, 32-key tiles in two stages each
+// (225 KB). On an H100 80GB HBM3 at 700 W (PERF.md, section 6;
+// tools/flash_levers.py group wide_bwd_bf16) 32-key tiles ran 19-23%
+// faster than 16-key ones at 320, and one V stage 4-5% faster than two at
+// [8, 2, 2048, 384] (at 512 within the 4% by which two readings of one
+// build differed). Scale is applied once, in the epilogue, which stages
+// each warpgroup's columns through Q; a thread reads its rows' lse and
+// delta once; masks run only on the tiles that cross the diagonal or the
+// end of S; the longest causal Q tiles launch first.
+// Bound at [4, 4, 1024, 512]: operations, 26 us.
 //
 // float32, the FMA design (flash::f32 below; the float32 forward's, with one
 // more product and no online softmax): Hopper has no full-float32
@@ -1089,13 +1116,264 @@ cudaError_t launch_dq(const void* q, const void* k, const void* v, const void* d
   return cudaGetLastError();
 }
 
+constexpr int kDqWideBQ = 64;  // query rows a block past Dh 256: both consumer warpgroups hold them all
+constexpr int kBarX = 3;       // named barrier: both warpgroups' partial S and dP written
+
+// The bf16 dQ past Dh 256 (320, 384, 448, 512). A [128, DH] Q tile and its
+// dO tile take 256 KB at 512, and dQ over all of Dh would be 256 floats a
+// thread: no 227 KB block holds the design of Dh 256. So a block holds 64
+// query rows, which both consumer warpgroups share, and BK-key K/V tiles
+// in rings of kStagesK and kStagesV. Warpgroup 0 owns dQ's first kCols0
+// columns (whole 64-column boxes, the larger half at 320 and 448),
+// warpgroup 1 the rest: at most 256 columns, 128 floats a thread, one or
+// two wgmma accumulators (OutAcc). Each warpgroup makes S = Q K^T and dP =
+// dO V^T over half of Dh's k16 steps (kSteps), and the two add each
+// other's partials through shared memory (kX a product a warpgroup,
+// double-buffered by tile parity, one named barrier a tile); both then
+// hold the same S, dP, P and dS (a + b == b + a). Q and dO take 128 KB at
+// 512, so past 320 the K/V tiles take 16 keys (16 KB each at 512; the
+// partials 32 KB) and V one stage.
+template <int DH>
+struct DqWideCfg {
+  static constexpr int BK = DH == 320 ? 32 : 16;  // keys a K/V tile
+  static constexpr int kStagesK = 2;              // K ring depth
+  static constexpr int kStagesV = DH == 320 ? 2 : 1;  // V ring depth
+  // V has barriers of its own when its ring is not K's.
+  static constexpr bool kSplitV = kStagesV != kStagesK;
+  static constexpr int kCols0 = 64 * ((DH / 64 + 1) / 2), kCols1 = DH - kCols0;
+  static constexpr int kSteps = DH / 32;               // k16 steps of S and dP a warpgroup makes
+  static constexpr uint32_t kQ = kDqWideBQ * DH * 2;   // the Q or the dO tile: 64 KB at Dh 512
+  static constexpr uint32_t kKV = BK * DH * 2;         // a K or V tile: 16 KB at Dh 512
+  static constexpr uint32_t kX = 128 * (BK / 2) * 4;   // one warpgroup's partial S or dP
+  static constexpr int kBars = 1 + 2 * kStagesK + 2 * kStagesV;
+  // Q, dO, the K and V rings, the partials [parity][warpgroup][S, dP],
+  // barriers, alignment.
+  static constexpr uint32_t kSmem =
+      2 * kQ + (kStagesK + kStagesV) * kKV + 8 * kX + kBars * 8 + 1024;
+};
+
+// K/V tiles that the 64-row Q tile at q0 reads: up to its diagonal when causal.
+template <int DH>
+__device__ __forceinline__ int dq_wide_tiles(int q0, int S, int causal) {
+  constexpr int BK = DqWideCfg<DH>::BK;
+  return ((causal ? min(q0 + kDqWideBQ, S) : S) + BK - 1) / BK;
+}
+
+// Consumer warpgroup wg (0 or 1) of the wide dQ: dQ's columns [C0, C0 + C)
+// of query rows q0 + [0, 64).
+template <int DH, int C, int C0>
+__device__ __forceinline__ void dq_wide_consumer(
+    unsigned char* Qs, const unsigned char* dOs, const unsigned char* Ks, const unsigned char* Vs,
+    float* X, uint64_t* bars, const float* __restrict__ lse, const float* __restrict__ delta,
+    __nv_bfloat16* __restrict__ dq, int bh, int S, int q0, int causal, float scale,
+    float scale_log2) {
+  typedef DqWideCfg<DH> Cfg;
+  constexpr int BK = Cfg::BK, SK = Cfg::kStagesK, SV = Cfg::kStagesV, wg = C0 == 0 ? 0 : 1;
+  uint64_t* bar_q = bars;
+  uint64_t* full_k = bars + 1;    // [SK]
+  uint64_t* full_v = full_k + SK;  // [SV]
+  uint64_t* empty = full_v + SV;   // [SK]: K read (and V, unless kSplitV)
+  uint64_t* empty_v = empty + SK;  // [SV]: V read (kSplitV)
+  const int n_k = dq_wide_tiles<DH>(q0, S, causal);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int qi0 = q0 + 16 * (t / 32) + lane / 4;  // and qi0 + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qi0 + 8 * h;
+    lse2[h] = qi < S ? lse[(size_t)bh * S + qi] * kLog2e : 0.f;
+    dlt[h] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+  }
+  const int kk0 = wg * Cfg::kSteps;  // this warpgroup's first k16 step of S and dP
+  OutAcc<C> acc;
+  acc.zero();
+  mbar_wait(bar_q, 0);
+  for (int j = 0; j < n_k; ++j) {
+    const int sk = j % SK, sv = j % SV, k0 = j * BK;
+    const unsigned char* Kt = Ks + sk * Cfg::kKV;
+    const unsigned char* Vt = Vs + sv * Cfg::kKV;
+    float sc[BK / 2], dp[BK / 2];
+    mbar_wait(&full_k[sk], (j / SK) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < Cfg::kSteps; ++i) {
+      const int kk = kk0 + i;
+      const uint32_t a = (kk / 4) * (kDqWideBQ * 128) + (kk % 4) * 32;
+      const uint32_t b = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+      wgmma_ss(sc, desc(Qs + a, 16, 1024), desc(Kt + b, 16, 1024), i);
+    }
+    wgmma_commit();
+    mbar_wait(&full_v[sv], (j / SV) & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int i = 0; i < Cfg::kSteps; ++i) {
+      const int kk = kk0 + i;
+      const uint32_t a = (kk / 4) * (kDqWideBQ * 128) + (kk % 4) * 32;
+      const uint32_t b = (kk / 4) * (BK * 128) + (kk % 4) * 32;
+      wgmma_ss(dp, desc(dOs + a, 16, 1024), desc(Vt + b, 16, 1024), i);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    reg_fence(sc);
+    reg_fence(dp);
+    if (Cfg::kSplitV) mbar_arrive(&empty_v[sv]);  // this warpgroup is done with V
+
+    // Thread t's partial S at float4 v * 128 + t of this warpgroup's
+    // buffer and its partial dP BK / 8 float4 further; the twin thread of
+    // the other warpgroup holds the same rows and keys and adds them. The
+    // last tile's barrier also follows both warpgroups' last reads of Q,
+    // through which the epilogue stages dQ.
+    float4* mine = reinterpret_cast<float4*>(X) + ((j & 1) * 2 + wg) * (BK / 4) * 128;
+    const float4* theirs =
+        reinterpret_cast<const float4*>(X) + ((j & 1) * 2 + 1 - wg) * (BK / 4) * 128;
+#pragma unroll
+    for (int v = 0; v < BK / 8; ++v) {
+      mine[v * 128 + t] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+      mine[(BK / 8 + v) * 128 + t] =
+          make_float4(dp[4 * v], dp[4 * v + 1], dp[4 * v + 2], dp[4 * v + 3]);
+    }
+    consumers_wait(kBarX);
+#pragma unroll
+    for (int v = 0; v < BK / 8; ++v) {
+      const float4 x = theirs[v * 128 + t];
+      sc[4 * v] += x.x, sc[4 * v + 1] += x.y, sc[4 * v + 2] += x.z, sc[4 * v + 3] += x.w;
+      const float4 y = theirs[(BK / 8 + v) * 128 + t];
+      dp[4 * v] += y.x, dp[4 * v + 1] += y.y, dp[4 * v + 2] += y.z, dp[4 * v + 3] += y.w;
+    }
+
+    // P, 0 where masked (only the tiles crossing the diagonal or the end
+    // of S), and dS = P (dP - delta) in place.
+    const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) {
+      const int h = (i % 4) / 2;  // row qi0 + 8 h
+      const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+      const bool masked = edge && (kj >= S || (causal && kj > qi0 + 8 * h));
+      dp[i] = masked ? 0.f : exp2f(sc[i] * scale_log2 - lse2[h]) * (dp[i] - dlt[h]);
+    }
+    uint32_t dsa[BK / 16][4];
+    to_a_operand(dp, dsa);
+
+    // dQ[:, C0 + [0, C)) += dS K: K's boxes from C0 / 64 on, MN-major.
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk)
+      acc.mma(dsa[kk], Kt + (C0 / 64) * (BK * 128) + kk * 16 * 128, BK * 128);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc.fence();
+    mbar_arrive(&empty[sk]);
+  }
+  // Neither warpgroup reads Q now: each stages its columns of dQ there.
+  acc.stage(scale, scale, Qs, kDqWideBQ, 0, C0);
+  copy_rows<DH, C>(Qs, kDqWideBQ, 0, dq + (size_t)bh * S * DH, q0, S, 1 + wg, C0);
+}
+
+template <int DH>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_wide_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                                  const __grid_constant__ CUtensorMap map_k,
+                                  const __grid_constant__ CUtensorMap map_v,
+                                  const __grid_constant__ CUtensorMap map_do,
+                                  const float* __restrict__ lse, const float* __restrict__ delta,
+                                  __nv_bfloat16* __restrict__ dq, int BH, int S, int causal,
+                                  float scale, float scale_log2) {
+  typedef DqWideCfg<DH> C;
+  constexpr int SK = C::kStagesK, SV = C::kStagesV;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  unsigned char* Qs = smem;
+  unsigned char* dOs = smem + C::kQ;
+  unsigned char* Ks = smem + 2 * C::kQ;  // stage s at + s * C::kKV
+  unsigned char* Vs = Ks + SK * C::kKV;  // stage s at + s * C::kKV
+  float* X = reinterpret_cast<float*>(Vs + SV * C::kKV);
+  uint64_t* bars = reinterpret_cast<uint64_t*>(Vs + SV * C::kKV + 8 * C::kX);
+  uint64_t* bar_q = bars;           // Q and dO
+  uint64_t* full_k = bars + 1;      // [SK]
+  uint64_t* full_v = full_k + SK;   // [SV]
+  uint64_t* empty = full_v + SV;    // [SK]
+  uint64_t* empty_v = empty + SK;   // [SV]
+
+  // Block order: the last (longest, when causal) Q tile of every head first.
+  const int n_tiles = (S + kDqWideBQ - 1) / kDqWideBQ;
+  const int bh = blockIdx.x % BH;
+  const int q0 = (n_tiles - 1 - (int)(blockIdx.x / BH)) * kDqWideBQ;
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int s = 0; s < SK; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&empty[s], kConsumerThreads);
+    }
+    for (int s = 0; s < SV; ++s) {
+      mbar_init(&full_v[s], 1);
+      mbar_init(&empty_v[s], kConsumerThreads);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // Producer: one thread keeps the rings full.
+    regs_dealloc<24>();
+    if (threadIdx.x == 256) {
+      const int n_k = dq_wide_tiles<DH>(q0, S, causal);
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      mbar_expect(bar_q, 2 * C::kQ);
+      tma_load_tile<DH>(Qs, &map_q, bar_q, kDqWideBQ, q0, bh);
+      tma_load_tile<DH>(dOs, &map_do, bar_q, kDqWideBQ, q0, bh);
+      for (int j = 0; j < n_k; ++j) {
+        const int sk = j % SK, sv = j % SV;
+        mbar_wait(&empty[sk], ((j / SK) & 1) ^ 1);
+        mbar_expect(&full_k[sk], C::kKV);
+        tma_load_tile<DH>(Ks + sk * C::kKV, &map_k, &full_k[sk], C::BK, j * C::BK, bh);
+        if (C::kSplitV) mbar_wait(&empty_v[sv], ((j / SV) & 1) ^ 1);
+        mbar_expect(&full_v[sv], C::kKV);
+        tma_load_tile<DH>(Vs + sv * C::kKV, &map_v, &full_v[sv], C::BK, j * C::BK, bh);
+      }
+    }
+  } else if (wg == 0) {
+    regs_alloc<240>();
+    dq_wide_consumer<DH, C::kCols0, 0>(Qs, dOs, Ks, Vs, X, bars, lse, delta, dq, bh, S, q0,
+                                       causal, scale, scale_log2);
+  } else {
+    regs_alloc<240>();
+    dq_wide_consumer<DH, C::kCols1, C::kCols0>(Qs, dOs, Ks, Vs, X, bars, lse, delta, dq, bh, S,
+                                                q0, causal, scale, scale_log2);
+  }
+}
+
+template <int DH>
+cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const void* dout,
+                           const void* lse, const void* delta, void* dq, int bh, int s,
+                           int causal, float scale, cudaStream_t stream) {
+  typedef DqWideCfg<DH> C;
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, DH, kDqWideBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, DH, C::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, DH, kDqWideBQ)) != cudaSuccess) return e;
+  if ((e = allow_smem(flash_bwd_dq_wide_kernel_sm90<DH>, C::kSmem)) != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kDqWideBQ - 1) / kDqWideBQ) * bh;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  flash_bwd_dq_wide_kernel_sm90<DH><<<(unsigned)blocks, kThreads, C::kSmem, stream>>>(
+      mq, mk, mv, mdo, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<__nv_bfloat16*>(dq), bh, s, causal, scale, scale * kLog2e);
+  return cudaGetLastError();
+}
+
 }  // namespace sm90
 
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
-// delta: float32 [bh, s]. dh is 64, 128, 192 or 256 in both dtypes, and in
-// float32 320, 384, 448 or 512 (the kernels built for them) or any other
+// delta: float32 [bh, s]. dh is 64, 128, 192, 256, 320, 384, 448 or 512 in
+// both dtypes (the kernels built for them), and in float32 any other
 // multiple of 8 past 256 (the kernel that takes the head dim at run time).
 // Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
@@ -1112,6 +1390,14 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
     return (int)sm90::launch_dq<192>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (is_bf16 && dh == 256)
     return (int)sm90::launch_dq<256>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 320)
+    return (int)sm90::launch_dq_wide<320>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 384)
+    return (int)sm90::launch_dq_wide<384>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 448)
+    return (int)sm90::launch_dq_wide<448>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
+  if (is_bf16 && dh == 512)
+    return (int)sm90::launch_dq_wide<512>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 128)
     return (int)f32::launch_dq<128>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh == 64)
@@ -1141,6 +1427,10 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   if (dh == 64) return (int)(is_bf16 ? sm90::DqCfg<64>::kSmem : f32::DqCfg<64>::bytes);
   if (dh == 192 && is_bf16) return (int)sm90::DqCfg<192>::kSmem;
   if (dh == 256 && is_bf16) return (int)sm90::DqCfg<256>::kSmem;
+  if (dh == 320 && is_bf16) return (int)sm90::DqWideCfg<320>::kSmem;
+  if (dh == 384 && is_bf16) return (int)sm90::DqWideCfg<384>::kSmem;
+  if (dh == 448 && is_bf16) return (int)sm90::DqWideCfg<448>::kSmem;
+  if (dh == 512 && is_bf16) return (int)sm90::DqWideCfg<512>::kSmem;
   if (dh == 192 && !is_bf16) return (int)f32::DqCfg<192>::bytes;
   if (dh == 256 && !is_bf16) return (int)f32::DqCfg<256>::bytes;
   if (dh == 320 && !is_bf16) return (int)f32::DqCfg<320>::bytes;
@@ -1153,7 +1443,7 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
 
 // The instantiation (its template argument W, the widest part's 64-column
 // steps of dQ) that the float32 kernel past 256 runs head dim dh with; 0
-// where a kernel built for dh runs it, or none (bf16 past 256 runs
+// where a kernel built for dh runs it, or none (bf16 past 512 runs
 // csrc/flash_wide.cu).
 extern "C" int dmlc_flash_bwd_dq_xl_width(int dh, int is_bf16) {
   using namespace flash;

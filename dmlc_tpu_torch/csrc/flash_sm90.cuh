@@ -2,7 +2,8 @@
 // (flash_fwd.cu, flash_bwd_dq.cu, flash_bwd_dkv.cu).
 //
 // - TMA: tiles of a [BH, S, DH] bf16 tensor (DH 64 or 128, 192 or 256,
-//   and 320 to 512 for the forward; a template parameter of every kernel) are
+//   and 320 to 512; a template parameter of every kernel but those past
+//   512) are
 //   copied into shared memory by the Tensor
 //   Memory Accelerator, one thread issuing each copy. The tensor map is 3-D
 //   over (d, s, bh), so rows past S of one head are zero-filled instead of
@@ -107,6 +108,53 @@ __device__ __forceinline__ void tma_load_tile(void* dst, const CUtensorMap* map,
 
 __device__ __forceinline__ void prefetch_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// ---------------------------------------------------------------- clusters
+
+// The bf16 dK/dV past Dh 256 splits its score products between the two
+// blocks of a thread-block cluster, each pushing its partial sums into the
+// other's shared memory. peer_addr maps this block's shared address p to
+// block `rank` of the cluster; st_peer writes 16 bytes there;
+// mbar_arrive_peer arrives on a barrier of that block (its address from
+// peer_addr) after this thread's earlier writes (release at cluster scope),
+// and mbar_wait_cluster is mbar_wait that sees them (acquire at cluster
+// scope).
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+__device__ __forceinline__ uint32_t peer_addr(const void* p, uint32_t rank) {
+  uint32_t a;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(a) : "r"(smem_u32(p)), "r"(rank));
+  return a;
+}
+
+__device__ __forceinline__ void st_peer(uint32_t addr, float4 v) {
+  asm volatile("st.shared::cluster.v4.f32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "f"(v.x),
+               "f"(v.y), "f"(v.z), "f"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_peer(uint32_t addr) {
+  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];\n" ::"r"(addr)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.acquire.cluster.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+  }
 }
 
 // --------------------------------------------- warp specialisation, barriers
@@ -245,9 +293,20 @@ __device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da, uint64
       : "l"(da), "l"(db), "r"(acc));
 }
 
+// D[64 x 16] (+)= A . B, both operands from shared memory, both K-major.
+__device__ __forceinline__ void wgmma_ss_n16(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(acc));
+}
+
 // D (+)= A . B from shared memory, both K-major, N by the accumulator's
 // size: 64 floats a thread for N = 128, 48 for N = 96, 32 for N = 64, 16
-// for N = 32.
+// for N = 32, 8 for N = 16.
 __device__ __forceinline__ void wgmma_ss(float (&d)[64], uint64_t da, uint64_t db, int acc) {
   wgmma_ss_n128(d, da, db, acc);
 }
@@ -262,6 +321,10 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t da, uint64_t d
 
 __device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t da, uint64_t db, int acc) {
   wgmma_ss_n32(d, da, db, acc);
+}
+
+__device__ __forceinline__ void wgmma_ss(float (&d)[8], uint64_t da, uint64_t db, int acc) {
+  wgmma_ss_n16(d, da, db, acc);
 }
 
 // D[64 x 128] (+)= A . B, A from registers (four bf16x2 per thread), B from

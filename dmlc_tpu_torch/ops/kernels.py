@@ -85,8 +85,8 @@ _SIGNATURES = {
     ),
 }
 # The same three at any head dim past 128 (csrc/flash_wide.cu): the public
-# functions reach the backward's past 256 and the forward's past 512
-# (ops/flash._entry_name picks), with the same arguments.
+# functions reach the bf16 backward's past 512 (ops/flash._entry_name
+# picks), with the same arguments.
 _SIGNATURES.update({
     f"flash_wide_{name[6:]}": (f"dmlc_flash_wide_{name[6:]}", _SIGNATURES[name][1])
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")

@@ -117,6 +117,25 @@ LM train shape, or its Dh-64 twin):
   one long changes nothing: the rows past S are zero-filled, and their
   products with dS or P^T vanish); _pad ([4, 4, 1024, 520]): the slabs'
   columns past Dh not zeroed (the copies read the next row).
+- the bf16 dQ and dK/dV past Dh 256 (flash_bwd_dq_wide_*,
+  flash_bwd_dkv_wide_*; 64-row Q tiles and 16-key K/V tiles shared by two
+  warpgroups in dQ, 64-key blocks in clusters of two column chunks in
+  dK/dV): _tiles ([4, 4, 1024, 512] in dQ, [2, 3, 193, 512] in dK/dV):
+  the last Q tile skips its last K/V tile (dQ), the last key block its last
+  Q tile (dK/dV), in the producer and both consumer warpgroups; _x_drop
+  (dQ at 320): the other warpgroup's partial S and dP dropped from half of
+  each tile's keys; _s_drop (dK/dV at [4, 4, 1024, 384], where it runs in
+  clusters): the other block's partial S^T and dP^T dropped from half of
+  each tile's queries; _shift (dQ at 320, dK/dV at 384): dQ's warpgroup 1
+  stages its columns one 64-column box to the left (and copies out Q's),
+  dK/dV's block of rank 1 stores its chunk one box to the left;
+  _ragged ([2, 3, 193, 384]): the mask at the end of S one short, so the
+  last key (dQ) or query (dK/dV) counts as past it; _pad (512): dQ's
+  warpgroup 1 multiplies dS by K's boxes one to the right, its last past
+  Dh, and dK/dV's block of rank 1 reads its boxes of K, V, Q and dO one to
+  the right, its last past Dh (zero-filled); _rank (dK/dV at 384): each
+  block pushes its partial into its own buffer in place of the other
+  block's, so it adds its own partial twice.
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -319,6 +338,53 @@ FAULTS = {
         "float32", XL_RAGGED640),
     "flash_bwd_dkv_f32_xl_pad": Fault("flash_bwd_dkv", *XLB_PAD, "float32", XL520),
 }
+
+# The bf16 dQ and dK/dV past Dh 256.
+WIDE_RAGGED384, WIDE_DH384 = (2, 3, 193, 384), (4, 4, 1024, 384)
+DQW_MASK = "      const bool masked = edge && (kj >= S || (causal && kj > qi0 + 8 * h));"
+DKVW_MASK = "          const bool masked = edge && (qi >= S || key >= S || (causal && key > qi));"
+DKVW_PUSH = "      const uint32_t peer = peer_addr(theirs + x * (N / 4) * 128 + t, 1 - rank);"
+DKVW_C0 = "  const int c0 = rank == 0 ? 0 : C::kCols0, boxes"
+WIDE_BWD_FAULTS = {
+    "flash_bwd_dq_wide_tiles": Fault(
+        "flash_bwd_dq", "  return ((causal ? min(q0 + kDqWideBQ, S) : S) + BK - 1) / BK;",
+        "  return ((causal ? min(q0 + kDqWideBQ, S) : S) + BK - 1) / BK"
+        " - (q0 + kDqWideBQ >= S ? 1 : 0);", "bfloat16", WIDE512_SHAPE),
+    "flash_bwd_dq_wide_x_drop": Fault(
+        "flash_bwd_dq", "    for (int v = 0; v < BK / 8; ++v) {\n      const float4 x = theirs[v * 128 + t];",
+        "    for (int v = 0; v < BK / 16; ++v) {\n      const float4 x = theirs[v * 128 + t];",
+        "bfloat16", WIDE320_SHAPE),
+    "flash_bwd_dq_wide_shift": Fault(
+        "flash_bwd_dq", "  acc.stage(scale, scale, Qs, kDqWideBQ, 0, C0);",
+        "  acc.stage(scale, scale, Qs, kDqWideBQ, 0, C0 - (C0 > 0 ? 64 : 0));", "bfloat16",
+        WIDE320_SHAPE),
+    "flash_bwd_dq_wide_ragged": Fault("flash_bwd_dq", DQW_MASK, DQW_MASK.replace(
+        "kj >= S ||", "kj >= S - 1 ||"), "bfloat16", WIDE_RAGGED384),
+    "flash_bwd_dq_wide_pad": Fault(
+        "flash_bwd_dq",
+        "      acc.mma(dsa[kk], Kt + (C0 / 64) * (BK * 128) + kk * 16 * 128, BK * 128);",
+        "      acc.mma(dsa[kk], Kt + (C0 / 64 + (C0 > 0)) * (BK * 128) + kk * 16 * 128, BK * 128);",
+        "bfloat16", WIDE512_SHAPE),
+    "flash_bwd_dkv_wide_tiles": Fault(
+        "flash_bwd_dkv", "  const int t_end = (S - 1) / BQ + 1;  // S > 0",
+        "  const int t_end = (S - 1) / BQ + 1 - (k0 + kDkvWideBK >= S ? 1 : 0);", "bfloat16",
+        XL_RAGGED512),
+    "flash_bwd_dkv_wide_s_drop": Fault(
+        "flash_bwd_dkv", "      for (int v = 0; v < N / 4; ++v) {\n        const float4 o =",
+        "      for (int v = 0; v < N / 8; ++v) {\n        const float4 o =", "bfloat16",
+        WIDE_DH384),
+    "flash_bwd_dkv_wide_shift": Fault(
+        "flash_bwd_dkv", "  const size_t base = (size_t)bh * S * DH + C0;",
+        "  const size_t base = (size_t)bh * S * DH + C0 - (C0 > 0 ? 64 : 0);", "bfloat16",
+        WIDE_DH384),
+    "flash_bwd_dkv_wide_ragged": Fault("flash_bwd_dkv", DKVW_MASK, DKVW_MASK.replace(
+        "qi >= S ||", "qi >= S - 1 ||"), "bfloat16", WIDE_RAGGED384),
+    "flash_bwd_dkv_wide_pad": Fault("flash_bwd_dkv", DKVW_C0, DKVW_C0.replace(
+        "C::kCols0, boxes", "C::kCols0 + 64, boxes"), "bfloat16", WIDE512_SHAPE),
+    "flash_bwd_dkv_wide_rank": Fault("flash_bwd_dkv", DKVW_PUSH, DKVW_PUSH.replace(
+        "1 - rank);", "rank);"), "bfloat16", WIDE_DH384),
+}
+FAULTS.update(WIDE_BWD_FAULTS)
 
 PAGED_CASE = ("bench_decode", 128)
 FAULTS.update({

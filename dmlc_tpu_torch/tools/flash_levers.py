@@ -19,7 +19,9 @@ the train shape's FLOPs with heads of 384, [8, 2, 2048, 384]);
 dtypes, which takes the head dim at run time, timed at [4, 4, 1024, 640],
 [4, 4, 1024, 1024], the train shape's FLOPs as one head of 768,
 [8, 1, 2048, 768], and [4, 4, 1024, 576], and beside the kernels built for
-320, 384 and 512 at ``wide_fwd``'s shapes); ``paged``
+320, 384 and 512 at ``wide_fwd``'s shapes); ``wide_bwd_bf16`` (the bf16
+flash_bwd_dq and flash_bwd_dkv past head dim 256, at ``wide_fwd``'s
+shapes, checked at S 193 at 320, 384, 448 and 512); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -100,6 +102,8 @@ XL_FWD_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (328, 520, 1024)
                       for causal in (True, False))
 XL_BWD_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (520, 640, 1024)
                       for causal in (True, False))
+WIDE_BWD_CHECKS = tuple(((2, 3, 193, dh), causal) for dh in (320, 384, 448, 512)
+                        for causal in (True, False))
 
 
 class Group(NamedTuple):
@@ -544,6 +548,18 @@ XLB2_DKV_KVRES = ("  static constexpr int kKvResidentSteps = 5;  // K and V stay
 XLB2_DKV_RING = "  static constexpr int kRing = 2;        // slab ring depth\n"
 XLB2_UNROLL = "#pragma unroll {}\n        for (int kk = 0; kk < 64; kk += 4) {{\n"
 
+# The bf16 flash_bwd_dq and flash_bwd_dkv past head dim 256 (group
+# wide_bwd_bf16). ship: the checkout's (dQ: 32-key K/V tiles in two stages
+# at 320, past it 16-key tiles, two stages of K and one of V; dK/dV:
+# 32-row Q/dO tiles in two stages, one block over all of Dh at 320, past
+# it clusters of two column chunks); keys16: dQ's 16-key tiles at 320 too;
+# vstage2: two stages of V past 320 too; stages3: three dK/dV stages;
+# cluster320: dK/dV's cluster of two chunks at 320 too.
+WB_DQ_BK = "  static constexpr int BK = DH == 320 ? 32 : 16;  // keys a K/V tile\n"
+WB_DQ_SV = "  static constexpr int kStagesV = DH == 320 ? 2 : 1;  // V ring depth\n"
+WB_DKV_STAGES = "  static constexpr int kStages = 2;      // Q/dO ring depth\n"
+WB_DKV_CHUNKS = "  static constexpr int kChunks = DH == 320 ? 1 : 2;\n"
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -673,6 +689,15 @@ GROUPS = {
                    "flash_bwd_dkv": [(XLB2_UNROLL.format(1), XLB2_UNROLL.format(2))]},
     }, ("ship", "chunks", "chunks6", "chunks3", "ring3", "qstream", "kvstream", "rows16", "keys16",
         "unroll", "ship"), checks=XL_BWD_CHECKS),
+    "wide_bwd_bf16": Group("bfloat16", ("flash_bwd_dq", "flash_bwd_dkv"),
+                           (WIDE320_SHAPE, WIDE512_SHAPE, WIDE384_SHAPE), {
+        "ship": {},
+        "keys16": {"flash_bwd_dq": [(WB_DQ_BK, WB_DQ_BK.replace("DH == 320 ? 32 : 16;", "16;"))]},
+        "vstage2": {"flash_bwd_dq": [(WB_DQ_SV, WB_DQ_SV.replace("DH == 320 ? 2 : 1;", "2;"))]},
+        "stages3": {"flash_bwd_dkv": [(WB_DKV_STAGES, WB_DKV_STAGES.replace("2;", "3;"))]},
+        "cluster320": {"flash_bwd_dkv": [(WB_DKV_CHUNKS, WB_DKV_CHUNKS.replace(
+            "DH == 320 ? 1 : 2;", "2;"))]},
+    }, ("ship", "keys16", "vstage2", "stages3", "cluster320", "ship"), checks=WIDE_BWD_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),

@@ -24,11 +24,10 @@ Same numpy-seeded float32 inputs through both:
   dtype) runs at on the card (``_run_head_dim``, ``_entry_name``: heads in
   (128, 256] padded to 192 or 256 for the three kernels of their own in
   both dtypes, in (256, 512] to the next multiple of 64 for the three of
-  their own in float32 and in bf16 the forward's own and the wide
-  backward, past 512 to a multiple of 8 for the three's own in float32
-  and in bf16 the forward's own beside the wide backward), that padding
-  160 to 192, 200 to 256, and 264, 330 and 500 to 320, 384 and 512 is
-  exact in both dtypes' routing, that the forward's and the float32
+  their own in both dtypes, past 512 to a multiple of 8 for the three's
+  own in float32 and in bf16 the forward's own beside the wide backward),
+  that padding 160 to 192, 200 to 256, and 264, 330 and 500 to 320, 384
+  and 512 is exact in both dtypes' routing, that the forward's and the
   backward's shared memory past 256 fits a block (the kernels past 512 at
   every multiple of 8 up to 2048), and that no head-dim limit is left in
   the sources;
@@ -177,8 +176,9 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     dtypes, at a head dim
     that every wrapper has a kernel for: up to 512 at most 63 wider (192 or
     256, then 320, 384, 448 or 512), past it at most 7 wider; past 256
-    float32 runs the three kernels of their own and bf16 the forward's own
-    beside the wide dQ and dK/dV; none at or below 128 runs wide."""
+    float32 runs the three kernels of their own, and so does bf16 up to
+    512, past it the forward's own beside the wide dQ and dK/dV; none at
+    or below 128 runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
             run = flash._run_head_dim(dh)
@@ -186,7 +186,7 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
             assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
             if 256 < dh:
-                want = OWN if dt == torch.float32 else FWD_OWN
+                want = OWN if dt == torch.float32 or dh <= 512 else FWD_OWN
                 assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want, dh
     assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
@@ -199,19 +199,20 @@ FWD_OWN = {**WIDE, "flash_fwd": "flash_fwd"}
 # (head dim, dtype) -> (the head dim it runs at, the entry point of each
 # wrapper there): in (128, 256] the three kernels of their own at 192 or
 # 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
-# in (256, 512] at the next multiple of 64 the three of their own in
-# float32, and in bf16 the forward's own beside the wide dQ and dK/dV;
-# past 512 at a multiple of 8 the same (the kernels that take the head dim
-# at run time: the three in float32, the forward in bf16).
+# in (256, 512] at the next multiple of 64 the three of their own in both
+# dtypes; past 512 at a multiple of 8 the three of their own in float32,
+# and in bf16 the forward's own beside the wide dQ and dK/dV (the kernels
+# that take the head dim at run time: the three in float32, the forward in
+# bf16).
 DISPATCH = {
     (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
     (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
     (192, "bfloat16"): (192, OWN), (192, "float32"): (192, OWN),
     (200, "bfloat16"): (256, OWN), (200, "float32"): (256, OWN),
     (256, "bfloat16"): (256, OWN), (256, "float32"): (256, OWN),
-    (264, "bfloat16"): (320, FWD_OWN), (264, "float32"): (320, OWN),
-    (384, "bfloat16"): (384, FWD_OWN), (384, "float32"): (384, OWN),
-    (449, "bfloat16"): (512, FWD_OWN), (449, "float32"): (512, OWN),
+    (264, "bfloat16"): (320, OWN), (264, "float32"): (320, OWN),
+    (384, "bfloat16"): (384, OWN), (384, "float32"): (384, OWN),
+    (449, "bfloat16"): (512, OWN), (449, "float32"): (512, OWN),
     (513, "bfloat16"): (520, FWD_OWN), (513, "float32"): (520, OWN),
     (576, "float32"): (576, OWN), (712, "float32"): (712, OWN),
     (1000, "bfloat16"): (1000, FWD_OWN), (1000, "float32"): (1000, OWN),
@@ -256,16 +257,14 @@ def test_padding_to_the_hopper_head_dims_is_exact(dh, causal, dtype):
 @pytest.mark.parametrize("dh, causal", [(264, True), (330, False), (500, True)])
 def test_padding_to_the_wide_forward_head_dims_is_exact(dh, causal, dtype):
     """Heads of 264, 330 and 500 run at 320, 384 and 512 the three kernels
-    of their own in float32, and in bf16 the forward's own beside the wide
-    dQ and dK/dV at the same width: the same inputs, padded by the helpers
+    of their own in both dtypes: the same inputs, padded by the helpers
     the card uses, through the plain versions at the padded head dim and
     sliced back, against the JAX flash functions at the head dim itself
     (out, lse, dq, dk, dv; float32 data, tolerances as above)."""
     q, k, v, g = _heads(40, dh, seed=12)
     run, dt = flash._run_head_dim(dh), getattr(torch, dtype)
     assert run in flash.FWD_WIDE_HEAD_DIMS and dh < run < dh + 64
-    want = OWN if dt == torch.float32 else FWD_OWN
-    assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want
+    assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == OWN
     q3, k3, v3, g3 = (flash._as_heads(torch.from_numpy(x), run) for x in (q, k, v, g))
     kw = {"causal": causal, "scale": dh ** -0.5}
     out, lse = flash.flash_forward(q3, k3, v3, **kw)
@@ -455,7 +454,7 @@ def test_gradient_dtypes_follow_the_inputs():
     (256, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (256, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
-    (320, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (320, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (512, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (640, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
     (1000, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
@@ -533,7 +532,13 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_bwd_dq_f32_xl_ragged", "flash_bwd_dq_f32_xl_pad",
                                    "flash_bwd_dkv_f32_xl_s_drop", "flash_bwd_dkv_f32_xl_split",
                                    "flash_bwd_dkv_f32_xl_chunk_shift",
-                                   "flash_bwd_dkv_f32_xl_ragged", "flash_bwd_dkv_f32_xl_pad"])
+                                   "flash_bwd_dkv_f32_xl_ragged", "flash_bwd_dkv_f32_xl_pad",
+                                   "flash_bwd_dq_wide_tiles", "flash_bwd_dq_wide_x_drop",
+                                   "flash_bwd_dq_wide_shift", "flash_bwd_dq_wide_ragged",
+                                   "flash_bwd_dq_wide_pad", "flash_bwd_dkv_wide_tiles",
+                                   "flash_bwd_dkv_wide_s_drop", "flash_bwd_dkv_wide_shift",
+                                   "flash_bwd_dkv_wide_ragged", "flash_bwd_dkv_wide_pad",
+                                   "flash_bwd_dkv_wide_rank"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source (or, for the bf16 ``_xl_pad``, of the shared header
@@ -541,8 +546,8 @@ def test_fault_check_finds_its_loop_once(fault):
     rewrite of the kernel must carry the pattern along (text only, no
     nvcc). Each fault runs the check in its kernel's dtype, at a head dim
     its kernel is built for (192 and 256 too, in both dtypes, the
-    forward's 320 and 512, and the float32 dQ's and dK/dV's 320 and
-    512), or, for the kernels past 256 that take the head dim at run time
+    forward's 320 and 512, and dQ's and dK/dV's 320, 384 and 512 in both
+    dtypes), or, for the kernels past 256 that take the head dim at run time
     (``_xl_``: the forward in both dtypes, dQ and dK/dV in float32), at a
     head dim no kernel is built for (two chunks where the fault needs them:
     the split and chunk-shift faults of dQ at 1024, of dK/dV at 640)."""
@@ -560,8 +565,9 @@ def test_fault_check_finds_its_loop_once(fault):
     assert (dh in flash.SM90_WIDE_HEAD_DIMS) == fault.endswith(("_dh256", "_s_chunk", "_swap",
                                                                  "_box", "_handoff", "_dh192"))
     assert dh == 192 or not fault.endswith("_dh192")
-    assert (dh in flash.FWD_WIDE_HEAD_DIMS) == fault.endswith(("_dh512", "_s_add", "_dp_add",
-                                                               "_last_step", "_dh320"))
+    assert (dh in flash.FWD_WIDE_HEAD_DIMS) == fault.endswith((
+        "_dh512", "_s_add", "_dp_add", "_last_step", "_dh320", "_wide_tiles", "_wide_x_drop",
+        "_wide_shift", "_wide_ragged", "_wide_pad", "_wide_s_drop", "_wide_rank"))
     assert ("_xl_" in fault) == (dh > 256 and dh not in flash.FWD_WIDE_HEAD_DIMS)
     assert case.check == "flash"
 
@@ -702,6 +708,17 @@ def test_xl_bwd512_lever_tool_finds_its_lines_once(lever):
     assert all(dh > 512 and dh % 8 == 0 for (_, _, _, dh), _ in group.checks)
 
 
+
+@pytest.mark.parametrize("lever", ["ship", "keys16", "vstage2", "stages3", "cluster320"])
+def test_wide_bwd_bf16_lever_tool_finds_its_lines_once(lever):
+    """The bf16 flash_bwd_dq and flash_bwd_dkv variants past head dim 256
+    (group wide_bwd_bf16), timed at the forward's shapes there and checked
+    at S 193 at every head dim they are built for."""
+    _lever_sources_apply("wide_bwd_bf16", lever)
+    group = _tool("flash_levers").GROUPS["wide_bwd_bf16"]
+    assert group.dtype == "bfloat16" and {s[3] for s in group.shapes} == {320, 384, 512}
+    assert {shape[3] for shape, _ in group.checks} == set(flash.FWD_WIDE_HEAD_DIMS)
+
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
     chip_smoke.SM90_KERNELS (so the build phase reports its registers,
@@ -727,10 +744,9 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
     """Each flash source's C entry point launches a kernel for head dim 64
     and 128 in bf16 (the Hopper kernels, flash::sm90) and in float32 (the
     FMA kernels, flash::f32), each instantiated at the head dim it is
-    dispatched for; each also for SM90_WIDE_HEAD_DIMS in both dtypes, and
-    at FWD_WIDE_HEAD_DIMS the forward's in both dtypes and the others' in
-    float32: the head dims ``_entry_name`` sends to them (text only, no
-    nvcc)."""
+    dispatched for; each also for SM90_WIDE_HEAD_DIMS and
+    FWD_WIDE_HEAD_DIMS in both dtypes: the head dims ``_entry_name`` sends
+    to them (text only, no nvcc)."""
     assert flash.KERNEL_HEAD_DIMS == (64, 128) and flash.SM90_WIDE_HEAD_DIMS == (192, 256)
     assert flash.FWD_WIDE_HEAD_DIMS == (320, 384, 448, 512)
     csrc = Path(flash.__file__).resolve().parent.parent / "csrc"
@@ -751,8 +767,7 @@ def test_each_entry_point_dispatches_both_head_dims_in_both_dtypes():
         assert wide == {(bf16, dh) for bf16 in (True, False) for dh in (192, 256)}
         fwd_wide = {(dt == torch.bfloat16, dh) for dt in (torch.bfloat16, torch.float32)
                     for dh in flash.FWD_WIDE_HEAD_DIMS if flash._entry_name(name, dh, dt) == name}
-        assert fwd_wide == {(bf16, dh) for bf16 in ((True, False) if name == "flash_fwd" else
-                                                    (False,)) for dh in flash.FWD_WIDE_HEAD_DIMS}
+        assert fwd_wide == {(bf16, dh) for bf16 in (True, False) for dh in flash.FWD_WIDE_HEAD_DIMS}
         assert found == want | wide | fwd_wide
         smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
         for bf16, dh in wide | (fwd_wide if name != "flash_fwd" else set()):
@@ -843,11 +858,11 @@ def test_forward_past_512_takes_any_multiple_of_8_and_fits_a_block():
 def test_float32_backward_is_built_past_256_and_fits_a_block(name):
     """``dmlc_flash_bwd_dq`` and ``dmlc_flash_bwd_dkv`` launch a float32
     kernel at 320, 384, 448 and 512 (``f32::DqCfg<DH, true>``,
-    ``f32::DkvCfg<DH, true>``) and none in bf16 there, and their
-    shared-memory entries (which chip_smoke.py's build phase reads on the
-    card) name the same; each size, as those configs compute it from the
-    lines checked here, is at most the 232448 bytes a block may take (text
-    only, no nvcc)."""
+    ``f32::DkvCfg<DH, true>``), and their shared-memory entries (which
+    chip_smoke.py's build phase reads on the card) name the same; each
+    size, as those configs compute it from the lines checked here, is at
+    most the 232448 bytes a block may take (text only, no nvcc). The bf16
+    kernels there are test_bf16_backward_is_built_past_256_and_fits_a_block's."""
     text = (Path(flash.__file__).resolve().parent.parent / "csrc" / f"{name}.cu").read_text()
     entry = text[text.index(f'extern "C" int dmlc_{name}('):]
     entry = entry[:entry.index("\n}\n")]
@@ -857,7 +872,6 @@ def test_float32_backward_is_built_past_256_and_fits_a_block(name):
     cfg = "DqCfg" if name == "flash_bwd_dq" else "DkvCfg"
     for dh in flash.FWD_WIDE_HEAD_DIMS:
         assert f"if (!is_bf16 && dh == {dh})\n    return (int)f32::{launch}<{dh}>(" in entry
-        assert f"if (is_bf16 && dh == {dh})" not in entry
         assert f"if (dh == {dh} && !is_bf16) return (int)f32::{cfg}<{dh}>::bytes;" in smem
         ld = dh + 4
         if name == "flash_bwd_dq":
@@ -870,6 +884,62 @@ def test_float32_backward_is_built_past_256_and_fits_a_block(name):
             assert text.count("  static constexpr bool kSplit = DH <= 384; ") == 1
             bq, tiles = (32, 4) if dh <= 384 else (16, 2)
             size = 4 * (2 * 32 * ld + 2 * bq * ld + 2 * bq + tiles * 32 * (bq + 4))
+        assert size <= 232448, (dh, size)
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_bf16_backward_is_built_past_256_and_fits_a_block(name):
+    """``dmlc_flash_bwd_dq`` and ``dmlc_flash_bwd_dkv`` launch a bf16 Hopper
+    kernel at 320, 384, 448 and 512 (``sm90::launch_dq_wide``,
+    ``sm90::launch_dkv_wide``), and their shared-memory entries (which
+    chip_smoke.py's build phase reads on the card) name its config
+    (``sm90::DqWideCfg``, ``sm90::DkvWideCfg``); each size, as the config
+    computes it from the lines checked here, is at most the 232448 bytes a
+    block may take. dK/dV launches its blocks past 320 as clusters of two,
+    one column chunk of whole 64-column boxes each, at 320 one block over
+    all of Dh (text only, no nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / f"{name}.cu").read_text()
+    entry = text[text.index(f'extern "C" int dmlc_{name}('):]
+    entry = entry[:entry.index("\n}\n")]
+    smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
+    smem = smem[:smem.index("\n}\n")]
+    dq = name == "flash_bwd_dq"
+    launch, cfg = ("launch_dq_wide", "DqWideCfg") if dq else ("launch_dkv_wide", "DkvWideCfg")
+    for dh in flash.FWD_WIDE_HEAD_DIMS:
+        assert f"if (is_bf16 && dh == {dh})\n    return (int)sm90::{launch}<{dh}>(" in entry
+        assert f"if (dh == {dh} && is_bf16) return (int)sm90::{cfg}<{dh}>::kSmem;" in smem
+    if dq:
+        lines = ("constexpr int kDqWideBQ = 64;",
+                 "  static constexpr int BK = DH == 320 ? 32 : 16;  // keys a K/V tile",
+                 "  static constexpr int kStagesK = 2;              // K ring depth",
+                 "  static constexpr int kStagesV = DH == 320 ? 2 : 1;  // V ring depth",
+                 "  static constexpr uint32_t kX = 128 * (BK / 2) * 4;  ",
+                 "      2 * kQ + (kStagesK + kStagesV) * kKV + 8 * kX + kBars * 8 + 1024;")
+    else:
+        lines = ("constexpr int kDkvWideBK = 64;", "  static constexpr int BQ = 32;  ",
+                 "  static constexpr int kStages = 2;  ",
+                 "  static constexpr int kChunks = DH == 320 ? 1 : 2;",
+                 "  static constexpr int kCols0 = kChunks == 1 ? DH : 64 * ((DH / 64 + 1) / 2);",
+                 "  static constexpr uint32_t kX = 128 * (BQ / 2) * 4;  ",
+                 "      2 * kKV + 2 * kStages * kQ + kX + (kChunks == 1 ? 0 : 4 * kX);",
+                 "  static constexpr int kBars = 1 + 2 * kStages + 4;",
+                 "  static constexpr uint32_t kSmem = kRows + 2 * kStages * BQ * 4 + kBars * 8 + 1024;",
+                 "  e = launch_clustered(flash_bwd_dkv_wide_kernel_sm90<DH>, (unsigned)blocks, "
+                 "kThreads, C::kSmem,\n                       C::kChunks, stream,")
+    for line in lines:
+        assert text.count(line) == 1, line
+    for dh in flash.FWD_WIDE_HEAD_DIMS:
+        if dq:
+            bk, stages_v = (32, 2) if dh == 320 else (16, 1)
+            q, kv, x = 64 * dh * 2, bk * dh * 2, 128 * (bk // 2) * 4
+            size = 2 * q + (2 + stages_v) * kv + 8 * x + (1 + 2 * 2 + 2 * stages_v) * 8 + 1024
+        else:
+            chunks = 1 if dh == 320 else 2
+            cols0 = dh if chunks == 1 else 64 * ((dh // 64 + 1) // 2)  # rank 0's chunk
+            assert chunks == 1 or (cols0 <= 256 and dh - cols0 <= cols0)
+            kv, q, x = 64 * cols0 * 2, 32 * cols0 * 2, 128 * 16 * 4
+            size = (2 * kv + 2 * 2 * q + x + (4 * x if chunks == 2 else 0) + 2 * 2 * 32 * 4
+                    + (1 + 2 * 2 + 4) * 8 + 1024)
         assert size <= 232448, (dh, size)
 
 
