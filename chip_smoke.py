@@ -23,10 +23,10 @@ non-zero:
    and 128), 160, 192, 200 and 256 (in both dtypes the three kernels of
    their own at 192 or 256, no wide one) against the plain versions with
    the kernel that ran each head dim, and a sweep of head dims up to 1024
-   (in (256, 512] the forward's own kernels beside the wide backward, past
-   512 the wide kernels); the forward's own kernels past 256 checked and
-   timed at [4, 4, 1024, 320/384/512] and [8, 2, 2048, 384] beside the
-   wide forward they replaced there and SDPA.
+   (past 256 the three kernels of their own in both dtypes); the kernels
+   past 256 checked and timed at [4, 4, 1024, 320/384/512] and [8, 2,
+   2048, 384], and past 512 at [4, 4, 1024, 640/1024] and [8, 1, 2048,
+   768], beside the wide kernels they replaced there and SDPA.
 4. serve   — job.predict through PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
@@ -168,13 +168,12 @@ FLASH_WRAPPERS = ("flash_forward", "flash_bwd_dq", "flash_bwd_dkv")
 # to the next of KERNEL_HEAD_DIMS; past 128 (WIDE_HEAD_DIMS) both dtypes
 # pad to 192 or 256 (the three kernels built for them; ops/flash.py). In
 # (256, 512] both dtypes run at the next of FWD_WIDE_HEAD_DIMS the three
-# kernels built for it; past 512 the forward in both dtypes, and dQ and
-# dK/dV in float32, run their kernels that take the head dim at run time
-# (the three sources), and the bf16 dQ and dK/dV the wide kernels
-# (csrc/flash_wide.cu). The kernels are also timed at [WIDE_TIMED_BHS, Dh]
-# for Dh of WIDE_TIMED_HEAD_DIMS, where 160 runs the wide kernels through
-# the wrappers, 320, 384 and 512 the kernels built for them, and 640 the
-# kernels past 512 (in bf16 the forward's beside the wide backward).
+# kernels built for it; past 512 all three run their kernels that take
+# the head dim at run time in both dtypes (the three sources). The
+# kernels are also timed at [WIDE_TIMED_BHS, Dh] for Dh of
+# WIDE_TIMED_HEAD_DIMS, where 160 runs the wide kernels through the
+# wrappers, 320, 384 and 512 the kernels built for them, and 640 the
+# kernels past 512.
 # WIDE_SWEEP_HEAD_DIMS run forward and backward once each, past 512 too,
 # causal; those past 256 also not causal.
 PADDED_HEAD_DIMS, PADDED_BHS = (32, 96), (2, 3, 193)
@@ -188,18 +187,20 @@ WIDE_SWEEP_BHS = (1, 2, 72)
 # (dmlc_tpu_torch/tools/flash_levers.py).
 WIDE256_SHAPE, WIDE192_SHAPE = (8, 3, 2048, 256), (8, 4, 2048, 192)
 WIDE384_SHAPE = (8, 2, 2048, 384)
-# The kernels past 512 that take the head dim at run time (the forward in
-# both dtypes, the float32 dQ and dK/dV): timed at [WIDE_TIMED_BHS, Dh] for
-# Dh 640 and 1024 and at the train leg's FLOPs as one head of 768
-# (XL768_SHAPE), beside the wide kernel each replaced there.
-# XL_CHECK_HEAD_DIMS are checked against the plain versions at S 193 and
-# 1000, causal and not, in both dtypes: 520, 640 and 1024 of the sweep (two
-# chunks of O in bf16 at each, in float32 at 1024; the float32 dK/dV two at
-# 520 and 640, three at 1024; its dQ two at 1024), 712 and 776 (in the
-# float32 forward Q streamed just past where it stays resident; bf16
-# streams Q at every width), and 328 (one chunk, through the wrappers: the
-# public functions pad 328 to 384); those past 512 also through the public
-# flash_attention (WIDE_SWEEP_HEAD_DIMS).
+# The kernels past 512 that take the head dim at run time (all three in
+# both dtypes): timed at [WIDE_TIMED_BHS, Dh] for Dh 640 and 1024 and at
+# the train leg's FLOPs as one head of 768 (XL768_SHAPE), beside the wide
+# kernel each replaced there. XL_CHECK_HEAD_DIMS are checked against the
+# plain versions at S 193 and 1000, causal and not, in both dtypes: 520,
+# 640 and 1024 of the sweep (two chunks of O in bf16 at each, in float32
+# at 1024; the float32 dK/dV two at 520 and 640, three at 1024; its dQ two
+# at 1024; the bf16 dQ one at 520 and 640, two at 1024, the bf16 dK/dV two
+# at 520 and 640, four at 1024), 712 and 776 (in the float32 forward Q
+# streamed just past where it stays resident; bf16 streams Q at every
+# width; the bf16 dQ two chunks and dK/dV three, the last box partly past
+# Dh), and 328 (one chunk of the bf16 forward and dQ, two of its dK/dV,
+# through the wrappers: the public functions pad 328 to 384); those past
+# 512 also through the public flash_attention (WIDE_SWEEP_HEAD_DIMS).
 XL768_SHAPE = (8, 1, 2048, 768)
 XL_CHECK_HEAD_DIMS = (328, 520, 640, 712, 776, 1024)
 # Every head dim the kernels past 256 take, for the build phase: each
@@ -401,9 +402,9 @@ def flash_instance(mangled: str) -> tuple[str, str] | None:
     dim is ``dh<D>`` (its template argument 64, 128, 192, 256, 320, 384, 448
     or 512); a forward past 256 that takes the head dim at run time
     (``flash_fwd_xl``) is ``xl<W>``, W the boxes of O its widest warpgroup
-    or part holds; so are the float32 dQ and dK/dV past 256
-    (``flash_bwd_dq_xl``, ``flash_bwd_dkv_xl``), W the steps of their
-    output the widest part holds."""
+    or part holds; so are the dQ and dK/dV past 256 (``flash_bwd_dq_xl``,
+    ``flash_bwd_dkv_xl``), W the boxes (bf16) or steps (float32) of their
+    output the widest warpgroup, chunk or part holds."""
     dtype = "bfloat16" if "_sm90" in mangled else "float32"
     if "_xl_" in mangled:
         return dtype, "xl" + re.search(r"ILi(\d+)EE", mangled).group(1)
@@ -419,8 +420,8 @@ def phase_build() -> None:
     64, 128, 192, 256, 320, 384, 448 and 512 in both dtypes where
     ops/flash.py routes them to the source (and each instantiation of the
     kernels past 256
-    that take the head dim at run time, the forward's in both dtypes and
-    dQ's and dK/dV's in float32, that the head dims of XL_SWEEP pick, with
+    that take the head dim at run time, all three in both dtypes, that
+    the head dims of XL_SWEEP pick, with
     the most shared memory one of them takes), the Hopper
     ones also with their wgmma and TMA instructions (SASS). Fails on a
     spill, on a missing instantiation, on a Hopper kernel without wgmma or
@@ -443,7 +444,7 @@ def phase_build() -> None:
         smem_of.argtypes = [ctypes.c_int, ctypes.c_int]
         # The kernels past 256 that take the head dim at run time: the
         # instantiation each head dim of XL_SWEEP runs with, in each dtype
-        # that has one (0: none, as for the bf16 dQ and dK/dV).
+        # that has one (0: none).
         xl = {}
         width_of = getattr(lib, f"dmlc_{name}_xl_width")
         width_of.argtypes = [ctypes.c_int, ctypes.c_int]
@@ -913,10 +914,9 @@ def flash_checks() -> list[dict]:
     and the ragged lengths, in both dtypes, causal and not, and so at the
     kernels built past 256 (WIDE384_SHAPE, [WIDE_TIMED_BHS, Dh] for Dh 320,
     384 and 512, the ragged lengths at each of FWD_WIDE_HEAD_DIMS), all
-    three in both dtypes; and the forward past 256 that takes the head dim at run time
-    at the ragged lengths at each of XL_CHECK_HEAD_DIMS and at the timed
-    shapes past 512, in both dtypes, causal and not (beside the wide
-    backward)."""
+    three in both dtypes; and the three past 256 that take the head dim at
+    run time at the ragged lengths at each of XL_CHECK_HEAD_DIMS, in both
+    dtypes, causal and not, and at the timed shapes past 512."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = []
@@ -1006,9 +1006,8 @@ def flash_public_checks() -> dict:
     is refused. In (128, 256] both dtypes must run the three kernels built
     for 192 or 256 (each once, flash_public_check) and no wide one; in
     (256, 512], at the next of FWD_WIDE_HEAD_DIMS, the three built for it
-    in both dtypes; past 512 the three's own in float32 and the forward's
-    own beside the wide dQ and dK/dV in bf16 (the kernels that take the
-    head dim at run time)."""
+    in both dtypes; past 512 the three's own in both dtypes (the kernels
+    that take the head dim at run time)."""
     from dmlc_tpu_torch.ops import flash as FL
 
     cases = [(dh, dt, causal) for dh in PADDED_HEAD_DIMS + WIDE_HEAD_DIMS
@@ -1020,13 +1019,12 @@ def flash_public_checks() -> dict:
                     for dt in (torch.bfloat16, torch.float32)]
     sweep = [flash_public_check(*case, seed=200 + i, bhs=WIDE_SWEEP_BHS)
              for i, case in enumerate(sweep_cases)]
-    wide_bwd = ["flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"]
     for c in checks + sweep:
         dh = c["shape"][3]
         own = c["run_dh"] in FL.SM90_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
-        xl = list(SM90_KERNELS) if c["dtype"] == "float32" else wide_bwd
         fwd_own = c["run_dh"] in FL.FWD_WIDE_HEAD_DIMS and c["entries"] == list(SM90_KERNELS)
-        xl_own = c["entries"] == xl and c["run_dh"] not in FL.FWD_WIDE_HEAD_DIMS
+        xl_own = (c["entries"] == list(SM90_KERNELS)
+                  and c["run_dh"] not in FL.FWD_WIDE_HEAD_DIMS)
         if ((128 < dh <= 256 and not own) or (256 < dh <= 512 and not fwd_own)
                 or (dh > 512 and not xl_own)):
             raise AssertionError(f"flash_attention Dh {dh} {c['dtype']}: ran {c['entries']} "
@@ -1176,15 +1174,15 @@ def launch_wide(entry: str, q, k, v, do, lse, delta) -> None:
 # those past 256, replaced there, timed through their entry points: key of
 # WIDE_TIMINGS or XL_TIMINGS -> [(entry point, products), ...]. At 256 and
 # 192 (the train leg's FLOPs) bf16 the dQ's, float32 all three; at 320,
-# 384 and 512 (and the train leg's FLOPs at 384) all three in both
-# dtypes; past 512 the forward's in bf16 and all three in float32.
+# 384 and 512 (and the train leg's FLOPs at 384), and past 512, all three
+# in both dtypes.
 _ALL_REPLACED = [("flash_wide_fwd", 2), ("flash_wide_bwd_dq", 3), ("flash_wide_bwd_dkv", 4)]
 REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_wide_bwd_dq", 3)],
                  "w256_f32": _ALL_REPLACED, "w192_f32": _ALL_REPLACED,
                  **{f"{key}_{tag}": _ALL_REPLACED for key in ("dh320", "dh384", "dh512", "w384")
                     for tag in ("bf16", "f32")},
-                 **{f"{key}_bf16": [("flash_wide_fwd", 2)] for key in ("dh640", "dh1024", "w768")},
-                 **{f"{key}_f32": _ALL_REPLACED for key in ("dh640", "dh1024", "w768")}}
+                 **{f"{key}_{tag}": _ALL_REPLACED for key in ("dh640", "dh1024", "w768")
+                    for tag in ("bf16", "f32")}}
 
 
 # The wide timings of phase_kernels_flash, through the wrappers: key ->
@@ -1192,17 +1190,15 @@ REPLACED_WIDE = {"w256_bf16": [("flash_wide_bwd_dq", 3)], "w192_bf16": [("flash_
 # the train leg's FLOPs at 256, 192 and 384 (w256, w192, w384), in both
 # dtypes. The three kernels run their own designs at 192, 256, 320, 384
 # and 512 (the Hopper ones in bf16, FMA in float32) and the wide kernels at
-# 160; at 640 the kernels past 512 (in bf16 the forward's beside the wide
-# backward).
+# 160; at 640 the kernels past 512.
 WIDE_TIMINGS = {
     **{f"dh{dh}_{tag}": ((*WIDE_TIMED_BHS, dh), dt) for dh in WIDE_TIMED_HEAD_DIMS
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
     **{f"w{shape[3]}_{tag}": (shape, dt) for shape in (WIDE256_SHAPE, WIDE192_SHAPE, WIDE384_SHAPE)
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
 }
-# The kernels past 512 at [WIDE_TIMED_BHS, 1024] and XL768_SHAPE: the
-# forward in both dtypes, dQ and dK/dV in float32 (bf16 runs the wide ones
-# there, timed at 640 in WIDE_TIMINGS).
+# The kernels past 512 at [WIDE_TIMED_BHS, 1024] and XL768_SHAPE, all
+# three in both dtypes.
 XL_TIMINGS = {
     **{f"dh1024_{tag}": ((*WIDE_TIMED_BHS, 1024), dt)
        for dt, tag in ((torch.bfloat16, "bf16"), (torch.float32, "f32"))},
@@ -1217,9 +1213,8 @@ def phase_kernels_flash(dev: dict) -> dict:
     kernels are not built for (flash_public_checks), then timed at the
     train shape and at its Dh-64 twin (forward and backward, bf16 and
     float32), at the streamed-forward shape (bf16), past Dh 128 at each
-    shape of WIDE_TIMINGS (the forward also at those of XL_TIMINGS, dQ and
-    dK/dV at its float32 ones), and the wide kernels of REPLACED_WIDE at
-    their shapes through their own entry points."""
+    shape of WIDE_TIMINGS and XL_TIMINGS, and the wide kernels of
+    REPLACED_WIDE at their shapes through their own entry points."""
     from dmlc_tpu_torch.ops import flash as FL
 
     checks = flash_checks()
@@ -1241,7 +1236,7 @@ def phase_kernels_flash(dev: dict) -> dict:
                "train_f32": (TRAIN_SHAPE, torch.float32),
                "dh64_bf16": (DH64_SHAPE, torch.bfloat16),
                "dh64_f32": (DH64_SHAPE, torch.float32), **WIDE_TIMINGS,
-               **{key: case for key, case in XL_TIMINGS.items() if key.endswith("_f32")}}.items()}
+               **XL_TIMINGS}.items()}
     for report in bwd.values():
         for name, products in (("flash_bwd_dq", 3), ("flash_bwd_dkv", 4)):
             device_s = report[name]["device_ms"] * 1e-3
@@ -2284,34 +2279,34 @@ def main() -> int:
                          **{key: {k: timing(name, key)[k] for k in timed_shape}
                             for key in keys[1:]},
                          "replaced_wide_fma": {key: replaced[key][wide_entry] for key in keys}})
-    # The float32 dQ and dK/dV past 512, which take the head dim at run
-    # time: at [4, 4, 1024, 640], 1024 and the train leg's FLOPs as one head
-    # of 768, each with the wide kernel it replaced there, timed through its
-    # entry point.
-    for name, line, wide_entry in (("flash_bwd_dq", "271", "flash_wide_bwd_dq"),
-                                   ("flash_bwd_dkv", "320", "flash_wide_bwd_dkv")):
-        first = timing(name, "dh640_f32")
-        launches = main_launches(name, range(513, 1 << 20), "float32")
-        keys = ("dh640_f32", "dh1024_f32", "w768_f32")
-        rows.append({"name": f"{name}_f32_xl", "route": "cuda",
-                     "source": f"dmlc_tpu_torch/csrc/{name}.cu",
-                     "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
-                     "launches": launches, "on_main_path": launches > 0,
-                     **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
-                     "dtype": "float32",
-                     **{key: {k: timing(name, key)[k] for k in timed_shape} for key in keys[1:]},
-                     "replaced_wide_fma": {key: replaced[key][wide_entry] for key in keys}})
+    # The dQ and dK/dV past 512, which take the head dim at run time, the
+    # float32 ones and the bf16 Hopper ones: at [4, 4, 1024, 640], 1024 and
+    # the train leg's FLOPs as one head of 768, each with the wide kernel it
+    # replaced there, timed through its entry point.
+    for tag, dtype in (("f32", "float32"), ("bf16", "bfloat16")):
+        for name, line, wide_entry in (("flash_bwd_dq", "271", "flash_wide_bwd_dq"),
+                                       ("flash_bwd_dkv", "320", "flash_wide_bwd_dkv")):
+            first = timing(name, f"dh640_{tag}")
+            launches = main_launches(name, range(513, 1 << 20), dtype)
+            keys = [f"{key}_{tag}" for key in ("dh640", "dh1024", "w768")]
+            rows.append({"name": f"{name}_{tag}_xl", "route": "cuda",
+                         "source": f"dmlc_tpu_torch/csrc/{name}.cu",
+                         "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
+                         "launches": launches, "on_main_path": launches > 0,
+                         **{k: first[k] for k in timed_shape}, "max_err": first["max_abs_err"],
+                         "dtype": dtype,
+                         **{key: {k: timing(name, key)[k] for k in timed_shape}
+                            for key in keys[1:]},
+                         "replaced_wide_fma": {key: replaced[key][wide_entry] for key in keys}})
     for name, entry, line in (("flash_forward", "flash_wide_fwd", "157 and :215"),
                               ("flash_bwd_dq", "flash_wide_bwd_dq", "271"),
                               ("flash_bwd_dkv", "flash_wide_bwd_dkv", "320")):
         first = timing(name, "dh160_bf16")
         launches = main_launches(entry)
-        # Through the wrappers at 160 (a direct call) in both dtypes; the
-        # backward's also at 640 in bf16 (where the public functions run
-        # it); the forward's past 256, the float32 backward's past 256 and
-        # the bf16 backward's at 320, 384 and 512 through their entry points
-        # (device time; replaced_wide_fma of the rows above).
-        others = ("dh160_f32",) + (() if name == "flash_forward" else ("dh640_bf16",))
+        # Through the wrappers at 160 (a direct call) in both dtypes; past
+        # 256 through their entry points (device time; replaced_wide_fma of
+        # the rows above).
+        others = ("dh160_f32",)
         row = {"name": f"{name}_wide_fma", "route": "cuda",
                "source": "dmlc_tpu_torch/csrc/flash_wide.cu",
                "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}", "launches": launches,
@@ -2319,11 +2314,8 @@ def main() -> int:
                "max_err": first["max_abs_err"], "dtype": "bfloat16",
                **{key: {k: timing(name, key)[k] for k in timed_shape} for key in others}}
         past = ("dh320", "dh384", "dh512", "w384", "dh640", "dh1024", "w768")
-        built = ("dh320", "dh384", "dh512", "w384")
         row["entry_point"] = {key: replaced[key][entry] for key in replaced
-                              if key.startswith(past) and entry in replaced[key]
-                              and (name == "flash_forward" or key.endswith("_f32")
-                                   or key.startswith(built))}
+                              if key.startswith(past) and entry in replaced[key]}
         rows.append(row)
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})

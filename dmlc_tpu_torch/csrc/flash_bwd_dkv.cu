@@ -7,10 +7,9 @@
 // and carries dK and dV in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192, 256, 320, 384, 448 or 512, and in float32 also, at run time,
-// any other multiple of 8 past 256 (ops/flash.py zero-pads a head dim up
-// to 512 to one of the fixed ones, and a wider one to a multiple of 8;
-// csrc/flash_wide.cu takes bf16 past 512); lse and
+// 128, 192, 256, 320, 384, 448 or 512, and also, at run time, any other
+// multiple of 8 past 256 (ops/flash.py zero-pads a head dim up to 512 to
+// one of the fixed ones, and a wider one to a multiple of 8); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Outputs dk (k's dtype) and dv
 // (v's dtype): dv = sum_q P^T dO and dk = sum_q dS^T (scale q), with
 // p = exp(scale q k^T - lse) (0 where masked, which also keeps a row with
@@ -56,7 +55,7 @@
 // flash_bwd_dkv_wide_kernel_sm90): every bf16 head in (256, 512] pads to
 // one of them. The split layout of Dh 256 keeps dK or dV of 64 keys over
 // all of Dh, Dh / 2 floats a thread. At 320 that still fits a consumer
-// thread's 240 registers (160 floats; DkvAcc), and one block a key tile
+// thread's 240 registers (160 floats; WideAcc), and one block a key tile
 // runs that layout with 32-row Q/dO tiles. Past it, dK and dV are cut into
 // two column chunks of whole 64-column boxes (192 + 192, 256 + 192, 256 +
 // 256), one a block, and the two blocks of a key tile form a thread-block
@@ -172,6 +171,38 @@
 // as two or four, hence the power of two of chunks. Before the clusters,
 // each chunk's block made the whole scores (1.5x the FLOPs at 640, 2x at
 // 1024).
+//
+// bf16 past Dh 512, at any multiple of 8 past 256 (DkvXlCfg, DkvXlPlan,
+// dkv_xl_consumer, flash_bwd_dkv_xl_kernel_sm90<W>): every bf16 head past
+// 512 pads to a multiple of 8, and a direct call takes any other past 256.
+// The head dim is a run-time argument. dK and dV of 64 keys are cut into
+// column chunks of at most 5 boxes, as few as fit (640 in two, 768 and 712
+// in three, 1024 in four), one a block, and the split layout of Dh 256
+// runs over the chunk: warpgroup 0 makes S^T = K Q^T and P^T and keeps dV,
+// warpgroup 1 makes dP^T = V dO^T, dS^T from the P^T handed to it, and
+// keeps dK (WideAcc of at most 320 columns, 160 floats a thread). Each
+// makes its score product (m64n32k16) over all of Dh's 64-column slabs,
+// streamed through a TMA ring of 4 slots of its own (xl_score; a slab of
+// K or V and the same of Q or dO a slot), in one order, so every chunk
+// holds the same P^T and dS^T to the bit; dV += P^T dO and dK += dS^T Q
+// take the chunk's columns of the 32-row Q/dO tile (two tiles in flight,
+// with their lse and delta rows). Making the scores again costs (2 chunks
+// + 2) / 4 of the FLOPs: 1.5x at 640, 2x at 768, 2.5x at 1024. 168
+// registers at launch, 240 a consumer thread, no spill: the block's
+// indices and its shared-memory layout are made by each role after
+// setmaxnreg (dkv_xl_block, dkv_xl_smem), since values live across the
+// split took the producer's 24-register limit and spilled for the
+// consumers too. At most 190176 bytes of shared memory. Bound at [4, 4,
+// 1024, 640]: operations, 43 us. On an H100 80GB HBM3 at 700 W (PERF.md,
+// section 6; tools/flash_levers.py group xl_bwd_bf16; 0.370, 0.928 and
+// 1.076 ms at [4, 4, 1024, 640], 1024 and [8, 1, 2048, 768]): the chunks'
+// blocks as a thread-block cluster that splits the slabs and adds the
+// blocks' partials in rank order (kCluster, a power of two of chunks) ran
+// 40-48% slower at 640 and 1024 and 2.2x at 768 (four chunks there); as
+// in the cluster past 320 above, the exchange every tile costs more than
+// the FLOPs it saves.
+// 16-row tiles ran 63-75% slower, slab rings of 2 53-73%, chunks of 4
+// boxes (640 in three) 36% slower at 640, three Q/dO stages within 1%.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -1482,7 +1513,7 @@ constexpr int kDkvWideBK = 64;  // keys a block past Dh 256: both consumer warpg
 // the other's arrivals it adds the two in rank order, so both blocks hold
 // the same S^T, P^T, dP^T and dS^T and neither makes the scores again.
 // Q/dO tiles take BQ rows (S^T on m64nBQk16) in a ring of kStages. At 320
-// (kChunks 1) one block keeps all of Dh (DkvAcc past 256 columns) and no
+// (kChunks 1) one block keeps all of Dh (WideAcc past 256 columns) and no
 // partial is exchanged.
 template <int DH>
 struct DkvWideCfg {
@@ -1502,40 +1533,6 @@ struct DkvWideCfg {
       2 * kKV + 2 * kStages * kQ + kX + (kChunks == 1 ? 0 : 4 * kX);
   static constexpr int kBars = 1 + 2 * kStages + 4;
   static constexpr uint32_t kSmem = kRows + 2 * kStages * BQ * 4 + kBars * 8 + 1024;
-};
-
-// A warpgroup's [64, C] float32 accumulator: OutAcc up to 256 columns;
-// past it (one block over all of Dh, kChunks 1) OutAcc<256> and OutAcc<C -
-// 256> side by side.
-template <int C, bool kPast256 = (C > 256)>
-struct DkvAcc : OutAcc<C> {};
-
-template <int C>
-struct DkvAcc<C, true> {
-  OutAcc<256> a;
-  OutAcc<C - 256> b;
-
-  __device__ __forceinline__ void zero() {
-    a.zero();
-    b.zero();
-  }
-
-  __device__ __forceinline__ void mma(const uint32_t (&x)[4], const unsigned char* p,
-                                      uint32_t box) {
-    a.mma(x, p, box);
-    b.mma(x, p + 4 * box, box);
-  }
-
-  __device__ __forceinline__ void fence() {
-    a.fence();
-    b.fence();
-  }
-
-  __device__ __forceinline__ void stage(float mul0, float mul1, unsigned char* tile, int R,
-                                        int row0, int col0) {
-    a.stage(mul0, mul1, tile, R, row0, col0);
-    b.stage(mul0, mul1, tile, R, row0, col0 + 256);
-  }
 };
 
 // The boxes [c0 / 64, c0 / 64 + n) of a [rows, ...] tile of `map` at row
@@ -1568,7 +1565,7 @@ __device__ __forceinline__ void dkv_wide_consumer(
   uint64_t* empty = full + kStages;                  // [kStages]
   uint64_t* xfull = empty + kStages;                 // [parity][warpgroup]: the other's pushed
   const unsigned char* A = wg == 0 ? Ks : Vs;        // S^T = K Q^T, dP^T = V dO^T
-  DkvAcc<C> acc;                                     // dV (warpgroup 0) or dK (1)
+  WideAcc<C> acc;                                    // dV (warpgroup 0) or dK (1)
   acc.zero();
   mbar_wait(bars, 0);
   for (int tq = t0; tq < t_end; ++tq) {
@@ -1795,15 +1792,365 @@ cudaError_t launch_dkv_wide(const void* q, const void* k, const void* v, const v
   return e != cudaSuccess ? e : cudaGetLastError();
 }
 
+constexpr int kBarXlO = 5;  // named barrier: both warpgroups done with the Q/dO ring (dK, dV stage there)
+
+// The bf16 dK/dV at any other head dim past 256 (every multiple of 8 past
+// 512 on the public route; flash_bwd_dkv_xl_kernel_sm90). A block holds 64
+// keys and one column chunk of dK and dV: at most kMaxBoxes 64-column
+// boxes, in as few chunks as fit (xl_chunks_of). The split layout of Dh
+// 256 over the chunk: warpgroup 0 makes S^T = K Q^T, P^T, and keeps dV,
+// warpgroup 1 makes dP^T = V dO^T, dS^T from the P^T handed to it, and
+// keeps dK (WideAcc of at most 64 kMaxBoxes columns each). Each walks Dh's
+// 64-column slabs for its score product (m64nBQk16) through a TMA ring of
+// kSlots slots of its own (a slab of K or V and the same of Q or dO); the
+// output products dV += P^T dO and dK += dS^T Q take the chunk's columns of
+// the Q/dO tile (kOStages tiles in flight, with their lse and delta rows).
+// Every chunk's block makes the scores over all of Dh in one order, so
+// every chunk holds the same P^T and dS^T to the bit; with kCluster (a
+// lever, off: slower) the blocks of one key tile's chunks, a power of two
+// of them, form a thread-block cluster that splits the slabs between them
+// and adds the blocks' partial S^T (and dP^T) in rank order
+// (xl_cluster_sum).
+struct DkvXlCfg {
+  static constexpr int BQ = 32, kMaxBoxes = 5;  // query rows a Q/dO tile; boxes of dK, dV a block
+  static constexpr int kSlots = 4;        // slabs in flight a warpgroup
+  static constexpr int kOStages = 2;      // the chunk's Q/dO tiles in flight
+  static constexpr bool kCluster = false;  // the chunks' blocks split the scores over Dh
+  static constexpr uint32_t kKeyBox = kDkvWideBK * 128;  // [64 keys, 64 columns]: K, V, staged dK, dV
+  static constexpr uint32_t kRowBox = BQ * 128;          // [BQ rows, 64 columns]: Q, dO
+  static constexpr uint32_t kSlot = kKeyBox + kRowBox;   // a slab of K (V) and the same of Q (dO)
+  static constexpr uint32_t kX = 4 * 128 * (BQ / 2);     // P^T handed over, or a partial
+};
+
+// What a head dim gives the bf16 dK/dV past 256: nb boxes of Dh (the last
+// one zero-filled past it), the chunks of dK and dV (a power of two with
+// kCluster), the boxes of the widest chunk, the blocks of a cluster (1
+// when each chunk makes the scores), and where the shared memory goes: the Q/dO ring (also where dK
+// and dV stage at the end), the two slab rings, P^T handed over, a
+// cluster's partials, the lse and delta rows, the barriers.
+struct DkvXlPlan {
+  int nb, chunks, width, cluster;
+  __host__ __device__ explicit DkvXlPlan(int dh)
+      : nb((dh + 63) / 64),
+        chunks(xl_chunks_of(nb, DkvXlCfg::kMaxBoxes, DkvXlCfg::kCluster)),
+        width(xl_width(nb, DkvXlCfg::kMaxBoxes, 1, DkvXlCfg::kCluster)),
+        cluster(DkvXlCfg::kCluster ? xl_cluster(chunks) : 1) {}
+  static constexpr int kMinWidth = xl_width_bound(DkvXlCfg::kMaxBoxes, 1, false, DkvXlCfg::kCluster);
+  static constexpr int kMaxWidth = xl_width_bound(DkvXlCfg::kMaxBoxes, 1, true, DkvXlCfg::kCluster);
+  static constexpr int kBars = 4 * DkvXlCfg::kSlots + 2 * DkvXlCfg::kOStages + 8;
+  __host__ __device__ uint32_t o_stage() const { return 2 * width * DkvXlCfg::kRowBox; }
+  __host__ __device__ uint32_t o_bytes() const {
+    const uint32_t ring = DkvXlCfg::kOStages * o_stage(), staged = 2 * width * DkvXlCfg::kKeyBox;
+    return ring > staged ? ring : staged;
+  }
+  __host__ __device__ uint32_t x_bytes() const { return (cluster > 1 ? 5 : 1) * DkvXlCfg::kX; }
+  __host__ __device__ uint32_t bytes() const {
+    return o_bytes() + 2 * DkvXlCfg::kSlots * DkvXlCfg::kSlot + x_bytes() +
+           2 * DkvXlCfg::kOStages * DkvXlCfg::BQ * 4 + kBars * 8 + 1024;
+  }
+};
+
+// Consumer warpgroup wg: S^T, P^T and dV (wg 0) or dP^T, dS^T and dK (wg
+// 1) over slabs [s0, s1), the chunk's NB boxes from column 64 b0, of keys
+// k0 + [0, 64). X: P^T handed over, then a cluster's partials [wg][parity].
+template <int NB>
+__device__ __forceinline__ void dkv_xl_consumer(
+    const DkvXlPlan& p, unsigned char* Os, const unsigned char* ring, float4* X, const float* lse_s,
+    const float* delta_s, uint64_t* bars, __nv_bfloat16* __restrict__ dk,
+    __nv_bfloat16* __restrict__ dv, int bh, int S, int dh, int k0, int t0, int t_end, int causal,
+    float scale, float scale_log2, int wg, int s0, int s1, int b0) {
+  typedef DkvXlCfg C;
+  constexpr int BQ = C::BQ, N = BQ / 2, kSlots = C::kSlots, kStages = C::kOStages;
+  uint64_t* full = bars + wg * kSlots;
+  uint64_t* empty = bars + (2 + wg) * kSlots;
+  uint64_t* full_o = bars + 4 * kSlots;
+  uint64_t* empty_o = full_o + kStages;
+  uint64_t* yfull = empty_o + kStages + 2 * wg;  // [parity]
+  uint64_t* yempty = yfull + 4;                  // [parity]
+  const unsigned char* my_ring = ring + wg * kSlots * C::kSlot;
+  float4* handed = X;
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int key_lo = k0 + 16 * (t / 32) + lane / 4, key_hi = key_lo + 8;
+  WideAcc<64 * NB> acc;  // dV (warpgroup 0) or dK (1)
+  acc.zero();
+  uint32_t n = 0;  // slabs taken from this warpgroup's ring
+  for (int tq = t0; tq < t_end; ++tq) {
+    const int it = tq - t0, s = it % kStages, q0 = tq * BQ;
+    float sc[N];
+    xl_score<kSlots, C::kSlot, C::kKeyBox>(sc, my_ring, full, empty, n, s0, s1);
+    if (p.cluster > 1)
+      xl_cluster_sum(sc, X + (1 + 2 * wg) * (N / 4) * 128, yfull, yempty, it, p.cluster);
+    mbar_wait(&full_o[s], (it / kStages) & 1);
+    const float* lrow = lse_s + s * BQ;
+    const float* drow = delta_s + s * BQ;
+    if (wg == 0) {
+      // P^T, masked only on the tiles that cross the diagonal or the end
+      // of S, handed to warpgroup 1 once it has read the last one.
+      const bool edge = q0 + BQ > S || k0 + kDkvWideBK > S || (causal && k0 + 63 > q0);
+#pragma unroll
+      for (int i = 0; i < N; i += 2) {
+        const int qc = 8 * (i / 4) + 2 * (lane % 4);
+        const float2 l2 = *reinterpret_cast<const float2*>(lrow + qc);
+        const int key = (i % 4) < 2 ? key_lo : key_hi;
+#pragma unroll
+        for (int u = 0; u < 2; ++u) {
+          const int qi = q0 + qc + u;
+          const bool off = edge && (qi >= S || key >= S || (causal && key > qi));
+          sc[i + u] = off ? 0.f : exp2f(sc[i + u] * scale_log2 - (u ? l2.y : l2.x));
+        }
+      }
+      if (it > 0) consumers_wait(kBarPEmpty);
+#pragma unroll
+      for (int v = 0; v < N / 4; ++v)
+        handed[128 * v + t] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+      consumers_arrive(kBarPFull);
+    } else {
+      // dS^T = P^T (dP^T - delta), P^T as warpgroup 0 made it (entry i of
+      // thread t holds the same key and query in both warpgroups), read
+      // one float4 at a time: entries 4 v .. 4 v + 3 are queries qc, qc + 1
+      // of keys key_lo and key_hi.
+      consumers_wait(kBarPFull);
+#pragma unroll
+      for (int v = 0; v < N / 4; ++v) {
+        const float4 y = handed[128 * v + t];
+        const float2 d2 = *reinterpret_cast<const float2*>(drow + 8 * v + 2 * (lane % 4));
+        sc[4 * v] = y.x * (sc[4 * v] - d2.x);
+        sc[4 * v + 1] = y.y * (sc[4 * v + 1] - d2.y);
+        sc[4 * v + 2] = y.z * (sc[4 * v + 2] - d2.x);
+        sc[4 * v + 3] = y.w * (sc[4 * v + 3] - d2.y);
+      }
+      if (tq + 1 < t_end) consumers_arrive(kBarPEmpty);
+    }
+    uint32_t a[N / 8][4];
+    to_a_operand(sc, a);
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1) over the chunk's
+    // columns: B is the tile's [BQ, 64 NB] dO or Q, MN-major.
+    const unsigned char* Bo = Os + s * p.o_stage() + (wg == 0 ? p.width * C::kRowBox : 0);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BQ / 16; ++kk) acc.mma(a[kk], Bo + kk * 16 * 128, C::kRowBox);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc.fence();
+    mbar_arrive(&empty_o[s]);
+  }
+  // Both warpgroups are done with the Q/dO ring: dV stages there from box
+  // 0, dK from box `width`, and each copies the columns short of dh out.
+  consumers_wait(kBarXlO);
+  unsigned char* tile = Os + wg * p.width * C::kKeyBox;
+  acc.stage(wg == 0 ? 1.f : scale, wg == 0 ? 1.f : scale, tile, kDkvWideBK, 0, 0);
+  copy_boxes<NB>(tile, 0, (wg == 0 ? dv : dk) + (size_t)bh * S * dh, dh, k0, S, 64 * b0, 6 + wg);
+}
+
+// Where a block of the bf16 dK/dV past 256 keeps its tiles in shared
+// memory: the Q/dO ring (also where dK and dV stage at the end), the two
+// slab rings, P^T handed over and a cluster's partials, the lse and delta
+// rows, the barriers.
+struct DkvXlSmem {
+  unsigned char* Os;    // the chunk's Q (then dO) boxes a stage; at the end dV, dK
+  unsigned char* ring;  // warpgroup r's slot s at (r kSlots + s) kSlot
+  float4* X;
+  float* lse_s;         // [kOStages][BQ], times log2(e); delta's rows behind them
+  uint64_t* bars;       // full and empty [wg][kSlots], the Q/dO ring's, a cluster's
+};
+
+__device__ __forceinline__ DkvXlSmem dkv_xl_smem(const DkvXlPlan& p, unsigned char* smem) {
+  typedef DkvXlCfg C;
+  unsigned char* ring = smem + p.o_bytes();
+  unsigned char* rows = ring + 2 * C::kSlots * C::kSlot + p.x_bytes();
+  return {smem, ring, reinterpret_cast<float4*>(ring + 2 * C::kSlots * C::kSlot),
+          reinterpret_cast<float*>(rows),
+          reinterpret_cast<uint64_t*>(rows + 2 * C::kOStages * C::BQ * 4)};
+}
+
+// What a block of the bf16 dK/dV past 256 works on: its head, its 64 keys,
+// its Q tiles, its chunk's boxes and the scores' slabs. Each role makes it
+// after setmaxnreg, so that none of it stays live across the split (the
+// producer's 24 registers would spill it for the consumers too).
+struct DkvXlBlock {
+  int bh, k0, t0, t_end, b0, nbc, s0, s1;
+};
+
+__device__ __forceinline__ DkvXlBlock dkv_xl_block(const DkvXlPlan& p, int BH, int S,
+                                                   int causal) {
+  constexpr int BQ = DkvXlCfg::BQ;
+  // Block order: the chunks of one key tile together (a cluster's blocks),
+  // key tile 0 of every head first (the most Q tiles when causal).
+  const int chunk = blockIdx.x % p.chunks, tile = blockIdx.x / p.chunks;
+  const int bh = tile % BH;
+  const int k0 = (tile / BH) * kDkvWideBK;
+  // Q tiles [t0, t_end): when causal, from the first that reaches these keys.
+  const int t0 = causal ? k0 / BQ : 0;
+  const int t_end = 1 + (S - 1) / BQ;  // S > 0
+  const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  // The scores' slabs: all of Dh, or the block's share of its cluster's.
+  const int rank = chunk % p.cluster;
+  const int s0 = rank * p.nb / p.cluster, s1 = (rank + 1) * p.nb / p.cluster;
+  return {bh, k0, t0, t_end, b0, nbc, s0, s1};
+}
+
+// W: the boxes of dK and dV the widest chunk of a launch holds; a chunk
+// holds W or W - 1.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dkv_xl_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                                 const __grid_constant__ CUtensorMap map_k,
+                                 const __grid_constant__ CUtensorMap map_v,
+                                 const __grid_constant__ CUtensorMap map_do,
+                                 const float* __restrict__ lse, const float* __restrict__ delta,
+                                 __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                                 int BH, int S, int dh, int causal, float scale,
+                                 float scale_log2) {
+  typedef DkvXlCfg C;
+  constexpr int BQ = C::BQ, kSlots = C::kSlots, kStages = C::kOStages;
+  const DkvXlPlan p(dh);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    uint64_t* bars = dkv_xl_smem(p, smem).bars;
+    for (int s = 0; s < 2 * kSlots; ++s) {
+      mbar_init(&bars[s], 1);                // full [wg][kSlots]
+      mbar_init(&bars[2 * kSlots + s], 128);  // empty [wg][kSlots]
+    }
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&bars[4 * kSlots + s], 33);                           // the Q/dO ring's full
+      mbar_init(&bars[4 * kSlots + kStages + s], kConsumerThreads);  // and empty
+    }
+    for (int x = 0; x < 8; ++x) mbar_init(&bars[4 * kSlots + 2 * kStages + x], 128 * p.cluster);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (p.cluster > 1) cluster_sync();  // no block arrives on another's barriers before they exist
+
+  if (wg == 2) {
+    // Producer: lane 0 of warp 8 keeps the two slab rings full, in turn;
+    // lane 0 of warp 9 brings each tile's Q and dO boxes of the chunk, and
+    // warp 10 their lse and delta rows. Each holds little across its loop:
+    // the producer warpgroup has 24 registers a thread.
+    regs_dealloc<24>();
+    const int warp = threadIdx.x / 32 - 8, lane = threadIdx.x % 32;
+    if (warp == 0 && lane == 0) {
+      const DkvXlSmem m = dkv_xl_smem(p, smem);
+      const DkvXlBlock b = dkv_xl_block(p, BH, S, causal);
+      uint64_t* full = m.bars;              // [wg][kSlots]
+      uint64_t* empty = full + 2 * kSlots;  // [wg][kSlots]
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      uint32_t n[2] = {0, 0};  // slabs put in each warpgroup's ring
+      for (int tq = b.t0; tq < b.t_end; ++tq) {
+        for (int d = b.s0; d < b.s1; ++d) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t x = r * kSlots + n[r] % kSlots;
+            mbar_wait(&empty[x], ((n[r] / kSlots) & 1) ^ 1);
+            ++n[r];
+            mbar_expect(&full[x], C::kSlot);
+            tma_load(m.ring + x * C::kSlot, r ? &map_v : &map_k, &full[x], 64 * d, b.k0, b.bh);
+            tma_load(m.ring + x * C::kSlot + C::kKeyBox, r ? &map_do : &map_q, &full[x], 64 * d,
+                     tq * BQ, b.bh);
+          }
+        }
+      }
+    } else if (warp == 1 && lane == 0) {
+      const DkvXlSmem m = dkv_xl_smem(p, smem);
+      const DkvXlBlock b = dkv_xl_block(p, BH, S, causal);
+      uint64_t* full_o = m.bars + 4 * kSlots;  // [kStages]
+      uint64_t* empty_o = full_o + kStages;    // [kStages]
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      for (int tq = b.t0; tq < b.t_end; ++tq) {
+        const int it = tq - b.t0, s = it % kStages;
+        unsigned char* st = m.Os + s * p.o_stage();
+        mbar_wait(&empty_o[s], ((it / kStages) & 1) ^ 1);
+        mbar_expect(&full_o[s], 2 * b.nbc * C::kRowBox);
+        for (int i = 0; i < b.nbc; ++i) {
+          tma_load(st + i * C::kRowBox, &map_q, &full_o[s], 64 * (b.b0 + i), tq * BQ, b.bh);
+          tma_load(st + (p.width + i) * C::kRowBox, &map_do, &full_o[s], 64 * (b.b0 + i),
+                   tq * BQ, b.bh);
+        }
+      }
+    } else if (warp == 2) {
+      const DkvXlSmem m = dkv_xl_smem(p, smem);
+      const DkvXlBlock b = dkv_xl_block(p, BH, S, causal);
+      uint64_t* full_o = m.bars + 4 * kSlots;  // [kStages]
+      uint64_t* empty_o = full_o + kStages;    // [kStages]
+      const float* lse_g = lse + (size_t)b.bh * S;
+      const float* delta_g = delta + (size_t)b.bh * S;
+      for (int tq = b.t0; tq < b.t_end; ++tq) {
+        const int it = tq - b.t0, s = it % kStages;
+        mbar_wait(&empty_o[s], ((it / kStages) & 1) ^ 1);
+        for (int r = lane; r < BQ; r += 32) {
+          const int qi = tq * BQ + r;
+          m.lse_s[s * BQ + r] = qi < S ? lse_g[qi] * kLog2e : 0.f;
+          m.lse_s[(kStages + s) * BQ + r] = qi < S ? delta_g[qi] : 0.f;  // delta's rows
+        }
+        mbar_arrive(&full_o[s]);
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    const DkvXlSmem m = dkv_xl_smem(p, smem);
+    const DkvXlBlock b = dkv_xl_block(p, BH, S, causal);
+    const float* delta_s = m.lse_s + kStages * BQ;
+    if (b.nbc == W)
+      dkv_xl_consumer<W>(p, m.Os, m.ring, m.X, m.lse_s, delta_s, m.bars, dk, dv, b.bh, S, dh, b.k0,
+                         b.t0, b.t_end, causal, scale, scale_log2, wg, b.s0, b.s1, b.b0);
+    else
+      dkv_xl_consumer<W - 1>(p, m.Os, m.ring, m.X, m.lse_s, delta_s, m.bars, dk, dv, b.bh, S, dh,
+                             b.k0, b.t0, b.t_end, causal, scale, scale_log2, wg, b.s0, b.s1,
+                             b.b0);
+  }
+  if (p.cluster > 1) {
+    __syncwarp();
+    cluster_sync();  // no block exits while another may still read it or arrive on it
+  }
+}
+
+template <int W>
+cudaError_t launch_dkv_xl_w(const DkvXlPlan& p, const CUtensorMap& mq, const CUtensorMap& mk,
+                            const CUtensorMap& mv, const CUtensorMap& mdo, const void* lse,
+                            const void* delta, void* dk, void* dv, int bh, int s, int dh,
+                            int causal, float scale, cudaStream_t stream) {
+  const uint32_t bytes = p.bytes();
+  cudaError_t e = allow_smem(flash_bwd_dkv_xl_kernel_sm90<W>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kDkvWideBK - 1) / kDkvWideBK) * bh * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  e = launch_clustered(flash_bwd_dkv_xl_kernel_sm90<W>, (unsigned)blocks, kThreads, bytes,
+                       p.cluster, stream, mq, mk, mv, mdo, static_cast<const float*>(lse),
+                       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dk),
+                       static_cast<__nv_bfloat16*>(dv), bh, s, dh, causal, scale, scale * kLog2e);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+cudaError_t launch_dkv_xl(const void* q, const void* k, const void* v, const void* dout,
+                          const void* lse, const void* delta, void* dk, void* dv, int bh, int s,
+                          int dh, int causal, float scale, cudaStream_t stream) {
+  const DkvXlPlan p(dh);
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, dh, DkvXlCfg::BQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, dh, kDkvWideBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, dh, kDkvWideBK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, dh, DkvXlCfg::BQ)) != cudaSuccess) return e;
+  return by_width<DkvXlPlan::kMinWidth, DkvXlPlan::kMaxWidth>(p.width, [&](auto w) {
+    return launch_dkv_xl_w<decltype(w)::value>(p, mq, mk, mv, mdo, lse, delta, dk, dv, bh, s, dh,
+                                               causal, scale, stream);
+  });
+}
+
 }  // namespace sm90
 
 }  // namespace flash
 
 // q, k, v, dout, dk, dv: [bh, s, dh] (float32, or bfloat16 when is_bf16);
 // lse, delta: float32 [bh, s]. dh is 64, 128, 192, 256, 320, 384, 448 or
-// 512 in both dtypes (the kernels built for them), and in float32 any
-// other multiple of 8 past 256 (the kernel that takes the head dim at run
-// time). Launches on `stream` and returns the launch's CUDA error code.
+// 512 in both dtypes (the kernels built for them), or any other multiple
+// of 8 past 256 (the kernels that take the head dim at run time).
+// Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout,
                                   const void* lse, const void* delta, void* dk, void* dv, int bh,
                                   int s, int dh, int causal, float scale, int is_bf16,
@@ -1849,6 +2196,8 @@ extern "C" int dmlc_flash_bwd_dkv(const void* q, const void* k, const void* v, c
     return (int)f32::launch_dkv<512>(q, k, v, dout, lse, delta, dk, dv, bh, s, causal, scale, st);
   if (!is_bf16 && dh > 256 && dh % 8 == 0)
     return (int)f32::launch_dkv_xl(q, k, v, dout, lse, delta, dk, dv, bh, s, dh, causal, scale, st);
+  if (is_bf16 && dh > 256 && dh % 8 == 0)
+    return (int)sm90::launch_dkv_xl(q, k, v, dout, lse, delta, dk, dv, bh, s, dh, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1871,15 +2220,16 @@ extern "C" int dmlc_flash_bwd_dkv_smem_bytes(int dh, int is_bf16) {
   if (dh == 448 && !is_bf16) return (int)f32::DkvCfg<448>::bytes;
   if (dh == 512 && !is_bf16) return (int)f32::DkvCfg<512>::bytes;
   if (!is_bf16 && dh > 256 && dh % 8 == 0) return (int)f32::DkvXlPlan(dh).bytes();
+  if (is_bf16 && dh > 256 && dh % 8 == 0) return (int)sm90::DkvXlPlan(dh).bytes();
   return 0;
 }
 
-// The instantiation (its template argument W, the widest part's 64-column
-// steps) that the float32 kernel past 256 runs head dim dh with; 0 where a
-// kernel built for dh runs it, or none (bf16 past 512 runs
-// csrc/flash_wide.cu).
+// The instantiation (its template argument W: the widest chunk's 64-column
+// boxes in bf16, the widest part's steps in float32) that the kernel past
+// 256 runs head dim dh with; 0 where a kernel built for dh runs it, or
+// none.
 extern "C" int dmlc_flash_bwd_dkv_xl_width(int dh, int is_bf16) {
   using namespace flash;
-  if (is_bf16 || dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
-  return f32::DkvXlPlan(dh).width;
+  if (dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
+  return is_bf16 ? sm90::DkvXlPlan(dh).width : f32::DkvXlPlan(dh).width;
 }

@@ -6,10 +6,9 @@
 // and carries dQ in VMEM scratch; here a loop inside the block does.
 //
 // Inputs q, k, v, dO: [BH, S, DH] row-major, float32 or bfloat16, DH 64,
-// 128, 192, 256, 320, 384, 448 or 512, and in float32 also, at run time,
-// any other multiple of 8 past 256 (ops/flash.py zero-pads a head dim up
-// to 512 to one of the fixed ones, and a wider one to a multiple of 8;
-// csrc/flash_wide.cu takes bf16 past 512); lse and
+// 128, 192, 256, 320, 384, 448 or 512, and also, at run time, any other
+// multiple of 8 past 256 (ops/flash.py zero-pads a head dim up to 512 to
+// one of the fixed ones, and a wider one to a multiple of 8); lse and
 // delta = rowsum(dO * O): float32 [BH, S]. Output dq (q's dtype):
 // dq = scale * sum_k dS k, with p = exp(scale q k^T - lse) recomputed per
 // tile (0 where a key is masked: a row with lse = -inf would otherwise
@@ -178,6 +177,38 @@
 // (before the clusters; with them it no longer fits); chunks of 12 steps
 // spill at 6 a part. Before the clusters, each chunk's block made the
 // whole scores, and 1024 ran 1.45x the time.
+//
+// bf16 past Dh 512, at any multiple of 8 past 256 (DqXlCfg, DqXlPlan,
+// dq_xl_consumer, flash_bwd_dq_xl_kernel_sm90<W>): every bf16 head past
+// 512 pads to a multiple of 8, and a direct call takes any other past 256.
+// The bf16 design above keeps 64-row Q and dO tiles resident: 160 KB at
+// 640, and past the 227 KB a block can use beside K/V tiles and partials
+// from 520 on. So here Q and dO stream too, and the head dim is a run-time
+// argument. A block holds 64 query rows and one column chunk of dQ of at
+// most 10 boxes, in as few chunks as fit (520 and 640 in one, 768 and
+// 1024 in two), the first half of its boxes to warpgroup 0 and the rest to
+// warpgroup 1 (WideAcc of at most 320 columns, 160 floats a thread).
+// Warpgroup 0 makes S = Q K^T and
+// warpgroup 1 dP = dO V^T (m64n32k16), each over all of Dh's 64-column
+// slabs, streamed through a TMA ring of 4 slots of its own (xl_score in
+// flash_sm90.cuh; a slot holds a slab of Q or dO and the same of K or V).
+// The two hand each other P and dP through shared memory (one named
+// barrier a tile) and both make dS = P (dP - delta) from the same floats,
+// the register A operand of dQ += dS K over their boxes of the chunk's K
+// columns (two tiles in flight). So every chunk's block makes the scores
+// again, in one order, and holds the same P and dS to the bit: 5/3 of the
+// FLOPs at two chunks. 168 registers at launch, 240 a consumer thread, no
+// spill (the block's indices are made by each role after setmaxnreg,
+// dq_xl_block, as in the dK/dV past 512); at most 214240 bytes of shared
+// memory. Bound at [4, 4, 1024, 640]: operations, 33 us. On an H100 80GB
+// HBM3 at 700 W (PERF.md, section 6; tools/flash_levers.py group
+// xl_bwd_bf16; 0.180, 0.470 and 0.661 ms at [4, 4, 1024, 640], 1024 and
+// [8, 1, 2048, 768]): chunks of 8 boxes (640 in two) ran 73% slower at
+// 640; the chunks' blocks as a thread-block cluster that splits the slabs
+// and adds the blocks' partial S and dP in rank order (kCluster,
+// xl_cluster_sum; chunks of 8 boxes) 26-58% slower than those chunks each
+// making the scores; 16-key tiles 57-61% slower; slab rings of 2 55-67%
+// slower; three K stages the same.
 
 #include "flash_common.cuh"
 #include "flash_sm90.cuh"
@@ -1367,14 +1398,329 @@ cudaError_t launch_dq_wide(const void* q, const void* k, const void* v, const vo
   return cudaGetLastError();
 }
 
+constexpr int kBarXlO = 4;  // named barrier: both warpgroups done with the K ring (dQ stages there)
+
+// The bf16 dQ at any other head dim past 256 (every multiple of 8 past 512
+// on the public route; flash_bwd_dq_xl_kernel_sm90). A block holds 64
+// query rows, which both consumer warpgroups share, and one column chunk
+// of dQ: at most 2 kMaxBoxes 64-column boxes, the first half (rounded up)
+// to warpgroup 0 and the rest to warpgroup 1 (WideAcc of at most 64
+// kMaxBoxes columns). Warpgroup 0 makes S = Q K^T and warpgroup 1 dP = dO
+// V^T (m64nBKk16), each walking Dh's 64-column slabs through a TMA ring of
+// kSlots slots of its own (a slab of Q or dO and the same of K or V): Q
+// and dO come again from L2 for every K/V tile. The two hand each other P
+// and dP through shared memory (double-buffered by tile parity, one named
+// barrier a tile) and both make dS = P (dP - delta) from the same floats,
+// as the register A operand of dQ += dS K over their own boxes of the
+// chunk's K columns (kKStages tiles in flight). Every chunk's block makes
+// S and dP over all of Dh, in one order, so every chunk holds the same P
+// and dS to the bit; with kCluster (a lever, off: slower) the blocks of one
+// Q tile's chunks, a power of two of them, form a thread-block cluster
+// that splits the slabs between them and adds the blocks' partial S (and
+// dP) in rank order (xl_cluster_sum).
+struct DqXlCfg {
+  static constexpr int BK = 32;            // keys a K/V tile
+  static constexpr int kMaxBoxes = 5;      // boxes of dQ a warpgroup holds
+  static constexpr int kSlots = 4;         // slabs in flight a warpgroup
+  static constexpr int kKStages = 2;       // the chunk's K tiles in flight
+  static constexpr bool kCluster = false;  // the chunks' blocks split the scores over Dh
+  static constexpr uint32_t kRowBox = kDqWideBQ * 128;  // [64 rows, 64 columns]: Q, dO, staged dQ
+  static constexpr uint32_t kKeyBox = BK * 128;         // [BK keys, 64 columns]: K, V
+  static constexpr uint32_t kSlot = kRowBox + kKeyBox;  // a slab of Q (dO) and the same of K (V)
+  static constexpr uint32_t kX = 4 * 128 * (BK / 2);    // a warpgroup's P, dP or partial
+};
+
+// What a head dim gives the bf16 dQ past 256: nb boxes of Dh (the last one
+// zero-filled past it), the chunks of dQ (as few as fit; a power of two
+// with kCluster), the boxes of
+// the widest warpgroup, the blocks of a cluster (1 when each chunk makes
+// the scores), and where the shared memory goes: the K ring (also where dQ
+// stages at the end), the two slab rings, P and dP by tile parity, a
+// cluster's partials, the barriers.
+struct DqXlPlan {
+  int nb, chunks, width, cluster;
+  __host__ __device__ explicit DqXlPlan(int dh)
+      : nb((dh + 63) / 64),
+        chunks(xl_chunks_of(nb, 2 * DqXlCfg::kMaxBoxes, DqXlCfg::kCluster)),
+        width(xl_width(nb, 2 * DqXlCfg::kMaxBoxes, 2, DqXlCfg::kCluster)),
+        cluster(DqXlCfg::kCluster ? xl_cluster(chunks) : 1) {}
+  static constexpr int kMinWidth = xl_width_bound(2 * DqXlCfg::kMaxBoxes, 2, false, DqXlCfg::kCluster);
+  static constexpr int kMaxWidth = xl_width_bound(2 * DqXlCfg::kMaxBoxes, 2, true, DqXlCfg::kCluster);
+  static constexpr int kBars = 4 * DqXlCfg::kSlots + 2 * DqXlCfg::kKStages + 8;
+  __host__ __device__ uint32_t k_stage() const { return 2 * width * DqXlCfg::kKeyBox; }
+  __host__ __device__ uint32_t k_bytes() const {
+    const uint32_t ring = DqXlCfg::kKStages * k_stage(), staged = 2 * width * DqXlCfg::kRowBox;
+    return ring > staged ? ring : staged;
+  }
+  __host__ __device__ uint32_t x_bytes() const { return (cluster > 1 ? 8 : 4) * DqXlCfg::kX; }
+  __host__ __device__ uint32_t bytes() const {
+    return k_bytes() + 2 * DqXlCfg::kSlots * DqXlCfg::kSlot + x_bytes() + kBars * 8 + 1024;
+  }
+};
+
+// K/V tiles that the 64-row Q tile at q0 reads past 512: up to its diagonal when causal.
+__device__ __forceinline__ int dq_xl_tiles(int q0, int S, int causal) {
+  const int end = causal ? min(q0 + kDqWideBQ, S) : S;  // one past the last key read
+  return (end + DqXlCfg::BK - 1) / DqXlCfg::BK;
+}
+
+// Consumer warpgroup wg: S (wg 0) or dP (wg 1) over slabs [s0, s1), and
+// dQ's NB boxes from box c0 of the chunk, whose first column is 64 b0, of
+// query rows q0 + [0, 64). X: P and dP [parity][wg], then a cluster's
+// partials [wg][parity].
+template <int NB>
+__device__ __forceinline__ void dq_xl_consumer(
+    const DqXlPlan& p, unsigned char* Ks, const unsigned char* ring, float4* X, uint64_t* bars,
+    const float* __restrict__ lse, const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq,
+    int bh, int S, int dh, int q0, int causal, float scale, float scale_log2, int wg, int s0,
+    int s1, int b0, int c0) {
+  typedef DqXlCfg C;
+  constexpr int BK = C::BK, N = BK / 2, kSlots = C::kSlots, SK = C::kKStages;
+  uint64_t* full = bars + wg * kSlots;
+  uint64_t* empty = bars + (2 + wg) * kSlots;
+  uint64_t* full_k = bars + 4 * kSlots;
+  uint64_t* empty_k = full_k + SK;
+  uint64_t* yfull = empty_k + SK + 2 * wg;  // [parity]
+  uint64_t* yempty = yfull + 4;             // [parity]
+  const unsigned char* my_ring = ring + wg * kSlots * C::kSlot;
+  const int n_k = dq_xl_tiles(q0, S, causal);
+  const int t = threadIdx.x % 128, lane = t % 32;
+  const int qi0 = q0 + 16 * (t / 32) + lane / 4;  // and qi0 + 8
+  float lse2[2], dlt[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int qi = qi0 + 8 * h;
+    lse2[h] = qi < S ? lse[(size_t)bh * S + qi] * kLog2e : 0.f;
+    dlt[h] = qi < S ? delta[(size_t)bh * S + qi] : 0.f;
+  }
+  WideAcc<64 * NB> acc;
+  acc.zero();
+  uint32_t n = 0;  // slabs taken from this warpgroup's ring
+  for (int j = 0; j < n_k; ++j) {
+    const int k0 = j * BK;
+    float sc[N];
+    xl_score<kSlots, C::kSlot, C::kRowBox>(sc, my_ring, full, empty, n, s0, s1);
+    if (p.cluster > 1) xl_cluster_sum(sc, X + (4 + 2 * wg) * (N / 4) * 128, yfull, yempty, j, p.cluster);
+    if (wg == 0) {
+      // P, 0 where masked (only the tiles crossing the diagonal or the end
+      // of S).
+      const bool edge = k0 + BK > S || (causal && k0 + BK - 1 > q0);
+#pragma unroll
+      for (int i = 0; i < N; ++i) {
+        const int h = (i % 4) / 2;  // row qi0 + 8 h
+        const int kj = k0 + 8 * (i / 4) + 2 * (lane % 4) + (i % 2);
+        const bool off = edge && (kj >= S || (causal && kj > qi0 + 8 * h));
+        sc[i] = off ? 0.f : exp2f(sc[i] * scale_log2 - lse2[h]);
+      }
+    }
+    // Thread t's P (wg 0) or dP (wg 1) at float4 v * 128 + t of its
+    // buffer; the twin thread of the other warpgroup holds the same rows
+    // and keys. The last tile's barrier also follows both warpgroups' last
+    // reads of P and dP.
+    float4* mine = X + ((j & 1) * 2 + wg) * (N / 4) * 128;
+    const float4* other = X + ((j & 1) * 2 + 1 - wg) * (N / 4) * 128;
+#pragma unroll
+    for (int v = 0; v < N / 4; ++v)
+      mine[v * 128 + t] = make_float4(sc[4 * v], sc[4 * v + 1], sc[4 * v + 2], sc[4 * v + 3]);
+    consumers_wait(kBarX);
+    // dS = P (dP - delta), the same floats in both warpgroups.
+#pragma unroll
+    for (int v = 0; v < N / 4; ++v) {
+      const float4 y = other[v * 128 + t];
+      const float o[4] = {y.x, y.y, y.z, y.w};
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 4 * v + e;
+        const float d = dlt[(i % 4) / 2];
+        sc[i] = wg == 0 ? sc[i] * (o[e] - d) : o[e] * (sc[i] - d);
+      }
+    }
+    uint32_t dsa[N / 8][4];
+    to_a_operand(sc, dsa);
+
+    // dQ[:, this warpgroup's boxes] += dS K: the chunk's K boxes from c0, MN-major.
+    const int sk = j % SK;
+    mbar_wait(&full_k[sk], (j / SK) & 1);
+    const unsigned char* Kt = Ks + sk * p.k_stage() + c0 * C::kKeyBox;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < BK / 16; ++kk) acc.mma(dsa[kk], Kt + kk * 16 * 128, C::kKeyBox);
+    wgmma_commit();
+    wgmma_wait<0>();
+    acc.fence();
+    mbar_arrive(&empty_k[sk]);
+  }
+  // Both warpgroups are done with the K ring: each stages its boxes of dQ
+  // there (box i of the chunk at i * kRowBox) and copies the columns short
+  // of dh out.
+  consumers_wait(kBarXlO);
+  acc.stage(scale, scale, Ks, kDqWideBQ, 0, 64 * c0);
+  copy_boxes<NB>(Ks, c0, dq + (size_t)bh * S * dh, dh, q0, S, 64 * b0, 5 + wg);
+}
+
+// What a block of the bf16 dQ past 256 works on: its head, its 64 query
+// rows, its chunk's boxes and the scores' slabs. Each role makes it after
+// setmaxnreg, so that none of it stays live across the split (the
+// producer's 24 registers would spill it for the consumers too).
+struct DqXlBlock {
+  int bh, q0, b0, nbc, s0, s1;
+};
+
+__device__ __forceinline__ DqXlBlock dq_xl_block(const DqXlPlan& p, int BH, int S) {
+  // Block order: the chunks of one Q tile together (a cluster's blocks),
+  // the last (longest, when causal) Q tile of every head first.
+  const int n_tiles = (S + kDqWideBQ - 1) / kDqWideBQ;
+  const int chunk = blockIdx.x % p.chunks, rest = blockIdx.x / p.chunks;
+  const int bh = rest % BH;
+  const int q0 = (n_tiles - 1 - rest / BH) * kDqWideBQ;
+  const int b0 = chunk * p.nb / p.chunks, nbc = (chunk + 1) * p.nb / p.chunks - b0;
+  // The scores' slabs: all of Dh, or the block's share of its cluster's.
+  const int rank = chunk % p.cluster;
+  const int s0 = rank * p.nb / p.cluster, s1 = (rank + 1) * p.nb / p.cluster;
+  return {bh, q0, b0, nbc, s0, s1};
+}
+
+// W: the boxes of dQ the widest warpgroup of a launch holds; a warpgroup
+// holds W or W - 1.
+template <int W>
+__global__ void __launch_bounds__(kThreads, 1)
+    flash_bwd_dq_xl_kernel_sm90(const __grid_constant__ CUtensorMap map_q,
+                                const __grid_constant__ CUtensorMap map_k,
+                                const __grid_constant__ CUtensorMap map_v,
+                                const __grid_constant__ CUtensorMap map_do,
+                                const float* __restrict__ lse, const float* __restrict__ delta,
+                                __nv_bfloat16* __restrict__ dq, int BH, int S, int dh, int causal,
+                                float scale, float scale_log2) {
+  typedef DqXlCfg C;
+  constexpr int kSlots = C::kSlots, SK = C::kKStages;
+  const DqXlPlan p(dh);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + (align1024(smem_u32(smem_raw)) - smem_u32(smem_raw));
+  // The chunk's K tiles (at the end dQ staged), then warpgroup r's slot s
+  // of the slab rings at (r kSlots + s) kSlot, P and dP, a cluster's
+  // partials, the barriers: full and empty [wg][kSlots], the K ring's, a
+  // cluster's full [wg][parity] and empty.
+  const uint32_t ring_at = p.k_bytes(), x_at = ring_at + 2 * kSlots * C::kSlot;
+  const uint32_t bars_at = x_at + p.x_bytes();
+  const int wg = threadIdx.x / 128;
+
+  if (threadIdx.x == 0) {
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + bars_at);
+    for (int s = 0; s < 2 * kSlots; ++s) {
+      mbar_init(&bars[s], 1);                // full [wg][kSlots]
+      mbar_init(&bars[2 * kSlots + s], 128);  // empty [wg][kSlots]
+    }
+    for (int s = 0; s < SK; ++s) {
+      mbar_init(&bars[4 * kSlots + s], 1);                      // the K ring's full
+      mbar_init(&bars[4 * kSlots + SK + s], kConsumerThreads);  // and empty
+    }
+    for (int x = 0; x < 8; ++x) mbar_init(&bars[4 * kSlots + 2 * SK + x], 128 * p.cluster);
+    mbar_init_fence();
+  }
+  __syncthreads();
+  if (p.cluster > 1) cluster_sync();  // no block arrives on another's barriers before they exist
+
+  if (wg == 2) {
+    // Producer: one thread keeps the rings full, the two slab rings in turn.
+    regs_dealloc<24>();
+    if (threadIdx.x == kConsumerThreads) {
+      const DqXlBlock b = dq_xl_block(p, BH, S);
+      unsigned char* Ks = smem;
+      unsigned char* ring = smem + ring_at;
+      uint64_t* full = reinterpret_cast<uint64_t*>(smem + bars_at);  // [wg][kSlots]
+      uint64_t* empty = full + 2 * kSlots;                          // [wg][kSlots]
+      uint64_t* full_k = empty + 2 * kSlots;                        // [SK]
+      uint64_t* empty_k = full_k + SK;                              // [SK]
+      const int n_k = dq_xl_tiles(b.q0, S, causal);
+      prefetch_map(&map_q);
+      prefetch_map(&map_do);
+      prefetch_map(&map_k);
+      prefetch_map(&map_v);
+      uint32_t n[2] = {0, 0};  // slabs put in each warpgroup's ring
+      for (int j = 0; j < n_k; ++j) {
+        for (int d = b.s0; d < b.s1; ++d) {
+#pragma unroll
+          for (int r = 0; r < 2; ++r) {
+            const uint32_t s = r * kSlots + n[r] % kSlots;
+            mbar_wait(&empty[s], ((n[r] / kSlots) & 1) ^ 1);
+            ++n[r];
+            mbar_expect(&full[s], C::kSlot);
+            tma_load(ring + s * C::kSlot, r ? &map_do : &map_q, &full[s], 64 * d, b.q0, b.bh);
+            tma_load(ring + s * C::kSlot + C::kRowBox, r ? &map_v : &map_k, &full[s], 64 * d,
+                     j * C::BK, b.bh);
+          }
+        }
+        const int sk = j % SK;
+        mbar_wait(&empty_k[sk], ((j / SK) & 1) ^ 1);
+        mbar_expect(&full_k[sk], b.nbc * C::kKeyBox);
+        for (int i = 0; i < b.nbc; ++i)
+          tma_load(Ks + sk * p.k_stage() + i * C::kKeyBox, &map_k, &full_k[sk],
+                   64 * (b.b0 + i), j * C::BK, b.bh);
+      }
+    }
+  } else {
+    regs_alloc<240>();
+    const DqXlBlock b = dq_xl_block(p, BH, S);
+    unsigned char* Ks = smem;
+    const unsigned char* ring = smem + ring_at;
+    float4* X = reinterpret_cast<float4*>(smem + x_at);
+    uint64_t* bars = reinterpret_cast<uint64_t*>(smem + bars_at);
+    const int c_half = (b.nbc + 1) / 2;  // dQ's boxes of warpgroup 0
+    const int c0 = wg ? c_half : 0, boxes = wg ? b.nbc - c_half : c_half;
+    if (boxes == W)
+      dq_xl_consumer<W>(p, Ks, ring, X, bars, lse, delta, dq, b.bh, S, dh, b.q0, causal, scale,
+                        scale_log2, wg, b.s0, b.s1, b.b0, c0);
+    else
+      dq_xl_consumer<W - 1>(p, Ks, ring, X, bars, lse, delta, dq, b.bh, S, dh, b.q0, causal,
+                            scale, scale_log2, wg, b.s0, b.s1, b.b0, c0);
+  }
+  if (p.cluster > 1) {
+    __syncwarp();
+    cluster_sync();  // no block exits while another may still read it or arrive on it
+  }
+}
+
+template <int W>
+cudaError_t launch_dq_xl_w(const DqXlPlan& p, const CUtensorMap& mq, const CUtensorMap& mk,
+                           const CUtensorMap& mv, const CUtensorMap& mdo, const void* lse,
+                           const void* delta, void* dq, int bh, int s, int dh, int causal,
+                           float scale, cudaStream_t stream) {
+  const uint32_t bytes = p.bytes();
+  cudaError_t e = allow_smem(flash_bwd_dq_xl_kernel_sm90<W>, bytes);
+  if (e != cudaSuccess) return e;
+  const long long blocks = (long long)((s + kDqWideBQ - 1) / kDqWideBQ) * bh * p.chunks;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidValue;
+  e = launch_clustered(flash_bwd_dq_xl_kernel_sm90<W>, (unsigned)blocks, kThreads, bytes,
+                       p.cluster, stream, mq, mk, mv, mdo, static_cast<const float*>(lse),
+                       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), bh, s,
+                       dh, causal, scale, scale * kLog2e);
+  return e != cudaSuccess ? e : cudaGetLastError();
+}
+
+cudaError_t launch_dq_xl(const void* q, const void* k, const void* v, const void* dout,
+                         const void* lse, const void* delta, void* dq, int bh, int s, int dh,
+                         int causal, float scale, cudaStream_t stream) {
+  const DqXlPlan p(dh);
+  CUtensorMap mq, mk, mv, mdo;
+  cudaError_t e;
+  if ((e = encode_map(&mq, q, bh, s, dh, kDqWideBQ)) != cudaSuccess) return e;
+  if ((e = encode_map(&mk, k, bh, s, dh, DqXlCfg::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mv, v, bh, s, dh, DqXlCfg::BK)) != cudaSuccess) return e;
+  if ((e = encode_map(&mdo, dout, bh, s, dh, kDqWideBQ)) != cudaSuccess) return e;
+  return by_width<DqXlPlan::kMinWidth, DqXlPlan::kMaxWidth>(p.width, [&](auto w) {
+    return launch_dq_xl_w<decltype(w)::value>(p, mq, mk, mv, mdo, lse, delta, dq, bh, s, dh,
+                                              causal, scale, stream);
+  });
+}
+
 }  // namespace sm90
 
 }  // namespace flash
 
 // q, k, v, dout, dq: [bh, s, dh] (float32, or bfloat16 when is_bf16); lse,
 // delta: float32 [bh, s]. dh is 64, 128, 192, 256, 320, 384, 448 or 512 in
-// both dtypes (the kernels built for them), and in float32 any other
-// multiple of 8 past 256 (the kernel that takes the head dim at run time).
+// both dtypes (the kernels built for them), or any other multiple of 8
+// past 256 (the kernels that take the head dim at run time).
 // Launches on `stream` and returns the launch's CUDA error code.
 extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout,
                                  const void* lse, const void* delta, void* dq, int bh, int s,
@@ -1416,6 +1762,8 @@ extern "C" int dmlc_flash_bwd_dq(const void* q, const void* k, const void* v, co
     return (int)f32::launch_dq<512>(q, k, v, dout, lse, delta, dq, bh, s, causal, scale, st);
   if (!is_bf16 && dh > 256 && dh % 8 == 0)
     return (int)f32::launch_dq_xl(q, k, v, dout, lse, delta, dq, bh, s, dh, causal, scale, st);
+  if (is_bf16 && dh > 256 && dh % 8 == 0)
+    return (int)sm90::launch_dq_xl(q, k, v, dout, lse, delta, dq, bh, s, dh, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -1438,15 +1786,16 @@ extern "C" int dmlc_flash_bwd_dq_smem_bytes(int dh, int is_bf16) {
   if (dh == 448 && !is_bf16) return (int)f32::DqCfg<448>::bytes;
   if (dh == 512 && !is_bf16) return (int)f32::DqCfg<512>::bytes;
   if (!is_bf16 && dh > 256 && dh % 8 == 0) return (int)f32::DqXlPlan(dh).bytes();
+  if (is_bf16 && dh > 256 && dh % 8 == 0) return (int)sm90::DqXlPlan(dh).bytes();
   return 0;
 }
 
-// The instantiation (its template argument W, the widest part's 64-column
-// steps of dQ) that the float32 kernel past 256 runs head dim dh with; 0
-// where a kernel built for dh runs it, or none (bf16 past 512 runs
-// csrc/flash_wide.cu).
+// The instantiation (its template argument W: the widest warpgroup's
+// 64-column boxes of dQ in bf16, the widest part's steps in float32) that
+// the kernel past 256 runs head dim dh with; 0 where a kernel built for dh
+// runs it, or none.
 extern "C" int dmlc_flash_bwd_dq_xl_width(int dh, int is_bf16) {
   using namespace flash;
-  if (is_bf16 || dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
-  return f32::DqXlPlan(dh).width;
+  if (dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;
+  return is_bf16 ? sm90::DqXlPlan(dh).width : f32::DqXlPlan(dh).width;
 }

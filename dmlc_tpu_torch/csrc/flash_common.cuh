@@ -258,28 +258,35 @@ __device__ __forceinline__ float half_warp_sum(float x) {
   return x;
 }
 
-// The float32 backward past Dh 256 cuts its output into column chunks of
-// at most `chunk` 64-column steps, as evenly as whole steps allow, in a
-// power of two of chunks (xl_chunks; their blocks form clusters, which run
-// best in powers of two), and shares a chunk's steps between `parts` parts
-// (1: each part holds the chunk's every step). xl_width is the steps the
-// widest part holds at nb steps of Dh; xl_width_bound the least (or, with
-// `most`, the largest) of it over the head dims past 256 up to 16384 (5 to
-// 256 steps): the instantiations a kernel builds.
+// The backward past Dh 256 cuts its output into column chunks of at most
+// `chunk` 64-column steps, as evenly as whole steps allow, in a power of
+// two of chunks where their blocks form clusters (xl_chunks; clusters run
+// best in powers of two), else in as few as fit (xl_chunks_of, pow2
+// false), and shares a chunk's steps between `parts` parts (1: each part
+// holds the chunk's every step). xl_width is the steps the widest part
+// holds at nb steps of Dh; xl_width_bound the least (or, with `most`, the
+// largest) of it over the head dims past 256 up to 16384 (5 to 256 steps):
+// the instantiations a kernel builds.
 __host__ __device__ constexpr int xl_chunks(int nb, int chunk) {
   int n = 1;
   while (n * chunk < nb) n *= 2;
   return n;
 }
 
-__host__ __device__ constexpr int xl_width(int nb, int chunk, int parts) {
-  return ((nb + xl_chunks(nb, chunk) - 1) / xl_chunks(nb, chunk) + parts - 1) / parts;
+__host__ __device__ constexpr int xl_chunks_of(int nb, int chunk, bool pow2) {
+  return pow2 ? xl_chunks(nb, chunk) : (nb + chunk - 1) / chunk;
 }
 
-__host__ __device__ constexpr int xl_width_bound(int chunk, int parts, bool most) {
-  int w = xl_width(5, chunk, parts);
+__host__ __device__ constexpr int xl_width(int nb, int chunk, int parts, bool pow2 = true) {
+  return ((nb + xl_chunks_of(nb, chunk, pow2) - 1) / xl_chunks_of(nb, chunk, pow2) + parts - 1) /
+         parts;
+}
+
+__host__ __device__ constexpr int xl_width_bound(int chunk, int parts, bool most,
+                                                 bool pow2 = true) {
+  int w = xl_width(5, chunk, parts, pow2);
   for (int nb = 6; nb <= 256; ++nb) {
-    const int x = xl_width(nb, chunk, parts);
+    const int x = xl_width(nb, chunk, parts, pow2);
     w = most ? (x > w ? x : w) : (x < w ? x : w);
   }
   return w;

@@ -157,6 +157,16 @@ __device__ __forceinline__ void mbar_wait_cluster(uint64_t* bar, uint32_t parity
   }
 }
 
+// 16 bytes at a shared::cluster address (peer_addr).
+__device__ __forceinline__ float4 ld_peer(uint32_t addr) {
+  float4 v;
+  asm volatile("ld.shared::cluster.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(addr)
+               : "memory");
+  return v;
+}
+
 // --------------------------------------------- warp specialisation, barriers
 
 template <uint32_t N>
@@ -540,6 +550,127 @@ struct OutAcc<DH, true> {
     copy_rows<DH>(tile, R, row0, g, g_row0, S, bar_id);
   }
 };
+
+// A warpgroup's [64, C] float32 accumulator: OutAcc up to 256 columns;
+// past it (the bf16 dK/dV over all of Dh at 320, and the bf16 dQ and dK/dV
+// past 512 at 5 boxes) OutAcc<256> and OutAcc<C - 256> side by side.
+template <int C, bool kPast256 = (C > 256)>
+struct WideAcc : OutAcc<C> {};
+
+template <int C>
+struct WideAcc<C, true> {
+  OutAcc<256> a;
+  OutAcc<C - 256> b;
+
+  __device__ __forceinline__ void zero() {
+    a.zero();
+    b.zero();
+  }
+
+  __device__ __forceinline__ void mma(const uint32_t (&x)[4], const unsigned char* p,
+                                      uint32_t box) {
+    a.mma(x, p, box);
+    b.mma(x, p + 4 * box, box);
+  }
+
+  __device__ __forceinline__ void fence() {
+    a.fence();
+    b.fence();
+  }
+
+  __device__ __forceinline__ void stage(float mul0, float mul1, unsigned char* tile, int R,
+                                        int row0, int col0) {
+    a.stage(mul0, mul1, tile, R, row0, col0);
+    b.stage(mul0, mul1, tile, R, row0, col0 + 256);
+  }
+};
+
+// ------------------------------------------------- the backward past Dh 512
+
+// The bf16 dQ and dK/dV that take the head dim at run time
+// (flash_bwd_dq.cu DqXlCfg, flash_bwd_dkv.cu DkvXlCfg) share these.
+//
+// xl_score: one warpgroup's score product acc[64 x 2N] = the sum over
+// Dh's 64-column slabs [d0, d1) of A B^T, both K-major: slot s of the
+// warpgroup's ring (kSlots slots of kSlot bytes at `ring`, its own full
+// and empty barriers) holds a slab's [64, 64] box of A and, kA bytes
+// behind it, its [2N, 64] box of B. n counts the slabs taken from the
+// ring; a slot goes back to the producer once its products are done. The
+// slabs are summed in one order, so every block that walks the same slabs
+// holds the same sums to the bit.
+template <int kSlots, uint32_t kSlot, uint32_t kA, int N>
+__device__ __forceinline__ void xl_score(float (&acc)[N], const unsigned char* ring,
+                                         uint64_t* full, uint64_t* empty, uint32_t& n, int d0,
+                                         int d1) {
+  wgmma_fence();
+  for (int d = d0; d < d1; ++d, ++n) {
+    const uint32_t s = n % kSlots;
+    mbar_wait(&full[s], (n / kSlots) & 1);
+    const unsigned char* a = ring + s * kSlot;
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk)
+      wgmma_ss(acc, desc(a + kk * 32, 16, 1024), desc(a + kA + kk * 32, 16, 1024),
+               d > d0 || kk > 0);
+    wgmma_commit();
+    if (d > d0) {
+      wgmma_wait<1>();
+      mbar_arrive(&empty[(n - 1) % kSlots]);
+    }
+  }
+  wgmma_wait<0>();
+  mbar_arrive(&empty[(n - 1) % kSlots]);
+  reg_fence(acc);
+}
+
+// The sum of one warpgroup's partial product (N floats a thread) over the
+// same warpgroup of each of the R blocks of a thread-block cluster, added
+// in rank order, so that every block holds the same sum to the bit. Y is
+// this warpgroup's two buffers (by tile parity, N / 4 float4 a thread
+// each); full[x] completes once all R blocks have written their partials
+// of parity x (128 R arrivals, each thread on every block's barrier),
+// empty[x] once all R have read them; j is the tile.
+template <int N>
+__device__ __forceinline__ void xl_cluster_sum(float (&acc)[N], float4* Y, uint64_t* full,
+                                               uint64_t* empty, int j, int R) {
+  const int x = j & 1;
+  float4* mine = Y + x * (N / 4) * 128 + threadIdx.x % 128;
+  if (j >= 2) mbar_wait_cluster(&empty[x], ((j >> 1) - 1) & 1);  // every block read it
+#pragma unroll
+  for (int v = 0; v < N / 4; ++v)
+    mine[v * 128] = make_float4(acc[4 * v], acc[4 * v + 1], acc[4 * v + 2], acc[4 * v + 3]);
+  for (int r = 0; r < R; ++r) mbar_arrive_peer(peer_addr(&full[x], r));
+  mbar_wait_cluster(&full[x], (j >> 1) & 1);
+#pragma unroll
+  for (int v = 0; v < N / 4; ++v) {
+    float4 s = ld_peer(peer_addr(mine + v * 128, 0));
+    for (int r = 1; r < R; ++r) {
+      const float4 o = ld_peer(peer_addr(mine + v * 128, r));
+      s.x += o.x, s.y += o.y, s.z += o.z, s.w += o.w;
+    }
+    acc[4 * v] = s.x, acc[4 * v + 1] = s.y, acc[4 * v + 2] = s.z, acc[4 * v + 3] = s.w;
+  }
+  for (int r = 0; r < R; ++r) mbar_arrive_peer(peer_addr(&empty[x], r));
+}
+
+// After the warpgroup's barrier bar_id, copies the NB 64-column boxes from
+// box c0 of rows [0, 64) of a [64, ...] bf16 tile in shared memory to
+// global rows g_row0 + r < S and columns gcol0 + 64 (c0 + i) + c < dh of
+// g ([S, dh] row-major), in 16-byte stores.
+template <int NB>
+__device__ __forceinline__ void copy_boxes(const unsigned char* tile, int c0, __nv_bfloat16* g,
+                                           int dh, int g_row0, int S, int gcol0, int bar_id) {
+  constexpr int kChunks = 8 * NB;  // 16-byte chunks of a row
+  const int t = threadIdx.x % 128;
+  warpgroup_sync(bar_id);
+#pragma unroll
+  for (int i = 0; i < 64 * kChunks / 128; ++i) {
+    const int idx = t + 128 * i, row = idx / kChunks, col = 64 * c0 + (idx % kChunks) * 8;
+    const int gcol = gcol0 + col;
+    if (g_row0 + row < S && gcol < dh)
+      *reinterpret_cast<uint4*>(g + (size_t)(g_row0 + row) * dh + gcol) =
+          *reinterpret_cast<const uint4*>(tile + tile_offset(row, col, 64));
+  }
+}
 
 // ------------------------------------------------------------- host side
 

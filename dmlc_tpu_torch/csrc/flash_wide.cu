@@ -6,21 +6,17 @@
 // _flash_fwd_stream_kernel (:215) for the forward, _flash_bwd_dq_kernel
 // (:271) and _flash_bwd_dkv_kernel (:320). Those take any head dim; the
 // kernels of those sources are instantiated at 64, 128, 192, 256, 320,
-// 384, 448 and 512 in both dtypes, and they take every other multiple of
-// 8 past 256 at run time, the forward in both dtypes and dQ and dK/dV in
-// float32; ops/flash.py zero-pads a head dim up to 512 to one of the fixed
-// ones. Which head dims the public functions send here: to
-// flash_wide_bwd_dq and flash_wide_bwd_dkv every bf16 one past 512 (at
-// the next multiple of 8); to flash_wide_fwd none (up to 128 and in (128,
-// 256] the wrapper's own kernels take every head dim the public functions
-// pad to, and past 256 flash_fwd.cu's), nor any float32 dQ or dK/dV. A
-// direct call through their entry points takes any multiple of 8 past 128
-// (chip_smoke.py times them that way at 160, 192 and 256, at 320, 384 and
-// 512 all three in both dtypes, and at 640, 1024 and 768 the forward in
-// both dtypes and dQ and dK/dV in float32, beside the kernels that
-// replaced them there). No model of the registry has heads
-// wider than 128, so no main path runs them: they keep a head dim that
-// the reference computes from being refused on the card.
+// 384, 448 and 512 in both dtypes, and all three take every other
+// multiple of 8 past 256 at run time in both dtypes; ops/flash.py
+// zero-pads a head dim up to 512 to one of the fixed ones and a wider one
+// to a multiple of 8. So the public functions send no head dim here: the
+// wrappers reach these kernels only at a multiple of 8 in (128, 256) other
+// than 192, through a direct call, and a direct call through their entry
+// points takes any multiple of 8 past 128 (chip_smoke.py times them that
+// way at 160, 192 and 256, and past 256 at 320, 384, 512, 640, 1024 and
+// 768, all three in both dtypes, beside the kernels that replaced them
+// there). No model of the registry has heads wider than 128, so no main
+// path runs them.
 //
 // Contracts, as in the other three sources: q, k, v, dO, out, dq, dk, dv
 // are [BH, S, DH] row-major, all float32 or all bfloat16; lse and delta

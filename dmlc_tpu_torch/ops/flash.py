@@ -36,14 +36,13 @@ tiles and mask the ragged edge.
 Head dims: the three kernels are built for ``KERNEL_HEAD_DIMS`` (64,
 128), for ``SM90_WIDE_HEAD_DIMS`` (192, 256) and for
 ``FWD_WIDE_HEAD_DIMS`` (320, 384, 448, 512), in both dtypes (bf16 on the
-Hopper designs, float32 on register-tiled FMA). Past 512 the forward in
-both dtypes, and dQ and dK/dV in float32, run kernels of their own that
-take the head dim at run time (``csrc/flash_fwd.cu``,
-``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``, any multiple of 8:
-bf16 on ``wgmma``, float32 on register tiles, the output cut into column
-chunks). The bf16 dQ and dK/dV past 512 run through simple kernels that
-take the head dim at run time (``csrc/flash_wide.cu``, any multiple of 8).
-No head dim is refused.
+Hopper designs, float32 on register-tiled FMA). Past 512 all three run
+kernels of their own in both dtypes that take the head dim at run time
+(``csrc/flash_fwd.cu``, ``csrc/flash_bwd_dq.cu``, ``csrc/flash_bwd_dkv.cu``,
+any multiple of 8: bf16 on ``wgmma``, float32 on register tiles, the
+output cut into column chunks). The simple kernels of
+``csrc/flash_wide.cu`` run only through a direct call of their entry
+points. No head dim is refused.
 The public functions zero-pad q, k, v, out and dO along Dh up to
 ``_run_head_dim(Dh)`` (the next of ``KERNEL_HEAD_DIMS``; past 128, up to
 512, the next multiple of 64; past that the next multiple of 8) on every
@@ -85,9 +84,9 @@ SM90_WIDE_HEAD_DIMS = (192, 256)
 #: dim in (256, 512] pads up to one of them.
 FWD_WIDE_HEAD_DIMS = (320, 384, 448, 512)
 #: Every head dim past 512 pads to a multiple of WIDE_HEAD_DIM_STEP and
-#: runs the kernels that take the head dim at run time: the forward's in
-#: both dtypes and dQ's and dK/dV's in float32 in the three sources, the
-#: bf16 dQ and dK/dV's in csrc/flash_wide.cu, which takes any past 128.
+#: runs the kernels of the three sources that take the head dim at run
+#: time, in both dtypes; csrc/flash_wide.cu, which takes any past 128, runs
+#: only through a direct call of its entry points.
 WIDE_HEAD_DIM_STEP = 8
 
 
@@ -112,19 +111,16 @@ def _entry_name(name: str, dh: int, dtype: torch.dtype) -> str | None:
     """The entry point that wrapper kernel ``name`` (``flash_fwd``,
     ``flash_bwd_dq`` or ``flash_bwd_dkv``) launches at head dim ``dh`` in
     ``dtype``: its own kernel at ``KERNEL_HEAD_DIMS``,
-    ``SM90_WIDE_HEAD_DIMS`` and ``FWD_WIDE_HEAD_DIMS`` in both dtypes, and
-    at every other multiple of ``WIDE_HEAD_DIM_STEP`` past 256 the
-    forward's in both and dQ's and dK/dV's in float32 (the kernels that
-    take the head dim at run time); else the wide kernel
-    (``flash_wide_*``: the bf16 dQ and dK/dV past 512 on the public
-    route, and a direct call at another multiple of 8 past 128); None for
-    a head dim no kernel takes."""
+    ``SM90_WIDE_HEAD_DIMS`` and ``FWD_WIDE_HEAD_DIMS``, and at every other
+    multiple of ``WIDE_HEAD_DIM_STEP`` past 256 (the kernels that take the
+    head dim at run time), in both dtypes; else, at the other multiples of
+    8 in (128, 256), the wide kernel (``flash_wide_*``, which the public
+    functions never send: they pad those to 192 or 256); None for a head
+    dim no kernel takes."""
     if dh in KERNEL_HEAD_DIMS + SM90_WIDE_HEAD_DIMS + FWD_WIDE_HEAD_DIMS:
         return name
     if dh > KERNEL_HEAD_DIMS[-1] and dh % WIDE_HEAD_DIM_STEP == 0:
-        if dh > SM90_WIDE_HEAD_DIMS[-1] and (name == "flash_fwd" or dtype == torch.float32):
-            return name
-        return name.replace("flash_", "flash_wide_", 1)
+        return name if dh > SM90_WIDE_HEAD_DIMS[-1] else name.replace("flash_", "flash_wide_", 1)
     return None
 
 

@@ -136,6 +136,21 @@ LM train shape, or its Dh-64 twin):
   the right, its last past Dh (zero-filled); _rank (dK/dV at 384): each
   block pushes its partial into its own buffer in place of the other
   block's, so it adds its own partial twice.
+- the bf16 dQ and dK/dV past 512, which take the head dim at run time and
+  cut their output into column chunks (flash_bwd_dq_xl_*,
+  flash_bwd_dkv_xl_*): _tiles ([4, 4, 1024, 640] in dQ, [2, 3, 193, 640]
+  in dK/dV): the last Q tile one K/V tile short (dQ), the last key block
+  one Q tile short (dK/dV), in the producer and both consumer warpgroups;
+  _x_drop (640): the other warpgroup's P or dP (dQ) or the P^T handed to
+  warpgroup 1 (dK/dV) dropped from half of each tile's keys (queries);
+  _chunk_shift (dQ at 1024, dK/dV at 640, S 193, two chunks): chunk 1
+  stores its columns one 64-column box to the right; _ragged (640, S 193): the mask at the end of
+  S one short; _pad ([4, 4, 1024, 520]): the last box of every map not
+  zero-filled past Dh (encode_map's row rounded up to 64 columns, as for
+  the forward's _pad); _split (dQ at 1024, dK/dV at 640, S 193, two
+  chunks each making the scores again): the blocks of chunks past the
+  first start the scores' slabs one to the right, so they drop slab 0 and
+  make other scores than chunk 0.
 
 A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
 (csrc/paged_decode.cu) in float32 at the decode bench's geometry, head dim
@@ -385,6 +400,58 @@ WIDE_BWD_FAULTS = {
         "1 - rank);", "rank);"), "bfloat16", WIDE_DH384),
 }
 FAULTS.update(WIDE_BWD_FAULTS)
+
+# The bf16 dQ and dK/dV past 512.
+XB_SHARE = "  const int s0 = rank * p.nb / p.cluster, s1 = (rank + 1) * p.nb / p.cluster;"
+XL_BWD_FAULTS = {
+    "flash_bwd_dq_xl_tiles": Fault(
+        "flash_bwd_dq", "  const int end = causal ? min(q0 + kDqWideBQ, S) : S;  // one past the last key read",
+        "  const int end = (causal ? min(q0 + kDqWideBQ, S) : S) - (q0 + kDqWideBQ >= S ? DqXlCfg::BK : 0);",
+        "bfloat16", XL640),
+    "flash_bwd_dq_xl_x_drop": Fault(
+        "flash_bwd_dq", "      const float4 y = other[v * 128 + t];",
+        "      const float4 y = v < N / 8 ? other[v * 128 + t] : make_float4(0.f, 0.f, 0.f, 0.f);",
+        "bfloat16", XL640),
+    "flash_bwd_dq_xl_chunk_shift": Fault(
+        "flash_bwd_dq", "  copy_boxes<NB>(Ks, c0, dq + (size_t)bh * S * dh, dh, q0, S, 64 * b0, 5 + wg);",
+        "  copy_boxes<NB>(Ks, c0, dq + (size_t)bh * S * dh, dh, q0, S, 64 * (b0 + (b0 > 0)), 5 + wg);",
+        "bfloat16", XL_RAGGED1024),
+    "flash_bwd_dq_xl_ragged": Fault(
+        "flash_bwd_dq", "        const bool off = edge && (kj >= S || (causal && kj > qi0 + 8 * h));",
+        "        const bool off = edge && (kj >= S - 1 || (causal && kj > qi0 + 8 * h));",
+        "bfloat16", XL_RAGGED640),
+    "flash_bwd_dq_xl_pad": Fault("flash_bwd_dq", XL_PAD, XL_PAD.replace(
+        "(cuuint64_t)dh,", "(cuuint64_t)((dh + 63) / 64 * 64),"), "bfloat16", XL520,
+        file="flash_sm90.cuh"),
+    "flash_bwd_dq_xl_split": Fault("flash_bwd_dq", XB_SHARE, XB_SHARE.replace(
+        "s0 = rank * p.nb / p.cluster,", "s0 = rank * p.nb / p.cluster + (chunk > 0),"),
+        "bfloat16", XL_RAGGED1024),
+    "flash_bwd_dkv_xl_tiles": Fault(
+        "flash_bwd_dkv", "  const int t_end = 1 + (S - 1) / BQ;  // S > 0",
+        "  const int t_end = 1 + (S - 1) / BQ - (k0 + kDkvWideBK >= S ? 1 : 0);", "bfloat16",
+        XL_RAGGED640),
+    "flash_bwd_dkv_xl_x_drop": Fault(
+        "flash_bwd_dkv", "        const float4 y = handed[128 * v + t];",
+        "        const float4 y = v < N / 8 ? handed[128 * v + t] : make_float4(0.f, 0.f, 0.f, 0.f);",
+        "bfloat16", XL640),
+    "flash_bwd_dkv_xl_chunk_shift": Fault(
+        "flash_bwd_dkv",
+        "  copy_boxes<NB>(tile, 0, (wg == 0 ? dv : dk) + (size_t)bh * S * dh, dh, k0, S, 64 * b0, 6 + wg);",
+        "  copy_boxes<NB>(tile, 0, (wg == 0 ? dv : dk) + (size_t)bh * S * dh, dh, k0, S,"
+        " 64 * (b0 + (b0 > 0)), 6 + wg);", "bfloat16", XL_RAGGED640),
+    "flash_bwd_dkv_xl_ragged": Fault(
+        "flash_bwd_dkv",
+        "          const bool off = edge && (qi >= S || key >= S || (causal && key > qi));",
+        "          const bool off = edge && (qi >= S - 1 || key >= S || (causal && key > qi));",
+        "bfloat16", XL_RAGGED640),
+    "flash_bwd_dkv_xl_pad": Fault("flash_bwd_dkv", XL_PAD, XL_PAD.replace(
+        "(cuuint64_t)dh,", "(cuuint64_t)((dh + 63) / 64 * 64),"), "bfloat16", XL520,
+        file="flash_sm90.cuh"),
+    "flash_bwd_dkv_xl_split": Fault("flash_bwd_dkv", XB_SHARE, XB_SHARE.replace(
+        "s0 = rank * p.nb / p.cluster,", "s0 = rank * p.nb / p.cluster + (chunk > 0),"),
+        "bfloat16", XL_RAGGED640),
+}
+FAULTS.update(XL_BWD_FAULTS)
 
 PAGED_CASE = ("bench_decode", 128)
 FAULTS.update({

@@ -560,6 +560,26 @@ WB_DQ_SV = "  static constexpr int kStagesV = DH == 320 ? 2 : 1;  // V ring dept
 WB_DKV_STAGES = "  static constexpr int kStages = 2;      // Q/dO ring depth\n"
 WB_DKV_CHUNKS = "  static constexpr int kChunks = DH == 320 ? 1 : 2;\n"
 
+# The bf16 flash_bwd_dq and flash_bwd_dkv past 512 (group xl_bwd_bf16).
+# ship: the checkout's (each chunk's block makes the scores over all of
+# Dh, as few chunks as fit; dQ: chunks of at most 10 boxes, 32-key K/V
+# tiles; dK/dV: chunks of at most 5 boxes, 32-row Q/dO tiles; both with
+# slab rings of 4 a warpgroup and two stages of the chunk's K or Q/dO
+# tiles); dkv_cluster, dq_cluster: the chunks' blocks a cluster (a power of
+# two of chunks) splitting the scores over Dh, the blocks' partials added
+# in rank order (dQ's chunks then of at most 8 boxes, to fit its shared
+# memory); chunks: narrower chunks (dQ 8 boxes, dK/dV 4); keys16:
+# dQ's 16-key tiles; rows16: dK/dV's 16-row tiles; slots2: slab rings of
+# 2; stages3: three stages of the chunk's tiles.
+XB_CLUSTER = "  static constexpr bool kCluster = false;  // the chunks' blocks split the scores over Dh\n"
+XB_DQ_BOXES = "  static constexpr int kMaxBoxes = 5;      // boxes of dQ a warpgroup holds\n"
+XB_DQ_BK = "  static constexpr int BK = 32;            // keys a K/V tile\n"
+XB_DKV_TILE = "  static constexpr int BQ = 32, kMaxBoxes = 5;  // query rows a Q/dO tile; boxes of dK, dV a block\n"
+XB_DQ_SLOTS = "  static constexpr int kSlots = 4;         // slabs in flight a warpgroup\n"
+XB_DKV_SLOTS = "  static constexpr int kSlots = 4;        // slabs in flight a warpgroup\n"
+XB_DQ_STAGES = "  static constexpr int kKStages = 2;       // the chunk's K tiles in flight\n"
+XB_DKV_STAGES = "  static constexpr int kOStages = 2;      // the chunk's Q/dO tiles in flight\n"
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -698,6 +718,22 @@ GROUPS = {
         "cluster320": {"flash_bwd_dkv": [(WB_DKV_CHUNKS, WB_DKV_CHUNKS.replace(
             "DH == 320 ? 1 : 2;", "2;"))]},
     }, ("ship", "keys16", "vstage2", "stages3", "cluster320", "ship"), checks=WIDE_BWD_CHECKS),
+    "xl_bwd_bf16": Group("bfloat16", ("flash_bwd_dq", "flash_bwd_dkv"),
+                         (XL640_SHAPE, XL1024_SHAPE, XL768_SHAPE), {
+        "ship": {},
+        "dkv_cluster": {"flash_bwd_dkv": [(XB_CLUSTER, XB_CLUSTER.replace("false", "true"))]},
+        "dq_cluster": {"flash_bwd_dq": [(XB_CLUSTER, XB_CLUSTER.replace("false", "true")),
+                                        (XB_DQ_BOXES, XB_DQ_BOXES.replace("= 5", "= 4"))]},
+        "chunks": {"flash_bwd_dq": [(XB_DQ_BOXES, XB_DQ_BOXES.replace("= 5", "= 4"))],
+                   "flash_bwd_dkv": [(XB_DKV_TILE, XB_DKV_TILE.replace("= 5", "= 4"))]},
+        "keys16": {"flash_bwd_dq": [(XB_DQ_BK, XB_DQ_BK.replace("= 32", "= 16"))]},
+        "rows16": {"flash_bwd_dkv": [(XB_DKV_TILE, XB_DKV_TILE.replace("= 32", "= 16"))]},
+        "slots2": {"flash_bwd_dq": [(XB_DQ_SLOTS, XB_DQ_SLOTS.replace("= 4", "= 2"))],
+                   "flash_bwd_dkv": [(XB_DKV_SLOTS, XB_DKV_SLOTS.replace("= 4", "= 2"))]},
+        "stages3": {"flash_bwd_dq": [(XB_DQ_STAGES, XB_DQ_STAGES.replace("= 2", "= 3"))],
+                    "flash_bwd_dkv": [(XB_DKV_STAGES, XB_DKV_STAGES.replace("= 2", "= 3"))]},
+    }, ("ship", "dkv_cluster", "dq_cluster", "chunks", "keys16", "rows16", "slots2", "stages3",
+        "ship"), checks=XL_BWD_CHECKS),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),

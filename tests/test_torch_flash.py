@@ -18,14 +18,14 @@ Same numpy-seeded float32 inputs through both:
   same; past 128 (160, 192, 256 and 130, padded to 192) the head dims the
   kernels built for 192 and 256 run at, 384 and 512, where float32 runs
   the three kernels built for them, and 576, 640 and 1024, past the 512
-  the card once refused, and 712, not a multiple of 64, where the forward
-  in both dtypes and dQ and dK/dV in float32 run their kernels that take
-  the head dim at run time; which head dim and entry point each (head dim,
+  the card once refused, and 712, not a multiple of 64, where all three
+  run their kernels that take the head dim at run time in both dtypes;
+  which head dim and entry point each (head dim,
   dtype) runs at on the card (``_run_head_dim``, ``_entry_name``: heads in
   (128, 256] padded to 192 or 256 for the three kernels of their own in
   both dtypes, in (256, 512] to the next multiple of 64 for the three of
   their own in both dtypes, past 512 to a multiple of 8 for the three's
-  own in float32 and in bf16 the forward's own beside the wide backward),
+  own in both dtypes),
   that padding 160 to 192, 200 to 256, and 264, 330 and 500 to 320, 384
   and 512 is exact in both dtypes' routing, that the forward's and the
   backward's shared memory past 256 fits a block (the kernels past 512 at
@@ -153,20 +153,17 @@ def test_kernel_head_dim_is_the_next_one_built():
 def test_head_dims_past_128_run_plain_on_the_cpu_and_are_refused_on_the_card():
     """The card takes head dims 513 and 1000 (it refused past 512 before;
     the name is the test's old one): past 512 the head dim pads to a
-    multiple of 8 in both dtypes, where the forward runs its own kernels
-    (which take the head dim at run time), and so do dQ and dK/dV in
-    float32, in bf16 the wide ones; a CPU tensor runs the plain versions at
-    the same padded head dim; below 256 float32 pads to 192 or 256 as bf16
-    does."""
+    multiple of 8 in both dtypes, where all three wrappers run kernels of
+    their own (which take the head dim at run time) in both dtypes; a CPU
+    tensor runs the plain versions at the same padded head dim; below 256
+    float32 pads to 192 or 256 as bf16 does."""
     f32, bf16 = torch.float32, torch.bfloat16
     assert flash._run_head_dim(96) == 128 and flash._run_head_dim(32) == 64
     assert flash._run_head_dim(160) == 192 and flash._run_head_dim(130) == 192
     for dh, run in ((513, 520), (1000, 1000)):
         for dt in (f32, bf16):
             assert flash._run_head_dim(dh) == run
-            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == (
-                set(FLASH_ENTRIES) if dt == f32 else
-                {"flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv"})
+            assert {flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == set(FLASH_ENTRIES)
     q, k, v, g = _heads(32, 160, seed=7)
     _assert_close(_ours(q, k, v, g, True), _theirs(q, k, v, g, True), "Dh 160")
 
@@ -176,9 +173,8 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
     dtypes, at a head dim
     that every wrapper has a kernel for: up to 512 at most 63 wider (192 or
     256, then 320, 384, 448 or 512), past it at most 7 wider; past 256
-    float32 runs the three kernels of their own, and so does bf16 up to
-    512, past it the forward's own beside the wide dQ and dK/dV; none at
-    or below 128 runs wide."""
+    both dtypes run the three kernels of their own; none at or below 128
+    runs wide."""
     for dt in (torch.float32, torch.bfloat16):
         for dh in range(129, 1101):
             run = flash._run_head_dim(dh)
@@ -186,24 +182,19 @@ def test_every_head_dim_up_to_the_wide_limit_runs_on_the_card():
             assert dh <= run < dh + step and run % step == 0, (dh, dt)
             assert all(flash._entry_name(n, run, dt) for n in FLASH_ENTRIES), (dh, dt)
             if 256 < dh:
-                want = OWN if dt == torch.float32 or dh <= 512 else FWD_OWN
-                assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == want, dh
+                assert {n: flash._entry_name(n, run, dt) for n in FLASH_ENTRIES} == OWN, dh
     assert all(flash._entry_name("flash_fwd", dh, dt) in (None, "flash_fwd")
                for dh in range(1, 129) for dt in (torch.float32, torch.bfloat16))
 
 
 FLASH_ENTRIES = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 OWN = {n: n for n in FLASH_ENTRIES}
-WIDE = {n: f"flash_wide_{n[6:]}" for n in FLASH_ENTRIES}
-FWD_OWN = {**WIDE, "flash_fwd": "flash_fwd"}
 # (head dim, dtype) -> (the head dim it runs at, the entry point of each
 # wrapper there): in (128, 256] the three kernels of their own at 192 or
 # 256 in both dtypes (the Hopper designs in bf16, the FMA ones in float32);
 # in (256, 512] at the next multiple of 64 the three of their own in both
-# dtypes; past 512 at a multiple of 8 the three of their own in float32,
-# and in bf16 the forward's own beside the wide dQ and dK/dV (the kernels
-# that take the head dim at run time: the three in float32, the forward in
-# bf16).
+# dtypes; past 512 at a multiple of 8 the three of their own in both
+# dtypes (the kernels that take the head dim at run time).
 DISPATCH = {
     (130, "bfloat16"): (192, OWN), (130, "float32"): (192, OWN),
     (160, "bfloat16"): (192, OWN), (160, "float32"): (192, OWN),
@@ -213,9 +204,9 @@ DISPATCH = {
     (264, "bfloat16"): (320, OWN), (264, "float32"): (320, OWN),
     (384, "bfloat16"): (384, OWN), (384, "float32"): (384, OWN),
     (449, "bfloat16"): (512, OWN), (449, "float32"): (512, OWN),
-    (513, "bfloat16"): (520, FWD_OWN), (513, "float32"): (520, OWN),
+    (513, "bfloat16"): (520, OWN), (513, "float32"): (520, OWN),
     (576, "float32"): (576, OWN), (712, "float32"): (712, OWN),
-    (1000, "bfloat16"): (1000, FWD_OWN), (1000, "float32"): (1000, OWN),
+    (1000, "bfloat16"): (1000, OWN), (1000, "float32"): (1000, OWN),
 }
 
 
@@ -456,7 +447,7 @@ def test_gradient_dtypes_follow_the_inputs():
     (200, torch.float32, ("flash_wide_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
     (320, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (512, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
-    (640, torch.bfloat16, ("flash_fwd", "flash_wide_bwd_dq", "flash_wide_bwd_dkv")),
+    (640, torch.bfloat16, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
     (1000, torch.float32, ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")),
 ])
 def test_wrappers_count_each_launch_by_entry_point(monkeypatch, dh, dtype, entries):
@@ -538,7 +529,13 @@ def _tool(name: str = "flash_fault_check"):
                                    "flash_bwd_dq_wide_pad", "flash_bwd_dkv_wide_tiles",
                                    "flash_bwd_dkv_wide_s_drop", "flash_bwd_dkv_wide_shift",
                                    "flash_bwd_dkv_wide_ragged", "flash_bwd_dkv_wide_pad",
-                                   "flash_bwd_dkv_wide_rank"])
+                                   "flash_bwd_dkv_wide_rank", "flash_bwd_dq_xl_tiles",
+                                   "flash_bwd_dq_xl_x_drop", "flash_bwd_dq_xl_chunk_shift",
+                                   "flash_bwd_dq_xl_ragged", "flash_bwd_dq_xl_pad",
+                                   "flash_bwd_dq_xl_split", "flash_bwd_dkv_xl_tiles",
+                                   "flash_bwd_dkv_xl_x_drop", "flash_bwd_dkv_xl_chunk_shift",
+                                   "flash_bwd_dkv_xl_ragged", "flash_bwd_dkv_xl_pad",
+                                   "flash_bwd_dkv_xl_split"])
 def test_fault_check_finds_its_loop_once(fault):
     """flash_fault_check.py plants each fault by replacing one line of its
     kernel's source (or, for the bf16 ``_xl_pad``, of the shared header
@@ -718,6 +715,21 @@ def test_wide_bwd_bf16_lever_tool_finds_its_lines_once(lever):
     group = _tool("flash_levers").GROUPS["wide_bwd_bf16"]
     assert group.dtype == "bfloat16" and {s[3] for s in group.shapes} == {320, 384, 512}
     assert {shape[3] for shape, _ in group.checks} == set(flash.FWD_WIDE_HEAD_DIMS)
+
+
+@pytest.mark.parametrize("lever", ["ship", "dkv_cluster", "dq_cluster", "chunks", "keys16",
+                                   "rows16", "slots2", "stages3"])
+def test_xl_bwd_bf16_lever_tool_finds_its_lines_once(lever):
+    """The bf16 flash_bwd_dq and flash_bwd_dkv variants past head dim 512
+    (group xl_bwd_bf16: the scores by cluster or made again in each chunk,
+    chunk widths, tile rows, ring depths), timed at [4, 4, 1024, 640],
+    [4, 4, 1024, 1024] and [8, 1, 2048, 768], head dims no kernel is built
+    for, ship first and last."""
+    _lever_sources_apply("xl_bwd_bf16", lever)
+    group = _tool("flash_levers").GROUPS["xl_bwd_bf16"]
+    assert group.dtype == "bfloat16" and {s[3] for s in group.shapes} == {640, 1024, 768}
+    assert all(dh > 512 and dh % 8 == 0 for (_, _, _, dh), _ in group.checks)
+    assert group.order[0] == group.order[-1] == "ship"
 
 def test_every_hopper_kernel_is_checked_by_the_build_phase():
     """Each csrc/*.cu that includes flash_sm90.cuh is named in
@@ -1028,6 +1040,102 @@ def test_float32_backward_past_512_takes_any_multiple_of_8_and_fits_a_block(name
             size = 4 * ((2 * 32 * (64 * most + 4) if kv_res else 0) + 2 * 2 * share + tiles)
         assert _xl_width(nb, chunk, parts) in built and size <= 232448, (dh, size)
 
+
+
+@pytest.mark.parametrize("name", ["flash_bwd_dq", "flash_bwd_dkv"])
+def test_bf16_backward_past_512_takes_any_multiple_of_8_and_fits_a_block(name):
+    """``dmlc_flash_bwd_dq`` and ``dmlc_flash_bwd_dkv`` send every bf16
+    multiple of 8 past 256 that no kernel is built for (every one past 512
+    on the public route) to the Hopper kernel that takes the head dim at
+    run time (``sm90::launch_dq_xl``, ``sm90::launch_dkv_xl``), after the
+    kernels built for a head dim; their shared-memory entries answer for
+    the same head dims from the plans (``sm90::DqXlPlan``,
+    ``sm90::DkvXlPlan``), and their width entries name the instantiation.
+    At every multiple of 8 from 264 to 2048 that no kernel is built for,
+    the plan's chunks, width and shared memory, recomputed here from the
+    config lines checked here, fit the 232448 bytes a block may take, both
+    as shipped (each chunk's block makes the scores, as few chunks as fit)
+    and with ``kCluster`` (a power of two of chunks whose blocks form a
+    cluster, dQ's of at most 8 boxes: the lever tool's ``dq_cluster`` and
+    ``dkv_cluster``), and the width the shipped plan picks
+    is one the launch builds: every width from the least to the largest
+    the plans give over 5 to 256 boxes (``xl_width_bound``) (text only, no
+    nvcc)."""
+    text = (Path(flash.__file__).resolve().parent.parent / "csrc" / f"{name}.cu").read_text()
+    entry = text[text.index(f'extern "C" int dmlc_{name}('):]
+    entry = entry[:entry.index("\n}\n")]
+    smem = text[text.index(f'extern "C" int dmlc_{name}_smem_bytes('):]
+    smem = smem[:smem.index("\n}\n")]
+    width_entry = text[text.index(f'extern "C" int dmlc_{name}_xl_width('):]
+    width_entry = width_entry[:width_entry.index("\n}\n")]
+    dq = name == "flash_bwd_dq"
+    launch, plan, cfg = (("launch_dq_xl", "DqXlPlan", "DqXlCfg") if dq
+                         else ("launch_dkv_xl", "DkvXlPlan", "DkvXlCfg"))
+    outs = "dq" if dq else "dk, dv"
+    xl = (f"  if (is_bf16 && dh > 256 && dh % 8 == 0)\n    return (int)sm90::{launch}(q, k, v, dout, "
+          f"lse, delta, {outs}, bh, s, dh, causal, scale, st);")
+    fixed = "sm90::launch_dq_wide<512>" if dq else "sm90::launch_dkv_wide<512>"
+    assert entry.count(xl) == 1 and entry.index(xl) > entry.index(fixed)
+    assert (f"  if (is_bf16 && dh > 256 && dh % 8 == 0) return (int)sm90::{plan}(dh).bytes();"
+            in smem)
+    assert f"return is_bf16 ? sm90::{plan}(dh).width : f32::{plan}(dh).width;" in width_entry
+    assert "if (dh <= 256 || dh % 8 != 0 || (dh <= 512 && dh % 64 == 0)) return 0;" in width_entry
+    assert f"  return by_width<{plan}::kMinWidth, {plan}::kMaxWidth>(p.width, [&](auto w) {{" in text
+    boxes = f"{'2 * ' if dq else ''}{cfg}::kMaxBoxes"
+    parts = 2 if dq else 1  # dQ: two warpgroups share a chunk's boxes; dK/dV: each holds them all
+    lines = (f"        chunks(xl_chunks_of(nb, {boxes}, {cfg}::kCluster)),\n",
+             f"        width(xl_width(nb, {boxes}, {parts}, {cfg}::kCluster)),\n",
+             f"        cluster({cfg}::kCluster ? xl_cluster(chunks) : 1) {{}}\n",
+             "  static constexpr bool kCluster = false;  // the chunks' blocks split the scores over Dh\n")
+    if dq:
+        lines += ("  static constexpr int BK = 32;            // keys a K/V tile\n",
+                  "  static constexpr int kMaxBoxes = 5;      // boxes of dQ a warpgroup holds\n",
+                  "  static constexpr int kSlots = 4;         // slabs in flight a warpgroup\n",
+                  "  static constexpr int kKStages = 2;       // the chunk's K tiles in flight\n",
+                  "  static constexpr int kBars = 4 * DqXlCfg::kSlots + 2 * DqXlCfg::kKStages + 8;\n")
+        chunk, cluster_chunk = 10, 8  # boxes a chunk; with kCluster (the lever's)
+    else:
+        lines += ("  static constexpr int BQ = 32, kMaxBoxes = 5;  // query rows a Q/dO tile; boxes"
+                  " of dK, dV a block\n",
+                  "  static constexpr int kSlots = 4;        // slabs in flight a warpgroup\n",
+                  "  static constexpr int kOStages = 2;      // the chunk's Q/dO tiles in flight\n",
+                  "  static constexpr int kBars = 4 * DkvXlCfg::kSlots + 2 * DkvXlCfg::kOStages + 8;\n")
+        chunk = cluster_chunk = 5
+    for line in lines:
+        assert text.count(line) == 1, line
+    common = (Path(flash.__file__).resolve().parent.parent / "csrc" / "flash_common.cuh").read_text()
+    assert "  return pow2 ? xl_chunks(nb, chunk) : (nb + chunk - 1) / chunk;" in common
+
+    def chunks_and_width(nb: int, cluster: bool) -> tuple[int, int]:
+        chunks = _xl_chunks(nb, cluster_chunk) if cluster else -(-nb // chunk)
+        return chunks, -(-(-(-nb // chunks)) // parts)
+
+    widths = [chunks_and_width(nb, False)[1] for nb in range(5, 257)]
+    built = range(min(widths), max(widths) + 1)
+    assert min(widths) >= 2
+    rows, slots, stages = 32, 4, 2  # keys (dQ) or query rows (dK/dV) a tile
+    bars = (4 * slots + 2 * stages + 8) * 8 + 1024  # and the alignment
+    ring = 2 * slots * (64 * 128 + rows * 128)  # a slab of 64 rows and one of the tile's rows
+    partial = 128 * (rows // 2) * 4  # a warpgroup's P, dP, P^T or partial
+    for dh in range(264, 2049, 8):
+        if dh in flash.FWD_WIDE_HEAD_DIMS:
+            continue
+        nb = -(-dh // 64)
+        assert chunks_and_width(nb, False)[1] in built, dh
+        for cluster in (False, True):
+            chunks, width = chunks_and_width(nb, cluster)
+            assert chunks * (cluster_chunk if cluster else chunk) >= nb, dh
+            assert width * parts * chunks >= nb, dh
+            clustered = cluster and chunks > 1
+            # dQ: the chunk's K tiles, or dQ staged; dK/dV: its Q and dO
+            # tiles, or dK and dV staged.
+            own = max(stages * 2 * width * rows * 128, 2 * width * 64 * 128)
+            if dq:
+                own += (8 if clustered else 4) * partial
+            else:
+                own += (5 if clustered else 1) * partial + 2 * stages * rows * 4
+            size = own + ring + bars
+            assert size <= 232448, (dh, cluster, size)
 
 def test_ab_group_runs_the_parent_first_and_last(tmp_path, monkeypatch):
     """tools/flash_levers.py group ab (an earlier csrc/ against the
