@@ -11,11 +11,18 @@ non-zero:
    each flash kernel instantiation (head dim 64, 128, 192 and 256, the
    forward's also 320, 384, 448 and 512, bf16 and float32), its registers,
    shared memory and spills (ptxas), and for the bf16 Hopper ones their
-   wgmma and TMA instructions (SASS).
+   wgmma and TMA instructions (SASS); the paged decode and page gather
+   kernels' registers and spills, and the bulk gather's shared memory a
+   block.
 3. kernels — each kernel against its plain PyTorch version on the card at
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
-   repeated runs after a warm-up): paged_decode_attention at lm_wide's and
+   repeated runs after a warm-up), and each wrapper's host enqueue time
+   (host_us); gather_kv_pages's bulk-copy kernel beside the vec16 design it
+   replaced, bit-equal to the plain version at both timed shapes (also
+   under write pressure) and at its exact cases (pages of more than one
+   chunk, ids outside the pool, the byte path); paged_decode_attention at
+   lm_wide's and
    the decode bench's geometry, float32 and bf16, head dims 128, 64 and 96,
    also bit-identical run to run and in a contiguous layout, beside the
    parent's path (two page gathers and the eager attention); the public
@@ -256,6 +263,26 @@ def time_ms(fn, reps: int = 21, inner: int = 20) -> float:
     return statistics.median(samples)
 
 
+def host_us(fn, calls: int = 2000, batch: int = 100) -> float:
+    """The host's time for one call of ``fn``, in microseconds: the median
+    over batches of ``batch`` back-to-back calls (time.perf_counter_ns, no
+    synchronisation inside a batch) of the batch's mean, after a warm-up.
+    The device is synchronised between batches, outside the timed window,
+    so the launch queue never fills and a call that launches a kernel
+    measures its enqueue, not the kernel."""
+    for _ in range(10):
+        fn()
+    torch.cuda.synchronize()
+    samples = []
+    for _ in range(max(1, calls // batch)):
+        t0 = time.perf_counter_ns()
+        for _ in range(batch):
+            fn()
+        samples.append((time.perf_counter_ns() - t0) / batch / 1e3)
+        torch.cuda.synchronize()
+    return statistics.median(samples)
+
+
 def device_records(prof) -> list[tuple[str, float, float]]:
     """(name, start us, duration us) of every device record of a finished
     torch.profiler run, from Kineto's raw results: the FunctionEvent view
@@ -491,8 +518,22 @@ def phase_build() -> None:
     spilled = {n: e for n, e in paged.items() if e["spill_stores"] or e["spill_loads"]}
     if spilled:
         raise AssertionError(f"paged_decode spills: {spilled}")
+    # The page gather's kernels: none may spill, and the bulk kernel's ring
+    # must fit a block.
+    gather = ptxas_entries(_build.build_log.get("gather_pages", ""))
+    if gather:
+        from dmlc_tpu_torch.ops import kernels as K
+
+        ring = int(K._entry("gather_pages_smem_bytes")[1]())
+        for mangled, entry in gather.items():
+            if "bulk" in mangled:
+                entry["smem_per_block"] = entry["static_smem"] + ring
+            if entry["spill_stores"] or entry["spill_loads"] or \
+                    entry.get("smem_per_block", 0) > SMEM_PER_BLOCK_MAX:
+                raise AssertionError(f"gather_pages {mangled}: spills or shared memory past "
+                                     f"{SMEM_PER_BLOCK_MAX}: {entry}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "ptxas": regs, "flash": flash, "paged_decode": paged})
+          "ptxas": regs, "flash": flash, "paged_decode": paged, "gather_pages": gather})
 
 
 def phase_kernels(dev: dict) -> dict:
@@ -521,6 +562,7 @@ def phase_kernels(dev: dict) -> dict:
         norm[dt] = {
             "max_abs_err": err, "tol": NORMALIZE_TOL[dt],
             "ms": time_ms(lambda dt=dt: K.normalize_u8(u8, mean, std, dt)),
+            "host_us": host_us(lambda dt=dt: K.normalize_u8(u8, mean, std, dt), calls=500),
             "device_ms": kernel_device_ms(lambda dt=dt: K.normalize_u8(u8, mean, std, dt),
                                           "normalize_vec_kernel"),
             "plain_ms": time_ms(lambda dt=dt: K.normalize_u8_reference(u8, mean, std, dt)),
@@ -561,6 +603,7 @@ def phase_kernels(dev: dict) -> dict:
     soft = {
         "max_abs_err": float((prob - rprob).abs().max()), "max_rel_err": rel, "tol": PROB_RTOL,
         "ms": time_ms(lambda: K.softmax_top1(logits)),
+        "host_us": host_us(lambda: K.softmax_top1(logits)),
         "device_ms": kernel_device_ms(lambda: K.softmax_top1(logits), "softmax_top1_kernel"),
         "plain_ms": time_ms(lambda: K.softmax_top1_reference(logits)),
         "library_ms": time_ms(lambda: torch.softmax(logits, -1).max(-1)),
@@ -590,72 +633,164 @@ def full_cache_table(slots: int, pages_per_slot: int, usable: int, in_use: int,
     return table
 
 
-def gather_timing(pool: torch.Tensor, table: np.ndarray, bw: float) -> dict:
-    """The page gather against its plain version at one shape, with its
-    times. The bound counts what this table needs: each distinct page it
-    names read once, the table read once, the output written once."""
+def gather_vec16(pool: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """gather_kv_pages's work through the entry point of the design the bulk
+    kernel replaced (dmlc_gather_pages_vec16: the 16-byte vector kernel on
+    the aligned path), with the wrapper's arguments. Not counted: it is only
+    checked and timed beside the bulk kernel."""
+    from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops import kernels as K
+
+    b, max_pages = ids.shape
+    _, page_size, heads, head_dim = pool.shape
+    out = torch.empty((b, max_pages * page_size, heads, head_dim), dtype=pool.dtype,
+                      device=pool.device)
+    lib, fn = K._entry("gather_pages_vec16")
+    _build.check(lib, K._launch(pool, fn, pool.data_ptr(), pool.shape[0],
+                                page_size * heads * head_dim * pool.element_size(),
+                                ids.data_ptr(), b * max_pages, out.data_ptr()),
+                 "gather_pages_vec16")
+    return out
+
+
+def gather_exact(pool: torch.Tensor, table: np.ndarray, flush: torch.Tensor | None = None) -> None:
+    """gather_kv_pages (the bulk kernel on the aligned path, the byte loop
+    off it) and the vec16 entry point, each bit-equal to the plain version,
+    where an id outside the pool maps to a page of zeros. The block each
+    output gets from the allocator is first filled with NaN, so a chunk
+    the kernel leaves unwritten cannot pass. With ``flush`` (a buffer
+    larger than the L2), each is also called three times under write
+    pressure: the L2 first filled with dirty lines and then with the pool,
+    so that loads land fast while stores wait on the writes back, which is
+    where a stage loaded again before its store has read it shows. Raises
+    AssertionError."""
     from dmlc_tpu_torch.ops import ragged_decode as RD
 
+    n = pool.shape[0]
+    ids = torch.from_numpy(table).to(pool.device)
+    inside = np.where((table < 0) | (table >= n), n, table).astype(np.int32)
+    want = RD.gather_kv_pages_reference(torch.cat([pool, torch.zeros_like(pool[:1])]),
+                                        torch.from_numpy(inside).to(pool.device))
+    for name, fn in (("bulk", RD.gather_kv_pages), ("vec16", gather_vec16)):
+        for pressure in [False] + [True] * (3 if flush is not None else 0):
+            poison = torch.full(want.shape, float("nan"), dtype=want.dtype, device=want.device)
+            del poison
+            if pressure:
+                flush.zero_()
+                pool.sum()
+            got = fn(pool, ids)
+            torch.cuda.synchronize()
+            if not torch.equal(got, want):
+                raise AssertionError(
+                    f"gather_kv_pages ({name}{', under write pressure' if pressure else ''}) "
+                    f"differs from its plain version on {pool.dtype} {tuple(pool.shape)}, "
+                    f"table {tuple(table.shape)}")
+
+
+# What the kernels line carries of each gather timing.
+GATHER_KEYS = ("max_abs_err", "ms", "host_us", "device_ms", "device_ms_cold_l2", "vec16_ms",
+               "vec16_device_ms", "vec16_device_ms_cold_l2", "plain_ms", "library_ms",
+               "library_host_us", "bound_ms", "bound_by")
+
+
+def gather_timing(pool: torch.Tensor, table: np.ndarray, bw: float) -> dict:
+    """The page gather against its plain version at one shape, with its
+    times: the call and its host enqueue time, the bulk kernel's device
+    time warm and with a cold L2, the same for the vec16 design it
+    replaced (through its own entry point), the plain version and
+    index_select. The bound counts what this table needs: each distinct
+    page it names read once, the table read once, the output written
+    once."""
+    from dmlc_tpu_torch.ops import ragged_decode as RD
+
+    flush = torch.empty(128 << 20, dtype=torch.uint8, device=pool.device)
+    gather_exact(pool, table, flush)
     ids = torch.from_numpy(table).to(pool.device)
     got = RD.gather_kv_pages(pool, ids)
-    want = RD.gather_kv_pages_reference(pool, ids)
-    torch.cuda.synchronize()
-    if not torch.equal(got, want):
-        raise AssertionError(f"gather_kv_pages differs from its plain version at {tuple(pool.shape)}")
     page_bytes = pool[0].numel() * pool.element_size()
     nbytes = len(np.unique(table)) * page_bytes + table.nbytes + got.numel() * got.element_size()
     flat = ids.reshape(-1)
-    flush = torch.empty(128 << 20, dtype=torch.uint8, device=pool.device)
+    call = lambda: RD.gather_kv_pages(pool, ids)  # noqa: E731
+    vec16 = lambda: gather_vec16(pool, ids)  # noqa: E731
     return {
         "pool": list(pool.shape), "table": list(table.shape), "dtype": str(pool.dtype),
         "distinct_pages": int(len(np.unique(table))), "max_abs_err": 0.0,
-        "ms": time_ms(lambda: RD.gather_kv_pages(pool, ids)),
-        "device_ms": kernel_device_ms(lambda: RD.gather_kv_pages(pool, ids),
-                                      "gather_pages_vec16_kernel"),
-        "device_ms_cold_l2": kernel_device_ms(lambda: RD.gather_kv_pages(pool, ids),
-                                              "gather_pages_vec16_kernel", flush=flush),
+        "ms": time_ms(call), "host_us": host_us(call),
+        "device_ms": kernel_device_ms(call, "gather_pages_bulk_kernel"),
+        "device_ms_cold_l2": kernel_device_ms(call, "gather_pages_bulk_kernel", flush=flush),
+        "vec16_ms": time_ms(vec16),
+        "vec16_device_ms": kernel_device_ms(vec16, "gather_pages_vec16_kernel"),
+        "vec16_device_ms_cold_l2": kernel_device_ms(vec16, "gather_pages_vec16_kernel",
+                                                    flush=flush),
         "plain_ms": time_ms(lambda: RD.gather_kv_pages_reference(pool, ids)),
         "library_ms": time_ms(lambda: torch.index_select(pool, 0, flat)),
+        "library_host_us": host_us(lambda: torch.index_select(pool, 0, flat)),
         "bound_ms": nbytes / bw * 1e3, "bound_by": "bytes",
     }
 
 
-def phase_kernels_gather(bw: float) -> dict:
-    """gather_kv_pages on the card: equal to its plain version at lm_wide's
-    serving shape and at the decode-bench shape (timed), in bf16, with
-    repeated and scratch ids, and on the byte path (a page whose length is
-    not a multiple of 16 bytes, and a pool 4 bytes off alignment)."""
-    from dmlc_tpu_torch.ops import ragged_decode as RD
-
-    gen = torch.Generator(device="cuda").manual_seed(1)
-    rng = np.random.default_rng(1)
+def gather_shapes(gen: torch.Generator, rng: np.random.Generator) -> dict:
+    """The two timed gathers: lm_wide's serving shape (its pool, a full
+    engine table of 8 slots x 8 pages) and the decode bench's (128 pages of
+    64 x 6 x 128 float32, 8 slots x 16 table columns)."""
     wide_pool = torch.randn(GEN_PAGES, GEN_PAGE, 4, 128, device="cuda", generator=gen)
     wide_table = full_cache_table(GEN_SLOTS, 128 // GEN_PAGE, GEN_PAGES - 1, 128 // GEN_PAGE, rng)
-    wide = gather_timing(wide_pool, wide_table, bw)
     bench_pages = BENCH_REQUESTS * -(-(BENCH_PROMPT + BENCH_NEW + 1) // BENCH_PAGE) + BENCH_SLOTS + 1
     bench_pool = torch.randn(bench_pages, BENCH_PAGE, BENCH_HEADS, 128, device="cuda",
                              generator=gen)
     in_use = -(-(BENCH_PROMPT + BENCH_NEW) // BENCH_PAGE)
     bench_table = full_cache_table(BENCH_SLOTS, BENCH_MAX_LEN // BENCH_PAGE, bench_pages - 1,
                                    in_use, rng)
-    bench = gather_timing(bench_pool, bench_table, bw)
-    del bench_pool
+    return {"lm_wide": (wide_pool, wide_table), "bench_decode": (bench_pool, bench_table)}
 
+
+def gather_cases(gen: torch.Generator, wide_pool: torch.Tensor) -> list:
+    """The exact cases of phase_kernels_gather beside the two timed shapes:
+    bf16, repeated and scratch ids; pages of more than one bulk chunk
+    whose length is not a multiple of it (16896 and 49920 bytes against
+    16384); 16-byte pages under a 9000-entry table (more items a block than
+    one 32-id window); ids outside the pool (-1 and num_pages, which read
+    the neighbouring pages of the tensor the pool is a slice of, were they
+    read: the expected page is zeros); and the byte path (36-byte pages,
+    and a pool 4 bytes off 16-byte alignment)."""
+    rng = np.random.default_rng(2)
     repeats = np.array([[3, 3, 0, 0, 7, 127, 0, 3]] * 2 + [[0] * 8], np.int32)
     flat = torch.randn(7 * 3 * 1 * 3 + 1, device="cuda", generator=gen)
-    cases = [
-        (wide_pool.to(torch.bfloat16), wide_table),
+    around = torch.randn(GEN_PAGES + 2, GEN_PAGE, 4, 128, device="cuda", generator=gen)
+    outside = np.array([[5, -1, 0, GEN_PAGES], [GEN_PAGES, 1, -1, 9]], np.int32)
+    return [
+        (wide_pool.to(torch.bfloat16), full_cache_table(GEN_SLOTS, 8, GEN_PAGES - 1, 8, rng)),
         (wide_pool.to(torch.bfloat16), repeats),
         (wide_pool, repeats),
+        (torch.randn(6, 3, 11, 128, device="cuda", generator=gen),
+         np.array([[5, 0, 2], [1, 4, 3]], np.int32)),
+        (torch.randn(7, 24, 5, 104, device="cuda", generator=gen),
+         rng.integers(0, 7, (3, 5)).astype(np.int32)),
+        (torch.randn(64, 1, 1, 4, device="cuda", generator=gen),
+         rng.integers(0, 64, (90, 100)).astype(np.int32)),
+        (around[1:GEN_PAGES + 1], outside),
+        (around.to(torch.bfloat16)[1:GEN_PAGES + 1], outside),
         (flat[:-1].view(7, 3, 1, 3), np.array([[6, 0, 2], [2, 2, 5]], np.int32)),  # 36-byte pages
         (flat[1:].view(7, 3, 1, 3), np.array([[1, 4, 0]], np.int32)),  # pool 4 bytes off 16
     ]
+
+
+def phase_kernels_gather(bw: float) -> dict:
+    """gather_kv_pages on the card: the bulk kernel and the vec16 design it
+    replaced, each bit-equal to the plain version (gather_exact) at
+    lm_wide's serving shape and at the decode-bench shape (both timed,
+    gather_timing, and held under write pressure too) and at each case of
+    gather_cases."""
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    rng = np.random.default_rng(1)
+    shapes = gather_shapes(gen, rng)
+    report = {name: gather_timing(pool, table, bw) for name, (pool, table) in shapes.items()}
+    cases = gather_cases(gen, shapes["lm_wide"][0])
+    del shapes
     for pool, table in cases:
-        ids = torch.from_numpy(table).to("cuda")
-        if not torch.equal(RD.gather_kv_pages(pool, ids), RD.gather_kv_pages_reference(pool, ids)):
-            raise AssertionError(f"gather_kv_pages differs on {pool.dtype} {tuple(pool.shape)}")
+        gather_exact(pool, table)
     torch.cuda.synchronize()
-    return {"lm_wide": wide, "bench_decode": bench, "exact_cases": len(cases) + 2}
+    return {**report, "exact_cases": len(cases) + 2}
 
 
 # The paged decode attention's geometries: (slots, page size, pool pages,
@@ -792,6 +927,7 @@ def paged_timing(dev: dict, case: tuple, dtype: torch.dtype, lengths: np.ndarray
         "max_abs_err": max_abs_err(got, RD.paged_decode_attention_reference(*args)),
         "library_max_abs_err": max_abs_err(lib[:, :, 0], got),
         "ms": time_ms(lambda: RD.paged_decode_attention(*args)),
+        "host_us": host_us(lambda: RD.paged_decode_attention(*args)),
         "device_ms": kernel_device_ms(lambda: RD.paged_decode_attention(*args),
                                       ("paged_decode", "paged_combine")),
         "plain_ms": time_ms(lambda: RD.paged_decode_attention_reference(*args)),
@@ -1070,11 +1206,12 @@ def sdpa_backend(fn) -> str:
     return "+".join(sorted(found - {None})) or "math"
 
 
-def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) -> dict:
+def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int,
+                         host: bool = False) -> dict:
     """flash_forward at ``shape`` (causal): call and device time, bound,
     plain version, and F.scaled_dot_product_attention(is_causal=True) on
     the same q, k, v as the library's yardstick (never called by the
-    port)."""
+    port); with ``host``, also the call's host enqueue time."""
     import torch.nn.functional as F
     from dmlc_tpu_torch.ops import flash as FL
 
@@ -1089,8 +1226,10 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
     item = q.element_size()
     nbytes = 4 * q.numel() * item + b * h * s * 4  # q, k, v in; out, lse out
     bound_ms, bound_by = flash_bound(dev, shape, dtype, 2, nbytes)
+    extra = {"host_us": host_us(lambda: fwd(q, k, v, **kw), calls=200, batch=20)} if host else {}
     return {
         "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "kernel": kernel,
+        **extra,
         "max_abs_err": max_abs_err(out, FL.flash_forward_reference(q, k, v, **kw)[0]),
         "library_max_abs_err": max_abs_err(lib.reshape(out.shape), out),
         "ms": time_ms(lambda: fwd(q, k, v, **kw), reps=11, inner=5),
@@ -1105,11 +1244,12 @@ def flash_forward_timing(dev: dict, shape, dtype: torch.dtype, plain_reps: int) 
     }
 
 
-def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
+def flash_backward_timing(dev: dict, shape, dtype: torch.dtype, host: bool = False) -> dict:
     """flash_bwd_dq and flash_bwd_dkv at ``shape`` (causal), each with call
-    and device time, bound and plain time; the library yardstick is the
-    autograd backward of F.scaled_dot_product_attention(is_causal=True),
-    which computes dq, dk and dv together."""
+    and device time, bound and plain time (with ``host``, also the call's
+    host enqueue time); the library yardstick is the autograd backward of
+    F.scaled_dot_product_attention(is_causal=True), which computes dq, dk
+    and dv together."""
     import torch.nn.functional as F
     from dmlc_tpu_torch.ops import flash as FL
 
@@ -1141,6 +1281,8 @@ def flash_backward_timing(dev: dict, shape, dtype: torch.dtype) -> dict:
         bound_ms, bound_by = flash_bound(dev, shape, dtype, products, nbytes)
         report[name] = {
             "shape": list(shape), "dtype": str(dtype).replace("torch.", ""), "kernel": kernel,
+            **({"host_us": host_us(lambda fn=fn: fn(*args, **kw), calls=200, batch=20)}
+               if host else {}),
             "max_abs_err": max(max_abs_err(g, w) for g, w in zip(got, want)),
             "ms": time_ms(lambda fn=fn: fn(*args, **kw), reps=11, inner=5),
             "device_ms": kernel_device_ms(lambda fn=fn: fn(*args, **kw), kernel, calls=10),
@@ -1220,8 +1362,10 @@ def phase_kernels_flash(dev: dict) -> dict:
     checks = flash_checks()
     public = flash_public_checks()
     fwd = {
-        "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5),
-        "train_f32": flash_forward_timing(dev, TRAIN_SHAPE, torch.float32, plain_reps=5),
+        "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5,
+                                           host=True),
+        "train_f32": flash_forward_timing(dev, TRAIN_SHAPE, torch.float32, plain_reps=5,
+                                          host=True),
         "dh64_bf16": flash_forward_timing(dev, DH64_SHAPE, torch.bfloat16, plain_reps=3),
         "dh64_f32": flash_forward_timing(dev, DH64_SHAPE, torch.float32, plain_reps=3),
         "stream_bf16": flash_forward_timing(dev, STREAM_SHAPE, torch.bfloat16, plain_reps=3),
@@ -1230,7 +1374,7 @@ def phase_kernels_flash(dev: dict) -> dict:
         fwd[key] = flash_forward_timing(dev, shape, dt, plain_reps=3)
     for entry in fwd.values():
         entry["tflops"] = flash_flops(entry["shape"], 2) / (entry["device_ms"] * 1e-3) / 1e12
-    bwd = {key: flash_backward_timing(dev, shape, dt)
+    bwd = {key: flash_backward_timing(dev, shape, dt, host=key.startswith("train"))
            for key, (shape, dt) in {
                "train_bf16": (TRAIN_SHAPE, torch.bfloat16),
                "train_f32": (TRAIN_SHAPE, torch.float32),
@@ -1745,6 +1889,7 @@ def phase_decode(dev: dict) -> dict:
     pools = (engine.cache.k_pages[0], engine.cache.v_pages[0])
     paged_ms = time_ms(lambda: K.KERNELS["paged_decode_attention"](q, *pools, table, kv_lengths),
                        reps=11, inner=5)
+    paged_host = host_us(lambda: K.KERNELS["paged_decode_attention"](q, *pools, table, kv_lengths))
     profile = profile_call(one_step)
     tokens = sum(len(o) for o in outs)
     report = {
@@ -1762,7 +1907,7 @@ def phase_decode(dev: dict) -> dict:
             "device_ms_at_most": device_ms, "device_ms_readings": replays["paged"],
             "parent_path_device_ms_readings": replays["parent"],
             "idle_share_at_least": 1.0 - device_ms / step_wall_ms,
-            "paged_call_ms": paged_ms, "paged_calls": BENCH_LAYERS,
+            "paged_call_ms": paged_ms, "paged_host_us": paged_host, "paged_calls": BENCH_LAYERS,
             "profile": profile,
         },
         "gather_path": GATHER_PATH_DECODE,
@@ -2100,18 +2245,18 @@ def main() -> int:
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:50",
          "launches": serve["launches"]["normalize_u8"],
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
-         "ms": norm["ms"], "device_ms": norm["device_ms"],
+         "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
          "bound_by": norm["bound_by"], "library_ms": norm["library_ms"],
          "shape": [BATCH, SIZE, SIZE, 3], "out": "bfloat16",
          "f32_out": {k: kern["normalize_u8"][torch.float32][k]
-                     for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "library_ms",
-                               "bound_ms")}},
+                     for k in ("max_abs_err", "ms", "device_ms", "host_us", "plain_ms",
+                               "library_ms", "bound_ms")}},
         {"name": "softmax_top1", "route": "cuda", "source": "dmlc_tpu_torch/csrc/softmax_top1.cu",
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:97",
          "launches": serve["launches"]["softmax_top1"],
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
-         "ms": soft["ms"], "device_ms": soft["device_ms"],
+         "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],
          "bound_by": soft["bound_by"], "library_ms": soft["library_ms"],
          "shape": [BATCH, NUM_CLASSES]},
@@ -2120,20 +2265,14 @@ def main() -> int:
         {"name": "gather_kv_pages", "route": "cuda", "source": "dmlc_tpu_torch/csrc/gather_pages.cu",
          "replaces": "dmlc_tpu/ops/ragged_decode.py:49",
          "launches": gen["gather_launches"], "on_main_path": False,
-         "max_abs_err": gather["max_abs_err"], "max_err": gather["max_abs_err"],
-         "ms": gather["ms"], "device_ms": gather["device_ms"],
-         "device_ms_cold_l2": gather["device_ms_cold_l2"],
-         "plain_ms": gather["plain_ms"], "bound_ms": gather["bound_ms"],
-         "bound_by": gather["bound_by"], "library_ms": gather["library_ms"],
+         **{k: gather[k] for k in GATHER_KEYS}, "max_err": gather["max_abs_err"],
          "shape": [gather["pool"], gather["table"]],
          "bench_decode": {k: kern["gather_kv_pages"]["bench_decode"][k]
-                          for k in ("pool", "table", "distinct_pages", "ms", "device_ms",
-                                    "device_ms_cold_l2", "plain_ms", "library_ms",
-                                    "bound_ms")}},
+                          for k in ("pool", "table", "distinct_pages", *GATHER_KEYS)}},
     ]
     paged = kern["paged_decode_attention"]["timings"]
-    paged_keys = ("max_abs_err", "ms", "device_ms", "plain_ms", "parent_path_ms", "library_ms",
-                  "bound_ms", "bound_by", "lengths")
+    paged_keys = ("max_abs_err", "ms", "device_ms", "host_us", "plain_ms", "parent_path_ms",
+                  "library_ms", "bound_ms", "bound_by", "lengths")
     on_path = paged["lm_wide_dh128_float32"]
     rows.append({"name": "paged_decode_attention", "route": "cuda",
                  "source": "dmlc_tpu_torch/csrc/paged_decode.cu",
@@ -2156,10 +2295,10 @@ def main() -> int:
                  "source": "dmlc_tpu_torch/csrc/flash_fwd.cu",
                  "replaces": "dmlc_tpu/ops/pallas_kernels.py:157 and :215",
                  "launches": train["launches"]["flash_forward"],
-                 **{k: fwd["train_bf16"][k] for k in timed},
+                 **{k: fwd["train_bf16"][k] for k in (*timed, "host_us")},
                  "max_err": fwd["train_bf16"]["max_abs_err"],
                  "shape": fwd["train_bf16"]["shape"], "dtype": "bfloat16",
-                 "f32": {k: fwd["train_f32"][k] for k in timed},
+                 "f32": {k: fwd["train_f32"][k] for k in (*timed, "host_us")},
                  "dh64_bf16": {k: fwd["dh64_bf16"][k] for k in timed_shape},
                  "dh64_f32": {k: fwd["dh64_f32"][k] for k in timed_shape},
                  "lm_small_launches": {dt: n["flash_forward"] for dt, n in small_launches.items()},
@@ -2169,10 +2308,11 @@ def main() -> int:
         rows.append({"name": name, "route": "cuda", "source": f"dmlc_tpu_torch/csrc/{name}.cu",
                      "replaces": f"dmlc_tpu/ops/pallas_kernels.py:{line}",
                      "launches": train["launches"][name],
-                     **{k: kern[name][k] for k in timed}, "max_err": kern[name]["max_abs_err"],
+                     **{k: kern[name][k] for k in (*timed, "host_us")},
+                     "max_err": kern[name]["max_abs_err"],
                      "library_computes": kern[name]["library_computes"],
                      "shape": kern[name]["shape"], "dtype": "bfloat16",
-                     "f32": {k: kern["backward_f32"][name][k] for k in timed},
+                     "f32": {k: kern["backward_f32"][name][k] for k in (*timed, "host_us")},
                      "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
                      "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
                      "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})

@@ -246,11 +246,14 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
     multiple of ``WIDE_HEAD_DIM_STEP`` past them, contiguous and 16-byte
     aligned."""
     first = next(iter(mats.values()))
+    index = None
     for name, t in {**mats, **rows}.items():
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a torch.Tensor")
-        kernels._require_device(t, what)
-        if t.device != first.device:
+        i = kernels._device_index(t, what)
+        if index is None:
+            index = i
+        elif i != index:
             raise ValueError(f"{what}: {name} on {t.device}, {next(iter(mats))} on {first.device}")
     if first.dim() != 3:
         raise ValueError(f"{what}: expected [B*H, S, Dh], got {tuple(first.shape)}")
@@ -262,7 +265,7 @@ def _check_operands(what: str, mats: dict[str, torch.Tensor],
         if tuple(t.shape) != (bh, s, 1) or t.dtype != torch.float32:
             raise ValueError(f"{what}: {name} must be float32 {(bh, s, 1)}, got "
                              f"{t.dtype} {tuple(t.shape)}")
-    if first.device.type == "cuda":
+    if index >= 0:
         if first.dtype not in _KERNEL_DTYPES or any(t.dtype != first.dtype for t in mats.values()):
             raise TypeError(f"{what}: the kernel takes one dtype of {_KERNEL_DTYPES} for "
                             f"{list(mats)}, got {[t.dtype for t in mats.values()]}")
@@ -293,10 +296,10 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: 
                   scale: float) -> tuple[torch.Tensor, torch.Tensor]:
     """[BH, S, Dh] q, k, v -> (out in q's dtype, lse float32 [BH, S, 1])."""
     bh, s, dh = _check_operands("flash_forward", {"q": q, "k": k, "v": v}, {})
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_forward_reference(q, k, v, causal=causal, scale=scale)
     out = torch.empty_like(q)
-    lse = torch.empty((bh, s, 1), dtype=torch.float32, device=q.device)
+    lse = q.new_empty((bh, s, 1), dtype=torch.float32)
     if q.numel():
         key = _run("flash_fwd", q, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                    lse.data_ptr(), bh, s, dh, int(causal), float(scale),
@@ -310,7 +313,7 @@ def flash_bwd_dq(q, k, v, do, lse, delta, *, causal: bool, scale: float) -> torc
     O)`` (both float32 [BH, S, 1]), in q's dtype."""
     bh, s, dh = _check_operands("flash_bwd_dq", {"q": q, "k": k, "v": v, "do": do},
                                 {"lse": lse, "delta": delta})
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_bwd_dq_reference(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dq = torch.empty_like(q)
     if q.numel():
@@ -327,7 +330,7 @@ def flash_bwd_dkv(q, k, v, do, lse, delta, *, causal: bool,
     and v's dtypes."""
     bh, s, dh = _check_operands("flash_bwd_dkv", {"q": q, "k": k, "v": v, "do": do},
                                 {"lse": lse, "delta": delta})
-    if q.device.type == "cpu":
+    if q.is_cpu:
         return flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal=causal, scale=scale)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     if q.numel():

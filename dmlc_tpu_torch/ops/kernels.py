@@ -12,7 +12,20 @@ Counterpart of ``dmlc_tpu/ops/pallas_kernels.py`` for the kernels on the
 Each wrapper checks its inputs, then runs the plain PyTorch version
 (``*_reference``) when the tensor lies on the CPU and launches its kernel
 when it lies on a CUDA device. A failed build or launch raises; there is no
-fallback from the kernel to the plain version. Each wrapper counts its
+fallback from the kernel to the plain version.
+
+The launch path is shared by every wrapper and costs the host a few
+microseconds beside the ctypes call: the checks read each tensor's device
+as one int (``_device_index``: ``is_cuda``/``is_cpu`` and ``get_device()``,
+no ``torch.device`` built), and ``_launch`` compares that index with the
+current device and passes the device's current stream as a raw pointer
+(``_raw_stream``), read at each call, with no ``torch.cuda.Stream`` built.
+Outputs come from the input's ``new_empty`` (its dtype and device, none
+parsed). The paged attention's output and scratch are views of one
+allocation; two small outputs (``softmax_top1``'s) stay two, which
+measured cheaper than one allocation cut by views. The entry points are
+loaded with ``ctypes.CDLL``, which releases the GIL around the call
+(``ctypes.PyDLL``, which keeps it, measured the same). Each wrapper counts its
 kernel launches in its ``launches`` attribute (the flash wrappers, which
 pick among several entry points, in a ``Counter`` by entry point, head dim
 and dtype); ``KERNELS`` lists every wrapper of the package (``ops/ragged_decode.py`` adds the page gather and
@@ -55,6 +68,8 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p,
          ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p],
     ),
+    # Dynamic shared memory a block of the bulk kernel takes.
+    "gather_pages_smem_bytes": ("dmlc_gather_pages_smem_bytes", []),
     # Paged decode attention (ops/ragged_decode.py): q, k_pages, v_pages;
     # num_pages, page_size, heads, dh; table, b, max_pages; lengths,
     # len_is_i64, scale, is_bf16; scratch, out; the stream.
@@ -91,10 +106,15 @@ _SIGNATURES.update({
     f"flash_wide_{name[6:]}": (f"dmlc_flash_wide_{name[6:]}", _SIGNATURES[name][1])
     for name in ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 })
+# The page gather's design before the bulk-copy kernel (its 16-byte vector
+# kernel on the aligned path), with the same arguments: timed beside the
+# bulk kernel, never called by a wrapper.
+_SIGNATURES["gather_pages_vec16"] = ("dmlc_gather_pages_vec16", _SIGNATURES["gather_pages"][1])
 #: The library (csrc/<name>.cu) of each entry point that does not live in
 #: its own name's.
 _LIBRARY = {name: "flash_wide" for name in _SIGNATURES if name.startswith("flash_wide_")}
-_LIBRARY["paged_decode_split"] = "paged_decode"
+_LIBRARY.update(paged_decode_split="paged_decode", gather_pages_vec16="gather_pages",
+                gather_pages_smem_bytes="gather_pages")
 
 
 _ENTRIES: dict[str, tuple] = {}
@@ -114,17 +134,35 @@ def _entry(name: str):
     return entry
 
 
+def _raw_stream(index: int) -> int:
+    """The current stream of CUDA device ``index``, as the pointer a kernel
+    entry point takes: one call into PyTorch's C++ (the function its own
+    generated code uses), where ``torch.cuda.current_stream()`` builds a
+    Python ``Stream`` object first."""
+    return torch._C._cuda_getCurrentRawStream(index)
+
+
 def _launch(t: torch.Tensor, fn, *args) -> int:
-    """Call a kernel entry point on ``t``'s device and current stream."""
-    if t.device.index == torch.cuda.current_device():
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
-    with torch.cuda.device(t.device):
-        return fn(*args, torch.cuda.current_stream().cuda_stream)
+    """Call kernel entry point ``fn`` on CUDA tensor ``t``'s device and that
+    device's current stream, read at this call. A tensor on another device
+    than the current one launches under that device's guard."""
+    index = t.get_device()
+    if index == torch._C._cuda_getDevice():
+        return fn(*args, _raw_stream(index))
+    with torch.cuda.device(index):
+        return fn(*args, _raw_stream(index))
 
 
-def _require_device(t: torch.Tensor, what: str) -> None:
-    if t.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"{what}: unsupported device {t.device}")
+def _device_index(t: torch.Tensor, what: str) -> int:
+    """``t``'s device as one int, -1 for the CPU and the device index for
+    CUDA, read without building a ``torch.device``; any other device type
+    raises ``ValueError``. Two tensors that pass lie on the same device
+    exactly when their indices are equal."""
+    if t.is_cuda:
+        return t.get_device()
+    if t.is_cpu:
+        return -1
+    raise ValueError(f"{what}: unsupported device {t.device}")
 
 
 # ---------------------------------------------------------------------------
@@ -147,10 +185,12 @@ def affine_constants(mean, std, channels: int) -> tuple[np.ndarray, np.ndarray]:
     return scale, bias
 
 
-def _check_normalize(batch_u8: torch.Tensor, out_dtype: torch.dtype) -> None:
+def _check_normalize(batch_u8: torch.Tensor, out_dtype: torch.dtype) -> int:
+    """Raises on what neither version takes; returns the device index
+    (``_device_index``)."""
     if not isinstance(batch_u8, torch.Tensor):
         raise TypeError("normalize_u8: batch_u8 must be a torch.Tensor")
-    _require_device(batch_u8, "normalize_u8")
+    index = _device_index(batch_u8, "normalize_u8")
     if batch_u8.dtype != torch.uint8:
         raise TypeError(f"normalize_u8: expected uint8, got {batch_u8.dtype}")
     if batch_u8.dim() != 4:
@@ -159,6 +199,7 @@ def _check_normalize(batch_u8: torch.Tensor, out_dtype: torch.dtype) -> None:
         raise ValueError("normalize_u8: batch_u8 must be contiguous (NHWC)")
     if out_dtype not in _OUT_DTYPES:
         raise TypeError(f"normalize_u8: out_dtype must be one of {_OUT_DTYPES}")
+    return index
 
 
 def normalize_u8_reference(
@@ -178,14 +219,14 @@ def normalize_u8(
     """uint8 [N, H, W, C] -> ((x / 255) - mean) / std as ``out_dtype``
     (float32 or bfloat16), same shape and layout. One pass: each byte is
     read once and each output written once."""
-    _check_normalize(batch_u8, out_dtype)
+    index = _check_normalize(batch_u8, out_dtype)
     c = batch_u8.shape[-1]
-    if batch_u8.device.type == "cpu":
+    if index < 0:
         return normalize_u8_reference(batch_u8, mean, std, out_dtype)
     if c > _MAX_CHANNELS:
         raise ValueError(f"normalize_u8: the kernel takes at most {_MAX_CHANNELS} channels, got {c}")
     scale, bias = affine_constants(mean, std, c)
-    out = torch.empty(batch_u8.shape, dtype=out_dtype, device=batch_u8.device)
+    out = batch_u8.new_empty(batch_u8.shape, dtype=out_dtype)
     if batch_u8.numel() == 0:
         return out
     params = _NormParams()
@@ -208,16 +249,19 @@ normalize_u8.launches = 0  # type: ignore[attr-defined]
 # ---------------------------------------------------------------------------
 
 
-def _check_logits(logits: torch.Tensor) -> None:
+def _check_logits(logits: torch.Tensor) -> int:
+    """Raises on what neither version takes; returns the device index
+    (``_device_index``)."""
     if not isinstance(logits, torch.Tensor):
         raise TypeError("softmax_top1: logits must be a torch.Tensor")
-    _require_device(logits, "softmax_top1")
+    index = _device_index(logits, "softmax_top1")
     if logits.dtype != torch.float32:
         raise TypeError(f"softmax_top1: expected float32 logits, got {logits.dtype}")
     if logits.dim() != 2 or logits.shape[1] == 0:
         raise ValueError(f"softmax_top1: expected [B, C] with C > 0, got {tuple(logits.shape)}")
     if not logits.is_contiguous():
         raise ValueError("softmax_top1: logits must be contiguous")
+    return index
 
 
 def softmax_top1_reference(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
@@ -237,12 +281,12 @@ def softmax_top1_reference(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 def softmax_top1(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     """[B, C] float32 logits -> (top-1 index int32 [B], top-1 probability
     float32 [B]) in one pass; the softmax matrix is never written."""
-    _check_logits(logits)
-    if logits.device.type == "cpu":
+    index = _check_logits(logits)
+    if index < 0:
         return softmax_top1_reference(logits)
     b, c = logits.shape
-    idx = torch.empty(b, dtype=torch.int32, device=logits.device)
-    prob = torch.empty(b, dtype=torch.float32, device=logits.device)
+    idx = logits.new_empty(b, dtype=torch.int32)
+    prob = logits.new_empty(b)
     if b == 0:
         return idx, prob
     lib, fn = _entry("softmax_top1")

@@ -8,7 +8,8 @@ table.
 
 - ``gather_kv_pages`` assembles the per-slot contiguous view. On a CUDA
   tensor it launches the hand-written page-gather kernel
-  (``csrc/gather_pages.cu``); on a CPU tensor it runs the plain version
+  (``csrc/gather_pages.cu``, on Hopper's bulk-copy engine); on a CPU
+  tensor it runs the plain version
   ``gather_kv_pages_reference``. The device decides; there is no fallback
   from the kernel to the plain version.
 - ``ragged_decode_attention`` is the masked attention over the gathered
@@ -45,10 +46,12 @@ def check_page_table(table: np.ndarray, num_pages: int) -> None:
         )
 
 
-def _check_gather(pages: torch.Tensor, page_table: torch.Tensor) -> None:
+def _check_gather(pages: torch.Tensor, page_table: torch.Tensor) -> int:
+    """Raises on what neither version takes; returns the device index
+    (``kernels._device_index``)."""
     if not isinstance(pages, torch.Tensor) or not isinstance(page_table, torch.Tensor):
         raise TypeError("gather_kv_pages: pages and page_table must be torch.Tensors")
-    kernels._require_device(pages, "gather_kv_pages")
+    index = kernels._device_index(pages, "gather_kv_pages")
     if pages.dim() != 4:
         raise ValueError(
             f"gather_kv_pages: pages must be [num_pages, page_size, H, Dh], got {tuple(pages.shape)}"
@@ -58,12 +61,13 @@ def _check_gather(pages: torch.Tensor, page_table: torch.Tensor) -> None:
             "gather_kv_pages: page_table must be int32 [B, max_pages], got "
             f"{page_table.dtype} {tuple(page_table.shape)}"
         )
-    if page_table.device != pages.device:
+    if not (page_table.is_cuda or page_table.is_cpu) or page_table.get_device() != index:
         raise ValueError(
             f"gather_kv_pages: page_table on {page_table.device}, pages on {pages.device}"
         )
     if not (pages.is_contiguous() and page_table.is_contiguous()):
         raise ValueError("gather_kv_pages: pages and page_table must be contiguous")
+    return index
 
 
 def gather_kv_pages_reference(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -90,15 +94,14 @@ def gather_kv_pages(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tens
     the kernel writes zeros for an out-of-range id instead of reading
     outside the pool.
     """
-    _check_gather(pages, page_table)
+    index = _check_gather(pages, page_table)
     num_pages = pages.shape[0]
-    if pages.device.type == "cpu":
+    if index < 0:
         check_page_table(page_table.numpy(), num_pages)
         return gather_kv_pages_reference(pages, page_table)
     b, max_pages = page_table.shape
     _, page_size, heads, head_dim = pages.shape
-    out = torch.empty((b, max_pages * page_size, heads, head_dim),
-                      dtype=pages.dtype, device=pages.device)
+    out = pages.new_empty((b, max_pages * page_size, heads, head_dim))
     if out.numel() == 0:
         return out
     page_bytes = page_size * heads * head_dim * pages.element_size()
@@ -144,31 +147,36 @@ _PAGED_DTYPES = (torch.float32, torch.bfloat16)
 
 
 def _check_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
-                 page_table: torch.Tensor, kv_lengths: torch.Tensor) -> None:
+                 page_table: torch.Tensor, kv_lengths: torch.Tensor) -> int:
+    """Raises on what neither version takes (on the card also what the
+    kernel does not take); returns the device index
+    (``kernels._device_index``)."""
     what = "paged_decode_attention"
-    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages, "page_table": page_table,
-             "kv_lengths": kv_lengths}
-    for name, t in named.items():
+    named = (("q", q), ("k_pages", k_pages), ("v_pages", v_pages), ("page_table", page_table),
+             ("kv_lengths", kv_lengths))
+    indices = []
+    for name, t in named:
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{what}: {name} must be a torch.Tensor")
-        kernels._require_device(t, what)
-    for name, t in named.items():
-        if t.device != q.device:
+        indices.append(kernels._device_index(t, what))
+    index = indices[0]
+    for (name, t), i in zip(named, indices):
+        if i != index:
             raise ValueError(f"{what}: {name} on {t.device}, q on {q.device}")
     if q.dim() != 3:
         raise ValueError(f"{what}: q must be [B, H, Dh], got {tuple(q.shape)}")
     b, heads, dh = q.shape
     if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
-            or tuple(k_pages.shape[2:]) != (heads, dh)):
+            or k_pages.shape[2:] != (heads, dh)):
         raise ValueError(f"{what}: k_pages and v_pages must both be [num_pages, page_size, "
                          f"{heads}, {dh}], got {tuple(k_pages.shape)} and {tuple(v_pages.shape)}")
     if page_table.dim() != 2 or page_table.dtype != torch.int32 or page_table.shape[0] != b:
         raise ValueError(f"{what}: page_table must be int32 [{b}, max_pages], got "
                          f"{page_table.dtype} {tuple(page_table.shape)}")
-    if tuple(kv_lengths.shape) != (b,) or kv_lengths.dtype not in (torch.int32, torch.int64):
+    if kv_lengths.shape != (b,) or kv_lengths.dtype not in (torch.int32, torch.int64):
         raise ValueError(f"{what}: kv_lengths must be int32 or int64 [{b}], got "
                          f"{kv_lengths.dtype} {tuple(kv_lengths.shape)}")
-    if q.device.type == "cuda":
+    if index >= 0:
         if q.dtype not in _PAGED_DTYPES or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
             raise TypeError(f"{what}: the kernel takes q and the pools in one dtype of "
                             f"{_PAGED_DTYPES}, got {q.dtype}, {k_pages.dtype}, {v_pages.dtype}")
@@ -178,9 +186,10 @@ def _check_paged(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
         if dh > PAGED_MAX_HEAD_DIM:
             raise ValueError(f"{what}: head dim {dh} is past {PAGED_MAX_HEAD_DIM}, the largest "
                              "the kernel takes")
-        for name, t in named.items():
+        for name, t in named:
             if not t.is_contiguous() or t.data_ptr() % 16:
                 raise ValueError(f"{what}: {name} must be contiguous and 16-byte aligned")
+    return index
 
 
 @functools.cache
@@ -223,29 +232,34 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     is not (that would synchronise with the device): its owner checks it
     on the host before upload (``check_page_table``), and the kernel
     counts a row on an out-of-range page as zeros instead of reading
-    outside the pool.
+    outside the pool. On the card the output is a view of the one
+    allocation that also holds the kernel's scratch, after it.
     """
-    _check_paged(q, k_pages, v_pages, page_table, kv_lengths)
+    index = _check_paged(q, k_pages, v_pages, page_table, kv_lengths)
     if scale is None:
         scale = q.shape[-1] ** -0.5
     num_pages, page_size = k_pages.shape[:2]
-    if q.device.type == "cpu":
+    if index < 0:
         check_page_table(page_table.numpy(), num_pages)
         return paged_decode_attention_reference(q, k_pages, v_pages, page_table, kv_lengths,
                                                 scale=scale)
     b, heads, dh = q.shape
+    if b * heads * dh == 0:
+        return q.new_empty((b, heads, dh))
     max_pages = page_table.shape[1]
-    out = torch.empty((b, heads, dh), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
+    # One allocation holds the output (in q's dtype, rounded up to 16
+    # bytes) and, after it, the kernel's float32 scratch.
     nsplit = -(-max_pages * page_size // _paged_split())
-    scratch = torch.empty(b * heads * nsplit * (dh + 2), dtype=torch.float32, device=q.device)
+    item = q.element_size()
+    out_elems = -(-b * heads * dh * item // 16) * 16 // item
+    buf = q.new_empty(out_elems + b * heads * nsplit * (dh + 2) * 4 // item)
+    out = buf.as_strided((b, heads, dh), (heads * dh, dh, 1))
     lib, fn = kernels._entry("paged_decode")
     rc = kernels._launch(q, fn, q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), num_pages,
                          page_size, heads, dh, page_table.data_ptr(), b, max_pages,
                          kv_lengths.data_ptr(), int(kv_lengths.dtype == torch.int64),
-                         float(scale), int(q.dtype == torch.bfloat16), scratch.data_ptr(),
-                         out.data_ptr())
+                         float(scale), int(q.dtype == torch.bfloat16),
+                         buf.data_ptr() + out_elems * item, buf.data_ptr())
     _build.check(lib, rc, "paged_decode_attention")
     paged_decode_attention.launches += 1  # type: ignore[attr-defined]
     return out

@@ -162,6 +162,16 @@ A paged fault runs ``chip_smoke.paged_check`` on paged_decode_attention
   of the table's id;
 - paged_split_twice: the merge adds split 0 twice.
 
+A gather fault runs ``chip_smoke.phase_kernels_gather`` on the page
+gather's bulk kernel (csrc/gather_pages.cu):
+
+- gather_last_chunk: each page's last chunk is skipped where the page is
+  not a whole number of chunks (the chunk count rounds down);
+- gather_read_wait: a stage is loaded again without waiting for its store
+  to have read it (the wait_group.read dropped);
+- gather_outside: an id outside the pool is copied from past the pool's
+  ends instead of stored as zeros.
+
 The check must fail on every fault. Prints one JSON line per fault (the
 check's message) and exits non-zero if a fault passes. Needs a CUDA device
 and nvcc; the checkout it is run from is only read.
@@ -471,6 +481,24 @@ FAULTS.update({
         "float32", PAGED_CASE, "paged"),
 })
 
+# The page gather's bulk kernel (csrc/gather_pages.cu), checked by
+# chip_smoke.phase_kernels_gather (every exact case, each output block
+# filled with NaN before the call).
+GATHER_CASE = ("lm_wide", "bench_decode")
+GATHER_WAIT = '      asm volatile("cp.async.bulk.wait_group.read 1;\\n" ::: "memory");'
+FAULTS.update({
+    "gather_last_chunk": Fault(
+        "gather_pages", "    const long long chunks = (page_bytes + kChunkBytes - 1) / kChunkBytes;",
+        "    const long long chunks = page_bytes / kChunkBytes;", "float32", GATHER_CASE,
+        "gather"),
+    "gather_read_wait": Fault(
+        "gather_pages", GATHER_WAIT, "      // (the stage's store may not have read it)",
+        "float32", GATHER_CASE, "gather"),
+    "gather_outside": Fault(
+        "gather_pages", "    const bool ok = id >= 0 && id < num_pages;",
+        "    const bool ok = true;", "float32", GATHER_CASE, "gather"),
+})
+
 #: Each check: the script run in the copy, and what its failure prints.
 CHECKS = {
     "flash": ("""
@@ -485,6 +513,12 @@ from dmlc_tpu_torch.ops import _build
 _build.build(["paged_decode"])
 cs.paged_check({shape}, torch.{dtype})
 """, "AssertionError: paged_decode_attention"),
+    "gather": ("""
+import chip_smoke as cs
+from dmlc_tpu_torch.ops import _build
+_build.build(["gather_pages"])
+cs.phase_kernels_gather(cs.phase_device()["mem_bytes_per_s"])
+""", "AssertionError: gather_kv_pages"),
 }
 
 

@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times design variants (levers) of the flash and paged decode kernels, one at a time.
+"""Times design variants (levers) of the flash, paged decode and page gather kernels, one at a time.
 
     python3 dmlc_tpu_torch/tools/flash_levers.py SCRATCH_DIR GROUP [--parent CSRC_DIR] [VARIANT ...]
 
@@ -21,7 +21,10 @@ dtypes, which takes the head dim at run time, timed at [4, 4, 1024, 640],
 [8, 1, 2048, 768], and [4, 4, 1024, 576], and beside the kernels built for
 320, 384 and 512 at ``wide_fwd``'s shapes); ``wide_bwd_bf16`` (the bf16
 flash_bwd_dq and flash_bwd_dkv past head dim 256, at ``wide_fwd``'s
-shapes, checked at S 193 at 320, 384, 448 and 512); ``paged``
+shapes, checked at S 193 at 320, 384, 448 and 512); ``gather`` (the page
+gather's bulk kernel and its variants, checked bit-equal on every case of
+``chip_smoke.gather_cases`` and both timed shapes, then timed at lm_wide's
+serving shape and the decode bench's, warm and with a cold L2); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
@@ -578,6 +581,18 @@ XB_DKV_TILE = "  static constexpr int BQ = 32, kMaxBoxes = 5;  // query rows a Q
 XB_DQ_SLOTS = "  static constexpr int kSlots = 4;         // slabs in flight a warpgroup\n"
 XB_DKV_SLOTS = "  static constexpr int kSlots = 4;        // slabs in flight a warpgroup\n"
 XB_DQ_STAGES = "  static constexpr int kKStages = 2;       // the chunk's K tiles in flight\n"
+
+# The page gather (csrc/gather_pages.cu). ship: the checkout's bulk kernel
+# (16 KB chunks, a ring of 4, at most 2 blocks an SM); vec16: the route on
+# the design it replaced (the 16-byte vector kernel); chunk8k and chunk32k:
+# chunks of half and twice the shipped size; stages3: one stage fewer;
+# blocks1: one block an SM against two; waitall: each block waits at its
+# end for its stores' writes, not only for their reads of the ring.
+G_CHUNK = "constexpr int kChunkBytes = 16384;"
+G_STAGES = "constexpr int kStages = 4;"
+G_BLOCKS = "constexpr int kBlocksPerSm = 2;"
+G_ROUTE = "  return launch_gather(pool, num_pages, page_bytes, ids, n_out, out, stream, true);"
+G_END = '  if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");'
 XB_DKV_STAGES = "  static constexpr int kOStages = 2;      // the chunk's Q/dO tiles in flight\n"
 
 GROUPS = {
@@ -734,6 +749,16 @@ GROUPS = {
                     "flash_bwd_dkv": [(XB_DKV_STAGES, XB_DKV_STAGES.replace("= 2", "= 3"))]},
     }, ("ship", "dkv_cluster", "dq_cluster", "chunks", "keys16", "rows16", "slots2", "stages3",
         "ship"), checks=XL_BWD_CHECKS),
+    "gather": Group("float32", ("gather_pages",), ("lm_wide", "bench_decode"), {
+        "ship": {},
+        "vec16": {"gather_pages": [(G_ROUTE, G_ROUTE.replace("true", "false"))]},
+        "chunk8k": {"gather_pages": [(G_CHUNK, G_CHUNK.replace("16384", "8192"))]},
+        "chunk32k": {"gather_pages": [(G_CHUNK, G_CHUNK.replace("16384", "32768"))]},
+        "stages3": {"gather_pages": [(G_STAGES, G_STAGES.replace("4", "3"))]},
+        "blocks1": {"gather_pages": [(G_BLOCKS, G_BLOCKS.replace("2", "1"))]},
+        "waitall": {"gather_pages": [(G_END, G_END.replace(".read 0", " 0"))]},
+    }, ("ship", "vec16", "chunk8k", "chunk32k", "stages3", "blocks1", "waitall", "ship"),
+        "gather"),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -815,6 +840,31 @@ print(json.dumps(report))
 """
 
 
+RUN_GATHER = """
+import json, sys, numpy as np, torch, chip_smoke as cs
+from dmlc_tpu_torch.ops import _build, ragged_decode as RD
+_build.build(["gather_pages"])
+dev = cs.phase_device()
+report = {"card": dev["nvidia_smi"],
+          "gather_pages": {m[-40:]: e for m, e in
+                           cs.ptxas_entries(_build.build_log["gather_pages"]).items()}}
+gen = torch.Generator(device="cuda").manual_seed(1)
+shapes = cs.gather_shapes(gen, np.random.default_rng(1))
+for pool, table in cs.gather_cases(gen, shapes["lm_wide"][0]):
+    cs.gather_exact(pool, table)
+flush = torch.empty(128 << 20, dtype=torch.uint8, device="cuda")
+for name, (pool, table) in shapes.items():
+    cs.gather_exact(pool, table, flush)
+    ids = torch.from_numpy(table).cuda()
+    call = lambda: RD.gather_kv_pages(pool, ids)
+    report[name] = {
+        "device_ms": [cs.kernel_device_ms(call, "gather_pages") for _ in range(3)],
+        "device_ms_cold_l2": [cs.kernel_device_ms(call, "gather_pages", flush=flush)
+                              for _ in range(3)]}
+print(json.dumps(report))
+"""
+
+
 RUN_AB = """
 import json, sys, torch, chip_smoke as cs
 from dmlc_tpu_torch.ops import _build, flash as FL
@@ -872,7 +922,7 @@ print(json.dumps(report))
 """
 
 
-SCRIPTS = {"flash": RUN, "paged": RUN_PAGED, "ab": RUN_AB}
+SCRIPTS = {"flash": RUN, "paged": RUN_PAGED, "gather": RUN_GATHER, "ab": RUN_AB}
 
 
 def variant_sources(group: str, name: str, parent: Path | None = None) -> dict[str, str]:

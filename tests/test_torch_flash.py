@@ -584,7 +584,27 @@ def test_paged_fault_finds_its_line_once(fault):
     tree = ast.parse((tool.REPO / "chip_smoke.py").read_text())
     names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert "paged_check" in names and geometry in ("lm_wide", "bench_decode") and dh == 128
-    assert set(tool.CHECKS) == {"flash", "paged"}
+    assert set(tool.CHECKS) == {"flash", "paged", "gather"}
+
+
+@pytest.mark.parametrize("fault", ["gather_last_chunk", "gather_read_wait", "gather_outside"])
+def test_gather_fault_finds_its_line_once(fault):
+    """The page gather's planted faults: one line of csrc/gather_pages.cu
+    each, in the bulk kernel's path, run by chip_smoke.phase_kernels_gather
+    (text only, no nvcc)."""
+    tool = _tool()
+    case = tool.FAULTS[fault]
+    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
+    assert case.source == "gather_pages" and case.check == "gather" and not case.file
+    assert text.count(case.old) == 1
+    assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
+    bulk = text[text.index("gather_pages_bulk_kernel("):text.index("gather_pages_vec16_kernel(")]
+    launch = text[text.index("int launch_gather("):]
+    assert case.old in bulk or case.old in launch.split("} else if (aligned)")[0]
+    tree = ast.parse((tool.REPO / "chip_smoke.py").read_text())
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"phase_kernels_gather", "gather_exact", "gather_cases"} <= names
+    assert "phase_kernels_gather" in tool.CHECKS["gather"][0]
 
 
 def _lever_sources_apply(group: str, lever: str) -> None:
@@ -626,6 +646,17 @@ def test_dq_f32_lever_tool_finds_its_lines_once(lever):
 def test_paged_lever_tool_finds_its_lines_once(lever):
     """The paged decode kernel's variants (group paged)."""
     _lever_sources_apply("paged", lever)
+
+
+@pytest.mark.parametrize("lever", ["vec16", "chunk8k", "chunk32k", "stages3", "blocks1",
+                                   "waitall"])
+def test_gather_lever_tool_finds_its_lines_once(lever):
+    """The page gather's variants (group gather), timed at the two shapes
+    of chip_smoke.gather_shapes."""
+    _lever_sources_apply("gather", lever)
+    tool = _tool("flash_levers")
+    assert tool.GROUPS["gather"].shapes == ("lm_wide", "bench_decode")
+    assert tool.GROUPS["gather"].script == "gather"
 
 
 @pytest.mark.parametrize("lever", ["ship", "a", "b", "keys128", "keys64", "stages1"])

@@ -153,3 +153,271 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert kernels.launch_counts() == {"normalize_u8": 0, "softmax_top1": 0, "gather_kv_pages": 0,
                                        "paged_decode_attention": 0, "flash_forward": 0,
                                        "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+
+
+# ---------------------------------------------------------------------------
+# The thinned launch path: every refusal keeps its exception type
+# ---------------------------------------------------------------------------
+
+from hypothesis import given, settings  # noqa: E402
+from hypothesis import strategies as st  # noqa: E402
+
+from dmlc_tpu_torch.ops import flash as tflash  # noqa: E402
+from dmlc_tpu_torch.ops import ragged_decode as trd  # noqa: E402
+
+_META = torch.device("meta")
+
+
+def _paged_args():
+    rng = np.random.default_rng(5)
+    q = torch.from_numpy(rng.standard_normal((3, 2, 8)).astype(np.float32))
+    kp = torch.from_numpy(rng.standard_normal((6, 4, 2, 8)).astype(np.float32))
+    table = torch.tensor([[1, 2], [3, 0], [4, 5]], dtype=torch.int32)
+    return q, kp, kp.clone(), table, torch.tensor([3, 5, 8], dtype=torch.int32)
+
+
+def _refusals():
+    """(call, exception type): the cases of test_gather_rejects_bad_inputs,
+    test_paged_decode_attention_rejects_bad_inputs,
+    test_normalize_rejects_bad_input and test_softmax_top1_rejects_bad_input,
+    each wrapper on a tensor of an unsupported device, and a device
+    mismatch between two arguments of each multi-tensor wrapper."""
+    gather, paged = trd.gather_kv_pages, trd.paged_decode_attention
+    t2 = torch.zeros(1, 2, dtype=torch.int32)
+    pool = torch.zeros(4, 2, 1, 8)
+    q, kp, vp, table, lengths = _paged_args()
+    m = torch.zeros(2, 16, 64)
+    lse = torch.zeros(2, 16, 1)
+
+    def norm(bad):
+        return lambda: kernels.normalize_u8(bad, tpp.IMAGENET_MEAN, tpp.IMAGENET_STD)
+
+    return [
+        (lambda: gather(torch.zeros(4, 2, 8), t2), ValueError),
+        (lambda: gather(pool, torch.zeros(1, 2, dtype=torch.int64)), ValueError),
+        (lambda: gather(pool, torch.zeros(2, dtype=torch.int32)), ValueError),
+        (lambda: gather(torch.zeros(4, 8, 1, 2).transpose(1, 3), t2), ValueError),
+        (lambda: gather(np.zeros((4, 2, 1, 8)), t2), TypeError),
+        (lambda: gather(pool.to(_META), t2.to(_META)), ValueError),
+        (lambda: gather(pool, t2.to(_META)), ValueError),                    # devices differ
+        (lambda: paged(q[0], kp, vp, table, lengths), ValueError),
+        (lambda: paged(q, kp, vp[:, :, :1], table, lengths), ValueError),
+        (lambda: paged(q, kp[..., :4], vp[..., :4], table, lengths), ValueError),
+        (lambda: paged(q, kp, vp, table.long(), lengths), ValueError),
+        (lambda: paged(q, kp, vp, table[:2], lengths), ValueError),
+        (lambda: paged(q, kp, vp, table, lengths.float()), ValueError),
+        (lambda: paged(q, kp, vp, table, lengths[:2]), ValueError),
+        (lambda: paged(*(x.to(_META) for x in (q, kp, vp, table, lengths))), ValueError),
+        (lambda: paged(q, kp, vp.to(_META), table, lengths), ValueError),    # devices differ
+        (lambda: paged(q, kp, vp, table, lengths.to(_META)), ValueError),    # devices differ
+        (lambda: paged(q.numpy(), kp, vp, table, lengths), TypeError),
+        (lambda: paged(q, kp, vp, table, lengths.numpy()), TypeError),
+        (lambda: paged(q, kp, vp, table + 100, lengths), IndexError),
+        (norm(torch.zeros(2, 4, 4, 3, dtype=torch.float32)), TypeError),
+        (norm(torch.zeros(4, 4, 3, dtype=torch.uint8)), ValueError),
+        (norm(torch.zeros(2, 4, 4, 3, dtype=torch.uint8).transpose(1, 2)), ValueError),
+        (norm(torch.zeros(2, 4, 4, 3, dtype=torch.uint8, device=_META)), ValueError),
+        (lambda: kernels.softmax_top1(torch.zeros(4, 10, dtype=torch.float64)), TypeError),
+        (lambda: kernels.softmax_top1(torch.zeros(4, dtype=torch.float32)), ValueError),
+        (lambda: kernels.softmax_top1(torch.zeros(4, 0, dtype=torch.float32)), ValueError),
+        (lambda: kernels.softmax_top1(torch.zeros(10, 4, dtype=torch.float32).t()), ValueError),
+        (lambda: kernels.softmax_top1(torch.zeros(4, 10, device=_META)), ValueError),
+        (lambda: tflash.flash_forward(m, m.to(_META), m, causal=False, scale=1.0),
+         ValueError),                                                        # devices differ
+        (lambda: tflash.flash_bwd_dq(m, m, m, m, lse, lse.to(_META), causal=False, scale=1.0),
+         ValueError),                                                        # devices differ
+        (lambda: tflash.flash_bwd_dkv(m, m, m, np.zeros((2, 16, 64)), lse, lse, causal=False,
+                                      scale=1.0), TypeError),
+    ]
+
+
+@pytest.mark.parametrize("case", range(32))
+def test_every_wrapper_refusal_keeps_its_exception_type(case):
+    call, err = _refusals()[case]
+    with pytest.raises(err):
+        call()
+
+
+def test_refusal_cases_are_all_run():
+    assert len(_refusals()) == 32
+
+
+# The checks as they stood before the launch path was thinned (each read
+# ``t.device`` per tensor and compared torch.device objects): the verdicts
+# the thinned checks must keep.
+
+
+def _old_require_device(t, what):
+    if t.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"{what}: unsupported device {t.device}")
+
+
+def _old_check_gather(pages, page_table):
+    if not isinstance(pages, torch.Tensor) or not isinstance(page_table, torch.Tensor):
+        raise TypeError("gather_kv_pages: pages and page_table must be torch.Tensors")
+    _old_require_device(pages, "gather_kv_pages")
+    if pages.dim() != 4:
+        raise ValueError("pages")
+    if page_table.dim() != 2 or page_table.dtype != torch.int32:
+        raise ValueError("page_table")
+    if page_table.device != pages.device:
+        raise ValueError("devices")
+    if not (pages.is_contiguous() and page_table.is_contiguous()):
+        raise ValueError("contiguous")
+
+
+def _old_check_paged(q, k_pages, v_pages, page_table, kv_lengths):
+    what = "paged_decode_attention"
+    named = {"q": q, "k_pages": k_pages, "v_pages": v_pages, "page_table": page_table,
+             "kv_lengths": kv_lengths}
+    for name, t in named.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(name)
+        _old_require_device(t, what)
+    for name, t in named.items():
+        if t.device != q.device:
+            raise ValueError(name)
+    if q.dim() != 3:
+        raise ValueError("q")
+    b, heads, dh = q.shape
+    if (k_pages.dim() != 4 or k_pages.shape != v_pages.shape
+            or tuple(k_pages.shape[2:]) != (heads, dh)):
+        raise ValueError("pools")
+    if page_table.dim() != 2 or page_table.dtype != torch.int32 or page_table.shape[0] != b:
+        raise ValueError("table")
+    if tuple(kv_lengths.shape) != (b,) or kv_lengths.dtype not in (torch.int32, torch.int64):
+        raise ValueError("lengths")
+
+
+def _old_check_logits(logits):
+    if not isinstance(logits, torch.Tensor):
+        raise TypeError("logits")
+    _old_require_device(logits, "softmax_top1")
+    if logits.dtype != torch.float32:
+        raise TypeError("dtype")
+    if logits.dim() != 2 or logits.shape[1] == 0:
+        raise ValueError("shape")
+    if not logits.is_contiguous():
+        raise ValueError("contiguous")
+
+
+def _old_check_normalize(batch_u8, out_dtype):
+    if not isinstance(batch_u8, torch.Tensor):
+        raise TypeError("batch")
+    _old_require_device(batch_u8, "normalize_u8")
+    if batch_u8.dtype != torch.uint8:
+        raise TypeError("dtype")
+    if batch_u8.dim() != 4:
+        raise ValueError("shape")
+    if not batch_u8.is_contiguous():
+        raise ValueError("contiguous")
+    if out_dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError("out_dtype")
+
+
+def _old_check_operands(what, mats, rows):
+    first = next(iter(mats.values()))
+    for name, t in {**mats, **rows}.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(name)
+        _old_require_device(t, what)
+        if t.device != first.device:
+            raise ValueError(name)
+    if first.dim() != 3:
+        raise ValueError("shape")
+    bh, s, dh = first.shape
+    for name, t in mats.items():
+        if tuple(t.shape) != (bh, s, dh):
+            raise ValueError(name)
+    for name, t in rows.items():
+        if tuple(t.shape) != (bh, s, 1) or t.dtype != torch.float32:
+            raise ValueError(name)
+
+
+def _verdict(check, *args):
+    """The exception type ``check(*args)`` raises, or None."""
+    try:
+        check(*args)
+    except (TypeError, ValueError) as e:
+        return type(e)
+    return None
+
+
+_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.int32, torch.int64, torch.uint8)
+
+
+@st.composite
+def _tensors(draw, shape):
+    """A tensor near ``shape``: one size changed, a dimension dropped or
+    added, or the shape kept; in one of _DTYPES; contiguous, transposed or
+    sliced with a stride; on the CPU or the meta device; or no tensor."""
+    shape = list(shape)
+    edit = draw(st.sampled_from(["keep", "keep", "keep", "size", "drop", "add"]))
+    if edit == "size" and shape:
+        shape[draw(st.integers(0, len(shape) - 1))] = draw(st.integers(0, 4))
+    elif edit == "drop" and shape:
+        shape.pop()
+    elif edit == "add":
+        shape.append(draw(st.integers(1, 3)))
+    layout = draw(st.sampled_from(["contiguous", "contiguous", "transposed", "strided"]))
+    dtype = draw(st.sampled_from(_DTYPES))
+    if draw(st.integers(0, 9)) == 0:
+        return np.zeros(shape)
+    if layout == "strided" and shape:
+        t = torch.zeros(*shape[:-1], 2 * shape[-1], dtype=dtype)[..., ::2]
+    else:
+        t = torch.zeros(shape, dtype=dtype)
+        if layout == "transposed" and len(shape) >= 2:
+            t = t.transpose(0, 1)
+    return t.to(_META) if draw(st.integers(0, 7)) == 0 else t
+
+
+@settings(max_examples=300, deadline=None)
+@given(st.data())
+def test_thinned_checks_give_the_old_verdicts(data):
+    """Each check the launch path's thinning rewrote gives the same verdict
+    (the exception type, or none) as the check it replaced, over drawn
+    shapes, dtypes, strides and devices of every argument."""
+    draw = data.draw
+    pages = draw(_tensors((5, 2, 3, 8)))
+    table = draw(_tensors((2, 3)))
+    assert _verdict(trd._check_gather, pages, table) == _verdict(_old_check_gather, pages, table)
+    q, kp, vp, tab, lens = (draw(_tensors(s)) for s in ((3, 2, 8), (6, 4, 2, 8), (6, 4, 2, 8),
+                                                        (3, 2), (3,)))
+    args = (q, kp, vp, tab, lens)
+    assert _verdict(trd._check_paged, *args) == _verdict(_old_check_paged, *args)
+    logits = draw(_tensors((4, 10)))
+    assert _verdict(kernels._check_logits, logits) == _verdict(_old_check_logits, logits)
+    u8 = draw(_tensors((2, 4, 4, 3)))
+    out = draw(st.sampled_from(_DTYPES))
+    assert _verdict(kernels._check_normalize, u8, out) == _verdict(_old_check_normalize, u8, out)
+    mats = {n: draw(_tensors((2, 16, 8))) for n in ("q", "k", "v", "do")}
+    rows = {n: draw(_tensors((2, 16, 1))) for n in ("lse", "delta")}
+    assert _verdict(tflash._check_operands, "flash_bwd_dq", mats, rows) == \
+        _verdict(_old_check_operands, "flash_bwd_dq", mats, rows)
+
+
+def test_launch_host_imports_an_earlier_ops_beside_the_checkout(tmp_path, monkeypatch):
+    """tools/launch_host.py --parent copies the package under another name
+    with the earlier ops/ in it, so that both launch paths import into one
+    process and are timed there in turns; it tells the two layouts apart
+    and refuses a scratch directory inside the checkout (no card)."""
+    import importlib
+    import importlib.util
+    import types
+    from pathlib import Path
+
+    path = Path(kernels.__file__).resolve().parent.parent / "tools" / "launch_host.py"
+    spec = importlib.util.spec_from_file_location("launch_host", path)
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    ops = Path(kernels.__file__).resolve().parent
+    name = tool._parent_package(ops, tmp_path)
+    monkeypatch.syspath_prepend(str(tmp_path))
+    copy = importlib.import_module(f"{name}.ops.ragged_decode")
+    assert copy.kernels is importlib.import_module(f"{name}.ops.kernels")
+    assert copy.kernels is not kernels and copy.kernels.KERNELS is not kernels.KERNELS
+    assert tool._layout(copy.kernels) == tool._layout(kernels) == "raw_stream"
+    assert tool._layout(types.SimpleNamespace(_launch=None)) == "stream_object"
+    with pytest.raises(SystemExit):
+        tool.main(["launch_host.py", "--parent", str(ops), str(tool.REPO / "smoke_tree")])

@@ -7,6 +7,8 @@ gather in interpret mode, as tests/test_generate.py does, and its XLA
 gather. Inputs come from numpy seeds and go to both.
 """
 
+import ctypes
+import re
 from pathlib import Path
 
 import jax.numpy as jnp
@@ -211,6 +213,36 @@ def test_paged_kernel_constants_match_its_source():
         symbol, _ = kernels._SIGNATURES[name]
         assert f'extern "C" int {symbol}(' in text
     assert kernels._LIBRARY["paged_decode_split"] == "paged_decode"
+
+
+_C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p, "int": ctypes.c_int,
+            "long long": ctypes.c_longlong}
+
+
+def test_gather_kernel_constants_fit_a_block():
+    """The bulk gather's chunk is a multiple of 16 bytes, its ring (with the
+    zero chunk) fits a block's shared memory, its entry points take what
+    the wrappers pass, and it runs on the 16-byte condition the bulk
+    engine needs (text only, no nvcc)."""
+    text = (Path(trd.__file__).resolve().parent.parent / "csrc" / "gather_pages.cu").read_text()
+    chunk = int(re.search(r"constexpr int kChunkBytes = (\d+);", text).group(1))
+    stages = int(re.search(r"constexpr int kStages = (\d+);", text).group(1))
+    assert chunk % 16 == 0 and stages >= 2
+    assert "constexpr int kBulkSmemBytes = (kStages + 1) * kChunkBytes;" in text
+    assert (stages + 1) * chunk <= 232448
+    for name in ("gather_pages", "gather_pages_vec16", "gather_pages_smem_bytes"):
+        symbol, argtypes = kernels._SIGNATURES[name]
+        params = re.search(rf'extern "C" int {symbol}\(([^)]*)\)', text).group(1)
+        types = [re.sub(r"\s*\w+$", "", p.strip()) for p in params.split(",") if p.strip()]
+        assert [_C_TYPES[c] for c in types] == list(argtypes), name
+        assert kernels._LIBRARY.get(name, name) == "gather_pages"
+    assert kernels._SIGNATURES["gather_pages_vec16"][1] == kernels._SIGNATURES["gather_pages"][1]
+    aligned = ("const bool aligned = ((reinterpret_cast<uintptr_t>(pool) | "
+               "reinterpret_cast<uintptr_t>(out) |\n                         "
+               "(uintptr_t)page_bytes) & 15u) == 0;")
+    assert aligned in text
+    assert "if (aligned && bulk) {" in text
+    assert "return launch_gather(pool, num_pages, page_bytes, ids, n_out, out, stream, true);" in text
 
 
 @pytest.mark.parametrize("seq", [1, 7, 16])
