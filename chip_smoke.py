@@ -18,7 +18,11 @@ non-zero:
    the shapes its path gives it, with its time, its bound, the plain
    version's time and one library call's (CUDA events, median over
    repeated runs after a warm-up), and each wrapper's host enqueue time
-   (host_us); gather_kv_pages's bulk-copy kernel beside the vec16 design it
+   (host_us); softmax_top1 in float32, bf16 and float16 at the serve
+   shape with fixed tie, NaN and infinity rows, in a view one element into
+   its storage and at ragged and long rows (softmax_cases), timed in
+   float32 and bf16 beside the warp-a-row kernel it replaced and an empty
+   kernel; gather_kv_pages's bulk-copy kernel beside the vec16 design it
    replaced, bit-equal to the plain version at both timed shapes (also
    under write pressure) and at its exact cases (pages of more than one
    chunk, ids outside the pool, the byte path); paged_decode_attention at
@@ -336,9 +340,16 @@ def kernel_device_ms(fn, name: str | tuple[str, ...], calls: int = 20,
     of their means. With ``flush`` (a buffer larger than the 50 MB L2), the
     buffer is overwritten before each call, so the kernel finds its inputs
     cold."""
+    names = (name,) if isinstance(name, str) else name
+    return sum(kernel_device_ms_each(fn, names, calls, flush).values())
+
+
+def kernel_device_ms_each(fn, names: tuple[str, ...], calls: int = 20,
+                          flush: torch.Tensor | None = None) -> dict[str, float]:
+    """kernel_device_ms for a call that launches one kernel of each of
+    ``names``: each kernel's mean device time, from one profiler run."""
     from torch.profiler import ProfilerActivity, profile
 
-    names = (name,) if isinstance(name, str) else name
     # The trace can drop records (device_records); the mean is over those it
     # kept. A trace that kept too few is taken again, twice at most.
     for _ in range(3):
@@ -352,10 +363,34 @@ def kernel_device_ms(fn, name: str | tuple[str, ...], calls: int = 20,
         records = device_records(prof)
         times = {n: [dur for kernel, _, dur in records if n in kernel] for n in names}
         if all(calls // 2 <= len(t) <= calls for t in times.values()):
-            return sum(statistics.fmean(t) for t in times.values()) / 1e3
+            return {n: statistics.fmean(t) / 1e3 for n, t in times.items()}
     seen = sorted({kernel[:60] for kernel, _, _ in records})
-    raise AssertionError(f"{name}: profiler saw {[len(t) for t in times.values()]} launches of "
+    raise AssertionError(f"{names}: profiler saw {[len(t) for t in times.values()]} launches of "
                          f"{calls}; records of {seen}")
+
+
+def queued_us(fn, calls: int = 100, sleep_cycles: int = 20_000_000) -> float:
+    """Device time a call of ``fn`` takes back to back with the launch
+    queue full, in microseconds: a sleep kernel holds the device while
+    ``calls`` calls are enqueued, and events around them time the kernels
+    and the gaps between their launches, not the host's enqueue. Raises
+    where the enqueue outlasted the sleep."""
+    fn()
+    torch.cuda.synchronize()
+    held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    held.record()
+    torch.cuda._sleep(sleep_cycles)
+    start.record()
+    for _ in range(calls):
+        fn()
+    enqueue_ms = (time.perf_counter() - t0) * 1e3
+    end.record()
+    end.synchronize()
+    if enqueue_ms >= held.elapsed_time(start):
+        raise AssertionError(f"queued_us: the enqueue ({enqueue_ms} ms) outlasted the sleep "
+                             f"({held.elapsed_time(start)} ms)")
+    return start.elapsed_time(end) / calls * 1e3
 
 
 # ---------------------------------------------------------------------------
@@ -532,8 +567,14 @@ def phase_build() -> None:
                     entry.get("smem_per_block", 0) > SMEM_PER_BLOCK_MAX:
                 raise AssertionError(f"gather_pages {mangled}: spills or shared memory past "
                                      f"{SMEM_PER_BLOCK_MAX}: {entry}")
+    # softmax_top1's kernels: none may spill.
+    softmax = ptxas_entries(_build.build_log.get("softmax_top1", ""))
+    spilled = {n: e for n, e in softmax.items() if e["spill_stores"] or e["spill_loads"]}
+    if spilled:
+        raise AssertionError(f"softmax_top1 spills: {spilled}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "ptxas": regs, "flash": flash, "paged_decode": paged, "gather_pages": gather})
+          "ptxas": regs, "flash": flash, "paged_decode": paged, "gather_pages": gather,
+          "softmax_top1": softmax})
 
 
 def phase_kernels(dev: dict) -> dict:
@@ -581,35 +622,7 @@ def phase_kernels(dev: dict) -> dict:
                 raise AssertionError(f"normalize_u8 {dt} differs on {tuple(part.shape)}")
     del u8, flat
 
-    logits =torch.randn(BATCH, NUM_CLASSES, device="cuda", generator=gen) * 4
-    logits[0, [5, 7]] = logits[0].max() + 1.0           # tie: first index wins
-    logits[1] = 0.25                                    # a whole row tied
-    logits[2, :4] = torch.tensor([1e4, -1e4, 0.0, 9.9e3])  # extreme logits
-    logits[3] = -1e4
-    logits[3, [500, 999]] = 1e4                         # extreme tie
-    idx, prob = K.softmax_top1(logits)
-    ridx, rprob = K.softmax_top1_reference(logits)
-    torch.cuda.synchronize()
-    if not torch.equal(idx, ridx):
-        raise AssertionError("softmax_top1: indices differ from the plain version")
-    if idx[:4].tolist() != [5, 0, 0, 500]:
-        raise AssertionError(f"softmax_top1: tie/extreme rows gave {idx[:4].tolist()}")
-    rel = float(((prob - rprob).abs() / rprob).max())
-    if not (torch.isfinite(prob).all() and rel <= PROB_RTOL):
-        raise AssertionError(f"softmax_top1: probability rel err {rel} > {PROB_RTOL}")
-    n = logits.numel()
-    nbytes = n * 4 + BATCH * 8
-    ops = 4 * n  # compare, subtract, exp, add per logit
-    soft = {
-        "max_abs_err": float((prob - rprob).abs().max()), "max_rel_err": rel, "tol": PROB_RTOL,
-        "ms": time_ms(lambda: K.softmax_top1(logits)),
-        "host_us": host_us(lambda: K.softmax_top1(logits)),
-        "device_ms": kernel_device_ms(lambda: K.softmax_top1(logits), "softmax_top1_kernel"),
-        "plain_ms": time_ms(lambda: K.softmax_top1_reference(logits)),
-        "library_ms": time_ms(lambda: torch.softmax(logits, -1).max(-1)),
-        "bound_ms": max(nbytes / bw, ops / fp32) * 1e3,
-        "bound_by": "bytes" if nbytes / bw >= ops / fp32 else "operations",
-    }
+    soft = phase_kernels_softmax(dev)
     gather = phase_kernels_gather(bw)
     paged = phase_kernels_paged(dev)
     flash = phase_kernels_flash(dev)
@@ -620,6 +633,189 @@ def phase_kernels(dev: dict) -> dict:
           "softmax_top1": soft, "gather_kv_pages": gather, "paged_decode_attention": paged,
           **flash})
     return result
+
+
+# softmax_top1's exact cases on the card: the logits dtypes it takes, and
+# the columns where its kernel changes path (fewer than one 16-byte vector,
+# a ragged tail, the serve shape's 1000 and its neighbours, and 8193 and
+# 32768, past the registers of a row group in float32: the chunked loop).
+SOFTMAX_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+SOFTMAX_COLS = (1, 3, 31, 33, 999, 1000, 1001, 4099, 8193, 32768)
+# The rows softmax_cases fixes at the serve shape, and the index each must
+# give: a tie (first wins); a whole row tied; extreme logits; an extreme
+# tie; ties in three warps' columns of a 128-thread row group; the maximum
+# alone in the last column; NaN first, last and twice in a row; a row of
+# all -inf; ties at +inf; ties in two lanes' columns.
+SOFTMAX_FIXED = [5, 0, 0, 500, 130, 999, 0, 999, 500, 0, 130, 3]
+
+
+def softmax_serve_logits(gen: torch.Generator) -> torch.Tensor:
+    """[BATCH, NUM_CLASSES] float32 logits with the rows of SOFTMAX_FIXED
+    in front."""
+    x = torch.randn(BATCH, NUM_CLASSES, device="cuda", generator=gen) * 4
+    top = float(x.max()) + 8.0
+    x[0, [5, 7]] = x[0].max() + 1.0
+    x[1] = 0.25
+    x[2, :4] = torch.tensor([1e4, -1e4, 0.0, 9.9e3])
+    x[3] = -1e4
+    x[3, [500, 999]] = 1e4
+    x[4, [130, 600, 999]] = top
+    x[5, NUM_CLASSES - 1] = top
+    x[6, 0] = x[7, NUM_CLASSES - 1] = float("nan")
+    x[8, [500, 501]] = float("nan")
+    x[9] = float("-inf")
+    x[10, [130, 131, 600, 999]] = float("inf")
+    x[11, [3, 4, 64]] = top
+    return x
+
+
+def softmax_cases(gen: torch.Generator) -> list[tuple[str, torch.Tensor, list | None]]:
+    """(name, logits, indices its first rows must give) of every exact case
+    in each of SOFTMAX_DTYPES: the serve shape with the rows of
+    SOFTMAX_FIXED, the same values in a view one element into its storage
+    (no row on a 16-byte boundary), and 64 rows at each of SOFTMAX_COLS
+    with the maximum tied at a third, a half and the last column in row 0
+    and alone in the last column in row 1, at 1001 also in such a view."""
+    serve = softmax_serve_logits(gen)
+    cases = []
+    for dt in SOFTMAX_DTYPES:
+        tag = str(dt).replace("torch.", "")
+        x = serve.to(dt)
+        flat = torch.empty(x.numel() + 1, dtype=dt, device="cuda")
+        view = flat[1:].view(x.shape)
+        view.copy_(x)
+        cases += [(f"{tag} {list(x.shape)}", x, SOFTMAX_FIXED),
+                  (f"{tag} {list(x.shape)} offset 1", view, SOFTMAX_FIXED)]
+        for cols in SOFTMAX_COLS:
+            y = torch.randn(64, cols, device="cuda", generator=gen) * 4
+            top = float(y.max()) + 8.0
+            y[0, sorted({cols // 3, cols // 2, cols - 1})] = top
+            y[1, cols - 1] = top
+            want = [min(cols // 3, cols // 2, cols - 1), cols - 1]
+            cases.append((f"{tag} [64, {cols}]", y.to(dt), want))
+            if cols == 1001:
+                flat = torch.empty(y.numel() + 1, dtype=dt, device="cuda")
+                flat[1:].view(y.shape).copy_(y)
+                cases.append((f"{tag} [64, {cols}] offset 1", flat[1:].view(y.shape), want))
+    return cases
+
+
+def softmax_check(x: torch.Tensor, name: str, want: list | None = None, call=None) -> float:
+    """``call`` (softmax_top1) on ``x`` against the plain version: indices
+    exactly (and ``want`` in the first rows), probabilities NaN where the
+    plain version's are and else within PROB_RTOL. Returns the largest
+    relative error; raises AssertionError naming the case."""
+    from dmlc_tpu_torch.ops import kernels as K
+
+    idx, prob = (call or K.softmax_top1)(x)
+    ridx, rprob = K.softmax_top1_reference(x)
+    torch.cuda.synchronize()
+    if not torch.equal(idx, ridx):
+        rows = (idx != ridx).nonzero().flatten()[:4].tolist()
+        raise AssertionError(f"softmax_top1 {name}: indices differ from the plain version at rows "
+                             f"{rows}: {idx[rows].tolist()} against {ridx[rows].tolist()}")
+    if want is not None and idx[:len(want)].tolist() != want:
+        raise AssertionError(f"softmax_top1 {name}: fixed rows gave {idx[:len(want)].tolist()}, "
+                             f"expected {want}")
+    nan = torch.isnan(rprob)
+    if not torch.equal(torch.isnan(prob), nan):
+        raise AssertionError(f"softmax_top1 {name}: NaN probabilities differ from the plain version")
+    rel = float(((prob - rprob).abs() / rprob)[~nan].max())
+    if not rel <= PROB_RTOL:
+        raise AssertionError(f"softmax_top1 {name}: probability rel err {rel} > {PROB_RTOL}")
+    return rel
+
+
+def softmax_via(entry: str, logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """softmax_top1's work on float32 logits through one of its timing
+    entry points (``softmax_top1_warp``: the warp-a-row design the vector
+    kernel replaced; ``softmax_top1_nopdl``: the vector kernel without the
+    programmatic launch), with the wrapper's arguments. Not counted: it is
+    only checked and timed beside the wrapper."""
+    from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops import kernels as K
+
+    b, c = logits.shape
+    idx = logits.new_empty(b, dtype=torch.int32)
+    prob = logits.new_empty(b, dtype=torch.float32)
+    lib, fn = K._entry(entry)
+    _build.check(lib, K._launch(logits, fn, logits.data_ptr(), b, c, idx.data_ptr(),
+                                prob.data_ptr()), entry)
+    return idx, prob
+
+
+def launch_floor() -> None:
+    """One launch of an empty kernel of one warp on the current stream:
+    the device time and the queue slot any launch pays."""
+    from dmlc_tpu_torch.ops import _build
+    from dmlc_tpu_torch.ops import kernels as K
+
+    lib, fn = K._entry("launch_floor")
+    _build.check(lib, fn(K._raw_stream(torch.cuda.current_device())), "launch_floor")
+
+
+def phase_kernels_softmax(dev: dict) -> dict:
+    """softmax_top1 on the card: every case of softmax_cases against the
+    plain version (and the float32 serve cases through both timing entry
+    points, softmax_via), then at the serve shape in float32 and bf16 the
+    call, its host enqueue time, the vector kernel's device time beside the
+    warp kernel's (on the float32 values) and an empty kernel's in one
+    profiler run, each one's time back to back with the queue full
+    (queued_us), the plain version, softmax + max, and the bound; last, the
+    programmatic launch against the plain one in turns."""
+    from dmlc_tpu_torch.ops import kernels as K
+
+    bw, fp32 = dev["mem_bytes_per_s"], dev["fp32_flops_per_s"]
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    cases = softmax_cases(gen)
+    worst = max(softmax_check(x, name, want) for name, x, want in cases)
+    for entry in ("softmax_top1_warp", "softmax_top1_nopdl"):
+        for name, x, want in cases[:2]:
+            softmax_check(x, f"{name} ({entry})", want, lambda v, e=entry: softmax_via(e, v))
+    del cases
+    x32 = torch.randn(BATCH, NUM_CLASSES, device="cuda", generator=gen) * 4
+    report = {"cases": len(SOFTMAX_DTYPES) * (3 + len(SOFTMAX_COLS)), "cases_max_rel_err": worst}
+    for dt in (torch.float32, torch.bfloat16):
+        x = x32.to(dt)
+        xf = x.float()
+        rel = softmax_check(x, f"{dt} timed")
+        prob, rprob = K.softmax_top1(x)[1], K.softmax_top1_reference(x)[1]
+        call = lambda x=x: K.softmax_top1(x)  # noqa: E731
+        old = lambda xf=xf: softmax_via("softmax_top1_warp", xf)  # noqa: E731
+        each = kernel_device_ms_each(lambda: (call(), old(), launch_floor()),
+                                     ("softmax_top1_vec", "softmax_top1_warp", "launch_floor"))
+        n = x.numel()
+        nbytes = n * x.element_size() + BATCH * 8
+        ops = 4 * n  # compare, subtract, exp, add per logit
+        report[str(dt).replace("torch.", "")] = {
+            "max_abs_err": float((prob - rprob).abs().max()), "max_rel_err": rel, "tol": PROB_RTOL,
+            "ms": time_ms(call), "host_us": host_us(call),
+            "device_ms": each["softmax_top1_vec"], "warp_device_ms": each["softmax_top1_warp"],
+            "floor_device_ms": each["launch_floor"],
+            "queued_us": queued_us(call), "warp_queued_us": queued_us(old),
+            "floor_queued_us": queued_us(launch_floor), "warp_ms": time_ms(old),
+            "plain_ms": time_ms(lambda x=x: K.softmax_top1_reference(x)),
+            "library_ms": time_ms(lambda x=x: torch.softmax(x, -1).max(-1)),
+            "bound_ms": max(nbytes / bw, ops / fp32) * 1e3,
+            "bound_by": "bytes" if nbytes / bw >= ops / fp32 else "operations",
+        }
+    # The programmatic launch against the same kernel launched plainly, in
+    # turns (plain, programmatic, programmatic, plain), each back to back
+    # with the queue full: the kernel alone on float32 logits, and the serve
+    # path's pair, bf16 logits cast to float32 and then softmax_top1.
+    x16 = x32.to(torch.bfloat16)
+    runs = {"alone": {"pdl": lambda: K.softmax_top1(x32),
+                      "nopdl": lambda: softmax_via("softmax_top1_nopdl", x32)},
+            "cast_pair": {"pdl": lambda: K.softmax_top1(x16.float()),
+                          "nopdl": lambda: softmax_via("softmax_top1_nopdl", x16.float())}}
+    ab: dict = {}
+    for what, pair in runs.items():
+        ab[what] = {"nopdl": [], "pdl": []}
+        for turn in ("nopdl", "pdl", "pdl", "nopdl"):
+            ab[what][turn].append(queued_us(pair[turn]))
+    report["launch_ab_queued_us"] = ab
+    emit({"phase": "kernels_softmax", **report})
+    return report
 
 
 def full_cache_table(slots: int, pages_per_slot: int, usable: int, in_use: int,
@@ -2238,7 +2434,7 @@ def main() -> int:
     small = phase_train_small(dev)
     phase_trainer(dev)
     norm = kern["normalize_u8"][torch.bfloat16]
-    soft = kern["softmax_top1"]
+    soft = kern["softmax_top1"]["float32"]
     gather = kern["gather_kv_pages"]["lm_wide"]
     rows = [
         {"name": "normalize_u8", "route": "cuda", "source": "dmlc_tpu_torch/csrc/normalize_u8.cu",
@@ -2259,7 +2455,12 @@ def main() -> int:
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],
          "bound_by": soft["bound_by"], "library_ms": soft["library_ms"],
-         "shape": [BATCH, NUM_CLASSES]},
+         "shape": [BATCH, NUM_CLASSES],
+         **{k: soft[k] for k in ("warp_device_ms", "floor_device_ms", "queued_us",
+                                 "warp_queued_us", "floor_queued_us", "warp_ms")},
+         "launch_ab_queued_us": kern["softmax_top1"]["launch_ab_queued_us"],
+         "bf16": kern["softmax_top1"]["bfloat16"], "cases": kern["softmax_top1"]["cases"],
+         "cases_max_rel_err": kern["softmax_top1"]["cases_max_rel_err"]},
         # The engine's decode no longer gathers (paged_decode_attention reads
         # the pages): its main-path launches are 0 by design.
         {"name": "gather_kv_pages", "route": "cuda", "source": "dmlc_tpu_torch/csrc/gather_pages.cu",

@@ -6,8 +6,9 @@ Counterpart of ``dmlc_tpu/ops/pallas_kernels.py`` for the kernels on the
 
 - ``normalize_u8`` (``csrc/normalize_u8.cu``): uint8 NHWC -> normalized
   float, one read and one write per element;
-- ``softmax_top1`` (``csrc/softmax_top1.cu``): [B, C] logits -> top-1 index
-  and probability without writing the softmax matrix.
+- ``softmax_top1`` (``csrc/softmax_top1.cu``): [B, C] float32, bfloat16 or
+  float16 logits -> top-1 index and probability without writing the
+  softmax matrix.
 
 Each wrapper checks its inputs, then runs the plain PyTorch version
 (``*_reference``) when the tensor lies on the CPU and launches its kernel
@@ -58,6 +59,7 @@ _SIGNATURES = {
         [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
          ctypes.c_int, _NormParams, ctypes.c_void_p],
     ),
+    # float32 logits (softmax_top1_bf16 and _f16 below take the others).
     "softmax_top1": (
         "dmlc_softmax_top1",
         [ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -110,11 +112,22 @@ _SIGNATURES.update({
 # kernel on the aligned path), with the same arguments: timed beside the
 # bulk kernel, never called by a wrapper.
 _SIGNATURES["gather_pages_vec16"] = ("dmlc_gather_pages_vec16", _SIGNATURES["gather_pages"][1])
+# softmax_top1 on bf16 and float16 logits; and, float32 only, timed beside
+# it and never called by a wrapper, its vector kernel launched without the
+# programmatic launch (``nopdl``) and the warp-a-row design it replaced
+# (``warp``); all with the same arguments.
+_SIGNATURES.update({
+    f"softmax_top1_{tag}": (f"dmlc_softmax_top1_{tag}", _SIGNATURES["softmax_top1"][1])
+    for tag in ("bf16", "f16", "nopdl", "warp")
+})
+# An empty kernel's launch (the device time any launch pays), for timing.
+_SIGNATURES["launch_floor"] = ("dmlc_launch_floor", [ctypes.c_void_p])
 #: The library (csrc/<name>.cu) of each entry point that does not live in
 #: its own name's.
 _LIBRARY = {name: "flash_wide" for name in _SIGNATURES if name.startswith("flash_wide_")}
 _LIBRARY.update(paged_decode_split="paged_decode", gather_pages_vec16="gather_pages",
-                gather_pages_smem_bytes="gather_pages")
+                gather_pages_smem_bytes="gather_pages", launch_floor="softmax_top1",
+                **{f"softmax_top1_{tag}": "softmax_top1" for tag in ("bf16", "f16", "nopdl", "warp")})
 
 
 _ENTRIES: dict[str, tuple] = {}
@@ -249,14 +262,22 @@ normalize_u8.launches = 0  # type: ignore[attr-defined]
 # ---------------------------------------------------------------------------
 
 
+#: The entry point of each logits dtype softmax_top1 takes: those the TPU
+#: kernel takes (it casts any float to float32). float64 is refused: JAX
+#: holds none with x64 off.
+_TOP1_ENTRIES = {torch.float32: "softmax_top1", torch.bfloat16: "softmax_top1_bf16",
+                 torch.float16: "softmax_top1_f16"}
+
+
 def _check_logits(logits: torch.Tensor) -> int:
     """Raises on what neither version takes; returns the device index
     (``_device_index``)."""
     if not isinstance(logits, torch.Tensor):
         raise TypeError("softmax_top1: logits must be a torch.Tensor")
     index = _device_index(logits, "softmax_top1")
-    if logits.dtype != torch.float32:
-        raise TypeError(f"softmax_top1: expected float32 logits, got {logits.dtype}")
+    if logits.dtype not in _TOP1_ENTRIES:
+        raise TypeError(f"softmax_top1: expected float32, bfloat16 or float16 logits, "
+                        f"got {logits.dtype}")
     if logits.dim() != 2 or logits.shape[1] == 0:
         raise ValueError(f"softmax_top1: expected [B, C] with C > 0, got {tuple(logits.shape)}")
     if not logits.is_contiguous():
@@ -279,17 +300,18 @@ def softmax_top1_reference(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Te
 
 
 def softmax_top1(logits: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-    """[B, C] float32 logits -> (top-1 index int32 [B], top-1 probability
-    float32 [B]) in one pass; the softmax matrix is never written."""
+    """[B, C] float32, bfloat16 or float16 logits -> (top-1 index int32
+    [B], top-1 probability float32 [B]), each logit read once and taken to
+    float32 exactly; the softmax matrix is never written."""
     index = _check_logits(logits)
     if index < 0:
         return softmax_top1_reference(logits)
     b, c = logits.shape
     idx = logits.new_empty(b, dtype=torch.int32)
-    prob = logits.new_empty(b)
+    prob = logits.new_empty(b, dtype=torch.float32)
     if b == 0:
         return idx, prob
-    lib, fn = _entry("softmax_top1")
+    lib, fn = _entry(_TOP1_ENTRIES[logits.dtype])
     rc = _launch(logits, fn, logits.data_ptr(), b, c, idx.data_ptr(), prob.data_ptr())
     _build.check(lib, rc, "softmax_top1")
     softmax_top1.launches += 1

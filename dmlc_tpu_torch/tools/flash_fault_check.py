@@ -172,6 +172,18 @@ gather's bulk kernel (csrc/gather_pages.cu):
 - gather_outside: an id outside the pool is copied from past the pool's
   ends instead of stored as zeros.
 
+A softmax fault runs ``chip_smoke.phase_kernels_softmax`` on softmax_top1
+(csrc/softmax_top1.cu), whose exact cases come first:
+
+- softmax_merge_tie: the merge across a row group's warps takes the larger
+  index on a tie;
+- softmax_tail: the vector path drops the row's tail past the last whole
+  16-byte vector;
+- softmax_nan: a NaN loses to a number;
+- softmax_pdl_wait: the kernels no longer wait (griddepcontrol.wait) for
+  the grid before them on the stream, so under the programmatic launch
+  they may read logits that kernel has not finished writing.
+
 The check must fail on every fault. Prints one JSON line per fault (the
 check's message) and exits non-zero if a fault passes. Needs a CUDA device
 and nvcc; the checkout it is run from is only read.
@@ -499,6 +511,24 @@ FAULTS.update({
         "    const bool ok = true;", "float32", GATHER_CASE, "gather"),
 })
 
+# softmax_top1's kernels (csrc/softmax_top1.cu), checked by
+# chip_smoke.phase_kernels_softmax (every case of softmax_cases first).
+SOFTMAX_CASE = ("serve",)
+FAULTS.update({
+    "softmax_merge_tie": Fault(
+        "softmax_top1", "      if (beats(s.m[w], s.i[w], m, mi)) {",
+        "      if (beats(s.m[w], -s.i[w], m, -mi)) {", "float32", SOFTMAX_CASE, "softmax"),
+    "softmax_tail": Fault(
+        "softmax_top1", "  const int tail = cols - head - nvec * E;", "  const int tail = 0;",
+        "float32", SOFTMAX_CASE, "softmax"),
+    "softmax_nan": Fault(
+        "softmax_top1", "  if (vn || mn) return vn && (!mn || i < mi);",
+        "  if (vn || mn) return mn && (!vn || i < mi);", "float32", SOFTMAX_CASE, "softmax"),
+    "softmax_pdl_wait": Fault(
+        "softmax_top1", '  asm volatile("griddepcontrol.wait;\\n" ::: "memory");',
+        "  // (no wait for the grid before)", "float32", SOFTMAX_CASE, "softmax"),
+})
+
 #: Each check: the script run in the copy, and what its failure prints.
 CHECKS = {
     "flash": ("""
@@ -519,6 +549,12 @@ from dmlc_tpu_torch.ops import _build
 _build.build(["gather_pages"])
 cs.phase_kernels_gather(cs.phase_device()["mem_bytes_per_s"])
 """, "AssertionError: gather_kv_pages"),
+    "softmax": ("""
+import chip_smoke as cs
+from dmlc_tpu_torch.ops import _build
+_build.build(["softmax_top1"])
+cs.phase_kernels_softmax(cs.phase_device())
+""", "AssertionError: softmax_top1"),
 }
 
 

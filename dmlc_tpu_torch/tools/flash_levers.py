@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times design variants (levers) of the flash, paged decode and page gather kernels, one at a time.
+"""Times design variants (levers) of the flash, paged decode, page gather and softmax_top1 kernels, one at a time.
 
     python3 dmlc_tpu_torch/tools/flash_levers.py SCRATCH_DIR GROUP [--parent CSRC_DIR] [VARIANT ...]
 
@@ -21,7 +21,11 @@ dtypes, which takes the head dim at run time, timed at [4, 4, 1024, 640],
 [8, 1, 2048, 768], and [4, 4, 1024, 576], and beside the kernels built for
 320, 384 and 512 at ``wide_fwd``'s shapes); ``wide_bwd_bf16`` (the bf16
 flash_bwd_dq and flash_bwd_dkv past head dim 256, at ``wide_fwd``'s
-shapes, checked at S 193 at 320, 384, 448 and 512); ``gather`` (the page
+shapes, checked at S 193 at 320, 384, 448 and 512); ``softmax``
+(softmax_top1's layouts, checked on every case of
+``chip_smoke.softmax_cases``, then timed at the serve shape [256, 1000]
+in float32 and bf16: device time, and time a call back to back with the
+queue full, alone and after the bf16 logits' cast to float32); ``gather`` (the page
 gather's bulk kernel and its variants, checked bit-equal on every case of
 ``chip_smoke.gather_cases`` and both timed shapes, then timed at lm_wide's
 serving shape and the decode bench's, warm and with a cold L2); ``paged``
@@ -595,6 +599,13 @@ G_ROUTE = "  return launch_gather(pool, num_pages, page_bytes, ids, n_out, out, 
 G_END = '  if (lane == 0) asm volatile("cp.async.bulk.wait_group.read 0;\\n" ::: "memory");'
 XB_DKV_STAGES = "  static constexpr int kOStages = 2;      // the chunk's Q/dO tiles in flight\n"
 
+# softmax_top1 (csrc/softmax_top1.cu). ship: the checkout's layout (128
+# threads a row, 2 vectors a thread at [256, 1000] float32); warp1 and
+# warp2: a warp a row, one or two rows a block (8 vectors a lane); block64
+# and block256: 64 or 256 threads a row (4 vectors a thread, or 1).
+SM_THREADS = "constexpr int kRowThreads = 128;"
+SM_ROWS = "constexpr int kRowsPerBlock = 1;"
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -759,6 +770,14 @@ GROUPS = {
         "waitall": {"gather_pages": [(G_END, G_END.replace(".read 0", " 0"))]},
     }, ("ship", "vec16", "chunk8k", "chunk32k", "stages3", "blocks1", "waitall", "ship"),
         "gather"),
+    "softmax": Group("float32", ("softmax_top1",), ("serve",), {
+        "ship": {},
+        "warp1": {"softmax_top1": [(SM_THREADS, SM_THREADS.replace("128", "32"))]},
+        "warp2": {"softmax_top1": [(SM_THREADS, SM_THREADS.replace("128", "32")),
+                                   (SM_ROWS, SM_ROWS.replace("1", "2"))]},
+        "block64": {"softmax_top1": [(SM_THREADS, SM_THREADS.replace("128", "64"))]},
+        "block256": {"softmax_top1": [(SM_THREADS, SM_THREADS.replace("128", "256"))]},
+    }, ("ship", "warp1", "warp2", "block64", "block256", "ship"), "softmax"),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -922,7 +941,36 @@ print(json.dumps(report))
 """
 
 
-SCRIPTS = {"flash": RUN, "paged": RUN_PAGED, "gather": RUN_GATHER, "ab": RUN_AB}
+RUN_SOFTMAX = """
+import json, torch, chip_smoke as cs
+from dmlc_tpu_torch.ops import _build, kernels as K
+_build.build(["softmax_top1"])
+dev = cs.phase_device()
+report = {"card": dev["nvidia_smi"],
+          "softmax_top1": {m[-48:]: e for m, e in
+                           cs.ptxas_entries(_build.build_log["softmax_top1"]).items()}}
+gen = torch.Generator(device="cuda").manual_seed(3)
+for name, x, want in cs.softmax_cases(gen):
+    cs.softmax_check(x, name, want)
+x32 = torch.randn(cs.BATCH, cs.NUM_CLASSES, device="cuda", generator=gen) * 4
+for dt in (torch.float32, torch.bfloat16):
+    x = x32.to(dt)
+    call = lambda: K.softmax_top1(x)
+    report[str(dt)[6:]] = {
+        "device_ms": [cs.kernel_device_ms(call, "softmax_top1") for _ in range(3)],
+        "queued_us": [cs.queued_us(call) for _ in range(3)]}
+# The serve path's pair: the model's bf16 logits cast to float32, then
+# softmax_top1, back to back with the queue full.
+x16 = x32.to(torch.bfloat16)
+report["cast_pair_queued_us"] = [cs.queued_us(lambda: K.softmax_top1(x16.float()))
+                                 for _ in range(3)]
+report["cast_queued_us"] = [cs.queued_us(lambda: x16.float()) for _ in range(3)]
+print(json.dumps(report))
+"""
+
+
+SCRIPTS = {"flash": RUN, "paged": RUN_PAGED, "gather": RUN_GATHER, "softmax": RUN_SOFTMAX,
+           "ab": RUN_AB}
 
 
 def variant_sources(group: str, name: str, parent: Path | None = None) -> dict[str, str]:

@@ -584,7 +584,7 @@ def test_paged_fault_finds_its_line_once(fault):
     tree = ast.parse((tool.REPO / "chip_smoke.py").read_text())
     names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert "paged_check" in names and geometry in ("lm_wide", "bench_decode") and dh == 128
-    assert set(tool.CHECKS) == {"flash", "paged", "gather"}
+    assert set(tool.CHECKS) == {"flash", "paged", "gather", "softmax"}
 
 
 @pytest.mark.parametrize("fault", ["gather_last_chunk", "gather_read_wait", "gather_outside"])
@@ -605,6 +605,27 @@ def test_gather_fault_finds_its_line_once(fault):
     names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
     assert {"phase_kernels_gather", "gather_exact", "gather_cases"} <= names
     assert "phase_kernels_gather" in tool.CHECKS["gather"][0]
+
+
+@pytest.mark.parametrize("fault", ["softmax_merge_tie", "softmax_tail", "softmax_nan",
+                                   "softmax_pdl_wait"])
+def test_softmax_fault_finds_its_line_once(fault):
+    """softmax_top1's planted faults: one line of csrc/softmax_top1.cu
+    each, on the vector kernel's path, run by
+    chip_smoke.phase_kernels_softmax, which holds every case of
+    softmax_cases first (text only, no nvcc)."""
+    tool = _tool()
+    case = tool.FAULTS[fault]
+    text = (tool.REPO / "dmlc_tpu_torch" / "csrc" / f"{case.source}.cu").read_text()
+    assert case.source == "softmax_top1" and case.check == "softmax" and not case.file
+    assert text.count(case.old) == 1
+    assert case.old != case.new and text.replace(case.old, case.new).count(case.new) == 1
+    vec = text[:text.index("softmax_top1_long_kernel(")]
+    assert case.old in vec
+    tree = ast.parse((tool.REPO / "chip_smoke.py").read_text())
+    names = {n.name for n in tree.body if isinstance(n, ast.FunctionDef)}
+    assert {"phase_kernels_softmax", "softmax_cases", "softmax_check"} <= names
+    assert "phase_kernels_softmax" in tool.CHECKS["softmax"][0]
 
 
 def _lever_sources_apply(group: str, lever: str) -> None:
@@ -646,6 +667,15 @@ def test_dq_f32_lever_tool_finds_its_lines_once(lever):
 def test_paged_lever_tool_finds_its_lines_once(lever):
     """The paged decode kernel's variants (group paged)."""
     _lever_sources_apply("paged", lever)
+
+
+@pytest.mark.parametrize("lever", ["ship", "warp1", "warp2", "block64", "block256"])
+def test_softmax_lever_tool_finds_its_lines_once(lever):
+    """softmax_top1's layouts (group softmax), timed at the
+    serve shape after every case of chip_smoke.softmax_cases."""
+    _lever_sources_apply("softmax", lever)
+    tool = _tool("flash_levers")
+    assert tool.GROUPS["softmax"].script == "softmax" and "softmax" in tool.SCRIPTS
 
 
 @pytest.mark.parametrize("lever", ["vec16", "chunk8k", "chunk32k", "stages3", "blocks1",

@@ -97,12 +97,7 @@ def test_normalize_rejects_mismatched_stats_and_dtype():
 
 
 def _check_top1(logits: np.ndarray):
-    want_idx, want_prob = (np.asarray(a) for a in pk.softmax_top1(jnp.asarray(logits)))
-    idx, prob = kernels.softmax_top1(torch.from_numpy(logits))
-    assert idx.dtype == torch.int32 and prob.dtype == torch.float32
-    np.testing.assert_array_equal(idx.numpy(), want_idx)
-    np.testing.assert_allclose(prob.numpy(), want_prob, rtol=PROB_RTOL)
-    return idx.numpy(), prob.numpy()
+    return _check_top1_typed(torch.from_numpy(logits), jnp.float32)
 
 
 @pytest.mark.parametrize("shape,scale", [((32, 1000), 4.0), ((7, 10), 1.0), ((3, 1), 1.0)])
@@ -126,6 +121,113 @@ def test_softmax_top1_extreme_logits_stable():
     idx, prob = _check_top1(logits)
     np.testing.assert_array_equal(idx, [0, 3])
     assert np.isfinite(prob).all() and (prob > 0).all() and (prob <= 1).all()
+
+
+# The logits dtypes the TPU kernel takes (it casts each to float32), and
+# the columns where the card's kernel changes path: fewer columns than one
+# 16-byte vector, one vector's worth and a ragged tail (f32 4 a vector,
+# bf16/f16 8), the serve shape's 1000 and its ragged neighbours, and a row
+# longer than a 128-thread row group's eight vectors a thread in float32.
+TOP1_DTYPES = {"float32": (torch.float32, jnp.float32), "bfloat16": (torch.bfloat16, jnp.bfloat16),
+               "float16": (torch.float16, jnp.float16)}
+TOP1_COLS = (1, 3, 31, 33, 999, 1000, 1001, 4099)
+
+
+def _check_top1_typed(x: torch.Tensor, jdtype):
+    """The port's softmax_top1 on ``x`` (any strides the wrapper takes)
+    against the Pallas kernel on the same values in the JAX dtype: indices
+    exactly, probabilities within PROB_RTOL, NaN where it gives NaN."""
+    want_idx, want_prob = (np.asarray(a) for a in pk.softmax_top1(
+        jnp.asarray(x.float().numpy()).astype(jdtype)))
+    idx, prob = kernels.softmax_top1(x)
+    assert idx.dtype == torch.int32 and prob.dtype == torch.float32
+    assert want_idx.dtype == np.int32 and want_prob.dtype == np.float32
+    np.testing.assert_array_equal(idx.numpy(), want_idx)
+    np.testing.assert_allclose(prob.numpy(), want_prob, rtol=PROB_RTOL)
+    return idx.numpy(), prob.numpy()
+
+
+def _typed_logits(cols: int, dtype: torch.dtype, seed: int) -> tuple[torch.Tensor, list]:
+    """Five rows of ``cols`` logits in ``dtype`` and the index each must
+    give, where the rows fix it: random; the maximum tied at a third, a
+    half and the last of the columns (other lanes, and from 1000 columns
+    other warps of a 128-thread row group); the maximum alone in the last
+    column; the maximum tied at the two sides of a vector's and of a warp's
+    columns; a whole row tied."""
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy((rng.normal(size=(5, cols)) * 4).astype(np.float32)).to(dtype)
+    top = float(x.float().max()) + 8.0
+    want = [None]
+    spread = sorted({0, cols // 3, cols // 2, cols - 1} if cols > 1 else {0})
+    x[1, spread[1:] if len(spread) > 1 else spread] = top
+    want.append(spread[1] if len(spread) > 1 else 0)
+    x[2, cols - 1] = top
+    want.append(cols - 1)
+    edges = [c for c in (7, 8, 127, 128, 129, 512, 513) if c < cols]
+    x[3, edges or [cols - 1]] = top
+    want.append(edges[0] if edges else cols - 1)
+    x[4] = 0.25
+    want.append(0)
+    return x, want
+
+
+@pytest.mark.parametrize("cols", TOP1_COLS)
+@pytest.mark.parametrize("dtype", list(TOP1_DTYPES))
+def test_softmax_top1_dtypes_and_widths_match_pallas(dtype, cols):
+    """float32, bfloat16 and float16 logits at every column count where the
+    card's kernel changes path, with ties spanning lanes and warps and the
+    maximum in the last column."""
+    tdtype, jdtype = TOP1_DTYPES[dtype]
+    x, want = _typed_logits(cols, tdtype, seed=cols)
+    idx, prob = _check_top1_typed(x, jdtype)
+    assert want[1:] == idx[1:].tolist()
+    assert np.isfinite(prob).all()
+
+
+def _special_rows(case: str, cols: int = 1000) -> tuple[np.ndarray, int]:
+    """A row of ``cols`` random logits with NaN or infinities placed, and
+    the index it must give."""
+    x = np.random.default_rng(11).normal(size=(1, cols)).astype(np.float32)
+    if case == "nan_first":
+        x[0, 0], want = np.nan, 0
+    elif case == "nan_last":
+        x[0, -1], want = np.nan, cols - 1
+    elif case == "nan_twice":
+        x[0, [500, 501]], want = np.nan, 500
+    elif case == "all_neg_inf":
+        x[0], want = -np.inf, 0
+    else:  # ties at +inf, the first in the second warp's columns
+        x[0, [130, 131, 600, 999]], want = np.inf, 130
+    return x, want
+
+
+@pytest.mark.parametrize("case", ["nan_first", "nan_last", "nan_twice", "all_neg_inf",
+                                  "pos_inf_ties"])
+@pytest.mark.parametrize("dtype", list(TOP1_DTYPES))
+def test_softmax_top1_nan_and_infinities_match_pallas(dtype, case):
+    """A NaN is the maximum (the first of two), a row of all -inf gives
+    index 0, ties at +inf give the first; the probability is NaN in every
+    such row, as the Pallas kernel's is."""
+    tdtype, jdtype = TOP1_DTYPES[dtype]
+    x, want = _special_rows(case)
+    rows = np.concatenate([x, np.random.default_rng(12).normal(size=(2, 1000)).astype(np.float32)])
+    idx, prob = _check_top1_typed(torch.from_numpy(rows).to(tdtype), jdtype)
+    assert idx[0] == want and np.isnan(prob[0]) and np.isfinite(prob[1:]).all()
+
+
+@pytest.mark.parametrize("cols", [1000, 1001])
+@pytest.mark.parametrize("dtype", list(TOP1_DTYPES))
+def test_softmax_top1_view_with_a_storage_offset_matches_pallas(dtype, cols):
+    """A contiguous view one element into its storage (on the card, no row
+    starts on a 16-byte boundary: every row has a head of scalars)."""
+    tdtype, jdtype = TOP1_DTYPES[dtype]
+    flat = torch.from_numpy(np.random.default_rng(13).normal(size=6 * cols + 1)
+                            .astype(np.float32) * 4).to(tdtype)
+    x = flat[1:].view(6, cols)
+    assert x.is_contiguous() and x.storage_offset() == 1
+    x[2, 0] = x[3, cols - 1] = float(x.float().max()) + 8.0
+    idx, _ = _check_top1_typed(x, jdtype)
+    assert idx[2] == 0 and idx[3] == cols - 1
 
 
 @pytest.mark.parametrize(
@@ -293,7 +395,9 @@ def _old_check_logits(logits):
     if not isinstance(logits, torch.Tensor):
         raise TypeError("logits")
     _old_require_device(logits, "softmax_top1")
-    if logits.dtype != torch.float32:
+    # The dtypes the TPU kernel takes (bf16 and float16 since the kernel's
+    # redesign; float32 only before).
+    if logits.dtype not in (torch.float32, torch.bfloat16, torch.float16):
         raise TypeError("dtype")
     if logits.dim() != 2 or logits.shape[1] == 0:
         raise ValueError("shape")
@@ -343,7 +447,8 @@ def _verdict(check, *args):
     return None
 
 
-_DTYPES = (torch.float32, torch.bfloat16, torch.float64, torch.int32, torch.int64, torch.uint8)
+_DTYPES = (torch.float32, torch.bfloat16, torch.float16, torch.float64, torch.int32, torch.int64,
+           torch.uint8)
 
 
 @st.composite
