@@ -7,7 +7,10 @@ Phases, each printing one JSON line; any failure raises and the script exits
 non-zero:
 
 1. device  — the card's name, power limit and the TF32 settings in force.
-2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc; for
+2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc and,
+   beside them, the native JPEG decoder (dmlc_tpu_torch/native) with g++
+   where the machine has libjpeg (a failed build then fails the run;
+   without libjpeg a line says why the decoder is unavailable); for
    each flash kernel instantiation (head dim 64, 128, 192 and 256, the
    forward's also 320, 384, 448 and 512, bf16 and float32), its registers,
    shared memory and spills (ptxas), and for the bf16 Hopper ones their
@@ -38,18 +41,24 @@ non-zero:
    past 256 checked and timed at [4, 4, 1024, 320/384/512] and [8, 2,
    2048, 384], and past 512 at [4, 4, 1024, 640/1024] and [8, 1, 2048,
    768], beside the wide kernels they replaced there and SDPA.
-4. serve   — job.predict through PredictWorker -> EngineBackend ->
+4. serve   — job.predict through a TcpRpcServer on localhost (every
+   request from a TcpRpc client) -> PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
-   tier, one shard decodes a small JPEG corpus. Launch counters are zeroed
-   just before the requests and must have risen just after; the answers
-   are held against the same pixels sent through the plain versions.
+   tier, one shard decodes a small JPEG corpus (natively where the decoder
+   built, its pixels equal to a direct decode_resize_batch; else PIL).
+   Launch counters are zeroed just before the requests and must have
+   risen just after; the TCP answers must equal the in-process ones, and
+   are held against the same pixels sent through the plain versions. The
+   machine's host numbers: the JPEG shard's decode, native against PIL,
+   and one 256-image shard over TCP against in process.
    Then CUDA events time each engine's host-to-device copy and forward,
    which bound the device's idle share of run_batch and of one request
    from below; one traced run_batch per model and one traced request give
    the device time by kernel (torch.profiler).
-5. generate — job.generate for lm_wide through GenerateWorker to 24
-   clients (one paged_decode_attention launch a layer a step, no gather;
+5. generate — job.generate for lm_wide through GenerateWorker, served
+   from a TcpRpcServer on localhost, to 24 TcpRpc clients (one
+   paged_decode_attention launch a layer a step, no gather;
    tokens equal a contiguous-cache engine's; one step's logits paged vs
    contiguous bit-identical and through the kernel vs the plain version);
    decode — the decode-bench geometry through SlotScheduler, with one
@@ -105,6 +114,11 @@ PREDICT_KERNELS = ("normalize_u8", "softmax_top1")
 # Generation phase (lm_wide serving): the JAX worker's defaults.
 GEN_SLOTS, GEN_PAGE, GEN_PAGES, GEN_PREFILL = 8, 16, 128, 64
 GEN_REQUESTS, GEN_SAMPLED = 24, 4
+# Over TCP every poll is a connection and a server thread: 24 clients
+# polling every 5 ms starved the decode thread of the GIL until their
+# generations ran past the 10 s budget job.generate binds by default. The
+# clients poll every 20 ms and give each generation 120 s.
+GEN_POLL_S, GEN_BUDGET_S = 0.02, 120.0
 # Greedy steps whose top-two logit gap is at most this are counted as ties.
 TIE_GAP = 1e-4
 # Decode-bench geometry (bench.py:bench_lm_decode and its lm_bench_decode).
@@ -476,8 +490,49 @@ def flash_instance(mangled: str) -> tuple[str, str] | None:
     return dtype, f"dh{dh.group(1)}"
 
 
-def phase_build() -> None:
-    """Builds every kernel. For the flash kernels, reports each
+def native_toolchain() -> str | None:
+    """None when g++ compiles and links a program against libjpeg here
+    (the native decoder's needs: jpeglib.h and libjpeg.so); else why not."""
+    import shutil
+
+    if shutil.which("g++") is None:
+        return "no g++ on PATH"
+    with tempfile.TemporaryDirectory(prefix="dmlc-jpeg-probe-") as td:
+        done = subprocess.run(
+            ["g++", "-x", "c++", "-", "-o", str(Path(td) / "probe"), "-ljpeg"],
+            input="#include <cstdio>\n#include <jpeglib.h>\n"
+                  "int main() { jpeg_decompress_struct d; (void)d; return 0; }\n",
+            capture_output=True, text=True, timeout=120)
+    if done.returncode:
+        lines = [ln for ln in done.stderr.splitlines()
+                 if "error" in ln or "cannot find" in ln] or done.stderr.splitlines()
+        return f"g++ cannot build against libjpeg: {lines[0].strip() if lines else done.returncode}"
+    return None
+
+
+def build_native() -> dict:
+    """Builds the native JPEG decoder (dmlc_tpu_torch/native) when this
+    machine has libjpeg; a failed build there raises. Without libjpeg the
+    decoder is unavailable, the reason is printed, and the serving path
+    decodes through PIL."""
+    from dmlc_tpu_torch import native
+
+    reason = native_toolchain()
+    if reason is not None:
+        emit({"native_decode": "unavailable on this machine", "reason": reason})
+        return {"available": False, "reason": reason, "seconds": None}
+    t0 = time.perf_counter()
+    native.build()
+    seconds = time.perf_counter() - t0
+    if not native.available():
+        raise AssertionError("the native decoder built but does not load")
+    return {"available": True, "reason": None, "seconds": seconds}
+
+
+def phase_build() -> dict:
+    """Builds every kernel, and the native JPEG decoder beside them (its
+    build seconds, or why this machine cannot build it; returned). For the
+    flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
     64, 128, 192, 256, 320, 384, 448 and 512 in both dtypes where
     ops/flash.py routes them to the source (and each instantiation of the
@@ -488,10 +543,15 @@ def phase_build() -> None:
     ones also with their wgmma and TMA instructions (SASS). Fails on a
     spill, on a missing instantiation, on a Hopper kernel without wgmma or
     TMA, or on one past SMEM_PER_BLOCK_MAX."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from dmlc_tpu_torch.ops import _build
     from dmlc_tpu_torch.ops import flash as FL
 
-    seconds = _build.build()
+    with ThreadPoolExecutor(1) as pool:
+        native = pool.submit(build_native)
+        seconds = _build.build()
+        native = native.result()
     regs = {
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
         for name, log in _build.build_log.items()
@@ -573,8 +633,9 @@ def phase_build() -> None:
     if spilled:
         raise AssertionError(f"softmax_top1 spills: {spilled}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "ptxas": regs, "flash": flash, "paged_decode": paged, "gather_pages": gather,
-          "softmax_top1": softmax})
+          "native_decode": native, "ptxas": regs, "flash": flash, "paged_decode": paged,
+          "gather_pages": gather, "softmax_top1": softmax})
+    return native
 
 
 def phase_kernels(dev: dict) -> dict:
@@ -1646,12 +1707,62 @@ def plain_top1(engine, u8: np.ndarray):
     return np.concatenate(idx), np.concatenate(gaps)
 
 
-def phase_serve(dev: dict) -> dict:
+class NativeRecorder:
+    """Wraps ``native.decode_resize_batch`` while installed: each call's
+    paths, pixels and status, so the serving path's own decode can be held
+    against a direct call."""
+
+    def __init__(self, native):
+        self.native = native
+        self.real = native.decode_resize_batch
+        self.calls: list[tuple[list, np.ndarray, np.ndarray]] = []
+
+    def __call__(self, paths, *args, **kw):
+        out, status = self.real(paths, *args, **kw)
+        self.calls.append((list(paths), out.copy(), status.copy()))
+        return out, status
+
+    def __enter__(self):
+        self.native.decode_resize_batch = self
+        return self
+
+    def __exit__(self, *exc):
+        self.native.decode_resize_batch = self.real
+
+
+def timed(fn) -> float:
+    """Seconds one call of ``fn`` takes on the host's clock."""
+    t = time.perf_counter()
+    fn()
+    return time.perf_counter() - t
+
+
+def alternate_ms(fns: dict, rounds: int = 4) -> tuple[dict, dict]:
+    """Median wall ms of each callable, and every reading, run in turns
+    a, b, b, a (rounds times) in this process."""
+    names = list(fns)
+    walls: dict[str, list[float]] = {n: [] for n in names}
+    for _ in range(rounds):
+        for n in names + names[::-1]:
+            walls[n].append(1e3 * timed(fns[n]))
+    return {n: statistics.median(w) for n, w in walls.items()}, walls
+
+
+def phase_serve(dev: dict, native_build: dict) -> dict:
+    """job.predict served from a TcpRpcServer on localhost: every request
+    goes through a TcpRpc client and must equal the in-process methods()
+    answer for the same shard exactly, and the plain path's under the gap
+    rule. The JPEG shard is decoded by the native library where this
+    machine could build it (its pixels equal a direct decode_resize_batch),
+    else by PIL."""
+    from dmlc_tpu_torch import native
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
     from dmlc_tpu_torch.ops import kernels as K
     from dmlc_tpu_torch.ops import preprocess as pp
     from dmlc_tpu_torch.scheduler.worker import EngineBackend, PredictWorker
     from dmlc_tpu_torch.utils import corpus
 
+    jpeg_backend = "native" if native_build["available"] else "pil"
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-smoke-") as td:
         data_dir, synset_path = corpus.generate(Path(td), n_classes=200, images_per_class=1,
                                                 size=256, seed=0)
@@ -1665,46 +1776,133 @@ def phase_serve(dev: dict) -> dict:
             b.warmup()
             backends[name] = b
         build_s = time.perf_counter() - t0
+        if native.available() != native_build["available"]:
+            raise AssertionError(f"native decoder available: {native.available()}, "
+                                 f"built: {native_build}")
         worker = PredictWorker(backends)
         predict = worker.methods()["job.predict"]
+        server = TcpRpcServer("127.0.0.1", 0, worker.methods())
+        rpc = TcpRpc()
+
+        def predict_tcp(req: dict) -> dict:
+            return rpc.call(server.address, "job.predict", req, timeout=600.0)
+
         requests = [
             ("resnet18", [f"seed_{k}" for k in range(600)], "decode_tier"),
             ("alexnet", [f"seed_{k}" for k in range(1000, 1300)], "decode_tier"),
             ("resnet18", [f"seed_{k}" for k in range(2000, 2257)], "decode_tier"),
             ("resnet18", jpeg_synsets, "jpeg"),
         ]
+        try:
+            K.reset_launch_counts()
+            answers = []
+            with NativeRecorder(native) as recorder:
+                for model, synsets, source_kind in requests:
+                    t = time.perf_counter()
+                    preds = predict_tcp({"model": model, "synsets": synsets})["predictions"]
+                    answers.append((model, synsets, source_kind, preds,
+                                    time.perf_counter() - t))
+            launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+            for name, count in launches.items():
+                if count == 0:
+                    raise AssertionError(f"{name}: no launch on the serving path")
+            for model, synsets, _, preds, _ in answers:
+                local = predict({"model": model, "synsets": synsets})["predictions"]
+                if local != preds:
+                    raise AssertionError(f"{model}: the TCP answers differ from the in-process "
+                                         f"ones for the same {len(synsets)} synsets")
 
-        K.reset_launch_counts()
-        answers = []
-        for model, synsets, source_kind in requests:
-            t = time.perf_counter()
-            preds = predict({"model": model, "synsets": synsets})["predictions"]
-            answers.append((model, synsets, source_kind, preds, time.perf_counter() - t))
-        launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
-        for name, count in launches.items():
-            if count == 0:
-                raise AssertionError(f"{name}: no launch on the serving path")
+            jpeg_paths = source(jpeg_synsets)
+            if jpeg_backend == "native":
+                if len(recorder.calls) != 1:
+                    raise AssertionError(f"native decode calls on the path: "
+                                         f"{[len(c[0]) for c in recorder.calls]}")
+                paths, served, status = recorder.calls[0]
+                direct, direct_status = native.decode_resize_batch(jpeg_paths, SIZE)
+                if ([str(x) for x in paths] != [str(x) for x in jpeg_paths] or status.any()
+                        or direct_status.any() or not np.array_equal(served, direct)):
+                    raise AssertionError("the served JPEG shard's native pixels differ from a "
+                                         "direct decode_resize_batch")
+            elif recorder.calls:
+                raise AssertionError("native decode ran where it is unavailable")
 
-        reports = []
-        for model, synsets, source_kind, preds, wall in answers:
-            engine = backends[model].engine
-            paths = source(synsets)
-            pixels = (source.decode_paths(paths, SIZE) if source_kind == "decode_tier"
-                      else pp.load_batch(paths, size=SIZE))
-            want, gaps = plain_top1(engine, pixels)
-            preds = np.asarray(preds)
-            if len(preds) != len(synsets):
-                raise AssertionError(f"{model}: {len(preds)} answers for {len(synsets)}")
-            mask = gaps > GAP
-            bad = int((preds[mask] != want[mask]).sum())
-            if bad:
-                raise AssertionError(f"{model}: {bad} compared rows differ from the plain path")
-            reports.append({
-                "model": model, "synsets": len(synsets), "source": source_kind,
-                "batches": -(-len(synsets) // BATCH), "wall_s": wall,
-                "img_per_s": len(synsets) / wall, "rows": len(preds),
-                "compared_rows": int(mask.sum()), "distinct_classes": int(len(set(preds.tolist()))),
-            })
+            reports = []
+            for model, synsets, source_kind, preds, wall in answers:
+                engine = backends[model].engine
+                paths = source(synsets)
+                pixels = (source.decode_paths(paths, SIZE) if source_kind == "decode_tier"
+                          else pp.load_batch(paths, size=SIZE, backend=jpeg_backend))
+                want, gaps = plain_top1(engine, pixels)
+                preds = np.asarray(preds)
+                if len(preds) != len(synsets):
+                    raise AssertionError(f"{model}: {len(preds)} answers for {len(synsets)}")
+                mask = gaps > GAP
+                bad = int((preds[mask] != want[mask]).sum())
+                if bad:
+                    raise AssertionError(f"{model}: {bad} compared rows differ from the plain path")
+                reports.append({
+                    "model": model, "synsets": len(synsets), "source": source_kind,
+                    "decode": jpeg_backend if source_kind == "jpeg" else "decode_tier",
+                    "batches": -(-len(synsets) // BATCH), "wall_s": wall,
+                    "img_per_s": len(synsets) / wall, "rows": len(preds),
+                    "compared_rows": int(mask.sum()),
+                    "distinct_classes": int(len(set(preds.tolist()))),
+                    "tcp_equals_in_process": True,
+                })
+
+            # Host numbers of the card's machine: the JPEG shard's decode,
+            # native against PIL, and one 256-image JPEG shard over TCP
+            # against in process; each the median of turns in this process.
+            decoders = {"pil": lambda: pp.load_batch(jpeg_paths, size=SIZE, backend="pil")}
+            if jpeg_backend == "native":
+                decoders["native"] = lambda: pp.load_batch(jpeg_paths, size=SIZE,
+                                                           backend="native")
+            decode_ms, decode_walls = alternate_ms(decoders)
+            # One batch: a shard of at most BATCH images decodes its JPEGs
+            # itself (the decode tier feeds only multi-batch shards).
+            shard256 = {"model": "resnet18", "synsets": (jpeg_synsets * 2)[:BATCH]}
+
+            def on_new_thread() -> None:
+                # What the server does besides the fabric: the method runs
+                # on a thread started for the connection.
+                t = threading.Thread(target=predict, args=(shard256,))
+                t.start()
+                t.join()
+
+            wall_ms, walls = alternate_ms({"tcp": lambda: predict_tcp(shard256),
+                                           "in_process": lambda: predict(shard256),
+                                           "in_process_new_thread": on_new_thread})
+            # The fabric alone: the same request echoed by a method that
+            # does nothing, one connection a call.
+            echo = TcpRpcServer("127.0.0.1", 0, {"echo": lambda p: p})
+            try:
+                echo_ms = [1e3 * t for t in (
+                    timed(lambda: rpc.call(echo.address, "echo", shard256, timeout=60.0))
+                    for _ in range(200))]
+            finally:
+                echo.close()
+            host = {
+                "phase": "serve_host", "nvidia_smi": dev["nvidia_smi"],
+                "jpeg_decode": {
+                    "images": len(jpeg_paths), "size": SIZE, "source_px": 256,
+                    "pil_img_per_s": len(jpeg_paths) / (decode_ms["pil"] / 1e3),
+                    "native_img_per_s": (len(jpeg_paths) / (decode_ms["native"] / 1e3)
+                                         if "native" in decode_ms else None),
+                    "native_unavailable": native_build["reason"],
+                    "ms": decode_ms, "readings_ms": decode_walls,
+                },
+                "predict_256": {"model": "resnet18", "source": "jpeg", "decode": jpeg_backend,
+                                "tcp_ms": wall_ms["tcp"], "in_process_ms": wall_ms["in_process"],
+                                "new_thread_ms": wall_ms["in_process_new_thread"],
+                                "tcp_minus_in_process_ms": wall_ms["tcp"] - wall_ms["in_process"],
+                                "readings_ms": walls},
+                "echo_256_synsets_ms": {"p50": statistics.median(echo_ms),
+                                        "min": min(echo_ms), "max": max(echo_ms),
+                                        "calls": len(echo_ms)},
+            }
+            emit(host)
+        finally:
+            server.close()
 
         throughput = {}
         gen = np.random.default_rng(7)
@@ -1758,21 +1956,10 @@ def phase_serve(dev: dict) -> dict:
             "profile": profile_call(lambda: predict(shard)),
         }
     serve = {"phase": "serve", "nvidia_smi": dev["nvidia_smi"], "engines_build_s": build_s,
-             "launches": launches, "requests": reports, "throughput": throughput,
-             "traced_request": traced}
+             "transport": "TcpRpcServer on 127.0.0.1", "launches": launches, "requests": reports,
+             "throughput": throughput, "traced_request": traced}
     emit(serve)
     return serve
-
-
-class LocalRpc:
-    """Stands in for the RPC fabric, which the port does not have yet:
-    ``call`` runs the worker's method on the caller's thread."""
-
-    def __init__(self, methods: dict):
-        self.methods = methods
-
-    def call(self, addr, method, payload, timeout=None):
-        return self.methods[method](dict(payload))
 
 
 class FlightNotes:
@@ -1807,8 +1994,9 @@ def gen_requests(vocab: int, seed: int = 0) -> list[tuple[list[int], int, float,
             return reqs
 
 
-def run_clients(rpc, model: str, reqs) -> tuple[dict, dict, float]:
-    """One generate_stream client thread per request, all started together."""
+def run_clients(rpc, addr: str, model: str, reqs) -> tuple[dict, dict, float]:
+    """One generate_stream client thread per request, all started together,
+    each calling the member at ``addr`` through ``rpc``."""
     from dmlc_tpu_torch.generate.worker import generate
 
     results: dict[int, list[int]] = {}
@@ -1817,8 +2005,9 @@ def run_clients(rpc, model: str, reqs) -> tuple[dict, dict, float]:
     def run(i: int) -> None:
         prompt, n, temp, seed = reqs[i]
         try:
-            results[i] = generate(rpc, "member", model, prompt, max_new_tokens=n,
-                                  temperature=temp, seed=seed, poll_interval_s=0.005)
+            results[i] = generate(rpc, addr, model, prompt, max_new_tokens=n,
+                                  temperature=temp, seed=seed, poll_interval_s=GEN_POLL_S,
+                                  poll_timeout=GEN_BUDGET_S)
         except Exception as e:  # every client's failure is reported below
             errors[i] = f"{type(e).__name__}: {e}"
 
@@ -1845,6 +2034,7 @@ def top2_gaps(model, prompt: list[int], tokens: list[int]) -> np.ndarray:
 
 
 def phase_generate(dev: dict) -> dict:
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
     from dmlc_tpu_torch.generate.engine import GenerationEngine
     from dmlc_tpu_torch.generate.slots import SlotScheduler
     from dmlc_tpu_torch.generate.worker import GenerateWorker, GenerationBackend
@@ -1862,14 +2052,16 @@ def phase_generate(dev: dict) -> dict:
     worker = GenerateWorker({model_name: backend})
     engine = backend._scheduler.engine
     reqs = gen_requests(get_model(model_name).num_outputs)
+    server = TcpRpcServer("127.0.0.1", 0, worker.methods())
     try:
         K.reset_launch_counts()
-        results, errors, wall = run_clients(LocalRpc(worker.methods()), model_name, reqs)
+        results, errors, wall = run_clients(TcpRpc(), server.address, model_name, reqs)
         launches = K.launch_counts()
         steps = engine.steps
         stream_errors = [s.stream.error for s in worker._sessions.values()]
         summary = backend.summary()
     finally:
+        server.close()
         backend.stop()
     if errors:
         raise AssertionError(f"generate clients failed: {errors}")
@@ -1909,6 +2101,7 @@ def phase_generate(dev: dict) -> dict:
     tokens = sum(len(r) for r in results.values())
     report = {
         "phase": "generate", "model": model_name, "nvidia_smi": dev["nvidia_smi"],
+        "transport": "TcpRpcServer on 127.0.0.1",
         "slots": GEN_SLOTS, "page_size": GEN_PAGE, "num_pages": GEN_PAGES,
         "max_prefill": GEN_PREFILL, "engine_build_s": build_s,
         "requests": len(reqs), "greedy": len(greedy), "sampled": len(sampled),
@@ -2425,9 +2618,9 @@ def main() -> int:
     from dmlc_tpu_torch.ops import flash as FL
 
     dev = phase_device()
-    phase_build()
+    native_build = phase_build()
     kern = phase_kernels(dev)
-    serve = phase_serve(dev)
+    serve = phase_serve(dev, native_build)
     gen = phase_generate(dev)
     decode = phase_decode(dev)
     train = phase_train(dev)

@@ -1,10 +1,10 @@
 """Tenant identity and per-tenant quotas, as the slot scheduler uses them.
 
 Copied from ``dmlc_tpu/cluster/tenant.py``: the ambient binding
-(``bind``/``current``), the operator's declarations (``TenantSpec``,
-``parse_tenants``), derived quotas (``spec_for``, ``quota_of``) and the
-per-resource ``TenantLedger``. The wire form (``wire_context``,
-``from_wire``) comes with the RPC fabric.
+(``bind``/``current``), its wire form (``wire_context``, ``from_wire``:
+frame field ``n`` of cluster/rpc.py, omitted for the default tenant), the
+operator's declarations (``TenantSpec``, ``parse_tenants``), derived quotas
+(``spec_for``, ``quota_of``) and the per-resource ``TenantLedger``.
 
 With no tenants declared every surface behaves as with one implicit tenant:
 the ledger accounts but never refuses. Shed and evict ordering is
@@ -45,6 +45,25 @@ def bind(tenant: str | None) -> Iterator[str]:
         yield current()
     finally:
         _current.reset(token)
+
+
+def wire_context() -> str | None:
+    """The ambient tenant in wire form (frame field ``n``), or None for
+    the default tenant — in which case the field is omitted and legacy
+    peers see byte-identical frames."""
+    t = _current.get()
+    if not t or t == DEFAULT_TENANT:
+        return None
+    return t
+
+
+def from_wire(wire: object) -> str | None:
+    """Tenant from the frame field (tolerant: a malformed field from a
+    foreign peer reads as the default tenant rather than an error —
+    tenancy must never fail a request)."""
+    if not wire or not isinstance(wire, str):
+        return None
+    return wire
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,12 @@
 """Member-side generation worker: the ``job.generate`` RPC surface.
 
-Port of ``dmlc_tpu/generate/worker.py``. The RPC fabric is not ported yet:
-``GenerateWorker.methods()`` is the seam it plugs into, and ``rpc`` in the
-client helpers is any object with ``.call(addr, method, payload,
-timeout=)`` (an in-process shim over ``methods()`` in the tests and the
-smoke run).
+Port of ``dmlc_tpu/generate/worker.py``. ``GenerateWorker.methods()`` is
+the table a fabric serves (``cluster.rpc.TcpRpcServer`` over TCP, with
+frames compatible with the JAX package's, or ``cluster.rpc.SimRpcNetwork``
+in process), and ``rpc`` in the client helpers is any ``cluster.rpc.Rpc``
+(``TcpRpc``, a ``SimRpcNetwork`` client) or other object with
+``.call(addr, method, payload, timeout=)``. The node that wires the worker
+into a member's server is not ported yet.
 
 Mirrors ``scheduler/worker.PredictWorker``'s shape — a backend per model,
 an RPC method table wired into the member server — but the verb is

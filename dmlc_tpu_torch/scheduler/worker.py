@@ -9,8 +9,12 @@ The model backend is injectable: a node wires ``EngineBackend``
 (InferenceEngine on the card); tests may wire any callable
 ``(synsets) -> list[int]``.
 
-Not ported yet: the gang verbs, ``DynamicBatcher``, ``LmBackend``,
-``ExportedBackend`` and ``ModelLoader``.
+``methods()`` is the table a fabric serves: ``cluster.rpc.TcpRpcServer``
+over TCP (frames compatible with the JAX package's) or
+``cluster.rpc.SimRpcNetwork`` in process. Not ported yet: the node that
+wires the worker, its gate and the SDFS image source together, the gang
+verbs, ``DynamicBatcher``, ``LmBackend``, ``ExportedBackend`` and
+``ModelLoader``.
 """
 
 from __future__ import annotations
@@ -41,11 +45,17 @@ def _resolve_paths(image_source, data_dir: Path, synsets: Sequence[str]) -> list
 
 
 class PredictWorker:
-    """RPC surface for shard prediction over a registry of models. (The
-    JAX worker's admission gate comes with the node wiring.)"""
+    """RPC surface for shard prediction over a registry of models.
 
-    def __init__(self, backends: dict[str, PredictFn], decode_lanes: int | None = None):
+    ``gate`` (cluster/admission.AdmissionGate, optional) bounds concurrent
+    ``job.predict`` and ``job.decode`` work: past max_inflight + max_queue
+    the request is shed with a typed ``Overloaded`` instead of queuing on
+    the engine lock toward a guaranteed deadline miss."""
+
+    def __init__(self, backends: dict[str, PredictFn], gate=None,
+                 decode_lanes: int | None = None):
         self.backends = dict(backends)
+        self.gate = gate
         # Decode-tier lane accounting: this host can usefully run ~one JPEG
         # decode per core; idle lanes = lanes minus in-flight job.decode.
         self.decode_lanes = int(decode_lanes or min(32, (os.cpu_count() or 4)))
@@ -67,14 +77,20 @@ class PredictWorker:
         """Decode-tier member verb: raw encoded-image BYTES in, one
         device-ready uint8 tensor block out (``data`` = C-contiguous
         [n, size, size, 3] bytes). Undecodable blobs answer a typed
-        ``DecodeError`` naming the poison indices."""
+        ``DecodeError`` naming the poison indices. Admitted through the
+        same gate as ``job.predict``: decode work competes with shards for
+        this host's CPU."""
         import numpy as np
 
         from dmlc_tpu_torch.ops import preprocess as pp
 
         blobs = list(p["blobs"])
         size = int(p["size"])
-        out, status = self._decode_tracked(pp, blobs, size)
+        if self.gate is not None:
+            with self.gate.admit():
+                out, status = self._decode_tracked(pp, blobs, size)
+        else:
+            out, status = self._decode_tracked(pp, blobs, size)
         if status.any():
             bad = [int(i) for i in np.nonzero(status)[0]]
             raise DecodeError(
@@ -96,7 +112,11 @@ class PredictWorker:
         fn = self.backends.get(model)
         if fn is None:
             raise RpcError(f"model {model!r} not loaded here; have {sorted(self.backends)}")
-        preds = fn(synsets)
+        if self.gate is not None:
+            with self.gate.admit():
+                preds = fn(synsets)
+        else:
+            preds = fn(synsets)
         if len(preds) != len(synsets):
             raise RpcError(f"backend returned {len(preds)} predictions for {len(synsets)} queries")
         return {"predictions": [int(x) for x in preds]}
@@ -152,7 +172,11 @@ class EngineBackend:
         return self._engine
 
     def warmup(self) -> None:
-        """Build the engine and run its first batch now, before serving."""
+        """Build the native decoder (best effort) and the engine, and run
+        the engine's first batch now, before serving."""
+        from dmlc_tpu_torch import native
+
+        native.ensure_built()
         with self._lock:
             self._ensure_engine()
 

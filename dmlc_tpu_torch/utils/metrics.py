@@ -1,5 +1,7 @@
 """Latency/accuracy metrics with percentile reporting, bounded memory.
 
+Copied from ``dmlc_tpu/utils/metrics.py`` (the whole module).
+
 Capability parity with the reference's ``jobs`` report, which aggregates
 per-query wall-clock durations into mean/std/median/p90/p95/p99 via the
 ``histogram`` crate (reference: src/main.rs:282-309) and tracks
@@ -11,9 +13,6 @@ Welford moments, percentiles from a fixed-size reservoir (Algorithm R with a
 deterministic PRNG so simulator runs reproduce). That also bounds the wire
 payload standby leaders mirror every probe interval — at the >10k img/s
 target an exact sample list would cross the RPC frame limit within hours.
-
-Only ``LatencyStats`` is carried here; the counters, the registry and the
-Prometheus rendering come with the node wiring.
 """
 
 from __future__ import annotations
@@ -21,6 +20,86 @@ from __future__ import annotations
 import bisect
 import math
 import random
+import re
+import threading
+from typing import Callable
+
+
+class Counters:
+    """Thread-safe named counters + high-water gauges for overload
+    observability (docs/OVERLOAD.md): shed, deadline_exceeded,
+    breaker_open, gray_demotions, queue-depth high-waters, ... One instance
+    per node, shared by the admission gates, the retry policy, and the
+    scheduler, surfaced through ``leader.status`` and the CLI ``status``
+    verb. O(1) per update; the snapshot is a plain dict for the wire."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: dict[str, int] = {}
+        self._high: dict[str, float] = {}
+
+    def inc(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + n
+
+    def observe_high(self, name: str, value: float) -> None:
+        """Record a high-water mark: keeps the max ever observed."""
+        with self._lock:
+            if value > self._high.get(name, float("-inf")):
+                self._high[name] = value
+
+    def get(self, name: str) -> int:
+        with self._lock:
+            return self._counts.get(name, 0)
+
+    def snapshot(self) -> dict:
+        with self._lock:
+            out: dict = dict(self._counts)
+            out.update({f"{k}_high": v for k, v in self._high.items()})
+            return out
+
+
+class TenantLabelGuard:
+    """Label-cardinality bound for per-tenant metric series.
+
+    Every per-tenant gauge/counter/lane name passes its tenant through
+    ``label()`` first: the first ``max_tenants`` distinct tenants keep
+    their own label, everything after folds into ``tenant="other"`` and
+    increments the ``metrics_label_overflow`` counter — so a caller
+    flooding the fleet with fresh tenant ids can inflate ONE bucket, not
+    the registry, the scrape-tree payloads, or the Prometheus exposition
+    (docs/OBSERVABILITY.md). Admission *quota* accounting deliberately
+    does NOT ride this guard (cluster/tenant.TenantLedger keys on the
+    real name — quotas must bind to the actual tenant); only the metrics
+    plane folds. ``max_tenants <= 0`` disables the bound."""
+
+    OTHER = "other"
+
+    def __init__(self, max_tenants: int = 16, counters: Counters | None = None):
+        self.max_tenants = int(max_tenants)
+        self.counters = counters
+        self._lock = threading.Lock()
+        self._seen: set[str] = set()
+        self.overflows = 0
+
+    def label(self, tenant: str) -> str:
+        """The bounded metrics label for ``tenant`` (sticky: a tenant that
+        ever passed keeps passing; one that ever folded keeps folding)."""
+        with self._lock:
+            if tenant in self._seen or self.max_tenants <= 0:
+                self._seen.add(tenant)
+                return tenant
+            if len(self._seen) < self.max_tenants:
+                self._seen.add(tenant)
+                return tenant
+            self.overflows += 1
+            if self.counters is not None:
+                self.counters.inc("metrics_label_overflow")
+            return self.OTHER
+
+    def tracked(self) -> list[str]:
+        with self._lock:
+            return sorted(self._seen)
 
 
 class LatencyStats:
@@ -209,3 +288,193 @@ class LatencyStats:
         if wb is not None and len(wb) == len(out.buckets):
             out.buckets = [int(x) for x in wb]
         return out
+
+
+# ---------------------------------------------------------------------------
+# Fleet merging: fold many mergeable snapshots into one, exactly
+# ---------------------------------------------------------------------------
+
+
+def merge_counter_dicts(into: dict, part: dict) -> None:
+    """Fold one counters dict into an accumulator: plain counters ADD;
+    ``*_high`` watermarks take the MAX (a fleet high-water mark is the
+    highest any node saw, not a sum)."""
+    for name, value in (part or {}).items():
+        if name.endswith("_high"):
+            prev = into.get(name)
+            into[name] = value if prev is None else max(prev, value)
+        else:
+            into[name] = into.get(name, 0) + value
+
+
+def merge_mergeable_snapshots(parts) -> dict:
+    """Fold ``Registry.snapshot(mergeable=True)``-shaped dicts into ONE
+    mergeable snapshot. Associative — a scrape-tree delegate folds its
+    span's members and the leader folds delegate partials with the same
+    function, and the result is counter-exact either way: counters and
+    histogram bucket counts are integer sums, latency moments merge via
+    Chan's update, reservoirs offer-weighted (``LatencyStats.merge``).
+    Gauges SUM numeric values (fleet totals: pages free, queue depths);
+    ``nodes`` counts contributors so per-node means stay recoverable."""
+    counters: dict = {}
+    gauges: dict = {}
+    latency: dict[str, LatencyStats] = {}
+    nodes = 0
+    for part in parts:
+        if not part:
+            continue
+        nodes += int(part.get("nodes", 1))
+        merge_counter_dicts(counters, part.get("counters") or {})
+        for name, value in (part.get("gauges") or {}).items():
+            if value is None:
+                continue
+            gauges[name] = gauges.get(name, 0.0) + float(value)
+        for name, wire in (part.get("latency") or {}).items():
+            stats = latency.get(name)
+            if stats is None:
+                latency[name] = LatencyStats.from_wire(wire)
+            else:
+                stats.merge(LatencyStats.from_wire(wire))
+    return {
+        "counters": counters,
+        "gauges": gauges,
+        "latency": {n: s.to_wire() for n, s in sorted(latency.items())},
+        "nodes": nodes,
+    }
+
+
+def summarize_mergeable(snapshot: dict) -> dict:
+    """Convert a mergeable snapshot to the standard render shape (latency
+    wire records -> ``summary()`` dicts), so CLI / Prometheus /
+    ``CostProfiler.ingest_scrape`` consumers see exactly what a direct
+    ``Registry.snapshot()`` would have handed them."""
+    out = dict(snapshot)
+    out["latency"] = {
+        n: LatencyStats.from_wire(w).summary()
+        for n, w in sorted((snapshot.get("latency") or {}).items())
+    }
+    return out
+
+
+# ---------------------------------------------------------------------------
+# Registry: one node's whole metric surface behind one snapshot
+# ---------------------------------------------------------------------------
+
+_PROM_NAME_RE = re.compile(r"[^a-zA-Z0-9_]")
+
+
+def _prom_name(prefix: str, name: str) -> str:
+    return f"{prefix}_{_PROM_NAME_RE.sub('_', name)}"
+
+
+class Registry:
+    """Unifies a node's ``Counters``, named ``LatencyStats``, and gauges
+    behind ONE snapshot (docs/OBSERVABILITY.md) — the payload of the
+    ``obs.metrics`` RPC the leader scrapes fleet-wide, and the source of
+    the Prometheus text exposition.
+
+    Naming conventions: counters and gauges are ``snake_case`` (gauges
+    suffixed with the thing they measure, e.g. ``predict_gate_active``);
+    latency collectors are ``component/verb`` like span names. Gauges are
+    registered as zero-arg callables read at snapshot time — a gauge whose
+    read raises reports ``None`` rather than failing the scrape.
+    """
+
+    def __init__(self, counters: Counters | None = None):
+        self.counters = counters if counters is not None else Counters()
+        self._latency: dict[str, LatencyStats] = {}
+        self._gauges: dict[str, Callable[[], float]] = {}
+        self._lock = threading.Lock()
+
+    def latency(self, name: str) -> LatencyStats:
+        """The named latency collector, created on first use."""
+        with self._lock:
+            stats = self._latency.get(name)
+            if stats is None:
+                stats = self._latency[name] = LatencyStats()
+            return stats
+
+    def gauge(self, name: str, read: Callable[[], float]) -> None:
+        with self._lock:
+            self._gauges[name] = read
+
+    def snapshot(self, mergeable: bool = False) -> dict:
+        """Wire-shaped view of everything: ``{"counters": {...},
+        "gauges": {...}, "latency": {name: summary}}``. With ``mergeable``
+        the latency section carries ``LatencyStats.to_wire()`` records
+        instead of summaries — the exact-merge form scrape-tree delegates
+        request so span partials fold counter-exactly into one fleet
+        snapshot (docs/OBSERVABILITY.md §6)."""
+        with self._lock:
+            if mergeable:
+                latency = {n: s.to_wire() for n, s in sorted(self._latency.items())}
+            else:
+                latency = {n: s.summary() for n, s in sorted(self._latency.items())}
+            gauges: dict = {}
+            for name, read in sorted(self._gauges.items()):
+                try:
+                    gauges[name] = float(read())
+                except Exception:
+                    gauges[name] = None  # a broken gauge must not fail the scrape
+        return {"counters": self.counters.snapshot(), "gauges": gauges,
+                "latency": latency}
+
+    def prometheus_text(self, prefix: str = "dmlc", labels: str = "") -> str:
+        """Prometheus text-format exposition of ``snapshot()``. ``labels``
+        is a pre-rendered label body (e.g. ``node="10.0.0.1:8852"``) the
+        fleet exposition uses to distinguish scraped nodes."""
+        return render_prometheus(self.snapshot(), prefix=prefix, labels=labels)
+
+
+def render_prometheus(snapshot: dict, prefix: str = "dmlc", labels: str = "") -> str:
+    """Render one ``Registry.snapshot()``-shaped dict as Prometheus text.
+    Module-level so the leader can render snapshots it scraped off other
+    nodes (cluster/observe.py) identically to local ones."""
+    body = f"{{{labels}}}" if labels else ""
+
+    def qbody(extra: str) -> str:
+        inner = ",".join(x for x in (labels, extra) if x)
+        return f"{{{inner}}}"
+
+    lines: list[str] = []
+    for name, value in sorted((snapshot.get("counters") or {}).items()):
+        metric = _prom_name(prefix, name)
+        lines.append(f"# TYPE {metric} counter")
+        lines.append(f"{metric}{body} {value}")
+    for name, value in sorted((snapshot.get("gauges") or {}).items()):
+        if value is None:
+            continue
+        metric = _prom_name(prefix, name)
+        lines.append(f"# TYPE {metric} gauge")
+        lines.append(f"{metric}{body} {value}")
+    for name, s in sorted((snapshot.get("latency") or {}).items()):
+        metric = _prom_name(prefix, name) + "_seconds"
+        lines.append(f"# TYPE {metric} summary")
+        for q, key in (("0.5", "median"), ("0.9", "p90"), ("0.95", "p95"),
+                       ("0.99", "p99")):
+            v = s.get(key)
+            if v is not None and not math.isnan(v):
+                qlabel = f'quantile="{q}"'
+                lines.append(f"{metric}{qbody(qlabel)} {v}")
+        count = s.get("count", 0.0)
+        mean = s.get("mean", float("nan"))
+        lines.append(f"{metric}_count{body} {int(count)}")
+        if count and not math.isnan(mean):
+            lines.append(f"{metric}_sum{body} {mean * count}")
+        # Sibling histogram family: exact cumulative bucket counts (lossless
+        # under cross-node aggregation, unlike quantiles). Emitted only when
+        # the buckets cover every observation — a legacy peer's snapshot
+        # without buckets must not render a histogram that contradicts its
+        # own _count.
+        buckets = s.get("buckets") or {}
+        total = buckets.get("+Inf", 0)
+        if total and total == int(count):
+            hist = _prom_name(prefix, name) + "_hist_seconds"
+            lines.append(f"# TYPE {hist} histogram")
+            for le, cum in buckets.items():
+                lelabel = f'le="{le}"'
+                lines.append(f"{hist}_bucket{qbody(lelabel)} {int(cum)}")
+            lines.append(f"{hist}_count{body} {total}")
+            if not math.isnan(mean):
+                lines.append(f"{hist}_sum{body} {mean * count}")
+    return "\n".join(lines) + ("\n" if lines else "")

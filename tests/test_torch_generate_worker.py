@@ -1,8 +1,9 @@
 """job.generate / job.generate_poll / job.generate_cancel through the port's
 GenerateWorker, against the JAX package's GenerateWorker on the same
 weights. An in-process ``rpc`` (calls go straight to a worker's
-``methods()`` table) stands in for the RPC fabric, which the port does not
-have yet. Greedy tokens must be identical.
+``methods()`` table) keeps these tests off sockets; the same verbs over the
+TCP fabric are tests/test_torch_serve_tcp.py's. Greedy tokens must be
+identical.
 """
 
 import threading

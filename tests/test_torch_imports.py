@@ -45,7 +45,10 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
     for name in ("generate.kvcache", "generate.engine", "generate.slots", "generate.worker",
                  "ops.ragged_decode", "models.lm", "parallel.ring_attention",
                  "cluster.deadline", "cluster.tenant", "ops.flash", "parallel.train",
-                 "parallel.trainer", "utils.checkpoint"):
+                 "parallel.trainer", "utils.checkpoint", "native", "cluster.auth",
+                 "cluster.rpc", "cluster.admission", "cluster.retrypolicy", "cluster.clock",
+                 "cluster.transport", "cluster.membership", "utils.config", "utils.ring",
+                 "utils.metrics"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 

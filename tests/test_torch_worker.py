@@ -2,9 +2,10 @@
 against the JAX package's, on a JPEG corpus made by the port's
 utils/corpus.py. Both backends serve tinynet with the same numpy weights.
 
-The port decodes with PIL; the JAX package prefers its native libjpeg
-pipeline when built, so the JAX side is held to its PIL path here to feed
-both the same pixels. Predictions must be identical.
+Both packages prefer their native libjpeg pipeline when it is built
+(decode backend "auto"); the JPEG tests run once with both sides on the
+native decoder and once with both held to PIL, so each pair is fed the same
+pixels. Predictions must be identical.
 """
 
 import jax
@@ -18,6 +19,7 @@ from dmlc_tpu import native as jax_native
 from dmlc_tpu.scheduler.worker import EngineBackend as JaxBackend
 from dmlc_tpu.scheduler.worker import PredictWorker as JaxWorker
 from dmlc_tpu.scheduler.worker import gang_slice as jax_gang_slice
+from dmlc_tpu_torch import native
 from dmlc_tpu_torch.cluster.rpc import DecodeError, RpcError
 from dmlc_tpu_torch.ops import preprocess as tpp
 from dmlc_tpu_torch.scheduler.worker import EngineBackend, PredictWorker, gang_slice
@@ -46,9 +48,18 @@ def jpeg_corpus(tmp_path_factory):
     return data_dir, [s for s, _ in tpp.load_synset_words(synset_path)]
 
 
-@pytest.fixture
-def pil_only(monkeypatch):
-    monkeypatch.setattr(jax_native, "available", lambda: False)
+@pytest.fixture(params=["native", "pil"])
+def decode_backend(request, monkeypatch):
+    """Both packages' "auto" decode held to one backend: the native
+    libraries (built for the run), or PIL with both reported unbuilt."""
+    if request.param == "native":
+        if not jax_native.ensure_built():
+            pytest.skip("the JAX package's native decoder is not built (g++ or libjpeg missing)")
+        assert native.ensure_built(), "the port's native decoder failed to build"
+    else:
+        monkeypatch.setattr(jax_native, "available", lambda: False)
+        monkeypatch.setattr(native, "available", lambda: False)
+    return request.param
 
 
 def _workers(data_dir, image_source=None):
@@ -61,7 +72,7 @@ def _workers(data_dir, image_source=None):
     return (PredictWorker({"tinynet": port}), port), (JaxWorker({"tinynet": ref}), ref)
 
 
-def test_predict_on_jpeg_corpus_matches_jax(jpeg_corpus, pil_only):
+def test_predict_on_jpeg_corpus_matches_jax(jpeg_corpus, decode_backend):
     data_dir, synsets = jpeg_corpus
     (worker, _), (ref, _) = _workers(data_dir)
     for shard in (synsets[:BATCH], synsets[:5]):  # one full batch, one padded
@@ -83,7 +94,7 @@ def test_multi_batch_predict_goes_through_decode_tier(tmp_path):
     assert port.decode_tier.calls == 3  # three batches, all from the tier
 
 
-def test_decode_matches_jax(jpeg_corpus, pil_only):
+def test_decode_matches_jax(jpeg_corpus, decode_backend):
     data_dir, synsets = jpeg_corpus
     blobs = [tpp.class_image_path(data_dir, s).read_bytes() for s in synsets[:4]]
     req = {"blobs": blobs, "size": SIZE}
@@ -94,7 +105,7 @@ def test_decode_matches_jax(jpeg_corpus, pil_only):
         PredictWorker({}).methods()["job.decode"]({"blobs": [blobs[0], b"junk"], "size": SIZE})
 
 
-def test_load_variables_through_backend(jpeg_corpus, pil_only):
+def test_load_variables_through_backend(jpeg_corpus, decode_backend):
     data_dir, synsets = jpeg_corpus
     (worker, port), (ref, jax_backend) = _workers(data_dir)
     new = tiny_variables(9)
