@@ -56,6 +56,20 @@ non-zero:
    which bound the device's idle share of run_batch and of one request
    from below; one traced run_batch per model and one traced request give
    the device time by kernel (torch.profiler).
+   sdfs    — the weights loop on the port over TCP on localhost: a port
+   SdfsLeader and three SdfsMembers (rf 3), one of which also serves
+   job.predict and model.load for resnet18 (batch 256, 224 px, bf16) with
+   no local corpus (an SdfsImageSource pulls its images from the store).
+   The serve phase's JPEG corpus is published into the store and a shard
+   of it must answer as the serve phase did from local files; a resnet18
+   of another seed is published (publish_weights, about 47 MB) and
+   hot-loaded by model.load, after which the shard must answer as an
+   engine built from that module, and differently from before; 64
+   concurrent single-synset requests through a DynamicBatcher must answer
+   as the backend does unbatched, in fewer dispatches. normalize_u8 and
+   softmax_top1 must launch. Its line has the blob's bytes, the put and
+   get_bytes walls and MB/s, model.load's wall, the cold and warm shard
+   walls and the dispatch count.
 5. generate — job.generate for lm_wide through GenerateWorker, served
    from a TcpRpcServer on localhost, to 24 TcpRpc clients (one
    paged_decode_attention launch a layer a step, no gather;
@@ -1764,8 +1778,8 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
 
     jpeg_backend = "native" if native_build["available"] else "pil"
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-smoke-") as td:
-        data_dir, synset_path = corpus.generate(Path(td), n_classes=200, images_per_class=1,
-                                                size=256, seed=0)
+        data_dir, synset_path = corpus.generate(Path(td), **SERVE_CORPUS)
+        jpeg_digest = corpus_sha256(data_dir)
         jpeg_synsets = [s for s, _ in pp.load_synset_words(synset_path)]
         source = SeededImages(data_dir)
         backends = {}
@@ -1959,7 +1973,238 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
              "transport": "TcpRpcServer on 127.0.0.1", "launches": launches, "requests": reports,
              "throughput": throughput, "traced_request": traced}
     emit(serve)
-    return serve
+    jpeg = answers[-1]
+    return {**serve, "jpeg_answer": {"model": jpeg[0], "synsets": jpeg[1], "predictions": jpeg[3],
+                                     "corpus_sha256": jpeg_digest}}
+
+
+#: The serve phase's JPEG corpus (utils/corpus.generate): the sdfs phase
+#: makes it again and holds its bytes to the serve phase's digest.
+SERVE_CORPUS = {"n_classes": 200, "images_per_class": 1, "size": 256, "seed": 0}
+#: The sdfs phase's store: three members, every blob on all three.
+SDFS_MEMBERS = 3
+#: Seed of the weights published in the sdfs phase (the serve phase's
+#: engines use seed 0).
+PUBLISHED_SEED = 1
+#: Concurrent single-synset requests through the DynamicBatcher.
+BATCHED_REQUESTS = 64
+
+
+def corpus_sha256(data_dir: Path) -> str:
+    """One digest over every file of a corpus, by relative path."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for path in sorted(p for p in Path(data_dir).rglob("*") if p.is_file()):
+        h.update(str(path.relative_to(data_dir)).encode())
+        h.update(path.read_bytes())
+    return h.hexdigest()
+
+
+def phase_sdfs(dev: dict, serve: dict) -> dict:
+    """The member side of the weights loop on the port, over TCP on
+    localhost: a port SdfsLeader and three port SdfsMembers (rf 3), one of
+    which also serves job.predict and model.load from its server, with an
+    EngineBackend that has no local corpus (its images come from the store
+    through an SdfsImageSource).
+
+    1. The serve phase's JPEG corpus is published into the store; a shard of
+       all its synsets, pulled through the store (cold) and then from the
+       member's cache (warm), must answer what the serve phase answered from
+       local files with the same weights.
+    2. A resnet18 of another seed is published as a weights blob
+       (publish_weights of its to_jax tree) and hot-loaded by model.load;
+       the shard must then answer what an engine built from that module
+       answers, and differ from step 1 on at least one row.
+    3. BATCHED_REQUESTS concurrent single-synset requests through a
+       DynamicBatcher around the backend must answer as the backend does
+       unbatched, in fewer dispatches than requests.
+
+    normalize_u8 and softmax_top1 must launch in the requests of steps 1-3
+    (counts set to 0 just before each step's requests and read just after)."""
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
+    from dmlc_tpu_torch.cluster.sdfs import (
+        DEFAULT_CHUNK_BYTES,
+        MemberStore,
+        SdfsClient,
+        SdfsLeader,
+        SdfsMember,
+    )
+    from dmlc_tpu_torch.models import weights as W
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.scheduler.dataset import SdfsImageSource, publish_corpus
+    from dmlc_tpu_torch.scheduler.worker import (
+        DynamicBatcher,
+        EngineBackend,
+        ModelLoader,
+        PredictWorker,
+    )
+    from dmlc_tpu_torch.utils import corpus
+
+    want = serve["jpeg_answer"]
+    model = want["model"]
+    launches: Counter = Counter()
+
+    def counted(fn):
+        K.reset_launch_counts()
+        out = fn()
+        launches.update({k: K.launch_counts()[k] for k in PREDICT_KERNELS})
+        return out
+
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-sdfs-") as td:
+        root = Path(td)
+        data_dir, synset_path = corpus.generate(root / "corpus", **SERVE_CORPUS)
+        if corpus_sha256(data_dir) != want["corpus_sha256"]:
+            raise AssertionError("the corpus made again differs from the serve phase's")
+        synsets = [s for s, _ in pp.load_synset_words(synset_path)]
+        if synsets != want["synsets"]:
+            raise AssertionError("the corpus's synsets differ from the serve phase's shard")
+        rpc = TcpRpc()
+        addrs: list[str] = []
+        servers = []
+        batcher = None
+        try:
+            leader = SdfsLeader(rpc, lambda: list(addrs), replication_factor=SDFS_MEMBERS)
+            servers.append(TcpRpcServer("127.0.0.1", 0, leader.methods()))
+            laddr = servers[0].address
+            stores = [MemberStore(root / f"member{i}") for i in range(SDFS_MEMBERS)]
+            # Member 0 serves the store, job.predict and model.load from one
+            # server; its image source pulls through its own SdfsClient.
+            # (The server reads its table at each call: filled once the
+            # image source knows the server's address.)
+            methods: dict = {}
+            serving = TcpRpcServer("127.0.0.1", 0, methods)
+            servers.append(serving)
+            own = SdfsClient(rpc, laddr, stores[0], serving.address)
+            backend = EngineBackend(model, root / "empty_data_dir", batch_size=BATCH,
+                                    image_source=SdfsImageSource(own, root / "data_cache"))
+            methods.update({**SdfsMember(stores[0], rpc).methods(),
+                            **PredictWorker({model: backend}).methods(),
+                            **ModelLoader(stores[0], {model: backend}).methods()})
+            addrs.append(serving.address)
+            for store in stores[1:]:
+                servers.append(TcpRpcServer("127.0.0.1", 0, SdfsMember(store, rpc).methods()))
+                addrs.append(servers[-1].address)
+            build_t = time.perf_counter()
+            backend.warmup()
+            build_s = time.perf_counter() - build_t
+            publisher = SdfsClient(rpc, laddr, stores[1], addrs[1])
+            publish_corpus(publisher, data_dir, synsets)
+
+            def shard(names) -> list[int]:
+                reply = rpc.call(serving.address, "job.predict",
+                                 {"model": model, "synsets": list(names)}, timeout=600.0)
+                return reply["predictions"]
+
+            # Step 1: images from the store.
+            t = time.perf_counter()
+            cold = counted(lambda: shard(synsets))
+            cold_s = time.perf_counter() - t
+            t = time.perf_counter()
+            warm = counted(lambda: shard(synsets))
+            warm_s = time.perf_counter() - t
+            cached = sorted(p.stem for p in (root / "data_cache").glob("*.img"))
+            if cached != sorted(synsets):
+                raise AssertionError(f"{len(cached)} of {len(synsets)} images pulled into the cache")
+            if cold != want["predictions"] or warm != cold:
+                raise AssertionError("the shard served from store-pulled images differs from the "
+                                     "serve phase's answer from local files")
+
+            # Step 2: published weights, hot-loaded by model.load.
+            module = get_model(model).init_params(PUBLISHED_SEED, dtype=torch.float32)
+            variables = get_model(model).to_jax(module.state_dict())
+            t = time.perf_counter()
+            blob = W.weights_to_bytes(model, variables)
+            serialize_s = time.perf_counter() - t
+            t = time.perf_counter()
+            version = W.publish_weights(publisher, model, variables)
+            publish_s = time.perf_counter() - t
+            name = W.sdfs_weights_name(model)
+            t = time.perf_counter()
+            got_version, fetched = publisher.get_bytes(name)
+            get_s = time.perf_counter() - t
+            if (got_version, fetched) != (version, blob):
+                raise AssertionError("get_bytes returned other bytes than were published")
+            if stores[0].read(name, version) != blob:
+                raise AssertionError("the serving member's replica differs from the blob")
+            t = time.perf_counter()
+            reply = rpc.call(serving.address, "model.load", {"model": model, "version": version},
+                             timeout=600.0)
+            load_s = time.perf_counter() - t
+            if reply != {"model": model, "version": version}:
+                raise AssertionError(f"model.load replied {reply}")
+            loaded = counted(lambda: shard(synsets))
+            direct = InferenceEngine(model, device=backend.device, batch_size=BATCH,
+                                     variables=module.state_dict())
+            paths = backend.image_source(synsets)
+            direct_top1 = [int(x) for x in direct.run_paths(paths).top1_index]
+            if loaded != direct_top1:
+                bad = sum(a != b for a, b in zip(loaded, direct_top1))
+                raise AssertionError(f"{bad} rows after model.load differ from an engine built "
+                                     f"from the published module")
+            changed = sum(a != b for a, b in zip(loaded, cold))
+            if changed == 0:
+                raise AssertionError("model.load left every answer as it was")
+
+            # Step 3: the batcher.
+            picks = synsets[:BATCHED_REQUESTS]
+            unbatched = backend(picks)
+            batcher = DynamicBatcher(backend, batch_size=BATCH, max_wait_s=0.05)
+            batched = TcpRpcServer("127.0.0.1", 0, PredictWorker({model: batcher}).methods())
+            servers.append(batched)
+            answers: dict[int, int] = {}
+
+            def one(i: int) -> None:
+                answers[i] = rpc.call(batched.address, "job.predict",
+                                      {"model": model, "synsets": [picks[i]]},
+                                      timeout=600.0)["predictions"][0]
+
+            def burst() -> None:
+                threads = [threading.Thread(target=one, args=(i,)) for i in range(len(picks))]
+                for th in threads:
+                    th.start()
+                for th in threads:
+                    th.join()
+
+            t = time.perf_counter()
+            counted(burst)
+            burst_s = time.perf_counter() - t
+            summary = batcher.summary()
+            if [answers.get(i) for i in range(len(picks))] != unbatched:
+                raise AssertionError("batched answers differ from the unbatched backend's")
+            if not summary["dispatches"] < len(picks):
+                raise AssertionError(f"{summary['dispatches']} dispatches for {len(picks)} "
+                                     f"requests")
+        finally:
+            if batcher is not None:
+                batcher.stop()
+            for server in servers:
+                server.close()
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name}: no launch on the sdfs path")
+    mb = len(blob) / 1e6
+    report = {
+        "phase": "sdfs", "nvidia_smi": dev["nvidia_smi"], "model": model, "batch": BATCH,
+        "members": SDFS_MEMBERS, "replication_factor": SDFS_MEMBERS,
+        "transport": "TcpRpcServer on 127.0.0.1", "chunk_bytes": DEFAULT_CHUNK_BYTES,
+        "engine_build_s": build_s, "images": len(synsets),
+        "shard_cold_s": cold_s, "shard_warm_s": warm_s,
+        "shard_equals_serve_phase": True,
+        "blob_bytes": len(blob), "blob_version": version, "serialize_s": serialize_s,
+        "publish_s": publish_s, "put_s": publish_s - serialize_s,
+        "put_mb_per_s": mb / max(publish_s - serialize_s, 1e-9),
+        "get_bytes_s": get_s, "get_mb_per_s": mb / get_s, "model_load_s": load_s,
+        "rows_changed_by_load": changed, "loaded_equals_direct_engine": True,
+        "batched_requests": len(picks), "dispatches": summary["dispatches"],
+        "mean_fill": summary["mean_fill"], "burst_s": burst_s,
+        "batched_equals_unbatched": True, "launches": dict(launches),
+    }
+    emit(report)
+    return report
 
 
 class FlightNotes:
@@ -2621,6 +2866,7 @@ def main() -> int:
     native_build = phase_build()
     kern = phase_kernels(dev)
     serve = phase_serve(dev, native_build)
+    sdfs = phase_sdfs(dev, serve)
     gen = phase_generate(dev)
     decode = phase_decode(dev)
     train = phase_train(dev)
@@ -2633,6 +2879,7 @@ def main() -> int:
         {"name": "normalize_u8", "route": "cuda", "source": "dmlc_tpu_torch/csrc/normalize_u8.cu",
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:50",
          "launches": serve["launches"]["normalize_u8"],
+         "sdfs_launches": sdfs["launches"]["normalize_u8"],
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
          "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
@@ -2644,6 +2891,7 @@ def main() -> int:
         {"name": "softmax_top1", "route": "cuda", "source": "dmlc_tpu_torch/csrc/softmax_top1.cu",
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:97",
          "launches": serve["launches"]["softmax_top1"],
+         "sdfs_launches": sdfs["launches"]["softmax_top1"],
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],

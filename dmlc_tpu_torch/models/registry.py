@@ -15,11 +15,19 @@ import math
 from dataclasses import dataclass
 from typing import Any, Callable, Mapping
 
+import numpy as np
 import torch
 from torch import nn
 
 from dmlc_tpu_torch.models.alexnet import alexnet
-from dmlc_tpu_torch.models.convert import alexnet_from_jax, lm_from_jax, resnet_from_jax
+from dmlc_tpu_torch.models.convert import (
+    alexnet_from_jax,
+    alexnet_to_jax,
+    lm_from_jax,
+    lm_to_jax,
+    resnet_from_jax,
+    resnet_to_jax,
+)
 from dmlc_tpu_torch.models.lm import (
     LM_SMALL_MAX_LEN,
     LM_SMALL_VOCAB,
@@ -45,8 +53,10 @@ class ModelSpec:
     num_outputs: int                   # classes / embedding dim; vocab for "lm"
     classifier: bool = True            # False => embedding model (no top-1)
     kind: str = "image"                # "image" | "lm" (autoregressive decode)
-    # JAX variables tree -> this package's state dict (models/convert.py).
+    # JAX variables tree -> this package's state dict, and back
+    # (models/convert.py).
     from_jax: Callable[[Mapping], dict[str, torch.Tensor]] | None = None
+    to_jax: Callable[[Mapping], dict] | None = None
 
     def module(self, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
         if self.classifier:
@@ -124,6 +134,27 @@ class ModelSpec:
                     mod.reset_parameters()
         return model
 
+    # ---- analytic model accounting ---------------------------------------
+
+    def param_count(self) -> int:
+        """Total parameter and statistic scalars of the JAX variables tree
+        (params + batch_stats), from the shapes of ``variables_template``:
+        no weights are allocated."""
+        return sum(math.prod(leaf.shape) for leaf in _template_leaves(self.name))
+
+    def param_bytes(self, dtype: Any = None) -> int:
+        """Resident bytes of the variables tree: each leaf's element count
+        times its template dtype's width (float32), or ``dtype``'s (a torch
+        or numpy dtype) when the serving engine casts."""
+        if dtype is None:
+            itemsize = None
+        elif isinstance(dtype, torch.dtype):
+            itemsize = torch.empty((), dtype=dtype).element_size()
+        else:
+            itemsize = np.dtype(dtype).itemsize
+        return sum(math.prod(leaf.shape) * (itemsize or leaf.dtype.itemsize)
+                   for leaf in _template_leaves(self.name))
+
     def flops_per_item(self) -> float | None:
         """Analytic forward FLOPs for one item: an image, or one generated
         token (a decode step at max_len context) for ``kind="lm"`` (a
@@ -131,6 +162,12 @@ class ModelSpec:
         omitted). None for models without a formula."""
         fn = _FLOPS_PER_ITEM.get(self.name)
         return float(fn()) if fn is not None else None
+
+
+def _template_leaves(name: str) -> list:
+    from dmlc_tpu_torch.models import weights
+
+    return [leaf for _, leaf in weights.flatten_with_keys(weights.variables_template(name))]
 
 
 def _conv_out(size: int, kernel: int, stride: int, pad: int) -> int:
@@ -226,18 +263,18 @@ def list_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def _spec(name: str, build: Callable[..., nn.Module], from_jax: Any) -> ModelSpec:
-    return ModelSpec(name, build, 224, 1000, from_jax=from_jax)
+def _spec(name: str, build: Callable[..., nn.Module], from_jax: Any, to_jax: Any) -> ModelSpec:
+    return ModelSpec(name, build, 224, 1000, from_jax=from_jax, to_jax=to_jax)
 
 
 for _s in [
-    _spec("resnet18", resnet18, resnet_from_jax),
-    _spec("resnet34", resnet34, resnet_from_jax),
-    _spec("resnet50", resnet50, resnet_from_jax),
-    _spec("alexnet", alexnet, alexnet_from_jax),
+    _spec("resnet18", resnet18, resnet_from_jax, resnet_to_jax),
+    _spec("resnet34", resnet34, resnet_from_jax, resnet_to_jax),
+    _spec("resnet50", resnet50, resnet_from_jax, resnet_to_jax),
+    _spec("alexnet", alexnet, alexnet_from_jax, alexnet_to_jax),
     ModelSpec("lm_small", lm_small, LM_SMALL_MAX_LEN, LM_SMALL_VOCAB, classifier=False,
-              kind="lm", from_jax=lm_from_jax),
+              kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax),
     ModelSpec("lm_wide", lm_wide, LM_WIDE_MAX_LEN, LM_WIDE_VOCAB, classifier=False,
-              kind="lm", from_jax=lm_from_jax),
+              kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax),
 ]:
     register(_s)

@@ -11,27 +11,285 @@ The model backend is injectable: a node wires ``EngineBackend``
 
 ``methods()`` is the table a fabric serves: ``cluster.rpc.TcpRpcServer``
 over TCP (frames compatible with the JAX package's) or
-``cluster.rpc.SimRpcNetwork`` in process. Not ported yet: the node that
-wires the worker, its gate and the SDFS image source together, the gang
-verbs, ``DynamicBatcher``, ``LmBackend``, ``ExportedBackend`` and
-``ModelLoader``.
+``cluster.rpc.SimRpcNetwork`` in process. ``DynamicBatcher`` and
+``ModelLoader`` (``model.load``: a weights blob from the member's SDFS store
+into a live backend) are copies of the JAX package's over this package's
+modules. An ``EngineBackend`` with an ``image_source``
+(scheduler/dataset.SdfsImageSource) serves shards on a member with no local
+corpus. Not ported yet: the node that wires these together, the gang verbs,
+``LmBackend`` and ``ExportedBackend``.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import logging
 import os
 import threading
+import time
 from pathlib import Path
 from typing import Callable, Sequence
 
 import torch
 
-from dmlc_tpu_torch.cluster.rpc import DecodeError, RpcError
+from dmlc_tpu_torch.cluster import tenant as tenant_mod
+from dmlc_tpu_torch.cluster.rpc import DecodeError, Overloaded, RpcError
 from dmlc_tpu_torch.utils.device import resolve_device
-from dmlc_tpu_torch.utils.tracing import traced_methods
+from dmlc_tpu_torch.utils.hotpath import hot_path
+from dmlc_tpu_torch.utils.metrics import LatencyStats
+from dmlc_tpu_torch.utils.tracing import traced_methods, tracer
+
+log = logging.getLogger(__name__)
 
 # (synset_ids) -> list of predicted class indices
 PredictFn = Callable[[Sequence[str]], list[int]]
+
+
+class DynamicBatcher:
+    """Dynamic micro-batcher: coalesce concurrent small classify requests
+    into device-shaped batches.
+
+    The engine's unit of work is a ``batch_size`` XLA execution; an RPC
+    carrying one (or a few) synsets would otherwise pay a whole padded
+    device dispatch for itself. This wrapper queues incoming requests and a
+    background worker drains them in batches: a batch dispatches the moment
+    ``batch_size`` items are queued, or when the OLDEST queued item has
+    waited ``max_wait_s`` — so under load N single-image requests ride
+    ceil(N / batch_size) device dispatches, while a lone request is delayed
+    at most the deadline. Results map back to their callers by queue order
+    (the wrapped ``predict`` returns predictions in argument order).
+
+    Wraps any PredictFn-shaped backend: ``__call__`` is the batched predict
+    surface, and every other attribute (``warmup``, ``load_variables``,
+    ``predict_gang``, ...) passes through to the wrapped backend — gang
+    shards are collective SPMD executions whose slicing must not be
+    reordered, so they deliberately bypass the batcher.
+
+    Overload control (docs/OVERLOAD.md): with ``max_queue > 0`` the queue is
+    BOUNDED — a submit against a full queue is shed immediately with a typed
+    ``Overloaded`` (retry-after = the batch deadline) instead of buffering
+    toward a guaranteed timeout. And the batch deadline *brownouts*: as the
+    queue fills, the coalescing wait shrinks linearly to zero — waiting
+    optimizes latency the batcher no longer has, so under pressure it
+    degrades to dispatch-as-fast-as-the-device-drains.
+
+    Multi-tenant quotas (docs/OVERLOAD.md §Priority classes): with a
+    tenant table, each queued item is charged to its ambient tenant
+    (cluster/tenant.py) against share x max_queue. A tenant at quota
+    sheds typed (``quota="over_quota"``); a *full* queue first tries to
+    displace a queued low-priority-and-over-quota item in favor of a
+    high-priority within-quota submit — brownout ordering is
+    low-priority-and-over-quota first, never cross-tenant eviction of
+    within-quota work.
+    """
+
+    def __init__(
+        self,
+        predict: PredictFn,
+        batch_size: int,
+        max_wait_s: float = 0.005,
+        name: str = "microbatch",
+        max_queue: int = 0,
+        metrics=None,
+        flight=None,
+        tenants=None,
+    ):
+        # _predict is set FIRST: __getattr__ delegates to it, and any
+        # attribute probe before it exists would recurse.
+        self._predict = predict
+        self.flight = flight
+        self.batch_size = int(batch_size)
+        self.max_wait_s = float(max_wait_s)
+        if self.batch_size <= 0:
+            raise ValueError("batch_size must be positive")
+        # Bounded admission: 0 = unbounded (the pre-overload behavior). A
+        # bound below one device batch would shed work the very next
+        # dispatch could carry, so the floor is 2 full batches.
+        self.max_queue = max(2 * self.batch_size, int(max_queue)) if max_queue > 0 else 0
+        self.metrics = metrics
+        # One Condition owns all batcher state; its internal lock is only
+        # ever held for list surgery — the device dispatch runs outside it.
+        self._cv = threading.Condition()
+        self._queue: list[tuple[str, concurrent.futures.Future, str]] = []
+        self._closed = False
+        # Per-tenant queue-token quotas (cluster/tenant.py): enforced only
+        # when the queue is bounded — an unbounded queue has no capacity to
+        # derive shares from (the pre-overload legacy configuration).
+        self.ledger = tenant_mod.TenantLedger(
+            tenants if self.max_queue > 0 else None, self.max_queue
+        )
+        self.requests = 0    # items ever submitted
+        self.dispatches = 0  # device-shaped batches sent to the backend
+        self.sheds = 0       # submits refused at the bounded queue
+        self.queue_hw = 0    # queue-depth high-water
+        self.fill = LatencyStats()  # per-dispatch batch fill fraction
+        self._thread = threading.Thread(target=self._loop, name=name, daemon=True)
+        self._thread.start()
+
+    # ---- request side ---------------------------------------------------
+
+    def _count_shed(self, tenant: str, verdict: str) -> None:
+        self.sheds += 1
+        self.ledger.note_shed(tenant)
+        if self.metrics is not None:
+            self.metrics.inc("shed")
+            self.metrics.inc("shed_microbatch")
+            if verdict == "over_quota":
+                self.metrics.inc("shed_over_quota_microbatch")
+        if self.flight is not None:
+            self.flight.note("shed", gate=self._thread.name,
+                             active=len(self._queue), tenant=tenant,
+                             quota=verdict)
+
+    def _displace_over_quota(self) -> bool:
+        """Brownout ordering under a full queue: shed the NEWEST queued
+        item whose tenant is low-priority and over quota, freeing its slot
+        for a high-priority within-quota submit. Called under the cv.
+        Returns False when every queued item is within-quota or
+        high-priority (those are never displaced across tenants)."""
+        for i in range(len(self._queue) - 1, -1, -1):
+            _, vfut, vtenant = self._queue[i]
+            if self.ledger.over_quota(vtenant) and \
+                    not self.ledger.spec(vtenant).high_priority:
+                del self._queue[i]
+                self.ledger.release(vtenant)
+                self._count_shed(vtenant, "over_quota")
+                vfut.set_exception(Overloaded(
+                    f"microbatch: displaced by higher-priority work "
+                    f"(tenant {vtenant!r} over quota)",
+                    retry_after_s=self.max_wait_s,
+                    tenant=vtenant, quota="over_quota",
+                ))
+                return True
+        return False
+
+    def submit(self, synset: str) -> "concurrent.futures.Future":
+        """Queue one classify request; the future resolves to its predicted
+        class index once the batch it rides in completes. Sheds with a
+        typed ``Overloaded`` (carrying the tenant + quota verdict) when the
+        bounded queue — or the calling tenant's quota — is full."""
+        fut: concurrent.futures.Future = concurrent.futures.Future()
+        tenant = tenant_mod.current()
+        with self._cv:
+            if self._closed:
+                raise RuntimeError("batcher is stopped")
+            if self.ledger.would_exceed(tenant):
+                self._count_shed(tenant, "over_quota")
+                raise Overloaded(
+                    f"microbatch: tenant {tenant!r} at quota "
+                    f"({self.ledger.active(tenant)}/{self.ledger.quota(tenant)})",
+                    retry_after_s=self.max_wait_s,
+                    tenant=tenant, quota="over_quota",
+                )
+            if self.max_queue > 0 and len(self._queue) >= self.max_queue:
+                displaced = (
+                    self.ledger.spec(tenant).high_priority
+                    and self._displace_over_quota()
+                )
+                if not displaced:
+                    self._count_shed(tenant, "gate_full")
+                    raise Overloaded(
+                        f"microbatch queue full ({len(self._queue)}/{self.max_queue})",
+                        retry_after_s=self.max_wait_s,
+                        tenant=tenant, quota="gate_full",
+                    )
+            self._queue.append((synset, fut, tenant))
+            self.ledger.acquire(tenant)
+            self.requests += 1
+            if len(self._queue) > self.queue_hw:
+                self.queue_hw = len(self._queue)
+                if self.metrics is not None:
+                    self.metrics.observe_high("queue_hw_microbatch", len(self._queue))
+            self._cv.notify_all()
+        return fut
+
+    @hot_path
+    def __call__(self, synsets: Sequence[str]) -> list[int]:
+        """PredictFn surface: queue every synset, wait for all results.
+        Items from concurrent callers interleave into shared batches, which
+        is the whole point; per-caller order is preserved by the futures."""
+        futs = [self.submit(s) for s in synsets]
+        return [int(f.result()) for f in futs]
+
+    def __getattr__(self, name: str):
+        # Backend capability passthrough (warmup/load_variables/decode_gang/
+        # predict_gang/image_source/...). Only called for attributes not
+        # found on the batcher itself.
+        return getattr(self._predict, name)
+
+    # ---- worker side ----------------------------------------------------
+
+    def _loop(self) -> None:
+        while True:
+            with self._cv:
+                while not self._queue and not self._closed:
+                    self._cv.wait()
+                if not self._queue and self._closed:
+                    return
+                # Deadline semantics: measured from the moment the worker
+                # sees the first queued item; the batch goes as soon as it
+                # is FULL, else when the deadline lapses (partial batch).
+                # Brownout: the wait shrinks linearly with queue depth — a
+                # full bounded queue coalesces with ZERO added latency.
+                wait = self.max_wait_s
+                if self.max_queue > 0:
+                    wait *= max(0.0, 1.0 - len(self._queue) / self.max_queue)
+                deadline = time.monotonic() + wait
+                while len(self._queue) < self.batch_size and not self._closed:
+                    left = deadline - time.monotonic()
+                    if left <= 0:
+                        break
+                    self._cv.wait(timeout=left)
+                batch = self._queue[: self.batch_size]
+                del self._queue[: self.batch_size]
+                for _, _, t in batch:
+                    self.ledger.release(t)
+            self._dispatch(batch)
+
+    def _dispatch(self, batch: list) -> None:
+        synsets = [s for s, _, _ in batch]
+        try:
+            with tracer.span("scheduler/microbatch", n=len(synsets)):
+                preds = list(self._predict(synsets))
+            if len(preds) != len(synsets):
+                raise RpcError(
+                    f"backend returned {len(preds)} predictions for "
+                    f"{len(synsets)} queries"
+                )
+        except BaseException as e:  # noqa: BLE001 - every waiter must observe the failure
+            for _, fut, _ in batch:
+                fut.set_exception(e)
+            return
+        with self._cv:
+            self.dispatches += 1
+            self.fill.record(len(batch) / self.batch_size)
+        for (_, fut, _), pred in zip(batch, preds):
+            fut.set_result(int(pred))
+
+    def stop(self, timeout_s: float = 10.0) -> None:
+        """Drain the queue (queued requests still complete), then join the
+        worker. Further submits raise."""
+        with self._cv:
+            self._closed = True
+            self._cv.notify_all()
+        self._thread.join(timeout=timeout_s)
+
+    def summary(self) -> dict:
+        """Coalescing counters for reports/bench: requests, device
+        dispatches, and the mean batch-fill fraction (1.0 = every dispatch
+        rode a full device batch)."""
+        with self._cv:
+            out: dict = {
+                "requests": self.requests,
+                "dispatches": self.dispatches,
+                "mean_fill": self.fill.mean if len(self.fill) else 0.0,
+                "sheds": self.sheds,
+                "queue_hw": self.queue_hw,
+            }
+            tenants = self.ledger.summary()
+            if tenants:
+                out["tenants"] = tenants
+            return out
 
 
 def _resolve_paths(image_source, data_dir: Path, synsets: Sequence[str]) -> list[Path]:
@@ -219,3 +477,48 @@ class EngineBackend:
         the JAX package's variables tree)."""
         with self._lock:
             self._ensure_engine().load_variables(variables)
+
+
+class ModelLoader:
+    """Member RPC surface for hot-loading distributed weights.
+
+    After `train` replicates ``models/{model}`` into a member's local SDFS
+    store, the leader calls ``model.load`` here: read the blob from the local
+    store, deserialize + validate (models/weights.py), and hand the variables
+    to the model's backend. Backends without ``load_variables`` (test fakes)
+    refuse cleanly.
+    """
+
+    def __init__(self, store, backends: dict, extra: dict | None = None):
+        self.store = store
+        self.backends = backends
+        # A second live backend table (e.g. the generation backends): the
+        # `train` verb hot-swaps LM weights the same way it swaps image
+        # weights. Predict backends win a (never-expected) name collision.
+        self.extra = extra if extra is not None else {}
+
+    def methods(self) -> dict:
+        return traced_methods({"model.load": self._load})
+
+    def _load(self, p: dict) -> dict:
+        from dmlc_tpu_torch.models import weights as weights_lib
+
+        model = p["model"]
+        backend = self.backends.get(model, self.extra.get(model))
+        if backend is None:
+            raise RpcError(f"model {model!r} not served here")
+        if not hasattr(backend, "load_variables"):
+            raise RpcError(f"backend for {model!r} does not support weight loading")
+        name = weights_lib.sdfs_weights_name(model)
+        version = int(p["version"])
+        try:
+            blob = self.store.read(name, version)
+        except KeyError as e:
+            raise RpcError(str(e))
+        try:
+            _, variables = weights_lib.weights_from_bytes(blob, expect_model=model)
+        except ValueError as e:
+            raise RpcError(f"bad weights blob {name} v{version}: {e}")
+        backend.load_variables(variables)
+        log.info("loaded %s v%d into %s backend", name, version, model)
+        return {"model": model, "version": version}

@@ -17,7 +17,7 @@ from torch import nn
 
 from dmlc_tpu.parallel.inference import InferenceEngine as JaxEngine
 from dmlc_tpu_torch.models import registry as t_registry
-from dmlc_tpu_torch.models.convert import conv_weight, dense_weight
+from dmlc_tpu_torch.models.convert import conv_weight, dense_weight, state_dict_to_jax
 from dmlc_tpu_torch.models.layers import Conv2d, Linear
 from dmlc_tpu_torch.parallel.inference import INGEST_STAGES, InferenceEngine
 
@@ -54,9 +54,18 @@ def tiny_from_jax(variables):
     }
 
 
+def _tiny_locate(module):
+    return (module,), {"conv1": "conv", "head": "dense"}[module]
+
+
+def tiny_to_jax(sd):
+    return state_dict_to_jax(sd, _tiny_locate)
+
+
 if "tinynet" not in t_registry.list_models():
     t_registry.register(
-        t_registry.ModelSpec("tinynet", TorchTinyNet, SIZE, N_CLASSES, from_jax=tiny_from_jax)
+        t_registry.ModelSpec("tinynet", TorchTinyNet, SIZE, N_CLASSES, from_jax=tiny_from_jax,
+                             to_jax=tiny_to_jax)
     )
 
 

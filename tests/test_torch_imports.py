@@ -48,7 +48,8 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "parallel.trainer", "utils.checkpoint", "native", "cluster.auth",
                  "cluster.rpc", "cluster.admission", "cluster.retrypolicy", "cluster.clock",
                  "cluster.transport", "cluster.membership", "utils.config", "utils.ring",
-                 "utils.metrics"):
+                 "utils.metrics", "cluster.diskio", "cluster.faults", "cluster.flight",
+                 "cluster.failover", "cluster.sdfs", "scheduler.dataset", "models.weights"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
