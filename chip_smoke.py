@@ -70,6 +70,19 @@ non-zero:
    softmax_top1 must launch. Its line has the blob's bytes, the put and
    get_bytes walls and MB/s, model.load's wall, the cold and warm shard
    walls and the dispatch count.
+   cluster — the reference's predict job through the port's own entry
+   points: three port ClusterNodes (localcluster) on localhost TCP and UDP,
+   each with its own resnet18 and alexnet EngineBackends (batch 256, 224
+   px, bf16, seed 0), run both 1000-query jobs (one seeded 256-px JPEG a
+   synset, shards of 64) dispatched by the port's JobScheduler. Each job's
+   finished must be 1000 and its correct equal to one in-process engine's
+   over the same shards; every member must be assigned and serve;
+   normalize_u8 and softmax_top1 must launch. Then a second fleet of new
+   nodes over the same backends publishes a resnet18 of seed 2, train()
+   pulls and hot-loads it on every member, and predict must give the
+   correct count of an engine built from that module. Its line has each
+   job's wall, images/s, shards and shard p50/p99, the assignments by
+   member, and train()'s wall.
 5. generate — job.generate for lm_wide through GenerateWorker, served
    from a TcpRpcServer on localhost, to 24 TcpRpc clients (one
    paged_decode_attention launch a layer a step, no gather;
@@ -2207,6 +2220,196 @@ def phase_sdfs(dev: dict, serve: dict) -> dict:
     return report
 
 
+#: The cluster phase's corpus: one 256-px JPEG for each of the reference's
+#: 1000 synsets, written at the start of the phase.
+CLUSTER_CORPUS = {"n_classes": 1000, "images_per_class": 1, "size": 256, "seed": 3}
+#: The cluster phase's fleet: three port nodes, the first two leader candidates.
+CLUSTER_NODES = 3
+#: Seed of the resnet18 that the cluster phase publishes and train() loads.
+CLUSTER_TRAIN_SEED = 2
+#: The config's dispatch shard size (utils/config.py), one job.predict each.
+CLUSTER_SHARD = 64
+#: Interval scale of localcluster's fleet: 0.5 s heartbeats, 1.5 s failure
+#: timeout, so threads busy with decode and dispatch hold no false verdict.
+CLUSTER_SCALE = 2.5
+
+
+def cluster_synsets(path: Path, first_top1: np.ndarray) -> list[str]:
+    """The job's synset file: the 1000 synsets ``n{i:08d}`` in an order
+    that puts, wherever it can, a synset whose image the seed-0 resnet18
+    labels ``c`` on line ``c`` (the job's truth is the line), so that its
+    ``correct`` counts every class the engine gives to some image rather
+    than about one in a thousand. Written in make_synsets' line format;
+    returns the synsets in line order."""
+    n = len(first_top1)
+    line: list[int | None] = [None] * n
+    rest = []
+    for k, c in enumerate(int(x) for x in first_top1):
+        if 0 <= c < n and line[c] is None:
+            line[c] = k
+        else:
+            rest.append(k)
+    fill = iter(rest)
+    order = [k if k is not None else next(fill) for k in line]
+    synsets = [f"n{k:08d}" for k in order]
+    path.write_text("".join(f"{s} label {i}\n" for i, s in enumerate(synsets)))
+    return synsets
+
+
+def shard_top1(engine, u8: np.ndarray) -> np.ndarray:
+    """The engine's top-1 over ``u8`` in the job's shards (CLUSTER_SHARD rows,
+    each one run_batch, as a member runs a job.predict shard)."""
+    return np.concatenate([engine.run_batch(u8[s:s + CLUSTER_SHARD]).top1_index
+                           for s in range(0, len(u8), CLUSTER_SHARD)])
+
+
+def run_predict(nodes, want: dict) -> dict:
+    """``predict`` from a non-leader; waits for both jobs and holds each
+    job's ``finished`` and ``correct`` against ``want`` (job -> correct),
+    every member assigned and every member serving shards. Returns the
+    run's numbers; normalize_u8 and softmax_top1 must have launched (counts
+    set to 0 just before predict, read once both jobs are done)."""
+    from dmlc_tpu_torch.ops import kernels as K
+
+    leader = nodes[0].scheduler
+    members = sorted(n.self_member_addr for n in nodes)
+    K.reset_launch_counts()
+    t0 = time.perf_counter()
+    nodes[1].predict()
+    assigned = nodes[1].assignments()
+    walls: dict[str, float] = {}
+    while len(walls) < len(leader.jobs):
+        for name, job in leader.jobs.items():
+            if job.done and name not in walls:
+                walls[name] = time.perf_counter() - t0
+        if time.perf_counter() - t0 > 300:
+            raise AssertionError(f"jobs not done in 300 s: {sorted(walls)} done")
+        time.sleep(0.005)
+    launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+    report = nodes[2].jobs_report()
+    for name, count in launches.items():
+        if count == 0:
+            raise AssertionError(f"{name}: no launch on the cluster path")
+    if sorted({m for ms in assigned.values() for m in ms}) != members:
+        raise AssertionError(f"assignments {assigned} leave out a member of {members}")
+    jobs = {}
+    served: Counter = Counter()
+    for name, r in sorted(report.items()):
+        if r["finished"] != len(leader.jobs[name].queries) or r["correct"] != want[name]:
+            raise AssertionError(f"{name}: finished {r['finished']}, correct {r['correct']}; "
+                                 f"the in-process engine gives {want[name]} correct")
+        by_member = {m: int(s["count"]) for m, s in r["member_latency"].items()}
+        served.update(by_member)
+        jobs[name] = {
+            "finished": r["finished"], "correct": r["correct"], "wall_s": walls[name],
+            "images_per_s": r["finished"] / walls[name],
+            "throughput_qps": r["throughput_qps"], "shards": sum(by_member.values()),
+            "shard_p50_ms": 1e3 * r["shard_latency"]["median"],
+            "shard_p99_ms": 1e3 * r["shard_latency"]["p99"], "shards_by_member": by_member,
+        }
+    if sorted(served) != members:
+        raise AssertionError(f"members that served shards: {sorted(served)} of {members}")
+    by_member: dict[str, list[str]] = {m: [] for m in members}
+    for name, ms in assigned.items():
+        for m in ms:
+            by_member[m].append(name)
+    return {"jobs": jobs, "wall_s": max(walls.values()), "assigned": by_member,
+            "launches": launches}
+
+
+def phase_cluster(dev: dict) -> dict:
+    """The reference's job on the card through the port's own entry points:
+    three port ClusterNodes (cluster/localcluster.py) on localhost TCP and
+    UDP in this process, each with its own EngineBackends for resnet18 and
+    alexnet (batch 256, 224 px, bf16, seed-0 weights, device "cuda"), run
+    ``predict`` over 1000 synsets, one seeded JPEG each, in shards of 64.
+
+    1. predict from a non-leader: both jobs finish all 1000 queries, each
+       job's ``correct`` equals that of one in-process engine of the same
+       seed over the same images in the same shards, every member is
+       assigned and serves, normalize_u8 and softmax_top1 launch.
+    2. A resnet18 of CLUSTER_TRAIN_SEED is published to models/resnet18 and
+       ``train()`` pulls it to every member and hot-loads it (model.load).
+       A job that finished does not run again under the same leader
+       history, so the second predict runs on a second fleet (new nodes, a
+       new leader, new stores) whose members serve from the same backends:
+       the publish and train() run there, and then resnet18's ``correct``
+       must equal that of an engine built from the published module, and
+       alexnet's stay as in step 1."""
+    from dmlc_tpu_torch.cluster.localcluster import start_local_cluster, stop_local_cluster
+    from dmlc_tpu_torch.models import weights as W
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend
+    from dmlc_tpu_torch.utils import corpus
+
+    models = ("resnet18", "alexnet")
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-cluster-") as td:
+        root = Path(td)
+        t = time.perf_counter()
+        data_dir, _ = corpus.generate(root / "corpus", **CLUSTER_CORPUS)
+        corpus_s = time.perf_counter() - t
+        t = time.perf_counter()
+        natural = [f"n{k:08d}" for k in range(CLUSTER_CORPUS["n_classes"])]
+        pixels = pp.load_batch([pp.class_image_path(data_dir, s) for s in natural], size=SIZE)
+        decode_s = time.perf_counter() - t
+        direct = {m: InferenceEngine(m, device="cuda", batch_size=BATCH) for m in models}
+        synsets = cluster_synsets(root / "synsets.txt", shard_top1(direct["resnet18"], pixels))
+        u8 = pixels[[int(s[1:]) for s in synsets]]
+
+        def correct(engine) -> int:
+            top1 = shard_top1(engine, u8)
+            return int((top1 == np.arange(len(top1))).sum())
+
+        want = {m: correct(direct[m]) for m in models}
+        published = get_model("resnet18").init_params(CLUSTER_TRAIN_SEED, dtype=torch.float32)
+        trained = InferenceEngine("resnet18", device="cuda", batch_size=BATCH,
+                                  variables=published.state_dict())
+        want_trained = {"resnet18": correct(trained), "alexnet": want["alexnet"]}
+        del direct, trained
+        backends = [{m: EngineBackend(m, data_dir, batch_size=BATCH, device="cuda")
+                     for m in models} for _ in range(CLUSTER_NODES)]
+        fleet = dict(n_nodes=CLUSTER_NODES, backends=lambda i: backends[i],
+                     synset_path=root / "synsets.txt", scale=CLUSTER_SCALE, device="cuda",
+                     data_dir=str(data_dir), batch_size=BATCH, job_models=list(models),
+                     dispatch_shard_size=CLUSTER_SHARD)
+        nodes = []
+        try:
+            t = time.perf_counter()
+            nodes = start_local_cluster(root / "fleet1", **fleet)
+            start_s = time.perf_counter() - t
+            first = run_predict(nodes, want)
+            stop_local_cluster(nodes)
+            nodes = start_local_cluster(root / "fleet2", **fleet)
+            variables = get_model("resnet18").to_jax(published.state_dict())
+            t = time.perf_counter()
+            version = W.publish_weights(nodes[2].sdfs, "resnet18", variables)
+            publish_s = time.perf_counter() - t
+            t = time.perf_counter()
+            results = nodes[1].train()
+            train_s = time.perf_counter() - t
+            loaded = sorted(results[W.sdfs_weights_name("resnet18")]["loaded"])
+            if loaded != sorted(n.self_member_addr for n in nodes):
+                raise AssertionError(f"train() loaded resnet18 v{version} into {loaded} only")
+            second = run_predict(nodes, want_trained)
+        finally:
+            stop_local_cluster(nodes)
+    report = {
+        "phase": "cluster", "nvidia_smi": dev["nvidia_smi"], "nodes": CLUSTER_NODES,
+        "leader_candidates": 2, "transport": "TcpRpc and UdpTransport on 127.0.0.1",
+        "models": list(models), "batch": BATCH, "dtype": "bfloat16",
+        "queries_per_job": len(synsets), "shard": CLUSTER_SHARD,
+        "corpus_s": corpus_s, "reference_decode_s": decode_s, "fleet_start_s": start_s,
+        "want_correct": want, "predict": first, "publish_s": publish_s,
+        "blob_version": version, "train_s": train_s, "train_loaded": len(loaded),
+        "want_correct_after_train": want_trained, "predict_after_train": second,
+        "launches": {k: first["launches"][k] + second["launches"][k] for k in PREDICT_KERNELS},
+    }
+    emit(report)
+    return report
+
+
 class FlightNotes:
     """Collects the slot scheduler's flight notes (slot_admit, slot_exit,
     shed, slot_evict)."""
@@ -2867,6 +3070,7 @@ def main() -> int:
     kern = phase_kernels(dev)
     serve = phase_serve(dev, native_build)
     sdfs = phase_sdfs(dev, serve)
+    cluster = phase_cluster(dev)
     gen = phase_generate(dev)
     decode = phase_decode(dev)
     train = phase_train(dev)
@@ -2880,6 +3084,7 @@ def main() -> int:
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:50",
          "launches": serve["launches"]["normalize_u8"],
          "sdfs_launches": sdfs["launches"]["normalize_u8"],
+         "cluster_launches": cluster["launches"]["normalize_u8"],
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
          "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
@@ -2892,6 +3097,7 @@ def main() -> int:
          "replaces": "dmlc_tpu/ops/pallas_kernels.py:97",
          "launches": serve["launches"]["softmax_top1"],
          "sdfs_launches": sdfs["launches"]["softmax_top1"],
+         "cluster_launches": cluster["launches"]["softmax_top1"],
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],

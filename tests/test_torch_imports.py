@@ -49,7 +49,8 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "cluster.rpc", "cluster.admission", "cluster.retrypolicy", "cluster.clock",
                  "cluster.transport", "cluster.membership", "utils.config", "utils.ring",
                  "utils.metrics", "cluster.diskio", "cluster.faults", "cluster.flight",
-                 "cluster.failover", "cluster.sdfs", "scheduler.dataset", "models.weights"):
+                 "cluster.failover", "cluster.sdfs", "scheduler.dataset", "models.weights",
+                 "scheduler.jobs", "cluster.node", "cluster.localcluster", "cli"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
@@ -124,3 +125,67 @@ def test_kernel_sources_are_listed_and_build_is_lazy():
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     with pytest.raises(FileNotFoundError):
         _build.build(["no_such_kernel"])
+
+
+def _node_config(tmp_path, **fields):
+    from dmlc_tpu_torch.utils.config import ClusterConfig
+
+    return ClusterConfig(host="127.0.0.1", gossip_port=0, member_port=0, leader_port=0,
+                         storage_dir=str(tmp_path / "storage"), **fields)
+
+
+def test_failover_has_the_leader_classes():
+    from dmlc_tpu_torch.cluster import failover
+
+    assert {"epoch_key", "LeaderTracker", "StandbyLeader"} <= set(vars(failover))
+
+
+def test_node_refuses_without_cuda(monkeypatch, tmp_path):
+    """A node that builds its resnet18 engine wants the card unless told
+    ``device="cpu"``."""
+    from dmlc_tpu_torch.cluster.node import ClusterNode
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        ClusterNode(_node_config(tmp_path, job_models=["resnet18"]))
+    node = ClusterNode(_node_config(tmp_path, job_models=["resnet18"]), device="cpu")
+    try:
+        assert node.worker.backends["resnet18"].device == torch.device("cpu")
+        assert node._node_info({})["chips"] == 1
+    finally:
+        node.stop()
+
+
+@pytest.mark.parametrize("switch,value,module", [
+    ("autoscaler_enabled", True, "scheduler/autoscaler.py"),
+    ("decode_tier_enabled", True, "cluster/decodetier.py"),
+    ("serve_from_executable", True, "ExportedBackend"),
+    ("mesh_processes", 2, "parallel/multihost.py"),
+    ("slo_objectives", {"resnet18": {"latency_s": 0.5}}, "scheduler/placement.py"),
+    ("job_models", ["lm_small"], "LmBackend"),
+])
+def test_node_refuses_switches_of_unported_modules(tmp_path, switch, value, module):
+    from dmlc_tpu_torch.cluster.node import ClusterNode
+
+    with pytest.raises(NotImplementedError, match=module):
+        ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+
+
+def test_node_names_the_default_switches_it_runs_without(tmp_path, caplog):
+    from dmlc_tpu_torch.cluster.node import DEFAULT_ON_LEFT_OUT, ClusterNode
+
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch.cluster.node"):
+        node = ClusterNode(_node_config(tmp_path), backends={})
+    node.stop()
+    warned = [r.getMessage() for r in caplog.records if "running without" in r.getMessage()]
+    assert len(warned) == 1
+    for switch, module in DEFAULT_ON_LEFT_OUT.items():
+        assert switch in warned[0] and module in warned[0]
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch.cluster.node"):
+        caplog.clear()
+        quiet = ClusterNode(_node_config(tmp_path / "quiet", placement_enabled=False,
+                                         critpath_enabled=False, sentinel_enabled=False,
+                                         profile_persist=False, devicemon_poll_interval_s=0.0),
+                            backends={})
+    quiet.stop()
+    assert not [r for r in caplog.records if "running without" in r.getMessage()]
