@@ -2317,6 +2317,163 @@ def run_predict(nodes, want: dict) -> dict:
             "launches": launches}
 
 
+class NodeDeviceWork:
+    """``device_work`` of a backend built before its fleet: forwards each
+    (model, items, seconds) to the device monitor of the node that serves
+    the backend, once ``monitor`` is set (the nodes own their monitors, and
+    a backend the caller hands a node carries no ``device_work`` of its
+    own)."""
+
+    def __init__(self):
+        self.monitor = None
+
+    def __call__(self, model: str, items: int, seconds: float) -> None:
+        if self.monitor is not None:
+            self.monitor.device_work(model, items, seconds)
+
+
+#: The device monitor's gauges of one member that phase cluster reads.
+DEVICE_GAUGES = ("hbm_bytes_in_use", "hbm_peak_bytes", "hbm_limit_bytes", "jit_compiles",
+                 "jit_compile_seconds", "jit_steady_recompiles", "device_peak_flops")
+
+
+def fleet_obs(nodes, backends, first: dict, models, timeout_s: float = 60.0) -> dict:
+    """The observability plane after a predict, through the leader's verbs
+    over the port's TcpRpc: ``obs.fleet`` once the leader's scrape loop has
+    seen every member's MFU, and ``obs.critpath`` once its fold holds both
+    models. Checks for each member: the three HBM gauges non-null and
+    positive, ``hbm_limit_bytes`` the card's total memory; each model's
+    ``resident_bytes_<model>`` its engine's ``resident_bytes()``; the
+    ``mfu_<model>`` of each model the member served shards of in (0, 1],
+    and of the others None (a member runs only its assigned jobs);
+    ``jit_compiles``/``jit_compile_seconds`` this process's kernel builds;
+    ``device_peak_flops`` the H100's dense bf16 peak. Also times one
+    ``obs.fleet`` call and one scrape pass of the kind the leader's loop
+    makes (``observe.scrape_fleet_metrics`` over every member)."""
+    from dmlc_tpu_torch.cluster import observe
+    from dmlc_tpu_torch.cluster.devicemon import CENSUS, PEAK_FLOPS
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc
+
+    rpc = TcpRpc()
+    leader = nodes[0].self_leader_addr
+    members = sorted(n.self_member_addr for n in nodes)
+    served = {m: sorted(name for name, job in first["jobs"].items()
+                        if m in job["shards_by_member"]) for m in members}
+
+    def gauges_of(fleet: dict, member: str) -> dict:
+        return ((fleet.get(member) or {}).get("metrics") or {}).get("gauges") or {}
+
+    t0 = time.perf_counter()
+    while True:
+        fleet = rpc.call(leader, "obs.fleet", {}, timeout=10.0)["fleet"]
+        if sorted(fleet) == members and all(
+                gauges_of(fleet, m).get(f"mfu_{name}") is not None
+                for m in members for name in served[m]):
+            break
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"obs.fleet lacks members or MFU after {timeout_s} s: "
+                                 f"{sorted(fleet)}")
+        time.sleep(0.2)
+    scraped_after_s = time.perf_counter() - t0
+    while True:
+        crit = rpc.call(leader, "obs.critpath", {}, timeout=10.0)["critpath"]
+        if set(models) <= set(crit.get("models") or {}):
+            break
+        if time.perf_counter() - t0 > timeout_s:
+            raise AssertionError(f"obs.critpath has lanes of {sorted(crit.get('models') or {})}"
+                                 f" only, not of every model of {list(models)}")
+        time.sleep(0.2)
+    t = time.perf_counter()
+    rpc.call(leader, "obs.fleet", {}, timeout=10.0)
+    obs_fleet_ms = 1e3 * (time.perf_counter() - t)
+    t = time.perf_counter()
+    scraped = observe.scrape_fleet_metrics(
+        rpc, members, timeout=10.0, concurrency=nodes[0].config.scrape_concurrency)
+    scrape_pass_ms = 1e3 * (time.perf_counter() - t)
+    if sorted(scraped) != members:
+        raise AssertionError(f"a scrape pass reached {sorted(scraped)} of {members}")
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    per_member = {}
+    for i, node in enumerate(nodes):
+        m = node.self_member_addr
+        g = gauges_of(fleet, m)
+        row = {k: g.get(k) for k in DEVICE_GAUGES}
+        for k in ("hbm_bytes_in_use", "hbm_peak_bytes", "hbm_limit_bytes"):
+            if not (g.get(k) is not None and g[k] > 0):
+                raise AssertionError(f"{m}: {k} = {g.get(k)}, not a positive byte count")
+        if g["hbm_limit_bytes"] != total:
+            raise AssertionError(f"{m}: hbm_limit_bytes {g['hbm_limit_bytes']} is not the "
+                                 f"card's total memory {total}")
+        for name in models:
+            resident = g.get(f"resident_bytes_{name}")
+            want = backends[i][name].engine.resident_bytes()
+            if resident != want:
+                raise AssertionError(f"{m}: resident_bytes_{name} {resident}, the engine "
+                                     f"holds {want}")
+            mfu = g.get(f"mfu_{name}")
+            if name in served[m]:
+                if not (mfu is not None and 0.0 < mfu <= 1.0):
+                    raise AssertionError(f"{m}: mfu_{name} = {mfu}, not in (0, 1]")
+            elif mfu is not None:
+                raise AssertionError(f"{m}: mfu_{name} = {mfu} on a member that served "
+                                     f"no {name} shard")
+            row[f"resident_bytes_{name}"] = resident
+            row[f"mfu_{name}"] = mfu
+        if g["jit_compiles"] != CENSUS.compiles() or g["jit_compile_seconds"] != \
+                CENSUS.compile_seconds():
+            raise AssertionError(f"{m}: jit_compiles {g['jit_compiles']} / "
+                                 f"{g['jit_compile_seconds']} s, this process built "
+                                 f"{CENSUS.compiles()} / {CENSUS.compile_seconds()} s")
+        if g["device_peak_flops"] != PEAK_FLOPS["gpu"] or PEAK_FLOPS["gpu"] != 989e12:
+            raise AssertionError(f"{m}: device_peak_flops {g['device_peak_flops']}")
+        per_member[m] = {"served": served[m], **row}
+    lanes = {name: [[ln["stage"], ln["member"], ln["share"]] for ln in body["lanes"]]
+             for name, body in sorted(crit["models"].items())}
+    return {"members": per_member, "card_total_memory": total,
+            "kernel_builds": CENSUS.snapshot()["labels"],
+            "scraped_after_s": scraped_after_s, "obs_fleet_ms": obs_fleet_ms,
+            "scrape_pass_ms": scrape_pass_ms, "critpath_lanes": lanes,
+            "critpath_members_reporting": crit.get("members_reporting")}
+
+
+def fleet_trace(nodes, path: Path) -> dict:
+    """``trace fleet`` through the port's CLI on a non-leader: one Perfetto
+    document with a lane for each member, in which a dispatch's trace holds
+    spans of all three members (the leader's ``scheduler/dispatch``, the
+    member's ``rpc/job.predict`` and the store's pulls from a third)."""
+    from dmlc_tpu_torch.cli import Cli
+
+    out = Cli(nodes[1]).run_command(f"trace fleet {path}")
+    if "wrote merged fleet trace" not in out:
+        raise AssertionError(f"trace fleet: {out}")
+    doc = json.loads(path.read_text())
+    lanes = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"] if e.get("ph") == "M"}
+    members = sorted(n.self_member_addr for n in nodes)
+    if sorted(lanes.values()) != members:
+        raise AssertionError(f"trace fleet lanes {sorted(lanes.values())}, members {members}")
+    by_trace: dict[str, list] = {}
+    for e in doc["traceEvents"]:
+        if e.get("ph") == "X" and e["args"].get("trace"):
+            by_trace.setdefault(e["args"]["trace"], []).append(e)
+    spanning = [evs for evs in by_trace.values()
+                if {"scheduler/dispatch", "rpc/job.predict"} <= {e["name"] for e in evs}
+                and len({e["pid"] for e in evs}) == len(members)]
+    if not spanning:
+        raise AssertionError(f"no predict trace of {len(by_trace)} spans all {len(members)} "
+                             f"members")
+    example: dict[str, Counter] = {}
+    for e in spanning[0]:
+        example.setdefault(lanes[e["pid"]], Counter())[e["name"]] += 1
+    return {"cli": out, "spans": sum(len(v) for v in by_trace.values()),
+            "traces": len(by_trace), "traces_across_all_members": len(spanning),
+            "example": {"trace": spanning[0][0]["args"]["trace"],
+                        "spans_by_member": {m: dict(c) for m, c in sorted(example.items())}},
+            "max_skew_s": max((float(v.get("max_skew_s") or 0.0)
+                               for v in doc["otherData"].get("nodes", {}).values()),
+                              default=0.0)}
+
+
 def phase_cluster(dev: dict) -> dict:
     """The reference's job on the card through the port's own entry points:
     three port ClusterNodes (cluster/localcluster.py) on localhost TCP and
@@ -2335,14 +2492,25 @@ def phase_cluster(dev: dict) -> dict:
        new leader, new stores) whose members serve from the same backends:
        the publish and train() run there, and then resnet18's ``correct``
        must equal that of an engine built from the published module, and
-       alexnet's stay as in step 1."""
+       alexnet's stay as in step 1.
+
+    The observability plane rides both: the backends report their device
+    work to their node's device monitor (NodeDeviceWork), and the tracer is
+    on for both predicts. After step 1 the leader's ``obs.fleet`` and
+    ``obs.critpath`` are held to the device monitor's contract
+    (``fleet_obs``). The second fleet pulls its images through the store
+    (``data_from_sdfs``, the corpus published to it first), so that a
+    dispatch's trace reaches a third member, and ``trace fleet`` after its
+    predict must hold such a trace (``fleet_trace``)."""
     from dmlc_tpu_torch.cluster.localcluster import start_local_cluster, stop_local_cluster
     from dmlc_tpu_torch.models import weights as W
     from dmlc_tpu_torch.models.registry import get_model
     from dmlc_tpu_torch.ops import preprocess as pp
     from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.scheduler.dataset import publish_corpus
     from dmlc_tpu_torch.scheduler.worker import EngineBackend
     from dmlc_tpu_torch.utils import corpus
+    from dmlc_tpu_torch.utils.tracing import tracer
 
     models = ("resnet18", "alexnet")
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-cluster-") as td:
@@ -2368,20 +2536,34 @@ def phase_cluster(dev: dict) -> dict:
                                   variables=published.state_dict())
         want_trained = {"resnet18": correct(trained), "alexnet": want["alexnet"]}
         del direct, trained
-        backends = [{m: EngineBackend(m, data_dir, batch_size=BATCH, device="cuda")
-                     for m in models} for _ in range(CLUSTER_NODES)]
+        hooks = [NodeDeviceWork() for _ in range(CLUSTER_NODES)]
+        backends = [{m: EngineBackend(m, data_dir, batch_size=BATCH, device="cuda",
+                                      device_work=hook)
+                     for m in models} for hook in hooks]
         fleet = dict(n_nodes=CLUSTER_NODES, backends=lambda i: backends[i],
                      synset_path=root / "synsets.txt", scale=CLUSTER_SCALE, device="cuda",
                      data_dir=str(data_dir), batch_size=BATCH, job_models=list(models),
                      dispatch_shard_size=CLUSTER_SHARD)
         nodes = []
         try:
+            tracer.reset()
+            tracer.enabled = True
             t = time.perf_counter()
             nodes = start_local_cluster(root / "fleet1", **fleet)
             start_s = time.perf_counter() - t
+            for hook, node in zip(hooks, nodes):
+                hook.monitor = node.devicemon
             first = run_predict(nodes, want)
+            obs = fleet_obs(nodes, backends, first, models)
+            emit({"phase": "cluster_obs", "nvidia_smi": dev["nvidia_smi"], **obs})
             stop_local_cluster(nodes)
-            nodes = start_local_cluster(root / "fleet2", **fleet)
+            tracer.reset()
+            nodes = start_local_cluster(root / "fleet2", **fleet, data_from_sdfs=True)
+            for hook, node in zip(hooks, nodes):
+                hook.monitor = node.devicemon
+            t = time.perf_counter()
+            corpus_blobs = publish_corpus(nodes[2].sdfs, data_dir)
+            corpus_publish_s = time.perf_counter() - t
             variables = get_model("resnet18").to_jax(published.state_dict())
             t = time.perf_counter()
             version = W.publish_weights(nodes[2].sdfs, "resnet18", variables)
@@ -2393,7 +2575,11 @@ def phase_cluster(dev: dict) -> dict:
             if loaded != sorted(n.self_member_addr for n in nodes):
                 raise AssertionError(f"train() loaded resnet18 v{version} into {loaded} only")
             second = run_predict(nodes, want_trained)
+            trace = fleet_trace(nodes, root / "fleet.json")
+            emit({"phase": "cluster_trace", **trace})
         finally:
+            tracer.enabled = False
+            tracer.reset()
             stop_local_cluster(nodes)
     report = {
         "phase": "cluster", "nvidia_smi": dev["nvidia_smi"], "nodes": CLUSTER_NODES,
@@ -2404,6 +2590,8 @@ def phase_cluster(dev: dict) -> dict:
         "want_correct": want, "predict": first, "publish_s": publish_s,
         "blob_version": version, "train_s": train_s, "train_loaded": len(loaded),
         "want_correct_after_train": want_trained, "predict_after_train": second,
+        "fleet2_images_from_sdfs": True, "corpus_blobs": corpus_blobs,
+        "corpus_publish_s": corpus_publish_s, "tracing": True, "obs": obs, "trace": trace,
         "launches": {k: first["launches"][k] + second["launches"][k] for k in PREDICT_KERNELS},
     }
     emit(report)

@@ -3,8 +3,9 @@
 Ported from ``dmlc_tpu/cli.py``: the verbs whose node parts this package
 has answer as the JAX package's do — membership (list_mem/lm, list_self,
 join/j, leave/l), SDFS (put/p, get/g, get-versions/gv, delete/d, ls,
-store/s, scrub), ML (train/t, predict, jobs, assign), status, flight, trace
-(on/off, summary, export), tenants, help and exit. ``jobs`` prints accuracy
+store/s, scrub), ML (train/t, predict, jobs, assign), status, metrics
+(show, prom, fleet), flight, trace (on/off, summary, export, fleet),
+profile, critpath, tenants, device, help and exit. ``jobs`` prints accuracy
 and latency percentiles (mean/std/median/p90/p95/p99) like the reference's
 histogram report (main.rs:282-309). Every other verb of the JAX package's
 CLI answers with an error that names the module it waits for
@@ -22,10 +23,7 @@ import logging
 import shlex
 import socket
 
-from dmlc_tpu_torch.cluster.rpc import RpcError, RpcUnreachable
 from dmlc_tpu_torch.utils.config import ClusterConfig
-
-log = logging.getLogger(__name__)
 
 #: Verbs of the JAX package's CLI whose node parts this package has not
 #: ported yet, with the module each one waits for.
@@ -37,14 +35,8 @@ WAITING = {
     "export": "dmlc_tpu/models/export.py",
     "export-bundle": "dmlc_tpu/models/pjrt_bundle.py",
     "mesh-join": "dmlc_tpu/parallel/multihost.py",
-    "metrics": "dmlc_tpu/cluster/observe.py",
-    "profile": "dmlc_tpu/cluster/profile.py",
     "slo": "dmlc_tpu/scheduler/placement.py",
-    "critpath": "dmlc_tpu/cluster/critpath.py",
-    "device": "dmlc_tpu/cluster/devicemon.py",
 }
-#: ``trace fleet`` merges every node's spans through the observability plane.
-TRACE_FLEET_WAITS = "dmlc_tpu/cluster/observe.py"
 
 
 def format_table(headers: list[str], rows: list[list]) -> str:
@@ -60,6 +52,18 @@ def format_table(headers: list[str], rows: list[list]) -> str:
     return "\n".join([line(headers), sep, *(line(r) for r in cells)])
 
 
+def _fmt_bytes(v) -> str:
+    """Human-scaled byte count for the device table ('-' for unknown)."""
+    if v is None:
+        return "-"
+    v = float(v)
+    for unit in ("B", "KiB", "MiB", "GiB"):
+        if abs(v) < 1024.0 or unit == "GiB":
+            return f"{v:.1f}{unit}" if unit != "B" else f"{v:.0f}B"
+        v /= 1024.0
+    return f"{v:.1f}GiB"
+
+
 def format_latency(summary: dict[str, float]) -> str:
     ms = lambda k: f"{summary[k] * 1e3:.2f}ms" if summary.get("count") else "-"
     return (
@@ -73,21 +77,20 @@ def waiting_error(verb: str, module: str) -> str:
     return f"error: {verb!r} waits for {module}, which dmlc_tpu_torch has not ported yet"
 
 
-def set_fleet_tracing(rpc, addrs: list[str], enable: bool, timeout: float = 2.0) -> dict:
-    """Flip tracing on every reachable peer (``obs.trace_ctl``, best-effort;
-    returns {addr: reached}). The call of ``dmlc_tpu/cluster/observe.py``'s
-    function of this name: peers of this package do not serve that verb
-    yet, so only peers of the JAX package are reached."""
-    out: dict[str, bool] = {}
-    for addr in addrs:
-        try:
-            rpc.call(addr, "obs.trace_ctl", {"enable": enable, "reset": False},
-                     timeout=timeout)
-            out[addr] = True
-        except (RpcUnreachable, RpcError) as e:
-            out[addr] = False
-            log.warning("trace_ctl %s failed: %s", addr, e)
-    return out
+def pop_option(args: list[str], name: str, cast=str):
+    """Extract ``--name value`` from a REPL token list (mutates ``args``);
+    None when absent, ValueError on a missing or uncastable value."""
+    if name not in args:
+        return None
+    i = args.index(name)
+    if i + 1 >= len(args):
+        raise ValueError(f"{name} needs a value")
+    try:
+        value = cast(args[i + 1])
+    except (TypeError, ValueError):
+        raise ValueError(f"{name} got a bad value {args[i + 1]!r}") from None
+    del args[i:i + 2]
+    return value
 
 
 HELP = """\
@@ -112,17 +115,41 @@ Commands (reference: README.md:10-23):
                                         deadline trips, queue high-water,
                                         breakers, gray-demoted members,
                                         per-tenant gate occupancy + quota debt
-  trace on|off|summary|export <path>    span tracing: toggle (peers of the JAX
-                                        package too), aggregate table, local
-                                        Chrome trace
+  metrics [prom|fleet]                  this node's metric registry (counters,
+                                        gauges, latency summaries); `prom` =
+                                        Prometheus text; `fleet` = the leader's
+                                        latest per-member scrape + tree-merged
+                                        totals incl. per-gate quota sheds
+                                        (flags: --top K busiest nodes,
+                                        --worst K most error-laden nodes)
+  trace on|off|summary|export <path>    span tracing: toggle FLEET-WIDE,
+                                        aggregate table, local Chrome trace
+  trace fleet <path>                    merged fleet trace: every node's spans,
+                                        clock-aligned, one pid lane per node
   flight [member]                       flight-recorder event ring (breaker /
                                         gray / quarantine / shed transitions)
+  profile [member]                      live cost-profile lanes (model x
+                                        member x stage: n/mean/p50/p99/qps);
+                                        the leader's holds the whole fleet
+                                        (flags: --model M, --top K busiest
+                                        lanes, --worst K slowest-p99 lanes)
+  critpath [model] [--top K]            fleet critical-path attribution
+                                        (leader's fold): per model the
+                                        (stage x member) lanes ranked by
+                                        charged seconds, share of the
+                                        model's critical-path time,
+                                        p50/p99 self-time, and the drift
+                                        sentinel's verdict per lane
   tenants                               tenant table: declared priorities and
                                         shares, per-gate occupancy/quota/debt
+  device                                device-plane fleet table (devicemon):
+                                        HBM used/limit, kernel builds
+                                        (compiles) + build seconds,
+                                        steady-state rebuilds, per-model MFU
   help                                  this text
   exit | quit                           leave and stop the node
 Not ported yet, each answering with the module it waits for:
-  """ + ", ".join(sorted(WAITING)) + ", trace fleet\n"
+  """ + ", ".join(sorted(WAITING)) + "\n"
 
 
 class Cli:
@@ -300,6 +327,102 @@ class Cli:
             if s.get("cluster_error"):
                 out.append(f"  leader unreachable: {s['cluster_error']}")
             return "\n".join(out)
+        if cmd == "metrics":
+            sub = args[0] if args else "show"
+            if sub == "prom":
+                return n.registry.prometheus_text() or "(no metrics yet)"
+            if sub == "fleet":
+                opts = list(args[1:])
+                try:
+                    top = pop_option(opts, "--top", int)
+                    worst = pop_option(opts, "--worst", int)
+                except ValueError as e:
+                    return str(e)
+                if opts:
+                    return "usage: metrics fleet [--top K] [--worst K]"
+                try:
+                    reply = n.rpc.call(
+                        n.tracker.current, "obs.fleet", {}, timeout=5.0
+                    )
+                except Exception as e:
+                    return f"leader fleet scrape unavailable: {e}"
+                fleet = reply.get("fleet") or {}
+                if not fleet:
+                    return "no fleet scrape yet (leader scrapes on the probe cadence)"
+
+                # Error-shaped counters rank "worst"; total counter movement
+                # ranks "top" (the busiest nodes).
+                bad_keys = ("shed", "deadline_exceeded", "evicted",
+                            "breaker_open", "scrape_timeouts", "errors")
+
+                def activity(counters: dict) -> int:
+                    return sum(
+                        int(v or 0) for k, v in counters.items()
+                        if not k.endswith("_high")
+                    )
+
+                def badness(counters: dict) -> int:
+                    return sum(int(counters.get(k) or 0) for k in bad_keys)
+
+                entries = [
+                    (addr, (r.get("metrics") or {}).get("counters") or {})
+                    for addr, r in sorted(fleet.items())
+                ]
+                if worst is not None:
+                    entries.sort(key=lambda e: (-badness(e[1]), e[0]))
+                    entries = entries[:worst]
+                elif top is not None:
+                    entries.sort(key=lambda e: (-activity(e[1]), e[0]))
+                    entries = entries[:top]
+                rows = []
+                for addr, counters in entries:
+                    nonzero = {k: v for k, v in sorted(counters.items()) if v}
+                    rows.append([
+                        addr,
+                        ", ".join(f"{k}={v}" for k, v in nonzero.items()) or "(all zero)",
+                    ])
+                out = format_table(["node", "counters"], rows)
+                merged = (reply.get("merged") or {}).get("counters") or {}
+                if merged:
+                    totals = ", ".join(
+                        f"{k}={v}" for k, v in sorted(merged.items())
+                        if v and not k.endswith("_high")
+                    )
+                    out += f"\nfleet totals (tree-merged): {totals or '(all zero)'}"
+                    quota = {
+                        k[len("shed_over_quota_"):]: v
+                        for k, v in sorted(merged.items())
+                        if k.startswith("shed_over_quota_") and v
+                    }
+                    if quota:
+                        out += (
+                            "\nquota sheds (typed over_quota, by gate): "
+                            + ", ".join(f"{k}={v}" for k, v in quota.items())
+                        )
+                stale = reply.get("stale") or []
+                if stale:
+                    out += (
+                        f"\nWARNING: {len(stale)} member(s) in STALE scrape "
+                        f"spans (delegates dark): {', '.join(stale)}"
+                    )
+                return out
+            if sub == "show":
+                snap = n.registry.snapshot()
+                out = []
+                counters = {k: v for k, v in sorted(snap["counters"].items()) if v}
+                out.append(
+                    "counters: "
+                    + (", ".join(f"{k}={v}" for k, v in counters.items()) or "(all zero)")
+                )
+                gauges = {k: v for k, v in sorted(snap["gauges"].items()) if v is not None}
+                out.append(
+                    "gauges:   "
+                    + (", ".join(f"{k}={v:g}" for k, v in gauges.items()) or "(none)")
+                )
+                for name, s in sorted(snap["latency"].items()):
+                    out.append(f"  {name}: {format_latency(s)}")
+                return "\n".join(out)
+            return "usage: metrics [prom|fleet]"
         if cmd == "flight":
             if args:
                 wire = n.rpc.call(args[0], "obs.flight", {}, timeout=5.0)
@@ -319,15 +442,16 @@ class Cli:
                 lines.append(f"  t={e.get('t', 0):.3f} {e.get('kind')} {fields}")
             return "\n".join(lines)
         if cmd == "trace":
+            from dmlc_tpu_torch.cluster import observe
             from dmlc_tpu_torch.utils.tracing import tracer
 
             sub = args[0] if args else "summary"
             if sub in ("on", "off", "start", "stop"):
                 enable = sub in ("on", "start")
                 tracer.enabled = enable
-                # Arm/disarm the fleet (best-effort): spans only merge into
-                # one timeline if every node records them.
-                reached = set_fleet_tracing(
+                # Arm/disarm the whole fleet (best-effort): spans only merge
+                # into one timeline if every node records them.
+                reached = observe.set_fleet_tracing(
                     n.rpc,
                     [a for a in n.active_member_addrs() if a != n.self_member_addr],
                     enable,
@@ -341,7 +465,21 @@ class Cli:
                 tracer.export(args[1])
                 return f"wrote Chrome trace to {args[1]} (open in chrome://tracing)"
             if sub == "fleet":
-                return waiting_error("trace fleet", TRACE_FLEET_WAITS)
+                if len(args) != 2:
+                    return "usage: trace fleet <path>"
+                doc = n.export_fleet_trace(args[1])
+                lanes = {e.get("pid") for e in doc["traceEvents"] if e.get("ph") == "X"}
+                skew = max(
+                    (float(v.get("max_skew_s") or 0.0)
+                     for v in doc["otherData"].get("nodes", {}).values()),
+                    default=0.0,
+                )
+                return (
+                    f"wrote merged fleet trace to {args[1]}: "
+                    f"{sum(1 for e in doc['traceEvents'] if e.get('ph') == 'X')} "
+                    f"span(s) across {len(lanes)} node lane(s), "
+                    f"max clamp skew {skew * 1e3:.2f}ms"
+                )
             if sub == "summary":
                 rows = []
                 dropped = None
@@ -357,7 +495,110 @@ class Cli:
                 if dropped:
                     table += f"\nWARNING: {dropped} span(s) dropped past max_events"
                 return table
-            return "usage: trace on|off|summary|export <path>"
+            return "usage: trace on|off|summary|export <path>|fleet <path>"
+        if cmd == "profile":
+            # Local snapshot by default (any node keeps one — the leader's
+            # holds the fleet's lanes); `profile <member>` asks a peer.
+            opts = list(args)
+            try:
+                top = pop_option(opts, "--top", int)
+                worst = pop_option(opts, "--worst", int)
+                model_filter = pop_option(opts, "--model")
+            except ValueError as e:
+                return str(e)
+            if len(opts) > 1:
+                return "usage: profile [member] [--model M] [--top K] [--worst K]"
+            if opts:
+                snap = n.rpc.call(opts[0], "obs.profile", {}, timeout=5.0)
+            else:
+                snap = n.profiler.snapshot()
+            lanes = []
+            for model, members in sorted(snap.get("profiles", {}).items()):
+                if model_filter is not None and model != model_filter:
+                    continue
+                for member, stages in sorted(members.items()):
+                    for stage, s in sorted(stages.items()):
+                        lanes.append((model, member, stage, s))
+            # --worst surfaces the slowest lanes (p99); --top the busiest.
+            if worst is not None:
+                lanes.sort(key=lambda x: (-float(x[3]["p99"]), x[0], x[1], x[2]))
+                lanes = lanes[:worst]
+            elif top is not None:
+                lanes.sort(key=lambda x: (-int(x[3]["n"]), x[0], x[1], x[2]))
+                lanes = lanes[:top]
+            rows = [
+                [
+                    model, member, stage, s["n"],
+                    f"{s['mean'] * 1e3:.2f}ms",
+                    f"{s['p50'] * 1e3:.2f}ms",
+                    f"{s['p99'] * 1e3:.2f}ms",
+                    f"{s['qps']:.2f}",
+                ]
+                for model, member, stage, s in lanes
+            ]
+            if not rows:
+                if model_filter is not None:
+                    return f"no profile lanes for model {model_filter!r}"
+                return "no profile lanes yet (profiles grow from dispatches and scrapes)"
+            return format_table(
+                ["model", "member", "stage", "n", "mean", "p50", "p99", "qps"], rows
+            )
+        if cmd == "critpath":
+            # The leader's folded critical-path table: where each model's
+            # request time actually goes, lane by (stage, member), with
+            # the drift sentinel's per-lane verdict alongside.
+            opts = list(args)
+            try:
+                top = pop_option(opts, "--top", int)
+            except ValueError as e:
+                return str(e)
+            if len(opts) > 1:
+                return "usage: critpath [model] [--top K]"
+            model_filter = opts[0] if opts else None
+            try:
+                reply = n.rpc.call(
+                    n.tracker.current, "obs.critpath", {}, timeout=5.0
+                )
+            except Exception as e:
+                return f"leader critpath unavailable: {e}"
+            table = reply.get("critpath") or {}
+            sentinel = reply.get("sentinel") or {}
+            drifting = {
+                (ln.get("model"), ln.get("stage"), ln.get("member"))
+                for ln in sentinel.get("lanes", ())
+                if ln.get("alert")
+            }
+            rows = []
+            for model, body in sorted((table.get("models") or {}).items()):
+                if model_filter is not None and model != model_filter:
+                    continue
+                lanes = body.get("lanes") or []
+                if top is not None:
+                    lanes = lanes[:top]
+                for ln in lanes:
+                    p50, p99 = ln.get("p50"), ln.get("p99")
+                    rows.append([
+                        model, ln.get("stage"), ln.get("member"),
+                        f"{float(ln.get('crit_s') or 0.0):.3f}s",
+                        f"{float(ln.get('share') or 0.0) * 100:.1f}%",
+                        f"{p50 * 1e3:.1f}ms"
+                        if isinstance(p50, (int, float)) else "-",
+                        f"{p99 * 1e3:.1f}ms"
+                        if isinstance(p99, (int, float)) else "-",
+                        ln.get("n", 0),
+                        "DRIFT" if (model, ln.get("stage"), ln.get("member"))
+                        in drifting else "",
+                    ])
+            if not rows:
+                if model_filter is not None:
+                    return f"no critical-path lanes for model {model_filter!r}"
+                return ("no critical-path lanes yet (lanes grow as sampled "
+                        "request traces are charged on the scrape cycle)")
+            return format_table(
+                ["model", "stage", "member", "crit", "share", "p50", "p99",
+                 "n", "state"],
+                rows,
+            )
         if cmd == "tenants":
             # The tenant plane in one read: declared table and this node's
             # gate ledgers.
@@ -387,6 +628,48 @@ class Cli:
                      for tname, t in sorted(tenants.items())],
                 ))
             return "\n".join(out)
+        if cmd == "device":
+            # Device-plane fleet table (cluster/devicemon.py, docs/
+            # OBSERVABILITY.md §8), read from the leader's last obs scrape
+            # so it works from any member; falls back to this node's own
+            # gauges when no leader scrape is reachable.
+            try:
+                reply = n.rpc.call(n.tracker.current, "obs.fleet", {}, timeout=5.0)
+                fleet = reply.get("fleet") or {}
+            except Exception:
+                fleet = {}
+            if not fleet:
+                fleet = {n.self_member_addr: {"metrics": n.registry.snapshot()}}
+            rows = []
+            for addr, r in sorted(fleet.items()):
+                gauges = (r.get("metrics") or {}).get("gauges") or {}
+                used = gauges.get("hbm_bytes_in_use")
+                limit = gauges.get("hbm_limit_bytes")
+                hbm = (
+                    f"{_fmt_bytes(used)}/{_fmt_bytes(limit)}"
+                    if used is not None and limit is not None
+                    else "-"
+                )
+                mfu = ", ".join(
+                    f"{k[len('mfu_'):]}={v:.3f}"
+                    for k, v in sorted(gauges.items())
+                    if k.startswith("mfu_") and v is not None
+                )
+                compiles = gauges.get("jit_compiles")
+                seconds = gauges.get("jit_compile_seconds")
+                rows.append([
+                    addr,
+                    hbm,
+                    "-" if compiles is None else f"{compiles:g}",
+                    "-" if seconds is None else f"{seconds:.1f}s",
+                    f"{gauges.get('jit_steady_recompiles') or 0:g}",
+                    mfu or "-",
+                ])
+            return format_table(
+                ["node", "hbm used/limit", "compiles", "compile time",
+                 "steady recompiles", "mfu"],
+                rows,
+            )
         if cmd == "help":
             return HELP
         if cmd in ("exit", "quit"):

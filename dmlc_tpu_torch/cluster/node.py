@@ -5,8 +5,12 @@ only to modules this package has: the fabric (auth, ``TcpRpc``/
 ``TcpRpcServer``, admission gates, retry policy, clock, UDP gossip
 membership), the SDFS (member store, member, client and leader), the
 member's workers (``PredictWorker`` over ``EngineBackend``s,
-``GenerateWorker``, ``ModelLoader``, ``DynamicBatcher``) and the leader
-(``JobScheduler``, ``LeaderTracker``, ``StandbyLeader``). A node of this
+``GenerateWorker``, ``ModelLoader``, ``DynamicBatcher``), the
+observability plane (``CostProfiler``, ``CritPathAnalyzer``/
+``FleetCritPath``, ``DriftSentinel``, ``ObsService``, ``ScrapeDelegate``)
+and the device monitor on every node, and the leader (``JobScheduler``,
+``LeaderTracker``, ``StandbyLeader``, ``ScrapeTreeCoordinator`` and the
+``obs.fleet``/``obs.fleet_prom``/``obs.critpath`` verbs). A node of this
 package and one of the JAX package join one fleet: their gossip, RPC frames
 and verbs are the same.
 
@@ -29,14 +33,14 @@ so membership stays the single source of liveness truth.
 
 Engines run on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` building an engine
-raises. Left out until this package ports them: the observability plane
-(``observe``, ``profile``, ``critpath``, ``sentinel``, ``scrapetree``, and so
-the leader's ``obs.*`` verbs), ``devicemon``, ``decodetier``, ``placement``,
+raises. Left out until this package ports them: ``decodetier``,
+``placement`` (and so the leader's ``obs.slo`` verb and its SLO evaluator),
 ``autoscaler``, ``genrouter`` (and the ``gen.*`` routing verbs),
 ``multihost``, ``LmBackend``, ``ExportedBackend`` and the compile cache.
 Their switches that are on by default (``DEFAULT_ON_LEFT_OUT``) are left
 out with one warning in the log; a config that turns on one that is off by
-default (``refuse_unported``) raises ``NotImplementedError``.
+default (``refuse_unported``) raises ``NotImplementedError``. Without the
+placement advisor, the leader's assignment stays the round-robin split.
 """
 
 from __future__ import annotations
@@ -47,14 +51,21 @@ from pathlib import Path
 
 import torch
 
+from dmlc_tpu_torch.cluster import observe
 from dmlc_tpu_torch.cluster.admission import AdmissionGate
 from dmlc_tpu_torch.cluster.clock import Clock, TimerRegistry
+from dmlc_tpu_torch.cluster.critpath import CritPathAnalyzer, FleetCritPath
+from dmlc_tpu_torch.cluster.devicemon import DeviceMonitor
 from dmlc_tpu_torch.cluster.failover import LeaderTracker, StandbyLeader
 from dmlc_tpu_torch.cluster.flight import FlightRecorder
 from dmlc_tpu_torch.cluster.membership import MembershipNode
+from dmlc_tpu_torch.cluster.observe import ObsService
+from dmlc_tpu_torch.cluster.profile import CostProfiler
 from dmlc_tpu_torch.cluster.retrypolicy import RetryPolicy
 from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
+from dmlc_tpu_torch.cluster.scrapetree import ScrapeDelegate, ScrapeTreeCoordinator
 from dmlc_tpu_torch.cluster.sdfs import MemberStore, SdfsClient, SdfsLeader, SdfsMember
+from dmlc_tpu_torch.cluster.sentinel import DriftSentinel
 from dmlc_tpu_torch.cluster.tenant import parse_tenants
 from dmlc_tpu_torch.cluster.transport import UdpTransport
 from dmlc_tpu_torch.scheduler.jobs import JobScheduler
@@ -76,10 +87,6 @@ log = logging.getLogger(__name__)
 #: them and names those that are on in one warning.
 DEFAULT_ON_LEFT_OUT = {
     "placement_enabled": "dmlc_tpu/scheduler/placement.py",
-    "critpath_enabled": "dmlc_tpu/cluster/critpath.py",
-    "sentinel_enabled": "dmlc_tpu/cluster/sentinel.py",
-    "profile_persist": "dmlc_tpu/cluster/profile.py",
-    "devicemon_poll_interval_s": "dmlc_tpu/cluster/devicemon.py",
 }
 
 
@@ -90,6 +97,31 @@ def member_rpc_addr(gossip_addr: str, port_offset: int) -> str:
     fleet-wide, so several nodes can share a host in tests."""
     host, _, gport = gossip_addr.rpartition(":")
     return f"{host}:{int(gport) + port_offset}"
+
+
+def _backend_resident(backend) -> int | None:
+    """Resident device bytes of a predict backend's engine — None until the
+    lazy engine builds (or for backends without the capability, e.g. the
+    test fakes). Backends that know their own footprint answer directly."""
+    fn = getattr(backend, "resident_bytes", None)
+    if fn is None:
+        engine = getattr(backend, "_engine", None)
+        fn = getattr(engine, "resident_bytes", None)
+    try:
+        return int(fn()) if fn is not None else None
+    except Exception:  # noqa: BLE001 - gauge read must never raise
+        return None
+
+
+def _gen_resident(backend) -> int | None:
+    """Resident device bytes (weights + KV page pools) of a generation
+    backend's engine — None until the lazy scheduler/engine builds."""
+    sched = getattr(backend, "_scheduler", None)
+    fn = getattr(getattr(sched, "engine", None), "resident_bytes", None)
+    try:
+        return int(fn()) if fn is not None else None
+    except Exception:  # noqa: BLE001 - gauge read must never raise
+        return None
 
 
 def _model_kind(name: str) -> str:
@@ -185,11 +217,11 @@ class ClusterNode:
         # schedule explorer.
         self.timers = TimerRegistry()
 
+        # --- observability plane (docs/OBSERVABILITY.md) ----------------
         # ONE counter registry, ONE flight recorder, and ONE retry governor
-        # per node, shared by every component: the CLI `status` verb and
-        # leader.status read the same numbers the gates/breakers/scheduler
-        # write. The gauge registry goes to the generation backends; the
-        # scrape that exports it comes with the observability plane.
+        # per node, shared by every component: the CLI `status`/`metrics`
+        # verbs, leader.status, and the obs.* scrape surface all read the
+        # same numbers the gates/breakers/scheduler write.
         self.metrics = Counters()
         # Multi-tenant admission: the declared tenant table feeds every
         # gate's quota ledger and the CLI `tenants` verb; the label guard
@@ -230,12 +262,97 @@ class ClusterNode:
             flight=self.flight,
             tenants=self.tenant_specs,
         )
-        # Head-based trace sampling: base rate + spans/s budget from config.
-        # The tracer is process-global — co-hosted nodes (localcluster)
-        # share one controller, exactly like they share one span buffer.
+        self.registry.gauge("predict_gate_active", lambda: self.predict_gate.active)
+        self.registry.gauge("transfer_gate_active", lambda: self.transfer_gate.active)
+        # Latest obs.metrics reply per member, scraped by the leader on the
+        # probe cadence (empty on non-leading nodes). fleet_merged is the
+        # counter-exact fleet-wide rollup the scrape tree folds;
+        # fleet_stale lists member addrs whose span went dark this cycle.
+        self.fleet_metrics: dict[str, dict] = {}
+        self.fleet_merged: dict = {}
+        self.fleet_stale: list[str] = []
+        # Head-based trace sampling: base rate + spans/s budget from config;
+        # the per-node decision counters ride obs.metrics as gauges. The
+        # tracer is process-global — co-hosted nodes (localcluster) share
+        # one controller, exactly like they share one span buffer.
         tracing.tracer.set_sampling(
             rate=config.trace_sample_rate,
             spans_per_s=config.trace_spans_per_s_budget,
+        )
+        self.registry.gauge(
+            "trace_sampled",
+            lambda: tracing.tracer.sampling_summary()["sampled"],
+        )
+        self.registry.gauge(
+            "trace_unsampled",
+            lambda: tracing.tracer.sampling_summary()["unsampled"],
+        )
+        self.registry.gauge(
+            "trace_sampling_rate",
+            lambda: tracing.tracer.sampling_summary()["effective_rate"],
+        )
+        # Live cost profiles (cluster/profile.py): every node keeps one —
+        # members feed their own gen/step and device lanes, the leader
+        # additionally folds dispatch latencies + fleet scrapes into
+        # fleet-wide lanes. Warm-started from the persisted snapshot.
+        self.profiler = CostProfiler(
+            window_s=config.profile_window_s,
+            windows=config.profile_windows,
+            decay=config.profile_decay,
+            clock=self.clock.monotonic,
+        )
+        if config.profile_persist:
+            adopted = self.profiler.load(self.profile_path())
+            if adopted:
+                self.flight.note("profile_warm_start", lanes=adopted)
+        # Root-cause plane (cluster/critpath.py): every node drains its
+        # sampled span DAGs into per-(model, stage, member) critical-path
+        # seconds; the snapshot rides obs.metrics to the leader, which
+        # folds the fleet table and runs the drift sentinel.
+        self.critpath = (
+            CritPathAnalyzer(
+                window_s=config.critpath_window_s,
+                windows=config.critpath_windows,
+                decay=config.critpath_decay,
+                clock=self.clock.monotonic,
+            )
+            if config.critpath_enabled else None
+        )
+        self.fleet_critpath = FleetCritPath()
+        self.sentinel = (
+            DriftSentinel(
+                quantile=config.sentinel_quantile,
+                drift_factor=config.sentinel_drift_factor,
+                clear_factor=config.sentinel_clear_factor,
+                min_samples=config.sentinel_min_samples,
+                confirm_windows=config.sentinel_confirm_windows,
+                baseline_decay=config.sentinel_baseline_decay,
+                force_sample_s=config.sentinel_force_sample_s,
+                flight_note=self.flight.note,
+                force_sample=self._drift_force_sample,
+                request_replan=self._drift_request_replan,
+            )
+            if config.sentinel_enabled and config.critpath_enabled else None
+        )
+        # Worst clamp distance seen in the last merged fleet trace (set by
+        # export_fleet_trace below); 0 until a trace has been collected.
+        self._trace_max_skew = 0.0
+        self.registry.gauge("trace_max_skew_s", lambda: self._trace_max_skew)
+        # Device-plane telemetry (cluster/devicemon.py): kernel-build census
+        # + HBM gauges + live MFU on the SAME registry the obs scrape
+        # exports, so the leader learns about rebuilds and memory pressure
+        # the way it learns about queue depths.
+        self.devicemon = DeviceMonitor(
+            self.registry,
+            flight=self.flight,
+            metrics=self.metrics,
+            profiler=self.profiler,
+            member=self.lane,
+            clock=self.clock.monotonic,
+            warmup_s=config.devicemon_warmup_s,
+            hbm_alert_fraction=config.devicemon_hbm_alert_fraction,
+            peak_flops=config.devicemon_peak_flops,
+            device=device,
         )
 
         # --- L1 membership over UDP gossip -----------------------------
@@ -244,6 +361,10 @@ class ClusterNode:
 
         # --- member services (SDFS store + inference worker) -----------
         self.store = MemberStore(Path(config.storage_dir), flight=self.flight)
+        self.registry.gauge(
+            "sdfs_blobs",
+            lambda: sum(len(vs) for vs in self.store.listing().values()),
+        )
         self.sdfs_member = SdfsMember(
             self.store,
             self.rpc,
@@ -254,11 +375,21 @@ class ClusterNode:
         if backends is None:
             backends = {
                 name: EngineBackend(
-                    name, config.data_dir, batch_size=config.batch_size, device=device
+                    name, config.data_dir, batch_size=config.batch_size, device=device,
+                    device_work=self.devicemon.device_work,
                 )
                 for name in config.job_models
             }
         self.worker = PredictWorker(backends, gate=self.predict_gate)
+        # Per-model device accounting: resident_bytes_<model> (None until
+        # the lazy engine builds) + mfu_<model> gauges. Registered against
+        # the RAW backends, before any DynamicBatcher wrap below.
+        for name, backend in self.worker.backends.items():
+            self.devicemon.register_model(
+                name, resident_bytes=lambda b=backend: _backend_resident(b)
+            )
+        # Idle decode capacity, scraped fleet-wide by the leader's obs loop.
+        self.registry.gauge("decode_lane_idle", self.worker.decode_lane_idle)
         # --- generation serving (generate/) ------------------------------
         # Continuous-batching LM worker: slots join/leave the running
         # decode batch between steps, KV lives in fixed-size pages, and
@@ -281,11 +412,21 @@ class ClusterNode:
                     flight=self.flight,
                     registry=self.registry,
                     lane=lambda: self.lane,
+                    # Decode-step costs land in this node's own profile
+                    # lane; the leader's scrape folds them fleet-wide.
+                    profile=lambda sec, m=name: self.profiler.record(
+                        m, self.lane, "gen/step", sec
+                    ),
+                    device_work=self.devicemon.device_work,
                     tenants=self.tenant_specs,
                     device=device,
                 )
                 for name in config.generate_models
             }
+            for name, gb in self._gen_backends.items():
+                self.devicemon.register_model(
+                    name, resident_bytes=lambda b=gb: _gen_resident(b)
+                )
             self.generate_worker = GenerateWorker(
                 self._gen_backends, session_ttl_s=config.gen_session_ttl_s,
                 flight=self.flight,
@@ -293,11 +434,29 @@ class ClusterNode:
         self.model_loader = ModelLoader(
             self.store, self.worker.backends, extra=self._gen_backends
         )
+        self.obs = ObsService(
+            self.registry, flight=self.flight, lane=self.lane,
+            profiler=self.profiler, critpath=self.critpath,
+            claim_unlaned=lambda: (
+                self.standby is not None and self.standby.is_leader
+            ),
+        )
+        # Scrape-tree delegate surface (cluster/scrapetree.py): ANY member
+        # can scrape a ring span on the leader's behalf — delegates are
+        # picked per cycle, so there is nothing to elect.
+        self.scrape_delegate = ScrapeDelegate(
+            self.rpc,
+            timeout_s=config.scrape_timeout_s,
+            concurrency=config.scrape_concurrency,
+            metrics=self.metrics,
+        )
         methods = traced_methods({
             **self.sdfs_member.methods(),
             **self.worker.methods(),
             **(self.generate_worker.methods() if self.generate_worker else {}),
             **self.model_loader.methods(),
+            **self.obs.methods(),
+            **self.scrape_delegate.methods(),
             "node.info": self._node_info,
             "node.status": lambda p: self.status(remote=False),
         })
@@ -309,7 +468,9 @@ class ClusterNode:
         if self.self_member_addr != self.lane:  # OS-assigned port (port 0)
             self.lane = self.self_member_addr
             self.flight.node = self.lane
+            self.obs.lane = self.lane
             self.member_server.lane = self.lane
+            self.devicemon.member = self.lane
 
         # --- leader-candidate machinery --------------------------------
         candidates = config.leader_candidates or [f"{config.host}:{config.leader_port}"]
@@ -324,6 +485,7 @@ class ClusterNode:
         self.sdfs_leader = None
         self.scheduler = None
         self.standby = None
+        self.scrapetree = None
         if self.is_candidate:
             self._start_leader_services()
 
@@ -373,6 +535,9 @@ class ClusterNode:
                 )
                 self.worker.backends[name] = wrapped
                 self._batchers.append(wrapped)
+                self.registry.gauge(
+                    f"microbatch_queue_{name}", lambda b=wrapped: len(b._queue)
+                )
 
     # ---- leader side ---------------------------------------------------
 
@@ -398,8 +563,9 @@ class ClusterNode:
             transfer_timeout_s=self.config.transfer_deadline_s,
         )
         self._weight_cache: dict[str, tuple[int, float]] = {}
-        # No profiler and no advisor: assignment is the reference's
-        # round-robin split (scheduler/jobs.py assign_once).
+        # The profiler takes every dispatch's measured cost; with no
+        # placement advisor, assignment stays the reference's round-robin
+        # split (scheduler/jobs.py assign_once).
         self.scheduler = JobScheduler(
             self.rpc,
             self.active_member_addrs,
@@ -414,10 +580,54 @@ class ClusterNode:
             gray_probe_interval_s=self.config.gray_probe_interval_s,
             metrics=self.metrics,
             flight=self.flight,
+            profiler=self.profiler,
+            advisor=None,
+        )
+        # Gang placement read-out: the planned gang width per job (0 =
+        # solo/replicated serving), scrapeable beside the per-member
+        # resident_bytes_<model> gauges.
+        for job_name in self.config.job_models:
+            self.registry.gauge(
+                f"gang_world_{job_name}",
+                lambda n=job_name: self.scheduler.jobs[n].gang_world,
+            )
+        # Delegated scrape tree (cluster/scrapetree.py): past
+        # scrape_tree_min_members the scrape loop partitions the ring and
+        # folds delegate partials instead of calling every member itself.
+        self.scrapetree = ScrapeTreeCoordinator(
+            self.rpc,
+            clock=self.clock.monotonic,
+            span_size=self.config.scrape_span_size,
+            timeout_s=self.config.scrape_timeout_s,
+            concurrency=self.config.scrape_concurrency,
+            metrics=self.metrics,
+            flight=self.flight,
         )
         methods = {
             **self.sdfs_leader.methods(),
             **self.scheduler.methods(),
+            # Fleet-wide observability read-outs: the latest obs.metrics
+            # snapshot per member (scraped by _obs_scrape_loop while
+            # leading), raw and as Prometheus text, plus the tree-merged
+            # fleet rollup and any spans dark this cycle, and the fleet
+            # critical-path table with the drift sentinel's state.
+            **traced_methods({
+                "obs.fleet": lambda p: {
+                    "fleet": dict(self.fleet_metrics),
+                    "merged": dict(self.fleet_merged),
+                    "stale": list(self.fleet_stale),
+                },
+                "obs.fleet_prom": lambda p: {
+                    "text": observe.render_fleet_prometheus(dict(self.fleet_metrics))
+                },
+                "obs.critpath": lambda p: {
+                    "critpath": self.fleet_critpath.table(),
+                    "sentinel": (
+                        self.sentinel.status()
+                        if self.sentinel is not None else {}
+                    ),
+                },
+            }),
         }
         self.leader_server = TcpRpcServer(
             self.config.host, self.config.leader_port, methods, auth=self.auth,
@@ -508,11 +718,14 @@ class ClusterNode:
                     log.exception("eager warmup failed; backend will build lazily")
         self._spawn(self._membership_loop)
         self._spawn(self._probe_loop)
+        if self.config.devicemon_poll_interval_s > 0:
+            self._spawn(self._devicemon_loop)
         if self.config.scrub_interval_s > 0:
             self._spawn(self._scrub_loop)
         if self.is_candidate:
             self._spawn(self._heal_loop)
             self._spawn(self._assign_loop)
+            self._spawn(self._obs_scrape_loop)
             for _ in range(max(1, self.config.dispatch_workers)):
                 self._spawn(self._dispatch_loop)
             self._spawn(self._standby_loop)
@@ -535,6 +748,30 @@ class ClusterNode:
         base = Path(self.config.storage_dir)
         return base.parent / (base.name + ".flight.json")
 
+    def profile_path(self) -> Path:
+        """Where this node's cost-profile snapshot persists (same sibling
+        convention as the flight dump) for restart warm-start."""
+        base = Path(self.config.storage_dir)
+        return base.parent / (base.name + ".profile.json")
+
+    def export_fleet_trace(self, path: str | Path) -> dict:
+        """Collect + write one merged fleet trace (CLI ``trace fleet``),
+        with this node's flight recorder armed for the skew-clamp alarm;
+        the worst residual skew lands in the ``trace_max_skew_s`` gauge."""
+        doc = observe.export_fleet_trace(
+            self.rpc,
+            sorted(set(self.active_member_addrs()) | {self.self_member_addr}),
+            path,
+            flight=self.flight,
+            skew_alert_s=self.config.trace_skew_alert_s,
+        )
+        nodes = doc.get("otherData", {}).get("nodes", {})
+        self._trace_max_skew = max(
+            (float(v.get("max_skew_s") or 0.0) for v in nodes.values()),
+            default=0.0,
+        )
+        return doc
+
     def stop(self) -> None:
         self._stop.set()
         for b in self._batchers:
@@ -543,10 +780,13 @@ class ClusterNode:
             gb.stop(timeout_s=2.0)
         for t in self._threads:
             t.join(timeout=2.0)
+        self.devicemon.close()  # unsubscribe from the process-global census
         self.member_server.close()
         if self.leader_server is not None:
             self.leader_server.close()
         self.gossip.close()
+        if self.config.profile_persist:
+            self.profiler.save(self.profile_path())
         self.flight.note("node_stop")
         self.flight.dump(self.flight_dump_path(), reason="stop")
 
@@ -578,6 +818,13 @@ class ClusterNode:
     def _membership_loop(self):
         self._timer("membership", self.config.heartbeat_interval_s,
                     self.membership.step)
+
+    def _devicemon_loop(self):
+        """HBM watermark/alert poll (cluster/devicemon.py): tracks the
+        high-water mark and fires the ``hbm_high_watermark`` flight event
+        on the alert-fraction edge."""
+        self._timer("devicemon", self.config.devicemon_poll_interval_s,
+                    self.devicemon.poll)
 
     def _probe_loop(self):
         def body():
@@ -685,9 +932,77 @@ class ClusterNode:
         self._timer("standby", self.config.leader_probe_interval_s,
                     self.standby.step)
 
+    def _obs_scrape_loop(self):
+        """Leader-side fleet metrics scrape: while leading, refresh every
+        active member's ``obs.metrics`` on the probe cadence — directly
+        (bounded concurrency, per-scrape deadlines) for small fleets,
+        through the delegated scrape tree past ``scrape_tree_min_members``.
+        ``obs.fleet``/``obs.fleet_prom`` and the CLI ``metrics fleet`` verb
+        read from here. Each pass folds the scrapes into the leader's cost
+        profiler and fleet critical-path table, ticks the drift sentinel,
+        and persists the profile snapshot for warm-start. (The reference's
+        SLO evaluation and autoscaler tick, on the same pass, wait for
+        ``scheduler/placement.py`` and ``scheduler/autoscaler.py``.)"""
+
+        def body():
+            cfg = self.config
+            addrs = self.active_member_addrs()
+            if (
+                self.scrapetree is not None
+                and cfg.scrape_tree_enabled
+                and len(addrs) >= cfg.scrape_tree_min_members
+            ):
+                result = self.scrapetree.scrape(addrs)
+                fleet = result.members
+                self.fleet_merged = result.merged_summary
+                self.fleet_stale = sorted(
+                    a for s in result.stale_spans for a in s["addrs"]
+                )
+            else:
+                fleet = observe.scrape_fleet_metrics(
+                    self.rpc, addrs, timeout=cfg.scrape_timeout_s,
+                    concurrency=cfg.scrape_concurrency, metrics=self.metrics,
+                )
+                self.fleet_stale = []
+            self.fleet_metrics = fleet
+            for addr, reply in fleet.items():
+                self.profiler.ingest_scrape(addr, reply)
+                # Critical-path snapshots ride the same scrape reply: fold
+                # the fleet table the drift sentinel reads from.
+                crit = reply.get("critpath")
+                if crit is not None:
+                    self.fleet_critpath.fold(addr, crit)
+            self.fleet_critpath.prune(addrs)
+            if self.sentinel is not None:
+                self.sentinel.tick(self.fleet_critpath.table())
+            if self.config.profile_persist:
+                self.profiler.save(self.profile_path())
+
+        self._timer(
+            "obs_scrape", self.config.leader_probe_interval_s,
+            lambda: self._if_leading(body),
+        )
+
     def _if_leading(self, fn):
         if self.standby is not None and self.standby.is_leader:
             fn()
+
+    # ---- drift sentinel hooks (cluster/sentinel.py) --------------------
+
+    def _drift_force_sample(self, seconds: float) -> None:
+        """Sentinel alert hook: open a forced trace-sampling window locally
+        and push it to every member (best-effort) — the drift window must
+        be densely traced, not a head-sampling lottery."""
+        tracing.tracer.force_sampling(seconds)
+        observe.force_fleet_sampling(
+            self.rpc, sorted(self.active_member_addrs()), seconds,
+            timeout=self.config.scrape_timeout_s,
+        )
+
+    def _drift_request_replan(self, reason: str) -> None:
+        """Sentinel localization hook: drift pinned to one member asks the
+        scheduler for a placement replan under that evidence."""
+        self.scheduler.request_replan(reason)
 
     # ---- CLI-facing verbs ---------------------------------------------
 

@@ -6,7 +6,10 @@ pointers and the CUDA stream are passed as ``void*``, and every entry point
 returns ``cudaGetLastError()`` so the Python wrapper can raise on a refused
 launch. A library is rebuilt when its source is newer than it. Stale
 libraries are compiled in parallel, one ``nvcc`` process per source, all
-started together. A failed build raises; nothing falls back.
+started together. A failed build raises; nothing falls back. Each library
+compiled is recorded in the device monitor's build census
+(``cluster/devicemon.CENSUS``) under ``kernel/<name>``; one loaded from
+``_build/`` without a compile is not.
 
 Nothing here runs at import time: the CPU-only test environment imports this
 module and never builds.
@@ -20,6 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
 PKG_DIR = Path(__file__).resolve().parent.parent
@@ -80,7 +84,11 @@ def _stale(name: str) -> bool:
 def build(names: list[str] | None = None) -> float:
     """Compile every stale kernel in ``names`` (default: all), in parallel.
     Returns the wall seconds spent; raises ``RuntimeError`` with the
-    compiler's output when any compile fails."""
+    compiler's output when any compile fails. Each library compiled is
+    recorded in ``devicemon.CENSUS`` as ``kernel/<name>`` with its own nvcc
+    process's wall seconds."""
+    from dmlc_tpu_torch.cluster.devicemon import CENSUS
+
     names = kernel_names() if names is None else list(names)
     for name in names:
         if not (CSRC_DIR / f"{name}.cu").is_file():
@@ -100,15 +108,25 @@ def build(names: list[str] | None = None) -> float:
         procs.append((name, tmp, subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True
         )))
-    failures = []
-    for name, tmp, proc in procs:
+
+    def reap(entry):
+        # One thread a compiler: each library's wall ends when its own nvcc
+        # exits, not when the slowest one before it in the list does.
+        name, tmp, proc = entry
         out, _ = proc.communicate()
+        return name, tmp, proc, out, time.perf_counter() - t0
+
+    with ThreadPoolExecutor(max_workers=len(procs)) as pool:
+        reaped = list(pool.map(reap, procs))
+    failures = []
+    for name, tmp, proc, out, seconds in reaped:
         build_log[name] = out
         if proc.returncode != 0:
             tmp.unlink(missing_ok=True)
             failures.append(f"--- csrc/{name}.cu (nvcc exit {proc.returncode})\n{out}")
         else:
             os.replace(tmp, library_path(name))
+            CENSUS.record(f"kernel/{name}", seconds)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return time.perf_counter() - t0

@@ -408,11 +408,16 @@ class EngineBackend:
         variables=None,
         dtype: torch.dtype | None = None,
         device: str | torch.device | None = None,
+        device_work=None,
     ):
         self.model_name = model_name
         self.data_dir = Path(data_dir)
         self.batch_size = batch_size
         self.device = resolve_device(device)
+        # Device-plane telemetry hook (cluster/devicemon.py): called with
+        # (model, items, device_seconds) per device execution; feeds the
+        # node's MFU window and compute cost lane.
+        self.device_work = device_work
         # Optional synsets -> local paths resolver; None = local fixture dirs.
         self.image_source = image_source
         # Fleet decode tier client (anything with decode_paths(paths, size)
@@ -447,6 +452,8 @@ class EngineBackend:
                 kw["variables"] = self.variables
             if self.dtype is not None:
                 kw["dtype"] = self.dtype
+            if self.device_work is not None:
+                kw["device_work"] = self.device_work
             self._engine = InferenceEngine(
                 self.model_name, device=self.device, batch_size=self.batch_size, **kw
             )

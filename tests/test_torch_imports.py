@@ -50,7 +50,9 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "cluster.transport", "cluster.membership", "utils.config", "utils.ring",
                  "utils.metrics", "cluster.diskio", "cluster.faults", "cluster.flight",
                  "cluster.failover", "cluster.sdfs", "scheduler.dataset", "models.weights",
-                 "scheduler.jobs", "cluster.node", "cluster.localcluster", "cli"):
+                 "scheduler.jobs", "cluster.node", "cluster.localcluster", "cli",
+                 "cluster.profile", "cluster.critpath", "cluster.sentinel", "cluster.observe",
+                 "cluster.scrapetree", "cluster.devicemon"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
@@ -179,13 +181,19 @@ def test_node_names_the_default_switches_it_runs_without(tmp_path, caplog):
     node.stop()
     warned = [r.getMessage() for r in caplog.records if "running without" in r.getMessage()]
     assert len(warned) == 1
+    # Only the placement advisor is left out: the observability plane and
+    # the device monitor run on a default config.
+    assert DEFAULT_ON_LEFT_OUT == {"placement_enabled": "dmlc_tpu/scheduler/placement.py"}
     for switch, module in DEFAULT_ON_LEFT_OUT.items():
         assert switch in warned[0] and module in warned[0]
+    for switch in ("critpath_enabled", "sentinel_enabled", "profile_persist",
+                   "devicemon_poll_interval_s"):
+        assert switch not in warned[0]
+    assert node.critpath is not None and node.sentinel is not None
+    assert node.profile_path().exists()  # saved at stop: profile_persist is on
     with caplog.at_level("WARNING", logger="dmlc_tpu_torch.cluster.node"):
         caplog.clear()
-        quiet = ClusterNode(_node_config(tmp_path / "quiet", placement_enabled=False,
-                                         critpath_enabled=False, sentinel_enabled=False,
-                                         profile_persist=False, devicemon_poll_interval_s=0.0),
+        quiet = ClusterNode(_node_config(tmp_path / "quiet", placement_enabled=False),
                             backends={})
     quiet.stop()
     assert not [r for r in caplog.records if "running without" in r.getMessage()]

@@ -16,6 +16,14 @@ gossip, TCP RPC, maintenance threads) in one process.
   this package has no placement advisor yet, and with it the JAX leader's
   assignment would follow its cost profiles instead of the round-robin
   split both packages share.
+- The observability plane across packages: a port leader with JAX members
+  and a JAX leader with port members, their images pulled through the
+  store and both tracers on, run the jobs and one scrape pass; the
+  leader's ``obs.fleet`` lists every member with the device monitor's
+  gauges, ``obs.critpath`` has both jobs' lanes, and ``trace fleet``
+  writes one document in which one dispatch's trace holds spans of all
+  three nodes. The jobs still equal the all-JAX fleet's: the profiler
+  without an advisor does not move assignment.
 
 Every store lives under ``tmp_path``; every fleet is stopped in
 ``finally``; every test runs under ``torch_sockets``' time limit.
@@ -138,7 +146,8 @@ def test_full_stack_through_cli(cluster3, tmp_path):
     from dmlc_tpu_torch.utils.tracing import tracer
 
     try:
-        assert "enabled" in cli.run_command("trace on")
+        # Both peers are port members, reached through obs.trace_ctl.
+        assert "enabled (fleet: 2/2 peers reached)" in cli.run_command("trace on")
         cli.run_command(f"get models/resnet18 {tmp_path / 'traced.bin'}")
         trace_path = tmp_path / "trace.json"
         assert "rpc/" in cli.run_command("trace summary")
@@ -154,11 +163,27 @@ def test_full_stack_through_cli(cluster3, tmp_path):
     assert "error" in cli.run_command("get no/such/file /tmp/x")
     assert "unknown command" in cli.run_command("frobnicate")
     assert "usage" in cli.run_command("put onlyonearg")
+    # The observability verbs answer as the JAX package's do.
+    out = cli.run_command("metrics")
+    assert "counters:" in out and "device_peak_flops=1e+12" in out, out
+    assert "dmlc_decode_lane_idle" in cli.run_command("metrics prom")
+    wait_until(lambda: len(leader.fleet_metrics) == 3, msg="the leader scraped every member")
+    fleet = cli.run_command("metrics fleet")
+    assert all(n.self_member_addr in fleet for n in nodes), fleet
+    # The leader's profile holds the dispatch lanes of the jobs it ran.
+    out = Cli(leader).run_command("profile --model resnet18")
+    assert "dispatch" in out and "alexnet" not in out, out
+    trace = cli.run_command(f"trace fleet {tmp_path / 'f.json'}")
+    assert "wrote merged fleet trace" in trace and "node lane(s)" in trace, trace
+    assert (tmp_path / "f.json").exists()
+    # The device table: every member, HBM unknown on the CPU.
+    table = cli.run_command("device")
+    assert "hbm used/limit" in table and "steady recompiles" in table
+    for n in nodes:
+        assert n.self_member_addr in table
     # The verbs that wait for an unported module name it.
-    assert "cluster/observe.py" in cli.run_command("metrics")
-    assert "cluster/observe.py" in cli.run_command(f"trace fleet {tmp_path / 'f.json'}")
     assert "scheduler/genrouter.py" in cli.run_command("generate lm_small 1 2")
-    assert "cluster/devicemon.py" in cli.run_command("device")
+    assert "scheduler/placement.py" in cli.run_command("slo")
     assert "mesh-join" in cli.run_command("help")
 
 
@@ -212,6 +237,43 @@ def test_status_verb_shows_shed_requests(cluster3):
     assert "shed=1" in out, out
     assert "shed_predict=1" in out, out
     assert member.metrics.get("shed") == 1
+
+
+def test_critpath_verb_renders_fleet_attribution(cluster3):
+    """tests/test_node_integration.py's case on a port fleet: after traced
+    predict traffic, the CLI ``critpath`` verb renders the leader's folded
+    critical-path table, (stage x member) lanes with charged seconds and
+    shares; ``slo`` names the module it waits for."""
+    from dmlc_tpu_torch.utils.tracing import tracer
+
+    nodes = cluster3
+    leader = nodes[0]
+    cli = Cli(nodes[1])
+    try:
+        tracer.enabled = True
+        cli.run_command("predict")
+        wait_until(lambda: all(j.done for j in leader.scheduler.jobs.values()),
+                   msg="jobs complete")
+        # Charge the process tracer's spans and fold them leader-side the
+        # same way the scrape cycle does, without waiting for its cadence.
+        assert leader.critpath is not None
+        leader.critpath.ingest_tracer(tracer, own_lane=None)
+        leader.fleet_critpath.fold("local", leader.critpath.snapshot())
+
+        out = cli.run_command("critpath")
+        lines = out.splitlines()
+        assert "model" in lines[0] and "share" in lines[0], out
+        assert len(lines) >= 2, out
+        # --top bounds lanes per model; unknown models and extra args are
+        # clean misses, not crashes.
+        top = cli.run_command("critpath --top 1")
+        assert len(top.splitlines()) <= len(lines)
+        assert "no critical-path lanes" in cli.run_command("critpath nope")
+        assert "usage:" in cli.run_command("critpath a b")
+        assert "scheduler/placement.py" in cli.run_command("slo")
+    finally:
+        tracer.enabled = False
+        tracer.reset()
 
 
 def test_leader_failover_resumes_jobs(tmp_path):
@@ -503,10 +565,12 @@ def test_mixed_fleet_equals_all_jax(workload, all_jax, tmp_path, kinds):
     try:
         got = run_jobs(nodes)
         if kinds[0] == "J":
-            # The JAX leader's obs.metrics scrape of a port member fails:
-            # this package serves no obs.* verb yet. The jobs finish anyway.
-            with pytest.raises(JAX.rpc.RpcError, match="unknown method"):
-                nodes[0].rpc.call(nodes[1].self_member_addr, "obs.metrics", {}, timeout=5.0)
+            # The JAX leader's obs.metrics scrape of a port member answers
+            # in the reference's form.
+            reply = nodes[0].rpc.call(nodes[1].self_member_addr, "obs.metrics", {},
+                                      timeout=5.0)
+            assert {"metrics", "spans", "sampling", "critpath"} <= set(reply)
+            assert "hbm_bytes_in_use" in reply["metrics"]["gauges"]
     finally:
         stop_local_cluster(nodes)
     assert got["jobs"] == all_jax["jobs"]
@@ -525,5 +589,64 @@ def test_port_leader_fails_over_to_jax_standby(workload, all_jax, tmp_path):
     finally:
         stop_local_cluster(nodes)
     assert got["mid_job"], "the jobs were done before the leader stopped"
+    assert got["jobs"] == all_jax["jobs"]
+    assert got["assigned"] == all_jax["assigned"]
+
+
+#: The device monitor's gauges every member exports (the reference's names).
+DEVICE_GAUGES = ("hbm_bytes_in_use", "hbm_peak_bytes", "hbm_limit_bytes", "jit_compiles",
+                 "jit_compile_seconds", "jit_steady_recompiles", "device_peak_flops",
+                 *(f"{kind}_{job}" for job in JOBS for kind in ("resident_bytes", "mfu")))
+
+
+@pytest.mark.parametrize("kinds", ["PJJ", "JPP"],
+                         ids=["port_leader_jax_members", "jax_leader_port_members"])
+def test_mixed_fleet_observability(workload, all_jax, tmp_path, kinds):
+    synset_path, data_dir, _ = workload
+    tracers = (JAX.tracing.tracer, PORT.tracing.tracer)
+    for tr in tracers:
+        tr.reset()
+        tr.enabled = True
+    nodes = start_fleet(tmp_path, kinds, synset_path, data_dir, data_from_sdfs=True)
+    try:
+        client = nodes[-1]
+        client_side = SIDE_OF[kinds[-1]][0]
+        assert client_side.dataset.publish_corpus(client.sdfs, data_dir) == N_CLASSES
+        got = run_jobs(nodes)
+        leader = nodes[0]
+        leader.timers.fire("obs_scrape")  # one scrape pass, on this thread
+        members = sorted(n.self_member_addr for n in nodes)
+
+        fleet = client.rpc.call(leader.self_leader_addr, "obs.fleet", {}, timeout=5.0)
+        assert sorted(fleet["fleet"]) == members
+        for addr, reply in fleet["fleet"].items():
+            gauges = reply["metrics"]["gauges"]
+            assert set(DEVICE_GAUGES) <= set(gauges), (addr, sorted(gauges))
+            assert gauges["hbm_bytes_in_use"] is None  # no card on the CPU
+            assert gauges["resident_bytes_tinynet"] > 0
+        crit = client.rpc.call(leader.self_leader_addr, "obs.critpath", {}, timeout=5.0)
+        assert set(JOBS) <= set(crit["critpath"]["models"]), crit
+
+        path = tmp_path / "fleet.json"
+        out = client_side.cli.Cli(client).run_command(f"trace fleet {path}")
+        assert "wrote merged fleet trace" in out, out
+        doc = json.loads(path.read_text())
+        lanes = {e["pid"]: e["args"]["name"] for e in doc["traceEvents"] if e.get("ph") == "M"}
+        assert sorted(lanes.values()) == members
+        by_trace: dict[str, list[dict]] = {}
+        for e in doc["traceEvents"]:
+            if e.get("ph") == "X" and e["args"].get("trace"):
+                by_trace.setdefault(e["args"]["trace"], []).append(e)
+        spanning = [t for t, evs in by_trace.items()
+                    if "scheduler/dispatch" in {e["name"] for e in evs}
+                    and "rpc/job.predict" in {e["name"] for e in evs}
+                    and len({e["pid"] for e in evs}) == len(nodes)]
+        assert spanning, {t: sorted({(e["name"], lanes[e["pid"]]) for e in evs})
+                          for t, evs in list(by_trace.items())[:5]}
+    finally:
+        for tr in tracers:
+            tr.enabled = False
+            tr.reset()
+        stop_local_cluster(nodes)
     assert got["jobs"] == all_jax["jobs"]
     assert got["assigned"] == all_jax["assigned"]
