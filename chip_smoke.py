@@ -83,6 +83,19 @@ non-zero:
    correct count of an engine built from that module. Its line has each
    job's wall, images/s, shards and shard p50/p99, the assignments by
    member, and train()'s wall.
+   closedloop — the closed loop on three more port nodes over the same
+   corpus, with placement, an SLO objective for resnet18, the autoscaler
+   and the fleet decode tier on, each node serving lm_wide generation:
+   one resnet18 job in shards of two batches must be assigned from the
+   advisor's plan, give phase cluster's correct count and have chunks
+   decoded on peers; obs.slo must carry burn rates and the autoscaler
+   must tick; 8 lm_wide sessions through the leader's job.generate on two
+   members, one drained mid-stream so its sessions migrate with their
+   delivered tokens, must give an in-process GenerateWorker's greedy
+   tokens; one raw 256-px shard through EngineBackend(device_resize_from)
+   must resize within RESIZE_TOL of reference_resize. Launches of
+   normalize_u8, softmax_top1 and paged_decode_attention are counted for
+   each part.
 5. generate — job.generate for lm_wide through GenerateWorker, served
    from a TcpRpcServer on localhost, to 24 TcpRpc clients (one
    paged_decode_attention launch a layer a step, no gather;
@@ -2474,7 +2487,7 @@ def fleet_trace(nodes, path: Path) -> dict:
                               default=0.0)}
 
 
-def phase_cluster(dev: dict) -> dict:
+def phase_cluster(dev: dict, root: Path) -> dict:
     """The reference's job on the card through the port's own entry points:
     three port ClusterNodes (cluster/localcluster.py) on localhost TCP and
     UDP in this process, each with its own EngineBackends for resnet18 and
@@ -2501,7 +2514,10 @@ def phase_cluster(dev: dict) -> dict:
     (``fleet_obs``). The second fleet pulls its images through the store
     (``data_from_sdfs``, the corpus published to it first), so that a
     dispatch's trace reaches a third member, and ``trace fleet`` after its
-    predict must hold such a trace (``fleet_trace``)."""
+    predict must hold such a trace (``fleet_trace``).
+
+    The corpus and the synset file stay under ``root`` for phase
+    closedloop."""
     from dmlc_tpu_torch.cluster.localcluster import start_local_cluster, stop_local_cluster
     from dmlc_tpu_torch.models import weights as W
     from dmlc_tpu_torch.models.registry import get_model
@@ -2513,74 +2529,72 @@ def phase_cluster(dev: dict) -> dict:
     from dmlc_tpu_torch.utils.tracing import tracer
 
     models = ("resnet18", "alexnet")
-    with tempfile.TemporaryDirectory(prefix="dmlc-torch-cluster-") as td:
-        root = Path(td)
-        t = time.perf_counter()
-        data_dir, _ = corpus.generate(root / "corpus", **CLUSTER_CORPUS)
-        corpus_s = time.perf_counter() - t
-        t = time.perf_counter()
-        natural = [f"n{k:08d}" for k in range(CLUSTER_CORPUS["n_classes"])]
-        pixels = pp.load_batch([pp.class_image_path(data_dir, s) for s in natural], size=SIZE)
-        decode_s = time.perf_counter() - t
-        direct = {m: InferenceEngine(m, device="cuda", batch_size=BATCH) for m in models}
-        synsets = cluster_synsets(root / "synsets.txt", shard_top1(direct["resnet18"], pixels))
-        u8 = pixels[[int(s[1:]) for s in synsets]]
+    t = time.perf_counter()
+    data_dir, _ = corpus.generate(root / "corpus", **CLUSTER_CORPUS)
+    corpus_s = time.perf_counter() - t
+    t = time.perf_counter()
+    natural = [f"n{k:08d}" for k in range(CLUSTER_CORPUS["n_classes"])]
+    pixels = pp.load_batch([pp.class_image_path(data_dir, s) for s in natural], size=SIZE)
+    decode_s = time.perf_counter() - t
+    direct = {m: InferenceEngine(m, device="cuda", batch_size=BATCH) for m in models}
+    synsets = cluster_synsets(root / "synsets.txt", shard_top1(direct["resnet18"], pixels))
+    u8 = pixels[[int(s[1:]) for s in synsets]]
 
-        def correct(engine) -> int:
-            top1 = shard_top1(engine, u8)
-            return int((top1 == np.arange(len(top1))).sum())
+    def correct(engine) -> int:
+        top1 = shard_top1(engine, u8)
+        return int((top1 == np.arange(len(top1))).sum())
 
-        want = {m: correct(direct[m]) for m in models}
-        published = get_model("resnet18").init_params(CLUSTER_TRAIN_SEED, dtype=torch.float32)
-        trained = InferenceEngine("resnet18", device="cuda", batch_size=BATCH,
-                                  variables=published.state_dict())
-        want_trained = {"resnet18": correct(trained), "alexnet": want["alexnet"]}
-        del direct, trained
-        hooks = [NodeDeviceWork() for _ in range(CLUSTER_NODES)]
-        backends = [{m: EngineBackend(m, data_dir, batch_size=BATCH, device="cuda",
-                                      device_work=hook)
-                     for m in models} for hook in hooks]
-        fleet = dict(n_nodes=CLUSTER_NODES, backends=lambda i: backends[i],
-                     synset_path=root / "synsets.txt", scale=CLUSTER_SCALE, device="cuda",
-                     data_dir=str(data_dir), batch_size=BATCH, job_models=list(models),
-                     dispatch_shard_size=CLUSTER_SHARD)
-        nodes = []
-        try:
-            tracer.reset()
-            tracer.enabled = True
-            t = time.perf_counter()
-            nodes = start_local_cluster(root / "fleet1", **fleet)
-            start_s = time.perf_counter() - t
-            for hook, node in zip(hooks, nodes):
-                hook.monitor = node.devicemon
-            first = run_predict(nodes, want)
-            obs = fleet_obs(nodes, backends, first, models)
-            emit({"phase": "cluster_obs", "nvidia_smi": dev["nvidia_smi"], **obs})
-            stop_local_cluster(nodes)
-            tracer.reset()
-            nodes = start_local_cluster(root / "fleet2", **fleet, data_from_sdfs=True)
-            for hook, node in zip(hooks, nodes):
-                hook.monitor = node.devicemon
-            t = time.perf_counter()
-            corpus_blobs = publish_corpus(nodes[2].sdfs, data_dir)
-            corpus_publish_s = time.perf_counter() - t
-            variables = get_model("resnet18").to_jax(published.state_dict())
-            t = time.perf_counter()
-            version = W.publish_weights(nodes[2].sdfs, "resnet18", variables)
-            publish_s = time.perf_counter() - t
-            t = time.perf_counter()
-            results = nodes[1].train()
-            train_s = time.perf_counter() - t
-            loaded = sorted(results[W.sdfs_weights_name("resnet18")]["loaded"])
-            if loaded != sorted(n.self_member_addr for n in nodes):
-                raise AssertionError(f"train() loaded resnet18 v{version} into {loaded} only")
-            second = run_predict(nodes, want_trained)
-            trace = fleet_trace(nodes, root / "fleet.json")
-            emit({"phase": "cluster_trace", **trace})
-        finally:
-            tracer.enabled = False
-            tracer.reset()
-            stop_local_cluster(nodes)
+    want = {m: correct(direct[m]) for m in models}
+    published = get_model("resnet18").init_params(CLUSTER_TRAIN_SEED, dtype=torch.float32)
+    trained = InferenceEngine("resnet18", device="cuda", batch_size=BATCH,
+                              variables=published.state_dict())
+    want_trained = {"resnet18": correct(trained), "alexnet": want["alexnet"]}
+    del direct, trained
+    hooks = [NodeDeviceWork() for _ in range(CLUSTER_NODES)]
+    backends = [{m: EngineBackend(m, data_dir, batch_size=BATCH, device="cuda",
+                                  device_work=hook)
+                 for m in models} for hook in hooks]
+    fleet = dict(n_nodes=CLUSTER_NODES, backends=lambda i: backends[i],
+                 synset_path=root / "synsets.txt", scale=CLUSTER_SCALE, device="cuda",
+                 data_dir=str(data_dir), batch_size=BATCH, job_models=list(models),
+                 dispatch_shard_size=CLUSTER_SHARD)
+    nodes = []
+    try:
+        tracer.reset()
+        tracer.enabled = True
+        t = time.perf_counter()
+        nodes = start_local_cluster(root / "fleet1", **fleet)
+        start_s = time.perf_counter() - t
+        for hook, node in zip(hooks, nodes):
+            hook.monitor = node.devicemon
+        first = run_predict(nodes, want)
+        obs = fleet_obs(nodes, backends, first, models)
+        emit({"phase": "cluster_obs", "nvidia_smi": dev["nvidia_smi"], **obs})
+        stop_local_cluster(nodes)
+        tracer.reset()
+        nodes = start_local_cluster(root / "fleet2", **fleet, data_from_sdfs=True)
+        for hook, node in zip(hooks, nodes):
+            hook.monitor = node.devicemon
+        t = time.perf_counter()
+        corpus_blobs = publish_corpus(nodes[2].sdfs, data_dir)
+        corpus_publish_s = time.perf_counter() - t
+        variables = get_model("resnet18").to_jax(published.state_dict())
+        t = time.perf_counter()
+        version = W.publish_weights(nodes[2].sdfs, "resnet18", variables)
+        publish_s = time.perf_counter() - t
+        t = time.perf_counter()
+        results = nodes[1].train()
+        train_s = time.perf_counter() - t
+        loaded = sorted(results[W.sdfs_weights_name("resnet18")]["loaded"])
+        if loaded != sorted(n.self_member_addr for n in nodes):
+            raise AssertionError(f"train() loaded resnet18 v{version} into {loaded} only")
+        second = run_predict(nodes, want_trained)
+        trace = fleet_trace(nodes, root / "fleet.json")
+        emit({"phase": "cluster_trace", **trace})
+    finally:
+        tracer.enabled = False
+        tracer.reset()
+        stop_local_cluster(nodes)
     report = {
         "phase": "cluster", "nvidia_smi": dev["nvidia_smi"], "nodes": CLUSTER_NODES,
         "leader_candidates": 2, "transport": "TcpRpc and UdpTransport on 127.0.0.1",
@@ -2593,6 +2607,363 @@ def phase_cluster(dev: dict) -> dict:
         "fleet2_images_from_sdfs": True, "corpus_blobs": corpus_blobs,
         "corpus_publish_s": corpus_publish_s, "tracing": True, "obs": obs, "trace": trace,
         "launches": {k: first["launches"][k] + second["launches"][k] for k in PREDICT_KERNELS},
+    }
+    emit(report)
+    # For phase closedloop, which predicts over the same corpus (not printed).
+    report["corpus"] = {"data_dir": data_dir, "synset_path": root / "synsets.txt"}
+    return report
+
+
+#: Phase closedloop: resnet18's SLO (seconds a 512-query shard may take) and
+#: the dispatch shard, two engine batches, so each shard's second batch is
+#: decoded by the fleet's decode tier while the first runs.
+CLOSED_SLO = {"resnet18": {"latency_s": 5.0, "availability": 0.99}}
+CLOSED_SHARD = 2 * BATCH
+#: Phase closedloop's generation sessions (lm_wide, max_len 128): prompts of
+#: 8-24 tokens and 96 new tokens each, greedy.
+CLOSED_SESSIONS, CLOSED_NEW = 8, 96
+#: Tokens every session has delivered before the drain.
+CLOSED_CUT = CLOSED_NEW // 4
+#: The device resize: raw 256-px pixels resized on the card to 224 against
+#: ops/device_resize.reference_resize (float32 numpy, same weights), within
+#: RESIZE_TOL grey levels (float32 sums in another order).
+RESIZE_FROM, RESIZE_TOL = 256, 1e-2
+
+
+class InProcessRpc:
+    """An ``rpc`` for generate_stream that calls a worker's methods in this
+    process (the reference the fleet's sessions are held against)."""
+
+    def __init__(self, methods: dict):
+        self.methods = methods
+
+    def call(self, addr, method, payload, timeout=None):
+        return self.methods[method](payload)
+
+
+def closed_sessions(vocab: int, seed: int = 7) -> list[list[int]]:
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab, size=int(rng.integers(8, 25))).tolist()
+            for _ in range(CLOSED_SESSIONS)]
+
+
+def run_sessions(nodes, prompts: list[list[int]]) -> dict:
+    """The sessions through the leader's ``job.generate``/``job.generate_poll``
+    over TcpRpc, the leader's own member drained first (two members
+    generate). Once every session has CLOSED_CUT tokens (or is done), the
+    member with the most sessions is drained through the CLI and the
+    router's tick migrates its live sessions before any of them is read
+    again; then every session is read to its end. Returns tokens,
+    placements, migrations and rates."""
+    from dmlc_tpu_torch.cli import Cli
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc
+
+    rpc, leader = TcpRpc(), nodes[0]
+    addr = leader.self_leader_addr
+    cli = Cli(nodes[1])
+    index = {n.self_member_addr: i for i, n in enumerate(nodes)}
+    out = cli.run_command(f"drain {leader.self_member_addr} --deadline 1")
+    if "draining" not in out:
+        raise AssertionError(f"drain of the leader's member: {out}")
+    t0 = time.perf_counter()
+    sids = [rpc.call(addr, "job.generate", {"model": "lm_wide", "prompt": p,
+                                            "max_new_tokens": CLOSED_NEW},
+                     timeout=30.0)["gen_id"] for p in prompts]
+    table = {s["id"]: s for s in rpc.call(addr, "job.generate_sessions", {},
+                                          timeout=10.0)["sessions"]}
+    placed = {sid: index[table[sid]["member"]] for sid in sids}
+    if 0 in placed.values() or len(set(placed.values())) != 2:
+        raise AssertionError(f"sessions placed on members {sorted(placed.values())}, "
+                             f"not on both generating members")
+    tokens = {sid: [] for sid in sids}
+    acked = {sid: 0 for sid in sids}
+    done: dict[str, float] = {}
+
+    def poll(sid: str) -> None:
+        r = rpc.call(addr, "job.generate_poll", {"gen_id": sid, "ack": acked[sid]},
+                     timeout=30.0)
+        for seq, toks in sorted(r.get("chunks", [])):
+            if seq > acked[sid]:
+                acked[sid] = seq
+                tokens[sid].extend(int(t) for t in toks)
+        if r.get("done") and not r.get("chunks"):
+            if r.get("error"):
+                raise AssertionError(f"session {sid}: {r['error']}")
+            done.setdefault(sid, time.perf_counter())
+
+    def short() -> list[str]:
+        return [s for s in sids if s not in done and len(tokens[s]) < CLOSED_CUT]
+
+    while short():
+        for s in short():
+            poll(s)
+        if time.perf_counter() - t0 > 60:
+            raise AssertionError(f"sessions short of {CLOSED_CUT} tokens after 60 s")
+    victim = Counter(placed.values()).most_common(1)[0][0]
+    drained = nodes[victim].self_member_addr
+    cut = {sid: len(tokens[sid]) for sid in sids if placed[sid] == victim and sid not in done}
+    if not cut:
+        raise AssertionError("every session of the member to drain was done before the drain")
+    t_drain = time.perf_counter()
+    before = sum(len(t) for t in tokens.values())
+    out = cli.run_command(f"drain {drained} --deadline 0.001")
+    if "draining" not in out:
+        raise AssertionError(f"drain: {out}")
+    time.sleep(0.01)
+    t = time.perf_counter()
+    leader.timers.fire("genrouter")
+    tick_ms = 1e3 * (time.perf_counter() - t)
+    table = {s["id"]: s for s in rpc.call(addr, "job.generate_sessions", {},
+                                          timeout=10.0)["sessions"]}
+    moved = {sid: index[table[sid]["member"]] for sid in cut}
+    migrations = {sid: table[sid]["migrations"] for sid in cut}
+    if set(migrations.values()) != {1} or victim in moved.values():
+        raise AssertionError(f"sessions of the drained member {drained}: migrations "
+                             f"{migrations}, now on members {moved}")
+    first_after: dict[str, float] = {}
+    while len(done) < len(sids):
+        for s in sids:
+            if s not in done:
+                n = len(tokens[s])
+                poll(s)
+                if s in cut and s not in first_after and len(tokens[s]) > n:
+                    first_after[s] = time.perf_counter() - t_drain
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError(f"{len(done)} of {len(sids)} sessions done after 120 s")
+    t_end = max(done.values())
+    total = sum(len(t) for t in tokens.values())
+    sessions = rpc.call(addr, "job.generate_sessions", {}, timeout=10.0)["sessions"]
+    cli.run_command(f"undrain {drained}")
+    cli.run_command(f"undrain {leader.self_member_addr}")
+    return {"tokens": [tokens[s] for s in sids], "placed_on": sorted(placed.values()),
+            "drained_member": victim, "resumed_at": sorted(cut.values()),
+            "migrated_to": sorted(moved.values()), "migrations": sum(migrations.values()),
+            "router_tick_ms": tick_ms,
+            "migration_first_token_s": max(first_after.values()) if first_after else None,
+            "tokens_before_drain": before, "seconds_before_drain": t_drain - t0,
+            "tokens_per_s_before_drain": before / (t_drain - t0),
+            "tokens_after_drain": total - before, "seconds_after_drain": t_end - t_drain,
+            "tokens_per_s_after_drain": (total - before) / (t_end - t_drain),
+            "ledger": [{k: s[k] for k in ("model", "member", "delivered", "state",
+                                          "migrations")} for s in sessions]}
+
+
+def in_process_tokens(prompts: list[list[int]]) -> list[list[int]]:
+    """The prompts' greedy tokens through an in-process GenerateWorker on
+    the card (a GenerationBackend of the node's geometry and seed)."""
+    from dmlc_tpu_torch.generate.worker import GenerateWorker, GenerationBackend, generate
+    from dmlc_tpu_torch.utils.config import ClusterConfig
+
+    cfg = ClusterConfig()
+    backend = GenerationBackend("lm_wide", max_slots=cfg.gen_max_slots,
+                                page_size=cfg.gen_page_size, num_pages=cfg.gen_num_pages,
+                                max_prefill=cfg.gen_max_prefill,
+                                max_waiting=cfg.gen_max_waiting, device="cuda")
+    worker = GenerateWorker({"lm_wide": backend})
+    rpc = InProcessRpc(worker.methods())
+    results: dict[int, list[int]] = {}
+
+    def run(i: int) -> None:
+        results[i] = generate(rpc, "local", "lm_wide", prompts[i], max_new_tokens=CLOSED_NEW,
+                              poll_interval_s=0.002, poll_timeout=GEN_BUDGET_S)
+
+    try:
+        threads = [threading.Thread(target=run, args=(i,), daemon=True)
+                   for i in range(len(prompts))]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+    finally:
+        backend.stop()
+    if len(results) != len(prompts):
+        raise AssertionError(f"in-process generation gave {len(results)} of {len(prompts)}")
+    return [results[i] for i in range(len(prompts))]
+
+
+def device_resize_check(data_dir: Path, synsets: list[str]) -> dict:
+    """One raw-size shard (BATCH synsets, their 256-px JPEGs decoded with
+    no host resample) through an EngineBackend with ``device_resize_from``
+    on the card: its top-1 answers, the card's resize against
+    reference_resize on the same pixels (within RESIZE_TOL), and the top-1
+    of the same engine's weights on the host-resized pixels (the reference
+    rounded to uint8, through the normalize_u8 path) beside it."""
+    from dmlc_tpu_torch.ops import device_resize as DR
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend
+
+    shard = synsets[:BATCH]
+    backend = EngineBackend("resnet18", data_dir, batch_size=BATCH, device="cuda",
+                            device_resize_from=RESIZE_FROM)
+    backend.warmup()
+    K.reset_launch_counts()
+    t = time.perf_counter()
+    top1 = np.asarray(backend(shard))
+    shard_s = time.perf_counter() - t
+    launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+    if launches["softmax_top1"] == 0:
+        raise AssertionError("softmax_top1 did not launch on the device-resize predict")
+    raw = pp.load_batch([pp.class_image_path(data_dir, s) for s in shard], size=RESIZE_FROM)
+    raw_dev = torch.from_numpy(raw).cuda()
+    got = DR.resize_batch(raw_dev, SIZE)
+    want = DR.reference_resize(raw, SIZE)
+    err = float(np.abs(got.cpu().numpy() - want).max())
+    if not (err <= RESIZE_TOL) or not torch.isfinite(got).all():
+        raise AssertionError(f"device resize vs reference_resize: max abs {err} "
+                             f"(limit {RESIZE_TOL})")
+    resize_ms = time_ms(lambda: DR.resize_batch(raw_dev, SIZE), reps=11, inner=10)
+    host = InferenceEngine("resnet18", device="cuda", batch_size=BATCH)
+    host_top1 = host.run_batch(np.clip(np.rint(want), 0, 255).astype(np.uint8)).top1_index
+    agree = float(np.mean(host_top1 == top1))
+    if agree < 0.9:
+        raise AssertionError(f"device-resize top-1 agrees with the host-resized path on "
+                             f"{agree:.3f} of the shard")
+    return {"raw_size": RESIZE_FROM, "out_size": SIZE, "images": len(shard),
+            "max_abs_err_vs_reference": err, "tol": RESIZE_TOL, "resize_ms": resize_ms,
+            "shard_s": shard_s, "top1_agree_host_resized": agree, "launches": launches}
+
+
+def phase_closedloop(dev: dict, cluster: dict) -> dict:
+    """The closed loop on the card through the port's own entry points:
+    three port ClusterNodes (localcluster) on localhost TCP and UDP with
+    placement (on by default), SLO objectives for resnet18, the autoscaler
+    and the fleet decode tier on; each node has its own resnet18
+    EngineBackend (batch 256, bf16, seed 0) and serves lm_wide generation
+    (its GenerationBackend of the config's geometry, seed 0).
+
+    1. predict from a non-leader over phase cluster's corpus and synset
+       file, in shards of two batches: the job must be assigned from the
+       advisor's plan (a ``placement_decision`` note, the job's members the
+       plan's), its ``correct`` must equal phase cluster's, normalize_u8
+       and softmax_top1 must launch, and the decode tier must have decoded
+       chunks on peers. ``obs.slo`` over TcpRpc must carry resnet18's burn
+       rates, and the autoscaler must have ticked.
+    2. CLOSED_SESSIONS lm_wide sessions through the leader's ``gen.*``
+       verbs on two members (run_sessions): one member is drained mid-stream
+       and its sessions migrate with their delivered tokens; every session's
+       greedy tokens must equal those of an in-process GenerateWorker on
+       the card, and paged_decode_attention must launch (gather_kv_pages
+       not at all).
+    3. device_resize_check: one raw-size shard through
+       ``EngineBackend(device_resize_from=256)``.
+
+    Launch counts are set to 0 just before each part and read just after
+    (the in-process reference's launches come after the read)."""
+    from dmlc_tpu_torch.cluster.localcluster import start_local_cluster, stop_local_cluster
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend
+
+    t_phase = time.perf_counter()
+    data_dir = cluster["corpus"]["data_dir"]
+    synset_path = cluster["corpus"]["synset_path"]
+    want = cluster["predict"]["jobs"]["resnet18"]["correct"]
+    synsets = [s for s, _ in pp.load_synset_words(synset_path)]
+    hooks = [NodeDeviceWork() for _ in range(CLUSTER_NODES)]
+    backends = [{"resnet18": EngineBackend("resnet18", data_dir, batch_size=BATCH,
+                                           device="cuda", device_work=hook)} for hook in hooks]
+    prompts = closed_sessions(get_model("lm_wide").num_outputs)
+    nodes = []
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-closedloop-") as td:
+        try:
+            t = time.perf_counter()
+            nodes = start_local_cluster(
+                Path(td), n_nodes=CLUSTER_NODES, backends=lambda i: backends[i],
+                synset_path=synset_path, scale=CLUSTER_SCALE, device="cuda",
+                data_dir=str(data_dir), batch_size=BATCH, job_models=["resnet18"],
+                dispatch_shard_size=CLOSED_SHARD, placement_enabled=True,
+                slo_objectives=CLOSED_SLO, autoscaler_enabled=True, decode_tier_enabled=True,
+                generate_models=["lm_wide"])
+            start_s = time.perf_counter() - t
+            for hook, node in zip(hooks, nodes):
+                hook.monitor = node.devicemon
+            leader = nodes[0]
+            rpc = TcpRpc()
+            K.reset_launch_counts()
+            t0 = time.perf_counter()
+            nodes[1].predict()
+            assigned = nodes[1].assignments()["resnet18"]
+            job = leader.scheduler.jobs["resnet18"]
+            while not job.done:
+                if time.perf_counter() - t0 > 300:
+                    raise AssertionError("the resnet18 job not done in 300 s")
+                time.sleep(0.005)
+            job_s = time.perf_counter() - t0
+            predict_launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+            report = nodes[2].jobs_report()["resnet18"]
+            if report["finished"] != len(synsets) or report["correct"] != want:
+                raise AssertionError(f"resnet18: finished {report['finished']}, correct "
+                                     f"{report['correct']}; phase cluster counted {want}")
+            if any(n == 0 for n in predict_launches.values()):
+                raise AssertionError(f"predict launches {predict_launches}")
+            # The advisor's decisions and the scheduler's applications of
+            # them: the job's members must be the applied plan's.
+            decisions = [e for e in leader.flight.events()
+                         if e["kind"] in ("placement_decision", "placement_apply")]
+            plan = leader.advisor.status()
+            if not any(e["kind"] == "placement_apply" for e in decisions) or \
+                    sorted(plan["assignment"].get("resnet18") or []) != sorted(assigned):
+                raise AssertionError(f"assignment {assigned} not from an advisor plan "
+                                     f"{plan['assignment']} (flight notes {decisions})")
+            tier = {n.self_member_addr: n.decode_tier.stats() for n in nodes}
+            if sum(st["remote"] for st in tier.values()) == 0:
+                raise AssertionError(f"the decode tier decoded nothing remotely: {tier}")
+            # One scrape pass after the job: the SLO evaluation and the
+            # autoscaler's tick ride it.
+            leader.timers.fire("obs_scrape")
+            slo = rpc.call(leader.self_leader_addr, "obs.slo", {}, timeout=10.0)
+            body = slo["slo"]["models"].get("resnet18") or {}
+            if not all(isinstance(body.get(k), float) for k in ("fast_burn", "slow_burn")):
+                raise AssertionError(f"obs.slo without resnet18 burn rates: {slo['slo']}")
+            if slo["autoscaler"].get("ticks", 0) < 1:
+                raise AssertionError(f"the autoscaler never ticked: {slo['autoscaler']}")
+            shards = job.report()["member_latency"]
+            predict = {
+                "assigned": sorted(assigned), "job_s": job_s,
+                "images_per_s": report["finished"] / job_s, "correct": report["correct"],
+                "shard": CLOSED_SHARD,
+                "shard_p50_ms": 1e3 * report["shard_latency"]["median"],
+                "shards_by_member": {m: int(v["count"]) for m, v in shards.items()},
+                "plan": plan, "decisions": decisions,
+                "decode_tier": tier, "launches": predict_launches,
+            }
+            emit({"phase": "closedloop_plan", "plan": plan, "decisions": decisions})
+            K.reset_launch_counts()
+            sessions = run_sessions(nodes, prompts)
+            session_launches = dict(K.launch_counts())
+            if session_launches["paged_decode_attention"] == 0 or \
+                    session_launches["gather_kv_pages"]:
+                raise AssertionError(f"session launches {session_launches}")
+            autoscaler = leader.autoscaler.status()
+            emit({"phase": "closedloop_autoscaler", "status": autoscaler})
+            slo_after = rpc.call(leader.self_leader_addr, "obs.slo", {}, timeout=10.0)["slo"]
+        finally:
+            stop_local_cluster(nodes)
+    ref = in_process_tokens(prompts)
+    differ = [i for i, (a, b) in enumerate(zip(sessions["tokens"], ref)) if a != b]
+    if differ or any(len(t) != CLOSED_NEW for t in sessions["tokens"]):
+        raise AssertionError(f"sessions {differ} differ from the in-process worker's tokens "
+                             f"(lengths {[len(t) for t in sessions['tokens']]})")
+    resize = device_resize_check(data_dir, synsets)
+    tokens = sessions.pop("tokens")
+    report = {
+        "phase": "closedloop", "nvidia_smi": dev["nvidia_smi"], "nodes": CLUSTER_NODES,
+        "fleet_start_s": start_s, "predict": predict, "slo": slo["slo"],
+        "slo_after_sessions": slo_after,
+        "sessions": {**sessions, "count": len(tokens), "new_tokens": CLOSED_NEW,
+                     "equal_in_process": len(tokens) - len(differ),
+                     "launches": {k: session_launches[k]
+                                  for k in ("paged_decode_attention", "gather_kv_pages")}},
+        "autoscaler": autoscaler, "device_resize": resize,
+        "launches": {"predict": predict_launches,
+                     "sessions": {k: session_launches[k]
+                                  for k in ("paged_decode_attention", "gather_kv_pages")},
+                     "device_resize": resize["launches"]},
+        "phase_s": time.perf_counter() - t_phase,
     }
     emit(report)
     return report
@@ -3258,7 +3629,9 @@ def main() -> int:
     kern = phase_kernels(dev)
     serve = phase_serve(dev, native_build)
     sdfs = phase_sdfs(dev, serve)
-    cluster = phase_cluster(dev)
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-cluster-") as td:
+        cluster = phase_cluster(dev, Path(td))
+        closed = phase_closedloop(dev, cluster)
     gen = phase_generate(dev)
     decode = phase_decode(dev)
     train = phase_train(dev)
@@ -3273,6 +3646,8 @@ def main() -> int:
          "launches": serve["launches"]["normalize_u8"],
          "sdfs_launches": sdfs["launches"]["normalize_u8"],
          "cluster_launches": cluster["launches"]["normalize_u8"],
+         "closedloop_launches": {part: n["normalize_u8"]
+                                 for part, n in closed["launches"].items() if part != "sessions"},
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
          "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
@@ -3286,6 +3661,8 @@ def main() -> int:
          "launches": serve["launches"]["softmax_top1"],
          "sdfs_launches": sdfs["launches"]["softmax_top1"],
          "cluster_launches": cluster["launches"]["softmax_top1"],
+         "closedloop_launches": {part: n["softmax_top1"]
+                                 for part, n in closed["launches"].items() if part != "sessions"},
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],
@@ -3315,6 +3692,7 @@ def main() -> int:
                  "replaces": "dmlc_tpu/ops/ragged_decode.py:49",
                  "replaces_also": "the XLA attention of dmlc_tpu/ops/ragged_decode.py:94",
                  "launches": gen["paged_launches"], "decode_launches": decode["paged_launches"],
+                 "closedloop_launches": closed["launches"]["sessions"]["paged_decode_attention"],
                  **{k: on_path[k] for k in paged_keys}, "max_err": on_path["max_abs_err"],
                  "library": "scaled_dot_product_attention over the gathered view, length mask",
                  "shape": [on_path["pool"], on_path["table"]], "dtype": "float32",

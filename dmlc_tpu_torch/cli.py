@@ -3,9 +3,10 @@
 Ported from ``dmlc_tpu/cli.py``: the verbs whose node parts this package
 has answer as the JAX package's do — membership (list_mem/lm, list_self,
 join/j, leave/l), SDFS (put/p, get/g, get-versions/gv, delete/d, ls,
-store/s, scrub), ML (train/t, predict, jobs, assign), status, metrics
-(show, prom, fleet), flight, trace (on/off, summary, export, fleet),
-profile, critpath, tenants, device, help and exit. ``jobs`` prints accuracy
+store/s, scrub), ML (train/t, predict, jobs, assign), generation
+(generate, sessions, drain, undrain), status, metrics (show, prom, fleet),
+flight, trace (on/off, summary, export, fleet), profile, slo, critpath,
+tenants, device, help and exit. ``jobs`` prints accuracy
 and latency percentiles (mean/std/median/p90/p95/p99) like the reference's
 histogram report (main.rs:282-309). Every other verb of the JAX package's
 CLI answers with an error that names the module it waits for
@@ -23,19 +24,15 @@ import logging
 import shlex
 import socket
 
+from dmlc_tpu_torch.cluster.rpc import RpcError
 from dmlc_tpu_torch.utils.config import ClusterConfig
 
 #: Verbs of the JAX package's CLI whose node parts this package has not
 #: ported yet, with the module each one waits for.
 WAITING = {
-    "generate": "dmlc_tpu/scheduler/genrouter.py",
-    "sessions": "dmlc_tpu/scheduler/genrouter.py",
-    "drain": "dmlc_tpu/scheduler/genrouter.py",
-    "undrain": "dmlc_tpu/scheduler/genrouter.py",
     "export": "dmlc_tpu/models/export.py",
     "export-bundle": "dmlc_tpu/models/pjrt_bundle.py",
     "mesh-join": "dmlc_tpu/parallel/multihost.py",
-    "slo": "dmlc_tpu/scheduler/placement.py",
 }
 
 
@@ -69,6 +66,21 @@ def format_latency(summary: dict[str, float]) -> str:
     return (
         f"n={int(summary.get('count', 0))} mean={ms('mean')} std={ms('std')} "
         f"median={ms('median')} p90={ms('p90')} p95={ms('p95')} p99={ms('p99')}"
+    )
+
+
+def _fmt_decision(d: dict) -> str:
+    """One autoscale decision on one line (status / tenants verbs)."""
+    move = (
+        f"{d.get('from_')}->{d.get('to')}"
+        if d.get("direction") in ("up", "down")
+        else f"at {d.get('at')} ({d.get('reason')})"
+    )
+    burn = d.get("burn")
+    extra = f" burn={burn:.1f}x" if isinstance(burn, (int, float)) else ""
+    return (
+        f"{d.get('direction')} {d.get('target')} {move} "
+        f"[{d.get('trigger')}]{extra}"
     )
 
 
@@ -109,12 +121,25 @@ Commands (reference: README.md:10-23):
                                         sha256 sidecars (rot -> quarantine + heal)
   train | t                             broadcast model weights to members
   predict                               start/resume the inference jobs
+  generate <model> <tok> [<tok> ...]    stream an LM generation (token ids;
+                                        flags: --max-new N --temp T --seed S);
+                                        routed through the leader's session
+                                        router when available — the stream
+                                        survives member death and drain
+  sessions                              leader's generation-session ledger:
+                                        id, model, member, tenant, tokens
+                                        delivered, state, migrations
+  drain <member> [--deadline S]         stop admitting generation sessions to
+                                        a member; residents finish within the
+                                        deadline or migrate
+  undrain <member>                      reopen a drained member for admission
   jobs                                  job status, accuracy, latency percentiles
   assign                                per-job member assignment table
   status                                overload-control counters: sheds,
                                         deadline trips, queue high-water,
                                         breakers, gray-demoted members,
-                                        per-tenant gate occupancy + quota debt
+                                        per-tenant gate occupancy + quota
+                                        debt, autoscaler last decision
   metrics [prom|fleet]                  this node's metric registry (counters,
                                         gauges, latency summaries); `prom` =
                                         Prometheus text; `fleet` = the leader's
@@ -133,6 +158,9 @@ Commands (reference: README.md:10-23):
                                         the leader's holds the whole fleet
                                         (flags: --model M, --top K busiest
                                         lanes, --worst K slowest-p99 lanes)
+  slo                                   per-model SLO burn rates, each lane's
+                                        critical-path culprit, + the current
+                                        placement plan (leader's evaluator)
   critpath [model] [--top K]            fleet critical-path attribution
                                         (leader's fold): per model the
                                         (stage x member) lanes ranked by
@@ -141,7 +169,9 @@ Commands (reference: README.md:10-23):
                                         p50/p99 self-time, and the drift
                                         sentinel's verdict per lane
   tenants                               tenant table: declared priorities and
-                                        shares, per-gate occupancy/quota/debt
+                                        shares, per-gate occupancy/quota/debt,
+                                        per-tenant burn lanes (leader's
+                                        evaluator), autoscaler decision ring
   device                                device-plane fleet table (devicemon):
                                         HBM used/limit, kernel builds
                                         (compiles) + build seconds,
@@ -252,6 +282,70 @@ class Cli:
         if cmd == "predict":
             reply = n.predict()
             return f"started jobs: {', '.join(reply['jobs'])}"
+        if cmd == "generate":
+            max_new, temp, seed, rest = 32, 0.0, None, []
+            it = iter(args)
+            for a in it:
+                if a == "--max-new":
+                    max_new = int(next(it, "32"))
+                elif a == "--temp":
+                    temp = float(next(it, "0"))
+                elif a == "--seed":
+                    seed = int(next(it, "0"))
+                else:
+                    rest.append(a)
+            if len(rest) < 2:
+                return ("usage: generate <model> <tok> [<tok> ...] "
+                        "[--max-new N] [--temp T] [--seed S]")
+            model, prompt = rest[0], [int(t) for t in rest[1:]]
+            reply = n.generate(
+                model, prompt, max_new_tokens=max_new, temperature=temp,
+                seed=seed,
+            )
+            toks = reply["tokens"]
+            via = "router" if reply.get("routed") else "direct"
+            return (
+                f"{model} @ {reply['member']} ({via}): {len(toks)} token(s)\n"
+                "  " + " ".join(str(t) for t in toks)
+            )
+        if cmd == "sessions":
+            try:
+                rows = [
+                    [s["id"], s["model"], s["member"], s["tenant"],
+                     s["delivered"], s["state"], s["migrations"]]
+                    for s in n.gen_sessions()
+                ]
+            except RpcError as e:
+                return f"session ledger unavailable: {e}"
+            if not rows:
+                return "no generation sessions"
+            return format_table(
+                ["session", "model", "member", "tenant", "delivered",
+                 "state", "migrations"],
+                rows,
+            )
+        if cmd == "drain":
+            opts = list(args)
+            try:
+                deadline = pop_option(opts, "--deadline", float)
+            except ValueError as e:
+                return str(e)
+            if len(opts) != 1:
+                return "usage: drain <member_addr> [--deadline S]"
+            r = n.drain(opts[0], deadline_s=deadline)
+            return (
+                f"draining {r['member']}: {r['resident']} resident "
+                f"session(s), deadline {r['deadline_s']:.1f}s "
+                "(residents finish or migrate; admission stopped)"
+            )
+        if cmd == "undrain":
+            if len(args) != 1:
+                return "usage: undrain <member_addr>"
+            r = n.undrain(args[0])
+            return (
+                f"{r['member']}: admission reopened"
+                if r.get("was") else f"{r['member']}: was not draining"
+            )
         if cmd == "jobs":
             out = []
             for name, r in sorted(n.jobs_report().items()):
@@ -305,6 +399,17 @@ class Cli:
                     f"  breaker {dest}: {br['state']} (opens={br['opens']}, "
                     f"consec_failures={br['consec']})"
                 )
+            auto = s.get("autoscaler")
+            if auto:
+                targets = ", ".join(
+                    f"{name}={t['current']}"
+                    for name, t in sorted(auto.get("targets", {}).items())
+                )
+                last = auto.get("last_decision")
+                out.append(
+                    f"  autoscaler: {targets or '(no targets)'}; last: "
+                    + (_fmt_decision(last) if last else "(no decisions yet)")
+                )
             cluster = s.get("cluster")
             if cluster:
                 ctrs = {k: v for k, v in sorted(cluster.get("counters", {}).items()) if v}
@@ -323,6 +428,20 @@ class Cli:
                         + (f" DEMOTED ({h['reason']})" if h.get("demoted") else "")
                         if ewma is not None
                         else f"    {m}: DEMOTED ({h['reason']})"
+                    )
+            gen = s.get("cluster_generate")
+            if gen:
+                out.append(
+                    f"  generation sessions: {gen.get('sessions', 0)} live"
+                    f" / {gen.get('total', 0)} ledgered"
+                )
+                for m, d in sorted((gen.get("drains") or {}).items()):
+                    out.append(
+                        f"    drain {m}: "
+                        + ("COMPLETE" if d.get("complete") else "draining")
+                        + f" (deadline {d.get('deadline_s', 0):.1f}s,"
+                        f" age {d.get('age_s', 0):.1f}s,"
+                        f" reason {d.get('reason', '?')})"
                     )
             if s.get("cluster_error"):
                 out.append(f"  leader unreachable: {s['cluster_error']}")
@@ -599,9 +718,61 @@ class Cli:
                  "n", "state"],
                 rows,
             )
+        if cmd == "slo":
+            try:
+                reply = n.rpc.call(n.tracker.current, "obs.slo", {}, timeout=5.0)
+            except Exception as e:
+                return f"leader slo status unavailable: {e}"
+            slo = reply.get("slo") or {}
+            out = []
+            models = slo.get("models") or {}
+            if not models:
+                out.append("no SLO objectives configured (config.slo_objectives)")
+            else:
+                out.append(
+                    f"windows: fast={slo['fast_window_s']:.0f}s "
+                    f"(burn >= {slo['fast_burn_threshold']:.0f}x pages), "
+                    f"slow={slo['slow_window_s']:.0f}s "
+                    f"(burn >= {slo['slow_burn_threshold']:.0f}x pages)"
+                )
+                rows = []
+                for model, s in sorted(models.items()):
+                    p99 = s.get("p99_s")
+                    culprit = s.get("culprit") or {}
+                    rows.append([
+                        model,
+                        f"{s['objective_latency_s'] * 1e3:.0f}ms"
+                        f"@{s['availability']:.3f}",
+                        f"{p99 * 1e3:.1f}ms" if p99 is not None else "-",
+                        f"{s['fast_burn']:.2f}x",
+                        f"{s['slow_burn']:.2f}x",
+                        "FAST-BURN" if s.get("fast_alert")
+                        else ("slow-burn" if s.get("slow_alert") else "ok"),
+                        f"{culprit.get('stage')}@{culprit.get('member')} "
+                        f"{float(culprit.get('critpath_share') or 0.0) * 100:.0f}%"
+                        if culprit else "-",
+                    ])
+                out.append(format_table(
+                    ["model", "objective", "p99", "fast burn", "slow burn",
+                     "state", "culprit"],
+                    rows,
+                ))
+            placement = reply.get("placement") or {}
+            if placement:
+                excluded = placement.get("excluded") or []
+                assignment = placement.get("assignment") or {}
+                out.append(
+                    f"placement: moves {placement.get('moves_used', 0)}"
+                    f"/{placement.get('max_moves', 0)} this window, excluded: "
+                    + (", ".join(excluded) if excluded else "(none)")
+                )
+                for name, ms in sorted(assignment.items()):
+                    out.append(f"  {name}: {', '.join(ms)}")
+            return "\n".join(out)
         if cmd == "tenants":
-            # The tenant plane in one read: declared table and this node's
-            # gate ledgers.
+            # The tenant plane in one read: declared table, this node's gate
+            # ledgers, the leader's per-tenant burn lanes, and the
+            # autoscaler's decision ring.
             specs = n.tenant_specs
             if not specs:
                 return (
@@ -627,6 +798,46 @@ class Cli:
                       t["debt"], t["over_quota_sheds"]]
                      for tname, t in sorted(tenants.items())],
                 ))
+            try:
+                reply = n.rpc.call(n.tracker.current, "obs.slo", {}, timeout=5.0)
+            except Exception as e:
+                out.append(f"leader slo status unavailable: {e}")
+                reply = {}
+            lanes = []
+            for model, s in sorted(
+                ((reply.get("slo") or {}).get("models") or {}).items()
+            ):
+                for tname, lane in sorted((s.get("tenants") or {}).items()):
+                    p99 = lane.get("p99_s")
+                    lanes.append([
+                        f"{model}@{tname}",
+                        f"{p99 * 1e3:.1f}ms" if p99 is not None else "-",
+                        f"{lane['fast_burn']:.2f}x",
+                        f"{lane['slow_burn']:.2f}x",
+                        "FAST-BURN" if lane.get("fast_alert")
+                        else ("slow-burn" if lane.get("slow_alert") else "ok"),
+                    ])
+            if lanes:
+                out.append("per-tenant burn (leader's evaluator):")
+                out.append(format_table(
+                    ["lane", "p99", "fast burn", "slow burn", "state"], lanes,
+                ))
+            auto = reply.get("autoscaler") or (
+                n.autoscaler.status() if n.autoscaler is not None else {}
+            )
+            if auto:
+                targets = ", ".join(
+                    f"{name}={t['current']} (streak {t['clear_streak']}"
+                    f"/{auto['clear_windows']}w)"
+                    for name, t in sorted(auto.get("targets", {}).items())
+                )
+                out.append(f"autoscaler targets: {targets or '(none)'}")
+                decisions = auto.get("decisions") or []
+                out.append(
+                    "autoscaler decisions: "
+                    + ("; ".join(_fmt_decision(d) for d in decisions[-4:])
+                       if decisions else "(none yet)")
+                )
             return "\n".join(out)
         if cmd == "device":
             # Device-plane fleet table (cluster/devicemon.py, docs/

@@ -4,8 +4,9 @@ Copied from ``dmlc_tpu/cluster/failover.py`` (the whole module): the
 probe, the promotion rule, the epochs and the mirrored state
 (``job.state``, ``sdfs.state``) are the JAX package's, so a candidate of
 either package defers to, mirrors and takes over from the other.
-``mesh_bootstrap`` and ``genrouter`` stay ``None`` in this package's node
-until it has a mesh bootstrap and a generation router.
+``mesh_bootstrap`` stays ``None`` in this package's node until it has a
+mesh bootstrap; ``genrouter`` is the node's ``GenRouter``, whose ledger a
+standby mirrors through ``gen.state``.
 
 Capability parity with the reference's failover machinery:
 

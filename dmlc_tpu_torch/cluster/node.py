@@ -7,12 +7,14 @@ membership), the SDFS (member store, member, client and leader), the
 member's workers (``PredictWorker`` over ``EngineBackend``s,
 ``GenerateWorker``, ``ModelLoader``, ``DynamicBatcher``), the
 observability plane (``CostProfiler``, ``CritPathAnalyzer``/
-``FleetCritPath``, ``DriftSentinel``, ``ObsService``, ``ScrapeDelegate``)
-and the device monitor on every node, and the leader (``JobScheduler``,
-``LeaderTracker``, ``StandbyLeader``, ``ScrapeTreeCoordinator`` and the
-``obs.fleet``/``obs.fleet_prom``/``obs.critpath`` verbs). A node of this
-package and one of the JAX package join one fleet: their gossip, RPC frames
-and verbs are the same.
+``FleetCritPath``, ``DriftSentinel``, ``ObsService``, ``ScrapeDelegate``),
+the device monitor and the fleet decode tier (``DecodeTierClient``) on every
+node, the closed loop (``PlacementAdvisor``, ``SloEvaluator``, ``GenRouter``
+with its ``gen.*`` verbs, ``Autoscaler``) on every leader candidate, and the
+leader (``JobScheduler``, ``LeaderTracker``, ``StandbyLeader``,
+``ScrapeTreeCoordinator`` and the ``obs.fleet``/``obs.fleet_prom``/
+``obs.critpath``/``obs.slo`` verbs). A node of this package and one of the
+JAX package join one fleet: their gossip, RPC frames and verbs are the same.
 
 Capability parity with the reference's main() (src/main.rs:25-41): start
 membership threads, start the member RPC server, conditionally start the
@@ -33,14 +35,12 @@ so membership stays the single source of liveness truth.
 
 Engines run on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` building an engine
-raises. Left out until this package ports them: ``decodetier``,
-``placement`` (and so the leader's ``obs.slo`` verb and its SLO evaluator),
-``autoscaler``, ``genrouter`` (and the ``gen.*`` routing verbs),
-``multihost``, ``LmBackend``, ``ExportedBackend`` and the compile cache.
-Their switches that are on by default (``DEFAULT_ON_LEFT_OUT``) are left
-out with one warning in the log; a config that turns on one that is off by
-default (``refuse_unported``) raises ``NotImplementedError``. Without the
-placement advisor, the leader's assignment stays the round-robin split.
+raises. Left out until this package ports them: ``multihost``,
+``LmBackend``, ``ExportedBackend``, the gang verbs (``job.predict_gang``)
+and the compile cache. A config that turns one of them on
+(``refuse_unported``) raises ``NotImplementedError``. The advisor may still
+plan a chip gang; its dispatch then fails on the member's unknown-method
+error, which the job's result carries.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ from dmlc_tpu_torch.cluster import observe
 from dmlc_tpu_torch.cluster.admission import AdmissionGate
 from dmlc_tpu_torch.cluster.clock import Clock, TimerRegistry
 from dmlc_tpu_torch.cluster.critpath import CritPathAnalyzer, FleetCritPath
+from dmlc_tpu_torch.cluster.decodetier import DecodeTierClient
 from dmlc_tpu_torch.cluster.devicemon import DeviceMonitor
 from dmlc_tpu_torch.cluster.failover import LeaderTracker, StandbyLeader
 from dmlc_tpu_torch.cluster.flight import FlightRecorder
@@ -68,7 +69,10 @@ from dmlc_tpu_torch.cluster.sdfs import MemberStore, SdfsClient, SdfsLeader, Sdf
 from dmlc_tpu_torch.cluster.sentinel import DriftSentinel
 from dmlc_tpu_torch.cluster.tenant import parse_tenants
 from dmlc_tpu_torch.cluster.transport import UdpTransport
+from dmlc_tpu_torch.scheduler.autoscaler import Autoscaler, ScaleTarget
+from dmlc_tpu_torch.scheduler.genrouter import GenRouter
 from dmlc_tpu_torch.scheduler.jobs import JobScheduler
+from dmlc_tpu_torch.scheduler.placement import PlacementAdvisor, SloEvaluator, SloObjective
 from dmlc_tpu_torch.scheduler.worker import (
     DynamicBatcher,
     EngineBackend,
@@ -81,14 +85,6 @@ from dmlc_tpu_torch.utils.metrics import Counters, Registry, TenantLabelGuard
 from dmlc_tpu_torch.utils.tracing import traced_methods
 
 log = logging.getLogger(__name__)
-
-#: Config switches that are on by default, with the module of the JAX package
-#: each one drives. This package has none of them yet: the node runs without
-#: them and names those that are on in one warning.
-DEFAULT_ON_LEFT_OUT = {
-    "placement_enabled": "dmlc_tpu/scheduler/placement.py",
-}
-
 
 def member_rpc_addr(gossip_addr: str, port_offset: int) -> str:
     """Map a gossip identity to its member RPC address. The fleet shares one
@@ -140,13 +136,9 @@ def refuse_unported(config: ClusterConfig) -> None:
     """Raise ``NotImplementedError`` for a switch that is off by default and
     turns on a module this package does not have yet, naming the module."""
     wanted = (
-        (config.autoscaler_enabled, "autoscaler_enabled", "dmlc_tpu/scheduler/autoscaler.py"),
-        (config.decode_tier_enabled, "decode_tier_enabled", "dmlc_tpu/cluster/decodetier.py"),
         (config.serve_from_executable, "serve_from_executable",
          "ExportedBackend in dmlc_tpu/scheduler/worker.py"),
         (config.mesh_processes > 1, "mesh_processes > 1", "dmlc_tpu/parallel/multihost.py"),
-        (bool(config.slo_objectives), "slo_objectives",
-         "SloEvaluator in dmlc_tpu/scheduler/placement.py"),
     )
     for on, switch, module in wanted:
         if on:
@@ -157,11 +149,6 @@ def refuse_unported(config: ClusterConfig) -> None:
             raise NotImplementedError(
                 f"job model {name!r} is of kind 'lm' and needs LmBackend in "
                 f"dmlc_tpu/scheduler/worker.py, which dmlc_tpu_torch has not ported yet")
-
-
-def left_out_switches(config: ClusterConfig) -> list[str]:
-    """The switches of ``DEFAULT_ON_LEFT_OUT`` that ``config`` has on."""
-    return [name for name in DEFAULT_ON_LEFT_OUT if getattr(config, name)]
 
 
 class ClusterNode:
@@ -193,13 +180,6 @@ class ClusterNode:
         from dmlc_tpu_torch.cluster.auth import maybe_auth
 
         refuse_unported(config)
-        left_out = left_out_switches(config)
-        if left_out:
-            log.warning(
-                "running without %s: dmlc_tpu_torch has not ported %s yet",
-                ", ".join(left_out),
-                ", ".join(DEFAULT_ON_LEFT_OUT[name] for name in left_out),
-            )
         self.config = config
         self.device = device
         self.clock = Clock()
@@ -485,7 +465,11 @@ class ClusterNode:
         self.sdfs_leader = None
         self.scheduler = None
         self.standby = None
+        self.advisor = None
+        self.slo = None
         self.scrapetree = None
+        self.autoscaler = None
+        self.genrouter = None
         if self.is_candidate:
             self._start_leader_services()
 
@@ -513,6 +497,33 @@ class ClusterNode:
                 if hasattr(backend, "image_source") and backend.image_source is None:
                     backend.image_source = source
 
+        # --- fleet decode tier (cluster/decodetier.py) -------------------
+        # Ship raw JPEG bytes to peers' idle decode lanes so streamed
+        # ingest decode scales with membership instead of one host's
+        # cores. ONE client per node, built here (never per call);
+        # backends source run_paths_stream's prefetch through it. Wired
+        # before the DynamicBatcher wrap below so the attribute lands on
+        # the raw backends.
+        self.decode_tier = None
+        if config.decode_tier_enabled:
+            self.decode_tier = DecodeTierClient(
+                self.rpc,
+                lambda: [
+                    a
+                    for a in self.active_member_addrs()
+                    if a != self.self_member_addr
+                ],
+                min_batch=config.decode_tier_min_batch,
+                max_bytes_per_rpc=config.decode_tier_max_bytes_per_rpc,
+                timeout_s=config.rpc_deadline_s,
+                retry_policy=self.retry_policy,
+                metrics=self.metrics,
+                flight=self.flight,
+            )
+            for backend in self.worker.backends.values():
+                if hasattr(backend, "decode_tier"):
+                    backend.decode_tier = self.decode_tier
+
         # Dynamic request micro-batching, wrapped LAST so the wiring above
         # (image_source assignment) still hits the raw backends. With a
         # deadline configured, concurrent small `job.predict` RPCs coalesce
@@ -539,6 +550,113 @@ class ClusterNode:
                     f"microbatch_queue_{name}", lambda b=wrapped: len(b._queue)
                 )
 
+        # --- elastic autoscaler (scheduler/autoscaler.py) ----------------
+        # Built LAST: its scale targets hold the decode tier, the generate
+        # backends, and (on a leader candidate) the placement advisor, all
+        # wired above. Ticked from the leader's obs scrape loop right after
+        # the SLO evaluation it keys off — a non-leading node registers its
+        # local seams but never ticks.
+        if config.autoscaler_enabled:
+            self.autoscaler = Autoscaler(
+                flight=self.flight,
+                metrics=self.metrics,
+                clock=self.clock.monotonic,
+                clear_windows=config.autoscaler_clear_windows,
+                moves_budget=config.autoscaler_moves_budget,
+                hbm_ceiling=config.autoscaler_hbm_ceiling,
+                hbm_used=self._fleet_hbm_used,
+            )
+            if self.decode_tier is not None:
+                self.autoscaler.register(ScaleTarget(
+                    "decode_fanout",
+                    get=self.decode_tier.fanout,
+                    apply=self.decode_tier.set_fanout,
+                    lo=1,
+                    hi=self.decode_tier.max_fanout,
+                ))
+            for name, gb in self._gen_backends.items():
+                self.autoscaler.register(ScaleTarget(
+                    f"gen_slots_{name}",
+                    get=gb.slot_limit,
+                    apply=gb.set_slot_limit,
+                    lo=1,
+                    hi=gb.max_slots,
+                    models={name},
+                    memory_bound=True,  # slots pin KV pages on the device
+                    # Scale-down-through-drain: hold the shrink while more
+                    # slots than the proposed limit are mid-decode —
+                    # resident streams finish (or the router migrates
+                    # them), they are never cut.
+                    drain=lambda keep, b=gb: b.slots_resident() <= keep,
+                ))
+            if self.advisor is not None:
+                for name in self.config.job_models:
+                    self.autoscaler.register(ScaleTarget(
+                        f"replicas_{name}",
+                        get=lambda n=name: self._replica_current(n),
+                        apply=lambda v, n=name: self._apply_replica_target(n, v),
+                        lo=config.autoscaler_min_replicas,
+                        hi=config.autoscaler_max_replicas,
+                        models={name},
+                        # Retiring a replica of a generation-serving model
+                        # goes through the router's drain (sessions finish
+                        # or migrate) before the shrink lands.
+                        drain=(
+                            (lambda keep, n=name:
+                             self.genrouter.release_capacity(n, keep))
+                            if self.genrouter is not None
+                            and name in self._gen_backends else None
+                        ),
+                    ))
+
+    def _replica_current(self, name: str) -> int:
+        """Autoscaler read seam for per-model replica counts: the explicit
+        target once one is set, else the advisor's live assignment width
+        (gang width counts — a gang is one multi-chip replica set)."""
+        adv = self.advisor
+        if adv is None:
+            return self.config.autoscaler_min_replicas
+        target = adv.replica_targets.get(name)
+        if target is not None:
+            return target
+        assigned = adv.status()["assignment"].get(name)
+        return len(assigned) if assigned else self.config.autoscaler_min_replicas
+
+    def _apply_replica_target(self, name: str, value: int) -> int:
+        """Autoscaler apply seam: pin the advisor's replica target and ask
+        the scheduler to replan now — a shrink marks the cached plan stale,
+        a growth raises the dealing cap (and widens gangs)."""
+        if self.advisor is None:
+            return value
+        self.advisor.set_replica_target(name, value)
+        if self.scheduler is not None:
+            self.scheduler.request_replan(f"autoscale:{name}")
+        return value
+
+    def _member_gauges(self, addr: str) -> dict:
+        """GenRouter's routing signal: one member's gauges from the last
+        obs scrape (LOCAL cache read by contract — never an RPC). Empty
+        while the member is dark; the router falls back to its own
+        session-residency view."""
+        reply = self.fleet_metrics.get(addr)
+        if not reply:
+            return {}
+        return (reply.get("metrics") or {}).get("gauges", {}) or {}
+
+    def _fleet_hbm_used(self) -> float | None:
+        """Worst-device memory occupancy fraction across the last fleet
+        scrape (the autoscaler's scale-up guard). None while the device
+        plane is dark — unknown never blocks."""
+        worst = None
+        for reply in self.fleet_metrics.values():
+            gauges = (reply.get("metrics") or {}).get("gauges", {})
+            limit = gauges.get("hbm_limit_bytes")
+            used = gauges.get("hbm_bytes_in_use")
+            if limit and used is not None and float(limit) > 0:
+                frac = float(used) / float(limit)
+                worst = frac if worst is None else max(worst, frac)
+        return worst
+
     # ---- leader side ---------------------------------------------------
 
     def _load_workload(self) -> list[tuple[str, int]]:
@@ -563,9 +681,30 @@ class ClusterNode:
             transfer_timeout_s=self.config.transfer_deadline_s,
         )
         self._weight_cache: dict[str, tuple[int, float]] = {}
-        # The profiler takes every dispatch's measured cost; with no
-        # placement advisor, assignment stays the reference's round-robin
-        # split (scheduler/jobs.py assign_once).
+        # Profile-driven placement (scheduler/placement.py): consulted by
+        # every assignment pass; falls back to round-robin whenever the
+        # profiles are too thin to advise.
+        if self.config.placement_enabled:
+            self.advisor = PlacementAdvisor(
+                self.profiler,
+                flight=self.flight,
+                metrics=self.metrics,
+                clock=self.clock.monotonic,
+                max_moves=self.config.placement_max_moves,
+                window_s=self.config.placement_window_s,
+                hysteresis=self.config.placement_hysteresis,
+                exclude_factor=self.config.placement_exclude_factor,
+                # Ingest-aware placement: weight assignment toward members
+                # with idle decode lanes and local SDFS blobs, read from the
+                # obs scrape + SDFS directory.
+                decode_idle=self._member_decode_idle,
+                blob_locality=self._member_blob_locality,
+                # Memory-headroom HARD constraint (devicemon): a model is
+                # never assigned to a member whose scraped device-memory
+                # headroom cannot hold its analytic resident bytes.
+                headroom=self._member_hbm_headroom,
+                model_bytes=self._model_required_bytes,
+            )
         self.scheduler = JobScheduler(
             self.rpc,
             self.active_member_addrs,
@@ -581,7 +720,7 @@ class ClusterNode:
             metrics=self.metrics,
             flight=self.flight,
             profiler=self.profiler,
-            advisor=None,
+            advisor=self.advisor,
         )
         # Gang placement read-out: the planned gang width per job (0 =
         # solo/replicated serving), scrapeable beside the per-member
@@ -591,6 +730,56 @@ class ClusterNode:
                 f"gang_world_{job_name}",
                 lambda n=job_name: self.scheduler.jobs[n].gang_world,
             )
+        # SLO burn-rate evaluation (scheduler/placement.SloEvaluator): runs
+        # on the scrape cadence while leading; a fast-burn edge asks the
+        # scheduler for a replan — the closed loop the objectives exist for.
+        if self.config.slo_objectives:
+            self.slo = SloEvaluator(
+                self.profiler,
+                SloObjective.from_config(self.config.slo_objectives),
+                fast_window_s=self.config.slo_fast_window_s,
+                slow_window_s=self.config.slo_slow_window_s,
+                fast_burn=self.config.slo_fast_burn,
+                slow_burn=self.config.slo_slow_burn,
+                metrics=self.metrics,
+                flight=self.flight,
+                registry=self.registry,
+                on_fast_burn=lambda model: self.scheduler.request_replan(
+                    f"slo_fast_burn:{model}"
+                ),
+                # Per-tenant burn lanes: each declared tenant's traffic is
+                # scored against the model objective on its own
+                # ``model@tenant`` profiler lane.
+                tenants=sorted(self.tenant_specs),
+                tenant_guard=self.tenant_guard,
+                # Root-cause attribution: every burn alert names the
+                # model's top critical-path contributor.
+                attribution=self.fleet_critpath.culprit,
+            )
+        # Survivable generation sessions (scheduler/genrouter.py): the
+        # leader routes job.generate by the scraped per-member gauges and
+        # owns the session ledger that failure-triggered migration and
+        # drain work from. Built on every candidate — the routing verbs
+        # refuse until StandbyLeader promotes, and the standby sync loop
+        # mirrors the acting leader's ledger in the meantime.
+        self.genrouter = GenRouter(
+            self.rpc,
+            self.active_member_addrs,
+            metrics_for=self._member_gauges,
+            tenants=self.tenant_specs,
+            max_sessions=self.config.gen_router_max_sessions,
+            drain_deadline_s=self.config.gen_drain_deadline_s,
+            # Same idle budget as the member-side sweep: both planes reap
+            # an abandoned stream after the same silence.
+            session_ttl_s=self.config.gen_session_ttl_s,
+            timeout_s=self.config.rpc_deadline_s,
+            retry_policy=self.retry_policy,
+            metrics=self.metrics,
+            flight=self.flight,
+            clock=self.clock.monotonic,
+        )
+        self.scheduler.extra_status = self.genrouter.status
+        self.registry.gauge("gen_drain_active", self.genrouter.drain_active)
         # Delegated scrape tree (cluster/scrapetree.py): past
         # scrape_tree_min_members the scrape loop partitions the ring and
         # folds delegate partials instead of calling every member itself.
@@ -606,11 +795,13 @@ class ClusterNode:
         methods = {
             **self.sdfs_leader.methods(),
             **self.scheduler.methods(),
+            **self.genrouter.methods(),
             # Fleet-wide observability read-outs: the latest obs.metrics
             # snapshot per member (scraped by _obs_scrape_loop while
             # leading), raw and as Prometheus text, plus the tree-merged
-            # fleet rollup and any spans dark this cycle, and the fleet
-            # critical-path table with the drift sentinel's state.
+            # fleet rollup and any spans dark this cycle, the SLO, placement
+            # and autoscaler state, and the fleet critical-path table with
+            # the drift sentinel's state.
             **traced_methods({
                 "obs.fleet": lambda p: {
                     "fleet": dict(self.fleet_metrics),
@@ -619,6 +810,16 @@ class ClusterNode:
                 },
                 "obs.fleet_prom": lambda p: {
                     "text": observe.render_fleet_prometheus(dict(self.fleet_metrics))
+                },
+                "obs.slo": lambda p: {
+                    "slo": self.slo.status() if self.slo is not None else {},
+                    "placement": (
+                        self.advisor.status() if self.advisor is not None else {}
+                    ),
+                    "autoscaler": (
+                        self.autoscaler.status()
+                        if self.autoscaler is not None else {}
+                    ),
                 },
                 "obs.critpath": lambda p: {
                     "critpath": self.fleet_critpath.table(),
@@ -642,6 +843,7 @@ class ClusterNode:
             self.leader_candidates,
             self.scheduler,
             sdfs_leader=self.sdfs_leader,
+            genrouter=self.genrouter,
         )
 
     # ---- topology ------------------------------------------------------
@@ -681,6 +883,49 @@ class ClusterNode:
             w = cached[0] if cached is not None else 1
         self._weight_cache[addr] = (w, now)
         return w
+
+    def _member_decode_idle(self, member: str) -> float | None:
+        """Idle decode lanes from the leader's last obs scrape of this
+        member (the `decode_lane_idle` gauge every node registers). None
+        when the member hasn't been scraped yet — the advisor treats
+        unknown as neutral, never as zero capacity."""
+        reply = self.fleet_metrics.get(member)
+        if not reply:
+            return None
+        v = (reply.get("metrics") or {}).get("gauges", {}).get("decode_lane_idle")
+        return float(v) if v is not None else None
+
+    def _member_hbm_headroom(self, member: str) -> float | None:
+        """Device-memory headroom (limit - in_use bytes) from the leader's
+        last obs scrape of this member (the devicemon gauges every node
+        registers). None when unscraped or when the member reports no
+        memory stats (CPU) — unknown never blocks placement."""
+        reply = self.fleet_metrics.get(member)
+        if not reply:
+            return None
+        gauges = (reply.get("metrics") or {}).get("gauges", {})
+        limit, used = gauges.get("hbm_limit_bytes"), gauges.get("hbm_bytes_in_use")
+        if limit is None or used is None:
+            return None
+        return float(limit) - float(used)
+
+    def _model_required_bytes(self, model: str) -> float | None:
+        """Analytic weights residency for the headroom constraint. None for
+        models without a registry entry (test jobs) — no constraint rather
+        than a false refusal."""
+        try:
+            from dmlc_tpu_torch.models.registry import get_model
+
+            return float(get_model(model).param_bytes())
+        except Exception:  # noqa: BLE001 - unknown models place unconstrained
+            return None
+
+    def _member_blob_locality(self, member: str) -> float | None:
+        """Fraction of the SDFS directory this member replicates — blobs it
+        can decode without fetching first."""
+        if self.sdfs_leader is None:
+            return None
+        return self.sdfs_leader.blob_locality(member)
 
     # ---- liveness glue -------------------------------------------------
 
@@ -729,6 +974,7 @@ class ClusterNode:
             for _ in range(max(1, self.config.dispatch_workers)):
                 self._spawn(self._dispatch_loop)
             self._spawn(self._standby_loop)
+            self._spawn(self._genrouter_loop)
 
     def _spawn(self, fn) -> None:
         def run() -> None:
@@ -938,11 +1184,12 @@ class ClusterNode:
         (bounded concurrency, per-scrape deadlines) for small fleets,
         through the delegated scrape tree past ``scrape_tree_min_members``.
         ``obs.fleet``/``obs.fleet_prom`` and the CLI ``metrics fleet`` verb
-        read from here. Each pass folds the scrapes into the leader's cost
-        profiler and fleet critical-path table, ticks the drift sentinel,
-        and persists the profile snapshot for warm-start. (The reference's
-        SLO evaluation and autoscaler tick, on the same pass, wait for
-        ``scheduler/placement.py`` and ``scheduler/autoscaler.py``.)"""
+        read from here. Each pass also closes the profile loop: scrapes
+        fold into the leader's cost profiler and fleet critical-path table,
+        the drift sentinel ticks, the SLO evaluator re-judges the burn rates
+        (a fast-burn edge forces fleet-wide trace sampling when configured)
+        and ticks the autoscaler, and the profile snapshot persists for
+        warm-start."""
 
         def body():
             cfg = self.config
@@ -975,6 +1222,31 @@ class ClusterNode:
             self.fleet_critpath.prune(addrs)
             if self.sentinel is not None:
                 self.sentinel.tick(self.fleet_critpath.table())
+            if self.slo is not None:
+                state = self.slo.evaluate()
+                if self.autoscaler is not None:
+                    # Close the elastic loop on the same cadence the burn
+                    # verdicts refresh: burning lanes (including per-tenant
+                    # composites) drive scale-up, quiet streaks scale-down.
+                    self.autoscaler.tick(
+                        self.slo.burning_models(),
+                        {lane: st.get("fast", 0.0)
+                         for lane, st in state.items()},
+                    )
+                if cfg.trace_burn_force_sample_s > 0:
+                    burning = [m for m, st in sorted(state.items())
+                               if st.get("fast_alert")]
+                    if burning:
+                        # Burn-flagged traffic must leave whole traces, not
+                        # a head-sampling lottery: force-sample locally and
+                        # push the window to every member (best-effort).
+                        tracing.tracer.force_sampling(
+                            cfg.trace_burn_force_sample_s
+                        )
+                        observe.force_fleet_sampling(
+                            self.rpc, addrs, cfg.trace_burn_force_sample_s,
+                            timeout=cfg.scrape_timeout_s,
+                        )
             if self.config.profile_persist:
                 self.profiler.save(self.profile_path())
 
@@ -986,6 +1258,15 @@ class ClusterNode:
     def _if_leading(self, fn):
         if self.standby is not None and self.standby.is_leader:
             fn()
+
+    def _genrouter_loop(self) -> None:
+        """While leading: migrate generation sessions off dead, convicted,
+        or drain-expired members and retire completed drains
+        (scheduler/genrouter.py tick)."""
+        self._timer(
+            "genrouter", self.config.leader_probe_interval_s,
+            lambda: self._if_leading(self.genrouter.tick),
+        )
 
     # ---- drift sentinel hooks (cluster/sentinel.py) --------------------
 
@@ -1092,6 +1373,56 @@ class ClusterNode:
             self.tracker.current, "job.start", {}, timeout=self.config.rpc_deadline_s
         )
 
+    def generate(
+        self,
+        model: str,
+        prompt: list[int],
+        max_new_tokens: int = 32,
+        temperature: float = 0.0,
+        seed: int | None = None,
+    ) -> dict:
+        """CLI verb: stream one generation to completion. Routed through
+        the acting leader's session router when one answers — the stream
+        then survives member death, drain, and leader failover — with
+        member-direct dialing as the fallback for routerless fleets."""
+        from dmlc_tpu_torch.cluster.rpc import RpcError, RpcUnreachable
+        from dmlc_tpu_torch.generate import worker as gen_worker
+
+        try:
+            tokens = gen_worker.generate(
+                self.rpc, self.tracker.current, model, prompt,
+                max_new_tokens=max_new_tokens, temperature=temperature,
+                seed=seed, poll_timeout=self.config.rpc_deadline_s,
+            )
+            return {"member": self.tracker.current, "routed": True,
+                    "tokens": tokens}
+        except (RpcUnreachable, RpcError) as e:
+            msg = str(e)
+            if not isinstance(e, RpcUnreachable) and \
+                    "unknown method" not in msg and \
+                    "not the active leader" not in msg:
+                raise  # a routed verdict (quota shed, no member, …)
+            log.warning("leader routing unavailable (%s); dialing members", e)
+        addrs = [self.self_member_addr] if model in self._gen_backends else []
+        addrs += [a for a in self.active_member_addrs() if a not in addrs]
+        last: Exception | None = None
+        for addr in addrs:
+            try:
+                tokens = gen_worker.generate(
+                    self.rpc, addr, model, prompt,
+                    max_new_tokens=max_new_tokens, temperature=temperature,
+                    seed=seed, poll_timeout=self.config.rpc_deadline_s,
+                )
+                return {"member": addr, "routed": False, "tokens": tokens}
+            except RpcError as e:
+                last = e
+                if "not served here" in str(e):
+                    continue  # try a member that hosts the model
+                raise
+        raise last if last is not None else RpcError(
+            f"no active member serves generation for {model!r}"
+        )
+
     def jobs_report(self) -> dict:
         return self.rpc.call(
             self.tracker.current, "job.report", {}, timeout=self.config.rpc_deadline_s
@@ -1102,6 +1433,32 @@ class ClusterNode:
             self.tracker.current, "job.assignments", {},
             timeout=self.config.rpc_deadline_s,
         )["assigned"]
+
+    def gen_sessions(self) -> list[dict]:
+        """CLI ``sessions`` verb: the acting leader's generation-session
+        ledger table (scheduler/genrouter.py)."""
+        return self.rpc.call(
+            self.tracker.current, "job.generate_sessions", {},
+            timeout=self.config.rpc_deadline_s,
+        )["sessions"]
+
+    def drain(self, member: str, deadline_s: float | None = None) -> dict:
+        """CLI ``drain <member>``: stop admitting generation sessions to a
+        member; residents finish within the deadline or migrate."""
+        payload: dict = {"member": member}
+        if deadline_s is not None:
+            payload["deadline_s"] = float(deadline_s)
+        return self.rpc.call(
+            self.tracker.current, "job.drain", payload,
+            timeout=self.config.rpc_deadline_s,
+        )
+
+    def undrain(self, member: str) -> dict:
+        """CLI ``undrain <member>``: reopen a drained member for admission."""
+        return self.rpc.call(
+            self.tracker.current, "job.undrain", {"member": member},
+            timeout=self.config.rpc_deadline_s,
+        )
 
     def status(self, remote: bool = True) -> dict:
         """The overload-control picture from where this node stands: local
@@ -1125,6 +1482,8 @@ class ClusterNode:
                 name: {"priority": spec.priority, "share": spec.share}
                 for name, spec in sorted(self.tenant_specs.items())
             }
+        if self.autoscaler is not None:
+            out["autoscaler"] = self.autoscaler.status()
         if self._batchers:
             out["microbatch"] = {
                 name: b.summary()
@@ -1140,6 +1499,10 @@ class ClusterNode:
                 )
                 out["cluster"] = reply.get("overload", {})
                 out["cluster_leading"] = bool(reply.get("leading"))
+                if reply.get("generate"):
+                    # Router-side session/drain picture (GenRouter.status):
+                    # the CLI renders drain state per member from this.
+                    out["cluster_generate"] = reply["generate"]
             except Exception as e:
                 out["cluster_error"] = str(e)
         return out

@@ -11,8 +11,14 @@ version, which the kernel wrappers take only for tensors on the CPU.
 Static shapes: partial shards are padded to ``batch_size`` and the pad rows
 are dropped on the host.
 
-Not ported here: the multi-host ``run_batch_global``, the device-side
-resize (``device_resize_from``) and the compile census.
+With ``device_resize_from`` the host stages RAW [B, R, R, 3] uint8 pixels
+and the card reaches the model's input size through the two matrix
+products of ``ops/device_resize.py``; as in the JAX package, that path
+normalizes the resized float32 pixels in plain tensor ops (the
+``normalize_u8`` kernel takes uint8) and still reads out through
+``softmax_top1``.
+
+Not ported here: the multi-host ``run_batch_global`` and the compile census.
 """
 
 from __future__ import annotations
@@ -89,6 +95,7 @@ class InferenceEngine:
         dtype: torch.dtype = torch.bfloat16,
         batch_size: int = 256,
         seed: int = 0,
+        device_resize_from: int | None = None,
         device_work=None,
     ):
         self.spec = get_model(model_name)
@@ -100,6 +107,10 @@ class InferenceEngine:
         self.device_work = device_work
         self.batch_size = int(batch_size)
         self.dtype = dtype
+        # Optional device-side resize (ops/device_resize.py): the host ships
+        # raw [B, R, R, 3] uint8 (R = device_resize_from, e.g. the corpus's
+        # native size) and the card resizes to the model's input.
+        self.device_resize_from = device_resize_from
         model = self.spec.init_params(seed, dtype=dtype)
         model.eval().requires_grad_(False)
         # channels_last: 4-D weights get NHWC strides, the layout the
@@ -108,6 +119,8 @@ class InferenceEngine:
         if variables is not None:
             self.load_variables(variables)
         self._mean, self._std = pp.stats_for_model(model_name)
+        self._mean_t = torch.as_tensor(self._mean, dtype=torch.float32, device=self.device)
+        self._std_t = torch.as_tensor(self._std, dtype=torch.float32, device=self.device)
         self._stats = LatencyStats()
         self._cuda = self.device.type == "cuda"
         # Staging ring (CUDA only): pinned host slots, a copy stream so
@@ -123,8 +136,10 @@ class InferenceEngine:
 
     @property
     def input_size(self) -> int:
-        """Host-side staging size: what decoded batches must be shaped as."""
-        return self.spec.input_size
+        """Host-side staging size: what decoded batches must be shaped as.
+        With device resize active this is the RAW size; the model's input
+        size is reached on the card."""
+        return self.device_resize_from or self.spec.input_size
 
     # ---- the forward ------------------------------------------------------
 
@@ -132,7 +147,14 @@ class InferenceEngine:
     def _forward(self, u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
         """uint8 NHWC on the device -> (top-1 index, top-1 prob);
         asynchronous on CUDA."""
-        x = kernels.normalize_u8(u8, self._mean, self._std, self.dtype)
+        resize_from = self.device_resize_from
+        if resize_from is not None and resize_from != self.spec.input_size:
+            from dmlc_tpu_torch.ops import device_resize
+
+            x = device_resize.resize_batch(u8, self.spec.input_size) / 255.0
+            x = ((x - self._mean_t) / self._std_t).to(self.dtype)
+        else:
+            x = kernels.normalize_u8(u8, self._mean, self._std, self.dtype)
         return kernels.softmax_top1(self.model(x))
 
     @staticmethod

@@ -408,6 +408,7 @@ class EngineBackend:
         variables=None,
         dtype: torch.dtype | None = None,
         device: str | torch.device | None = None,
+        device_resize_from: int | None = None,
         device_work=None,
     ):
         self.model_name = model_name
@@ -420,6 +421,11 @@ class EngineBackend:
         self.device_work = device_work
         # Optional synsets -> local paths resolver; None = local fixture dirs.
         self.image_source = image_source
+        # Device-side resize (ops/device_resize.py): decode at this RAW
+        # size on the host (no host resample) and reach the model's input
+        # size on the card — the decode tier's peers then ship near-raw
+        # uint8 and the host CPU sheds the resample.
+        self.device_resize_from = device_resize_from
         # Fleet decode tier client (anything with decode_paths(paths, size)
         # -> uint8 [n, size, size, 3]): multi-batch shards source their
         # prefetch decode through it instead of the local stage pool.
@@ -452,6 +458,8 @@ class EngineBackend:
                 kw["variables"] = self.variables
             if self.dtype is not None:
                 kw["dtype"] = self.dtype
+            if self.device_resize_from is not None:
+                kw["device_resize_from"] = self.device_resize_from
             if self.device_work is not None:
                 kw["device_work"] = self.device_work
             self._engine = InferenceEngine(

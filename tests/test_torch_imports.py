@@ -159,11 +159,8 @@ def test_node_refuses_without_cuda(monkeypatch, tmp_path):
 
 
 @pytest.mark.parametrize("switch,value,module", [
-    ("autoscaler_enabled", True, "scheduler/autoscaler.py"),
-    ("decode_tier_enabled", True, "cluster/decodetier.py"),
     ("serve_from_executable", True, "ExportedBackend"),
     ("mesh_processes", 2, "parallel/multihost.py"),
-    ("slo_objectives", {"resnet18": {"latency_s": 0.5}}, "scheduler/placement.py"),
     ("job_models", ["lm_small"], "LmBackend"),
 ])
 def test_node_refuses_switches_of_unported_modules(tmp_path, switch, value, module):
@@ -173,27 +170,51 @@ def test_node_refuses_switches_of_unported_modules(tmp_path, switch, value, modu
         ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
 
 
-def test_node_names_the_default_switches_it_runs_without(tmp_path, caplog):
-    from dmlc_tpu_torch.cluster.node import DEFAULT_ON_LEFT_OUT, ClusterNode
+@pytest.mark.parametrize("switch,value,attr", [
+    ("autoscaler_enabled", True, "autoscaler"),
+    ("decode_tier_enabled", True, "decode_tier"),
+    ("slo_objectives", {"resnet18": {"latency_s": 0.5}}, "slo"),
+])
+def test_node_runs_switches_of_ported_modules(tmp_path, caplog, switch, value, attr):
+    """The closed loop's switches build their module: the autoscaler, the
+    fleet decode tier and the SLO evaluator, with no warning and no
+    refusal."""
+    from dmlc_tpu_torch.cluster.node import ClusterNode
 
     with caplog.at_level("WARNING", logger="dmlc_tpu_torch.cluster.node"):
-        node = ClusterNode(_node_config(tmp_path), backends={})
+        node = ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+    try:
+        assert getattr(node, attr) is not None
+        assert not [r for r in caplog.records if "running without" in r.getMessage()]
+        if attr == "slo":
+            reply = node.leader_server.methods["obs.slo"]({})
+            assert set(reply["slo"]["models"]) == {"resnet18"}
+        if attr == "autoscaler":
+            # The advisor's replica targets, one a job model (no decode
+            # tier and no generation backends on this config).
+            targets = node.status(remote=False)["autoscaler"]["targets"]
+            assert sorted(targets) == [f"replicas_{m}" for m in sorted(node.config.job_models)]
+    finally:
+        node.stop()
+
+
+def test_node_names_the_default_switches_it_runs_without(tmp_path, caplog):
+    """Every switch of a default config now builds its module: the node
+    warns of nothing it runs without, and the leader candidate has its
+    placement advisor, its generation router and the observability plane."""
+    from dmlc_tpu_torch.cluster import node as node_mod
+
+    with caplog.at_level("WARNING", logger="dmlc_tpu_torch.cluster.node"):
+        node = node_mod.ClusterNode(_node_config(tmp_path), backends={})
     node.stop()
-    warned = [r.getMessage() for r in caplog.records if "running without" in r.getMessage()]
-    assert len(warned) == 1
-    # Only the placement advisor is left out: the observability plane and
-    # the device monitor run on a default config.
-    assert DEFAULT_ON_LEFT_OUT == {"placement_enabled": "dmlc_tpu/scheduler/placement.py"}
-    for switch, module in DEFAULT_ON_LEFT_OUT.items():
-        assert switch in warned[0] and module in warned[0]
-    for switch in ("critpath_enabled", "sentinel_enabled", "profile_persist",
-                   "devicemon_poll_interval_s"):
-        assert switch not in warned[0]
+    assert not [r for r in caplog.records if "running without" in r.getMessage()]
+    assert not hasattr(node_mod, "DEFAULT_ON_LEFT_OUT")
+    assert node.advisor is not None and node.genrouter is not None
+    assert node.scheduler.advisor is node.advisor
+    assert node.standby.genrouter is node.genrouter
     assert node.critpath is not None and node.sentinel is not None
     assert node.profile_path().exists()  # saved at stop: profile_persist is on
-    with caplog.at_level("WARNING", logger="dmlc_tpu_torch.cluster.node"):
-        caplog.clear()
-        quiet = ClusterNode(_node_config(tmp_path / "quiet", placement_enabled=False),
-                            backends={})
+    quiet = node_mod.ClusterNode(_node_config(tmp_path / "quiet", placement_enabled=False),
+                                 backends={})
     quiet.stop()
-    assert not [r for r in caplog.records if "running without" in r.getMessage()]
+    assert quiet.advisor is None and quiet.scheduler.advisor is None

@@ -181,9 +181,13 @@ def test_full_stack_through_cli(cluster3, tmp_path):
     assert "hbm used/limit" in table and "steady recompiles" in table
     for n in nodes:
         assert n.self_member_addr in table
-    # The verbs that wait for an unported module name it.
-    assert "scheduler/genrouter.py" in cli.run_command("generate lm_small 1 2")
-    assert "scheduler/placement.py" in cli.run_command("slo")
+    # The closed loop's verbs answer as the JAX package's do on a fleet
+    # that serves no generation and declares no objectives; the verbs that
+    # wait for an unported module name it.
+    assert "unknown method 'job.generate'" in cli.run_command("generate lm_small 1 2")
+    assert "no generation sessions" in cli.run_command("sessions")
+    assert "no SLO objectives configured" in cli.run_command("slo")
+    assert "parallel/multihost.py" in cli.run_command("mesh-join")
     assert "mesh-join" in cli.run_command("help")
 
 
@@ -243,7 +247,7 @@ def test_critpath_verb_renders_fleet_attribution(cluster3):
     """tests/test_node_integration.py's case on a port fleet: after traced
     predict traffic, the CLI ``critpath`` verb renders the leader's folded
     critical-path table, (stage x member) lanes with charged seconds and
-    shares; ``slo`` names the module it waits for."""
+    shares; ``slo`` renders the leader's evaluator and placement state."""
     from dmlc_tpu_torch.utils.tracing import tracer
 
     nodes = cluster3
@@ -270,7 +274,10 @@ def test_critpath_verb_renders_fleet_attribution(cluster3):
         assert len(top.splitlines()) <= len(lines)
         assert "no critical-path lanes" in cli.run_command("critpath nope")
         assert "usage:" in cli.run_command("critpath a b")
-        assert "scheduler/placement.py" in cli.run_command("slo")
+        # The slo verb still renders: no objectives on this fleet, and the
+        # advisor's placement line.
+        out = cli.run_command("slo")
+        assert "no SLO objectives configured" in out and "placement: moves" in out, out
     finally:
         tracer.enabled = False
         tracer.reset()
@@ -465,10 +472,12 @@ def workload(tmp_path_factory):
 SIDE_OF = {"J": (JAX, jax_node, jax_backend), "P": (PORT, port_node, port_backend)}
 
 
-def start_fleet(tmp, kinds: str, synset_path, data_dir, slow_s: float = 0.0, **overrides):
+def start_fleet(tmp, kinds: str, synset_path, data_dir, slow_s: float = 0.0,
+                node_overrides=None, **overrides):
     """Nodes of the packages ``kinds`` names ("J"/"P" each), laid out as
     localcluster lays out its fleet (nodes 0 and 1 leader candidates),
-    joined, converged, and node 0 promoted."""
+    joined, converged, and node 0 promoted. ``node_overrides`` maps a node's
+    index to config fields of its own."""
     for _ in range(3):
         base = free_port_block()
         candidates = [f"127.0.0.1:{base + 10 * i + 1}" for i in range(2)]
@@ -489,10 +498,13 @@ def start_fleet(tmp, kinds: str, synset_path, data_dir, slow_s: float = 0.0, **o
                     leader_probe_interval_s=0.6,
                 )
                 fields.update(overrides)
+                fields.update((node_overrides or {}).get(i, {}))
                 backends = {m: make_backend(m, data_dir) for m in JOBS}
                 if slow_s:
                     backends = {m: Slow(b, slow_s) for m, b in backends.items()}
-                node = node_mod.ClusterNode(side.config.ClusterConfig(**fields), backends=backends)
+                on_cpu = {"device": "cpu"} if kind == "P" else {}
+                node = node_mod.ClusterNode(side.config.ClusterConfig(**fields),
+                                            backends=backends, **on_cpu)
                 node.start()
                 nodes.append(node)
             for n in nodes[1:]:
@@ -650,3 +662,184 @@ def test_mixed_fleet_observability(workload, all_jax, tmp_path, kinds):
         stop_local_cluster(nodes)
     assert got["jobs"] == all_jax["jobs"]
     assert got["assigned"] == all_jax["assigned"]
+
+
+# ---------------------------------------------------------------------------
+# The closed loop across packages: SLO evaluation and placement, and the
+# generation router
+# ---------------------------------------------------------------------------
+
+#: An objective the slow member's pinned dispatches (below) miss, so both
+#: fleets' evaluators burn at the same nonzero rate before ``predict``.
+SLO_OBJECTIVES = {"tinynet": {"latency_s": 30.0}, "tinynet_b": {"latency_s": 30.0}}
+#: Dispatch seconds a query pinned into the leader's profile before
+#: ``predict``, by member index: node 2 is ten times slower than the others,
+#: so the advisor's plan is decided by this evidence alone.
+PINNED_COST = {0: 0.05, 1: 0.05, 2: 0.5}
+
+
+def run_slo_fleet(tmp, kinds, workload) -> tuple[dict, dict]:
+    """Pin the costs, run one scrape pass (the SLO evaluation over the
+    pinned evidence) and read ``obs.slo``; ``predict`` and read the
+    advisor's plan at once (the plan the jobs were assigned from, before a
+    finished job or a burn edge replans); then run the jobs. Members are
+    named by node index and measured latencies are left out."""
+    synset_path, data_dir, _ = workload
+    nodes = start_fleet(tmp, kinds, synset_path, data_dir,
+                        placement_enabled=True, slo_objectives=SLO_OBJECTIVES)
+    try:
+        index = {n.self_member_addr: i for i, n in enumerate(nodes)}
+        leader, rpc = nodes[0], nodes[-1].rpc
+        for job in JOBS:
+            for i, cost in PINNED_COST.items():
+                leader.profiler.record(job, nodes[i].self_member_addr, "dispatch", cost * 64,
+                                       count=64)
+        leader.timers.fire("obs_scrape")
+        slo = rpc.call(leader.self_leader_addr, "obs.slo", {}, timeout=5.0)["slo"]
+        nodes[-1].predict()
+        placement = rpc.call(leader.self_leader_addr, "obs.slo", {}, timeout=5.0)["placement"]
+        wait_until(lambda: all(j.done for j in leader.scheduler.jobs.values()), timeout=40.0,
+                   msg="jobs complete")
+        report = nodes[-1].jobs_report()
+    finally:
+        stop_local_cluster(nodes)
+    got = {
+        "models": {model: {k: v for k, v in body.items() if k not in ("p99_s", "culprit")}
+                   for model, body in slo["models"].items()},
+        "windows": {k: v for k, v in slo.items() if k != "models"},
+        "assignment": {job: sorted(index[a] for a in members)
+                       for job, members in placement["assignment"].items()},
+        "excluded": sorted(index[a] for a in placement["excluded"]),
+        "moves_used": placement["moves_used"],
+        "gangs": placement["gangs"],
+        "replica_targets": placement["replica_targets"],
+    }
+    return {job: {k: r[k] for k in ("finished", "correct")} for job, r in report.items()}, got
+
+
+@pytest.fixture(scope="module")
+def all_jax_slo(workload, tmp_path_factory):
+    return run_slo_fleet(tmp_path_factory.mktemp("all_jax_slo"), "JJJ", workload)
+
+
+@pytest.mark.parametrize("kinds", ["JPP", "PPP"], ids=["jax_leader_port_members", "all_port"])
+def test_slo_and_advisor_plan_equal_all_jax(workload, all_jax_slo, tmp_path, kinds):
+    """With placement and SLO objectives on, a JAX leader over port members
+    (and an all-port fleet) gives the all-JAX fleet's ``obs.slo`` burn
+    rates, advisor plan and jobs."""
+    jobs, got = run_slo_fleet(tmp_path, kinds, workload)
+    want_jobs, want = all_jax_slo
+    assert jobs == want_jobs == workload[2]
+    assert set(got["models"]) == set(SLO_OBJECTIVES)
+    assert all(body["fast_burn"] > 0 for body in got["models"].values()), got["models"]
+    assert got["excluded"] == [2] and got["moves_used"] == 0
+    assert got == want
+
+
+GEN_MODEL = "lm_small"
+GEN_PROMPTS = ([3, 1, 4, 1, 5], [2, 7, 1, 8], [9, 9, 2], [4, 2], [6, 5, 3], [1, 1])
+GEN_NEW = 16
+#: A two-node generation fleet, both nodes serving ``GEN_MODEL`` (the
+#: router takes every member to serve the model it routes). The failure
+#: timeout is longer than the others fleets': both nodes share one process,
+#: and the JAX engine's first decode step holds its GIL while it compiles.
+GEN_NODES = {i: {"generate_models": [GEN_MODEL], "gen_page_size": 8, "gen_num_pages": 64,
+                 "gen_max_prefill": 16, "failure_timeout_s": 6.0} for i in (0, 1)}
+
+
+@pytest.fixture(scope="module")
+def lm_variables():
+    """lm_small's JAX variables, loaded into every generating member of
+    either package."""
+    _, variables = jax_registry.get_model(GEN_MODEL).init_params(jax.random.PRNGKey(0),
+                                                                 dtype=jnp.float32)
+    return variables
+
+
+def run_sessions(nodes, variables, drain: int) -> dict:
+    """Route ``GEN_PROMPTS`` through the leader's ``job.generate``; once
+    every session has tokens, drain node ``drain`` (its decode slowed so
+    its sessions are mid-stream), fire the router's tick past the drain's
+    deadline, and read every session to its end."""
+    index = {n.self_member_addr: i for i, n in enumerate(nodes)}
+    for i in GEN_NODES:
+        backend = nodes[i]._gen_backends[GEN_MODEL]
+        backend.load_variables(variables)
+        backend.warmup()
+        # One short generation first: the decode step compiles (JAX) or
+        # builds outside the sessions.
+        backend.submit([1, 2, 3], max_new_tokens=2, request_id=f"warm{i}").result(timeout=60)
+        if i == drain:
+            engine = backend._scheduler.engine
+            step = engine.step
+            engine.step = lambda step=step: (time.sleep(0.05), step())[1]
+    leader, rpc = nodes[0], nodes[-1].rpc
+    addr = leader.self_leader_addr
+    sids = [rpc.call(addr, "job.generate", {"model": GEN_MODEL, "prompt": list(p),
+                                            "max_new_tokens": GEN_NEW}, timeout=30.0)["gen_id"]
+            for p in GEN_PROMPTS]
+    placed = {s["id"]: index[s["member"]] for s in leader.genrouter.sessions_table()}
+    tokens = {sid: [] for sid in sids}
+    acked = {sid: 0 for sid in sids}
+    done: set = set()
+
+    def poll(sid):
+        r = rpc.call(addr, "job.generate_poll", {"gen_id": sid, "ack": acked[sid]},
+                     timeout=30.0)
+        for seq, toks in sorted(r.get("chunks", [])):
+            if seq > acked[sid]:
+                acked[sid] = seq
+                tokens[sid].extend(int(t) for t in toks)
+        if r.get("done") and not r.get("chunks"):
+            assert not r.get("error"), r
+            done.add(sid)
+
+    wait_until(lambda: [poll(s) for s in sids] and all(tokens[s] for s in sids),
+               timeout=60.0, msg="first tokens")
+    drained = nodes[drain].self_member_addr
+    before = {sid: len(tokens[sid]) for sid in sids if placed[sid] == drain}
+    rpc.call(addr, "job.drain", {"member": drained, "deadline_s": 0.05}, timeout=30.0)
+    time.sleep(0.1)
+    leader.timers.fire("genrouter")
+    wait_until(lambda: [poll(s) for s in sids if s not in done] is not None
+               and len(done) == len(sids), timeout=60.0, msg="sessions complete")
+    table = {s["id"]: s for s in leader.genrouter.sessions_table()}
+    return {"tokens": [tokens[sid] for sid in sids],
+            "placed": sorted(placed.values()),
+            "migrated": {sid: table[sid]["migrations"] for sid in before},
+            "cut_at": before,
+            "members_after": {sid: index[table[sid]["member"]] for sid in before}}
+
+
+@pytest.fixture(scope="module")
+def all_jax_sessions(workload, lm_variables, tmp_path_factory):
+    synset_path, data_dir, _ = workload
+    nodes = start_fleet(tmp_path_factory.mktemp("all_jax_gen"), "JJ", synset_path, data_dir,
+                        node_overrides=GEN_NODES)
+    try:
+        return run_sessions(nodes, lm_variables, drain=1)
+    finally:
+        stop_local_cluster(nodes)
+
+
+def test_port_router_drains_a_jax_member_mid_stream(workload, lm_variables, all_jax_sessions,
+                                                     tmp_path):
+    """A port leader's GenRouter routes sessions to one JAX member and one
+    port member (itself), drains the JAX member mid-stream, and every
+    session's greedy tokens equal the all-JAX fleet's; the drained member's
+    sessions migrated once, to the port member, resuming from the tokens
+    they had delivered."""
+    synset_path, data_dir, _ = workload
+    nodes = start_fleet(tmp_path, "PJ", synset_path, data_dir, node_overrides=GEN_NODES)
+    try:
+        got = run_sessions(nodes, lm_variables, drain=1)
+    finally:
+        stop_local_cluster(nodes)
+    assert set(got["placed"]) == {0, 1}, got
+    assert got["cut_at"], "no session was placed on the drained JAX member"
+    assert all(0 < n < GEN_NEW for n in got["cut_at"].values()), got["cut_at"]
+    assert set(got["migrated"].values()) == {1}, got
+    assert set(got["members_after"].values()) == {0}, got
+    assert all(len(t) == GEN_NEW for t in got["tokens"])
+    assert got["tokens"] == all_jax_sessions["tokens"]
+    assert set(all_jax_sessions["migrated"].values()) == {1}
