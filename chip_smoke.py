@@ -96,6 +96,14 @@ non-zero:
    must resize within RESIZE_TOL of reference_resize. Launches of
    normalize_u8, softmax_top1 and paged_decode_attention are counted for
    each part.
+   vision  — vit_b16 and clip_vit_l14 at batch 256, 224 px, bf16, seeded
+   weights, through job.predict from a TcpRpcServer on localhost: the
+   classifier's JPEG and multi-batch shards equal in process and, under
+   the gap rule, the plain path; the embedder answers zeros and its
+   run_batch embeddings keep a cosine of VISION_COSINE against the plain
+   normalization; each model's run_batch wall, img/s, MFU and peak device
+   memory; the classifier's weights through weights_to_bytes and
+   model.load into a second backend, which then answers as the first.
 5. generate — job.generate for lm_wide through GenerateWorker, served
    from a TcpRpcServer on localhost, to 24 TcpRpc clients (one
    paged_decode_attention launch a layer a step, no gather;
@@ -124,6 +132,7 @@ from __future__ import annotations
 
 import contextlib
 import ctypes
+import gc
 import json
 import re
 import statistics
@@ -2969,6 +2978,226 @@ def phase_closedloop(dev: dict, cluster: dict) -> dict:
     return report
 
 
+#: Phase vision: the transformer image models at full width, batch 256,
+#: bf16, seeded weights (registry.init_params, flax's initialisers).
+VISION_CLASSIFIER, VISION_EMBEDDER = "vit_b16", "clip_vit_l14"
+#: The embeddings through the kernel path against the same model fed by
+#: normalize_u8_reference (the only kernel on the path): the least
+#: row-wise cosine similarity allowed. The two inputs differ by at most a
+#: bf16 ulp a pixel (NORMALIZE_TOL); 24 bf16 blocks carry that through.
+VISION_COSINE = 0.999
+#: Seeded synsets of the classifier's multi-batch request (the stream path).
+VISION_SEEDED = 300
+
+
+def cosine_rows(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    a, b = a.to(torch.float64), b.to(torch.float64)
+    return (a * b).sum(-1) / (a.norm(dim=-1) * b.norm(dim=-1))
+
+
+def phase_vision(dev: dict) -> dict:
+    """ViT-B/16 top-1 and CLIP ViT-L/14 embeddings served by job.predict
+    from a TcpRpcServer on localhost (PredictWorker -> EngineBackend ->
+    InferenceEngine at batch 256, 224 px, bf16, seeded weights):
+
+    - vit_b16: the serve phase's JPEG shard (decoded on the host) and a
+      multi-batch seeded shard (the decode tier, the stream path); every
+      TCP answer equal to the in-process one and, under the gap rule, to
+      the plain path's (plain_top1); normalize_u8 and softmax_top1 launch.
+    - clip_vit_l14: the JPEG shard answers all zeros, as the JAX package's
+      embedding backends do; run_batch gives finite [256, 768] float32
+      embeddings whose row-wise cosine against the same model fed by
+      normalize_u8_reference is at least VISION_COSINE; normalize_u8
+      launches and softmax_top1 does not.
+    - the run_batch wall of each (median of alternating turns), img/s,
+      MFU against the card's bf16 peak, peak device memory and one traced
+      run_batch's device time by kernel.
+    - the vit_b16 engine's weights through weights_to_bytes and model.load
+      (a member store, the ModelLoader verb over the same server) into a
+      second backend of other seeded weights, which must then answer the
+      JPEG shard as the first does.
+
+    Launch counts are set to 0 just before each model's requests and read
+    just after."""
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
+    from dmlc_tpu_torch.cluster.sdfs import MemberStore
+    from dmlc_tpu_torch.models import weights
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend, ModelLoader, PredictWorker
+    from dmlc_tpu_torch.utils import corpus
+
+    t_phase = time.perf_counter()
+    gc.collect()  # the earlier phases' engines, so the peak below is this phase's
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-vision-") as td:
+        data_dir, synset_path = corpus.generate(Path(td), **SERVE_CORPUS)
+        jpeg_synsets = [s for s, _ in pp.load_synset_words(synset_path)]
+        source = SeededImages(data_dir)
+        backends = {}
+        build_s = {}
+        for name in (VISION_CLASSIFIER, VISION_EMBEDDER):
+            t = time.perf_counter()
+            b = EngineBackend(name, data_dir, batch_size=BATCH, image_source=source)
+            b.decode_tier = source
+            b.warmup()
+            backends[name] = b
+            build_s[name] = time.perf_counter() - t
+        vit, clip = backends[VISION_CLASSIFIER], backends[VISION_EMBEDDER]
+        # A second classifier of other seeded weights, to load the first's into.
+        spec = get_model(VISION_CLASSIFIER)
+        second = EngineBackend(VISION_CLASSIFIER, data_dir, batch_size=BATCH,
+                               image_source=source,
+                               variables=spec.init_params(1, dtype=torch.float32).state_dict())
+        second.warmup()
+        store = MemberStore(Path(td) / "store")
+        worker = PredictWorker(backends)
+        methods = {**worker.methods(), **ModelLoader(store, {VISION_CLASSIFIER: second}).methods()}
+        predict = methods["job.predict"]
+        server = TcpRpcServer("127.0.0.1", 0, methods)
+        rpc = TcpRpc()
+
+        def tcp(method: str, req: dict) -> dict:
+            return rpc.call(server.address, method, req, timeout=600.0)
+
+        requests = {
+            VISION_CLASSIFIER: [("jpeg", jpeg_synsets),
+                                ("decode_tier", [f"seed_{k}" for k in range(VISION_SEEDED)])],
+            VISION_EMBEDDER: [("jpeg", jpeg_synsets)],
+        }
+        try:
+            answers, launches = {}, {}
+            for model, reqs in requests.items():
+                K.reset_launch_counts()
+                answers[model] = []
+                for kind, synsets in reqs:
+                    t = time.perf_counter()
+                    preds = tcp("job.predict", {"model": model, "synsets": synsets})["predictions"]
+                    answers[model].append((kind, synsets, preds, time.perf_counter() - t))
+                launches[model] = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+            for model, got in answers.items():
+                for kind, synsets, preds, _ in got:
+                    local = predict({"model": model, "synsets": synsets})["predictions"]
+                    if local != preds or len(preds) != len(synsets):
+                        raise AssertionError(f"{model} ({kind}): the TCP answers differ from the "
+                                             f"in-process ones for {len(synsets)} synsets")
+            if launches[VISION_CLASSIFIER]["normalize_u8"] == 0 or \
+                    launches[VISION_CLASSIFIER]["softmax_top1"] == 0:
+                raise AssertionError(f"{VISION_CLASSIFIER} launches {launches[VISION_CLASSIFIER]}")
+            if launches[VISION_EMBEDDER]["normalize_u8"] == 0 or \
+                    launches[VISION_EMBEDDER]["softmax_top1"] != 0:
+                raise AssertionError(f"{VISION_EMBEDDER} launches {launches[VISION_EMBEDDER]}")
+
+            # The classifier against the plain path under the gap rule.
+            requests_report = []
+            for kind, synsets, preds, wall in answers[VISION_CLASSIFIER]:
+                paths = source(synsets)
+                pixels = (source.decode_paths(paths, SIZE) if kind == "decode_tier"
+                          else pp.load_batch(paths, size=SIZE))
+                want, gaps = plain_top1(vit.engine, pixels)
+                preds = np.asarray(preds)
+                mask = gaps > GAP
+                bad = int((preds[mask] != want[mask]).sum())
+                if bad:
+                    raise AssertionError(f"{VISION_CLASSIFIER} ({kind}): {bad} compared rows "
+                                         f"differ from the plain path")
+                requests_report.append({
+                    "model": VISION_CLASSIFIER, "source": kind, "synsets": len(synsets),
+                    "batches": -(-len(synsets) // BATCH), "wall_s": wall,
+                    "img_per_s": len(synsets) / wall, "compared_rows": int(mask.sum()),
+                    "distinct_classes": int(len(set(preds.tolist()))),
+                    "tcp_equals_in_process": True})
+            kind, synsets, preds, wall = answers[VISION_EMBEDDER][0]
+            if any(preds):
+                raise AssertionError(f"{VISION_EMBEDDER}: job.predict answered {set(preds)}, "
+                                     f"not zeros")
+            requests_report.append({"model": VISION_EMBEDDER, "source": kind,
+                                    "synsets": len(synsets), "wall_s": wall,
+                                    "img_per_s": len(synsets) / wall, "answers_all_zero": True,
+                                    "tcp_equals_in_process": True})
+
+            # The weights round trip into the second backend.
+            shard = {"model": VISION_CLASSIFIER, "synsets": jpeg_synsets}
+            first = predict(shard)["predictions"]
+            before = second(jpeg_synsets)
+            t = time.perf_counter()
+            variables = spec.to_jax(vit.engine.model.state_dict())
+            blob = weights.weights_to_bytes(VISION_CLASSIFIER, variables)
+            store.receive(weights.sdfs_weights_name(VISION_CLASSIFIER), 1, blob)
+            serialize_s = time.perf_counter() - t
+            t = time.perf_counter()
+            tcp("model.load", {"model": VISION_CLASSIFIER, "version": 1})
+            load_s = time.perf_counter() - t
+            after = second(jpeg_synsets)
+            if before == first:
+                raise AssertionError(f"{VISION_CLASSIFIER}: the second backend's other weights "
+                                     f"answered as the first's before model.load")
+            if after != first:
+                raise AssertionError(f"{VISION_CLASSIFIER}: after model.load the second backend "
+                                     f"answers {sum(a != b for a, b in zip(after, first))} of "
+                                     f"{len(first)} queries otherwise")
+            round_trip = {"blob_bytes": len(blob), "serialize_s": serialize_s,
+                          "model_load_s": load_s, "equal_top1": True,
+                          "differed_before": sum(a != b for a, b in zip(before, first))}
+        finally:
+            server.close()
+
+        # The embeddings against the plain normalization on the same pixels.
+        gen = np.random.default_rng(11)
+        batch = gen.integers(0, 256, (BATCH, SIZE, SIZE, 3), np.uint8)
+        engine = clip.engine
+        emb = engine.run_batch(batch).embeddings
+        if emb.dtype != np.float32 or emb.shape != (BATCH, get_model(VISION_EMBEDDER).num_outputs) \
+                or not np.isfinite(emb).all():
+            raise AssertionError(f"{VISION_EMBEDDER}: embeddings {emb.dtype} {emb.shape}, "
+                                 f"finite {bool(np.isfinite(emb).all())}")
+        with torch.inference_mode():
+            u8 = torch.from_numpy(batch).to(engine.device)
+            plain = engine.model(K.normalize_u8_reference(u8, engine._mean, engine._std,
+                                                          engine.dtype))
+        cos = cosine_rows(torch.from_numpy(emb), plain.cpu())
+        worst = int(cos.argmin())
+        if float(cos[worst]) < VISION_COSINE:
+            raise AssertionError(f"{VISION_EMBEDDER}: row {worst} cosine {float(cos[worst])} "
+                                 f"< {VISION_COSINE} against the plain normalization")
+
+        # Walls in turns, then each model's peak device memory over its own
+        # run_batch calls.
+        engines = {name: b.engine for name, b in backends.items()}
+        for e in engines.values():
+            e.run_batch(batch)
+        wall_ms, walls = alternate_ms({n: (lambda e=e: e.run_batch(batch))
+                                       for n, e in engines.items()})
+        timing = {}
+        for name, e in engines.items():
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            e.run_batch(batch)
+            flops = get_model(name).flops_per_item()
+            timing[name] = {
+                "run_batch_ms": wall_ms[name], "readings_ms": walls[name],
+                "img_per_s": BATCH / (wall_ms[name] / 1e3),
+                "flops_per_item": flops,
+                "mfu": BATCH * flops / (wall_ms[name] / 1e3) / dev["bf16_flops_per_s"],
+                "device_forward_ms": time_ms(lambda e=e, u=u8: e._forward(u), reps=5, inner=3),
+                "max_memory_allocated": torch.cuda.max_memory_allocated(),
+                "resident_bytes": e.resident_bytes(), "engine_build_s": build_s[name],
+                "profile_run_batch": profile_call(lambda e=e: e.run_batch(batch), top=12),
+            }
+    report = {
+        "phase": "vision", "nvidia_smi": dev["nvidia_smi"], "batch": BATCH, "size": SIZE,
+        "dtype": "bfloat16", "transport": "TcpRpcServer on 127.0.0.1", "launches": launches,
+        "requests": requests_report,
+        "embeddings": {"shape": list(emb.shape), "dtype": str(emb.dtype), "finite": True,
+                       "cosine_bound": VISION_COSINE, "worst_row": worst,
+                       "worst_cosine": float(cos[worst]), "mean_cosine": float(cos.mean())},
+        "weights_round_trip": round_trip, "timing": timing,
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(report)
+    return report
+
+
 class FlightNotes:
     """Collects the slot scheduler's flight notes (slot_admit, slot_exit,
     shed, slot_evict)."""
@@ -3632,6 +3861,7 @@ def main() -> int:
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-cluster-") as td:
         cluster = phase_cluster(dev, Path(td))
         closed = phase_closedloop(dev, cluster)
+    vision = phase_vision(dev)
     gen = phase_generate(dev)
     decode = phase_decode(dev)
     train = phase_train(dev)
@@ -3648,6 +3878,7 @@ def main() -> int:
          "cluster_launches": cluster["launches"]["normalize_u8"],
          "closedloop_launches": {part: n["normalize_u8"]
                                  for part, n in closed["launches"].items() if part != "sessions"},
+         "vision_launches": {model: n["normalize_u8"] for model, n in vision["launches"].items()},
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
          "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
@@ -3663,6 +3894,7 @@ def main() -> int:
          "cluster_launches": cluster["launches"]["softmax_top1"],
          "closedloop_launches": {part: n["softmax_top1"]
                                  for part, n in closed["launches"].items() if part != "sessions"},
+         "vision_launches": {model: n["softmax_top1"] for model, n in vision["launches"].items()},
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],

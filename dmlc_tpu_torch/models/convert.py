@@ -3,17 +3,20 @@
 Inverts the torchvision -> flax mappings of ``dmlc_tpu/models/convert.py``:
 flax HWIO conv kernels become OIHW weights, dense ``[in, out]`` kernels are
 transposed to ``[out, in]``, and the ``batch_stats`` collection becomes each
-BatchNorm's ``running_mean`` / ``running_var``. The language models' trees
-map name for name (``lm_from_jax``). Inputs are the JAX
-``{"params", "batch_stats"}`` tree with numpy leaves (``jax.device_get``
-first); outputs are float32 state dicts named as torchvision names them.
+BatchNorm's ``running_mean`` / ``running_var``. The language models',
+ViT's and CLIP's trees map name for name (``lm_from_jax``, ``vit_from_jax``,
+``clip_from_jax``; their class tokens and positions are parameters of the
+top module). Inputs are the JAX ``{"params", "batch_stats"}`` tree with
+numpy leaves (``jax.device_get`` first); outputs are float32 state dicts
+named as torchvision names them.
 
-The way back, ``resnet_to_jax``, ``alexnet_to_jax`` and ``lm_to_jax``, is
-the exact inverse: a state dict of this package's module becomes the JAX
-variables tree with float32 numpy leaves (``num_batches_tracked`` is
-dropped), so ``to_jax(from_jax(v))`` equals ``v`` bit for bit. Given the
-module's state dict on the ``meta`` device it gives the tree's key paths
-and shapes alone, as ``LeafSpec`` leaves (models/weights.py's template).
+The way back, ``resnet_to_jax``, ``alexnet_to_jax``, ``lm_to_jax``,
+``vit_to_jax`` and ``clip_to_jax``, is the exact inverse: a state dict of
+this package's module becomes the JAX variables tree with float32 numpy
+leaves (``num_batches_tracked`` is dropped), so ``to_jax(from_jax(v))``
+equals ``v`` bit for bit. Given the module's state dict on the ``meta``
+device it gives the tree's key paths and shapes alone, as ``LeafSpec``
+leaves (models/weights.py's template).
 
 The four external importers, ``vit_params_from_hf``,
 ``clip_params_from_hf``, ``resnet_params_from_torch`` and
@@ -114,7 +117,8 @@ def alexnet_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
 
 def _dense(sd: dict, prefix: str, leaf: Mapping) -> None:
     sd[f"{prefix}.weight"] = dense_weight(leaf["kernel"])
-    sd[f"{prefix}.bias"] = _t(leaf["bias"])
+    if "bias" in leaf:
+        sd[f"{prefix}.bias"] = _t(leaf["bias"])
 
 
 def _layer_norm(sd: dict, prefix: str, leaf: Mapping) -> None:
@@ -132,6 +136,15 @@ def lm_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
         "embed.weight": _t(params["embed"]["embedding"]),
         "pos_embed.weight": _t(params["pos_embed"]["embedding"]),
     }
+    _blocks(sd, params)
+    _layer_norm(sd, "ln_f", params["ln_f"])
+    _dense(sd, "head", params["head"])
+    return sd
+
+
+def _blocks(sd: dict, params: Mapping) -> None:
+    """The pre-LN blocks the language models, ViT and CLIP share:
+    ``block{i}/{ln1, attn/{query,key,value,out}, ln2, mlp_in, mlp_out}``."""
     for name, block in params.items():
         if not name.startswith("block"):
             continue
@@ -141,8 +154,38 @@ def lm_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
             _dense(sd, f"{name}.attn.{proj}", block["attn"][proj])
         _dense(sd, f"{name}.mlp_in", block["mlp_in"])
         _dense(sd, f"{name}.mlp_out", block["mlp_out"])
-    _layer_norm(sd, "ln_f", params["ln_f"])
+
+
+def _patch_tokens(params: Mapping) -> dict[str, torch.Tensor]:
+    """ViT/CLIP ``patch_embed`` (CLIP's without bias), ``cls_token`` and
+    ``pos_embed``."""
+    patch = params["patch_embed"]
+    sd = {"patch_embed.weight": conv_weight(patch["kernel"]),
+          "cls_token": _t(params["cls_token"]), "pos_embed": _t(params["pos_embed"])}
+    if "bias" in patch:
+        sd["patch_embed.bias"] = _t(patch["bias"])
+    return sd
+
+
+def vit_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """models.vit.ViT variables -> this package's ViT state dict."""
+    params = variables["params"]
+    sd = _patch_tokens(params)
+    _blocks(sd, params)
+    _layer_norm(sd, "ln_final", params["ln_final"])
     _dense(sd, "head", params["head"])
+    return sd
+
+
+def clip_from_jax(variables: Mapping) -> dict[str, torch.Tensor]:
+    """models.clip.CLIPVisionEncoder variables -> this package's
+    CLIPVisionEncoder state dict."""
+    params = variables["params"]
+    sd = _patch_tokens(params)
+    _layer_norm(sd, "pre_ln", params["pre_ln"])
+    _blocks(sd, params)
+    _layer_norm(sd, "post_ln", params["post_ln"])
+    _dense(sd, "projection", params["projection"])
     return sd
 
 
@@ -221,6 +264,9 @@ _FIELDS: dict[str, dict[str, tuple[str, str, Callable]]] = {
            "running_var": ("batch_stats", "var", _leaf)},
     "ln": {"weight": ("params", "scale", _leaf), "bias": ("params", "bias", _leaf)},
     "embed": {"weight": ("params", "embedding", _leaf)},
+    # Parameters of the top module itself (ViT's and CLIP's tokens).
+    "tokens": {"cls_token": ("params", "cls_token", _leaf),
+               "pos_embed": ("params", "pos_embed", _leaf)},
 }
 
 
@@ -231,7 +277,7 @@ def state_dict_to_jax(sd: Mapping[str, torch.Tensor],
     ``_FIELDS``); BatchNorm's ``num_batches_tracked`` has no flax leaf."""
     out: dict = {}
     for key, t in sd.items():
-        module, field = key.rsplit(".", 1)
+        module, _, field = key.rpartition(".")
         if field == "num_batches_tracked":
             continue
         path, kind = locate(module)
@@ -305,6 +351,34 @@ def lm_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
     """This package's TransformerLM state dict -> SPTransformerLM
     variables; the inverse of ``lm_from_jax``."""
     return state_dict_to_jax(sd, _lm_locate)
+
+
+_IMAGE_TRANSFORMER_TOP = {"": "tokens", "patch_embed": "conv", "pre_ln": "ln",
+                          "ln_final": "ln", "post_ln": "ln", "head": "dense",
+                          "projection": "dense"}
+
+
+def _image_transformer_locate(module: str) -> tuple[tuple[str, ...], str]:
+    if module in _IMAGE_TRANSFORMER_TOP:
+        return ((module,) if module else ()), _IMAGE_TRANSFORMER_TOP[module]
+    m = _LM_BLOCK_RE.fullmatch(module)
+    if m is None:
+        raise KeyError(f"unexpected ViT/CLIP entry {module}")
+    inner = m.group(2)
+    return (m.group(1), *inner.split(".")), "ln" if inner.startswith("ln") else "dense"
+
+
+def vit_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """This package's ViT state dict -> models.vit.ViT variables; the
+    inverse of ``vit_from_jax``."""
+    return state_dict_to_jax(sd, _image_transformer_locate)
+
+
+def clip_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
+    """This package's CLIPVisionEncoder state dict ->
+    models.clip.CLIPVisionEncoder variables; the inverse of
+    ``clip_from_jax``."""
+    return state_dict_to_jax(sd, _image_transformer_locate)
 
 
 # ---------------------------------------------------------------------------

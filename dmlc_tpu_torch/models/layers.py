@@ -71,11 +71,13 @@ def batch_norm(channels: int) -> BatchNorm2d:
 
 class LayerNorm(nn.LayerNorm):
     """flax ``nn.LayerNorm``: population variance over the last axis with
-    eps 1e-6 (flax's default, not torch's 1e-5), statistics in float32 over
-    float32 parameters, output in ``compute_dtype``."""
+    eps 1e-6 by default (flax's, not torch's 1e-5; ViT takes 1e-12 and CLIP
+    1e-5), statistics in float32 over float32 parameters, output in
+    ``compute_dtype``."""
 
-    def __init__(self, features: int, compute_dtype: torch.dtype = torch.float32):
-        super().__init__(features, eps=1e-6)
+    def __init__(self, features: int, compute_dtype: torch.dtype = torch.float32,
+                 eps: float = 1e-6):
+        super().__init__(features, eps=eps)
         self.compute_dtype = compute_dtype
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -1,12 +1,14 @@
 """Model registry.
 
-Port of ``dmlc_tpu/models/registry.py`` for the image classifiers of the
+Port of ``dmlc_tpu/models/registry.py`` for the image models of the
 serving path: the reference's two jobs, ``resnet18`` and ``alexnet``, plus
-``resnet34`` and ``resnet50``; and for the generation path's language
-models ``lm_small`` and ``lm_wide`` (``kind="lm"``: ``input_size`` carries
-max_len and ``num_outputs`` the vocab). Models are looked up by name
-together with their input geometry, so the workers, the engines and the
-smoke script agree on model identity by string name.
+``resnet34``, ``resnet50``, ``vit_b16`` and ``vit_l14``, and the CLIP
+image encoders ``clip_vit_l14`` and ``clip_vit_b32`` (``classifier=False``:
+``num_outputs`` is the embedding width); and for the generation path's
+language models ``lm_small`` and ``lm_wide`` (``kind="lm"``:
+``input_size`` carries max_len and ``num_outputs`` the vocab). Models are
+looked up by name together with their input geometry, so the workers, the
+engines and the smoke script agree on model identity by string name.
 """
 
 from __future__ import annotations
@@ -20,23 +22,30 @@ import torch
 from torch import nn
 
 from dmlc_tpu_torch.models.alexnet import alexnet
+from dmlc_tpu_torch.models.clip import clip_vit_b32, clip_vit_l14
 from dmlc_tpu_torch.models.convert import (
     alexnet_from_jax,
     alexnet_to_jax,
+    clip_from_jax,
+    clip_to_jax,
     lm_from_jax,
     lm_to_jax,
     resnet_from_jax,
     resnet_to_jax,
+    vit_from_jax,
+    vit_to_jax,
 )
 from dmlc_tpu_torch.models.lm import (
     LM_SMALL_MAX_LEN,
     LM_SMALL_VOCAB,
     LM_WIDE_MAX_LEN,
     LM_WIDE_VOCAB,
+    TransformerLM,
     lm_small,
     lm_wide,
 )
 from dmlc_tpu_torch.models.resnet import resnet18, resnet34, resnet50
+from dmlc_tpu_torch.models.vit import PatchTokens, vit_b16, vit_l14
 
 #: Images in the seeded batch that calibrates BatchNorm statistics.
 _CALIBRATION_BATCH = 8
@@ -75,14 +84,16 @@ class ModelSpec:
         nearly every input, because the positive mean of its ReLU features
         dominates the logits.
 
-        A language model (``kind="lm"``) is drawn as flax initialises it:
-        LeCun-normal dense weights (std 1/sqrt(fan_in)), zero biases, unit
-        LayerNorm scale, embedding tables with std 1/sqrt(hidden); nothing
-        is calibrated."""
-        if self.kind == "lm":
-            return self._init_lm(seed, dtype)
-        model = self.module(dtype=torch.float32).eval()
+        A language model, a ViT or a CLIP encoder is drawn as flax
+        initialises it (``_draw_as_flax``); nothing is calibrated."""
         gen = torch.Generator().manual_seed(int(seed))
+        out = self.module(dtype=dtype).eval()
+        if isinstance(out, (TransformerLM, PatchTokens)):
+            _draw_as_flax(out, gen)
+            return out
+        # Calibrated in eval mode (BatchNorm switched to training below): a
+        # dropout layer must not drop units of the calibration batch.
+        model = out if dtype == torch.float32 else self.module(dtype=torch.float32).eval()
         bns = [m for m in model.modules() if isinstance(m, nn.BatchNorm2d)]
         head = [m for m in model.modules() if isinstance(m, nn.Linear)][-1]
         with torch.no_grad():
@@ -114,25 +125,9 @@ class ModelSpec:
             head.weight.mul_(gain)
             head.bias.mul_(gain)
         model.eval()
-        if dtype == torch.float32:
-            return model
-        out = self.module(dtype=dtype)
-        out.load_state_dict(model.state_dict())
-        return out.eval()
-
-    def _init_lm(self, seed: int, dtype: torch.dtype) -> nn.Module:
-        model = self.module(dtype=dtype).eval()
-        gen = torch.Generator().manual_seed(int(seed))
-        with torch.no_grad():
-            for mod in model.modules():
-                if isinstance(mod, nn.Linear):
-                    mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.in_features), generator=gen)
-                    mod.bias.zero_()
-                elif isinstance(mod, nn.Embedding):
-                    mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim), generator=gen)
-                elif isinstance(mod, nn.LayerNorm):
-                    mod.reset_parameters()
-        return model
+        if model is not out:
+            out.load_state_dict(model.state_dict())
+        return out
 
     # ---- analytic model accounting ---------------------------------------
 
@@ -162,6 +157,31 @@ class ModelSpec:
         omitted). None for models without a formula."""
         fn = _FLOPS_PER_ITEM.get(self.name)
         return float(fn()) if fn is not None else None
+
+
+def _draw_as_flax(model: nn.Module, gen: torch.Generator) -> None:
+    """flax's initialisers, drawn from ``gen``: LeCun-normal dense and conv
+    weights (std 1/sqrt(fan_in)), zero biases, unit LayerNorm scale and
+    zero shift, embedding tables with std 1/sqrt(hidden), and each token
+    parameter a ViT or CLIP module lists in ``token_std`` N(0, std²)
+    (zeros at std 0)."""
+    with torch.no_grad():
+        for mod in model.modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                fan_in = math.prod(mod.weight.shape[1:])
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(fan_in), generator=gen)
+                if mod.bias is not None:
+                    mod.bias.zero_()
+            elif isinstance(mod, nn.Embedding):
+                mod.weight.normal_(0.0, 1.0 / math.sqrt(mod.embedding_dim), generator=gen)
+            elif isinstance(mod, nn.LayerNorm):
+                mod.reset_parameters()
+        for name, std in getattr(model, "token_std", {}).items():
+            param = getattr(model, name)
+            if std:
+                param.normal_(0.0, std, generator=gen)
+            else:
+                param.zero_()
 
 
 def _template_leaves(name: str) -> list:
@@ -223,6 +243,22 @@ def _alexnet_flops(num_classes: int = 1000, image: int = 224) -> float:
     return fl + 2.0 * (flat * 4096 + 4096 * 4096 + 4096 * num_classes)
 
 
+def _vit_flops(patch: int, hidden: int, layers: int, mlp: int,
+               out_dim: int, image: int = 224, cls_tokens: int = 1) -> float:
+    """Transformer walk shared by models/vit.py and the CLIP vision trunk:
+    patch-embed conv + per-block (q/k/v/out projections, score+mix
+    attention, MLP) + head/projection read off the cls token."""
+    grid = image // patch
+    seq = grid * grid + cls_tokens
+    fl = 2.0 * grid * grid * hidden * 3 * patch * patch
+    per_block = (
+        8.0 * seq * hidden * hidden        # q, k, v, out projections
+        + 4.0 * seq * seq * hidden         # QK^T scores + attention-weighted V
+        + 4.0 * seq * hidden * mlp         # MLP in + out
+    )
+    return fl + layers * per_block + 2.0 * hidden * out_dim
+
+
 def _lm_decode_flops(vocab: int, layers: int, hidden: int, mlp: int,
                      context: int) -> float:
     """One decode step (one generated token) at ``context`` resident
@@ -241,6 +277,10 @@ _FLOPS_PER_ITEM: dict[str, Callable[[], float]] = {
     "resnet34": lambda: _resnet_flops((3, 4, 6, 3), False),
     "resnet50": lambda: _resnet_flops((3, 4, 6, 3), True),
     "alexnet": lambda: _alexnet_flops(),
+    "vit_b16": lambda: _vit_flops(16, 768, 12, 3072, 1000),
+    "vit_l14": lambda: _vit_flops(14, 1024, 24, 4096, 1000),
+    "clip_vit_l14": lambda: _vit_flops(14, 1024, 24, 4096, 768),
+    "clip_vit_b32": lambda: _vit_flops(32, 768, 12, 3072, 512),
     "lm_small": lambda: _lm_decode_flops(LM_SMALL_VOCAB, 2, 128, 256, LM_SMALL_MAX_LEN),
     "lm_wide": lambda: _lm_decode_flops(LM_WIDE_VOCAB, 2, 512, 1024, LM_WIDE_MAX_LEN),
 }
@@ -263,8 +303,10 @@ def list_models() -> list[str]:
     return sorted(_REGISTRY)
 
 
-def _spec(name: str, build: Callable[..., nn.Module], from_jax: Any, to_jax: Any) -> ModelSpec:
-    return ModelSpec(name, build, 224, 1000, from_jax=from_jax, to_jax=to_jax)
+def _spec(name: str, build: Callable[..., nn.Module], from_jax: Any, to_jax: Any,
+          num_outputs: int = 1000, classifier: bool = True) -> ModelSpec:
+    return ModelSpec(name, build, 224, num_outputs, classifier=classifier, from_jax=from_jax,
+                     to_jax=to_jax)
 
 
 for _s in [
@@ -272,6 +314,10 @@ for _s in [
     _spec("resnet34", resnet34, resnet_from_jax, resnet_to_jax),
     _spec("resnet50", resnet50, resnet_from_jax, resnet_to_jax),
     _spec("alexnet", alexnet, alexnet_from_jax, alexnet_to_jax),
+    _spec("vit_b16", vit_b16, vit_from_jax, vit_to_jax),
+    _spec("vit_l14", vit_l14, vit_from_jax, vit_to_jax),
+    _spec("clip_vit_l14", clip_vit_l14, clip_from_jax, clip_to_jax, 768, classifier=False),
+    _spec("clip_vit_b32", clip_vit_b32, clip_from_jax, clip_to_jax, 512, classifier=False),
     ModelSpec("lm_small", lm_small, LM_SMALL_MAX_LEN, LM_SMALL_VOCAB, classifier=False,
               kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax),
     ModelSpec("lm_wide", lm_wide, LM_WIDE_MAX_LEN, LM_WIDE_VOCAB, classifier=False,

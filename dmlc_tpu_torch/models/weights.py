@@ -279,22 +279,26 @@ _RESNET_STAGES = {
     "resnet34": ([3, 4, 6, 3], False),
     "resnet50": ([3, 4, 6, 3], True),
 }
+_VIT_LAYERS = {"vit_b16": 12, "vit_l14": 24}
+_CLIP_LAYERS = {"clip_vit_l14": 24, "clip_vit_b32": 12}
 
 
 def import_external(model_name: str, state_dict) -> dict:
     """External state dict (numpy values) -> validated variables tree.
 
-    torchvision layouts for resnet/alexnet (the reference's `.ot` files
-    played this role, services.rs:513-524). The ViT and CLIP families have
-    converters (``convert.vit_params_from_hf``, ``convert.clip_params_from_hf``)
-    but no registry entry in this package yet, so they have no importer
-    here.
+    torchvision layouts for resnet/alexnet, HuggingFace layouts for
+    vit/clip — the layouts the ecosystem's pretrained checkpoints ship in
+    (the reference's `.ot` files played this role, services.rs:513-524).
     """
     if model_name in _RESNET_STAGES:
         sizes, bottleneck = _RESNET_STAGES[model_name]
         variables = convert.resnet_params_from_torch(state_dict, sizes, bottleneck)
     elif model_name == "alexnet":
         variables = convert.alexnet_params_from_torch(state_dict)
+    elif model_name in _VIT_LAYERS:
+        variables = convert.vit_params_from_hf(state_dict, _VIT_LAYERS[model_name])
+    elif model_name in _CLIP_LAYERS:
+        variables = convert.clip_params_from_hf(state_dict, _CLIP_LAYERS[model_name])
     else:
         raise KeyError(f"no external-checkpoint importer for {model_name!r}")
     check_variables(model_name, variables)

@@ -3,10 +3,14 @@
 Port of ``dmlc_tpu/parallel/inference.py``. The unit of work is a shard: a
 fixed-size uint8 NHWC image batch that goes to the card as bytes, is
 normalized there by the ``normalize_u8`` kernel straight into the model's
-compute dtype, runs through the model (bfloat16, ``channels_last``), and is
-read out by the ``softmax_top1`` kernel, so only two [B] arrays come back
-to the host. The kernels are the path: there is no switch to a plain
-version, which the kernel wrappers take only for tensors on the CPU.
+compute dtype, runs through the model (bfloat16, ``channels_last``), and a
+classifier's logits are read out by the ``softmax_top1`` kernel, so only
+two [B] arrays come back to the host. An embedding model
+(``classifier=False``, the CLIP encoders) brings its float32 [B, D] output
+back instead, and its ``BatchResult`` carries zeros for the top-1 fields,
+as the JAX package's does. The kernels are the path: there is no switch to
+a plain version, which the kernel wrappers take only for tensors on the
+CPU.
 
 Static shapes: partial shards are padded to ``batch_size`` and the pad rows
 are dropped on the host.
@@ -15,8 +19,8 @@ With ``device_resize_from`` the host stages RAW [B, R, R, 3] uint8 pixels
 and the card reaches the model's input size through the two matrix
 products of ``ops/device_resize.py``; as in the JAX package, that path
 normalizes the resized float32 pixels in plain tensor ops (the
-``normalize_u8`` kernel takes uint8) and still reads out through
-``softmax_top1``.
+``normalize_u8`` kernel takes uint8) and still reads a classifier out
+through ``softmax_top1``.
 
 Not ported here: the multi-host ``run_batch_global`` and the compile census.
 """
@@ -75,9 +79,9 @@ _RING = 2
 
 @dataclass
 class BatchResult:
-    top1_index: np.ndarray      # [N] int32 class indices
-    top1_prob: np.ndarray       # [N] float32
-    embeddings: np.ndarray | None  # [N, D] for embedding models (None here)
+    top1_index: np.ndarray      # [N] int32 class indices (zeros for embedding models)
+    top1_prob: np.ndarray       # [N] float32 (zeros for embedding models)
+    embeddings: np.ndarray | None  # [N, D] float32 for embedding models, else None
     # Wall seconds behind this result: the device execution for run_batch /
     # run_paths; the WHOLE pipeline (decode || transfer || compute) for
     # run_paths_stream.
@@ -99,8 +103,6 @@ class InferenceEngine:
         device_work=None,
     ):
         self.spec = get_model(model_name)
-        if not self.spec.classifier:
-            raise ValueError(f"{model_name!r} is an embedding model; the engine serves classifiers")
         self.device = resolve_device(device)
         # Device-plane telemetry hook: called with (model, items, seconds)
         # per device execution. None = off.
@@ -144,8 +146,9 @@ class InferenceEngine:
     # ---- the forward ------------------------------------------------------
 
     @torch.inference_mode()
-    def _forward(self, u8: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
-        """uint8 NHWC on the device -> (top-1 index, top-1 prob);
+    def _forward(self, u8: torch.Tensor):
+        """uint8 NHWC on the device -> (top-1 index, top-1 prob) for a
+        classifier, the float32 [B, D] output for an embedding model;
         asynchronous on CUDA."""
         resize_from = self.device_resize_from
         if resize_from is not None and resize_from != self.spec.input_size:
@@ -155,11 +158,21 @@ class InferenceEngine:
             x = ((x - self._mean_t) / self._std_t).to(self.dtype)
         else:
             x = kernels.normalize_u8(u8, self._mean, self._std, self.dtype)
-        return kernels.softmax_top1(self.model(x))
+        out = self.model(x)
+        return kernels.softmax_top1(out) if self.spec.classifier else out
 
-    @staticmethod
-    def _to_host(out: tuple[torch.Tensor, torch.Tensor]) -> tuple[np.ndarray, np.ndarray]:
-        return out[0].cpu().numpy(), out[1].cpu().numpy()
+    def _to_host(self, out):
+        if self.spec.classifier:
+            return out[0].cpu().numpy(), out[1].cpu().numpy()
+        return out.cpu().numpy()
+
+    def _result(self, host, n: int, seconds: float) -> BatchResult:
+        """The first ``n`` rows of a host result (``_to_host``'s form) as a
+        BatchResult: a classifier's top-1, or an embedding model's output
+        beside zero top-1 fields."""
+        if self.spec.classifier:
+            return BatchResult(host[0][:n], host[1][:n], None, seconds)
+        return BatchResult(np.zeros(n, np.int32), np.zeros(n, np.float32), host[:n], seconds)
 
     def _pad(self, batch_u8: np.ndarray) -> np.ndarray:
         n = batch_u8.shape[0]
@@ -200,13 +213,13 @@ class InferenceEngine:
             raise ValueError(f"batch {n} exceeds engine batch_size {self.batch_size}")
         batch_u8 = self._pad(np.ascontiguousarray(batch_u8, np.uint8))
         t0 = time.perf_counter()
-        idx, top = self._to_host(self._forward(torch.from_numpy(batch_u8).to(self.device)))
+        host = self._to_host(self._forward(torch.from_numpy(batch_u8).to(self.device)))
         dt = time.perf_counter() - t0
         self._stats.record(dt)
         tracer.record("device/forward", dt, model=self.spec.name, batch=int(n))
         if self.device_work is not None:
             self.device_work(self.spec.name, int(n), dt)
-        return BatchResult(idx[:n], top[:n], None, dt)
+        return self._result(host, n, dt)
 
     def run_paths(self, paths: Sequence[str], workers: int | None = None) -> BatchResult:
         """Decode + resize on host threads, then one device batch."""
@@ -335,9 +348,11 @@ class InferenceEngine:
             # pipeline SHOULD read low achieved FLOP/s.
             self.device_work(self.spec.name, len(paths), total_dt)
 
-        idx = np.concatenate([o[0][:n] for n, o in outs])
-        top = np.concatenate([o[1][:n] for n, o in outs])
-        return BatchResult(idx, top, None, total_dt)
+        if self.spec.classifier:
+            host = tuple(np.concatenate([o[j][:n] for n, o in outs]) for j in (0, 1))
+        else:
+            host = np.concatenate([o[:n] for n, o in outs])
+        return self._result(host, len(paths), total_dt)
 
     def _materialize(self, n: int, out, done):
         """Block on one in-flight device result and bring it to the host.

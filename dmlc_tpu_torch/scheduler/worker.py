@@ -393,7 +393,9 @@ class EngineBackend:
     """Real backend: fixture images through an InferenceEngine.
 
     The engine is built on first use (or by ``warmup``), then serves every
-    shard with batched device executions. A lock serializes shards per
+    shard with batched device executions. An embedding model (the CLIP
+    encoders) answers a zero for every query, its ``BatchResult``'s top-1
+    field, as the JAX package's backend does. A lock serializes shards per
     engine — one batch stream already saturates the device pipeline. The
     device is resolved at construction: with no CUDA device and no explicit
     ``device="cpu"`` this raises at once.

@@ -166,15 +166,6 @@ def test_run_batch_rejects_empty_and_oversize():
         engine.run_paths_stream([])
 
 
-def test_engine_refuses_embedding_models(monkeypatch):
-    # Registered for this test only: the JAX registry has no such model, and
-    # test_torch_models.py holds the two registries' entries against each other.
-    monkeypatch.setitem(t_registry._REGISTRY, "tinyembed_torch", t_registry.ModelSpec(
-        "tinyembed_torch", TorchTinyNet, SIZE, 16, classifier=False))
-    with pytest.raises(ValueError, match="embedding"):
-        InferenceEngine("tinyembed_torch", device="cpu", batch_size=BATCH)
-
-
 def test_engine_accounting():
     engine = InferenceEngine("tinynet", device="cpu", batch_size=BATCH, dtype=torch.float32)
     assert engine.warmup() >= 0.0

@@ -52,7 +52,7 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "cluster.failover", "cluster.sdfs", "scheduler.dataset", "models.weights",
                  "scheduler.jobs", "cluster.node", "cluster.localcluster", "cli",
                  "cluster.profile", "cluster.critpath", "cluster.sentinel", "cluster.observe",
-                 "cluster.scrapetree", "cluster.devicemon"):
+                 "cluster.scrapetree", "cluster.devicemon", "models.vit", "models.clip"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
@@ -154,6 +154,28 @@ def test_node_refuses_without_cuda(monkeypatch, tmp_path):
     try:
         assert node.worker.backends["resnet18"].device == torch.device("cpu")
         assert node._node_info({})["chips"] == 1
+    finally:
+        node.stop()
+
+
+def test_node_builds_engine_backends_for_vit_and_clip(tmp_path):
+    """Job models of the transformer image families get their
+    EngineBackend (the engine built lazily, on the device asked for), the
+    device monitor their FLOPs and placement their resident bytes, with
+    no refusal."""
+    from dmlc_tpu_torch.cluster.node import ClusterNode
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend
+
+    models = ["vit_b16", "clip_vit_l14"]
+    node = ClusterNode(_node_config(tmp_path, job_models=models), device="cpu")
+    try:
+        for name in models:
+            backend = node.worker.backends[name]
+            assert isinstance(backend, EngineBackend) and backend.engine is None
+            assert backend.device == torch.device("cpu")
+            assert node.devicemon._item_flops(name) == get_model(name).flops_per_item() > 0
+            assert node._model_required_bytes(name) == get_model(name).param_bytes() > 0
     finally:
         node.stop()
 

@@ -121,6 +121,21 @@ def test_torchvision_named_state_dict_loads():
             assert torch.equal(back[k], sd[k]), k
 
 
+def test_seeded_init_is_the_same_in_every_dtype_and_call():
+    """init_params calibrates the head on a seeded batch in eval mode: an
+    AlexNet's dropout draws nothing from the global generator, so the
+    weights depend on the seed alone, in every compute dtype."""
+    spec = t_registry.ModelSpec(
+        "alexnet_64", lambda num_classes, dtype: AlexNet(num_classes, dtype=dtype,
+                                                         image_size=IMAGE), IMAGE, 10)
+    want = spec.init_params(3, dtype=torch.float32).state_dict()
+    for global_seed in (1, 2):
+        torch.manual_seed(global_seed)
+        got = spec.init_params(3, dtype=torch.bfloat16).state_dict()
+        for key, value in want.items():
+            assert torch.equal(got[key], value), key
+
+
 def test_registry_matches_jax_registry():
     for name in t_registry.list_models():
         spec, jspec = t_registry.get_model(name), jax_registry.get_model(name)

@@ -299,7 +299,11 @@ def test_weights_refuses_to_import_without_msgpack():
 # ---------------------------------------------------------------------------
 
 
-@pytest.mark.parametrize("name", PORT_MODELS + ["tinynet"])
+#: Templates and accounting only: their full-width trees are not drawn here.
+TRANSFORMER_IMAGE_MODELS = ["clip_vit_b32", "clip_vit_l14", "vit_b16", "vit_l14"]
+
+
+@pytest.mark.parametrize("name", PORT_MODELS + TRANSFORMER_IMAGE_MODELS + ["tinynet"])
 def test_template_and_accounting_equal_the_jax_package(name):
     want = jax_weights.variables_template(name)
     got = weights.variables_template(name)
@@ -394,7 +398,7 @@ def test_torchvision_importers_equal_the_jax_package(name):
     assert_trees_equal(registry.get_model(name).to_jax(tensors), want)
 
 
-@pytest.mark.parametrize("name", ["vit_b16", "clip_vit_l14", "tinynet"])
+@pytest.mark.parametrize("name", ["tinynet"])
 def test_import_external_refuses_what_the_port_cannot_serve(name):
     with pytest.raises(KeyError) as e:
         weights.import_external(name, {})
