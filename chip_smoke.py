@@ -104,6 +104,14 @@ non-zero:
    normalization; each model's run_batch wall, img/s, MFU and peak device
    memory; the classifier's weights through weights_to_bytes and
    model.load into a second backend, which then answers as the first.
+   gang    — the partition-rule engine: ShardedProgram("lm_wide") at
+   {dp:1}, {tp:2}, {dp:3} and {dp:2, tp:2} (positions past the first on
+   cuda:0 again), 64 prompts of 16 tokens, float32, seed-0 weights: tokens
+   equal across the widths and to the same programs on the CPU, each
+   width's run wall, prompts/s, sharded_bytes_per_chip and device memory,
+   and no kernel launch; then three port nodes (localcluster) serve an
+   over-budget lm_wide job as a gang of 3 through job.predict_gang with
+   accuracy 1.0 against the width-1 tokens and no solo job.predict.
 5. generate — job.generate for lm_wide through GenerateWorker, served
    from a TcpRpcServer on localhost, to 24 TcpRpc clients (one
    paged_decode_attention launch a layer a step, no gather;
@@ -3198,6 +3206,179 @@ def phase_vision(dev: dict) -> dict:
     return report
 
 
+#: Phase gang: ShardedProgram(GANG_MODEL) at these meshes, positions past the
+#: first naming cuda:0 again, over GANG_PROMPTS prompts of GANG_PROMPT_LEN
+#: tokens (seed-0 weights, float32), timed in GANG_ROUNDS rounds of turns.
+GANG_MODEL = "lm_wide"
+GANG_MESHES = ({"dp": 1}, {"tp": 2}, {"dp": 3}, {"dp": 2, "tp": 2})
+GANG_PROMPTS, GANG_PROMPT_LEN, GANG_ROUNDS = 64, 16, 4
+#: The fleet's per-chip HBM budget for lm_wide's solo path (its float32
+#: weights are 25485312 bytes, so the advisor plans a gang of 3), and its
+#: job: GANG_QUERIES prompt ids in shards of GANG_SHARD.
+GANG_BUDGET = 10_000_000
+GANG_QUERIES, GANG_SHARD = 96, 16
+
+
+def mesh_name(axes: dict) -> str:
+    return ",".join(f"{k}:{v}" for k, v in axes.items())
+
+
+def phase_gang(dev: dict, root: Path) -> dict:
+    """The partition-rule engine and the gang verbs on the card.
+
+    1. ShardedProgram("lm_wide") at {dp:1}, {tp:2}, {dp:3} and {dp:2, tp:2}
+       (every position past the first on cuda:0 again, each holding its own
+       shards), 64 prompts of 16 tokens, seed-0 weights, float32: each
+       width's tokens equal width 1's exactly and the same program's on the
+       CPU; each width's run wall (median of alternating turns, host to host),
+       prompts/s, sharded_bytes_per_chip, and the device memory its placement
+       holds and its run peaks at. No kernel of the package launches (the
+       gang path is plain torch, as the JAX program reaches no Pallas
+       kernel): every count, set to 0 before the first program, is 0 after
+       the last run.
+    2. Three port ClusterNodes (localcluster, TCP and UDP on localhost), each
+       serving lm_wide from its own LmBackend with a per-chip budget of
+       GANG_BUDGET (below lm_wide's param_bytes), placement on. The leader
+       candidates' advisors read that budget as every member's headroom (the
+       card's 80 GB would place the model solo) and each job query's label
+       is the width-1 program's token for its prompt (a synset file labels
+       line i with class i), as tests/test_sharding.py scripts both. predict
+       from a non-leader: the job must be planned as a gang of 3, finish
+       every query with accuracy 1.0 (token identity), and no member may
+       have been sent a solo job.predict."""
+    from dmlc_tpu_torch.cluster.localcluster import start_local_cluster, stop_local_cluster
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel import sharding as sl
+    from dmlc_tpu_torch.parallel.mesh import make_mesh
+    from dmlc_tpu_torch.scheduler.worker import LmBackend
+
+    class CountedLm(LmBackend):
+        """An LmBackend that counts the solo and gang calls it serves."""
+
+        def __init__(self, *args, **kw):
+            super().__init__(*args, **kw)
+            self.calls: Counter = Counter()
+
+        def __call__(self, synsets):
+            self.calls["job.predict"] += 1
+            return super().__call__(synsets)
+
+        def predict_gang(self, synsets, rank, world):
+            self.calls["job.predict_gang"] += 1
+            return super().predict_gang(synsets, rank, world)
+
+    t_phase = time.perf_counter()
+    spec = get_model(GANG_MODEL)
+    tokens = sl.encode_prompts([f"p{i}" for i in range(GANG_PROMPTS)], GANG_PROMPT_LEN,
+                               spec.num_outputs)
+    gc.collect()
+    K.reset_launch_counts()
+    programs, widths, first = {}, {}, None
+    for axes in GANG_MESHES:
+        name, n = mesh_name(axes), int(np.prod(list(axes.values())))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        t = time.perf_counter()
+        prog = sl.ShardedProgram(GANG_MODEL, make_mesh(axes, devices=["cuda:0"] * n))
+        build_s = time.perf_counter() - t
+        placed = torch.cuda.memory_allocated() - base
+        got = prog.run(tokens)
+        peak = torch.cuda.max_memory_allocated() - base
+        on_cpu = sl.ShardedProgram(GANG_MODEL, make_mesh(axes, devices=["cpu"] * n)).run(tokens)
+        first = got if first is None else first
+        if got.shape != (GANG_PROMPTS,) or got.dtype != np.int32:
+            raise AssertionError(f"gang {name}: tokens {got.dtype} {got.shape}")
+        if not (got == first).all():
+            raise AssertionError(f"gang {name}: {int((got != first).sum())} of {GANG_PROMPTS} "
+                                 f"tokens differ from width 1's")
+        if not (got == on_cpu).all():
+            raise AssertionError(f"gang {name}: {int((got != on_cpu).sum())} of {GANG_PROMPTS} "
+                                 f"tokens differ from the same program on the CPU")
+        programs[name] = prog
+        widths[name] = {"devices": n, "equal_width1": True, "equal_cpu": True,
+                        "sharded_bytes_per_chip": sl.sharded_bytes_per_chip(GANG_MODEL,
+                                                                             prog.mesh),
+                        "placed_bytes": placed, "peak_bytes_over_base": peak,
+                        "build_s": build_s}
+    wall_ms, walls = alternate_ms({name: (lambda p=prog: p.run(tokens))
+                                   for name, prog in programs.items()}, rounds=GANG_ROUNDS)
+    launches = K.launch_counts()
+    if any(launches.values()):
+        raise AssertionError(f"gang: the sharded programs launched kernels {launches}")
+    for name, w in widths.items():
+        w.update(run_ms=wall_ms[name], readings_ms=walls[name],
+                 prompts_per_s=GANG_PROMPTS / (wall_ms[name] / 1e3))
+
+    # The fleet: an over-budget lm_wide served as a gang through job.predict_gang.
+    job_prompts = [f"q{i}" for i in range(GANG_QUERIES)]
+    truth = programs["dp:1"].run(sl.encode_prompts(job_prompts, GANG_PROMPT_LEN,
+                                                   spec.num_outputs))
+    del programs
+    synsets = root / "gang_synsets.txt"
+    synsets.write_text("".join(f"{p} prompt {i}\n" for i, p in enumerate(job_prompts)))
+    hooks = [NodeDeviceWork() for _ in range(CLUSTER_NODES)]
+    backends = [CountedLm(GANG_MODEL, prompt_len=GANG_PROMPT_LEN, hbm_budget_bytes=GANG_BUDGET,
+                          device="cuda", device_work=hook) for hook in hooks]
+    nodes = []
+    try:
+        t = time.perf_counter()
+        nodes = start_local_cluster(
+            root / "gang", n_nodes=CLUSTER_NODES, backends=lambda i: {GANG_MODEL: backends[i]},
+            synset_path=synsets, scale=CLUSTER_SCALE, device="cuda", job_models=[GANG_MODEL],
+            dispatch_shard_size=GANG_SHARD, placement_enabled=True,
+            lm_hbm_budget_bytes=GANG_BUDGET, lm_prompt_len=GANG_PROMPT_LEN)
+        start_s = time.perf_counter() - t
+        for hook, node in zip(hooks, nodes):
+            hook.monitor = node.devicemon
+            if node.advisor is not None:
+                node.advisor.headroom = lambda member: float(GANG_BUDGET)
+            if node.scheduler is not None:
+                node.scheduler.jobs[GANG_MODEL].queries = list(zip(job_prompts,
+                                                                   (int(x) for x in truth)))
+        job = nodes[0].scheduler.jobs[GANG_MODEL]
+        t = time.perf_counter()
+        nodes[1].predict()
+        while not job.done:
+            if not job.running and job.last_error:
+                raise AssertionError(f"gang job stopped: {job.last_error}")
+            if time.perf_counter() - t > 120:
+                raise AssertionError(f"gang job not done in 120 s: {job.report()}")
+            time.sleep(0.005)
+        wall = time.perf_counter() - t
+        report = nodes[2].jobs_report()[GANG_MODEL]
+        calls: Counter = Counter()
+        for b in backends:
+            calls.update(b.calls)
+        resident = [b.resident_bytes() for b in backends]
+    finally:
+        stop_local_cluster(nodes)
+    if job.gang_world != CLUSTER_NODES:
+        raise AssertionError(f"gang: the advisor planned gang_world {job.gang_world}")
+    if report["finished"] != GANG_QUERIES or report["correct"] != GANG_QUERIES:
+        raise AssertionError(f"gang: finished {report['finished']}, correct {report['correct']} "
+                             f"of {GANG_QUERIES}")
+    if calls["job.predict"] or not calls["job.predict_gang"]:
+        raise AssertionError(f"gang: members served {dict(calls)}")
+    out = {
+        "phase": "gang", "nvidia_smi": dev["nvidia_smi"], "model": GANG_MODEL,
+        "dtype": "float32", "prompts": GANG_PROMPTS, "prompt_len": GANG_PROMPT_LEN,
+        "widths": widths, "launches": launches,
+        "fleet": {"nodes": CLUSTER_NODES, "transport": "TcpRpc and UdpTransport on 127.0.0.1",
+                  "budget_bytes": GANG_BUDGET, "param_bytes": spec.param_bytes(),
+                  "queries": GANG_QUERIES, "shard": GANG_SHARD, "fleet_start_s": start_s,
+                  "gang_world": job.gang_world, "gang_shards": job.gang_shards,
+                  "wall_s": wall, "prompts_per_s": GANG_QUERIES / wall,
+                  "accuracy": report["correct"] / report["finished"],
+                  "member_calls": dict(calls), "solo_dispatches": calls["job.predict"],
+                  "member_resident_bytes": resident},
+        "phase_s": time.perf_counter() - t_phase,
+    }
+    emit(out)
+    return out
+
+
 class FlightNotes:
     """Collects the slot scheduler's flight notes (slot_admit, slot_exit,
     shed, slot_evict)."""
@@ -3862,6 +4043,8 @@ def main() -> int:
         cluster = phase_cluster(dev, Path(td))
         closed = phase_closedloop(dev, cluster)
     vision = phase_vision(dev)
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-gang-") as td:
+        phase_gang(dev, Path(td))
     gen = phase_generate(dev)
     decode = phase_decode(dev)
     train = phase_train(dev)

@@ -4,8 +4,8 @@ Ported from ``dmlc_tpu/cluster/node.py`` with its structure and names, wired
 only to modules this package has: the fabric (auth, ``TcpRpc``/
 ``TcpRpcServer``, admission gates, retry policy, clock, UDP gossip
 membership), the SDFS (member store, member, client and leader), the
-member's workers (``PredictWorker`` over ``EngineBackend``s,
-``GenerateWorker``, ``ModelLoader``, ``DynamicBatcher``), the
+member's workers (``PredictWorker`` over ``EngineBackend``s and
+``LmBackend``s, ``GenerateWorker``, ``ModelLoader``, ``DynamicBatcher``), the
 observability plane (``CostProfiler``, ``CritPathAnalyzer``/
 ``FleetCritPath``, ``DriftSentinel``, ``ObsService``, ``ScrapeDelegate``),
 the device monitor and the fleet decode tier (``DecodeTierClient``) on every
@@ -35,12 +35,12 @@ so membership stays the single source of liveness truth.
 
 Engines run on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` building an engine
-raises. Left out until this package ports them: ``multihost``,
-``LmBackend``, ``ExportedBackend``, the gang verbs (``job.predict_gang``)
-and the compile cache. A config that turns one of them on
-(``refuse_unported``) raises ``NotImplementedError``. The advisor may still
-plan a chip gang; its dispatch then fails on the member's unknown-method
-error, which the job's result carries.
+raises. A ``kind="lm"`` job model is served by an ``LmBackend`` (the
+partition-rule engine, solo or through ``job.predict_gang`` when the
+advisor plans a chip gang), as in the JAX package. Left out until this
+package ports them: ``multihost``, ``ExportedBackend`` and the compile
+cache. A config that turns one of them on (``refuse_unported``) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -76,6 +76,7 @@ from dmlc_tpu_torch.scheduler.placement import PlacementAdvisor, SloEvaluator, S
 from dmlc_tpu_torch.scheduler.worker import (
     DynamicBatcher,
     EngineBackend,
+    LmBackend,
     ModelLoader,
     PredictWorker,
 )
@@ -144,11 +145,6 @@ def refuse_unported(config: ClusterConfig) -> None:
         if on:
             raise NotImplementedError(f"{switch} needs {module}, which dmlc_tpu_torch has "
                                       f"not ported yet")
-    for name in config.job_models:
-        if _model_kind(name) == "lm":
-            raise NotImplementedError(
-                f"job model {name!r} is of kind 'lm' and needs LmBackend in "
-                f"dmlc_tpu/scheduler/worker.py, which dmlc_tpu_torch has not ported yet")
 
 
 class ClusterNode:
@@ -353,13 +349,24 @@ class ClusterNode:
             gate=self.transfer_gate,
         )
         if backends is None:
-            backends = {
-                name: EngineBackend(
-                    name, config.data_dir, batch_size=config.batch_size, device=device,
-                    device_work=self.devicemon.device_work,
-                )
-                for name in config.job_models
-            }
+            backends = {}
+            for name in config.job_models:
+                if _model_kind(name) == "lm":
+                    # kind="lm" jobs serve through the gang-aware sharded
+                    # path (parallel/sharding.py).
+                    backends[name] = LmBackend(
+                        name,
+                        gang_devices=config.lm_gang_devices,
+                        prompt_len=config.lm_prompt_len,
+                        hbm_budget_bytes=config.lm_hbm_budget_bytes,
+                        device=device,
+                        device_work=self.devicemon.device_work,
+                    )
+                else:
+                    backends[name] = EngineBackend(
+                        name, config.data_dir, batch_size=config.batch_size, device=device,
+                        device_work=self.devicemon.device_work,
+                    )
         self.worker = PredictWorker(backends, gate=self.predict_gate)
         # Per-model device accounting: resident_bytes_<model> (None until
         # the lazy engine builds) + mfu_<model> gauges. Registered against

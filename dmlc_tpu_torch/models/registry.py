@@ -8,7 +8,10 @@ image encoders ``clip_vit_l14`` and ``clip_vit_b32`` (``classifier=False``:
 language models ``lm_small`` and ``lm_wide`` (``kind="lm"``:
 ``input_size`` carries max_len and ``num_outputs`` the vocab). Models are
 looked up by name together with their input geometry, so the workers, the
-engines and the smoke script agree on model identity by string name.
+engines and the smoke script agree on model identity by string name. Each
+entry declares its partition rules as the JAX package's does
+(``parallel/sharding.py``): replicated for the CNNs, the transformer table
+with its head count for ViT, CLIP and the language models.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ from dmlc_tpu_torch.models.lm import (
     LM_SMALL_MAX_LEN,
     LM_SMALL_VOCAB,
     LM_WIDE_MAX_LEN,
+    LM_WIDE_NUM_HEADS,
     LM_WIDE_VOCAB,
     TransformerLM,
     lm_small,
@@ -46,6 +50,10 @@ from dmlc_tpu_torch.models.lm import (
 )
 from dmlc_tpu_torch.models.resnet import resnet18, resnet34, resnet50
 from dmlc_tpu_torch.models.vit import PatchTokens, vit_b16, vit_l14
+from dmlc_tpu_torch.parallel.sharding import (
+    REPLICATED_PARTITION_RULES,
+    TRANSFORMER_PARTITION_RULES,
+)
 
 #: Images in the seeded batch that calibrates BatchNorm statistics.
 _CALIBRATION_BATCH = 8
@@ -66,6 +74,11 @@ class ModelSpec:
     # (models/convert.py).
     from_jax: Callable[[Mapping], dict[str, torch.Tensor]] | None = None
     to_jax: Callable[[Mapping], dict] | None = None
+    # Ordered (regex, PartitionSpec) table consumed by parallel/sharding.py,
+    # matched against the JAX variables tree. None => fully replicated.
+    # num_heads bounds tp.
+    partition_rules: tuple[tuple[str, Any], ...] | None = None
+    num_heads: int | None = None
 
     def module(self, dtype: torch.dtype = torch.bfloat16) -> nn.Module:
         if self.classifier:
@@ -304,9 +317,11 @@ def list_models() -> list[str]:
 
 
 def _spec(name: str, build: Callable[..., nn.Module], from_jax: Any, to_jax: Any,
-          num_outputs: int = 1000, classifier: bool = True) -> ModelSpec:
+          num_outputs: int = 1000, classifier: bool = True,
+          num_heads: int | None = None) -> ModelSpec:
+    rules = REPLICATED_PARTITION_RULES if num_heads is None else TRANSFORMER_PARTITION_RULES
     return ModelSpec(name, build, 224, num_outputs, classifier=classifier, from_jax=from_jax,
-                     to_jax=to_jax)
+                     to_jax=to_jax, partition_rules=rules, num_heads=num_heads)
 
 
 for _s in [
@@ -314,13 +329,17 @@ for _s in [
     _spec("resnet34", resnet34, resnet_from_jax, resnet_to_jax),
     _spec("resnet50", resnet50, resnet_from_jax, resnet_to_jax),
     _spec("alexnet", alexnet, alexnet_from_jax, alexnet_to_jax),
-    _spec("vit_b16", vit_b16, vit_from_jax, vit_to_jax),
-    _spec("vit_l14", vit_l14, vit_from_jax, vit_to_jax),
-    _spec("clip_vit_l14", clip_vit_l14, clip_from_jax, clip_to_jax, 768, classifier=False),
-    _spec("clip_vit_b32", clip_vit_b32, clip_from_jax, clip_to_jax, 512, classifier=False),
+    _spec("vit_b16", vit_b16, vit_from_jax, vit_to_jax, num_heads=12),
+    _spec("vit_l14", vit_l14, vit_from_jax, vit_to_jax, num_heads=16),
+    _spec("clip_vit_l14", clip_vit_l14, clip_from_jax, clip_to_jax, 768, classifier=False,
+          num_heads=16),
+    _spec("clip_vit_b32", clip_vit_b32, clip_from_jax, clip_to_jax, 512, classifier=False,
+          num_heads=12),
     ModelSpec("lm_small", lm_small, LM_SMALL_MAX_LEN, LM_SMALL_VOCAB, classifier=False,
-              kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax),
+              kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax,
+              partition_rules=TRANSFORMER_PARTITION_RULES, num_heads=2),
     ModelSpec("lm_wide", lm_wide, LM_WIDE_MAX_LEN, LM_WIDE_VOCAB, classifier=False,
-              kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax),
+              kind="lm", from_jax=lm_from_jax, to_jax=lm_to_jax,
+              partition_rules=TRANSFORMER_PARTITION_RULES, num_heads=LM_WIDE_NUM_HEADS),
 ]:
     register(_s)

@@ -1,1 +1,2 @@
-"""Parallel execution: the batched inference engine and single-device attention."""
+"""Parallel execution: the batched inference engine, single-device attention,
+and the partition-rule engine with its meshes (sharded serving)."""

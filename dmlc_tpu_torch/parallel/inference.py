@@ -22,7 +22,11 @@ normalizes the resized float32 pixels in plain tensor ops (the
 ``normalize_u8`` kernel takes uint8) and still reads a classifier out
 through ``softmax_top1``.
 
-Not ported here: the multi-host ``run_batch_global`` and the compile census.
+``run_batch_global`` is the gang's batch over the processes of a
+``torch.distributed`` group: each process runs its own share of the rows
+on its own engine, and every process then enters one barrier (at world 1,
+without a group, it is ``run_batch`` that also takes an empty batch). Not
+ported here: the compile census.
 """
 
 from __future__ import annotations
@@ -46,6 +50,17 @@ from dmlc_tpu_torch.utils.device import resolve_device
 from dmlc_tpu_torch.utils.hotpath import hot_path
 from dmlc_tpu_torch.utils.metrics import LatencyStats
 from dmlc_tpu_torch.utils.tracing import tracer
+
+
+def process_index_count() -> tuple[int, int]:
+    """(rank, world size) of the default ``torch.distributed`` group, or
+    (0, 1) when none is initialized."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
 
 # ---- persistent decode-stage pool -----------------------------------------
 # Batch-granular decode tasks for run_paths_stream (each task itself fans
@@ -217,6 +232,38 @@ class InferenceEngine:
         dt = time.perf_counter() - t0
         self._stats.record(dt)
         tracer.record("device/forward", dt, model=self.spec.name, batch=int(n))
+        if self.device_work is not None:
+            self.device_work(self.spec.name, int(n), dt)
+        return self._result(host, n, dt)
+
+    def run_batch_global(self, local_u8: np.ndarray) -> BatchResult:
+        """The gang's batch over the default process group: every process
+        calls this with its OWN rows; together they form one global batch of
+        ``batch_size`` rows, process 0's first. Each process pads its rows
+        to its share, ``batch_size / world`` (so ``batch_size`` must divide
+        by the world size), runs them — even an empty shard — and enters a
+        barrier with the others, so the gang's ranks finish each batch
+        together and a rank that defers an error still releases its peers.
+        It gets back the results of the rows IT contributed. At world 1 it
+        equals ``run_batch``."""
+        _, procs = process_index_count()
+        if self.batch_size % procs:
+            raise ValueError(f"batch_size {self.batch_size} not divisible by {procs} processes")
+        local_cap = self.batch_size // procs
+        n = local_u8.shape[0]
+        if n > local_cap:
+            raise ValueError(f"local batch {n} exceeds per-process share {local_cap}")
+        local = np.zeros((local_cap, *local_u8.shape[1:]), np.uint8)
+        local[:n] = local_u8
+        t0 = time.perf_counter()
+        host = self._to_host(self._forward(torch.from_numpy(local).to(self.device)))
+        if procs > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
+        dt = time.perf_counter() - t0
+        self._stats.record(dt)
+        tracer.record("device/forward_global", dt, model=self.spec.name, batch=int(n))
         if self.device_work is not None:
             self.device_work(self.spec.name, int(n), dt)
         return self._result(host, n, dt)
@@ -410,3 +457,4 @@ class InferenceEngine:
             t.numel() * t.element_size()
             for t in (*self.model.parameters(), *self.model.buffers())
         )
+

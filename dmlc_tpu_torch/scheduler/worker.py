@@ -1,9 +1,14 @@
-"""Member-side inference worker: answers ``job.predict`` shards.
+"""Member-side inference worker: answers ``job.predict`` and
+``job.predict_gang`` shards.
 
-Port of ``dmlc_tpu/scheduler/worker.py`` (``PredictWorker``,
-``EngineBackend``, ``gang_slice``, ``_resolve_paths``). Given a model name
-and a list of synset ids, look up one fixture image per synset, preprocess,
-forward, return top-1 — one batched device execution per shard.
+Port of ``dmlc_tpu/scheduler/worker.py`` (``PredictWorker`` with its gang
+verbs, ``EngineBackend``, ``LmBackend``, ``gang_slice``,
+``_resolve_paths``). Given a model name and a list of synset ids, look up
+one fixture image per synset, preprocess, forward, return top-1 — one
+batched device execution per shard. A ``kind="lm"`` model's "synsets" are
+prompt ids, answered with the next token by ``LmBackend`` through the
+partition-rule engine (``parallel/sharding.py``), solo or as a rank of a
+gang.
 
 The model backend is injectable: a node wires ``EngineBackend``
 (InferenceEngine on the card); tests may wire any callable
@@ -16,8 +21,7 @@ over TCP (frames compatible with the JAX package's) or
 into a live backend) are copies of the JAX package's over this package's
 modules. An ``EngineBackend`` with an ``image_source``
 (scheduler/dataset.SdfsImageSource) serves shards on a member with no local
-corpus. Not ported yet: the node that wires these together, the gang verbs,
-``LmBackend`` and ``ExportedBackend``.
+corpus. Not ported yet: ``ExportedBackend``.
 """
 
 from __future__ import annotations
@@ -27,6 +31,7 @@ import logging
 import os
 import threading
 import time
+from collections import OrderedDict
 from pathlib import Path
 from typing import Callable, Sequence
 
@@ -308,7 +313,10 @@ class PredictWorker:
     ``gate`` (cluster/admission.AdmissionGate, optional) bounds concurrent
     ``job.predict`` and ``job.decode`` work: past max_inflight + max_queue
     the request is shed with a typed ``Overloaded`` instead of queuing on
-    the engine lock toward a guaranteed deadline miss."""
+    the engine lock toward a guaranteed deadline miss. Gang verbs are NOT
+    gated — a collective execution needs every rank, so shedding one would
+    fail the whole gang the leader is about to retry anyway (the
+    scheduler's gang breaker is the backpressure there)."""
 
     def __init__(self, backends: dict[str, PredictFn], gate=None,
                  decode_lanes: int | None = None):
@@ -323,6 +331,8 @@ class PredictWorker:
     def methods(self) -> dict:
         return traced_methods({
             "job.predict": self._predict,
+            "job.predict_gang": self._predict_gang,
+            "job.decode_gang": self._decode_gang,
             "job.decode": self._decode,
         })
 
@@ -365,6 +375,18 @@ class PredictWorker:
             with self._decode_lock:
                 self._decode_active -= 1
 
+    def _decode_gang(self, p: dict) -> dict:
+        """Prefetch decode for an upcoming gang shard: the leader calls this
+        while the previous gang shard still executes, so host-side decode
+        overlaps device execution. Best-effort by contract: a backend
+        without staging, or any decode failure, answers staged=False and
+        predict_gang decodes inline."""
+        backend = self.backends.get(p["model"])
+        if backend is None or not hasattr(backend, "decode_gang"):
+            return {"staged": False}
+        staged = backend.decode_gang(list(p["synsets"]), int(p["rank"]), int(p["world"]))
+        return {"staged": bool(staged)}
+
     def _predict(self, p: dict) -> dict:
         model, synsets = p["model"], list(p["synsets"])
         fn = self.backends.get(model)
@@ -377,6 +399,22 @@ class PredictWorker:
             preds = fn(synsets)
         if len(preds) != len(synsets):
             raise RpcError(f"backend returned {len(preds)} predictions for {len(synsets)} queries")
+        return {"predictions": [int(x) for x in preds]}
+
+    def _predict_gang(self, p: dict) -> dict:
+        """Gang-scheduled shard: the leader sent the SAME shard to every
+        rank of the gang; this member answers only for its rank's
+        contiguous slice (``gang_slice``). The leader reassembles rank
+        order."""
+        model = p["model"]
+        synsets = list(p["synsets"])
+        rank, world = int(p["rank"]), int(p["world"])
+        backend = self.backends.get(model)
+        if backend is None:
+            raise RpcError(f"model {model!r} not loaded here; have {sorted(self.backends)}")
+        if not hasattr(backend, "predict_gang"):
+            raise RpcError(f"backend for {model!r} cannot serve gang shards")
+        preds = backend.predict_gang(synsets, rank, world)
         return {"predictions": [int(x) for x in preds]}
 
 
@@ -436,6 +474,14 @@ class EngineBackend:
         self.dtype = dtype
         self._engine = None
         self._lock = threading.Lock()
+        # Gang decode staging: slice content -> decoded uint8 batch, keyed by
+        # the synset tuple itself so a requeued shard's stage is still valid.
+        # Bounded LRU.
+        self._staged: "OrderedDict[tuple, object]" = OrderedDict()
+        self._stage_lock = threading.Lock()
+        self.stage_hits = 0  # predict_gang calls served from a prefetch
+
+    _STAGE_CAP = 4
 
     @property
     def engine(self):
@@ -489,11 +535,227 @@ class EngineBackend:
                 )
             return [int(x) for x in result.top1_index]
 
+    def decode_gang(self, synsets: Sequence[str], rank: int, world: int) -> bool:
+        """Decode this rank's slice of an UPCOMING gang shard into the
+        staging buffer, outside the engine lock, so decode and device
+        execution overlap across gang shards. Best-effort: any failure
+        stages nothing, and predict_gang decodes inline."""
+        from dmlc_tpu_torch.ops import preprocess as pp
+
+        try:
+            engine = self._engine
+            if engine is None:
+                with self._lock:
+                    engine = self._ensure_engine()
+            start, stop = gang_slice(len(synsets), rank, world)
+            mine = tuple(synsets[start:stop])
+            if not mine:
+                return False
+            paths = _resolve_paths(self.image_source, self.data_dir, list(mine))
+            batch = pp.load_batch(paths, size=engine.input_size)
+            with self._stage_lock:
+                self._staged[mine] = batch
+                while len(self._staged) > self._STAGE_CAP:
+                    self._staged.popitem(last=False)
+            return True
+        except Exception:
+            log.warning("gang decode prefetch failed; will decode inline", exc_info=True)
+            return False
+
+    def _pop_staged(self, mine: Sequence[str]):
+        with self._stage_lock:
+            return self._staged.pop(tuple(mine), None)
+
+    def predict_gang(self, synsets: Sequence[str], rank: int, world: int) -> list[int]:
+        """This rank's slice of a gang shard, through one
+        ``InferenceEngine.run_batch_global`` entered by every process of
+        the ``torch.distributed`` group (rank 0 of 1 without one).
+
+        Failure symmetry: every process must enter the collective or the
+        others wait in it holding this backend's lock. So a per-rank failure
+        the other ranks cannot see (an unreadable corpus file, a rank
+        mismatch, an over-cap slice) is deferred — this rank still enters
+        with an EMPTY batch, then raises after its peers are released. Only
+        failures that hit every rank alike (engine construction, batch and
+        process divisibility) raise before the collective."""
+        import numpy as np
+
+        from dmlc_tpu_torch.ops import preprocess as pp
+        from dmlc_tpu_torch.parallel.inference import process_index_count
+
+        with self._lock:
+            engine = self._ensure_engine()
+            size = engine.input_size
+            deferred: Exception | None = None
+            batch = np.zeros((0, size, size, 3), np.uint8)
+            try:
+                me, procs = process_index_count()
+                if rank != me:
+                    # The scheduler's rank map and the process group MUST
+                    # agree, or rows come back permuted across members.
+                    raise RpcError(
+                        f"gang rank mismatch: scheduler says {rank}, "
+                        f"the torch.distributed rank is {me}"
+                    )
+                start, stop = gang_slice(len(synsets), rank, world)
+                mine = list(synsets[start:stop])
+                cap = engine.batch_size // max(1, procs)
+                if len(mine) > cap:
+                    raise RpcError(
+                        f"gang slice of {len(mine)} exceeds per-process "
+                        f"batch cap {cap} (shard too large for the engines)"
+                    )
+                if mine:
+                    batch = self._pop_staged(mine)
+                    if batch is not None:
+                        self.stage_hits += 1
+                    else:
+                        paths = _resolve_paths(self.image_source, self.data_dir, mine)
+                        batch = pp.load_batch(paths, size=size)
+            except Exception as e:
+                deferred = e
+            result = engine.run_batch_global(batch)
+            if deferred is not None:
+                raise RpcError(f"{type(deferred).__name__}: {deferred}")
+            return [int(x) for x in result.top1_index]
+
     def load_variables(self, variables) -> None:
         """Swap weights into the live engine (this package's state dict or
         the JAX package's variables tree)."""
         with self._lock:
             self._ensure_engine().load_variables(variables)
+
+
+class LmBackend:
+    """Gang-sharded causal-LM serving backend.
+
+    A "synset" on a ``kind="lm"`` job is a PROMPT ID: the encoding is the
+    deterministic arithmetic of ``parallel.sharding.tokens_for_prompt``, so
+    the leader, every gang member and a single-process reference agree on
+    the token stream byte for byte, and the predicted "class index" is the
+    argmax next-token id — the job's accuracy then measures exact TOKEN
+    IDENTITY against reference labels.
+
+    The program comes from the partition-rule engine: one rule table, placed
+    at whatever gang width the PlacementAdvisor chose (``plan_axes`` splits
+    the width into dp x tp) over the devices of ``device`` (the card's, or
+    ``[cpu]``), the width clamped to their count. Solo ``__call__`` REFUSES
+    when the model's resident bytes exceed this chip's HBM budget — the
+    refusal the advisor converts into a wide gang instead of a dead job.
+    ``predict_gang`` serves a rank's contiguous ``gang_slice`` of the shard.
+    The devices are resolved at construction: with no CUDA device and no
+    explicit ``device="cpu"`` this raises at once.
+    """
+
+    def __init__(
+        self,
+        model_name: str,
+        *,
+        gang_devices: int = 0,
+        prompt_len: int = 16,
+        dtype: torch.dtype | None = None,
+        hbm_budget_bytes: int = 0,
+        device_work=None,
+        devices=None,
+        device: str | torch.device | None = None,
+    ):
+        from dmlc_tpu_torch.parallel.mesh import default_devices
+
+        self.model_name = model_name
+        self.prompt_len = prompt_len
+        # Fixed gang width (config lm_gang_devices); 0 = follow the
+        # scheduler's world size, clamped to the device count.
+        self.gang_devices = gang_devices
+        # Per-chip resident-bytes budget enforced on the SOLO path; 0 = no
+        # budget.
+        self.hbm_budget_bytes = hbm_budget_bytes
+        self.device_work = device_work
+        self._devices = [torch.device(d) for d in devices] if devices is not None \
+            else default_devices(device)
+        self._dtype = dtype
+        self._programs: dict[int, object] = {}
+        self._lock = threading.Lock()
+
+    def _program(self, width: int):
+        from dmlc_tpu_torch.models.registry import get_model
+        from dmlc_tpu_torch.parallel import sharding as sharding_lib
+        from dmlc_tpu_torch.parallel.mesh import make_mesh
+
+        devs = self._devices
+        width = max(1, min(width, len(devs)))
+        prog = self._programs.get(width)
+        if prog is None:
+            spec = get_model(self.model_name)
+            axes = sharding_lib.plan_axes(width, num_heads=spec.num_heads)
+            mesh = make_mesh(axes, devices=devs[:width])
+            prog = sharding_lib.ShardedProgram(
+                self.model_name, mesh, dtype=self._dtype or torch.float32
+            )
+            self._programs[width] = prog
+        return prog
+
+    def warmup(self) -> None:
+        """Build the program now, before serving."""
+        with self._lock:
+            self._program(self.gang_devices or 1)
+
+    def _run(self, prog, synsets: Sequence[str]) -> list[int]:
+        from dmlc_tpu_torch.parallel import sharding as sharding_lib
+
+        spec = prog.spec  # registry ModelSpec: input_size=max_len, num_outputs=vocab
+        tokens = sharding_lib.encode_prompts(
+            list(synsets), min(self.prompt_len, spec.input_size), spec.num_outputs
+        )
+        t0 = time.monotonic()
+        out = prog.run(tokens)
+        if self.device_work is not None:
+            self.device_work(self.model_name, len(synsets), time.monotonic() - t0)
+        return [int(x) for x in out]
+
+    def __call__(self, synsets: Sequence[str]) -> list[int]:
+        with self._lock:
+            if self.hbm_budget_bytes > 0:
+                from dmlc_tpu_torch.models.registry import get_model
+
+                need = get_model(self.model_name).param_bytes(self._dtype or torch.float32)
+                if need > self.hbm_budget_bytes:
+                    raise RpcError(
+                        f"model {self.model_name!r} needs {need} resident bytes, "
+                        f"over this chip's {self.hbm_budget_bytes} HBM budget; "
+                        f"serve it as a gang (docs/SHARDING.md)"
+                    )
+            return self._run(self._program(1), synsets)
+
+    def predict_gang(self, synsets: Sequence[str], rank: int, world: int) -> list[int]:
+        """This rank's contiguous slice of a gang shard, computed by the
+        rule-sharded program at the gang's width. Each rank's slice is an
+        independent execution, with no collective to enter, so an empty
+        slice just answers []."""
+        with self._lock:
+            prog = self._program(self.gang_devices or world)
+            start, stop = gang_slice(len(synsets), rank, world)
+            mine = list(synsets[start:stop])
+            if not mine:
+                return []
+            return self._run(prog, mine)
+
+    def load_variables(self, variables) -> None:
+        """Swap weights (the `train` verb): every cached width re-shards the
+        same tree under the model's rule table."""
+        with self._lock:
+            for prog in self._programs.values():
+                prog.load_variables(variables)
+
+    def resident_bytes(self) -> int | None:
+        """Per-chip resident weight bytes of the WIDEST built program — the
+        number the leader's HBM gauges see. None until a program builds."""
+        from dmlc_tpu_torch.parallel import sharding as sharding_lib
+
+        if not self._programs:
+            return None
+        prog = self._programs[max(self._programs)]
+        return int(sharding_lib.sharded_bytes_per_chip(self.model_name, prog.mesh,
+                                                       dtype=prog.dtype))
 
 
 class ModelLoader:

@@ -96,9 +96,10 @@ def test_every_port_module_is_walked():
 
 def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
     from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.parallel.mesh import make_mesh
     from dmlc_tpu_torch.parallel.train import create_train_state, default_optimizer, lm_train_step
     from dmlc_tpu_torch.parallel.trainer import TrainingDriver
-    from dmlc_tpu_torch.scheduler.worker import EngineBackend
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend, LmBackend
     from dmlc_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -107,6 +108,8 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
         lambda: InferenceEngine("resnet18"),
         lambda: InferenceEngine("alexnet", device="cuda"),
         lambda: EngineBackend("resnet18", tmp_path),
+        lambda: LmBackend("lm_wide"),
+        lambda: make_mesh({"tp": 2}),
         lambda: resolve_device(None),
         lambda: create_train_state(torch.nn.Linear(4, 4)),
         lambda: TrainingDriver(create_train_state(torch.nn.Linear(4, 4)), lambda step: None),
@@ -183,13 +186,37 @@ def test_node_builds_engine_backends_for_vit_and_clip(tmp_path):
 @pytest.mark.parametrize("switch,value,module", [
     ("serve_from_executable", True, "ExportedBackend"),
     ("mesh_processes", 2, "parallel/multihost.py"),
-    ("job_models", ["lm_small"], "LmBackend"),
 ])
 def test_node_refuses_switches_of_unported_modules(tmp_path, switch, value, module):
     from dmlc_tpu_torch.cluster.node import ClusterNode
 
     with pytest.raises(NotImplementedError, match=module):
         ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+
+
+def test_node_builds_lm_backends_for_lm_job_models(tmp_path):
+    """Job models of kind "lm" get an LmBackend on the node's device, with
+    the config's gang width, prompt length and HBM budget, the device
+    monitor's device_work and a resident-bytes gauge (None until a program
+    builds), with no refusal."""
+    from dmlc_tpu_torch.cluster.node import ClusterNode, _backend_resident
+    from dmlc_tpu_torch.scheduler.worker import LmBackend
+
+    models = ["lm_small", "lm_wide"]
+    node = ClusterNode(_node_config(tmp_path, job_models=models, lm_gang_devices=2,
+                                    lm_prompt_len=12, lm_hbm_budget_bytes=1000),
+                       device="cpu")
+    try:
+        for name in models:
+            backend = node.worker.backends[name]
+            assert isinstance(backend, LmBackend)
+            assert backend._devices == [torch.device("cpu")]
+            assert (backend.gang_devices, backend.prompt_len, backend.hbm_budget_bytes) == \
+                (2, 12, 1000)
+            assert backend.device_work == node.devicemon.device_work
+            assert _backend_resident(backend) is None
+    finally:
+        node.stop()
 
 
 @pytest.mark.parametrize("switch,value,attr", [

@@ -9,10 +9,11 @@ recover soak on the sim fabric, and gang dispatch.
 The names imported below are the JAX package's; ``sided`` rebinds each to
 the object of the same name in the package under test, for each case. The
 gang fixture's members are served by the JAX package's PredictWorker on
-both sides: this package's PredictWorker has no ``job.predict_gang`` verb
-(``test_gang_plan_fails_visibly_on_port_members`` pins what a port member
-answers instead). The scheduler and advisor under test are each package's
-own.
+both sides; ``test_gang_plan_completes_on_port_members`` serves them by
+this package's (``job.predict_gang``), and
+``test_gang_plan_fails_visibly_on_port_members`` pins what a port member
+whose backend cannot serve gang shards answers. The scheduler and advisor
+under test are each package's own.
 """
 
 from __future__ import annotations
@@ -876,23 +877,41 @@ class TestGangDispatch:
         )
 
 
-def test_gang_plan_fails_visibly_on_port_members(pkg):
-    """A chip-gang plan dispatched to this package's members (whose
-    PredictWorker has no ``job.predict_gang``) stops the job with the
-    members' unknown-method error in its result: the gang is never folded
-    into solo ``job.predict`` dispatches. The scheduler and advisor are the
-    package's under test; the members are this package's."""
+def test_gang_plan_completes_on_port_members(pkg):
+    """A chip-gang plan dispatched to this package's members runs through
+    their ``job.predict_gang``: the job completes with accuracy 1.0 and is
+    never folded into solo ``job.predict`` dispatches. The scheduler and
+    advisor are the package's under test; the members are this package's."""
     f = GangFixture()
     for m in f.members:
         f.net.serve(m, PORT.worker.PredictWorker({"lm": GangEchoBackend()}).methods())
     f.scheduler._start({})
     job = f.scheduler.jobs["lm"]
     assert job.gang_world == 3
+    assert f.run_until(lambda: job.done), job.report()
+    assert job.accuracy == 1.0
+    assert job.gang_shards == 8
+    assert any(m == "job.predict_gang" for _, m in f.net.calls)
+    assert all(m != "job.predict" for _, m in f.net.calls)
+
+
+def test_gang_plan_fails_visibly_on_port_members(pkg):
+    """A chip-gang plan dispatched to this package's members whose backend
+    cannot serve gang shards (no ``predict_gang``) stops the job with the
+    members' ``cannot serve gang shards`` error in its result: the gang is
+    never folded into solo ``job.predict`` dispatches."""
+    f = GangFixture()
+    for m in f.members:
+        f.net.serve(m, PORT.worker.PredictWorker({"lm": lambda synsets: [0] * len(synsets)})
+                    .methods())
+    f.scheduler._start({})
+    job = f.scheduler.jobs["lm"]
+    assert job.gang_world == 3
     assert f.run_until(lambda: not job.running, budget_s=60.0), job.report()
     assert "gang dispatch failing repeatedly" in job.last_error
-    assert "unknown method 'job.predict_gang'" in job.last_error
+    assert "backend for 'lm' cannot serve gang shards" in job.last_error
     assert job.report()["last_error"] == job.last_error
     assert job.finished == 0 and job.gang_shards == 0
     assert all(m != "job.predict" for _, m in f.net.calls)
     stopped = [e for e in f.flight.events() if e["kind"] == "job_stopped"]
-    assert stopped and "job.predict_gang" in stopped[-1]["error"]
+    assert stopped and "cannot serve gang shards" in stopped[-1]["error"]
