@@ -124,9 +124,30 @@ non-zero:
    through the flash kernels: the first step against the dense schedule,
    then 10 timed steps (launch counts, falling loss, tokens/s, step p50,
    6ND MFU, one traced step's device time by kernel, idle share);
+   The vit_b16 leg (bench.py:920-940): make_train_step at batch 128, 224
+   px, bf16 compute over float32 parameters, AdamW 1e-3 on one seeded
+   batch: a warm-up step and 10 timed ones (step p50, images/s, MFU
+   against the bf16 peak, peak memory, a falling loss).
    train_small — lm_small at its registry width (2 heads of 64) through
    the flash kernels in float32 and then bf16, each with its first step
    against dense, 10 steps, launch counts and a falling loss.
+   sp      — sequence, pipeline and expert parallelism, every mesh position
+   naming cuda:0: ring_attention, ring_flash_attention and
+   ulysses_attention (dense and flash) at [1, 2, 8192, 128] (Ulysses at 4
+   heads at {sp: 4}), {sp: 2} and {sp: 4}, causal and not, bf16 and
+   float32, against dense_attention, and ring_flash's dq, dk, dv against
+   flash_attention's, within FLASH_REL_L2 and FLASH_ROW_REL; ring_flash at
+   {sp: 1} against a bare flash_attention_with_lse (medians of turns,
+   ratio); the peak memory above the inputs of ring and ring_flash,
+   forward and backward, at [1, 1, 8192, 128] {sp: 2} (ring_flash must be
+   lower); ring_flash's flash launches, n(n+1)/2 of each kernel at {sp:
+   n}; the LM leg's weights and batch under ring_flash and ring at {sp: 4}
+   and Ulysses at {sp: 2}, each first step against the flash step, then 5
+   timed ring_flash steps (launches, losses, step p50, tokens/s, peak
+   memory); lm_small float32 ring_flash at {sp: 4} against flash;
+   pipeline_apply at {pp: 4} (the LM's MLP widths, 8 microbatches of 2048
+   tokens) and MoEMlp at Switch-Base-8's widths at {ep: 4} on 8192 tokens,
+   float32, against their unsharded versions, with their ms.
 7. trainer — ResNet-18 through TrainingDriver with local checkpoints,
    restored by a second TrainingDriver.
 8. the card's name and power limit as nvidia-smi prints them, the kernels
@@ -3722,14 +3743,15 @@ def phase_decode(dev: dict) -> dict:
     return report
 
 
-def train_lm(schedule: str):
+def train_lm(schedule: str, mesh=None):
     """The LM train leg's model (bench.py:960-970): f32 parameters
-    computing in bf16, attention by ``schedule``."""
+    computing in bf16, attention by ``schedule`` (over ``mesh`` for the
+    sequence-parallel ones)."""
     from dmlc_tpu_torch.models.lm import TransformerLM
 
     return TransformerLM(vocab=TRAIN_VOCAB, num_layers=TRAIN_LAYERS, num_heads=TRAIN_HEADS,
                          hidden=TRAIN_HIDDEN, mlp_dim=TRAIN_MLP, max_len=TRAIN_S,
-                         dtype=torch.bfloat16, schedule=schedule)
+                         dtype=torch.bfloat16, schedule=schedule, mesh=mesh)
 
 
 def seeded_lm_weights(seed: int) -> dict:
@@ -3787,11 +3809,12 @@ def dense_parity(model, dense, tokens, loss_tol: float, grad_tol: float, ds_tol:
             "tol": {"loss": loss_tol, "grad_rel_l2": grad_tol, "grad_rel_l2_query_key": ds_tol}}
 
 
-def timed_steps(model, opt, tokens, steps: int, layers: int) -> dict:
+def timed_steps(model, opt, tokens, steps: int, per_step: int) -> dict:
     """One warm-up lm_train_step, then ``steps`` timed ones with the launch
     counts zeroed just before them and read just after, in all and by
-    entry point: each flash kernel must launch ``layers`` x ``steps`` times
-    and the loss must fall."""
+    entry point: each flash kernel must launch ``per_step`` x ``steps``
+    times (``per_step`` is the layers on one device) and the loss must
+    fall."""
     from dmlc_tpu_torch.ops import kernels as K
     from dmlc_tpu_torch.parallel.train import lm_loss, lm_train_step
 
@@ -3814,9 +3837,9 @@ def timed_steps(model, opt, tokens, steps: int, layers: int) -> dict:
     with torch.no_grad():
         final_loss = float(lm_loss(model, tokens))
     for name, count in launches.items():
-        if count != layers * steps:
+        if count != per_step * steps:
             raise AssertionError(f"{name} launched {count} times in {steps} steps, expected "
-                                 f"{layers * steps}")
+                                 f"{per_step * steps}")
     if not all(np.isfinite(losses + [final_loss])) or not final_loss < first_loss:
         raise AssertionError(f"loss not finite or not falling: {first_loss} -> {losses} "
                              f"-> {final_loss}")
@@ -3841,6 +3864,64 @@ def device_classes(events) -> dict:
                else "other")
         out[key] += dur / 1e3
     return out
+
+
+#: The vit_b16 supervised train leg (bench.py:920-940): batch 128, 224 px,
+#: bf16 compute over float32 parameters, default_optimizer(lr=1e-3), one
+#: fixed batch of seeded images and labels; one warm-up step, then
+#: VIT_TRAIN_STEPS timed ones.
+VIT_TRAIN_MODEL, VIT_TRAIN_BATCH, VIT_TRAIN_LR, VIT_TRAIN_STEPS = "vit_b16", 128, 1e-3, 10
+
+
+def train_vit(dev: dict) -> dict:
+    """vit_b16 through make_train_step: step p50, images/s, MFU (3 x
+    flops_per_item x batch over the step, against the card's bf16 peak),
+    peak device memory, and each step's loss (finite, the last below the
+    first on the fixed batch). No flash kernel runs: the attention is
+    plain torch, as the JAX package's is an XLA einsum chain."""
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel.train import (
+        create_train_state,
+        default_optimizer,
+        make_train_step,
+    )
+
+    spec = get_model(VIT_TRAIN_MODEL)
+    model = spec.init_params(seed=12, dtype=torch.bfloat16)
+    state = create_train_state(model, default_optimizer(model.parameters(), lr=VIT_TRAIN_LR))
+    state, step = make_train_step(state)
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    images = torch.randn(VIT_TRAIN_BATCH, SIZE, SIZE, 3, device="cuda", generator=gen)
+    labels = torch.randint(0, spec.num_outputs, (VIT_TRAIN_BATCH,), device="cuda",
+                           generator=gen)
+    state, first = step(state, images, labels)  # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launch_counts()
+    losses, walls = [float(first["loss"])], []
+    for _ in range(VIT_TRAIN_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+    launches = {k: n for k, n in K.launch_counts().items() if n}
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"{VIT_TRAIN_MODEL} train: loss not finite or not falling: {losses}")
+    step_s = statistics.median(walls)
+    flops = spec.flops_per_item()
+    report = {"model": VIT_TRAIN_MODEL, "batch": VIT_TRAIN_BATCH, "size": SIZE,
+              "compute": "bfloat16", "params": "float32",
+              "optimizer": f"AdamW lr {VIT_TRAIN_LR} wd 1e-4", "steps": VIT_TRAIN_STEPS,
+              "losses": losses, "step_ms_p50": 1e3 * step_s, "step_ms_max": 1e3 * max(walls),
+              "images_per_s": VIT_TRAIN_BATCH / step_s, "flops_per_item": flops,
+              "mfu": 3 * flops * VIT_TRAIN_BATCH / step_s / dev["bf16_flops_per_s"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "kernel_launches": launches}
+    del state, step, model
+    torch.cuda.empty_cache()
+    return report
 
 
 def phase_train(dev: dict) -> dict:
@@ -3917,6 +3998,7 @@ def phase_train(dev: dict) -> dict:
     }
     del model, opt
     torch.cuda.empty_cache()
+    report["vit_b16"] = train_vit(dev)
     emit(report)
     return report
 
@@ -3965,6 +4047,387 @@ def phase_train_small(dev: dict) -> dict:
         }
         del model, opt
         torch.cuda.empty_cache()
+    emit(report)
+    return report
+
+
+# ---------------------------------------------------------------------------
+# Phase sp: sequence, pipeline and expert parallelism on one card
+# ---------------------------------------------------------------------------
+
+#: Tensor-level shapes: [B, H, S, Dh] of the ring schedules at {sp: 2} and
+#: {sp: 4}; Ulysses needs heads % sp == 0, so at {sp: 4} it takes 4 heads.
+SP_SHAPE = (1, 2, 8192, 128)
+SP_ULYSSES4_SHAPE = (1, 4, 8192, 128)
+SP_WIDTHS = (2, 4)
+#: The composition overhead (bench.py:813-842, ring_flash_s8192) and the
+#: memory comparison (bench.py:843-887, sp2_memory_s8192).
+SP_OVERHEAD_SHAPE = (1, 2, 8192, 128)
+SP_MEMORY_SHAPE, SP_MEMORY_WIDTH = (1, 1, 8192, 128), 2
+#: The LM leg: ring_flash and ring at {sp: 4}, Ulysses at {sp: 2} (6 heads
+#: do not split over 4); SP_STEPS timed ring_flash steps.
+SP_LM_WIDTH, SP_ULYSSES_LM_WIDTH, SP_STEPS = 4, 2, 5
+#: Pipeline: 4 stages of the LM leg's MLP (768 -> 3072 -> 768, tanh GELU),
+#: 8 microbatches of 2048 tokens, float32. MoE: Switch-Base-8's widths
+#: (Fedus et al. 2021: d_model 768, d_ff 3072, 8 experts, top-1, capacity
+#: factor 1.25) at {ep: 4} on 8192 tokens, float32. Both held against
+#: their unsharded versions within PP_EP_REL_L2.
+PP_STAGES, PP_MICRO, PP_TOKENS = 4, 8, 2048
+EP_EXPERTS, EP_WIDTH, EP_TOKENS, EP_CAPACITY_FACTOR = 8, 4, 8192, 1.25
+PP_EP_REL_L2 = 2e-5
+
+
+def one_card_mesh(axes: dict):
+    """A mesh of ``axes`` whose every position names cuda:0."""
+    from dmlc_tpu_torch.parallel.mesh import make_mesh
+
+    return make_mesh(axes, devices=["cuda:0"] * int(np.prod(list(axes.values()))))
+
+
+def sp_operands(shape, dtype: torch.dtype, seed: int) -> list[torch.Tensor]:
+    """q, k, v, dO as [B, H, S, Dh] on the card, N(0, 1) from ``seed``."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    return [torch.randn(shape, device="cuda", generator=gen).to(dtype) for _ in range(4)]
+
+
+def sp_tensor_checks() -> list[dict]:
+    """Each schedule's output against dense_attention, and ring_flash's dq,
+    dk, dv against flash_attention's autograd gradients on the whole
+    tensors, within FLASH_REL_L2 and FLASH_ROW_REL."""
+    from dmlc_tpu_torch.ops.flash import flash_attention
+    from dmlc_tpu_torch.parallel.ring_attention import (
+        dense_attention,
+        ring_attention,
+        ring_flash_attention,
+    )
+    from dmlc_tpu_torch.parallel.ulysses import ulysses_attention
+
+    schedules = {
+        "ring": ring_attention, "ring_flash": ring_flash_attention,
+        "ulysses": ulysses_attention,
+        "ulysses_flash": lambda *a, **kw: ulysses_attention(*a, use_flash=True, **kw)}
+    out = []
+    for n in SP_WIDTHS:
+        mesh = one_card_mesh({"sp": n})
+        for dtype in (torch.bfloat16, torch.float32):
+            for causal in (False, True):
+                for name, fn in schedules.items():
+                    shape = SP_ULYSSES4_SHAPE if name.startswith("ulysses") and n == 4 else SP_SHAPE
+                    q, k, v, do = sp_operands(shape, dtype, seed=n + 7 * causal)
+                    where = f"{name} sp={n} {dtype} causal={causal}"
+                    row = {"schedule": name, "sp": n, "shape": list(shape),
+                           "dtype": str(dtype).replace("torch.", ""), "causal": causal}
+                    if name != "ring_flash":
+                        with torch.no_grad():
+                            got = fn(q, k, v, mesh, causal=causal)
+                            want = dense_attention(q, k, v, causal=causal)
+                        row["out"] = hold_flash("out", where, got, want, dtype)
+                        out.append(row)
+                        continue
+                    q, k, v = (t.requires_grad_() for t in (q, k, v))
+                    got = fn(q, k, v, mesh, causal=causal)
+                    grads = torch.autograd.grad(got, (q, k, v), do)
+                    with torch.no_grad():
+                        want = dense_attention(q, k, v, causal=causal)
+                    row["out"] = hold_flash("out", where, got.detach(), want, dtype)
+                    ref = flash_attention(q, k, v, causal=causal)
+                    want_grads = torch.autograd.grad(ref, (q, k, v), do)
+                    for g_name, g, w in zip(("dq", "dk", "dv"), grads, want_grads):
+                        row[g_name] = hold_flash(g_name, where, g, w, dtype)
+                    out.append(row)
+                    del got, grads, ref, want_grads
+    torch.cuda.synchronize()
+    return out
+
+
+def sp_overhead() -> dict:
+    """ring_flash_attention at {sp: 1} against a bare
+    flash_attention_with_lse on the same causal bf16 input: the medians of
+    in-process turns (CUDA events over 10 calls a reading) and their
+    ratio."""
+    from dmlc_tpu_torch.ops.flash import flash_attention_with_lse
+    from dmlc_tpu_torch.parallel.ring_attention import ring_flash_attention
+
+    q, k, v, _ = sp_operands(SP_OVERHEAD_SHAPE, torch.bfloat16, seed=21)
+    mesh = one_card_mesh({"sp": 1})
+    fns = {"flash_attention_with_lse": lambda: flash_attention_with_lse(q, k, v, causal=True),
+           "ring_flash_sp1": lambda: ring_flash_attention(q, k, v, mesh, causal=True)}
+    readings: dict[str, list[float]] = {n: [] for n in fns}
+    with torch.no_grad():
+        for fn in fns.values():
+            fn()
+        for _ in range(4):
+            for name in list(fns) + list(fns)[::-1]:
+                readings[name].append(time_ms(fns[name], reps=1, inner=10))
+    med = {n: statistics.median(r) for n, r in readings.items()}
+    return {"shape": list(SP_OVERHEAD_SHAPE), "dtype": "bfloat16", "causal": True,
+            "ms": med, "readings_ms": readings,
+            "ratio": med["ring_flash_sp1"] / med["flash_attention_with_lse"]}
+
+
+def sp_memory() -> dict:
+    """Peak device memory above the inputs of one causal forward and
+    backward of ring_attention and of ring_flash_attention at
+    SP_MEMORY_SHAPE, bf16, {sp: SP_MEMORY_WIDTH}; raises unless the flash
+    ring's peak is the lower."""
+    from dmlc_tpu_torch.parallel.ring_attention import ring_attention, ring_flash_attention
+
+    mesh = one_card_mesh({"sp": SP_MEMORY_WIDTH})
+    q, k, v, do = sp_operands(SP_MEMORY_SHAPE, torch.bfloat16, seed=22)
+    peaks = {}
+    for name, fn in (("ring", ring_attention), ("ring_flash", ring_flash_attention)):
+        qq, kk, vv = (t.detach().clone().requires_grad_() for t in (q, k, v))
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        fn(qq, kk, vv, mesh, causal=True).backward(do)
+        torch.cuda.synchronize()
+        peaks[name] = torch.cuda.max_memory_allocated() - base
+        del qq, kk, vv
+    if not peaks["ring_flash"] < peaks["ring"]:
+        raise AssertionError(f"ring_flash's peak {peaks['ring_flash']} is not below ring's "
+                             f"{peaks['ring']}")
+    s_local = SP_MEMORY_SHAPE[2] // SP_MEMORY_WIDTH
+    return {"shape": list(SP_MEMORY_SHAPE), "sp": SP_MEMORY_WIDTH, "dtype": "bfloat16",
+            "causal": True, "peak_bytes_above_inputs": peaks,
+            "ratio": peaks["ring_flash"] / peaks["ring"],
+            "one_step_f32_scores_bytes": 4 * s_local * s_local}
+
+
+def sp_launches() -> dict:
+    """Flash launches by entry point for one causal ring_flash_attention
+    forward and backward at {sp: n}: n(n+1)/2 of each kernel, exactly."""
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel.ring_attention import ring_flash_attention
+
+    report = {}
+    for n in SP_WIDTHS:
+        mesh = one_card_mesh({"sp": n})
+        q, k, v, do = sp_operands(SP_SHAPE, torch.bfloat16, seed=23)
+        q, k, v = (t.requires_grad_() for t in (q, k, v))
+        torch.cuda.synchronize()
+        K.reset_launch_counts()
+        ring_flash_attention(q, k, v, mesh, causal=True).backward(do)
+        torch.cuda.synchronize()
+        counts = {name: K.launch_counts()[name] for name in FLASH_WRAPPERS}
+        want = n * (n + 1) // 2
+        if any(c != want for c in counts.values()):
+            raise AssertionError(f"ring_flash at sp={n}: launches {counts}, expected {want} each")
+        report[f"sp{n}"] = {"expected_each": want, "launches": counts,
+                            "entry_launches": entry_launch_report(K.entry_launch_counts())}
+    return report
+
+
+def sp_lm() -> dict:
+    """The LM leg's weights and batch (phase train's seeds): one flash step
+    on one device, then ring_flash and ring at {sp: SP_LM_WIDTH} and
+    Ulysses at {sp: SP_ULYSSES_LM_WIDTH}, each first step's loss and
+    gradients held against the flash step's (DENSE_LOSS_TOL,
+    DENSE_GRAD_REL_L2, DS_GRAD_REL_L2); then SP_STEPS timed ring_flash steps
+    with their launches (n(n+1)/2 x layers of each flash kernel a step),
+    and one traced step's device time by kernel class."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmlc_tpu_torch.parallel.train import default_optimizer, lm_train_step
+
+    weights = seeded_lm_weights(seed=4)
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    tokens = torch.randint(0, TRAIN_VOCAB, (TRAIN_BATCH, TRAIN_S + 1), device="cuda",
+                           generator=gen)
+    flash = train_lm("flash")
+    flash.load_state_dict(weights)
+    flash.to("cuda")
+    parity = {}
+    for schedule, n in (("ring_flash", SP_LM_WIDTH), ("ring", SP_LM_WIDTH),
+                        ("ulysses", SP_ULYSSES_LM_WIDTH)):
+        model = train_lm(schedule, one_card_mesh({"sp": n}))
+        model.load_state_dict(weights)
+        model.to("cuda")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        r = dense_parity(model, flash, tokens, DENSE_LOSS_TOL, DENSE_GRAD_REL_L2, DS_GRAD_REL_L2)
+        parity[f"{schedule}_sp{n}"] = {
+            "loss": r["flash_loss"], "flash_loss": r["dense_loss"],
+            **{k: r[k] for k in ("loss_abs_diff", "grad_rel_l2_max", "grad_rel_l2_worst",
+                                 "grad_rel_l2_max_not_through_ds", "grad_rel_l2_median",
+                                 "tensors_compared", "tol")},
+            "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30}
+        del model
+        torch.cuda.empty_cache()
+    del flash
+    torch.cuda.empty_cache()
+
+    n = SP_LM_WIDTH
+    model = train_lm("ring_flash", one_card_mesh({"sp": n}))
+    model.load_state_dict(weights)
+    model.to("cuda")
+    opt = default_optimizer(model.parameters(), lr=TRAIN_LR, weight_decay=1e-4)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    run = timed_steps(model, opt, tokens, SP_STEPS, TRAIN_LAYERS * n * (n + 1) // 2)
+    walls = run["walls"]
+    peak = torch.cuda.max_memory_allocated()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t = time.perf_counter()
+        lm_train_step(model, opt, tokens)
+        torch.cuda.synchronize()
+        traced_wall = time.perf_counter() - t
+    events = device_records(prof)
+    classes = device_classes(events)
+    busy = sum(classes.values())
+    by_name: dict[str, list] = {}
+    for name, _, dur in events:
+        entry = by_name.setdefault(name, [0, 0.0])
+        entry[0] += 1
+        entry[1] += dur / 1e3
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
+    report = {"first_step": parity, "schedule": "ring_flash", "sp": n, "steps": SP_STEPS,
+              "launches": run["launches"], "entry_launches": run["entry_launches"],
+              "launches_per_step_each": TRAIN_LAYERS * n * (n + 1) // 2,
+              "entry_launches_per_step": {k: c / SP_STEPS
+                                          for k, c in run["entry_launches"].items()},
+              "loss_first": run["loss_first"], "losses": run["losses"],
+              "loss_after": run["loss_after"],
+              "step_ms_p50": 1e3 * statistics.median(walls),
+              "step_event_ms_p50": statistics.median(run["event_ms"]),
+              "tokens_per_s": TRAIN_BATCH * TRAIN_S / statistics.fmean(walls),
+              "peak_mem_gb": peak / 2**30,
+              "traced_step": {"device_ms_by_class": classes, "traced_busy_ms": busy,
+                              "wall_ms": 1e3 * traced_wall,
+                              "idle_share": 1.0 - busy / (1e3 * traced_wall),
+                              "device_records": len(events),
+                              "top": [{"kernel": k[:80], "count": c, "ms": ms}
+                                      for k, (c, ms) in top]}}
+    del model, opt
+    torch.cuda.empty_cache()
+    return report
+
+
+def sp_lm_small() -> dict:
+    """lm_small in float32 at S = its max_len: ring_flash at {sp: 4}
+    against flash on one device, first step within SMALL_F32_LOSS_TOL and
+    SMALL_F32_GRAD_REL_L2."""
+    from dmlc_tpu_torch.models.lm import TransformerLM
+    from dmlc_tpu_torch.models.registry import get_model
+
+    spec = get_model(SMALL_MODEL)
+    weights = spec.init_params(seed=7, dtype=torch.float32).state_dict()
+    flash = spec.build(dtype=torch.float32, schedule="flash")
+    ring = TransformerLM(vocab=flash.vocab, num_layers=flash.num_layers,
+                         num_heads=flash.num_heads, hidden=flash.hidden, mlp_dim=flash.mlp_dim,
+                         max_len=flash.max_len, dtype=torch.float32, schedule="ring_flash",
+                         mesh=one_card_mesh({"sp": SP_LM_WIDTH}))
+    for m in (flash, ring):
+        m.load_state_dict(weights)
+        m.to("cuda")
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    tokens = torch.randint(0, spec.num_outputs, (SMALL_BATCH, spec.input_size + 1),
+                           device="cuda", generator=gen)
+    r = dense_parity(ring, flash, tokens, SMALL_F32_LOSS_TOL, SMALL_F32_GRAD_REL_L2,
+                     SMALL_F32_GRAD_REL_L2)
+    return {"model": SMALL_MODEL, "sp": SP_LM_WIDTH, "dtype": "float32",
+            "loss": r["flash_loss"], "flash_loss": r["dense_loss"],
+            **{k: r[k] for k in ("loss_abs_diff", "grad_rel_l2_max", "grad_rel_l2_worst",
+                                 "tensors_compared", "tol")}}
+
+
+def sp_pipeline_moe() -> dict:
+    """pipeline_apply at {pp: 4} against reference_apply, and MoEMlp at
+    {ep: 4} against the same module unsharded: routing equal, outputs
+    within PP_EP_REL_L2; the median ms of each (CUDA events)."""
+    import torch.nn.functional as F
+
+    from dmlc_tpu_torch.parallel.moe import MoEMlp
+    from dmlc_tpu_torch.parallel.pipeline import pipeline_apply, reference_apply, stack_stage_params
+
+    def stage_fn(p, x):
+        w1, b1, w2, b2 = p
+        return F.gelu(x @ w1 + b1, approximate="tanh") @ w2 + b2
+
+    gen = torch.Generator(device="cuda").manual_seed(31)
+
+    def normal(*shape, std):
+        return torch.randn(shape, device="cuda", generator=gen) * std
+
+    per_stage = [(normal(TRAIN_HIDDEN, TRAIN_MLP, std=TRAIN_HIDDEN ** -0.5),
+                  normal(TRAIN_MLP, std=0.02),
+                  normal(TRAIN_MLP, TRAIN_HIDDEN, std=TRAIN_MLP ** -0.5),
+                  normal(TRAIN_HIDDEN, std=0.02)) for _ in range(PP_STAGES)]
+    stacked = stack_stage_params(per_stage)
+    x = normal(PP_MICRO * PP_TOKENS, TRAIN_HIDDEN, std=1.0)
+    mesh = one_card_mesh({"pp": PP_STAGES})
+    with torch.no_grad():
+        got = pipeline_apply(stage_fn, stacked, x, mesh, n_micro=PP_MICRO)
+        want = reference_apply(stage_fn, per_stage, x)
+        pp_err = l2_errors(got, want)["rel_l2"]
+        if not pp_err <= PP_EP_REL_L2 or not torch.isfinite(got).all():
+            raise AssertionError(f"pipeline_apply: relative L2 {pp_err} > {PP_EP_REL_L2}")
+        pp_ms = {"pipeline_apply": time_ms(
+            lambda: pipeline_apply(stage_fn, stacked, x, mesh, n_micro=PP_MICRO), reps=5, inner=2),
+            "reference_apply": time_ms(lambda: reference_apply(stage_fn, per_stage, x),
+                                       reps=5, inner=2)}
+
+    torch.manual_seed(32)
+    layer = MoEMlp(TRAIN_HIDDEN, EP_EXPERTS, TRAIN_MLP,
+                   capacity_factor=EP_CAPACITY_FACTOR).to("cuda")
+    tokens = normal(EP_TOKENS, TRAIN_HIDDEN, std=1.0)
+    ep_mesh = one_card_mesh({"ep": EP_WIDTH})
+    with torch.no_grad():
+        want_out, want_aux = layer(tokens)
+        want_route = layer.route(tokens)
+        layer.mesh = ep_mesh
+        got_out, got_aux = layer(tokens)
+        got_route = layer.route(tokens)
+        for a, b, what in zip(got_route, want_route, ("dispatch", "combine", "aux")):
+            if not torch.equal(a, b):
+                raise AssertionError(f"MoEMlp at ep={EP_WIDTH}: {what} differs unsharded")
+        dispatch = got_route[0]
+        dropped = int((dispatch.sum(dim=(1, 2)) == 0).sum())
+        ep_err = l2_errors(got_out, want_out)["rel_l2"]
+        if not ep_err <= PP_EP_REL_L2 or float(got_aux) != float(want_aux):
+            raise AssertionError(f"MoEMlp at ep={EP_WIDTH}: relative L2 {ep_err}, aux "
+                                 f"{float(got_aux)} vs {float(want_aux)}")
+        ep_ms = {"ep4": time_ms(lambda: layer(tokens), reps=5, inner=2)}
+        layer.mesh = None
+        ep_ms["unsharded"] = time_ms(lambda: layer(tokens), reps=5, inner=2)
+    return {
+        "pipeline": {"stages": PP_STAGES, "microbatches": PP_MICRO,
+                     "tokens_per_microbatch": PP_TOKENS,
+                     "stage": f"{TRAIN_HIDDEN}->{TRAIN_MLP}->{TRAIN_HIDDEN} tanh GELU",
+                     "dtype": "float32", "rel_l2": pp_err, "tol": PP_EP_REL_L2, "ms": pp_ms},
+        "moe": {"experts": EP_EXPERTS, "d_model": TRAIN_HIDDEN, "d_ff": TRAIN_MLP, "top_k": 1,
+                "capacity_factor": EP_CAPACITY_FACTOR, "capacity": layer.capacity(EP_TOKENS),
+                "ep": EP_WIDTH, "tokens": EP_TOKENS, "dtype": "float32",
+                "routing_equal": True, "dropped_tokens": dropped, "aux_loss": float(got_aux),
+                "rel_l2": ep_err, "tol": PP_EP_REL_L2, "ms": ep_ms}}
+
+
+def phase_sp(dev: dict) -> dict:
+    """Sequence, pipeline and expert parallelism on one card, every mesh
+    position naming cuda:0: the ring, ring-flash and Ulysses schedules
+    against dense attention (ring_flash's gradients against flash's), the
+    ring's composition overhead and memory, ring_flash's launch counts,
+    the LM leg under the three schedules and SP_STEPS timed ring_flash
+    steps, lm_small's float32 parity, and the pipeline and MoE layers
+    against their unsharded versions."""
+    t0 = time.perf_counter()
+    report: dict = {"phase": "sp", "nvidia_smi": dev["nvidia_smi"], "seconds": {}}
+    for key, part in (("tensor_checks", sp_tensor_checks), ("overhead", sp_overhead),
+                      ("memory", sp_memory), ("ring_flash_launches", sp_launches),
+                      ("lm", sp_lm), ("lm_small_f32", sp_lm_small),
+                      ("pipeline_moe", sp_pipeline_moe)):
+        t = time.perf_counter()
+        out = part()
+        report.update(out if key == "pipeline_moe" else {key: out})
+        report["seconds"][key] = time.perf_counter() - t
+    checks = report["tensor_checks"]
+    report["tensor_checks_worst"] = {
+        dt: {key: max(c[key]["rel_l2"] for c in checks
+                           if c["dtype"] == dt and key in c) for key in ("out", "dq", "dk", "dv")}
+        for dt in ("bfloat16", "float32")}
+    report["phase_s"] = time.perf_counter() - t0
     emit(report)
     return report
 
@@ -4049,6 +4512,7 @@ def main() -> int:
     decode = phase_decode(dev)
     train = phase_train(dev)
     small = phase_train_small(dev)
+    sp = phase_sp(dev)
     phase_trainer(dev)
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]["float32"]
@@ -4118,7 +4582,8 @@ def main() -> int:
     timed_shape = ("shape", "kernel", *timed, "library_backend")
     fwd = kern["flash_forward"]
     # Launches: the train leg's (Dh 128, bf16); lm_small's legs (Dh 64)
-    # beside them.
+    # and the sp phase's ring_flash LM steps (Dh 128, bf16, {sp: 4}) beside
+    # them.
     small_launches = {dt: small[dt]["launches"] for dt in ("float32", "bfloat16")}
     rows.append({"name": "flash_forward", "route": "cuda",
                  "source": "dmlc_tpu_torch/csrc/flash_fwd.cu",
@@ -4131,6 +4596,7 @@ def main() -> int:
                  "dh64_bf16": {k: fwd["dh64_bf16"][k] for k in timed_shape},
                  "dh64_f32": {k: fwd["dh64_f32"][k] for k in timed_shape},
                  "lm_small_launches": {dt: n["flash_forward"] for dt, n in small_launches.items()},
+                 "sp_launches": sp["lm"]["launches"]["flash_forward"],
                  "streamed": {"shape": fwd["stream_bf16"]["shape"],
                               **{k: fwd["stream_bf16"][k] for k in timed}}})
     for name, line in (("flash_bwd_dq", 271), ("flash_bwd_dkv", 320)):
@@ -4144,7 +4610,8 @@ def main() -> int:
                      "f32": {k: kern["backward_f32"][name][k] for k in (*timed, "host_us")},
                      "dh64_bf16": {k: kern["backward_dh64_bf16"][name][k] for k in timed_shape},
                      "dh64_f32": {k: kern["backward_dh64_f32"][name][k] for k in timed_shape},
-                     "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()}})
+                     "lm_small_launches": {dt: n[name] for dt, n in small_launches.items()},
+                     "sp_launches": sp["lm"]["launches"][name]})
     # Past head dim 128: the three kernels built for 192 and 256 in both
     # dtypes (the train leg's FLOPs at 256, then at 192 and [4, 4, 1024,
     # Dh]), the forward's own past 256 and past 512, the dQ and dK/dV past
@@ -4155,7 +4622,7 @@ def main() -> int:
     # just before it) made through these entry points at these head dims:
     # no registry model has heads past 128.
     main_entries: Counter = Counter()
-    for run in (train, small["float32"], small["bfloat16"]):
+    for run in (train, small["float32"], small["bfloat16"], sp["lm"]):
         main_entries.update(run["entry_launches"])
 
     def main_launches(entry: str, dhs=None, dtype: str | None = None) -> int:

@@ -2,13 +2,15 @@
 ``parallel/train.py``.
 
 Counterpart of ``dmlc_tpu/models/lm.py`` and of
-``dmlc_tpu/parallel/sp_transformer.SPTransformerLM`` on one device. The
-attention ``schedule`` is ``"dense"`` (the default, and the one both
-registry LMs use), ``"flash"`` (``ops/flash.flash_attention``, the
-hand-written CUDA kernels on the card: the training schedule) or ``"auto"``
-(``ops/flash.attention``, the JAX package's dense/flash crossover). The
-sequence-parallel schedules (``"ring"``, ``"ring_flash"``, ``"ulysses"``)
-need a mesh over ``torch.distributed``, which the port does not have yet.
+``dmlc_tpu/parallel/sp_transformer.SPTransformerLM``. The attention
+``schedule`` is ``"dense"`` (the default, and the one both registry LMs
+use), ``"flash"`` (``ops/flash.flash_attention``, the hand-written CUDA
+kernels on the card: the training schedule) or ``"auto"``
+(``ops/flash.attention``, the JAX package's dense/flash crossover); or,
+given a ``mesh`` with an ``sp`` axis, one of the sequence-parallel
+schedules ``"ring"``, ``"ring_flash"`` and ``"ulysses"``, under which the
+activations stay cut over the mesh's positions between attentions
+(``parallel/sp_transformer.py``).
 Submodules keep flax's names (``embed``, ``pos_embed``, ``block{i}.{ln1, attn.{query,key,value,out},
 ln2, mlp_in, mlp_out}``, ``ln_f``, ``head``), so the JAX parameter tree maps
 one to one onto the state dict (``models/convert.lm_from_jax``).
@@ -20,29 +22,24 @@ computing in the model's dtype, and attention scores in float32.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from dmlc_tpu_torch.models.layers import LayerNorm, Linear
 from dmlc_tpu_torch.ops.flash import attention, flash_attention
+from dmlc_tpu_torch.parallel.mesh import Mesh, join_positions, split_to_positions
 from dmlc_tpu_torch.parallel.ring_attention import dense_attention
-
-SCHEDULES = ("dense", "flash", "auto")
-# The JAX package's sequence-parallel schedules (sp_transformer._SCHEDULES).
-SP_SCHEDULES = ("ring", "ring_flash", "ulysses")
-
-
-def check_schedule(schedule: str) -> None:
-    """Raise ``ValueError`` for a schedule this package cannot run."""
-    if schedule in SP_SCHEDULES:
-        raise ValueError(
-            f"schedule {schedule!r} shards the sequence over an sp mesh: it comes with "
-            "the torch.distributed slice (ROADMAP.md, Queue 1)"
-        )
-    if schedule not in SCHEDULES:
-        raise ValueError(f"schedule must be one of {SCHEDULES + SP_SCHEDULES}, got {schedule!r}")
-
+from dmlc_tpu_torch.parallel.sp_transformer import (
+    SP_AXIS,
+    SP_SCHEDULES,
+    PositionRunner,
+    attend_shards,
+    check_schedule,
+    token_dims,
+    unzip,
+)
 
 _ATTENTION = {"dense": dense_attention, "flash": flash_attention, "auto": attention}
 
@@ -75,13 +72,14 @@ class SelfAttention(nn.Module):
 
 
 class Block(nn.Module):
-    """Pre-LN block: causal attention and a position-wise MLP, both residual."""
+    """Pre-LN block: causal attention and a position-wise MLP, both residual.
+    Under a sequence-parallel schedule ``mesh`` gives its positions."""
 
     def __init__(self, hidden: int, num_heads: int, mlp_dim: int, dtype: torch.dtype,
-                 schedule: str = "dense"):
+                 schedule: str = "dense", mesh: Mesh | None = None):
         super().__init__()
-        check_schedule(schedule)
-        self.schedule = schedule
+        check_schedule(schedule, mesh)
+        self.schedule, self.mesh = schedule, mesh
         self.ln1 = LayerNorm(hidden, compute_dtype=dtype)
         self.attn = SelfAttention(hidden, num_heads, dtype)
         self.ln2 = LayerNorm(hidden, compute_dtype=dtype)
@@ -96,10 +94,28 @@ class Block(nn.Module):
         return x + self.mlp_out(h)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:  # [B, S, D]
+        if self.schedule in SP_SCHEDULES:
+            dims = token_dims(self.mesh)
+            xs = split_to_positions(x, self.mesh, dims)
+            out = self.forward_shards(xs, PositionRunner(self, self.mesh))
+            return join_positions(out, self.mesh, dims, x.device)
         q, k, v = self.attn.qkv(self.ln1(x))
         att = _ATTENTION[self.schedule](q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),
                                         causal=True).transpose(1, 2)
         return self.attend_out(x, att)
+
+    def forward_shards(self, xs: np.ndarray, run: PositionRunner) -> np.ndarray:
+        """The block over the mesh's positions: ``xs`` holds each position's
+        [B/dp, S/sp, D] shard (an object array of the mesh's shape); only
+        the attention crosses positions. ``run`` runs the position-wise
+        parts with the parameters on each position's device."""
+
+        def heads(pos, dev, x):  # [B, S/n, H, Dh] -> contiguous [B, H, S/n, Dh], once
+            return tuple(t.transpose(1, 2).contiguous() for t in self.attn.qkv(self.ln1(x)))
+
+        q, k, v = unzip(run(heads, xs), 3)
+        att = attend_shards(self.schedule, q, k, v, self.mesh, causal=True)
+        return run(lambda pos, dev, x, a: self.attend_out(x, a.transpose(1, 2)), xs, att)
 
 
 class TransformerLM(nn.Module):
@@ -109,16 +125,16 @@ class TransformerLM(nn.Module):
 
     def __init__(self, *, vocab: int, num_layers: int, num_heads: int, hidden: int,
                  mlp_dim: int, max_len: int, dtype: torch.dtype = torch.float32,
-                 schedule: str = "dense"):
+                 schedule: str = "dense", mesh: Mesh | None = None):
         super().__init__()
-        check_schedule(schedule)
-        self.schedule = schedule
+        check_schedule(schedule, mesh)
+        self.schedule, self.mesh = schedule, mesh
         self.vocab, self.num_layers, self.num_heads = vocab, num_layers, num_heads
         self.hidden, self.mlp_dim, self.max_len, self.dtype = hidden, mlp_dim, max_len, dtype
         self.embed = nn.Embedding(vocab, hidden)
         self.pos_embed = nn.Embedding(max_len, hidden)
         for i in range(num_layers):
-            self.add_module(f"block{i}", Block(hidden, num_heads, mlp_dim, dtype, schedule))
+            self.add_module(f"block{i}", Block(hidden, num_heads, mlp_dim, dtype, schedule, mesh))
         self.ln_f = LayerNorm(hidden, compute_dtype=dtype)
         self.head = Linear(hidden, vocab, compute_dtype=dtype)
 
@@ -135,10 +151,33 @@ class TransformerLM(nn.Module):
             # An embedding lookup past the table would fail or, on some
             # paths, clamp silently: refuse, as the JAX module does.
             raise ValueError(f"sequence length {s} exceeds max_len {self.max_len}")
+        if self.schedule in SP_SCHEDULES:
+            return self._forward_shards(tokens)
         x = self.embed_at(tokens, torch.arange(s, device=tokens.device)[None, :])
         for blk in self.blocks():
             x = blk(x)
         return self.head(self.ln_f(x))
+
+    def _forward_shards(self, tokens: torch.Tensor) -> torch.Tensor:
+        """The forward with the sequence cut over ``sp`` (and the batch over
+        ``dp``): one shard per position from the embedding to the head,
+        each embedded at its global positions; the logits joined on the
+        tokens' device."""
+        mesh, dims = self.mesh, token_dims(self.mesh)
+        toks = split_to_positions(tokens, mesh, dims)
+        s_local = tokens.shape[1] // mesh.shape[SP_AXIS]
+        k = mesh.axis_names.index(SP_AXIS)
+        run = PositionRunner(self, mesh)
+
+        def embed(pos, dev, t):
+            start = pos[k] * s_local
+            return self.embed_at(t, torch.arange(start, start + s_local, device=dev)[None, :])
+
+        x = run(embed, toks)
+        for blk in self.blocks():
+            x = blk.forward_shards(x, run)
+        logits = run(lambda pos, dev, h: self.head(self.ln_f(h)), x)
+        return join_positions(logits, mesh, dims, tokens.device)
 
 
 def lm_wide(dtype: torch.dtype = torch.float32) -> TransformerLM:

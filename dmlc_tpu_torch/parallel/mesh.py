@@ -2,10 +2,18 @@
 
 Port of the part of ``dmlc_tpu/parallel/mesh.py`` that the partition-rule
 engine (``parallel/sharding.py``) uses: ``make_mesh`` and the Megatron
-fallback ``param_spec``. The axes keep the JAX package's names:
+fallback ``param_spec``; and what the JAX package's ``shard_map``
+programs do with an array: ``split_to_positions`` cuts a tensor into one
+shard per mesh position, on that position's device, and
+``join_positions`` puts the shards back together. The axes keep the JAX
+package's names:
 
 - ``dp`` — data parallel (the batch dimension);
-- ``tp`` — tensor parallel (attention heads, MLP hidden, the vocab head).
+- ``tp`` — tensor parallel (attention heads, MLP hidden, the vocab head);
+- ``sp`` — sequence parallel (``parallel/ring_attention.py``,
+  ``parallel/ulysses.py``, ``parallel/sp_transformer.py``);
+- ``pp`` — pipeline stages (``parallel/pipeline.py``);
+- ``ep`` — experts (``parallel/moe.py``).
 
 A ``Mesh`` is the axis names over a numpy object grid of devices. The
 default device list is the card's, ``cuda:0 … cuda:{n-1}``; ``device="cpu"``
@@ -14,6 +22,13 @@ several positions: each position still holds its own shard tensors
 (``sharding.make_shard_and_gather_fns``), so a width-8 mesh runs on one
 card, or on the CPU, as the JAX package's tests run widths up to 8 on
 virtual CPU devices.
+
+A mesh is one process over its device list. What a collective of the JAX
+package does over its axis is done here between the positions' tensors:
+``lax.ppermute`` is a shard moving to the next position's device
+(``Tensor.to``, which autograd differentiates and which is no copy where
+both positions name one device), ``lax.all_to_all`` a split and a
+concatenation across positions, ``lax.all_gather`` a concatenation.
 """
 
 from __future__ import annotations
@@ -38,6 +53,16 @@ class Mesh:
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    def lines(self, axis_name: str) -> list[list[tuple[int, ...]]]:
+        """The positions along ``axis_name``, in axis order, one list for
+        each index of the other axes (a ring or a pipeline per list)."""
+        if axis_name not in self.axis_names:
+            raise ValueError(f"mesh axes {self.axis_names} have no {axis_name!r} axis")
+        k = self.axis_names.index(axis_name)
+        others = list(self.devices.shape)
+        n, others[k] = others[k], 1
+        return [[(*pos[:k], j, *pos[k + 1:]) for j in range(n)] for pos in np.ndindex(*others)]
 
 
 def default_devices(device: str | torch.device | None = None) -> list[torch.device]:
@@ -99,3 +124,48 @@ def param_spec(path: tuple[str, ...], leaf, tp_axis: str = "tp"):
     if leaf_kind == "bias" and name in ("query", "key", "value", "mlp_in"):
         return P(tp_axis)
     return P()
+
+
+def split_to_positions(x: torch.Tensor, mesh: Mesh, dims: Mapping[str, int]) -> np.ndarray:
+    """One shard of ``x`` per mesh position, as an object array of the
+    mesh's shape: ``x`` cut into equal parts along dim ``dims[a]`` over the
+    positions of each named axis ``a`` (major to minor in the mesh's axis
+    order), whole along the mesh's other axes, each shard moved to its
+    position's device by an autograd-tracked ``Tensor.to``. A dim that the
+    axis does not divide raises ``ValueError``, as ``shard_map`` refuses
+    unequal shards."""
+    sizes = mesh.shape
+    for a, d in dims.items():
+        if a not in sizes:
+            raise ValueError(f"mesh axes {mesh.axis_names} have no {a!r} axis")
+        if x.shape[d] % sizes[a]:
+            raise ValueError(f"dim {d} of {tuple(x.shape)} does not split evenly over "
+                             f"{a}={sizes[a]}")
+    grid = np.empty(mesh.devices.shape, dtype=object)
+    for pos in np.ndindex(*mesh.devices.shape):
+        coord = dict(zip(mesh.axis_names, pos))
+        index = [slice(None)] * x.dim()
+        for a, d in dims.items():
+            step = x.shape[d] // sizes[a]
+            index[d] = slice(coord[a] * step, (coord[a] + 1) * step)
+        grid[pos] = x[tuple(index)].to(mesh.devices[pos])
+    return grid
+
+
+def join_positions(grid: np.ndarray, mesh: Mesh, dims: Mapping[str, int],
+                   device: str | torch.device | None = None) -> torch.Tensor:
+    """The inverse of ``split_to_positions``: the shards at index 0 of every
+    axis not named in ``dims``, concatenated along ``dims[a]`` in the order
+    of each named axis's positions, on ``device`` (the first position's
+    when None)."""
+    names = [a for a in mesh.axis_names if a in dims]
+    sub = grid[tuple(slice(None) if a in dims else 0 for a in mesh.axis_names)]
+    dev = torch.device(device) if device is not None else mesh.devices.flat[0]
+
+    def cat(part, axes: list[str]) -> torch.Tensor:
+        if not axes:
+            return (part[()] if isinstance(part, np.ndarray) else part).to(dev)
+        return torch.cat([cat(part[i], axes[1:]) for i in range(part.shape[0])],
+                         dim=dims[axes[0]])
+
+    return cat(sub, names)

@@ -1,9 +1,11 @@
 """The train step on one device.
 
 Counterpart of ``dmlc_tpu/parallel/train.py`` without the mesh: the JAX
-package compiles one SPMD program over a dp x tp mesh; here one process
-drives one card, and the mesh comes with ``torch.distributed``. Works for
-both families: BatchNorm CNNs (ResNet, whose running statistics are buffers
+package compiles one SPMD program over a dp x tp mesh; here the step
+drives one model on one device (a sequence-parallel LM cuts its own
+activations over its mesh, ``parallel/sp_transformer.py``), and the dp x tp
+step with sharded optimizer state is not ported yet. Works for both
+families: BatchNorm CNNs (ResNet, whose running statistics are buffers
 of the model) and transformers, and ``lm_train_step`` trains the causal LM.
 
 optax's AdamW and torch's are written differently but are the same algebra

@@ -52,7 +52,9 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "cluster.failover", "cluster.sdfs", "scheduler.dataset", "models.weights",
                  "scheduler.jobs", "cluster.node", "cluster.localcluster", "cli",
                  "cluster.profile", "cluster.critpath", "cluster.sentinel", "cluster.observe",
-                 "cluster.scrapetree", "cluster.devicemon", "models.vit", "models.clip"):
+                 "cluster.scrapetree", "cluster.devicemon", "models.vit", "models.clip",
+                 "parallel.ulysses", "parallel.sp_transformer", "parallel.pipeline",
+                 "parallel.moe"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 

@@ -15,9 +15,16 @@ numpy-seeded inputs and carried weights:
 - ``grad_accum=2`` equal to one full batch (atol 1e-6), the divisibility
   ``ValueError``, ``remat`` equal to no remat with BatchNorm statistics
   moved once;
+- ``make_train_step`` on a tiny ViT (tests/test_torch_vit.py's sizes,
+  float32, no BatchNorm): the first step's loss and every gradient
+  against ``jax.value_and_grad`` (loss atol 1e-5, gradients atol 2e-6 +
+  rtol 1e-4), three ``default_optimizer`` steps against
+  ``optax.adamw(1e-3, weight_decay=1e-4)`` (each loss and the loss after,
+  atol 1e-5), and ``remat`` giving the parameters of no remat (atol 1e-6);
 - checkpoints: a ``TrainingDriver`` restart resumes at the saved step and
   ends where an uninterrupted run ends (exactly), locally and through an
-  SDFS-style client, and the sequence-parallel schedules are refused.
+  SDFS-style client, and the sequence-parallel schedules are refused
+  without a mesh.
 """
 
 import jax
@@ -33,12 +40,15 @@ from dmlc_tpu.models.resnet import ResNet as JaxResNet
 from dmlc_tpu.parallel import create_train_state as jax_create_train_state
 from dmlc_tpu.parallel import make_mesh
 from dmlc_tpu.parallel import make_train_step as jax_make_train_step
+from dmlc_tpu.models.vit import ViT as JaxViT
 from dmlc_tpu.parallel.sp_transformer import SPTransformerLM
-from dmlc_tpu_torch.models.convert import lm_from_jax, resnet_from_jax
+from dmlc_tpu_torch.models.convert import lm_from_jax, resnet_from_jax, vit_from_jax
 from dmlc_tpu_torch.models.lm import TransformerLM, lm_small
 from dmlc_tpu_torch.models.resnet import BasicBlock, ResNet
+from dmlc_tpu_torch.models.vit import ViT
 from dmlc_tpu_torch.parallel.train import (
     create_train_state,
+    cross_entropy,
     default_optimizer,
     lm_loss,
     lm_train_step,
@@ -179,8 +189,10 @@ def test_flash_lm_at_lm_small_width_matches_the_jax_flash_lm():
 
 
 def test_sequence_parallel_schedules_are_refused():
+    """Without a mesh the sp schedules are refused (they run over one:
+    tests/test_torch_sp.py), as is a name outside the six."""
     for schedule in ("ring", "ring_flash", "ulysses"):
-        with pytest.raises(ValueError, match="torch.distributed"):
+        with pytest.raises(ValueError, match="mesh"):
             _torch_lm(schedule)
     with pytest.raises(ValueError, match="schedule must be one of"):
         _torch_lm("sparse")
@@ -237,6 +249,121 @@ def test_remat_changes_memory_not_math():
     a, b = model_a.state_dict(), model_b.state_dict()
     for k in a:  # BatchNorm statistics moved once, not twice
         np.testing.assert_allclose(a[k].numpy(), b[k].numpy(), atol=1e-6, err_msg=k)
+
+
+# ---------------------------------------------------------------------------
+# make_train_step on a ViT (no BatchNorm)
+# ---------------------------------------------------------------------------
+
+VIT = {"patch_size": 8, "hidden_size": 64, "num_layers": 2, "num_heads": 4, "mlp_dim": 128}
+VIT_IMAGE, VIT_CLASSES, VIT_BATCH = 32, 10, 8
+
+
+@pytest.fixture
+def one_torch_thread():
+    """A tiny ViT's step is many small ops: one intra-op thread runs them
+    faster than a pool and keeps a parallel test run's workers from
+    oversubscribing the cores."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.fixture(scope="module")
+def vit_setup():
+    """A tiny ViT (tests/test_torch_vit.py's sizes) in float32 with flax's
+    initial weights, a numpy batch, and the JAX step's loss and gradients,
+    three optax.adamw(1e-3, weight_decay=1e-4) steps' losses and the loss
+    after them, once."""
+    jax_model = JaxViT(num_classes=VIT_CLASSES, dtype=jnp.float32, **VIT)
+    rng = np.random.default_rng(8)
+    images = rng.standard_normal((VIT_BATCH, VIT_IMAGE, VIT_IMAGE, 3)).astype(np.float32)
+    labels = rng.integers(0, VIT_CLASSES, VIT_BATCH).astype(np.int32)
+    variables = jax.tree_util.tree_map(
+        np.asarray, jax_model.init(jax.random.PRNGKey(9), images, train=False))
+
+    def loss_fn(params, x, y):
+        logits = jax_model.apply({"params": params}, x, train=True)
+        return optax.softmax_cross_entropy_with_integer_labels(logits, y).mean()
+
+    tx = optax.adamw(1e-3, weight_decay=1e-4)
+
+    @jax.jit
+    def step(params, opt_state, x, y):
+        loss, grads = jax.value_and_grad(loss_fn)(params, x, y)
+        updates, opt_state = tx.update(grads, opt_state, params)
+        return optax.apply_updates(params, updates), opt_state, loss, grads
+
+    params, opt_state, losses = variables["params"], tx.init(variables["params"]), []
+    for i in range(3):
+        params, opt_state, loss, grads = step(params, opt_state, images, labels)
+        losses.append(float(loss))
+        if i == 0:
+            first_grads = vit_from_jax({"params": jax.tree_util.tree_map(np.asarray, grads)})
+    after = float(jax.jit(loss_fn)(params, images, labels))
+    return variables, images, labels, first_grads, losses, after
+
+
+def _port_vit(variables):
+    model = ViT(num_classes=VIT_CLASSES, dtype=torch.float32, image_size=VIT_IMAGE, **VIT)
+    model.load_state_dict(vit_from_jax(variables))
+    return model
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_vit_first_step_loss_and_every_gradient_match_value_and_grad(vit_setup):
+    variables, images, labels, want, losses, _ = vit_setup
+    model = _port_vit(variables)
+    state, step = make_train_step(create_train_state(model, device="cpu"))
+    grads = {}
+    for name, p in model.named_parameters():  # read each gradient before the update
+        p.register_post_accumulate_grad_hook(lambda p, name=name: grads.update({name: p.grad.clone()}))
+    state, metrics = step(state, torch.from_numpy(images), torch.from_numpy(labels).long())
+    np.testing.assert_allclose(float(metrics["loss"]), losses[0], atol=1e-5)
+    assert set(grads) == set(want)
+    for name, g in want.items():
+        np.testing.assert_allclose(grads[name].numpy(), g.numpy(), atol=2e-6, rtol=1e-4,
+                                   err_msg=name)
+
+
+def _vit_steps(variables, images, labels, remat=False, steps=3):
+    model = _port_vit(variables)
+    assert not list(model.buffers())  # nothing for remat to put back
+    state, step = make_train_step(create_train_state(model, device="cpu"), remat=remat)
+    x, y = torch.from_numpy(images), torch.from_numpy(labels).long()
+    losses = []
+    for _ in range(steps):
+        state, metrics = step(state, x, y)
+        losses.append(float(metrics["loss"]))
+    assert state.step == steps
+    return model, losses
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_vit_three_default_optimizer_steps_follow_optax(vit_setup):
+    """Three make_train_step steps against optax: each step's loss and the
+    loss after them, atol 1e-5 (parameters are not compared: Adam's first
+    steps scale a gradient element near zero, rounding noise on both
+    sides, to a step of up to lr)."""
+    variables, images, labels, _, want_losses, want_after = vit_setup
+    model, losses = _vit_steps(variables, images, labels)
+    np.testing.assert_allclose(losses, want_losses[:3], atol=1e-5)
+    assert losses[-1] < losses[0]
+    with torch.no_grad():
+        after = cross_entropy(model(torch.from_numpy(images)), torch.from_numpy(labels).long())
+    np.testing.assert_allclose(float(after), want_after, atol=1e-5)
+
+
+@pytest.mark.usefixtures("one_torch_thread")
+def test_vit_remat_gives_the_same_parameters(vit_setup):
+    variables, images, labels = vit_setup[:3]
+    plain, plain_losses = _vit_steps(variables, images, labels)
+    remat, remat_losses = _vit_steps(variables, images, labels, remat=True)
+    np.testing.assert_allclose(remat_losses, plain_losses, atol=1e-6)
+    a, b = plain.state_dict(), remat.state_dict()
+    for k in a:
+        np.testing.assert_allclose(b[k].numpy(), a[k].numpy(), atol=1e-6, err_msg=k)
 
 
 class _Mlp(nn.Module):
