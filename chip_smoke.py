@@ -150,7 +150,23 @@ non-zero:
    float32, against their unsharded versions, with their ms.
 7. trainer — ResNet-18 through TrainingDriver with local checkpoints,
    restored by a second TrainingDriver.
-8. the card's name and power limit as nvidia-smi prints them, the kernels
+8. mesh — (a) vit_b16 through make_train_step at {dp: 2, tp: 2}, every
+   position on cuda:0, batch 128, bf16 over float32 parameters: the first
+   step against the one-device step on the same seeded weights and batch
+   (loss within MESH_LOSS_REL, every parameter within MESH_PARAM_REL
+   relative L2), then MESH_STEPS timed steps (step p50, images/s, MFU,
+   peak memory, parameter and AdamW moment tensors a position); (b) two
+   child processes on the card join a port leader's MeshBootstrap (served
+   over TcpRpc on a held port block) through join_global_mesh, gloo since
+   they share the card: each trains vit_b16 MESH_PROC_STEPS dp steps on
+   MESH_PROC_BATCH rows (losses equal across ranks within MESH_RANK_REL,
+   the all-reduce time a step), then one resnet18 shard of BATCH rows goes
+   through job.predict_gang from a port JobScheduler with mesh_group: its
+   top-1 equals the one-process run_batch of the same rows (a row may
+   differ only under the gap rule), each rank launching normalize_u8 and
+   softmax_top1. A child that fails, or gives no line in time, fails the
+   phase; the children are killed on the way out.
+9. the card's name and power limit as nvidia-smi prints them, the kernels
    line, and the final {"ok": true, ...} line.
 
 It needs one CUDA device and exits non-zero, printing no result, without
@@ -163,6 +179,7 @@ import contextlib
 import ctypes
 import gc
 import json
+import os
 import re
 import statistics
 import subprocess
@@ -4487,6 +4504,350 @@ def phase_trainer(dev: dict) -> dict:
     return report
 
 
+# ---------------------------------------------------------------------------
+# mesh: the dp x tp train step, and processes joined through the leader
+# ---------------------------------------------------------------------------
+
+#: Phase mesh (a): vit_b16 through make_train_step at {dp: 2, tp: 2} with
+#: every position on cuda:0, against the one-device step on the same seeded
+#: weights and batch (VIT_TRAIN_BATCH, bf16 compute over float32
+#: parameters): the first step's loss within MESH_LOSS_REL of the
+#: one-device loss, and every parameter after that step within
+#: MESH_PARAM_REL relative L2 of the one-device parameter. Adam's first
+#: step moves every element by about lr, with the sign of its gradient, so
+#: an element whose bf16 gradient is near zero takes either sign on either
+#: side. Where the parameter starts at zero (the biases, the class token)
+#: the step is all there is, and its relative L2 counts those flips alone:
+#: there every element is held within 2 * lr, and the share of elements
+#: that differ by more than lr within MESH_FLIP_SHARE. ZERO_GRAD_SUFFIX,
+#: whose gradient is rounding noise on both sides (a shift of every key's
+#: score cancels in the softmax), is held within 2 * lr alone. Then
+#: MESH_STEPS timed steps.
+MESH_AXES = {"dp": 2, "tp": 2}
+MESH_LOSS_REL = 5e-3
+MESH_PARAM_REL = 2e-2
+MESH_FLIP_SHARE = 5e-2
+MESH_STEPS = 5
+#: Phase mesh (b): two processes on the card joined through a port
+#: leader's MeshBootstrap; vit_b16 at MESH_PROC_BATCH rows a process for
+#: MESH_PROC_STEPS dp steps (losses equal across ranks within
+#: MESH_RANK_REL), and one resnet18 shard of BATCH rows (BATCH / 2 a
+#: process) through job.predict_gang. MESH_CHILD_S bounds each child's
+#: start and its exit.
+MESH_PROC_BATCH, MESH_PROC_STEPS = 32, 2
+MESH_RANK_REL = 1e-6
+MESH_CHILD_S = 240.0
+MESH_CORPUS = {"n_classes": BATCH, "images_per_class": 1, "size": 256, "seed": 4}
+
+
+def vit_state(seed: int = 12):
+    """vit_b16 with seeded weights, bf16 compute over float32 parameters,
+    and AdamW at VIT_TRAIN_LR, on cuda:0."""
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.parallel.train import create_train_state, default_optimizer
+
+    model = get_model(VIT_TRAIN_MODEL).init_params(seed=seed, dtype=torch.bfloat16)
+    return create_train_state(model, default_optimizer(model.parameters(), lr=VIT_TRAIN_LR))
+
+
+def vit_batch(rows: int, seed: int) -> tuple[torch.Tensor, torch.Tensor]:
+    from dmlc_tpu_torch.models.registry import get_model
+
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    images = torch.randn(rows, SIZE, SIZE, 3, device="cuda", generator=gen)
+    labels = torch.randint(0, get_model(VIT_TRAIN_MODEL).num_outputs, (rows,), device="cuda",
+                           generator=gen)
+    return images, labels
+
+
+def mesh_vit(dev: dict) -> dict:
+    """Phase mesh (a) (MESH_AXES, MESH_LOSS_REL, MESH_PARAM_REL)."""
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel.train import make_train_step, position_counts, state_dicts
+
+    images, labels = vit_batch(VIT_TRAIN_BATCH, 13)
+    state, step = make_train_step(vit_state())
+    names = [n for n, p in state.model.named_parameters()]
+    zero = {n for n, p in state.model.named_parameters() if not bool(p.any())}
+    state, first = step(state, images, labels)
+    want = {k: v.detach().clone() for k, v in state.model.state_dict().items() if k in names}
+    want_loss = float(first["loss"])
+    del state, step, first
+    torch.cuda.empty_cache()
+
+    state, step = make_train_step(vit_state(), mesh=one_card_mesh(MESH_AXES))
+    K.reset_launch_counts()
+    state, first = step(state, images, labels)
+    loss = float(first["loss"])
+    got = state_dicts(state)[0]
+    rel, flips, step_abs = {}, {}, {}
+    for k, w in want.items():
+        diff = (got[k].float() - w.float()).abs()
+        rel[k] = float(diff.norm() / w.float().norm().clamp_min(1e-30))
+        if k in zero or k.endswith(ZERO_GRAD_SUFFIX):
+            step_abs[k] = float(diff.max())
+            flips[k] = float((diff > VIT_TRAIN_LR).float().mean())
+    held = {k: r for k, r in rel.items() if k not in step_abs}
+    worst = max(held, key=held.get)
+    flip_worst = max((k for k in flips if not k.endswith(ZERO_GRAD_SUFFIX)), key=flips.get)
+    summary = {"loss": loss, "one_device_loss": want_loss, "rel_worst": [worst, held[worst]],
+               "flip_worst": [flip_worst, flips[flip_worst]],
+               "step_abs_max": max(step_abs.values()),
+               "rel_top": sorted(held.items(), key=lambda kv: -kv[1])[:6],
+               "flips_top": sorted(flips.items(), key=lambda kv: -kv[1])[:6]}
+    if not (abs(loss - want_loss) <= MESH_LOSS_REL * abs(want_loss)
+            and held[worst] <= MESH_PARAM_REL and flips[flip_worst] <= MESH_FLIP_SHARE
+            and summary["step_abs_max"] <= 2 * VIT_TRAIN_LR):
+        raise AssertionError(f"mesh {MESH_AXES} against the one-device step outside the limits "
+                             f"(loss rel {MESH_LOSS_REL}, parameters {MESH_PARAM_REL}, flip "
+                             f"share {MESH_FLIP_SHARE}, step 2 lr): {json.dumps(summary)}")
+    del got
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    losses, walls = [loss], []
+    for _ in range(MESH_STEPS):
+        t = time.perf_counter()
+        state, metrics = step(state, images, labels)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t)
+        losses.append(float(metrics["loss"]))
+    if not all(np.isfinite(losses)) or not losses[-1] < losses[0]:
+        raise AssertionError(f"mesh {MESH_AXES} train: loss not finite or not falling: {losses}")
+    launches = {k: n for k, n in K.launch_counts().items() if n}
+    step_s = statistics.median(walls)
+    flops = get_model(VIT_TRAIN_MODEL).flops_per_item()
+    report = {"model": VIT_TRAIN_MODEL, "mesh": MESH_AXES, "positions": "cuda:0",
+              "batch": VIT_TRAIN_BATCH, "compute": "bfloat16", "params": "float32",
+              "first_loss": loss, "one_device_first_loss": want_loss,
+              "loss_rel": abs(loss - want_loss) / abs(want_loss), "loss_rel_limit": MESH_LOSS_REL,
+              "param_rel_l2_max": held[worst], "param_rel_l2_worst": worst,
+              "param_rel_l2_median": statistics.median(held.values()),
+              "param_rel_limit": MESH_PARAM_REL, "param_rel_l2": rel,
+              "zero_init_flip_share_max": flips[flip_worst], "zero_init_flip_worst": flip_worst,
+              "flip_share_limit": MESH_FLIP_SHARE, "zero_init_step_abs_max": summary["step_abs_max"],
+              "losses": losses, "step_ms_p50": 1e3 * step_s, "step_ms_max": 1e3 * max(walls),
+              "images_per_s": VIT_TRAIN_BATCH / step_s,
+              "mfu": 3 * flops * VIT_TRAIN_BATCH / step_s / dev["bf16_flops_per_s"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 2**30,
+              "tensors": position_counts(state), "kernel_launches": launches}
+    del state, step
+    torch.cuda.empty_cache()
+    return report
+
+
+def mesh_child(leader: str, data_dir: str) -> None:
+    """One rank of phase mesh (b), started by mesh_processes: serves
+    resnet18 gang slices over TCP, joins the leader's mesh
+    (join_global_mesh), trains vit_b16 MESH_PROC_STEPS dp steps on its
+    rows of a seeded batch, prints its ready line, serves until its stdin
+    closes, then prints its normalize_u8 / softmax_top1 launches since the
+    ready line and the answers it gave."""
+    import torch.distributed as dist
+
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.parallel.mesh import make_mesh
+    from dmlc_tpu_torch.parallel.multihost import join_global_mesh
+    from dmlc_tpu_torch.parallel.train import make_train_step
+    from dmlc_tpu_torch.scheduler.jobs import gang_slice
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend, PredictWorker
+
+    torch.backends.cudnn.allow_tf32 = False  # as phase_device sets them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    backend = EngineBackend("resnet18", data_dir, batch_size=BATCH, device="cuda")
+    backend.warmup()
+    answers: list = []
+    methods = PredictWorker({"resnet18": backend}).methods()
+    serve_gang = methods["job.predict_gang"]
+
+    def recorded(p: dict) -> dict:
+        out = serve_gang(p)
+        start, stop = gang_slice(len(p["synsets"]), p["rank"], p["world"])
+        answers.extend(zip(p["synsets"][start:stop], out["predictions"]))
+        return out
+
+    methods["job.predict_gang"] = recorded
+    server = TcpRpcServer("127.0.0.1", 0, methods)
+    info = join_global_mesh(TcpRpc(), leader, server.address, timeout_s=MESH_CHILD_S)
+    rank = int(info["process_id"])
+    mesh = make_mesh({"dp": 2})
+    state, step = make_train_step(vit_state(), mesh=mesh)
+    images, labels = vit_batch(2 * MESH_PROC_BATCH, 14)
+    mine = slice(rank * MESH_PROC_BATCH, (rank + 1) * MESH_PROC_BATCH)
+    losses, walls = [], []
+    for _ in range(MESH_PROC_STEPS):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        state, metrics = step(state, images[mine], labels[mine])
+        losses.append(float(metrics["loss"]))
+        walls.append(time.perf_counter() - t)
+    train = {"losses": losses, "step_s": walls, "allreduce_s": list(state.layout.allreduce_s),
+             "mesh_processes": mesh.process_count, "local_positions": mesh.local_positions()}
+    del state, step, images, labels
+    torch.cuda.empty_cache()
+    K.reset_launch_counts()
+    print(json.dumps({"ready": True, "rank": rank, "addr": server.address,
+                      "backend": info["backend"], "device": info["device"], "train": train}),
+          flush=True)
+    sys.stdin.read()  # serve until the parent closes our stdin
+    counts = K.launch_counts()
+    print(json.dumps({"rank": rank, "launches": {k: counts[k] for k in PREDICT_KERNELS},
+                      "answers": answers}), flush=True)
+    server.close()
+    dist.destroy_process_group()
+
+
+class Child:
+    """A child process whose stdout lines a thread collects, so that every
+    wait on it has a deadline; its stderr goes to a file."""
+
+    def __init__(self, cmd: list[str], cwd: Path, log: Path, env: dict):
+        self.log = log
+        self.err = open(log, "w")
+        self.proc = subprocess.Popen(cmd, cwd=cwd, stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                                     stderr=self.err, text=True, env=env)
+        self.lines: list[dict] = []
+        self.cv = threading.Condition()
+        self.reader = threading.Thread(target=self._read, daemon=True)
+        self.reader.start()
+
+    def _read(self) -> None:
+        for line in self.proc.stdout:
+            if line.lstrip().startswith("{"):
+                with self.cv:
+                    self.lines.append(json.loads(line))
+                    self.cv.notify_all()
+        with self.cv:
+            self.cv.notify_all()
+
+    def line(self, n: int, timeout: float) -> dict:
+        """The ``n``-th JSON line, waiting at most ``timeout`` seconds."""
+        deadline = time.monotonic() + timeout
+        with self.cv:
+            while len(self.lines) <= n:
+                left = deadline - time.monotonic()
+                if left <= 0 or (self.proc.poll() is not None and not self.reader.is_alive()):
+                    tail = self.log.read_text()[-3000:] if self.log.exists() else ""
+                    raise AssertionError(f"mesh child (exit {self.proc.poll()}) gave no line "
+                                         f"{n} within {timeout} s:\n{tail}")
+                self.cv.wait(min(left, 1.0))
+            return self.lines[n]
+
+    def stop(self) -> None:
+        with contextlib.suppress(OSError):
+            self.proc.stdin.close()
+
+    def kill(self) -> None:
+        if self.proc.poll() is None:
+            self.proc.kill()
+        self.proc.wait(timeout=30)
+        self.err.close()
+
+
+def mesh_processes(dev: dict, root: Path) -> dict:
+    """Phase mesh (b): two processes on the card, joined through a port
+    leader's MeshBootstrap served over TcpRpc on a held port block."""
+    from dmlc_tpu_torch.cluster.localcluster import _release, _reserve_block
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.parallel.multihost import MeshBootstrap
+    from dmlc_tpu_torch.scheduler.jobs import JobScheduler
+    from dmlc_tpu_torch.utils import corpus
+
+    data_dir, synset_path = corpus.generate(root / "corpus", **MESH_CORPUS)
+    synsets = [line.split()[0] for line in synset_path.read_text().splitlines()]
+    engine = InferenceEngine("resnet18", device="cuda", batch_size=BATCH)
+    u8 = pp.load_batch([pp.class_image_path(data_dir, s) for s in synsets], size=SIZE)
+    truth = engine.run_batch(u8).top1_index
+    _, gaps = plain_top1(engine, u8)
+    del engine
+    torch.cuda.empty_cache()
+
+    base, held = _reserve_block(2)
+    leader_port, coordinator_port = base + 1, base + 2
+    boot = MeshBootstrap(coordinator_port, 2)
+    server = TcpRpcServer("127.0.0.1", leader_port, boot.methods())
+    _release(held)  # the leader holds its port now; rank 0's store binds the coordinator's
+    repo = Path(__file__).resolve().parent
+    cmd = [sys.executable, "-c",
+           f"import chip_smoke as cs; cs.mesh_child({server.address!r}, {str(data_dir)!r})"]
+    env = dict(os.environ, GLOO_SOCKET_IFNAME="lo")  # the ranks meet on the loopback
+    children = [Child(cmd, repo, root / f"mesh_child{i}.err", env) for i in range(2)]
+    try:
+        t = time.perf_counter()
+        ready = sorted((c.line(0, MESH_CHILD_S) for c in children), key=lambda r: r["rank"])
+        join_s = time.perf_counter() - t
+        if [r["rank"] for r in ready] != [0, 1] or boot.group() != {
+                r["addr"]: r["rank"] for r in ready}:
+            raise AssertionError(f"mesh ranks {ready} vs the leader's map {boot.group()}")
+        if {r["backend"] for r in ready} != {"gloo"}:
+            raise AssertionError(f"two ranks on one card must run gloo: {ready}")
+        losses = [r["train"]["losses"] for r in ready]
+        if not all(np.isfinite(losses[0])) or not np.allclose(losses[1], losses[0],
+                                                              rtol=MESH_RANK_REL, atol=0):
+            raise AssertionError(f"dp losses differ across ranks: {losses}")
+        addrs = [r["addr"] for r in ready]
+        queries = list(zip(synsets, (int(c) for c in truth)))
+        sched = JobScheduler(TcpRpc(), lambda: list(addrs), jobs={"resnet18": queries},
+                             shard_size=BATCH, mesh_group=boot.group, shard_timeout_s=120.0)
+        sched.is_leading = True
+        sched._start({})
+        sched.assign_once()
+        t = time.perf_counter()
+        sched.run_to_completion(max_rounds=20)
+        gang_s = time.perf_counter() - t
+        job = sched.jobs["resnet18"]
+        report = job.report()
+        if not job.done or report["gang_shards"] != 1:
+            raise AssertionError(f"gang job did not finish as one collective shard: {report}")
+        for c in children:
+            c.stop()
+        done = sorted((c.line(1, 60.0) for c in children), key=lambda r: r["rank"])
+        answered = {s: int(p) for d in done for s, p in d["answers"]}
+        wrong = [i for i, s in enumerate(synsets) if answered.get(s) != int(truth[i])]
+        near = [i for i in wrong if gaps[i] <= GAP]
+        if len(answered) != len(synsets) or len(wrong) != len(near):
+            raise AssertionError(f"gang top-1 differs from run_batch at rows {wrong} "
+                                 f"(top-two gaps {[float(gaps[i]) for i in wrong]})")
+        launches = {d["rank"]: d["launches"] for d in done}
+        if any(n < 1 for per in launches.values() for n in per.values()):
+            raise AssertionError(f"a rank did not launch both predict kernels: {launches}")
+        for c in children:
+            c.proc.wait(timeout=60)
+        if [c.proc.returncode for c in children] != [0, 0]:
+            raise AssertionError(f"mesh children exited {[c.proc.returncode for c in children]}")
+    finally:
+        server.close()
+        for c in children:
+            c.stop()
+            c.kill()
+    return {"processes": 2, "device": ready[0]["device"], "backend": ready[0]["backend"],
+            "join_and_train_s": join_s,
+            "train": {"model": VIT_TRAIN_MODEL, "rows_per_process": MESH_PROC_BATCH,
+                      "losses": losses, "step_s": [r["train"]["step_s"] for r in ready],
+                      "allreduce_s": [r["train"]["allreduce_s"] for r in ready],
+                      "local_positions": [r["train"]["local_positions"] for r in ready]},
+            "gang": {"model": "resnet18", "rows": BATCH, "rows_per_process": BATCH // 2,
+                     "correct": job.correct, "gang_shards": report["gang_shards"],
+                     "wall_s": gang_s, "near_tie_rows_differing": len(near)},
+            "launches": launches}
+
+
+def phase_mesh(dev: dict) -> dict:
+    """The dp x tp train step on one card (mesh_vit) and two processes
+    joined through the leader (mesh_processes)."""
+    t = time.perf_counter()
+    vit = mesh_vit(dev)
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-mesh-") as td:
+        procs = mesh_processes(dev, Path(td))
+    report = {"phase": "mesh", "nvidia_smi": dev["nvidia_smi"], "vit": vit, "processes": procs,
+              "wall_s": time.perf_counter() - t}
+    emit(report)
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4514,6 +4875,7 @@ def main() -> int:
     small = phase_train_small(dev)
     sp = phase_sp(dev)
     phase_trainer(dev)
+    mesh = phase_mesh(dev)
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]["float32"]
     gather = kern["gather_kv_pages"]["lm_wide"]
@@ -4526,6 +4888,8 @@ def main() -> int:
          "closedloop_launches": {part: n["normalize_u8"]
                                  for part, n in closed["launches"].items() if part != "sessions"},
          "vision_launches": {model: n["normalize_u8"] for model, n in vision["launches"].items()},
+         "mesh_launches": {rank: n["normalize_u8"]
+                           for rank, n in mesh["processes"]["launches"].items()},
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
          "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
@@ -4542,6 +4906,8 @@ def main() -> int:
          "closedloop_launches": {part: n["softmax_top1"]
                                  for part, n in closed["launches"].items() if part != "sessions"},
          "vision_launches": {model: n["softmax_top1"] for model, n in vision["launches"].items()},
+         "mesh_launches": {rank: n["softmax_top1"]
+                           for rank, n in mesh["processes"]["launches"].items()},
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],

@@ -4,9 +4,9 @@ Ported from ``dmlc_tpu/cli.py``: the verbs whose node parts this package
 has answer as the JAX package's do — membership (list_mem/lm, list_self,
 join/j, leave/l), SDFS (put/p, get/g, get-versions/gv, delete/d, ls,
 store/s, scrub), ML (train/t, predict, jobs, assign), generation
-(generate, sessions, drain, undrain), status, metrics (show, prom, fleet),
-flight, trace (on/off, summary, export, fleet), profile, slo, critpath,
-tenants, device, help and exit. ``jobs`` prints accuracy
+(generate, sessions, drain, undrain), mesh-join, status, metrics (show,
+prom, fleet), flight, trace (on/off, summary, export, fleet), profile, slo,
+critpath, tenants, device, help and exit. ``jobs`` prints accuracy
 and latency percentiles (mean/std/median/p90/p95/p99) like the reference's
 histogram report (main.rs:282-309). Every other verb of the JAX package's
 CLI answers with an error that names the module it waits for
@@ -32,7 +32,6 @@ from dmlc_tpu_torch.utils.config import ClusterConfig
 WAITING = {
     "export": "dmlc_tpu/models/export.py",
     "export-bundle": "dmlc_tpu/models/pjrt_bundle.py",
-    "mesh-join": "dmlc_tpu/parallel/multihost.py",
 }
 
 
@@ -134,6 +133,7 @@ Commands (reference: README.md:10-23):
                                         deadline or migrate
   undrain <member>                      reopen a drained member for admission
   jobs                                  job status, accuracy, latency percentiles
+  mesh-join                             join the fleet-wide torch.distributed mesh
   assign                                per-job member assignment table
   status                                overload-control counters: sheds,
                                         deadline trips, queue high-water,
@@ -345,6 +345,12 @@ class Cli:
             return (
                 f"{r['member']}: admission reopened"
                 if r.get("was") else f"{r['member']}: was not draining"
+            )
+        if cmd == "mesh-join":
+            info = n.join_global_mesh()
+            return (
+                f"joined global mesh: process {info['process_id']}"
+                f"/{info['num_processes']}, coordinator {info['coordinator']}"
             )
         if cmd == "jobs":
             out = []

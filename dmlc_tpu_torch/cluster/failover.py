@@ -4,9 +4,10 @@ Copied from ``dmlc_tpu/cluster/failover.py`` (the whole module): the
 probe, the promotion rule, the epochs and the mirrored state
 (``job.state``, ``sdfs.state``) are the JAX package's, so a candidate of
 either package defers to, mirrors and takes over from the other.
-``mesh_bootstrap`` stays ``None`` in this package's node until it has a
-mesh bootstrap; ``genrouter`` is the node's ``GenRouter``, whose ledger a
-standby mirrors through ``gen.state``.
+``mesh_bootstrap`` is the node's ``parallel/multihost.MeshBootstrap`` when
+it configures ``mesh_processes`` > 1, whose rank map a standby mirrors
+through ``mesh.state``; ``genrouter`` is the node's ``GenRouter``, whose
+ledger a standby mirrors through ``gen.state``.
 
 Capability parity with the reference's failover machinery:
 

@@ -12,9 +12,12 @@ the device monitor and the fleet decode tier (``DecodeTierClient``) on every
 node, the closed loop (``PlacementAdvisor``, ``SloEvaluator``, ``GenRouter``
 with its ``gen.*`` verbs, ``Autoscaler``) on every leader candidate, and the
 leader (``JobScheduler``, ``LeaderTracker``, ``StandbyLeader``,
-``ScrapeTreeCoordinator`` and the ``obs.fleet``/``obs.fleet_prom``/
-``obs.critpath``/``obs.slo`` verbs). A node of this package and one of the
-JAX package join one fleet: their gossip, RPC frames and verbs are the same.
+``ScrapeTreeCoordinator``, the ``obs.fleet``/``obs.fleet_prom``/
+``obs.critpath``/``obs.slo`` verbs and, with ``mesh_processes`` > 1, the
+``MeshBootstrap`` behind ``mesh.register``/``mesh.info``/``mesh.state``,
+whose rank map the scheduler gang-dispatches to). A node of this package
+and one of the JAX package join one fleet: their gossip, RPC frames and
+verbs are the same.
 
 Capability parity with the reference's main() (src/main.rs:25-41): start
 membership threads, start the member RPC server, conditionally start the
@@ -37,9 +40,11 @@ Engines run on ``device``: the CUDA device unless the caller passes
 ``device="cpu"``; with no card and no ``device="cpu"`` building an engine
 raises. A ``kind="lm"`` job model is served by an ``LmBackend`` (the
 partition-rule engine, solo or through ``job.predict_gang`` when the
-advisor plans a chip gang), as in the JAX package. Left out until this
-package ports them: ``multihost``, ``ExportedBackend`` and the compile
-cache. A config that turns one of them on (``refuse_unported``) raises
+advisor plans a chip gang), as in the JAX package. ``join_global_mesh``
+joins the fleet's default ``torch.distributed`` group through the leader
+(``parallel/multihost.py``). Left out until this package ports them:
+``ExportedBackend`` and the compile cache. A config that turns
+``serve_from_executable`` on (``refuse_unported``) raises
 ``NotImplementedError``.
 """
 
@@ -139,7 +144,6 @@ def refuse_unported(config: ClusterConfig) -> None:
     wanted = (
         (config.serve_from_executable, "serve_from_executable",
          "ExportedBackend in dmlc_tpu/scheduler/worker.py"),
-        (config.mesh_processes > 1, "mesh_processes > 1", "dmlc_tpu/parallel/multihost.py"),
     )
     for on, switch, module in wanted:
         if on:
@@ -472,6 +476,7 @@ class ClusterNode:
         self.sdfs_leader = None
         self.scheduler = None
         self.standby = None
+        self.mesh_bootstrap = None
         self.advisor = None
         self.slo = None
         self.scrapetree = None
@@ -720,6 +725,7 @@ class ClusterNode:
             shard_timeout_s=self.config.predict_deadline_s,
             member_weight=self._member_weight,
             hedge_tail=self.config.hedge_tail,
+            mesh_group=self._mesh_group,
             retry_policy=self.retry_policy,
             gray_factor=self.config.gray_factor,
             gray_min_latency_s=self.config.gray_min_latency_s,
@@ -837,6 +843,15 @@ class ClusterNode:
                 },
             }),
         }
+        if self.config.mesh_processes > 1:
+            from dmlc_tpu_torch.parallel.multihost import MeshBootstrap
+
+            self.mesh_bootstrap = MeshBootstrap(
+                self.config.mesh_coordinator_port,
+                self.config.mesh_processes,
+                is_leading=False,  # promoted with the rest by StandbyLeader
+            )
+            methods.update(self.mesh_bootstrap.methods())
         self.leader_server = TcpRpcServer(
             self.config.host, self.config.leader_port, methods, auth=self.auth,
             metrics=self.metrics, lane=self.lane,
@@ -850,10 +865,20 @@ class ClusterNode:
             self.leader_candidates,
             self.scheduler,
             sdfs_leader=self.sdfs_leader,
+            mesh_bootstrap=self.mesh_bootstrap,
             genrouter=self.genrouter,
         )
 
     # ---- topology ------------------------------------------------------
+
+    def _mesh_group(self):
+        """Scheduler hook: {member_addr: mesh rank} once the fleet's default
+        torch.distributed group is fully registered (members register with
+        their member RPC address, join_global_mesh), else None — the
+        scheduler then gang-dispatches shards to the whole mesh as one
+        collective execution instead of per-member silos."""
+        mb = self.mesh_bootstrap
+        return None if mb is None else mb.group()
 
     def _node_info(self, p: dict) -> dict:
         """Member RPC: this host's chip capacity, for the leader's weighted
@@ -1374,6 +1399,22 @@ class ClusterNode:
                     except Exception as e:
                         log.warning("train: %s -> %s: %s", sdfs_name, member, e)
         return results
+
+    def join_global_mesh(self, timeout_s: float = 120.0) -> dict:
+        """Form/join the fleet-wide torch.distributed group via the elected
+        leader (config.mesh_processes processes -> ONE global mesh), on
+        the node's device. Explicit, not automatic: a process joins one
+        group in its life, so the operator (or deploy script) triggers it
+        once the fleet is assembled."""
+        from dmlc_tpu_torch.parallel import multihost
+
+        return multihost.join_global_mesh(
+            self.rpc,
+            lambda: self.tracker.current,  # re-resolved per poll: failover-safe
+            self.self_member_addr,
+            timeout_s=timeout_s,
+            device=self.device,
+        )
 
     def predict(self) -> dict:
         return self.rpc.call(

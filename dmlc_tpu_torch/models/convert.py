@@ -381,6 +381,22 @@ def clip_to_jax(sd: Mapping[str, torch.Tensor]) -> dict:
     return state_dict_to_jax(sd, _image_transformer_locate)
 
 
+def to_jax_for(model: torch.nn.Module) -> Callable[[Mapping], dict]:
+    """The way back for a module of this package's families, by its class
+    (a module built outside the registry, at any width)."""
+    from dmlc_tpu_torch.models.alexnet import AlexNet
+    from dmlc_tpu_torch.models.clip import CLIPVisionEncoder
+    from dmlc_tpu_torch.models.lm import TransformerLM
+    from dmlc_tpu_torch.models.resnet import ResNet
+    from dmlc_tpu_torch.models.vit import ViT
+
+    for cls, fn in ((ResNet, resnet_to_jax), (AlexNet, alexnet_to_jax), (ViT, vit_to_jax),
+                    (CLIPVisionEncoder, clip_to_jax), (TransformerLM, lm_to_jax)):
+        if isinstance(model, cls):
+            return fn
+    raise TypeError(f"no JAX variables layout for {type(model).__name__}")
+
+
 # ---------------------------------------------------------------------------
 # External checkpoint layouts -> the JAX variables tree (numpy only)
 # ---------------------------------------------------------------------------

@@ -46,20 +46,11 @@ from dmlc_tpu_torch.models import get_model
 from dmlc_tpu_torch.models.convert import load_into
 from dmlc_tpu_torch.ops import kernels
 from dmlc_tpu_torch.ops import preprocess as pp
+from dmlc_tpu_torch.parallel.mesh import process_index_count
 from dmlc_tpu_torch.utils.device import resolve_device
 from dmlc_tpu_torch.utils.hotpath import hot_path
 from dmlc_tpu_torch.utils.metrics import LatencyStats
 from dmlc_tpu_torch.utils.tracing import tracer
-
-
-def process_index_count() -> tuple[int, int]:
-    """(rank, world size) of the default ``torch.distributed`` group, or
-    (0, 1) when none is initialized."""
-    import torch.distributed as dist
-
-    if dist.is_available() and dist.is_initialized():
-        return dist.get_rank(), dist.get_world_size()
-    return 0, 1
 
 
 # ---- persistent decode-stage pool -----------------------------------------

@@ -1,9 +1,11 @@
 """Device meshes: named axes over a grid of ``torch.device``s.
 
-Port of the part of ``dmlc_tpu/parallel/mesh.py`` that the partition-rule
-engine (``parallel/sharding.py``) uses: ``make_mesh`` and the Megatron
-fallback ``param_spec``; and what the JAX package's ``shard_map``
-programs do with an array: ``split_to_positions`` cuts a tensor into one
+Port of ``dmlc_tpu/parallel/mesh.py``: ``make_mesh``, the Megatron
+fallback ``param_spec`` and the sharding helpers ``batch_sharding``,
+``replicated``, ``param_shardings`` and ``shard_params`` (over
+``parallel/sharding.py``'s ``PartitionSpec``, ``NamedSharding`` and
+``shard_leaf``); and what the JAX package's ``shard_map`` programs do
+with an array: ``split_to_positions`` cuts a tensor into one
 shard per mesh position, on that position's device, and
 ``join_positions`` puts the shards back together. The axes keep the JAX
 package's names:
@@ -23,12 +25,24 @@ several positions: each position still holds its own shard tensors
 card, or on the CPU, as the JAX package's tests run widths up to 8 on
 virtual CPU devices.
 
-A mesh is one process over its device list. What a collective of the JAX
-package does over its axis is done here between the positions' tensors:
-``lax.ppermute`` is a shard moving to the next position's device
-(``Tensor.to``, which autograd differentiates and which is no copy where
-both positions name one device), ``lax.all_to_all`` a split and a
-concatenation across positions, ``lax.all_gather`` a concatenation.
+Within one process, what a collective of the JAX package does over its
+axis is done here between the positions' tensors: ``lax.ppermute`` is a
+shard moving to the next position's device (``Tensor.to``, which autograd
+differentiates and which is no copy where both positions name one
+device), ``lax.all_to_all`` a split and a concatenation across positions,
+``lax.all_gather`` a concatenation.
+
+Processes. Once the processes of a fleet have joined one default
+``torch.distributed`` group (``parallel/multihost.py``), ``make_mesh``
+without an explicit device list lays the mesh over ``world x local
+devices``, the process the slowest-varying position, as the JAX package's
+global ``jax.devices()`` does after ``jax.distributed.initialize``. Each
+position knows the rank that owns it (``Mesh.processes``, as a JAX
+``Device`` knows its ``process_index``); a process runs only its own
+positions, and what crosses processes goes through ``torch.distributed``
+collectives. ``process_dp_coords`` holds a mesh to the layout that a
+batch over processes needs: each process owns an equal, contiguous run
+of dp coordinates.
 """
 
 from __future__ import annotations
@@ -43,16 +57,47 @@ import torch
 from dmlc_tpu_torch.utils.device import resolve_device
 
 
+def process_index_count() -> tuple[int, int]:
+    """(rank, world size) of the default ``torch.distributed`` group, or
+    (0, 1) when none is initialized."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size()
+    return 0, 1
+
+
 @dataclass(frozen=True, eq=False)
 class Mesh:
-    """``devices``: an object array of ``torch.device``, one axis per name."""
+    """``devices``: an object array of ``torch.device``, one axis per name.
+    ``processes``: an int array of the same shape, the rank that owns each
+    position (None: every position is this process's)."""
 
     devices: np.ndarray
     axis_names: tuple[str, ...]
+    processes: np.ndarray | None = None
 
     @property
     def shape(self) -> dict[str, int]:
         return dict(zip(self.axis_names, self.devices.shape))
+
+    @property
+    def process_count(self) -> int:
+        return 1 if self.processes is None else int(self.processes.max()) + 1
+
+    def process_of(self, pos: tuple[int, ...]) -> int:
+        """The rank that owns position ``pos``."""
+        return 0 if self.processes is None else int(self.processes[pos])
+
+    def local_positions(self, rank: int | None = None) -> list[tuple[int, ...]]:
+        """The positions that ``rank`` (this process's by default) owns, in
+        position order: every position of a mesh without ``processes``."""
+        every = list(np.ndindex(*self.devices.shape))
+        if self.processes is None:
+            return every
+        if rank is None:
+            rank = process_index_count()[0]
+        return [pos for pos in every if self.process_of(pos) == rank]
 
     def lines(self, axis_name: str) -> list[list[tuple[int, ...]]]:
         """The positions along ``axis_name``, in axis order, one list for
@@ -83,7 +128,17 @@ def make_mesh(
     """A Mesh with the given axis sizes, e.g. ``{"dp": 4, "tp": 2}``.
 
     Axis size -1 absorbs the remaining devices. Default axes: every device
-    on a single ``dp`` axis. ``devices`` defaults to ``default_devices(device)``."""
+    on a single ``dp`` axis. ``devices`` defaults to ``default_devices(device)``;
+    under an initialized default group of ``world`` > 1 processes the
+    default is that list once for each rank, rank 0's first (every process
+    names its own devices alike), each position owned by its rank. An
+    explicit list is this process's alone."""
+    _, world = process_index_count()
+    processes = None
+    if devices is None and world > 1:
+        local = default_devices(device)
+        devices = local * world
+        processes = [r for r in range(world) for _ in local]
     devs = [torch.device(d) for d in (devices if devices is not None
                                       else default_devices(device))]
     if axes is None:
@@ -100,7 +155,45 @@ def make_mesh(
                          f"have {len(devs)}")
     grid = np.empty(len(devs), dtype=object)
     grid[:] = devs
-    return Mesh(grid.reshape(sizes), tuple(names))
+    owners = None if processes is None else np.asarray(processes, np.int64).reshape(sizes)
+    return Mesh(grid.reshape(sizes), tuple(names), owners)
+
+
+def process_dp_coords(mesh: Mesh, dp_axis: str = "dp", rank: int | None = None) -> list[int]:
+    """The dp coordinates that process ``rank`` (this one by default) owns,
+    after the refusals of the JAX package's engine
+    (``dmlc_tpu/parallel/inference.py:172-198``): with several processes,
+    the dp axis must partition the batch rows by process (every process
+    owns ``dp / processes`` coordinates, and no coordinate is split between
+    two processes), and each process's coordinates must be one contiguous
+    run, so that its rows are one contiguous slice of the global batch.
+    A mesh without ``dp_axis`` has one dp coordinate, 0. Raises
+    ``ValueError``."""
+    if mesh.processes is None:
+        rank = 0
+    elif rank is None:
+        rank = process_index_count()[0]
+    names = mesh.axis_names
+    axis = names.index(dp_axis) if dp_axis in names else None
+    dp = mesh.devices.shape[axis] if axis is not None else 1
+    owners: dict[int, set[int]] = {}
+    for pos in np.ndindex(*mesh.devices.shape):
+        owners.setdefault(pos[axis] if axis is not None else 0, set()).add(mesh.process_of(pos))
+    procs = mesh.process_count
+    coords = sorted(c for c, who in owners.items() if rank in who)
+    shared = sorted(c for c, who in owners.items() if len(who) > 1)
+    if procs > 1 and (shared or len(coords) * procs != dp):
+        raise ValueError(
+            f"mesh layout puts {len(coords)} of {dp} dp coordinates on process {rank} of "
+            f"{procs}{f' and splits coordinates {shared} between processes' if shared else ''}: "
+            "the dp axis must partition rows by process — lay dp over processes "
+            "(slowest-varying mesh axis), tp/sp within hosts")
+    if coords != list(range(coords[0], coords[0] + len(coords))):
+        raise ValueError(
+            f"process {rank} owns non-contiguous dp coordinates {coords}: each process's dp "
+            "slice must be one contiguous run so local row order matches global row order "
+            "— build the mesh with an unpermuted device list")
+    return coords
 
 
 def param_spec(path: tuple[str, ...], leaf, tp_axis: str = "tp"):
@@ -124,6 +217,42 @@ def param_spec(path: tuple[str, ...], leaf, tp_axis: str = "tp"):
     if leaf_kind == "bias" and name in ("query", "key", "value", "mlp_in"):
         return P(tp_axis)
     return P()
+
+
+def batch_sharding(mesh: Mesh, axis: str = "dp"):
+    """Shard the leading (batch) dim over ``axis``, replicate the rest."""
+    from dmlc_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec as P
+
+    return NamedSharding(mesh, P(axis))
+
+
+def replicated(mesh: Mesh):
+    from dmlc_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec as P
+
+    return NamedSharding(mesh, P())
+
+
+def param_shardings(mesh: Mesh, variables, tp_axis: str = "tp"):
+    """Tree of ``NamedSharding``s for a JAX variables tree (nested mappings
+    of arrays, or of anything with ``.shape``) under ``mesh``, by
+    ``param_spec``. If the mesh has no tp axis, everything replicates (pure
+    dp)."""
+    from dmlc_tpu_torch.parallel.sharding import NamedSharding, PartitionSpec as P, map_tree
+
+    has_tp = tp_axis in mesh.axis_names
+    return map_tree(lambda path, leaf: NamedSharding(
+        mesh, param_spec(tuple(path.split("/")), leaf, tp_axis) if has_tp else P()), variables)
+
+
+def shard_params(mesh: Mesh, variables, tp_axis: str = "tp"):
+    """Place a host variables tree onto the mesh by ``param_shardings``: a
+    tree of ``sharding.ShardedLeaf``, each position holding its own shard
+    on its own device (positions of other processes hold None). A split dim
+    that the axis does not divide raises ``ValueError``."""
+    from dmlc_tpu_torch.parallel.sharding import map_tree, shard_leaf, tree_paths
+
+    shardings = dict(tree_paths(param_shardings(mesh, variables, tp_axis)))
+    return map_tree(lambda path, leaf: shard_leaf(leaf, shardings[path]), variables)
 
 
 def split_to_positions(x: torch.Tensor, mesh: Mesh, dims: Mapping[str, int]) -> np.ndarray:

@@ -33,7 +33,7 @@ from dmlc_tpu_torch.parallel.mesh import Mesh, join_positions, split_to_position
 from dmlc_tpu_torch.parallel.sharding import (
     NamedSharding,
     PartitionSpec as P,
-    _map_tree,
+    map_tree,
     clamp_spec,
     shard_leaf,
     tree_paths,
@@ -196,7 +196,7 @@ def moe_param_shardings(mesh: Mesh, variables: Mapping) -> Mapping:
         return NamedSharding(mesh, clamp_spec(moe_param_spec(path, leaf), mesh,
                                               tuple(leaf.shape)))
 
-    return _map_tree(one, variables)
+    return map_tree(one, variables)
 
 
 def shard_moe_params(mesh: Mesh, variables: Mapping) -> Mapping:
@@ -204,5 +204,5 @@ def shard_moe_params(mesh: Mesh, variables: Mapping) -> Mapping:
     positions hold their own slice (an ``ep`` position its experts' slice
     of ``w_in``/``w_out``) on their own device."""
     shardings = dict(tree_paths(moe_param_shardings(mesh, variables)))
-    return _map_tree(lambda name, leaf: shard_leaf(leaf, shardings[name]), variables)
+    return map_tree(lambda name, leaf: shard_leaf(leaf, shardings[name]), variables)
 

@@ -86,11 +86,11 @@ def tree_paths(tree: Tree, prefix: str = "") -> list[tuple[str, Any]]:
             for item in tree_paths(tree[key], f"{prefix}/{key}" if prefix else str(key))]
 
 
-def _map_tree(fn: Callable[[str, Any], Any], tree: Tree, prefix: str = "") -> Tree:
+def map_tree(fn: Callable[[str, Any], Any], tree: Tree, prefix: str = "") -> Tree:
     """The tree with every leaf replaced by ``fn(joined path, leaf)``."""
     if not isinstance(tree, Mapping):
         return fn(prefix, tree)
-    return {key: _map_tree(fn, sub, f"{prefix}/{key}" if prefix else str(key))
+    return {key: map_tree(fn, sub, f"{prefix}/{key}" if prefix else str(key))
             for key, sub in tree.items()}
 
 
@@ -121,7 +121,7 @@ def match_partition_rules(
             raise ValueError(f"no partition rule matches param {name!r}")
         return PartitionSpec()
 
-    return _map_tree(one, tree)
+    return map_tree(one, tree)
 
 
 @dataclass(frozen=True)
@@ -180,7 +180,7 @@ def shardings_for_tree(
     """Rule table + abstract/real param tree -> tree of NamedShardings,
     clamped to this mesh."""
     specs = dict(tree_paths(match_partition_rules(rules, tree, strict=strict)))
-    return _map_tree(
+    return map_tree(
         lambda name, leaf: NamedSharding(mesh, clamp_spec(specs[name], mesh, _shape(leaf))), tree
     )
 
@@ -229,22 +229,36 @@ def _as_tensor(leaf: Any) -> torch.Tensor:
 
 
 def shard_leaf(leaf: Any, sharding: NamedSharding) -> ShardedLeaf:
-    """Place one leaf: each mesh position gets its own copy of its slice,
-    on its own device (positions that name one device hold one copy each)."""
-    devices = sharding.mesh.devices
+    """Place one leaf: each of this process's mesh positions gets its own
+    copy of its slice, on its own device (positions that name one device
+    hold one copy each; positions of other processes hold None). A split
+    dim that its axes do not divide raises ``ValueError``."""
+    mesh = sharding.mesh
     t = _as_tensor(leaf)
-    grid = np.empty(devices.shape, dtype=object)
-    for pos in np.ndindex(*devices.shape):
+    for dim, (_, f) in enumerate(_shard_index(sharding.spec, mesh, (0,) * mesh.devices.ndim)):
+        if t.shape[dim] % f:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not split evenly {f} ways "
+                             f"under {sharding.spec}")
+    grid = np.empty(mesh.devices.shape, dtype=object)
+    for pos in mesh.local_positions():
         grid[pos] = t[_slices(sharding, pos, tuple(t.shape))].to(
-            devices[pos], copy=True, memory_format=torch.contiguous_format)
+            mesh.devices[pos], copy=True, memory_format=torch.contiguous_format)
     return ShardedLeaf(grid, sharding, tuple(t.shape))
 
 
 def gather_leaf(leaf: ShardedLeaf) -> np.ndarray:
-    """A placed leaf back to one host array."""
-    out = torch.empty(leaf.shape, dtype=leaf.shards.flat[0].dtype)
-    for pos in np.ndindex(*leaf.shards.shape):
-        out[_slices(leaf.sharding, pos, leaf.shape)] = leaf.shards[pos].cpu()
+    """A placed leaf back to one host array, from the shards this process
+    holds (``ValueError`` if a part of the leaf lies only in another
+    process)."""
+    held = [pos for pos in np.ndindex(*leaf.shards.shape) if leaf.shards[pos] is not None]
+    out = torch.empty(leaf.shape, dtype=leaf.shards[held[0]].dtype)
+    seen = torch.zeros(leaf.shape, dtype=torch.bool)
+    for pos in held:
+        where = _slices(leaf.sharding, pos, leaf.shape)
+        out[where] = leaf.shards[pos].cpu()
+        seen[where] = True
+    if not bool(seen.all()):
+        raise ValueError("part of the leaf lies only in another process's positions")
     return out.numpy()
 
 
@@ -257,10 +271,10 @@ def make_shard_and_gather_fns(
     by_path = dict(tree_paths(shardings))
 
     def shard_fn(tree: Tree) -> Tree:
-        return _map_tree(lambda name, leaf: shard_leaf(leaf, by_path[name]), tree)
+        return map_tree(lambda name, leaf: shard_leaf(leaf, by_path[name]), tree)
 
     def gather_fn(tree: Tree) -> Tree:
-        return _map_tree(lambda name, leaf: gather_leaf(leaf), tree)
+        return map_tree(lambda name, leaf: gather_leaf(leaf), tree)
 
     return shard_fn, gather_fn
 
@@ -370,10 +384,20 @@ def torch_partition_specs(model_name: str) -> dict[str, PartitionSpec]:
                                                       abstract_params(model_name))))
     with torch.device("meta"):
         module = spec.module(dtype=torch.float32)
+    return carry_specs(spec.to_jax, module.state_dict(), jax_specs)
+
+
+def carry_specs(to_jax: Callable[[Mapping], Tree], tensors: Mapping[str, torch.Tensor],
+                jax_specs: Mapping[str, PartitionSpec]) -> dict[str, PartitionSpec]:
+    """Each torch tensor's spec, in torch's dim order, from the spec of the
+    JAX leaf it becomes (``jax_specs``: '/'-joined path -> spec). The leaf,
+    and the order of its dims, come from ``to_jax`` (a model's converter to
+    the JAX tree) applied to a ``meta`` probe of distinct dim sizes. A
+    tensor with no JAX leaf (``num_batches_tracked``) replicates."""
     out: dict[str, PartitionSpec] = {}
-    for key, t in module.state_dict().items():
+    for key, t in tensors.items():
         probe = torch.empty(_PROBE_DIMS[: t.dim()], device="meta")
-        leaves = tree_paths(spec.to_jax({key: probe}))
+        leaves = tree_paths(to_jax({key: probe}))
         if not leaves:
             out[key] = PartitionSpec()
             continue
@@ -411,22 +435,32 @@ class ShardedLinear(nn.Module):
         self.biases = biases
         self.bias = bias
         self.compute_dtype = compute_dtype
-        self.in_step = weights[0].shape[1]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        dt, home = self.compute_dtype, x.device
-        x = x.to(dt)
-        if self.mode == "out":
-            parts = []
-            for j, w in enumerate(self.weights):
-                b = None if self.biases is None else self.biases[j].to(dt)
-                parts.append(F.linear(x.to(w.device), w.to(dt), b).to(home))
-            return torch.cat(parts, dim=-1)
-        total = None
-        for xj, w in zip(x.split(self.in_step, dim=-1), self.weights):
-            part = F.linear(xj.to(w.device), w.to(dt)).to(home)
-            total = part if total is None else total + part
-        return total if self.bias is None else total + self.bias.to(dt)
+        return sharded_linear(x, self.mode, self.weights, self.biases, self.bias,
+                              self.compute_dtype)
+
+
+def sharded_linear(x: torch.Tensor, mode: str, weights: Sequence[torch.Tensor],
+                   biases: Sequence[torch.Tensor] | None, bias: torch.Tensor | None,
+                   dt: torch.dtype) -> torch.Tensor:
+    """``ShardedLinear``'s product: ``mode="out"`` concatenates each shard's
+    columns (with its bias slice ``biases[j]``) on the input's device,
+    ``mode="in"`` sums the shards' partial products in shard order there
+    and adds the replicated ``bias`` once, after the sum."""
+    home = x.device
+    x = x.to(dt)
+    if mode == "out":
+        parts = []
+        for j, w in enumerate(weights):
+            b = None if biases is None else biases[j].to(w.device, dt)
+            parts.append(F.linear(x.to(w.device), w.to(dt), b).to(home))
+        return torch.cat(parts, dim=-1)
+    total = None
+    for xj, w in zip(x.split(weights[0].shape[1], dim=-1), weights):
+        part = F.linear(xj.to(w.device), w.to(dt)).to(home)
+        total = part if total is None else total + part
+    return total if bias is None else total + bias.to(dt)
 
 
 #: ImageNet statistics in [0, 1] units (``dmlc_tpu/parallel/sharding.py``'s).

@@ -1,11 +1,16 @@
 """Checkpointed training driver: the train step in a restartable loop.
 
-Counterpart of ``dmlc_tpu/parallel/trainer.py`` on one device. Every
-``checkpoint_every`` steps, and once at the end, the whole train state
-(parameters, BatchNorm statistics, AdamW moments, step) goes to the
-checkpointer (``utils/checkpoint.py``: a local directory or SDFS), and a
-``TrainingDriver`` started later restores it before its first step and
-continues where training stopped.
+Counterpart of ``dmlc_tpu/parallel/trainer.py``, on one device or over a
+``{dp, tp}`` mesh (``mesh=``, passed through to ``make_train_step``).
+Every ``checkpoint_every`` steps, and once at the end, the whole train
+state (parameters, BatchNorm statistics, AdamW moments, step) goes to the
+checkpointer (``utils/checkpoint.py``: a local directory or SDFS),
+gathered from its shards into whole leaves, as the JAX package saves host
+arrays; over several processes rank 0 saves it. A ``TrainingDriver``
+started later restores it into its one-device template before its first
+step, re-shards it onto its own mesh and continues where training
+stopped, so a checkpoint saved under one mesh restores under another or
+under none.
 
 ``data_fn(step) -> (images, labels)`` stands for the input pipeline.
 """
@@ -16,6 +21,7 @@ import logging
 from typing import Callable
 
 from dmlc_tpu_torch.parallel import train as train_lib
+from dmlc_tpu_torch.parallel.mesh import Mesh, process_index_count
 from dmlc_tpu_torch.utils.checkpoint import CheckpointNotFound
 
 log = logging.getLogger(__name__)
@@ -36,9 +42,13 @@ class TrainingDriver:
         checkpoint_every: int = 100,
         remat: bool = False,
         grad_accum: int = 1,
+        *,
+        mesh: Mesh | None = None,
     ):
+        self.mesh = mesh
         self.data_fn = data_fn
         self.checkpointer = checkpointer
+        self.saves = process_index_count()[0] == 0
         self.checkpoint_every = int(checkpoint_every)
         self.history: list[dict] = []
         self.start_step = 0
@@ -49,7 +59,7 @@ class TrainingDriver:
             except CheckpointNotFound as e:
                 log.info("no checkpoint to restore (%s); starting fresh", e)
         self.state, self.step_fn = train_lib.make_train_step(
-            state, remat=remat, grad_accum=grad_accum
+            state, remat=remat, grad_accum=grad_accum, mesh=mesh
         )
 
     def run(self, steps: int) -> dict:
@@ -64,9 +74,13 @@ class TrainingDriver:
             step += 1
             last = {k: float(v) for k, v in metrics.items()}
             self.history.append({"step": step, **last})
-            if self.checkpointer is not None and step % self.checkpoint_every == 0:
-                self.checkpointer.save(self.state, step)
-        if self.checkpointer is not None and step % self.checkpoint_every != 0:
-            self.checkpointer.save(self.state, step)
+            if step % self.checkpoint_every == 0:
+                self._save(step)
+        if step % self.checkpoint_every != 0:
+            self._save(step)
         self.start_step = step
         return last
+
+    def _save(self, step: int) -> None:
+        if self.checkpointer is not None and self.saves:
+            self.checkpointer.save(self.state, step)

@@ -3,9 +3,12 @@
 Counterpart of ``dmlc_tpu/utils/checkpoint.py``. The payload is the
 ``torch.save`` bytes of ``{"step", "model", "optimizer"}`` (the model's and
 the optimizer's state dicts: parameters, BatchNorm statistics, AdamW
-moments); flax cannot read it, nor this package flax's. Restoring loads the
+moments); flax cannot read it, nor this package flax's. A state placed on a
+mesh is gathered into whole leaves first (``train.state_dicts``), so the
+payload is the one-device state's whatever the mesh. Restoring loads the
 bytes into the given state's model and optimizer in place, onto the
-state's device.
+state's device, re-sharding them where that state is placed on a mesh
+(``train.load_state_dicts``).
 
 - local: ``save_local`` writes ``checkpoint_<step>.pt`` through a temporary
   file and an atomic rename, so a crash never leaves a torn checkpoint;
@@ -26,7 +29,7 @@ from pathlib import Path
 import torch
 
 from dmlc_tpu_torch.cluster.rpc import RpcError
-from dmlc_tpu_torch.parallel.train import TrainState
+from dmlc_tpu_torch.parallel.train import TrainState, load_state_dicts, state_dicts
 
 log = logging.getLogger(__name__)
 
@@ -36,17 +39,16 @@ class CheckpointNotFound(LookupError):
 
 
 def state_to_bytes(state: TrainState) -> bytes:
+    model, optimizer = state_dicts(state)
     buf = io.BytesIO()
-    torch.save({"step": int(state.step), "model": state.model.state_dict(),
-                "optimizer": state.optimizer.state_dict()}, buf)
+    torch.save({"step": int(state.step), "model": model, "optimizer": optimizer}, buf)
     return buf.getvalue()
 
 
 def state_from_bytes(template: TrainState, data: bytes) -> TrainState:
     """Load ``data`` into ``template``'s model and optimizer; returns it."""
     payload = torch.load(io.BytesIO(data), map_location=template.device, weights_only=True)
-    template.model.load_state_dict(payload["model"])
-    template.optimizer.load_state_dict(payload["optimizer"])
+    load_state_dicts(template, payload["model"], payload["optimizer"])
     template.step = int(payload["step"])
     return template
 

@@ -54,7 +54,7 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "cluster.profile", "cluster.critpath", "cluster.sentinel", "cluster.observe",
                  "cluster.scrapetree", "cluster.devicemon", "models.vit", "models.clip",
                  "parallel.ulysses", "parallel.sp_transformer", "parallel.pipeline",
-                 "parallel.moe"):
+                 "parallel.moe", "parallel.multihost", "parallel.mesh"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
@@ -80,6 +80,9 @@ def test_no_source_names_a_forbidden_import():
     """Imports inside functions count too (the subprocess check above only
     sees what module import runs)."""
     files = sorted((REPO / "dmlc_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    # multihost.py is JAX-free in the JAX package too; the port keeps its
+    # own copy, which must not import that one.
+    assert REPO / "dmlc_tpu_torch" / "parallel" / "multihost.py" in files
     for path in files:
         bad = sorted(n for n in _imported_roots(path) if _forbidden(n))
         assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
@@ -190,10 +193,35 @@ def test_node_builds_engine_backends_for_vit_and_clip(tmp_path):
     ("mesh_processes", 2, "parallel/multihost.py"),
 ])
 def test_node_refuses_switches_of_unported_modules(tmp_path, switch, value, module):
+    """``serve_from_executable`` waits for its module and is refused;
+    ``mesh_processes`` > 1 now builds the leader's ``MeshBootstrap`` from
+    ``parallel/multihost.py`` (not leading until promoted) and serves its
+    verbs on the leader server."""
     from dmlc_tpu_torch.cluster.node import ClusterNode
 
-    with pytest.raises(NotImplementedError, match=module):
-        ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+    if switch == "serve_from_executable":
+        with pytest.raises(NotImplementedError, match=module):
+            ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+        return
+    from dmlc_tpu_torch.cluster.rpc import RpcError, TcpRpc
+    from dmlc_tpu_torch.parallel.multihost import MeshBootstrap
+
+    node = ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+    try:
+        boot = node.mesh_bootstrap
+        assert isinstance(boot, MeshBootstrap) and type(boot).__module__.endswith(
+            module.replace("/", ".").removesuffix(".py"))
+        assert boot.num_processes == 2 and not boot.is_leading
+        assert node.standby.mesh_bootstrap is boot and node._mesh_group() is None
+        rpc, leader = TcpRpc(), node.leader_server.address
+        with pytest.raises(RpcError, match="not the active leader"):
+            rpc.call(leader, "mesh.register", {"addr": "hostA:1"}, timeout=10)
+        boot.is_leading = True  # StandbyLeader's promotion does this
+        info = rpc.call(leader, "mesh.register", {"addr": "hostA:1"}, timeout=10)
+        assert info["process_id"] == 0 and not info["ready"]
+        assert rpc.call(leader, "mesh.state", {}, timeout=10) == {"ranks": {"hostA:1": 0}}
+    finally:
+        node.stop()
 
 
 def test_node_builds_lm_backends_for_lm_job_models(tmp_path):

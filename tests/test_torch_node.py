@@ -182,12 +182,13 @@ def test_full_stack_through_cli(cluster3, tmp_path):
     for n in nodes:
         assert n.self_member_addr in table
     # The closed loop's verbs answer as the JAX package's do on a fleet
-    # that serves no generation and declares no objectives; the verbs that
-    # wait for an unported module name it.
+    # that serves no generation and declares no objectives, and mesh-join
+    # as on a fleet that configures no mesh: the leader has no
+    # mesh.register, a permanent refusal that fails the join at once.
     assert "unknown method 'job.generate'" in cli.run_command("generate lm_small 1 2")
     assert "no generation sessions" in cli.run_command("sessions")
     assert "no SLO objectives configured" in cli.run_command("slo")
-    assert "parallel/multihost.py" in cli.run_command("mesh-join")
+    assert "unknown method 'mesh.register'" in cli.run_command("mesh-join")
     assert "mesh-join" in cli.run_command("help")
 
 
