@@ -10,7 +10,8 @@ non-zero:
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc and,
    beside them, the native JPEG decoder (dmlc_tpu_torch/native) with g++
    where the machine has libjpeg (a failed build then fails the run;
-   without libjpeg a line says why the decoder is unavailable); for
+   without libjpeg a line says why the decoder is unavailable) and the
+   native AOTInductor host (native/aoti_host.cpp, g++ against torch); for
    each flash kernel instantiation (head dim 64, 128, 192 and 256, the
    forward's also 320, 384, 448 and 512, bf16 and float32), its registers,
    shared memory and spills (ptxas), and for the bf16 Hopper ones their
@@ -166,7 +167,25 @@ non-zero:
    differ only under the gap rule), each rank launching normalize_u8 and
    softmax_top1. A child that fails, or gives no line in time, fails the
    phase; the children are killed on the way out.
-9. the card's name and power limit as nvidia-smi prints them, the kernels
+9. export — a one-node port fleet with serve_from_executable on: its CLI's
+   `export` verb publishes resnet18's torch.export program (full width,
+   bf16, batch EXPORT_BATCH) to the node's SDFS beside seeded weights,
+   and a shard of EXPORT_SHARD corpus images goes through job.predict to
+   the node's ExportedBackend over TcpRpc: its top-1 against an
+   EngineBackend's on the same images (every image whose plain top-2 gap
+   is above EXPORT_GAP must agree; the rest are counted), no kernel
+   launched (the program is plain torch); weights forcing class
+   EXPORT_FORCED published and hot-loaded by model.load move every
+   prediction there; then the native host (native/aoti_host.cpp, built in
+   phase build) runs an AOTInductor bundle of the same program and
+   weights over the fixture photos (decoded by the port's load_batch):
+   `aoti_host run --iters EXPORT_ITERS`, its top-1 equal to the Python
+   ExportedServer's on the same bundle wherever the plain top-2 gap is
+   above EXPORT_GAP (the rest counted), its probabilities within
+   EXPORT_PROB_TOL (both bf16 programs also against float32). Printed beside the card's name and power limit: the
+   export and AOTInductor compile seconds, the program bytes, the host's
+   build seconds and images/s, and both backends' shard times.
+10. the card's name and power limit as nvidia-smi prints them, the kernels
    line, and the final {"ok": true, ...} line.
 
 It needs one CUDA device and exits non-zero, printing no result, without
@@ -643,10 +662,14 @@ def phase_build() -> dict:
     from dmlc_tpu_torch.ops import _build
     from dmlc_tpu_torch.ops import flash as FL
 
-    with ThreadPoolExecutor(1) as pool:
+    from dmlc_tpu_torch.ops import _build_host
+
+    with ThreadPoolExecutor(2) as pool:
         native = pool.submit(build_native)
+        host = pool.submit(_build_host.build)
         seconds = _build.build()
         native = native.result()
+        host = {k: v for k, v in host.result().items() if k != "command"}
     regs = {
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
         for name, log in _build.build_log.items()
@@ -728,7 +751,7 @@ def phase_build() -> dict:
     if spilled:
         raise AssertionError(f"softmax_top1 spills: {spilled}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "native_decode": native, "ptxas": regs, "flash": flash, "paged_decode": paged,
+          "native_decode": native, "aoti_host": host, "ptxas": regs, "flash": flash, "paged_decode": paged,
           "gather_pages": gather, "softmax_top1": softmax})
     return native
 
@@ -4848,6 +4871,181 @@ def phase_mesh(dev: dict) -> dict:
     return report
 
 
+#: Phase export: resnet18's exported program at the reference's serving
+#: dtype (bf16), EXPORT_BATCH images a run; a job.predict shard of
+#: EXPORT_SHARD corpus images (its own seeded 256-px corpus).
+EXPORT_BATCH, EXPORT_SHARD = 8, 64
+EXPORT_CORPUS = {"n_classes": EXPORT_SHARD, "images_per_class": 1, "size": 256, "seed": 11}
+EXPORT_SEED = 5
+#: The exported program normalizes in float32 and casts to bf16 inside the
+#: model, the engine's normalize_u8 writes bf16 itself; both then run the
+#: same bf16 modules. An image whose plain top-2 probability gap is above
+#: EXPORT_GAP must get the engine's top-1; the others are counted.
+EXPORT_GAP = 0.02
+#: The class the hot-swapped weights force (head weights zero, this bias 9).
+EXPORT_FORCED = 7
+#: The native host's timed runs, and its probabilities against the Python
+#: ExportedServer's on the same bundle. AOTInductor fuses each convolution's
+#: BatchNorm and ReLU and keeps their intermediates in float32 where the
+#: eager program rounds every op's output to bf16 (8 bits of mantissa), so
+#: the top probability moves by some hundredths (0.050 on the card at
+#: first), and a photo whose plain top-2 gap is under EXPORT_GAP may flip
+#: (counted).
+EXPORT_ITERS, EXPORT_PROB_TOL = 200, 0.1
+
+
+def export_host_run(host: Path, bundle: Path) -> tuple[dict, dict]:
+    """``aoti_host run <bundle> --iters EXPORT_ITERS``: its outputs line and
+    its rate line. A non-zero exit fails the phase."""
+    done = subprocess.run([str(host), "run", str(bundle), "--iters", str(EXPORT_ITERS)],
+                          capture_output=True, text=True, timeout=600)
+    if done.returncode:
+        raise AssertionError(f"aoti_host run exit {done.returncode}: {done.stderr[-3000:]}")
+    first, rate = (json.loads(ln) for ln in done.stdout.splitlines()[:2])
+    return first, rate
+
+
+def phase_export(dev: dict, root: Path) -> dict:
+    """A port member serving job.predict from the SDFS-published
+    torch.export program, and the native host serving its AOTInductor
+    bundle (module docstring, phase 9)."""
+    from dmlc_tpu_torch.cli import Cli
+    from dmlc_tpu_torch.cluster.localcluster import start_local_cluster, stop_local_cluster
+    from dmlc_tpu_torch.cluster.rpc import TcpRpc
+    from dmlc_tpu_torch.models import export as export_lib
+    from dmlc_tpu_torch.models import weights as W
+    from dmlc_tpu_torch.models.aoti_bundle import export_bundle
+    from dmlc_tpu_torch.models.registry import get_model
+    from dmlc_tpu_torch.ops import _build_host
+    from dmlc_tpu_torch.ops import kernels as K
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.parallel.inference import InferenceEngine
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend, ExportedBackend
+    from dmlc_tpu_torch.utils import corpus
+
+    t_phase = time.perf_counter()
+    spec = get_model("resnet18")
+    data_dir, _ = corpus.generate(root / "corpus", **EXPORT_CORPUS)
+    synsets = [f"n{k:08d}" for k in range(EXPORT_SHARD)]
+    u8 = pp.load_batch([pp.class_image_path(data_dir, s) for s in synsets], size=SIZE)
+    seeded = spec.init_params(EXPORT_SEED, dtype=torch.float32).state_dict()
+    engine = EngineBackend("resnet18", data_dir, batch_size=EXPORT_BATCH, device="cuda",
+                           variables=seeded)
+    _, gaps = plain_top1(engine._ensure_engine(), u8)
+    forced = dict(seeded)
+    forced["fc.weight"] = torch.zeros_like(seeded["fc.weight"])
+    forced["fc.bias"] = torch.zeros_like(seeded["fc.bias"])
+    forced["fc.bias"][EXPORT_FORCED] = 9.0
+
+    exported = ExportedBackend("resnet18", data_dir, sdfs=None, device="cuda")
+    nodes = []
+    try:
+        nodes = start_local_cluster(
+            root / "fleet", n_nodes=1, n_leader_candidates=1, device="cuda",
+            backends=lambda i: {"resnet18": exported}, data_dir=str(data_dir),
+            batch_size=EXPORT_BATCH, job_models=["resnet18"], serve_from_executable=True)
+        node = nodes[0]
+        if exported.sdfs is not node.sdfs:
+            raise AssertionError("the node did not wire its SDFS client into ExportedBackend")
+        t = time.perf_counter()
+        said = Cli(node).run_command("export resnet18")
+        export_s = time.perf_counter() - t
+        if not said.startswith("exported resnet18 -> executables/resnet18.pt2"):
+            raise AssertionError(f"export verb: {said}")
+        _, blob = node.sdfs.get_bytes(export_lib.sdfs_executable_name("resnet18"))
+        W.publish_weights(node.sdfs, "resnet18", spec.to_jax(seeded))
+        rpc, addr = TcpRpc(), node.self_member_addr
+
+        def predict(names) -> list[int]:
+            return rpc.call(addr, "job.predict", {"model": "resnet18", "synsets": names},
+                            timeout=300)["predictions"]
+
+        t = time.perf_counter()
+        predict(synsets[:1])  # first shard: fetches program and weights
+        first_shard_s = time.perf_counter() - t
+        K.reset_launch_counts()
+        t = time.perf_counter()
+        got = np.asarray(predict(synsets))
+        tcp_shard_s = time.perf_counter() - t
+        launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+        if any(launches.values()):
+            raise AssertionError(f"the exported program launched package kernels: {launches}")
+        want = np.asarray(engine(synsets))
+        sure = gaps > EXPORT_GAP
+        agree = got == want
+        if not agree[sure].all():
+            raise AssertionError(f"ExportedBackend disagrees with EngineBackend on "
+                                 f"{int((~agree[sure]).sum())} images above the gap "
+                                 f"{EXPORT_GAP}: {got[sure & ~agree]} vs {want[sure & ~agree]}")
+        shard_ms, readings = alternate_ms({"exported": lambda: exported(synsets),
+                                           "engine": lambda: engine(synsets)}, rounds=3)
+
+        version = W.publish_weights(node.sdfs, "resnet18", spec.to_jax(forced))
+        rpc.call(addr, "model.load", {"model": "resnet18", "version": version}, timeout=300)
+        swapped = predict(synsets)
+        if set(swapped) != {EXPORT_FORCED}:
+            raise AssertionError(f"after model.load the shard answers {sorted(set(swapped))}, "
+                                 f"not only {EXPORT_FORCED}")
+    finally:
+        stop_local_cluster(nodes)
+
+    photos = sorted(str(p) for p in (Path(__file__).resolve().parent / "tests" / "fixtures"
+                                      / "photos").glob("*.jpg"))
+    host = _build_host.ensure_host()
+    host_build = dict(_build_host.last_build)
+    host_build.pop("command", None)
+    bundle = root / "bundle"
+    info = export_bundle("resnet18", EXPORT_BATCH, bundle, image_paths=photos,
+                         variables=spec.to_jax(seeded), device="cuda")
+    first, rate = export_host_run(host, bundle)
+    pixels = np.fromfile(bundle / "image.raw", np.uint8).reshape(EXPORT_BATCH, SIZE, SIZE, 3)
+    _, program = export_lib.load_serving(blob, expect_model="resnet18", device="cuda")
+    py_idx, py_prob = export_lib.ExportedServer(program, seeded)(pixels)
+    host_idx, host_prob = (np.asarray(o["values"]) for o in first["outputs"])
+    _, photo_gaps = plain_top1(engine.engine, pixels)
+    host_sure = photo_gaps > EXPORT_GAP
+    prob_err = float(np.abs(host_prob - py_prob).max())
+    # Both against the same weights in float32 (plain normalization): which
+    # of the two bf16 programs the probability gap comes from.
+    f32 = InferenceEngine("resnet18", device="cuda", batch_size=EXPORT_BATCH,
+                          dtype=torch.float32, variables=seeded)
+    with torch.inference_mode():
+        x = K.normalize_u8_reference(torch.from_numpy(pixels).to("cuda"), f32._mean, f32._std,
+                                     torch.float32)
+        f32_prob = torch.softmax(f32.model(x), -1).amax(-1).cpu().numpy()
+    del f32
+    report = {
+        "phase": "export", "nvidia_smi": dev["nvidia_smi"], "model": "resnet18",
+        "batch": EXPORT_BATCH, "dtype": "bfloat16", "shard": EXPORT_SHARD,
+        "export_s": export_s, "program_bytes": len(blob), "first_shard_s": first_shard_s,
+        "tcp_shard_s": tcp_shard_s, "launches": launches,
+        "agree": int(agree.sum()), "above_gap": int(sure.sum()),
+        "agree_above_gap": int(agree[sure].sum()), "below_gap_disagree": int((~agree).sum()),
+        "gap": EXPORT_GAP, "shard_ms": shard_ms, "shard_readings_ms": readings,
+        "hot_swap": {"version": version, "forced": EXPORT_FORCED, "answers": len(swapped)},
+        "bundle": {k: info[k] for k in ("device", "inputs", "weight_args", "program_bytes",
+                                        "export_s", "compile_s")},
+        "host_build": host_build, "host_images_per_s": rate["images_per_s"],
+        "host_ms_per_exec": rate["ms_per_exec"], "host_iters": rate["iters"],
+        "host_top1": host_idx.tolist(), "python_top1": py_idx.tolist(),
+        "host_prob": host_prob.tolist(), "python_prob": py_prob.tolist(),
+        "photo_gaps": photo_gaps.tolist(), "host_above_gap": int(host_sure.sum()),
+        "float32_prob": f32_prob.tolist(),
+        "host_vs_float32": float(np.abs(host_prob - f32_prob).max()),
+        "python_vs_float32": float(np.abs(py_prob - f32_prob).max()),
+        "host_below_gap_disagree": int((host_idx != py_idx).sum()),
+        "host_prob_max_abs_err": prob_err,
+        "prob_tol": EXPORT_PROB_TOL, "wall_s": time.perf_counter() - t_phase,
+    }
+    emit(report)
+    if (host_idx != py_idx)[host_sure].any():
+        raise AssertionError(f"aoti_host top-1 {host_idx.tolist()} != ExportedServer's "
+                             f"{py_idx.tolist()} above the gap {EXPORT_GAP}")
+    if prob_err > EXPORT_PROB_TOL:
+        raise AssertionError(f"aoti_host probs differ from ExportedServer's by {prob_err}")
+    return report
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -4876,6 +5074,8 @@ def main() -> int:
     sp = phase_sp(dev)
     phase_trainer(dev)
     mesh = phase_mesh(dev)
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-export-") as td:
+        export = phase_export(dev, Path(td))
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]["float32"]
     gather = kern["gather_kv_pages"]["lm_wide"]
@@ -4890,6 +5090,7 @@ def main() -> int:
          "vision_launches": {model: n["normalize_u8"] for model, n in vision["launches"].items()},
          "mesh_launches": {rank: n["normalize_u8"]
                            for rank, n in mesh["processes"]["launches"].items()},
+         "export_launches": export["launches"]["normalize_u8"],
          "max_abs_err": norm["max_abs_err"], "max_err": norm["max_abs_err"],
          "ms": norm["ms"], "device_ms": norm["device_ms"], "host_us": norm["host_us"],
          "plain_ms": norm["plain_ms"], "bound_ms": norm["bound_ms"],
@@ -4908,6 +5109,7 @@ def main() -> int:
          "vision_launches": {model: n["softmax_top1"] for model, n in vision["launches"].items()},
          "mesh_launches": {rank: n["softmax_top1"]
                            for rank, n in mesh["processes"]["launches"].items()},
+         "export_launches": export["launches"]["softmax_top1"],
          "max_abs_err": soft["max_abs_err"], "max_err": soft["max_abs_err"],
          "ms": soft["ms"], "device_ms": soft["device_ms"], "host_us": soft["host_us"],
          "plain_ms": soft["plain_ms"], "bound_ms": soft["bound_ms"],

@@ -4,13 +4,17 @@ Ported from ``dmlc_tpu/cli.py``: the verbs whose node parts this package
 has answer as the JAX package's do — membership (list_mem/lm, list_self,
 join/j, leave/l), SDFS (put/p, get/g, get-versions/gv, delete/d, ls,
 store/s, scrub), ML (train/t, predict, jobs, assign), generation
-(generate, sessions, drain, undrain), mesh-join, status, metrics (show,
-prom, fleet), flight, trace (on/off, summary, export, fleet), profile, slo,
-critpath, tenants, device, help and exit. ``jobs`` prints accuracy
-and latency percentiles (mean/std/median/p90/p95/p99) like the reference's
-histogram report (main.rs:282-309). Every other verb of the JAX package's
-CLI answers with an error that names the module it waits for
-(``WAITING``). Logs go to ``{HOSTNAME}.log`` (main.rs:27-28).
+(generate, sessions, drain, undrain), mesh-join, export, export-bundle,
+status, metrics (show, prom, fleet), flight, trace (on/off, summary, export,
+fleet), profile, slo, critpath, tenants, device, help and exit. ``jobs``
+prints accuracy and latency percentiles (mean/std/median/p90/p95/p99) like
+the reference's histogram report (main.rs:282-309). ``export`` publishes
+the ``torch.export`` serving program (``models/export.py``) and
+``export-bundle`` writes the native host's AOTInductor bundle
+(``models/aoti_bundle.py``). A verb of the JAX package's CLI whose node
+part this package lacks would answer with an error that names the module
+it waits for (``WAITING``, empty now). Logs go to ``{HOSTNAME}.log``
+(main.rs:27-28).
 
 Run: ``python -m dmlc_tpu_torch.cli --config cluster.json [--device cuda]``
 (or with no config for a single-node local cluster). The node's engines run
@@ -28,11 +32,8 @@ from dmlc_tpu_torch.cluster.rpc import RpcError
 from dmlc_tpu_torch.utils.config import ClusterConfig
 
 #: Verbs of the JAX package's CLI whose node parts this package has not
-#: ported yet, with the module each one waits for.
-WAITING = {
-    "export": "dmlc_tpu/models/export.py",
-    "export-bundle": "dmlc_tpu/models/pjrt_bundle.py",
-}
+#: ported yet, with the module each one waits for: none.
+WAITING: dict[str, str] = {}
 
 
 def format_table(headers: list[str], rows: list[list]) -> str:
@@ -134,6 +135,8 @@ Commands (reference: README.md:10-23):
   undrain <member>                      reopen a drained member for admission
   jobs                                  job status, accuracy, latency percentiles
   mesh-join                             join the fleet-wide torch.distributed mesh
+  export <model>                        publish the model's torch.export program
+  export-bundle <model> <dir>           write the native AOTInductor host bundle
   assign                                per-job member assignment table
   status                                overload-control counters: sheds,
                                         deadline trips, queue high-water,
@@ -178,8 +181,8 @@ Commands (reference: README.md:10-23):
                                         steady-state rebuilds, per-model MFU
   help                                  this text
   exit | quit                           leave and stop the node
-Not ported yet, each answering with the module it waits for:
-  """ + ", ".join(sorted(WAITING)) + "\n"
+""" + ("Not ported yet, each answering with the module it waits for:\n  "
+       + ", ".join(sorted(WAITING)) + "\n" if WAITING else "")
 
 
 class Cli:
@@ -351,6 +354,56 @@ class Cli:
             return (
                 f"joined global mesh: process {info['process_id']}"
                 f"/{info['num_processes']}, coordinator {info['coordinator']}"
+            )
+        if cmd == "export":
+            if len(args) != 1:
+                return "usage: export <model_name>"
+            from dmlc_tpu_torch.models import export as export_lib
+
+            v = export_lib.publish_executable(
+                n.sdfs, args[0], batch_size=n.config.batch_size,
+                device=getattr(n, "device", None),
+            )
+            return f"exported {args[0]} -> {export_lib.sdfs_executable_name(args[0])} v{v}"
+        if cmd == "export-bundle":
+            if len(args) != 2:
+                return "usage: export-bundle <model_name> <out_dir>"
+            from pathlib import Path
+
+            from dmlc_tpu_torch.models import weights as weights_lib
+            from dmlc_tpu_torch.models.aoti_bundle import export_bundle
+            from dmlc_tpu_torch.ops import _build_host
+
+            # Bundle the cluster's PUBLISHED weights when they exist (the
+            # same blob the Python serving path trains/hot-swaps from);
+            # random init only for clusters that never published any.
+            variables, source = None, "random-init (no published weights)"
+            blob = None
+            sdfs = getattr(n, "sdfs", None)  # standalone/tool contexts: no cluster
+            if sdfs is not None:
+                try:
+                    _, blob = sdfs.get_bytes(weights_lib.sdfs_weights_name(args[0]))
+                except RpcError as e:
+                    # Only NOT-FOUND means "never published"; a corrupt
+                    # blob, wrong-model magic, or transient replica failure
+                    # must surface, not silently bundle random weights
+                    # under a false label (same consent rule as
+                    # ExportedBackend).
+                    if not weights_lib.not_published(e):
+                        raise
+            if blob is not None:
+                _, variables = weights_lib.weights_from_bytes(blob, expect_model=args[0])
+                source = "published SDFS weights"
+            info = export_bundle(
+                args[0], n.config.batch_size, Path(args[1]), variables=variables,
+                device=getattr(n, "device", None),
+            )
+            host = _build_host.HOST_PATH
+            return (
+                f"bundle for {info['model']} (batch {info['batch']}, "
+                f"{info['weight_args']} weight files, {source}) -> {args[1]}; "
+                f"serve with: {host} serve {args[1]} --dir <jpegs> "
+                f"(or one-shot: aoti_host run {args[1]})"
             )
         if cmd == "jobs":
             out = []

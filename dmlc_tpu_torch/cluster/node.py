@@ -42,10 +42,11 @@ raises. A ``kind="lm"`` job model is served by an ``LmBackend`` (the
 partition-rule engine, solo or through ``job.predict_gang`` when the
 advisor plans a chip gang), as in the JAX package. ``join_global_mesh``
 joins the fleet's default ``torch.distributed`` group through the leader
-(``parallel/multihost.py``). Left out until this package ports them:
-``ExportedBackend`` and the compile cache. A config that turns
-``serve_from_executable`` on (``refuse_unported``) raises
-``NotImplementedError``.
+(``parallel/multihost.py``). With ``serve_from_executable`` on, an image
+job model is served by an ``ExportedBackend``: the ``torch.export`` program
+and the weights from the SDFS, no model class on the serving path
+(``models/export.py``). The JAX package's compile cache has no
+counterpart in an eager port.
 """
 
 from __future__ import annotations
@@ -81,6 +82,7 @@ from dmlc_tpu_torch.scheduler.placement import PlacementAdvisor, SloEvaluator, S
 from dmlc_tpu_torch.scheduler.worker import (
     DynamicBatcher,
     EngineBackend,
+    ExportedBackend,
     LmBackend,
     ModelLoader,
     PredictWorker,
@@ -138,19 +140,6 @@ def _model_kind(name: str) -> str:
         return "image"
 
 
-def refuse_unported(config: ClusterConfig) -> None:
-    """Raise ``NotImplementedError`` for a switch that is off by default and
-    turns on a module this package does not have yet, naming the module."""
-    wanted = (
-        (config.serve_from_executable, "serve_from_executable",
-         "ExportedBackend in dmlc_tpu/scheduler/worker.py"),
-    )
-    for on, switch, module in wanted:
-        if on:
-            raise NotImplementedError(f"{switch} needs {module}, which dmlc_tpu_torch has "
-                                      f"not ported yet")
-
-
 class ClusterNode:
     """One running node: membership + member services + optional leadership.
 
@@ -179,7 +168,6 @@ class ClusterNode:
     def _build(self, config: ClusterConfig, backends: dict | None, device) -> None:
         from dmlc_tpu_torch.cluster.auth import maybe_auth
 
-        refuse_unported(config)
         self.config = config
         self.device = device
         self.clock = Clock()
@@ -366,6 +354,15 @@ class ClusterNode:
                         device=device,
                         device_work=self.devicemon.device_work,
                     )
+                elif config.serve_from_executable:
+                    # sdfs is wired in below once the client exists (the
+                    # member server needs the backends first); the backend is
+                    # lazy, so nothing touches sdfs until warmup/first shard.
+                    # No batch size here: the serving batch is the published
+                    # artifact's, fixed at export time.
+                    backends[name] = ExportedBackend(
+                        name, config.data_dir, sdfs=None, device=device
+                    )
                 else:
                     backends[name] = EngineBackend(
                         name, config.data_dir, batch_size=config.batch_size, device=device,
@@ -495,6 +492,9 @@ class ClusterNode:
             transfer_timeout_s=config.transfer_deadline_s,
             retry_policy=self.retry_policy,
         )
+        for backend in self.worker.backends.values():
+            if isinstance(backend, ExportedBackend) and backend.sdfs is None:
+                backend.sdfs = self.sdfs
 
         # BASELINE "SDFS shard" config: members with no local corpus resolve
         # class images through the replicated store, cached on local disk.
@@ -990,7 +990,10 @@ class ClusterNode:
                 try:
                     backend.warmup()
                 except Exception:
-                    # Best-effort: the backend stays lazy and builds on the
+                    # Best-effort: an ExportedBackend on a FRESH cluster has
+                    # nothing to fetch yet (the artifact is published by the
+                    # running cluster's `export` verb) — it must not kill
+                    # bootstrap. The backend stays lazy and builds on the
                     # first shard instead.
                     log.exception("eager warmup failed; backend will build lazily")
         self._spawn(self._membership_loop)

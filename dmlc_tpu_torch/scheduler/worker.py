@@ -2,13 +2,13 @@
 ``job.predict_gang`` shards.
 
 Port of ``dmlc_tpu/scheduler/worker.py`` (``PredictWorker`` with its gang
-verbs, ``EngineBackend``, ``LmBackend``, ``gang_slice``,
-``_resolve_paths``). Given a model name and a list of synset ids, look up
-one fixture image per synset, preprocess, forward, return top-1 — one
-batched device execution per shard. A ``kind="lm"`` model's "synsets" are
-prompt ids, answered with the next token by ``LmBackend`` through the
-partition-rule engine (``parallel/sharding.py``), solo or as a rank of a
-gang.
+verbs, ``EngineBackend``, ``LmBackend``, ``ExportedBackend``,
+``gang_slice``, ``_resolve_paths``). Given a model name and a list of
+synset ids, look up one fixture image per synset, preprocess, forward,
+return top-1 — one batched device execution per shard. A ``kind="lm"``
+model's "synsets" are prompt ids, answered with the next token by
+``LmBackend`` through the partition-rule engine
+(``parallel/sharding.py``), solo or as a rank of a gang.
 
 The model backend is injectable: a node wires ``EngineBackend``
 (InferenceEngine on the card); tests may wire any callable
@@ -21,7 +21,8 @@ over TCP (frames compatible with the JAX package's) or
 into a live backend) are copies of the JAX package's over this package's
 modules. An ``EngineBackend`` with an ``image_source``
 (scheduler/dataset.SdfsImageSource) serves shards on a member with no local
-corpus. Not ported yet: ``ExportedBackend``.
+corpus. ``ExportedBackend`` serves shards from the SDFS-published
+``torch.export`` program and weights alone (``models/export.py``).
 """
 
 from __future__ import annotations
@@ -756,6 +757,118 @@ class LmBackend:
         prog = self._programs[max(self._programs)]
         return int(sharding_lib.sharded_bytes_per_chip(self.model_name, prog.mesh,
                                                        dtype=prog.dtype))
+
+
+class ExportedBackend:
+    """Serve shards from the SDFS-distributed ``torch.export`` program and
+    weights: NO model class on the serving path. Everything a member needs
+    to answer ``job.predict`` is two SDFS files, ``executables/<m>.pt2``
+    (``models/export.py``) and ``models/<m>``. Weights absent from SDFS
+    fall back to the registry's seeded init (EngineBackend's behavior
+    before `train`), and `train` hot-swaps them through ``load_variables``
+    like any backend. The program runs on ``device`` (the card unless the
+    caller asks for the CPU) and must have been exported there. An
+    embedding model answers zeros, as EngineBackend does.
+    """
+
+    def __init__(
+        self,
+        model_name: str,
+        data_dir: str | Path,
+        sdfs,
+        image_source=None,
+        device: str | torch.device | None = None,
+    ):
+        self.model_name = model_name
+        self.data_dir = Path(data_dir)
+        self.sdfs = sdfs
+        self.image_source = image_source
+        self.device = resolve_device(device)
+        self._server = None
+        self._lock = threading.Lock()
+        # Persistent decode-ahead worker for the shard pipeline below:
+        # created once here, never per shard.
+        self._decoder = concurrent.futures.ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="export-decode"
+        )
+
+    def warmup(self) -> None:
+        # One-time lazy init under the lock: shards arriving before the
+        # artifact is resident block instead of double-fetching.
+        with self._lock:
+            self._ensure_server()
+
+    def _ensure_server(self):
+        if self._server is None:
+            from dmlc_tpu_torch.cluster.rpc import RpcUnreachable
+            from dmlc_tpu_torch.models import export as export_lib
+            from dmlc_tpu_torch.models import weights as weights_lib
+            from dmlc_tpu_torch.models.registry import get_model
+
+            version, exported = export_lib.fetch_executable(
+                self.sdfs, self.model_name, device=self.device
+            )
+            try:
+                _, blob = self.sdfs.get_bytes(weights_lib.sdfs_weights_name(self.model_name))
+                # Validation errors (corrupt/mismatched blob) PROPAGATE:
+                # weights.py's contract is fail-at-load, never serve them.
+                _, variables = weights_lib.weights_from_bytes(blob, expect_model=self.model_name)
+                log.info("%s: artifact v%d + SDFS weights", self.model_name, version)
+            except RpcUnreachable:
+                raise  # transient (failover mid-fetch): retry the shard, not random-init
+            except RpcError as e:
+                if not weights_lib.not_published(e):
+                    raise  # any refusal other than not-published is not consent
+                variables = get_model(self.model_name).init_params(
+                    0, dtype=torch.float32).state_dict()
+                log.info("%s: artifact v%d, weights not published yet — random init",
+                         self.model_name, version)
+            # The artifact's input shape is FIXED at export: serving batch
+            # and input size come from IT, never from node config.
+            self._server = export_lib.ExportedServer(exported, variables)
+            self._serve_batch = exported.batch
+            self._input_size = exported.input_size
+        return self._server
+
+    @hot_path
+    def __call__(self, synsets: Sequence[str]) -> list[int]:
+        import numpy as np
+
+        from dmlc_tpu_torch.ops import preprocess as pp
+
+        if not synsets:
+            return []
+        # The backend lock serializes shards per artifact, and the first
+        # shard's lazy init blocks later shards on the one SDFS fetch.
+        with self._lock:
+            server = self._ensure_server()
+            chunk_size = self._serve_batch
+            paths = _resolve_paths(self.image_source, self.data_dir, synsets)
+            starts = list(range(0, len(paths), chunk_size))
+            preds: list[int] = []
+            # Decode chunk i+1 while the program executes chunk i, on the
+            # persistent self._decoder.
+            decode = lambda s: pp.load_batch(
+                paths[s : s + chunk_size], size=self._input_size
+            )
+            fut = self._decoder.submit(decode, starts[0])
+            for i, s in enumerate(starts):
+                batch = fut.result()
+                if i + 1 < len(starts):
+                    fut = self._decoder.submit(decode, starts[i + 1])
+                if server.classifier:
+                    idx, _ = server(batch)
+                else:
+                    server(batch)
+                    idx = np.zeros(batch.shape[0], np.int32)
+                preds.extend(int(x) for x in idx)
+            return preds
+
+    def load_variables(self, variables) -> None:
+        """The `train` verb's hot-swap: the same validated tree the engine
+        path takes, converted once onto the program's device."""
+        with self._lock:
+            self._ensure_server().load_variables(variables)
 
 
 class ModelLoader:

@@ -54,7 +54,8 @@ def test_port_modules_import_nothing_of_jax_or_the_jax_package():
                  "cluster.profile", "cluster.critpath", "cluster.sentinel", "cluster.observe",
                  "cluster.scrapetree", "cluster.devicemon", "models.vit", "models.clip",
                  "parallel.ulysses", "parallel.sp_transformer", "parallel.pipeline",
-                 "parallel.moe", "parallel.multihost", "parallel.mesh"):
+                 "parallel.moe", "parallel.multihost", "parallel.mesh", "models.export",
+                 "models.aoti_bundle", "ops._build_host"):
         assert f"dmlc_tpu_torch.{name}" in report["modules"]
     assert report["forbidden"] == []
 
@@ -86,6 +87,13 @@ def test_no_source_names_a_forbidden_import():
     for path in files:
         bad = sorted(n for n in _imported_roots(path) if _forbidden(n))
         assert bad == [], f"{path.relative_to(REPO)} imports {bad}"
+    # The native sources name no path of the JAX package either.
+    import re
+
+    sources = sorted((REPO / "dmlc_tpu_torch" / "native").glob("*.cpp"))
+    assert REPO / "dmlc_tpu_torch" / "native" / "aoti_host.cpp" in sources
+    for path in sources:
+        assert re.search(r"dmlc_tpu(?!_torch)", path.read_text()) is None, path.name
 
 
 def test_package_prefix_is_not_mistaken_for_the_jax_package():
@@ -104,7 +112,7 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
     from dmlc_tpu_torch.parallel.mesh import make_mesh
     from dmlc_tpu_torch.parallel.train import create_train_state, default_optimizer, lm_train_step
     from dmlc_tpu_torch.parallel.trainer import TrainingDriver
-    from dmlc_tpu_torch.scheduler.worker import EngineBackend, LmBackend
+    from dmlc_tpu_torch.scheduler.worker import EngineBackend, ExportedBackend, LmBackend
     from dmlc_tpu_torch.utils.device import resolve_device
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -113,6 +121,7 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
         lambda: InferenceEngine("resnet18"),
         lambda: InferenceEngine("alexnet", device="cuda"),
         lambda: EngineBackend("resnet18", tmp_path),
+        lambda: ExportedBackend("resnet18", tmp_path, None),
         lambda: LmBackend("lm_wide"),
         lambda: make_mesh({"tp": 2}),
         lambda: resolve_device(None),
@@ -193,15 +202,29 @@ def test_node_builds_engine_backends_for_vit_and_clip(tmp_path):
     ("mesh_processes", 2, "parallel/multihost.py"),
 ])
 def test_node_refuses_switches_of_unported_modules(tmp_path, switch, value, module):
-    """``serve_from_executable`` waits for its module and is refused;
-    ``mesh_processes`` > 1 now builds the leader's ``MeshBootstrap`` from
-    ``parallel/multihost.py`` (not leading until promoted) and serves its
-    verbs on the leader server."""
+    """No switch is refused any more. ``serve_from_executable`` builds an
+    ``ExportedBackend`` for each image job model (lazy, on the node's
+    device, wired to the node's SDFS client) and an ``LmBackend`` for a
+    ``kind="lm"`` one; ``mesh_processes`` > 1 builds the leader's
+    ``MeshBootstrap`` from ``parallel/multihost.py`` (not leading until
+    promoted) and serves its verbs on the leader server."""
+    from dmlc_tpu_torch.cluster import node as node_mod
     from dmlc_tpu_torch.cluster.node import ClusterNode
 
+    assert not hasattr(node_mod, "refuse_unported")
     if switch == "serve_from_executable":
-        with pytest.raises(NotImplementedError, match=module):
-            ClusterNode(_node_config(tmp_path, **{switch: value}), backends={}, device="cpu")
+        from dmlc_tpu_torch.scheduler.worker import LmBackend
+
+        node = ClusterNode(_node_config(tmp_path, job_models=["resnet18", "lm_wide"],
+                                        **{switch: value}), device="cpu")
+        try:
+            backend = node.worker.backends["resnet18"]
+            assert type(backend).__name__ == module
+            assert backend.sdfs is node.sdfs and backend._server is None
+            assert backend.device == torch.device("cpu")
+            assert isinstance(node.worker.backends["lm_wide"], LmBackend)
+        finally:
+            node.stop()
         return
     from dmlc_tpu_torch.cluster.rpc import RpcError, TcpRpc
     from dmlc_tpu_torch.parallel.multihost import MeshBootstrap
