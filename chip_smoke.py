@@ -10,8 +10,11 @@ non-zero:
 2. build   — compiles every kernel in dmlc_tpu_torch/csrc with nvcc and,
    beside them, the native JPEG decoder (dmlc_tpu_torch/native) with g++
    where the machine has libjpeg (a failed build then fails the run;
-   without libjpeg a line says why the decoder is unavailable) and the
-   native AOTInductor host (native/aoti_host.cpp, g++ against torch); for
+   without libjpeg a line says why the decoder is unavailable), the
+   device decode's entropy library (native/jpeg_entropy.cpp, g++, no
+   libjpeg; a failed build fails the run) and the native AOTInductor host
+   (native/aoti_host.cpp, g++ against torch), and says whether nvJPEG's
+   header and library lie beside nvcc (nothing calls them); for
    each flash kernel instantiation (head dim 64, 128, 192 and 256, the
    forward's also 320, 384, 448 and 512, bf16 and float32), its registers,
    shared memory and spills (ptxas), and for the bf16 Hopper ones their
@@ -42,17 +45,31 @@ non-zero:
    past 256 checked and timed at [4, 4, 1024, 320/384/512] and [8, 2,
    2048, 384], and past 512 at [4, 4, 1024, 640/1024] and [8, 1, 2048,
    768], beside the wide kernels they replaced there and SDPA.
+3b. jpeg  — the device decode (ops/preprocess.load_batch_device): the
+   serve phase's 200-JPEG corpus (256 px -> 224 at M = 7), the committed
+   photos (M = 4 and 5, then the resample) and PIL's re-encodings of
+   them (4:4:4, 4:2:2 with restart markers, grayscale, a crop) through the host
+   entropy decoder (every image taken), one copy, and jpeg_idct, held
+   within JPEG_KERNEL_TOL of its plain version on the card and within
+   JPEG_PIL_BOUNDS of PIL's pixels; a progressive JPEG made in the phase
+   is refused, decoded by PIL into its row and counted. Its line has each
+   stage's time (host entropy ms, copy bytes and ms, the kernels' device
+   ms beside their bytes bound, the plain version's ms) and the shard's
+   img/s on the card against PIL's in turns.
 4. serve   — job.predict through a TcpRpcServer on localhost (every
    request from a TcpRpc client) -> PredictWorker -> EngineBackend ->
    InferenceEngine for resnet18 and alexnet at batch 256, 224 px, bf16,
    seeded weights: multi-batch shards take seeded pixels from a decode
-   tier, one shard decodes a small JPEG corpus (natively where the decoder
-   built, its pixels equal to a direct decode_resize_batch; else PIL).
-   Launch counters are zeroed just before the requests and must have
-   risen just after; the TCP answers must equal the in-process ones, and
-   are held against the same pixels sent through the plain versions. The
-   machine's host numbers: the JPEG shard's decode, native against PIL,
-   and one 256-image shard over TCP against in process.
+   tier, one shard decodes a small JPEG corpus on the card (run_paths ->
+   load_batch_device; its pixels equal to a direct load_batch_device, no
+   image refused). Launch counters are zeroed just before the requests
+   and must have risen just after (jpeg_idct's too); the TCP answers must
+   equal the in-process ones, and are held against the same pixels sent
+   through the plain versions; the JPEG shard's top-1 is also compared
+   with the plain path on PIL's pixels (reported). The machine's host
+   numbers: the JPEG shard's decode, on the card against PIL, run_paths
+   against PIL's pixels through run_batch, and one 256-image shard over
+   TCP against in process.
    Then CUDA events time each engine's host-to-device copy and forward,
    which bound the device's idle share of run_batch and of one request
    from below; one traced run_batch per model and one traced request give
@@ -60,15 +77,16 @@ non-zero:
    sdfs    — the weights loop on the port over TCP on localhost: a port
    SdfsLeader and three SdfsMembers (rf 3), one of which also serves
    job.predict and model.load for resnet18 (batch 256, 224 px, bf16) with
-   no local corpus (an SdfsImageSource pulls its images from the store).
+   no local corpus (an SdfsImageSource pulls its images from the store,
+   and the member decodes them on the card).
    The serve phase's JPEG corpus is published into the store and a shard
    of it must answer as the serve phase did from local files; a resnet18
    of another seed is published (publish_weights, about 47 MB) and
    hot-loaded by model.load, after which the shard must answer as an
    engine built from that module, and differently from before; 64
    concurrent single-synset requests through a DynamicBatcher must answer
-   as the backend does unbatched, in fewer dispatches. normalize_u8 and
-   softmax_top1 must launch. Its line has the blob's bytes, the put and
+   as the backend does unbatched, in fewer dispatches. normalize_u8,
+   softmax_top1 and jpeg_idct must launch. Its line has the blob's bytes, the put and
    get_bytes walls and MB/s, model.load's wall, the cold and warm shard
    walls and the dispatch count.
    cluster — the reference's predict job through the port's own entry
@@ -77,8 +95,9 @@ non-zero:
    px, bf16, seed 0), run both 1000-query jobs (one seeded 256-px JPEG a
    synset, shards of 64) dispatched by the port's JobScheduler. Each job's
    finished must be 1000 and its correct equal to one in-process engine's
-   over the same shards; every member must be assigned and serve;
-   normalize_u8 and softmax_top1 must launch. Then a second fleet of new
+   over the same shards, decoded as the members decode them (on the
+   card); every member must be assigned and serve; normalize_u8,
+   softmax_top1 and jpeg_idct must launch. Then a second fleet of new
    nodes over the same backends publishes a resnet18 of seed 2, train()
    pulls and hot-loads it on every member, and predict must give the
    correct count of an engine built from that module. Its line has each
@@ -88,19 +107,21 @@ non-zero:
    corpus, with placement, an SLO objective for resnet18, the autoscaler
    and the fleet decode tier on, each node serving lm_wide generation:
    one resnet18 job in shards of two batches must be assigned from the
-   advisor's plan, give phase cluster's correct count and have chunks
-   decoded on peers; obs.slo must carry burn rates and the autoscaler
+   advisor's plan, give the correct count of phase cluster's in-process
+   engine over pixels decoded on the host (such shards decode there) and
+   have chunks decoded on peers; obs.slo must carry burn rates and the autoscaler
    must tick; 8 lm_wide sessions through the leader's job.generate on two
    members, one drained mid-stream so its sessions migrate with their
    delivered tokens, must give an in-process GenerateWorker's greedy
    tokens; one raw 256-px shard through EngineBackend(device_resize_from)
-   must resize within RESIZE_TOL of reference_resize. Launches of
-   normalize_u8, softmax_top1 and paged_decode_attention are counted for
-   each part.
+   (decoded on the card at 256 px) must resize within RESIZE_TOL of
+   reference_resize. Launches of normalize_u8, softmax_top1, jpeg_idct
+   and paged_decode_attention are counted for each part.
    vision  — vit_b16 and clip_vit_l14 at batch 256, 224 px, bf16, seeded
    weights, through job.predict from a TcpRpcServer on localhost: the
    classifier's JPEG and multi-batch shards equal in process and, under
-   the gap rule, the plain path; the embedder answers zeros and its
+   the gap rule, the plain path (the JPEG shard's pixels decoded on the
+   card); the embedder answers zeros and its
    run_batch embeddings keep a cosine of VISION_COSINE against the plain
    normalization; each model's run_batch wall, img/s, MFU and peak device
    memory; the classifier's weights through weights_to_bytes and
@@ -223,8 +244,15 @@ PROB_RTOL = 1e-6
 # Rows whose top-two probability gap is at most this are not compared on
 # the serving path (bf16 logits can tie there).
 GAP = 1e-3
+# Phase serve: the device-decoded JPEG shard's top-1 may differ from the
+# plain path on PIL's pixels (above GAP) in at most twice the rows that one
+# step of seeded noise on a third of PIL's pixels moves, plus this many.
+PIL_TOP1_MARGIN = 5
 # The kernels each path runs (ops/kernels.KERNELS holds every wrapper).
 PREDICT_KERNELS = ("normalize_u8", "softmax_top1")
+#: A shard of at most one batch of JPEG files also launches the device
+#: decode (run_paths on a CUDA engine: ops/preprocess.load_batch_device).
+SERVE_KERNELS = PREDICT_KERNELS + ("jpeg_idct",)
 # Generation phase (lm_wide serving): the JAX worker's defaults.
 GEN_SLOTS, GEN_PAGE, GEN_PAGES, GEN_PREFILL = 8, 16, 128, 64
 GEN_REQUESTS, GEN_SAMPLED = 24, 4
@@ -370,6 +398,20 @@ def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
 
 
+#: Wall seconds of each phase (and of the kernels phase's parts) in this
+#: run, printed before the kernels line: where the script's time limit goes.
+PHASE_SECONDS: dict[str, float] = {}
+
+
+def clocked(name: str, fn, *args):
+    """``fn(*args)``, its wall seconds kept in PHASE_SECONDS[name]."""
+    t = time.perf_counter()
+    try:
+        return fn(*args)
+    finally:
+        PHASE_SECONDS[name] = time.perf_counter() - t
+
+
 def card_rates(name: str) -> tuple[float, float, float]:
     for key, rates in CARDS.items():
         if key in name:
@@ -501,24 +543,28 @@ def queued_us(fn, calls: int = 100, sleep_cycles: int = 20_000_000) -> float:
     """Device time a call of ``fn`` takes back to back with the launch
     queue full, in microseconds: a sleep kernel holds the device while
     ``calls`` calls are enqueued, and events around them time the kernels
-    and the gaps between their launches, not the host's enqueue. Raises
-    where the enqueue outlasted the sleep."""
+    and the gaps between their launches, not the host's enqueue. Where the
+    enqueue outlasted the sleep (the host's clock stalls on a shared
+    machine) it is taken again with twice the sleep, twice at most, and
+    then raises."""
     fn()
-    torch.cuda.synchronize()
-    held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    t0 = time.perf_counter()
-    held.record()
-    torch.cuda._sleep(sleep_cycles)
-    start.record()
-    for _ in range(calls):
-        fn()
-    enqueue_ms = (time.perf_counter() - t0) * 1e3
-    end.record()
-    end.synchronize()
-    if enqueue_ms >= held.elapsed_time(start):
-        raise AssertionError(f"queued_us: the enqueue ({enqueue_ms} ms) outlasted the sleep "
-                             f"({held.elapsed_time(start)} ms)")
-    return start.elapsed_time(end) / calls * 1e3
+    for _ in range(3):
+        torch.cuda.synchronize()
+        held, start, end = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+        t0 = time.perf_counter()
+        held.record()
+        torch.cuda._sleep(sleep_cycles)
+        start.record()
+        for _ in range(calls):
+            fn()
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record()
+        end.synchronize()
+        if enqueue_ms < held.elapsed_time(start):
+            return start.elapsed_time(end) / calls * 1e3
+        sleep_cycles *= 2
+    raise AssertionError(f"queued_us: the enqueue ({enqueue_ms} ms) outlasted the sleep "
+                         f"({held.elapsed_time(start)} ms) three times")
 
 
 # ---------------------------------------------------------------------------
@@ -567,22 +613,39 @@ def ptxas_entries(log: str) -> dict[str, dict]:
     return {n: e for n, e in entries.items() if "registers" in e}
 
 
-def sass_counts(lib: Path, marker: str) -> dict:
-    """How often wgmma (HGMMA) and TMA loads (UTMALDG) occur in the SASS of
-    the kernel of ``lib`` whose mangled name holds ``marker`` (cuobjdump
-    next to nvcc)."""
+def sass_functions(lib: Path, mtime: float) -> list[tuple[str, dict]]:
+    """(``Function :`` line, its HGMMA and UTMALDG counts) of every kernel
+    in the SASS of ``lib`` (cuobjdump next to nvcc), disassembled once per
+    build of the library (``mtime``)."""
     from dmlc_tpu_torch.ops import _build
 
-    tool = Path(_build.nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
-                          timeout=300, check=True).stdout
-    counts, inside = {"HGMMA": 0, "UTMALDG": 0}, False
-    for ln in sass.splitlines():
-        if "Function :" in ln:
-            inside = marker in ln
-        elif inside:
+    key = (str(lib), mtime)
+    if key not in _SASS:
+        tool = Path(_build.nvcc()).with_name("cuobjdump")
+        sass = subprocess.run([str(tool), "-sass", str(lib)], capture_output=True, text=True,
+                              timeout=300, check=True).stdout
+        functions: list[tuple[str, dict]] = []
+        for ln in sass.splitlines():
+            if "Function :" in ln:
+                functions.append((ln, {"HGMMA": 0, "UTMALDG": 0}))
+            elif functions:
+                for op, n in functions[-1][1].items():
+                    functions[-1][1][op] = n + (op in ln)
+        _SASS[key] = functions
+    return _SASS[key]
+
+
+_SASS: dict = {}
+
+
+def sass_counts(lib: Path, marker: str) -> dict:
+    """How often wgmma (HGMMA) and TMA loads (UTMALDG) occur in the SASS of
+    the kernel of ``lib`` whose mangled name holds ``marker``."""
+    counts = {"HGMMA": 0, "UTMALDG": 0}
+    for header, found in sass_functions(lib, lib.stat().st_mtime):
+        if marker in header:
             for op in counts:
-                counts[op] += op in ln
+                counts[op] += found[op]
     return counts
 
 
@@ -643,9 +706,36 @@ def build_native() -> dict:
     return {"available": True, "reason": None, "seconds": seconds}
 
 
+def nvjpeg_probe() -> dict:
+    """Whether nvJPEG's header and library lie beside nvcc (the toolkit's
+    include/ and lib64/, and its targets/ tree). Only probed: nothing here
+    calls nvJPEG."""
+    from dmlc_tpu_torch.ops import _build
+
+    home = Path(_build.nvcc()).resolve().parent.parent
+    roots = [home, *sorted(home.glob("targets/*"))]
+    headers = [str(r / "include" / "nvjpeg.h") for r in roots if (r / "include" / "nvjpeg.h").is_file()]
+    libs = sorted({str(lib) for r in roots for d in ("lib64", "lib") for lib in (r / d).glob("libnvjpeg*")})
+    return {"toolkit": str(home), "nvjpeg_h": headers, "libnvjpeg": libs}
+
+
+def build_jpeg_entropy() -> dict:
+    """Builds the device decode's host library (native/jpeg_entropy.cpp,
+    g++, no libjpeg); a failed build raises."""
+    from dmlc_tpu_torch.native import jpeg as NJ
+
+    t0 = time.perf_counter()
+    NJ.build()
+    seconds = time.perf_counter() - t0
+    NJ.load()
+    return {"seconds": seconds, "command": " ".join(NJ.build_command())}
+
+
 def phase_build() -> dict:
     """Builds every kernel, and the native JPEG decoder beside them (its
-    build seconds, or why this machine cannot build it; returned). For the
+    build seconds, or why this machine cannot build it; returned), the
+    device decode's entropy library (g++; a failed build fails the run) and
+    the AOTInductor host, and probes for nvJPEG beside nvcc. For the
     flash kernels, reports each
     instantiation's registers, shared memory a block and spills (ptxas):
     64, 128, 192, 256, 320, 384, 448 and 512 in both dtypes where
@@ -664,12 +754,14 @@ def phase_build() -> dict:
 
     from dmlc_tpu_torch.ops import _build_host
 
-    with ThreadPoolExecutor(2) as pool:
+    with ThreadPoolExecutor(3) as pool:
         native = pool.submit(build_native)
         host = pool.submit(_build_host.build)
+        entropy = pool.submit(build_jpeg_entropy)
         seconds = _build.build()
         native = native.result()
         host = {k: v for k, v in host.result().items() if k != "command"}
+        entropy = entropy.result()
     regs = {
         name: [ln.strip() for ln in log.splitlines() if "registers" in ln]
         for name, log in _build.build_log.items()
@@ -751,7 +843,8 @@ def phase_build() -> dict:
     if spilled:
         raise AssertionError(f"softmax_top1 spills: {spilled}")
     emit({"phase": "build", "seconds": seconds, "kernels": _build.kernel_names(),
-          "native_decode": native, "aoti_host": host, "ptxas": regs, "flash": flash, "paged_decode": paged,
+          "native_decode": native, "jpeg_entropy": entropy, "nvjpeg": nvjpeg_probe(),
+          "aoti_host": host, "ptxas": regs, "flash": flash, "paged_decode": paged,
           "gather_pages": gather, "softmax_top1": softmax})
     return native
 
@@ -801,10 +894,10 @@ def phase_kernels(dev: dict) -> dict:
                 raise AssertionError(f"normalize_u8 {dt} differs on {tuple(part.shape)}")
     del u8, flat
 
-    soft = phase_kernels_softmax(dev)
-    gather = phase_kernels_gather(bw)
-    paged = phase_kernels_paged(dev)
-    flash = phase_kernels_flash(dev)
+    soft = clocked("kernels/softmax", phase_kernels_softmax, dev)
+    gather = clocked("kernels/gather", phase_kernels_gather, bw)
+    paged = clocked("kernels/paged", phase_kernels_paged, dev)
+    flash = clocked("kernels/flash", phase_kernels_flash, dev)
     result = {"normalize_u8": norm, "softmax_top1": soft, "gather_kv_pages": gather,
               "paged_decode_attention": paged, **flash}
     emit({"phase": "kernels",
@@ -1734,8 +1827,9 @@ def phase_kernels_flash(dev: dict) -> dict:
     REPLACED_WIDE at their shapes through their own entry points."""
     from dmlc_tpu_torch.ops import flash as FL
 
-    checks = flash_checks()
-    public = flash_public_checks()
+    checks = clocked("kernels/flash/checks", flash_checks)
+    public = clocked("kernels/flash/public", flash_public_checks)
+    t_timing = time.perf_counter()
     fwd = {
         "train_bf16": flash_forward_timing(dev, TRAIN_SHAPE, torch.bfloat16, plain_reps=5,
                                            host=True),
@@ -1774,11 +1868,177 @@ def phase_kernels_flash(dev: dict) -> dict:
             replaced[key][entry] = {"entry": entry, "shape": list(shape), "device_ms": ms,
                                     "tflops": flash_flops(shape, products) / (ms * 1e-3) / 1e12}
     torch.cuda.synchronize()
+    PHASE_SECONDS["kernels/flash/timings"] = time.perf_counter() - t_timing
     return {"checks": checks, "padded_head_dims": public, "flash_forward": fwd,
             "replaced_wide": replaced,
             **bwd["train_bf16"], "backward_f32": bwd["train_f32"],
             **{f"backward_{key}": report for key, report in bwd.items()
                if key not in ("train_bf16", "train_f32")}}
+
+
+#: Phase jpeg: the kernel within JPEG_KERNEL_TOL uint8 steps of its plain
+#: version, and the pixels within the bounds tests/test_real_jpeg_fixture.py
+#: holds libjpeg to against PIL (mean |diff| below, 99th percentile and max
+#: at most).
+JPEG_KERNEL_TOL = 1
+JPEG_PIL_BOUNDS = {"mean": 1.0, "p99": 10.0, "max": 32}
+JPEG_KERNEL_NAMES = ("jpeg_idct_blocks_kernel", "jpeg_color_resize_kernel")
+
+
+def photo_paths() -> list[Path]:
+    return sorted((Path(__file__).resolve().parent / "tests" / "fixtures" / "photos")
+                  .glob("*.jpg"))
+
+
+def reference_scale(w: int, h: int) -> int:
+    """The scale M native/image_pipeline.cpp's decode_jpeg picks for SIZE."""
+    return next((m for m in range(1, 9) if -(-w * m // 8) >= SIZE and -(-h * m // 8) >= SIZE), 8)
+
+
+def jpeg_variants(root: Path) -> list[Path]:
+    """The photos encoded again by PIL in the layouts the serve corpus and
+    the photos lack: 4:4:4, 4:2:2 with restart markers, grayscale, and a
+    301x233 crop (M = 8, then a downscale)."""
+    from PIL import Image
+
+    root.mkdir(parents=True, exist_ok=True)
+    out = []
+    for k, photo in enumerate(photo_paths()):
+        with Image.open(photo) as im:
+            rgb = im.convert("RGB")
+            for tag, img, opts in (
+                    ("444", rgb, dict(quality=90, subsampling=0)),
+                    ("422_rst", rgb, dict(quality=75, subsampling=1, restart_marker_blocks=4)),
+                    ("gray", rgb.convert("L"), dict(quality=85)),
+                    ("crop", rgb.crop((3, 5, 304, 238)), dict(quality=90, subsampling=2))):
+                path = root / f"{k}_{tag}.jpg"
+                img.save(path, "JPEG", **opts)
+                out.append(path)
+    return out
+
+
+def pil_bounds(got: np.ndarray, want: np.ndarray, what: str) -> dict:
+    diff = np.abs(got.astype(np.int32) - want.astype(np.int32))
+    report = {"mean": float(diff.mean()), "p99": float(np.quantile(diff, 0.99)),
+              "max": int(diff.max())}
+    if not (report["mean"] < JPEG_PIL_BOUNDS["mean"] and report["p99"] <= JPEG_PIL_BOUNDS["p99"]
+            and report["max"] <= JPEG_PIL_BOUNDS["max"]):
+        raise AssertionError(f"{what}: pixels against PIL {report}, bounds {JPEG_PIL_BOUNDS}")
+    return report
+
+
+def jpeg_corpus(dev: dict, name: str, paths: list, scales: list[int]) -> dict:
+    """One corpus through both stages: the host entropy decode (every image
+    taken, at the scales M ``scales``), the copy, jpeg_idct against its plain
+    version on the card and against PIL, and the stages' times; the whole
+    device decode against PIL's in turns."""
+    from dmlc_tpu_torch.native import jpeg as NJ
+    from dmlc_tpu_torch.ops import jpeg as JO
+    from dmlc_tpu_torch.ops import preprocess as pp
+
+    arena = NJ.JpegArena(pin=True)
+    coefs = NJ.decode(paths, SIZE, arena)
+    if coefs.status.any():
+        raise AssertionError(f"{name}: the host decoder refused "
+                             f"{[NJ.STATUS[int(v)] for v in coefs.status if v]}")
+    seen = sorted({int(m) for m in coefs.images[:, 4]})
+    if seen != scales:
+        raise AssertionError(f"{name}: scales {seen}, expected {scales}")
+    dc = coefs.to(torch.device("cuda"))
+    got = JO.jpeg_idct(dc)
+    plain = JO.jpeg_idct_reference(dc)
+    diff = (got.to(torch.int32) - plain.to(torch.int32)).abs()
+    max_err = int(diff.max())
+    if max_err > JPEG_KERNEL_TOL or not torch.isfinite(got.float()).all():
+        raise AssertionError(f"{name}: jpeg_idct against its plain version: max {max_err} steps")
+    pixels = got.cpu().numpy()
+    pil = pp.load_batch(paths, size=SIZE, backend="pil")
+    bounds = pil_bounds(pixels, pil, name)
+
+    host = []
+    for _ in range(7):
+        t = time.perf_counter()
+        NJ.decode(paths, SIZE, arena)
+        host.append(1e3 * (time.perf_counter() - t))
+    src = coefs.data[:coefs.nbytes]
+    copy_ms = time_ms(lambda: src.to("cuda", non_blocking=True), reps=11, inner=5)
+    ms = time_ms(lambda: JO.jpeg_idct(dc), reps=11, inner=5)
+    device = kernel_device_ms_each(lambda: JO.jpeg_idct(dc), JPEG_KERNEL_NAMES, calls=10)
+    # The plain version: one launch an operation, about a second a shard.
+    plain_ms = statistics.median(1e3 * timed(lambda: (JO.jpeg_idct_reference(dc),
+                                                      torch.cuda.synchronize()))
+                                 for _ in range(2))
+    written = len(paths) * SIZE * SIZE * 3
+    bound_ms = (coefs.nbytes + written) / dev["mem_bytes_per_s"] * 1e3
+
+    def device_decode() -> None:
+        pp.load_batch_device(paths, SIZE, "cuda")
+        torch.cuda.synchronize()
+
+    refused = pp.jpeg_refused_images
+    turns, readings = alternate_ms({
+        "device": device_decode,
+        "pil": lambda: pp.load_batch(paths, size=SIZE, backend="pil")}, rounds=3)
+    if pp.jpeg_refused_images != refused:
+        raise AssertionError(f"{name}: {pp.jpeg_refused_images - refused} images refused")
+    return {
+        "images": len(paths), "size": SIZE, "scales": scales,
+        "source_px": sorted({tuple(int(v) for v in r[1:3]) for r in coefs.images}),
+        "max_abs_err": max_err, "differing_share": float((diff != 0).float().mean()),
+        "pil": bounds, "host_entropy_ms": statistics.median(host), "host_entropy_readings_ms": host,
+        "copy_bytes": coefs.nbytes, "copy_ms": copy_ms, "ms": ms,
+        "device_ms": sum(device.values()), "device_ms_by_kernel": device,
+        "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": "bytes",
+        "bound_bytes": coefs.nbytes + written, "library_ms": turns["pil"],
+        "library": "PIL decode and resize of the same images on the host (load_batch pil)",
+        "decode_ms": turns, "decode_readings_ms": readings,
+        "img_per_s": {k: len(paths) / (v / 1e3) for k, v in turns.items()},
+    }
+
+
+def phase_jpeg(dev: dict) -> dict:
+    """The device decode (module docstring, phase 3b): the serve phase's
+    JPEG corpus (256 px -> SIZE at M = 7, no resample), the committed
+    photos (M = 4 and 5, and the resample) and their variants
+    (jpeg_variants: 4:4:4, 4:2:2 with restarts, grayscale, a crop at
+    M = 8), and a progressive JPEG made here,
+    which the host decoder refuses and PIL decodes into its row."""
+    from PIL import Image
+
+    from dmlc_tpu_torch.native import jpeg as NJ
+    from dmlc_tpu_torch.ops import preprocess as pp
+    from dmlc_tpu_torch.utils import corpus
+
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix="dmlc-torch-jpeg-") as td:
+        data_dir, synset_path = corpus.generate(Path(td) / "corpus", **SERVE_CORPUS)
+        paths = [pp.class_image_path(data_dir, s) for s, _ in pp.load_synset_words(synset_path)]
+        serve = jpeg_corpus(dev, "serve corpus", paths, [7])
+        photos = jpeg_corpus(dev, "photos", photo_paths(), [4, 5])
+        variants = jpeg_variants(Path(td) / "variants")
+        sizes = []
+        for v in variants:
+            with Image.open(v) as im:
+                sizes.append(im.size)
+        scales = sorted({reference_scale(w, h) for w, h in sizes})
+        variant_report = jpeg_corpus(dev, "variants", variants, scales)
+        progressive = Path(td) / "progressive.jpg"
+        with Image.open(paths[0]) as im:
+            im.save(progressive, "JPEG", quality=90, progressive=True)
+        before = pp.jpeg_refused_images
+        got, status = pp.load_batch_device([paths[0], progressive], SIZE, "cuda")
+        names = [NJ.STATUS[int(v)] for v in status]
+        if names != ["ok", "progressive"] or pp.jpeg_refused_images != before + 1 or \
+                not np.array_equal(got[1].cpu().numpy(), pp.decode_resize(progressive, SIZE)):
+            raise AssertionError(f"the progressive JPEG: statuses {names}, refused "
+                                 f"{pp.jpeg_refused_images - before}")
+    report = {"phase": "jpeg", "nvidia_smi": dev["nvidia_smi"], "serve_corpus": serve,
+              "photos": photos, "variants": variant_report,
+              "progressive": {"status": names[1], "counted": 1,
+                                                "row_equals_pil": True},
+              "phase_s": time.perf_counter() - t_phase}
+    emit(report)
+    return report
 
 
 class SeededImages:
@@ -1825,27 +2085,27 @@ def plain_top1(engine, u8: np.ndarray):
     return np.concatenate(idx), np.concatenate(gaps)
 
 
-class NativeRecorder:
-    """Wraps ``native.decode_resize_batch`` while installed: each call's
-    paths, pixels and status, so the serving path's own decode can be held
-    against a direct call."""
+class DeviceDecodeRecorder:
+    """Wraps ``preprocess.load_batch_device`` while installed: each call's
+    sources, status and pixels (copied to the host), so the serving path's
+    own device decode can be held against a direct call."""
 
-    def __init__(self, native):
-        self.native = native
-        self.real = native.decode_resize_batch
+    def __init__(self, pp):
+        self.pp = pp
+        self.real = pp.load_batch_device
         self.calls: list[tuple[list, np.ndarray, np.ndarray]] = []
 
     def __call__(self, paths, *args, **kw):
         out, status = self.real(paths, *args, **kw)
-        self.calls.append((list(paths), out.copy(), status.copy()))
+        self.calls.append((list(paths), out.cpu().numpy(), status.copy()))
         return out, status
 
     def __enter__(self):
-        self.native.decode_resize_batch = self
+        self.pp.load_batch_device = self
         return self
 
     def __exit__(self, *exc):
-        self.native.decode_resize_batch = self.real
+        self.pp.load_batch_device = self.real
 
 
 def timed(fn) -> float:
@@ -1869,10 +2129,15 @@ def alternate_ms(fns: dict, rounds: int = 4) -> tuple[dict, dict]:
 def phase_serve(dev: dict, native_build: dict) -> dict:
     """job.predict served from a TcpRpcServer on localhost: every request
     goes through a TcpRpc client and must equal the in-process methods()
-    answer for the same shard exactly, and the plain path's under the gap
-    rule. The JPEG shard is decoded by the native library where this
-    machine could build it (its pixels equal a direct decode_resize_batch),
-    else by PIL."""
+    answer for the same shard exactly, and the plain path's on the same
+    pixels under the gap rule. The JPEG shard is decoded on the card
+    (run_paths -> load_batch_device: the host entropy decoder and
+    jpeg_idct; its pixels equal a direct load_batch_device, and none is
+    refused); its top-1 is also held to the plain path's on PIL's pixels:
+    a random-weight network moves its top-1 under pixel changes of one
+    step, so no decoder but PIL's own can promise equality there, and the
+    rows that differ above GAP may number at most twice those that one
+    step of seeded noise moves, plus PIL_TOP1_MARGIN."""
     from dmlc_tpu_torch import native
     from dmlc_tpu_torch.cluster.rpc import TcpRpc, TcpRpcServer
     from dmlc_tpu_torch.ops import kernels as K
@@ -1880,7 +2145,6 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
     from dmlc_tpu_torch.scheduler.worker import EngineBackend, PredictWorker
     from dmlc_tpu_torch.utils import corpus
 
-    jpeg_backend = "native" if native_build["available"] else "pil"
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-smoke-") as td:
         data_dir, synset_path = corpus.generate(Path(td), **SERVE_CORPUS)
         jpeg_digest = corpus_sha256(data_dir)
@@ -1912,15 +2176,17 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
             ("resnet18", jpeg_synsets, "jpeg"),
         ]
         try:
+            refused_before = pp.jpeg_refused_images
             K.reset_launch_counts()
             answers = []
-            with NativeRecorder(native) as recorder:
+            with DeviceDecodeRecorder(pp) as recorder:
                 for model, synsets, source_kind in requests:
                     t = time.perf_counter()
                     preds = predict_tcp({"model": model, "synsets": synsets})["predictions"]
                     answers.append((model, synsets, source_kind, preds,
                                     time.perf_counter() - t))
-            launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+            launches = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
+            refused = pp.jpeg_refused_images - refused_before
             for name, count in launches.items():
                 if count == 0:
                     raise AssertionError(f"{name}: no launch on the serving path")
@@ -1931,25 +2197,23 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
                                          f"ones for the same {len(synsets)} synsets")
 
             jpeg_paths = source(jpeg_synsets)
-            if jpeg_backend == "native":
-                if len(recorder.calls) != 1:
-                    raise AssertionError(f"native decode calls on the path: "
-                                         f"{[len(c[0]) for c in recorder.calls]}")
-                paths, served, status = recorder.calls[0]
-                direct, direct_status = native.decode_resize_batch(jpeg_paths, SIZE)
-                if ([str(x) for x in paths] != [str(x) for x in jpeg_paths] or status.any()
-                        or direct_status.any() or not np.array_equal(served, direct)):
-                    raise AssertionError("the served JPEG shard's native pixels differ from a "
-                                         "direct decode_resize_batch")
-            elif recorder.calls:
-                raise AssertionError("native decode ran where it is unavailable")
+            if len(recorder.calls) != 1:
+                raise AssertionError(f"device decode calls on the path: "
+                                     f"{[len(c[0]) for c in recorder.calls]}")
+            paths, served, status = recorder.calls[0]
+            direct, direct_status = pp.load_batch_device(jpeg_paths, SIZE, "cuda")
+            if ([str(x) for x in paths] != [str(x) for x in jpeg_paths] or status.any()
+                    or direct_status.any() or refused
+                    or not np.array_equal(served, direct.cpu().numpy())):
+                raise AssertionError(f"the served JPEG shard's device-decoded pixels differ "
+                                     f"from a direct load_batch_device (refused {refused})")
 
             reports = []
             for model, synsets, source_kind, preds, wall in answers:
                 engine = backends[model].engine
                 paths = source(synsets)
                 pixels = (source.decode_paths(paths, SIZE) if source_kind == "decode_tier"
-                          else pp.load_batch(paths, size=SIZE, backend=jpeg_backend))
+                          else served)
                 want, gaps = plain_top1(engine, pixels)
                 preds = np.asarray(preds)
                 if len(preds) != len(synsets):
@@ -1958,24 +2222,71 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
                 bad = int((preds[mask] != want[mask]).sum())
                 if bad:
                     raise AssertionError(f"{model}: {bad} compared rows differ from the plain path")
+                pil_path = {}
+                if source_kind == "jpeg":
+                    # The same shard decoded by PIL through the plain path.
+                    pil_pixels = pp.load_batch(paths, size=SIZE, backend="pil")
+                    pil_want, pil_gaps = plain_top1(engine, pil_pixels)
+                    pil_mask = pil_gaps > GAP
+                    diff = np.abs(served.astype(np.int32) - pil_pixels.astype(np.int32))
+                    # The yardstick: PIL's pixels with one step of seeded
+                    # noise on a third of them, through the same plain path.
+                    noise = np.random.default_rng(5)
+                    step = (noise.random(pil_pixels.shape) < 1 / 3) * noise.choice(
+                        [-1, 1], pil_pixels.shape)
+                    noisy = np.clip(pil_pixels.astype(np.int32) + step, 0, 255).astype(np.uint8)
+                    noisy_want, _ = plain_top1(engine, noisy)
+                    pil_bad = int((preds[pil_mask] != pil_want[pil_mask]).sum())
+                    noise_bad = int((noisy_want[pil_mask] != pil_want[pil_mask]).sum())
+                    # A decoder that drifts from PIL further than a one-step
+                    # error on a third of the pixels fails here.
+                    pil_limit = 2 * noise_bad + PIL_TOP1_MARGIN
+                    if pil_bad > pil_limit:
+                        raise AssertionError(
+                            f"{model}: {pil_bad} of {int(pil_mask.sum())} compared rows differ "
+                            f"from the plain path on PIL's pixels, over {pil_limit} (one step "
+                            f"of noise moves {noise_bad})")
+                    pil_path = {"pil_path": {
+                        "agree": int((preds == pil_want).sum()), "rows": len(preds),
+                        "compared_rows": int(pil_mask.sum()),
+                        "disagree_above_gap": pil_bad,
+                        "one_step_noise_disagree_above_gap": noise_bad,
+                        "disagree_limit": pil_limit,
+                        "pixels_mean_abs_diff": float(diff.mean()),
+                        "pixels_p99_abs_diff": float(np.quantile(diff, 0.99)),
+                        "pixels_max_abs_diff": int(diff.max())}}
                 reports.append({
                     "model": model, "synsets": len(synsets), "source": source_kind,
-                    "decode": jpeg_backend if source_kind == "jpeg" else "decode_tier",
+                    "decode": "device" if source_kind == "jpeg" else "decode_tier",
                     "batches": -(-len(synsets) // BATCH), "wall_s": wall,
                     "img_per_s": len(synsets) / wall, "rows": len(preds),
                     "compared_rows": int(mask.sum()),
                     "distinct_classes": int(len(set(preds.tolist()))),
-                    "tcp_equals_in_process": True,
+                    "tcp_equals_in_process": True, **pil_path,
                 })
 
             # Host numbers of the card's machine: the JPEG shard's decode,
-            # native against PIL, and one 256-image JPEG shard over TCP
-            # against in process; each the median of turns in this process.
-            decoders = {"pil": lambda: pp.load_batch(jpeg_paths, size=SIZE, backend="pil")}
-            if jpeg_backend == "native":
-                decoders["native"] = lambda: pp.load_batch(jpeg_paths, size=SIZE,
-                                                           backend="native")
-            decode_ms, decode_walls = alternate_ms(decoders)
+            # on the card against PIL, run_paths against PIL's pixels through
+            # run_batch, and one 256-image JPEG shard over TCP against in
+            # process; each the median of turns in this process.
+
+            def device_decode() -> None:
+                pp.load_batch_device(jpeg_paths, SIZE, "cuda")
+                torch.cuda.synchronize()
+
+            decode_ms, decode_walls = alternate_ms({
+                "pil": lambda: pp.load_batch(jpeg_paths, size=SIZE, backend="pil"),
+                "device": device_decode})
+            r18 = backends["resnet18"].engine
+            # The seconds each call's engine recorded for its forward
+            # (device/forward): run_paths' after the card has decoded,
+            # run_batch's with its pageable copy.
+            forward_s = {"run_paths": [], "pil_run_batch": []}
+            run_paths_ms, run_paths_walls = alternate_ms({
+                "run_paths": lambda: forward_s["run_paths"].append(
+                    r18.run_paths(jpeg_paths).device_seconds),
+                "pil_run_batch": lambda: forward_s["pil_run_batch"].append(r18.run_batch(
+                    pp.load_batch(jpeg_paths, size=SIZE, backend="pil")).device_seconds)}, rounds=3)
             # One batch: a shard of at most BATCH images decodes its JPEGs
             # itself (the decode tier feeds only multi-batch shards).
             shard256 = {"model": "resnet18", "synsets": (jpeg_synsets * 2)[:BATCH]}
@@ -2004,12 +2315,17 @@ def phase_serve(dev: dict, native_build: dict) -> dict:
                 "jpeg_decode": {
                     "images": len(jpeg_paths), "size": SIZE, "source_px": 256,
                     "pil_img_per_s": len(jpeg_paths) / (decode_ms["pil"] / 1e3),
-                    "native_img_per_s": (len(jpeg_paths) / (decode_ms["native"] / 1e3)
-                                         if "native" in decode_ms else None),
+                    "device_img_per_s": len(jpeg_paths) / (decode_ms["device"] / 1e3),
                     "native_unavailable": native_build["reason"],
                     "ms": decode_ms, "readings_ms": decode_walls,
                 },
-                "predict_256": {"model": "resnet18", "source": "jpeg", "decode": jpeg_backend,
+                "run_paths_200": {"model": "resnet18", "ms": run_paths_ms,
+                                  "img_per_s": {k: len(jpeg_paths) / (v / 1e3)
+                                                for k, v in run_paths_ms.items()},
+                                  "engine_forward_ms": {k: 1e3 * statistics.median(v)
+                                                        for k, v in forward_s.items()},
+                                  "readings_ms": run_paths_walls},
+                "predict_256": {"model": "resnet18", "source": "jpeg", "decode": "device",
                                 "tcp_ms": wall_ms["tcp"], "in_process_ms": wall_ms["in_process"],
                                 "new_thread_ms": wall_ms["in_process_new_thread"],
                                 "tcp_minus_in_process_ms": wall_ms["tcp"] - wall_ms["in_process"],
@@ -2155,7 +2471,7 @@ def phase_sdfs(dev: dict, serve: dict) -> dict:
     def counted(fn):
         K.reset_launch_counts()
         out = fn()
-        launches.update({k: K.launch_counts()[k] for k in PREDICT_KERNELS})
+        launches.update({k: K.launch_counts()[k] for k in SERVE_KERNELS})
         return out
 
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-sdfs-") as td:
@@ -2376,7 +2692,7 @@ def run_predict(nodes, want: dict) -> dict:
         if time.perf_counter() - t0 > 300:
             raise AssertionError(f"jobs not done in 300 s: {sorted(walls)} done")
         time.sleep(0.005)
-    launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+    launches = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
     report = nodes[2].jobs_report()
     for name, count in launches.items():
         if count == 0:
@@ -2612,17 +2928,26 @@ def phase_cluster(dev: dict, root: Path) -> dict:
     corpus_s = time.perf_counter() - t
     t = time.perf_counter()
     natural = [f"n{k:08d}" for k in range(CLUSTER_CORPUS["n_classes"])]
-    pixels = pp.load_batch([pp.class_image_path(data_dir, s) for s in natural], size=SIZE)
+    natural_paths = [pp.class_image_path(data_dir, s) for s in natural]
+    # The members decode a shard of at most one batch on the card
+    # (run_paths), the reference the same way; phase closedloop's shards of
+    # two batches decode on the host (run_paths_stream), its reference too.
+    pixels = np.concatenate([pp.load_batch_device(natural_paths[s:s + BATCH], SIZE,
+                                                  "cuda")[0].cpu().numpy()
+                             for s in range(0, len(natural_paths), BATCH)])
     decode_s = time.perf_counter() - t
+    host_pixels = pp.load_batch(natural_paths, size=SIZE)
     direct = {m: InferenceEngine(m, device="cuda", batch_size=BATCH) for m in models}
     synsets = cluster_synsets(root / "synsets.txt", shard_top1(direct["resnet18"], pixels))
-    u8 = pixels[[int(s[1:]) for s in synsets]]
+    order = [int(s[1:]) for s in synsets]
+    u8, host_u8 = pixels[order], host_pixels[order]
 
-    def correct(engine) -> int:
-        top1 = shard_top1(engine, u8)
+    def correct(engine, rows=u8) -> int:
+        top1 = shard_top1(engine, rows)
         return int((top1 == np.arange(len(top1))).sum())
 
     want = {m: correct(direct[m]) for m in models}
+    want_host_decode = {"resnet18": correct(direct["resnet18"], host_u8)}
     published = get_model("resnet18").init_params(CLUSTER_TRAIN_SEED, dtype=torch.float32)
     trained = InferenceEngine("resnet18", device="cuda", batch_size=BATCH,
                               variables=published.state_dict())
@@ -2682,9 +3007,10 @@ def phase_cluster(dev: dict, root: Path) -> dict:
         "want_correct": want, "predict": first, "publish_s": publish_s,
         "blob_version": version, "train_s": train_s, "train_loaded": len(loaded),
         "want_correct_after_train": want_trained, "predict_after_train": second,
+        "want_correct_host_decode": want_host_decode,
         "fleet2_images_from_sdfs": True, "corpus_blobs": corpus_blobs,
         "corpus_publish_s": corpus_publish_s, "tracing": True, "obs": obs, "trace": trace,
-        "launches": {k: first["launches"][k] + second["launches"][k] for k in PREDICT_KERNELS},
+        "launches": {k: first["launches"][k] + second["launches"][k] for k in SERVE_KERNELS},
     }
     emit(report)
     # For phase closedloop, which predicts over the same corpus (not printed).
@@ -2880,9 +3206,9 @@ def device_resize_check(data_dir: Path, synsets: list[str]) -> dict:
     t = time.perf_counter()
     top1 = np.asarray(backend(shard))
     shard_s = time.perf_counter() - t
-    launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
-    if launches["softmax_top1"] == 0:
-        raise AssertionError("softmax_top1 did not launch on the device-resize predict")
+    launches = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
+    if launches["softmax_top1"] == 0 or launches["jpeg_idct"] == 0:
+        raise AssertionError(f"the device-resize predict's launches: {launches}")
     raw = pp.load_batch([pp.class_image_path(data_dir, s) for s in shard], size=RESIZE_FROM)
     raw_dev = torch.from_numpy(raw).cuda()
     got = DR.resize_batch(raw_dev, SIZE)
@@ -2939,7 +3265,8 @@ def phase_closedloop(dev: dict, cluster: dict) -> dict:
     t_phase = time.perf_counter()
     data_dir = cluster["corpus"]["data_dir"]
     synset_path = cluster["corpus"]["synset_path"]
-    want = cluster["predict"]["jobs"]["resnet18"]["correct"]
+    # Its shards of two batches decode on the host (run_paths_stream).
+    want = cluster["want_correct_host_decode"]["resnet18"]
     synsets = [s for s, _ in pp.load_synset_words(synset_path)]
     hooks = [NodeDeviceWork() for _ in range(CLUSTER_NODES)]
     backends = [{"resnet18": EngineBackend("resnet18", data_dir, batch_size=BATCH,
@@ -2971,12 +3298,12 @@ def phase_closedloop(dev: dict, cluster: dict) -> dict:
                     raise AssertionError("the resnet18 job not done in 300 s")
                 time.sleep(0.005)
             job_s = time.perf_counter() - t0
-            predict_launches = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+            predict_launches = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
             report = nodes[2].jobs_report()["resnet18"]
             if report["finished"] != len(synsets) or report["correct"] != want:
                 raise AssertionError(f"resnet18: finished {report['finished']}, correct "
                                      f"{report['correct']}; phase cluster counted {want}")
-            if any(n == 0 for n in predict_launches.values()):
+            if any(predict_launches[k] == 0 for k in PREDICT_KERNELS):
                 raise AssertionError(f"predict launches {predict_launches}")
             # The advisor's decisions and the scheduler's applications of
             # them: the job's members must be the applied plan's.
@@ -3143,7 +3470,7 @@ def phase_vision(dev: dict) -> dict:
                     t = time.perf_counter()
                     preds = tcp("job.predict", {"model": model, "synsets": synsets})["predictions"]
                     answers[model].append((kind, synsets, preds, time.perf_counter() - t))
-                launches[model] = {k: K.launch_counts()[k] for k in PREDICT_KERNELS}
+                launches[model] = {k: K.launch_counts()[k] for k in SERVE_KERNELS}
             for model, got in answers.items():
                 for kind, synsets, preds, _ in got:
                     local = predict({"model": model, "synsets": synsets})["predictions"]
@@ -3161,8 +3488,9 @@ def phase_vision(dev: dict) -> dict:
             requests_report = []
             for kind, synsets, preds, wall in answers[VISION_CLASSIFIER]:
                 paths = source(synsets)
+                # A JPEG shard of one batch decodes on the card (run_paths).
                 pixels = (source.decode_paths(paths, SIZE) if kind == "decode_tier"
-                          else pp.load_batch(paths, size=SIZE))
+                          else pp.load_batch_device(paths, SIZE, "cuda")[0].cpu().numpy())
                 want, gaps = plain_top1(vit.engine, pixels)
                 preds = np.asarray(preds)
                 mask = gaps > GAP
@@ -4989,8 +5317,7 @@ def phase_export(dev: dict, root: Path) -> dict:
     finally:
         stop_local_cluster(nodes)
 
-    photos = sorted(str(p) for p in (Path(__file__).resolve().parent / "tests" / "fixtures"
-                                      / "photos").glob("*.jpg"))
+    photos = [str(p) for p in photo_paths()]
     host = _build_host.ensure_host()
     host_build = dict(_build_host.last_build)
     host_build.pop("command", None)
@@ -5056,26 +5383,28 @@ def main() -> int:
         return 2
     from dmlc_tpu_torch.ops import flash as FL
 
+    t_run = time.perf_counter()
     dev = phase_device()
-    native_build = phase_build()
-    kern = phase_kernels(dev)
-    serve = phase_serve(dev, native_build)
-    sdfs = phase_sdfs(dev, serve)
+    native_build = clocked("build", phase_build)
+    kern = clocked("kernels", phase_kernels, dev)
+    jpeg = clocked("jpeg", phase_jpeg, dev)
+    serve = clocked("serve", phase_serve, dev, native_build)
+    sdfs = clocked("sdfs", phase_sdfs, dev, serve)
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-cluster-") as td:
-        cluster = phase_cluster(dev, Path(td))
-        closed = phase_closedloop(dev, cluster)
-    vision = phase_vision(dev)
+        cluster = clocked("cluster", phase_cluster, dev, Path(td))
+        closed = clocked("closedloop", phase_closedloop, dev, cluster)
+    vision = clocked("vision", phase_vision, dev)
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-gang-") as td:
-        phase_gang(dev, Path(td))
-    gen = phase_generate(dev)
-    decode = phase_decode(dev)
-    train = phase_train(dev)
-    small = phase_train_small(dev)
-    sp = phase_sp(dev)
-    phase_trainer(dev)
-    mesh = phase_mesh(dev)
+        clocked("gang", phase_gang, dev, Path(td))
+    gen = clocked("generate", phase_generate, dev)
+    decode = clocked("decode", phase_decode, dev)
+    train = clocked("train", phase_train, dev)
+    small = clocked("train_small", phase_train_small, dev)
+    sp = clocked("sp", phase_sp, dev)
+    clocked("trainer", phase_trainer, dev)
+    mesh = clocked("mesh", phase_mesh, dev)
     with tempfile.TemporaryDirectory(prefix="dmlc-torch-export-") as td:
-        export = phase_export(dev, Path(td))
+        export = clocked("export", phase_export, dev, Path(td))
     norm = kern["normalize_u8"][torch.bfloat16]
     soft = kern["softmax_top1"]["float32"]
     gather = kern["gather_kv_pages"]["lm_wide"]
@@ -5130,6 +5459,28 @@ def main() -> int:
          "bench_decode": {k: kern["gather_kv_pages"]["bench_decode"][k]
                           for k in ("pool", "table", "distinct_pages", *GATHER_KEYS)}},
     ]
+    # The device decode's kernel: no TPU kernel counterpart (the JAX package
+    # decodes on the host); its launches are those of the main path's JPEG
+    # shards, its numbers the serve corpus's (phase jpeg).
+    dj = jpeg["serve_corpus"]
+    rows.append({"name": "jpeg_idct", "route": "cuda", "source": "dmlc_tpu_torch/csrc/jpeg_idct.cu",
+                 "replaces": None,
+                 "replaces_note": "no TPU kernel: the host decode of native/image_pipeline.cpp:57-200",
+                 "launches": serve["launches"]["jpeg_idct"],
+                 "sdfs_launches": sdfs["launches"]["jpeg_idct"],
+                 "cluster_launches": cluster["launches"]["jpeg_idct"],
+                 "closedloop_launches": {part: n["jpeg_idct"]
+                                         for part, n in closed["launches"].items()
+                                         if part != "sessions"},
+                 "vision_launches": {model: n["jpeg_idct"]
+                                     for model, n in vision["launches"].items()},
+                 **{k: dj[k] for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "library", "differing_share",
+                                       "copy_ms", "copy_bytes", "host_entropy_ms", "img_per_s")},
+                 "max_err": dj["max_abs_err"], "shape": [dj["images"], SIZE, SIZE, 3],
+                 "photos": {k: jpeg["photos"][k]
+                            for k in ("max_abs_err", "ms", "device_ms", "plain_ms", "bound_ms",
+                                      "library_ms", "differing_share", "img_per_s")}})
     paged = kern["paged_decode_attention"]["timings"]
     paged_keys = ("max_abs_err", "ms", "device_ms", "host_us", "plain_ms", "parent_path_ms",
                   "library_ms", "bound_ms", "bound_by", "lengths")
@@ -5321,6 +5672,7 @@ def main() -> int:
         row["entry_point"] = {key: replaced[key][entry] for key in replaced
                               if key.startswith(past) and entry in replaced[key]}
         rows.append(row)
+    emit({"phase_seconds": PHASE_SECONDS, "total_s": time.perf_counter() - t_run})
     print(dev["nvidia_smi"], flush=True)
     emit({"kernels": rows})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -160,6 +160,89 @@ def load_batch_into(
     return out
 
 
+#: Images load_batch_device's host decoder refused (a progressive JPEG, a
+#: PNG, a corrupt file) and PIL decoded instead, since import.
+jpeg_refused_images = 0
+_REFUSED_LOCK = threading.Lock()
+_ARENAS: dict = {}
+
+
+def _default_arena(cuda: bool):
+    from dmlc_tpu_torch.native.jpeg import JpegArena
+
+    with _REFUSED_LOCK:
+        arena = _ARENAS.get(cuda)
+        if arena is None:
+            arena = _ARENAS[cuda] = JpegArena(pin=cuda)
+        return arena
+
+
+@hot_path
+def load_batch_device(
+    paths: Sequence[str | Path | bytes],
+    size: int = 224,
+    device: str | torch.device | None = None,
+    workers: int | None = None,
+    out: torch.Tensor | None = None,
+    arena=None,
+) -> tuple[torch.Tensor, np.ndarray]:
+    """Decode+resize a batch (file paths, or encoded bytes) on ``device``
+    -> (uint8 [N, size, size, 3] there, int32 status [N] of the host
+    decoder, nonzero where it refused the image).
+
+    The host parses and Huffman-decodes every JPEG into a pinned arena
+    (``native/jpeg.py``; ``arena`` when given, else one shared by the
+    callers of this device type), one non-blocking copy on the current
+    stream takes it to the card, and the ``jpeg_idct`` kernel writes the
+    pixels, into ``out`` when given (a contiguous uint8 [N, size, size, 3]
+    on ``device``); the call returns when the stream has done both. On the
+    CPU the plain version writes them. Images the
+    host decoder refuses are decoded alone by PIL (``decode_resize``) and
+    copied into their rows; ``jpeg_refused_images`` counts them. A failed
+    build or launch raises, and nothing falls back from the kernel. The
+    spans ``host/decode`` and ``device/decode`` time the two stages."""
+    global jpeg_refused_images
+    from dmlc_tpu_torch.native import jpeg as native_jpeg
+    from dmlc_tpu_torch.ops import jpeg as jpeg_ops
+    from dmlc_tpu_torch.utils.device import resolve_device
+    from dmlc_tpu_torch.utils.tracing import tracer
+
+    dev = resolve_device(device)
+    cuda = dev.type == "cuda"
+    if cuda:
+        jpeg_ops.kernel_entry()  # built (or refused) before any work
+    n = len(paths)
+    if out is None:
+        out = torch.empty((n, size, size, 3), dtype=torch.uint8, device=dev)
+    elif tuple(out.shape) != (n, size, size, 3) or out.dtype != torch.uint8 \
+            or out.device != dev or not out.is_contiguous():
+        raise ValueError(f"out must be a contiguous uint8 tensor of shape {(n, size, size, 3)} "
+                         f"on {dev}")
+    if not n:
+        return out, np.zeros(0, np.int32)
+    arena = arena if arena is not None else _default_arena(cuda)
+    with arena.lock:
+        with tracer.span("host/decode", n=n):
+            coefs = native_jpeg.decode(paths, size, arena, workers=workers or 0)
+        with tracer.span("device/decode", n=n):
+            if cuda:
+                coefs = coefs.to(dev)
+            jpeg_ops.jpeg_idct(coefs, out)
+            if cuda:  # the span holds the copy and the kernel; the arena is free again
+                torch.cuda.current_stream(dev).synchronize()
+    status = coefs.status
+    refused = np.nonzero(status)[0]
+    for i in refused:
+        src = paths[i]
+        row = decode_blob(src, size) if isinstance(src, (bytes, bytearray, memoryview)) \
+            else decode_resize(src, size)
+        out[i].copy_(torch.tensor(row))
+    if refused.size:
+        with _REFUSED_LOCK:
+            jpeg_refused_images += int(refused.size)
+    return out, status
+
+
 def decode_blob(data: bytes, size: int = 224) -> np.ndarray:
     """One encoded image's raw BYTES -> uint8 [size, size, 3] RGB, with the
     resize semantics of :func:`decode_resize`. Raises on undecodable bytes."""

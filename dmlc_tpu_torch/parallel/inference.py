@@ -137,6 +137,9 @@ class InferenceEngine:
         self._pinned: list[torch.Tensor] = []
         self._slot_done: list[torch.cuda.Event | None] = [None] * _RING
         self._copy_stream = torch.cuda.Stream(self.device) if self._cuda else None
+        # The device decode's pinned coefficient arena (run_paths), built at
+        # its first batch.
+        self._jpeg_arena = None
         # Per-stage ingest pipeline counters (INGEST_STAGES): decode records
         # from pool threads too, hence the lock.
         self._ingest_lock = threading.Lock()
@@ -210,22 +213,37 @@ class InferenceEngine:
 
     # ---- one batch --------------------------------------------------------
 
-    def run_batch(self, batch_u8: np.ndarray) -> BatchResult:
-        """Classify/embed up to ``batch_size`` images (uint8 NHWC)."""
-        n = batch_u8.shape[0]
+    def _check_batch(self, n: int) -> None:
         if n == 0:
             raise ValueError("empty batch")
         if n > self.batch_size:
             raise ValueError(f"batch {n} exceeds engine batch_size {self.batch_size}")
-        batch_u8 = self._pad(np.ascontiguousarray(batch_u8, np.uint8))
+
+    def _run_device(self, u8: torch.Tensor, n: int, span: str = "device/forward",
+                    procs: int = 1) -> BatchResult:
+        """The forward of one padded uint8 NHWC batch whose first ``n`` rows
+        are real, timed up to its host result (a host tensor's copy to the
+        device included; with ``procs > 1`` up to the gang's barrier after
+        it), with its stats, its span and ``device_work``."""
         t0 = time.perf_counter()
-        host = self._to_host(self._forward(torch.from_numpy(batch_u8).to(self.device)))
+        host = self._to_host(self._forward(u8.to(self.device)))
+        if procs > 1:
+            import torch.distributed as dist
+
+            dist.barrier()
         dt = time.perf_counter() - t0
         self._stats.record(dt)
-        tracer.record("device/forward", dt, model=self.spec.name, batch=int(n))
+        tracer.record(span, dt, model=self.spec.name, batch=int(n))
         if self.device_work is not None:
             self.device_work(self.spec.name, int(n), dt)
         return self._result(host, n, dt)
+
+    def run_batch(self, batch_u8: np.ndarray) -> BatchResult:
+        """Classify/embed up to ``batch_size`` images (uint8 NHWC)."""
+        n = batch_u8.shape[0]
+        self._check_batch(n)
+        batch_u8 = self._pad(np.ascontiguousarray(batch_u8, np.uint8))
+        return self._run_device(torch.from_numpy(batch_u8), n)
 
     def run_batch_global(self, local_u8: np.ndarray) -> BatchResult:
         """The gang's batch over the default process group: every process
@@ -246,24 +264,37 @@ class InferenceEngine:
             raise ValueError(f"local batch {n} exceeds per-process share {local_cap}")
         local = np.zeros((local_cap, *local_u8.shape[1:]), np.uint8)
         local[:n] = local_u8
-        t0 = time.perf_counter()
-        host = self._to_host(self._forward(torch.from_numpy(local).to(self.device)))
-        if procs > 1:
-            import torch.distributed as dist
-
-            dist.barrier()
-        dt = time.perf_counter() - t0
-        self._stats.record(dt)
-        tracer.record("device/forward_global", dt, model=self.spec.name, batch=int(n))
-        if self.device_work is not None:
-            self.device_work(self.spec.name, int(n), dt)
-        return self._result(host, n, dt)
+        return self._run_device(torch.from_numpy(local), n, "device/forward_global", procs)
 
     def run_paths(self, paths: Sequence[str], workers: int | None = None) -> BatchResult:
-        """Decode + resize on host threads, then one device batch."""
+        """One device batch of image files. A CUDA engine decodes them on
+        the card (``_run_paths_device``); a CPU engine decodes and resizes
+        on host threads (``load_batch``) and runs ``run_batch``."""
+        if self._cuda:
+            return self._run_paths_device(paths, workers)
         with tracer.span("host/decode", n=len(paths)):
             batch = pp.load_batch(paths, size=self.input_size, workers=workers)
         return self.run_batch(batch)
+
+    def _run_paths_device(self, paths: Sequence[str], workers: int | None = None) -> BatchResult:
+        """``pp.load_batch_device`` straight into the engine's input batch
+        on the device (entropy decode on the host into the engine's pinned
+        arena, one copy, the ``jpeg_idct`` kernel; spans ``host/decode`` and
+        ``device/decode``, which ends when the card has decoded), the pad
+        rows zeroed there, then the forward alone under ``device/forward``:
+        no host pixel array and no pageable copy."""
+        n = len(paths)
+        self._check_batch(n)
+        if self._jpeg_arena is None:
+            from dmlc_tpu_torch.native.jpeg import JpegArena
+
+            self._jpeg_arena = JpegArena(pin=self._cuda)
+        size = self.input_size
+        u8 = torch.empty((self.batch_size, size, size, 3), dtype=torch.uint8, device=self.device)
+        u8[n:].zero_()
+        pp.load_batch_device(paths, size, self.device, workers=workers, out=u8[:n],
+                             arena=self._jpeg_arena)
+        return self._run_device(u8, n)
 
     # ---- the stream pipeline ------------------------------------------------
 

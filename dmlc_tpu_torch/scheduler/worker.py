@@ -491,12 +491,20 @@ class EngineBackend:
 
     def warmup(self) -> None:
         """Build the native decoder (best effort) and the engine, and run
-        the engine's first batch now, before serving."""
+        the engine's first batch now, before serving; on a CUDA engine also
+        build the device decode's entropy library and kernel (raising when
+        either cannot be built)."""
         from dmlc_tpu_torch import native
 
         native.ensure_built()
         with self._lock:
-            self._ensure_engine()
+            engine = self._ensure_engine()
+        if engine.device.type == "cuda":
+            from dmlc_tpu_torch.native import jpeg as native_jpeg
+            from dmlc_tpu_torch.ops import jpeg as jpeg_ops
+
+            native_jpeg.load()
+            jpeg_ops.kernel_entry()
 
     def _ensure_engine(self):
         if self._engine is None:

@@ -138,7 +138,7 @@ def test_entry_points_refuse_without_cuda(monkeypatch, tmp_path):
 
 def test_kernel_sources_are_listed_and_build_is_lazy():
     assert _build.kernel_names() == ["flash_bwd_dkv", "flash_bwd_dq", "flash_fwd", "flash_wide",
-                                     "gather_pages", "normalize_u8", "paged_decode",
+                                     "gather_pages", "jpeg_idct", "normalize_u8", "paged_decode",
                                      "softmax_top1"]
     assert _build.library_path("normalize_u8").parent == _build.BUILD_DIR
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS

@@ -254,7 +254,7 @@ def test_cpu_tensors_take_the_plain_version_and_launch_nothing():
     assert all(torch.equal(a, b) for a, b in zip(got, want))
     assert kernels.launch_counts() == {"normalize_u8": 0, "softmax_top1": 0, "gather_kv_pages": 0,
                                        "paged_decode_attention": 0, "flash_forward": 0,
-                                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0}
+                                       "flash_bwd_dq": 0, "flash_bwd_dkv": 0, "jpeg_idct": 0}
 
 
 # ---------------------------------------------------------------------------

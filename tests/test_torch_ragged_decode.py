@@ -90,7 +90,7 @@ def test_gather_rejects_bad_inputs(pool, table, err):
 def test_gather_wrapper_is_counted_with_the_other_kernels():
     assert set(kernels.KERNELS) == {"normalize_u8", "softmax_top1", "gather_kv_pages",
                                     "paged_decode_attention", "flash_forward", "flash_bwd_dq",
-                                    "flash_bwd_dkv"}
+                                    "flash_bwd_dkv", "jpeg_idct"}
     assert kernels.KERNELS["gather_kv_pages"] is trd.gather_kv_pages
     assert kernels.KERNELS["paged_decode_attention"] is trd.paged_decode_attention
 
