@@ -5,9 +5,11 @@ each JPEG of a batch is parsed and Huffman-decoded into quantized DCT
 coefficients, with no libjpeg and no other library, into a caller-owned
 arena (:class:`JpegArena`) that is reused from batch to batch and copied to
 the card in one piece; the ``jpeg_idct`` kernel (``ops/jpeg.py``) does the
-rest there. ``g++`` builds the source into
+rest there, from the plan ``jpeg_plan.cpp`` builds for each batch (the
+IDCT's runs, the colour pass's tiles and resample tables; ``ops/jpeg.py``
+``batch_plan``). ``g++`` builds both sources into
 ``dmlc_tpu_torch/_build/libdmlc_jpeg.so`` (a directory ``.gitignore``
-lists) at first use, or when the source or this file is newer than the
+lists) at first use, or when a source or this file is newer than the
 library; a failed build raises.
 
 Status codes (``STATUS``) name why an image was refused; a refused image
@@ -30,8 +32,11 @@ import numpy as np
 import torch
 
 _SRC = Path(__file__).resolve().parent / "jpeg_entropy.cpp"
+_PLAN_SRC = _SRC.with_name("jpeg_plan.cpp")
 _LIB_PATH = Path(__file__).resolve().parent.parent / "_build" / "libdmlc_jpeg.so"
-CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall")
+# No fused multiply-add: the plan's tap weights round each double operation
+# as ops/jpeg.py resample_taps does.
+CXXFLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall", "-ffp-contract=off")
 LDFLAGS = ("-shared", "-lpthread")
 _ABI_VERSION = 1
 
@@ -53,7 +58,7 @@ _LOCK = threading.Lock()
 
 def build_command(out: Path = _LIB_PATH) -> list[str]:
     """The g++ command line that builds the library into ``out``."""
-    return ["g++", *CXXFLAGS, str(_SRC), "-o", str(out), *LDFLAGS]
+    return ["g++", *CXXFLAGS, str(_SRC), str(_PLAN_SRC), "-o", str(out), *LDFLAGS]
 
 
 def build() -> None:
@@ -78,7 +83,7 @@ def _stale() -> bool:
     if not _LIB_PATH.exists():
         return True
     built = _LIB_PATH.stat().st_mtime
-    return any(p.stat().st_mtime > built for p in (_SRC, Path(__file__)))
+    return any(p.stat().st_mtime > built for p in (_SRC, _PLAN_SRC, Path(__file__)))
 
 
 def load() -> ctypes.CDLL:
@@ -103,6 +108,17 @@ def load() -> ctypes.CDLL:
             ctypes.c_int64, ctypes.POINTER(ctypes.c_int64), ctypes.c_int,
         ]
         lib.dmlc_jpeg_pool_size.restype = ctypes.c_int
+        p32 = ctypes.POINTER(ctypes.c_int32)
+        lib.dmlc_jpeg_taps.restype = ctypes.c_int64
+        lib.dmlc_jpeg_taps.argtypes = [ctypes.c_int, ctypes.c_int, p32, p32,
+                                       ctypes.POINTER(ctypes.c_float), ctypes.c_int64]
+        lib.dmlc_jpeg_geometry_plan.restype = ctypes.c_int64
+        lib.dmlc_jpeg_geometry_plan.argtypes = [ctypes.c_int] * 3 + [p32, ctypes.c_int]
+        lib.dmlc_jpeg_batch_plan.restype = ctypes.c_int64
+        lib.dmlc_jpeg_batch_plan.argtypes = [p32, p32, ctypes.c_int, ctypes.c_int]
+        lib.dmlc_jpeg_plan_take.restype = ctypes.c_int64
+        lib.dmlc_jpeg_plan_take.argtypes = [p32, ctypes.c_int64]
+        lib.dmlc_jpeg_plan_forget.restype = None
         _lib = lib
         return lib
 
@@ -165,7 +181,6 @@ class Coefficients:
     offsets: dict
     total_blocks: int
     plane_bytes: int
-    max_comp_blocks: int
     images: np.ndarray  # int32 [n, IMG_INTS]
     comps: np.ndarray   # int32 [n * MAX_COMPS, COMP_INTS]
 
@@ -222,7 +237,7 @@ def decode(srcs: Sequence[str | os.PathLike | bytes], size: int, arena: JpegAren
         n * MAX_COMPS, COMP_INTS).copy()
     return Coefficients(data=tensor, nbytes=int(needed.value), n=n, size=int(size),
                         offsets=offsets, total_blocks=int(hdr[2]), plane_bytes=int(hdr[3]),
-                        max_comp_blocks=int(hdr[4]), images=images, comps=comps)
+                        images=images, comps=comps)
 
 
 def pool_size() -> int:

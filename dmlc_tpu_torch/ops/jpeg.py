@@ -14,11 +14,26 @@ triangle resample of
 scaled image already is size x size. The kernel is ``csrc/jpeg_idct.cu``;
 it replaces no TPU kernel (the JAX package decodes on the host).
 
+The kernel works from a plan the host builds for each batch
+(:func:`batch_plan`, in C++: ``native/jpeg_plan.cpp``, built into the
+entropy decoder's library): the IDCT's runs (up to ``RUN_BLOCKS`` blocks of
+one component's block row each, so no CTA launches idle) and, for each
+image geometry, the colour pass's tiles (:func:`geometry_plan`: an output
+range, the scaled and source extents and the plane boxes it stages in
+shared memory, within ``SMEM_BUDGET``) and its resample tables
+(:func:`trimmed_taps`: ``resample_taps``' float32 weights without their
+zero taps, so no weight is computed on the card). A new geometry costs
+tens of microseconds on the host, most of it its tables' divisions, and
+its record is kept for later batches; a batch's plan is cached by the
+record fields it depends on, with its copy on the card, so a batch like a
+recent one costs neither.
+
 On a CUDA batch the wrapper launches the kernel, on a CPU batch it runs
 the plain PyTorch version ``jpeg_idct_reference``, which computes the same
 function with the same separately rounded float operations in the same
-order, so the two give the same bytes. A failed build or launch raises;
-nothing falls back.
+order, so the two give the same bytes (a zero tap adds exactly 0 to a sum
+of non-negative terms, so the trimmed tables change no bit). A failed
+build or launch raises; nothing falls back.
 """
 
 from __future__ import annotations
@@ -26,20 +41,57 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
+from dmlc_tpu_torch.native import jpeg as nj
 from dmlc_tpu_torch.native.jpeg import MAX_COMPS, Coefficients
 from dmlc_tpu_torch.ops import _build, kernels
 
-# The arena's five regions (basis, images, comps, qtables, coef); n and
-# max_comp_blocks; the planes and out; size; the stream.
+# The arena's five regions (basis, images, comps, qtables, coef); the plan;
+# n, the IDCT's runs, the colour pass's tiles and its shared memory; the
+# planes and out; size; the stream.
 kernels._SIGNATURES["jpeg_idct"] = (
     "dmlc_jpeg_idct",
-    [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2
+    [ctypes.c_void_p] * 6 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 2
     + [ctypes.c_int, ctypes.c_void_p],
 )
+
+#: Blocks of one component's block row an IDCT CTA takes (8 threads a block).
+RUN_BLOCKS = 16
+#: Output rows a colour tile takes before the plan shrinks it to fit.
+TILE_ROWS = 16
+#: Shared memory a colour tile may stage (4 CTAs an SM: kColorCtas in
+#: csrc/jpeg_idct.cu), and what a block can have at most on an H100
+#: (227 KB). native/jpeg_plan.cpp plans with these.
+SMEM_BUDGET = 64 * 1024
+SMEM_MAX = 232448
+#: int32 fields of the plan's header (n, runs, tiles, shared memory), of a
+#: geometry record and of a tile record (csrc/jpeg_idct.cu reads them).
+PLAN_HDR, GEOM_INTS, TILE_INTS = 4, 28, 32
+#: A geometry record: its tile count and the offset of its tiles; whether
+#: it resamples to size x size, and the offsets of that resample's row and
+#: column tables; each component's row and column tables to the scaled
+#: grid (-1: not resampled); the shared-memory offsets, for each component,
+#: of its samples on the scaled extent (S, a component not resampled), of
+#: its fancy samples on the source extent and of its horizontal pass (F
+#: and H, a resampled one), and of its plane box (Q, a component that is
+#: fancy-upsampled); of the scaled RGB or the staged output (P), the final
+#: horizontal pass (T) and the staged output of the final resample (O);
+#: the total bytes; and whether the two chroma components are twins (the
+#: same source grid and upsampling, so the same tables, extents and boxes,
+#: which the kernel makes in one pass). Offsets are int32 units from the
+#: record's start (-1: none), shared-memory ones bytes.
+G_NTILES, G_TILES, G_RESIZE, G_FY, G_FX, G_CY, G_CX = 0, 1, 2, 3, 4, 5, 8
+G_S, G_F, G_H, G_Q, G_P, G_T, G_O, G_SMEM, G_TWIN = 11, 14, 17, 20, 23, 24, 25, 26, 27
+#: A tile record: the output rows and columns [oy0, oy1) x [ox0, ox1), the
+#: scaled extent [Y0, Y1) x [X0, X1) it stages; for each component its
+#: source extent [SY0, SY1) x [SX0, SX1) (the scaled extent where it is
+#: not resampled) and the box of plane rows and columns [r0, r1) x
+#: [c0, c1) its fancy samples there read.
+T_OUT, T_SCALED, T_SRC, T_BOX = 0, 4, 8, 20
 
 
 def kernel_entry():
@@ -71,13 +123,16 @@ def jpeg_idct(coefs: Coefficients, out: torch.Tensor | None = None) -> torch.Ten
         out = coefs.data.new_empty((coefs.n, coefs.size, coefs.size, 3))
     if coefs.n == 0 or not (coefs.images[:, 0] == 0).any():
         return out
+    plan = batch_plan(coefs)
+    on_card = plan.to(coefs.data.device)
     planes = coefs.data.new_empty(max(coefs.plane_bytes, 1))
     base = coefs.data.data_ptr()
     off = coefs.offsets
     lib, fn = kernel_entry()
     rc = kernels._launch(coefs.data, fn, base + off["basis"], base + off["images"],
-                         base + off["comps"], base + off["qt"], base + off["coef"], coefs.n,
-                         coefs.max_comp_blocks, planes.data_ptr(), out.data_ptr(), coefs.size)
+                         base + off["comps"], base + off["qt"], base + off["coef"],
+                         on_card.data_ptr(), coefs.n, plan.runs, plan.tiles, plan.smem,
+                         planes.data_ptr(), out.data_ptr(), coefs.size)
     _build.check(lib, rc, "jpeg_idct")
     jpeg_idct.launches += 1
     return out
@@ -85,6 +140,139 @@ def jpeg_idct(coefs: Coefficients, out: torch.Tensor | None = None) -> torch.Ten
 
 jpeg_idct.launches = 0  # type: ignore[attr-defined]
 kernels.KERNELS["jpeg_idct"] = jpeg_idct
+
+
+# ---------------------------------------------------------------------------
+# the plan
+# ---------------------------------------------------------------------------
+
+
+def _ptr(a: np.ndarray, ctype=ctypes.c_int32):
+    return a.ctypes.data_as(ctypes.POINTER(ctype))
+
+
+def _plan_call(call, what: str) -> np.ndarray:
+    """int32 output of a ``native/jpeg_plan.cpp`` entry: ``call()`` builds
+    it in the library and returns its length or an error code; for a
+    geometry past SMEM_MAX it keeps the image and the bytes its 1x1 tile
+    stages."""
+    lib = nj.load()
+    rc = int(call(lib))
+    out = np.empty(max(rc, 2), np.int32)
+    lib.dmlc_jpeg_plan_take(_ptr(out), out.size)
+    if rc == -2:
+        raise ValueError(f"{what}: a 1x1 tile of image {out[0]} stages {out[1]} bytes, "
+                         f"past {SMEM_MAX}")
+    if rc < 0:
+        reason = {-1: "bad arguments", -3: "past int32", -4: "an output with no weight"}
+        raise ValueError(f"{what}: the plan was refused ({reason.get(rc, rc)})")
+    return out
+
+
+def trimmed_taps(in_size: int, out_size: int) -> tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """``resample_taps(in_size, out_size)`` without its zero taps, as
+    ``native/jpeg_plan.cpp`` makes the kernel's tables: (int32 [out] first
+    source index, int32 [out] tap count, float32 [out, K] weights, rows
+    padded with 0). Each row keeps its taps in order, so a sum over them
+    equals the full row's bit for bit."""
+    first, count = np.empty(out_size, np.int32), np.empty(out_size, np.int32)
+    cap = out_size * (int(2 * max(1.0, in_size / out_size)) + 3)
+    w = np.empty(cap, np.float32)
+    k = nj.load().dmlc_jpeg_taps(in_size, out_size, _ptr(first), _ptr(count),
+                                 _ptr(w, ctypes.c_float), cap)
+    if k <= 0 or out_size * k > cap:
+        raise ValueError(f"resample {in_size} -> {out_size}: refused ({k})")
+    return first, count, w[:out_size * k].reshape(out_size, k).copy()
+
+
+@dataclass(frozen=True)
+class GeometryPlan:
+    """The colour pass's plan for one image geometry: ``record`` is what
+    the kernel reads (the geometry record, its tiles, its tables);
+    ``tiles`` int32 [T, TILE_INTS]; ``tables`` the trimmed taps by name
+    (``fy``, ``fx``: to size x size; ``cy<c>``, ``cx<c>``: component c to
+    the scaled grid); ``rows`` x ``cols`` the first tile's output."""
+
+    record: np.ndarray
+    tiles: np.ndarray
+    tables: dict
+    rows: int
+    cols: int
+    smem: int
+
+
+def geometry_plan(ncomp: int, ws: int, hs: int, comps: tuple, size: int) -> GeometryPlan:
+    """The plan of an image of ``ncomp`` components whose scaled image is
+    ws x hs and whose component c sits on the source grid (srcw, srch),
+    fancy-upsampled by (fx, fy) from its plane: ``comps[c]``, as
+    ``batch_plan`` places it (``native/jpeg_plan.cpp``): tiles start at
+    TILE_ROWS full-width rows and halve their rows or columns, whichever
+    stages less, until they fit SMEM_BUDGET."""
+    if len(comps) != ncomp:
+        raise ValueError(f"{ncomp} components but {len(comps)} component geometries")
+    arr = np.asarray(comps, np.int32).reshape(-1)
+    record = _plan_call(lambda lib: lib.dmlc_jpeg_geometry_plan(ncomp, ws, hs, _ptr(arr), size),
+                        f"geometry {(ncomp, ws, hs, comps, size)}")
+    tiles = record[GEOM_INTS:GEOM_INTS + record[G_NTILES] * TILE_INTS].reshape(-1, TILE_INTS)
+    tables = {}
+    slots = {"fy": G_FY, "fx": G_FX, **{f"c{a}{c}": (G_CY if a == "y" else G_CX) + c
+                                       for c in range(ncomp) for a in "yx"}}
+    for name, slot in slots.items():
+        at = int(record[slot])
+        if at >= 0:
+            n, k = int(record[at]), int(record[at + 1])
+            body = record[at + 2:at + 2 + 2 * n + n * k]
+            tables[name] = (body[:n], body[n:2 * n], body[2 * n:].view(np.float32).reshape(n, k))
+    return GeometryPlan(record=record, tiles=tiles, tables=tables,
+                        rows=int(tiles[0, 1] - tiles[0, 0]), cols=int(tiles[0, 3] - tiles[0, 2]),
+                        smem=int(record[G_SMEM]))
+
+
+@dataclass(frozen=True)
+class BatchPlan:
+    """One batch's plan (int32 ``data``): the header, each image's first
+    tile (a prefix of n + 1), the offset of each image's geometry record,
+    each component record's first IDCT run (a prefix of 3n + 1), then the
+    geometry records; and the launch's runs, tiles and shared memory."""
+
+    data: np.ndarray
+    runs: int
+    tiles: int
+    smem: int
+    on_card: dict = field(default_factory=dict, compare=False, repr=False)
+
+    def to(self, device: torch.device) -> torch.Tensor:
+        """``data`` on ``device``, copied there once: a batch whose records
+        repeat a cached plan's costs no copy."""
+        t = self.on_card.get(device)
+        if t is None:
+            t = self.on_card[device] = torch.from_numpy(self.data).to(device)
+        return t
+
+
+def batch_plan(coefs: Coefficients) -> BatchPlan:
+    """The plan ``jpeg_idct``'s kernel reads for this batch
+    (``native/jpeg_plan.cpp``), cached on the record fields it depends on
+    (so a stream of like batches builds it once)."""
+    return _batch_plan(coefs.images[:, [0, 3, 5, 6]].tobytes(),
+                       coefs.comps[:, [1, 2, 12, 13, 8, 9]].tobytes(), coefs.n, coefs.size)
+
+
+def forget_plans() -> None:
+    """Drops every cached plan, the batches' and the geometries' kept by
+    ``native/jpeg_plan.cpp``: the next batch makes its plan anew."""
+    _batch_plan.cache_clear()
+    nj.load().dmlc_jpeg_plan_forget()
+
+
+@functools.lru_cache(maxsize=16)
+def _batch_plan(images: bytes, comps: bytes, n: int, size: int) -> BatchPlan:
+    """``images``: int32 [n, 4] status, ncomp, ws, hs; ``comps``: int32
+    [n * MAX_COMPS, 6] bw, bh, srcw, srch, fx, fy."""
+    img, rec = np.frombuffer(images, np.int32), np.frombuffer(comps, np.int32)
+    data = _plan_call(lambda lib: lib.dmlc_jpeg_batch_plan(_ptr(img), _ptr(rec), n, size),
+                      f"batch of {n}")
+    return BatchPlan(data=data, runs=int(data[1]), tiles=int(data[2]), smem=int(data[3]))
 
 
 # ---------------------------------------------------------------------------

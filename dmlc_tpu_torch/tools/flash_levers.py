@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Times design variants (levers) of the flash, paged decode, page gather and softmax_top1 kernels, one at a time.
+"""Times design variants (levers) of the flash, paged decode, page gather, softmax_top1 and jpeg_idct kernels, one at a time.
 
     python3 dmlc_tpu_torch/tools/flash_levers.py SCRATCH_DIR GROUP [--parent CSRC_DIR] [VARIANT ...]
 
@@ -32,7 +32,11 @@ serving shape and the decode bench's, warm and with a cold L2); ``paged``
 (paged_decode_attention in float32 at the
 decode bench's one-step state and at lm_wide's geometry, Dh 128, both
 kernels of a call timed together, after ``chip_smoke.paged_check`` at each
-geometry and head dim); or ``ab``, an earlier csrc/ against the checkout's
+geometry and head dim); ``jpeg`` (jpeg_idct's two kernels on the serve
+phase's 200-JPEG corpus, each variant's bytes against the plain version's
+and each kernel's device ms, three readings of 20 calls; the ``stamps``
+variant also reads the colour kernel's mean cycles a tile in each of its
+stages, from clock64() stamps of thread 0 of each tile); or ``ab``, an earlier csrc/ against the checkout's
 (give --parent): the three flash kernels in both dtypes at the train shape
 and its Dh-64 twin, the wide kernels (csrc/flash_wide.cu, through their
 entry points whatever the wrappers pick) at [4, 4, 1024, Dh] for Dh 160
@@ -606,6 +610,35 @@ XB_DKV_STAGES = "  static constexpr int kOStages = 2;      // the chunk's Q/dO t
 SM_THREADS = "constexpr int kRowThreads = 128;"
 SM_ROWS = "constexpr int kRowsPerBlock = 1;"
 
+# jpeg_idct: ctas3, the colour kernel at 3 CTAs an SM (80 registers) for
+# 4 (64); runs2, runs8: runs an IDCT CTA takes in turn; nofp: the IDCT
+# without its two passes (its output is not the plain version's); stamps:
+# clock64() at the colour kernel's stage boundaries (g_stamps, read back
+# through dmlc_jpeg_stage_cycles).
+J_CTAS = "constexpr int kColorCtas = 4;"
+J_RUNS = "constexpr int kRunsPerCta = 4;"
+J_ROWS = "  if (live) {  // row pass"
+J_COLS = "  if (live) {  // column pass"
+J_STAMP = "  STAMP({})\n"
+J_STAMPS = [
+    ("#include <stdint.h>\n", "#include <stdint.h>\n"
+     "constexpr int kStampTiles = 1 << 16;\n"
+     "__device__ long long g_stamps[kStampTiles * 8];\n"
+     'extern "C" int dmlc_jpeg_stage_cycles(void* host, int tiles) {\n'
+     "  return (int)cudaMemcpyFromSymbol(host, g_stamps, (size_t)tiles * 8 * 8);\n}\n"
+     "#define STAMP(i) if (threadIdx.x == 0 && blockIdx.x < kStampTiles) "
+     "g_stamps[blockIdx.x * 8 + (i)] = clock64();\n"),
+    ("  // a. Each component's plane box", "  __syncthreads();\n" + J_STAMP.format(0)
+     + "  // a. Each component's plane box"),
+    ("  // b. Each upsampled component's", J_STAMP.format(1) + "  // b. Each upsampled component's"),
+    ("  if (any_resampled) {\n", J_STAMP.format(2) + "  if (any_resampled) {\n"),
+    ("  // d. Each scaled pixel", J_STAMP.format(3) + "  // d. Each scaled pixel"),
+    ("  // e. The resample to size", J_STAMP.format(4) + "  // e. The resample to size"),
+    ("  // f. The store.\n", "  // f. The store.\n" + J_STAMP.format(5)),
+    ("    store_run(dst, staged, oY * size * 3);\n",
+     "    store_run(dst, staged, oY * size * 3);\n    __syncthreads();\n" + J_STAMP.format(6)),
+]
+
 GROUPS = {
     "dq": Group("bfloat16", ("flash_bwd_dq",), (TRAIN_SHAPE,), {
         "a": {"flash_bwd_dq": [KEYS_128]},
@@ -778,6 +811,15 @@ GROUPS = {
         "block64": {"softmax_top1": [(SM_THREADS, SM_THREADS.replace("128", "64"))]},
         "block256": {"softmax_top1": [(SM_THREADS, SM_THREADS.replace("128", "256"))]},
     }, ("ship", "warp1", "warp2", "block64", "block256", "ship"), "softmax"),
+    "jpeg": Group("uint8", ("jpeg_idct",), ("serve",), {
+        "ship": {},
+        "ctas3": {"jpeg_idct": [(J_CTAS, J_CTAS.replace("4", "3"))]},
+        "runs2": {"jpeg_idct": [(J_RUNS, J_RUNS.replace("4", "2"))]},
+        "runs8": {"jpeg_idct": [(J_RUNS, J_RUNS.replace("4", "8"))]},
+        "nofp": {"jpeg_idct": [(J_ROWS, J_ROWS.replace("(live)", "(false)")),
+                               (J_COLS, J_COLS.replace("(live)", "(false)"))]},
+        "stamps": {"jpeg_idct": J_STAMPS},
+    }, ("ship", "ctas3", "runs2", "runs8", "nofp", "stamps", "ship"), "jpeg"),
     "ab": Group("bfloat16", ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv"),
                 (TRAIN_SHAPE, DH64_SHAPE), {"ship": {}}, ("ship", "ship"), "ab",
                 checks=((TRAIN_SHAPE, True),)),
@@ -969,8 +1011,38 @@ print(json.dumps(report))
 """
 
 
+RUN_JPEG = """
+import json, tempfile
+from pathlib import Path
+import numpy as np, torch, chip_smoke as cs
+from dmlc_tpu_torch.native import jpeg as NJ
+from dmlc_tpu_torch.ops import _build, jpeg as JO, preprocess as pp
+from dmlc_tpu_torch.utils import corpus
+_build.build(["jpeg_idct"])
+report = {"card": cs.phase_device()["nvidia_smi"]}
+data_dir, synsets = corpus.generate(Path(tempfile.mkdtemp()) / "corpus", **cs.SERVE_CORPUS)
+paths = [pp.class_image_path(data_dir, s) for s, _ in pp.load_synset_words(synsets)]
+coefs = NJ.decode(paths, cs.SIZE, NJ.JpegArena(pin=True)).to(torch.device("cuda"))
+got = JO.jpeg_idct(coefs)
+report["equal"] = bool(torch.equal(got, JO.jpeg_idct_reference(coefs)))
+run = lambda: JO.jpeg_idct(coefs)
+report["device_ms"] = [cs.kernel_device_ms_each(run, cs.JPEG_KERNEL_NAMES) for _ in range(3)]
+report["ptxas"] = {k[-30:]: v for k, v in cs.ptxas_entries(_build.build_log["jpeg_idct"]).items()}
+lib = _build.load("jpeg_idct")
+if hasattr(lib, "dmlc_jpeg_stage_cycles"):
+    run()
+    torch.cuda.synchronize()
+    tiles = JO.batch_plan(coefs).tiles
+    stamps = np.zeros((tiles, 8), np.int64)
+    if lib.dmlc_jpeg_stage_cycles(stamps.ctypes.data_as(cs.ctypes.c_void_p), tiles):
+        raise RuntimeError("dmlc_jpeg_stage_cycles failed")
+    stages = ("copy", "fancy", "horizontal", "vertical_colour", "resize", "store")
+    report["stage_cycles"] = dict(zip(stages, np.diff(stamps[:, :7], axis=1).mean(0).tolist()))
+print(json.dumps(report))
+"""
+
 SCRIPTS = {"flash": RUN, "paged": RUN_PAGED, "gather": RUN_GATHER, "softmax": RUN_SOFTMAX,
-           "ab": RUN_AB}
+           "jpeg": RUN_JPEG, "ab": RUN_AB}
 
 
 def variant_sources(group: str, name: str, parent: Path | None = None) -> dict[str, str]:

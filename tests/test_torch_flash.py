@@ -678,6 +678,14 @@ def test_softmax_lever_tool_finds_its_lines_once(lever):
     assert tool.GROUPS["softmax"].script == "softmax" and "softmax" in tool.SCRIPTS
 
 
+@pytest.mark.parametrize("lever", ["ctas3", "runs2", "runs8", "nofp", "stamps"])
+def test_jpeg_lever_tool_finds_its_lines_once(lever):
+    """jpeg_idct's variants (group jpeg), timed on the serve phase's corpus."""
+    _lever_sources_apply("jpeg", lever)
+    tool = _tool("flash_levers")
+    assert tool.GROUPS["jpeg"].script == "jpeg" and "jpeg" in tool.SCRIPTS
+
+
 @pytest.mark.parametrize("lever", ["vec16", "chunk8k", "chunk32k", "stages3", "blocks1",
                                    "waitall"])
 def test_gather_lever_tool_finds_its_lines_once(lever):

@@ -20,6 +20,7 @@
 """
 
 import math
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -242,6 +243,36 @@ def test_pixels_match_the_jax_package(size, corpus, smooth_photos):
     assert got.std() > 10  # not equal because blank
 
 
+@pytest.fixture(scope="module")
+def many_sizes(tmp_path_factory):
+    """64 photos of 64 sizes, no two widths or heights alike (256x192 up to
+    697x507, 4:2:0), as chip_smoke.jpeg_sizes makes them: M from 4 to 8,
+    chroma resampled to the scaled grid."""
+    root = tmp_path_factory.mktemp("jpeg_sizes")
+    out = []
+    for k in range(64):
+        with Image.open(PHOTOS[k % len(PHOTOS)]) as im:
+            p = root / f"{k}.jpg"
+            im.convert("RGB").resize((256 + 7 * k, 192 + 5 * k), Image.BILINEAR).save(
+                p, "JPEG", quality=90, subsampling=2)
+            out.append(p)
+    return out
+
+
+@pytest.mark.parametrize("size", [224, 96])
+def test_pixels_of_many_sizes_match_the_jax_package(size, many_sizes):
+    """The port's pixels against the JAX package's decoder on 64 sizes.
+    PIL is not the yardstick here: the JAX package's own decode (libjpeg's
+    scaled IDCT and the triangle filter) is farther from PIL's than the
+    bounds on some of these."""
+    if not jax_native.ensure_built():
+        pytest.skip("the JAX package's native decoder is not built (g++ or libjpeg missing)")
+    got, status = tpp.load_batch_device(many_sizes, size, "cpu")
+    ref, ref_status = jax_native.decode_resize_batch(many_sizes, size)
+    assert not status.any() and not ref_status.any()
+    _assert_within_bounds(got.numpy(), ref, "against decode_resize_batch")
+
+
 @pytest.mark.parametrize("photo", [p.name for p in PHOTOS])
 def test_plain_idct_matches_a_float64_oracle(photo):
     """Every block of a photo's every component at M = 8."""
@@ -416,13 +447,14 @@ def test_a_cuda_request_raises_without_the_kernel_and_never_decodes_on_the_cpu(m
 
 def test_the_build_links_no_libjpeg():
     cmd = nj.build_command()
-    assert cmd[0] == "g++" and str(nj._SRC) in cmd
+    assert cmd[0] == "g++" and str(nj._SRC) in cmd and str(nj._PLAN_SRC) in cmd
+    assert "-ffp-contract=off" in cmd  # the plan's weights round as Python's
     assert not any("jpeg" in a for a in cmd if a.startswith("-l"))
     nj.load()
     if shutil.which("ldd"):
         linked = subprocess.run(["ldd", str(nj._LIB_PATH)], capture_output=True, text=True).stdout
         assert "libjpeg" not in linked
-    assert "jpeglib.h" not in nj._SRC.read_text()
+    assert "jpeglib.h" not in nj._SRC.read_text() + nj._PLAN_SRC.read_text()
 
 
 def test_arena_is_reused_and_grows(made):
@@ -445,6 +477,27 @@ def test_records_match_the_kernel_source():
     src = nj._SRC.read_text()
     assert f"constexpr int kImgInts = {nj.IMG_INTS};" in src
     assert f"constexpr int kCompInts = {nj.COMP_INTS};" in src
+    # The plan's records, as native/jpeg_plan.cpp writes them and the kernel
+    # reads them, and the limits the plan keeps.
+    plan = nj._PLAN_SRC.read_text()
+    for name, value in (("kPlanHdr", jo.PLAN_HDR), ("kGeomInts", jo.GEOM_INTS),
+                        ("kTileInts", jo.TILE_INTS), ("kRunBlocks", jo.RUN_BLOCKS)):
+        assert f"constexpr int {name} = {value};" in text, name
+        assert f"constexpr int {name} = {value};" in plan, name
+    for name, value in (("kTileRows", jo.TILE_ROWS), ("kSmemBudget", jo.SMEM_BUDGET),
+                        ("kSmemMax", jo.SMEM_MAX), ("kMaxComps", nj.MAX_COMPS)):
+        assert f"constexpr int {name} = {value};" in plan, name
+    enums = [re.findall(r"enum (?:Geom|Tile) \{([^}]*)\}", src) for src in (text, plan)]
+    assert enums[0] == enums[1] and len(enums[0]) == 2
+    fields = {}
+    for enum in enums[0]:
+        fields.update((k.strip(), int(v)) for k, v in (f.split("=") for f in enum.split(",")))
+    assert fields == {
+        "kNTiles": jo.G_NTILES, "kTiles": jo.G_TILES, "kResize": jo.G_RESIZE, "kFY": jo.G_FY,
+        "kFX": jo.G_FX, "kCY": jo.G_CY, "kCX": jo.G_CX, "kS": jo.G_S, "kF": jo.G_F, "kH": jo.G_H,
+        "kQ": jo.G_Q, "kP": jo.G_P, "kT": jo.G_T, "kO": jo.G_O, "kSmem": jo.G_SMEM,
+        "kTwin": jo.G_TWIN, "kOut": jo.T_OUT, "kScaled": jo.T_SCALED, "kSrc": jo.T_SRC,
+        "kBox": jo.T_BOX}
     assert "jpeg_idct" in kernels.launch_counts()
     assert kernels.KERNELS["jpeg_idct"] is jo.jpeg_idct
 
@@ -465,3 +518,303 @@ def test_engine_device_decode_path_on_the_cpu(size, smooth_photos):
     np.testing.assert_array_equal(got.top1_index, want.top1_index)
     np.testing.assert_allclose(got.top1_prob, want.top1_prob, rtol=1e-5)
     assert len(got.top1_index) == 3
+
+
+# ---------------------------------------------------------------------------
+# the kernel's plan (ops/jpeg.py batch_plan, geometry_plan): what
+# csrc/jpeg_idct.cu reads, checked here where the kernel cannot run
+# ---------------------------------------------------------------------------
+
+#: name -> (height, width, save options, grayscale): the geometries the
+#: plan must cover beside the photos: upsampled, a wide strip (column
+#: tiles), odd-sized 4:2:0 and 4:2:2 (chroma resampled at M = 7), grey.
+EXTREMES = {
+    "tiny_40x30": (30, 40, dict(quality=90, subsampling=2), False),
+    "strip_4096x256": (256, 4096, dict(quality=85, subsampling=2), False),
+    "odd_301x257_s420": (257, 301, dict(quality=90, subsampling=2), False),
+    "odd_287x263_s422": (263, 287, dict(quality=90, subsampling=1), False),
+    "gray_291x259": (259, 291, dict(quality=90), True),
+}
+
+
+@pytest.fixture(scope="module")
+def extremes(tmp_path_factory):
+    root = tmp_path_factory.mktemp("jpeg_extremes")
+    rng = np.random.default_rng(35)
+    out = []
+    for name, (h, w, opts, gray) in EXTREMES.items():
+        p = root / f"{name}.jpg"
+        _smooth(rng, h, w, coarse=16, gray=gray).save(p, "JPEG", **opts)
+        out.append(p)
+    return out
+
+
+def _geometry(co, i: int) -> tuple:
+    """The arguments of ``geometry_plan`` for image ``i`` of the batch."""
+    ncomp, ws, hs, first = (int(co.images[i, k]) for k in (3, 5, 6, 7))
+    comps = tuple(tuple(int(co.comps[first + c, k]) for k in (12, 13, 8, 9))
+                  for c in range(ncomp))
+    return ncomp, ws, hs, comps, co.size
+
+
+def _plan_sets(extremes, smooth_photos):
+    return {"photos": PHOTOS, "smooth": smooth_photos, "extremes": extremes}
+
+
+def _fancy_grids(co, i: int) -> list[np.ndarray]:
+    """Each component of image ``i`` on its source grid, by the plain
+    stages (the IDCT, the level shift, fancy upsampling)."""
+    _, _, _, ncomp, _, _, _, first = (int(v) for v in co.images[i])
+    basis = co.region("basis", torch.float32, 512).view(8, 8, 8)
+    qt = co.region("qt", torch.int32, co.n * nj.MAX_COMPS * 64).view(-1, 64)
+    coef = co.region("coef", torch.int16, co.total_blocks * 64)
+    grids = []
+    for c in range(ncomp):
+        rec = co.comps[first + c]
+        block_off, bw, bh = (int(v) for v in rec[:3])
+        nx, ny, srcw, srch = (int(v) for v in rec[10:14])
+        o = jo.idct_blocks(coef[block_off * 64:(block_off + bw * bh) * 64].view(-1, 64),
+                           qt[first + c], nx, basis, ny)
+        pix = (o + 128.0).round().clamp(0, 255).to(torch.int32)
+        plane = pix.view(bh, bw, ny, nx).permute(0, 2, 1, 3).reshape(bh * ny, bw * nx)
+        grids.append(jo._fancy(plane, rec, srch, srcw).numpy())
+    return grids
+
+
+def _tap_pass(x: np.ndarray, taps, lo: int, hi: int, start: int, axis: int) -> np.ndarray:
+    """Outputs [lo, hi) of one resample pass along ``axis`` of float32
+    ``x``, whose ``axis`` holds source indices [start, start + len): the
+    trimmed taps in order, each product and sum rounded to float32 as the
+    kernel's __fmul_rn / __fadd_rn are. Every tap must lie in ``x``."""
+    first, count, w = taps
+    size = x.shape[axis]
+    shape = [1] * x.ndim
+    shape[axis] = hi - lo
+    acc = None
+    for k in range(w.shape[1]):
+        idx = first[lo:hi].astype(np.int64) + k - start
+        live = k < count[lo:hi]
+        assert ((idx >= 0) & (idx < size))[live].all(), "a tap outside the staged extent"
+        term = w[lo:hi, k].reshape(shape) * np.take(x, np.clip(idx, 0, size - 1), axis=axis)
+        acc = term if acc is None else acc + term
+    return acc
+
+
+def _tiled_decode(co, i: int) -> np.ndarray:
+    """Image ``i`` by the kernel's stages, tile by tile over its geometry
+    plan: each component on the tile's scaled extent (resampled from the
+    tile's source extent), the colour conversion, the resample to size x
+    size; assembled into uint8 [size, size, 3]."""
+    g = jo.geometry_plan(*_geometry(co, i))
+    grids = _fancy_grids(co, i)
+    ncomp, size = len(grids), co.size
+    out = np.zeros((size, size, 3), np.uint8)
+    for t in g.tiles:
+        oy0, oy1, ox0, ox1, y0, y1, x0, x1 = (int(v) for v in t[:8])
+        comps = []
+        for c, grid in enumerate(grids):
+            if f"cy{c}" not in g.tables:
+                comps.append(grid[y0:y1, x0:x1].astype(np.int32))
+                continue
+            sy0, sy1, sx0, sx1 = (int(v) for v in t[jo.T_SRC + 4 * c:jo.T_SRC + 4 * c + 4])
+            f = grid[sy0:sy1, sx0:sx1].astype(np.float32)
+            h = _tap_pass(f, g.tables[f"cx{c}"], x0, x1, sx0, axis=1)
+            s = _tap_pass(h, g.tables[f"cy{c}"], y0, y1, sy0, axis=0)
+            comps.append(np.clip(np.rint(s), 0, 255).astype(np.int32))
+        if ncomp == 1:
+            rgb = np.repeat(comps[0][..., None], 3, -1)
+        else:
+            rgb = jo.ycbcr_to_rgb(*(torch.from_numpy(a) for a in comps)).numpy()
+        if "fy" in g.tables:
+            h = _tap_pass(rgb.astype(np.float32), g.tables["fx"], ox0, ox1, x0, axis=1)
+            rgb = np.clip(np.rint(_tap_pass(h, g.tables["fy"], oy0, oy1, y0, axis=0)), 0, 255)
+        out[oy0:oy1, ox0:ox1] = rgb.astype(np.uint8)
+    return out
+
+
+@pytest.mark.parametrize("which", ["photos", "smooth", "extremes"])
+def test_the_tiled_stages_give_the_plain_versions_bytes(which, extremes, smooth_photos):
+    """The kernel's stage order (fancy samples over a tile's source
+    extent, chroma resampled, colour, the resample to size x size) run on
+    the plain stages tile by tile over the plan: every tap inside its
+    tile's staged extent, and the bytes of jpeg_idct_reference."""
+    paths = _plan_sets(extremes, smooth_photos)[which]
+    for size in (224, 96):
+        co = _decode(paths, size)
+        assert not co.status.any()
+        want = jo.jpeg_idct_reference(co).numpy()
+        for i in range(co.n):
+            np.testing.assert_array_equal(_tiled_decode(co, i), want[i],
+                                          err_msg=f"{paths[i].name} at {size}")
+
+
+def _live_ranges(g, tile) -> list[dict[str, tuple[int, int]]]:
+    """Byte ranges of shared memory the kernel touches for ``tile``, for
+    each of its stages: the plane boxes, the fancy samples, the horizontal
+    chroma pass, the vertical pass with the colour conversion, the
+    resample to size x size."""
+    oy0, oy1, ox0, ox1, y0, y1, x0, x1 = (int(v) for v in tile[:8])
+    head = g.record[:jo.GEOM_INTS]
+    scaled, out_px = (y1 - y0) * (x1 - x0), (oy1 - oy0) * (ox1 - ox0)
+    ncomp = sum(1 for c in range(3) if tile[jo.T_SRC + 4 * c + 1] > tile[jo.T_SRC + 4 * c])
+    s, f, h, q = {}, {}, {}, {}
+    for c in range(ncomp):
+        r0, r1, c0, c1 = (int(v) for v in tile[jo.T_BOX + 4 * c:jo.T_BOX + 4 * c + 4])
+        if head[jo.G_Q + c] >= 0:
+            q[f"Q{c}"] = (head[jo.G_Q + c], head[jo.G_Q + c] + (r1 - r0) * (c1 - c0))
+        if head[jo.G_CY + c] < 0:
+            s[f"S{c}"] = (head[jo.G_S + c], head[jo.G_S + c] + scaled)
+            continue
+        sy0, sy1, sx0, sx1 = (int(v) for v in tile[jo.T_SRC + 4 * c:jo.T_SRC + 4 * c + 4])
+        f[f"F{c}"] = (head[jo.G_F + c], head[jo.G_F + c] + (sy1 - sy0) * (sx1 - sx0))
+        h[f"H{c}"] = (head[jo.G_H + c], head[jo.G_H + c] + 4 * (sy1 - sy0) * (x1 - x0))
+    p = {"P": (head[jo.G_P], head[jo.G_P] + 3 * scaled + 16)}
+    stages = [{**s, **q}, {**s, **q, **f}, {**s, **f, **h}, {**s, **h, **p}]
+    if head[jo.G_RESIZE]:
+        stages.append({**p, "T": (head[jo.G_T], head[jo.G_T] + 12 * (y1 - y0) * (ox1 - ox0)),
+                       "O": (head[jo.G_O], head[jo.G_O] + 3 * out_px + 16)})
+    return stages
+
+
+def _fancy_reads(lo: int, hi: int, factor: int, src: int) -> np.ndarray:
+    """The plane samples libjpeg's fancy filter reads for source samples
+    [lo, hi) along an axis of ``factor`` (the plain ``_fancy``'s rule)."""
+    j = np.arange(lo, hi)
+    if factor == 1:
+        return j
+    near = j >> 1
+    other = np.clip(np.where(j & 1, near + 1, near - 1), 0, (src + 1) // 2 - 1)
+    return np.concatenate([near, other])
+
+
+def _check_geometry_plan(g, size: int, comps: tuple) -> None:
+    """Tiles cover the output once; every tap of every output pixel and of
+    every resampled component sample falls inside its tile's staged
+    extent, and every plane sample a fancy sample reads inside its box;
+    what a stage touches does not overlap, and all fits."""
+    assert g.smem <= jo.SMEM_BUDGET <= jo.SMEM_MAX
+    cover = np.zeros((size, size), np.int32)
+    for t in g.tiles:
+        oy0, oy1, ox0, ox1, y0, y1, x0, x1 = (int(v) for v in t[:8])
+        cover[oy0:oy1, ox0:ox1] += 1
+        for c, (srcw, srch, fx, fy) in enumerate(comps):
+            sy0, sy1, sx0, sx1 = (int(v) for v in t[jo.T_SRC + 4 * c:jo.T_SRC + 4 * c + 4])
+            r0, r1, c0, c1 = (int(v) for v in t[jo.T_BOX + 4 * c:jo.T_BOX + 4 * c + 4])
+            rows, cols = _fancy_reads(sy0, sy1, fy, srch), _fancy_reads(sx0, sx1, fx, srcw)
+            assert rows.min() >= r0 and rows.max() < r1 and cols.min() >= c0 and cols.max() < c1
+        checks = [("fy", oy0, oy1, y0, y1), ("fx", ox0, ox1, x0, x1)]
+        for c in range(3):
+            sy0, sy1, sx0, sx1 = (int(v) for v in t[jo.T_SRC + 4 * c:jo.T_SRC + 4 * c + 4])
+            checks += [(f"cy{c}", y0, y1, sy0, sy1), (f"cx{c}", x0, x1, sx0, sx1)]
+        for name, lo, hi, s0, s1 in checks:
+            if name not in g.tables:
+                continue
+            first, count, w = g.tables[name]
+            assert (first[lo:hi] >= s0).all() and (first[lo:hi] + count[lo:hi] <= s1).all(), name
+            assert (w[lo:hi, 0] != 0).all() and (w[lo:hi][np.arange(hi - lo), count[lo:hi] - 1]
+                                                  != 0).all()
+        for live in _live_ranges(g, t):
+            spans = sorted(live.values())
+            assert all(0 <= a <= b <= g.smem for a, b in spans), live
+            assert all(a[1] <= b[0] for a, b in zip(spans, spans[1:])), live
+    np.testing.assert_array_equal(cover, 1)
+
+
+def test_the_tile_plan_covers_every_tap(extremes, smooth_photos, made):
+    co = _decode(PHOTOS + smooth_photos + extremes + [made["gray"], made["odd_131x97_s420"]], 224)
+    assert not co.status.any()
+    seen = {_geometry(co, i) for i in range(co.n)}
+    # made-up geometries at the host decoder's limits (2^26 pixels, 16-bit
+    # sides): a 65535x1024 4:2:0 at M = 2, a 65535x447 one at M = 4 whose
+    # chroma is resampled, and a 1x65535 grey column at M = 8.
+    seen |= {(3, 16384, 256, ((16384, 256, 1, 1),) * 3, 224),
+             (3, 32768, 224, ((32768, 224, 1, 1), (65535, 447, 2, 2), (65535, 447, 2, 2)), 224),
+             (1, 1, 65535, ((1, 65535, 1, 1),), 224)}
+    for geometry in seen:
+        _check_geometry_plan(jo.geometry_plan(*geometry), geometry[-1], geometry[3])
+    serve = jo.geometry_plan(3, 224, 224, ((224, 224, 1, 1), (256, 256, 2, 2), (256, 256, 2, 2)),
+                             224)
+    assert (serve.rows, serve.cols) == (jo.TILE_ROWS, 224)  # full-width rows: 16-byte stores
+
+
+#: (in, out) resamples: up, down, by up to 300x, and sizes from a seed.
+TAP_PAIRS = [(256, 224), (224, 224), (40, 224), (3584, 224), (1000, 37), (1, 224), (2, 3),
+             (7, 1), (65535, 224), (224, 1000), (447, 224), (129, 112)] + [
+    (int(a), int(b)) for a, b in np.random.default_rng(36).integers(1, 2500, (24, 2))]
+
+
+def test_trimmed_taps_drop_only_zero_weights():
+    """native/jpeg_plan.cpp's tables carry resample_taps' float32 weights
+    exactly (the same double operations), in order, without zero taps."""
+    for src, dst in TAP_PAIRS:
+        idx, w = jo.resample_taps(src, dst)
+        first, count, tw = jo.trimmed_taps(src, dst)
+        dense = np.zeros((dst, src), np.float32)
+        trimmed = np.zeros((dst, src), np.float32)
+        for o in range(dst):
+            np.add.at(dense[o], idx[o], w[o])
+            trimmed[o, first[o]:first[o] + count[o]] = tw[o, :count[o]]
+        np.testing.assert_array_equal(trimmed, dense)
+        assert (tw[np.arange(dst), count - 1] != 0).all() and (tw[:, 0] != 0).all()
+
+
+def test_a_geometry_past_the_shared_memory_limit_is_refused():
+    # a 292x downscale: a 1x1 tile's extent is 586 x 586 scaled samples
+    with pytest.raises(ValueError, match=f"past {jo.SMEM_MAX}"):
+        jo.geometry_plan(1, 65535, 65535, ((65535, 65535, 1, 1),), 224)
+
+
+def test_a_batch_like_a_recent_one_reuses_its_plan_and_copy(made):
+    co = _decode([made["s420_q95"], made["gray"]], 224)
+    plan = jo.batch_plan(co)
+    again = _decode([made["s420_q95"], made["gray"]], 224)
+    assert jo.batch_plan(again) is plan
+    on = plan.to(torch.device("cpu"))
+    assert plan.to(torch.device("cpu")) is on
+    np.testing.assert_array_equal(on.numpy(), plan.data)
+
+
+def test_kept_geometries_give_the_plan_a_fresh_batch_would(made):
+    """A batch whose geometries were made for an earlier batch copies their
+    kept records; its plan equals the one made with nothing kept."""
+    first = _decode([made["s420_q95"], made["gray"]], 224)
+    mixed = _decode([made["gray"], made["s422_q50"], made["s420_q95"]], 224)
+    jo.forget_plans()
+    fresh = jo.batch_plan(mixed).data
+    jo.forget_plans()
+    jo.batch_plan(first)
+    np.testing.assert_array_equal(jo.batch_plan(mixed).data, fresh)
+
+
+def test_batch_plan_runs_every_block_once_and_skips_refused_images(tmp_path, made):
+    odd = _refusals(tmp_path)
+    paths = [made["s420_q95"], odd["progressive"], made["gray"], made["s422_q50"], odd["png"]]
+    co = _decode(paths, 64)
+    plan = jo.batch_plan(co)
+    n = co.n
+    data = plan.data
+    assert tuple(data[:jo.PLAN_HDR]) == (n, plan.runs, plan.tiles, plan.smem)
+    tile_start = data[jo.PLAN_HDR:jo.PLAN_HDR + n + 1]
+    geom_at = data[jo.PLAN_HDR + n + 1:jo.PLAN_HDR + 2 * n + 1]
+    run_start = data[jo.PLAN_HDR + 2 * n + 1:jo.PLAN_HDR + 5 * n + 2]
+    assert tile_start[-1] == plan.tiles and run_start[-1] == plan.runs
+    covered = np.zeros(co.total_blocks, np.int32)
+    for r in range(plan.runs):  # the kernel's lookup: the last record starting at or before r
+        ci = int(np.searchsorted(run_start[:-1], r, side="right") - 1)
+        rec = co.comps[ci]
+        block_off, bw = int(rec[0]), int(rec[1])
+        per_row = -(-bw // jo.RUN_BLOCKS)
+        by, bx0 = divmod(r - int(run_start[ci]), per_row)
+        bx0 *= jo.RUN_BLOCKS
+        nb = min(jo.RUN_BLOCKS, bw - bx0)
+        assert nb >= 1  # no CTA launches idle
+        covered[block_off + by * bw + bx0:block_off + by * bw + bx0 + nb] += 1
+    np.testing.assert_array_equal(covered, 1)
+    for i in range(n):
+        ntiles = tile_start[i + 1] - tile_start[i]
+        if co.status[i]:
+            assert ntiles == 0 and geom_at[i] == -1
+            continue
+        g = jo.geometry_plan(*_geometry(co, i))
+        assert ntiles == len(g.tiles) and plan.smem >= g.smem
+        np.testing.assert_array_equal(data[geom_at[i]:geom_at[i] + g.record.size], g.record)
